@@ -14,12 +14,21 @@ Phases (any failure raises and the script exits non-zero):
      case), with inputs built to land on LSQ and StatsQ rounding ties;
   4. K2, the fused QKR attention core, against its plain version at
      B=64, N=198, H=6, C=384, d=64 (shared and per-head lhs, LSQ on/off);
-  5. the slice: DeiT-S distilled W2A2 QKR at full width (random weights from
+     K3, its backward, the same way;
+  5. serving: DeiT-S distilled W2A2 QKR at full width (random weights from
      a seeded torch.Generator), calibrated on a seeded batch of 64 and served
      through `Predictor` with both kernels, launch counts read around one
      predict call; the same model through the plain versions on the card
      must agree block by block and on top-1 for at least 95 % of 4 seeded
-     batches; img/s over 10 calls after 3 warm-ups.
+     batches; img/s over 10 calls after 3 warm-ups;
+  6. training: one `make_train_step` QAT step of the same student with a
+     float DeiT-S teacher, KD soft+hard and AdamW (bench.py's schedule) on
+     bench.py's seeded batch of 64, kept on the device: exactly 36 K1,
+     12 K2 and 12 K3 launches per step, finite loss and gradient norm;
+     each block's backward through the kernels against the plain versions;
+     every parameter gradient of the step against the composed model in
+     fp64; train-step img/s over 5 steps after 2 warm-ups, kernels and
+     plain; peak device memory.
 The line before the last is a JSON object with every kernel's numbers
 (times in ms, CUDA events; bounds from the H100 SXM data sheet); the last
 line is {"ok": true, "device": {...}}.  Full results also go to
@@ -262,6 +271,92 @@ def phase_k2(dev, N, B=BATCH):
     return results
 
 
+# ------------------------------------------------------------- phase 4b
+def phase_k3(dev, N, B=BATCH):
+    """K3, the attention backward, against its plain version, with the
+    backward of F.scaled_dot_product_attention (LSQ off, lhs expanded per
+    head, only the autograd.grad call timed) as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from ofq_tpu_torch.ops import fused_attention as fa
+    g = torch.Generator().manual_seed(3)
+    H, C, d, bits = 6, 384, 64, 2
+    sm_scale = d ** -0.5
+    results = []
+    for shared in (True, False):
+        K = C if shared else d
+        lhs = torch.randn(*((B, N, K) if shared else (B, N, H, K)),
+                          generator=g) * 0.5
+        rhs = torch.randn(B, N, H, K, generator=g) * 0.5
+        v = torch.randn(B, N, H, d, generator=g)
+        s = torch.rand(N, generator=g) * 0.01 + 0.005
+        go = torch.randn(B, N, H, d, generator=g)
+        lhs, rhs, v, s, go = [t.to(dev).contiguous()
+                              for t in (lhs, rhs, v, s, go)]
+        for quantize in (True, False):
+            args = (lhs, rhs, v, s, go, bits, sm_scale, quantize)
+            got = fa.qkr_attention_bwd(*args)
+            ref = fa.qkr_attention_bwd_reference(*args)
+            torch.cuda.synchronize()
+            name = (f"{'shared' if shared else 'per-head'} lhs, "
+                    f"LSQ {'on' if quantize else 'off'}")
+            shares, err = {}, 0.0
+            for nm, a, b in zip(("dlhs", "drhs", "dv"), got, ref):
+                diff = (a - b).abs()
+                shares[nm] = float((diff > 1e-4 * (1 + b.abs())).float()
+                                   .mean())
+                err = max(err, float(diff.max()))
+            # ds[n] sums 64 * 6 * 198 terms; one probability that lands on
+            # the other side of an LSQ boundary (the K2 precedent) moves
+            # one entry by about |dpq|, so ds is held by the share of its
+            # N entries outside 1e-4 * (1 + |ref|): at most 2 %
+            ds_diff = (got[3] - ref[3]).abs()
+            ds_share = float((ds_diff > 1e-4 * (1 + ref[3].abs())).float()
+                             .mean())
+            ds_err = (float((got[3] - ref[3]).norm() / ref[3].norm())
+                      if quantize else float(got[3].abs().max()))
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            if not (finite and max(shares.values()) <= 1e-3
+                    and ds_share <= 2e-2 and (quantize or ds_err == 0)):
+                raise AssertionError(
+                    f"K3 {name}: shares outside 1e-4*(1+|ref|) {shares}, "
+                    f"ds {ds_share} of entries outside, error {ds_err}, "
+                    f"finite {finite}")
+            ms = median_ms(lambda: fa.qkr_attention_bwd(*args))
+            plain_ms = median_ms(
+                lambda: fa.qkr_attention_bwd_reference(*args), reps=10)
+            q = (lhs[:, None].expand(B, H, N, K) if shared
+                 else lhs.permute(0, 2, 1, 3)).contiguous().requires_grad_()
+            kk = rhs.permute(0, 2, 1, 3).contiguous().requires_grad_()
+            vv = v.permute(0, 2, 1, 3).contiguous().requires_grad_()
+            out = F.scaled_dot_product_attention(q, kk, vv, scale=sm_scale)
+            gg = go.permute(0, 2, 1, 3).contiguous()
+            sdpa_ms = median_ms(lambda: torch.autograd.grad(
+                out, (q, kk, vv), gg, retain_graph=True))
+            del out, q, kk, vv
+            nbytes = 4 * (2 * lhs.numel() + 2 * rhs.numel()
+                          + 3 * v.numel() + 2 * N)
+            flops = 2 * B * H * N * N * (3 * K + 2 * d)
+            b_ms, b_by = bound(nbytes, flops, PEAK_FP32_FLOPS)
+            log(f"[K3] {name:24s} B={B} N={N} H={H} K={K} d={d}: share "
+                f"outside 1e-4*(1+|ref|) "
+                f"{ {k: f'{v:.2e}' for k, v in shares.items()} }, ds "
+                f"{ds_share:.2e} of entries, "
+                f"{'rel L2 ' if quantize else 'max '}{ds_err:.2e}, max|diff| "
+                f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"SDPA backward (unquantized) {sdpa_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB)")
+            results.append(dict(name=name, shared=shared, quantize=quantize,
+                                B=B, N=N, H=H, K=K, d=d, max_abs_err=err,
+                                outside_share=shares, ds_share=ds_share,
+                                ds_err=ds_err, ms=ms,
+                                plain_ms=plain_ms, sdpa_bwd_ms=sdpa_ms,
+                                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                                flops=flops, main_path=shared and quantize))
+    return results
+
+
 # ---------------------------------------------------------------- phase 5
 def phase_slice(dev, name="deit_small_distilled_patch16_224", batch=BATCH):
     import numpy as np
@@ -360,7 +455,8 @@ def phase_slice(dev, name="deit_small_distilled_patch16_224", batch=BATCH):
     log(f"[slice] Predictor.predict, B={batch}: {img_s:.1f} img/s with the "
         f"kernels, {img_s_plain:.1f} img/s through the plain versions; "
         f"peak device memory {peak_gb:.2f} GB")
-    prof = phase_profile(pred, images) if "--profile" in sys.argv else None
+    prof = (phase_profile(lambda: pred.predict(images), "predict call")
+            if "--profile" in sys.argv else None)
     return dict(profile=prof, launches=launches,
                 launch_shapes={str(k): v for k, v in shapes.items()},
                 compared_images=len(p_k), images_differing=touched,
@@ -423,20 +519,233 @@ def composed_fp64_probs(model, batches, dev):
     return np.concatenate(out)
 
 
+# ---------------------------------------------------------------- phase 6
+TRAIN_STEPS_TIMED, TRAIN_STEPS_WARM = 5, 2
+# whole-step gradient gate: for every parameter, the kernel path's
+# relative L2 distance from the composed fp64 gradient may be at most
+# twice the plain path's plus a floor; the floor is the median over
+# parameters of the plain path's distance (how far fp32 rounding alone
+# moves a gradient of this chaotic random-weight W2A2 model in this run),
+# and never below GRAD_GATE_MIN_FLOOR
+GRAD_GATE_MIN_FLOOR = 1e-3
+
+
+def phase_train(dev, name="deit_small_distilled_patch16_224", batch=BATCH):
+    """One QAT train step of DeiT-S W2A2 QKR with the float teacher, KD
+    soft+hard and AdamW, through K1 and K2 (forward) and K3 (backward)."""
+    import numpy as np
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.calibrate import calibrate
+    from ofq_tpu_torch.models import create_model
+    from ofq_tpu_torch.models.deit import VARIANTS
+    from ofq_tpu_torch.ops import fused_qlinear as fq
+    from ofq_tpu_torch.quant import QuantPolicy, w2a2_qkr_policy
+    from ofq_tpu_torch.train import (TrainState, cosine_with_warmup_cooldown,
+                                     make_optimizer, make_train_step)
+
+    t0 = time.perf_counter()
+    cfg = VARIANTS[name]
+    student = create_model(
+        name, policy=w2a2_qkr_policy(cfg.depth), device=dev,
+        generator=torch.Generator().manual_seed(0), head_std=0.02,
+        matmul_impl="fused", attn_impl="fused")
+    teacher = create_model(name, policy=QuantPolicy(), device=dev,
+                           generator=torch.Generator().manual_seed(1))
+    # the batch of bench.py, kept on the device
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(batch, cfg.img_size, cfg.img_size,
+                                          3)).astype(np.float32)).to(dev)
+    label = torch.from_numpy(rng.integers(0, cfg.num_classes,
+                                          size=(batch,))).to(dev)
+    data = {"image": x, "label": label}
+    calibrate(student, x[:8])
+    opt = make_optimizer(cosine_with_warmup_cooldown(
+        5.47e-4, epochs=300, warmup_epochs=5, warmup_lr=1e-6, min_lr=1e-5),
+        weight_decay=0.05)
+    state = TrainState.create(student, opt)
+    step = make_train_step(student, opt, teacher=teacher,
+                           loss_kind="kd_soft_hard", device=dev)
+    torch.cuda.synchronize()
+    log(f"[train] {name} W2A2 QKR student (fused QLinear + fused attention) "
+        f"and float teacher built, calibrated in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    ops.reset_launch_counts()
+    state, metrics = step(state, data)
+    torch.cuda.synchronize()
+    launches = {"fused_qlinear_fwd": fq.fused_qlinear_fwd.launches,
+                "qkr_attention_fwd": ops.qkr_attention_fwd.launches,
+                "qkr_attention_bwd": ops.qkr_attention_bwd.launches}
+    shapes = {str(k): v for k, v in fq.fused_qlinear_fwd.launch_shapes.items()}
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    log(f"[train] launches in one step: {launches}; K1 by (M,K,N): {shapes}; "
+        f"loss {loss:.6f}, grad_norm {gnorm:.6f}")
+    d = cfg.depth
+    if launches != {"fused_qlinear_fwd": 3 * d, "qkr_attention_fwd": d,
+                    "qkr_attention_bwd": d}:
+        raise AssertionError(f"expected {3 * d} K1, {d} K2 and {d} K3 "
+                             f"launches per step: {launches}")
+    if not (np.isfinite(loss) and np.isfinite(gnorm)):
+        raise AssertionError(f"loss {loss}, grad_norm {gnorm}")
+
+    blocks = check_blocks_backward(student, teacher, data)
+    grads = check_step_grads(student, teacher, data)
+
+    def rate():
+        nonlocal state
+        for _ in range(TRAIN_STEPS_WARM):
+            state, m = step(state, data)
+        float(m["loss"])
+        t = time.perf_counter()
+        for _ in range(TRAIN_STEPS_TIMED):
+            state, m = step(state, data)
+        if not np.isfinite(float(m["loss"])):  # host fetch: the barrier
+            raise AssertionError("non-finite loss")
+        return batch * TRAIN_STEPS_TIMED / (time.perf_counter() - t)
+
+    torch.cuda.reset_peak_memory_stats()
+    img_s = rate()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    student.use_kernels = False
+    img_s_plain = rate()
+    student.use_kernels = True
+    log(f"[train] train step, B={batch}: {img_s:.1f} img/s with the kernels, "
+        f"{img_s_plain:.1f} img/s through the plain versions "
+        f"({TRAIN_STEPS_TIMED} steps after {TRAIN_STEPS_WARM} warm-ups); "
+        f"peak device memory {peak_gb:.2f} GB with the kernels")
+    prof = (phase_profile(lambda: float(step(state, data)[1]["loss"]),
+                          "train step")
+            if "--profile" in sys.argv else None)
+    return dict(profile=prof, launches=launches, launch_shapes=shapes,
+                loss=loss, grad_norm=gnorm, blocks=blocks, grads=grads,
+                img_per_s=img_s, img_per_s_plain=img_s_plain,
+                peak_mem_gb=peak_gb)
+
+
+def _kd_loss(model, teacher, x, label):
+    import torch
+    from ofq_tpu_torch.train import kd_soft_and_hard
+    with torch.no_grad():
+        t_logits = teacher(x)
+    return kd_soft_and_hard(model(x), label, t_logits)
+
+
+def check_blocks_backward(model, teacher, data, limit=1e-3):
+    """Each block's VJP through the kernels against the same block through
+    the plain versions, on the plain path's input to that block and its
+    upstream gradient (captured with hooks on one plain backward)."""
+    import torch
+    seen = {}
+
+    def fwd_hook(name):
+        def hook(mod, args, out):
+            seen[name] = [args[0].detach()]
+            out.register_hook(lambda g: seen[name].append(g.detach()))
+        return hook
+
+    hooks = [getattr(model, n).register_forward_hook(fwd_hook(n))
+             for n in model.block_names]
+    model.train()
+    model.use_kernels = False
+    try:
+        _kd_loss(model, teacher, data["image"], data["label"]).backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    model.zero_grad(set_to_none=True)
+    fracs = []
+    for name in model.block_names:
+        x_in, g_out = seen.pop(name)
+        dx = []
+        for use in (True, False):
+            model.use_kernels = use
+            xi = x_in.clone().requires_grad_()
+            y = getattr(model, name)(xi)
+            dx.append(torch.autograd.grad(y, xi, g_out)[0])
+            del y, xi
+        model.use_kernels = True
+        if not torch.isfinite(dx[0]).all():
+            raise AssertionError(f"{name}: non-finite dx")
+        rows = ((dx[0] - dx[1]).abs() > 1e-4 * (1 + dx[1].abs())).any(-1)
+        fracs.append(float(rows.float().mean()))
+    log(f"[train] each block's backward alone, kernels vs plain on the same "
+        f"input and upstream gradient: share of (image, token) rows of dx "
+        f"outside 1e-4*(1+|ref|) {[f'{f:.2e}' for f in fracs]}")
+    if max(fracs) > limit:
+        raise AssertionError(f"a block's dx differs in more than {limit} of "
+                             f"its rows: {fracs}")
+    return fracs
+
+
+def check_step_grads(model, teacher, data):
+    """The whole step's parameter gradients through the kernels and through
+    the plain versions, each against the composed model in fp64 on the
+    card (the same weights, scales and batch)."""
+    import copy
+    import torch
+
+    def grads(m, t, x):
+        params = dict(m.named_parameters())
+        g = torch.autograd.grad(_kd_loss(m, t, x, data["label"]),
+                                list(params.values()), allow_unused=True)
+        return {n: (torch.zeros_like(p) if gi is None else gi).double()
+                for (n, p), gi in zip(params.items(), g)}
+
+    model.train()
+    g_k = grads(model, teacher, data["image"])
+    model.use_kernels = False
+    g_p = grads(model, teacher, data["image"])
+    model.use_kernels = True
+    ref = copy.deepcopy(model).double()
+    for m in ref.modules():
+        for attr in ("matmul_impl", "attn_impl"):
+            if hasattr(m, attr):
+                setattr(m, attr, None)
+    t64 = copy.deepcopy(teacher).double()
+    g_64 = grads(ref, t64, data["image"].double())
+    del ref, t64
+    rows = []
+    for n, g in g_64.items():
+        norm = max(float(g.norm()), 1e-30)
+        rows.append(dict(name=n, rel_kernels=float((g_k[n] - g).norm()) / norm,
+                         rel_plain=float((g_p[n] - g).norm()) / norm))
+    rk_all = sorted(r["rel_kernels"] for r in rows)
+    rp_all = sorted(r["rel_plain"] for r in rows)
+    floor = max(GRAD_GATE_MIN_FLOOR, rp_all[len(rp_all) // 2])
+
+    def total(g):
+        return float(sum(float((g[n] - g_64[n]).square().sum())
+                         for n in g_64)) ** 0.5
+    ref_norm = float(sum(float(g.square().sum()) for g in g_64.values())
+                     ) ** 0.5
+    glob = {"kernels": total(g_k) / ref_norm, "plain": total(g_p) / ref_norm}
+    log(f"[train] whole-step gradients vs the composed fp64 model, relative "
+        f"L2 per parameter ({len(rows)}): kernels median "
+        f"{rk_all[len(rk_all) // 2]:.3e} max {rk_all[-1]:.3e}; plain median "
+        f"{rp_all[len(rp_all) // 2]:.3e} max {rp_all[-1]:.3e}; all "
+        f"parameters together: kernels {glob['kernels']:.3e}, plain "
+        f"{glob['plain']:.3e}; gate kernels <= 2 x plain + {floor:.3e}")
+    bad = [r for r in rows if r["rel_kernels"] > 2 * r["rel_plain"] + floor]
+    if bad or glob["kernels"] > 2 * glob["plain"] + floor:
+        raise AssertionError(f"gradient gate failed: {bad[:5]}, {glob}")
+    return dict(floor=floor, all_params=glob, per_param=rows)
+
+
 # ------------------------------------------------- optional: --profile
-def phase_profile(pred, images, n_calls=3):
-    """Device time by kernel over `n_calls` predict calls (torch.profiler)
+def phase_profile(fn, what, n_calls=3):
+    """Device time by kernel over `n_calls` calls of `fn` (torch.profiler)
     and the device's idle share of the window's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    pred.predict(images)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_calls):
-            pred.predict(images)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -452,7 +761,7 @@ def phase_profile(pred, images, n_calls=3):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     per_call = wall_ms / n_calls
-    log(f"[profile] per predict call: wall {per_call:.2f} ms, device busy "
+    log(f"[profile] per {what}: wall {per_call:.2f} ms, device busy "
         f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / per_call):.3f}")
     for ms, calls, key in rows[:15]:
         log(f"[profile] {ms:8.3f} ms {100 * ms / busy:5.1f} %  x{calls:<4d} "
@@ -474,12 +783,17 @@ def main() -> int:
     n_tok = DEIT_SMALL.n_tokens  # 14 * 14 patches + cls + dist = 198
     k1 = phase_k1(dev, n_tok)
     k2 = phase_k2(dev, n_tok)
+    k3 = phase_k3(dev, n_tok)
     sl = phase_slice(dev)
+    torch.cuda.empty_cache()
+    tr = phase_train(dev)
 
     k1_src = ("ofq_tpu_torch/csrc/fused_qlinear.cu",
               "ofq_tpu/ops/fused_qlinear.py:71")
     k2_src = ("ofq_tpu_torch/csrc/fused_attention.cu",
               "ofq_tpu/ops/fused_attention.py:81")
+    k3_src = ("ofq_tpu_torch/csrc/fused_attention_bwd.cu",
+              "ofq_tpu/ops/fused_attention.py:102")
     kernels = []
     for r in k1:
         if r["main_path"]:
@@ -487,7 +801,7 @@ def main() -> int:
                 name=f"fused_qlinear_fwd {r['name']} "
                      f"({r['M']}x{r['K']}x{r['N']})",
                 route="cuda", source=k1_src[0], replaces=k1_src[1],
-                launches=sl["launch_shapes"].get(
+                launches=tr["launch_shapes"].get(
                     str((r["M"], r["K"], r["N"])), 0),
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -498,15 +812,25 @@ def main() -> int:
                 name="qkr_attention_fwd (shared lhs, LSQ on, "
                      f"{r['B']}x{r['N']}x{r['H']}x{r['K']}, d={r['d']})",
                 route="cuda", source=k2_src[0], replaces=k2_src[1],
-                launches=sl["launches"]["qkr_attention_fwd"],
+                launches=tr["launches"]["qkr_attention_fwd"],
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=None))
+    for r in k3:
+        if r["main_path"]:
+            kernels.append(dict(
+                name="qkr_attention_bwd (shared lhs, LSQ on, "
+                     f"{r['B']}x{r['N']}x{r['H']}x{r['K']}, d={r['d']})",
+                route="cuda", source=k3_src[0], replaces=k3_src[1],
+                launches=tr["launches"]["qkr_attention_bwd"],
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=None))
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{kernels}")
-    full = dict(card=card, build_s=build_s, k1=k1, k2=k2, slice=sl,
-                seconds=time.perf_counter() - t_start)
+    full = dict(card=card, build_s=build_s, k1=k1, k2=k2, k3=k3, slice=sl,
+                train=tr, seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

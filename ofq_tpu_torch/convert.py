@@ -53,15 +53,26 @@ def load_flax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
     ({'params': ..., 'quant_stats': ...}) or the params tree alone -- or a
     flat mapping such as a loaded `.npz`, keyed by '/'-joined Flax paths
     (with or without the collection name).  Values are copied into the
-    model's own dtype and device.
+    model's own dtype and device.  A float model (the teacher) loads its
+    params tree the same way.
     """
     if isinstance(tree, (str, bytes)) or hasattr(tree, "__fspath__"):
         with np.load(tree) as npz:
             tree = dict(npz)
-    flat = flatten_flax_tree(tree)
-    given = _port_entries(flat)
+    given = _port_entries(flatten_flax_tree(tree))
     targets = dict(model.named_parameters())
     targets.update(dict(model.named_buffers()))
+    _check_match("load_flax_params", given, targets)
+    with torch.no_grad():
+        for k, t in targets.items():
+            t.copy_(torch.from_numpy(np.array(given[k])).to(t.dtype))
+    return model
+
+
+def _check_match(what: str, given: Mapping[str, np.ndarray],
+                 targets: Mapping[str, torch.Tensor]) -> None:
+    """Raise unless `given` has exactly the names of `targets`, in their
+    shapes."""
     missing = sorted(set(targets) - set(given))
     unused = sorted(set(given) - set(targets))
     bad_shape = sorted(
@@ -71,11 +82,32 @@ def load_flax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
         if tuple(given[k].shape) != tuple(targets[k].shape))
     if missing or unused or bad_shape:
         raise ValueError(
-            "load_flax_params: checkpoint does not match the model:\n"
+            f"{what}: checkpoint does not match the model:\n"
             f"  missing ({len(missing)}): {missing[:10]}\n"
             f"  unused ({len(unused)}): {unused[:10]}\n"
             f"  shape mismatches ({len(bad_shape)}): {bad_shape[:10]}")
-    with torch.no_grad():
-        for k, t in targets.items():
-            t.copy_(torch.from_numpy(np.array(given[k])).to(t.dtype))
-    return model
+
+
+def load_optax_adamw_state(state, adam_state, *, step=None):
+    """Carry optax's `ScaleByAdamState` (`count`, `mu`, `nu`; the moments
+    are Flax param trees) into a `train.TrainState`, in place, so both
+    frameworks can start from the same mid-run state.  `adam_state` is
+    the optax state or a mapping with those keys; `step` sets
+    `state.step` (the JAX TrainState's own counter).  Strict both ways,
+    like `load_flax_params`."""
+    def get(key):
+        return (adam_state[key] if isinstance(adam_state, Mapping)
+                else getattr(adam_state, key))
+
+    opt = state.opt_state
+    for key in ("mu", "nu"):
+        given = _port_entries(flatten_flax_tree(get(key)))
+        targets = getattr(opt, key)
+        _check_match(f"load_optax_adamw_state ({key})", given, targets)
+        setattr(opt, key, {
+            k: torch.from_numpy(np.array(given[k])).to(t.dtype).to(t.device)
+            for k, t in targets.items()})
+    opt.count = int(np.asarray(get("count")))
+    if step is not None:
+        state.step = int(np.asarray(step))
+    return state

@@ -1,0 +1,452 @@
+// Fused quantized attention core, backward (K3): the cotangents of
+// scores -> softmax -> LSQ -> @ v with respect to lhs, rhs, v and the
+// per-query-row LSQ scale s.
+//
+// Replaces the Pallas kernel ofq_tpu/ops/fused_attention.py:_bwd_kernel
+// (called by _attn_core_bwd, the custom VJP of quantized_attention_core).
+// For every (b, h), with u = p / s_n and s_n = max(s[n], 1e-5):
+//
+//   scores  = fp32(lhs . rhs^T) * sm_scale,  p = softmax(scores)   (recomputed)
+//   in      = u <= thd_pos,  uq = rint(clip(u, 0, thd_pos)),  pq = uq * s_n
+//   dv      = pq^T . g,      dpq = g . v^T
+//   dp      = in ? dpq : 0
+//   ds[n]  += sum_m (in ? uq - u : thd_pos) * dpq       (over b, h and m)
+//   dscores = p * (dp - sum_m dp * p) * sm_scale
+//   drhs    = dscores^T . lhs,   dlhs = dscores . rhs    (summed over heads
+//                                                        for a shared lhs)
+//
+// With quantize == 0, pq = p, dp = dpq and ds = 0.  Every sum is in fp32, as
+// in the TPU kernel.  lhs is shared across heads ((B, N, K), QKR's quantized
+// input) or per head ((B, N, H, K)); rhs (B, N, H, K); v and g (B, N, H, D);
+// all fp32, contiguous, in the JAX package's natural layout.
+//
+// Design.  The TPU kernel keeps a whole batch row's (U, N, N) tiles in VMEM
+// and carries ds across its sequential grid in one VMEM ref.  Hopper blocks
+// run in no order and a block owns far less fast memory, and three of the
+// outputs are sums over an axis a query tile cannot own (drhs and dv over
+// query rows, a shared dlhs over heads).  So four launches:
+//   A  one 256-thread block per (64 query rows, head, batch row), the grid of
+//      K2: the score tile and the dpq tile (64 x N each, ~66 KB of shared
+//      memory apiece at N = 198) are formed with K2's loop, so p is the
+//      forward's p bit for bit; one warp per row then forms p, pq, dp, the
+//      row's ds partial (written per (b, h, n), no atomics) and dscores, and
+//      writes pq and dscores to scratch, (B, H, N, N) fp32 each;
+//   B  one block per (64 keys, 64 output columns, (b, h)): dv = pq^T . g and
+//      drhs = dscores^T . lhs;
+//   C  one block per (64 query rows, 64 columns, b or (b, h)): dlhs =
+//      dscores . rhs, the heads of a shared lhs summed in the block in
+//      order h = 0..H-1;
+//   D  ds[n] = sum over (b, h) of the partials, in a fixed order.
+// Every product is a shared-memory tiled loop on the CUDA cores, 4 x 4
+// outputs per thread; runs are repeatable (no float atomics).
+//
+// What bounds it on an H100: at DeiT-S QKR (N = 198, H = 6, K = 384, D = 64)
+// the work is 2*B*H*N^2*(3K + 2D) operations against 4*B*N*(2K + 2*H*K +
+// 3*H*D) bytes of inputs and outputs, ~116 operations per byte: bounded by
+// the fp32 rate (67 TFLOP/s).  The two scratch tensors add ~240 MB of
+// traffic at B = 64 (~0.07 ms at 3.35 TB/s).
+//
+// Rounding: rintf (half to even, as torch.round / jnp.round); expf, not
+// __expf; every multiply, divide and subtract that feeds a rounding or the
+// in-range test spelled with the __f*_rn intrinsics; no --use_fast_math.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int TQ = 64;       // query rows per block (passes A and C)
+constexpr int TK = 64;       // keys per tile
+constexpr int KC = 32;       // contraction chunk
+constexpr int TD = 64;       // output columns per block (passes B and C)
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// out[r * ld_o + m] = fp32(sum_k a[n, k] * b[m, k]) * scale for the TQ rows
+// n = q0 + r of this block and every m < N; a's rows are a_ld apart, b's
+// b_ld.  The loop order is K2's phase 1, so the score tile equals the
+// forward kernel's bit for bit.
+__device__ __forceinline__ void tile_nt(const float* __restrict__ a,
+                                        size_t a_ld,
+                                        const float* __restrict__ b,
+                                        size_t b_ld, int q0, int N, int kdim,
+                                        float scale, float* out, int ld_o,
+                                        float* As, float* Bs) {
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int n_key_tiles = (N + TK - 1) / TK;
+  for (int kt = 0; kt < n_key_tiles; ++kt) {
+    const int m0 = kt * TK;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+    for (int k0 = 0; k0 < kdim; k0 += KC) {
+      for (int e = tid; e < TQ * KC; e += THREADS) {
+        const int r = e / KC;
+        const int kk = e % KC;
+        const int n = q0 + r;
+        const int k = k0 + kk;
+        As[kk * (TQ + 1) + r] = (n < N && k < kdim) ? a[(size_t)n * a_ld + k] : 0.0f;
+      }
+      for (int e = tid; e < TK * KC; e += THREADS) {
+        const int c = e / KC;
+        const int kk = e % KC;
+        const int m = m0 + c;
+        const int k = k0 + kk;
+        Bs[kk * (TK + 1) + c] = (m < N && k < kdim) ? b[(size_t)m * b_ld + k] : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < KC; ++kk) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = As[kk * (TQ + 1) + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk * (TK + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = m0 + tx + 16 * j;
+        if (m < N) out[(ty + 16 * i) * ld_o + m] = __fmul_rn(acc[i][j], scale);
+      }
+  }
+}
+
+// Pass A: per (query tile, head, batch row).
+__global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
+    const float* __restrict__ lhs, int lhs_per_head,
+    const float* __restrict__ rhs, const float* __restrict__ v,
+    const float* __restrict__ s, const float* __restrict__ g,
+    float* __restrict__ pq_out, float* __restrict__ dsc_out,
+    float* __restrict__ ds_part, int N, int H, int K, int D, int ld_s,
+    float thd_pos, float sm_scale, int quantize) {
+  extern __shared__ float smem[];
+  float* S = smem;                  // [TQ][ld_s] scores, then p
+  float* P = S + TQ * ld_s;         // [TQ][ld_s] dpq, then dp
+  float* As = P + TQ * ld_s;        // [KC][TQ + 1]
+  float* Bs = As + KC * (TQ + 1);   // [KC][TK + 1]
+
+  const int q0 = blockIdx.x * TQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t lhs_row = lhs_per_head ? (size_t)H * K : (size_t)K;
+  const float* lhs_b = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
+  const float* rhs_b = rhs + (size_t)b * N * H * K + (size_t)h * K;
+  const float* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
+  const float* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
+
+  tile_nt(lhs_b, lhs_row, rhs_b, (size_t)H * K, q0, N, K, sm_scale, S, ld_s, As, Bs);
+  tile_nt(g_b, (size_t)H * D, v_b, (size_t)H * D, q0, N, D, 1.0f, P, ld_s, As, Bs);
+  __syncthreads();
+
+  const size_t unit = (size_t)b * H + h;
+  float* pq_u = pq_out + unit * N * N;
+  float* dsc_u = dsc_out + unit * N * N;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int r = warp; r < TQ; r += WARPS) {
+    const int n = q0 + r;
+    if (n >= N) continue;
+    float* row = S + r * ld_s;
+    float* drow = P + r * ld_s;
+    // softmax, exactly as the forward kernel forms it
+    float mx = -CUDART_INF_F;
+    for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int m = lane; m < N; m += 32) {
+      const float e = expf(__fsub_rn(row[m], mx));
+      row[m] = e;
+      sum = __fadd_rn(sum, e);
+    }
+    sum = warp_sum(sum);
+    const float sn = fmaxf(s[n], 1e-5f);
+    float ds_acc = 0.0f;
+    float dot = 0.0f;
+    for (int m = lane; m < N; m += 32) {
+      const float p = __fdiv_rn(row[m], sum);
+      row[m] = p;
+      const float dpq = drow[m];
+      float pq = p;
+      float dp = dpq;
+      if (quantize) {
+        const float u = __fdiv_rn(p, sn);
+        const float uq = rintf(fminf(fmaxf(u, 0.0f), thd_pos));
+        const bool in = u <= thd_pos;
+        pq = __fmul_rn(uq, sn);
+        const float t = in ? __fsub_rn(uq, u) : thd_pos;
+        ds_acc = __fmaf_rn(t, dpq, ds_acc);
+        dp = in ? dpq : 0.0f;
+      }
+      pq_u[(size_t)n * N + m] = pq;
+      drow[m] = dp;
+      dot = __fmaf_rn(dp, p, dot);
+    }
+    dot = warp_sum(dot);
+    for (int m = lane; m < N; m += 32) {
+      dsc_u[(size_t)n * N + m] =
+          __fmul_rn(__fmul_rn(row[m], __fsub_rn(drow[m], dot)), sm_scale);
+    }
+    ds_acc = warp_sum(ds_acc);
+    if (lane == 0) ds_part[unit * N + n] = ds_acc;
+  }
+}
+
+// Pass B: out[m, c] = sum_n x[n, m] * y[n, c] for 64 keys m and 64 columns
+// c; column chunks [0, ceil(D/TD)) give dv (x = pq, y = g), the rest drhs
+// (x = dscores, y = lhs).
+__global__ void __launch_bounds__(THREADS) qkr_bwd_cols_kernel(
+    const float* __restrict__ pq, const float* __restrict__ dsc,
+    const float* __restrict__ g, const float* __restrict__ lhs,
+    int lhs_per_head, float* __restrict__ dv, float* __restrict__ drhs, int N,
+    int H, int K, int D) {
+  __shared__ float As[KC * (TK + 1)];
+  __shared__ float Bs[KC * TD];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int m0 = blockIdx.x * TK;
+  const int unit = blockIdx.z;
+  const int b = unit / H;
+  const int h = unit % H;
+  const int nd = (D + TD - 1) / TD;
+
+  const float* x;
+  const float* y;
+  size_t ldy, ld_out;
+  int ncols, c0;
+  float* out;
+  if ((int)blockIdx.y < nd) {
+    x = pq + (size_t)unit * N * N;
+    y = g + (size_t)b * N * H * D + (size_t)h * D;
+    ldy = (size_t)H * D;
+    ncols = D;
+    c0 = blockIdx.y * TD;
+    out = dv + (size_t)b * N * H * D + (size_t)h * D;
+    ld_out = (size_t)H * D;
+  } else {
+    const size_t lhs_row = lhs_per_head ? (size_t)H * K : (size_t)K;
+    x = dsc + (size_t)unit * N * N;
+    y = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
+    ldy = lhs_row;
+    ncols = K;
+    c0 = (blockIdx.y - nd) * TD;
+    out = drhs + (size_t)b * N * H * K + (size_t)h * K;
+    ld_out = (size_t)H * K;
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int n0 = 0; n0 < N; n0 += KC) {
+    for (int e = tid; e < KC * TK; e += THREADS) {
+      const int nn = e / TK;
+      const int mm = e % TK;
+      const int n = n0 + nn;
+      const int m = m0 + mm;
+      As[nn * (TK + 1) + mm] = (n < N && m < N) ? x[(size_t)n * N + m] : 0.0f;
+    }
+    for (int e = tid; e < KC * TD; e += THREADS) {
+      const int nn = e / TD;
+      const int cc = e % TD;
+      const int n = n0 + nn;
+      const int c = c0 + cc;
+      Bs[nn * TD + cc] = (n < N && c < ncols) ? y[(size_t)n * ldy + c] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int nn = 0; nn < KC; ++nn) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[nn * (TK + 1) + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[nn * TD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c < ncols) out[(size_t)m * ld_out + c] = acc[i][j];
+    }
+  }
+}
+
+// Pass C: dlhs[n, c] = sum_h sum_m dscores[b, h, n, m] * rhs[b, m, h, c] for
+// 64 query rows and 64 columns; a shared lhs sums h = 0..H-1 in this block,
+// a per-head lhs takes one head per block.
+__global__ void __launch_bounds__(THREADS) qkr_bwd_dlhs_kernel(
+    const float* __restrict__ dsc, const float* __restrict__ rhs,
+    int lhs_per_head, float* __restrict__ dlhs, int N, int H, int K) {
+  __shared__ float As[KC * (TQ + 1)];
+  __shared__ float Bs[KC * TD];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int q0 = blockIdx.x * TQ;
+  const int c0 = blockIdx.y * TD;
+  int b, h0, h1;
+  float* out;
+  size_t ld_out;
+  if (lhs_per_head) {
+    b = blockIdx.z / H;
+    h0 = blockIdx.z % H;
+    h1 = h0 + 1;
+    out = dlhs + (size_t)b * N * H * K + (size_t)h0 * K;
+    ld_out = (size_t)H * K;
+  } else {
+    b = blockIdx.z;
+    h0 = 0;
+    h1 = H;
+    out = dlhs + (size_t)b * N * K;
+    ld_out = (size_t)K;
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int h = h0; h < h1; ++h) {
+    const float* x = dsc + ((size_t)b * H + h) * N * N;
+    const float* y = rhs + (size_t)b * N * H * K + (size_t)h * K;
+    for (int m0 = 0; m0 < N; m0 += KC) {
+      for (int e = tid; e < TQ * KC; e += THREADS) {
+        const int r = e / KC;
+        const int kk = e % KC;
+        const int n = q0 + r;
+        const int m = m0 + kk;
+        As[kk * (TQ + 1) + r] = (n < N && m < N) ? x[(size_t)n * N + m] : 0.0f;
+      }
+      for (int e = tid; e < KC * TD; e += THREADS) {
+        const int kk = e / TD;
+        const int cc = e % TD;
+        const int m = m0 + kk;
+        const int c = c0 + cc;
+        Bs[kk * TD + cc] = (m < N && c < K) ? y[(size_t)m * H * K + c] : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < KC; ++kk) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = As[kk * (TQ + 1) + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk * TD + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = q0 + ty + 16 * i;
+    if (n >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c < K) out[(size_t)n * ld_out + c] = acc[i][j];
+    }
+  }
+}
+
+// Pass D: ds[n] = sum over units (b, h) in order of the row partials.
+__global__ void qkr_bwd_ds_kernel(const float* __restrict__ ds_part,
+                                  float* __restrict__ ds, int units, int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float acc = 0.0f;
+  for (int u = 0; u < units; ++u) acc = __fadd_rn(acc, ds_part[(size_t)u * N + n]);
+  ds[n] = acc;
+}
+
+}  // namespace
+
+// Dynamic shared memory pass A needs for N keys (bytes); the wrapper checks
+// it against the card's per-block limit before launching.
+extern "C" long long ofq_qkr_attention_bwd_smem_bytes(int N) {
+  const int ld_s = ((N + TK - 1) / TK) * TK + 1;
+  return (long long)sizeof(float) *
+         (2LL * TQ * ld_s + KC * (TQ + 1) + KC * (TK + 1));
+}
+
+// pq_scratch and dsc_scratch hold B*H*N*N floats each, ds_part B*H*N; all
+// allocated by the caller.  Returns the first CUDA error of the launches.
+extern "C" int ofq_qkr_attention_bwd(
+    const float* lhs, int lhs_per_head, const float* rhs, const float* v,
+    const float* s, const float* g, float* dlhs, float* drhs, float* dv,
+    float* ds, float* pq_scratch, float* dsc_scratch, float* ds_part, int B,
+    int N, int H, int K, int D, float thd_pos, float sm_scale, int quantize,
+    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int ld_s = ((N + TK - 1) / TK) * TK + 1;
+  const size_t smem = (size_t)ofq_qkr_attention_bwd_smem_bytes(N);
+  cudaError_t err = cudaFuncSetAttribute(
+      qkr_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int q_tiles = (N + TQ - 1) / TQ;
+  qkr_bwd_rows_kernel<<<dim3(q_tiles, H, B), THREADS, smem, st>>>(
+      lhs, lhs_per_head, rhs, v, s, g, pq_scratch, dsc_scratch, ds_part, N, H,
+      K, D, ld_s, thd_pos, sm_scale, quantize);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nd = (D + TD - 1) / TD;
+  const int nk = (K + TD - 1) / TD;
+  qkr_bwd_cols_kernel<<<dim3((N + TK - 1) / TK, nd + nk, B * H), THREADS, 0,
+                        st>>>(pq_scratch, dsc_scratch, g, lhs, lhs_per_head,
+                              dv, drhs, N, H, K, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  qkr_bwd_dlhs_kernel<<<dim3(q_tiles, nk, lhs_per_head ? B * H : B), THREADS,
+                        0, st>>>(dsc_scratch, rhs, lhs_per_head, dlhs, N, H,
+                                 K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  qkr_bwd_ds_kernel<<<(N + 255) / 256, 256, 0, st>>>(ds_part, ds, B * H, N);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* ofq_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,12 +1,15 @@
-"""DeiT / ViT, quantized, eval forward (port of `ofq_tpu/models/deit.py:40-83,
+"""DeiT / ViT, quantized or float (port of `ofq_tpu/models/deit.py:40-83,
 178-363, 370-387`).
 
-NHWC images in, logits out; a distilled model returns `(cls + dist) / 2`.
-Submodules carry the Flax names (`patch_embed`, `blocks_<i>`, `norm1`,
-`attn`, `mlp`, `norm`, `head`, `head_dist`), so the port's parameter names
-are the JAX tree paths with '.' for '/'.  The slice covers the quantized
-DeiT of the shipped recipes: W8A8 patch embedding and heads, QKR attention
-and quantized MLPs in every block, LayerNorm, no dropout or drop-path.
+NHWC images in, logits out.  A distilled model returns `(cls + dist) / 2`
+in eval mode and `(cls_logits, dist_logits)` in train mode
+(`model.train()`), as the JAX model does with `train=True`.  Submodules
+carry the Flax names (`patch_embed`, `blocks_<i>`, `norm1`, `attn`, `mlp`,
+`norm`, `head`, `head_dist`), so the port's parameter names are the JAX
+tree paths with '.' for '/'.  Each path is quantized or float as the policy
+says: the quantized DeiT of the shipped recipes (W8A8 patch embedding and
+heads, QKR attention and quantized MLPs in every block) and the float
+teacher (empty policy).  LayerNorm; no dropout or drop-path.
 """
 
 from __future__ import annotations
@@ -18,9 +21,9 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
-from ..nn.attention import QAttentionQKR
-from ..nn.conv import QPatchEmbedConv
-from ..nn.linear import QHeadLinear, QMlp
+from ..nn.attention import Attention, QAttentionQKR
+from ..nn.conv import PatchEmbedConv, QPatchEmbedConv
+from ..nn.linear import Dense, Mlp, QHeadLinear, QMlp
 from ..quant.policy import QuantPolicy
 
 
@@ -36,6 +39,10 @@ class DeiTConfig:
     distilled: bool = True
     ln_eps: float = 1e-6
     in_chans: int = 3
+    # dropout and stochastic depth: 0.0 only (the recipe's values)
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
     # quantized linears: None/'xla' (composition) | 'fused' (CUDA kernel)
     matmul_impl: Optional[str] = None
     # attention tail: None/'xla' (composition) | 'fused' (CUDA kernel)
@@ -89,31 +96,40 @@ def _not_in_slice(what: str) -> NotImplementedError:
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block, quantized QKR attention and MLP."""
+    """Pre-norm transformer block: quantized QKR attention or float
+    attention, quantized or float MLP, as the policy says per path."""
 
     def __init__(self, cfg: DeiTConfig, policy: QuantPolicy, index: int):
         super().__init__()
         C = cfg.embed_dim
-        if not (policy.quantizes(f"blocks.{index}.attn")
-                and policy.quantizes(f"blocks.{index}.mlp")):
-            raise _not_in_slice("a float attention or MLP block")
-        if not policy.qk_reparam:
-            raise _not_in_slice("QAttention (non-QKR)")
-        if policy.lsq_weights:
-            raise _not_in_slice("full-LSQ weights (LsqLinear)")
+        hidden = int(C * cfg.mlp_ratio)
         n_tok = cfg.n_tokens
         self.norm1 = LayerNorm(C, cfg.ln_eps)
-        self.attn = QAttentionQKR(
-            C, cfg.num_heads, n_tok, weight_bits=policy.weight.bit,
-            input_bits=policy.act.bit,
-            quantize_softmax=policy.quantize_softmax,
-            matmul_impl=cfg.matmul_impl, attn_impl=cfg.attn_impl)
+        if policy.quantizes(f"blocks.{index}.attn"):
+            if not policy.qk_reparam:
+                raise _not_in_slice("QAttention (non-QKR)")
+            if policy.lsq_weights:
+                raise _not_in_slice("full-LSQ weights (LsqLinear)")
+            self.attn = QAttentionQKR(
+                C, cfg.num_heads, n_tok, weight_bits=policy.weight.bit,
+                input_bits=policy.act.bit,
+                quantize_softmax=policy.quantize_softmax,
+                aq_learnable=policy.act.learnable,
+                matmul_impl=cfg.matmul_impl, attn_impl=cfg.attn_impl)
+        else:
+            self.attn = Attention(C, cfg.num_heads)
         self.norm2 = LayerNorm(C, cfg.ln_eps)
-        self.mlp = QMlp(
-            C, int(C * cfg.mlp_ratio), C, n_tok,
-            weight_bits=policy.weight.bit, input_bits=policy.act.bit,
-            act_layer=policy.act_layer,
-            matmul_impl=cfg.matmul_impl)
+        if policy.quantizes(f"blocks.{index}.mlp"):
+            if policy.lsq_weights:
+                raise _not_in_slice("full-LSQ weights (LsqLinear)")
+            self.mlp = QMlp(
+                C, hidden, C, n_tok,
+                weight_bits=policy.weight.bit, input_bits=policy.act.bit,
+                act_layer=policy.act_layer,
+                aq_learnable=policy.act.learnable,
+                matmul_impl=cfg.matmul_impl)
+        else:
+            self.mlp = Mlp(C, hidden, C)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
@@ -121,20 +137,25 @@ class Block(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """Quantized DeiT, eval forward: (B, H, W, 3) NHWC -> (B, classes)."""
+    """DeiT: (B, H, W, 3) NHWC -> (B, classes), or (cls, dist) logits for a
+    distilled model in train mode."""
 
     def __init__(self, cfg: DeiTConfig, policy: QuantPolicy):
         super().__init__()
         self.cfg = cfg
         self.policy = policy
         C = cfg.embed_dim
-        if not (policy.quantizes("patch_embed.proj")
-                and policy.quantizes("head")
-                and (policy.quantizes("head_dist") or not cfg.distilled)):
-            raise _not_in_slice("a float patch embedding or head")
+        for f in ("drop_rate", "attn_drop_rate", "drop_path_rate"):
+            if getattr(cfg, f) != 0.0:
+                raise _not_in_slice(f"{f}={getattr(cfg, f)} (dropout and "
+                                    "drop-path)")
         grid = cfg.img_size // cfg.patch_size
-        self.patch_embed = QPatchEmbedConv(
-            cfg.in_chans, C, (cfg.patch_size,) * 2, (cfg.img_size,) * 2)
+        if policy.quantizes("patch_embed.proj"):
+            self.patch_embed = QPatchEmbedConv(
+                cfg.in_chans, C, (cfg.patch_size,) * 2, (cfg.img_size,) * 2)
+        else:
+            self.patch_embed = PatchEmbedConv(cfg.in_chans, C,
+                                              (cfg.patch_size,) * 2)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, C))
         if cfg.distilled:
             self.dist_token = nn.Parameter(torch.zeros(1, 1, C))
@@ -143,10 +164,16 @@ class VisionTransformer(nn.Module):
         for name in self.block_names:
             self.add_module(name, Block(cfg, policy, int(name[7:])))
         self.norm = LayerNorm(C, cfg.ln_eps)
-        self.head = QHeadLinear(C, cfg.num_classes)
+        self.head = self._head("head")
         if cfg.distilled:
-            self.head_dist = QHeadLinear(C, cfg.num_classes)
+            self.head_dist = self._head("head_dist")
         self._grid = grid
+
+    def _head(self, path: str) -> nn.Module:
+        C, classes = self.cfg.embed_dim, self.cfg.num_classes
+        if self.policy.quantizes(path):
+            return QHeadLinear(C, classes)
+        return Dense(C, classes)
 
     def _kernel_users(self):
         return [m for m in self.modules()
@@ -174,9 +201,14 @@ class VisionTransformer(nn.Module):
         x = x + self.pos_embed.to(x.dtype)
         for name in self.block_names:
             x = getattr(self, name)(x)
+        # the heads stay >= fp32
         x = self.norm(x)
         if self.cfg.distilled:
-            return (self.head(x[:, 0]) + self.head_dist(x[:, 1])) / 2.0
+            cls_logits = self.head(x[:, 0])
+            dist_logits = self.head_dist(x[:, 1])
+            if self.training:
+                return cls_logits, dist_logits
+            return (cls_logits + dist_logits) / 2.0
         return self.head(x[:, 0])
 
 
@@ -192,9 +224,10 @@ def init_weights(model: VisionTransformer, generator: torch.Generator, *,
     `generator`: lecun-normal kernels (truncated normal, std
     1/sqrt(fan_in)/0.8796), truncated-normal 0.02 tokens and pos_embed,
     zero biases, unit LayerNorm scales, unit LSQ scales (until
-    `calibrate`).  The heads' kernels are zero as in JAX unless `head_std`
-    is given.  The draws differ from jax.random's: same distribution, not
-    the same numbers."""
+    `calibrate`).  Quantized heads' kernels are zero as in JAX unless
+    `head_std` is given; float heads' kernels are truncated-normal 0.02
+    (or `head_std`).  The draws differ from jax.random's: same
+    distribution, not the same numbers."""
     lecun_std_unit = 1.0 / 0.87962566103423978
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -203,10 +236,13 @@ def init_weights(model: VisionTransformer, generator: torch.Generator, *,
             if leaf in ("cls_token", "dist_token", "pos_embed"):
                 _trunc_normal_(p, 0.02, generator)
             elif leaf.endswith("kernel") and owner in ("head", "head_dist"):
-                if head_std is None:
+                std = head_std
+                if std is None and isinstance(getattr(model, owner), Dense):
+                    std = 0.02
+                if std is None:
                     p.zero_()
                 else:
-                    _trunc_normal_(p, head_std, generator)
+                    _trunc_normal_(p, std, generator)
             elif leaf.endswith("kernel"):
                 fan_in = math.prod(p.shape[:-1])
                 _trunc_normal_(p, lecun_std_unit / math.sqrt(fan_in),

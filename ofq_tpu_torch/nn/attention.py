@@ -1,12 +1,14 @@
-"""Query-key reparameterized quantized attention (port of
-`ofq_tpu/nn/attention.py:57-202, 205-234, 271-292, 455-572`, eval forward).
+"""Attention: query-key reparameterized quantized attention and the float
+attention of the teacher (port of `ofq_tpu/nn/attention.py:57-202,
+205-234, 271-334, 455-572`).
 
 The per-head product `W_qk[h] = Wq[h]^T @ Wk[h]` is StatsQ-quantized as
 one (H*C, C) matrix with per-row scales, and the attention logits become
 `xq @ (W_qk xq^T)`.  Two implementations of the attention tail, chosen by
 `attn_impl`:
   * the composition (einsum -> softmax -> LSQ -> einsum), and
-  * 'fused': the CUDA kernel of `ops/fused_attention.py`.
+  * 'fused': the CUDA kernels of `ops/fused_attention.py` (K2 forward, K3
+    backward).
 Calibration always runs the composition, so `quan_softmax.s` is set from
 the probabilities themselves, never through the kernel (the rule the JAX
 package enforces in `_SoftmaxScaleParam`).
@@ -17,14 +19,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.fused_attention import (qkr_attention_fwd,
+from ..ops.fused_attention import (qkr_attention_bwd,
+                                   qkr_attention_bwd_reference,
+                                   qkr_attention_fwd,
                                    qkr_attention_fwd_reference,
                                    quantized_attention_core, softmax)
 from ..quant.lsq import grad_scale_factor
 from ..quant.statsq import statsq_quantize
 from ..quant.ste import clip_lower, grad_scale
 from .bias import LearnableBias
-from .linear import QLinear, check_bits
+from .linear import Dense, QLinear, check_bits
 from .quantizers import LsqAct
 
 
@@ -56,23 +60,27 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
 
 
 def _fused_attention(lhs, rhs, v, scale_param, *, bits, sm_scale,
-                     quantize_softmax, fwd):
+                     quantize_softmax, aq_learnable=True,
+                     fwd=qkr_attention_fwd, bwd=qkr_attention_bwd):
     """Glue for the fused core: the composition's scale semantics (eps clip
-    and grad-scale factor, identity forward up to rounding), then the
-    kernel.  lhs (B, N, K) or (B, N, H, K); rhs/v (B, N, H, .)."""
+    with identity gradient and the grad-scale factor, so the core's ds is
+    the cotangent of the pre-processed scale), then the kernels.
+    lhs (B, N, K) or (B, N, H, K); rhs/v (B, N, H, .)."""
     B, N, H, _ = rhs.shape
     if quantize_softmax:
         gf = grad_scale_factor((B, H, N, N), bits, True, -2)
         s = grad_scale(clip_lower(scale_param, 1e-5), gf)
+        if not aq_learnable:
+            s = s.detach()
     else:
         s = torch.ones(N, dtype=torch.float32, device=rhs.device)
     return quantized_attention_core(
         lhs, rhs, v, s, bits=bits, sm_scale=sm_scale,
-        quantize_softmax=quantize_softmax, fwd=fwd)
+        quantize_softmax=quantize_softmax, fwd=fwd, bwd=bwd)
 
 
 class QAttentionQKR(nn.Module):
-    """Query-key reparameterized quantized attention (eval, no dropout).
+    """Query-key reparameterized quantized attention (no dropout).
 
     `n_tokens` is the sequence length N; the per-token scales
     (`quant_x.s`, `quan_softmax.s`: (N,); `quan_qkx.s`: (N*H,)) depend on it.
@@ -83,6 +91,7 @@ class QAttentionQKR(nn.Module):
     def __init__(self, dim: int, num_heads: int, n_tokens: int, *,
                  weight_bits: int, input_bits: int,
                  quantize_softmax: bool = True,
+                 aq_learnable: bool = True,
                  matmul_impl: str | None = None,
                  attn_impl: str | None = None):
         super().__init__()
@@ -96,28 +105,32 @@ class QAttentionQKR(nn.Module):
         self.weight_bits = weight_bits
         self.input_bits = input_bits
         self.quantize_softmax = quantize_softmax
+        self.aq_learnable = aq_learnable
         self.attn_impl = attn_impl
         self.use_kernels = True
         self.calibrating = False
 
+        lrn = dict(learnable=aq_learnable)
         self.quant_x_move_b4 = LearnableBias(C)
-        self.quant_x = LsqAct(input_bits, n_tokens, channel_axis=-2)
+        self.quant_x = LsqAct(input_bits, n_tokens, channel_axis=-2, **lrn)
         self.quant_x_move_aft = LearnableBias(C)
         self.v_kernel = nn.Parameter(torch.zeros(C, C))
         self.v_bias = nn.Parameter(torch.zeros(C))
         self.move_v_b4 = LearnableBias(C)
-        self.quan_v = LsqAct(input_bits, C, channel_axis=-1)
+        self.quan_v = LsqAct(input_bits, C, channel_axis=-1, **lrn)
         self.move_v_aft = LearnableBias(C)
         self.q_kernel = nn.Parameter(torch.zeros(C, C))
         self.k_kernel = nn.Parameter(torch.zeros(C, C))
         self.move_qkx_b4 = LearnableBias(H * C, apply_shape=(H, C))
-        self.quan_qkx = LsqAct(input_bits, n_tokens * H, channel_axis=(1, 2))
+        self.quan_qkx = LsqAct(input_bits, n_tokens * H, channel_axis=(1, 2),
+                               **lrn)
         self.move_qkx_aft = LearnableBias(H * C, apply_shape=(H, C))
         if quantize_softmax:
             self.quan_softmax = LsqAct(input_bits, n_tokens, all_positive=True,
-                                       channel_axis=-2)
+                                       channel_axis=-2, **lrn)
         self.proj = QLinear(C, C, n_tokens, weight_bits=weight_bits,
-                            input_bits=input_bits, matmul_impl=matmul_impl)
+                            input_bits=input_bits, aq_learnable=aq_learnable,
+                            matmul_impl=matmul_impl)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
@@ -126,14 +139,40 @@ class QAttentionQKR(nn.Module):
         xq, v, qkx = qkr_quant_chain(self, x)
         if self.attn_impl == "fused" and not self.calibrating:
             sp = self.quan_softmax.s if self.quantize_softmax else None
+            kernels = ((qkr_attention_fwd, qkr_attention_bwd)
+                       if self.use_kernels else
+                       (qkr_attention_fwd_reference,
+                        qkr_attention_bwd_reference))
             out = _fused_attention(
                 xq, qkx, v, sp, bits=self.input_bits, sm_scale=scale,
                 quantize_softmax=self.quantize_softmax,
-                fwd=(qkr_attention_fwd if self.use_kernels
-                     else qkr_attention_fwd_reference))
+                aq_learnable=self.aq_learnable, fwd=kernels[0],
+                bwd=kernels[1])
         else:
             attn = softmax(torch.einsum("bnc,bmhc->bhnm", xq, qkx) * scale)
             if self.quantize_softmax:
                 attn = self.quan_softmax(attn)
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
         return self.proj(out.reshape(B, N, C))
+
+
+class Attention(nn.Module):
+    """Float multi-head self-attention (`ofq_tpu.nn.attention.Attention`,
+    no dropout, no Gram telemetry): qkv Dense -> einsum -> the division-form
+    softmax -> einsum -> proj Dense."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias)
+        self.proj = Dense(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        H = self.num_heads
+        d = C // H
+        q, k, v = (t.reshape(B, N, H, d)
+                   for t in torch.split(self.qkv(x), C, dim=-1))
+        attn = softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * d ** -0.5)
+        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
+        return self.proj(out)

@@ -1,10 +1,38 @@
 """Learnable shifts around activation quantizers (port of
-`ofq_tpu/nn/bias.py:35-71`)."""
+`ofq_tpu/nn/bias.py`)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..quant.ste import needs_grad
+
+
+class _BiasAdd(torch.autograd.Function):
+    """`x + b` with the custom VJP of `ofq_tpu.nn.bias._bias_add`: dx = g,
+    db = the sum of g over the leading axes, taken in fp32 whatever the
+    stream's dtype (as JAX does, also under fp64)."""
+
+    @staticmethod
+    def forward(ctx, x, b):
+        ctx.b_shape = (b.ndim, b.dtype)
+        return x + b.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        ndim_b, b_dtype = ctx.b_shape
+        lead = tuple(range(g.ndim - ndim_b))
+        db = g.to(torch.float32)
+        if lead:
+            db = torch.sum(db, dim=lead)
+        return g, db.to(b_dtype)
+
+
+def bias_add(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if not needs_grad(x, b):
+        return x + b.to(x.dtype)
+    return _BiasAdd.apply(x, b)
 
 
 class LearnableBias(nn.Module):
@@ -21,7 +49,7 @@ class LearnableBias(nn.Module):
         b = self.bias
         if self.apply_shape is not None:
             b = b.reshape(self.apply_shape)
-        return x + b.to(x.dtype)
+        return bias_add(x, b)
 
 
 class ImageBias(nn.Module):

@@ -1,4 +1,5 @@
-"""W8A8 patch-embedding convolution (port of `ofq_tpu/nn/conv.py:30-138`).
+"""Patch-embedding convolutions (port of `ofq_tpu/nn/conv.py`): the W8A8
+quantized one and the float one of the teacher.
 
 NHWC images and an HWIO kernel, as in JAX.  A patchify convolution
 (stride == kernel == patch) is a space-to-depth reshape followed by one
@@ -21,7 +22,9 @@ class LsqImgQuantizer(nn.Module):
 
     `signed` is a 0/1 float buffer (the JAX `quant_stats` collection):
     calibration sets it from the batch (any value below -1e-5 makes the
-    range signed); the eval forward reads it as stored.
+    range signed); in train mode it becomes `max(signed, batch_signed)`
+    before use, as JAX's train step (every non-`params` collection
+    mutable) updates it; the eval forward reads it as stored.
     """
 
     def __init__(self, bit: int, channels: int):
@@ -33,11 +36,15 @@ class LsqImgQuantizer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(at_least_f32(x.dtype))
+        if self.calibrating or self.training:
+            batch_signed = (torch.min(x32.detach()) < -1e-5).to(
+                self.signed.dtype)
         if self.calibrating:
-            batch_signed = (torch.min(x32) < -1e-5).to(self.signed.dtype)
             self.signed.copy_(batch_signed)
             _calibrate_scale(self.s, init_scale(x32, self.bit, False, -1),
                              "LsqImgQuantizer")
+        elif self.training:
+            self.signed.copy_(torch.maximum(self.signed, batch_signed))
         y = lsq_quantize_dynamic_signed(x32, self.s, self.bit,
                                         self.signed != 0, channel_axis=-1)
         return y.to(x.dtype)
@@ -75,5 +82,23 @@ class QPatchEmbedConv(nn.Module):
         x = self.move_aft(self.input_quant(self.move_b4(x)))
         wq = self.weight_quant(self.kernel)
         w2 = wq.reshape(-1, wq.shape[-1]).to(x.dtype)
+        y = torch.matmul(_patchify(x, kh, kw), w2)
+        return y + self.bias.to(y.dtype)
+
+
+class PatchEmbedConv(nn.Module):
+    """Float patchify conv (`ofq_tpu.nn.conv.PatchEmbedConv`), with the
+    quantized one's `kernel`/`bias` names."""
+
+    def __init__(self, in_chans: int, features: int, patch_size=(16, 16)):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        kh, kw = self.patch_size
+        self.kernel = nn.Parameter(torch.zeros(kh, kw, in_chans, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kh, kw = self.patch_size
+        w2 = self.kernel.reshape(-1, self.kernel.shape[-1]).to(x.dtype)
         y = torch.matmul(_patchify(x, kh, kw), w2)
         return y + self.bias.to(y.dtype)

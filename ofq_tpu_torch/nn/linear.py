@@ -1,5 +1,5 @@
-"""Quantized dense layers and MLP (port of `ofq_tpu/nn/linear.py:125-252,
-333-433`).
+"""Dense layers and MLPs, quantized and float (port of
+`ofq_tpu/nn/linear.py:125-252, 333-451`, and Flax's `nn.Dense`).
 
 Kernels keep the Flax `(in, out)` layout.  `QLinear` has the composed
 branch (bias -> LSQ -> bias -> x @ StatsQ(W)) and the fused branch
@@ -26,6 +26,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="none")
 
 
+def _check_act(act_layer: str) -> None:
+    if act_layer != "gelu":
+        raise NotImplementedError(
+            f"act_layer={act_layer!r}: the port has GELU only")
+
+
 def check_bits(**bits: int) -> None:
     """The slice quantizes every site: reject bit widths >= 32."""
     for name, b in bits.items():
@@ -42,10 +48,12 @@ class QLinear(nn.Module):
     fc2 inputs).  `n_tokens` is the length of the token axis (axis -2 of
     the input), which carries the per-token LSQ scale.  `use_kernels`
     and `calibrating` are set model-wide (see `VisionTransformer`).
+    `aq_learnable=False` detaches the input scale on both branches.
     """
 
     def __init__(self, in_features: int, features: int, n_tokens: int, *,
                  weight_bits: int, input_bits: int, symmetric: bool = True,
+                 aq_learnable: bool = True,
                  matmul_impl: str | None = None):
         super().__init__()
         check_bits(weight_bits=weight_bits, input_bits=input_bits)
@@ -63,14 +71,17 @@ class QLinear(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(in_features, features))
         self.move_b4 = LearnableBias(in_features)
         self.input_quant = LsqAct(input_bits, n_tokens,
-                                  all_positive=not symmetric, channel_axis=-2)
+                                  all_positive=not symmetric, channel_axis=-2,
+                                  learnable=aq_learnable)
         self.move_aft = LearnableBias(in_features)
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.matmul_impl == "fused" and not self.calibrating:
+            s = self.input_quant.s
             return fused_qlinear(
-                x, self.kernel, self.input_quant.s, self.move_b4.bias,
+                x, self.kernel, s if self.input_quant.learnable else s.detach(),
+                self.move_b4.bias,
                 self.move_aft.bias, self.bias, w_bits=self.weight_bits,
                 a_bits=self.input_bits, all_positive=not self.symmetric,
                 fwd=(fused_qlinear_fwd if self.use_kernels
@@ -106,17 +117,43 @@ class QMlp(nn.Module):
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, n_tokens: int, *, weight_bits: int,
                  input_bits: int, act_layer: str = "gelu",
+                 aq_learnable: bool = True,
                  matmul_impl: str | None = None):
         super().__init__()
-        if act_layer != "gelu":
-            raise NotImplementedError(
-                f"act_layer={act_layer!r}: the port has GELU only")
+        _check_act(act_layer)
         kw = dict(weight_bits=weight_bits, input_bits=input_bits,
-                  matmul_impl=matmul_impl)
+                  aq_learnable=aq_learnable, matmul_impl=matmul_impl)
         self.fc1 = QLinear(in_features, hidden_features, n_tokens,
                            symmetric=True, **kw)
         self.fc2 = QLinear(hidden_features, out_features, n_tokens,
                            symmetric=False, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu(self.fc1(x)))
+
+
+class Dense(nn.Module):
+    """Flax `nn.Dense`: `x @ kernel + bias`, kernel `(in, out)`."""
+
+    def __init__(self, in_features: int, features: int, bias: bool = True):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.kernel.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class Mlp(nn.Module):
+    """Float transformer MLP: fc1 -> exact GELU -> fc2."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: int, act_layer: str = "gelu"):
+        super().__init__()
+        _check_act(act_layer)
+        self.fc1 = Dense(in_features, hidden_features)
+        self.fc2 = Dense(hidden_features, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))

@@ -1,5 +1,8 @@
 """LSQ quantizer modules (port of `ofq_tpu/nn/quantizers.py:23-62, 124-152`).
 
+`learnable=False` detaches the scale (JAX's `stop_gradient` on `s`): the
+quantizer still uses it, but no gradient reaches it.
+
 The learned scale `s` is a parameter whose shape the caller states.  Its
 value comes from a checkpoint (`convert.load_flax_params`) or from a
 calibration forward (`calibrate.calibrate`): while a quantizer's
@@ -36,11 +39,13 @@ class LsqAct(nn.Module):
     """
 
     def __init__(self, bit: int, num_scales: int, *,
-                 all_positive: bool = False, channel_axis=-2):
+                 all_positive: bool = False, channel_axis=-2,
+                 learnable: bool = True):
         super().__init__()
         self.bit = bit
         self.all_positive = all_positive
         self.channel_axis = channel_axis
+        self.learnable = learnable
         self.calibrating = False
         self.s = nn.Parameter(torch.ones(num_scales))
 
@@ -49,7 +54,8 @@ class LsqAct(nn.Module):
             _calibrate_scale(self.s, init_scale(
                 x.to(at_least_f32(x.dtype)), self.bit, self.all_positive,
                 self.channel_axis), "LsqAct")
-        return lsq_quantize(x, self.s, self.bit,
+        s = self.s if self.learnable else self.s.detach()
+        return lsq_quantize(x, s, self.bit,
                             all_positive=self.all_positive,
                             channel_axis=self.channel_axis)
 
@@ -58,9 +64,10 @@ class LsqWeight(nn.Module):
     """Signed LSQ weight fake-quantizer, one scale per output column (last
     axis); calibrated from the kernel itself."""
 
-    def __init__(self, bit: int, num_scales: int):
+    def __init__(self, bit: int, num_scales: int, *, learnable: bool = True):
         super().__init__()
         self.bit = bit
+        self.learnable = learnable
         self.calibrating = False
         self.s = nn.Parameter(torch.ones(num_scales))
 
@@ -69,5 +76,6 @@ class LsqWeight(nn.Module):
         if self.calibrating:
             _calibrate_scale(self.s, init_scale(w32, self.bit, False, -1),
                              "LsqWeight")
-        return lsq_quantize(w32, self.s, self.bit,
+        s = self.s if self.learnable else self.s.detach()
+        return lsq_quantize(w32, s, self.bit,
                             channel_axis=-1).to(w.dtype)

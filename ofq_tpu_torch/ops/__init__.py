@@ -4,7 +4,7 @@ Importing this package builds nothing; a kernel is compiled by `nvcc` at
 its first launch on a CUDA tensor (see `_build.py`).
 """
 
-from .fused_attention import qkr_attention_fwd
+from .fused_attention import qkr_attention_bwd, qkr_attention_fwd
 from .fused_qlinear import fused_qlinear_fwd
 
 
@@ -13,6 +13,8 @@ def reset_launch_counts() -> None:
     fused_qlinear_fwd.launches = 0
     fused_qlinear_fwd.launch_shapes.clear()
     qkr_attention_fwd.launches = 0
+    qkr_attention_bwd.launches = 0
 
 
-__all__ = ["fused_qlinear_fwd", "qkr_attention_fwd", "reset_launch_counts"]
+__all__ = ["fused_qlinear_fwd", "qkr_attention_bwd", "qkr_attention_fwd",
+           "reset_launch_counts"]

@@ -1,5 +1,5 @@
-"""Fused quantized attention core, forward: scores -> softmax -> LSQ -> @ v
-(port of `ofq_tpu/ops/fused_attention.py`, forward).
+"""Fused quantized attention core: scores -> softmax -> LSQ -> @ v, forward
+and backward (port of `ofq_tpu/ops/fused_attention.py`).
 
     scores = lhs @ rhs^T * sm_scale
     p      = softmax(scores, axis=-1)
@@ -7,13 +7,21 @@
                                                         s_n floored at 1e-5)
     out    = pq @ v
 
-every sum in fp32, as in the TPU kernel.
+every sum in fp32, as in the TPU kernels.
 
 lhs is the QKR input shared across heads, (B, N, K), or per head,
 (B, N, H, K); rhs (B, N, H, K); v (B, N, H, d); s (N,); out (B, N, H, d),
-all in the JAX package's natural layout.  `qkr_attention_fwd` launches the
-hand-written kernel `csrc/fused_attention.cu` on CUDA tensors and runs
-`qkr_attention_fwd_reference` on CPU tensors.
+all in the JAX package's natural layout.
+
+Two kernels, each with its plain PyTorch version beside it:
+  * `qkr_attention_fwd` (K2, `csrc/fused_attention.cu`);
+  * `qkr_attention_bwd` (K3, `csrc/fused_attention_bwd.cu`), the custom VJP:
+    it recomputes the scores from the residuals (lhs, rhs, v, s), so the
+    (B, H, N, N) probabilities are never kept for the backward.
+A wrapper launches its kernel on CUDA tensors and runs the plain version on
+CPU tensors.  `quantized_attention_core` reaches both through `_AttnCore`,
+a `torch.autograd.Function`; a wrapper called directly on a tensor that
+requires grad, with grad mode on, raises instead of cutting the graph.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import ctypes
 
 import torch
 
+from ..quant.ste import needs_grad
 from . import _build
 
 _S_EPS = 1e-5
@@ -35,38 +44,103 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return e / torch.sum(e, dim=dim, keepdim=True)
 
 
+def refuse_graph_cut(what: str, *tensors: torch.Tensor) -> None:
+    """A kernel's output has no autograd history: calling a raw wrapper on
+    a tensor that requires grad, with grad mode on, would silently give no
+    gradient to anything upstream.  The autograd Functions call the
+    wrappers with grad mode off."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: called on a tensor that requires grad with grad mode "
+            "on; go through the op's autograd Function (the `ops` glue), "
+            "or call it under torch.no_grad()")
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper launches its CUDA kernel for `t` (else it runs the
+    plain version)."""
+    return t.is_cuda
+
+
+def _units_spec(lhs) -> str:
+    return "bnk" if lhs.ndim == 3 else "bnhk"
+
+
 def qkr_attention_fwd_reference(lhs, rhs, v, s, bits, sm_scale, quantize):
-    """Plain PyTorch version of the kernel, on fp32 tensors, with fp32 sums
-    as in `ofq_tpu.ops.fused_attention._fwd_kernel`."""
-    spec = "bnk,bmhk->bhnm" if lhs.ndim == 3 else "bnhk,bmhk->bhnm"
-    p = softmax(torch.einsum(spec, lhs, rhs) * sm_scale)
+    """Plain PyTorch version of the forward kernel, on fp32 tensors, with
+    fp32 sums as in `ofq_tpu.ops.fused_attention._fwd_kernel`."""
+    p = softmax(torch.einsum(f"{_units_spec(lhs)},bmhk->bhnm", lhs, rhs)
+                * sm_scale)
     if quantize:
         s_row = torch.clamp_min(s, _S_EPS)[None, None, :, None]
         p = torch.round(torch.clamp(p / s_row, 0.0, 2 ** bits - 1)) * s_row
     return torch.einsum("bhnm,bmhd->bnhd", p, v)
 
 
-def _launch(lhs, rhs, v, s, bits, sm_scale, quantize):
+def qkr_attention_bwd_reference(lhs, rhs, v, s, g, bits, sm_scale,
+                                quantize):
+    """Plain PyTorch version of the backward kernel: the arithmetic of
+    `ofq_tpu.ops.fused_attention._bwd_kernel` in fp32.  Returns
+    (dlhs, drhs, dv, ds) in the shapes of (lhs, rhs, v, s)."""
+    spec = _units_spec(lhs)
+    p = softmax(torch.einsum(f"{spec},bmhk->bhnm", lhs, rhs) * sm_scale)
+    dpq = torch.einsum("bnhd,bmhd->bhnm", g, v)
+    if quantize:
+        thd = float(2 ** bits - 1)
+        s_row = torch.clamp_min(s, _S_EPS)[None, None, :, None]
+        u = p / s_row
+        in_range = u <= thd
+        uq = torch.round(torch.clamp(u, 0.0, thd))
+        pq = uq * s_row
+        dp = torch.where(in_range, dpq, torch.zeros_like(dpq))
+        t = torch.where(in_range, uq - u, torch.full_like(u, thd))
+        ds = torch.sum(t * dpq, dim=(0, 1, 3))
+    else:
+        pq, dp = p, dpq
+        ds = torch.zeros_like(s)
+    dv = torch.einsum("bhnm,bnhd->bmhd", pq, g)
+    dscores = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dscores = dscores * sm_scale
+    drhs = torch.einsum(f"bhnm,{spec}->bmhk", dscores, lhs)
+    dlhs = torch.einsum(f"bhnm,bmhk->{spec}", dscores, rhs)
+    return dlhs, drhs, dv, ds
+
+
+def check_args(what, ref, **args):
+    """Every argument a contiguous fp32 tensor of its shape on ref's
+    device."""
+    for name, (t, shape) in args.items():
+        if (t.device != ref.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"{what}: {name} must be a contiguous float32 tensor of "
+                f"shape {shape} on {ref.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+
+
+def _shapes(lhs, rhs, v):
     B, N, H, K = rhs.shape
     d = v.shape[-1]
     lhs_shape = (B, N, K) if lhs.ndim == 3 else (B, N, H, K)
-    args = {"lhs": (lhs, lhs_shape), "rhs": (rhs, (B, N, H, K)),
-            "v": (v, (B, N, H, d)), "s": (s, (N,))}
-    for name, (t, shape) in args.items():
-        if (t.device != rhs.device or t.dtype != torch.float32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"qkr_attention_fwd: {name} must be a contiguous float32 "
-                f"tensor of shape {shape} on {rhs.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    lib = _build.load("fused_attention")
-    smem_fn = lib.ofq_qkr_attention_smem_bytes
+    return B, N, H, K, d, lhs_shape
+
+
+def _smem_check(lib, fn_name, N, what):
+    smem_fn = getattr(lib, fn_name)
     smem_fn.restype = ctypes.c_longlong
     smem_fn.argtypes = [ctypes.c_int]
     if smem_fn(N) > _MAX_SMEM:
         raise ValueError(
-            f"qkr_attention_fwd: N={N} keys need {smem_fn(N)} bytes of "
-            f"shared memory per block, more than the card's {_MAX_SMEM}")
+            f"{what}: N={N} keys need {smem_fn(N)} bytes of shared memory "
+            f"per block, more than the card's {_MAX_SMEM}")
+
+
+def _launch(lhs, rhs, v, s, bits, sm_scale, quantize):
+    B, N, H, K, d, lhs_shape = _shapes(lhs, rhs, v)
+    check_args("qkr_attention_fwd", rhs, lhs=(lhs, lhs_shape),
+           rhs=(rhs, (B, N, H, K)), v=(v, (B, N, H, d)), s=(s, (N,)))
+    lib = _build.load("fused_attention")
+    _smem_check(lib, "ofq_qkr_attention_smem_bytes", N, "qkr_attention_fwd")
     fn = lib.ofq_qkr_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -85,26 +159,99 @@ def _launch(lhs, rhs, v, s, bits, sm_scale, quantize):
 
 
 def qkr_attention_fwd(lhs, rhs, v, s, bits, sm_scale, quantize):
-    """The kernel's wrapper: a CUDA tensor goes to the CUDA kernel (which
-    raises if it cannot build or launch), a CPU tensor to the plain
+    """The forward kernel's wrapper: a CUDA tensor goes to the CUDA kernel
+    (which raises if it cannot build or launch), a CPU tensor to the plain
     version."""
-    if rhs.is_cuda:
+    refuse_graph_cut("qkr_attention_fwd", lhs, rhs, v, s)
+    if on_card(rhs):
         return _launch(lhs, rhs, v, s, bits, sm_scale, quantize)
     return qkr_attention_fwd_reference(lhs, rhs, v, s, bits, sm_scale,
                                        quantize)
 
 
-# launches of the CUDA kernel; the CPU and comparison paths do not count
+def _launch_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize):
+    B, N, H, K, d, lhs_shape = _shapes(lhs, rhs, v)
+    check_args("qkr_attention_bwd", rhs, lhs=(lhs, lhs_shape),
+           rhs=(rhs, (B, N, H, K)), v=(v, (B, N, H, d)), s=(s, (N,)),
+           g=(g, (B, N, H, d)))
+    lib = _build.load("fused_attention_bwd")
+    _smem_check(lib, "ofq_qkr_attention_bwd_smem_bytes", N,
+                "qkr_attention_bwd")
+    fn = lib.ofq_qkr_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+    f32 = dict(dtype=torch.float32, device=rhs.device)
+    dlhs = torch.empty(lhs_shape, **f32)
+    drhs = torch.empty((B, N, H, K), **f32)
+    dv = torch.empty((B, N, H, d), **f32)
+    ds = torch.empty((N,), **f32)
+    pq_scratch = torch.empty((B, H, N, N), **f32)
+    dsc_scratch = torch.empty((B, H, N, N), **f32)
+    ds_part = torch.empty((B, H, N), **f32)
+    with torch.cuda.device(rhs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(lhs.data_ptr(), int(lhs.ndim == 4), rhs.data_ptr(),
+                 v.data_ptr(), s.data_ptr(), g.data_ptr(), dlhs.data_ptr(),
+                 drhs.data_ptr(), dv.data_ptr(), ds.data_ptr(),
+                 pq_scratch.data_ptr(), dsc_scratch.data_ptr(),
+                 ds_part.data_ptr(), B, N, H, K, d, float(2 ** bits - 1),
+                 float(sm_scale), int(bool(quantize)), stream)
+    _build.check(lib, err, "qkr_attention_bwd")
+    qkr_attention_bwd.launches += 1
+    return dlhs, drhs, dv, ds
+
+
+def qkr_attention_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize):
+    """The backward kernel's wrapper: a CUDA tensor goes to the CUDA kernel
+    (which raises if it cannot build or launch), a CPU tensor to the plain
+    version.  Returns (dlhs, drhs, dv, ds)."""
+    refuse_graph_cut("qkr_attention_bwd", lhs, rhs, v, s, g)
+    if on_card(rhs):
+        return _launch_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize)
+    return qkr_attention_bwd_reference(lhs, rhs, v, s, g, bits, sm_scale,
+                                       quantize)
+
+
+# launches of the CUDA kernels; the CPU and comparison paths do not count
 qkr_attention_fwd.launches = 0
+qkr_attention_bwd.launches = 0
+
+
+class _AttnCore(torch.autograd.Function):
+    """The custom VJP of `ofq_tpu.ops.fused_attention._attn_core`: the
+    forward kernel, with (lhs, rhs, v, s) kept as residuals, and the
+    backward kernel.  `fwd`/`bwd` are the wrappers or their plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, v, s, bits, sm_scale, quantize, fwd, bwd):
+        ctx.save_for_backward(lhs, rhs, v, s)
+        ctx.cfg = (bits, sm_scale, quantize, bwd)
+        return fwd(lhs, rhs, v, s, bits, sm_scale, quantize)
+
+    @staticmethod
+    def backward(ctx, g):
+        lhs, rhs, v, s = ctx.saved_tensors
+        bits, sm_scale, quantize, bwd = ctx.cfg
+        dlhs, drhs, dv, ds = bwd(lhs, rhs, v, s, g.contiguous(), bits,
+                                 sm_scale, quantize)
+        return dlhs, drhs, dv, ds, None, None, None, None, None
 
 
 def quantized_attention_core(lhs, rhs, v, s, *, bits: int, sm_scale: float,
                              quantize_softmax: bool = True,
-                             fwd=qkr_attention_fwd):
-    """Port of `ofq_tpu.ops.fused_attention.quantized_attention_core`
-    (forward): computes in fp32, returns v's dtype, (B, N, H, d).  `fwd`
-    is the kernel's wrapper, or its plain version for comparison on the
-    card."""
+                             fwd=qkr_attention_fwd, bwd=qkr_attention_bwd):
+    """Port of `ofq_tpu.ops.fused_attention.quantized_attention_core`:
+    computes in fp32, returns v's dtype, (B, N, H, d); differentiable in
+    lhs, rhs, v and s (pass s with the grad-scale factor already applied).
+    `fwd`/`bwd` are the kernels' wrappers, or their plain versions for
+    comparison on the card."""
     f32 = [t.to(torch.float32).contiguous() for t in (lhs, rhs, v, s)]
-    out = fwd(*f32, bits, sm_scale, quantize_softmax)
+    if needs_grad(*f32):
+        out = _AttnCore.apply(*f32, bits, sm_scale, quantize_softmax, fwd,
+                              bwd)
+    else:
+        out = fwd(*f32, bits, sm_scale, quantize_softmax)
     return out.to(v.dtype)

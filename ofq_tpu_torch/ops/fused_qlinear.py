@@ -1,5 +1,5 @@
 """Fully-fused quantized linear: LSQ(activation) + StatsQ(weight) + matmul
-(port of `ofq_tpu/ops/fused_qlinear.py`, forward).
+(port of `ofq_tpu/ops/fused_qlinear.py`).
 
     xq = s_x * round(clamp(u)),      u = (x + b_pre) / s_x
     wq = s_w * (2*round(c*n - .5)+1) / (2n)
@@ -11,6 +11,15 @@ the hand-written kernel `csrc/fused_qlinear.cu` (built at first use), on a
 CPU tensor it runs `fused_qlinear_fwd_reference`, the same arithmetic in
 plain PyTorch.  `s_w` (with its 1e-12 floor) and `bvec` are computed by
 torch ops before the launch, as in JAX.
+
+`fused_qlinear` reaches the kernel through `_FusedQLinear`, a
+`torch.autograd.Function` whose backward is the JAX package's closed-form
+`_fused_bwd` (XLA ops there, torch ops here; no Pallas kernel):
+
+    dxq = g @ wq^T ; dx = dxq * 1[u in range] ; db_pre = sum_m dx
+    ds  = gf * sum_{b,k} (in ? round(u)-u : clamp(u)) * dxq   per token
+    dW  = (xq + b_post)^T @ g  (STE; scale detached)
+    db_post = (sum_m g) @ wq^T ; dbias = sum_m g
 """
 
 from __future__ import annotations
@@ -20,9 +29,11 @@ import ctypes
 
 import torch
 
-from ..quant.lsq import thresholds
+from ..quant.lsq import grad_scale_factor, thresholds
 from ..quant.statsq import _CLIP_HI_EPS, statsq_scale
+from ..quant.ste import needs_grad
 from . import _build
+from .fused_attention import check_args, on_card, refuse_graph_cut
 
 _S_EPS = 1e-5
 
@@ -53,16 +64,9 @@ def fused_qlinear_fwd_reference(x2, s_tok, n_tok, b_pre, w, s_w, bvec,
 def _launch(x2, s_tok, n_tok, b_pre, w, s_w, bvec, a_lo, a_hi, n_w):
     M, K = x2.shape
     N = w.shape[1]
-    args = {"x2": (x2, (M, K)), "s_tok": (s_tok, (n_tok,)),
-            "b_pre": (b_pre, (K,)), "w": (w, (K, N)), "s_w": (s_w, (1, N)),
-            "bvec": (bvec, (N,))}
-    for name, (t, shape) in args.items():
-        if (t.device != x2.device or t.dtype != torch.float32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"fused_qlinear_fwd: {name} must be a contiguous float32 "
-                f"tensor of shape {shape} on {x2.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    check_args("fused_qlinear_fwd", x2, x2=(x2, (M, K)),
+               s_tok=(s_tok, (n_tok,)), b_pre=(b_pre, (K,)),
+               w=(w, (K, N)), s_w=(s_w, (1, N)), bvec=(bvec, (N,)))
     if M % n_tok:
         raise ValueError(f"fused_qlinear_fwd: M={M} is not a multiple of "
                          f"n_tok={n_tok}")
@@ -90,7 +94,8 @@ def fused_qlinear_fwd(x2, s_tok, n_tok, b_pre, w, s_w, bvec, a_lo, a_hi,
     """The kernel's wrapper: a CUDA tensor goes to the CUDA kernel (which
     raises if it cannot build or launch), a CPU tensor to the plain
     version."""
-    if x2.is_cuda:
+    refuse_graph_cut("fused_qlinear_fwd", x2, s_tok, b_pre, w, s_w, bvec)
+    if on_card(x2):
         return _launch(x2, s_tok, n_tok, b_pre, w, s_w, bvec, a_lo, a_hi,
                        n_w)
     return fused_qlinear_fwd_reference(x2, s_tok, n_tok, b_pre, w, s_w,
@@ -103,22 +108,22 @@ fused_qlinear_fwd.launches = 0
 fused_qlinear_fwd.launch_shapes = collections.Counter()
 
 
-def fused_qlinear(x, kernel, s, b_pre, b_post, bias=None, *, w_bits: int,
-                  a_bits: int, all_positive: bool = False,
-                  fwd=fused_qlinear_fwd):
-    """Fused QLinear forward (port of `ofq_tpu.ops.fused_qlinear.fused_qlinear`).
-
-    x: (..., n_tok, K); kernel: (K, N); s: (n_tok,) per-token LSQ scale;
-    b_pre/b_post: (K,) shifts; bias: (N,) or None.  Computes in fp32 and
-    returns x's dtype.  `fwd` is the kernel's wrapper, or its plain version
-    for comparison on the card.
-    """
-    a_lo, a_hi = thresholds(a_bits, all_positive)
-    n_w = float(2 ** (w_bits - 1))
+def _prep(x, s):
+    """x (..., n_tok, K) -> fp32 (M, K); the per-row scale, floored."""
     K = x.shape[-1]
     n_tok = x.shape[-2]
     x2 = x.reshape(-1, K).to(torch.float32).contiguous()
     s_eff = torch.clamp_min(s.to(torch.float32), _S_EPS).contiguous()
+    return x2, s_eff, n_tok
+
+
+def _fused_forward(x, kernel, s, b_pre, b_post, bias, w_bits, a_bits,
+                   all_positive, fwd):
+    """The forward of `_fused_fwd`: s_w, bvec and the operands prepared by
+    torch ops, then the kernel (or its plain version, `fwd`)."""
+    a_lo, a_hi = thresholds(a_bits, all_positive)
+    n_w = float(2 ** (w_bits - 1))
+    x2, s_eff, n_tok = _prep(x, s)
     w = kernel.to(torch.float32).contiguous()
     sw = statsq_scale(w)
     bvec = b_post.to(torch.float32) @ _wq_value(w, sw, n_w)
@@ -127,3 +132,72 @@ def fused_qlinear(x, kernel, s, b_pre, b_post, bias=None, *, w_bits: int,
     y2 = fwd(x2, s_eff, n_tok, b_pre.to(torch.float32).contiguous(), w,
              sw.contiguous(), bvec.contiguous(), a_lo, a_hi, n_w)
     return y2.reshape(*x.shape[:-1], kernel.shape[1]).to(x.dtype)
+
+
+class _FusedQLinear(torch.autograd.Function):
+    """The custom VJP of `ofq_tpu.ops.fused_qlinear._fused`: the kernel
+    forward, residuals (x, kernel, s, b_pre, b_post), and `_fused_bwd` in
+    torch ops."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, s, b_pre, b_post, bias, w_bits, a_bits,
+                all_positive, fwd):
+        ctx.save_for_backward(x, kernel, s, b_pre, b_post)
+        ctx.cfg = (w_bits, a_bits, all_positive, bias is not None,
+                   None if bias is None else bias.dtype)
+        return _fused_forward(x, kernel, s, b_pre, b_post, bias, w_bits,
+                              a_bits, all_positive, fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel, s, b_pre, b_post = ctx.saved_tensors
+        w_bits, a_bits, all_positive, has_bias, bias_dtype = ctx.cfg
+        a_lo, a_hi = thresholds(a_bits, all_positive)
+        n_w = float(2 ** (w_bits - 1))
+        gf = grad_scale_factor(x.shape, a_bits, all_positive, -2)
+        x2, s_eff, n_tok = _prep(x, s)
+        s_full = s_eff.repeat(x2.shape[0] // n_tok).reshape(-1, 1)
+        g2 = g.reshape(-1, g.shape[-1]).to(torch.float32)
+        w = kernel.to(torch.float32)
+        wq = _wq_value(w, statsq_scale(w), n_w)
+
+        u = (x2 + b_pre.to(torch.float32)) / s_full
+        in_range = (u >= a_lo) & (u <= a_hi)
+        dxq = g2 @ wq.T
+        dx2 = torch.where(in_range, dxq, torch.zeros_like(dxq))
+        db_pre = torch.sum(dx2, dim=0)
+        t = torch.where(in_range, torch.round(u) - u,
+                        torch.clamp(u, a_lo, a_hi))
+        ds_elem = (t * dxq).reshape(x.shape)
+        axes = tuple(a for a in range(x.ndim) if a != x.ndim - 2)
+        # no masking where s was floored at eps: clip_lower passes the
+        # identity gradient, as in the composition
+        ds = (torch.sum(ds_elem, dim=axes) * gf).to(s.dtype)
+        # the matmul input of the composed form is (xq + b_post)
+        xq = (s_full * torch.round(torch.clamp(u, a_lo, a_hi))
+              + b_post.to(torch.float32))
+        dkernel = (xq.T @ g2).to(kernel.dtype)
+        g_sum = torch.sum(g2, dim=0)
+        db_post = (g_sum @ wq.T).to(b_post.dtype)
+        dbias = g_sum.to(bias_dtype) if has_bias else None
+        dx = dx2.reshape(x.shape).to(x.dtype)
+        return (dx, dkernel, ds, db_pre.to(b_pre.dtype), db_post, dbias,
+                None, None, None, None)
+
+
+def fused_qlinear(x, kernel, s, b_pre, b_post, bias=None, *, w_bits: int,
+                  a_bits: int, all_positive: bool = False,
+                  fwd=fused_qlinear_fwd):
+    """Fused QLinear (port of `ofq_tpu.ops.fused_qlinear.fused_qlinear`),
+    differentiable in every tensor argument.
+
+    x: (..., n_tok, K); kernel: (K, N); s: (n_tok,) per-token LSQ scale;
+    b_pre/b_post: (K,) shifts; bias: (N,) or None.  Computes in fp32 and
+    returns x's dtype.  `fwd` is the kernel's wrapper, or its plain version
+    for comparison on the card.
+    """
+    args = (x, kernel, s, b_pre, b_post, bias, w_bits, a_bits,
+            all_positive, fwd)
+    if needs_grad(x, kernel, s, b_pre, b_post, bias):
+        return _FusedQLinear.apply(*args)
+    return _fused_forward(*args)

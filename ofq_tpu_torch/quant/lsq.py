@@ -1,5 +1,5 @@
-"""LSQ (learned step size) fake-quantization, forward
-(port of `ofq_tpu/quant/lsq.py:32-187, 249-280`).
+"""LSQ (learned step size) fake-quantization
+(port of `ofq_tpu/quant/lsq.py:32-280`).
 
 One function parameterized by the axis (or tuple of axes) that carries the
 learned scale:
@@ -9,7 +9,9 @@ learned scale:
   * a tuple, e.g. (1, 2) on (B, N, H, C): one entry per (token, head),
     stored flat in row-major order.
 The scale-gradient factors keep the per-shape formulas of the reference
-(`grad_scale_factor`), so the training slice can reuse them unchanged.
+(`grad_scale_factor`).  `lsq_quantize` differentiates through the fused
+custom VJP of the JAX package (`_LsqFused`); the image quantizer's
+`lsq_quantize_dynamic_signed` through the composition, as in JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Sequence
 
 import torch
 
-from .ste import clip_lower, grad_scale, round_pass
+from .ste import clip_lower, grad_scale, needs_grad, round_pass
 
 _S_EPS = 1e-5  # lower bound on the learned scale
 
@@ -125,10 +127,24 @@ def init_scale(x: torch.Tensor, bit: int, all_positive: bool,
     return s.to(torch.float32).to(s.dtype)
 
 
-def lsq_quantize(x: torch.Tensor, s: torch.Tensor, bit: int, *,
-                 all_positive: bool = False, channel_axis=-2) -> torch.Tensor:
-    """LSQ fake-quantization with learned scale `s` (forward values of
-    `ofq_tpu.quant.lsq.lsq_quantize`).  bit == 1 signed is sign(x)."""
+def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """`jnp.clip`: maximum(lo, x), then minimum(hi, .).  Same values as
+    `torch.clamp`, and JAX's gradient: a value exactly on a bound gets
+    half the cotangent (torch.maximum/minimum split ties evenly, as
+    lax.max/min do), where `torch.clamp` passes all of it."""
+    if not needs_grad(x):
+        return torch.clamp(x, lo, hi)
+    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(hi, torch.maximum(lo, x))
+
+
+def lsq_quantize_composed(x: torch.Tensor, s: torch.Tensor, bit: int, *,
+                          all_positive: bool = False,
+                          channel_axis=-2) -> torch.Tensor:
+    """LSQ fake-quantization by autograd through the composition
+    (`ofq_tpu.quant.lsq.lsq_quantize_composed`).  bit == 1 signed is
+    sign(x)."""
     thd_neg, thd_pos = thresholds(bit, all_positive)
     g = grad_scale_factor(x.shape, bit, all_positive, channel_axis)
     s_b = _broadcast_scale(s, x.shape, channel_axis)
@@ -137,8 +153,60 @@ def lsq_quantize(x: torch.Tensor, s: torch.Tensor, bit: int, *,
     if bit == 1 and not all_positive:
         y = torch.sign(y)
     else:
-        y = round_pass(torch.clamp(y, thd_neg, thd_pos))
+        y = round_pass(_clip(y, thd_neg, thd_pos))
     return y * s_eff
+
+
+class _LsqFused(torch.autograd.Function):
+    """The custom VJP of `ofq_tpu.quant.lsq._lsq_fused`: the composed
+    forward values, residuals (x, s), and one pass for the cotangents:
+
+        dx = g * [thd_neg <= u <= thd_pos]
+        ds = gf * sum (in ? round(u) - u : clip(u)) * g   (fp32 sums)
+
+    with u = x / max(s, 1e-5); no masking of ds where s was floored."""
+
+    @staticmethod
+    def forward(ctx, x, s, bit, all_positive, channel_axis):
+        ctx.save_for_backward(x, s)
+        ctx.cfg = (bit, all_positive, channel_axis)
+        return lsq_quantize_composed(x, s, bit, all_positive=all_positive,
+                                     channel_axis=channel_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        bit, all_positive, channel_axis = ctx.cfg
+        thd_neg, thd_pos = thresholds(bit, all_positive)
+        gf = grad_scale_factor(x.shape, bit, all_positive, channel_axis)
+        s_b = _broadcast_scale(s, x.shape, channel_axis)
+        s_eff = torch.where(s_b > _S_EPS, s_b,
+                            torch.full_like(s_b, _S_EPS)).to(x.dtype)
+        u = x / s_eff
+        in_range = (u >= thd_neg) & (u <= thd_pos)
+        dx = torch.where(in_range, g, torch.zeros_like(g))
+        # elementwise in x's dtype, summed in fp32 (as JAX does, also
+        # under fp64)
+        ds_elem = (torch.where(in_range, torch.round(u) - u,
+                               torch.clamp(u, thd_neg, thd_pos)) * g
+                   ).to(torch.float32)
+        keep = _scale_axes(channel_axis, x.ndim)
+        axes = tuple(a for a in range(x.ndim) if a not in keep)
+        ds = torch.sum(ds_elem, dim=axes) if axes else ds_elem
+        ds = (ds.reshape(s.shape) * gf).to(s.dtype)
+        return dx, ds, None, None, None
+
+
+def lsq_quantize(x: torch.Tensor, s: torch.Tensor, bit: int, *,
+                 all_positive: bool = False, channel_axis=-2) -> torch.Tensor:
+    """LSQ fake-quantization with learned scale `s`
+    (`ofq_tpu.quant.lsq.lsq_quantize`): the fused custom VJP for bit > 1
+    or an all-positive range, the composition for the bit == 1 sign path
+    (whose gradient through sign is zero)."""
+    if (bit == 1 and not all_positive) or not needs_grad(x, s):
+        return lsq_quantize_composed(x, s, bit, all_positive=all_positive,
+                                     channel_axis=channel_axis)
+    return _LsqFused.apply(x, s, bit, all_positive, channel_axis)
 
 
 def lsq_quantize_dynamic_signed(x: torch.Tensor, s: torch.Tensor, bit: int,
@@ -146,7 +214,8 @@ def lsq_quantize_dynamic_signed(x: torch.Tensor, s: torch.Tensor, bit: int,
                                 channel_axis=-1) -> torch.Tensor:
     """LSQ whose signed/unsigned range is a tensor-valued boolean (the
     sticky `signed` state of the image quantizer); stays on the device,
-    no host synchronisation."""
+    no host synchronisation.  Differentiated through the composition, as
+    in JAX."""
     lo = torch.where(signed, -(2 ** (bit - 1)), 0).to(x.dtype)
     thd_pos = torch.where(signed, 2 ** (bit - 1) - 1, 2 ** bit - 1)
     if channel_axis is None:
@@ -156,6 +225,5 @@ def lsq_quantize_dynamic_signed(x: torch.Tensor, s: torch.Tensor, bit: int,
     g = 1.0 / torch.sqrt(thd_pos.to(torch.float32) * numel)
     s_b = _broadcast_scale(s, x.shape, channel_axis)
     s_eff = grad_scale(clip_lower(s_b, _S_EPS), g)
-    y = torch.clamp(x / s_eff, lo, thd_pos.to(x.dtype))
-    y = round_pass(y)
+    y = round_pass(_clip(x / s_eff, lo, thd_pos))
     return y * s_eff

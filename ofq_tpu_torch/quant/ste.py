@@ -35,3 +35,12 @@ def at_least_f32(dtype: torch.dtype) -> torch.dtype:
 def passthrough(target: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Forward `target`, gradient flows to `x` with identity Jacobian."""
     return x + (target - x).detach()
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records an op on these tensors: grad mode on and
+    one of them requires grad.  The custom-VJP Functions are applied only
+    then; otherwise their forward runs directly (the same values), which
+    keeps the autograd machinery off the serving path."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

@@ -118,3 +118,69 @@ def test_k2_rejects_too_many_keys(dev):
     lhs, rhs, v, s = _k2_args(dev, 1, 1000, 1, 8, 8, True)
     with pytest.raises(ValueError, match="shared memory"):
         fa.qkr_attention_fwd(lhs, rhs, v, s, 2, 0.5, True)
+
+
+def _k3_close(got, ref):
+    """Share of elements outside 1e-4 * (1 + |ref|)."""
+    return float(((got - ref).abs() > 1e-4 * (1 + ref.abs())).float().mean())
+
+
+@pytest.mark.parametrize("B,N,H,K,d", [
+    (2, 198, 6, 384, 64),   # DeiT-S QKR
+    (3, 12, 3, 16, 8),      # small, ragged tiles
+    (1, 70, 2, 40, 100),    # d > 64: two output column tiles
+])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("quantize", [True, False])
+def test_k3_matches_plain(dev, B, N, H, K, d, shared, quantize):
+    """The backward kernel against its plain version.  Both recompute the
+    probabilities with fp32 sums in other orders, so a probability within
+    an ulp of an LSQ boundary may fall on the other side (the K2
+    precedent): at most 0.1 % of the elements of dlhs, drhs and dv
+    outside 1e-4 * (1 + |ref|).  Such a flip moves one entry of ds by
+    about |dpq|: at most 2 % of ds's entries outside 1e-4 * (1 + |ref|)."""
+    lhs, rhs, v, s = _k2_args(dev, B, N, H, K, d, shared)
+    g = torch.randn(B, N, H, d, generator=torch.Generator().manual_seed(3))
+    args = (lhs, rhs, v, s, g.to(dev), 2, d ** -0.5, quantize)
+    before = fa.qkr_attention_bwd.launches
+    got = fa.qkr_attention_bwd(*args)
+    assert fa.qkr_attention_bwd.launches == before + 1
+    ref = fa.qkr_attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dlhs", "drhs", "dv"), got, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _k3_close(a, b) <= 1e-3, name
+    ds, ds_ref = got[3], ref[3]
+    if quantize:
+        assert _k3_close(ds, ds_ref) <= 2e-2
+    else:
+        assert not ds.any()
+
+
+def test_k3_is_the_backward_of_k2(dev):
+    """Through autograd on the card, the core launches K2 forward and K3
+    backward once each, and its gradients match the plain Function's."""
+    lhs, rhs, v, s = _k2_args(dev, 2, 198, 6, 384, 64, True)
+    g = torch.randn(2, 198, 6, 64, device=dev)
+    outs = []
+    for fwd, bwd in ((fa.qkr_attention_fwd, fa.qkr_attention_bwd),
+                     (fa.qkr_attention_fwd_reference,
+                      fa.qkr_attention_bwd_reference)):
+        ts = [t.clone().requires_grad_() for t in (lhs, rhs, v, s)]
+        f0, b0 = fa.qkr_attention_fwd.launches, fa.qkr_attention_bwd.launches
+        out = fa.quantized_attention_core(*ts, bits=2, sm_scale=0.125,
+                                          fwd=fwd, bwd=bwd)
+        outs.append(torch.autograd.grad(out, ts, g))
+        launched = (fa.qkr_attention_fwd.launches - f0,
+                    fa.qkr_attention_bwd.launches - b0)
+        assert launched == ((1, 1) if fwd is fa.qkr_attention_fwd
+                            else (0, 0))
+    torch.cuda.synchronize()
+    for a, b in zip(outs[0][:3], outs[1][:3]):
+        assert _k3_close(a, b) <= 1e-3
+
+
+def test_raw_wrappers_refuse_grad_inputs_on_card(dev):
+    lhs, rhs, v, s = _k2_args(dev, 1, 12, 2, 16, 8, True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.qkr_attention_fwd(lhs.requires_grad_(), rhs, v, s, 2, 0.5, True)

@@ -242,8 +242,9 @@ def test_unsupported_configs_raise():
     non_qkr = dataclasses.replace(_port_policy(), qk_reparam=False)
     with pytest.raises(NotImplementedError, match="non-QKR"):
         create_model(NAME, policy=non_qkr, device="cpu")
-    with pytest.raises(NotImplementedError, match="float"):
-        create_model(NAME, policy=QuantPolicy(), device="cpu")
+    with pytest.raises(NotImplementedError, match="drop"):
+        create_model(NAME, policy=QuantPolicy(), device="cpu",
+                     drop_path_rate=0.1)
     lsq = dataclasses.replace(_port_policy(),
                               weight=QuantSpec(mode="lsq", bit=2))
     with pytest.raises(NotImplementedError, match="LsqLinear"):

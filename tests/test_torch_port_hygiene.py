@@ -41,6 +41,7 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import ofq_tpu_torch, ofq_tpu_torch.serve, ofq_tpu_torch.calibrate\n"
         "import ofq_tpu_torch.convert, ofq_tpu_torch.models\n"
+        "import ofq_tpu_torch.train, ofq_tpu_torch.train.loop\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'ofq_tpu') or m.startswith(('jax.', 'flax.', 'ofq_tpu.')))\n"
         "assert not bad, bad\n"

@@ -44,7 +44,7 @@ def _check_fp64(jmod, tmod, x, seed=0, names=("bias",)):
             jmod.init({"params": jax.random.key(seed)}, jnp.asarray(x)),
             np.float64)
     variables = jax_calibrate(jmod, variables, x)
-    load_into(tmod, variables)
+    load_into(tmod, variables).eval()  # JAX applies with no mutable state
     calibrate(tmod, torch.from_numpy(x))
     assert_scales_match(variables, tmod)
 
@@ -162,7 +162,7 @@ def test_qpatch_embed_sticky_sign_is_read_as_stored():
             np.float64)
         yj = np.asarray(jm.apply(to_jax_tree(variables, np.float64),
                                  jnp.asarray(x_neg)))
-    load_into(tm, variables)
+    load_into(tm, variables).eval()
     with torch.no_grad():
         yt = tm(torch.from_numpy(x_neg)).numpy()
     assert float(tm.input_quant.signed) == 0.0
