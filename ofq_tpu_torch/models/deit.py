@@ -10,6 +10,13 @@ tree paths with '.' for '/'.  Each path is quantized or float as the policy
 says: the quantized DeiT of the shipped recipes (W8A8 patch embedding and
 heads, QKR attention and quantized MLPs in every block) and the float
 teacher (empty policy).  LayerNorm; no dropout or drop-path.
+
+`compute_dtype='bfloat16'` runs the token stream in bf16 from the cast
+after `pos_embed` to the final norm (matmuls, residuals, norms and the
+activation fake-quant chains; norm statistics, LSQ scale gradients and
+every matmul sum in fp32), with fp32 parameters, as JAX's
+`DeiTConfig.compute_dtype` does; the patch embedding sees the fp32 image
+and the heads stay >= fp32.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from ..nn.attention import Attention, QAttentionQKR
 from ..nn.conv import PatchEmbedConv, QPatchEmbedConv
 from ..nn.linear import Dense, Mlp, QHeadLinear, QMlp
 from ..quant.policy import QuantPolicy
+from ..quant.ste import as_dtype, at_least_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,10 +51,13 @@ class DeiTConfig:
     drop_rate: float = 0.0
     attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.0
-    # quantized linears: None/'xla' (composition) | 'fused' (CUDA kernel)
+    # quantized linears: None/'xla' (composition) | 'pallas' (K4, the
+    # StatsQ matmul kernel) | 'fused' (K1, the fused QLinear kernel)
     matmul_impl: Optional[str] = None
     # attention tail: None/'xla' (composition) | 'fused' (CUDA kernel)
     attn_impl: Optional[str] = None
+    # None (fp32 stream) | 'bfloat16' (bf16 stream, fp32 parameters)
+    compute_dtype: Optional[str] = None
 
     @property
     def n_tokens(self) -> int:
@@ -73,21 +84,24 @@ VARIANTS = {
 class LayerNorm(nn.Module):
     """Flax `nn.LayerNorm` numerics: statistics in >= fp32 with the fast
     variance `E[x^2] - E[x]^2` (clamped at 0), then
-    `(x - mean) * (rsqrt(var + eps) * scale) + bias`."""
+    `(x - mean) * (rsqrt(var + eps) * scale) + bias` in >= fp32, returned
+    in `compute_dtype` when given (Flax's pinned `dtype`, `make_norm`)."""
 
-    def __init__(self, dim: int, eps: float):
+    def __init__(self, dim: int, eps: float, compute_dtype=None):
         super().__init__()
         self.eps = eps
+        self.compute_dtype = as_dtype(compute_dtype)
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xf = x.to(at_least_f32(x.dtype))
         mu = torch.mean(xf, dim=-1, keepdim=True)
         mu2 = torch.mean(xf * xf, dim=-1, keepdim=True)
         var = torch.clamp_min(mu2 - mu * mu, 0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale.to(xf.dtype)
-        return (xf - mu) * mul + self.bias.to(xf.dtype)
+        y = (xf - mu) * mul + self.bias.to(xf.dtype)
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
 
 def _not_in_slice(what: str) -> NotImplementedError:
@@ -104,7 +118,8 @@ class Block(nn.Module):
         C = cfg.embed_dim
         hidden = int(C * cfg.mlp_ratio)
         n_tok = cfg.n_tokens
-        self.norm1 = LayerNorm(C, cfg.ln_eps)
+        cd = cfg.compute_dtype
+        self.norm1 = LayerNorm(C, cfg.ln_eps, cd)
         if policy.quantizes(f"blocks.{index}.attn"):
             if not policy.qk_reparam:
                 raise _not_in_slice("QAttention (non-QKR)")
@@ -115,10 +130,11 @@ class Block(nn.Module):
                 input_bits=policy.act.bit,
                 quantize_softmax=policy.quantize_softmax,
                 aq_learnable=policy.act.learnable,
-                matmul_impl=cfg.matmul_impl, attn_impl=cfg.attn_impl)
+                matmul_impl=cfg.matmul_impl, attn_impl=cfg.attn_impl,
+                compute_dtype=cd)
         else:
             self.attn = Attention(C, cfg.num_heads)
-        self.norm2 = LayerNorm(C, cfg.ln_eps)
+        self.norm2 = LayerNorm(C, cfg.ln_eps, cd)
         if policy.quantizes(f"blocks.{index}.mlp"):
             if policy.lsq_weights:
                 raise _not_in_slice("full-LSQ weights (LsqLinear)")
@@ -127,7 +143,7 @@ class Block(nn.Module):
                 weight_bits=policy.weight.bit, input_bits=policy.act.bit,
                 act_layer=policy.act_layer,
                 aq_learnable=policy.act.learnable,
-                matmul_impl=cfg.matmul_impl)
+                matmul_impl=cfg.matmul_impl, compute_dtype=cd)
         else:
             self.mlp = Mlp(C, hidden, C)
 
@@ -144,6 +160,7 @@ class VisionTransformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.policy = policy
+        self.compute_dtype = as_dtype(cfg.compute_dtype)
         C = cfg.embed_dim
         for f in ("drop_rate", "attn_drop_rate", "drop_path_rate"):
             if getattr(cfg, f) != 0.0:
@@ -163,7 +180,7 @@ class VisionTransformer(nn.Module):
         self.block_names = [f"blocks_{i}" for i in range(cfg.depth)]
         for name in self.block_names:
             self.add_module(name, Block(cfg, policy, int(name[7:])))
-        self.norm = LayerNorm(C, cfg.ln_eps)
+        self.norm = LayerNorm(C, cfg.ln_eps, cfg.compute_dtype)
         self.head = self._head("head")
         if cfg.distilled:
             self.head_dist = self._head("head_dist")
@@ -199,10 +216,13 @@ class VisionTransformer(nn.Module):
             tokens.append(self.dist_token.expand(B, 1, C).to(patches.dtype))
         x = torch.cat(tokens + [patches], dim=1)
         x = x + self.pos_embed.to(x.dtype)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         for name in self.block_names:
             x = getattr(self, name)(x)
         # the heads stay >= fp32
         x = self.norm(x)
+        x = x.to(at_least_f32(x.dtype))
         if self.cfg.distilled:
             cls_logits = self.head(x[:, 0])
             dist_logits = self.head_dist(x[:, 1])

@@ -31,7 +31,8 @@ def create_model(name: str, *, policy: QuantPolicy, device="cuda",
     (a fresh generator seeded with 0 when None); load trained weights with
     `convert.load_flax_params` and set the LSQ scales with
     `calibrate.calibrate` or from the checkpoint.  `overrides` replace
-    `DeiTConfig` fields (e.g. `matmul_impl="fused", attn_impl="fused"`).
+    `DeiTConfig` fields (e.g. `matmul_impl="pallas",
+    compute_dtype="bfloat16"`).
     """
     dev = resolve_device(device)
     if name not in VARIANTS:

@@ -11,7 +11,9 @@ one (H*C, C) matrix with per-row scales, and the attention logits become
     backward).
 Calibration always runs the composition, so `quan_softmax.s` is set from
 the probabilities themselves, never through the kernel (the rule the JAX
-package enforces in `_SoftmaxScaleParam`).
+package enforces in `_SoftmaxScaleParam`).  Under `compute_dtype`
+('bfloat16') the chain and the composed tail run in that dtype, as in JAX;
+the fused tail (fp32 kernels) refuses it.
 """
 
 from __future__ import annotations
@@ -26,9 +28,9 @@ from ..ops.fused_attention import (qkr_attention_bwd,
                                    quantized_attention_core, softmax)
 from ..quant.lsq import grad_scale_factor
 from ..quant.statsq import statsq_quantize
-from ..quant.ste import clip_lower, grad_scale
+from ..quant.ste import as_dtype, clip_lower, grad_scale, weak_scalar
 from .bias import LearnableBias
-from .linear import Dense, QLinear, check_bits
+from .linear import Dense, QLinear, check_bits, check_fp32_kernels
 from .quantizers import LsqAct
 
 
@@ -41,10 +43,13 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
     B, N, C = x.shape
     H = mod.num_heads
     d = C // H
+    cd = mod.compute_dtype
     xq = mod.quant_x_move_aft(mod.quant_x(mod.quant_x_move_b4(x)))
 
     vq = statsq_quantize(mod.v_kernel, mod.weight_bits)
-    v_out = torch.matmul(xq, vq.to(xq.dtype)) + mod.v_bias.to(xq.dtype)
+    if cd is not None:
+        vq = vq.to(cd)
+    v_out = _matmul(xq, vq) + mod.v_bias.to(xq.dtype)
     v_out = mod.move_v_aft(mod.quan_v(mod.move_v_b4(v_out)))
     v = v_out.reshape(B, N, H, d)
 
@@ -52,11 +57,20 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
     kh = mod.k_kernel.reshape(C, H, d)
     w_qk = torch.einsum("ihd,jhd->hij", qh, kh).reshape(H * C, C)
     w_qk = statsq_quantize(w_qk, mod.weight_bits, reduce_axis=-1)
-    w_qk = w_qk.reshape(H, C, C).to(xq.dtype)
+    w_qk = w_qk.reshape(H, C, C)
+    if cd is not None:
+        w_qk = w_qk.to(cd)
 
-    qkx = torch.einsum("bnj,hij->bnhi", xq, w_qk)
+    dt = torch.promote_types(xq.dtype, w_qk.dtype)
+    qkx = torch.einsum("bnj,hij->bnhi", xq.to(dt), w_qk.to(dt))
     qkx = mod.move_qkx_aft(mod.quan_qkx(mod.move_qkx_b4(qkx)))
     return xq, v, qkx
+
+
+def _matmul(a, b):
+    """`a @ b` in the promoted dtype, as jnp's `@`."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
 
 
 def _fused_attention(lhs, rhs, v, scale_param, *, bits, sm_scale,
@@ -93,13 +107,15 @@ class QAttentionQKR(nn.Module):
                  quantize_softmax: bool = True,
                  aq_learnable: bool = True,
                  matmul_impl: str | None = None,
-                 attn_impl: str | None = None):
+                 attn_impl: str | None = None, compute_dtype=None):
         super().__init__()
         check_bits(weight_bits=weight_bits, input_bits=input_bits)
         if attn_impl not in (None, "xla", "fused"):
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r}: the port has the composition and "
                 "'fused'")
+        compute_dtype = as_dtype(compute_dtype)
+        check_fp32_kernels("attn_impl", attn_impl, compute_dtype)
         C, H = dim, num_heads
         self.num_heads = H
         self.weight_bits = weight_bits
@@ -107,6 +123,7 @@ class QAttentionQKR(nn.Module):
         self.quantize_softmax = quantize_softmax
         self.aq_learnable = aq_learnable
         self.attn_impl = attn_impl
+        self.compute_dtype = compute_dtype
         self.use_kernels = True
         self.calibrating = False
 
@@ -130,7 +147,8 @@ class QAttentionQKR(nn.Module):
                                        channel_axis=-2, **lrn)
         self.proj = QLinear(C, C, n_tokens, weight_bits=weight_bits,
                             input_bits=input_bits, aq_learnable=aq_learnable,
-                            matmul_impl=matmul_impl)
+                            matmul_impl=matmul_impl,
+                            compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
@@ -149,7 +167,8 @@ class QAttentionQKR(nn.Module):
                 aq_learnable=self.aq_learnable, fwd=kernels[0],
                 bwd=kernels[1])
         else:
-            attn = softmax(torch.einsum("bnc,bmhc->bhnm", xq, qkx) * scale)
+            attn = torch.einsum("bnc,bmhc->bhnm", xq, qkx)
+            attn = softmax(attn * weak_scalar(scale, attn.dtype))
             if self.quantize_softmax:
                 attn = self.quan_softmax(attn)
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
@@ -173,6 +192,7 @@ class Attention(nn.Module):
         d = C // H
         q, k, v = (t.reshape(B, N, H, d)
                    for t in torch.split(self.qkv(x), C, dim=-1))
-        attn = softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * d ** -0.5)
+        attn = torch.einsum("bnhd,bmhd->bhnm", q, k)
+        attn = softmax(attn * weak_scalar(d ** -0.5, attn.dtype))
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
         return self.proj(out)

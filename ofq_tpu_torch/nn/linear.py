@@ -2,11 +2,14 @@
 `ofq_tpu/nn/linear.py:125-252, 333-451`, and Flax's `nn.Dense`).
 
 Kernels keep the Flax `(in, out)` layout.  `QLinear` has the composed
-branch (bias -> LSQ -> bias -> x @ StatsQ(W)) and the fused branch
-(`matmul_impl='fused'`: one CUDA kernel, `ops/fused_qlinear.py`); both
-read the same parameters (`move_b4.bias`, `input_quant.s`,
-`move_aft.bias`, `kernel`, `bias`), as the JAX param tree is the same for
-every `matmul_impl`.
+branch (bias -> LSQ -> bias -> x @ StatsQ(W)), whose product is the
+composition or, with `matmul_impl='pallas'`, the K4 kernel
+(`ops/pallas_statsq.py`), and the fused branch (`matmul_impl='fused'`: one
+CUDA kernel, `ops/fused_qlinear.py`); all read the same parameters
+(`move_b4.bias`, `input_quant.s`, `move_aft.bias`, `kernel`, `bias`), as
+the JAX param tree is the same for every `matmul_impl`.  `compute_dtype`
+('bfloat16') runs the product in that dtype with fp32 sums, as JAX's
+`statsq_matmul` does; the fused kernel takes fp32 only.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ from torch import nn
 
 from ..ops.fused_qlinear import (fused_qlinear, fused_qlinear_fwd,
                                  fused_qlinear_fwd_reference)
-from ..quant.statsq import statsq_quantize
+from ..ops.pallas_statsq import pallas_statsq_fwd, pallas_statsq_fwd_reference
+from ..ops.statsq_matmul import statsq_matmul
+from ..quant.ste import as_dtype
 from .bias import LearnableBias
 from .quantizers import LsqAct, LsqWeight
 
@@ -30,6 +35,16 @@ def _check_act(act_layer: str) -> None:
     if act_layer != "gelu":
         raise NotImplementedError(
             f"act_layer={act_layer!r}: the port has GELU only")
+
+
+def check_fp32_kernels(what: str, impl, compute_dtype) -> None:
+    """The fused kernels (K1-K3) take fp32 only: a bf16 stream through them
+    is not in the port yet."""
+    if impl == "fused" and compute_dtype is not None:
+        raise NotImplementedError(
+            f"{what}='fused' with compute_dtype={compute_dtype}: the fused "
+            "kernels are fp32 only; the bf16 stream runs the composition "
+            "or matmul_impl='pallas' (ROADMAP.md, Queue 1)")
 
 
 def check_bits(**bits: int) -> None:
@@ -48,24 +63,26 @@ class QLinear(nn.Module):
     fc2 inputs).  `n_tokens` is the length of the token axis (axis -2 of
     the input), which carries the per-token LSQ scale.  `use_kernels`
     and `calibrating` are set model-wide (see `VisionTransformer`).
-    `aq_learnable=False` detaches the input scale on both branches.
+    `aq_learnable=False` detaches the input scale on every branch.
     """
 
     def __init__(self, in_features: int, features: int, n_tokens: int, *,
                  weight_bits: int, input_bits: int, symmetric: bool = True,
                  aq_learnable: bool = True,
-                 matmul_impl: str | None = None):
+                 matmul_impl: str | None = None, compute_dtype=None):
         super().__init__()
         check_bits(weight_bits=weight_bits, input_bits=input_bits)
-        if matmul_impl not in (None, "xla", "fused"):
+        if matmul_impl not in (None, "xla", "fused", "pallas"):
             raise NotImplementedError(
                 f"matmul_impl={matmul_impl!r}: the port has the composed "
-                "path and 'fused'; 'pallas' (StatsQ matmul) and 'int8' are "
-                "ROADMAP items")
+                "path, 'pallas' and 'fused'; 'int8' is a ROADMAP item")
+        compute_dtype = as_dtype(compute_dtype)
+        check_fp32_kernels("matmul_impl", matmul_impl, compute_dtype)
         self.weight_bits = weight_bits
         self.input_bits = input_bits
         self.symmetric = symmetric
         self.matmul_impl = matmul_impl
+        self.compute_dtype = compute_dtype
         self.use_kernels = True
         self.calibrating = False
         self.kernel = nn.Parameter(torch.zeros(in_features, features))
@@ -87,8 +104,12 @@ class QLinear(nn.Module):
                 fwd=(fused_qlinear_fwd if self.use_kernels
                      else fused_qlinear_fwd_reference))
         x = self.move_aft(self.input_quant(self.move_b4(x)))
-        w = statsq_quantize(self.kernel, self.weight_bits)
-        y = torch.matmul(x, w.to(x.dtype))
+        y = statsq_matmul(
+            x, self.kernel, self.weight_bits,
+            impl="pallas" if self.matmul_impl == "pallas" else "xla",
+            compute_dtype=self.compute_dtype,
+            fwd=(pallas_statsq_fwd if self.use_kernels
+                 else pallas_statsq_fwd_reference))
         return y + self.bias.to(y.dtype)
 
 
@@ -118,11 +139,12 @@ class QMlp(nn.Module):
                  out_features: int, n_tokens: int, *, weight_bits: int,
                  input_bits: int, act_layer: str = "gelu",
                  aq_learnable: bool = True,
-                 matmul_impl: str | None = None):
+                 matmul_impl: str | None = None, compute_dtype=None):
         super().__init__()
         _check_act(act_layer)
         kw = dict(weight_bits=weight_bits, input_bits=input_bits,
-                  aq_learnable=aq_learnable, matmul_impl=matmul_impl)
+                  aq_learnable=aq_learnable, matmul_impl=matmul_impl,
+                  compute_dtype=compute_dtype)
         self.fc1 = QLinear(in_features, hidden_features, n_tokens,
                            symmetric=True, **kw)
         self.fc2 = QLinear(hidden_features, out_features, n_tokens,
@@ -133,7 +155,9 @@ class QMlp(nn.Module):
 
 
 class Dense(nn.Module):
-    """Flax `nn.Dense`: `x @ kernel + bias`, kernel `(in, out)`."""
+    """Flax `nn.Dense`: `x @ kernel + bias`, kernel `(in, out)`, in the
+    promoted dtype of x and the parameters (Flax's `promote_dtype`: a bf16
+    teacher's bf16 stream stays bf16, its fp32 head input stays fp32)."""
 
     def __init__(self, in_features: int, features: int, bias: bool = True):
         super().__init__()
@@ -141,8 +165,9 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.kernel.to(x.dtype))
-        return y if self.bias is None else y + self.bias.to(y.dtype)
+        dt = torch.promote_types(x.dtype, self.kernel.dtype)
+        y = torch.matmul(x.to(dt), self.kernel.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Mlp(nn.Module):

@@ -6,15 +6,25 @@ its first launch on a CUDA tensor (see `_build.py`).
 
 from .fused_attention import qkr_attention_bwd, qkr_attention_fwd
 from .fused_qlinear import fused_qlinear_fwd
+from .pallas_statsq import pallas_statsq_dx, pallas_statsq_fwd
+
+_COUNTED = (fused_qlinear_fwd, qkr_attention_fwd, qkr_attention_bwd,
+            pallas_statsq_fwd, pallas_statsq_dx)
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    fused_qlinear_fwd.launches = 0
-    fused_qlinear_fwd.launch_shapes.clear()
-    qkr_attention_fwd.launches = 0
-    qkr_attention_bwd.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
+        if hasattr(fn, "launch_shapes"):
+            fn.launch_shapes.clear()
 
 
-__all__ = ["fused_qlinear_fwd", "qkr_attention_bwd", "qkr_attention_fwd",
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count, by wrapper name."""
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+__all__ = ["fused_qlinear_fwd", "launch_counts", "pallas_statsq_dx",
+           "pallas_statsq_fwd", "qkr_attention_bwd", "qkr_attention_fwd",
            "reset_launch_counts"]

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from ..quant.ste import needs_grad
+from ..quant.ste import at_least_f32, needs_grad
 from . import _build
 
 _S_EPS = 1e-5
@@ -39,9 +39,13 @@ _MAX_SMEM = 232448
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """exp(x - max) / sum, the division form of jax.nn.softmax."""
-    e = torch.exp(x - torch.amax(x, dim=dim, keepdim=True))
-    return e / torch.sum(e, dim=dim, keepdim=True)
+    """exp(x - max) / sum, the division form of jax.nn.softmax.  In bf16 as
+    XLA compiles it: the numerator is the bf16 exp, the denominator the
+    fp32 sum of the unrounded fp32 exps, rounded once (PERF.md); in fp32
+    and fp64 the casts are no-ops."""
+    e = torch.exp((x - torch.amax(x, dim=dim, keepdim=True)).to(
+        at_least_f32(x.dtype)))
+    return e.to(x.dtype) / torch.sum(e, dim=dim, keepdim=True).to(x.dtype)
 
 
 def refuse_graph_cut(what: str, *tensors: torch.Tensor) -> None:
@@ -107,13 +111,16 @@ def qkr_attention_bwd_reference(lhs, rhs, v, s, g, bits, sm_scale,
 
 
 def check_args(what, ref, **args):
-    """Every argument a contiguous fp32 tensor of its shape on ref's
-    device."""
-    for name, (t, shape) in args.items():
-        if (t.device != ref.device or t.dtype != torch.float32
+    """Every argument a contiguous tensor of its shape on ref's device, of
+    the dtype given (`name=(t, shape)` or `name=(t, shape, dtype)`; fp32
+    when none is given)."""
+    for name, (t, shape, *dtype) in args.items():
+        dt = dtype[0] if dtype else torch.float32
+        if (t.device != ref.device or t.dtype != dt
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(
-                f"{what}: {name} must be a contiguous float32 tensor of "
+                f"{what}: {name} must be a contiguous "
+                f"{str(dt).replace('torch.', '')} tensor of "
                 f"shape {shape} on {ref.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
 

@@ -21,7 +21,7 @@ from typing import Sequence
 
 import torch
 
-from .ste import clip_lower, grad_scale, needs_grad, round_pass
+from .ste import at_least_f32, clip_lower, grad_scale, needs_grad, round_pass
 
 _S_EPS = 1e-5  # lower bound on the learned scale
 
@@ -185,11 +185,15 @@ class _LsqFused(torch.autograd.Function):
         u = x / s_eff
         in_range = (u >= thd_neg) & (u <= thd_pos)
         dx = torch.where(in_range, g, torch.zeros_like(g))
-        # elementwise in x's dtype, summed in fp32 (as JAX does, also
-        # under fp64)
+        # summed in fp32 (as JAX does, also under fp64).  The terms are
+        # formed in at least fp32 from u and g in x's dtype: JAX writes
+        # them in x's dtype, but XLA, compiling the step, keeps a bf16
+        # product that only feeds an fp32 sum in fp32 (measured on XLA-CPU,
+        # PERF.md); in fp32 and fp64 the two agree.
+        hi = at_least_f32(x.dtype)
         ds_elem = (torch.where(in_range, torch.round(u) - u,
-                               torch.clamp(u, thd_neg, thd_pos)) * g
-                   ).to(torch.float32)
+                               torch.clamp(u, thd_neg, thd_pos)).to(hi)
+                   * g.to(hi)).to(torch.float32)
         keep = _scale_axes(channel_axis, x.ndim)
         axes = tuple(a for a in range(x.ndim) if a not in keep)
         ds = torch.sum(ds_elem, dim=axes) if axes else ds_elem

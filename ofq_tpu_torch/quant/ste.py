@@ -8,6 +8,8 @@ gradient identities are ready for the training slice.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -30,6 +32,24 @@ def clip_lower(x: torch.Tensor, eps) -> torch.Tensor:
 def at_least_f32(dtype: torch.dtype) -> torch.dtype:
     """Promote, never demote: the quantizer-math dtype."""
     return torch.promote_types(dtype, torch.float32)
+
+
+def as_dtype(dtype) -> torch.dtype | None:
+    """A compute dtype given as JAX names it ('bfloat16') or as a torch
+    dtype; None stays None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, str(dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX applies it to an array of `dtype` (a weakly
+    typed constant): rounded to that dtype first.  torch would multiply a
+    bf16 tensor by the scalar in fp32, e.g. by 8 ** -0.5 instead of its
+    bf16 value 0.353515625.  Cached: the attention forwards ask for the
+    same few values on every call."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def passthrough(target: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

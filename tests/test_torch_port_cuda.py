@@ -184,3 +184,94 @@ def test_raw_wrappers_refuse_grad_inputs_on_card(dev):
     lhs, rhs, v, s = _k2_args(dev, 1, 12, 2, 16, 8, True)
     with pytest.raises(RuntimeError, match="requires grad"):
         fa.qkr_attention_fwd(lhs.requires_grad_(), rhs, v, s, 2, 0.5, True)
+
+
+def _k45_args(dev, M, K, N, dtype, seed=0):
+    """K4/K5 operands at one shape: activations (M, K) or upstream
+    gradients (M, N) in `dtype`, a kernel with StatsQ ties in half its
+    columns (mean|w| = 0.5, c * n integral), the detached scale."""
+    from ofq_tpu_torch.ops import pallas_statsq as ps
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(K, N, generator=g) / K ** 0.5
+    t = torch.randint(0, 2, (K // 2, N // 2), generator=g) / 2
+    w[:, : N // 2] = torch.cat([0.5 - t, 0.5 + t], 0) * (
+        torch.randint(0, 2, (K, N // 2), generator=g) * 2 - 1)
+    x = (torch.randint(-2, 2, (M, K), generator=g) * 0.25
+         + torch.randn(K, generator=g) * 0.05)
+    gr = torch.randn(M, N, generator=g) * 1e-3
+    w = w.to(dev)
+    s = statsq_scale(w).contiguous()
+    return (x.to(dev, dtype).contiguous(), gr.to(dev, dtype).contiguous(),
+            w, s, ps._quant_tile(w, s, 2.0))
+
+
+def _k45_close(y, ref, abs_sum):
+    """fp32 sums in two orders: 1e-5 of the sum of |terms|; in bf16 also
+    2^-7 * max(|y|, |ref|), at least one output ulp."""
+    d = (y.float() - ref.float()).abs()
+    lim = 1e-5 * abs_sum
+    if y.dtype == torch.bfloat16:
+        lim = lim + 2 ** -7 * torch.maximum(y.float().abs(),
+                                            ref.float().abs())
+    return bool((d <= lim).all())
+
+
+@pytest.mark.parametrize("M,K,N", [(12672, 384, 1536), (1000, 200, 72)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain(dev, M, K, N, dtype):
+    from ofq_tpu_torch.ops import pallas_statsq as ps
+    x, _, w, s, wq = _k45_args(dev, M, K, N, dtype)
+    before = ps.pallas_statsq_fwd.launches
+    y = ps.pallas_statsq_fwd(x, w, s, 2.0)
+    assert ps.pallas_statsq_fwd.launches == before + 1
+    ref = ps.pallas_statsq_fwd_reference(x, w, s, 2.0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and torch.isfinite(y).all()
+    assert _k45_close(y, ref, ps._acc32(x.abs(), wq.abs()))
+
+
+@pytest.mark.parametrize("M,K,N", [(12672, 1536, 384), (1000, 200, 72)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_matches_plain(dev, M, K, N, dtype):
+    from ofq_tpu_torch.ops import pallas_statsq as ps
+    _, g, w, s, wq = _k45_args(dev, M, K, N, dtype)
+    before = ps.pallas_statsq_dx.launches
+    dx = ps.pallas_statsq_dx(g, w, s, 2.0, dtype)
+    assert ps.pallas_statsq_dx.launches == before + 1
+    ref = ps.pallas_statsq_dx_reference(g, w, s, 2.0, dtype)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and torch.isfinite(dx).all()
+    assert _k45_close(dx, ref, ps._acc32(g.abs(), wq.abs().T))
+
+
+def test_k4_k5_raw_wrappers_refuse_grad_inputs(dev):
+    from ofq_tpu_torch.ops import pallas_statsq as ps
+    x, g, w, s, _ = _k45_args(dev, 64, 32, 16, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ps.pallas_statsq_fwd(x.float().requires_grad_(), w, s, 2.0)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ps.pallas_statsq_dx(g, w.requires_grad_(), s, 2.0, g.dtype)
+
+
+def test_k4_is_the_forward_of_the_pallas_matmul(dev):
+    """Through autograd on the card, the pallas matmul launches K4 once
+    (and no K5), and its output and gradients match the plain Function's."""
+    from ofq_tpu_torch.ops import pallas_statsq as ps
+    x, _, w, s, wq = _k45_args(dev, 2 * 198, 384, 384, torch.bfloat16)
+    outs = []
+    for fwd in (ps.pallas_statsq_fwd, ps.pallas_statsq_fwd_reference):
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        f0, d0 = ps.pallas_statsq_fwd.launches, ps.pallas_statsq_dx.launches
+        y = ps.pallas_statsq_matmul(xi, wi, 2, compute_dtype=torch.bfloat16,
+                                    fwd=fwd)
+        gy = torch.ones_like(y)
+        outs.append((y,) + torch.autograd.grad(y, (xi, wi), gy))
+        launched = (ps.pallas_statsq_fwd.launches - f0,
+                    ps.pallas_statsq_dx.launches - d0)
+        assert launched == ((1, 0) if fwd is ps.pallas_statsq_fwd
+                            else (0, 0))
+    torch.cuda.synchronize()
+    assert _k45_close(outs[0][0], outs[1][0], ps._acc32(x.abs(), wq.abs()))
+    # the backward is the same torch ops on both paths
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
