@@ -104,9 +104,11 @@ class LayerNorm(nn.Module):
         return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
 
-def _not_in_slice(what: str) -> NotImplementedError:
+def not_in_port(what: str, item: int) -> NotImplementedError:
+    """The error for a configuration the port does not have yet, naming its
+    item in ROADMAP.md's Queue 1."""
     return NotImplementedError(
-        f"{what} is not in the port yet (ROADMAP.md, Queue 1)")
+        f"{what} is not in the port yet (ROADMAP.md, Queue 1 item {item})")
 
 
 class Block(nn.Module):
@@ -122,9 +124,9 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(C, cfg.ln_eps, cd)
         if policy.quantizes(f"blocks.{index}.attn"):
             if not policy.qk_reparam:
-                raise _not_in_slice("QAttention (non-QKR)")
+                raise not_in_port("QAttention (non-QKR)", 3)
             if policy.lsq_weights:
-                raise _not_in_slice("full-LSQ weights (LsqLinear)")
+                raise not_in_port("full-LSQ weights (LsqLinear)", 3)
             self.attn = QAttentionQKR(
                 C, cfg.num_heads, n_tok, weight_bits=policy.weight.bit,
                 input_bits=policy.act.bit,
@@ -137,7 +139,7 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(C, cfg.ln_eps, cd)
         if policy.quantizes(f"blocks.{index}.mlp"):
             if policy.lsq_weights:
-                raise _not_in_slice("full-LSQ weights (LsqLinear)")
+                raise not_in_port("full-LSQ weights (LsqLinear)", 3)
             self.mlp = QMlp(
                 C, hidden, C, n_tok,
                 weight_bits=policy.weight.bit, input_bits=policy.act.bit,
@@ -152,9 +154,32 @@ class Block(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
-class VisionTransformer(nn.Module):
+class KernelSwitch:
+    """`use_kernels` for a whole model: whether CUDA tensors go through the
+    hand-written kernels (the default) or through their plain PyTorch
+    versions, for comparison.  Set on every submodule that has the flag."""
+
+    def _kernel_users(self):
+        return [m for m in self.modules()
+                if m is not self and hasattr(m, "use_kernels")]
+
+    @property
+    def use_kernels(self) -> bool:
+        return all(m.use_kernels for m in self._kernel_users())
+
+    @use_kernels.setter
+    def use_kernels(self, flag: bool) -> None:
+        for m in self._kernel_users():
+            m.use_kernels = bool(flag)
+
+
+class VisionTransformer(KernelSwitch, nn.Module):
     """DeiT: (B, H, W, 3) NHWC -> (B, classes), or (cls, dist) logits for a
     distilled model in train mode."""
+
+    # the reference's trunc_normal_(std=.02) on every nn.Linear, the float
+    # heads included (`init_weights`)
+    FLOAT_HEAD_STD = 0.02
 
     def __init__(self, cfg: DeiTConfig, policy: QuantPolicy):
         super().__init__()
@@ -164,8 +189,8 @@ class VisionTransformer(nn.Module):
         C = cfg.embed_dim
         for f in ("drop_rate", "attn_drop_rate", "drop_path_rate"):
             if getattr(cfg, f) != 0.0:
-                raise _not_in_slice(f"{f}={getattr(cfg, f)} (dropout and "
-                                    "drop-path)")
+                raise not_in_port(f"{f}={getattr(cfg, f)} (dropout and "
+                                  "drop-path)", 1)
         grid = cfg.img_size // cfg.patch_size
         if policy.quantizes("patch_embed.proj"):
             self.patch_embed = QPatchEmbedConv(
@@ -191,21 +216,6 @@ class VisionTransformer(nn.Module):
         if self.policy.quantizes(path):
             return QHeadLinear(C, classes)
         return Dense(C, classes)
-
-    def _kernel_users(self):
-        return [m for m in self.modules()
-                if m is not self and hasattr(m, "use_kernels")]
-
-    @property
-    def use_kernels(self) -> bool:
-        """Whether CUDA tensors go through the hand-written kernels (the
-        default) or through their plain PyTorch versions, for comparison."""
-        return all(m.use_kernels for m in self._kernel_users())
-
-    @use_kernels.setter
-    def use_kernels(self, flag: bool) -> None:
-        for m in self._kernel_users():
-            m.use_kernels = bool(flag)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B = x.shape[0]
@@ -238,27 +248,37 @@ def _trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
                           generator=g)
 
 
-def init_weights(model: VisionTransformer, generator: torch.Generator, *,
-                 head_std: Optional[float] = None) -> VisionTransformer:
+# parameters drawn from truncated-normal 0.02: DeiT's tokens and position
+# embedding, Swin's relative-position bias tables
+_TRUNC_002 = ("cls_token", "dist_token", "pos_embed",
+              "relative_position_bias_table")
+
+
+def init_weights(model: nn.Module, generator: torch.Generator, *,
+                 head_std: Optional[float] = None) -> nn.Module:
     """Random weights with the JAX package's initializers, drawn from
     `generator`: lecun-normal kernels (truncated normal, std
-    1/sqrt(fan_in)/0.8796), truncated-normal 0.02 tokens and pos_embed,
-    zero biases, unit LayerNorm scales, unit LSQ scales (until
-    `calibrate`).  Quantized heads' kernels are zero as in JAX unless
-    `head_std` is given; float heads' kernels are truncated-normal 0.02
-    (or `head_std`).  The draws differ from jax.random's: same
-    distribution, not the same numbers."""
+    1/sqrt(fan_in)/0.8796), truncated-normal 0.02 tokens, pos_embed and
+    relative-position bias tables, zero biases, unit LayerNorm scales,
+    unit LSQ scales (until `calibrate`).  Quantized heads' kernels are
+    zero as in JAX unless `head_std` is given; float heads' kernels are
+    drawn with the model's `FLOAT_HEAD_STD` (DeiT: truncated-normal 0.02;
+    None, Swin: lecun-normal) or `head_std`.  The draws differ from
+    jax.random's: same distribution, not the same numbers."""
     lecun_std_unit = 1.0 / 0.87962566103423978
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             owner = name.split(".")[0]
-            if leaf in ("cls_token", "dist_token", "pos_embed"):
+            head = owner in ("head", "head_dist")
+            float_head = head and isinstance(getattr(model, owner), Dense)
+            std = head_std
+            if std is None and float_head:
+                std = model.FLOAT_HEAD_STD
+            if leaf in _TRUNC_002:
                 _trunc_normal_(p, 0.02, generator)
-            elif leaf.endswith("kernel") and owner in ("head", "head_dist"):
-                std = head_std
-                if std is None and isinstance(getattr(model, owner), Dense):
-                    std = 0.02
+            elif leaf.endswith("kernel") and head and (
+                    std is not None or not float_head):
                 if std is None:
                     p.zero_()
                 else:

@@ -1,13 +1,16 @@
-"""Model registry (port of `ofq_tpu/models/registry.py:21-32`), DeiT only."""
+"""Model registry (port of `ofq_tpu/models/registry.py:21-32`): the DeiT
+and Swin names."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch import nn
 
 from ..quant.policy import QuantPolicy
-from .deit import VARIANTS, VisionTransformer, deit_model, init_weights
+from . import deit, swin
+from .deit import init_weights
 
 
 def resolve_device(device) -> torch.device:
@@ -24,24 +27,24 @@ def resolve_device(device) -> torch.device:
 def create_model(name: str, *, policy: QuantPolicy, device="cuda",
                  generator: Optional[torch.Generator] = None,
                  head_std: Optional[float] = None,
-                 **overrides) -> VisionTransformer:
+                 **overrides) -> nn.Module:
     """Build a model by reference name on `device` (default "cuda").
 
     Weights are random with the JAX initializers, drawn from `generator`
     (a fresh generator seeded with 0 when None); load trained weights with
     `convert.load_flax_params` and set the LSQ scales with
     `calibrate.calibrate` or from the checkpoint.  `overrides` replace
-    `DeiTConfig` fields (e.g. `matmul_impl="pallas",
+    `DeiTConfig` or `SwinConfig` fields (e.g. `matmul_impl="pallas",
     compute_dtype="bfloat16"`).
     """
     dev = resolve_device(device)
-    if name not in VARIANTS:
-        if name.startswith("swin"):
-            raise NotImplementedError(
-                f"{name}: Swin is not in the port yet (ROADMAP.md, Queue 1 "
-                f"item 9)")
-        raise KeyError(f"unknown model {name!r}; known: {sorted(VARIANTS)}")
-    model = deit_model(name, policy, **overrides)
+    if name in deit.VARIANTS:
+        model = deit.deit_model(name, policy, **overrides)
+    elif name in swin.VARIANTS:
+        model = swin.swin_model(name, policy, **overrides)
+    else:
+        raise KeyError(f"unknown model {name!r}; known: "
+                       f"{sorted(deit.VARIANTS) + sorted(swin.VARIANTS)}")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator, head_std=head_std)

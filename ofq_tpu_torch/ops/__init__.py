@@ -7,9 +7,12 @@ its first launch on a CUDA tensor (see `_build.py`).
 from .fused_attention import qkr_attention_bwd, qkr_attention_fwd
 from .fused_qlinear import fused_qlinear_fwd
 from .pallas_statsq import pallas_statsq_dx, pallas_statsq_fwd
+from .window_attention import (window_attn_packed, window_attn_packed_aligned,
+                               window_attn_units)
 
 _COUNTED = (fused_qlinear_fwd, qkr_attention_fwd, qkr_attention_bwd,
-            pallas_statsq_fwd, pallas_statsq_dx)
+            pallas_statsq_fwd, pallas_statsq_dx, window_attn_units,
+            window_attn_packed, window_attn_packed_aligned)
 
 
 def reset_launch_counts() -> None:
@@ -27,4 +30,5 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = ["fused_qlinear_fwd", "launch_counts", "pallas_statsq_dx",
            "pallas_statsq_fwd", "qkr_attention_bwd", "qkr_attention_fwd",
-           "reset_launch_counts"]
+           "reset_launch_counts", "window_attn_packed",
+           "window_attn_packed_aligned", "window_attn_units"]

@@ -30,7 +30,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 SOURCES = ("fused_qlinear", "fused_attention", "fused_attention_bwd",
-           "pallas_statsq")
+           "pallas_statsq", "window_attention")
 
 # name -> loaded library; a process-wide cache of immutable handles
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,8 +1,9 @@
-"""Quantization policy (port of `ofq_tpu/quant/policy.py:23-111`).
+"""Quantization policy (port of `ofq_tpu/quant/policy.py:23-131`).
 
 Models take a `QuantPolicy` at construction and build quantized or float
 submodules per path, with the reference's path strings
-("blocks.3.attn", "patch_embed.proj", "head", ...).  The deploy-artifact
+("blocks.3.attn", "patch_embed.proj", "head", and Swin's torchvision
+feature paths "features.1.0.attn", "features.2.reduction", ...).  The deploy-artifact
 fields of the JAX policy (`weight_frozen`, `frozen_int_bits`) and the CGA
 fields (`qk_reparam_type`, `boundary_range`) belong to later slices.
 """
@@ -10,6 +11,7 @@ fields (`qk_reparam_type`, `boundary_range`) belong to later slices.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,11 +62,40 @@ def default_deit_qmodules(depth: int = 12,
     return tuple(mods)
 
 
+def default_swin_qmodules(depths: Sequence[int] = (2, 2, 6, 2)
+                          ) -> tuple[str, ...]:
+    """The qmodules list of configs/swin_imagenet_qat.yml (torchvision
+    feature paths): the patch-embedding conv, every block's attn and mlp,
+    the patch-merging reductions and the head."""
+    mods = ["features.0.0"]
+    feat_idx = 1
+    for stage, depth in enumerate(depths):
+        for block in range(depth):
+            mods += [f"features.{feat_idx}.{block}.attn",
+                     f"features.{feat_idx}.{block}.mlp"]
+        feat_idx += 1
+        if stage < len(depths) - 1:
+            mods.append(f"features.{feat_idx}.reduction")
+            feat_idx += 1
+    mods.append("head")
+    return tuple(mods)
+
+
+def _w2a2_qkr(qmodules: tuple[str, ...]) -> QuantPolicy:
+    return QuantPolicy(
+        weight=QuantSpec(mode="statsq", bit=2, learnable=False),
+        act=QuantSpec(mode="lsq", bit=2), qmodules=qmodules,
+        qk_reparam=True)
+
+
 def w2a2_qkr_policy(depth: int = 12, distilled: bool = True) -> QuantPolicy:
     """The policy of train_scripts/deit_s/w2a2_deit_s.sh
     (`--wq-bitw 2 --aq-bitw 2 --qk_reparam`)."""
-    return QuantPolicy(
-        weight=QuantSpec(mode="statsq", bit=2, learnable=False),
-        act=QuantSpec(mode="lsq", bit=2),
-        qmodules=default_deit_qmodules(depth, distilled),
-        qk_reparam=True)
+    return _w2a2_qkr(default_deit_qmodules(depth, distilled))
+
+
+def w2a2_qkr_swin_policy(depths: Sequence[int] = (2, 2, 6, 2)
+                         ) -> QuantPolicy:
+    """The policy of train_scripts/swin_t/w2a2_swin_t.sh (`--wq-bitw 2
+    --aq-bitw 2 --qk_reparam --qk_reparam_type 0`)."""
+    return _w2a2_qkr(default_swin_qmodules(depths))

@@ -275,3 +275,77 @@ def test_k4_is_the_forward_of_the_pallas_matmul(dev):
     # the backward is the same torch ops on both paths
     for a, b in zip(outs[0][1:], outs[1][1:]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def tail_within_gate(y, ref, q, k, v):
+    """The K6-K8 gate (PERF.md section 2): every element of `y` within one
+    bf16 ulp of itself, 2^-7 max(|y|, |ref|), plus 2^-8 sum_m p_m |v_m| (a
+    probability that rounds to bf16 the other way), and at most 0.1 % of
+    the elements differing at all.  Returns (ok, worst |diff| / limit,
+    share differing)."""
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * (
+        q.shape[-1] ** -0.5)
+    p = torch.softmax(s, dim=-1)
+    pv = torch.einsum("bhnm,bmhd->bnhd", p, v.float().abs())
+    y32, r32 = y.float(), ref.float()
+    d = (y32 - r32).abs()
+    lim = 2 ** -7 * torch.maximum(y32.abs(), r32.abs()) + 2 ** -8 * pv
+    worst = float((d / lim.clamp_min(1e-30)).max())
+    share = float((d > 0).float().mean())
+    return worst <= 1.0 and share <= 1e-3, worst, share
+
+
+def _tail_args(dev, Bn, H=3, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(Bn, 49, H, 32, generator=g).to(dev, torch.bfloat16)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("window_attn_units", dict(WB=16)),
+    ("window_attn_units", dict(WB=64)),
+    ("window_attn_packed", dict(WB=16)),
+    ("window_attn_packed", dict(WB=16, P=12)),
+    ("window_attn_packed", dict(WB=32, P=12)),
+    ("window_attn_packed_aligned", dict(WB=16, P=4)),
+    ("window_attn_packed_aligned", dict(WB=16, P=8)),
+    ("window_attn_packed_aligned", dict(WB=16, P=12)),
+])
+def test_k678_match_plain(dev, name, kw):
+    """K6-K8 at the lab's unit shape and parameters, 256 windows."""
+    from ofq_tpu_torch.ops import window_attention as wa
+    fn = getattr(wa, name)
+    q, k, v = _tail_args(dev, 256)
+    before = fn.launches
+    y = fn(q, k, v, **kw)
+    assert fn.launches == before + 1
+    ref = wa.window_attn_tail_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+    ok, worst, share = tail_within_gate(y, ref, q, k, v)
+    assert ok, (worst, share)
+
+
+def test_k678_other_head_counts(dev):
+    """H from the tensor: 6 heads (Swin-T stage 1) through all three."""
+    from ofq_tpu_torch.ops import window_attention as wa
+    q, k, v = _tail_args(dev, 32, H=6, seed=1)
+    ref = wa.window_attn_tail_reference(q, k, v)
+    for fn in (wa.window_attn_units, wa.window_attn_packed,
+               wa.window_attn_packed_aligned):
+        y = fn(q, k, v)
+        torch.cuda.synchronize()
+        assert tail_within_gate(y, ref, q, k, v)[0], fn.__name__
+
+
+def test_k678_refuse_on_card(dev):
+    from ofq_tpu_torch.ops import window_attention as wa
+    q, k, v = _tail_args(dev, 16, H=12)
+    with pytest.raises(ValueError, match="shared memory"):
+        wa.window_attn_units(q, k, v)  # 12 heads of fp32 rows > 227 KB
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(q.shape)  # contiguous, 2 bytes off alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wa.window_attn_packed_aligned(shifted, k, v)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        wa.window_attn_packed(q.float().requires_grad_().bfloat16(), k, v)

@@ -237,8 +237,8 @@ class TestPredictor:
 
 
 def test_unsupported_configs_raise():
-    with pytest.raises(NotImplementedError, match="Swin"):
-        create_model("swin_t", policy=_port_policy(), device="cpu")
+    with pytest.raises(KeyError, match="unknown model.*swin_t"):
+        create_model("swin_b", policy=_port_policy(), device="cpu")
     non_qkr = dataclasses.replace(_port_policy(), qk_reparam=False)
     with pytest.raises(NotImplementedError, match="non-QKR"):
         create_model(NAME, policy=non_qkr, device="cpu")

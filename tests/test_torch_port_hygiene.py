@@ -1,5 +1,6 @@
 """The port stands alone: `ofq_tpu_torch` and `chip_smoke.py` import neither
-JAX/Flax nor anything of the JAX package `ofq_tpu`."""
+JAX/Flax nor anything of the JAX package `ofq_tpu` or of its lab benches
+(`benchmarks`, which import JAX)."""
 
 import re
 import subprocess
@@ -8,8 +9,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax|ofq_tpu)\b(?!_torch)"
-    r"|from\s+(jax|flax|ofq_tpu)\b(?!_torch))", re.M)
+    r"^\s*(import\s+(jax|flax|ofq_tpu|benchmarks)\b(?!_torch)"
+    r"|from\s+(jax|flax|ofq_tpu|benchmarks)\b(?!_torch))", re.M)
 
 
 def _sources():
@@ -29,7 +30,9 @@ def test_no_forbidden_import_statements():
 def test_pattern_catches_what_it_should():
     for line in ("import jax", "import jax.numpy as jnp", "from flax import linen",
                  "import ofq_tpu", "from ofq_tpu.quant import lsq",
-                 "    from ofq_tpu import serve"):
+                 "    from ofq_tpu import serve",
+                 "from benchmarks import window_attn_lab",
+                 "import benchmarks.window_attn_lab as lab"):
         assert FORBIDDEN.search(line), line
     for line in ("import ofq_tpu_torch", "from ofq_tpu_torch.ops import x",
                  "import jaxlib_free_module_name_is_not_jax"):
@@ -42,8 +45,10 @@ def test_import_loads_no_jax():
         "import ofq_tpu_torch, ofq_tpu_torch.serve, ofq_tpu_torch.calibrate\n"
         "import ofq_tpu_torch.convert, ofq_tpu_torch.models\n"
         "import ofq_tpu_torch.train, ofq_tpu_torch.train.loop\n"
+        "import ofq_tpu_torch.models.swin, ofq_tpu_torch.ops.window_attention\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
-        "'ofq_tpu') or m.startswith(('jax.', 'flax.', 'ofq_tpu.')))\n"
+        "'ofq_tpu', 'benchmarks', 'window_attn_lab') or m.startswith(("
+        "'jax.', 'flax.', 'ofq_tpu.', 'benchmarks.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
