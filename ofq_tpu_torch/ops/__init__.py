@@ -19,8 +19,9 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for fn in _COUNTED:
         fn.launches = 0
-        if hasattr(fn, "launch_shapes"):
-            fn.launch_shapes.clear()
+        for attr in ("launch_shapes", "launches_by_design"):
+            if hasattr(fn, attr):
+                getattr(fn, attr).clear()
 
 
 def launch_counts() -> dict[str, int]:

@@ -2,7 +2,8 @@
 
 Each `.cu` source exports a plain C launcher and is compiled by `nvcc` into
 its own shared library, loaded with `ctypes`: no PyTorch headers, so a
-source compiles in seconds.  Libraries go to `ofq_tpu_torch/_build/`
+source compiles in seconds.  `tc_gemm.cuh` holds what K1's and K4's
+tensor-core kernels share; it is hashed into every library's name.  Libraries go to `ofq_tpu_torch/_build/`
 under a name that hashes the source and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  `build_all()` starts one `nvcc`
 per source, all at once.
@@ -51,7 +52,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every shared header it may include
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{h}.so"
 

@@ -10,7 +10,11 @@
 the hand-written kernel `csrc/fused_qlinear.cu` (built at first use), on a
 CPU tensor it runs `fused_qlinear_fwd_reference`, the same arithmetic in
 plain PyTorch.  `s_w` (with its 1e-12 floor) and `bvec` are computed by
-torch ops before the launch, as in JAX.
+torch ops before the launch, as in JAX.  The kernel forms both code sets
+in registers and multiplies them with `wgmma` (bf16 codes, fp32 sums) on
+the tensor cores: its one design, `DESIGN`, counted in
+`fused_qlinear_fwd.launches_by_design`.  The integer sums are exact while
+K * max|XI| * max|WI| < 2^24, so the kernel gives the plain version's bits.
 
 `fused_qlinear` reaches the kernel through `_FusedQLinear`, a
 `torch.autograd.Function` whose backward is the JAX package's closed-form
@@ -36,6 +40,8 @@ from . import _build
 from .fused_attention import check_args, on_card, refuse_graph_cut
 
 _S_EPS = 1e-5
+# the kernel's design: wgmma on the integer codes
+DESIGN = "wgmma"
 
 
 def _w_levels_int(w, sw, n):
@@ -62,6 +68,7 @@ def fused_qlinear_fwd_reference(x2, s_tok, n_tok, b_pre, w, s_w, bvec,
 
 
 def _launch(x2, s_tok, n_tok, b_pre, w, s_w, bvec, a_lo, a_hi, n_w):
+    """Check the operands and launch the kernel, counted."""
     M, K = x2.shape
     N = w.shape[1]
     check_args("fused_qlinear_fwd", x2, x2=(x2, (M, K)),
@@ -85,8 +92,24 @@ def _launch(x2, s_tok, n_tok, b_pre, w, s_w, bvec, a_lo, a_hi, n_w):
                  M, K, N, float(a_lo), float(a_hi), float(n_w), stream)
     _build.check(lib, err, "fused_qlinear_fwd")
     fused_qlinear_fwd.launches += 1
+    fused_qlinear_fwd.launches_by_design[DESIGN] += 1
     fused_qlinear_fwd.launch_shapes[(M, K, N)] += 1
     return y
+
+
+def launch_shape(M, K, N, n_tok, a_lo, a_hi, n_w):
+    """The launch the kernel takes for these shapes on the current card:
+    dict(bn, grid, tiles, panel, stages); grid (N tiles, blocks per N
+    tile), tiles the M tiles each persistent block walks, panel whether it
+    keeps its N tile's W codes, stages the raw slots of its rings."""
+    fn = _build.load("fused_qlinear").ofq_fused_qlinear_shape
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 6)()
+    fn(M, K, N, n_tok, float(a_lo), float(a_hi), float(n_w),
+       ctypes.cast(out, ctypes.c_void_p))
+    return dict(bn=out[0], grid=(out[1], out[2]), tiles=out[3],
+                panel=bool(out[4]), stages=out[5])
 
 
 def fused_qlinear_fwd(x2, s_tok, n_tok, b_pre, w, s_w, bvec, a_lo, a_hi,
@@ -106,6 +129,7 @@ def fused_qlinear_fwd(x2, s_tok, n_tok, b_pre, w, s_w, bvec, a_lo, a_hi,
 # comparison paths do not count
 fused_qlinear_fwd.launches = 0
 fused_qlinear_fwd.launch_shapes = collections.Counter()
+fused_qlinear_fwd.launches_by_design = collections.Counter()
 
 
 def _prep(x, s):
