@@ -4,12 +4,9 @@
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
     python3 chip_smoke.py --profile  # also: device time by kernel (torch.profiler)
     python3 chip_smoke.py --baseline DIR
-        # also: K1's and K4's sources as an earlier tree DIR has them (a
-        # `git archive` of that commit), built and timed beside the current
-        # ones at the same shapes in the same run
-    python3 chip_smoke.py --keep-going
-        # a failed agreement gate is logged and the run goes on to measure
-        # the rest; it still exits non-zero, with no result line
+        # also: K1's source as an earlier tree DIR has it (a `git archive`
+        # of that commit), built and timed beside the current one at the
+        # same shapes in the same run
 
 Phases (any failure raises and the script exits non-zero):
   1. device: require CUDA and `nvidia-smi`'s name and power limit of the
@@ -17,8 +14,8 @@ Phases (any failure raises and the script exits non-zero):
   2. build: compile every CUDA kernel from ofq_tpu_torch/csrc/ (one nvcc
      per source, in parallel); print ptxas's report (registers, spills) of
      K1's and K4's sources and the wgmma (HGMMA) instructions of each of
-     their tensor-core kernels, read from the built library with
-     cuobjdump, and fail if one has none;
+     K1's tensor-core kernels, read from the built library with cuobjdump,
+     and fail if one has none;
   3. K1, the fused QLinear kernel (wgmma on the integer codes), against its
      plain PyTorch version on the card at the DeiT-S shapes, M = 64 * 198
      tokens (proj, fc1, fc2 at W2A2, one W4A4, one ragged case), with
@@ -41,11 +38,9 @@ Phases (any failure raises and the script exits non-zero):
      every parameter gradient of the step against the composed model in
      fp64; train-step img/s over 5 steps after 2 warm-ups, kernels and
      plain; peak device memory;
-  7. K4, the StatsQ matmul kernel (bf16: wgmma on the exact level codes;
-     fp32: the CUDA-core template), and K5, its dx product (the CUDA-core
-     template), against their plain versions in fp32 and bf16 at the DeiT-S
-     shapes (proj, fc1, fc2 with M = 64 * 198) and one ragged shape, with
-     StatsQ ties built in;
+  7. K4, the StatsQ matmul kernel, and K5, its dx product, against their
+     plain versions in fp32 and bf16 at the DeiT-S shapes (proj, fc1, fc2
+     with M = 64 * 198) and one ragged shape, with StatsQ ties built in;
   8. pallas serving: the same DeiT-S student with matmul_impl="pallas" in
      the bf16 stream (compute_dtype="bfloat16", the configuration of
      bench.py's `_rate(matmul_impl="pallas", compute_dtype="bfloat16")`)
@@ -77,11 +72,11 @@ Phases (any failure raises and the script exits non-zero):
      (3 per block and one per patch merging) and none of K1-K3 or K6-K8,
      the block (each block and patch merging alone) and top-1 gates of
      phase 8, img/s, peak memory.
-With --baseline, phases 3, 7 and 12 also time the earlier tree's K1 and
-K4 (bf16) at the same shapes, and the run ends with their sums over the
-launches of each path beside the current kernels'.  The line before the
-last is a JSON object with every kernel's numbers (times in ms, CUDA
-events; bounds from the H100 SXM data sheet); the last line is
+With --baseline, phase 3 also times the earlier tree's K1 at the same
+shapes (both through their C launchers alone), and the run ends with the
+sums over the 36 launches of a fused step.  The line before the last is a
+JSON object with every kernel's numbers (times in ms, CUDA events; bounds
+from the H100 SXM data sheet); the last line is
 {"ok": true, "device": {...}}.  Full results also go to
 chiprun_out/chip_smoke.json.
 """
@@ -116,19 +111,6 @@ CMP_BATCHES = 4
 
 def log(*a):
     print(*a, flush=True)
-
-
-# --keep-going: a failed agreement gate (a block gate, the top-1 gate, the
-# gradient gate) is logged and recorded, and the run goes on to measure the
-# rest; the script still exits non-zero and prints no result
-FAILED_GATES = []
-
-
-def gate_failed(msg):
-    if "--keep-going" not in sys.argv:
-        raise AssertionError(msg)
-    log(f"[gate failed] {msg}")
-    FAILED_GATES.append(msg)
 
 
 def median_ms(fn, reps=20, warmup=3):
@@ -182,8 +164,10 @@ def phase_device():
 
 
 # ---------------------------------------------------------------- phase 2
-# the sources whose tensor-core kernels the build phase reports on
-TC_SOURCES = ("fused_qlinear", "pallas_statsq")
+# the sources whose ptxas report the build phase prints, and the one whose
+# kernels run their products on wgmma
+REPORT_SOURCES = ("fused_qlinear", "pallas_statsq")
+TC_SOURCE = "fused_qlinear"
 
 
 def _cuobjdump():
@@ -217,51 +201,42 @@ def phase_build():
     for name in _build.SOURCES:
         _build.load(name)
         for line in reports.get(name, "").splitlines():
-            if (name in TC_SOURCES and "ptxas" in line) or (
+            if (name in REPORT_SOURCES and "ptxas" in line) or (
                     "registers" in line or "spill" in line):
                 log(f"[build] {name}: {line.strip()}")
-    for name in TC_SOURCES:
-        counts = wgmma_counts(_build._lib_path(name))
-        tc[name] = {k: v for k, v in counts.items() if "_tc_kernel" in k}
-        for fn, n in counts.items():
-            log(f"[build] {name}: {n} HGMMA (wgmma) instructions in {fn}")
-        if not tc[name] or not all(tc[name].values()):
-            raise AssertionError(f"{name}: a tensor-core kernel without "
-                                 f"wgmma: {tc[name]}")
+    counts = wgmma_counts(_build._lib_path(TC_SOURCE))
+    tc = {k: v for k, v in counts.items() if "_tc_kernel" in k}
+    for fn, n in counts.items():
+        log(f"[build] {TC_SOURCE}: {n} HGMMA (wgmma) instructions in {fn}")
+    if not tc or not all(tc.values()):
+        raise AssertionError(f"{TC_SOURCE}: a tensor-core kernel without "
+                             f"wgmma: {tc}")
     log(f"[build] {len(_build.SOURCES)} kernels built in {dt:.1f} s "
         f"into {_build.BUILD_DIR}")
     return dict(seconds=dt, wgmma=tc,
-                ptxas={n: reports.get(n, "") for n in TC_SOURCES})
+                ptxas={n: reports.get(n, "") for n in REPORT_SOURCES})
 
 
 def build_baseline(root):
-    """K1's and K4's sources of an earlier tree (`root`, a `git archive` of
-    that commit), built with the current flags into root/_build_baseline;
-    returns their libraries by source name.  The earlier sources include
-    no header of csrc/."""
+    """K1's source of an earlier tree (`root`, a `git archive` of that
+    commit), built with the current flags into root/_build_baseline; returns
+    its library.  The earlier source includes no header of csrc/."""
     import ctypes
     from ofq_tpu_torch.ops import _build
     out_dir = os.path.join(root, "_build_baseline")
     os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name in TC_SOURCES:
-        src = os.path.join(root, "ofq_tpu_torch", "csrc", f"{name}.cu")
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, p) in procs.items():
-        report, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"baseline {name}.cu failed to build:\n"
-                               f"{report}")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[baseline] {name}: {line.strip()}")
-        libs[name] = ctypes.CDLL(lib)
-    log(f"[baseline] built K1 and K4 of {root}")
-    return libs
+    src = os.path.join(root, "ofq_tpu_torch", "csrc", f"{TC_SOURCE}.cu")
+    lib = os.path.join(out_dir, f"lib{TC_SOURCE}.so")
+    p = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+                       capture_output=True, text=True, timeout=600)
+    if p.returncode != 0:
+        raise RuntimeError(f"baseline {TC_SOURCE}.cu failed to build:\n"
+                           f"{p.stdout}{p.stderr}")
+    for line in (p.stdout + p.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[baseline] {TC_SOURCE}: {line.strip()}")
+    log(f"[baseline] built K1 of {root}")
+    return ctypes.CDLL(lib)
 
 
 def raw_k1(lib, args):
@@ -294,49 +269,12 @@ def raw_k1(lib, args):
     return run
 
 
-def raw_k4(lib, args, earlier=False):
-    """K4's bf16 launcher in `lib` (the current one, or an earlier tree's
-    template launcher with its bf16 flag) called straight on `args`
-    (pallas_statsq_fwd's) into an output allocated once."""
-    import ctypes
-    import torch
-    x2, w, s, n_levels = args
-    M, K = x2.shape
-    N = w.shape[1]
-    y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    fn = lib.ofq_pallas_statsq_fwd if earlier else \
-        lib.ofq_pallas_statsq_bf16_fwd
-    tail = [1] if earlier else []
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] + [ctypes.c_int] * len(tail)
-                   + [ctypes.c_void_p])
-    call = [x2.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), M, K,
-            N, float(n_levels)] + tail
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run():
-        err = fn(*call, stream)
-        if err:
-            raise RuntimeError(f"K4 launcher: CUDA error {err}")
-        return y
-    return run
-
-
 def _versus(raw_ms, base_ms):
     """The before-and-after of a phase's log line (--baseline), or ''."""
     if base_ms is None:
         return ""
     return (f" (launcher alone {raw_ms:.4f} ms, the earlier kernel the "
             f"same way {base_ms:.4f} ms)")
-
-
-def _off(off_exact, n):
-    """Phase 7's count of elements off the correctly rounded sum, or ''."""
-    if off_exact is None:
-        return ""
-    return (f"off the correctly rounded sum: kernel {off_exact[0]}, plain "
-            f"{off_exact[1]} of {n}, ")
 
 
 def tc_design(shape):
@@ -429,7 +367,7 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
         if base:
             from ofq_tpu_torch.ops import _build
             raw_ms = median_ms(raw_k1(_build.load("fused_qlinear"), args))
-            base_ms = median_ms(raw_k1(base["fused_qlinear"], args))
+            base_ms = median_ms(raw_k1(base, args))
         design = tc_design(fq.launch_shape(M, K, N, n_tok, a_lo, a_hi, n_w))
         xq = (torch.round(torch.clamp(
             (x + b_pre) / s.repeat(M // n_tok)[:, None], a_lo, a_hi))
@@ -658,7 +596,11 @@ def _swin_k4_cases(batch=BATCH):
     return cases
 
 
-def phase_k45(dev, which, cases, dtypes=None, base=None):
+# K4's and K5's kernel (one template for both, in either stream)
+K45_DESIGN = "CUDA-core template, 64x64 tiles, fp32 FMAs"
+
+
+def phase_k45(dev, which, cases, dtypes=None):
     """K4 (`which` = "K4": y = x @ Q(W)) or K5 ("K5": dx = g @ Q(W)^T)
     against its plain version at `cases` (name, M, K, N, main path), in
     fp32 and bf16 (or `dtypes`); a main-path case counts in bf16."""
@@ -698,15 +640,6 @@ def phase_k45(dev, which, cases, dtypes=None, base=None):
             y_ref = plain(*args)
             torch.cuda.synchronize()
             err, ratio, outside = _k45_gate(y_k, y_ref, abs_sum)
-            off_exact = None
-            if which == "K4" and dtype == torch.bfloat16:
-                # the output elements off the correctly rounded sum (fp64
-                # products and sums, rounded to fp32 and then to bf16):
-                # the kernel's, and the plain version's (cuBLAS, fp32)
-                exact = (a.double() @ wq.double()).float().to(dtype)
-                off_exact = (int((y_k != exact).sum()),
-                             int((y_ref != exact).sum()))
-                del exact
             c = torch.clamp(w / s, -1.0, 1.0 - 1e-6) * n - 0.5
             w_ties = int((c - torch.floor(c)).eq(0.5).sum())
             dt = str(dtype).replace("torch.", "")
@@ -718,29 +651,15 @@ def phase_k45(dev, which, cases, dtypes=None, base=None):
             plain_ms = median_ms(lambda: plain(*args), reps=10)
             yard_ms = median_ms(yard)
             nbytes, flops, (b_ms, b_by) = _k45_bound(M, K, N, dtype)
-            tc = which == "K4" and ps.FWD_DESIGNS[dtype] == "wgmma"
-            design = (tc_design(ps.launch_shape(M, K, N, n)) if tc else dict(
-                label="CUDA-core template, 64x64 tiles, fp32 FMAs"))
-            raw_ms = base_ms = None
-            if base and tc:
-                from ofq_tpu_torch.ops import _build
-                raw_ms = median_ms(raw_k4(_build.load("pallas_statsq"),
-                                          args))
-                base_ms = median_ms(raw_k4(base["pallas_statsq"], args,
-                                           earlier=True))
             log(f"[{which}] {name:6s} {dt:8s} M={M} K={K} N={N}: max|diff| "
                 f"{err:.3e}, worst |diff|/limit {ratio:.3f}, {w_ties} StatsQ "
-                f"ties; kernel ({design['label']}) {ms:.4f} ms"
-                f"{_versus(raw_ms, base_ms)}, plain {plain_ms:.4f} ms, "
-                f"{_off(off_exact, y_k.numel())}"
+                f"ties; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"torch.matmul(a, Q(W){'^T' if which == 'K5' else ''}) "
                 f"{yard_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
             results.append(dict(name=name, dtype=dt, M=M, K=K, N=N,
                                 main_path=main and dtype == torch.bfloat16,
-                                design=design, raw_ms=raw_ms,
-                                baseline_raw_ms=base_ms,
-                                off_correctly_rounded=off_exact,
+                                design=K45_DESIGN,
                                 max_abs_err=err, worst_ratio=ratio,
                                 statsq_ties=w_ties, ms=ms, plain_ms=plain_ms,
                                 matmul_ms=yard_ms, bound_ms=b_ms,
@@ -842,13 +761,6 @@ TOP1 = 0.95
 # reduction's rows had such an element); 2^-8 of its row's largest |ref|
 # covers that, and the limit on the rows stays BLOCK_ROWS
 SWIN_GATE = dict(rows=BLOCK_ROWS, row_floor=2 ** -8)
-# The DeiT-S pallas block tolerance (each block's forward and backward),
-# restated in the same form from what was measured (PERF.md section 2):
-# K4 on the tensor cores sums in another order than cuBLAS's fp32 product
-# of the plain path at DeiT-S's shapes too, and 0.28-0.69 % of each
-# block's forward rows had an element outside the element-only tolerance
-# (1.0-1.7 % differing at all)
-DEIT_PALLAS_GATE = SWIN_GATE
 
 
 def _outside(y, ref, conf, row_floor=0.0):
@@ -875,8 +787,8 @@ def _log_rows(what, shares, limit=BLOCK_ROWS):
         f"tolerance {[f'{a:.2e}' for a, _ in shares]}, differing at all "
         f"{[f'{b:.2e}' for _, b in shares]}")
     if max(a for a, _ in shares) > limit:
-        gate_failed(f"{what}: more than {limit} of the rows of a block "
-                    f"differ: {shares}")
+        raise AssertionError(f"{what}: more than {limit} of the rows "
+                             f"of a block differ: {shares}")
     return [a for a, _ in shares]
 
 
@@ -958,7 +870,7 @@ def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None):
         f"{agree_64['plain'] * 100:.2f} %; max |prob diff| kernels vs plain "
         f"{max_diff:.3e}, max prob {float(p_p.max()):.4f}")
     if not np.isfinite(p_k).all() or agree < TOP1:
-        gate_failed(f"top-1 agreement {agree} < {TOP1}")
+        raise AssertionError(f"top-1 agreement {agree} < {TOP1}")
 
     def rate(n_calls=10):
         for _ in range(3):
@@ -1051,19 +963,18 @@ def composed_fp64_probs(model, batches, dev):
 
 # ---------------------------------------------------------------- phase 6
 TRAIN_STEPS_TIMED, TRAIN_STEPS_WARM = 5, 2
-# whole-step gradient gate: for every parameter, the kernel path's
+# whole-step gradient gate.  fp32: for every parameter, the kernel path's
 # relative L2 distance from the composed fp64 gradient may be at most
 # twice the plain path's plus a floor; the floor is the median over
 # parameters of the plain path's distance (how far rounding alone moves a
 # gradient of this chaotic random-weight W2A2 model in this run), and
-# never below GRAD_GATE_MIN_FLOOR.  The pallas bf16 step held its kernels
-# to 1e-3 relative L2 of the plain path's gradients until K4 summed on the
-# tensor cores; restated to the fused step's form from what was measured
-# (PERF.md section 2): kernels vs plain up to 9.2 per parameter (0.55 for
-# cls_token), from bf16-ulp differences of K4's outputs that this
-# random-weight model carries on, while kernels and plain stay as far as
-# each other from fp64 (median 0.913 and 0.904)
+# never below GRAD_GATE_MIN_FLOOR.  bf16: the fp64 model has no bf16
+# stream, so its distance (~0.9) measures bf16 rounding and holds nothing;
+# every parameter's gradient through the kernels is held against the plain
+# path's, on the same bf16 inputs, to GRAD_GATE_BF16 relative L2 (the
+# fp64 distances are printed beside it)
 GRAD_GATE_MIN_FLOOR = 1e-3
+GRAD_GATE_BF16 = 1e-3
 
 
 def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
@@ -1130,9 +1041,7 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
     if not (np.isfinite(loss) and np.isfinite(gnorm)):
         raise AssertionError(f"loss {loss}, grad_norm {gnorm}")
 
-    blocks = check_blocks_backward(
-        student, teacher, data, conf,
-        DEIT_PALLAS_GATE if conf["matmul_impl"] == "pallas" else None)
+    blocks = check_blocks_backward(student, teacher, data, conf)
     grads = check_step_grads(student, teacher, data, conf)
     captured = (capture_dx_products(student, teacher, data)
                 if conf["matmul_impl"] == "pallas" else None)
@@ -1177,13 +1086,11 @@ def _kd_loss(model, teacher, x, label):
     return kd_soft_and_hard(model(x), label, t_logits)
 
 
-def check_blocks_backward(model, teacher, data, conf=FUSED, gate=None):
+def check_blocks_backward(model, teacher, data, conf=FUSED):
     """Each block's VJP through the kernels against the same block through
     the plain versions, on the plain path's input to that block and its
-    upstream gradient (captured with hooks on one plain backward), held by
-    `gate` as in `check_blocks`."""
+    upstream gradient (captured with hooks on one plain backward)."""
     import torch
-    gate = gate or dict(rows=BLOCK_ROWS, row_floor=0.0)
     seen = {}
 
     def fwd_hook(name):
@@ -1215,10 +1122,10 @@ def check_blocks_backward(model, teacher, data, conf=FUSED, gate=None):
         model.use_kernels = True
         if not torch.isfinite(dx[0]).all():
             raise AssertionError(f"{name}: non-finite dx")
-        shares.append(_row_shares(dx[0], dx[1], conf, gate["row_floor"]))
+        shares.append(_row_shares(dx[0], dx[1], conf))
     return _log_rows("[train] each block's backward alone, kernels vs plain "
                      "on the same input and upstream gradient, rows of dx",
-                     shares, gate["rows"])
+                     shares)
 
 
 def check_step_grads(model, teacher, data, conf=FUSED):
@@ -1270,11 +1177,18 @@ def check_step_grads(model, teacher, data, conf=FUSED):
         f"parameters together: kernels {glob['kernels']:.3e}, plain "
         f"{glob['plain']:.3e}; kernels vs plain, largest per parameter "
         f"{rkp:.3e}")
-    log(f"[train] gate: kernels <= 2 x plain + {floor:.3e} against fp64")
-    bad = [r for r in rows if r["rel_kernels"] > 2 * r["rel_plain"] + floor]
-    bad_all = glob["kernels"] > 2 * glob["plain"] + floor
+    if conf["compute_dtype"] is None:
+        log(f"[train] gate: kernels <= 2 x plain + {floor:.3e} against fp64")
+        bad = [r for r in rows
+               if r["rel_kernels"] > 2 * r["rel_plain"] + floor]
+        bad_all = glob["kernels"] > 2 * glob["plain"] + floor
+    else:
+        log(f"[train] gate: kernels vs plain <= {GRAD_GATE_BF16} per "
+            f"parameter (the fp64 distances are not gated in bf16)")
+        bad = [r for r in rows if r["rel_kernels_plain"] > GRAD_GATE_BF16]
+        bad_all = False
     if bad or bad_all:
-        gate_failed(f"gradient gate failed: {bad[:5]}, {glob}")
+        raise AssertionError(f"gradient gate failed: {bad[:5]}, {glob}")
     return dict(floor=floor, all_params=glob, kernels_vs_plain_max=rkp,
                 per_param=rows)
 
@@ -1540,27 +1454,19 @@ def phase_profile(fn, what, n_calls=3):
 
 
 def compare_baseline(full):
-    """K1's and K4-bf16's times summed over the launches of each path, the
-    current kernels' and the earlier tree's (--baseline), each through its
-    C launcher alone into a preallocated output, and the ratio."""
-    def total(rows, counts):
-        n = [counts.get(str((r["M"], r["K"], r["N"])), 0) for r in rows]
-        cur = sum(c * r["raw_ms"] for c, r in zip(n, rows))
-        old = sum(c * r["baseline_raw_ms"] for c, r in zip(n, rows))
-        return dict(launches=sum(n), ms=cur, baseline_ms=old,
-                    speedup=old / cur if cur else None)
-    k1 = [r for r in full["k1"] if r["main_path"]]
-    k4 = [r for r in full["k4"] if r["main_path"]]
-    out = {"K1, 36 launches of a fused DeiT-S train step": total(
-               k1, full["train"]["launch_shapes"]),
-           "K4 bf16, 36 launches of a pallas DeiT-S train step": total(
-               k4, full["train_pallas"]["launch_shapes"]),
-           "K4 bf16, 39 launches of a Swin-T forward": total(
-               full["k4_swin"], full["swin_pallas"]["launch_shapes"])}
-    for what, t in out.items():
-        log(f"[versus earlier] {what}: {t['launches']} launches, "
-            f"{t['ms']:.3f} ms now, {t['baseline_ms']:.3f} ms earlier "
-            f"(launchers alone), {t['speedup']:.2f}x")
+    """K1's time summed over the 36 launches of a fused step, the current
+    kernel's and the earlier tree's (--baseline), each through its C
+    launcher alone into a preallocated output, and the ratio."""
+    counts = full["train"]["launch_shapes"]
+    rows = [r for r in full["k1"] if r["main_path"]]
+    n = [counts.get(str((r["M"], r["K"], r["N"])), 0) for r in rows]
+    cur = sum(c * r["raw_ms"] for c, r in zip(n, rows))
+    old = sum(c * r["baseline_raw_ms"] for c, r in zip(n, rows))
+    out = dict(launches=sum(n), ms=cur, baseline_ms=old,
+               speedup=old / cur if cur else None)
+    log(f"[versus earlier] K1, {out['launches']} launches of a fused DeiT-S "
+        f"train step: {cur:.3f} ms now, {old:.3f} ms earlier (launchers "
+        f"alone), {out['speedup']:.2f}x")
     return out
 
 
@@ -1595,11 +1501,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     full["train"] = phase_train(dev, FUSED)
     torch.cuda.empty_cache()
-    full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok), base=base)
+    full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok))
     full["k5"] = phase_k45(dev, "K5", _k45_cases(BATCH * n_tok))
     torch.cuda.empty_cache()
-    full["slice_pallas"] = phase_slice(dev, PALLAS, deit, w2a2_qkr_policy(12),
-                                       gate=DEIT_PALLAS_GATE)
+    full["slice_pallas"] = phase_slice(dev, PALLAS, deit, w2a2_qkr_policy(12))
     torch.cuda.empty_cache()
     tp = full["train_pallas"] = phase_train(dev, PALLAS)
     full["k5_captured"] = phase_k5_captured(tp.pop("captured"))
@@ -1609,7 +1514,7 @@ def main() -> int:
     full["swin_float"] = phase_swin_float(dev)
     torch.cuda.empty_cache()
     full["k4_swin"] = phase_k45(dev, "K4", _swin_k4_cases(),
-                                dtypes=(torch.bfloat16,), base=base)
+                                dtypes=(torch.bfloat16,))
     torch.cuda.empty_cache()
     sp = full["swin_pallas"] = phase_slice(dev, PALLAS, "swin_t",
                                            w2a2_qkr_swin_policy(),
@@ -1657,17 +1562,16 @@ def main() -> int:
         if r["main_path"]:
             kernels.append(_kernel_row(
                 f"pallas_statsq_fwd {r['name']} bf16 "
-                f"({r['M']}x{r['K']}x{r['N']}) [{r['design']['label']}]",
-                srcs["K4"],
+                f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
                 tp["launch_shapes"].get(str((r["M"], r["K"], r["N"])), 0), r,
-                path="pallas bf16 train step", design=r["design"]["label"]))
+                path="pallas bf16 train step", design=r["design"]))
         elif r["dtype"] == "float32" and r["name"] == "fc1":
-            # no model path runs the fp32 stream: the row of the fp32
-            # kernel, launched only by this phase's comparison
+            # no model path runs the fp32 stream: the row of K4 in fp32,
+            # launched only by this phase's comparison
             kernels.append(_kernel_row(
                 f"pallas_statsq_fwd {r['name']} fp32 "
-                f"({r['M']}x{r['K']}x{r['N']}) [{r['design']['label']}]",
-                srcs["K4"], 0, r, path=None, design=r["design"]["label"]))
+                f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"], 0, r,
+                path=None, design=r["design"]))
     caps = full["k5_captured"]["launch_shapes"]
     for r in full["k5"]:
         if r["main_path"]:
@@ -1676,15 +1580,14 @@ def main() -> int:
                 f"({r['M']}x{r['K']}x{r['N']})", srcs["K5"],
                 caps.get(str((r["M"], r["K"], r["N"])), 0), r,
                 path="the dx products of one pallas bf16 train step, "
-                     "captured with hooks", design=r["design"]["label"]))
+                     "captured with hooks", design=r["design"]))
     for r in full["k4_swin"]:
         kernels.append(_kernel_row(
             f"pallas_statsq_fwd Swin-T {r['name']} bf16 "
-            f"({r['M']}x{r['K']}x{r['N']}) [{r['design']['label']}]",
-            srcs["K4"],
+            f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
             sp["launch_shapes"].get(str((r["M"], r["K"], r["N"])), 0), r,
             path="Swin-T W2A2 QKR pallas bf16 serving forward",
-            design=r["design"]["label"]))
+            design=r["design"]))
     captured = full["swin_float"]["captured"]
     for r in full["k678"]:
         if r["default"]:
@@ -1707,13 +1610,8 @@ def main() -> int:
     full["seconds"] = time.perf_counter() - t_start
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    full["failed_gates"] = FAILED_GATES
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(full, f, indent=1)
-    if FAILED_GATES:
-        log(f"[done] {full['seconds']:.1f} s; {len(FAILED_GATES)} gates "
-            f"failed (--keep-going): {FAILED_GATES}")
-        return 1
     log(f"[done] {full['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -11,53 +11,32 @@
 //                         + 0.5) / nl),
 // and s = 2 mean|W| per output column, computed by the caller (as in JAX).
 // W tiles are quantized in fp32 on their way into shared memory, so Q(W)
-// never reaches device memory.
+// never reaches device memory.  x, g and the output are float or bf16
+// (template T): a bf16 input widens exactly to fp32, every product and sum
+// is fp32 (CUDA-core FMAs, no TF32, no tensor cores), and the output is
+// rounded once (__float2bfloat16_rn for bf16).
 //
-// Two designs, chosen by the dtype of x (ofq_pallas_statsq_bf16_fwd and
-// ofq_pallas_statsq_f32_fwd; the wrapper dispatches):
-//
-// K4, bf16 stream: wgmma on the exact level codes (tc_gemm.cuh).  With the
-// odd code c = 2 lv + 1, Q(W)[k, n] = (s[n] / (2 nl)) c[k, n], so
-//   y[m, n] = bf16((s[n] / (2 nl)) * sum_k x[m, k] c[k, n]).
-// c is an odd integer and x is bf16: both exact in bf16, every product x c
-// exact in fp32, so the bf16 tensor cores (fp32 accumulation) compute the
-// same terms as the plain version; only the fp32 sum order differs, and
-// the factored scale adds at most 2^-24 sum|x||Q(W)|.  x comes in by
-// cp.async straight into the swizzled A tiles (16-byte chunks, zero-filled
-// past M and K); W comes in raw (fp32) by cp.async and the threads turn it
-// into codes (step tables per column, tc_gemm.cuh) stored as bf16 into the
-// swizzled layout the wgmma descriptor reads, so Q(W) never reaches device
-// memory.  Blocks are persistent, one per SM, each on one N tile; where
-// the codes of its whole N tile fit in shared memory (K up to 384 at BN
-// 128, 768 at BN 96) it forms them once and multiplies every later M tile
-// by them.  The epilogue scales each column once by s[n] / (2 nl), rounds
-// to bf16 once and stores bf16 pairs.  What bounds it on an H100: at
-// DeiT-S and Swin-T widths the work is 2 M K N operations against
-// 2 (MK + MN) + 4 KN bytes, bytes-bound at the bf16 rate (~0.006-0.06 ms);
-// the kernel runs at several times that, held by the latency of the code
-// and load phases between the products (chip_smoke.py reports each shape).
-//
-// K4 in the fp32 stream and K5 (fp32 or bf16): an fp32 x is not exact in
-// bf16, so these keep the CUDA-core template of the first version: one
-// 64x64 output tile per 256-thread block, 4x4 outputs per thread, 32-deep
-// contraction chunks, every product and sum fp32 FMAs (no TF32), the
-// output rounded once (__float2bfloat16_rn for bf16).  At DeiT-S widths
-// the fp32 rate bounds them (~0.06-0.22 ms); they run far from it.
+// What bounds it on an H100: at DeiT-S widths (M = 64*198, K, N in
+// {384, 1536}) the work is 2*M*K*N operations against ~esize*(MK + MN)
+// + 4*KN bytes.  In the bf16 stream x and the odd level codes are exact in
+// bf16, so the tensor cores could run the same product: the bound is then
+// bytes (~0.006 ms for proj, ~0.015 ms for fc1/fc2).  In the fp32 stream the
+// bound is the fp32 rate (~0.06-0.22 ms).  This first version is a plain
+// shared-memory tiled product like K1 (one 64x64 output tile per 256-thread
+// block, 4x4 outputs per thread, 32-deep contraction chunks), far from
+// either bound; wgmma on bf16 tiles is the next step for speed.
 //
 // Rounding: rintf rounds half to even like torch.round / jnp.round, and
 // StatsQ's c*nl - 0.5 sits on a tie whenever c*nl is integral, so every
 // multiply/add/divide whose rounding feeds rint, or that forms Q(W), is
-// spelled with the __f*_rn intrinsics (no FMA contraction); correctly
-// rounded division (no --use_fast_math; the wgmma kernel's tables use
-// tc::div_rn, the same bits).  Ragged edges (M = 12 672 is no multiple of 64,
-// K = 200 of 16) are handled in the kernels: loads outside the matrix
-// read 0, stores are skipped.
+// spelled with the __f*_rn intrinsics (no FMA contraction); IEEE division
+// (no --use_fast_math).  Ragged edges (M = 12 672 is no multiple of 64) are
+// guarded in the kernel: loads outside the matrix read 0, stores are
+// skipped.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
-
-#include "tc_gemm.cuh"
 
 namespace {
 
@@ -168,249 +147,28 @@ __global__ void __launch_bounds__(THREADS) statsq_kernel(
   store_tile(out, C, M, C, row0, col0, acc, tx, ty);
 }
 
-template <typename T, bool kNT>
+template <bool kNT>
 int launch(const void* a, const float* w, const float* s, void* out, int M,
-           int L, int C, float nl, void* stream) {
+           int L, int C, float nl, int bf16, void* stream) {
   dim3 grid((C + BN - 1) / BN, (M + BM - 1) / BM);
-  statsq_kernel<T, kNT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)a, w, s, (T*)out, M, L, C, nl);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    statsq_kernel<__nv_bfloat16, kNT><<<grid, THREADS, 0, st>>>(
+        (const __nv_bfloat16*)a, w, s, (__nv_bfloat16*)out, M, L, C, nl);
+  else
+    statsq_kernel<float, kNT><<<grid, THREADS, 0, st>>>(
+        (const float*)a, w, s, (float*)out, M, L, C, nl);
   return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------ K4, bf16: tensor cores
-
-// The A operand: x (M, K) bf16, multiplied as it is: load(g) puts step g
-// (the rows of its M tile, the k of its stage) straight into slot
-// g % (S + 1) of a ring of swizzled A tiles, as 16-byte chunks by cp.async
-// (8 lanes per row: one 128-byte wavefront per row, 8 distinct swizzled
-// chunks; zero-filled outside the matrix) when vec: K % 8 == 0 and x
-// 16-byte aligned, so a chunk is wholly inside or outside; else element by
-// element through registers.
-template <int S>
-struct XBf16 {
-  const __nv_bfloat16* __restrict__ x;
-  uint8_t* ring;
-  int M, K, KT;
-  bool vec;
-
-  __device__ __forceinline__ uint32_t tile(int g) const {
-    return tc::smem_u32(ring + (g % (S + 1)) * tc::A_BYTES);
-  }
-  __device__ __forceinline__ void code(int) {}
-
-  __device__ __forceinline__ void load(int g) {
-    uint8_t* t = ring + (g % (S + 1)) * tc::A_BYTES;
-    const int m0 = tc::tile_m0(g / KT), k0 = (g % KT) * tc::BK;
-    for (int u = threadIdx.x; u < tc::BM * 8; u += tc::THREADS) {
-      const int r = u / 8, c = u % 8;
-      const int gm = m0 + r, gk = k0 + 8 * c;
-      if (vec) {
-        const bool in = gm < M && gk < K;
-        tc::cp_async16(t + tc::swz(r, c),
-                       in ? (const void*)(x + (size_t)gm * K + gk)
-                          : (const void*)x,
-                       in ? 16 : 0);
-      } else {
-        const unsigned short* xr =
-            reinterpret_cast<const unsigned short*>(x) + (size_t)gm * K;
-        unsigned short v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = (gm < M && gk + j < K) ? xr[gk + j] : (unsigned short)0;
-        uint4 q;
-        q.x = v[0] | ((uint32_t)v[1] << 16);
-        q.y = v[2] | ((uint32_t)v[3] << 16);
-        q.z = v[4] | ((uint32_t)v[5] << 16);
-        q.w = v[6] | ((uint32_t)v[7] << 16);
-        *reinterpret_cast<uint4*>(t + tc::swz(r, c)) = q;
-      }
-    }
-  }
-};
-
-// raw slots of each streamed operand: the deepest of these that fits
-constexpr int K4_STAGES[] = {4, 3, 2};
-
-// StatsQ's code step candidates for nl levels: 2 nl, or none (the division
-// per element) past MAX_STEPS
-__host__ __device__ inline int statsq_step_count(float nl) {
-  return 2 * (int)nl <= tc::MAX_STEPS ? 2 * (int)nl : 0;
-}
-
-// The shared memory of a launch, by region: the A ring (which the W panel
-// is built through first), the raw W ring (streaming), the W code tiles
-// (two, or KT in a panel), the tables (1 / s of the columns in fp64, the
-// epilogue factors s / (2 nl), the steps and their sizes, the base code,
-// the columns' step starts).
-struct K4Smem {
-  int a_ring, w_raw, w_codes, tables, total;
-};
-__host__ __device__ inline K4Smem k4_smem(int bn, int KT, bool panel, int J,
-                                          int S) {
-  K4Smem m;
-  const int ring = (S + 1) * tc::A_BYTES;
-  m.a_ring = 0;
-  m.w_raw = panel ? 0 : ring;
-  const int first = panel ? (ring > 2 * tc::wraw_bytes(bn)
-                                 ? ring : 2 * tc::wraw_bytes(bn))
-                          : ring + S * tc::wraw_bytes(bn);
-  m.w_codes = first;
-  m.tables = first + (panel ? KT : 2) * tc::b_bytes(bn);
-  m.total = m.tables + 12 * bn + 4 * (2 * tc::MAX_STEPS + 4 + J * bn) + 1024;
-  return m;
-}
-
-// K4's tile width for (N, K): a width whose W panel fits first, then the
-// one that pads N least, then the widest; and whether it takes the panel
-inline int k4_pick(int N, int K, float nl, bool* panel) {
-  const int KT = (K + tc::BK - 1) / tc::BK, J = statsq_step_count(nl);
-  int best = 0;
-  long best_pad = 0;
-  bool best_panel = false;
-  const int widths[] = {128, 96, 64};
-  for (int bn : widths) {
-    const bool p = k4_smem(bn, KT, true, J, 2).total <= tc::SMEM_LIMIT;
-    const long pad = (long)(N + bn - 1) / bn * bn;
-    if (best == 0 || (p && !best_panel) ||
-        (p == best_panel && pad < best_pad)) {
-      best = bn;
-      best_pad = pad;
-      best_panel = p;
-    }
-  }
-  *panel = best_panel;
-  return best;
-}
-
-// y (M, N) = bf16((s / (2 nl)) * (x @ codes)); persistent blocks, grid
-// (nt, G) from tc::launch_shape, each walking `tiles` M tiles of its N tile
-template <int TBN, int S>
-__global__ void __launch_bounds__(tc::THREADS, 1) statsq_tc_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ s, __nv_bfloat16* __restrict__ y, int M, int K,
-    int N, float nl, int vec_x, int vec_w, int tiles, int panel) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = tc::aligned_smem(smem_raw);
-  const int KT = (K + tc::BK - 1) / tc::BK;
-  const K4Smem m = k4_smem(TBN, KT, panel != 0, statsq_step_count(nl), S);
-  double* rs_tab = reinterpret_cast<double*>(smem + m.tables);
-  float* f_tab = reinterpret_cast<float*>(rs_tab + TBN);
-  float* q_st = f_tab + TBN;
-  float* d_st = q_st + tc::MAX_STEPS;
-  float* base = d_st + tc::MAX_STEPS;
-  float* t_tab = base + 4;
-  const int n0 = blockIdx.x * TBN;
-  const float two_nl = 2.0f * nl;
-  for (int i = threadIdx.x; i < TBN; i += tc::THREADS) {
-    const float sc = n0 + i < N ? s[n0 + i] : 1.0f;
-    rs_tab[i] = tc::rcp64(sc);
-    f_tab[i] = __fdiv_rn(sc, two_nl);
-  }
-  const int J = tc::statsq_steps(nl, q_st, d_st, base);
-  for (int i = threadIdx.x; i < J * TBN; i += tc::THREADS) {
-    const int j = i / TBN, r = i % TBN;
-    t_tab[i] = tc::step_start(q_st[j], n0 + r < N ? s[n0 + r] : 1.0f,
-                              rs_tab[r]);
-  }
-  __syncthreads();
-  float acc[TBN / 2];
-  XBf16<S> a{x, smem + m.a_ring, M, K, KT, vec_x != 0};
-  tc::WCodes<TBN, S> b{w,      rs_tab,         t_tab,     d_st,
-                       *base,  J,              smem + m.w_raw,
-                       smem + m.w_codes,       K,         N,
-                       n0,     KT,             nl,        vec_w != 0,
-                       panel != 0};
-  if (b.panel) b.build();
-  const bool pairs = (N & 1) == 0;
-  tc::mainloop<TBN, S>(acc, KT, tiles, a, b, [&](int t) {
-    const int m0 = tc::tile_m0(t);
-    tc::for_each_pair<TBN>(acc, [&](int r, int c, float v0, float v1) {
-      const int gm = m0 + r, gn = n0 + c;
-      if (gm >= M || gn >= N) return;
-      __nv_bfloat16* out = y + (size_t)gm * N + gn;
-      const float y0 = __fmul_rn(v0, f_tab[c]);
-      const float y1 = __fmul_rn(v1, f_tab[c + 1]);
-      if (pairs) {
-        *reinterpret_cast<__nv_bfloat162*>(out) =
-            __floats2bfloat162_rn(y0, y1);
-      } else {
-        out[0] = __float2bfloat16_rn(y0);
-        if (gn + 1 < N) out[1] = __float2bfloat16_rn(y1);
-      }
-    });
-  });
-}
-
-// the deepest ring that fits beside the rest
-inline int k4_stages(int bn, int KT, bool panel, int J) {
-  for (int S : K4_STAGES)
-    if (k4_smem(bn, KT, panel, J, S).total <= tc::SMEM_LIMIT) return S;
-  return 0;
-}
-
-template <int TBN>
-int launch_tc(const void* x, const float* w, const float* s, void* y, int M,
-              int K, int N, float nl, bool panel, void* stream) {
-  const bool vec_x = K % 8 == 0 && ((uintptr_t)x & 15) == 0;
-  const bool vec_w = N % 4 == 0 && ((uintptr_t)w & 15) == 0;
-  const int KT = (K + tc::BK - 1) / tc::BK, J = statsq_step_count(nl);
-  const int S = k4_stages(TBN, KT, panel, J);
-  const tc::Launch l = tc::launch_shape(M, N, TBN);
-#define OFQ_K4_STAGES(SS)                                                   \
-  case SS:                                                                  \
-    return tc::launch(statsq_tc_kernel<TBN, SS>, l,                         \
-                      k4_smem(TBN, KT, panel, J, SS).total, stream,         \
-                      (const __nv_bfloat16*)x, w, s, (__nv_bfloat16*)y, M, \
-                      K, N, nl, vec_x ? 1 : 0, vec_w ? 1 : 0, l.tiles,      \
-                      panel ? 1 : 0);
-  switch (S) {
-    OFQ_K4_STAGES(4)
-    OFQ_K4_STAGES(3)
-    OFQ_K4_STAGES(2)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef OFQ_K4_STAGES
 }
 
 }  // namespace
 
-// K4, fp32 stream: x, y float; the CUDA-core template
-extern "C" int ofq_pallas_statsq_f32_fwd(const float* x, const float* w,
-                                         const float* s, float* y, int M,
-                                         int K, int N, float nl,
-                                         void* stream) {
-  return launch<float, false>(x, w, s, y, M, K, N, nl, stream);
-}
-
-// K4, bf16 stream: x, y __nv_bfloat16; wgmma, with the tile width of
-// k4_pick (and its W panel where that fits)
-extern "C" int ofq_pallas_statsq_bf16_fwd(const void* x, const float* w,
-                                          const float* s, void* y, int M,
-                                          int K, int N, float nl,
-                                          void* stream) {
-  bool panel = false;
-  switch (k4_pick(N, K, nl, &panel)) {
-    case 64: return launch_tc<64>(x, w, s, y, M, K, N, nl, panel, stream);
-    case 96: return launch_tc<96>(x, w, s, y, M, K, N, nl, panel, stream);
-    case 128: return launch_tc<128>(x, w, s, y, M, K, N, nl, panel, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The launch K4-bf16 takes for these shapes on the current card.  out:
-// BN, grid x, grid y, M tiles per block, panel, raw slots
-extern "C" void ofq_pallas_statsq_bf16_shape(int M, int K, int N, float nl,
-                                             int* out) {
-  bool panel = false;
-  const int bn = k4_pick(N, K, nl, &panel);
-  const tc::Launch l = tc::launch_shape(M, N, bn);
-  out[0] = bn;
-  out[1] = (int)l.grid.x;
-  out[2] = (int)l.grid.y;
-  out[3] = l.tiles;
-  out[4] = panel ? 1 : 0;
-  out[5] = k4_stages(bn, (K + tc::BK - 1) / tc::BK, panel,
-                     statsq_step_count(nl));
+// K4.  x, y: float (bf16 == 0) or __nv_bfloat16 (bf16 == 1); w, s: float
+extern "C" int ofq_pallas_statsq_fwd(const void* x, const float* w,
+                                     const float* s, void* y, int M, int K,
+                                     int N, float nl, int bf16,
+                                     void* stream) {
+  return launch<false>(x, w, s, y, M, K, N, nl, bf16, stream);
 }
 
 // K5.  g, dx: float (bf16 == 0) or __nv_bfloat16 (bf16 == 1); w, s: float
@@ -418,8 +176,7 @@ extern "C" int ofq_pallas_statsq_dx(const void* g, const float* w,
                                     const float* s, void* dx, int M, int K,
                                     int N, float nl, int bf16,
                                     void* stream) {
-  return bf16 ? launch<__nv_bfloat16, true>(g, w, s, dx, M, N, K, nl, stream)
-              : launch<float, true>(g, w, s, dx, M, N, K, nl, stream);
+  return launch<true>(g, w, s, dx, M, N, K, nl, bf16, stream);
 }
 
 extern "C" const char* ofq_cuda_error_string(int err) {

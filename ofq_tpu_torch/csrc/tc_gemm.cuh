@@ -1,11 +1,10 @@
-// Shared pieces of the tensor-core kernels: K1 (fused_qlinear.cu) and K4
-// in the bf16 stream (pallas_statsq.cu).
+// The tensor-core GEMM of K1 (fused_qlinear.cu): the wgmma product, the
+// shared-memory layout it reads, the pipeline and the codes' arithmetic.
 //
-// Both are GEMMs whose operands become small integer codes on their way
-// into the product (odd StatsQ weight codes, LSQ activation codes) or are
-// bf16 already (K4's x).  Codes and bf16 values are exact in bf16, so
-// `wgmma.mma_async` m64nNk16 bf16 x bf16 -> fp32 (sm_90a) computes each
-// product exactly and only the fp32 sum order is the tensor cores' own.
+// K1 multiplies small integer codes (LSQ activation codes, odd StatsQ
+// weight codes), exact in bf16, so `wgmma.mma_async` m64nNk16 bf16 x bf16
+// -> fp32 (sm_90a) computes each product exactly and, while the partial
+// sums stay integers below 2^24, the whole sum exactly.
 //
 // Block: 512 threads, four warpgroups, one block per SM, persistent: block
 // (x, y) of grid (nt, G) walks the M tiles y, y + G, ... of N tile x, a BM x
@@ -25,10 +24,9 @@
 // tensor cores multiply step g, the threads turn raw step g + 1 into codes
 // (from shared memory, in registers) and store them into the swizzled code
 // tiles (two, in turn), and a tile's epilogue overlaps the next tile's
-// loads.  K4's bf16 x needs no codes: its cp.async lands in the swizzled A
-// tile itself (a ring of S + 1).  Where the W codes of the block's whole N
-// tile fit in shared memory (a panel of KT code tiles), the block forms
-// them once, before its first tile, and loads and codes no W after.
+// loads.  Where the W codes of the block's whole N tile fit in shared
+// memory (a panel of KT code tiles), the block forms them once, before its
+// first tile, and loads and codes no W after.
 //
 // Codes are step functions of the input, read off tables (see "codes as
 // step functions" below): per column or row, where each step starts, found
@@ -531,13 +529,12 @@ struct Wgmma<128> {
 // of T * KT steps: acc (a multiplying warpgroup's 64 x BN fp32 tile) = the
 // sum over a tile's stages of A (BM x 64) @ B (64 x BN), then epi(t)
 // stores it.  Each operand has load(g) (cp.async of step g into its ring),
-// code(g) (step g's codes into a code tile; nothing for an operand
-// multiplied as it is loaded, or kept in a panel) and tile(g) (the shared-
-// memory address of step g's tile for wgmma).  Commit group g holds the
-// loads of step g; S - 1 steps are in flight while step g is multiplied
-// and step g + 1 coded, across tile boundaries, so a tile's epilogue
-// overlaps the next tile's loads.  The tables (and a W panel) are ready
-// when it starts.
+// code(g) (step g's codes into a code tile; nothing for a W kept in a
+// panel) and tile(g) (the shared-memory address of step g's tile for
+// wgmma).  Commit group g holds the loads of step g; S - 1 steps are in
+// flight while step g is multiplied and step g + 1 coded, across tile
+// boundaries, so a tile's epilogue overlaps the next tile's loads.  The
+// tables (and a W panel) are ready when it starts.
 template <int BN, int S, class OpA, class OpB, class Epi>
 __device__ __forceinline__ void mainloop(float (&acc)[BN / 2], int KT, int T,
                                          OpA& a, OpB& b, Epi epi) {
@@ -583,8 +580,7 @@ __device__ __forceinline__ void mainloop(float (&acc)[BN / 2], int KT, int T,
       a.code(g + 1);
       b.code(g + 1);
     }
-    // raw slot g % S was coded in the last iteration (or before the
-    // loop), and K4's A slot (g + S) % (S + 1) was multiplied at g - 1
+    // raw slot g % S was coded in the last iteration (or before the loop)
     if (g + S < steps) {
       a.load(g + S);
       b.load(g + S);

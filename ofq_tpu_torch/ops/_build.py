@@ -2,8 +2,9 @@
 
 Each `.cu` source exports a plain C launcher and is compiled by `nvcc` into
 its own shared library, loaded with `ctypes`: no PyTorch headers, so a
-source compiles in seconds.  `tc_gemm.cuh` holds what K1's and K4's
-tensor-core kernels share; it is hashed into every library's name.  Libraries go to `ofq_tpu_torch/_build/`
+source compiles in seconds.  A source may include a header of `csrc/`
+(`tc_gemm.cuh`, K1's tensor-core GEMM); every header is hashed into every
+library's name.  Libraries go to `ofq_tpu_torch/_build/`
 under a name that hashes the source and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  `build_all()` starts one `nvcc`
 per source, all at once.

@@ -11,10 +11,9 @@ the hand-written kernel `csrc/fused_qlinear.cu` (built at first use), on a
 CPU tensor it runs `fused_qlinear_fwd_reference`, the same arithmetic in
 plain PyTorch.  `s_w` (with its 1e-12 floor) and `bvec` are computed by
 torch ops before the launch, as in JAX.  The kernel forms both code sets
-in registers and multiplies them with `wgmma` (bf16 codes, fp32 sums) on
-the tensor cores: its one design, `DESIGN`, counted in
-`fused_qlinear_fwd.launches_by_design`.  The integer sums are exact while
-K * max|XI| * max|WI| < 2^24, so the kernel gives the plain version's bits.
+on the card and multiplies them with `wgmma` (bf16 codes, fp32 sums) on
+the tensor cores; the integer sums are exact while
+K * max|XI| * max|WI| < 2^24, so it gives the plain version's bits.
 
 `fused_qlinear` reaches the kernel through `_FusedQLinear`, a
 `torch.autograd.Function` whose backward is the JAX package's closed-form
@@ -40,8 +39,6 @@ from . import _build
 from .fused_attention import check_args, on_card, refuse_graph_cut
 
 _S_EPS = 1e-5
-# the kernel's design: wgmma on the integer codes
-DESIGN = "wgmma"
 
 
 def _w_levels_int(w, sw, n):
@@ -92,7 +89,6 @@ def _launch(x2, s_tok, n_tok, b_pre, w, s_w, bvec, a_lo, a_hi, n_w):
                  M, K, N, float(a_lo), float(a_hi), float(n_w), stream)
     _build.check(lib, err, "fused_qlinear_fwd")
     fused_qlinear_fwd.launches += 1
-    fused_qlinear_fwd.launches_by_design[DESIGN] += 1
     fused_qlinear_fwd.launch_shapes[(M, K, N)] += 1
     return y
 
@@ -129,7 +125,6 @@ def fused_qlinear_fwd(x2, s_tok, n_tok, b_pre, w, s_w, bvec, a_lo, a_hi,
 # comparison paths do not count
 fused_qlinear_fwd.launches = 0
 fused_qlinear_fwd.launch_shapes = collections.Counter()
-fused_qlinear_fwd.launches_by_design = collections.Counter()
 
 
 def _prep(x, s):

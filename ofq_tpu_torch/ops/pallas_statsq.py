@@ -12,13 +12,6 @@ has x's dtype (fp32 or bf16).  Each wrapper launches its hand-written CUDA
 kernel (`csrc/pallas_statsq.cu`, built at first use) on a CUDA tensor and
 runs its plain PyTorch version (`*_reference`) on a CPU tensor.
 
-K4 has two kernels, chosen by the dtype of x (`FWD_DESIGNS`): in the bf16
-stream x and the odd level codes 2 lv + 1 are exact in bf16, so K4 runs
-`wgmma` on the tensor cores and scales each column by s / (2 n) once in
-its epilogue; an fp32 x is not exact in bf16, so the fp32 stream keeps
-the CUDA-core template (fp32 FMAs), which K5 shares in both dtypes.
-`pallas_statsq_fwd.launches_by_design` counts K4's launches by design.
-
 `pallas_statsq_matmul` reaches K4 through `_PallasStatsQMatmul`, the custom
 VJP of the JAX package, whose backward is XLA there and torch ops here:
 
@@ -80,51 +73,25 @@ def pallas_statsq_dx_reference(g2, w, s, n_levels, x_dtype):
     return _acc32(g2, _quant_tile(w, s, n_levels).T).to(x_dtype)
 
 
-# K4's kernel for each dtype of x: its design and its C entry point
-FWD_DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}
-_FWD_ENTRY = {"wgmma": "ofq_pallas_statsq_bf16_fwd",
-              "cuda_core": "ofq_pallas_statsq_f32_fwd"}
-
-
 def _launch(fn_name, what, a, w, s, n_levels, out_shape, M, K, N):
-    """Launch `csrc/pallas_statsq.cu`'s entry `fn_name` on (a, w, s) into a
-    new `out_shape` tensor of a's dtype."""
     lib = _build.load("pallas_statsq")
     fn = getattr(lib, fn_name)
-    # K5's entry takes the dtype as a flag; K4's entries are one per dtype
-    tail = ((int(a.dtype == torch.bfloat16),)
-            if fn_name == "ofq_pallas_statsq_dx" else ())
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] + [ctypes.c_int] * len(tail)
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(a.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-                 M, K, N, float(n_levels), *tail, stream)
+                 M, K, N, float(n_levels), int(a.dtype == torch.bfloat16),
+                 stream)
     _build.check(lib, err, what)
     return out
 
 
-def launch_shape(M, K, N, n_levels):
-    """The launch K4's wgmma kernel takes for (M, K, N) on the current
-    card: dict(bn, grid, tiles, panel, stages); grid (N tiles, blocks per
-    N tile), tiles the M tiles each persistent block walks, panel whether
-    it keeps its N tile's W codes, stages the raw slots of its rings."""
-    fn = _build.load("pallas_statsq").ofq_pallas_statsq_bf16_shape
-    fn.restype = None
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    out = (ctypes.c_int * 6)()
-    fn(M, K, N, float(n_levels), ctypes.cast(out, ctypes.c_void_p))
-    return dict(bn=out[0], grid=(out[1], out[2]), tiles=out[3],
-                panel=bool(out[4]), stages=out[5])
-
-
 def pallas_statsq_fwd(x2, w, s, n_levels):
-    """K4's wrapper: a CUDA tensor goes to the CUDA kernel of its dtype
-    (`FWD_DESIGNS`; it raises if it cannot build or launch), a CPU tensor
-    to the plain version."""
+    """K4's wrapper: a CUDA tensor goes to the CUDA kernel (which raises if
+    it cannot build or launch), a CPU tensor to the plain version."""
     refuse_graph_cut("pallas_statsq_fwd", x2, w, s)
     if not on_card(x2):
         return pallas_statsq_fwd_reference(x2, w, s, n_levels)
@@ -132,10 +99,9 @@ def pallas_statsq_fwd(x2, w, s, n_levels):
     N = w.shape[1]
     check_args("pallas_statsq_fwd", x2, x2=(x2, (M, K), _stream_dtype(x2)),
                w=(w, (K, N)), s=(s, (1, N)))
-    y = _launch(_FWD_ENTRY[FWD_DESIGNS[x2.dtype]], "pallas_statsq_fwd", x2,
-                w, s, n_levels, (M, N), M, K, N)
+    y = _launch("ofq_pallas_statsq_fwd", "pallas_statsq_fwd", x2, w, s,
+                n_levels, (M, N), M, K, N)
     pallas_statsq_fwd.launches += 1
-    pallas_statsq_fwd.launches_by_design[FWD_DESIGNS[x2.dtype]] += 1
     pallas_statsq_fwd.launch_shapes[(M, K, N)] += 1
     return y
 
@@ -165,7 +131,6 @@ def pallas_statsq_dx(g2, w, s, n_levels, x_dtype):
 # comparison paths do not count
 pallas_statsq_fwd.launches = 0
 pallas_statsq_fwd.launch_shapes = collections.Counter()
-pallas_statsq_fwd.launches_by_design = collections.Counter()
 pallas_statsq_dx.launches = 0
 pallas_statsq_dx.launch_shapes = collections.Counter()
 

@@ -1,24 +1,21 @@
-"""The arithmetic that K1's and K4's tensor-core kernels rest on, on the CPU.
+"""The arithmetic that K1's tensor-core kernel rests on, on the CPU.
 
-The kernels (`ofq_tpu_torch/csrc/tc_gemm.cuh`) multiply exact bf16 codes
-with fp32 sums in the tensor cores' order, and form the codes as step
-functions read off per-column (per-token) tables.  Neither runs here, so
-this file emulates each in torch / numpy and holds the emulation against
-the plain versions, and the plain versions against the JAX package's
-Pallas kernels in interpret mode:
+The kernel (`ofq_tpu_torch/csrc/fused_qlinear.cu`, `tc_gemm.cuh`)
+multiplies exact bf16 codes with fp32 sums in the tensor cores' order, and
+forms the codes as step functions read off per-column (per-token) tables.
+It does not run here, so this file emulates each in torch / numpy and
+holds the emulation against the plain version, and the plain version
+against the JAX package's Pallas kernel in interpret mode:
 
-  * K4's factored form, bf16(s / (2n) * sum_k x c) with the odd codes c
-    cast to bf16 and fp32 partial sums over k-chunks of 16 taken in a
-    shuffled order, stays within the limits of chip_smoke.py's
-    `_k45_gate` against `pallas_statsq_fwd_reference`, in bf16 and fp32;
-  * K1's sum of LSQ codes times odd StatsQ codes, in the same emulation,
-    gives `fused_qlinear_fwd_reference`'s bits at W2A2 and W4A4 (integer
-    partial sums below 2^24), and past that bound (W8A8, K = 1536 at the
-    largest codes) differs: the reason the bound is stated;
-  * the codes as step functions (the tables the kernels build with the
+  * K1's sum of LSQ codes times odd StatsQ codes, with the codes cast to
+    bf16 and fp32 partial sums over k-chunks of 16 taken in a shuffled
+    order, gives `fused_qlinear_fwd_reference`'s bits at W2A2 and W4A4
+    (integer partial sums below 2^24), and past that bound (W8A8, K = 1536
+    at large codes) differs: the reason the bound is stated;
+  * the codes as step functions (the tables the kernel builds with the
     exact expression on 9-float windows) equal the codes computed per
     element, everywhere near every step, StatsQ and LSQ ties included;
-  * the division the kernels' tables use, RN(a * RN64(1 / b)) in fp64,
+  * the division the kernel's tables use, RN(a * RN64(1 / b)) in fp64,
     gives fp32's correctly rounded a / b.
 
 Inputs come from seeded numpy; StatsQ ties (mean|w| = 0.5, c n integral)
@@ -32,9 +29,7 @@ import pytest
 import torch
 
 from ofq_tpu.ops import fused_qlinear as jfq
-from ofq_tpu.ops import pallas_statsq as jps
 from ofq_tpu_torch.ops import fused_qlinear as fq
-from ofq_tpu_torch.ops import pallas_statsq as ps
 from ofq_tpu_torch.quant.lsq import thresholds
 
 F32 = np.float32
@@ -75,7 +70,7 @@ def _k1_case(seed, M, n_tok, K, N, bits, all_positive):
 
 # ---------------------------------------------- the tensor cores' sums
 def _tc_sum(a, b, seed):
-    """a (M, K) @ b (K, N) as the kernels sum it: products exact (the
+    """a (M, K) @ b (K, N) as the kernel sums it: products exact (the
     operands are bf16 values), fp32 sums over k-chunks of 16, the chunks'
     partial sums added in fp32 in a shuffled order."""
     M, K = a.shape
@@ -89,60 +84,6 @@ def _tc_sum(a, b, seed):
     for i in order:
         acc = acc + chunks[i]
     return acc
-
-
-def _odd_codes(w, s, n):
-    c = torch.clamp(w / s, -1.0, 1.0 - 1e-6)
-    return 2.0 * torch.round(c * n - 0.5) + 1.0
-
-
-def _k45_limit(y, ref, abs_sum):
-    """chip_smoke.py's `_k45_gate`: 1e-5 of the summed |terms|, in bf16
-    plus one ulp of the larger of |y| and |ref|."""
-    lim = 1e-5 * abs_sum
-    if y.dtype == torch.bfloat16:
-        lim = lim + 2 ** -7 * torch.maximum(y.float().abs(),
-                                            ref.float().abs())
-    return (y.float() - ref.float()).abs() <= lim
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("M,K,N", [(37, 200, 72), (64, 96, 96),
-                                   (20, 40, 24)])
-def test_k4_factored_form_within_gate(dtype, M, K, N):
-    rng = np.random.default_rng(M * K + N)
-    w = torch.from_numpy(_weight(rng, K, N, 2))
-    s = torch.from_numpy(_scale(w.numpy()))
-    x = (torch.from_numpy(rng.integers(-2, 2, size=(M, K)) * 0.25
-                          + rng.normal(size=K) * 0.05).to(dtype))
-    n = 2.0
-    c = _odd_codes(w, s, n).to(torch.bfloat16)  # exact: odd integers
-    assert torch.equal(c.float(), _odd_codes(w, s, n))
-    acc = _tc_sum(x.float(), c.float(), seed=K)
-    # the epilogue: one fp32 scale per column, one rounding to x's dtype
-    y = (acc * (s / (2.0 * n))).to(dtype)
-    ref = ps.pallas_statsq_fwd_reference(x, w, s, n)
-    abs_sum = ps._acc32(x.abs(), ps._quant_tile(w, s, n).abs())
-    assert bool(_k45_limit(y, ref, abs_sum).all())
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_k4_plain_matches_pallas(dtype):
-    rng = np.random.default_rng(5)
-    M, K, N = 37, 200, 72
-    w = _weight(rng, K, N, 2)
-    s = np.asarray(jps.statsq_scale(jnp.asarray(w)))
-    x = rng.normal(size=(M, K)).astype(F32)
-    xt = torch.from_numpy(x).to(getattr(torch, dtype))
-    xj = jnp.asarray(xt.float().numpy(), getattr(jnp, dtype))
-    want = np.asarray(jps._fwd_call(xj, jnp.asarray(w), jnp.asarray(s), 2,
-                                    interpret=True).astype(jnp.float32))
-    got = ps.pallas_statsq_fwd_reference(xt, torch.from_numpy(w),
-                                         torch.from_numpy(s.copy()),
-                                         2.0).float()
-    lim = (2 ** -7 * np.maximum(np.abs(want), np.abs(got.numpy()))
-           if dtype == "bfloat16" else 1e-5 * (1 + np.abs(want)))
-    assert np.all(np.abs(got.numpy() - want) <= lim)
 
 
 def _k1_codes(x, s, n_tok, b_pre, w, s_w, lo, hi, n_w):
@@ -217,7 +158,7 @@ def test_k1_plain_matches_pallas(bits, all_positive):
 
 # -------------------------------------------- the codes as step functions
 def _div_rn(a, b):
-    """The kernels' table division: RN32(RN64(a * RN64(1 / b)))."""
+    """The kernel's table division: RN32(RN64(a * RN64(1 / b)))."""
     return (np.asarray(a, np.float64) * (1.0 / np.float64(b))).astype(F32)
 
 
