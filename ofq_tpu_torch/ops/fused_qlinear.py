@@ -55,7 +55,9 @@ def fused_qlinear_fwd_reference(x2, s_tok, n_tok, b_pre, w, s_w, bvec,
                                 a_lo, a_hi, n_w):
     """Plain PyTorch version of the kernel.  x2 (M, K); s_tok (n_tok,),
     row r uses s_tok[r % n_tok]; b_pre (K,); w (K, N); s_w (1, N);
-    bvec (N,).  Returns y (M, N)."""
+    bvec (N,).  Returns y (M, N).  The kernel takes s_tok and s_w
+    positive, as `_fused_forward` floors them (its code tables rest on
+    the codes rising with x and w)."""
     rows = torch.arange(x2.shape[0], device=x2.device) % n_tok
     s_row = s_tok[rows].reshape(-1, 1)
     u = (x2 + b_pre) / s_row
