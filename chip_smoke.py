@@ -22,8 +22,8 @@ Phases (any failure raises and the script exits non-zero):
      inputs built to land on LSQ and StatsQ rounding ties; elements
      differing counted (0 while the integer sums stay below 2^24);
   4. K2, the fused QKR attention core, against its plain version at
-     B=64, N=198, H=6, C=384, d=64 (shared and per-head lhs, LSQ on/off);
-     K3, its backward, the same way;
+     B=64, N=198, H=6, C=384, d=64 (shared and per-head lhs, LSQ on/off),
+     in fp32 and in the bf16 stream; K3, its backward, the same way;
   5. serving: DeiT-S distilled W2A2 QKR at full width (random weights from
      a seeded torch.Generator), calibrated on a seeded batch of 64 and served
      through `Predictor` with both kernels, launch counts read around one
@@ -38,6 +38,9 @@ Phases (any failure raises and the script exits non-zero):
      every parameter gradient of the step against the composed model in
      fp64; train-step img/s over 5 steps after 2 warm-ups, kernels and
      plain; peak device memory;
+  5b, 6b. the same serving and train step with the fused kernels in the
+     bf16 stream (FUSED_BF16: bench.py's `matmul_impl="fused"` bf16 row,
+     fp32 masters, bf16 teacher): the same launch counts, the bf16 gates;
   7. K4, the StatsQ matmul kernel, and K5, its dx product, against their
      plain versions in fp32 and bf16 at the DeiT-S shapes (proj, fc1, fc2
      with M = 64 * 198) and one ragged shape, with StatsQ ties built in;
@@ -45,14 +48,19 @@ Phases (any failure raises and the script exits non-zero):
      the bf16 stream (compute_dtype="bfloat16", the configuration of
      bench.py's `_rate(matmul_impl="pallas", compute_dtype="bfloat16")`)
      through `Predictor`: exactly 36 K4 launches per forward and none of
-     K1-K3, the block and top-1 gates of phase 5 in bf16 form, img/s;
+     K1-K3, the bf16 gates, img/s;
   9. pallas training: bench.py's pallas step (bf16 stream, fp32 masters,
      bf16 float teacher, KD soft+hard, AdamW, its seeded batch of 64 on the
-     device): exactly 36 K4 launches per step and none of K1-K3, the gates
-     of phase 6 in bf16 form, img/s, peak memory; then K5 on the 36 dx
-     products of one backward of this step (upstream gradients and
-     weights captured with hooks) against its plain version and against
-     the dx that the backward computed;
+     device): exactly 36 K4 launches per step and none of K1-K3, the bf16
+     gates, img/s, peak memory; then K5 on the 36 dx products of one
+     backward of this step (upstream gradients and weights captured with
+     hooks) against its plain version and against the dx that the
+     backward computed;
+  9b. the gate self-check: deliberate faults wrapped around the real
+     kernels (K4 with one output column moved by one weight level, K2
+     reading the scale of row n + 1, K3 with ds doubled, K3 with dlhs
+     doubled), each of which must trip the bf16 gates it aims at, then the
+     unmodified kernels, which must pass them; one line per result;
  10. K6, K7, K8, the Swin window-attention tail kernels of the lab bench
      (benchmarks/window_attn_lab.py), against their plain version at the
      lab's shapes (Swin-T stage 0 at batch 64: 4096 windows of 49 tokens,
@@ -70,8 +78,13 @@ Phases (any failure raises and the script exits non-zero):
      (the student of train_scripts/swin_t/w2a2_swin_t.sh), calibrated on a
      seeded batch, through `Predictor`: exactly 39 K4 launches per forward
      (3 per block and one per patch merging) and none of K1-K3 or K6-K8,
-     the block (each block and patch merging alone) and top-1 gates of
-     phase 8, img/s, peak memory.
+     the bf16 block (each block and patch merging alone) and top-1 gates,
+     img/s, peak memory.
+The agreement gates: fp32, the kernel path against the plain path; bf16,
+each path against a rounded-once reference (the plain path with every
+product summed in fp64 and rounded once to the dtype it returns), the
+kernel path no farther from it than the plain path allows (BLOCK_ROWS and
+what follows it).
 With --baseline, phase 3 also times the earlier tree's K1 at the same
 shapes (both through their C launchers alone), and the run ends with the
 sums over the 36 launches of a fused step.  The line before the last is a
@@ -83,6 +96,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -99,10 +113,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 BATCH = 64
-# the two configurations of the DeiT-S W2A2 QKR student that the script
-# drives: the fused kernels K1-K3 in fp32, and bench.py's pallas step
-# (K4 in every quantized linear, the composed attention tail) in bf16
+# the three configurations of the DeiT-S W2A2 QKR student that the script
+# drives: the fused kernels K1-K3 in fp32 and in the bf16 stream (bench.py's
+# `matmul_impl="fused"` bf16 row), and bench.py's pallas step (K4 in every
+# quantized linear, the composed attention tail) in bf16
 FUSED = dict(matmul_impl="fused", attn_impl="fused", compute_dtype=None)
+FUSED_BF16 = dict(FUSED, compute_dtype="bfloat16")
 PALLAS = dict(matmul_impl="pallas", attn_impl=None, compute_dtype="bfloat16")
 # seeded batches of 64 over which the slice's kernel path and plain path
 # are compared
@@ -396,39 +412,89 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
 
 
 # ---------------------------------------------------------------- phase 4
+def _attn_outside(y, ref):
+    """K2's and K3's elementwise tolerance against their plain versions
+    (PERF.md section 2): fp32, 1e-4 * (1 + |ref|); bf16, one bf16 ulp of
+    the larger magnitude, 2^-7 max(|y|, |ref|), plus that fp32 term (both
+    sum in fp32 in other orders, then round to bf16)."""
+    import torch
+    a, b = y.float(), ref.float()
+    lim = 1e-4 * (1 + b.abs())
+    if y.dtype == torch.bfloat16:
+        lim = lim + 2 ** -7 * torch.maximum(a.abs(), b.abs())
+    return (a - b).abs() > lim
+
+
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def _attn_bound(B, N, H, K, d, lhs_numel, dtype, backward):
+    """Bytes (each input read once, each output written once) and
+    operations of K2 or K3, and the bound at the peak of the operand type
+    (bf16 products are exact and could run on the tensor cores)."""
+    import torch
+    es = 2 if dtype == torch.bfloat16 else 4
+    rhs_numel, v_numel = B * N * H * K, B * N * H * d
+    if backward:
+        nbytes = es * (2 * lhs_numel + 2 * rhs_numel + 3 * v_numel) + 8 * N
+        flops = 2 * B * H * N * N * (3 * K + 2 * d)
+    else:
+        nbytes = es * (lhs_numel + rhs_numel + 2 * v_numel) + 4 * N
+        flops = 2 * B * H * N * N * (K + d)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return nbytes, flops, bound(nbytes, flops, peak)
+
+
+def _attn_cases(dev, seed, N, B, with_g):
+    """K2's and K3's inputs at the slice's shapes, per stream dtype: fp32,
+    then the same values rounded to bf16 (s fp32), shared and per-head
+    lhs; yields (dtype, shared, K, tensors)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    H, C, d = 6, 384, 64
+    for shared in (True, False):
+        K = C if shared else d
+        ts = [torch.randn(*((B, N, K) if shared else (B, N, H, K)),
+                          generator=g) * 0.5,
+              torch.randn(B, N, H, K, generator=g) * 0.5,
+              torch.randn(B, N, H, d, generator=g),
+              torch.rand(N, generator=g) * 0.01 + 0.005]
+        if with_g:
+            ts.append(torch.randn(B, N, H, d, generator=g))
+        for dtype in (torch.float32, torch.bfloat16):
+            yield dtype, shared, K, [
+                t.to(dev, dtype if i != 3 else torch.float32)
+                .contiguous() for i, t in enumerate(ts)]
+
+
 def phase_k2(dev, N, B=BATCH):
     import torch
     import torch.nn.functional as F
     from ofq_tpu_torch.ops import fused_attention as fa
-    g = torch.Generator().manual_seed(2)
-    H, C, d, bits = 6, 384, 64, 2
+    H, d, bits = 6, 64, 2
     sm_scale = d ** -0.5
     results = []
-    for shared in (True, False):
-        K = C if shared else d
-        lhs = torch.randn(*((B, N, K) if shared else (B, N, H, K)),
-                          generator=g) * 0.5
-        rhs = torch.randn(B, N, H, K, generator=g) * 0.5
-        v = torch.randn(B, N, H, d, generator=g)
-        s = (torch.rand(N, generator=g) * 0.01 + 0.005)
-        lhs, rhs, v, s = [t.to(dev).contiguous() for t in (lhs, rhs, v, s)]
+    for dtype, shared, K, (lhs, rhs, v, s) in _attn_cases(dev, 2, N, B, False):
+        dt = _dtype_name(dtype)
         for quantize in (True, False):
             args = (lhs, rhs, v, s, bits, sm_scale, quantize)
             o_k = fa.qkr_attention_fwd(*args)
             o_ref = fa.qkr_attention_fwd_reference(*args)
             torch.cuda.synchronize()
-            diff = (o_k - o_ref).abs()
-            outside = int((diff > 1e-4 * (1 + o_ref.abs())).sum())
+            diff = (o_k.float() - o_ref.float()).abs()
+            outside = int(_attn_outside(o_k, o_ref).sum())
             frac = outside / diff.numel()
-            hard = 2 * float(s.max()) * float(v.abs().max())
+            hard = 2 * float(s.max()) * float(v.float().abs().max())
             err = float(diff.max())
             name = (f"{'shared' if shared else 'per-head'} lhs, "
-                    f"LSQ {'on' if quantize else 'off'}")
-            if not (torch.isfinite(o_k).all() and frac <= 1e-3
-                    and err <= hard):
+                    f"LSQ {'on' if quantize else 'off'}, {dt}")
+            if not (torch.isfinite(o_k.float()).all() and frac <= 1e-3
+                    and err <= hard and o_k.dtype == dtype):
                 raise AssertionError(
-                    f"K2 {name}: {outside} elements outside 1e-4*(1+|ref|) "
-                    f"({frac:.2e}), max|diff| {err} (limit {hard})")
+                    f"K2 {name}: {outside} elements outside the tolerance "
+                    f"({frac:.2e}), max|diff| {err} (limit {hard}), "
+                    f"{o_k.dtype}")
             ms = median_ms(lambda: fa.qkr_attention_fwd(*args))
             plain_ms = median_ms(
                 lambda: fa.qkr_attention_fwd_reference(*args), reps=10)
@@ -438,20 +504,21 @@ def phase_k2(dev, N, B=BATCH):
             vv = v.permute(0, 2, 1, 3).contiguous()
             sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(
                 q, kk, vv, scale=sm_scale))
-            nbytes = 4 * (lhs.numel() + rhs.numel() + 2 * v.numel() + N)
-            flops = 2 * B * H * N * N * (K + d)
-            b_ms, b_by = bound(nbytes, flops, PEAK_FP32_FLOPS)
-            log(f"[K2] {name:24s} B={B} N={N} H={H} K={K} d={d}: max|diff| "
+            del q, kk, vv
+            nbytes, flops, (b_ms, b_by) = _attn_bound(
+                B, N, H, K, d, lhs.numel(), dtype, backward=False)
+            log(f"[K2] {name:30s} B={B} N={N} H={H} K={K} d={d}: max|diff| "
                 f"{err:.3e} (limit {hard:.3e}), {outside} of {diff.numel()} "
-                f"outside 1e-4*(1+|ref|); kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, SDPA (unquantized) {sdpa_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
-            results.append(dict(name=name, shared=shared, quantize=quantize,
-                                B=B, N=N, H=H, K=K, d=d, max_abs_err=err,
-                                outside=outside, ms=ms, plain_ms=plain_ms,
-                                sdpa_ms=sdpa_ms, bound_ms=b_ms,
-                                bound_by=b_by, bytes=nbytes, flops=flops,
-                                main_path=shared and quantize))
+                f"outside the tolerance; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, SDPA (unquantized, {dt}) "
+                f"{sdpa_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            results.append(dict(name=name, dtype=dt, shared=shared,
+                                quantize=quantize, B=B, N=N, H=H, K=K, d=d,
+                                max_abs_err=err, outside=outside, ms=ms,
+                                plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                                flops=flops, main_path=shared and quantize))
     return results
 
 
@@ -463,33 +530,25 @@ def phase_k3(dev, N, B=BATCH):
     import torch
     import torch.nn.functional as F
     from ofq_tpu_torch.ops import fused_attention as fa
-    g = torch.Generator().manual_seed(3)
-    H, C, d, bits = 6, 384, 64, 2
+    H, d, bits = 6, 64, 2
     sm_scale = d ** -0.5
     results = []
-    for shared in (True, False):
-        K = C if shared else d
-        lhs = torch.randn(*((B, N, K) if shared else (B, N, H, K)),
-                          generator=g) * 0.5
-        rhs = torch.randn(B, N, H, K, generator=g) * 0.5
-        v = torch.randn(B, N, H, d, generator=g)
-        s = torch.rand(N, generator=g) * 0.01 + 0.005
-        go = torch.randn(B, N, H, d, generator=g)
-        lhs, rhs, v, s, go = [t.to(dev).contiguous()
-                              for t in (lhs, rhs, v, s, go)]
+    for dtype, shared, K, (lhs, rhs, v, s, go) in _attn_cases(
+            dev, 3, N, B, True):
+        dt = _dtype_name(dtype)
         for quantize in (True, False):
             args = (lhs, rhs, v, s, go, bits, sm_scale, quantize)
             got = fa.qkr_attention_bwd(*args)
             ref = fa.qkr_attention_bwd_reference(*args)
             torch.cuda.synchronize()
             name = (f"{'shared' if shared else 'per-head'} lhs, "
-                    f"LSQ {'on' if quantize else 'off'}")
+                    f"LSQ {'on' if quantize else 'off'}, {dt}")
             shares, err = {}, 0.0
             for nm, a, b in zip(("dlhs", "drhs", "dv"), got, ref):
-                diff = (a - b).abs()
-                shares[nm] = float((diff > 1e-4 * (1 + b.abs())).float()
-                                   .mean())
-                err = max(err, float(diff.max()))
+                if a.dtype != dtype:
+                    raise AssertionError(f"K3 {name}: {nm} is {a.dtype}")
+                shares[nm] = float(_attn_outside(a, b).float().mean())
+                err = max(err, float((a.float() - b.float()).abs().max()))
             # ds[n] sums 64 * 6 * 198 terms; one probability that lands on
             # the other side of an LSQ boundary (the K2 precedent) moves
             # one entry by about |dpq|, so ds is held by the share of its
@@ -499,11 +558,11 @@ def phase_k3(dev, N, B=BATCH):
                              .mean())
             ds_err = (float((got[3] - ref[3]).norm() / ref[3].norm())
                       if quantize else float(got[3].abs().max()))
-            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
             if not (finite and max(shares.values()) <= 1e-3
                     and ds_share <= 2e-2 and (quantize or ds_err == 0)):
                 raise AssertionError(
-                    f"K3 {name}: shares outside 1e-4*(1+|ref|) {shares}, "
+                    f"K3 {name}: shares outside the tolerance {shares}, "
                     f"ds {ds_share} of entries outside, error {ds_err}, "
                     f"finite {finite}")
             ms = median_ms(lambda: fa.qkr_attention_bwd(*args))
@@ -518,21 +577,20 @@ def phase_k3(dev, N, B=BATCH):
             sdpa_ms = median_ms(lambda: torch.autograd.grad(
                 out, (q, kk, vv), gg, retain_graph=True))
             del out, q, kk, vv
-            nbytes = 4 * (2 * lhs.numel() + 2 * rhs.numel()
-                          + 3 * v.numel() + 2 * N)
-            flops = 2 * B * H * N * N * (3 * K + 2 * d)
-            b_ms, b_by = bound(nbytes, flops, PEAK_FP32_FLOPS)
-            log(f"[K3] {name:24s} B={B} N={N} H={H} K={K} d={d}: share "
-                f"outside 1e-4*(1+|ref|) "
+            nbytes, flops, (b_ms, b_by) = _attn_bound(
+                B, N, H, K, d, lhs.numel(), dtype, backward=True)
+            log(f"[K3] {name:30s} B={B} N={N} H={H} K={K} d={d}: share "
+                f"outside the tolerance "
                 f"{ {k: f'{v:.2e}' for k, v in shares.items()} }, ds "
                 f"{ds_share:.2e} of entries, "
                 f"{'rel L2 ' if quantize else 'max '}{ds_err:.2e}, max|diff| "
                 f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"SDPA backward (unquantized) {sdpa_ms:.4f} ms, bound "
+                f"SDPA backward (unquantized, {dt}) {sdpa_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
                 f"{nbytes / 1e6:.1f} MB)")
-            results.append(dict(name=name, shared=shared, quantize=quantize,
-                                B=B, N=N, H=H, K=K, d=d, max_abs_err=err,
+            results.append(dict(name=name, dtype=dt, shared=shared,
+                                quantize=quantize, B=B, N=N, H=H, K=K, d=d,
+                                max_abs_err=err,
                                 outside_share=shares, ds_share=ds_share,
                                 ds_err=ds_err, ms=ms,
                                 plain_ms=plain_ms, sdpa_bwd_ms=sdpa_ms,
@@ -717,10 +775,13 @@ def phase_k5_captured(recs):
 
 # ---------------------------------------------------------------- phase 5
 def _describe(conf):
-    if conf["compute_dtype"] is None:
-        return "fused QLinear + fused attention, fp32"
-    return (f"matmul_impl={conf['matmul_impl']!r} (K4), composed attention, "
-            f"{conf['compute_dtype']} stream")
+    """A label of a configuration of the student: its linears, its
+    attention tail and its stream."""
+    linears = {"fused": "fused QLinear (K1)",
+               "pallas": "matmul_impl='pallas' (K4)"}[conf["matmul_impl"]]
+    attn = ("fused attention (K2, K3)" if conf["attn_impl"] == "fused"
+            else "composed attention")
+    return f"{linears}, {attn}, {conf['compute_dtype'] or 'float32'} stream"
 
 
 def _path_counts(cfg):
@@ -749,18 +810,101 @@ def _expected(conf, cfg, train):
     return want
 
 
-# each block alone, kernels vs plain: the largest share of (image, token)
-# rows with an element outside `_outside`; end-to-end top-1 agreement
+# The agreement gates of the slices (PERF.md section 2).  A kernel and its
+# plain version sum in other orders, so now and then a value crosses an
+# LSQ boundary and moves one 2-bit level (in bf16 a one-ulp difference of
+# an output does), and the random-weight W2A2 model carries such a move on
+# through the later blocks and scrambles that image's top-1.  So each
+# block is held alone, on the plain path's input to it, and the whole
+# model end to end.
+#
+# fp32 (the fused configuration): kernels against plain.  Each block: at
+# most BLOCK_ROWS of its (image, token) rows with an element outside
+# `_outside`; end to end, top-1 agreement at least TOP1.
 BLOCK_ROWS = 1e-3
 TOP1 = 0.95
-# Swin-T's block tolerance, restated from what was measured (PERF.md
+# bf16: each path against the rounded-once reference (`rounded_once`: the
+# plain path with every product summed in fp64 and rounded once to the
+# dtype it returns; every bf16 rounding of the stream kept), so the gate
+# depends on neither path's summation order.  Each block: the kernel
+# path's share of rows outside `_outside` at most max(BLOCK_ROWS, BLOCK_C
+# * the plain path's share); each block's backward the same on the rows
+# of dx, and each of its parameters' gradients by the whole-step rule
+# below; end to end, the kernel path's top-1 agreement with the reference
+# at least the plain path's minus TOP1_SIGMAS standard errors of their
+# paired difference, sqrt(n01 + n10) / images, where n01 and n10 count
+# the images on which exactly one of the two paths agrees (McNemar).
+BLOCK_C = 2
+TOP1_SIGMAS = 3
+# the bf16 backward's rows of dx add 2^-8 of the row's largest |ref| to
+# the element tolerance: an element of dx is a sum of signed terms that
+# cancel, so any two summation orders put some element of nearly every
+# row more than a bf16 ulp of itself apart (97-99 % of DeiT-S's rows on
+# an H100 without the term, plain and kernels alike)
+BACKWARD_ROW_FLOOR = 2 ** -8
+# Swin-T's element tolerance adds 2^-8 of the row's largest |ref| (PERF.md
 # section 2): at its stage-2 reduction and stage-3 shapes (M = 3136,
-# K = 768 to 3072) cuBLAS's fp32 product, in the plain path, sums in
-# another order than K4, so an output that cancels differs by a few fp32
-# ulps of its terms, many bf16 ulps of itself (49 % of the stage-2
-# reduction's rows had such an element); 2^-8 of its row's largest |ref|
-# covers that, and the limit on the rows stays BLOCK_ROWS
+# K = 768 to 3072) an output that cancels differs between fp32 sums in
+# two orders by a few fp32 ulps of its terms, many bf16 ulps of itself
+# (49 % of the stage-2 reduction's rows had such an element, cuBLAS
+# against K4), which would fill both paths' row counts alike
 SWIN_GATE = dict(rows=BLOCK_ROWS, row_floor=2 ** -8)
+
+
+class GateTripped(AssertionError):
+    """An agreement gate refused the kernel path (what the gate self-check
+    expects of each injected fault)."""
+
+
+@contextlib.contextmanager
+def rounded_once():
+    """The bf16 gates' reference: while it is active every product the
+    port's plain path takes (torch.matmul, torch.einsum, `@`, and through
+    autograd their backward products) is summed in fp64 and rounded once
+    to the dtype it returns; every other operation, and so every bf16
+    rounding of the stream, is the plain path's own.  Run it with the
+    model on its plain path."""
+    import functools
+    import torch
+    mm, es, op = torch.matmul, torch.einsum, torch.Tensor.__matmul__
+
+    def matmul(a, b):
+        dt = torch.promote_types(a.dtype, b.dtype)
+        if not dt.is_floating_point:
+            return mm(a, b)
+        return mm(a.double(), b.double()).to(dt)
+
+    def einsum(eq, *operands):
+        if len(operands) == 1 and isinstance(operands[0], (list, tuple)):
+            operands = operands[0]
+        dt = functools.reduce(torch.promote_types,
+                              [o.dtype for o in operands])
+        return es(eq, *(o.double() for o in operands)).to(dt)
+
+    torch.matmul, torch.einsum = matmul, einsum
+    torch.Tensor.__matmul__ = matmul
+    try:
+        yield
+    finally:
+        torch.matmul, torch.einsum = mm, es
+        torch.Tensor.__matmul__ = op
+
+
+@contextlib.contextmanager
+def plain_path(model):
+    """`model` through its kernels' plain versions while active."""
+    model.use_kernels = False
+    try:
+        yield
+    finally:
+        model.use_kernels = True
+
+
+@contextlib.contextmanager
+def reference_path(model):
+    """`model` on the bf16 gates' reference path while active."""
+    with plain_path(model), rounded_once():
+        yield
 
 
 def _outside(y, ref, conf, row_floor=0.0):
@@ -783,44 +927,53 @@ def _row_shares(y, ref, conf, row_floor=0.0):
 
 
 def _log_rows(what, shares, limit=BLOCK_ROWS):
+    """The fp32 block gate: kernels against plain."""
     log(f"{what}: share of (image, token) rows with an element outside the "
         f"tolerance {[f'{a:.2e}' for a, _ in shares]}, differing at all "
         f"{[f'{b:.2e}' for _, b in shares]}")
     if max(a for a, _ in shares) > limit:
-        raise AssertionError(f"{what}: more than {limit} of the rows "
-                             f"of a block differ: {shares}")
+        raise GateTripped(f"{what}: more than {limit} of the rows of a "
+                          f"block differ: {shares}")
     return [a for a, _ in shares]
+
+
+def _block_rows_gate(what, rows, limit=BLOCK_ROWS):
+    """The bf16 block gate.  `rows` holds, per block, the shares of rows
+    outside the tolerance: kernels vs the reference, plain vs the
+    reference, and (printed only) kernels vs plain with the share
+    differing at all."""
+    fmt = lambda xs: [f"{x:.2e}" for x in xs]  # noqa: E731
+    k, p, kp, dif = ([r[i] for r in rows] for i in range(4))
+    log(f"{what}: share of (image, token) rows with an element outside the "
+        f"tolerance against the rounded-once reference, kernels {fmt(k)}, "
+        f"plain {fmt(p)}; kernels vs plain (not gated in bf16) {fmt(kp)}, "
+        f"differing at all {fmt(dif)}")
+    bad = [(i, a, b) for i, (a, b) in enumerate(zip(k, p))
+           if a > max(limit, BLOCK_C * b)]
+    if bad:
+        raise GateTripped(f"{what}: blocks (index, kernels, plain) past "
+                          f"max({limit}, {BLOCK_C} x plain): {bad}")
+    return dict(kernels=k, plain=p, kernels_vs_plain=kp)
 
 
 def _shapes(fn):
     return {str(k): v for k, v in fn.launch_shapes.items()}
-
-
 def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None):
     """Serving the W2A2 QKR student `name` under `policy` in the
     configuration `conf` through `Predictor` (`gate`: `check_blocks`)."""
     import numpy as np
     import torch
     from ofq_tpu_torch import ops
-    from ofq_tpu_torch.calibrate import calibrate
-    from ofq_tpu_torch.models import create_model
     from ofq_tpu_torch.serve import Predictor
 
     t0 = time.perf_counter()
-    model = create_model(
-        name, policy=policy, device=dev,
-        generator=torch.Generator().manual_seed(0), head_std=0.02, **conf)
+    model, images, rng = build_served(dev, conf, name, policy, batch)
     cfg = model.cfg
-    img, classes = cfg.img_size, cfg.num_classes
-    rng = np.random.default_rng(0)
-    calib = rng.normal(size=(batch, img, img, 3)).astype(np.float32)
-    images = rng.normal(size=(batch, img, img, 3)).astype(np.float32)
-    calibrate(model, calib)
-    torch.cuda.synchronize()
     log(f"[slice] {name} W2A2 QKR, {_describe(conf)}, "
         f"{sum(p.numel() for p in model.parameters())} params, built and "
         f"calibrated in {time.perf_counter() - t0:.1f} s")
-    pred = Predictor(model, batch_size=batch, img_size=img, device=dev)
+    pred = Predictor(model, batch_size=batch, img_size=cfg.img_size,
+                     device=dev)
 
     ops.reset_launch_counts()
     probs = pred.predict(images)
@@ -831,46 +984,21 @@ def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None):
     want = _expected(conf, cfg, train=False)
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
-    if not (probs.shape == (batch, classes) and np.isfinite(probs).all()
+    if not (probs.shape == (batch, cfg.num_classes)
+            and np.isfinite(probs).all()
             and np.allclose(probs.sum(-1), 1.0, atol=1e-4)):
         raise AssertionError(f"predictions are not finite ({batch}, "
-                             f"{classes}) probability rows")
+                             f"{cfg.num_classes}) probability rows")
 
-    # Kernel path vs plain path.  A kernel and its plain version sum in
-    # another order, so now and then a value crosses an LSQ boundary and
-    # moves one 2-bit level (in bf16, a one-ulp difference of an output
-    # does), and the random-weight W2A2 model carries such a move on
-    # through the later blocks and scrambles that image's top-1.  So (a)
-    # each block is held alone, on the plain path's input to it (at most
-    # BLOCK_ROWS of its (image, token) rows may have an element outside
-    # `_outside`); (b) end to end, on CMP_BATCHES seeded batches, top-1
-    # agreement with the plain path at least TOP1, printed beside
-    # the number of images whose probabilities differ at all and both
-    # paths' agreement with the composed model run in fp64 on the card
-    # (how far rounding alone moves top-1).
+    # the agreement gates (above BLOCK_ROWS): each block alone, then top-1
+    # on CMP_BATCHES seeded batches, printed beside the number of images
+    # whose probabilities differ at all and each path's agreement with the
+    # composed model run in fp64 on the card (how far rounding alone
+    # moves top-1)
     blocks = check_blocks(model, images, dev, conf, gate)
     batches = [images] + [rng.normal(size=images.shape).astype(np.float32)
                           for _ in range(CMP_BATCHES - 1)]
-    p_k = np.concatenate([probs] + [pred.predict(b) for b in batches[1:]])
-    model.use_kernels = False
-    p_p = np.concatenate([pred.predict(b) for b in batches])
-    model.use_kernels = True
-    p_64 = composed_fp64_probs(model, batches, dev)
-    top1 = {k: p.argmax(-1) for k, p in (("kernels", p_k), ("plain", p_p),
-                                          ("fp64", p_64))}
-    agree = float((top1["kernels"] == top1["plain"]).mean())
-    agree_64 = {k: float((top1[k] == top1["fp64"]).mean())
-                for k in ("kernels", "plain")}
-    max_diff = float(np.abs(p_k - p_p).max())
-    touched = int((np.abs(p_k - p_p).max(-1) > 0).sum())
-    log(f"[slice] {len(p_k)} images, {touched} with any probability "
-        f"differing: top-1 agreement kernels vs plain "
-        f"{agree * 100:.2f} %; vs the composed fp64 model: kernels "
-        f"{agree_64['kernels'] * 100:.2f} %, plain "
-        f"{agree_64['plain'] * 100:.2f} %; max |prob diff| kernels vs plain "
-        f"{max_diff:.3e}, max prob {float(p_p.max()):.4f}")
-    if not np.isfinite(p_k).all() or agree < TOP1:
-        raise AssertionError(f"top-1 agreement {agree} < {TOP1}")
+    top1 = check_top1(pred, batches, conf, first=probs)
 
     def rate(n_calls=10):
         for _ in range(3):
@@ -885,54 +1013,136 @@ def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None):
     torch.cuda.reset_peak_memory_stats()
     img_s = rate()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    model.use_kernels = False
-    img_s_plain = rate()
-    model.use_kernels = True
+    with plain_path(model):
+        img_s_plain = rate()
     log(f"[slice] Predictor.predict, B={batch}: {img_s:.1f} img/s with the "
         f"kernels, {img_s_plain:.1f} img/s through the plain versions; "
         f"peak device memory {peak_gb:.2f} GB with the kernels")
     prof = (phase_profile(lambda: pred.predict(images), "predict call")
             if "--profile" in sys.argv else None)
     return dict(config=conf, profile=prof, launches=launches,
-                launch_shapes=shapes,
-                compared_images=len(p_k), images_differing=touched,
-                blocks=blocks,
-                top1_agreement=agree, top1_agreement_fp64=agree_64,
-                max_prob_diff=max_diff,
+                launch_shapes=shapes, blocks=blocks, **top1,
                 img_per_s=img_s, img_per_s_plain=img_s_plain,
                 peak_mem_gb=peak_gb)
 
 
-
-
-def check_blocks(model, images, dev, conf=FUSED, gate=None):
-    """Each block through the kernels against the same block through the
-    plain versions, on the plain path's input to that block, held by
-    `gate`: at most `rows` of its rows outside `_outside` with `row_floor`
-    (default: BLOCK_ROWS, no row term)."""
+def build_served(dev, conf, name, policy, batch=BATCH):
+    """The W2A2 QKR student `name` of the serving phases, from seeded
+    weights, calibrated on a seeded batch; the seeded images it serves
+    first and the generator of the further batches."""
+    import numpy as np
     import torch
-    gate = gate or dict(rows=BLOCK_ROWS, row_floor=0.0)
+    from ofq_tpu_torch.calibrate import calibrate
+    from ofq_tpu_torch.models import create_model
+    model = create_model(
+        name, policy=policy, device=dev,
+        generator=torch.Generator().manual_seed(0), head_std=0.02, **conf)
+    img = model.cfg.img_size
+    rng = np.random.default_rng(0)
+    calib = rng.normal(size=(batch, img, img, 3)).astype(np.float32)
+    images = rng.normal(size=(batch, img, img, 3)).astype(np.float32)
+    calibrate(model, calib)
+    torch.cuda.synchronize()
+    return model, images, rng
+
+
+def check_top1(pred, batches, conf, first=None):
+    """The end-to-end gate on `batches` (`first`: the kernel path's
+    probabilities of the first batch, when already computed)."""
+    import numpy as np
+    model = pred.model
+    p_k = np.concatenate(
+        ([first] if first is not None else [pred.predict(batches[0])])
+        + [pred.predict(b) for b in batches[1:]])
+    with plain_path(model):
+        p_p = np.concatenate([pred.predict(b) for b in batches])
+    p_64 = composed_fp64_probs(model, batches, next(
+        model.parameters()).device)
+    top1 = {k: p.argmax(-1) for k, p in (("kernels", p_k), ("plain", p_p),
+                                          ("fp64", p_64))}
+    agree = float((top1["kernels"] == top1["plain"]).mean())
+    agree_64 = {k: float((top1[k] == top1["fp64"]).mean())
+                for k in ("kernels", "plain")}
+    max_diff = float(np.abs(p_k - p_p).max())
+    touched = int((np.abs(p_k - p_p).max(-1) > 0).sum())
+    log(f"[slice] {len(p_k)} images, {touched} with any probability "
+        f"differing: top-1 agreement kernels vs plain "
+        f"{agree * 100:.2f} %; vs the composed fp64 model: kernels "
+        f"{agree_64['kernels'] * 100:.2f} %, plain "
+        f"{agree_64['plain'] * 100:.2f} %; max |prob diff| kernels vs plain "
+        f"{max_diff:.3e}, max prob {float(p_p.max()):.4f}")
+    out = dict(compared_images=len(p_k), images_differing=touched,
+               top1_agreement=agree, top1_agreement_fp64=agree_64,
+               max_prob_diff=max_diff)
+    if not np.isfinite(p_k).all():
+        raise AssertionError("non-finite probabilities")
+    if conf["compute_dtype"] is None:
+        if agree < TOP1:
+            raise GateTripped(f"top-1 agreement {agree} < {TOP1}")
+        return out
+    with reference_path(model):
+        p_r = np.concatenate([pred.predict(b) for b in batches])
+    a_k = top1["kernels"] == p_r.argmax(-1)
+    a_p = top1["plain"] == p_r.argmax(-1)
+    n01, n10 = int((a_k & ~a_p).sum()), int((a_p & ~a_k).sum())
+    margin = TOP1_SIGMAS * (n01 + n10) ** 0.5 / len(a_k)
+    log(f"[slice] top-1 agreement with the rounded-once reference: kernels "
+        f"{a_k.mean() * 100:.2f} %, plain {a_p.mean() * 100:.2f} % (only "
+        f"the kernels agree on {n01} images, only plain on {n10}); gate: "
+        f"kernels >= plain - {margin * 100:.2f} %")
+    out.update(top1_vs_reference=dict(
+        kernels=float(a_k.mean()), plain=float(a_p.mean()), only_kernels=n01,
+        only_plain=n10, margin=margin))
+    if a_k.mean() < a_p.mean() - margin:
+        raise GateTripped(f"top-1 agreement with the reference: kernels "
+                          f"{a_k.mean()} < plain {a_p.mean()} - {margin}")
+    return out
+
+
+def _capture_blocks(model, images, dev):
+    """(input, output) of every block on one plain-path forward."""
+    import torch
     seen = []
     hooks = [getattr(model, n).register_forward_hook(
         lambda mod, args, out: seen.append((args[0], out)))
         for n in model.block_names]
-    model.use_kernels = False
     try:
-        with torch.inference_mode():
+        with plain_path(model), torch.inference_mode():
             model(torch.from_numpy(images).to(dev))
     finally:
-        model.use_kernels = True
         for h in hooks:
             h.remove()
-    shares = []
+    return seen
+
+
+def check_blocks(model, images, dev, conf=FUSED, gate=None):
+    """Each block alone on the plain path's input to it, held by `gate`
+    (`rows`, `row_floor`; default BLOCK_ROWS, no row term): in fp32 the
+    kernel path against the plain path, in bf16 both against the
+    rounded-once reference (above BLOCK_ROWS)."""
+    import torch
+    gate = gate or dict(rows=BLOCK_ROWS, row_floor=0.0)
+    fl = gate["row_floor"]
+    rows = []
     with torch.inference_mode():
-        for name, (x, ref) in zip(model.block_names, seen):
-            y = getattr(model, name)(x)
+        for name, (x, ref) in zip(model.block_names,
+                                  _capture_blocks(model, images, dev)):
+            block = getattr(model, name)
+            y = block(x)
             if not torch.isfinite(y).all():
-                raise AssertionError(f"{name}: non-finite output")
-            shares.append(_row_shares(y, ref, conf, gate["row_floor"]))
-    return _log_rows("[slice] each block alone, kernels vs plain on the same "
-                     "input", shares, gate["rows"])
+                raise GateTripped(f"{name}: non-finite output")
+            if conf["compute_dtype"] is None:
+                rows.append(_row_shares(y, ref, conf, fl))
+                continue
+            with reference_path(model):
+                r = block(x)
+            rows.append((_row_shares(y, r, conf, fl)[0],
+                         _row_shares(ref, r, conf, fl)[0],
+                         *_row_shares(y, ref, conf, fl)))
+    what = "[slice] each block alone on the same input"
+    if conf["compute_dtype"] is None:
+        return _log_rows(what + ", kernels vs plain", rows, gate["rows"])
+    return _block_rows_gate(what, rows, gate["rows"])
 
 
 def composed_fp64(model):
@@ -963,57 +1173,65 @@ def composed_fp64_probs(model, batches, dev):
 
 # ---------------------------------------------------------------- phase 6
 TRAIN_STEPS_TIMED, TRAIN_STEPS_WARM = 5, 2
-# whole-step gradient gate.  fp32: for every parameter, the kernel path's
-# relative L2 distance from the composed fp64 gradient may be at most
-# twice the plain path's plus a floor; the floor is the median over
-# parameters of the plain path's distance (how far rounding alone moves a
-# gradient of this chaotic random-weight W2A2 model in this run), and
-# never below GRAD_GATE_MIN_FLOOR.  bf16: the fp64 model has no bf16
-# stream, so its distance (~0.9) measures bf16 rounding and holds nothing;
-# every parameter's gradient through the kernels is held against the plain
-# path's, on the same bf16 inputs, to GRAD_GATE_BF16 relative L2 (the
-# fp64 distances are printed beside it)
+# whole-step gradient gate: for every parameter, and for all parameters
+# together, the kernel path's relative L2 distance from a reference
+# gradient may be at most twice the plain path's plus a floor; the floor
+# is the median over parameters of the plain path's distance (how far
+# rounding alone moves a gradient of this chaotic random-weight W2A2
+# model in this run), never below GRAD_GATE_MIN_FLOOR.  The reference:
+# fp32, the composed model in fp64; bf16, the rounded-once reference
+# (`rounded_once`), since the fp64 model has no bf16 stream and sits as
+# far from both bf16 paths as they sit from each other (its distances are
+# printed beside the gate)
 GRAD_GATE_MIN_FLOOR = 1e-3
-GRAD_GATE_BF16 = 1e-3
+
+
+def build_trained(dev, conf, name="deit_small_distilled_patch16_224",
+                  batch=BATCH):
+    """The W2A2 QKR student of the train phases in `conf`, calibrated, its
+    float teacher (bf16 parameters under the bf16 stream, as bench.py
+    builds it) and bench.py's seeded batch, kept on the device."""
+    import numpy as np
+    import torch
+    from ofq_tpu_torch.calibrate import calibrate
+    from ofq_tpu_torch.models import create_model
+    from ofq_tpu_torch.models.deit import VARIANTS
+    from ofq_tpu_torch.quant import QuantPolicy, w2a2_qkr_policy
+    cfg = VARIANTS[name]
+    cd = conf["compute_dtype"]
+    student = create_model(
+        name, policy=w2a2_qkr_policy(cfg.depth), device=dev,
+        generator=torch.Generator().manual_seed(0), head_std=0.02, **conf)
+    teacher = create_model(name, policy=QuantPolicy(), device=dev,
+                           generator=torch.Generator().manual_seed(1),
+                           compute_dtype=cd)
+    if cd:
+        teacher.to(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(batch, cfg.img_size, cfg.img_size,
+                                          3)).astype(np.float32)).to(dev)
+    label = torch.from_numpy(rng.integers(0, cfg.num_classes,
+                                          size=(batch,))).to(dev)
+    calibrate(student, x[:8])
+    return student, teacher, {"image": x, "label": label}
 
 
 def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
                 batch=BATCH):
     """One QAT train step of DeiT-S W2A2 QKR with the float teacher, KD
     soft+hard and AdamW, through the kernels of `conf`: K1 and K2 forward
-    and K3 backward (fused, fp32), or K4 forward (pallas, the bf16 stream
-    with fp32 masters and a bf16 teacher, as bench.py builds it)."""
+    and K3 backward (fused, fp32 or the bf16 stream), or K4 forward
+    (pallas, bf16); the bf16 stream with fp32 masters and a bf16 teacher,
+    as bench.py builds it."""
     import numpy as np
     import torch
     from ofq_tpu_torch import ops
-    from ofq_tpu_torch.calibrate import calibrate
-    from ofq_tpu_torch.models import create_model
-    from ofq_tpu_torch.models.deit import VARIANTS
-    from ofq_tpu_torch.quant import QuantPolicy, w2a2_qkr_policy
     from ofq_tpu_torch.train import (TrainState, cosine_with_warmup_cooldown,
                                      make_optimizer, make_train_step)
 
     t0 = time.perf_counter()
-    cfg = VARIANTS[name]
-    cd = conf["compute_dtype"]
-    student = create_model(
-        name, policy=w2a2_qkr_policy(cfg.depth), device=dev,
-        generator=torch.Generator().manual_seed(0), head_std=0.02, **conf)
-    # bench.py: the teacher in the student's stream, its params cast to
-    # bf16 under the bf16 stream
-    teacher = create_model(name, policy=QuantPolicy(), device=dev,
-                           generator=torch.Generator().manual_seed(1),
-                           compute_dtype=cd)
-    if cd:
-        teacher.to(torch.bfloat16)
-    # the batch of bench.py, kept on the device
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.normal(size=(batch, cfg.img_size, cfg.img_size,
-                                          3)).astype(np.float32)).to(dev)
-    label = torch.from_numpy(rng.integers(0, cfg.num_classes,
-                                          size=(batch,))).to(dev)
-    data = {"image": x, "label": label}
-    calibrate(student, x[:8])
+    student, teacher, data = build_trained(dev, conf, name, batch)
+    cfg = student.cfg
     opt = make_optimizer(cosine_with_warmup_cooldown(
         5.47e-4, epochs=300, warmup_epochs=5, warmup_lr=1e-6, min_lr=1e-5),
         weight_decay=0.05)
@@ -1061,9 +1279,8 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
     torch.cuda.reset_peak_memory_stats()
     img_s = rate()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    student.use_kernels = False
-    img_s_plain = rate()
-    student.use_kernels = True
+    with plain_path(student):
+        img_s_plain = rate()
     log(f"[train] train step, B={batch}: {img_s:.1f} img/s with the kernels, "
         f"{img_s_plain:.1f} img/s through the plain versions "
         f"({TRAIN_STEPS_TIMED} steps after {TRAIN_STEPS_WARM} warm-ups); "
@@ -1086,12 +1303,45 @@ def _kd_loss(model, teacher, x, label):
     return kd_soft_and_hard(model(x), label, t_logits)
 
 
+def _grad_gate(what, rows, all_params=None):
+    """The gradient rule (above GRAD_GATE_MIN_FLOOR) on `rows`, each with
+    `rel_kernels` and `rel_plain` (distances from the reference), and on
+    `all_params` (the same two for all parameters together)."""
+    rk = sorted(r["rel_kernels"] for r in rows)
+    rp = sorted(r["rel_plain"] for r in rows)
+    floor = max(GRAD_GATE_MIN_FLOOR, rp[len(rp) // 2])
+    bad = [r for r in rows if r["rel_kernels"] > 2 * r["rel_plain"] + floor]
+    worst = max(rows, key=lambda r: r["rel_kernels"]
+                / (2 * r["rel_plain"] + floor))
+    log(f"{what}, relative L2 per parameter ({len(rows)}): kernels median "
+        f"{rk[len(rk) // 2]:.3e} max {rk[-1]:.3e}; plain median "
+        f"{rp[len(rp) // 2]:.3e} max {rp[-1]:.3e}"
+        + ("" if all_params is None else
+           f"; all parameters together: kernels "
+           f"{all_params['kernels']:.3e}, plain {all_params['plain']:.3e}")
+        + f"; gate kernels <= 2 x plain + {floor:.3e}, closest "
+        f"{worst['name']} ({worst['rel_kernels']:.3e} against the limit "
+        f"{2 * worst['rel_plain'] + floor:.3e})")
+    if bad or (all_params is not None and all_params["kernels"]
+               > 2 * all_params["plain"] + floor):
+        raise GateTripped(f"{what}: gradient gate failed: {bad[:5]}, "
+                          f"{all_params}")
+    return floor
+
+
+def _rel(a, ref):
+    return float((a - ref).norm()) / max(float(ref.norm()), 1e-30)
+
+
 def check_blocks_backward(model, teacher, data, conf=FUSED):
-    """Each block's VJP through the kernels against the same block through
-    the plain versions, on the plain path's input to that block and its
-    upstream gradient (captured with hooks on one plain backward)."""
+    """Each block's VJP alone, on the plain path's input to that block and
+    its upstream gradient (captured with hooks on one plain backward): in
+    fp32 the rows of dx through the kernels against the plain versions; in
+    bf16 the rows of dx and the block's parameter gradients of both paths
+    against the rounded-once reference (above BLOCK_ROWS)."""
     import torch
     seen = {}
+    bf16 = conf["compute_dtype"] is not None
 
     def fwd_hook(name):
         def hook(mod, args, out):
@@ -1102,37 +1352,68 @@ def check_blocks_backward(model, teacher, data, conf=FUSED):
     hooks = [getattr(model, n).register_forward_hook(fwd_hook(n))
              for n in model.block_names]
     model.train()
-    model.use_kernels = False
     try:
-        _kd_loss(model, teacher, data["image"], data["label"]).backward()
+        with plain_path(model):
+            _kd_loss(model, teacher, data["image"], data["label"]).backward()
     finally:
         for h in hooks:
             h.remove()
     model.zero_grad(set_to_none=True)
-    shares = []
+    paths = {"kernels": contextlib.nullcontext,
+             "plain": lambda: plain_path(model)}
+    if bf16:
+        paths["reference"] = lambda: reference_path(model)
+    rows, params = [], []
     for name in model.block_names:
         x_in, g_out = seen.pop(name)
-        dx = []
-        for use in (True, False):
-            model.use_kernels = use
-            xi = x_in.clone().requires_grad_()
-            y = getattr(model, name)(xi)
-            dx.append(torch.autograd.grad(y, xi, g_out)[0])
-            del y, xi
-        model.use_kernels = True
-        if not torch.isfinite(dx[0]).all():
-            raise AssertionError(f"{name}: non-finite dx")
-        shares.append(_row_shares(dx[0], dx[1], conf))
-    return _log_rows("[train] each block's backward alone, kernels vs plain "
-                     "on the same input and upstream gradient, rows of dx",
-                     shares)
+        block = getattr(model, name)
+        named = dict(block.named_parameters())
+        out = {}
+        for path, ctx in paths.items():
+            with ctx():
+                xi = x_in.clone().requires_grad_()
+                y = block(xi)
+                gs = torch.autograd.grad(
+                    y, [xi, *named.values()] if bf16 else [xi], g_out,
+                    allow_unused=True)
+            out[path] = [gs[0]] + [
+                torch.zeros_like(p) if g is None else g.double()
+                for p, g in zip(named.values(), gs[1:])]
+            del y, xi, gs
+        if not torch.isfinite(out["kernels"][0]).all():
+            raise GateTripped(f"{name}: non-finite dx")
+        dx_k, dx_p = out["kernels"][0], out["plain"][0]
+        if not bf16:
+            rows.append(_row_shares(dx_k, dx_p, conf))
+            continue
+        dx_r = out["reference"][0]
+        fl = BACKWARD_ROW_FLOOR
+        rows.append((_row_shares(dx_k, dx_r, conf, fl)[0],
+                     _row_shares(dx_p, dx_r, conf, fl)[0],
+                     *_row_shares(dx_k, dx_p, conf)))
+        for i, n in enumerate(named, 1):
+            ref = out["reference"][i]
+            params.append(dict(name=f"{name}.{n}",
+                               rel_kernels=_rel(out["kernels"][i], ref),
+                               rel_plain=_rel(out["plain"][i], ref)))
+    what = "[train] each block's backward alone, on the same input and " \
+           "upstream gradient, rows of dx"
+    if not bf16:
+        return _log_rows(what + ", kernels vs plain", rows)
+    res = _block_rows_gate(what, rows)
+    res["param_floor"] = _grad_gate(
+        "[train] each block's parameter gradients alone against the "
+        "rounded-once reference", params)
+    res["params"] = params
+    return res
 
 
 def check_step_grads(model, teacher, data, conf=FUSED):
     """The whole step's parameter gradients through the kernels and through
-    the plain versions, each against the composed model in fp64 on the
-    card (the same weights, scales and batch; no bf16 stream), and against
-    each other."""
+    the plain versions, each against the reference (above
+    GRAD_GATE_MIN_FLOOR) and against the composed model in fp64 on the
+    card (the same weights, scales and batch; no bf16 stream; printed, and
+    the fp32 gate's reference), and against each other."""
     import torch
 
     def grads(m, t, x):
@@ -1144,53 +1425,185 @@ def check_step_grads(model, teacher, data, conf=FUSED):
 
     model.train()
     g_k = grads(model, teacher, data["image"])
-    model.use_kernels = False
-    g_p = grads(model, teacher, data["image"])
-    model.use_kernels = True
+    with plain_path(model):
+        g_p = grads(model, teacher, data["image"])
     ref = composed_fp64(model)
     t64 = composed_fp64(teacher)
     g_64 = grads(ref, t64, data["image"].double())
     del ref, t64
-    rows = []
-    for n, g in g_64.items():
-        norm = max(float(g.norm()), 1e-30)
-        rows.append(dict(
-            name=n, rel_kernels=float((g_k[n] - g).norm()) / norm,
-            rel_plain=float((g_p[n] - g).norm()) / norm,
-            rel_kernels_plain=float((g_k[n] - g_p[n]).norm())
-            / max(float(g_p[n].norm()), 1e-30)))
-    rk_all = sorted(r["rel_kernels"] for r in rows)
-    rp_all = sorted(r["rel_plain"] for r in rows)
-    rkp = max(r["rel_kernels_plain"] for r in rows)
-    floor = max(GRAD_GATE_MIN_FLOOR, rp_all[len(rp_all) // 2])
-
-    def total(g):
-        return float(sum(float((g[n] - g_64[n]).square().sum())
-                         for n in g_64)) ** 0.5
-    ref_norm = float(sum(float(g.square().sum()) for g in g_64.values())
-                     ) ** 0.5
-    glob = {"kernels": total(g_k) / ref_norm, "plain": total(g_p) / ref_norm}
-    log(f"[train] whole-step gradients vs the composed fp64 model, relative "
-        f"L2 per parameter ({len(rows)}): kernels median "
-        f"{rk_all[len(rk_all) // 2]:.3e} max {rk_all[-1]:.3e}; plain median "
-        f"{rp_all[len(rp_all) // 2]:.3e} max {rp_all[-1]:.3e}; all "
-        f"parameters together: kernels {glob['kernels']:.3e}, plain "
-        f"{glob['plain']:.3e}; kernels vs plain, largest per parameter "
-        f"{rkp:.3e}")
-    if conf["compute_dtype"] is None:
-        log(f"[train] gate: kernels <= 2 x plain + {floor:.3e} against fp64")
-        bad = [r for r in rows
-               if r["rel_kernels"] > 2 * r["rel_plain"] + floor]
-        bad_all = glob["kernels"] > 2 * glob["plain"] + floor
+    bf16 = conf["compute_dtype"] is not None
+    if bf16:
+        with reference_path(model):
+            g_r = grads(model, teacher, data["image"])
     else:
-        log(f"[train] gate: kernels vs plain <= {GRAD_GATE_BF16} per "
-            f"parameter (the fp64 distances are not gated in bf16)")
-        bad = [r for r in rows if r["rel_kernels_plain"] > GRAD_GATE_BF16]
-        bad_all = False
-    if bad or bad_all:
-        raise AssertionError(f"gradient gate failed: {bad[:5]}, {glob}")
-    return dict(floor=floor, all_params=glob, kernels_vs_plain_max=rkp,
-                per_param=rows)
+        g_r = g_64
+
+    def rows_against(gref):
+        return [dict(name=n, rel_kernels=_rel(g_k[n], g),
+                     rel_plain=_rel(g_p[n], g)) for n, g in gref.items()]
+
+    def together(gref):
+        norm = float(sum(float(g.square().sum()) for g in gref.values())
+                     ) ** 0.5
+
+        def dist(g):
+            return float(sum(float((g[n] - gref[n]).square().sum())
+                             for n in gref)) ** 0.5 / norm
+        return {"kernels": dist(g_k), "plain": dist(g_p)}
+
+    rkp = max(_rel(g_k[n], g_p[n]) for n in g_p)
+    log(f"[train] whole-step gradients, kernels vs plain: largest relative "
+        f"L2 per parameter {rkp:.3e}")
+    rows_64, glob_64 = rows_against(g_64), together(g_64)
+    if bf16:
+        rk = sorted(r["rel_kernels"] for r in rows_64)
+        rp = sorted(r["rel_plain"] for r in rows_64)
+        log(f"[train] whole-step gradients vs the composed fp64 model (not "
+            f"gated in bf16): kernels median {rk[len(rk) // 2]:.3e}, plain "
+            f"median {rp[len(rp) // 2]:.3e}; all parameters together: "
+            f"kernels {glob_64['kernels']:.3e}, plain {glob_64['plain']:.3e}")
+    rows, glob = rows_against(g_r), together(g_r)
+    floor = _grad_gate(
+        "[train] whole-step gradients vs the "
+        + ("rounded-once reference" if bf16 else "composed fp64 model"),
+        rows, glob)
+    return dict(floor=floor, all_params=glob, all_params_fp64=glob_64,
+                kernels_vs_plain_max=rkp, per_param=rows,
+                per_param_fp64=rows_64)
+
+
+# ------------------------------------------------------ gate self-check
+@contextlib.contextmanager
+def injected(module, name, fault):
+    """`module.name` (a kernel wrapper as a module of the port calls it)
+    replaced by `fault(real)` while active."""
+    real = getattr(module, name)
+    setattr(module, name, fault(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def k4_column_fault(real):
+    """K4 with one output column moved by one weight level: weight (0, 0)
+    one StatsQ level (s / n) up."""
+    def k4(x2, w, s, n_levels):
+        y = real(x2, w, s, n_levels)
+        y[:, 0] = (y[:, 0].float() + x2[:, 0].float()
+                   * float(s[0, 0] / n_levels)).to(y.dtype)
+        return y
+    return k4
+
+
+def k2_scale_row_fault(real):
+    """K2 reading the scale of the next query row, s[n + 1]."""
+    def k2(lhs, rhs, v, s, *args):
+        return real(lhs, rhs, v, s.roll(-1).contiguous(), *args)
+    return k2
+
+
+def k3_ds_fault(real):
+    """K3 with ds doubled."""
+    def k3(*args):
+        dlhs, drhs, dv, ds = real(*args)
+        return dlhs, drhs, dv, 2 * ds
+    return k3
+
+
+def k3_dlhs_fault(real):
+    """K3 with dlhs doubled (what the rows of a block's dx see)."""
+    def k3(*args):
+        dlhs, drhs, dv, ds = real(*args)
+        return 2 * dlhs, drhs, dv, ds
+    return k3
+
+
+def _tripped(check, *args):
+    """Whether the gate `check(*args)` trips, and its message."""
+    try:
+        check(*args)
+    except GateTripped as e:
+        return True, str(e).splitlines()[0][:300]
+    return False, ""
+
+
+
+
+def phase_gate_selfcheck(dev, name="deit_small_distilled_patch16_224",
+                         batch=BATCH):
+    """The bf16 agreement gates shown to fail: deliberate faults injected
+    into the kernel path (wrappers around the real kernels, patched where
+    the port's modules look them up), each of which must trip its gates,
+    then the unmodified kernels, which must pass every gate.  DeiT-S
+    pallas serving (PR 3's K4) for the K4 fault; DeiT-S fused bf16 (K2 and
+    K3) for the others.  Each fault has to trip the gates it is listed
+    with; a gate listed as None is reported only."""
+    import numpy as np
+    from ofq_tpu_torch.models.deit import VARIANTS
+    from ofq_tpu_torch.nn import attention as nn_attention
+    from ofq_tpu_torch.nn import linear as nn_linear
+    from ofq_tpu_torch.quant import w2a2_qkr_policy
+    from ofq_tpu_torch.serve import Predictor
+    policy = w2a2_qkr_policy(VARIANTS[name].depth)
+    results, failed = [], []
+
+    def record(fault, gate, tripped, msg, must):
+        """`must`: True, the gate has to trip; False, it has to pass;
+        None, reported only."""
+        ok = must is None or tripped == must
+        results.append(dict(fault=fault, gate=gate, tripped=tripped,
+                            required=must, ok=ok))
+        need = {True: "trip", False: "pass", None: "reported only"}[must]
+        log(f"[selfcheck] {fault}: {gate} "
+            f"{'tripped' if tripped else 'passed'} (required: {need})"
+            f"{' -- ' + msg if msg else ''}")
+        if not ok:
+            failed.append((fault, gate))
+
+    def serving(conf, fault_site, fault, label, gates):
+        model, images, rng = build_served(dev, conf, name, policy, batch)
+        pred = Predictor(model, batch_size=batch,
+                         img_size=model.cfg.img_size, device=dev)
+        batches = [images] + [rng.normal(size=images.shape).astype(
+            np.float32) for _ in range(CMP_BATCHES - 1)]
+        checks = {"block gate": (check_blocks, model, images, dev, conf),
+                  "top-1 gate": (check_top1, pred, batches, conf)}
+        for gate in checks:
+            with injected(*fault_site, fault):
+                record(label, gate, *_tripped(*checks[gate]),
+                       must=gates[gate])
+        for gate, args in checks.items():
+            record("unmodified kernels", f"{gate} ({_describe(conf)})",
+                   *_tripped(*args), must=False)
+
+    serving(PALLAS, (nn_linear, "pallas_statsq_fwd"), k4_column_fault,
+            "K4 with one output column moved by one weight level",
+            {"block gate": True, "top-1 gate": True})
+    serving(FUSED_BF16, (nn_attention, "qkr_attention_fwd"),
+            k2_scale_row_fault, "K2 reading the scale of row n + 1",
+            {"block gate": True, "top-1 gate": True})
+    student, teacher, data = build_trained(dev, FUSED_BF16, name, batch)
+    checks = {"block backward gate": check_blocks_backward,
+              "whole-step gradient gate": check_step_grads}
+    for fault, label, gates in (
+            (k3_ds_fault, "K3 with ds doubled",
+             {"block backward gate": True, "whole-step gradient gate": True}),
+            (k3_dlhs_fault, "K3 with dlhs doubled",
+             {"block backward gate": True,
+              "whole-step gradient gate": None})):
+        for gate, check in checks.items():
+            with injected(nn_attention, "qkr_attention_bwd", fault):
+                record(label, gate,
+                       *_tripped(check, student, teacher, data, FUSED_BF16),
+                       must=gates[gate])
+    for gate, check in checks.items():
+        record("unmodified kernels", f"{gate} ({_describe(FUSED_BF16)})",
+               *_tripped(check, student, teacher, data, FUSED_BF16),
+               must=False)
+    if failed:
+        raise AssertionError(f"gate self-check: {failed}")
+    return results
 
 
 def capture_dx_products(model, teacher, data):
@@ -1501,6 +1914,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     full["train"] = phase_train(dev, FUSED)
     torch.cuda.empty_cache()
+    full["slice_fused_bf16"] = phase_slice(dev, FUSED_BF16, deit,
+                                           w2a2_qkr_policy(12))
+    torch.cuda.empty_cache()
+    full["train_fused_bf16"] = phase_train(dev, FUSED_BF16)
+    torch.cuda.empty_cache()
     full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok))
     full["k5"] = phase_k45(dev, "K5", _k45_cases(BATCH * n_tok))
     torch.cuda.empty_cache()
@@ -1508,6 +1926,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp = full["train_pallas"] = phase_train(dev, PALLAS)
     full["k5_captured"] = phase_k5_captured(tp.pop("captured"))
+    torch.cuda.empty_cache()
+    full["gate_selfcheck"] = phase_gate_selfcheck(dev)
     torch.cuda.empty_cache()
     full["k678"] = phase_k678(dev)
     torch.cuda.empty_cache()
@@ -1549,15 +1969,22 @@ def main() -> int:
                 srcs["K1"],
                 tr["launch_shapes"].get(str((r["M"], r["K"], r["N"])), 0),
                 r, path="fused train step", design=r["design"]["label"]))
+    tr_bf16 = full["train_fused_bf16"]
     for key, fn in (("k2", "qkr_attention_fwd"),
                     ("k3", "qkr_attention_bwd")):
         for r in full[key]:
             if r["main_path"]:
+                bf16 = r["dtype"] == "bfloat16"
                 kernels.append(_kernel_row(
-                    f"{fn} (shared lhs, LSQ on, {r['B']}x{r['N']}x"
-                    f"{r['H']}x{r['K']}, d={r['d']})", srcs[key.upper()],
-                    tr["launches"][fn], r, path="fused train step",
-                    design="CUDA cores, fp32"))
+                    f"{fn} {'bf16' if bf16 else 'fp32'} (shared lhs, LSQ "
+                    f"on, {r['B']}x{r['N']}x{r['H']}x{r['K']}, d={r['d']})",
+                    srcs[key.upper()],
+                    (tr_bf16 if bf16 else tr)["launches"][fn], r,
+                    path=f"fused {'bf16' if bf16 else 'fp32'} train step",
+                    design=("CUDA cores, bf16 operands widened to fp32"
+                            if bf16 else "CUDA cores, fp32"),
+                    yardstick_sdpa_ms=r["sdpa_ms" if key == "k2"
+                                        else "sdpa_bwd_ms"]))
     for r in full["k4"]:
         if r["main_path"]:
             kernels.append(_kernel_row(

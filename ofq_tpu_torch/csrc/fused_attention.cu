@@ -17,7 +17,15 @@
 //
 // lhs is either shared across heads (QKR: the quantized input xq, (B, N, K))
 // or per head ((B, N, H, K)); rhs (B, N, H, K), v and out (B, N, H, D),
-// all fp32 and contiguous, in the JAX package's natural layout.
+// contiguous, in the JAX package's natural layout; s fp32.
+//
+// The stream dtype T of lhs, rhs, v and out is fp32 or bf16 (one template,
+// two C launchers).  In bf16 the TPU kernel's arithmetic is reproduced: the
+// bf16 operands are widened exactly to fp32 as they are loaded, so products
+// are exact and sums, scores and the softmax stay fp32; pq is rounded to
+// bf16 before the product with v (`pq.astype(v.dtype)`), as a separate
+// __fmul_rn then __float2bfloat16_rn, and out is rounded to bf16 once.  In
+// fp32 both roundings are the identity.
 //
 // Design.  One 256-thread block per (query tile of TQ = 64 rows, head,
 // batch row).  LSQ quantizes the *normalised* probability, so an online
@@ -31,12 +39,21 @@
 //
 // What bounds it on an H100: at DeiT-S QKR (N = 198, H = 6, K = 384, d = 64)
 // the work is 2*B*H*N^2*(K + d) operations against 4*B*N*(K + H*K + 2*H*d)
-// bytes, ~75 operations per byte: compute-bound (fp32 peak 67 TFLOP/s).  rhs is re-read once per query tile
-// (4 tiles at N = 198), from L2.
+// bytes in fp32, half that in bf16: ~75 (fp32) or ~150 (bf16) operations
+// per byte.  The fp32 form is bound by the fp32 rate (67 TFLOP/s); the bf16
+// form's products are exact bf16 x bf16 and could run at the bf16
+// tensor-core rate, where the bytes bound it, but this template runs them
+// as fp32 FMAs on the CUDA cores (tensor cores are a later redesign).  rhs
+// is re-read once per query tile (4 tiles at N = 198), from L2.
 //
 // Rounding: rintf (half to even, as torch.round / jnp.round); expf, not
 // __expf; IEEE division; no --use_fast_math.
+//
+// Shared memory holds fp32 in both stream dtypes (a bf16 operand is widened
+// as it is stored), so the bytes a launch needs depend on N only: the
+// launcher's smem count serves both.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
@@ -51,6 +68,25 @@ constexpr int TD = 64;       // output columns per pass
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
+// loads widen to fp32, stores round to the stream dtype (nearest-even)
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+// x rounded to T and widened back: the value a product of T operands reads
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -63,11 +99,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS) qkr_attention_fwd_kernel(
-    const float* __restrict__ lhs, int lhs_per_head,
-    const float* __restrict__ rhs, const float* __restrict__ v,
-    const float* __restrict__ s, float* __restrict__ out, int N, int H, int K,
-    int D, int ld_s, float thd_pos, float sm_scale, int quantize) {
+    const T* __restrict__ lhs, int lhs_per_head, const T* __restrict__ rhs,
+    const T* __restrict__ v, const float* __restrict__ s, T* __restrict__ out,
+    int N, int H, int K, int D, int ld_s, float thd_pos, float sm_scale,
+    int quantize) {
   extern __shared__ float smem[];
   float* S = smem;                        // [TQ][ld_s] scores, then pq
   float* As = S + TQ * ld_s;              // [KC][TQ + 1] lhs chunk
@@ -81,10 +118,10 @@ __global__ void __launch_bounds__(THREADS) qkr_attention_fwd_kernel(
   const int b = blockIdx.z;
 
   const size_t lhs_row = lhs_per_head ? (size_t)H * K : (size_t)K;
-  const float* lhs_b = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
-  const float* rhs_b = rhs + (size_t)b * N * H * K + (size_t)h * K;
-  const float* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
-  float* out_b = out + (size_t)b * N * H * D + (size_t)h * D;
+  const T* lhs_b = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
+  const T* rhs_b = rhs + (size_t)b * N * H * K + (size_t)h * K;
+  const T* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
+  T* out_b = out + (size_t)b * N * H * D + (size_t)h * D;
 
   // ---- phase 1: S = (lhs_tile @ rhs^T) * sm_scale -------------------------
   const int n_key_tiles = (N + TK - 1) / TK;
@@ -103,7 +140,7 @@ __global__ void __launch_bounds__(THREADS) qkr_attention_fwd_kernel(
         const int n = q0 + r;
         const int k = k0 + kk;
         As[kk * (TQ + 1) + r] =
-            (n < N && k < K) ? lhs_b[(size_t)n * lhs_row + k] : 0.0f;
+            (n < N && k < K) ? ld(lhs_b + (size_t)n * lhs_row + k) : 0.0f;
       }
       for (int e = tid; e < TK * KC; e += THREADS) {
         const int c = e / KC;
@@ -111,7 +148,7 @@ __global__ void __launch_bounds__(THREADS) qkr_attention_fwd_kernel(
         const int m = m0 + c;
         const int k = k0 + kk;
         Bs[kk * (TK + 1) + c] =
-            (m < N && k < K) ? rhs_b[(size_t)m * H * K + k] : 0.0f;
+            (m < N && k < K) ? ld(rhs_b + (size_t)m * H * K + k) : 0.0f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -166,7 +203,7 @@ __global__ void __launch_bounds__(THREADS) qkr_attention_fwd_kernel(
       if (quantize) {
         p = __fmul_rn(rintf(fminf(fmaxf(__fdiv_rn(p, sn), 0.0f), thd_pos)), sn);
       }
-      row[m] = p;
+      row[m] = round_to<T>(p);
     }
     for (int m = N + lane; m < m_pad; m += 32) row[m] = 0.0f;
   }
@@ -188,7 +225,7 @@ __global__ void __launch_bounds__(THREADS) qkr_attention_fwd_kernel(
         const int c = e % TD;
         const int m = m0 + mm;
         const int d = d0 + c;
-        Vs[mm * TD + c] = (m < N && d < D) ? v_b[(size_t)m * H * D + d] : 0.0f;
+        Vs[mm * TD + c] = (m < N && d < D) ? ld(v_b + (size_t)m * H * D + d) : 0.0f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -212,20 +249,42 @@ __global__ void __launch_bounds__(THREADS) qkr_attention_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int d = d0 + tx + 16 * j;
-        if (d < D) out_b[(size_t)n * H * D + d] = acc[i][j];
+        if (d < D) st(out_b + (size_t)n * H * D + d, acc[i][j]);
       }
     }
   }
 }
 
-}  // namespace
-
-// Shared memory the launch needs for N keys (bytes); the wrapper checks it
-// against the card's per-block limit before launching.
-extern "C" long long ofq_qkr_attention_smem_bytes(int N) {
+long long smem_bytes(int N) {
   const int ld_s = ((N + TK - 1) / TK) * TK + 1;
   return (long long)sizeof(float) *
          ((long long)TQ * ld_s + KC * (TQ + 1) + KC * (TK + 1));
+}
+
+template <typename T>
+int launch_fwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
+               const float* s, T* out, int B, int N, int H, int K, int D,
+               float thd_pos, float sm_scale, int quantize, void* stream) {
+  const int ld_s = ((N + TK - 1) / TK) * TK + 1;
+  const size_t smem = (size_t)smem_bytes(N);
+  cudaError_t err = cudaFuncSetAttribute(
+      qkr_attention_fwd_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + TQ - 1) / TQ, H, B);
+  qkr_attention_fwd_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      lhs, lhs_per_head, rhs, v, s, out, N, H, K, D, ld_s, thd_pos, sm_scale,
+      quantize);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Shared memory the launch needs for N keys (bytes), in either stream
+// dtype; the wrapper checks it against the card's per-block limit before
+// launching.
+extern "C" long long ofq_qkr_attention_smem_bytes(int N) {
+  return smem_bytes(N);
 }
 
 extern "C" int ofq_qkr_attention_fwd(const float* lhs, int lhs_per_head,
@@ -234,17 +293,19 @@ extern "C" int ofq_qkr_attention_fwd(const float* lhs, int lhs_per_head,
                                      int H, int K, int D, float thd_pos,
                                      float sm_scale, int quantize,
                                      void* stream) {
-  const int ld_s = ((N + TK - 1) / TK) * TK + 1;
-  const size_t smem = (size_t)ofq_qkr_attention_smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      qkr_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + TQ - 1) / TQ, H, B);
-  qkr_attention_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      lhs, lhs_per_head, rhs, v, s, out, N, H, K, D, ld_s, thd_pos, sm_scale,
-      quantize);
-  return (int)cudaGetLastError();
+  return launch_fwd<float>(lhs, lhs_per_head, rhs, v, s, out, B, N, H, K, D,
+                           thd_pos, sm_scale, quantize, stream);
+}
+
+// The bf16 stream: lhs, rhs, v and out bf16 (s fp32).
+extern "C" int ofq_qkr_attention_fwd_bf16(
+    const __nv_bfloat16* lhs, int lhs_per_head, const __nv_bfloat16* rhs,
+    const __nv_bfloat16* v, const float* s, __nv_bfloat16* out, int B, int N,
+    int H, int K, int D, float thd_pos, float sm_scale, int quantize,
+    void* stream) {
+  return launch_fwd<__nv_bfloat16>(lhs, lhs_per_head, rhs, v, s, out, B, N,
+                                   H, K, D, thd_pos, sm_scale, quantize,
+                                   stream);
 }
 
 extern "C" const char* ofq_cuda_error_string(int err) {

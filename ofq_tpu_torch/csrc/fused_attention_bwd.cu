@@ -18,7 +18,17 @@
 // With quantize == 0, pq = p, dp = dpq and ds = 0.  Every sum is in fp32, as
 // in the TPU kernel.  lhs is shared across heads ((B, N, K), QKR's quantized
 // input) or per head ((B, N, H, K)); rhs (B, N, H, K); v and g (B, N, H, D);
-// all fp32, contiguous, in the JAX package's natural layout.
+// contiguous, in the JAX package's natural layout; s and ds fp32.
+//
+// The stream dtype T of lhs, rhs, v, g, dlhs, drhs and dv is fp32 or bf16
+// (one template, two C launchers).  In bf16 the TPU kernel's roundings are
+// reproduced: operands are widened exactly to fp32 as they are loaded (exact
+// products, fp32 sums); pq is rounded to bf16 before dv = pq^T . g
+// (`pq.astype(g.dtype)`); dscores * sm_scale is formed in fp32 and rounded
+// to bf16 once, and that value feeds both drhs and dlhs; dlhs, drhs and dv
+// are rounded to bf16 once, a shared dlhs after its fp32 sum over heads; ds
+// and everything that feeds it stay fp32.  The scratch tensors hold exactly
+// the rounded values, so they are stored in T: bf16 scratch loses nothing.
 //
 // Design.  The TPU kernel keeps a whole batch row's (U, N, N) tiles in VMEM
 // and carries ds across its sequential grid in one VMEM ref.  Hopper blocks
@@ -30,7 +40,8 @@
 //      memory apiece at N = 198) are formed with K2's loop, so p is the
 //      forward's p bit for bit; one warp per row then forms p, pq, dp, the
 //      row's ds partial (written per (b, h, n), no atomics) and dscores, and
-//      writes pq and dscores to scratch, (B, H, N, N) fp32 each;
+//      writes pq and dscores to scratch, (B, H, N, N) each in the stream
+//      dtype;
 //   B  one block per (64 keys, 64 output columns, (b, h)): dv = pq^T . g and
 //      drhs = dscores^T . lhs;
 //   C  one block per (64 query rows, 64 columns, b or (b, h)): dlhs =
@@ -49,7 +60,14 @@
 // Rounding: rintf (half to even, as torch.round / jnp.round); expf, not
 // __expf; every multiply, divide and subtract that feeds a rounding or the
 // in-range test spelled with the __f*_rn intrinsics; no --use_fast_math.
+//
+// Shared memory holds fp32 in both stream dtypes (operands are widened as
+// they are stored), so pass A's dynamic shared memory depends on N only.
+// In bf16 the bytes halve and the scratch traffic with them; the products
+// still run as fp32 FMAs on the CUDA cores (a tensor-core form of the bf16
+// products is a later redesign).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
@@ -62,6 +80,16 @@ constexpr int KC = 32;       // contraction chunk
 constexpr int TD = 64;       // output columns per block (passes B and C)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+
+// loads widen to fp32, stores round to the stream dtype (nearest-even)
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -79,9 +107,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // n = q0 + r of this block and every m < N; a's rows are a_ld apart, b's
 // b_ld.  The loop order is K2's phase 1, so the score tile equals the
 // forward kernel's bit for bit.
-__device__ __forceinline__ void tile_nt(const float* __restrict__ a,
-                                        size_t a_ld,
-                                        const float* __restrict__ b,
+template <typename T>
+__device__ __forceinline__ void tile_nt(const T* __restrict__ a, size_t a_ld,
+                                        const T* __restrict__ b,
                                         size_t b_ld, int q0, int N, int kdim,
                                         float scale, float* out, int ld_o,
                                         float* As, float* Bs) {
@@ -103,14 +131,14 @@ __device__ __forceinline__ void tile_nt(const float* __restrict__ a,
         const int kk = e % KC;
         const int n = q0 + r;
         const int k = k0 + kk;
-        As[kk * (TQ + 1) + r] = (n < N && k < kdim) ? a[(size_t)n * a_ld + k] : 0.0f;
+        As[kk * (TQ + 1) + r] = (n < N && k < kdim) ? ld(a + (size_t)n * a_ld + k) : 0.0f;
       }
       for (int e = tid; e < TK * KC; e += THREADS) {
         const int c = e / KC;
         const int kk = e % KC;
         const int m = m0 + c;
         const int k = k0 + kk;
-        Bs[kk * (TK + 1) + c] = (m < N && k < kdim) ? b[(size_t)m * b_ld + k] : 0.0f;
+        Bs[kk * (TK + 1) + c] = (m < N && k < kdim) ? ld(b + (size_t)m * b_ld + k) : 0.0f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -138,11 +166,11 @@ __device__ __forceinline__ void tile_nt(const float* __restrict__ a,
 }
 
 // Pass A: per (query tile, head, batch row).
+template <typename T>
 __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
-    const float* __restrict__ lhs, int lhs_per_head,
-    const float* __restrict__ rhs, const float* __restrict__ v,
-    const float* __restrict__ s, const float* __restrict__ g,
-    float* __restrict__ pq_out, float* __restrict__ dsc_out,
+    const T* __restrict__ lhs, int lhs_per_head, const T* __restrict__ rhs,
+    const T* __restrict__ v, const float* __restrict__ s,
+    const T* __restrict__ g, T* __restrict__ pq_out, T* __restrict__ dsc_out,
     float* __restrict__ ds_part, int N, int H, int K, int D, int ld_s,
     float thd_pos, float sm_scale, int quantize) {
   extern __shared__ float smem[];
@@ -155,18 +183,18 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t lhs_row = lhs_per_head ? (size_t)H * K : (size_t)K;
-  const float* lhs_b = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
-  const float* rhs_b = rhs + (size_t)b * N * H * K + (size_t)h * K;
-  const float* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
-  const float* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
+  const T* lhs_b = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
+  const T* rhs_b = rhs + (size_t)b * N * H * K + (size_t)h * K;
+  const T* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
+  const T* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
 
   tile_nt(lhs_b, lhs_row, rhs_b, (size_t)H * K, q0, N, K, sm_scale, S, ld_s, As, Bs);
   tile_nt(g_b, (size_t)H * D, v_b, (size_t)H * D, q0, N, D, 1.0f, P, ld_s, As, Bs);
   __syncthreads();
 
   const size_t unit = (size_t)b * H + h;
-  float* pq_u = pq_out + unit * N * N;
-  float* dsc_u = dsc_out + unit * N * N;
+  T* pq_u = pq_out + unit * N * N;
+  T* dsc_u = dsc_out + unit * N * N;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int r = warp; r < TQ; r += WARPS) {
@@ -203,14 +231,14 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
         ds_acc = __fmaf_rn(t, dpq, ds_acc);
         dp = in ? dpq : 0.0f;
       }
-      pq_u[(size_t)n * N + m] = pq;
+      st(pq_u + (size_t)n * N + m, pq);
       drow[m] = dp;
       dot = __fmaf_rn(dp, p, dot);
     }
     dot = warp_sum(dot);
     for (int m = lane; m < N; m += 32) {
-      dsc_u[(size_t)n * N + m] =
-          __fmul_rn(__fmul_rn(row[m], __fsub_rn(drow[m], dot)), sm_scale);
+      st(dsc_u + (size_t)n * N + m,
+         __fmul_rn(__fmul_rn(row[m], __fsub_rn(drow[m], dot)), sm_scale));
     }
     ds_acc = warp_sum(ds_acc);
     if (lane == 0) ds_part[unit * N + n] = ds_acc;
@@ -220,11 +248,11 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
 // Pass B: out[m, c] = sum_n x[n, m] * y[n, c] for 64 keys m and 64 columns
 // c; column chunks [0, ceil(D/TD)) give dv (x = pq, y = g), the rest drhs
 // (x = dscores, y = lhs).
+template <typename T>
 __global__ void __launch_bounds__(THREADS) qkr_bwd_cols_kernel(
-    const float* __restrict__ pq, const float* __restrict__ dsc,
-    const float* __restrict__ g, const float* __restrict__ lhs,
-    int lhs_per_head, float* __restrict__ dv, float* __restrict__ drhs, int N,
-    int H, int K, int D) {
+    const T* __restrict__ pq, const T* __restrict__ dsc,
+    const T* __restrict__ g, const T* __restrict__ lhs, int lhs_per_head,
+    T* __restrict__ dv, T* __restrict__ drhs, int N, int H, int K, int D) {
   __shared__ float As[KC * (TK + 1)];
   __shared__ float Bs[KC * TD];
   const int tid = threadIdx.x;
@@ -236,11 +264,11 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_cols_kernel(
   const int h = unit % H;
   const int nd = (D + TD - 1) / TD;
 
-  const float* x;
-  const float* y;
+  const T* x;
+  const T* y;
   size_t ldy, ld_out;
   int ncols, c0;
-  float* out;
+  T* out;
   if ((int)blockIdx.y < nd) {
     x = pq + (size_t)unit * N * N;
     y = g + (size_t)b * N * H * D + (size_t)h * D;
@@ -272,14 +300,14 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_cols_kernel(
       const int mm = e % TK;
       const int n = n0 + nn;
       const int m = m0 + mm;
-      As[nn * (TK + 1) + mm] = (n < N && m < N) ? x[(size_t)n * N + m] : 0.0f;
+      As[nn * (TK + 1) + mm] = (n < N && m < N) ? ld(x + (size_t)n * N + m) : 0.0f;
     }
     for (int e = tid; e < KC * TD; e += THREADS) {
       const int nn = e / TD;
       const int cc = e % TD;
       const int n = n0 + nn;
       const int c = c0 + cc;
-      Bs[nn * TD + cc] = (n < N && c < ncols) ? y[(size_t)n * ldy + c] : 0.0f;
+      Bs[nn * TD + cc] = (n < N && c < ncols) ? ld(y + (size_t)n * ldy + c) : 0.0f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -303,7 +331,7 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_cols_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + tx + 16 * j;
-      if (c < ncols) out[(size_t)m * ld_out + c] = acc[i][j];
+      if (c < ncols) st(out + (size_t)m * ld_out + c, acc[i][j]);
     }
   }
 }
@@ -311,9 +339,10 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_cols_kernel(
 // Pass C: dlhs[n, c] = sum_h sum_m dscores[b, h, n, m] * rhs[b, m, h, c] for
 // 64 query rows and 64 columns; a shared lhs sums h = 0..H-1 in this block,
 // a per-head lhs takes one head per block.
+template <typename T>
 __global__ void __launch_bounds__(THREADS) qkr_bwd_dlhs_kernel(
-    const float* __restrict__ dsc, const float* __restrict__ rhs,
-    int lhs_per_head, float* __restrict__ dlhs, int N, int H, int K) {
+    const T* __restrict__ dsc, const T* __restrict__ rhs, int lhs_per_head,
+    T* __restrict__ dlhs, int N, int H, int K) {
   __shared__ float As[KC * (TQ + 1)];
   __shared__ float Bs[KC * TD];
   const int tid = threadIdx.x;
@@ -322,7 +351,7 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_dlhs_kernel(
   const int q0 = blockIdx.x * TQ;
   const int c0 = blockIdx.y * TD;
   int b, h0, h1;
-  float* out;
+  T* out;
   size_t ld_out;
   if (lhs_per_head) {
     b = blockIdx.z / H;
@@ -345,22 +374,22 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_dlhs_kernel(
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int h = h0; h < h1; ++h) {
-    const float* x = dsc + ((size_t)b * H + h) * N * N;
-    const float* y = rhs + (size_t)b * N * H * K + (size_t)h * K;
+    const T* x = dsc + ((size_t)b * H + h) * N * N;
+    const T* y = rhs + (size_t)b * N * H * K + (size_t)h * K;
     for (int m0 = 0; m0 < N; m0 += KC) {
       for (int e = tid; e < TQ * KC; e += THREADS) {
         const int r = e / KC;
         const int kk = e % KC;
         const int n = q0 + r;
         const int m = m0 + kk;
-        As[kk * (TQ + 1) + r] = (n < N && m < N) ? x[(size_t)n * N + m] : 0.0f;
+        As[kk * (TQ + 1) + r] = (n < N && m < N) ? ld(x + (size_t)n * N + m) : 0.0f;
       }
       for (int e = tid; e < KC * TD; e += THREADS) {
         const int kk = e / TD;
         const int cc = e % TD;
         const int m = m0 + kk;
         const int c = c0 + cc;
-        Bs[kk * TD + cc] = (m < N && c < K) ? y[(size_t)m * H * K + c] : 0.0f;
+        Bs[kk * TD + cc] = (m < N && c < K) ? ld(y + (size_t)m * H * K + c) : 0.0f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -385,7 +414,7 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_dlhs_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + tx + 16 * j;
-      if (c < K) out[(size_t)n * ld_out + c] = acc[i][j];
+      if (c < K) st(out + (size_t)n * ld_out + c, acc[i][j]);
     }
   }
 }
@@ -400,51 +429,83 @@ __global__ void qkr_bwd_ds_kernel(const float* __restrict__ ds_part,
   ds[n] = acc;
 }
 
-}  // namespace
-
-// Dynamic shared memory pass A needs for N keys (bytes); the wrapper checks
-// it against the card's per-block limit before launching.
-extern "C" long long ofq_qkr_attention_bwd_smem_bytes(int N) {
+long long bwd_smem_bytes(int N) {
   const int ld_s = ((N + TK - 1) / TK) * TK + 1;
   return (long long)sizeof(float) *
          (2LL * TQ * ld_s + KC * (TQ + 1) + KC * (TK + 1));
 }
 
-// pq_scratch and dsc_scratch hold B*H*N*N floats each, ds_part B*H*N; all
-// allocated by the caller.  Returns the first CUDA error of the launches.
-extern "C" int ofq_qkr_attention_bwd(
-    const float* lhs, int lhs_per_head, const float* rhs, const float* v,
-    const float* s, const float* g, float* dlhs, float* drhs, float* dv,
-    float* ds, float* pq_scratch, float* dsc_scratch, float* ds_part, int B,
-    int N, int H, int K, int D, float thd_pos, float sm_scale, int quantize,
-    void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+template <typename T>
+int launch_bwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
+               const float* s, const T* g, T* dlhs, T* drhs, T* dv, float* ds,
+               T* pq_scratch, T* dsc_scratch, float* ds_part, int B, int N,
+               int H, int K, int D, float thd_pos, float sm_scale,
+               int quantize, void* stream) {
+  cudaStream_t strm = (cudaStream_t)stream;
   const int ld_s = ((N + TK - 1) / TK) * TK + 1;
-  const size_t smem = (size_t)ofq_qkr_attention_bwd_smem_bytes(N);
+  const size_t smem = (size_t)bwd_smem_bytes(N);
   cudaError_t err = cudaFuncSetAttribute(
-      qkr_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      qkr_bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int q_tiles = (N + TQ - 1) / TQ;
-  qkr_bwd_rows_kernel<<<dim3(q_tiles, H, B), THREADS, smem, st>>>(
+  qkr_bwd_rows_kernel<T><<<dim3(q_tiles, H, B), THREADS, smem, strm>>>(
       lhs, lhs_per_head, rhs, v, s, g, pq_scratch, dsc_scratch, ds_part, N, H,
       K, D, ld_s, thd_pos, sm_scale, quantize);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nd = (D + TD - 1) / TD;
   const int nk = (K + TD - 1) / TD;
-  qkr_bwd_cols_kernel<<<dim3((N + TK - 1) / TK, nd + nk, B * H), THREADS, 0,
-                        st>>>(pq_scratch, dsc_scratch, g, lhs, lhs_per_head,
-                              dv, drhs, N, H, K, D);
+  qkr_bwd_cols_kernel<T><<<dim3((N + TK - 1) / TK, nd + nk, B * H), THREADS,
+                           0, strm>>>(pq_scratch, dsc_scratch, g, lhs,
+                                    lhs_per_head, dv, drhs, N, H, K, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  qkr_bwd_dlhs_kernel<<<dim3(q_tiles, nk, lhs_per_head ? B * H : B), THREADS,
-                        0, st>>>(dsc_scratch, rhs, lhs_per_head, dlhs, N, H,
-                                 K);
+  qkr_bwd_dlhs_kernel<T><<<dim3(q_tiles, nk, lhs_per_head ? B * H : B),
+                           THREADS, 0, strm>>>(dsc_scratch, rhs, lhs_per_head,
+                                             dlhs, N, H, K);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  qkr_bwd_ds_kernel<<<(N + 255) / 256, 256, 0, st>>>(ds_part, ds, B * H, N);
+  qkr_bwd_ds_kernel<<<(N + 255) / 256, 256, 0, strm>>>(ds_part, ds, B * H, N);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Dynamic shared memory pass A needs for N keys (bytes), in either stream
+// dtype; the wrapper checks it against the card's per-block limit before
+// launching.
+extern "C" long long ofq_qkr_attention_bwd_smem_bytes(int N) {
+  return bwd_smem_bytes(N);
+}
+
+// pq_scratch and dsc_scratch hold B*H*N*N elements of the stream dtype
+// each, ds_part B*H*N floats; all allocated by the caller.  Returns the
+// first CUDA error of the launches.
+extern "C" int ofq_qkr_attention_bwd(
+    const float* lhs, int lhs_per_head, const float* rhs, const float* v,
+    const float* s, const float* g, float* dlhs, float* drhs, float* dv,
+    float* ds, float* pq_scratch, float* dsc_scratch, float* ds_part, int B,
+    int N, int H, int K, int D, float thd_pos, float sm_scale, int quantize,
+    void* stream) {
+  return launch_bwd<float>(lhs, lhs_per_head, rhs, v, s, g, dlhs, drhs, dv,
+                           ds, pq_scratch, dsc_scratch, ds_part, B, N, H, K,
+                           D, thd_pos, sm_scale, quantize, stream);
+}
+
+// The bf16 stream: lhs, rhs, v, g, the cotangents and the scratch bf16; s,
+// ds and ds_part fp32.
+extern "C" int ofq_qkr_attention_bwd_bf16(
+    const __nv_bfloat16* lhs, int lhs_per_head, const __nv_bfloat16* rhs,
+    const __nv_bfloat16* v, const float* s, const __nv_bfloat16* g,
+    __nv_bfloat16* dlhs, __nv_bfloat16* drhs, __nv_bfloat16* dv, float* ds,
+    __nv_bfloat16* pq_scratch, __nv_bfloat16* dsc_scratch, float* ds_part,
+    int B, int N, int H, int K, int D, float thd_pos, float sm_scale,
+    int quantize, void* stream) {
+  return launch_bwd<__nv_bfloat16>(lhs, lhs_per_head, rhs, v, s, g, dlhs,
+                                   drhs, dv, ds, pq_scratch, dsc_scratch,
+                                   ds_part, B, N, H, K, D, thd_pos, sm_scale,
+                                   quantize, stream);
 }
 
 extern "C" const char* ofq_cuda_error_string(int err) {

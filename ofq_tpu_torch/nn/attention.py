@@ -12,8 +12,10 @@ one (H*C, C) matrix with per-row scales, and the attention logits become
 Calibration always runs the composition, so `quan_softmax.s` is set from
 the probabilities themselves, never through the kernel (the rule the JAX
 package enforces in `_SoftmaxScaleParam`).  Under `compute_dtype`
-('bfloat16') the chain and the composed tail run in that dtype, as in JAX;
-the fused tail (fp32 kernels) refuses it.
+('bfloat16') the chain and both tails run in that dtype, as in JAX: the
+composed tail's softmax in bf16, the fused tail as JAX's bf16 kernels
+compute it (fp32 scores and softmax, the quantized probabilities rounded to
+bf16 before `@ v`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..quant.lsq import grad_scale_factor
 from ..quant.statsq import statsq_quantize
 from ..quant.ste import as_dtype, clip_lower, grad_scale, weak_scalar
 from .bias import LearnableBias
-from .linear import Dense, QLinear, check_bits, check_fp32_kernels
+from .linear import Dense, QLinear, check_bits
 from .quantizers import LsqAct
 
 
@@ -115,7 +117,6 @@ class QAttentionQKR(nn.Module):
                 f"attn_impl={attn_impl!r}: the port has the composition and "
                 "'fused'")
         compute_dtype = as_dtype(compute_dtype)
-        check_fp32_kernels("attn_impl", attn_impl, compute_dtype)
         C, H = dim, num_heads
         self.num_heads = H
         self.weight_bits = weight_bits

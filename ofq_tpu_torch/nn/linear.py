@@ -9,7 +9,8 @@ CUDA kernel, `ops/fused_qlinear.py`); all read the same parameters
 (`move_b4.bias`, `input_quant.s`, `move_aft.bias`, `kernel`, `bias`), as
 the JAX param tree is the same for every `matmul_impl`.  `compute_dtype`
 ('bfloat16') runs the product in that dtype with fp32 sums, as JAX's
-`statsq_matmul` does; the fused kernel takes fp32 only.
+`statsq_matmul` does; the fused kernel, as JAX's, takes x in fp32 whatever
+the stream and returns y in x's dtype.
 """
 
 from __future__ import annotations
@@ -35,16 +36,6 @@ def _check_act(act_layer: str) -> None:
     if act_layer != "gelu":
         raise NotImplementedError(
             f"act_layer={act_layer!r}: the port has GELU only")
-
-
-def check_fp32_kernels(what: str, impl, compute_dtype) -> None:
-    """The fused kernels (K1-K3) take fp32 only: a bf16 stream through them
-    is not in the port yet."""
-    if impl == "fused" and compute_dtype is not None:
-        raise NotImplementedError(
-            f"{what}='fused' with compute_dtype={compute_dtype}: the fused "
-            "kernels are fp32 only; the bf16 stream runs the composition "
-            "or matmul_impl='pallas' (ROADMAP.md, Queue 1)")
 
 
 def check_bits(**bits: int) -> None:
@@ -77,7 +68,6 @@ class QLinear(nn.Module):
                 f"matmul_impl={matmul_impl!r}: the port has the composed "
                 "path, 'pallas' and 'fused'; 'int8' is a ROADMAP item")
         compute_dtype = as_dtype(compute_dtype)
-        check_fp32_kernels("matmul_impl", matmul_impl, compute_dtype)
         self.weight_bits = weight_bits
         self.input_bits = input_bits
         self.symmetric = symmetric

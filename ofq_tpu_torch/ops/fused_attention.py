@@ -13,6 +13,14 @@ lhs is the QKR input shared across heads, (B, N, K), or per head,
 (B, N, H, K); rhs (B, N, H, K); v (B, N, H, d); s (N,); out (B, N, H, d),
 all in the JAX package's natural layout.
 
+The stream dtype of lhs, rhs, v (and the cotangent g) is fp32 or bf16, as
+the TPU kernels are generic over it.  In bf16 they round where the TPU
+kernels round: operands widen exactly, products and the softmax are fp32,
+pq is rounded to bf16 before `@ v`, out comes back in bf16; in the
+backward pq is rounded before dv, dscores * sm_scale once before drhs and
+dlhs, and dlhs, drhs, dv come back in bf16 (a shared dlhs after its fp32
+sum over heads); s and ds stay fp32.
+
 Two kernels, each with its plain PyTorch version beside it:
   * `qkr_attention_fwd` (K2, `csrc/fused_attention.cu`);
   * `qkr_attention_bwd` (K3, `csrc/fused_attention_bwd.cu`), the custom VJP:
@@ -70,23 +78,43 @@ def _units_spec(lhs) -> str:
     return "bnk" if lhs.ndim == 3 else "bnhk"
 
 
+def _f32(*tensors):
+    """Exact widening of the stream's operands: a bf16 x bf16 product is
+    exact in fp32, so fp32 einsums on them are `dot(...,
+    preferred_element_type=float32)`; fp32 and fp64 stay as they are."""
+    return [t.to(at_least_f32(t.dtype)) for t in tensors]
+
+
+def _rounded(x, dtype):
+    """x rounded to the stream dtype and widened back: the value a product
+    of operands in that dtype reads (the identity in fp32 and fp64)."""
+    return x.to(dtype).to(x.dtype)
+
+
 def qkr_attention_fwd_reference(lhs, rhs, v, s, bits, sm_scale, quantize):
-    """Plain PyTorch version of the forward kernel, on fp32 tensors, with
-    fp32 sums as in `ofq_tpu.ops.fused_attention._fwd_kernel`."""
+    """Plain PyTorch version of the forward kernel, with fp32 sums as in
+    `ofq_tpu.ops.fused_attention._fwd_kernel`, in the stream dtype of v
+    (fp32 or bf16): pq rounded to it before `@ v`, the output returned in
+    it."""
+    dt = v.dtype
+    lhs, rhs, v = _f32(lhs, rhs, v)
     p = softmax(torch.einsum(f"{_units_spec(lhs)},bmhk->bhnm", lhs, rhs)
                 * sm_scale)
     if quantize:
         s_row = torch.clamp_min(s, _S_EPS)[None, None, :, None]
         p = torch.round(torch.clamp(p / s_row, 0.0, 2 ** bits - 1)) * s_row
-    return torch.einsum("bhnm,bmhd->bnhd", p, v)
+    return torch.einsum("bhnm,bmhd->bnhd", _rounded(p, dt), v).to(dt)
 
 
 def qkr_attention_bwd_reference(lhs, rhs, v, s, g, bits, sm_scale,
                                 quantize):
     """Plain PyTorch version of the backward kernel: the arithmetic of
-    `ofq_tpu.ops.fused_attention._bwd_kernel` in fp32.  Returns
-    (dlhs, drhs, dv, ds) in the shapes of (lhs, rhs, v, s)."""
+    `ofq_tpu.ops.fused_attention._bwd_kernel`, fp32 sums, in the stream
+    dtype of v (fp32 or bf16).  Returns (dlhs, drhs, dv, ds) in the shapes
+    of (lhs, rhs, v, s): the first three in the stream dtype, ds in s's."""
+    dt = v.dtype
     spec = _units_spec(lhs)
+    lhs, rhs, v, g = _f32(lhs, rhs, v, g)
     p = softmax(torch.einsum(f"{spec},bmhk->bhnm", lhs, rhs) * sm_scale)
     dpq = torch.einsum("bnhd,bmhd->bhnm", g, v)
     if quantize:
@@ -102,12 +130,12 @@ def qkr_attention_bwd_reference(lhs, rhs, v, s, g, bits, sm_scale,
     else:
         pq, dp = p, dpq
         ds = torch.zeros_like(s)
-    dv = torch.einsum("bhnm,bnhd->bmhd", pq, g)
+    dv = torch.einsum("bhnm,bnhd->bmhd", _rounded(pq, dt), g)
     dscores = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
-    dscores = dscores * sm_scale
+    dscores = _rounded(dscores * sm_scale, dt)
     drhs = torch.einsum(f"bhnm,{spec}->bmhk", dscores, lhs)
     dlhs = torch.einsum(f"bhnm,bmhk->{spec}", dscores, rhs)
-    return dlhs, drhs, dv, ds
+    return dlhs.to(dt), drhs.to(dt), dv.to(dt), ds
 
 
 def check_args(what, ref, **args):
@@ -132,6 +160,18 @@ def _shapes(lhs, rhs, v):
     return B, N, H, K, d, lhs_shape
 
 
+# the stream dtypes the kernels take for their activations and outputs
+# (K2, K3 and K4: fp32 and bf16), and the suffix of K2's and K3's launcher
+# for each
+_LAUNCHERS = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def stream_dtype(t):
+    """The dtype `check_args` asks of a kernel's activations: t's where the
+    kernels take it, else fp32 (so that check_args refuses t)."""
+    return t.dtype if t.dtype in _LAUNCHERS else torch.float32
+
+
 def _smem_check(lib, fn_name, N, what):
     smem_fn = getattr(lib, fn_name)
     smem_fn.restype = ctypes.c_longlong
@@ -144,16 +184,18 @@ def _smem_check(lib, fn_name, N, what):
 
 def _launch(lhs, rhs, v, s, bits, sm_scale, quantize):
     B, N, H, K, d, lhs_shape = _shapes(lhs, rhs, v)
-    check_args("qkr_attention_fwd", rhs, lhs=(lhs, lhs_shape),
-           rhs=(rhs, (B, N, H, K)), v=(v, (B, N, H, d)), s=(s, (N,)))
+    dt = stream_dtype(v)
+    check_args("qkr_attention_fwd", rhs, lhs=(lhs, lhs_shape, dt),
+               rhs=(rhs, (B, N, H, K), dt), v=(v, (B, N, H, d), dt),
+               s=(s, (N,)))
     lib = _build.load("fused_attention")
     _smem_check(lib, "ofq_qkr_attention_smem_bytes", N, "qkr_attention_fwd")
-    fn = lib.ofq_qkr_attention_fwd
+    fn = getattr(lib, "ofq_qkr_attention_fwd" + _LAUNCHERS[dt])
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_int, ctypes.c_void_p])
-    out = torch.empty((B, N, H, d), dtype=torch.float32, device=rhs.device)
+    out = torch.empty((B, N, H, d), dtype=dt, device=rhs.device)
     with torch.cuda.device(rhs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(lhs.data_ptr(), int(lhs.ndim == 4), rhs.data_ptr(),
@@ -178,24 +220,28 @@ def qkr_attention_fwd(lhs, rhs, v, s, bits, sm_scale, quantize):
 
 def _launch_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize):
     B, N, H, K, d, lhs_shape = _shapes(lhs, rhs, v)
-    check_args("qkr_attention_bwd", rhs, lhs=(lhs, lhs_shape),
-           rhs=(rhs, (B, N, H, K)), v=(v, (B, N, H, d)), s=(s, (N,)),
-           g=(g, (B, N, H, d)))
+    dt = stream_dtype(v)
+    check_args("qkr_attention_bwd", rhs, lhs=(lhs, lhs_shape, dt),
+               rhs=(rhs, (B, N, H, K), dt), v=(v, (B, N, H, d), dt),
+               s=(s, (N,)), g=(g, (B, N, H, d), dt))
     lib = _build.load("fused_attention_bwd")
     _smem_check(lib, "ofq_qkr_attention_bwd_smem_bytes", N,
                 "qkr_attention_bwd")
-    fn = lib.ofq_qkr_attention_bwd
+    fn = getattr(lib, "ofq_qkr_attention_bwd" + _LAUNCHERS[dt])
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11
                    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_int, ctypes.c_void_p])
+    # the cotangents and the scratch (pq and dscores, exactly the values
+    # the products read) in the stream dtype; ds and its partials fp32
+    st = dict(dtype=dt, device=rhs.device)
     f32 = dict(dtype=torch.float32, device=rhs.device)
-    dlhs = torch.empty(lhs_shape, **f32)
-    drhs = torch.empty((B, N, H, K), **f32)
-    dv = torch.empty((B, N, H, d), **f32)
+    dlhs = torch.empty(lhs_shape, **st)
+    drhs = torch.empty((B, N, H, K), **st)
+    dv = torch.empty((B, N, H, d), **st)
     ds = torch.empty((N,), **f32)
-    pq_scratch = torch.empty((B, H, N, N), **f32)
-    dsc_scratch = torch.empty((B, H, N, N), **f32)
+    pq_scratch = torch.empty((B, H, N, N), **st)
+    dsc_scratch = torch.empty((B, H, N, N), **st)
     ds_part = torch.empty((B, H, N), **f32)
     with torch.cuda.device(rhs.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -250,15 +296,20 @@ class _AttnCore(torch.autograd.Function):
 def quantized_attention_core(lhs, rhs, v, s, *, bits: int, sm_scale: float,
                              quantize_softmax: bool = True,
                              fwd=qkr_attention_fwd, bwd=qkr_attention_bwd):
-    """Port of `ofq_tpu.ops.fused_attention.quantized_attention_core`:
-    computes in fp32, returns v's dtype, (B, N, H, d); differentiable in
-    lhs, rhs, v and s (pass s with the grad-scale factor already applied).
+    """Port of `ofq_tpu.ops.fused_attention.quantized_attention_core`,
+    (B, N, H, d), differentiable in lhs, rhs, v and s (pass s with the
+    grad-scale factor already applied).  In the bf16 stream (v bf16) lhs,
+    rhs and v go to the kernels in bf16, which round as JAX's bf16 kernels
+    do, and the output and the cotangents of lhs, rhs, v are bf16; any
+    other v is computed in fp32 and returned in v's dtype.  s is fp32.
     `fwd`/`bwd` are the kernels' wrappers, or their plain versions for
     comparison on the card."""
-    f32 = [t.to(torch.float32).contiguous() for t in (lhs, rhs, v, s)]
-    if needs_grad(*f32):
-        out = _AttnCore.apply(*f32, bits, sm_scale, quantize_softmax, fwd,
+    dt = torch.bfloat16 if v.dtype == torch.bfloat16 else torch.float32
+    args = [t.to(dt).contiguous() for t in (lhs, rhs, v)]
+    args.append(s.to(torch.float32).contiguous())
+    if needs_grad(*args):
+        out = _AttnCore.apply(*args, bits, sm_scale, quantize_softmax, fwd,
                               bwd)
     else:
-        out = fwd(*f32, bits, sm_scale, quantize_softmax)
+        out = fwd(*args, bits, sm_scale, quantize_softmax)
     return out.to(v.dtype)

@@ -33,16 +33,8 @@ import torch
 from ..quant.statsq import _CLIP_HI_EPS, statsq_scale
 from ..quant.ste import needs_grad
 from . import _build
-from .fused_attention import check_args, on_card, refuse_graph_cut
-
-# the stream dtypes the kernels take for x, g and their outputs
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _stream_dtype(t):
-    """The dtype `check_args` asks of x or g: its own where the kernels
-    take it, else fp32 (so that check_args refuses it)."""
-    return t.dtype if t.dtype in _KERNEL_DTYPES else torch.float32
+from .fused_attention import (check_args, on_card, refuse_graph_cut,
+                              stream_dtype)
 
 
 def _quant_tile(w, s, n_levels):
@@ -97,7 +89,7 @@ def pallas_statsq_fwd(x2, w, s, n_levels):
         return pallas_statsq_fwd_reference(x2, w, s, n_levels)
     M, K = x2.shape
     N = w.shape[1]
-    check_args("pallas_statsq_fwd", x2, x2=(x2, (M, K), _stream_dtype(x2)),
+    check_args("pallas_statsq_fwd", x2, x2=(x2, (M, K), stream_dtype(x2)),
                w=(w, (K, N)), s=(s, (1, N)))
     y = _launch("ofq_pallas_statsq_fwd", "pallas_statsq_fwd", x2, w, s,
                 n_levels, (M, N), M, K, N)
@@ -118,7 +110,7 @@ def pallas_statsq_dx(g2, w, s, n_levels, x_dtype):
     if x_dtype != g2.dtype:
         raise ValueError(f"pallas_statsq_dx: the kernel writes g2's dtype "
                          f"{g2.dtype}, asked for {x_dtype}")
-    check_args("pallas_statsq_dx", g2, g2=(g2, (M, N), _stream_dtype(g2)),
+    check_args("pallas_statsq_dx", g2, g2=(g2, (M, N), stream_dtype(g2)),
                w=(w, (K, N)), s=(s, (1, N)))
     dx = _launch("ofq_pallas_statsq_dx", "pallas_statsq_dx", g2, w, s,
                  n_levels, (M, K), M, K, N)

@@ -36,7 +36,8 @@ class Predictor:
         """A predictor for JAX variables saved as a flat `.npz` keyed by
         '/'-joined Flax paths (see `convert.load_flax_params`).  The bf16
         stream of bench.py's pallas configuration:
-        `matmul_impl="pallas", attn_impl=None, compute_dtype="bfloat16"`."""
+        `matmul_impl="pallas", attn_impl=None, compute_dtype="bfloat16"`;
+        of its fused one: the defaults with `compute_dtype="bfloat16"`."""
         model = create_model(model_name, policy=policy, device=device,
                              matmul_impl=matmul_impl, attn_impl=attn_impl,
                              compute_dtype=compute_dtype)

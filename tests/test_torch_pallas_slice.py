@@ -247,8 +247,26 @@ def _flat_paths(tree, prefix=""):
     return out
 
 
-def test_fused_kernels_refuse_the_bf16_stream():
+def test_fused_kernels_refuse_the_bf16_stream(monkeypatch):
+    """The fused kernels take the bf16 stream now (ROADMAP Queue 1 item
+    1): each fused configuration builds under compute_dtype='bfloat16'
+    and runs in it.  What the attention kernels' wrappers still refuse on
+    the card is a stream dtype they have no kernel for (fp16), and a bf16
+    stream whose operands are not all bf16."""
+    from ofq_tpu_torch.ops import fused_attention as fa
     for kw in (dict(matmul_impl="fused"), dict(attn_impl="fused")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_model(NAME, policy=w2a2_qkr_policy(DEPTH), device="cpu",
+        m = create_model(NAME, policy=w2a2_qkr_policy(DEPTH), device="cpu",
                          compute_dtype="bfloat16", **kw)
+        assert m.blocks_0.attn.compute_dtype == torch.bfloat16
+        with torch.no_grad():
+            y = m(torch.zeros(1, 32, 32, 3))
+        assert y.shape == (1, 1000) and torch.isfinite(y).all()
+    monkeypatch.setattr(fa, "on_card", lambda t: True)
+    lhs, rhs, v = (torch.zeros(1, 4, 2, 8) for _ in range(3))
+    s = torch.ones(4)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        fa.qkr_attention_fwd(lhs.half(), rhs.half(), v.half(), s, 2, 0.5,
+                             True)
+    with pytest.raises(ValueError, match="contiguous bfloat16"):
+        fa.qkr_attention_bwd(lhs.bfloat16(), rhs, v.bfloat16(), s,
+                             v.bfloat16(), 2, 0.5, True)

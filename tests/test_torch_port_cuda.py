@@ -202,6 +202,76 @@ def test_k3_is_the_backward_of_k2(dev):
         assert _k3_close(a, b) <= 1e-3
 
 
+def _bf16_outside(got, ref):
+    """Share of bf16 elements outside one bf16 ulp of the larger magnitude,
+    2^-7 max(|got|, |ref|), plus the fp32 tests' 1e-4 * (1 + |ref|)."""
+    a, b = got.float(), ref.float()
+    lim = 2 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-4 * (1 + b.abs())
+    return float(((a - b).abs() > lim).float().mean())
+
+
+@pytest.mark.parametrize("B,N,H,K,d", [
+    (2, 198, 6, 384, 64),   # DeiT-S QKR
+    (3, 12, 3, 16, 8),      # small, ragged tiles
+    (1, 70, 2, 40, 100),    # d > 64: two output column passes
+])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("quantize", [True, False])
+def test_k2_bf16_matches_plain(dev, B, N, H, K, d, shared, quantize):
+    """K2 in the bf16 stream against its plain version: both widen the
+    bf16 operands exactly and sum in fp32 in other orders, then round pq
+    and out to bf16, so an element differs by one bf16 ulp where the two
+    sums round either side of a boundary, and by up to one LSQ level
+    where a probability falls on the other side of one (at most 0.1 % of
+    the elements outside `_bf16_outside`'s limit)."""
+    lhs, rhs, v, s = _k2_args(dev, B, N, H, K, d, shared)
+    lhs, rhs, v = (t.to(torch.bfloat16) for t in (lhs, rhs, v))
+    args = (lhs, rhs, v, s, 2, d ** -0.5, quantize)
+    before = fa.qkr_attention_fwd.launches
+    out = fa.qkr_attention_fwd(*args)
+    assert fa.qkr_attention_fwd.launches == before + 1
+    ref = fa.qkr_attention_fwd_reference(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    assert _bf16_outside(out, ref) <= 1e-3
+    assert float((out.float() - ref.float()).abs().max()) <= float(
+        2 * s.max() * v.float().abs().max())
+
+
+@pytest.mark.parametrize("B,N,H,K,d", [
+    (2, 198, 6, 384, 64),   # DeiT-S QKR
+    (3, 12, 3, 16, 8),      # small, ragged tiles
+    (1, 70, 2, 40, 100),    # d > 64: two output column tiles
+])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("quantize", [True, False])
+def test_k3_bf16_matches_plain(dev, B, N, H, K, d, shared, quantize):
+    """K3 in the bf16 stream against its plain version: dlhs, drhs and dv
+    in bf16 under `_bf16_outside`'s limit (at most 0.1 % outside), ds in
+    fp32 under the fp32 test's rule (at most 2 % of its entries outside
+    1e-4 * (1 + |ref|))."""
+    lhs, rhs, v, s = _k2_args(dev, B, N, H, K, d, shared)
+    g = torch.randn(B, N, H, d, generator=torch.Generator().manual_seed(3))
+    lhs, rhs, v, g = (t.to(dev, torch.bfloat16) for t in (lhs, rhs, v, g))
+    args = (lhs, rhs, v, s, g, 2, d ** -0.5, quantize)
+    before = fa.qkr_attention_bwd.launches
+    got = fa.qkr_attention_bwd(*args)
+    assert fa.qkr_attention_bwd.launches == before + 1
+    ref = fa.qkr_attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dlhs", "drhs", "dv"), got, ref):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16, name
+        assert torch.isfinite(a.float()).all(), name
+        assert _bf16_outside(a, b) <= 1e-3, name
+    ds, ds_ref = got[3], ref[3]
+    assert ds.dtype == torch.float32
+    if quantize:
+        assert _k3_close(ds, ds_ref) <= 2e-2
+    else:
+        assert not ds.any()
+
+
 def test_raw_wrappers_refuse_grad_inputs_on_card(dev):
     lhs, rhs, v, s = _k2_args(dev, 1, 12, 2, 16, 8, True)
     with pytest.raises(RuntimeError, match="requires grad"):
