@@ -4,18 +4,19 @@
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
     python3 chip_smoke.py --profile  # also: device time by kernel (torch.profiler)
     python3 chip_smoke.py --baseline DIR
-        # also: K1's source as an earlier tree DIR has it (a `git archive`
-        # of that commit), built and timed beside the current one at the
-        # same shapes in the same run
+        # also: K1's, K4's and K3's sources as an earlier tree DIR has
+        # them (a `git archive` of that commit), built and timed beside the
+        # current ones at the same shapes in the same run
 
 Phases (any failure raises and the script exits non-zero):
   1. device: require CUDA and `nvidia-smi`'s name and power limit of the
      card (printed beside the results; no result without them);
   2. build: compile every CUDA kernel from ofq_tpu_torch/csrc/ (one nvcc
      per source, in parallel); print ptxas's report (registers, spills) of
-     K1's and K4's sources and the wgmma (HGMMA) instructions of each of
-     K1's tensor-core kernels, read from the built library with cuobjdump,
-     and fail if one has none;
+     K1's, K4's and K3's sources and the tensor-core instructions of each
+     kernel that runs its products there (TC_KERNELS: HGMMA, wgmma, in K1
+     and K4-bf16; HMMA, mma.sync, in K3-bf16's passes), read from the
+     built library with cuobjdump, and fail if one has none;
   3. K1, the fused QLinear kernel (wgmma on the integer codes), against its
      plain PyTorch version on the card at the DeiT-S shapes, M = 64 * 198
      tokens (proj, fc1, fc2 at W2A2, one W4A4, one ragged case), with
@@ -23,7 +24,8 @@ Phases (any failure raises and the script exits non-zero):
      differing counted (0 while the integer sums stay below 2^24);
   4. K2, the fused QKR attention core, against its plain version at
      B=64, N=198, H=6, C=384, d=64 (shared and per-head lhs, LSQ on/off),
-     in fp32 and in the bf16 stream; K3, its backward, the same way;
+     in fp32 and in the bf16 stream; K3, its backward, the same way
+     (K3-bf16 on the tensor cores but for its score tile);
   5. serving: DeiT-S distilled W2A2 QKR at full width (random weights from
      a seeded torch.Generator), calibrated on a seeded batch of 64 and served
      through `Predictor` with both kernels, launch counts read around one
@@ -41,9 +43,10 @@ Phases (any failure raises and the script exits non-zero):
   5b, 6b. the same serving and train step with the fused kernels in the
      bf16 stream (FUSED_BF16: bench.py's `matmul_impl="fused"` bf16 row,
      fp32 masters, bf16 teacher): the same launch counts, the bf16 gates;
-  7. K4, the StatsQ matmul kernel, and K5, its dx product, against their
-     plain versions in fp32 and bf16 at the DeiT-S shapes (proj, fc1, fc2
-     with M = 64 * 198) and one ragged shape, with StatsQ ties built in;
+  7. K4, the StatsQ matmul kernel (bf16: a codes pass and a wgmma
+     product fed by TMA), and K5, its dx product, against their plain
+     versions in fp32 and bf16 at the DeiT-S shapes (proj, fc1, fc2 with
+     M = 64 * 198) and one ragged shape, with StatsQ ties built in;
   8. pallas serving: the same DeiT-S student with matmul_impl="pallas" in
      the bf16 stream (compute_dtype="bfloat16", the configuration of
      bench.py's `_rate(matmul_impl="pallas", compute_dtype="bfloat16")`)
@@ -57,16 +60,19 @@ Phases (any failure raises and the script exits non-zero):
      hooks) against its plain version and against the dx that the
      backward computed;
   9b. the gate self-check: deliberate faults wrapped around the real
-     kernels (K4 with one output column moved by one weight level, K2
-     reading the scale of row n + 1, K3 with ds doubled, K3 with dlhs
-     doubled), each of which must trip the bf16 gates it aims at, then the
-     unmodified kernels, which must pass them; one line per result;
+     kernels (K4 with one output column moved by one weight level, K4
+     with one 16-deep slice of its contraction left out, K2 reading the
+     scale of row n + 1, K3 with ds doubled, K3 with dlhs doubled, K3 with
+     dv zeroed over 16 keys of one head), each of which must trip the bf16
+     gates it aims at, then the unmodified kernels, which must pass them;
+     one line per result;
  10. K6, K7, K8, the Swin window-attention tail kernels of the lab bench
      (benchmarks/window_attn_lab.py), against their plain version at the
      lab's shapes (Swin-T stage 0 at batch 64: 4096 windows of 49 tokens,
      3 heads of 32, bf16) on the lab's seeded data, each at each lab
      parameter set, with times, the plain version's, SDPA's on the same
-     q, k, v (a related function) and the bound;
+     q, k, v (the same function: the kernels' library time) and the
+     bound;
  11. float Swin-T serving: the float model (the student's warm start and
      teacher) in the bf16 stream with bf16 parameters through `Predictor`,
      no kernel in its forward; K6-K8 at their default parameters on the
@@ -84,10 +90,13 @@ The agreement gates: fp32, the kernel path against the plain path; bf16,
 each path against a rounded-once reference (the plain path with every
 product summed in fp64 and rounded once to the dtype it returns), the
 kernel path no farther from it than the plain path allows (BLOCK_ROWS and
-what follows it).
-With --baseline, phase 3 also times the earlier tree's K1 at the same
-shapes (both through their C launchers alone), and the run ends with the
-sums over the 36 launches of a fused step.  The line before the last is a
+what follows it), and each whole-step gradient no farther than twice its
+order spread (the plain path summed in other legitimate fp32 orders,
+`summed_in_chunks`) plus a floor.
+With --baseline, phases 3, 4b, 7 and 12 also time the earlier tree's K1,
+K3-bf16 and K4-bf16 at the same shapes (both through their C launchers
+alone), and the run ends with the sums over each kernel's launches on
+its path.  The line before the last is a
 JSON object with every kernel's numbers (times in ms, CUDA events; bounds
 from the H100 SXM data sheet); the last line is
 {"ok": true, "device": {...}}.  Full results also go to
@@ -180,10 +189,18 @@ def phase_device():
 
 
 # ---------------------------------------------------------------- phase 2
-# the sources whose ptxas report the build phase prints, and the one whose
-# kernels run their products on wgmma
-REPORT_SOURCES = ("fused_qlinear", "pallas_statsq")
-TC_SOURCE = "fused_qlinear"
+# the sources whose ptxas report the build phase prints
+REPORT_SOURCES = ("fused_qlinear", "pallas_statsq", "fused_attention_bwd")
+# the kernels that run their products on the tensor cores, by source: a
+# part of the (mangled) kernel name and the SASS instruction it must hold
+# (HGMMA: wgmma; HMMA: mma.sync)
+TC_KERNELS = {
+    "fused_qlinear": [("_tc_kernel", "HGMMA")],
+    "pallas_statsq": [("product_kernel", "HGMMA")],
+    "fused_attention_bwd": [("qkr_bwd_rows_kernelI13__nv_bfloat16", "HMMA"),
+                            ("qkr_bwd_cols_tc_kernel", "HMMA"),
+                            ("qkr_bwd_dlhs_tc_kernel", "HMMA")],
+}
 
 
 def _cuobjdump():
@@ -191,9 +208,9 @@ def _cuobjdump():
     return os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
 
 
-def wgmma_counts(lib_path):
-    """HGMMA (wgmma) instructions in each kernel of a built library, from
-    its SASS (cuobjdump -sass)."""
+def mma_counts(lib_path):
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in each kernel of a
+    built library, from its SASS (cuobjdump -sass)."""
     out = subprocess.run([_cuobjdump(), "-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
@@ -202,9 +219,11 @@ def wgmma_counts(lib_path):
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[fn][op] += 1
     return counts
 
 
@@ -213,46 +232,61 @@ def phase_build():
     t0 = time.perf_counter()
     reports = _build.build_all()
     dt = time.perf_counter() - t0
-    tc = {}
     for name in _build.SOURCES:
         _build.load(name)
         for line in reports.get(name, "").splitlines():
             if (name in REPORT_SOURCES and "ptxas" in line) or (
                     "registers" in line or "spill" in line):
                 log(f"[build] {name}: {line.strip()}")
-    counts = wgmma_counts(_build._lib_path(TC_SOURCE))
-    tc = {k: v for k, v in counts.items() if "_tc_kernel" in k}
-    for fn, n in counts.items():
-        log(f"[build] {TC_SOURCE}: {n} HGMMA (wgmma) instructions in {fn}")
-    if not tc or not all(tc.values()):
-        raise AssertionError(f"{TC_SOURCE}: a tensor-core kernel without "
-                             f"wgmma: {tc}")
+    tc = {}
+    for src, wanted in TC_KERNELS.items():
+        counts = mma_counts(_build._lib_path(src))
+        for part, op in wanted:
+            found = {fn: c[op] for fn, c in counts.items() if part in fn}
+            for fn, n in found.items():
+                log(f"[build] {src}: {n} {op} instructions in {fn}")
+            if not found or not all(found.values()):
+                raise AssertionError(f"{src}: a tensor-core kernel "
+                                     f"({part}) without {op}: {found}")
+            tc.update({f"{src}:{fn}": {op: n} for fn, n in found.items()})
     log(f"[build] {len(_build.SOURCES)} kernels built in {dt:.1f} s "
         f"into {_build.BUILD_DIR}")
-    return dict(seconds=dt, wgmma=tc,
+    return dict(seconds=dt, tensor_core_instructions=tc,
                 ptxas={n: reports.get(n, "") for n in REPORT_SOURCES})
 
 
+# the sources that --baseline builds from the earlier tree: K1, K4 (and
+# K5), K3
+BASELINE_SOURCES = ("fused_qlinear", "pallas_statsq", "fused_attention_bwd")
+
+
 def build_baseline(root):
-    """K1's source of an earlier tree (`root`, a `git archive` of that
-    commit), built with the current flags into root/_build_baseline; returns
-    its library.  The earlier source includes no header of csrc/."""
+    """The BASELINE_SOURCES of an earlier tree (`root`, a `git archive` of
+    that commit), built with the current flags into root/_build_baseline
+    (one nvcc each, all at once; a source finds its headers in its own
+    csrc/); returns their libraries by name."""
     import ctypes
     from ofq_tpu_torch.ops import _build
     out_dir = os.path.join(root, "_build_baseline")
     os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(root, "ofq_tpu_torch", "csrc", f"{TC_SOURCE}.cu")
-    lib = os.path.join(out_dir, f"lib{TC_SOURCE}.so")
-    p = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
-                       capture_output=True, text=True, timeout=600)
-    if p.returncode != 0:
-        raise RuntimeError(f"baseline {TC_SOURCE}.cu failed to build:\n"
-                           f"{p.stdout}{p.stderr}")
-    for line in (p.stdout + p.stderr).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[baseline] {TC_SOURCE}: {line.strip()}")
-    log(f"[baseline] built K1 of {root}")
-    return ctypes.CDLL(lib)
+    procs = {}
+    for name in BASELINE_SOURCES:
+        src = os.path.join(root, "ofq_tpu_torch", "csrc", f"{name}.cu")
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, p) in procs.items():
+        out, _ = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise RuntimeError(f"baseline {name}.cu failed to build:\n{out}")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[baseline] {name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(lib)
+    log(f"[baseline] built {', '.join(BASELINE_SOURCES)} of {root}")
+    return libs
 
 
 def raw_k1(lib, args):
@@ -282,6 +316,78 @@ def raw_k1(lib, args):
         if err:
             raise RuntimeError(f"K1 launcher: CUDA error {err}")
         return y
+    return run
+
+
+def raw_k4(lib, args, earlier):
+    """K4-bf16's C launcher in `lib` called straight on `args`
+    (pallas_statsq_fwd's, x bf16 with K a multiple of 8) into outputs
+    allocated once: the current tree's codes pass and wgmma product, or
+    (`earlier`) the earlier tree's one entry for both streams."""
+    import ctypes
+    import torch
+    x2, w, s, n = args
+    M, K = x2.shape
+    N = w.shape[1]
+    y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    codes = torch.empty((N, K), dtype=torch.bfloat16, device=x2.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if earlier:
+        fn = lib.ofq_pallas_statsq_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        call = [x2.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), M,
+                K, N, float(n), 1, stream]
+    else:
+        fn = lib.ofq_pallas_statsq_bf16_fwd
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+        call = [x2.data_ptr(), K, w.data_ptr(), s.data_ptr(), y.data_ptr(),
+                codes.data_ptr(), M, K, N, float(n), stream]
+    fn.restype = ctypes.c_int
+
+    def run():
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"K4 launcher: CUDA error {err}")
+        return y
+    return run
+
+
+def raw_k3(lib, args):
+    """K3-bf16's C launcher in `lib` (the current tree's or an earlier
+    one's: the same C signature) called straight on `args`
+    (qkr_attention_bwd's, bf16) into outputs and scratch allocated once;
+    the scratch rows are N rounded up to 8 apart, room for either tree."""
+    import ctypes
+    import torch
+    lhs, rhs, v, s, g, bits, sm_scale, quantize = args
+    B, N, H, K = rhs.shape
+    d = v.shape[-1]
+    ldp = -(-N // 8) * 8
+    st = dict(dtype=torch.bfloat16, device=rhs.device)
+    outs = [torch.empty(lhs.shape, **st), torch.empty(rhs.shape, **st),
+            torch.empty(v.shape, **st),
+            torch.empty((N,), dtype=torch.float32, device=rhs.device),
+            torch.empty((B, H, N, ldp), **st),
+            torch.empty((B, H, N, ldp), **st),
+            torch.empty((B, H, N), dtype=torch.float32, device=rhs.device)]
+    fn = lib.ofq_qkr_attention_bwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+    call = ([lhs.data_ptr(), int(lhs.ndim == 4), rhs.data_ptr(),
+             v.data_ptr(), s.data_ptr(), g.data_ptr()]
+            + [t.data_ptr() for t in outs]
+            + [B, N, H, K, d, float(2 ** bits - 1), float(sm_scale),
+               int(bool(quantize)), torch.cuda.current_stream().cuda_stream])
+
+    def run():
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"K3 launcher: CUDA error {err}")
+        return outs
     return run
 
 
@@ -383,7 +489,7 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
         if base:
             from ofq_tpu_torch.ops import _build
             raw_ms = median_ms(raw_k1(_build.load("fused_qlinear"), args))
-            base_ms = median_ms(raw_k1(base, args))
+            base_ms = median_ms(raw_k1(base["fused_qlinear"], args))
         design = tc_design(fq.launch_shape(M, K, N, n_tok, a_lo, a_hi, n_w))
         xq = (torch.round(torch.clamp(
             (x + b_pre) / s.repeat(M // n_tok)[:, None], a_lo, a_hi))
@@ -523,10 +629,20 @@ def phase_k2(dev, N, B=BATCH):
 
 
 # ------------------------------------------------------------- phase 4b
-def phase_k3(dev, N, B=BATCH):
+def _k3_design(dtype):
+    import torch
+    if dtype == torch.bfloat16:
+        return ("mma.sync m16n8k16 for dpq and passes B, C; score tile on "
+                "the CUDA cores (K2-bf16's loop)")
+    return "CUDA cores, fp32"
+
+
+def phase_k3(dev, N, B=BATCH, base=None):
     """K3, the attention backward, against its plain version, with the
     backward of F.scaled_dot_product_attention (LSQ off, lhs expanded per
-    head, only the autograd.grad call timed) as the yardstick."""
+    head, only the autograd.grad call timed) as the yardstick; with `base`
+    (--baseline) also the bf16 launcher alone, the current tree's and the
+    earlier one's."""
     import torch
     import torch.nn.functional as F
     from ofq_tpu_torch.ops import fused_attention as fa
@@ -568,6 +684,13 @@ def phase_k3(dev, N, B=BATCH):
             ms = median_ms(lambda: fa.qkr_attention_bwd(*args))
             plain_ms = median_ms(
                 lambda: fa.qkr_attention_bwd_reference(*args), reps=10)
+            raw_ms = base_ms = None
+            if base and dtype == torch.bfloat16:
+                from ofq_tpu_torch.ops import _build
+                raw_ms = median_ms(raw_k3(_build.load("fused_attention_bwd"),
+                                          args))
+                base_ms = median_ms(raw_k3(base["fused_attention_bwd"],
+                                           args))
             q = (lhs[:, None].expand(B, H, N, K) if shared
                  else lhs.permute(0, 2, 1, 3)).contiguous().requires_grad_()
             kk = rhs.permute(0, 2, 1, 3).contiguous().requires_grad_()
@@ -584,7 +707,8 @@ def phase_k3(dev, N, B=BATCH):
                 f"{ {k: f'{v:.2e}' for k, v in shares.items()} }, ds "
                 f"{ds_share:.2e} of entries, "
                 f"{'rel L2 ' if quantize else 'max '}{ds_err:.2e}, max|diff| "
-                f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"{err:.3e}; kernel ({_k3_design(dtype)}) {ms:.4f} ms"
+                f"{_versus(raw_ms, base_ms)}, plain {plain_ms:.4f} ms, "
                 f"SDPA backward (unquantized, {dt}) {sdpa_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
                 f"{nbytes / 1e6:.1f} MB)")
@@ -592,7 +716,8 @@ def phase_k3(dev, N, B=BATCH):
                                 quantize=quantize, B=B, N=N, H=H, K=K, d=d,
                                 max_abs_err=err,
                                 outside_share=shares, ds_share=ds_share,
-                                ds_err=ds_err, ms=ms,
+                                ds_err=ds_err, ms=ms, design=_k3_design(dtype),
+                                raw_ms=raw_ms, baseline_raw_ms=base_ms,
                                 plain_ms=plain_ms, sdpa_bwd_ms=sdpa_ms,
                                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                                 flops=flops, main_path=shared and quantize))
@@ -654,14 +779,24 @@ def _swin_k4_cases(batch=BATCH):
     return cases
 
 
-# K4's and K5's kernel (one template for both, in either stream)
+# K5's kernel and K4's in the fp32 stream (one template, either stream)
 K45_DESIGN = "CUDA-core template, 64x64 tiles, fp32 FMAs"
 
 
-def phase_k45(dev, which, cases, dtypes=None):
+def _k4_design(M, K, N):
+    """A label for K4-bf16's launch (`launch_shape`)."""
+    from ofq_tpu_torch.ops import pallas_statsq as ps
+    sh = ps.launch_shape(M, K, N)
+    return (f"codes pass + wgmma BM 128 BN {sh['bn']}, {sh['grid'][0]}x"
+            f"{sh['grid'][1]} blocks, TMA ring of {sh['stages']}")
+
+
+def phase_k45(dev, which, cases, dtypes=None, base=None):
     """K4 (`which` = "K4": y = x @ Q(W)) or K5 ("K5": dx = g @ Q(W)^T)
     against its plain version at `cases` (name, M, K, N, main path), in
-    fp32 and bf16 (or `dtypes`); a main-path case counts in bf16."""
+    fp32 and bf16 (or `dtypes`); a main-path case counts in bf16.  With
+    `base` (--baseline), K4-bf16's launcher alone, the current tree's and
+    the earlier one's."""
     import torch
     from ofq_tpu_torch.ops import pallas_statsq as ps
     from ofq_tpu_torch.quant.statsq import statsq_scale
@@ -708,16 +843,27 @@ def phase_k45(dev, which, cases, dtypes=None):
             ms = median_ms(lambda: kern(*args))
             plain_ms = median_ms(lambda: plain(*args), reps=10)
             yard_ms = median_ms(yard)
+            tc = which == "K4" and dtype == torch.bfloat16
+            design = _k4_design(M, K, N) if tc else K45_DESIGN
+            raw_ms = base_ms = None
+            if base and tc and K % 8 == 0:
+                from ofq_tpu_torch.ops import _build
+                raw_ms = median_ms(raw_k4(_build.load("pallas_statsq"), args,
+                                          earlier=False))
+                base_ms = median_ms(raw_k4(base["pallas_statsq"], args,
+                                           earlier=True))
             nbytes, flops, (b_ms, b_by) = _k45_bound(M, K, N, dtype)
             log(f"[{which}] {name:6s} {dt:8s} M={M} K={K} N={N}: max|diff| "
                 f"{err:.3e}, worst |diff|/limit {ratio:.3f}, {w_ties} StatsQ "
-                f"ties; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"ties; kernel ({design}) {ms:.4f} ms"
+                f"{_versus(raw_ms, base_ms)}, plain {plain_ms:.4f} ms, "
                 f"torch.matmul(a, Q(W){'^T' if which == 'K5' else ''}) "
                 f"{yard_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
             results.append(dict(name=name, dtype=dt, M=M, K=K, N=N,
                                 main_path=main and dtype == torch.bfloat16,
-                                design=K45_DESIGN,
+                                design=design, raw_ms=raw_ms,
+                                baseline_raw_ms=base_ms,
                                 max_abs_err=err, worst_ratio=ratio,
                                 statsq_ties=w_ties, ms=ms, plain_ms=plain_ms,
                                 matmul_ms=yard_ms, bound_ms=b_ms,
@@ -888,6 +1034,108 @@ def rounded_once():
     finally:
         torch.matmul, torch.einsum = mm, es
         torch.Tensor.__matmul__ = op
+
+
+def _chunked_sum(es, eq, a, b, j):
+    """The two-operand einsum `eq` of a and b in one legitimate fp32 order:
+    the contraction (its largest summed index) split into j near-equal
+    chunks, each chunk summed in fp32 (operands widened exactly), the
+    chunks added in fp32 in order; returns fp32.  `es`: torch's own
+    einsum."""
+    import torch
+    ins, out = eq.replace(" ", "").split("->")
+    sa, sb = ins.split(",")
+    summed = [c for c in dict.fromkeys(sa + sb) if c not in out]
+    a, b = a.float(), b.float()
+    if not summed:
+        return es(eq, a, b)
+    size = {c: n for s, t in ((sa, a), (sb, b)) for c, n in zip(s, t.shape)}
+    c = max(summed, key=lambda x: size[x])
+    acc = None
+    for ca, cb in zip(
+            torch.tensor_split(a, j, dim=sa.index(c)) if c in sa else [a] * j,
+            torch.tensor_split(b, j, dim=sb.index(c)) if c in sb else [b] * j):
+        part = es(eq, ca, cb)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _chunked_product(es, j):
+    """An autograd Function for `_chunked_sum` whose backward products
+    (the cotangent of each operand, itself a two-operand einsum) are
+    summed the same way and rounded once to the operand's dtype."""
+    import torch
+
+    class Chunked(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, eq, a, b):
+            ctx.eq = eq
+            ctx.save_for_backward(a, b)
+            dt = torch.promote_types(a.dtype, b.dtype)
+            return _chunked_sum(es, eq, a, b, j).to(dt)
+
+        @staticmethod
+        def backward(ctx, g):
+            a, b = ctx.saved_tensors
+            ins, out = ctx.eq.replace(" ", "").split("->")
+            sa, sb = ins.split(",")
+            ga = gb = None
+            if ctx.needs_input_grad[1]:
+                ga = _chunked_sum(es, f"{out},{sb}->{sa}", g, b, j).to(
+                    a.dtype)
+            if ctx.needs_input_grad[2]:
+                gb = _chunked_sum(es, f"{sa},{out}->{sb}", a, g, j).to(
+                    b.dtype)
+            return None, ga, gb
+
+    return Chunked.apply
+
+
+@contextlib.contextmanager
+def summed_in_chunks(j):
+    """Another legitimate fp32 summation order of the plain path: while it
+    is active every product that `rounded_once` patches (torch.matmul,
+    torch.einsum, `@`, and through autograd their backward products) has
+    its contraction split into j chunks, each summed in fp32, the chunks
+    added in fp32 in order and the result rounded once to the dtype it
+    returns.  Run with the model on its plain path, it measures how far
+    summation order alone moves a result (the whole-step gradient rule's
+    order spread)."""
+    import torch
+    mm, es, op = torch.matmul, torch.einsum, torch.Tensor.__matmul__
+    product = _chunked_product(es, j)
+
+    def matmul(a, b):
+        if not (a.dtype.is_floating_point and b.dtype.is_floating_point
+                and a.dim() >= 1 and b.dim() in (1, 2)):
+            return mm(a, b)
+        a2 = a.reshape(-1, a.shape[-1]) if a.dim() > 1 else a[None]
+        b2 = b if b.dim() == 2 else b[:, None]
+        y = product("mk,kn->mn", a2, b2)
+        lead = a.shape[:-1]
+        return y.reshape(*lead, b.shape[1]) if b.dim() == 2 else \
+            y.reshape(lead)
+
+    def einsum(eq, *operands):
+        if len(operands) == 1 and isinstance(operands[0], (list, tuple)):
+            operands = operands[0]
+        if (len(operands) != 2 or "..." in eq or "->" not in eq
+                or not all(o.dtype.is_floating_point for o in operands)):
+            return es(eq, *operands)
+        return product(eq, *operands)
+
+    torch.matmul, torch.einsum = matmul, einsum
+    torch.Tensor.__matmul__ = matmul
+    try:
+        yield
+    finally:
+        torch.matmul, torch.einsum = mm, es
+        torch.Tensor.__matmul__ = op
+
+
+# the summation orders whose spread the whole-step gradient rule allows
+# (bf16 paths): the plain path as it stands and split into these chunks
+ORDER_CHUNKS = (2, 3, 4)
 
 
 @contextlib.contextmanager
@@ -1175,10 +1423,15 @@ def composed_fp64_probs(model, batches, dev):
 TRAIN_STEPS_TIMED, TRAIN_STEPS_WARM = 5, 2
 # whole-step gradient gate: for every parameter, and for all parameters
 # together, the kernel path's relative L2 distance from a reference
-# gradient may be at most twice the plain path's plus a floor; the floor
-# is the median over parameters of the plain path's distance (how far
-# rounding alone moves a gradient of this chaotic random-weight W2A2
-# model in this run), never below GRAD_GATE_MIN_FLOOR.  The reference:
+# gradient may be at most twice the plain path's (fp32), or twice its
+# order spread (bf16: the largest distance over the plain path and the
+# plain path summed in ORDER_CHUNKS chunks, `summed_in_chunks`; after a
+# whole chaotic W2A2 step a cancelling sum such as an LSQ scale's gradient
+# moves by several times its size under any change of summation order),
+# plus a floor; the floor is the median over parameters of the plain
+# path's distance (how far rounding alone moves a gradient of this
+# chaotic random-weight W2A2 model in this run), never below
+# GRAD_GATE_MIN_FLOOR.  The reference:
 # fp32, the composed model in fp64; bf16, the rounded-once reference
 # (`rounded_once`), since the fp64 model has no bf16 stream and sits as
 # far from both bf16 paths as they sit from each other (its distances are
@@ -1306,24 +1559,39 @@ def _kd_loss(model, teacher, x, label):
 def _grad_gate(what, rows, all_params=None):
     """The gradient rule (above GRAD_GATE_MIN_FLOOR) on `rows`, each with
     `rel_kernels` and `rel_plain` (distances from the reference), and on
-    `all_params` (the same two for all parameters together)."""
+    `all_params` (`kernels` and `plain`, the same for all parameters
+    together).  A row (or `all_params`) that also holds `spread`, its order
+    spread (the bf16 whole step), is held to 2 x spread + floor; else to
+    2 x plain + floor."""
     rk = sorted(r["rel_kernels"] for r in rows)
     rp = sorted(r["rel_plain"] for r in rows)
     floor = max(GRAD_GATE_MIN_FLOOR, rp[len(rp) // 2])
-    bad = [r for r in rows if r["rel_kernels"] > 2 * r["rel_plain"] + floor]
-    worst = max(rows, key=lambda r: r["rel_kernels"]
-                / (2 * r["rel_plain"] + floor))
+    by_spread = "spread" in rows[0]
+
+    def limit(r, plain="rel_plain"):
+        return 2 * r.get("spread", r[plain]) + floor
+
+    bad = [r for r in rows if r["rel_kernels"] > limit(r)]
+    worst = max(rows, key=lambda r: r["rel_kernels"] / limit(r))
+    spread = ""
+    if by_spread:
+        sp = sorted(r["spread"] for r in rows)
+        spread = (f"; order spread median {sp[len(sp) // 2]:.3e} max "
+                  f"{sp[-1]:.3e}")
     log(f"{what}, relative L2 per parameter ({len(rows)}): kernels median "
         f"{rk[len(rk) // 2]:.3e} max {rk[-1]:.3e}; plain median "
-        f"{rp[len(rp) // 2]:.3e} max {rp[-1]:.3e}"
+        f"{rp[len(rp) // 2]:.3e} max {rp[-1]:.3e}{spread}"
         + ("" if all_params is None else
            f"; all parameters together: kernels "
-           f"{all_params['kernels']:.3e}, plain {all_params['plain']:.3e}")
-        + f"; gate kernels <= 2 x plain + {floor:.3e}, closest "
-        f"{worst['name']} ({worst['rel_kernels']:.3e} against the limit "
-        f"{2 * worst['rel_plain'] + floor:.3e})")
+           f"{all_params['kernels']:.3e}, plain {all_params['plain']:.3e}"
+           + (f", order spread {all_params['spread']:.3e}"
+              if "spread" in all_params else "")
+           + f" (limit {limit(all_params, 'plain'):.3e})")
+        + f"; gate kernels <= 2 x {'order spread' if by_spread else 'plain'}"
+        f" + {floor:.3e}, closest {worst['name']} ({worst['rel_kernels']:.3e}"
+        f" against the limit {limit(worst):.3e})")
     if bad or (all_params is not None and all_params["kernels"]
-               > 2 * all_params["plain"] + floor):
+               > limit(all_params, "plain")):
         raise GateTripped(f"{what}: gradient gate failed: {bad[:5]}, "
                           f"{all_params}")
     return floor
@@ -1408,12 +1676,17 @@ def check_blocks_backward(model, teacher, data, conf=FUSED):
     return res
 
 
-def check_step_grads(model, teacher, data, conf=FUSED):
+def check_step_grads(model, teacher, data, conf=FUSED, orders=None):
     """The whole step's parameter gradients through the kernels and through
     the plain versions, each against the reference (above
     GRAD_GATE_MIN_FLOOR) and against the composed model in fp64 on the
     card (the same weights, scales and batch; no bf16 stream; printed, and
-    the fp32 gate's reference), and against each other."""
+    the fp32 gate's reference), and against each other.  In bf16 the gate
+    allows each parameter 2 x its order spread: the largest distance from
+    the reference over the plain path and the plain path summed in
+    ORDER_CHUNKS chunks (`summed_in_chunks`).  `orders`: a dict that keeps
+    the chunked paths' gradients between calls on the same model, weights
+    and batch (they do not depend on the kernels)."""
     import torch
 
     def grads(m, t, x):
@@ -1442,14 +1715,15 @@ def check_step_grads(model, teacher, data, conf=FUSED):
         return [dict(name=n, rel_kernels=_rel(g_k[n], g),
                      rel_plain=_rel(g_p[n], g)) for n, g in gref.items()]
 
-    def together(gref):
+    def together(gref, paths=None):
         norm = float(sum(float(g.square().sum()) for g in gref.values())
                      ) ** 0.5
 
         def dist(g):
             return float(sum(float((g[n] - gref[n]).square().sum())
                              for n in gref)) ** 0.5 / norm
-        return {"kernels": dist(g_k), "plain": dist(g_p)}
+        return {k: dist(g) for k, g in
+                (paths or {"kernels": g_k, "plain": g_p}).items()}
 
     rkp = max(_rel(g_k[n], g_p[n]) for n in g_p)
     log(f"[train] whole-step gradients, kernels vs plain: largest relative "
@@ -1463,6 +1737,18 @@ def check_step_grads(model, teacher, data, conf=FUSED):
             f"median {rp[len(rp) // 2]:.3e}; all parameters together: "
             f"kernels {glob_64['kernels']:.3e}, plain {glob_64['plain']:.3e}")
     rows, glob = rows_against(g_r), together(g_r)
+    if bf16:
+        orders = {} if orders is None else orders
+        for j in ORDER_CHUNKS:
+            if j not in orders:
+                with plain_path(model), summed_in_chunks(j):
+                    orders[j] = grads(model, teacher, data["image"])
+        paths = [g_p] + [orders[j] for j in ORDER_CHUNKS]
+        for r in rows:
+            r["spread"] = max(_rel(g[r["name"]], g_r[r["name"]])
+                              for g in paths)
+        glob["spread"] = max(
+            together(g_r, {"kernels": g})["kernels"] for g in paths)
     floor = _grad_gate(
         "[train] whole-step gradients vs the "
         + ("rounded-once reference" if bf16 else "composed fp64 model"),
@@ -1519,6 +1805,37 @@ def k3_dlhs_fault(real):
     return k3
 
 
+# the slice the tiling faults hit: one 16-deep k16 step of a tensor-core
+# product (K4's contraction; K3's keys of one head)
+FAULT_K0, FAULT_HEAD = 16, 1
+
+
+def k4_slice_fault(real):
+    """K4 with one 16-deep slice of the contraction left out, the size of a
+    tiling bug on the tensor cores: y - x[:, k0:k0+16] @ Q(W)[k0:k0+16],
+    the slice from the plain version."""
+    from ofq_tpu_torch.ops import pallas_statsq as ps
+
+    def k4(x2, w, s, n_levels):
+        y = real(x2, w, s, n_levels)
+        sl = slice(FAULT_K0, FAULT_K0 + 16)
+        part = ps.pallas_statsq_fwd_reference(
+            x2[:, sl].contiguous(), w[sl].contiguous(), s, n_levels)
+        return (y.float() - part.float()).to(y.dtype)
+    return k4
+
+
+def k3_dv_slice_fault(real):
+    """K3 with dv zeroed over one 16-key slice of one head, the size of a
+    tiling bug on the tensor cores."""
+    def k3(*args):
+        dlhs, drhs, dv, ds = real(*args)
+        dv = dv.clone()
+        dv[:, FAULT_K0:FAULT_K0 + 16, FAULT_HEAD] = 0
+        return dlhs, drhs, dv, ds
+    return k3
+
+
 def _tripped(check, *args):
     """Whether the gate `check(*args)` trips, and its message."""
     try:
@@ -1561,7 +1878,9 @@ def phase_gate_selfcheck(dev, name="deit_small_distilled_patch16_224",
         if not ok:
             failed.append((fault, gate))
 
-    def serving(conf, fault_site, fault, label, gates):
+    def serving(conf, fault_site, faults):
+        """`faults`: (fault, label, gates) each, injected at `fault_site`
+        of one model of `conf`."""
         model, images, rng = build_served(dev, conf, name, policy, batch)
         pred = Predictor(model, batch_size=batch,
                          img_size=model.cfg.img_size, device=dev)
@@ -1569,27 +1888,40 @@ def phase_gate_selfcheck(dev, name="deit_small_distilled_patch16_224",
             np.float32) for _ in range(CMP_BATCHES - 1)]
         checks = {"block gate": (check_blocks, model, images, dev, conf),
                   "top-1 gate": (check_top1, pred, batches, conf)}
-        for gate in checks:
-            with injected(*fault_site, fault):
-                record(label, gate, *_tripped(*checks[gate]),
-                       must=gates[gate])
+        for fault, label, gates in faults:
+            for gate in checks:
+                with injected(*fault_site, fault):
+                    record(label, gate, *_tripped(*checks[gate]),
+                           must=gates[gate])
         for gate, args in checks.items():
             record("unmodified kernels", f"{gate} ({_describe(conf)})",
                    *_tripped(*args), must=False)
 
-    serving(PALLAS, (nn_linear, "pallas_statsq_fwd"), k4_column_fault,
-            "K4 with one output column moved by one weight level",
-            {"block gate": True, "top-1 gate": True})
-    serving(FUSED_BF16, (nn_attention, "qkr_attention_fwd"),
-            k2_scale_row_fault, "K2 reading the scale of row n + 1",
-            {"block gate": True, "top-1 gate": True})
+    serving(PALLAS, (nn_linear, "pallas_statsq_fwd"), [
+        (k4_column_fault,
+         "K4 with one output column moved by one weight level",
+         {"block gate": True, "top-1 gate": True}),
+        (k4_slice_fault,
+         f"K4 with the contraction's slice {FAULT_K0}:{FAULT_K0 + 16} left "
+         f"out", {"block gate": True, "top-1 gate": None})])
+    serving(FUSED_BF16, (nn_attention, "qkr_attention_fwd"), [
+        (k2_scale_row_fault, "K2 reading the scale of row n + 1",
+         {"block gate": True, "top-1 gate": True})])
     student, teacher, data = build_trained(dev, FUSED_BF16, name, batch)
+    # the chunked plain paths' gradients, computed once for this student
+    orders = {}
     checks = {"block backward gate": check_blocks_backward,
-              "whole-step gradient gate": check_step_grads}
+              "whole-step gradient gate": lambda *a: check_step_grads(
+                  *a, orders=orders)}
     for fault, label, gates in (
             (k3_ds_fault, "K3 with ds doubled",
              {"block backward gate": True, "whole-step gradient gate": True}),
             (k3_dlhs_fault, "K3 with dlhs doubled",
+             {"block backward gate": True,
+              "whole-step gradient gate": None}),
+            (k3_dv_slice_fault,
+             f"K3 with dv zeroed over keys {FAULT_K0}:{FAULT_K0 + 16} of "
+             f"head {FAULT_HEAD}",
              {"block backward gate": True,
               "whole-step gradient gate": None})):
         for gate, check in checks.items():
@@ -1867,27 +2199,46 @@ def phase_profile(fn, what, n_calls=3):
 
 
 def compare_baseline(full):
-    """K1's time summed over the 36 launches of a fused step, the current
-    kernel's and the earlier tree's (--baseline), each through its C
-    launcher alone into a preallocated output, and the ratio."""
-    counts = full["train"]["launch_shapes"]
-    rows = [r for r in full["k1"] if r["main_path"]]
-    n = [counts.get(str((r["M"], r["K"], r["N"])), 0) for r in rows]
-    cur = sum(c * r["raw_ms"] for c, r in zip(n, rows))
-    old = sum(c * r["baseline_raw_ms"] for c, r in zip(n, rows))
-    out = dict(launches=sum(n), ms=cur, baseline_ms=old,
-               speedup=old / cur if cur else None)
-    log(f"[versus earlier] K1, {out['launches']} launches of a fused DeiT-S "
-        f"train step: {cur:.3f} ms now, {old:.3f} ms earlier (launchers "
-        f"alone), {out['speedup']:.2f}x")
+    """The redesigned kernels' times summed over their launches on a path,
+    the current launchers' and the earlier tree's (--baseline), each
+    launcher alone into preallocated outputs, and the ratio: K1 over a
+    fused step's 36, K4-bf16 over a pallas step's 36 and a Swin-T
+    forward's 39, K3-bf16 over a fused bf16 step's 12."""
+    out = {}
+    sums = (
+        ("K1, fused DeiT-S train step", full["k1"],
+         full["train"]["launch_shapes"], lambda r: (r["M"], r["K"], r["N"])),
+        ("K4-bf16, pallas DeiT-S train step", full["k4"],
+         full["train_pallas"]["launch_shapes"],
+         lambda r: (r["M"], r["K"], r["N"])),
+        ("K4-bf16, Swin-T W2A2 QKR forward", full["k4_swin"],
+         full["swin_pallas"]["launch_shapes"],
+         lambda r: (r["M"], r["K"], r["N"])),
+        ("K3-bf16, fused bf16 DeiT-S train step",
+         [r for r in full["k3"] if r["dtype"] == "bfloat16"],
+         {"main": full["train_fused_bf16"]["launches"]["qkr_attention_bwd"]},
+         lambda r: "main"))
+    for what, results, counts, key in sums:
+        rows = [r for r in results if r["main_path"]
+                and r.get("baseline_raw_ms") is not None]
+        n = [counts.get(str(key(r)), counts.get(key(r), 0)) for r in rows]
+        cur = sum(c * r["raw_ms"] for c, r in zip(n, rows))
+        old = sum(c * r["baseline_raw_ms"] for c, r in zip(n, rows))
+        out[what] = dict(launches=sum(n), ms=cur, baseline_ms=old,
+                         speedup=old / cur if cur else None)
+        log(f"[versus earlier] {what}, {sum(n)} launches: {cur:.3f} ms now, "
+            f"{old:.3f} ms earlier (launchers alone), "
+            f"{old / cur if cur else float('nan'):.2f}x")
     return out
 
 
-def _kernel_row(name, src, launches, r, **extra):
+def _kernel_row(name, src, launches, r, library_ms=None, **extra):
+    """A kernel's entry in the result line; `library_ms`: the time of one
+    PyTorch call that computes the same function, where there is one."""
     return dict(name=name, route="cuda", source=src[0], replaces=src[1],
                 launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                bound_by=r["bound_by"], library_ms=None, **extra)
+                bound_by=r["bound_by"], library_ms=library_ms, **extra)
 
 
 def main() -> int:
@@ -1909,7 +2260,7 @@ def main() -> int:
     full = dict(card=card, build_s=build["seconds"], build=build)
     full["k1"] = phase_k1(dev, n_tok, base=base)
     full["k2"] = phase_k2(dev, n_tok)
-    full["k3"] = phase_k3(dev, n_tok)
+    full["k3"] = phase_k3(dev, n_tok, base=base)
     full["slice"] = phase_slice(dev, FUSED, deit, w2a2_qkr_policy(12))
     torch.cuda.empty_cache()
     full["train"] = phase_train(dev, FUSED)
@@ -1919,7 +2270,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     full["train_fused_bf16"] = phase_train(dev, FUSED_BF16)
     torch.cuda.empty_cache()
-    full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok))
+    full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok), base=base)
     full["k5"] = phase_k45(dev, "K5", _k45_cases(BATCH * n_tok))
     torch.cuda.empty_cache()
     full["slice_pallas"] = phase_slice(dev, PALLAS, deit, w2a2_qkr_policy(12))
@@ -1934,7 +2285,7 @@ def main() -> int:
     full["swin_float"] = phase_swin_float(dev)
     torch.cuda.empty_cache()
     full["k4_swin"] = phase_k45(dev, "K4", _swin_k4_cases(),
-                                dtypes=(torch.bfloat16,))
+                                dtypes=(torch.bfloat16,), base=base)
     torch.cuda.empty_cache()
     sp = full["swin_pallas"] = phase_slice(dev, PALLAS, "swin_t",
                                            w2a2_qkr_swin_policy(),
@@ -1981,7 +2332,8 @@ def main() -> int:
                     srcs[key.upper()],
                     (tr_bf16 if bf16 else tr)["launches"][fn], r,
                     path=f"fused {'bf16' if bf16 else 'fp32'} train step",
-                    design=("CUDA cores, bf16 operands widened to fp32"
+                    design=(r["design"] if key == "k3" else
+                            "CUDA cores, bf16 operands widened to fp32"
                             if bf16 else "CUDA cores, fp32"),
                     yardstick_sdpa_ms=r["sdpa_ms" if key == "k2"
                                         else "sdpa_bwd_ms"]))
@@ -2027,7 +2379,8 @@ def main() -> int:
                     if c["name"] == r["name"]])),
                 path="the lab's run and the q, k, v of the float Swin-T's "
                      "two stage-0 blocks, captured with hooks",
-                yardstick_sdpa_ms=r["sdpa_ms"],
+                # softmax(q k^T d^-1/2) v: SDPA computes the same function
+                library_ms=r["sdpa_ms"],
                 design="CUDA cores, one warp per query row"))
     if any(k["launches"] <= 0 for k in kernels if k["path"] is not None):
         raise AssertionError(f"a kernel of the path was not launched: "

@@ -48,8 +48,10 @@
 //      dscores . rhs, the heads of a shared lhs summed in the block in
 //      order h = 0..H-1;
 //   D  ds[n] = sum over (b, h) of the partials, in a fixed order.
-// Every product is a shared-memory tiled loop on the CUDA cores, 4 x 4
-// outputs per thread; runs are repeatable (no float atomics).
+// In fp32 every product is a shared-memory tiled loop on the CUDA cores,
+// 4 x 4 outputs per thread.  In bf16 pass A's dpq = g . v^T and passes B
+// and C run on the tensor cores (see below); pass A's score tile stays
+// K2's loop in both.  Runs are repeatable (no float atomics).
 //
 // What bounds it on an H100: at DeiT-S QKR (N = 198, H = 6, K = 384, D = 64)
 // the work is 2*B*H*N^2*(3K + 2D) operations against 4*B*N*(2K + 2*H*K +
@@ -61,16 +63,32 @@
 // __expf; every multiply, divide and subtract that feeds a rounding or the
 // in-range test spelled with the __f*_rn intrinsics; no --use_fast_math.
 //
-// Shared memory holds fp32 in both stream dtypes (operands are widened as
-// they are stored), so pass A's dynamic shared memory depends on N only.
-// In bf16 the bytes halve and the scratch traffic with them; the products
-// still run as fp32 FMAs on the CUDA cores (a tensor-core form of the bf16
-// products is a later redesign).
+// Pass A's score tile and fp32 tiles live in fp32 shared memory in both
+// stream dtypes, so its dynamic shared memory depends on N only.
+//
+// bf16 on the tensor cores.  Every operand of dpq, dv, drhs and dlhs is
+// exact in bf16 (g, v, lhs, rhs as stored; pq and dscores already rounded
+// to bf16 where JAX rounds them, and kept so in the scratch), so
+// `mma.sync` m16n8k16 bf16 x bf16 -> fp32 computes the plain version's
+// terms exactly and only the order of the fp32 sums differs.  Each block
+// computes a 64 x 64 output tile, eight warps of 16 x 32; the contraction
+// goes in chunks of 32, each operand's chunk copied to shared memory as
+// bf16 (16-byte loads where a row chunk is whole and aligned; zero past N,
+// K or D: a ragged N = 198 is zero-filled) and read into fragments with
+// `ldmatrix` (`.trans` where the contraction runs down the stored rows:
+// dv's pq^T, drhs's dscores^T, and the g, lhs and rhs operands of B and
+// C).  The bf16 scratch rows are padded to a multiple of 8 (ldp) so that
+// they load in 16-byte chunks.  Pass A's score tile stays K2-bf16's loop
+// (tile_nt), so the backward's p is the forward's p bit for bit; it moves
+// to the tensor cores together with K2-bf16's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -165,6 +183,144 @@ __device__ __forceinline__ void tile_nt(const T* __restrict__ a, size_t a_ld,
   }
 }
 
+// ---- bf16 on the tensor cores (mma.sync m16n8k16, fp32 sums)
+using bf16 = __nv_bfloat16;
+constexpr int TC_K = 32;       // contraction chunk
+constexpr int LD_ROW = 40;     // a [rows][32] chunk's row stride (80 B)
+constexpr int LD_COL = 72;     // a [32][64] chunk's row stride (144 B)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ROWS x COLS (COLS a multiple of 8) of a row-major bf16 matrix whose rows
+// are ld apart, from (r0, c0), into dst (rows lds apart); zero at rows
+// >= rlim and columns >= clim
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(bf16* dst, int lds,
+                                          const bf16* __restrict__ src,
+                                          size_t ld, int r0, int c0,
+                                          int rlim, int clim) {
+  constexpr int CH = COLS / 8;
+  for (int e = threadIdx.x; e < ROWS * CH; e += THREADS) {
+    const int r = e / CH, c = (e % CH) * 8;
+    const int gr = r0 + r, gc = c0 + c;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (gr < rlim && gc < clim) {
+      const bf16* p = src + (size_t)gr * ld + gc;
+      if (gc + 8 <= clim && ((uintptr_t)p & 15) == 0) {
+        v = *reinterpret_cast<const uint4*>(p);
+      } else {
+        const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+        uint32_t w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t lo = gc + 2 * j < clim ? q[2 * j] : 0u;
+          const uint32_t hi = gc + 2 * j + 1 < clim ? q[2 * j + 1] : 0u;
+          w[j] = lo | (hi << 16);
+        }
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * lds + c) = v;
+  }
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  if (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p)));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, fp32) += a (16 x 16) b (16 x 8), bf16 operands
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// This warp's 16 x 32 part (rows wr.., columns wc..) of a 64 x 64 tile:
+// acc[t] (columns wc + 8t ..) += A (64 x 32) B (32 x 64) over one chunk.
+// A is stored [row][k] (A_KMAJOR false, rows lda apart) or [k][row]
+// (true); B [col][k] (B_KMAJOR false) or [k][col] (true).  acc[t][0..1]:
+// row wr + lane / 4, columns wc + 8t + 2 (lane % 4) + 0..1; acc[t][2..3]:
+// row + 8.
+template <bool A_KMAJOR, bool B_KMAJOR>
+__device__ __forceinline__ void warp_mma(float (&acc)[4][4], const bf16* As,
+                                         int lda, const bf16* Bs, int ldb,
+                                         int wr, int wc) {
+  const int lane = threadIdx.x % 32, i = lane / 8, j = lane % 8;
+#pragma unroll
+  for (int kk = 0; kk < TC_K; kk += 16) {
+    uint32_t a[4];
+    ldsm_x4<A_KMAJOR>(
+        a, A_KMAJOR ? As + (kk + j + (i / 2) * 8) * lda + wr + (i % 2) * 8
+                    : As + (wr + lane % 16) * lda + kk + (lane / 16) * 8);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int n0 = wc + 16 * p;
+      uint32_t b[4];
+      ldsm_x4<B_KMAJOR>(
+          b, B_KMAJOR ? Bs + (kk + (i % 2) * 8 + j) * ldb + n0 + (i / 2) * 8
+                      : Bs + (n0 + (i / 2) * 8 + j) * ldb + kk + (i % 2) * 8);
+      mma16816(acc[2 * p], a, b[0], b[1]);
+      mma16816(acc[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// f(row, col, value) over this warp's accumulators (rows and columns of
+// the 64 x 64 tile)
+template <class F>
+__device__ __forceinline__ void for_each_acc(const float (&acc)[4][4],
+                                             int wr, int wc, F f) {
+  const int lane = threadIdx.x % 32;
+  const int r = wr + lane / 4, c = wc + 2 * (lane % 4);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    f(r, c + 8 * t, acc[t][0]);
+    f(r, c + 8 * t + 1, acc[t][1]);
+    f(r + 8, c + 8 * t, acc[t][2]);
+    f(r + 8, c + 8 * t + 1, acc[t][3]);
+  }
+}
+
+// out[r * ld_o + m] = fp32(sum_d g[q0 + r, d] * v[m, d]) for the TQ rows of
+// this block and every m < N (pass A's dpq in bf16); As, Bs: 64 x LD_ROW
+// bf16 each
+__device__ __forceinline__ void dpq_tc(const bf16* __restrict__ g,
+                                       const bf16* __restrict__ v, size_t ld,
+                                       int q0, int N, int D, float* out,
+                                       int ld_o, bf16* As, bf16* Bs) {
+  const int warp = threadIdx.x / 32;
+  const int wr = (warp % 4) * 16, wc = (warp / 4) * 32;
+  for (int m0 = 0; m0 < N; m0 += TK) {
+    float acc[4][4] = {};
+    for (int d0 = 0; d0 < D; d0 += TC_K) {
+      load_tile<TQ, TC_K>(As, LD_ROW, g, ld, q0, d0, N, D);
+      load_tile<TK, TC_K>(Bs, LD_ROW, v, ld, m0, d0, N, D);
+      __syncthreads();
+      warp_mma<false, false>(acc, As, LD_ROW, Bs, LD_ROW, wr, wc);
+      __syncthreads();
+    }
+    for_each_acc(acc, wr, wc, [&](int r, int c, float x) {
+      if (m0 + c < N) out[r * ld_o + m0 + c] = x;
+    });
+  }
+}
+
 // Pass A: per (query tile, head, batch row).
 template <typename T>
 __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
@@ -172,7 +328,7 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
     const T* __restrict__ v, const float* __restrict__ s,
     const T* __restrict__ g, T* __restrict__ pq_out, T* __restrict__ dsc_out,
     float* __restrict__ ds_part, int N, int H, int K, int D, int ld_s,
-    float thd_pos, float sm_scale, int quantize) {
+    int ldp, float thd_pos, float sm_scale, int quantize) {
   extern __shared__ float smem[];
   float* S = smem;                  // [TQ][ld_s] scores, then p
   float* P = S + TQ * ld_s;         // [TQ][ld_s] dpq, then dp
@@ -189,12 +345,18 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
   const T* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
 
   tile_nt(lhs_b, lhs_row, rhs_b, (size_t)H * K, q0, N, K, sm_scale, S, ld_s, As, Bs);
-  tile_nt(g_b, (size_t)H * D, v_b, (size_t)H * D, q0, N, D, 1.0f, P, ld_s, As, Bs);
+  if constexpr (std::is_same<T, bf16>::value) {
+    // the As / Bs region (2 x 32 x 65 floats) holds the two bf16 chunks
+    bf16* at = reinterpret_cast<bf16*>(As);
+    dpq_tc(g_b, v_b, (size_t)H * D, q0, N, D, P, ld_s, at, at + TQ * LD_ROW);
+  } else {
+    tile_nt(g_b, (size_t)H * D, v_b, (size_t)H * D, q0, N, D, 1.0f, P, ld_s, As, Bs);
+  }
   __syncthreads();
 
   const size_t unit = (size_t)b * H + h;
-  T* pq_u = pq_out + unit * N * N;
-  T* dsc_u = dsc_out + unit * N * N;
+  T* pq_u = pq_out + unit * N * ldp;
+  T* dsc_u = dsc_out + unit * N * ldp;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int r = warp; r < TQ; r += WARPS) {
@@ -231,13 +393,13 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
         ds_acc = __fmaf_rn(t, dpq, ds_acc);
         dp = in ? dpq : 0.0f;
       }
-      st(pq_u + (size_t)n * N + m, pq);
+      st(pq_u + (size_t)n * ldp + m, pq);
       drow[m] = dp;
       dot = __fmaf_rn(dp, p, dot);
     }
     dot = warp_sum(dot);
     for (int m = lane; m < N; m += 32) {
-      st(dsc_u + (size_t)n * N + m,
+      st(dsc_u + (size_t)n * ldp + m,
          __fmul_rn(__fmul_rn(row[m], __fsub_rn(drow[m], dot)), sm_scale));
     }
     ds_acc = warp_sum(ds_acc);
@@ -419,6 +581,113 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_dlhs_kernel(
   }
 }
 
+// Pass B in bf16 on the tensor cores: out[m, c] = sum_n x[n, m] * y[n, c]
+// for 64 keys m and 64 columns c, as qkr_bwd_cols_kernel (column chunks
+// [0, ceil(D/TD)) give dv, the rest drhs); x's rows (the scratch) are ldp
+// apart.  A = x^T and B = y, both stored with the contraction down the
+// rows: ldmatrix .trans for both.
+__global__ void __launch_bounds__(THREADS) qkr_bwd_cols_tc_kernel(
+    const bf16* __restrict__ pq, const bf16* __restrict__ dsc,
+    const bf16* __restrict__ g, const bf16* __restrict__ lhs,
+    int lhs_per_head, bf16* __restrict__ dv, bf16* __restrict__ drhs, int N,
+    int H, int K, int D, int ldp) {
+  __shared__ __align__(16) bf16 As[TC_K * LD_COL];
+  __shared__ __align__(16) bf16 Bs[TC_K * LD_COL];
+  const int m0 = blockIdx.x * TK;
+  const int unit = blockIdx.z;
+  const int b = unit / H;
+  const int h = unit % H;
+  const int nd = (D + TD - 1) / TD;
+
+  const bf16* x;
+  const bf16* y;
+  size_t ldy, ld_out;
+  int ncols, c0;
+  bf16* out;
+  if ((int)blockIdx.y < nd) {
+    x = pq + (size_t)unit * N * ldp;
+    y = g + (size_t)b * N * H * D + (size_t)h * D;
+    ldy = (size_t)H * D;
+    ncols = D;
+    c0 = blockIdx.y * TD;
+    out = dv + (size_t)b * N * H * D + (size_t)h * D;
+    ld_out = (size_t)H * D;
+  } else {
+    const size_t lhs_row = lhs_per_head ? (size_t)H * K : (size_t)K;
+    x = dsc + (size_t)unit * N * ldp;
+    y = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
+    ldy = lhs_row;
+    ncols = K;
+    c0 = (blockIdx.y - nd) * TD;
+    out = drhs + (size_t)b * N * H * K + (size_t)h * K;
+    ld_out = (size_t)H * K;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int wr = (warp % 4) * 16, wc = (warp / 4) * 32;
+  float acc[4][4] = {};
+  for (int n0 = 0; n0 < N; n0 += TC_K) {
+    load_tile<TC_K, TK>(As, LD_COL, x, (size_t)ldp, n0, m0, N, N);
+    load_tile<TC_K, TD>(Bs, LD_COL, y, ldy, n0, c0, N, ncols);
+    __syncthreads();
+    warp_mma<true, true>(acc, As, LD_COL, Bs, LD_COL, wr, wc);
+    __syncthreads();
+  }
+  for_each_acc(acc, wr, wc, [&](int r, int c, float v) {
+    const int m = m0 + r, cc = c0 + c;
+    if (m < N && cc < ncols) out[(size_t)m * ld_out + cc] = __float2bfloat16_rn(v);
+  });
+}
+
+// Pass C in bf16 on the tensor cores: dlhs[n, c] = sum_h sum_m
+// dscores[b, h, n, m] * rhs[b, m, h, c], as qkr_bwd_dlhs_kernel (a shared
+// lhs sums h = 0..H-1 in fp32 in this block, then rounds once).  A =
+// dscores stored [n][m] (ldmatrix), B = rhs stored [m][c] (.trans).
+__global__ void __launch_bounds__(THREADS) qkr_bwd_dlhs_tc_kernel(
+    const bf16* __restrict__ dsc, const bf16* __restrict__ rhs,
+    int lhs_per_head, bf16* __restrict__ dlhs, int N, int H, int K,
+    int ldp) {
+  __shared__ __align__(16) bf16 As[TQ * LD_ROW];
+  __shared__ __align__(16) bf16 Bs[TC_K * LD_COL];
+  const int q0 = blockIdx.x * TQ;
+  const int c0 = blockIdx.y * TD;
+  int b, h0, h1;
+  bf16* out;
+  size_t ld_out;
+  if (lhs_per_head) {
+    b = blockIdx.z / H;
+    h0 = blockIdx.z % H;
+    h1 = h0 + 1;
+    out = dlhs + (size_t)b * N * H * K + (size_t)h0 * K;
+    ld_out = (size_t)H * K;
+  } else {
+    b = blockIdx.z;
+    h0 = 0;
+    h1 = H;
+    out = dlhs + (size_t)b * N * K;
+    ld_out = (size_t)K;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int wr = (warp % 4) * 16, wc = (warp / 4) * 32;
+  float acc[4][4] = {};
+  for (int h = h0; h < h1; ++h) {
+    const bf16* x = dsc + ((size_t)b * H + h) * N * ldp;
+    const bf16* y = rhs + (size_t)b * N * H * K + (size_t)h * K;
+    for (int m0 = 0; m0 < N; m0 += TC_K) {
+      load_tile<TQ, TC_K>(As, LD_ROW, x, (size_t)ldp, q0, m0, N, N);
+      load_tile<TC_K, TD>(Bs, LD_COL, y, (size_t)H * K, m0, c0, N, K);
+      __syncthreads();
+      warp_mma<false, true>(acc, As, LD_ROW, Bs, LD_COL, wr, wc);
+      __syncthreads();
+    }
+  }
+  for_each_acc(acc, wr, wc, [&](int r, int c, float v) {
+    const int n = q0 + r, cc = c0 + c;
+    if (n < N && cc < K) out[(size_t)n * ld_out + cc] = __float2bfloat16_rn(v);
+  });
+}
+
 // Pass D: ds[n] = sum over units (b, h) in order of the row partials.
 __global__ void qkr_bwd_ds_kernel(const float* __restrict__ ds_part,
                                   float* __restrict__ ds, int units, int N) {
@@ -435,6 +704,14 @@ long long bwd_smem_bytes(int N) {
          (2LL * TQ * ld_s + KC * (TQ + 1) + KC * (TK + 1));
 }
 
+// the scratch's row stride: N in fp32 (the CUDA-core passes read rows N
+// apart), N rounded up to 8 in bf16 (16-byte rows for the tensor-core
+// passes' loads)
+template <typename T>
+int scratch_ld(int N) {
+  return std::is_same<T, bf16>::value ? (N + 7) / 8 * 8 : N;
+}
+
 template <typename T>
 int launch_bwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
                const float* s, const T* g, T* dlhs, T* drhs, T* dv, float* ds,
@@ -443,6 +720,7 @@ int launch_bwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
                int quantize, void* stream) {
   cudaStream_t strm = (cudaStream_t)stream;
   const int ld_s = ((N + TK - 1) / TK) * TK + 1;
+  const int ldp = scratch_ld<T>(N);
   const size_t smem = (size_t)bwd_smem_bytes(N);
   cudaError_t err = cudaFuncSetAttribute(
       qkr_bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -451,19 +729,29 @@ int launch_bwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
   const int q_tiles = (N + TQ - 1) / TQ;
   qkr_bwd_rows_kernel<T><<<dim3(q_tiles, H, B), THREADS, smem, strm>>>(
       lhs, lhs_per_head, rhs, v, s, g, pq_scratch, dsc_scratch, ds_part, N, H,
-      K, D, ld_s, thd_pos, sm_scale, quantize);
+      K, D, ld_s, ldp, thd_pos, sm_scale, quantize);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nd = (D + TD - 1) / TD;
   const int nk = (K + TD - 1) / TD;
-  qkr_bwd_cols_kernel<T><<<dim3((N + TK - 1) / TK, nd + nk, B * H), THREADS,
-                           0, strm>>>(pq_scratch, dsc_scratch, g, lhs,
-                                    lhs_per_head, dv, drhs, N, H, K, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  qkr_bwd_dlhs_kernel<T><<<dim3(q_tiles, nk, lhs_per_head ? B * H : B),
-                           THREADS, 0, strm>>>(dsc_scratch, rhs, lhs_per_head,
-                                             dlhs, N, H, K);
+  const dim3 cols_grid((N + TK - 1) / TK, nd + nk, B * H);
+  const dim3 dlhs_grid(q_tiles, nk, lhs_per_head ? B * H : B);
+  if constexpr (std::is_same<T, bf16>::value) {
+    qkr_bwd_cols_tc_kernel<<<cols_grid, THREADS, 0, strm>>>(
+        pq_scratch, dsc_scratch, g, lhs, lhs_per_head, dv, drhs, N, H, K, D,
+        ldp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    qkr_bwd_dlhs_tc_kernel<<<dlhs_grid, THREADS, 0, strm>>>(
+        dsc_scratch, rhs, lhs_per_head, dlhs, N, H, K, ldp);
+  } else {
+    qkr_bwd_cols_kernel<T><<<cols_grid, THREADS, 0, strm>>>(
+        pq_scratch, dsc_scratch, g, lhs, lhs_per_head, dv, drhs, N, H, K, D);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    qkr_bwd_dlhs_kernel<T><<<dlhs_grid, THREADS, 0, strm>>>(
+        dsc_scratch, rhs, lhs_per_head, dlhs, N, H, K);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   qkr_bwd_ds_kernel<<<(N + 255) / 256, 256, 0, strm>>>(ds_part, ds, B * H, N);
@@ -477,6 +765,12 @@ int launch_bwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
 // launching.
 extern "C" long long ofq_qkr_attention_bwd_smem_bytes(int N) {
   return bwd_smem_bytes(N);
+}
+
+// The row stride of the scratch in the stream dtype (is_bf16 != 0 for
+// bf16): the wrapper allocates B*H*N rows of it.
+extern "C" int ofq_qkr_attention_bwd_scratch_ld(int N, int is_bf16) {
+  return is_bf16 ? scratch_ld<__nv_bfloat16>(N) : scratch_ld<float>(N);
 }
 
 // pq_scratch and dsc_scratch hold B*H*N*N elements of the stream dtype
@@ -494,7 +788,8 @@ extern "C" int ofq_qkr_attention_bwd(
 }
 
 // The bf16 stream: lhs, rhs, v, g, the cotangents and the scratch bf16; s,
-// ds and ds_part fp32.
+// ds and ds_part fp32.  The scratch holds B*H*N*ldp elements each, ldp = N
+// rounded up to 8 (ofq_qkr_attention_bwd_scratch_ld).
 extern "C" int ofq_qkr_attention_bwd_bf16(
     const __nv_bfloat16* lhs, int lhs_per_head, const __nv_bfloat16* rhs,
     const __nv_bfloat16* v, const float* s, const __nv_bfloat16* g,

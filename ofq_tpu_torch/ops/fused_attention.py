@@ -25,7 +25,9 @@ Two kernels, each with its plain PyTorch version beside it:
   * `qkr_attention_fwd` (K2, `csrc/fused_attention.cu`);
   * `qkr_attention_bwd` (K3, `csrc/fused_attention_bwd.cu`), the custom VJP:
     it recomputes the scores from the residuals (lhs, rhs, v, s), so the
-    (B, H, N, N) probabilities are never kept for the backward.
+    (B, H, N, N) probabilities are never kept for the backward; in bf16
+    its products other than the score tile run on the tensor cores
+    (`mma.sync`, exact bf16 operands, fp32 sums).
 A wrapper launches its kernel on CUDA tensors and runs the plain version on
 CPU tensors.  `quantized_attention_core` reaches both through `_AttnCore`,
 a `torch.autograd.Function`; a wrapper called directly on a tensor that
@@ -240,8 +242,13 @@ def _launch_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize):
     drhs = torch.empty((B, N, H, K), **st)
     dv = torch.empty((B, N, H, d), **st)
     ds = torch.empty((N,), **f32)
-    pq_scratch = torch.empty((B, H, N, N), **st)
-    dsc_scratch = torch.empty((B, H, N, N), **st)
+    # rows N apart in fp32; in bf16 a multiple of 8, for 16-byte loads
+    ld_fn = lib.ofq_qkr_attention_bwd_scratch_ld
+    ld_fn.restype = ctypes.c_int
+    ld_fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    ldp = ld_fn(N, int(dt == torch.bfloat16))
+    pq_scratch = torch.empty((B, H, N, ldp), **st)
+    dsc_scratch = torch.empty((B, H, N, ldp), **st)
     ds_part = torch.empty((B, H, N), **f32)
     with torch.cuda.device(rhs.device):
         stream = torch.cuda.current_stream().cuda_stream
