@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
     python3 chip_smoke.py --profile  # also: device time by kernel (torch.profiler)
     python3 chip_smoke.py --baseline DIR
-        # also: K1's, K4's and K3's sources as an earlier tree DIR has
-        # them (a `git archive` of that commit), built and timed beside the
-        # current ones at the same shapes in the same run
+        # also: K1's and K3's sources as an earlier tree DIR has them (a
+        # `git archive` of that commit), built and timed beside the current
+        # ones at the same shapes in the same run
 
 Phases (any failure raises and the script exits non-zero):
   1. device: require CUDA and `nvidia-smi`'s name and power limit of the
@@ -14,9 +14,9 @@ Phases (any failure raises and the script exits non-zero):
   2. build: compile every CUDA kernel from ofq_tpu_torch/csrc/ (one nvcc
      per source, in parallel); print ptxas's report (registers, spills) of
      K1's, K4's and K3's sources and the tensor-core instructions of each
-     kernel that runs its products there (TC_KERNELS: HGMMA, wgmma, in K1
-     and K4-bf16; HMMA, mma.sync, in K3-bf16's passes), read from the
-     built library with cuobjdump, and fail if one has none;
+     kernel that runs its products there (TC_KERNELS: HGMMA, wgmma, in K1;
+     HMMA, mma.sync, in K3-bf16's passes), read from the built library
+     with cuobjdump, and fail if one has none;
   3. K1, the fused QLinear kernel (wgmma on the integer codes), against its
      plain PyTorch version on the card at the DeiT-S shapes, M = 64 * 198
      tokens (proj, fc1, fc2 at W2A2, one W4A4, one ragged case), with
@@ -43,10 +43,9 @@ Phases (any failure raises and the script exits non-zero):
   5b, 6b. the same serving and train step with the fused kernels in the
      bf16 stream (FUSED_BF16: bench.py's `matmul_impl="fused"` bf16 row,
      fp32 masters, bf16 teacher): the same launch counts, the bf16 gates;
-  7. K4, the StatsQ matmul kernel (bf16: a codes pass and a wgmma
-     product fed by TMA), and K5, its dx product, against their plain
-     versions in fp32 and bf16 at the DeiT-S shapes (proj, fc1, fc2 with
-     M = 64 * 198) and one ragged shape, with StatsQ ties built in;
+  7. K4, the StatsQ matmul kernel, and K5, its dx product, against their
+     plain versions in fp32 and bf16 at the DeiT-S shapes (proj, fc1, fc2
+     with M = 64 * 198) and one ragged shape, with StatsQ ties built in;
   8. pallas serving: the same DeiT-S student with matmul_impl="pallas" in
      the bf16 stream (compute_dtype="bfloat16", the configuration of
      bench.py's `_rate(matmul_impl="pallas", compute_dtype="bfloat16")`)
@@ -93,12 +92,11 @@ kernel path no farther from it than the plain path allows (BLOCK_ROWS and
 what follows it), and each whole-step gradient no farther than twice its
 order spread (the plain path summed in other legitimate fp32 orders,
 `summed_in_chunks`) plus a floor.
-With --baseline, phases 3, 4b, 7 and 12 also time the earlier tree's K1,
-K3-bf16 and K4-bf16 at the same shapes (both through their C launchers
-alone), and the run ends with the sums over each kernel's launches on
-its path.  The line before the last is a
-JSON object with every kernel's numbers (times in ms, CUDA events; bounds
-from the H100 SXM data sheet); the last line is
+With --baseline, phases 3 and 4b also time the earlier tree's K1 and
+K3-bf16 at the same shapes (both through their C launchers alone), and
+the run ends with the sums over each kernel's launches on its path.  The
+line before the last is a JSON object with every kernel's numbers (times
+in ms, CUDA events; bounds from the H100 SXM data sheet); the last line is
 {"ok": true, "device": {...}}.  Full results also go to
 chiprun_out/chip_smoke.json.
 """
@@ -196,7 +194,6 @@ REPORT_SOURCES = ("fused_qlinear", "pallas_statsq", "fused_attention_bwd")
 # (HGMMA: wgmma; HMMA: mma.sync)
 TC_KERNELS = {
     "fused_qlinear": [("_tc_kernel", "HGMMA")],
-    "pallas_statsq": [("product_kernel", "HGMMA")],
     "fused_attention_bwd": [("qkr_bwd_rows_kernelI13__nv_bfloat16", "HMMA"),
                             ("qkr_bwd_cols_tc_kernel", "HMMA"),
                             ("qkr_bwd_dlhs_tc_kernel", "HMMA")],
@@ -255,9 +252,8 @@ def phase_build():
                 ptxas={n: reports.get(n, "") for n in REPORT_SOURCES})
 
 
-# the sources that --baseline builds from the earlier tree: K1, K4 (and
-# K5), K3
-BASELINE_SOURCES = ("fused_qlinear", "pallas_statsq", "fused_attention_bwd")
+# the sources that --baseline builds from the earlier tree: K1, K3
+BASELINE_SOURCES = ("fused_qlinear", "fused_attention_bwd")
 
 
 def build_baseline(root):
@@ -315,41 +311,6 @@ def raw_k1(lib, args):
         err = fn(*call, stream)
         if err:
             raise RuntimeError(f"K1 launcher: CUDA error {err}")
-        return y
-    return run
-
-
-def raw_k4(lib, args, earlier):
-    """K4-bf16's C launcher in `lib` called straight on `args`
-    (pallas_statsq_fwd's, x bf16 with K a multiple of 8) into outputs
-    allocated once: the current tree's codes pass and wgmma product, or
-    (`earlier`) the earlier tree's one entry for both streams."""
-    import ctypes
-    import torch
-    x2, w, s, n = args
-    M, K = x2.shape
-    N = w.shape[1]
-    y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    codes = torch.empty((N, K), dtype=torch.bfloat16, device=x2.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    if earlier:
-        fn = lib.ofq_pallas_statsq_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        call = [x2.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), M,
-                K, N, float(n), 1, stream]
-    else:
-        fn = lib.ofq_pallas_statsq_bf16_fwd
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
-        call = [x2.data_ptr(), K, w.data_ptr(), s.data_ptr(), y.data_ptr(),
-                codes.data_ptr(), M, K, N, float(n), stream]
-    fn.restype = ctypes.c_int
-
-    def run():
-        err = fn(*call)
-        if err:
-            raise RuntimeError(f"K4 launcher: CUDA error {err}")
         return y
     return run
 
@@ -779,24 +740,14 @@ def _swin_k4_cases(batch=BATCH):
     return cases
 
 
-# K5's kernel and K4's in the fp32 stream (one template, either stream)
+# K4's and K5's kernel (one template for both, in either stream)
 K45_DESIGN = "CUDA-core template, 64x64 tiles, fp32 FMAs"
 
 
-def _k4_design(M, K, N):
-    """A label for K4-bf16's launch (`launch_shape`)."""
-    from ofq_tpu_torch.ops import pallas_statsq as ps
-    sh = ps.launch_shape(M, K, N)
-    return (f"codes pass + wgmma BM 128 BN {sh['bn']}, {sh['grid'][0]}x"
-            f"{sh['grid'][1]} blocks, TMA ring of {sh['stages']}")
-
-
-def phase_k45(dev, which, cases, dtypes=None, base=None):
+def phase_k45(dev, which, cases, dtypes=None):
     """K4 (`which` = "K4": y = x @ Q(W)) or K5 ("K5": dx = g @ Q(W)^T)
     against its plain version at `cases` (name, M, K, N, main path), in
-    fp32 and bf16 (or `dtypes`); a main-path case counts in bf16.  With
-    `base` (--baseline), K4-bf16's launcher alone, the current tree's and
-    the earlier one's."""
+    fp32 and bf16 (or `dtypes`); a main-path case counts in bf16."""
     import torch
     from ofq_tpu_torch.ops import pallas_statsq as ps
     from ofq_tpu_torch.quant.statsq import statsq_scale
@@ -843,27 +794,16 @@ def phase_k45(dev, which, cases, dtypes=None, base=None):
             ms = median_ms(lambda: kern(*args))
             plain_ms = median_ms(lambda: plain(*args), reps=10)
             yard_ms = median_ms(yard)
-            tc = which == "K4" and dtype == torch.bfloat16
-            design = _k4_design(M, K, N) if tc else K45_DESIGN
-            raw_ms = base_ms = None
-            if base and tc and K % 8 == 0:
-                from ofq_tpu_torch.ops import _build
-                raw_ms = median_ms(raw_k4(_build.load("pallas_statsq"), args,
-                                          earlier=False))
-                base_ms = median_ms(raw_k4(base["pallas_statsq"], args,
-                                           earlier=True))
             nbytes, flops, (b_ms, b_by) = _k45_bound(M, K, N, dtype)
             log(f"[{which}] {name:6s} {dt:8s} M={M} K={K} N={N}: max|diff| "
                 f"{err:.3e}, worst |diff|/limit {ratio:.3f}, {w_ties} StatsQ "
-                f"ties; kernel ({design}) {ms:.4f} ms"
-                f"{_versus(raw_ms, base_ms)}, plain {plain_ms:.4f} ms, "
+                f"ties; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"torch.matmul(a, Q(W){'^T' if which == 'K5' else ''}) "
                 f"{yard_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
             results.append(dict(name=name, dtype=dt, M=M, K=K, N=N,
                                 main_path=main and dtype == torch.bfloat16,
-                                design=design, raw_ms=raw_ms,
-                                baseline_raw_ms=base_ms,
+                                design=K45_DESIGN,
                                 max_abs_err=err, worst_ratio=ratio,
                                 statsq_ties=w_ties, ms=ms, plain_ms=plain_ms,
                                 matmul_ms=yard_ms, bound_ms=b_ms,
@@ -1105,10 +1045,15 @@ def summed_in_chunks(j):
     mm, es, op = torch.matmul, torch.einsum, torch.Tensor.__matmul__
     product = _chunked_product(es, j)
 
+    def refuse(what):
+        # a product left in its own order would narrow the spread unseen
+        raise NotImplementedError(f"summed_in_chunks: {what}")
+
     def matmul(a, b):
-        if not (a.dtype.is_floating_point and b.dtype.is_floating_point
-                and a.dim() >= 1 and b.dim() in (1, 2)):
+        if not (a.dtype.is_floating_point or b.dtype.is_floating_point):
             return mm(a, b)
+        if b.dim() not in (1, 2):
+            refuse(f"a matmul with a {b.dim()}-d right operand")
         a2 = a.reshape(-1, a.shape[-1]) if a.dim() > 1 else a[None]
         b2 = b if b.dim() == 2 else b[:, None]
         y = product("mk,kn->mn", a2, b2)
@@ -1119,9 +1064,10 @@ def summed_in_chunks(j):
     def einsum(eq, *operands):
         if len(operands) == 1 and isinstance(operands[0], (list, tuple)):
             operands = operands[0]
-        if (len(operands) != 2 or "..." in eq or "->" not in eq
-                or not all(o.dtype.is_floating_point for o in operands)):
+        if not any(o.dtype.is_floating_point for o in operands):
             return es(eq, *operands)
+        if len(operands) != 2 or "..." in eq or "->" not in eq:
+            refuse(f"the einsum {eq!r} of {len(operands)} operands")
         return product(eq, *operands)
 
     torch.matmul, torch.einsum = matmul, einsum
@@ -2202,31 +2148,24 @@ def compare_baseline(full):
     """The redesigned kernels' times summed over their launches on a path,
     the current launchers' and the earlier tree's (--baseline), each
     launcher alone into preallocated outputs, and the ratio: K1 over a
-    fused step's 36, K4-bf16 over a pallas step's 36 and a Swin-T
-    forward's 39, K3-bf16 over a fused bf16 step's 12."""
+    fused step's 36, K3-bf16 over a fused bf16 step's 12."""
+    shapes = full["train"]["launch_shapes"]
+    k3_launches = full["train_fused_bf16"]["launches"]["qkr_attention_bwd"]
+    sums = {
+        "K1, fused DeiT-S train step": [
+            (shapes.get(str((r["M"], r["K"], r["N"])), 0), r)
+            for r in full["k1"] if r["main_path"]],
+        "K3-bf16, fused bf16 DeiT-S train step": [
+            (k3_launches, r) for r in full["k3"]
+            if r["main_path"] and r["dtype"] == "bfloat16"]}
     out = {}
-    sums = (
-        ("K1, fused DeiT-S train step", full["k1"],
-         full["train"]["launch_shapes"], lambda r: (r["M"], r["K"], r["N"])),
-        ("K4-bf16, pallas DeiT-S train step", full["k4"],
-         full["train_pallas"]["launch_shapes"],
-         lambda r: (r["M"], r["K"], r["N"])),
-        ("K4-bf16, Swin-T W2A2 QKR forward", full["k4_swin"],
-         full["swin_pallas"]["launch_shapes"],
-         lambda r: (r["M"], r["K"], r["N"])),
-        ("K3-bf16, fused bf16 DeiT-S train step",
-         [r for r in full["k3"] if r["dtype"] == "bfloat16"],
-         {"main": full["train_fused_bf16"]["launches"]["qkr_attention_bwd"]},
-         lambda r: "main"))
-    for what, results, counts, key in sums:
-        rows = [r for r in results if r["main_path"]
-                and r.get("baseline_raw_ms") is not None]
-        n = [counts.get(str(key(r)), counts.get(key(r), 0)) for r in rows]
-        cur = sum(c * r["raw_ms"] for c, r in zip(n, rows))
-        old = sum(c * r["baseline_raw_ms"] for c, r in zip(n, rows))
-        out[what] = dict(launches=sum(n), ms=cur, baseline_ms=old,
+    for what, pairs in sums.items():
+        n = sum(c for c, _ in pairs)
+        cur = sum(c * r["raw_ms"] for c, r in pairs)
+        old = sum(c * r["baseline_raw_ms"] for c, r in pairs)
+        out[what] = dict(launches=n, ms=cur, baseline_ms=old,
                          speedup=old / cur if cur else None)
-        log(f"[versus earlier] {what}, {sum(n)} launches: {cur:.3f} ms now, "
+        log(f"[versus earlier] {what}, {n} launches: {cur:.3f} ms now, "
             f"{old:.3f} ms earlier (launchers alone), "
             f"{old / cur if cur else float('nan'):.2f}x")
     return out
@@ -2270,7 +2209,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     full["train_fused_bf16"] = phase_train(dev, FUSED_BF16)
     torch.cuda.empty_cache()
-    full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok), base=base)
+    full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok))
     full["k5"] = phase_k45(dev, "K5", _k45_cases(BATCH * n_tok))
     torch.cuda.empty_cache()
     full["slice_pallas"] = phase_slice(dev, PALLAS, deit, w2a2_qkr_policy(12))
@@ -2285,7 +2224,7 @@ def main() -> int:
     full["swin_float"] = phase_swin_float(dev)
     torch.cuda.empty_cache()
     full["k4_swin"] = phase_k45(dev, "K4", _swin_k4_cases(),
-                                dtypes=(torch.bfloat16,), base=base)
+                                dtypes=(torch.bfloat16,))
     torch.cuda.empty_cache()
     sp = full["swin_pallas"] = phase_slice(dev, PALLAS, "swin_t",
                                            w2a2_qkr_swin_policy(),

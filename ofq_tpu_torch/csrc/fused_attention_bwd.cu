@@ -36,11 +36,13 @@
 // outputs are sums over an axis a query tile cannot own (drhs and dv over
 // query rows, a shared dlhs over heads).  So four launches:
 //   A  one 256-thread block per (64 query rows, head, batch row), the grid of
-//      K2: the score tile and the dpq tile (64 x N each, ~66 KB of shared
-//      memory apiece at N = 198) are formed with K2's loop, so p is the
-//      forward's p bit for bit; one warp per row then forms p, pq, dp, the
+//      K2: the score tile (64 x N, ~66 KB of shared memory at N = 198) is
+//      formed with K2's loop, so p is the forward's p bit for bit, and the
+//      dpq tile beside it (fp32: 64 x N with the same loop; bf16: 32 x N
+//      at a time on the tensor cores, so that pass A takes ~97 KB and two
+//      blocks share an SM); one warp per row then forms p, pq, dp, the
 //      row's ds partial (written per (b, h, n), no atomics) and dscores, and
-//      writes pq and dscores to scratch, (B, H, N, N) each in the stream
+//      writes pq and dscores to scratch, (B, H, N, ldp) each in the stream
 //      dtype;
 //   B  one block per (64 keys, 64 output columns, (b, h)): dv = pq^T . g and
 //      drhs = dscores^T . lhs;
@@ -63,18 +65,20 @@
 // __expf; every multiply, divide and subtract that feeds a rounding or the
 // in-range test spelled with the __f*_rn intrinsics; no --use_fast_math.
 //
-// Pass A's score tile and fp32 tiles live in fp32 shared memory in both
-// stream dtypes, so its dynamic shared memory depends on N only.
+// Pass A's score and dpq tiles live in fp32 shared memory in both stream
+// dtypes; its dynamic shared memory depends on N and the dtype
+// (rows_smem_bytes).
 //
 // bf16 on the tensor cores.  Every operand of dpq, dv, drhs and dlhs is
 // exact in bf16 (g, v, lhs, rhs as stored; pq and dscores already rounded
 // to bf16 where JAX rounds them, and kept so in the scratch), so
 // `mma.sync` m16n8k16 bf16 x bf16 -> fp32 computes the plain version's
 // terms exactly and only the order of the fp32 sums differs.  Each block
-// computes a 64 x 64 output tile, eight warps of 16 x 32; the contraction
-// goes in chunks of 32, each operand's chunk copied to shared memory as
-// bf16 (16-byte loads where a row chunk is whole and aligned; zero past N,
-// K or D: a ragged N = 198 is zero-filled) and read into fragments with
+// computes 64 x 64 output tiles (pass A's dpq: 32 x 128), eight warps of
+// 16 x 32; the contraction goes in chunks of 32, each operand's chunk
+// copied to shared memory as bf16 (16-byte loads where a row chunk is
+// whole and aligned; zero past N, K or D: a ragged N = 198 is
+// zero-filled) and read into fragments with
 // `ldmatrix` (`.trans` where the contraction runs down the stored rows:
 // dv's pq^T, drhs's dscores^T, and the g, lhs and rhs operands of B and
 // C).  The bf16 scratch rows are padded to a multiple of 8 (ldp) so that
@@ -251,8 +255,8 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// This warp's 16 x 32 part (rows wr.., columns wc..) of a 64 x 64 tile:
-// acc[t] (columns wc + 8t ..) += A (64 x 32) B (32 x 64) over one chunk.
+// This warp's 16 x 32 part (rows wr.., columns wc..) of an output tile:
+// acc[t] (columns wc + 8t ..) += A B over one 32-deep chunk.
 // A is stored [row][k] (A_KMAJOR false, rows lda apart) or [k][row]
 // (true); B [col][k] (B_KMAJOR false) or [k][col] (true).  acc[t][0..1]:
 // row wr + lane / 4, columns wc + 8t + 2 (lane % 4) + 0..1; acc[t][2..3]:
@@ -282,7 +286,7 @@ __device__ __forceinline__ void warp_mma(float (&acc)[4][4], const bf16* As,
 }
 
 // f(row, col, value) over this warp's accumulators (rows and columns of
-// the 64 x 64 tile)
+// the output tile)
 template <class F>
 __device__ __forceinline__ void for_each_acc(const float (&acc)[4][4],
                                              int wr, int wc, F f) {
@@ -297,20 +301,22 @@ __device__ __forceinline__ void for_each_acc(const float (&acc)[4][4],
   }
 }
 
-// out[r * ld_o + m] = fp32(sum_d g[q0 + r, d] * v[m, d]) for the TQ rows of
-// this block and every m < N (pass A's dpq in bf16); As, Bs: 64 x LD_ROW
-// bf16 each
+// out[r * ld_o + m] = fp32(sum_d g[q0 + r, d] * v[m, d]) for the TQ / 2
+// rows from q0 and every m < N (pass A's dpq in bf16), 32 rows x 128 keys
+// per round, warp (wr, wc) = (16 (warp % 2), 32 (warp / 2)); As: 32 x
+// LD_ROW bf16, Bs: 128 x LD_ROW
+constexpr int DPQ_KEYS = 128;
 __device__ __forceinline__ void dpq_tc(const bf16* __restrict__ g,
                                        const bf16* __restrict__ v, size_t ld,
                                        int q0, int N, int D, float* out,
                                        int ld_o, bf16* As, bf16* Bs) {
   const int warp = threadIdx.x / 32;
-  const int wr = (warp % 4) * 16, wc = (warp / 4) * 32;
-  for (int m0 = 0; m0 < N; m0 += TK) {
+  const int wr = (warp % 2) * 16, wc = (warp / 2) * 32;
+  for (int m0 = 0; m0 < N; m0 += DPQ_KEYS) {
     float acc[4][4] = {};
     for (int d0 = 0; d0 < D; d0 += TC_K) {
-      load_tile<TQ, TC_K>(As, LD_ROW, g, ld, q0, d0, N, D);
-      load_tile<TK, TC_K>(Bs, LD_ROW, v, ld, m0, d0, N, D);
+      load_tile<TQ / 2, TC_K>(As, LD_ROW, g, ld, q0, d0, N, D);
+      load_tile<DPQ_KEYS, TC_K>(Bs, LD_ROW, v, ld, m0, d0, N, D);
       __syncthreads();
       warp_mma<false, false>(acc, As, LD_ROW, Bs, LD_ROW, wr, wc);
       __syncthreads();
@@ -329,11 +335,16 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
     const T* __restrict__ g, T* __restrict__ pq_out, T* __restrict__ dsc_out,
     float* __restrict__ ds_part, int N, int H, int K, int D, int ld_s,
     int ldp, float thd_pos, float sm_scale, int quantize) {
+  constexpr bool kTC = std::is_same<T, bf16>::value;
   extern __shared__ float smem[];
+  // fp32: S, then P [TQ][ld_s] (dpq, then dp), then As, Bs.  bf16: S,
+  // then one region that holds As, Bs while the scores form and then P
+  // for half the rows (dpq, then dp) with dpq's bf16 chunks after it
+  // (rows_smem_bytes)
   float* S = smem;                  // [TQ][ld_s] scores, then p
-  float* P = S + TQ * ld_s;         // [TQ][ld_s] dpq, then dp
-  float* As = P + TQ * ld_s;        // [KC][TQ + 1]
-  float* Bs = As + KC * (TQ + 1);   // [KC][TK + 1]
+  float* P = S + TQ * ld_s;
+  float* As = kTC ? P : P + TQ * ld_s;  // [KC][TQ + 1]
+  float* Bs = As + KC * (TQ + 1);       // [KC][TK + 1]
 
   const int q0 = blockIdx.x * TQ;
   const int h = blockIdx.y;
@@ -345,25 +356,17 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
   const T* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
 
   tile_nt(lhs_b, lhs_row, rhs_b, (size_t)H * K, q0, N, K, sm_scale, S, ld_s, As, Bs);
-  if constexpr (std::is_same<T, bf16>::value) {
-    // the As / Bs region (2 x 32 x 65 floats) holds the two bf16 chunks
-    bf16* at = reinterpret_cast<bf16*>(As);
-    dpq_tc(g_b, v_b, (size_t)H * D, q0, N, D, P, ld_s, at, at + TQ * LD_ROW);
-  } else {
-    tile_nt(g_b, (size_t)H * D, v_b, (size_t)H * D, q0, N, D, 1.0f, P, ld_s, As, Bs);
-  }
-  __syncthreads();
 
   const size_t unit = (size_t)b * H + h;
   T* pq_u = pq_out + unit * N * ldp;
   T* dsc_u = dsc_out + unit * N * ldp;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int r = warp; r < TQ; r += WARPS) {
+  // row r of the tile, its dpq in drow: p, pq, dp, the row's ds partial
+  // and dscores, one warp per row
+  auto row_work = [&](int r, float* drow) {
     const int n = q0 + r;
-    if (n >= N) continue;
     float* row = S + r * ld_s;
-    float* drow = P + r * ld_s;
     // softmax, exactly as the forward kernel forms it
     float mx = -CUDART_INF_F;
     for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
@@ -404,6 +407,25 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
     }
     ds_acc = warp_sum(ds_acc);
     if (lane == 0) ds_part[unit * N + n] = ds_acc;
+  };
+
+  if constexpr (kTC) {
+    // dpq on the tensor cores, half the rows at a time into P: the
+    // smaller shared memory lets two blocks share an SM
+    bf16* ga = reinterpret_cast<bf16*>(P + (TQ / 2) * ld_s);
+    bf16* vb = ga + (TQ / 2) * LD_ROW;
+    for (int r0 = 0; r0 < TQ; r0 += TQ / 2) {
+      dpq_tc(g_b, v_b, (size_t)H * D, q0 + r0, N, D, P, ld_s, ga, vb);
+      __syncthreads();
+      for (int r = r0 + warp; r < r0 + TQ / 2; r += WARPS)
+        if (q0 + r < N) row_work(r, P + (r - r0) * ld_s);
+      __syncthreads();
+    }
+  } else {
+    tile_nt(g_b, (size_t)H * D, v_b, (size_t)H * D, q0, N, D, 1.0f, P, ld_s, As, Bs);
+    __syncthreads();
+    for (int r = warp; r < TQ; r += WARPS)
+      if (q0 + r < N) row_work(r, P + r * ld_s);
   }
 }
 
@@ -698,10 +720,29 @@ __global__ void qkr_bwd_ds_kernel(const float* __restrict__ ds_part,
   ds[n] = acc;
 }
 
+// pass A's row stride of the score and dpq tiles: past N, odd (their
+// column accesses miss bank conflicts); fp32 keeps its first form
+template <typename T>
+int rows_ld(int N) {
+  return std::is_same<T, bf16>::value ? (N + 31) / 32 * 32 + 1
+                                      : ((N + TK - 1) / TK) * TK + 1;
+}
+
+// pass A's dynamic shared memory for N keys (see qkr_bwd_rows_kernel)
+template <typename T>
+long long rows_smem_bytes(int N) {
+  const long long ld_s = rows_ld<T>(N);
+  const long long tiles = 4LL * (KC * (TQ + 1) + KC * (TK + 1));
+  if (!std::is_same<T, bf16>::value)
+    return 4LL * 2 * TQ * ld_s + tiles;
+  const long long half = 4LL * (TQ / 2) * ld_s +
+                         2LL * (TQ / 2 + DPQ_KEYS) * LD_ROW;
+  return 4LL * TQ * ld_s + (half > tiles ? half : tiles);
+}
+
 long long bwd_smem_bytes(int N) {
-  const int ld_s = ((N + TK - 1) / TK) * TK + 1;
-  return (long long)sizeof(float) *
-         (2LL * TQ * ld_s + KC * (TQ + 1) + KC * (TK + 1));
+  const long long f = rows_smem_bytes<float>(N), h = rows_smem_bytes<bf16>(N);
+  return f > h ? f : h;
 }
 
 // the scratch's row stride: N in fp32 (the CUDA-core passes read rows N
@@ -719,9 +760,9 @@ int launch_bwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
                int H, int K, int D, float thd_pos, float sm_scale,
                int quantize, void* stream) {
   cudaStream_t strm = (cudaStream_t)stream;
-  const int ld_s = ((N + TK - 1) / TK) * TK + 1;
+  const int ld_s = rows_ld<T>(N);
   const int ldp = scratch_ld<T>(N);
-  const size_t smem = (size_t)bwd_smem_bytes(N);
+  const size_t smem = (size_t)rows_smem_bytes<T>(N);
   cudaError_t err = cudaFuncSetAttribute(
       qkr_bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -10,56 +10,33 @@
 //   Q(W)[k, n] = s[n] * ((rint(clip(W[k, n] / s[n], -1, 1 - 1e-6) * nl - 0.5)
 //                         + 0.5) / nl),
 // and s = 2 mean|W| per output column, computed by the caller (as in JAX).
+// W tiles are quantized in fp32 on their way into shared memory, so Q(W)
+// never reaches device memory.  x, g and the output are float or bf16
+// (template T): a bf16 input widens exactly to fp32, every product and sum
+// is fp32 (CUDA-core FMAs, no TF32, no tensor cores), and the output is
+// rounded once (__float2bfloat16_rn for bf16).
 //
-// Two designs, chosen by the dtype of x (the wrapper dispatches):
-//
-// K4, bf16 stream: wgmma on the exact level codes.  With the odd code
-// c = 2 lv + 1, Q(W)[k, n] = (s[n] / (2 nl)) c[k, n], so
-//   y[m, n] = bf16((s[n] / (2 nl)) * sum_k x[m, k] c[k, n]).
-// c is an odd integer and x is bf16: both exact in bf16, every product
-// x c exact in fp32, so the bf16 tensor cores (fp32 accumulation) compute
-// the plain version's terms; only the fp32 sum order differs, and the
-// factored scale adds at most 2^-24 sum|x||Q(W)|.  One call is two
-// launches: a small first pass forms W's codes once, as a bf16 panel
-// (N rows of Kp = K rounded up to 8, 2 Kp N bytes, 1.2 MB at DeiT-S fc1 and
-// fc2, resident in L2), so no M tile forms codes again; then the product,
-// one 128 x BN output tile per block (BN 64, 96 or 128, the width that pads
-// N least), two blocks per SM.  In a block one producer warp keeps a ring
-// of S stages in flight by TMA (x's 128 x 64 tile and the panel's BN x 64
-// tile, each stored with the 128-byte swizzle that the wgmma descriptor
-// reads, rows and columns past the matrix zero-filled by the copy), and
-// two consumer warpgroups run wgmma m64nBNk16 (bf16 x bf16 -> fp32) on 64
-// rows each, keeping one product group in flight and handing each stage
-// back to the producer through an mbarrier.  The epilogue scales each
-// column once by s[n] / (2 nl), rounds to bf16 once and stores bf16 pairs.
-// What bounds it on an H100: at DeiT-S and Swin-T widths the work is
-// 2 M K N operations against 2 (MK + MN) + 4 KN bytes, bytes-bound at the
-// bf16 rate (~0.006-0.06 ms); chip_smoke.py reports each shape.
-//
-// K4 in the fp32 stream and K5 (fp32 or bf16): an fp32 x is not exact in
-// bf16, so these keep the CUDA-core template of the first version: one
-// 64x64 output tile per 256-thread block, 4x4 outputs per thread, 32-deep
-// contraction chunks, W tiles quantized in fp32 on their way into shared
-// memory, every product and sum fp32 FMAs (no TF32), the output rounded
-// once (__float2bfloat16_rn for bf16).  At DeiT-S widths the fp32 rate
-// bounds them (~0.06-0.22 ms); they run far from it.
+// What bounds it on an H100: at DeiT-S widths (M = 64*198, K, N in
+// {384, 1536}) the work is 2*M*K*N operations against ~esize*(MK + MN)
+// + 4*KN bytes.  In the bf16 stream x and the odd level codes are exact in
+// bf16, so the tensor cores could run the same product: the bound is then
+// bytes (~0.006 ms for proj, ~0.015 ms for fc1/fc2).  In the fp32 stream the
+// bound is the fp32 rate (~0.06-0.22 ms).  This first version is a plain
+// shared-memory tiled product like K1 (one 64x64 output tile per 256-thread
+// block, 4x4 outputs per thread, 32-deep contraction chunks), far from
+// either bound; wgmma on bf16 tiles is the next step for speed.
 //
 // Rounding: rintf rounds half to even like torch.round / jnp.round, and
 // StatsQ's c*nl - 0.5 sits on a tie whenever c*nl is integral, so every
 // multiply/add/divide whose rounding feeds rint, or that forms Q(W), is
 // spelled with the __f*_rn intrinsics (no FMA contraction); IEEE division
-// (no --use_fast_math).  Ragged edges (M = 12 672 is no multiple of 64 or
-// 128, K = 200 of 64, N = 72 of any tile width) are handled in the
-// kernels: loads outside the matrix read 0, stores are skipped.
+// (no --use_fast_math).  Ragged edges (M = 12 672 is no multiple of 64) are
+// guarded in the kernel: loads outside the matrix read 0, stores are
+// skipped.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder
-                   // is fetched from the driver at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
-#include <stdint.h>
-
-#include "tc_gemm.cuh"
 
 namespace {
 
@@ -184,298 +161,14 @@ int launch(const void* a, const float* w, const float* s, void* out, int M,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------ K4, bf16: tensor cores
-namespace k4 {
-
-constexpr int BM = 128;                     // output rows per block
-constexpr int BK = 64;                      // contraction per stage
-constexpr int CONSUMERS = 2;                // warpgroups that multiply
-constexpr int THREADS = CONSUMERS * 128 + 32;  // and one producer warp
-constexpr int A_TILE = BM * BK * 2;         // x's tile of a stage (bf16)
-__host__ __device__ constexpr int b_tile(int bn) { return bn * BK * 2; }
-// stages of the ring: two blocks per SM fit beside each other
-__host__ __device__ constexpr int stages(int bn) { return bn == 64 ? 4 : 3; }
-__host__ __device__ constexpr int smem_bytes(int bn) {
-  return stages(bn) * (A_TILE + b_tile(bn)) + 1024;  // + alignment
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   tc::smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          tc::smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   tc::smem_u32(bar))
-               : "memory");
-}
-// until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(tc::smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-// the 2-D tile of `map` at (inner c0, outer c1) into shared memory, its
-// bytes counted on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(tc::smem_u32(dst)),
-      "l"((uint64_t)map), "r"(tc::smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-// codes (N, ldc) bf16: codes[n][k] = 2 level(W[k][n] / s[n]) + 1 for
-// k < K, 0 for K <= k < ldc; 32 x 32 tiles through shared memory, so that
-// W is read and the panel written along rows.  Grid (ceil(ldc / 32),
-// ceil(N / 32)), 256 threads.
-__global__ void __launch_bounds__(256) codes_kernel(
-    const float* __restrict__ w, const float* __restrict__ s,
-    __nv_bfloat16* __restrict__ codes, int K, int N, int ldc, float nl) {
-  __shared__ float t[32][33];
-  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  for (int i = ty; i < 32; i += 8) {
-    const int k = k0 + i, n = n0 + tx;
-    float c = 0.0f;
-    if (k < K && n < N)
-      c = __fadd_rn(__fmul_rn(2.0f, tc::statsq_level(
-                                        __fdiv_rn(w[(size_t)k * N + n], s[n]),
-                                        nl)),
-                    1.0f);
-    t[i][tx] = c;
-  }
-  __syncthreads();
-  for (int i = ty; i < 32; i += 8) {
-    const int n = n0 + i, k = k0 + tx;
-    if (n < N && k < ldc)
-      codes[(size_t)n * ldc + k] = __float2bfloat16_rn(t[tx][i]);
-  }
-}
-
-// y (M, N) = bf16((s / (2 nl)) * (x @ codes^T)) for the 128 x BN tile
-// (blockIdx.y, blockIdx.x); KT stages of 64.  Threads 0-255: the two
-// consumer warpgroups (rows 64 wg ..); warp 8: the producer.
-template <int BN>
-__global__ void __launch_bounds__(THREADS, 2) product_kernel(
-    const __grid_constant__ CUtensorMap xmap,
-    const __grid_constant__ CUtensorMap cmap, const float* __restrict__ s,
-    __nv_bfloat16* __restrict__ y, int M, int N, int KT, float nl) {
-  constexpr int S = stages(BN);
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* a_tiles = tc::aligned_smem(smem_raw);
-  uint8_t* b_tiles = a_tiles + S * A_TILE;
-  __shared__ __align__(8) uint64_t full[S], empty[S];
-  __shared__ float f_tab[BN];
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  for (int i = threadIdx.x; i < BN; i += THREADS)
-    f_tab[i] = n0 + i < N ? __fdiv_rn(s[n0 + i], 2.0f * nl) : 0.0f;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < S; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], CONSUMERS);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-  const int wg = threadIdx.x / 128;
-  if (wg == CONSUMERS) {
-    // the producer: stage kt into slot kt % S once the consumers have
-    // handed back its use kt - S
-    if (threadIdx.x == CONSUMERS * 128) {
-      for (int kt = 0; kt < KT; ++kt) {
-        const int st = kt % S;
-        if (kt >= S) mbar_wait(&empty[st], (kt / S - 1) & 1);
-        mbar_expect_tx(&full[st], A_TILE + b_tile(BN));
-        tma_load(a_tiles + st * A_TILE, &xmap, &full[st], kt * BK, m0);
-        tma_load(b_tiles + st * b_tile(BN), &cmap, &full[st], kt * BK, n0);
-      }
-    }
-    return;
-  }
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-  for (int kt = 0; kt < KT; ++kt) {
-    const int st = kt % S;
-    mbar_wait(&full[st], (kt / S) & 1);
-    tc::fence_acc(acc);
-    tc::wgmma_fence();
-    const uint32_t a0 = tc::smem_u32(a_tiles + st * A_TILE) + wg * 64 * 128;
-    const uint32_t b0 = tc::smem_u32(b_tiles + st * b_tile(BN));
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      tc::Wgmma<BN>::mma(acc, tc::desc(a0 + 32 * kk), tc::desc(b0 + 32 * kk));
-    tc::wgmma_commit();
-    tc::fence_acc(acc);
-    // the product of stage kt - 1 is done: its slot goes back
-    wgmma_wait_one();
-    tc::fence_acc(acc);
-    if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(kt - 1) % S]);
-  }
-  tc::wgmma_wait_all();
-  tc::fence_acc(acc);
-  const bool pairs = (N & 1) == 0;
-  tc::for_each_pair<BN>(acc, [&](int r, int c, float v0, float v1) {
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm >= M || gn >= N) return;
-    __nv_bfloat16* out = y + (size_t)gm * N + gn;
-    const float y0 = __fmul_rn(v0, f_tab[c]);
-    const float y1 = __fmul_rn(v1, f_tab[c + 1]);
-    if (pairs) {
-      *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(y0, y1);
-    } else {
-      out[0] = __float2bfloat16_rn(y0);
-      if (gn + 1 < N) out[1] = __float2bfloat16_rn(y1);
-    }
-  });
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver once
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major bf16 (rows, cols) matrix, rows ld elements apart, read in
-// (box_rows x 64) tiles with the 128-byte swizzle; zero outside
-inline bool tile_map(CUtensorMap* map, const void* base, int rows, int cols,
-                     int ld, int box_rows) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// the tile width that pads N least (the widest on a tie)
-inline int pick_bn(int N) {
-  int best = 128;
-  long best_pad = (long)(N + 127) / 128 * 128;
-  const int widths[] = {96, 64};
-  for (int bn : widths) {
-    const long pad = (long)(N + bn - 1) / bn * bn;
-    if (pad < best_pad) {
-      best = bn;
-      best_pad = pad;
-    }
-  }
-  return best;
-}
-
-template <int BN>
-int launch_product(const CUtensorMap& xmap, const CUtensorMap& cmap,
-                   const float* s, void* y, int M, int N, int K, float nl,
-                   cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(
-      product_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes(BN));
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  product_kernel<BN><<<grid, THREADS, smem_bytes(BN), st>>>(
-      xmap, cmap, s, (__nv_bfloat16*)y, M, N, (K + BK - 1) / BK, nl);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace k4
-
 }  // namespace
 
-// K4, fp32 stream: x, y float; the CUDA-core template
-extern "C" int ofq_pallas_statsq_f32_fwd(const float* x, const float* w,
-                                         const float* s, float* y, int M,
-                                         int K, int N, float nl,
-                                         void* stream) {
-  return launch<false>(x, w, s, y, M, K, N, nl, 0, stream);
-}
-
-// K4, bf16 stream: x (M, ldx) bf16, its first K columns the operand (ldx a
-// multiple of 8, at least K, the columns past K zero; x 16-byte aligned),
-// y (M, N) bf16; codes: (N, ldc) bf16 scratch, ldc = K rounded up to 8.
-// The codes pass, then the wgmma product.
-extern "C" int ofq_pallas_statsq_bf16_fwd(const void* x, int ldx,
-                                          const float* w, const float* s,
-                                          void* y, void* codes, int M, int K,
-                                          int N, float nl, void* stream) {
-  const int ldc = (K + 7) / 8 * 8;
-  if (ldx % 8 != 0 || ldx < K || ((uintptr_t)x & 15) != 0 ||
-      ((uintptr_t)codes & 15) != 0 || M < 1 || N < 1 || K < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  k4::codes_kernel<<<dim3((ldc + 31) / 32, (N + 31) / 32), 256, 0, st>>>(
-      w, s, (__nv_bfloat16*)codes, K, N, ldc, nl);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int bn = k4::pick_bn(N);
-  CUtensorMap xmap, cmap;
-  if (!k4::tile_map(&xmap, x, M, ldx, ldx, k4::BM) ||
-      !k4::tile_map(&cmap, codes, N, ldc, ldc, bn))
-    return (int)cudaErrorInvalidValue;
-  switch (bn) {
-    case 64: return k4::launch_product<64>(xmap, cmap, s, y, M, N, K, nl, st);
-    case 96: return k4::launch_product<96>(xmap, cmap, s, y, M, N, K, nl, st);
-    default:
-      return k4::launch_product<128>(xmap, cmap, s, y, M, N, K, nl, st);
-  }
-}
-
-// The launch K4-bf16's product takes for these shapes.  out: BN, grid x,
-// grid y, stages of the ring
-extern "C" void ofq_pallas_statsq_bf16_shape(int M, int K, int N, int* out) {
-  const int bn = k4::pick_bn(N);
-  out[0] = bn;
-  out[1] = (N + bn - 1) / bn;
-  out[2] = (M + k4::BM - 1) / k4::BM;
-  out[3] = k4::stages(bn);
-  (void)K;
+// K4.  x, y: float (bf16 == 0) or __nv_bfloat16 (bf16 == 1); w, s: float
+extern "C" int ofq_pallas_statsq_fwd(const void* x, const float* w,
+                                     const float* s, void* y, int M, int K,
+                                     int N, float nl, int bf16,
+                                     void* stream) {
+  return launch<false>(x, w, s, y, M, K, N, nl, bf16, stream);
 }
 
 // K5.  g, dx: float (bf16 == 0) or __nv_bfloat16 (bf16 == 1); w, s: float

@@ -6,18 +6,11 @@
     Q(W) = s * ((round(clip(W / s, -1, 1 - 1e-6) * n - 0.5) + 0.5) / n)
 
 with the per-column scale s = 2 mean|W| (`statsq_scale`, detached)
-computed before the launch, as in JAX.  The sums are fp32 and the output
+computed before the launch, as in JAX.  W is quantized in its own dtype
+(fp32) tile by tile inside the kernel, the sums are fp32, and the output
 has x's dtype (fp32 or bf16).  Each wrapper launches its hand-written CUDA
 kernel (`csrc/pallas_statsq.cu`, built at first use) on a CUDA tensor and
 runs its plain PyTorch version (`*_reference`) on a CPU tensor.
-
-K4 has two kernels, chosen by the dtype of x: in the bf16 stream x and the
-odd level codes 2 lv + 1 are exact in bf16, so K4 forms W's codes once per
-call (a bf16 panel, `codes_scratch`) and multiplies x by them with `wgmma`
-on the tensor cores (TMA loads, fp32 sums), scaling each column by
-s / (2 n) once in its epilogue; an fp32 x is not exact in bf16, so the
-fp32 stream keeps the CUDA-core template (W quantized in fp32 tile by tile,
-fp32 FMAs), which K5 shares in both dtypes.
 
 `pallas_statsq_matmul` reaches K4 through `_PallasStatsQMatmul`, the custom
 VJP of the JAX package, whose backward is XLA there and torch ops here:
@@ -75,71 +68,22 @@ def pallas_statsq_dx_reference(g2, w, s, n_levels, x_dtype):
 def _launch(fn_name, what, a, w, s, n_levels, out_shape, M, K, N):
     lib = _build.load("pallas_statsq")
     fn = getattr(lib, fn_name)
-    # K5's entry takes the dtype as a flag; K4's fp32 entry takes fp32 only
-    tail = ((int(a.dtype == torch.bfloat16),)
-            if fn_name == "ofq_pallas_statsq_dx" else ())
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] + [ctypes.c_int] * len(tail)
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(a.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-                 M, K, N, float(n_levels), *tail, stream)
+                 M, K, N, float(n_levels), int(a.dtype == torch.bfloat16),
+                 stream)
     _build.check(lib, err, what)
     return out
 
 
-def _tc_operand(x2):
-    """x2 as K4's tensor-core kernel reads it by TMA: rows a multiple of 8
-    elements apart (16 bytes) and 16-byte aligned; a copy padded with zero
-    columns (or realigned) only where x2 is not already so."""
-    K = x2.shape[1]
-    ld = -(-K // 8) * 8
-    if ld != K:
-        return torch.nn.functional.pad(x2, (0, ld - K)), ld
-    if x2.data_ptr() % 16:
-        return x2.clone(), ld
-    return x2, ld
-
-
-def _launch_tc(x2, w, s, n_levels, M, K, N):
-    """K4 in the bf16 stream: the codes pass and the wgmma product."""
-    lib = _build.load("pallas_statsq")
-    fn = lib.ofq_pallas_statsq_bf16_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    xa, ldx = _tc_operand(x2)
-    y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    # W's odd codes, N rows of K rounded up to 8 (zero past K)
-    codes_scratch = torch.empty((N, -(-K // 8) * 8), dtype=torch.bfloat16,
-                                device=x2.device)
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xa.data_ptr(), ldx, w.data_ptr(), s.data_ptr(),
-                 y.data_ptr(), codes_scratch.data_ptr(), M, K, N,
-                 float(n_levels), stream)
-    _build.check(lib, err, "pallas_statsq_fwd")
-    return y
-
-
-def launch_shape(M, K, N):
-    """The launch K4's wgmma product takes for (M, K, N): dict(bn, grid,
-    stages); grid (N tiles, M tiles of 128 rows), stages the TMA ring's."""
-    fn = _build.load("pallas_statsq").ofq_pallas_statsq_bf16_shape
-    fn.restype = None
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    out = (ctypes.c_int * 4)()
-    fn(M, K, N, ctypes.cast(out, ctypes.c_void_p))
-    return dict(bn=out[0], grid=(out[1], out[2]), stages=out[3])
-
-
 def pallas_statsq_fwd(x2, w, s, n_levels):
-    """K4's wrapper: a CUDA tensor goes to the CUDA kernel of its dtype
-    (wgmma for bf16, the CUDA-core template for fp32; it raises if it
-    cannot build or launch), a CPU tensor to the plain version."""
+    """K4's wrapper: a CUDA tensor goes to the CUDA kernel (which raises if
+    it cannot build or launch), a CPU tensor to the plain version."""
     refuse_graph_cut("pallas_statsq_fwd", x2, w, s)
     if not on_card(x2):
         return pallas_statsq_fwd_reference(x2, w, s, n_levels)
@@ -147,11 +91,8 @@ def pallas_statsq_fwd(x2, w, s, n_levels):
     N = w.shape[1]
     check_args("pallas_statsq_fwd", x2, x2=(x2, (M, K), stream_dtype(x2)),
                w=(w, (K, N)), s=(s, (1, N)))
-    if x2.dtype == torch.bfloat16:
-        y = _launch_tc(x2, w, s, n_levels, M, K, N)
-    else:
-        y = _launch("ofq_pallas_statsq_f32_fwd", "pallas_statsq_fwd", x2, w,
-                    s, n_levels, (M, N), M, K, N)
+    y = _launch("ofq_pallas_statsq_fwd", "pallas_statsq_fwd", x2, w, s,
+                n_levels, (M, N), M, K, N)
     pallas_statsq_fwd.launches += 1
     pallas_statsq_fwd.launch_shapes[(M, K, N)] += 1
     return y

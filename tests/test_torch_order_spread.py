@@ -134,11 +134,20 @@ def test_restored_on_exit_and_after_an_exception():
     assert torch.Tensor.__matmul__ is op
 
 
-def test_integer_products_pass_through():
+def test_integer_products_pass_through_and_others_are_refused():
+    """Integer products are exact in any order; a floating product the
+    context cannot split raises rather than keep its own order."""
     a = torch.arange(6).reshape(2, 3)
     with chip_smoke.summed_in_chunks(2):
         y = a @ a.T
-    assert y.dtype == torch.int64 and torch.equal(y, a @ a.T)
+        assert y.dtype == torch.int64 and torch.equal(y, a @ a.T)
+        x = torch.ones(2, 3, 4)
+        with pytest.raises(NotImplementedError):
+            torch.matmul(x, x.transpose(1, 2))
+        with pytest.raises(NotImplementedError):
+            torch.einsum("ij,jk,kl->il", x[0], x[0].T, x[0])
+        with pytest.raises(NotImplementedError):
+            torch.einsum("...j,jk", x, x[0].T)
 
 
 def _row(name, kernels, plain, spread=None):

@@ -7,6 +7,9 @@ the file runs alone with the repo's conftest left out:
     python -m pytest tests/test_torch_port_cuda.py -q --noconftest -p no:cacheprovider
 """
 
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -14,6 +17,9 @@ from ofq_tpu_torch.ops import fused_attention as fa
 from ofq_tpu_torch.ops import fused_qlinear as fq
 from ofq_tpu_torch.quant.lsq import thresholds
 from ofq_tpu_torch.quant.statsq import statsq_scale
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -310,7 +316,15 @@ def _k45_close(y, ref, abs_sum):
     return bool((d <= lim).all())
 
 
-@pytest.mark.parametrize("M,K,N", [(12672, 384, 1536), (1000, 200, 72)])
+@pytest.mark.parametrize("M,K,N", [
+    (12672, 384, 384),     # DeiT-S proj
+    (12672, 384, 1536),    # fc1
+    (12672, 1536, 384),    # fc2
+    (200704, 96, 96),      # Swin-T stage 0 proj
+    (3136, 3072, 768),     # Swin-T stage 3 fc2, K = 3072
+    (1000, 200, 72),       # ragged
+    (37, 20, 24),          # K no multiple of 8 or of the 32-deep chunk
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_matches_plain(dev, M, K, N, dtype):
     from ofq_tpu_torch.ops import pallas_statsq as ps
@@ -338,61 +352,12 @@ def test_k5_matches_plain(dev, M, K, N, dtype):
     assert _k45_close(dx, ref, ps._acc32(g.abs(), wq.abs().T))
 
 
-@pytest.mark.parametrize("M,K,N", [
-    (12672, 384, 384),     # DeiT-S proj
-    (12672, 384, 1536),    # fc1
-    (12672, 1536, 384),    # fc2
-    (200704, 96, 96),      # Swin-T stage 0 proj: BN 96, a half K tile
-    (1000, 200, 72),       # ragged: M of 128, K of 64, N of any tile width
-    (3136, 3072, 768),     # Swin-T stage 3 fc2, K = 3072
-    (37, 20, 24),          # K no multiple of 8: x padded for TMA
-])
-def test_k4_bf16_wgmma_matches_plain(dev, M, K, N):
-    """K4 in the bf16 stream (the codes pass and the wgmma product, one
-    launch counted) within the fp32-sum-order limit of the plain version,
-    `_k45_close`, at DeiT-S's three shapes, Swin-T's extremes and ragged
-    ones."""
-    from ofq_tpu_torch.ops import pallas_statsq as ps
-    x, _, w, s, wq = _k45_args(dev, M, K, N, torch.bfloat16, seed=2)
-    before = ps.pallas_statsq_fwd.launches
-    y = ps.pallas_statsq_fwd(x, w, s, 2.0)
-    ref = ps.pallas_statsq_fwd_reference(x, w, s, 2.0)
-    torch.cuda.synchronize()
-    assert ps.pallas_statsq_fwd.launches == before + 1
-    assert y.dtype == torch.bfloat16 and torch.isfinite(y).all()
-    assert _k45_close(y, ref, ps._acc32(x.abs(), wq.abs()))
-
-
-def test_k4_bf16_reads_a_strided_view(dev):
-    """x as a column slice of a wider matrix (a view the wrapper refuses:
-    contiguous rows only) and as an offset view (realigned for TMA)."""
-    from ofq_tpu_torch.ops import pallas_statsq as ps
-    x, _, w, s, wq = _k45_args(dev, 300, 64, 40, torch.bfloat16, seed=5)
-    with pytest.raises(ValueError, match="contiguous"):
-        ps.pallas_statsq_fwd(torch.cat([x, x], 1)[:, :64], w, s, 2.0)
-    flat = torch.cat([torch.zeros(1, device=dev, dtype=x.dtype),
-                      x.reshape(-1)])
-    xo = flat[1:].view(300, 64)
-    assert xo.data_ptr() % 16 != 0
-    y = ps.pallas_statsq_fwd(xo, w, s, 2.0)
-    ref = ps.pallas_statsq_fwd_reference(x, w, s, 2.0)
-    torch.cuda.synchronize()
-    assert _k45_close(y, ref, ps._acc32(x.abs(), wq.abs()))
-
-
 @pytest.mark.parametrize("source,part,op", [
-    ("pallas_statsq", "product_kernel", "HGMMA"),
-    ("fused_attention_bwd", "qkr_bwd_rows_kernelI13__nv_bfloat16", "HMMA"),
-    ("fused_attention_bwd", "qkr_bwd_cols_tc_kernel", "HMMA"),
-    ("fused_attention_bwd", "qkr_bwd_dlhs_tc_kernel", "HMMA"),
-])
+    (source, part, op) for source, wanted in chip_smoke.TC_KERNELS.items()
+    for part, op in wanted])
 def test_tensor_core_kernels_hold_mma_instructions(dev, source, part, op):
-    """K4-bf16's product runs wgmma (HGMMA in its SASS) and K3-bf16's
-    dpq, cols and dlhs passes mma.sync (HMMA), read with cuobjdump."""
-    import sys
-    from pathlib import Path
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke
+    """K1 runs wgmma (HGMMA in its SASS) and K3-bf16's dpq, cols and dlhs
+    passes mma.sync (HMMA), read with cuobjdump (chip_smoke.TC_KERNELS)."""
     from ofq_tpu_torch.ops import _build
     _build.load(source)
     counts = chip_smoke.mma_counts(_build._lib_path(source))

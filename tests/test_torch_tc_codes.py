@@ -1,20 +1,12 @@
-"""The arithmetic that K1's and K4's tensor-core kernels rest on, on the CPU.
+"""The arithmetic that K1's tensor-core kernel rests on, on the CPU.
 
-The kernels (`ofq_tpu_torch/csrc/fused_qlinear.cu` with `tc_gemm.cuh`,
-`csrc/pallas_statsq.cu`) multiply exact bf16 codes (and K4's bf16 x) with
-fp32 sums in the tensor cores' order; K1 forms its codes as step functions
-read off per-column (per-token) tables, K4 forms W's odd codes once per
-call by division into a bf16 panel.  Neither runs here, so this file
-emulates each in torch / numpy and holds the emulation against the plain
-versions, and the plain versions against the JAX package's Pallas kernels
-in interpret mode:
+The kernel (`ofq_tpu_torch/csrc/fused_qlinear.cu`, `tc_gemm.cuh`)
+multiplies exact bf16 codes with fp32 sums in the tensor cores' order, and
+forms the codes as step functions read off per-column (per-token) tables.
+It does not run here, so this file emulates each in torch / numpy and
+holds the emulation against the plain version, and the plain version
+against the JAX package's Pallas kernel in interpret mode:
 
-  * K4's factored form, bf16(s / (2n) * sum_k x c) with the odd codes c
-    cast to bf16 (K4's panel, exact) and fp32 partial sums over k-chunks
-    of 16 taken in a shuffled order, stays within the limits of
-    chip_smoke.py's `_k45_gate` against `pallas_statsq_fwd_reference`,
-    in bf16 and fp32, and equals the JAX package's `_fwd_call` within the
-    same limits;
   * K1's sum of LSQ codes times odd StatsQ codes, with the codes cast to
     bf16 and fp32 partial sums over k-chunks of 16 taken in a shuffled
     order, gives `fused_qlinear_fwd_reference`'s bits at W2A2 and W4A4
@@ -37,9 +29,7 @@ import pytest
 import torch
 
 from ofq_tpu.ops import fused_qlinear as jfq
-from ofq_tpu.ops import pallas_statsq as jps
 from ofq_tpu_torch.ops import fused_qlinear as fq
-from ofq_tpu_torch.ops import pallas_statsq as ps
 from ofq_tpu_torch.quant.lsq import thresholds
 
 F32 = np.float32
@@ -94,108 +84,6 @@ def _tc_sum(a, b, seed):
     for i in order:
         acc = acc + chunks[i]
     return acc
-
-
-def _odd_codes(w, s, n):
-    """K4's panel: 2 round(clip(w / s, -1, 1 - 1e-6) n - 0.5) + 1."""
-    c = torch.clamp(w / s, -1.0, 1.0 - 1e-6)
-    return 2.0 * torch.round(c * n - 0.5) + 1.0
-
-
-def _k45_limit(y, ref, abs_sum):
-    """chip_smoke.py's `_k45_gate`: 1e-5 of the summed |terms|, in bf16
-    plus one ulp of the larger of |y| and |ref|."""
-    lim = 1e-5 * abs_sum
-    if y.dtype == torch.bfloat16:
-        lim = lim + 2 ** -7 * torch.maximum(y.float().abs(),
-                                            ref.float().abs())
-    return (y.float() - ref.float()).abs() <= lim
-
-
-def _k4_tc(x, w, s, n, seed):
-    """K4-bf16 as the kernel computes it: the panel of odd codes in bf16,
-    the tensor cores' fp32 sums (`_tc_sum`), then the epilogue's one fp32
-    scale per column, s / (2 n), and one rounding to x's dtype."""
-    c = _odd_codes(w, s, n).to(torch.bfloat16)
-    acc = _tc_sum(x.float(), c.float(), seed=seed)
-    return (acc * (s / (2.0 * n))).to(x.dtype)
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("M,K,N", [(37, 200, 72), (64, 96, 96),
-                                   (20, 40, 24)])
-def test_k4_factored_form_within_gate(dtype, M, K, N):
-    rng = np.random.default_rng(M * K + N)
-    w = torch.from_numpy(_weight(rng, K, N, 2))
-    s = torch.from_numpy(_scale(w.numpy()))
-    x = (torch.from_numpy(rng.integers(-2, 2, size=(M, K)) * 0.25
-                          + rng.normal(size=K) * 0.05).to(dtype))
-    n = 2.0
-    # the codes are odd integers: exact in the bf16 panel
-    assert torch.equal(_odd_codes(w, s, n).to(torch.bfloat16).float(),
-                       _odd_codes(w, s, n))
-    y = _k4_tc(x, w, s, n, seed=K)
-    ref = ps.pallas_statsq_fwd_reference(x, w, s, n)
-    abs_sum = ps._acc32(x.abs(), ps._quant_tile(w, s, n).abs())
-    assert bool(_k45_limit(y, ref, abs_sum).all())
-
-
-@pytest.mark.parametrize("bits", [1, 2, 3, 4, 6])
-def test_k4_panel_codes_read_back(bits):
-    """x = the identity puts each level alone in its output, so the odd
-    codes read back from the factored form, y / (s / (2 n)), equal the
-    plain version's level codes at every (k, n), StatsQ ties included:
-    what the card test `test_k4_codes_are_exact` holds the kernel to."""
-    rng = np.random.default_rng(bits)
-    K, N = 96, 40
-    n = float(2 ** (bits - 1))
-    w = torch.from_numpy(_weight(rng, K, N, int(n)))
-    s = torch.from_numpy(_scale(w.numpy()))
-    eye = torch.eye(K, dtype=torch.bfloat16)
-    y = _k4_tc(eye, w, s, n, seed=bits).float()
-    c = torch.round(y / (s / (2 * n)))
-    lv = torch.round(torch.clamp(w / s, -1.0, 1.0 - 1e-6) * n - 0.5)
-    assert int((c != 2 * lv + 1).sum()) == 0
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_k4_plain_matches_pallas(dtype):
-    rng = np.random.default_rng(5)
-    M, K, N = 37, 200, 72
-    w = _weight(rng, K, N, 2)
-    s = np.asarray(jps.statsq_scale(jnp.asarray(w)))
-    x = rng.normal(size=(M, K)).astype(F32)
-    xt = torch.from_numpy(x).to(getattr(torch, dtype))
-    xj = jnp.asarray(xt.float().numpy(), getattr(jnp, dtype))
-    want = np.asarray(jps._fwd_call(xj, jnp.asarray(w), jnp.asarray(s), 2,
-                                    interpret=True).astype(jnp.float32))
-    got = ps.pallas_statsq_fwd_reference(xt, torch.from_numpy(w),
-                                         torch.from_numpy(s.copy()),
-                                         2.0).float()
-    lim = (2 ** -7 * np.maximum(np.abs(want), np.abs(got.numpy()))
-           if dtype == "bfloat16" else 1e-5 * (1 + np.abs(want)))
-    assert np.all(np.abs(got.numpy() - want) <= lim)
-
-
-def test_k4_tensor_core_form_matches_pallas():
-    """The emulated K4-bf16 against the JAX package's `_fwd_call` in
-    interpret mode, both in bf16: within `_k45_limit` plus the plain
-    version's own distance from the Pallas kernel (one bf16 ulp)."""
-    rng = np.random.default_rng(6)
-    M, K, N = 37, 200, 72
-    w = _weight(rng, K, N, 2)
-    s = np.asarray(jps.statsq_scale(jnp.asarray(w)))
-    xt = torch.from_numpy(rng.normal(size=(M, K)).astype(F32)).to(
-        torch.bfloat16)
-    want = torch.from_numpy(np.array(jps._fwd_call(
-        jnp.asarray(xt.float().numpy(), jnp.bfloat16), jnp.asarray(w),
-        jnp.asarray(s), 2, interpret=True).astype(jnp.float32)))
-    wt, st = torch.from_numpy(w), torch.from_numpy(s.copy())
-    y = _k4_tc(xt, wt, st, 2.0, seed=K).float()
-    abs_sum = ps._acc32(xt.abs(), ps._quant_tile(wt, st, 2.0).abs())
-    lim = (1e-5 * abs_sum
-           + 2 ** -6 * torch.maximum(y.abs(), want.abs()))
-    assert bool(((y - want).abs() <= lim).all())
 
 
 def _k1_codes(x, s, n_tok, b_pre, w, s_w, lo, hi, n_w):
