@@ -92,9 +92,10 @@ kernel path no farther from it than the plain path allows (BLOCK_ROWS and
 what follows it), and each whole-step gradient no farther than twice its
 order spread (the plain path summed in other legitimate fp32 orders,
 `summed_in_chunks`) plus a floor.
-With --baseline, phases 3 and 4b also time the earlier tree's K1 and
-K3-bf16 at the same shapes (both through their C launchers alone), and
-the run ends with the sums over each kernel's launches on its path.  The
+With --baseline, phases 3 and 4b also time the earlier tree's K1 and K3
+(both streams) at the same shapes, both through their C launchers alone,
+count the output elements where the two differ, and the run ends with
+the sums over K1's and K3-bf16's launches on their paths.  The
 line before the last is a JSON object with every kernel's numbers (times
 in ms, CUDA events; bounds from the H100 SXM data sheet); the last line is
 {"ok": true, "device": {...}}.  Full results also go to
@@ -316,24 +317,26 @@ def raw_k1(lib, args):
 
 
 def raw_k3(lib, args):
-    """K3-bf16's C launcher in `lib` (the current tree's or an earlier
-    one's: the same C signature) called straight on `args`
-    (qkr_attention_bwd's, bf16) into outputs and scratch allocated once;
-    the scratch rows are N rounded up to 8 apart, room for either tree."""
+    """K3's C launcher for the stream dtype of `args` (qkr_attention_bwd's)
+    in `lib` (the current tree's or an earlier one's: the same C
+    signatures) called straight on `args` into outputs and scratch
+    allocated once; the scratch rows are N rounded up to 8 apart, room
+    for either tree."""
     import ctypes
     import torch
     lhs, rhs, v, s, g, bits, sm_scale, quantize = args
     B, N, H, K = rhs.shape
     d = v.shape[-1]
     ldp = -(-N // 8) * 8
-    st = dict(dtype=torch.bfloat16, device=rhs.device)
+    st = dict(dtype=v.dtype, device=rhs.device)
     outs = [torch.empty(lhs.shape, **st), torch.empty(rhs.shape, **st),
             torch.empty(v.shape, **st),
             torch.empty((N,), dtype=torch.float32, device=rhs.device),
             torch.empty((B, H, N, ldp), **st),
             torch.empty((B, H, N, ldp), **st),
             torch.empty((B, H, N), dtype=torch.float32, device=rhs.device)]
-    fn = lib.ofq_qkr_attention_bwd_bf16
+    fn = getattr(lib, "ofq_qkr_attention_bwd"
+                 + ("_bf16" if v.dtype == torch.bfloat16 else ""))
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11
                    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
@@ -352,12 +355,25 @@ def raw_k3(lib, args):
     return run
 
 
-def _versus(raw_ms, base_ms):
+def _versus(raw_ms, base_ms, differing):
     """The before-and-after of a phase's log line (--baseline), or ''."""
     if base_ms is None:
         return ""
     return (f" (launcher alone {raw_ms:.4f} ms, the earlier kernel the "
-            f"same way {base_ms:.4f} ms)")
+            f"same way {base_ms:.4f} ms, {differing} output elements "
+            f"differing from it)")
+
+
+def against_earlier(current, earlier):
+    """(ms, earlier ms, output elements differing) of two launchers alone
+    (`raw_k1`/`raw_k3` runners) on the same inputs (--baseline)."""
+    ms, base_ms = median_ms(current), median_ms(earlier)
+    outs = [current(), earlier()]
+    outs = [o if isinstance(o, list) else [o] for o in outs]
+    # the cotangents and ds (K3), or y (K1); not K3's scratch
+    differing = sum(int((a != b).sum()) for a, b in zip(outs[0][:4],
+                                                        outs[1][:4]))
+    return ms, base_ms, differing
 
 
 def tc_design(shape):
@@ -446,11 +462,12 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
         ms = median_ms(lambda: fq.fused_qlinear_fwd(*args))
         plain_ms = median_ms(lambda: fq.fused_qlinear_fwd_reference(*args),
                              reps=10)
-        raw_ms = base_ms = None
+        raw_ms = base_ms = differing = None
         if base:
             from ofq_tpu_torch.ops import _build
-            raw_ms = median_ms(raw_k1(_build.load("fused_qlinear"), args))
-            base_ms = median_ms(raw_k1(base["fused_qlinear"], args))
+            raw_ms, base_ms, differing = against_earlier(
+                raw_k1(_build.load("fused_qlinear"), args),
+                raw_k1(base["fused_qlinear"], args))
         design = tc_design(fq.launch_shape(M, K, N, n_tok, a_lo, a_hi, n_w))
         xq = (torch.round(torch.clamp(
             (x + b_pre) / s.repeat(M // n_tok)[:, None], a_lo, a_hi))
@@ -463,7 +480,8 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
             f"{' unsigned' if all_pos else ''}: max|diff| {err:.3e} "
             f"(bound {1e-5 * scale:.3e}), {differing} elements differing, "
             f"{n_ties} LSQ and {w_ties} StatsQ ties; kernel "
-            f"({design['label']}) {ms:.4f} ms{_versus(raw_ms, base_ms)}, "
+            f"({design['label']}) {ms:.4f} ms"
+            f"{_versus(raw_ms, base_ms, differing)}, "
             f"plain "
             f"{plain_ms:.4f} ms, torch.matmul(x_q, w_q) "
             f"{mm_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -471,6 +489,7 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
                             all_positive=all_pos, main_path=main,
                             design=design, differing=differing,
                             raw_ms=raw_ms, baseline_raw_ms=base_ms,
+                            baseline_differing=differing,
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             matmul_ms=mm_ms, bound_ms=b_ms, bound_by=b_by,
                             bytes=nbytes, flops=flops, lsq_ties=n_ties,
@@ -602,8 +621,8 @@ def phase_k3(dev, N, B=BATCH, base=None):
     """K3, the attention backward, against its plain version, with the
     backward of F.scaled_dot_product_attention (LSQ off, lhs expanded per
     head, only the autograd.grad call timed) as the yardstick; with `base`
-    (--baseline) also the bf16 launcher alone, the current tree's and the
-    earlier one's."""
+    (--baseline) also the launcher alone, the current tree's and the
+    earlier one's, and the output elements where the two differ."""
     import torch
     import torch.nn.functional as F
     from ofq_tpu_torch.ops import fused_attention as fa
@@ -645,13 +664,12 @@ def phase_k3(dev, N, B=BATCH, base=None):
             ms = median_ms(lambda: fa.qkr_attention_bwd(*args))
             plain_ms = median_ms(
                 lambda: fa.qkr_attention_bwd_reference(*args), reps=10)
-            raw_ms = base_ms = None
-            if base and dtype == torch.bfloat16:
+            raw_ms = base_ms = differing = None
+            if base:
                 from ofq_tpu_torch.ops import _build
-                raw_ms = median_ms(raw_k3(_build.load("fused_attention_bwd"),
-                                          args))
-                base_ms = median_ms(raw_k3(base["fused_attention_bwd"],
-                                           args))
+                raw_ms, base_ms, differing = against_earlier(
+                    raw_k3(_build.load("fused_attention_bwd"), args),
+                    raw_k3(base["fused_attention_bwd"], args))
             q = (lhs[:, None].expand(B, H, N, K) if shared
                  else lhs.permute(0, 2, 1, 3)).contiguous().requires_grad_()
             kk = rhs.permute(0, 2, 1, 3).contiguous().requires_grad_()
@@ -669,7 +687,8 @@ def phase_k3(dev, N, B=BATCH, base=None):
                 f"{ds_share:.2e} of entries, "
                 f"{'rel L2 ' if quantize else 'max '}{ds_err:.2e}, max|diff| "
                 f"{err:.3e}; kernel ({_k3_design(dtype)}) {ms:.4f} ms"
-                f"{_versus(raw_ms, base_ms)}, plain {plain_ms:.4f} ms, "
+                f"{_versus(raw_ms, base_ms, differing)}, plain "
+                f"{plain_ms:.4f} ms, "
                 f"SDPA backward (unquantized, {dt}) {sdpa_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
                 f"{nbytes / 1e6:.1f} MB)")
@@ -679,6 +698,7 @@ def phase_k3(dev, N, B=BATCH, base=None):
                                 outside_share=shares, ds_share=ds_share,
                                 ds_err=ds_err, ms=ms, design=_k3_design(dtype),
                                 raw_ms=raw_ms, baseline_raw_ms=base_ms,
+                                baseline_differing=differing,
                                 plain_ms=plain_ms, sdpa_bwd_ms=sdpa_ms,
                                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                                 flops=flops, main_path=shared and quantize))
