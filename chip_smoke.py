@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
     python3 chip_smoke.py --profile  # also: device time by kernel (torch.profiler)
     python3 chip_smoke.py --baseline DIR
-        # also: K1's and K3's sources as an earlier tree DIR has them (a
-        # `git archive` of that commit), built and timed beside the current
-        # ones at the same shapes in the same run
+        # also: K1's, K3's, K7's and K8's sources as an earlier tree DIR
+        # has them (a `git archive` of that commit), built and timed beside
+        # the current ones at the same shapes in the same run
 
 Phases (any failure raises and the script exits non-zero):
   1. device: require CUDA and `nvidia-smi`'s name and power limit of the
@@ -71,7 +71,15 @@ Phases (any failure raises and the script exits non-zero):
      3 heads of 32, bf16) on the lab's seeded data, each at each lab
      parameter set, with times, the plain version's, SDPA's on the same
      q, k, v (the same function: the kernels' library time) and the
-     bound;
+     bound; K7 and K8 run on the tensor cores (TC_KERNELS: HMMA); K6's
+     three ablation forms (nodots, nosm, scoresonly) against their plain
+     versions (nodots bit-exact; scoresonly within one bf16 ulp plus the
+     fp32 summation bound; nosm under the tail gate with p := s), timed,
+     with their bounds;
+ 10b. the port's lab entry point (ofq_tpu_torch.benchmarks.
+     window_attn_lab): all 17 of the lab's variants once at its shapes
+     with its check (< 5e-2 against its XLA tail); no variant may raise
+     or fail, and every K6-K8 kernel and K6 form must launch;
  11. float Swin-T serving: the float model (the student's warm start and
      teacher) in the bf16 stream with bf16 parameters through `Predictor`,
      no kernel in its forward; K6-K8 at their default parameters on the
@@ -92,10 +100,11 @@ kernel path no farther from it than the plain path allows (BLOCK_ROWS and
 what follows it), and each whole-step gradient no farther than twice its
 order spread (the plain path summed in other legitimate fp32 orders,
 `summed_in_chunks`) plus a floor.
-With --baseline, phases 3 and 4b also time the earlier tree's K1 and K3
-(both streams) at the same shapes, both through their C launchers alone,
-count the output elements where the two differ, and the run ends with
-the sums over K1's and K3-bf16's launches on their paths.  The
+With --baseline, phases 3, 4b and 10 also time the earlier tree's K1, K3
+(both streams), K7 and K8 at the same shapes, both through their C
+launchers alone, count the output elements where the two differ, and
+the run ends with the sums over K1's and K3-bf16's launches on their
+paths and K7's and K8's times per launch.  The
 line before the last is a JSON object with every kernel's numbers (times
 in ms, CUDA events; bounds from the H100 SXM data sheet); the last line is
 {"ok": true, "device": {...}}.  Full results also go to
@@ -198,6 +207,8 @@ TC_KERNELS = {
     "fused_attention_bwd": [("qkr_bwd_rows_kernelI13__nv_bfloat16", "HMMA"),
                             ("qkr_bwd_cols_tc_kernel", "HMMA"),
                             ("qkr_bwd_dlhs_tc_kernel", "HMMA")],
+    # K7 and K8: window_attn_tc_kernel on either shared-memory layout
+    "window_attention": [("Swizzled64", "HMMA"), ("Slotted80", "HMMA")],
 }
 
 
@@ -253,8 +264,9 @@ def phase_build():
                 ptxas={n: reports.get(n, "") for n in REPORT_SOURCES})
 
 
-# the sources that --baseline builds from the earlier tree: K1, K3
-BASELINE_SOURCES = ("fused_qlinear", "fused_attention_bwd")
+# the sources that --baseline builds from the earlier tree: K1, K3, K7/K8
+BASELINE_SOURCES = ("fused_qlinear", "fused_attention_bwd",
+                    "window_attention")
 
 
 def build_baseline(root):
@@ -1956,21 +1968,26 @@ K678_CASES = [
 ]
 # the gate (PERF.md section 2): at most this share of the elements differ
 TAIL_DIFFERING = 1e-3
+# K6's ablation forms (the lab's units16_<form>, WB 16) and their switches
+K6_FORMS = {"nodots": dict(do_scores=False, do_out=False),
+            "nosm": dict(do_softmax=False),
+            "scoresonly": dict(do_softmax=False, do_out=False)}
 
 
-def _tail_gate(y, ref, q, k, v):
+def _tail_gate(y, ref, q, k, v, softmax=True):
     """K6-K8 against their plain version: every element within one bf16
-    ulp of itself, 2^-7 max(|y|, |ref|), plus 2^-8 sum_m p_m |v_m| (a
+    ulp of itself, 2^-7 max(|y|, |ref|), plus 2^-8 sum_m |p_m| |v_m| (a
     probability that rounds to bf16 the other way moves its output row by
-    up to 2^-8 p_m |v_m|), and at most TAIL_DIFFERING of the elements
-    differing at all.  Returns (max |diff|, worst |diff| / limit, share
+    up to 2^-8 |p_m v_m|), and at most TAIL_DIFFERING of the elements
+    differing at all; `softmax=False` (K6's nosm form, whose p is s) takes
+    the scores for p.  Returns (max |diff|, worst |diff| / limit, share
     differing)."""
     import torch
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * (
         q.shape[-1] ** -0.5)
-    pv = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(s, dim=-1),
-                      v.float().abs())
-    del s
+    p = torch.softmax(s, dim=-1) if softmax else s.abs()
+    pv = torch.einsum("bhnm,bmhd->bnhd", p, v.float().abs())
+    del s, p
     y32, r32 = y.float(), ref.float()
     d = (y32 - r32).abs()
     lim = 2 ** -7 * torch.maximum(y32.abs(), r32.abs()) + 2 ** -8 * pv
@@ -1978,9 +1995,44 @@ def _tail_gate(y, ref, q, k, v):
             float((d > 0).float().mean()))
 
 
-def _check_tail(what, y, ref, q, k, v):
+def _scores_gate(y, ref, q, k):
+    """K6's scoresonly form (out[b, i, h, j] = bf16(s[b, h, i, j]), j < 32)
+    against its plain version: both round to bf16 an fp32 sum of the same
+    32 exact products, taken in other orders, so every element within one
+    bf16 ulp, 2^-7 max(|y|, |ref|), plus twice the fp32 summation bound
+    32 * 2^-24 * d^-1/2 * sum_d |q_d k_d|, and at most TAIL_DIFFERING of
+    the elements differing.  Returns (max |diff|, worst |diff| / limit,
+    share differing)."""
     import torch
-    err, worst, share = _tail_gate(y, ref, q, k, v)
+    dd = q.shape[-1]
+    qk = torch.einsum("bnhd,bmhd->bnhm", q.float().abs(),
+                      k.float().abs())[..., :dd]
+    y32, r32 = y.float(), ref.float()
+    d = (y32 - r32).abs()
+    lim = (2 ** -7 * torch.maximum(y32.abs(), r32.abs())
+           + 2 * dd * 2 ** -24 * dd ** -0.5 * qk)
+    return (float(d.max()), float((d / lim.clamp_min(1e-30)).max()),
+            float((d > 0).float().mean()))
+
+
+def form_gate(form, y, ref, q, k, v):
+    """The gate of K6's form `form` ("full" or one of K6_FORMS): the tail
+    gate (nosm: with p := s), the scores gate (scoresonly), bit-exact
+    (nodots: exp(0) = 1, a sum of 49 ones and 1/49 are exact in every
+    order).  Returns (max |diff|, worst |diff| / limit, share differing)."""
+    if form == "nodots":
+        d = (y.float() - ref.float()).abs()
+        err = float(d.max())
+        return err, float("inf") if err > 0 else 0.0, float(
+            (d > 0).float().mean())
+    if form == "scoresonly":
+        return _scores_gate(y, ref, q, k)
+    return _tail_gate(y, ref, q, k, v, softmax=form != "nosm")
+
+
+def _check_tail(what, y, ref, q, k, v, form="full"):
+    import torch
+    err, worst, share = form_gate(form, y, ref, q, k, v)
     if not (torch.isfinite(y.float()).all() and worst <= 1.0
             and share <= TAIL_DIFFERING):
         raise AssertionError(
@@ -1989,19 +2041,54 @@ def _check_tail(what, y, ref, q, k, v):
     return err, worst, share
 
 
-def phase_k678(dev):
+def raw_k78(lib, fn_name, q, k, v, WB, P):
+    """K7's or K8's C launcher in `lib` (the current tree's or an earlier
+    one's: the same C signature) called straight on q, k, v into an output
+    allocated once (--baseline)."""
+    import ctypes
+    import torch
+    out = torch.empty_like(q)
+    fn = getattr(lib, f"ofq_{fn_name}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    Bn, _, H, d = q.shape
+    call = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), Bn, H,
+            WB, P, d ** -0.5, torch.cuda.current_stream().cuda_stream]
+
+    def run():
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"{fn_name} launcher: CUDA error {err}")
+        return out
+    return run
+
+
+def _k678_design(fn_name, H, P):
+    from ofq_tpu_torch.ops import window_attention as wa
+    smem = wa.smem_bytes(fn_name, H, P)
+    if fn_name == "window_attn_units":
+        return f"CUDA cores, one warp per query row, {smem} B shared"
+    layout = ("64-byte rows, swizzled chunks" if fn_name ==
+              "window_attn_packed" else "80-byte row slots")
+    return (f"tensor cores (mma.sync m16n8k16), {layout}, "
+            f"{wa.ring_stages(fn_name, P)}-stage cp.async ring, {smem} B "
+            f"shared, {min(4 * P, 16)} warps")
+
+
+def phase_k678(dev, base=None):
     """K6-K8 against their plain version at the lab's shapes, on the lab's
-    seeded data (`_data`: normal samples rounded to bf16), each at each lab
-    parameter set, with times, the plain version's, SDPA's on the same
-    q, k, v and the bound."""
-    import numpy as np
+    seeded data (`window_attn_lab._data`), each at each lab parameter set,
+    and K6's three ablation forms against theirs, with times, the plain
+    version's, SDPA's on the same q, k, v (the tail's function) and the
+    bound; with `base` (--baseline), K7's and K8's launchers beside the
+    earlier tree's on the same inputs."""
     import torch
     import torch.nn.functional as F
+    from ofq_tpu_torch.benchmarks import window_attn_lab as lab
+    from ofq_tpu_torch.ops import _build
     from ofq_tpu_torch.ops import window_attention as wa
-    rng = np.random.default_rng(0)
-    q, k, v = (torch.from_numpy(rng.normal(
-        size=(LAB_BN, LAB_N, LAB_H, LAB_D)).astype(np.float32)).to(
-            dev, torch.bfloat16) for _ in range(3))
+    q, k, v = lab._data(dev)
     ref = wa.window_attn_tail_reference(q, k, v)
     plain_ms = median_ms(lambda: wa.window_attn_tail_reference(q, k, v),
                          reps=10)
@@ -2009,7 +2096,8 @@ def phase_k678(dev):
     sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
     del qh, kh, vh
     nbytes = 4 * q.numel() * 2
-    flops = 4 * LAB_BN * LAB_H * LAB_N * LAB_N * LAB_D
+    product = 2 * LAB_BN * LAB_H * LAB_N * LAB_N * LAB_D
+    flops = 2 * product
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     results = []
     for key, fn_name, kw in K678_CASES:
@@ -2018,20 +2106,87 @@ def phase_k678(dev):
         torch.cuda.synchronize()
         err, worst, share = _check_tail(f"{key} {kw}", y, ref, q, k, v)
         ms = median_ms(lambda: fn(q, k, v, **kw))
+        design = _k678_design(fn_name, LAB_H, kw.get("P", LAB_H))
+        versus = {}
+        if base is not None and key in ("K7", "K8"):
+            cur = raw_k78(_build.load("window_attention"), fn_name, q, k, v,
+                          kw["WB"], kw["P"])
+            old = raw_k78(base["window_attention"], fn_name, q, k, v,
+                          kw["WB"], kw["P"])
+            raw_ms, base_ms, differing = against_earlier(cur, old)
+            versus = dict(raw_ms=raw_ms, baseline_raw_ms=base_ms,
+                          baseline_differing=differing)
         log(f"[{key}] {fn_name} {kw} (Bn={LAB_BN}, n={LAB_N}, H={LAB_H}, "
-            f"d={LAB_D}): max|diff| {err:.3e}, worst |diff|/limit "
+            f"d={LAB_D}; {design}): max|diff| {err:.3e}, worst |diff|/limit "
             f"{worst:.3f}, {share:.2e} of the elements differ; kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {sdpa_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB)")
-        results.append(dict(kernel=key, name=fn_name, params=kw,
-                            default=kw == K678_DEFAULT[key], max_abs_err=err,
+            f"{nbytes / 1e6:.1f} MB)"
+            + _versus(versus.get("raw_ms"), versus.get("baseline_raw_ms"),
+                      versus.get("baseline_differing")))
+        results.append(dict(kernel=key, name=fn_name, form="full",
+                            params=kw, default=kw == K678_DEFAULT[key],
+                            design=design, max_abs_err=err,
                             worst_ratio=worst, differing=share, ms=ms,
                             plain_ms=plain_ms, sdpa_ms=sdpa_ms,
                             bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                            flops=flops))
+                            flops=flops, **versus))
         del y
+    for form, switches in K6_FORMS.items():
+        y = wa.window_attn_units(q, k, v, WB=16, **switches)
+        want = wa.window_attn_units_reference(q, k, v, **switches)
+        torch.cuda.synchronize()
+        err, worst, share = _check_tail(f"K6 {form}", y, want, q, k, v,
+                                        form=form)
+        ms = median_ms(lambda: wa.window_attn_units(q, k, v, WB=16,
+                                                    **switches))
+        form_plain_ms = median_ms(lambda: wa.window_attn_units_reference(
+            q, k, v, **switches), reps=10)
+        # the products the form runs: q k^T unless nodots, p v unless
+        # do_out is off
+        f_flops = product * (switches.get("do_scores", True)
+                             + switches.get("do_out", True))
+        f_ms, f_by = bound(nbytes, f_flops, PEAK_BF16_FLOPS)
+        log(f"[K6 {form}] window_attn_units(WB=16, {switches}): max|diff| "
+            f"{err:.3e}, worst |diff|/limit {worst:.3f}, {share:.2e} of the "
+            f"elements differ; kernel {ms:.4f} ms, plain {form_plain_ms:.4f}"
+            f" ms, bound {f_ms:.4f} ms ({f_by}; {f_flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        results.append(dict(kernel="K6", name="window_attn_units", form=form,
+                            params=dict(WB=16, **switches), default=False,
+                            design=_k678_design("window_attn_units", LAB_H,
+                                                LAB_H),
+                            max_abs_err=err, worst_ratio=worst,
+                            differing=share, ms=ms, plain_ms=form_plain_ms,
+                            sdpa_ms=None, bound_ms=f_ms, bound_by=f_by,
+                            bytes=nbytes, flops=f_flops))
+        del y, want
     return results
+
+
+def phase_lab(dev):
+    """The port's lab entry point (`ofq_tpu_torch.benchmarks.
+    window_attn_lab`), all 17 of the lab's variants once at the lab's
+    shapes with its check: no variant may raise or miss the check, and
+    every K6-K8 kernel and K6 form must launch (counts set to 0 just
+    before, read just after)."""
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.benchmarks import window_attn_lab as lab
+    q, k, v = lab._data(dev)
+    ops.reset_launch_counts()
+    out, raised, bad = lab.run(q, k, v, list(lab.VARIANTS), check=True,
+                               emit=lambda obj: log(f"[lab] "
+                                                    f"{json.dumps(obj)}"))
+    launches = {name: n for name, n in ops.launch_counts().items()
+                if name.startswith("window_attn")}
+    if raised or bad:
+        raise AssertionError(f"the lab's entry point: variants raised "
+                             f"{raised}, checks failed {bad}")
+    if not all(launches.values()):
+        raise AssertionError(f"the lab's run left a kernel unlaunched: "
+                             f"{launches}")
+    log(f"[lab] launches {launches}")
+    return dict(results=out, launches=launches)
 
 
 def phase_swin_float(dev, batch=BATCH):
@@ -2095,10 +2250,15 @@ def phase_swin_float(dev, batch=BATCH):
             log(f"[swin-float] {fn.__name__} on the q, k, v of {name}: "
                 f"max|diff| {err:.3e}, worst |diff|/limit {worst:.3f}, "
                 f"{share:.2e} of the elements differ")
-    k678_launches = {k: v for k, v in ops.launch_counts().items()
-                     if k.startswith("window_attn")}
-    if set(k678_launches.values()) != {2}:
-        raise AssertionError(f"K6-K8 launches {k678_launches}, want 2 each")
+    counts = ops.launch_counts()
+    k678_launches = {fn.__name__: counts[fn.__name__]
+                     for fn in (wa.window_attn_units, wa.window_attn_packed,
+                                wa.window_attn_packed_aligned)}
+    forms = {k: v for k, v in counts.items()
+             if k.startswith("window_attn") and k not in k678_launches}
+    if set(k678_launches.values()) != {2} or any(forms.values()):
+        raise AssertionError(f"K6-K8 launches {k678_launches}, want 2 each "
+                             f"(and no ablation form: {forms})")
     del qkv, q, k, v, ref, y
 
     def rate(n_calls=10):
@@ -2168,7 +2328,8 @@ def compare_baseline(full):
     """The redesigned kernels' times summed over their launches on a path,
     the current launchers' and the earlier tree's (--baseline), each
     launcher alone into preallocated outputs, and the ratio: K1 over a
-    fused step's 36, K3-bf16 over a fused bf16 step's 12."""
+    fused step's 36, K3-bf16 over a fused bf16 step's 12, K7 and K8 at
+    their defaults per launch."""
     shapes = full["train"]["launch_shapes"]
     k3_launches = full["train_fused_bf16"]["launches"]["qkr_attention_bwd"]
     sums = {
@@ -2178,6 +2339,10 @@ def compare_baseline(full):
         "K3-bf16, fused bf16 DeiT-S train step": [
             (k3_launches, r) for r in full["k3"]
             if r["main_path"] and r["dtype"] == "bfloat16"]}
+    for r in full["k678"]:
+        if r["default"] and "raw_ms" in r:
+            sums[f"{r['kernel']} {r['name']} {r['params']}, one launch at "
+                 f"the lab's shapes"] = [(1, r)]
     out = {}
     for what, pairs in sums.items():
         n = sum(c for c, _ in pairs)
@@ -2239,7 +2404,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     full["gate_selfcheck"] = phase_gate_selfcheck(dev)
     torch.cuda.empty_cache()
-    full["k678"] = phase_k678(dev)
+    full["k678"] = phase_k678(dev, base=base)
+    torch.cuda.empty_cache()
+    full["lab"] = phase_lab(dev)
     torch.cuda.empty_cache()
     full["swin_float"] = phase_swin_float(dev)
     torch.cuda.empty_cache()
@@ -2327,20 +2494,29 @@ def main() -> int:
             path="Swin-T W2A2 QKR pallas bf16 serving forward",
             design=r["design"]))
     captured = full["swin_float"]["captured"]
+    lab_launches = full["lab"]["launches"]
     for r in full["k678"]:
-        if r["default"]:
+        if r["form"] != "full":
+            kernels.append(_kernel_row(
+                f"{r['name']} {r['form']} {r['params']} ({LAB_BN}x{LAB_N}x"
+                f"{LAB_H}x{LAB_D} bf16)", srcs["K6"],
+                lab_launches[f"{r['name']}_{r['form']}"], r,
+                path="the port's lab entry point (units16_"
+                     f"{r['form']})", design=r["design"]))
+        elif r["default"]:
             kernels.append(_kernel_row(
                 f"{r['name']} {r['params']} ({LAB_BN}x{LAB_N}x{LAB_H}x"
                 f"{LAB_D} bf16)", srcs[r["kernel"]],
-                full["swin_float"]["k678_launches"][r["name"]],
+                lab_launches[r["name"]],
                 dict(r, max_abs_err=max([r["max_abs_err"]] + [
                     c["max_abs_err"] for c in captured
                     if c["name"] == r["name"]])),
-                path="the lab's run and the q, k, v of the float Swin-T's "
-                     "two stage-0 blocks, captured with hooks",
+                path="the port's lab entry point, and the q, k, v of the "
+                     "float Swin-T's two stage-0 blocks, captured with hooks",
+                captured_launches=full["swin_float"]["k678_launches"][
+                    r["name"]],
                 # softmax(q k^T d^-1/2) v: SDPA computes the same function
-                library_ms=r["sdpa_ms"],
-                design="CUDA cores, one warp per query row"))
+                library_ms=r["sdpa_ms"], design=r["design"]))
     if any(k["launches"] <= 0 for k in kernels if k["path"] is not None):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{kernels}")

@@ -7,6 +7,7 @@ its first launch on a CUDA tensor (see `_build.py`).
 from .fused_attention import qkr_attention_bwd, qkr_attention_fwd
 from .fused_qlinear import fused_qlinear_fwd
 from .pallas_statsq import pallas_statsq_dx, pallas_statsq_fwd
+from . import window_attention
 from .window_attention import (window_attn_packed, window_attn_packed_aligned,
                                window_attn_units)
 
@@ -21,11 +22,16 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "launch_shapes"):
             fn.launch_shapes.clear()
+    window_attention.reset_launches()
 
 
 def launch_counts() -> dict[str, int]:
-    """Every kernel wrapper's launch count, by wrapper name."""
-    return {fn.__name__: fn.launches for fn in _COUNTED}
+    """Every kernel wrapper's launch count, by wrapper name; K6's ablation
+    forms as `window_attn_units_<form>`."""
+    counts = {fn.__name__: fn.launches for fn in _COUNTED}
+    for name, n in window_attn_units.ablation_launches.items():
+        counts[f"window_attn_units_{name}"] = n
+    return counts
 
 
 __all__ = ["fused_qlinear_fwd", "launch_counts", "pallas_statsq_dx",

@@ -16,10 +16,13 @@ parameters:
     K8  window_attn_packed_aligned(q, k, v, WB=16, P=4)   `pallas_packed_aligned`
 
 WB windows per thread block (Bn % WB == 0), P units per pass through
-shared memory (K7: H when None; (WB * H) % P == 0).  The wrappers check
-these constraints, and bf16, n = 49, d = 32, on every device; then a CUDA
-tensor goes to the kernel and a CPU tensor to the plain version
-`window_attn_tail_reference`.  They have no backward (the lab kernels
+shared memory (K7: H when None; (WB * H) % P == 0).  K6 also takes the
+lab's ablation switches (`do_scores`, `do_softmax`, `do_out`) in the three
+forms the lab runs, timing probes that replace the q k^T product, the
+softmax or the p v product (`window_attn_units_reference`); each form
+counts its own launches.  The wrappers check these constraints, and bf16,
+n = 49, d = 32, on every device; then a CUDA tensor goes to the kernel and
+a CPU tensor to the plain version.  They have no backward (the lab kernels
 have none): called on a tensor that requires grad, with grad mode on,
 they raise.  The Swin models do not call them: their tail also adds the
 relative-position bias and the shift mask.
@@ -28,6 +31,7 @@ relative-position bias and the shift mask.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,18 +41,47 @@ from .fused_attention import _MAX_SMEM, on_card, refuse_graph_cut
 N_TOKENS, HEAD_DIM = 49, 32
 _VARIANT = {"window_attn_units": 0, "window_attn_packed": 1,
             "window_attn_packed_aligned": 2}
+# K6's forms, (do_scores, do_softmax, do_out) -> the kernel's flags and the
+# name of an ablation in the lab's VARIANTS (`units16_<name>`)
+_FORMS = {(True, True, True): (7, None),
+          (False, True, False): (2, "nodots"),
+          (True, False, True): (5, "nosm"),
+          (True, False, False): (1, "scoresonly")}
+ABLATIONS = tuple(name for _, name in _FORMS.values() if name)
+
+
+def window_attn_units_reference(q, k, v, do_scores=True, do_softmax=True,
+                                do_out=True):
+    """Plain PyTorch version of K6 in each form; with the three switches on,
+    the tail of K6-K8: fp32 einsum, times d^-1/2 in fp32, fp32 softmax
+    (e / sum e), p rounded to bf16, fp32 einsum with v, the output rounded
+    to bf16.  The lab's ablations (`_mk_kernel`): without do_scores,
+    s[b, h, i, j] = q[b, i, h, 0] for every key j, not scaled; without
+    do_softmax, p = s in fp32; without do_out, out[b, i, h, c] = p[b, h, i,
+    c] for c < d, rounded to bf16."""
+    Bn, n, H, d = q.shape
+    if do_scores:
+        scale = float(torch.tensor(d ** -0.5, dtype=torch.float32))
+        s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    else:
+        s = q[..., 0].float().transpose(1, 2)[..., None].expand(Bn, H, n, n)
+    if do_softmax:
+        e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+        p = e / torch.sum(e, dim=-1, keepdim=True)
+    else:
+        p = s
+    if do_out:
+        out = torch.einsum("bhnm,bmhd->bnhd",
+                           p.to(torch.bfloat16).float(), v.float())
+    else:
+        out = p[..., :d].transpose(1, 2)
+    return out.to(torch.bfloat16)
 
 
 def window_attn_tail_reference(q, k, v):
-    """Plain PyTorch version of K6-K8: fp32 einsum, times d^-1/2 in fp32,
-    fp32 softmax (e / sum e), p rounded to bf16, fp32 einsum with v, the
-    output rounded to bf16."""
-    scale = float(torch.tensor(q.shape[-1] ** -0.5, dtype=torch.float32))
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
-    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
-    p = (e / torch.sum(e, dim=-1, keepdim=True)).to(torch.bfloat16)
-    out = torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float())
-    return out.to(torch.bfloat16)
+    """Plain PyTorch version of K6-K8 (`window_attn_units_reference` with
+    every switch on)."""
+    return window_attn_units_reference(q, k, v)
 
 
 def _check(what, q, k, v, WB, P):
@@ -72,30 +105,84 @@ def _check(what, q, k, v, WB, P):
         raise ValueError(f"{what}: P={P} must divide WB*H={WB * H}")
 
 
-def _launch(what, q, k, v, WB, P):
-    lib = _build.load("window_attention")
-    smem_fn = lib.ofq_window_attn_smem
-    smem_fn.restype = ctypes.c_longlong
-    smem_fn.argtypes = [ctypes.c_int] * 3
+# the library's C functions with their ctypes signatures, set once
+_FNS: dict = {}
+
+
+def _lib_fn(name, restype, argtypes):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load("window_attention"), name)
+        fn.restype, fn.argtypes = restype, argtypes
+        _FNS[name] = fn
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes(what, H, P):
+    """Dynamic shared memory of one block of kernel `what` (a wrapper's
+    name) at H heads and P units per pass, as the built library has it."""
+    return _lib_fn("ofq_window_attn_smem", ctypes.c_longlong,
+                   [ctypes.c_int] * 3)(_VARIANT[what], H, P)
+
+
+def ring_stages(what, P):
+    """The stages of K7's or K8's shared-memory ring at P units per pass
+    (two where they fit; K6: 1)."""
+    return _lib_fn("ofq_window_attn_stages", ctypes.c_int,
+                   [ctypes.c_int] * 2)(_VARIANT[what], P)
+
+
+def _launch(what, q, k, v, WB, P, flags):
     Bn, _, H, d = q.shape
-    smem = smem_fn(_VARIANT[what], H, P)
+    smem = smem_bytes(what, H, P)
     if smem > _MAX_SMEM:
         raise ValueError(f"{what}: H={H}, P={P} needs {smem} bytes of shared "
                          f"memory per block, more than the card's {_MAX_SMEM}")
     for t in (q, k, v):
-        # 16-byte vector accesses (K8) and 4-byte rows (all)
+        # 16-byte vector copies (K7, K8) and 4-byte rows (all)
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: operands must be 16-byte aligned")
-    fn = getattr(lib, f"ofq_{what}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
+    # K6: (..., Bn, H, WB, sm, flags, stream); K7, K8: (..., Bn, H, WB, P,
+    # sm, stream)
+    ints = [Bn, H, WB] if flags is not None else [Bn, H, WB, P]
+    tail = [flags] if flags is not None else []
+    fn = _lib_fn(f"ofq_{what}", ctypes.c_int,
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * len(ints)
+                 + [ctypes.c_float] + [ctypes.c_int] * len(tail)
+                 + [ctypes.c_void_p])
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 Bn, H, WB, P, d ** -0.5, stream)
-    _build.check(lib, err, what)
+                 *ints, d ** -0.5, *tail, stream)
+    _build.check(_build.load("window_attention"), err, what)
+    return out
+
+
+def window_attn_units(q, k, v, WB=16, do_scores=True, do_softmax=True,
+                      do_out=True):
+    """K6: WB windows per block, one window's H units per pass; in the full
+    form or one of the lab's three ablations (`ABLATIONS`: nodots =
+    do_scores and do_out off, nosm = do_softmax off, scoresonly =
+    do_softmax and do_out off), each counted on its own
+    (`window_attn_units.launches`, `.ablation_launches[name]`)."""
+    what = "window_attn_units"
+    form = (bool(do_scores), bool(do_softmax), bool(do_out))
+    if form not in _FORMS:
+        raise ValueError(
+            f"{what}: do_scores={form[0]}, do_softmax={form[1]}, "
+            f"do_out={form[2]} is none of the lab's forms (the full tail, "
+            f"{', '.join(ABLATIONS)})")
+    _check(what, q, k, v, WB, q.shape[2])
+    if not on_card(q):
+        return window_attn_units_reference(q, k, v, *form)
+    flags, name = _FORMS[form]
+    out = _launch(what, q, k, v, WB, q.shape[2], flags)
+    if name is None:
+        window_attn_units.launches += 1
+    else:
+        window_attn_units.ablation_launches[name] += 1
     return out
 
 
@@ -104,27 +191,29 @@ def _run(fn, q, k, v, WB, P):
     _check(what, q, k, v, WB, P)
     if not on_card(q):
         return window_attn_tail_reference(q, k, v)
-    out = _launch(what, q, k, v, WB, P)
+    out = _launch(what, q, k, v, WB, P, None)
     fn.launches += 1
     return out
 
 
-def window_attn_units(q, k, v, WB=16):
-    """K6: WB windows per block, one window's H units per pass."""
-    return _run(window_attn_units, q, k, v, WB, q.shape[2])
-
-
 def window_attn_packed(q, k, v, WB=16, P=None):
-    """K7: P units per pass (H when None), padded to 64 tokens, packed."""
+    """K7: P units per pass (H when None), each unit's rows packed densely
+    (64 bytes, swizzled), on the tensor cores."""
     return _run(window_attn_packed, q, k, v, WB, P or q.shape[2])
 
 
 def window_attn_packed_aligned(q, k, v, WB=16, P=4):
-    """K8: as K7, each unit's operands in their own aligned tile."""
+    """K8: as K7, each of a unit's rows in its own aligned 80-byte slot."""
     return _run(window_attn_packed_aligned, q, k, v, WB, P)
 
 
+def reset_launches():
+    """Set the launch counts of K6 (every form), K7 and K8 to 0."""
+    for fn in (window_attn_units, window_attn_packed,
+               window_attn_packed_aligned):
+        fn.launches = 0
+    window_attn_units.ablation_launches = dict.fromkeys(ABLATIONS, 0)
+
+
 # launches of the CUDA kernels; the CPU and comparison paths do not count
-for _fn in (window_attn_units, window_attn_packed,
-            window_attn_packed_aligned):
-    _fn.launches = 0
+reset_launches()

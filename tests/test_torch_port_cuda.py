@@ -488,3 +488,66 @@ def test_k678_refuse_on_card(dev):
         wa.window_attn_packed_aligned(shifted, k, v)
     with pytest.raises(RuntimeError, match="requires grad"):
         wa.window_attn_packed(q.float().requires_grad_().bfloat16(), k, v)
+
+
+# K7 and K8 (tensor cores) at every lab parameter set, on 256 windows and
+# on 403 blocks: 3 x 132 + 7, a partial last wave at 1, 2 or 3 blocks per SM
+K78_CASES = [(name, kw) for key, name, kw in chip_smoke.K678_CASES
+             if key in ("K7", "K8")]
+
+
+@pytest.mark.parametrize("blocks", [None, 403])
+@pytest.mark.parametrize("name,kw", K78_CASES)
+def test_k78_tensor_cores_match_plain(dev, name, kw, blocks):
+    from ofq_tpu_torch.ops import window_attention as wa
+    fn = getattr(wa, name)
+    Bn = 256 if blocks is None else kw["WB"] * blocks
+    q, k, v = _tail_args(dev, Bn, seed=2)
+    before = fn.launches
+    y = fn(q, k, v, **kw)
+    assert fn.launches == before + 1
+    ref = wa.window_attn_tail_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+    ok, worst, share = tail_within_gate(y, ref, q, k, v)
+    assert ok, (worst, share)
+
+
+@pytest.mark.parametrize("name,kw", K78_CASES)
+def test_k78_read_no_row_past_a_window(dev, name, kw):
+    """q, k, v as contiguous leading slices of buffers filled with NaN past
+    their end: the padded rows 49-63 are zero-filled in shared memory and
+    never read from global memory, so the output stays finite."""
+    from ofq_tpu_torch.ops import window_attention as wa
+    fn = getattr(wa, name)
+    clean = _tail_args(dev, 256, seed=3)
+    spare = 2 * 49 * 3 * 32
+    held = []
+    for t in clean:
+        buf = torch.full((t.numel() + spare,), float("nan"), device=dev,
+                         dtype=torch.bfloat16)
+        buf[:t.numel()] = t.reshape(-1)
+        held.append(buf[:t.numel()].view(t.shape))
+    y = fn(*held, **kw)
+    ref = wa.window_attn_tail_reference(*clean)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all()
+    ok, worst, share = tail_within_gate(y, ref, *clean)
+    assert ok, (worst, share)
+
+
+@pytest.mark.parametrize("form", sorted(chip_smoke.K6_FORMS))
+def test_k6_ablation_forms_match_plain(dev, form):
+    """K6's ablation forms under their gates (chip_smoke.form_gate), each
+    counted as its own launch."""
+    from ofq_tpu_torch.ops import window_attention as wa
+    switches = chip_smoke.K6_FORMS[form]
+    q, k, v = _tail_args(dev, 256, seed=4)
+    before = dict(wa.window_attn_units.ablation_launches)
+    full = wa.window_attn_units.launches
+    y = wa.window_attn_units(q, k, v, WB=16, **switches)
+    assert wa.window_attn_units.ablation_launches[form] == before[form] + 1
+    assert wa.window_attn_units.launches == full
+    ref = wa.window_attn_units_reference(q, k, v, **switches)
+    torch.cuda.synchronize()
+    chip_smoke._check_tail(f"K6 {form}", y, ref, q, k, v, form=form)

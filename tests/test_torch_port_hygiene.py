@@ -46,6 +46,7 @@ def test_import_loads_no_jax():
         "import ofq_tpu_torch.convert, ofq_tpu_torch.models\n"
         "import ofq_tpu_torch.train, ofq_tpu_torch.train.loop\n"
         "import ofq_tpu_torch.models.swin, ofq_tpu_torch.ops.window_attention\n"
+        "import ofq_tpu_torch.benchmarks.window_attn_lab\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'ofq_tpu', 'benchmarks', 'window_attn_lab') or m.startswith(("
         "'jax.', 'flax.', 'ofq_tpu.', 'benchmarks.')))\n"
