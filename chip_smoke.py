@@ -2041,6 +2041,23 @@ def _check_tail(what, y, ref, q, k, v, form="full"):
     return err, worst, share
 
 
+def form_work(do_scores=True, do_softmax=True, do_out=True):
+    """The bytes and operations of the tail in K6's form with these
+    switches (all on: the tail of K6-K8) at the lab's shapes, counted from
+    what its function needs: q whole for q k^T, else only its column 0
+    (nodots' scores); k's first 32 keys when only those score columns
+    reach the output (do_out off), else all 49; v for p v only; the output
+    always.  Operations: q k^T over the key columns kept, and p v."""
+    unit = LAB_BN * LAB_H * LAB_N * LAB_D  # elements of q, k, v or out
+    keys = LAB_N if do_out else LAB_D
+    elems = unit + (unit if do_scores else unit // LAB_D)
+    elems += unit * keys // LAB_N if do_scores else 0
+    elems += unit if do_out else 0
+    flops = (2 * LAB_BN * LAB_H * LAB_N * keys * LAB_D * do_scores
+             + 2 * LAB_BN * LAB_H * LAB_N * LAB_N * LAB_D * do_out)
+    return 2 * elems, flops
+
+
 def raw_k78(lib, fn_name, q, k, v, WB, P):
     """K7's or K8's C launcher in `lib` (the current tree's or an earlier
     one's: the same C signature) called straight on q, k, v into an output
@@ -2066,14 +2083,14 @@ def raw_k78(lib, fn_name, q, k, v, WB, P):
 
 def _k678_design(fn_name, H, P):
     from ofq_tpu_torch.ops import window_attention as wa
-    smem = wa.smem_bytes(fn_name, H, P)
+    smem, stages, warps = wa.launch_config(fn_name, H, P)
     if fn_name == "window_attn_units":
-        return f"CUDA cores, one warp per query row, {smem} B shared"
+        return (f"CUDA cores, one warp per query row, {smem} B shared, "
+                f"{warps} warps")
     layout = ("64-byte rows, swizzled chunks" if fn_name ==
               "window_attn_packed" else "80-byte row slots")
     return (f"tensor cores (mma.sync m16n8k16), {layout}, "
-            f"{wa.ring_stages(fn_name, P)}-stage cp.async ring, {smem} B "
-            f"shared, {min(4 * P, 16)} warps")
+            f"{stages}-stage cp.async ring, {smem} B shared, {warps} warps")
 
 
 def phase_k678(dev, base=None):
@@ -2095,9 +2112,7 @@ def phase_k678(dev, base=None):
     qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
     sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
     del qh, kh, vh
-    nbytes = 4 * q.numel() * 2
-    product = 2 * LAB_BN * LAB_H * LAB_N * LAB_N * LAB_D
-    flops = 2 * product
+    nbytes, flops = form_work()
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     results = []
     for key, fn_name, kw in K678_CASES:
@@ -2142,16 +2157,13 @@ def phase_k678(dev, base=None):
                                                     **switches))
         form_plain_ms = median_ms(lambda: wa.window_attn_units_reference(
             q, k, v, **switches), reps=10)
-        # the products the form runs: q k^T unless nodots, p v unless
-        # do_out is off
-        f_flops = product * (switches.get("do_scores", True)
-                             + switches.get("do_out", True))
-        f_ms, f_by = bound(nbytes, f_flops, PEAK_BF16_FLOPS)
+        f_bytes, f_flops = form_work(**switches)
+        f_ms, f_by = bound(f_bytes, f_flops, PEAK_BF16_FLOPS)
         log(f"[K6 {form}] window_attn_units(WB=16, {switches}): max|diff| "
             f"{err:.3e}, worst |diff|/limit {worst:.3f}, {share:.2e} of the "
             f"elements differ; kernel {ms:.4f} ms, plain {form_plain_ms:.4f}"
             f" ms, bound {f_ms:.4f} ms ({f_by}; {f_flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB)")
+            f"{f_bytes / 1e6:.1f} MB)")
         results.append(dict(kernel="K6", name="window_attn_units", form=form,
                             params=dict(WB=16, **switches), default=False,
                             design=_k678_design("window_attn_units", LAB_H,
@@ -2159,7 +2171,7 @@ def phase_k678(dev, base=None):
                             max_abs_err=err, worst_ratio=worst,
                             differing=share, ms=ms, plain_ms=form_plain_ms,
                             sdpa_ms=None, bound_ms=f_ms, bound_by=f_by,
-                            bytes=nbytes, flops=f_flops))
+                            bytes=f_bytes, flops=f_flops))
         del y, want
     return results
 

@@ -119,12 +119,11 @@ CHECKED = tuple(name for name in VARIANTS
                 and "no" not in name and "only" not in name)
 
 
-def median_ms(fn, reps=20):
+def median_ms(fn, device, reps=20):
     """Median ms of `reps` calls of `fn` after one more: CUDA events when
-    the current device is a card (`torch.cuda.is_initialized()` after a
-    call on one), else the host clock."""
+    `fn` runs on `device` of type cuda, else the host clock."""
     fn()
-    on_card = torch.cuda.is_available() and torch.cuda.is_initialized()
+    on_card = torch.device(device).type == "cuda"
     times = []
     for _ in range(reps):
         if on_card:
@@ -160,7 +159,7 @@ def run(q, k, v, names, check=False, emit=None):
                 err = float(torch.max(torch.abs(r.float() - ref.float())))
                 out[name + "_maxerr"] = err
                 emit({name + "_maxerr": err})
-            out[name] = median_ms(lambda: fn(q, k, v))
+            out[name] = median_ms(lambda: fn(q, k, v), q.device)
         except Exception as e:  # recorded, and the exit code says so
             out[name] = f"ERROR: {type(e).__name__}: {e}"[:160]
             raised.append(name)

@@ -247,6 +247,22 @@ constexpr int stages_for(int P) {
   return 2 * 2 * stage_bytes<L>(P) <= MAX_SMEM ? 2 : 1;
 }
 
+// How a kernel is launched: dynamic shared memory per block, ring stages,
+// warps per block.
+struct Launch {
+  size_t smem;
+  int stages, warps;
+};
+
+// K7's or K8's launch at P units per pass: one warp per 16-row tile of a
+// pass, at most TC_MAX_WARPS, so that a pass of up to 4 units takes one
+// round.
+template <class L>
+constexpr Launch tc_launch(int P) {
+  return {stages_for<L>(P) * stage_bytes<L>(P), stages_for<L>(P),
+          4 * P < TC_MAX_WARPS ? 4 * P : TC_MAX_WARPS};
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -400,7 +416,7 @@ __device__ __forceinline__ void unit_tile(bf16* Qs, const bf16* Ks,
 
 // Grid: Bn / WB blocks of WB * H units, P units per pass; the block's
 // passes go through `stages` ring buffers of q, k, v ([which][unit][MAT]);
-// min(4 P, 16) warps, so that a pass of up to 4 units takes one round.
+// any number of warps (`tc_launch` gives the count).
 template <class L>
 __global__ void __launch_bounds__(TC_MAX_WARPS * 32) window_attn_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -494,40 +510,33 @@ __global__ void __launch_bounds__(TC_MAX_WARPS * 32) window_attn_tc_kernel(
 template <class L>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int Bn,
               int H, int WB, int P, float sm, cudaStream_t stream) {
-  const int stages = stages_for<L>(P);
-  const size_t smem = stages * stage_bytes<L>(P);
+  const Launch c = tc_launch<L>(P);
   cudaError_t err = cudaFuncSetAttribute(
       window_attn_tc_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)c.smem);
   if (err != cudaSuccess) return (int)err;
-  const int warps = 4 * P < TC_MAX_WARPS ? 4 * P : TC_MAX_WARPS;
-  window_attn_tc_kernel<L><<<Bn / WB, 32 * warps, smem, stream>>>(
+  window_attn_tc_kernel<L><<<Bn / WB, 32 * c.warps, c.smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, WB, P,
-      stages, sm);
+      c.stages, sm);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block of variant `variant` (0: K6, 1: K7,
-// 2: K8) for H heads and P units per pass.
-extern "C" long long ofq_window_attn_smem(int variant, int H, int P) {
+// The launch of variant `variant` (0: K6, 1: K7, 2: K8) at H heads and P
+// units per pass: returns its dynamic shared memory per block and writes
+// its ring stages and warps per block.
+extern "C" long long ofq_window_attn_launch(int variant, int H, int P,
+                                            int* stages, int* warps) {
+  Launch c;
   switch (variant) {
-    case kUnits: return (long long)UnitsTile::bytes(H);
-    case kPacked: return (long long)(stages_for<Swizzled64>(P) *
-                                     stage_bytes<Swizzled64>(P));
-    default: return (long long)(stages_for<Slotted80>(P) *
-                                stage_bytes<Slotted80>(P));
+    case kUnits: c = {UnitsTile::bytes(H), 1, WARPS}; break;
+    case kPacked: c = tc_launch<Swizzled64>(P); break;
+    default: c = tc_launch<Slotted80>(P);
   }
-}
-
-// Ring stages of K7 (variant 1) or K8 (2) at P units per pass; K6: 1.
-extern "C" int ofq_window_attn_stages(int variant, int P) {
-  switch (variant) {
-    case kUnits: return 1;
-    case kPacked: return stages_for<Swizzled64>(P);
-    default: return stages_for<Slotted80>(P);
-  }
+  *stages = c.stages;
+  *warps = c.warps;
+  return (long long)c.smem;
 }
 
 // K6 in form `flags` (do_scores | do_softmax << 1 | do_out << 2: the full

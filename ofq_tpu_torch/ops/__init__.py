@@ -13,7 +13,8 @@ from .window_attention import (window_attn_packed, window_attn_packed_aligned,
 
 _COUNTED = (fused_qlinear_fwd, qkr_attention_fwd, qkr_attention_bwd,
             pallas_statsq_fwd, pallas_statsq_dx, window_attn_units,
-            window_attn_packed, window_attn_packed_aligned)
+            *window_attention.FORM_LAUNCHES.values(), window_attn_packed,
+            window_attn_packed_aligned)
 
 
 def reset_launch_counts() -> None:
@@ -22,16 +23,12 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "launch_shapes"):
             fn.launch_shapes.clear()
-    window_attention.reset_launches()
 
 
 def launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count, by wrapper name; K6's ablation
     forms as `window_attn_units_<form>`."""
-    counts = {fn.__name__: fn.launches for fn in _COUNTED}
-    for name, n in window_attn_units.ablation_launches.items():
-        counts[f"window_attn_units_{name}"] = n
-    return counts
+    return {fn.__name__: fn.launches for fn in _COUNTED}
 
 
 __all__ = ["fused_qlinear_fwd", "launch_counts", "pallas_statsq_dx",

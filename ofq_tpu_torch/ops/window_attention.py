@@ -119,23 +119,20 @@ def _lib_fn(name, restype, argtypes):
 
 
 @functools.lru_cache(maxsize=None)
-def smem_bytes(what, H, P):
-    """Dynamic shared memory of one block of kernel `what` (a wrapper's
-    name) at H heads and P units per pass, as the built library has it."""
-    return _lib_fn("ofq_window_attn_smem", ctypes.c_longlong,
-                   [ctypes.c_int] * 3)(_VARIANT[what], H, P)
-
-
-def ring_stages(what, P):
-    """The stages of K7's or K8's shared-memory ring at P units per pass
-    (two where they fit; K6: 1)."""
-    return _lib_fn("ofq_window_attn_stages", ctypes.c_int,
-                   [ctypes.c_int] * 2)(_VARIANT[what], P)
+def launch_config(what, H, P):
+    """(dynamic shared memory in bytes, ring stages, warps) of one block
+    of kernel `what` (a wrapper's name) at H heads and P units per pass,
+    as the built library launches it."""
+    stages, warps = ctypes.c_int(), ctypes.c_int()
+    smem = _lib_fn("ofq_window_attn_launch", ctypes.c_longlong,
+                   [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)(
+        _VARIANT[what], H, P, ctypes.byref(stages), ctypes.byref(warps))
+    return smem, stages.value, warps.value
 
 
 def _launch(what, q, k, v, WB, P, flags):
     Bn, _, H, d = q.shape
-    smem = smem_bytes(what, H, P)
+    smem = launch_config(what, H, P)[0]
     if smem > _MAX_SMEM:
         raise ValueError(f"{what}: H={H}, P={P} needs {smem} bytes of shared "
                          f"memory per block, more than the card's {_MAX_SMEM}")
@@ -166,7 +163,7 @@ def window_attn_units(q, k, v, WB=16, do_scores=True, do_softmax=True,
     form or one of the lab's three ablations (`ABLATIONS`: nodots =
     do_scores and do_out off, nosm = do_softmax off, scoresonly =
     do_softmax and do_out off), each counted on its own
-    (`window_attn_units.launches`, `.ablation_launches[name]`)."""
+    (`window_attn_units.launches`, `FORM_LAUNCHES[name].launches`)."""
     what = "window_attn_units"
     form = (bool(do_scores), bool(do_softmax), bool(do_out))
     if form not in _FORMS:
@@ -182,7 +179,7 @@ def window_attn_units(q, k, v, WB=16, do_scores=True, do_softmax=True,
     if name is None:
         window_attn_units.launches += 1
     else:
-        window_attn_units.ablation_launches[name] += 1
+        FORM_LAUNCHES[name].launches += 1
     return out
 
 
@@ -207,13 +204,17 @@ def window_attn_packed_aligned(q, k, v, WB=16, P=4):
     return _run(window_attn_packed_aligned, q, k, v, WB, P)
 
 
-def reset_launches():
-    """Set the launch counts of K6 (every form), K7 and K8 to 0."""
-    for fn in (window_attn_units, window_attn_packed,
-               window_attn_packed_aligned):
-        fn.launches = 0
-    window_attn_units.ablation_launches = dict.fromkeys(ABLATIONS, 0)
+class _FormCount:
+    """The launch count of one of K6's ablation forms, counted like a
+    wrapper's under the name `window_attn_units_<form>`."""
+
+    def __init__(self, form):
+        self.__name__ = f"window_attn_units_{form}"
+        self.launches = 0
 
 
 # launches of the CUDA kernels; the CPU and comparison paths do not count
-reset_launches()
+window_attn_units.launches = 0
+window_attn_packed.launches = 0
+window_attn_packed_aligned.launches = 0
+FORM_LAUNCHES = {name: _FormCount(name) for name in ABLATIONS}

@@ -543,10 +543,10 @@ def test_k6_ablation_forms_match_plain(dev, form):
     from ofq_tpu_torch.ops import window_attention as wa
     switches = chip_smoke.K6_FORMS[form]
     q, k, v = _tail_args(dev, 256, seed=4)
-    before = dict(wa.window_attn_units.ablation_launches)
+    before = wa.FORM_LAUNCHES[form].launches
     full = wa.window_attn_units.launches
     y = wa.window_attn_units(q, k, v, WB=16, **switches)
-    assert wa.window_attn_units.ablation_launches[form] == before[form] + 1
+    assert wa.FORM_LAUNCHES[form].launches == before + 1
     assert wa.window_attn_units.launches == full
     ref = wa.window_attn_units_reference(q, k, v, **switches)
     torch.cuda.synchronize()

@@ -74,16 +74,36 @@ def test_ablation_plain_matches_lab_kernel(form):
             torch.tensor(1 / 49, dtype=torch.float32).bfloat16())).all())
 
 
+@pytest.mark.parametrize("form, tensors, products", [
+    ("full", (1, 1, 1, 1), (1, 1)),
+    ("nosm", (1, 1, 1, 1), (1, 1)),
+    ("scoresonly", (1, 32 / 49, 0, 1), (32 / 49, 0)),
+    ("nodots", (1 / 32, 0, 0, 1), (0, 0))])
+def test_form_bound_counts_what_the_function_needs(form, tensors,
+                                                   products):
+    """chip_smoke's bound of each K6 form counts the q, k, v and out its
+    function needs (as shares of one tensor: nodots reads only q's column
+    0, scoresonly only the first 32 keys of k and no v) and the q k^T and
+    p v products it runs, exactly."""
+    switches = chip_smoke.K6_FORMS.get(form, {})
+    unit = chip_smoke.LAB_BN * chip_smoke.LAB_N * chip_smoke.LAB_H * \
+        chip_smoke.LAB_D
+    product = 2 * unit * chip_smoke.LAB_N
+    nbytes, flops = chip_smoke.form_work(**switches)
+    assert nbytes == round(2 * unit * sum(tensors))
+    assert flops == round(product * sum(products))
+
+
 @pytest.mark.parametrize("form", sorted(chip_smoke.K6_FORMS))
 def test_ablation_wrapper_on_cpu_is_its_plain_version(form):
     switches = chip_smoke.K6_FORMS[form]
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(7))
-    before = dict(wa.window_attn_units.ablation_launches)
+    before = {n: c.launches for n, c in wa.FORM_LAUNCHES.items()}
     got = wa.window_attn_units(q, k, v, WB=16, **switches)
     torch.testing.assert_close(
         got, wa.window_attn_units_reference(q, k, v, **switches),
         rtol=0, atol=0)
-    assert wa.window_attn_units.ablation_launches == before
+    assert {n: c.launches for n, c in wa.FORM_LAUNCHES.items()} == before
 
 
 def test_full_form_is_the_tail():
@@ -172,6 +192,23 @@ def test_entry_function_runs_every_variant_on_cpu():
     for name in plab.CHECKED:
         assert out[name + "_maxerr"] < plab.CHECK_LIMIT, name
     assert {k for line in lines for k in line} == set(out)
+
+
+def test_entry_function_times_cpu_tensors_on_the_host_clock(monkeypatch):
+    """`run` picks its clock from the tensors' device, not from CUDA's
+    state: on CPU tensors in a process where CUDA looks initialized, no
+    CUDA event is made and every time is a host time above 0."""
+    def no_event(*a, **k):
+        raise AssertionError("a CUDA event timed CPU work")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    out, raised, bad = plab.run(*plab._data("cpu", 16),
+                                ["xla", "units16", "packed_p3"],
+                                emit=lambda obj: None)
+    assert raised == [] and bad == {}
+    assert all(out[name] > 0 for name in ("xla", "units16",
+                                          "packed_p3")), out
 
 
 def test_entry_point_exits_nonzero_on_a_raising_variant(monkeypatch,
