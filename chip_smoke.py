@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
     python3 chip_smoke.py --profile  # also: device time by kernel (torch.profiler)
     python3 chip_smoke.py --baseline DIR
-        # also: K1's, K3's, K7's and K8's sources as an earlier tree DIR
+        # also: K1's, K3's and K6-K8's sources as an earlier tree DIR
         # has them (a `git archive` of that commit), built and timed beside
         # the current ones at the same shapes in the same run
 
@@ -15,8 +15,9 @@ Phases (any failure raises and the script exits non-zero):
      per source, in parallel); print ptxas's report (registers, spills) of
      K1's, K4's and K3's sources and the tensor-core instructions of each
      kernel that runs its products there (TC_KERNELS: HGMMA, wgmma, in K1;
-     HMMA, mma.sync, in K3-bf16's passes), read from the built library
-     with cuobjdump, and fail if one has none;
+     HMMA, mma.sync, in K3-bf16's passes and K6-K8; UTMALDG, TMA loads, in
+     K6), read from the built library with cuobjdump, and fail if one has
+     none;
   3. K1, the fused QLinear kernel (wgmma on the integer codes), against its
      plain PyTorch version on the card at the DeiT-S shapes, M = 64 * 198
      tokens (proj, fc1, fc2 at W2A2, one W4A4, one ragged case), with
@@ -25,7 +26,8 @@ Phases (any failure raises and the script exits non-zero):
   4. K2, the fused QKR attention core, against its plain version at
      B=64, N=198, H=6, C=384, d=64 (shared and per-head lhs, LSQ on/off),
      in fp32 and in the bf16 stream; K3, its backward, the same way
-     (K3-bf16 on the tensor cores but for its score tile);
+     (K3-bf16 on the tensor cores but for its score tile, K3 fp32
+     register-tiled on the CUDA cores);
   5. serving: DeiT-S distilled W2A2 QKR at full width (random weights from
      a seeded torch.Generator), calibrated on a seeded batch of 64 and served
      through `Predictor` with both kernels, launch counts read around one
@@ -71,11 +73,17 @@ Phases (any failure raises and the script exits non-zero):
      3 heads of 32, bf16) on the lab's seeded data, each at each lab
      parameter set, with times, the plain version's, SDPA's on the same
      q, k, v (the same function: the kernels' library time) and the
-     bound; K7 and K8 run on the tensor cores (TC_KERNELS: HMMA); K6's
-     three ablation forms (nodots, nosm, scoresonly) against their plain
-     versions (nodots bit-exact; scoresonly within one bf16 ulp plus the
-     fp32 summation bound; nosm under the tail gate with p := s), timed,
-     with their bounds;
+     bound; all three run on the tensor cores (TC_KERNELS: HMMA), K6 with
+     TMA loads; K6's three ablation forms (nodots, nosm, scoresonly)
+     against their plain versions (nodots bit-exact; scoresonly within one
+     bf16 ulp plus the fp32 summation bound; nosm under the tail gate with
+     p := s), timed, with their bounds;
+ 10a. K6's nosm and scoresonly forms under their gates on data drawn from
+     the card tests' seeds 4-8 at the lab's shape (`[K6 seed]` lines), and
+     K6 in every form against the tile emulated with the card's
+     accumulator (`mma_sum`; `[K6 emulated]`: the elements whose bits
+     differ, 0 required where no exp enters, and the emulated and the
+     kernel's worst |diff| / limit);
  10b. the port's lab entry point (ofq_tpu_torch.benchmarks.
      window_attn_lab): all 17 of the lab's variants once at its shapes
      with its check (< 5e-2 against its XLA tail); no variant may raise
@@ -100,11 +108,13 @@ kernel path no farther from it than the plain path allows (BLOCK_ROWS and
 what follows it), and each whole-step gradient no farther than twice its
 order spread (the plain path summed in other legitimate fp32 orders,
 `summed_in_chunks`) plus a floor.
+Phase 4b prints the device time of K3's four passes at the main path's
+case in each stream (torch.profiler).
 With --baseline, phases 3, 4b and 10 also time the earlier tree's K1, K3
-(both streams), K7 and K8 at the same shapes, both through their C
-launchers alone, count the output elements where the two differ, and
-the run ends with the sums over K1's and K3-bf16's launches on their
-paths and K7's and K8's times per launch.  The
+(both streams; its passes too), K6 (every form), K7 and K8 at the same
+shapes, both through their C launchers alone, count the output elements
+where the two differ, and the run ends with the sums over K1's and K3's
+launches on their paths and K6's, K7's and K8's times per launch.  The
 line before the last is a JSON object with every kernel's numbers (times
 in ms, CUDA events; bounds from the H100 SXM data sheet); the last line is
 {"ok": true, "device": {...}}.  Full results also go to
@@ -204,12 +214,21 @@ REPORT_SOURCES = ("fused_qlinear", "pallas_statsq", "fused_attention_bwd")
 # (HGMMA: wgmma; HMMA: mma.sync)
 TC_KERNELS = {
     "fused_qlinear": [("_tc_kernel", "HGMMA")],
-    "fused_attention_bwd": [("qkr_bwd_rows_kernelI13__nv_bfloat16", "HMMA"),
+    "fused_attention_bwd": [("qkr_bwd_rows_tc_kernel", "HMMA"),
                             ("qkr_bwd_cols_tc_kernel", "HMMA"),
                             ("qkr_bwd_dlhs_tc_kernel", "HMMA")],
-    # K7 and K8: window_attn_tc_kernel on either shared-memory layout
-    "window_attention": [("Swizzled64", "HMMA"), ("Slotted80", "HMMA")],
+    # K7 and K8: window_attn_tc_kernel on either shared-memory layout; K6:
+    # units_tc_kernel<form> in each form with a product (the
+    # full tail 7, nosm 5, scoresonly 1; nodots, 2, has none), and in every
+    # form its loads by TMA (UTMALDG)
+    "window_attention": [("Swizzled64", "HMMA"), ("Slotted80", "HMMA"),
+                         ("units_tc_kernelILi7E", "HMMA"),
+                         ("units_tc_kernelILi5E", "HMMA"),
+                         ("units_tc_kernelILi1E", "HMMA"),
+                         ("units_tc_kernel", "UTMALDG")],
 }
+# the SASS instructions mma_counts counts: wgmma, mma.sync, TMA loads
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
 
 
 def _cuobjdump():
@@ -218,8 +237,8 @@ def _cuobjdump():
 
 
 def mma_counts(lib_path):
-    """HGMMA (wgmma) and HMMA (mma.sync) instructions in each kernel of a
-    built library, from its SASS (cuobjdump -sass)."""
+    """HGMMA (wgmma), HMMA (mma.sync) and UTMALDG (TMA load) instructions
+    in each kernel of a built library, from its SASS (cuobjdump -sass)."""
     out = subprocess.run([_cuobjdump(), "-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
@@ -228,9 +247,9 @@ def mma_counts(lib_path):
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
         elif fn is not None:
-            for op in ("HGMMA", "HMMA"):
+            for op in SASS_OPS:
                 if op in line:
                     counts[fn][op] += 1
     return counts
@@ -621,12 +640,55 @@ def phase_k2(dev, N, B=BATCH):
 
 
 # ------------------------------------------------------------- phase 4b
-def _k3_design(dtype):
+def _k3_design(dtype, N):
     import torch
-    if dtype == torch.bfloat16:
+    from ofq_tpu_torch.ops import fused_attention as fa
+    bf16 = dtype == torch.bfloat16
+    smem, ldp, stages, blocks = fa.bwd_launch_config(N, bf16)
+    tail = (f"pass A {smem} B shared, {blocks} blocks per SM (the CUDA "
+            f"runtime's occupancy), scratch rows {ldp} apart")
+    if bf16:
         return ("mma.sync m16n8k16 for dpq and passes B, C; score tile on "
-                "the CUDA cores (K2-bf16's loop)")
-    return "CUDA cores, fp32"
+                f"the CUDA cores (K2-bf16's loop); {tail}")
+    return ("CUDA cores, register tiles (8 x 8 outputs a thread in passes "
+            "B, C, 8 x 7 and 4 x 7 in pass A), float4 operand reads, "
+            f"cp.async rings (pass A {stages} stages of 8-deep chunks, B "
+            f"and C 3 of 16); {tail}")
+
+
+# K3's four launches by a part of their kernels' names: A (rows: the score
+# tile, dpq, the row work), B (cols: dv, drhs), C (dlhs), D (ds)
+K3_PASSES = (("A", "rows"), ("B", "cols"), ("C", "dlhs"), ("D", "ds_kernel"))
+
+
+def pass_times(run, calls=5):
+    """Device ms per call of each of K3's passes over `calls` calls of a
+    launcher `run` (torch.profiler, device kernels only), or {} where the
+    profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        for name, part in K3_PASSES:
+            if part in ev.key:
+                out[name] = out.get(name, 0.0) + dev_us / 1e3 / calls
+    return out
+
+
+def _passes_label(times):
+    return (", ".join(f"{k} {v:.4f}" for k, v in sorted(times.items()))
+            + " ms" if times else "not measured")
 
 
 def phase_k3(dev, N, B=BATCH, base=None):
@@ -676,12 +738,23 @@ def phase_k3(dev, N, B=BATCH, base=None):
             ms = median_ms(lambda: fa.qkr_attention_bwd(*args))
             plain_ms = median_ms(
                 lambda: fa.qkr_attention_bwd_reference(*args), reps=10)
-            raw_ms = base_ms = differing = None
-            if base:
+            raw_ms = base_ms = differing = passes = base_passes = None
+            if rhs.is_cuda:
                 from ofq_tpu_torch.ops import _build
-                raw_ms, base_ms, differing = against_earlier(
-                    raw_k3(_build.load("fused_attention_bwd"), args),
-                    raw_k3(base["fused_attention_bwd"], args))
+                current = raw_k3(_build.load("fused_attention_bwd"), args)
+                earlier = base and raw_k3(base["fused_attention_bwd"], args)
+                if base:
+                    raw_ms, base_ms, differing = against_earlier(current,
+                                                                 earlier)
+                if shared and quantize:
+                    # the main path's case: device time by pass, the
+                    # earlier tree's beside it
+                    passes = pass_times(current)
+                    base_passes = pass_times(earlier) if base else None
+                    log(f"[K3 passes] {name}: {_passes_label(passes)}"
+                        + (f"; earlier tree {_passes_label(base_passes)}"
+                           if base else ""))
+                del current, earlier
             q = (lhs[:, None].expand(B, H, N, K) if shared
                  else lhs.permute(0, 2, 1, 3)).contiguous().requires_grad_()
             kk = rhs.permute(0, 2, 1, 3).contiguous().requires_grad_()
@@ -698,7 +771,7 @@ def phase_k3(dev, N, B=BATCH, base=None):
                 f"{ {k: f'{v:.2e}' for k, v in shares.items()} }, ds "
                 f"{ds_share:.2e} of entries, "
                 f"{'rel L2 ' if quantize else 'max '}{ds_err:.2e}, max|diff| "
-                f"{err:.3e}; kernel ({_k3_design(dtype)}) {ms:.4f} ms"
+                f"{err:.3e}; kernel ({_k3_design(dtype, N)}) {ms:.4f} ms"
                 f"{_versus(raw_ms, base_ms, differing)}, plain "
                 f"{plain_ms:.4f} ms, "
                 f"SDPA backward (unquantized, {dt}) {sdpa_ms:.4f} ms, bound "
@@ -708,9 +781,11 @@ def phase_k3(dev, N, B=BATCH, base=None):
                                 quantize=quantize, B=B, N=N, H=H, K=K, d=d,
                                 max_abs_err=err,
                                 outside_share=shares, ds_share=ds_share,
-                                ds_err=ds_err, ms=ms, design=_k3_design(dtype),
+                                ds_err=ds_err, ms=ms,
+                                design=_k3_design(dtype, N),
                                 raw_ms=raw_ms, baseline_raw_ms=base_ms,
                                 baseline_differing=differing,
+                                pass_ms=passes, baseline_pass_ms=base_passes,
                                 plain_ms=plain_ms, sdpa_bwd_ms=sdpa_ms,
                                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                                 flops=flops, main_path=shared and quantize))
@@ -2041,6 +2116,152 @@ def _check_tail(what, y, ref, q, k, v, form="full"):
     return err, worst, share
 
 
+def mma_sum(a, b):
+    """fp32 sums over the last axis of the exact products a * b (bf16
+    operands, broadcast against each other) as the H100's `mma.sync`
+    m16n8k16 forms them with fp32 accumulation, 16 products a step: the
+    step's products and the running sum are aligned to the largest of their
+    exponents, a product's taken unnormalized (floor log2 |a| + floor log2
+    |b|, its significand in [1, 4)), each term cut toward zero below 2^(top
+    - 25) (two bits below the fp32 significand), their exact sum cut to
+    fp32 toward zero.  `phase_k6_emulated` holds it to the card's bits."""
+    import torch
+
+    def exponent(x):  # floor(log2 |x|); -300 for 0
+        return torch.where(x == 0, -300, torch.frexp(x).exponent - 1)
+
+    acc = None
+    for k0 in range(0, a.shape[-1], 16):
+        x, y = a[..., k0:k0 + 16].double(), b[..., k0:k0 + 16].double()
+        terms = x * y
+        e = torch.where(terms == 0, -300, exponent(x) + exponent(y))
+        if acc is not None:
+            terms = torch.cat([acc.double().unsqueeze(-1), terms], dim=-1)
+            e = torch.cat([exponent(acc.double()).unsqueeze(-1), e], dim=-1)
+        scale = torch.exp2((25 - e.amax(-1, keepdim=True)).double())
+        total = (torch.trunc(terms * scale).sum(-1, keepdim=True)
+                 / scale).squeeze(-1)
+        acc = total.float()
+        acc = torch.where(acc.double().abs() > total.abs(),
+                          torch.nextafter(acc, torch.zeros_like(acc)), acc)
+    return acc
+
+
+def emulate_tc_tile(q, k, v, form="full"):
+    """K6-K8's tile (`unit_tile`) in K6's form `form` (K7, K8: "full"), its
+    sums by `mma_sum`: S in two k16 steps, s = acc * sm in
+    fp32 (nodots: s = q[i, 0] for every key, no product); with the softmax
+    (full, nodots) key columns >= 49 at -inf, exp, each row's sum over the
+    16 values a lane holds (columns 8t + 2c + e, in order of t then e) and
+    then across the quad ((l0 + l1) + (l2 + l3)), p = e / sum; without it
+    (nosm, scoresonly) p = s, 0 on the padded key columns from K's zero
+    rows; with p v (full, nosm) p rounded to bf16 and O = P V in four k16
+    steps over 64 keys (49-63 zero), else out = p's first 32 columns;
+    rounded to bf16.  exp is the device's own, so the full and nodots forms
+    are the kernel's only up to expf's rounding."""
+    import torch
+    Bn, n, H, d = q.shape
+    switches = K6_FORMS.get(form, {})
+    pad = torch.zeros(Bn, 64 - n, H, d, dtype=q.dtype, device=q.device)
+    qp, kp, vp = (torch.cat([t, pad], dim=1) for t in (q, k, v))
+    qu, ku = (t.permute(0, 2, 1, 3) for t in (qp, kp))   # (B, H, 64, d)
+    vu = vp.permute(0, 2, 3, 1)                          # (B, H, d, 64)
+    if switches.get("do_scores", True):
+        s = mma_sum(qu.unsqueeze(3), ku.unsqueeze(2)) * torch.tensor(
+            d ** -0.5, dtype=torch.float32, device=q.device)
+    else:
+        s = qu[..., :1].float().expand(Bn, H, 64, 64).clone()
+    if switches.get("do_softmax", True):
+        s[..., n:] = -torch.inf
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        lanes = e.reshape(Bn, H, 64, 8, 4, 2).permute(
+            0, 1, 2, 4, 3, 5).reshape(Bn, H, 64, 4, 16)
+        part = torch.zeros(Bn, H, 64, 4, dtype=torch.float32,
+                           device=q.device)
+        for i in range(16):
+            part = part + lanes[..., i]
+        total = (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+        p = e / total[..., None]
+    else:
+        p = s
+    if switches.get("do_out", True):
+        o = mma_sum(p.to(torch.bfloat16).unsqueeze(3), vu.unsqueeze(2))
+    else:
+        o = p[..., :d]
+    return o[:, :, :n].permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+# the seeds of the card tests' K6 data (tests/test_torch_port_cuda.py:
+# `_tail_args`)
+K6_SEEDS = (4, 5, 6, 7, 8)
+
+
+def phase_k6_seeds(dev):
+    """K6's nosm and scoresonly forms (WB 16) under their unchanged gates
+    on data of the lab's shape drawn as the card tests draw theirs
+    (torch.randn from each of K6_SEEDS, to bf16): the worst |diff| / limit
+    and the share differing of each; a gate missed fails."""
+    import torch
+    from ofq_tpu_torch.ops import window_attention as wa
+    rows = []
+    for seed in K6_SEEDS:
+        g = torch.Generator().manual_seed(seed)
+        q, k, v = (torch.randn(LAB_BN, LAB_N, LAB_H, LAB_D, generator=g).to(
+            dev, torch.bfloat16) for _ in range(3))
+        for form in ("nosm", "scoresonly"):
+            y = wa.window_attn_units(q, k, v, WB=16, **K6_FORMS[form])
+            want = wa.window_attn_units_reference(q, k, v, **K6_FORMS[form])
+            err, worst, share = _check_tail(f"K6 {form} seed {seed}", y,
+                                            want, q, k, v, form=form)
+            rows.append(dict(seed=seed, form=form, max_abs_err=err,
+                             worst_ratio=worst, differing=share))
+            log(f"[K6 seed {seed}] {form}: max|diff| {err:.3e}, worst "
+                f"|diff|/limit {worst:.4f}, {share:.2e} of the elements "
+                f"differ")
+    return rows
+
+
+def phase_k6_emulated(dev, chunk=512):
+    """K6 in every form (WB 16) on the lab's data against `emulate_tc_tile`
+    on the same device, in chunks of windows: the elements whose bits
+    differ, which must be 0 in the forms without exp (nodots, nosm,
+    scoresonly: the CPU tests' emulation is then the card's arithmetic;
+    the full form's exp is torch's on the device, not required to be the
+    kernel's expf), and the emulation's worst
+    |diff| / limit under the form's gate against the plain version, beside
+    the kernel's."""
+    import torch
+    from ofq_tpu_torch.benchmarks import window_attn_lab as lab
+    from ofq_tpu_torch.ops import window_attention as wa
+    q, k, v = lab._data(dev)
+    rows = []
+    for form in ("full", *K6_FORMS):
+        switches = K6_FORMS.get(form, {})
+        y = wa.window_attn_units(q, k, v, WB=16, **switches)
+        differing, worst_e, worst_k = 0, 0.0, 0.0
+        for b0 in range(0, LAB_BN, chunk):
+            sl = slice(b0, b0 + chunk)
+            qc, kc, vc = q[sl], k[sl], v[sl]
+            emu = emulate_tc_tile(qc, kc, vc, form)
+            want = wa.window_attn_units_reference(qc, kc, vc, **switches)
+            differing += int((emu.view(torch.int16)
+                              != y[sl].view(torch.int16)).sum())
+            worst_e = max(worst_e, form_gate(form, emu, want, qc, kc, vc)[1])
+            worst_k = max(worst_k, form_gate(form, y[sl], want, qc, kc,
+                                             vc)[1])
+        rows.append(dict(form=form, differing_from_kernel=differing,
+                         emulated_worst=worst_e, kernel_worst=worst_k))
+        log(f"[K6 emulated] {form}: the emulated tile (mma_sum) differs "
+            f"from the kernel in {differing} of {y.numel()} elements; worst "
+            f"|diff|/limit emulated {worst_e:.4f}, kernel {worst_k:.4f}")
+        if differing and form != "full":
+            raise AssertionError(
+                f"K6 {form}: the emulated tile differs from the kernel in "
+                f"{differing} elements: mma_sum is not the card's "
+                f"accumulator")
+    return rows
+
+
 def form_work(do_scores=True, do_softmax=True, do_out=True):
     """The bytes and operations of the tail in K6's form with these
     switches (all on: the tail of K6-K8) at the lab's shapes, counted from
@@ -2081,16 +2302,42 @@ def raw_k78(lib, fn_name, q, k, v, WB, P):
     return run
 
 
-def _k678_design(fn_name, H, P):
+def raw_k6(lib, q, k, v, WB, flags):
+    """K6's C launcher in `lib` (the current tree's or an earlier one's: the
+    same C signature) in form `flags` (do_scores | do_softmax << 1 | do_out
+    << 2) called straight on q, k, v into an output allocated once."""
+    import ctypes
+    import torch
+    out = torch.empty_like(q)
+    fn = lib.ofq_window_attn_units
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    Bn, _, H, d = q.shape
+    call = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), Bn, H,
+            WB, d ** -0.5, flags, torch.cuda.current_stream().cuda_stream]
+
+    def run():
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"K6 launcher: CUDA error {err}")
+        return out
+    return run
+
+
+def _k678_design(fn_name, H, P, flags=7):
     from ofq_tpu_torch.ops import window_attention as wa
-    smem, stages, warps = wa.launch_config(fn_name, H, P)
+    smem, stages, warps, blocks = wa.launch_config(fn_name, H, P, flags)
+    shape = (f"{smem} B shared, {warps} warps, {blocks} blocks per SM (the "
+             f"CUDA runtime's occupancy)")
     if fn_name == "window_attn_units":
-        return (f"CUDA cores, one warp per query row, {smem} B shared, "
-                f"{warps} warps")
+        return (f"tensor cores (mma.sync m16n8k16), TMA loads of one unit "
+                f"a box (64-byte swizzle) on {stages} mbarrier stages, TMA "
+                f"stores, {shape}")
     layout = ("64-byte rows, swizzled chunks" if fn_name ==
               "window_attn_packed" else "80-byte row slots")
     return (f"tensor cores (mma.sync m16n8k16), {layout}, "
-            f"{stages}-stage cp.async ring, {smem} B shared, {warps} warps")
+            f"{stages}-stage cp.async ring, {shape}")
 
 
 def phase_k678(dev, base=None):
@@ -2098,13 +2345,29 @@ def phase_k678(dev, base=None):
     seeded data (`window_attn_lab._data`), each at each lab parameter set,
     and K6's three ablation forms against theirs, with times, the plain
     version's, SDPA's on the same q, k, v (the tail's function) and the
-    bound; with `base` (--baseline), K7's and K8's launchers beside the
-    earlier tree's on the same inputs."""
+    bound; with `base` (--baseline), every K6 form's, K7's and K8's launchers
+    beside the earlier tree's on the same inputs."""
     import torch
     import torch.nn.functional as F
     from ofq_tpu_torch.benchmarks import window_attn_lab as lab
     from ofq_tpu_torch.ops import _build
     from ofq_tpu_torch.ops import window_attention as wa
+
+    def versus_earlier(fn_name, kw, flags=None):
+        """(--baseline) the launcher alone now and in the earlier tree."""
+        if base is None:
+            return {}
+        lib = _build.load("window_attention")
+        if flags is None:
+            cur, old = (raw_k78(lb, fn_name, q, k, v, kw["WB"], kw["P"])
+                        for lb in (lib, base["window_attention"]))
+        else:
+            cur, old = (raw_k6(lb, q, k, v, kw["WB"], flags)
+                        for lb in (lib, base["window_attention"]))
+        raw_ms, base_ms, differing = against_earlier(cur, old)
+        return dict(raw_ms=raw_ms, baseline_raw_ms=base_ms,
+                    baseline_differing=differing)
+
     q, k, v = lab._data(dev)
     ref = wa.window_attn_tail_reference(q, k, v)
     plain_ms = median_ms(lambda: wa.window_attn_tail_reference(q, k, v),
@@ -2122,15 +2385,8 @@ def phase_k678(dev, base=None):
         err, worst, share = _check_tail(f"{key} {kw}", y, ref, q, k, v)
         ms = median_ms(lambda: fn(q, k, v, **kw))
         design = _k678_design(fn_name, LAB_H, kw.get("P", LAB_H))
-        versus = {}
-        if base is not None and key in ("K7", "K8"):
-            cur = raw_k78(_build.load("window_attention"), fn_name, q, k, v,
-                          kw["WB"], kw["P"])
-            old = raw_k78(base["window_attention"], fn_name, q, k, v,
-                          kw["WB"], kw["P"])
-            raw_ms, base_ms, differing = against_earlier(cur, old)
-            versus = dict(raw_ms=raw_ms, baseline_raw_ms=base_ms,
-                          baseline_differing=differing)
+        versus = versus_earlier(fn_name, kw,
+                                wa.form_flags() if key == "K6" else None)
         log(f"[{key}] {fn_name} {kw} (Bn={LAB_BN}, n={LAB_N}, H={LAB_H}, "
             f"d={LAB_D}; {design}): max|diff| {err:.3e}, worst |diff|/limit "
             f"{worst:.3f}, {share:.2e} of the elements differ; kernel "
@@ -2148,6 +2404,8 @@ def phase_k678(dev, base=None):
                             flops=flops, **versus))
         del y
     for form, switches in K6_FORMS.items():
+        versus = versus_earlier("window_attn_units", dict(WB=16),
+                                wa.form_flags(**switches))
         y = wa.window_attn_units(q, k, v, WB=16, **switches)
         want = wa.window_attn_units_reference(q, k, v, **switches)
         torch.cuda.synchronize()
@@ -2163,15 +2421,18 @@ def phase_k678(dev, base=None):
             f"{err:.3e}, worst |diff|/limit {worst:.3f}, {share:.2e} of the "
             f"elements differ; kernel {ms:.4f} ms, plain {form_plain_ms:.4f}"
             f" ms, bound {f_ms:.4f} ms ({f_by}; {f_flops / 1e9:.2f} GFLOP, "
-            f"{f_bytes / 1e6:.1f} MB)")
+            f"{f_bytes / 1e6:.1f} MB)"
+            + _versus(versus.get("raw_ms"), versus.get("baseline_raw_ms"),
+                      versus.get("baseline_differing")))
         results.append(dict(kernel="K6", name="window_attn_units", form=form,
                             params=dict(WB=16, **switches), default=False,
-                            design=_k678_design("window_attn_units", LAB_H,
-                                                LAB_H),
+                            design=_k678_design(
+                                "window_attn_units", LAB_H, LAB_H,
+                                wa.form_flags(**switches)),
                             max_abs_err=err, worst_ratio=worst,
                             differing=share, ms=ms, plain_ms=form_plain_ms,
                             sdpa_ms=None, bound_ms=f_ms, bound_by=f_by,
-                            bytes=f_bytes, flops=f_flops))
+                            bytes=f_bytes, flops=f_flops, **versus))
         del y, want
     return results
 
@@ -2340,21 +2601,23 @@ def compare_baseline(full):
     """The redesigned kernels' times summed over their launches on a path,
     the current launchers' and the earlier tree's (--baseline), each
     launcher alone into preallocated outputs, and the ratio: K1 over a
-    fused step's 36, K3-bf16 over a fused bf16 step's 12, K7 and K8 at
-    their defaults per launch."""
+    fused step's 36, K3 over a fused step's 12 (fp32) and a fused bf16
+    step's 12, K6 in every form and at both WB, K7 and K8 at their defaults
+    per launch."""
     shapes = full["train"]["launch_shapes"]
-    k3_launches = full["train_fused_bf16"]["launches"]["qkr_attention_bwd"]
     sums = {
         "K1, fused DeiT-S train step": [
             (shapes.get(str((r["M"], r["K"], r["N"])), 0), r)
-            for r in full["k1"] if r["main_path"]],
-        "K3-bf16, fused bf16 DeiT-S train step": [
+            for r in full["k1"] if r["main_path"]]}
+    for dt, train in (("float32", "train"), ("bfloat16", "train_fused_bf16")):
+        k3_launches = full[train]["launches"]["qkr_attention_bwd"]
+        sums[f"K3 {dt}, fused {dt} DeiT-S train step"] = [
             (k3_launches, r) for r in full["k3"]
-            if r["main_path"] and r["dtype"] == "bfloat16"]}
+            if r["main_path"] and r["dtype"] == dt]
     for r in full["k678"]:
-        if r["default"] and "raw_ms" in r:
-            sums[f"{r['kernel']} {r['name']} {r['params']}, one launch at "
-                 f"the lab's shapes"] = [(1, r)]
+        if "raw_ms" in r and (r["default"] or r["kernel"] == "K6"):
+            sums[f"{r['kernel']} {r['name']} {r['form']} {r['params']}, one "
+                 f"launch at the lab's shapes"] = [(1, r)]
     out = {}
     for what, pairs in sums.items():
         n = sum(c for c, _ in pairs)
@@ -2417,6 +2680,8 @@ def main() -> int:
     full["gate_selfcheck"] = phase_gate_selfcheck(dev)
     torch.cuda.empty_cache()
     full["k678"] = phase_k678(dev, base=base)
+    full["k6_seeds"] = phase_k6_seeds(dev)
+    full["k6_emulated"] = phase_k6_emulated(dev)
     torch.cuda.empty_cache()
     full["lab"] = phase_lab(dev)
     torch.cuda.empty_cache()

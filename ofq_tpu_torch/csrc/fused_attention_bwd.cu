@@ -36,24 +36,43 @@
 // outputs are sums over an axis a query tile cannot own (drhs and dv over
 // query rows, a shared dlhs over heads).  So four launches:
 //   A  one 256-thread block per (64 query rows, head, batch row), the grid of
-//      K2: the score tile (64 x N, ~66 KB of shared memory at N = 198) is
-//      formed with K2's loop, so p is the forward's p bit for bit, and the
-//      dpq tile beside it (fp32: 64 x N with the same loop; bf16: 32 x N
-//      at a time on the tensor cores, so that pass A takes ~97 KB and two
-//      blocks share an SM); one warp per row then forms p, pq, dp, the
-//      row's ds partial (written per (b, h, n), no atomics) and dscores, and
-//      writes pq and dscores to scratch, (B, H, N, ldp) each in the stream
-//      dtype;
-//   B  one block per (64 keys, 64 output columns, (b, h)): dv = pq^T . g and
-//      drhs = dscores^T . lhs;
-//   C  one block per (64 query rows, 64 columns, b or (b, h)): dlhs =
-//      dscores . rhs, the heads of a shared lhs summed in the block in
-//      order h = 0..H-1;
+//      K2: the score tile (64 x N, ~50 KB of shared memory at N = 198 in
+//      fp32) is formed in K2's arithmetic, so p is the forward's p bit for
+//      bit, and the dpq tile beside it, 32 x N at a time, so that pass A
+//      takes ~97 KB (bf16) or ~111 KB (fp32) and two blocks share an SM;
+//      one warp per row then forms p, pq, dp, the row's ds partial (written
+//      per (b, h, n), no atomics) and dscores, and writes pq and dscores to
+//      scratch, (B, H, N, ldp) each in the stream dtype;
+//   B  one block per (64 keys in bf16, 128 in fp32; 64 output columns;
+//      (b, h)): dv = pq^T . g and drhs = dscores^T . lhs;
+//   C  one block per (64 query rows in bf16, 128 in fp32; 64 columns; b or
+//      (b, h)): dlhs = dscores . rhs, the heads of a shared lhs summed in
+//      the block in order h = 0..H-1;
 //   D  ds[n] = sum over (b, h) of the partials, in a fixed order.
-// In fp32 every product is a shared-memory tiled loop on the CUDA cores,
-// 4 x 4 outputs per thread.  In bf16 pass A's dpq = g . v^T and passes B
-// and C run on the tensor cores (see below); pass A's score tile stays
-// K2's loop in both.  Runs are repeatable (no float atomics).
+// In fp32 every product runs on the CUDA cores, register-tiled (below).
+// In bf16 pass A's dpq = g . v^T and passes B and C run on the tensor cores
+// (see below); pass A's score tile stays K2-bf16's loop.  Runs are
+// repeatable (no float atomics).
+//
+// fp32, register-tiled.  Each thread holds 8 x 8 outputs (passes B, C;
+// 128 x 64 per 128-thread block, a warp's 32 rows contiguous) or 8 x 7
+// (pass A's score loop: a warp's 8 query rows against keys lane + 32 j, so
+// 224 keys per sweep) or 4 x 7 (pass A's dpq, 32 rows at a time, as the
+// bf16 form); its operands are read from shared memory as float4 (four
+// contraction steps of one row, or four rows of one step).  The operands
+// reach shared memory through cp.async rings (passes B, C: 3 stages of
+// 16-deep chunks; pass A: 3 stages of 8-deep chunks) of 16-byte copies,
+// 4-byte ones where a row's four values are not whole or not aligned, zero
+// past N, K and D, so the next chunks' copies run under this chunk's FMAs.
+// The scratch rows are N rounded up to 4 apart (16-byte rows).  Pass A
+// keeps the score tile (64 x N) and half the dpq tile in shared memory with
+// its ring, ~111 KB at N = 198, so two blocks share an SM; a warp whose
+// rows all lie past N skips its FMAs.  Every output is one __fmaf_rn chain
+// in ascending contraction index from 0 (a zero-filled step adds an exact
+// 0), as the untiled loops summed: scores then times sm_scale with
+// __fmul_rn, a shared dlhs over heads h = 0..H-1 in order.  So the tiling
+// does not move a bit: K3 fp32 equals its untiled form's outputs, and
+// pass A's p is K2 fp32's p.
 //
 // What bounds it on an H100: at DeiT-S QKR (N = 198, H = 6, K = 384, D = 64)
 // the work is 2*B*H*N^2*(3K + 2D) operations against 4*B*N*(2K + 2*H*K +
@@ -67,7 +86,8 @@
 //
 // Pass A's score and dpq tiles live in fp32 shared memory in both stream
 // dtypes; its dynamic shared memory depends on N and the dtype
-// (rows_smem_bytes).
+// (rows_smem_bytes; the launch export reports it with the scratch stride,
+// the ring stages and the blocks per SM the CUDA runtime finds for it).
 //
 // bf16 on the tensor cores.  Every operand of dpq, dv, drhs and dlhs is
 // exact in bf16 (g, v, lhs, rhs as stored; pq and dscores already rounded
@@ -103,11 +123,7 @@ constexpr int TD = 64;       // output columns per block (passes B and C)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
-// loads widen to fp32, stores round to the stream dtype (nearest-even)
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+// stores round to the stream dtype (nearest-even)
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
@@ -126,12 +142,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // out[r * ld_o + m] = fp32(sum_k a[n, k] * b[m, k]) * scale for the TQ rows
-// n = q0 + r of this block and every m < N; a's rows are a_ld apart, b's
-// b_ld.  The loop order is K2's phase 1, so the score tile equals the
-// forward kernel's bit for bit.
-template <typename T>
-__device__ __forceinline__ void tile_nt(const T* __restrict__ a, size_t a_ld,
-                                        const T* __restrict__ b,
+// n = q0 + r of this block and every m < N, the bf16 operands widened
+// exactly; a's rows are a_ld apart, b's b_ld.  The loop order is K2-bf16's
+// phase 1, so the score tile equals the forward kernel's bit for bit.
+__device__ __forceinline__ void tile_nt(const __nv_bfloat16* __restrict__ a,
+                                        size_t a_ld,
+                                        const __nv_bfloat16* __restrict__ b,
                                         size_t b_ld, int q0, int N, int kdim,
                                         float scale, float* out, int ld_o,
                                         float* As, float* Bs) {
@@ -153,14 +169,14 @@ __device__ __forceinline__ void tile_nt(const T* __restrict__ a, size_t a_ld,
         const int kk = e % KC;
         const int n = q0 + r;
         const int k = k0 + kk;
-        As[kk * (TQ + 1) + r] = (n < N && k < kdim) ? ld(a + (size_t)n * a_ld + k) : 0.0f;
+        As[kk * (TQ + 1) + r] = (n < N && k < kdim) ? __bfloat162float(a[(size_t)n * a_ld + k]) : 0.0f;
       }
       for (int e = tid; e < TK * KC; e += THREADS) {
         const int c = e / KC;
         const int kk = e % KC;
         const int m = m0 + c;
         const int k = k0 + kk;
-        Bs[kk * (TK + 1) + c] = (m < N && k < kdim) ? ld(b + (size_t)m * b_ld + k) : 0.0f;
+        Bs[kk * (TK + 1) + c] = (m < N && k < kdim) ? __bfloat162float(b[(size_t)m * b_ld + k]) : 0.0f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -327,134 +343,416 @@ __device__ __forceinline__ void dpq_tc(const bf16* __restrict__ g,
   }
 }
 
-// Pass A: per (query tile, head, batch row).
+// Row r of a pass-A tile, one warp: the softmax of its scores `row` (in
+// place: p), and with its dpq in `drow`: pq and dscores to the scratch
+// (rows ldp apart), dp in drow, the row's ds partial to ds_part_n.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) qkr_bwd_rows_kernel(
-    const T* __restrict__ lhs, int lhs_per_head, const T* __restrict__ rhs,
-    const T* __restrict__ v, const float* __restrict__ s,
-    const T* __restrict__ g, T* __restrict__ pq_out, T* __restrict__ dsc_out,
+__device__ __forceinline__ void bwd_row(float* row, float* drow, int n, int N,
+                                        const float* __restrict__ s,
+                                        T* __restrict__ pq_u,
+                                        T* __restrict__ dsc_u, int ldp,
+                                        float* __restrict__ ds_part_n,
+                                        float thd_pos, float sm_scale,
+                                        int quantize) {
+  const int lane = threadIdx.x % 32;
+  // softmax, exactly as the forward kernel forms it
+  float mx = -CUDART_INF_F;
+  for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
+  mx = warp_max(mx);
+  float sum = 0.0f;
+  for (int m = lane; m < N; m += 32) {
+    const float e = expf(__fsub_rn(row[m], mx));
+    row[m] = e;
+    sum = __fadd_rn(sum, e);
+  }
+  sum = warp_sum(sum);
+  const float sn = fmaxf(s[n], 1e-5f);
+  float ds_acc = 0.0f;
+  float dot = 0.0f;
+  for (int m = lane; m < N; m += 32) {
+    const float p = __fdiv_rn(row[m], sum);
+    row[m] = p;
+    const float dpq = drow[m];
+    float pq = p;
+    float dp = dpq;
+    if (quantize) {
+      const float u = __fdiv_rn(p, sn);
+      const float uq = rintf(fminf(fmaxf(u, 0.0f), thd_pos));
+      const bool in = u <= thd_pos;
+      pq = __fmul_rn(uq, sn);
+      const float t = in ? __fsub_rn(uq, u) : thd_pos;
+      ds_acc = __fmaf_rn(t, dpq, ds_acc);
+      dp = in ? dpq : 0.0f;
+    }
+    st(pq_u + (size_t)n * ldp + m, pq);
+    drow[m] = dp;
+    dot = __fmaf_rn(dp, p, dot);
+  }
+  dot = warp_sum(dot);
+  for (int m = lane; m < N; m += 32) {
+    st(dsc_u + (size_t)n * ldp + m,
+       __fmul_rn(__fmul_rn(row[m], __fsub_rn(drow[m], dot)), sm_scale));
+  }
+  ds_acc = warp_sum(ds_acc);
+  if (lane == 0) *ds_part_n = ds_acc;
+}
+
+// Pass A in bf16: per (query tile, head, batch row).  Shared memory: S
+// [TQ][ld_s] (scores, then p), then one region that holds tile_nt's As, Bs
+// while the scores form and then P for half the rows (dpq, then dp) with
+// dpq's bf16 chunks after it (rows_smem_bytes).
+__global__ void __launch_bounds__(THREADS) qkr_bwd_rows_tc_kernel(
+    const bf16* __restrict__ lhs, int lhs_per_head,
+    const bf16* __restrict__ rhs, const bf16* __restrict__ v,
+    const float* __restrict__ s, const bf16* __restrict__ g,
+    bf16* __restrict__ pq_out, bf16* __restrict__ dsc_out,
     float* __restrict__ ds_part, int N, int H, int K, int D, int ld_s,
     int ldp, float thd_pos, float sm_scale, int quantize) {
-  constexpr bool kTC = std::is_same<T, bf16>::value;
   extern __shared__ float smem[];
-  // fp32: S, then P [TQ][ld_s] (dpq, then dp), then As, Bs.  bf16: S,
-  // then one region that holds As, Bs while the scores form and then P
-  // for half the rows (dpq, then dp) with dpq's bf16 chunks after it
-  // (rows_smem_bytes)
-  float* S = smem;                  // [TQ][ld_s] scores, then p
+  float* S = smem;
   float* P = S + TQ * ld_s;
-  float* As = kTC ? P : P + TQ * ld_s;  // [KC][TQ + 1]
-  float* Bs = As + KC * (TQ + 1);       // [KC][TK + 1]
+  float* As = P;                   // [KC][TQ + 1]
+  float* Bs = As + KC * (TQ + 1);  // [KC][TK + 1]
 
   const int q0 = blockIdx.x * TQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t lhs_row = lhs_per_head ? (size_t)H * K : (size_t)K;
-  const T* lhs_b = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
-  const T* rhs_b = rhs + (size_t)b * N * H * K + (size_t)h * K;
-  const T* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
-  const T* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
+  const bf16* lhs_b = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
+  const bf16* rhs_b = rhs + (size_t)b * N * H * K + (size_t)h * K;
+  const bf16* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
+  const bf16* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
 
   tile_nt(lhs_b, lhs_row, rhs_b, (size_t)H * K, q0, N, K, sm_scale, S, ld_s, As, Bs);
 
   const size_t unit = (size_t)b * H + h;
-  T* pq_u = pq_out + unit * N * ldp;
-  T* dsc_u = dsc_out + unit * N * ldp;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  // row r of the tile, its dpq in drow: p, pq, dp, the row's ds partial
-  // and dscores, one warp per row
-  auto row_work = [&](int r, float* drow) {
-    const int n = q0 + r;
-    float* row = S + r * ld_s;
-    // softmax, exactly as the forward kernel forms it
-    float mx = -CUDART_INF_F;
-    for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int m = lane; m < N; m += 32) {
-      const float e = expf(__fsub_rn(row[m], mx));
-      row[m] = e;
-      sum = __fadd_rn(sum, e);
-    }
-    sum = warp_sum(sum);
-    const float sn = fmaxf(s[n], 1e-5f);
-    float ds_acc = 0.0f;
-    float dot = 0.0f;
-    for (int m = lane; m < N; m += 32) {
-      const float p = __fdiv_rn(row[m], sum);
-      row[m] = p;
-      const float dpq = drow[m];
-      float pq = p;
-      float dp = dpq;
-      if (quantize) {
-        const float u = __fdiv_rn(p, sn);
-        const float uq = rintf(fminf(fmaxf(u, 0.0f), thd_pos));
-        const bool in = u <= thd_pos;
-        pq = __fmul_rn(uq, sn);
-        const float t = in ? __fsub_rn(uq, u) : thd_pos;
-        ds_acc = __fmaf_rn(t, dpq, ds_acc);
-        dp = in ? dpq : 0.0f;
-      }
-      st(pq_u + (size_t)n * ldp + m, pq);
-      drow[m] = dp;
-      dot = __fmaf_rn(dp, p, dot);
-    }
-    dot = warp_sum(dot);
-    for (int m = lane; m < N; m += 32) {
-      st(dsc_u + (size_t)n * ldp + m,
-         __fmul_rn(__fmul_rn(row[m], __fsub_rn(drow[m], dot)), sm_scale));
-    }
-    ds_acc = warp_sum(ds_acc);
-    if (lane == 0) ds_part[unit * N + n] = ds_acc;
-  };
-
-  if constexpr (kTC) {
-    // dpq on the tensor cores, half the rows at a time into P: the
-    // smaller shared memory lets two blocks share an SM
-    bf16* ga = reinterpret_cast<bf16*>(P + (TQ / 2) * ld_s);
-    bf16* vb = ga + (TQ / 2) * LD_ROW;
-    for (int r0 = 0; r0 < TQ; r0 += TQ / 2) {
-      dpq_tc(g_b, v_b, (size_t)H * D, q0 + r0, N, D, P, ld_s, ga, vb);
-      __syncthreads();
-      for (int r = r0 + warp; r < r0 + TQ / 2; r += WARPS)
-        if (q0 + r < N) row_work(r, P + (r - r0) * ld_s);
-      __syncthreads();
-    }
-  } else {
-    tile_nt(g_b, (size_t)H * D, v_b, (size_t)H * D, q0, N, D, 1.0f, P, ld_s, As, Bs);
+  // dpq on the tensor cores, half the rows at a time into P: the smaller
+  // shared memory lets two blocks share an SM
+  bf16* ga = reinterpret_cast<bf16*>(P + (TQ / 2) * ld_s);
+  bf16* vb = ga + (TQ / 2) * LD_ROW;
+  for (int r0 = 0; r0 < TQ; r0 += TQ / 2) {
+    dpq_tc(g_b, v_b, (size_t)H * D, q0 + r0, N, D, P, ld_s, ga, vb);
     __syncthreads();
-    for (int r = warp; r < TQ; r += WARPS)
-      if (q0 + r < N) row_work(r, P + r * ld_s);
+    for (int r = r0 + warp; r < r0 + TQ / 2; r += WARPS)
+      if (q0 + r < N)
+        bwd_row(S + r * ld_s, P + (r - r0) * ld_s, q0 + r, N, s,
+                pq_out + unit * N * ldp, dsc_out + unit * N * ldp, ldp,
+                ds_part + unit * N + q0 + r, thd_pos, sm_scale, quantize);
+    __syncthreads();
   }
 }
 
-// Pass B: out[m, c] = sum_n x[n, m] * y[n, c] for 64 keys m and 64 columns
-// c; column chunks [0, ceil(D/TD)) give dv (x = pq, y = g), the rest drhs
-// (x = dscores, y = lhs).
-template <typename T>
-__global__ void __launch_bounds__(THREADS) qkr_bwd_cols_kernel(
-    const T* __restrict__ pq, const T* __restrict__ dsc,
-    const T* __restrict__ g, const T* __restrict__ lhs, int lhs_per_head,
-    T* __restrict__ dv, T* __restrict__ drhs, int N, int H, int K, int D) {
-  __shared__ float As[KC * (TK + 1)];
-  __shared__ float Bs[KC * TD];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.x * TK;
+// ---- fp32 on the CUDA cores: register tiles fed by cp.async rings
+constexpr int F_BM = 128;       // passes B, C: output rows per block
+constexpr int F_BN = 64;        //   output columns per block
+constexpr int F_BK = 16;        //   contraction chunk
+constexpr int F_STAGES = 3;     //   ring stages
+constexpr int F_THREADS = 128;  //   4 warps of 32 rows x 64 columns
+constexpr int A_BK = 8;         // pass A: contraction chunk
+constexpr int A_STAGES = 3;     //   ring stages
+constexpr int A_TN = 7;         //   keys per thread: lane + 32 j, j < 7
+constexpr int A_KEYS = 32 * A_TN;  // keys per sweep
+constexpr int PAD = 4;          // row padding of a [rows][k] chunk (floats)
+constexpr int A_LD = A_BK + PAD;   // 12 floats: 8 rows' float4 reads hit
+                                   // 8 distinct 16-byte bank groups
+constexpr int F_LD = F_BK + PAD;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// R x C floats of a row-major matrix whose rows are ld apart, from (r0,
+// c0), into dst (rows lds apart), by NT threads: a 16-byte cp.async where a
+// row's 4 values are whole and aligned, 4-byte ones where they are not
+// whole or not aligned, zero at rows >= rlim and columns >= clim.
+template <int R, int C, int NT>
+__device__ __forceinline__ void load_f32(float* dst, int lds,
+                                         const float* __restrict__ src,
+                                         size_t ld, int r0, int rlim, int c0,
+                                         int clim) {
+  constexpr int CH = C / 4;
+  for (int e = threadIdx.x; e < R * CH; e += NT) {
+    const int r = e / CH, c = (e % CH) * 4;
+    const int gr = r0 + r, gc = c0 + c;
+    float* d = dst + r * lds + c;
+    if (gr >= rlim || gc >= clim) {
+      *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      continue;
+    }
+    const float* p = src + (size_t)gr * ld + gc;
+    if (gc + 4 <= clim && ((uintptr_t)p & 15) == 0) {
+      cp_async16(d, p);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (gc + j < clim) cp_async4(d + j, p + j);
+        else d[j] = 0.0f;
+      }
+    }
+  }
+}
+
+// The chunks 0..chunks-1 of a contraction through a ring of STAGES
+// buffers: load(c, stage) issues chunk c's copies, compute(stage) applies
+// a landed chunk; the copies of the next STAGES - 1 chunks are in flight
+// while one is applied.  Ends with every buffer free.
+template <int STAGES, class Load, class Compute>
+__device__ __forceinline__ void ring(int chunks, Load load, Compute compute) {
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < chunks) load(c, c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    // chunk c visible to all; every thread done with chunk c - 1's stage
+    __syncthreads();
+    const int next = c + STAGES - 1;
+    if (next < chunks) load(next, next % STAGES);
+    cp_async_commit();
+    compute(c % STAGES);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// acc[i][j] += a(row i) b(column j) over one chunk of BK contraction
+// steps, in ascending order, one __fmaf_rn each.  This thread's rows are
+// ar0 + i (i < TM).  A_KM: the chunk of A is stored [k][row] (lda apart),
+// else [row][k].  B_KM: B stored [k][col] and this thread's columns are
+// bc0 + 0..3, bc0 + b_next + 0..3; else [col][k] and columns bc0 + b_next
+// * j (j < TN).
+template <int TM, int TN, int BK, bool A_KM, bool B_KM>
+__device__ __forceinline__ void fma_chunk(float (&acc)[TM][TN],
+                                          const float* As, int lda, int ar0,
+                                          const float* Bs, int ldb, int bc0,
+                                          int b_next) {
+  static_assert(!B_KM || TN == 8, "a K-major B gives two float4 columns");
+  static_assert(!A_KM || B_KM, "no product takes a K-major A alone");
+#pragma unroll
+  for (int k4 = 0; k4 < BK; k4 += 4) {
+    float a[4][TM];
+    if constexpr (!A_KM) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(As + (ar0 + i) * lda + k4);
+        a[0][i] = t.x, a[1][i] = t.y, a[2][i] = t.z, a[3][i] = t.w;
+      }
+    }
+    if constexpr (B_KM) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (A_KM) {
+#pragma unroll
+          for (int i = 0; i < TM; i += 4) {
+            const float4 t = *reinterpret_cast<const float4*>(
+                As + (k4 + kk) * lda + ar0 + i);
+            a[kk][i] = t.x, a[kk][i + 1] = t.y, a[kk][i + 2] = t.z,
+            a[kk][i + 3] = t.w;
+          }
+        }
+        const float* brow = Bs + (k4 + kk) * ldb + bc0;
+        const float4 lo = *reinterpret_cast<const float4*>(brow);
+        const float4 hi = *reinterpret_cast<const float4*>(brow + b_next);
+        const float b[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = __fmaf_rn(a[kk][i], b[j], acc[i][j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 t = *reinterpret_cast<const float4*>(
+            Bs + (bc0 + b_next * j) * ldb + k4);
+        const float b[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+            acc[i][j] = __fmaf_rn(a[kk][i], b[kk], acc[i][j]);
+      }
+    }
+  }
+}
+
+// Pass A's products, fp32: acc[i][j] = sum_k a[n, k] b[m, k] over k < kdim
+// for this warp's rows n = r0 + TM * warp + i and the keys m = m0 + lane +
+// 32 j, a's rows a_ld apart and b's b_ld, both zero past N; through a ring
+// of A_STAGES chunks at `buf`.  A warp whose rows all lie past N skips the
+// FMAs (the last query tile).
+template <int TM>
+__device__ __forceinline__ void rows_product(float (&acc)[TM][A_TN],
+                                             const float* __restrict__ a,
+                                             size_t a_ld, int r0,
+                                             const float* __restrict__ b,
+                                             size_t b_ld, int m0, int N,
+                                             int kdim, float* buf) {
+  constexpr int AR = TM * WARPS;
+  constexpr int STAGE = (AR + A_KEYS) * A_LD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool live = r0 + TM * warp < N;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < A_TN; ++j) acc[i][j] = 0.0f;
+  ring<A_STAGES>(
+      (kdim + A_BK - 1) / A_BK,
+      [&](int c, int st) {
+        float* As = buf + st * STAGE;
+        load_f32<AR, A_BK, THREADS>(As, A_LD, a, a_ld, r0, N, c * A_BK, kdim);
+        load_f32<A_KEYS, A_BK, THREADS>(As + AR * A_LD, A_LD, b, b_ld, m0, N,
+                                        c * A_BK, kdim);
+      },
+      [&](int st) {
+        const float* As = buf + st * STAGE;
+        if (live)
+          fma_chunk<TM, A_TN, A_BK, false, false>(
+              acc, As, A_LD, TM * warp, As + AR * A_LD, A_LD, lane, 32);
+      });
+}
+
+// Pass A in fp32: per (query tile, head, batch row).  Shared memory: S
+// [TQ][ld_s] (scores, then p), then one region that holds the score
+// loop's ring and then P [TQ / 2][ld_s] (dpq, then dp, for half the rows)
+// with dpq's ring after it (rows_smem_bytes<float>).  Two blocks per SM at
+// N = 198: at most 128 registers a thread.
+__global__ void __launch_bounds__(THREADS, 2) qkr_bwd_rows_f32_kernel(
+    const float* __restrict__ lhs, int lhs_per_head,
+    const float* __restrict__ rhs, const float* __restrict__ v,
+    const float* __restrict__ s, const float* __restrict__ g,
+    float* __restrict__ pq_out, float* __restrict__ dsc_out,
+    float* __restrict__ ds_part, int N, int H, int K, int D, int ld_s,
+    int ldp, float thd_pos, float sm_scale, int quantize) {
+  extern __shared__ __align__(16) float smem_f32[];
+  float* S = smem_f32;
+  float* R = S + TQ * ld_s;
+  const int q0 = blockIdx.x * TQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t lhs_row = lhs_per_head ? (size_t)H * K : (size_t)K;
+  const float* lhs_b = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
+  const float* rhs_b = rhs + (size_t)b * N * H * K + (size_t)h * K;
+  const float* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
+  const float* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // the score tile, K2's arithmetic: each score one FMA chain over k, then
+  // times sm_scale
+  for (int m0 = 0; m0 < N; m0 += A_KEYS) {
+    float acc[8][A_TN];
+    rows_product<8>(acc, lhs_b, lhs_row, q0, rhs_b, (size_t)H * K, m0, N, K,
+                    R);
+#pragma unroll
+    for (int j = 0; j < A_TN; ++j) {
+      const int m = m0 + lane + 32 * j;
+      if (m < N) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          S[(8 * warp + i) * ld_s + m] = __fmul_rn(acc[i][j], sm_scale);
+      }
+    }
+  }
+
+  const size_t unit = (size_t)b * H + h;
+  float* P = R;
+  float* dpq_ring = P + (TQ / 2) * ld_s;
+  for (int r0 = 0; r0 < TQ; r0 += TQ / 2) {
+    for (int m0 = 0; m0 < N; m0 += A_KEYS) {
+      float acc[4][A_TN];
+      rows_product<4>(acc, g_b, (size_t)H * D, q0 + r0, v_b, (size_t)H * D,
+                      m0, N, D, dpq_ring);
+#pragma unroll
+      for (int j = 0; j < A_TN; ++j) {
+        const int m = m0 + lane + 32 * j;
+        if (m < N) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) P[(4 * warp + i) * ld_s + m] = acc[i][j];
+        }
+      }
+    }
+    __syncthreads();
+    for (int r = r0 + warp; r < r0 + TQ / 2; r += WARPS)
+      if (q0 + r < N)
+        bwd_row(S + r * ld_s, P + (r - r0) * ld_s, q0 + r, N, s,
+                pq_out + unit * N * ldp, dsc_out + unit * N * ldp, ldp,
+                ds_part + unit * N + q0 + r, thd_pos, sm_scale, quantize);
+    __syncthreads();
+  }
+}
+
+// out[r * ld + c + j] = v[j] for j < min(avail, 4): one 16-byte store where
+// the four are whole and aligned
+__device__ __forceinline__ void store4(float* p, int avail, const float* v) {
+  if (avail >= 4 && ((uintptr_t)p & 15) == 0) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int j = 0; j < 4 && j < avail; ++j) p[j] = v[j];
+  }
+}
+
+// A 128 x 64 output tile of passes B and C from acc: this thread's rows
+// row0 + i, columns col0 + 0..3 and col0 + 32 + 0..3 (in-tile), bounded by
+// rlim rows and clim columns.
+__device__ __forceinline__ void store_tile(const float (&acc)[8][8],
+                                           float* out, size_t ld_out,
+                                           int row0, int rlim, int col0,
+                                           int clim) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (row0 + i >= rlim) break;
+    float* o = out + (size_t)(row0 + i) * ld_out;
+    store4(o + col0, clim - col0, acc[i]);
+    store4(o + col0 + 32, clim - col0 - 32, acc[i] + 4);
+  }
+}
+
+// Pass B in fp32: out[m, c] = sum_n x[n, m] * y[n, c] for 128 keys m and 64
+// columns c; column chunks [0, ceil(D/TD)) give dv (x = pq, y = g), the
+// rest drhs (x = dscores, y = lhs); x's rows (the scratch) are ldp apart.
+// Both operands are stored with the contraction down the rows.
+__global__ void __launch_bounds__(F_THREADS) qkr_bwd_cols_f32_kernel(
+    const float* __restrict__ pq, const float* __restrict__ dsc,
+    const float* __restrict__ g, const float* __restrict__ lhs,
+    int lhs_per_head, float* __restrict__ dv, float* __restrict__ drhs,
+    int N, int H, int K, int D, int ldp) {
+  constexpr int STAGE = F_BK * (F_BM + F_BN);
+  __shared__ __align__(16) float buf[F_STAGES * STAGE];
+  const int m0 = blockIdx.x * F_BM;
   const int unit = blockIdx.z;
   const int b = unit / H;
   const int h = unit % H;
   const int nd = (D + TD - 1) / TD;
 
-  const T* x;
-  const T* y;
+  const float* x;
+  const float* y;
   size_t ldy, ld_out;
   int ncols, c0;
-  T* out;
+  float* out;
   if ((int)blockIdx.y < nd) {
-    x = pq + (size_t)unit * N * N;
+    x = pq + (size_t)unit * N * ldp;
     y = g + (size_t)b * N * H * D + (size_t)h * D;
     ldy = (size_t)H * D;
     ncols = D;
@@ -463,7 +761,7 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_cols_kernel(
     ld_out = (size_t)H * D;
   } else {
     const size_t lhs_row = lhs_per_head ? (size_t)H * K : (size_t)K;
-    x = dsc + (size_t)unit * N * N;
+    x = dsc + (size_t)unit * N * ldp;
     y = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
     ldy = lhs_row;
     ncols = K;
@@ -472,70 +770,44 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_cols_kernel(
     ld_out = (size_t)H * K;
   }
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int n0 = 0; n0 < N; n0 += KC) {
-    for (int e = tid; e < KC * TK; e += THREADS) {
-      const int nn = e / TK;
-      const int mm = e % TK;
-      const int n = n0 + nn;
-      const int m = m0 + mm;
-      As[nn * (TK + 1) + mm] = (n < N && m < N) ? ld(x + (size_t)n * N + m) : 0.0f;
-    }
-    for (int e = tid; e < KC * TD; e += THREADS) {
-      const int nn = e / TD;
-      const int cc = e % TD;
-      const int n = n0 + nn;
-      const int c = c0 + cc;
-      Bs[nn * TD + cc] = (n < N && c < ncols) ? ld(y + (size_t)n * ldy + c) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int nn = 0; nn < KC; ++nn) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[nn * (TK + 1) + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[nn * TD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < ncols) st(out + (size_t)m * ld_out + c, acc[i][j]);
-    }
-  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = 32 * warp + 8 * (lane >> 3), col0 = 4 * (lane & 7);
+  const bool live = m0 + 32 * warp < N;
+  float acc[8][8] = {};
+  ring<F_STAGES>(
+      (N + F_BK - 1) / F_BK,
+      [&](int c, int st) {
+        float* As = buf + st * STAGE;
+        load_f32<F_BK, F_BM, F_THREADS>(As, F_BM, x, ldp, c * F_BK, N, m0,
+                                        N);
+        load_f32<F_BK, F_BN, F_THREADS>(As + F_BK * F_BM, F_BN, y, ldy,
+                                        c * F_BK, N, c0, ncols);
+      },
+      [&](int st) {
+        const float* As = buf + st * STAGE;
+        if (live)
+          fma_chunk<8, 8, F_BK, true, true>(acc, As, F_BM, row0,
+                                            As + F_BK * F_BM, F_BN, col0, 32);
+      });
+  store_tile(acc, out + c0 + (size_t)m0 * ld_out, ld_out, row0, N - m0, col0,
+             ncols - c0);
 }
 
-// Pass C: dlhs[n, c] = sum_h sum_m dscores[b, h, n, m] * rhs[b, m, h, c] for
-// 64 query rows and 64 columns; a shared lhs sums h = 0..H-1 in this block,
-// a per-head lhs takes one head per block.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) qkr_bwd_dlhs_kernel(
-    const T* __restrict__ dsc, const T* __restrict__ rhs, int lhs_per_head,
-    T* __restrict__ dlhs, int N, int H, int K) {
-  __shared__ float As[KC * (TQ + 1)];
-  __shared__ float Bs[KC * TD];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = blockIdx.x * TQ;
+// Pass C in fp32: dlhs[n, c] = sum_h sum_m dscores[b, h, n, m] * rhs[b, m,
+// h, c] for 128 query rows and 64 columns; a shared lhs sums h = 0..H-1 in
+// this block, a per-head lhs takes one head per block.  The contraction
+// runs over (h, m) in that order, in chunks of F_BK keys of one head;
+// dscores is stored [n][m] (the contraction along the rows), rhs [m][c].
+__global__ void __launch_bounds__(F_THREADS) qkr_bwd_dlhs_f32_kernel(
+    const float* __restrict__ dsc, const float* __restrict__ rhs,
+    int lhs_per_head, float* __restrict__ dlhs, int N, int H, int K,
+    int ldp) {
+  constexpr int STAGE = F_BM * F_LD + F_BK * F_BN;
+  __shared__ __align__(16) float buf[F_STAGES * STAGE];
+  const int q0 = blockIdx.x * F_BM;
   const int c0 = blockIdx.y * TD;
   int b, h0, h1;
-  T* out;
+  float* out;
   size_t ld_out;
   if (lhs_per_head) {
     b = blockIdx.z / H;
@@ -551,60 +823,34 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_dlhs_kernel(
     ld_out = (size_t)K;
   }
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int h = h0; h < h1; ++h) {
-    const T* x = dsc + ((size_t)b * H + h) * N * N;
-    const T* y = rhs + (size_t)b * N * H * K + (size_t)h * K;
-    for (int m0 = 0; m0 < N; m0 += KC) {
-      for (int e = tid; e < TQ * KC; e += THREADS) {
-        const int r = e / KC;
-        const int kk = e % KC;
-        const int n = q0 + r;
-        const int m = m0 + kk;
-        As[kk * (TQ + 1) + r] = (n < N && m < N) ? ld(x + (size_t)n * N + m) : 0.0f;
-      }
-      for (int e = tid; e < KC * TD; e += THREADS) {
-        const int kk = e / TD;
-        const int cc = e % TD;
-        const int m = m0 + kk;
-        const int c = c0 + cc;
-        Bs[kk * TD + cc] = (m < N && c < K) ? ld(y + (size_t)m * H * K + c) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KC; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = As[kk * (TQ + 1) + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk * TD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = q0 + ty + 16 * i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < K) st(out + (size_t)n * ld_out + c, acc[i][j]);
-    }
-  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = 32 * warp + 8 * (lane >> 3), col0 = 4 * (lane & 7);
+  const bool live = q0 + 32 * warp < N;
+  const int per_head = (N + F_BK - 1) / F_BK;
+  float acc[8][8] = {};
+  ring<F_STAGES>(
+      (h1 - h0) * per_head,
+      [&](int c, int st) {
+        const int h = h0 + c / per_head, m0 = (c % per_head) * F_BK;
+        float* As = buf + st * STAGE;
+        load_f32<F_BM, F_BK, F_THREADS>(
+            As, F_LD, dsc + ((size_t)b * H + h) * N * ldp, ldp, q0, N, m0, N);
+        load_f32<F_BK, F_BN, F_THREADS>(
+            As + F_BM * F_LD, F_BN, rhs + (size_t)b * N * H * K + (size_t)h * K,
+            (size_t)H * K, m0, N, c0, K);
+      },
+      [&](int st) {
+        const float* As = buf + st * STAGE;
+        if (live)
+          fma_chunk<8, 8, F_BK, false, true>(acc, As, F_LD, row0,
+                                             As + F_BM * F_LD, F_BN, col0, 32);
+      });
+  store_tile(acc, out + c0 + (size_t)q0 * ld_out, ld_out, row0, N - q0, col0,
+             K - c0);
 }
 
 // Pass B in bf16 on the tensor cores: out[m, c] = sum_n x[n, m] * y[n, c]
-// for 64 keys m and 64 columns c, as qkr_bwd_cols_kernel (column chunks
+// for 64 keys m and 64 columns c, as qkr_bwd_cols_f32_kernel (column chunks
 // [0, ceil(D/TD)) give dv, the rest drhs); x's rows (the scratch) are ldp
 // apart.  A = x^T and B = y, both stored with the contraction down the
 // rows: ldmatrix .trans for both.
@@ -662,7 +908,7 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_cols_tc_kernel(
 }
 
 // Pass C in bf16 on the tensor cores: dlhs[n, c] = sum_h sum_m
-// dscores[b, h, n, m] * rhs[b, m, h, c], as qkr_bwd_dlhs_kernel (a shared
+// dscores[b, h, n, m] * rhs[b, m, h, c], as qkr_bwd_dlhs_f32_kernel (a shared
 // lhs sums h = 0..H-1 in fp32 in this block, then rounds once).  A =
 // dscores stored [n][m] (ldmatrix), B = rhs stored [m][c] (.trans).
 __global__ void __launch_bounds__(THREADS) qkr_bwd_dlhs_tc_kernel(
@@ -720,37 +966,55 @@ __global__ void qkr_bwd_ds_kernel(const float* __restrict__ ds_part,
   ds[n] = acc;
 }
 
-// pass A's row stride of the score and dpq tiles: past N, odd (their
-// column accesses miss bank conflicts); fp32 keeps its first form
+// pass A's row stride of the score and dpq tiles: past N; in bf16 odd
+// (tile_nt's column accesses miss bank conflicts), in fp32 a multiple of 4
+// (16-byte rows; the register tiles' accesses run along a row)
 template <typename T>
 int rows_ld(int N) {
   return std::is_same<T, bf16>::value ? (N + 31) / 32 * 32 + 1
-                                      : ((N + TK - 1) / TK) * TK + 1;
+                                      : (N + 3) / 4 * 4;
 }
 
-// pass A's dynamic shared memory for N keys (see qkr_bwd_rows_kernel)
+// pass A's dynamic shared memory for N keys (see qkr_bwd_rows_tc_kernel,
+// qkr_bwd_rows_f32_kernel)
 template <typename T>
 long long rows_smem_bytes(int N) {
   const long long ld_s = rows_ld<T>(N);
+  if (!std::is_same<T, bf16>::value) {
+    const long long scores = (long long)A_STAGES * (TQ + A_KEYS) * A_LD;
+    const long long dpq =
+        (TQ / 2) * ld_s + (long long)A_STAGES * (TQ / 2 + A_KEYS) * A_LD;
+    return 4LL * (TQ * ld_s + (scores > dpq ? scores : dpq));
+  }
   const long long tiles = 4LL * (KC * (TQ + 1) + KC * (TK + 1));
-  if (!std::is_same<T, bf16>::value)
-    return 4LL * 2 * TQ * ld_s + tiles;
   const long long half = 4LL * (TQ / 2) * ld_s +
                          2LL * (TQ / 2 + DPQ_KEYS) * LD_ROW;
   return 4LL * TQ * ld_s + (half > tiles ? half : tiles);
 }
 
-long long bwd_smem_bytes(int N) {
-  const long long f = rows_smem_bytes<float>(N), h = rows_smem_bytes<bf16>(N);
-  return f > h ? f : h;
-}
-
-// the scratch's row stride: N in fp32 (the CUDA-core passes read rows N
-// apart), N rounded up to 8 in bf16 (16-byte rows for the tensor-core
-// passes' loads)
+// the scratch's row stride: N rounded up to 4 in fp32 and to 8 in bf16, so
+// that every row starts 16-byte aligned for the passes' 16-byte copies
 template <typename T>
 int scratch_ld(int N) {
-  return std::is_same<T, bf16>::value ? (N + 7) / 8 * 8 : N;
+  return std::is_same<T, bf16>::value ? (N + 7) / 8 * 8 : (N + 3) / 4 * 4;
+}
+
+// Pass A's kernel for stream dtype T, with its dynamic shared memory at N
+// keys set (fp32: and the largest carveout, so that two blocks' shared
+// memory fit an SM); nullptr where the runtime refuses, the error in *err.
+template <typename T>
+const void* prepare_rows(int N, cudaError_t* err) {
+  const void* rows = std::is_same<T, bf16>::value
+                         ? (const void*)qkr_bwd_rows_tc_kernel
+                         : (const void*)qkr_bwd_rows_f32_kernel;
+  *err = cudaFuncSetAttribute(rows,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)rows_smem_bytes<T>(N));
+  if (*err == cudaSuccess && !std::is_same<T, bf16>::value)
+    *err = cudaFuncSetAttribute(
+        rows, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+  return *err == cudaSuccess ? rows : nullptr;
 }
 
 template <typename T>
@@ -759,39 +1023,49 @@ int launch_bwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
                T* pq_scratch, T* dsc_scratch, float* ds_part, int B, int N,
                int H, int K, int D, float thd_pos, float sm_scale,
                int quantize, void* stream) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   cudaStream_t strm = (cudaStream_t)stream;
   const int ld_s = rows_ld<T>(N);
   const int ldp = scratch_ld<T>(N);
   const size_t smem = (size_t)rows_smem_bytes<T>(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      qkr_bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if (prepare_rows<T>(N, &err) == nullptr) return (int)err;
   const int q_tiles = (N + TQ - 1) / TQ;
-  qkr_bwd_rows_kernel<T><<<dim3(q_tiles, H, B), THREADS, smem, strm>>>(
-      lhs, lhs_per_head, rhs, v, s, g, pq_scratch, dsc_scratch, ds_part, N, H,
-      K, D, ld_s, ldp, thd_pos, sm_scale, quantize);
+  const dim3 rows_grid(q_tiles, H, B);
+  if constexpr (kBf16) {
+    qkr_bwd_rows_tc_kernel<<<rows_grid, THREADS, smem, strm>>>(
+        lhs, lhs_per_head, rhs, v, s, g, pq_scratch, dsc_scratch, ds_part, N,
+        H, K, D, ld_s, ldp, thd_pos, sm_scale, quantize);
+  } else {
+    qkr_bwd_rows_f32_kernel<<<rows_grid, THREADS, smem, strm>>>(
+        lhs, lhs_per_head, rhs, v, s, g, pq_scratch, dsc_scratch, ds_part, N,
+        H, K, D, ld_s, ldp, thd_pos, sm_scale, quantize);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nd = (D + TD - 1) / TD;
   const int nk = (K + TD - 1) / TD;
-  const dim3 cols_grid((N + TK - 1) / TK, nd + nk, B * H);
-  const dim3 dlhs_grid(q_tiles, nk, lhs_per_head ? B * H : B);
-  if constexpr (std::is_same<T, bf16>::value) {
-    qkr_bwd_cols_tc_kernel<<<cols_grid, THREADS, 0, strm>>>(
+  const int units = lhs_per_head ? B * H : B;
+  if constexpr (kBf16) {
+    qkr_bwd_cols_tc_kernel<<<dim3((N + TK - 1) / TK, nd + nk, B * H),
+                             THREADS, 0, strm>>>(
         pq_scratch, dsc_scratch, g, lhs, lhs_per_head, dv, drhs, N, H, K, D,
         ldp);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    qkr_bwd_dlhs_tc_kernel<<<dlhs_grid, THREADS, 0, strm>>>(
+    qkr_bwd_dlhs_tc_kernel<<<dim3(q_tiles, nk, units), THREADS, 0, strm>>>(
         dsc_scratch, rhs, lhs_per_head, dlhs, N, H, K, ldp);
   } else {
-    qkr_bwd_cols_kernel<T><<<cols_grid, THREADS, 0, strm>>>(
-        pq_scratch, dsc_scratch, g, lhs, lhs_per_head, dv, drhs, N, H, K, D);
+    const int f_tiles = (N + F_BM - 1) / F_BM;
+    qkr_bwd_cols_f32_kernel<<<dim3(f_tiles, nd + nk, B * H), F_THREADS, 0,
+                              strm>>>(pq_scratch, dsc_scratch, g, lhs,
+                                      lhs_per_head, dv, drhs, N, H, K, D,
+                                      ldp);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    qkr_bwd_dlhs_kernel<T><<<dlhs_grid, THREADS, 0, strm>>>(
-        dsc_scratch, rhs, lhs_per_head, dlhs, N, H, K);
+    qkr_bwd_dlhs_f32_kernel<<<dim3(f_tiles, nk, units), F_THREADS, 0,
+                              strm>>>(dsc_scratch, rhs, lhs_per_head, dlhs, N,
+                                      H, K, ldp);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -801,21 +1075,36 @@ int launch_bwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
 
 }  // namespace
 
-// Dynamic shared memory pass A needs for N keys (bytes), in either stream
-// dtype; the wrapper checks it against the card's per-block limit before
-// launching.
-extern "C" long long ofq_qkr_attention_bwd_smem_bytes(int N) {
-  return bwd_smem_bytes(N);
+// How K3 launches pass A for N keys in a stream dtype (is_bf16 != 0 for
+// bf16): returns its dynamic shared memory in bytes, which the wrapper
+// checks against the card's per-block limit, and writes the scratch's row
+// stride (the wrapper allocates B*H*N rows of it for each of pq and
+// dscores), pass A's ring stages (1: chunks loaded and applied in turn)
+// and the blocks of pass A that one SM holds (the CUDA runtime's
+// occupancy: shared memory, threads and registers; 0 where the kernel
+// cannot take that shared memory).
+extern "C" long long ofq_qkr_attention_bwd_launch(int N, int is_bf16,
+                                                  int* ldp, int* stages,
+                                                  int* blocks) {
+  const long long smem =
+      is_bf16 ? rows_smem_bytes<bf16>(N) : rows_smem_bytes<float>(N);
+  *ldp = is_bf16 ? scratch_ld<bf16>(N) : scratch_ld<float>(N);
+  *stages = is_bf16 ? 1 : A_STAGES;
+  cudaError_t err;
+  const void* rows =
+      is_bf16 ? prepare_rows<bf16>(N, &err) : prepare_rows<float>(N, &err);
+  if (rows != nullptr)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, rows, THREADS,
+                                                        (size_t)smem);
+  if (err != cudaSuccess) {
+    *blocks = 0;
+    cudaGetLastError();  // a refused query leaves no error for the launches
+  }
+  return smem;
 }
 
-// The row stride of the scratch in the stream dtype (is_bf16 != 0 for
-// bf16): the wrapper allocates B*H*N rows of it.
-extern "C" int ofq_qkr_attention_bwd_scratch_ld(int N, int is_bf16) {
-  return is_bf16 ? scratch_ld<__nv_bfloat16>(N) : scratch_ld<float>(N);
-}
-
-// pq_scratch and dsc_scratch hold B*H*N*N elements of the stream dtype
-// each, ds_part B*H*N floats; all allocated by the caller.  Returns the
+// pq_scratch and dsc_scratch hold B*H*N*ldp elements of the stream dtype
+// each (ldp from ofq_qkr_attention_bwd_launch), ds_part B*H*N floats; all allocated by the caller.  Returns the
 // first CUDA error of the launches.
 extern "C" int ofq_qkr_attention_bwd(
     const float* lhs, int lhs_per_head, const float* rhs, const float* v,
@@ -830,7 +1119,7 @@ extern "C" int ofq_qkr_attention_bwd(
 
 // The bf16 stream: lhs, rhs, v, g, the cotangents and the scratch bf16; s,
 // ds and ds_part fp32.  The scratch holds B*H*N*ldp elements each, ldp = N
-// rounded up to 8 (ofq_qkr_attention_bwd_scratch_ld).
+// rounded up to 8 (ofq_qkr_attention_bwd_launch).
 extern "C" int ofq_qkr_attention_bwd_bf16(
     const __nv_bfloat16* lhs, int lhs_per_head, const __nv_bfloat16* rhs,
     const __nv_bfloat16* v, const float* s, const __nv_bfloat16* g,

@@ -27,7 +27,9 @@ Two kernels, each with its plain PyTorch version beside it:
     it recomputes the scores from the residuals (lhs, rhs, v, s), so the
     (B, H, N, N) probabilities are never kept for the backward; in bf16
     its products other than the score tile run on the tensor cores
-    (`mma.sync`, exact bf16 operands, fp32 sums).
+    (`mma.sync`, exact bf16 operands, fp32 sums); in fp32 on the CUDA
+    cores, register-tiled, each output one FMA chain in ascending
+    contraction order.
 A wrapper launches its kernel on CUDA tensors and runs the plain version on
 CPU tensors.  `quantized_attention_core` reaches both through `_AttnCore`,
 a `torch.autograd.Function`; a wrapper called directly on a tensor that
@@ -37,6 +39,7 @@ requires grad, with grad mode on, raises instead of cutting the graph.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,6 +49,17 @@ from . import _build
 _S_EPS = 1e-5
 # the card's per-block shared memory limit (H100: 227 KB)
 _MAX_SMEM = 232448
+# an H100 SM: 228 KB of shared memory (1 KB of each block's reserved by
+# the system) and 2048 threads
+_SM_SMEM, _SM_THREADS = 233472, 2048
+
+
+def blocks_per_sm(smem, threads):
+    """Blocks of `threads` threads and `smem` bytes of dynamic shared
+    memory that one H100 SM holds as shared memory and threads allow: at
+    least the CUDA runtime's occupancy, which the launch exports report and
+    which counts registers too."""
+    return min(_SM_SMEM // (smem + 1024), _SM_THREADS // threads)
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -220,6 +234,48 @@ def qkr_attention_fwd(lhs, rhs, v, s, bits, sm_scale, quantize):
                                        quantize)
 
 
+def bwd_launch_plan(N, bf16):
+    """(pass A's dynamic shared memory in bytes, the scratch's row stride,
+    pass A's ring stages, pass A's blocks per SM as shared memory and
+    threads allow) of K3 at N keys in fp32 or (bf16=True) the bf16 stream:
+    the arithmetic of `csrc/fused_attention_bwd.cu` (rows_smem_bytes,
+    scratch_ld, the launch export) in Python, for the tests on the CPU;
+    `bwd_launch_config` asks the built library, and a card test holds the
+    first three equal and the runtime's blocks per SM at most the
+    fourth."""
+    tq, threads = 64, 256
+    if bf16:
+        ld_s = -(-N // 32) * 32 + 1
+        tiles = 4 * (32 * (tq + 1) + 32 * (64 + 1))
+        half = 4 * (tq // 2) * ld_s + 2 * (tq // 2 + 128) * 40
+        smem = 4 * tq * ld_s + max(half, tiles)
+        ldp, stages = -(-N // 8) * 8, 1
+    else:
+        # 3 stages of 8-deep chunks, rows of 8 + 4 floats, 224 keys a sweep
+        ld_s = -(-N // 4) * 4
+        stages, keys, ld_chunk = 3, 224, 12
+        scores = stages * (tq + keys) * ld_chunk
+        dpq = tq // 2 * ld_s + stages * (tq // 2 + keys) * ld_chunk
+        smem = 4 * (tq * ld_s + max(scores, dpq))
+        ldp = ld_s
+    return smem, ldp, stages, blocks_per_sm(smem, threads)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_launch_config(N, bf16):
+    """`bwd_launch_plan`'s tuple as the built library reports it
+    (`ofq_qkr_attention_bwd_launch`), with pass A's blocks per SM from the
+    CUDA runtime's occupancy (registers counted; 0 where its shared memory
+    does not fit a block)."""
+    ldp, stages, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    fn = _build.load("fused_attention_bwd").ofq_qkr_attention_bwd_launch
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    smem = fn(N, int(bf16), ctypes.byref(ldp), ctypes.byref(stages),
+              ctypes.byref(blocks))
+    return smem, ldp.value, stages.value, blocks.value
+
+
 def _launch_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize):
     B, N, H, K, d, lhs_shape = _shapes(lhs, rhs, v)
     dt = stream_dtype(v)
@@ -227,8 +283,11 @@ def _launch_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize):
                rhs=(rhs, (B, N, H, K), dt), v=(v, (B, N, H, d), dt),
                s=(s, (N,)), g=(g, (B, N, H, d), dt))
     lib = _build.load("fused_attention_bwd")
-    _smem_check(lib, "ofq_qkr_attention_bwd_smem_bytes", N,
-                "qkr_attention_bwd")
+    smem, ldp = bwd_launch_config(N, dt == torch.bfloat16)[:2]
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"qkr_attention_bwd: N={N} keys need {smem} bytes of shared "
+            f"memory per block, more than the card's {_MAX_SMEM}")
     fn = getattr(lib, "ofq_qkr_attention_bwd" + _LAUNCHERS[dt])
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11
@@ -242,11 +301,7 @@ def _launch_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize):
     drhs = torch.empty((B, N, H, K), **st)
     dv = torch.empty((B, N, H, d), **st)
     ds = torch.empty((N,), **f32)
-    # rows N apart in fp32; in bf16 a multiple of 8, for 16-byte loads
-    ld_fn = lib.ofq_qkr_attention_bwd_scratch_ld
-    ld_fn.restype = ctypes.c_int
-    ld_fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    ldp = ld_fn(N, int(dt == torch.bfloat16))
+    # rows ldp apart: 16-byte rows for the passes' 16-byte copies
     pq_scratch = torch.empty((B, H, N, ldp), **st)
     dsc_scratch = torch.empty((B, H, N, ldp), **st)
     ds_part = torch.empty((B, H, N), **f32)

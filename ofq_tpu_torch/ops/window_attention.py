@@ -20,9 +20,10 @@ shared memory (K7: H when None; (WB * H) % P == 0).  K6 also takes the
 lab's ablation switches (`do_scores`, `do_softmax`, `do_out`) in the three
 forms the lab runs, timing probes that replace the q k^T product, the
 softmax or the p v product (`window_attn_units_reference`); each form
-counts its own launches.  The wrappers check these constraints, and bf16,
-n = 49, d = 32, on every device; then a CUDA tensor goes to the kernel and
-a CPU tensor to the plain version.  They have no backward (the lab kernels
+counts its own launches.  All three run on the tensor cores; K6 loads its
+units by TMA.  The wrappers check these constraints, and bf16, n = 49,
+d = 32 and 16-byte aligned operands, on every device; then a CUDA tensor
+goes to the kernel and a CPU tensor to the plain version.  They have no backward (the lab kernels
 have none): called on a tensor that requires grad, with grad mode on,
 they raise.  The Swin models do not call them: their tail also adds the
 relative-position bias and the shift mask.
@@ -36,18 +37,25 @@ import functools
 import torch
 
 from . import _build
-from .fused_attention import _MAX_SMEM, on_card, refuse_graph_cut
+from .fused_attention import (_MAX_SMEM, blocks_per_sm, on_card,
+                              refuse_graph_cut)
 
 N_TOKENS, HEAD_DIM = 49, 32
 _VARIANT = {"window_attn_units": 0, "window_attn_packed": 1,
             "window_attn_packed_aligned": 2}
-# K6's forms, (do_scores, do_softmax, do_out) -> the kernel's flags and the
-# name of an ablation in the lab's VARIANTS (`units16_<name>`)
-_FORMS = {(True, True, True): (7, None),
-          (False, True, False): (2, "nodots"),
-          (True, False, True): (5, "nosm"),
-          (True, False, False): (1, "scoresonly")}
-ABLATIONS = tuple(name for _, name in _FORMS.values() if name)
+# K6's forms, (do_scores, do_softmax, do_out) -> the name of an ablation in
+# the lab's VARIANTS (`units16_<name>`; the full tail: None)
+_FORMS = {(True, True, True): None,
+          (False, True, False): "nodots",
+          (True, False, True): "nosm",
+          (True, False, False): "scoresonly"}
+ABLATIONS = tuple(name for name in _FORMS.values() if name)
+
+
+def form_flags(do_scores=True, do_softmax=True, do_out=True):
+    """K6's launcher flags of a form: do_scores | do_softmax << 1 | do_out
+    << 2 (the full tail 7, nodots 2, nosm 5, scoresonly 1)."""
+    return int(do_scores) | int(do_softmax) << 1 | int(do_out) << 2
 
 
 def window_attn_units_reference(q, k, v, do_scores=True, do_softmax=True,
@@ -103,6 +111,10 @@ def _check(what, q, k, v, WB, P):
         raise ValueError(f"{what}: WB={WB} must divide Bn={Bn}")
     if P < 1 or (WB * H) % P:
         raise ValueError(f"{what}: P={P} must divide WB*H={WB * H}")
+    for t in (q, k, v):
+        # 16-byte copies: K6's TMA boxes, K7's and K8's cp.async
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: operands must be 16-byte aligned")
 
 
 # the library's C functions with their ctypes signatures, set once
@@ -118,16 +130,42 @@ def _lib_fn(name, restype, argtypes):
     return fn
 
 
+def launch_plan(what, H, P):
+    """(dynamic shared memory in bytes, ring stages, warps, blocks per SM as
+    shared memory and threads allow) of one block of kernel `what` (a
+    wrapper's name) at H heads and P units per pass (K6: H): the arithmetic
+    of `csrc/window_attention.cu` (units_launch, tc_launch) in Python, for
+    the tests on the CPU; `launch_config` asks the built library, and a card
+    test holds the first three equal and the runtime's blocks per SM at
+    most the fourth."""
+    max_warps = 16
+    if what == "window_attn_units":
+        # two stages of 3 H swizzled 4096-byte unit buffers, 1024 bytes to
+        # align them (the barriers inside)
+        stages, units = 2, H
+        smem = stages * 3 * H * 64 * 32 * 2 + 1024
+    else:
+        units = P
+        stage = 3 * P * 64 * (32 if what == "window_attn_packed" else 40) * 2
+        stages = 2 if 2 * 2 * stage <= _MAX_SMEM else 1
+        smem = stages * stage
+    warps = min(4 * units, max_warps)
+    return smem, stages, warps, blocks_per_sm(smem, 32 * warps)
+
+
 @functools.lru_cache(maxsize=None)
-def launch_config(what, H, P):
-    """(dynamic shared memory in bytes, ring stages, warps) of one block
-    of kernel `what` (a wrapper's name) at H heads and P units per pass,
-    as the built library launches it."""
-    stages, warps = ctypes.c_int(), ctypes.c_int()
+def launch_config(what, H, P, flags=7):
+    """`launch_plan`'s tuple as the built library reports it
+    (`ofq_window_attn_launch`), with the blocks per SM of the kernel
+    instance launched (K6: in form `flags`, `form_flags`'s encoding) from
+    the CUDA runtime's occupancy (registers counted; 0 where its shared
+    memory does not fit a block)."""
+    stages, warps, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     smem = _lib_fn("ofq_window_attn_launch", ctypes.c_longlong,
-                   [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)(
-        _VARIANT[what], H, P, ctypes.byref(stages), ctypes.byref(warps))
-    return smem, stages.value, warps.value
+                   [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3)(
+        _VARIANT[what], flags, H, P, ctypes.byref(stages),
+        ctypes.byref(warps), ctypes.byref(blocks))
+    return smem, stages.value, warps.value, blocks.value
 
 
 def _launch(what, q, k, v, WB, P, flags):
@@ -136,10 +174,6 @@ def _launch(what, q, k, v, WB, P, flags):
     if smem > _MAX_SMEM:
         raise ValueError(f"{what}: H={H}, P={P} needs {smem} bytes of shared "
                          f"memory per block, more than the card's {_MAX_SMEM}")
-    for t in (q, k, v):
-        # 16-byte vector copies (K7, K8) and 4-byte rows (all)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: operands must be 16-byte aligned")
     # K6: (..., Bn, H, WB, sm, flags, stream); K7, K8: (..., Bn, H, WB, P,
     # sm, stream)
     ints = [Bn, H, WB] if flags is not None else [Bn, H, WB, P]
@@ -159,7 +193,8 @@ def _launch(what, q, k, v, WB, P, flags):
 
 def window_attn_units(q, k, v, WB=16, do_scores=True, do_softmax=True,
                       do_out=True):
-    """K6: WB windows per block, one window's H units per pass; in the full
+    """K6: WB windows per block, one window's H units per pass, loaded by
+    TMA into a swizzled two-stage ring, on the tensor cores; in the full
     form or one of the lab's three ablations (`ABLATIONS`: nodots =
     do_scores and do_out off, nosm = do_softmax off, scoresonly =
     do_softmax and do_out off), each counted on its own
@@ -174,8 +209,8 @@ def window_attn_units(q, k, v, WB=16, do_scores=True, do_softmax=True,
     _check(what, q, k, v, WB, q.shape[2])
     if not on_card(q):
         return window_attn_units_reference(q, k, v, *form)
-    flags, name = _FORMS[form]
-    out = _launch(what, q, k, v, WB, q.shape[2], flags)
+    name = _FORMS[form]
+    out = _launch(what, q, k, v, WB, q.shape[2], form_flags(*form))
     if name is None:
         window_attn_units.launches += 1
     else:

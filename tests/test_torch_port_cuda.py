@@ -167,6 +167,22 @@ def test_k3_matches_plain(dev, B, N, H, K, d, shared, quantize):
     precedent): at most 0.1 % of the elements of dlhs, drhs and dv
     outside 1e-4 * (1 + |ref|).  Such a flip moves one entry of ds by
     about |dpq|: at most 2 % of ds's entries outside 1e-4 * (1 + |ref|)."""
+    _k3_against_plain(dev, B, N, H, K, d, shared, quantize)
+
+
+@pytest.mark.parametrize("N", [50, 65, 197, 198])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("quantize", [True, False])
+def test_k3_fp32_ragged_keys(dev, N, shared, quantize):
+    """K3 fp32's register tiles at key counts around its tiles' edges (a
+    128-row tile of passes B and C, 64 query rows and 224 keys a sweep in
+    pass A, 16-byte scratch rows): N = 50, 65, 197 and DeiT-S's 198, under
+    test_k3_matches_plain's rule."""
+    _k3_against_plain(dev, 2, N, 6, 384 if shared else 64, 64, shared,
+                      quantize)
+
+
+def _k3_against_plain(dev, B, N, H, K, d, shared, quantize):
     lhs, rhs, v, s = _k2_args(dev, B, N, H, K, d, shared)
     g = torch.randn(B, N, H, d, generator=torch.Generator().manual_seed(3))
     args = (lhs, rhs, v, s, g.to(dev), 2, d ** -0.5, quantize)
@@ -356,8 +372,9 @@ def test_k5_matches_plain(dev, M, K, N, dtype):
     (source, part, op) for source, wanted in chip_smoke.TC_KERNELS.items()
     for part, op in wanted])
 def test_tensor_core_kernels_hold_mma_instructions(dev, source, part, op):
-    """K1 runs wgmma (HGMMA in its SASS) and K3-bf16's dpq, cols and dlhs
-    passes mma.sync (HMMA), read with cuobjdump (chip_smoke.TC_KERNELS)."""
+    """K1 runs wgmma (HGMMA in its SASS), K3-bf16's dpq, cols and dlhs
+    passes and K6-K8 mma.sync (HMMA), K6 TMA loads (UTMALDG), read with
+    cuobjdump (chip_smoke.TC_KERNELS)."""
     from ofq_tpu_torch.ops import _build
     _build.load(source)
     counts = chip_smoke.mma_counts(_build._lib_path(source))
@@ -481,7 +498,8 @@ def test_k678_refuse_on_card(dev):
     from ofq_tpu_torch.ops import window_attention as wa
     q, k, v = _tail_args(dev, 16, H=12)
     with pytest.raises(ValueError, match="shared memory"):
-        wa.window_attn_units(q, k, v)  # 12 heads of fp32 rows > 227 KB
+        # 12 heads: two stages of 36 unit buffers, 295 936 B > 227 KB
+        wa.window_attn_units(q, k, v)
     flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
     shifted = flat[1:].view(q.shape)  # contiguous, 2 bytes off alignment
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -551,3 +569,101 @@ def test_k6_ablation_forms_match_plain(dev, form):
     ref = wa.window_attn_units_reference(q, k, v, **switches)
     torch.cuda.synchronize()
     chip_smoke._check_tail(f"K6 {form}", y, ref, q, k, v, form=form)
+
+
+# K6 on the tensor cores with TMA loads, in every form
+K6_SWITCHES = {"full": {}, **chip_smoke.K6_FORMS}
+
+
+@pytest.mark.parametrize("blocks", [None, 403])
+@pytest.mark.parametrize("WB", [16, 64])
+@pytest.mark.parametrize("form", sorted(K6_SWITCHES))
+def test_k6_forms_on_the_tensor_cores(dev, form, WB, blocks):
+    """K6 in each form at WB 16 and 64 under its form's gate
+    (chip_smoke.form_gate: nodots bit-exact), on 256 windows and on 403
+    blocks (3 x 132 + 7: a partial last wave)."""
+    from ofq_tpu_torch.ops import window_attention as wa
+    switches = K6_SWITCHES[form]
+    Bn = 256 if blocks is None else WB * blocks
+    q, k, v = _tail_args(dev, Bn, seed=5)
+    count = (wa.window_attn_units if form == "full"
+             else wa.FORM_LAUNCHES[form])
+    before = count.launches
+    y = wa.window_attn_units(q, k, v, WB=WB, **switches)
+    assert count.launches == before + 1
+    ref = wa.window_attn_units_reference(q, k, v, **switches)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    chip_smoke._check_tail(f"K6 {form}", y, ref, q, k, v, form=form)
+
+
+@pytest.mark.parametrize("form", sorted(K6_SWITCHES))
+def test_k6_reads_no_row_past_its_windows(dev, form):
+    """q, k, v as slices of NaN-filled buffers, starting one window in
+    (9408 bytes: 16-byte aligned) and ending one window before the
+    buffer's end: the tensor maps span exactly the slices' windows, so
+    no NaN reaches the output."""
+    from ofq_tpu_torch.ops import window_attention as wa
+    switches = K6_SWITCHES[form]
+    clean = _tail_args(dev, 256, seed=6)
+    window = 49 * 3 * 32
+    held = []
+    for t in clean:
+        buf = torch.full((t.numel() + 2 * window,), float("nan"),
+                         device=dev, dtype=torch.bfloat16)
+        buf[window:window + t.numel()] = t.reshape(-1)
+        held.append(buf[window:window + t.numel()].view(t.shape))
+    y = wa.window_attn_units(*held, WB=16, **switches)
+    ref = wa.window_attn_units_reference(*clean, **switches)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all()
+    chip_smoke._check_tail(f"K6 {form}", y, ref, *clean, form=form)
+
+
+@pytest.mark.parametrize("H", [1, 2, 6])
+@pytest.mark.parametrize("form", sorted(K6_SWITCHES))
+def test_k6_other_head_counts(dev, form, H):
+    """H from the tensor: the tensor maps' head extent and the warps
+    (4 H, at most 16) follow it."""
+    from ofq_tpu_torch.ops import window_attention as wa
+    switches = K6_SWITCHES[form]
+    q, k, v = _tail_args(dev, 64, H=H, seed=7)
+    y = wa.window_attn_units(q, k, v, WB=16, **switches)
+    ref = wa.window_attn_units_reference(q, k, v, **switches)
+    torch.cuda.synchronize()
+    chip_smoke._check_tail(f"K6 {form} H={H}", y, ref, q, k, v, form=form)
+
+
+@pytest.mark.parametrize("what", ["window_attn_units", "window_attn_packed",
+                                  "window_attn_packed_aligned"])
+@pytest.mark.parametrize("H,P", [(1, 1), (3, 3), (3, 4), (3, 6), (3, 12),
+                                 (6, 6), (12, 12)])
+def test_window_launch_plans_are_the_librarys(dev, what, H, P):
+    """`launch_plan`, the Python mirror the CPU tests read, equals the
+    built library's launch export in shared memory, stages and warps; the
+    runtime's blocks per SM of each kernel instance (every K6 form) are at
+    most the mirror's by shared memory and threads, and at least one where
+    the block's shared memory fits."""
+    from ofq_tpu_torch.ops import window_attention as wa
+    plan = wa.launch_plan(what, H, P)
+    forms = ([wa.form_flags(**sw) for sw in K6_SWITCHES.values()]
+             if what == "window_attn_units" else [7])
+    for flags in forms:
+        config = wa.launch_config(what, H, P, flags)
+        assert config[:3] == plan[:3], flags
+        assert config[3] <= plan[3], flags
+        assert (config[3] >= 1) == (plan[0] <= fa._MAX_SMEM), flags
+
+
+@pytest.mark.parametrize("N", [12, 50, 65, 197, 198, 384])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k3_launch_plan_is_the_librarys(dev, N, bf16):
+    plan, config = fa.bwd_launch_plan(N, bf16), fa.bwd_launch_config(N, bf16)
+    assert config[:3] == plan[:3]
+    assert 1 <= config[3] <= plan[3]
+
+
+def test_k3_fp32_pass_a_holds_two_blocks_at_deit_s(dev):
+    """Pass A in fp32 at N = 198 (113 664 bytes, __launch_bounds__(256,
+    2)): the runtime's occupancy, registers counted, is two blocks."""
+    assert fa.bwd_launch_config(198, False)[3] == 2

@@ -159,3 +159,23 @@ def test_wrappers_refuse_a_grad_input(fn, kw):
         fn(q.requires_grad_(), k, v, **kw)
     with torch.no_grad():
         fn(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("fn,kw", WRAPPERS)
+def test_wrappers_refuse_a_misaligned_base(fn, kw):
+    """16-byte copies (K6's TMA boxes, K7's and K8's cp.async) need 16-byte
+    aligned operands, checked on every device: a base 2 bytes off is
+    refused; a slice that starts at a window boundary (9408 bytes a window)
+    is aligned and runs."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(14))
+    flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + q.numel()].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(shifted, k, v, **kw)
+    window = lab.n * lab.H * lab.d
+    buf = torch.zeros(q.numel() + window, dtype=torch.bfloat16)
+    sliced = buf[window:].view(q.shape)
+    sliced.copy_(q)
+    torch.testing.assert_close(fn(sliced, k, v, **kw), fn(q, k, v, **kw),
+                               rtol=0, atol=0)

@@ -2,8 +2,8 @@
 window_attn_lab`) and K6's ablation forms against the JAX lab
 (`benchmarks/window_attn_lab.py`), at the lab's unit shape (n = 49, H = 3,
 d = 32) on seeded numpy inputs, with Bn = 32 windows unless a test says
-otherwise; and the sum order of the tensor-core K7 and K8 emulated on the
-CPU, held against the plain version under the tail gate.
+otherwise; and the sum order of the tensor-core tile of K6-K8 emulated on
+the CPU, held against the plain version under each form's gate.
 
 Tolerances (each beside its test):
 - the ablation forms' plain versions against `_mk_kernel(...)` in
@@ -265,59 +265,76 @@ def test_units_refuses_forms_the_lab_does_not_run(switches):
 
 
 # ------------------------- (e) the tensor-core sum order, emulated on CPU
-def _k16_steps(a, b, eq, kdim):
-    """fp32 sums of exact products in 16-deep steps, each step's 16
-    products summed exactly (fp64) and added to the fp32 sum with one
-    rounding: `mma.sync` m16n8k16 with fp32 accumulation."""
-    acc = None
-    for k0 in range(0, kdim, 16):
-        sl = slice(k0, k0 + 16)
-        part = torch.einsum(eq, a[..., sl].double(), b[..., sl].double())
-        acc = part.float() if acc is None else (acc.double() + part).float()
-    return acc
-
-
-def _emulate_tc_tail(q, k, v):
-    """K7/K8's arithmetic: S in two k16 steps, s = acc * sm in fp32, key
-    columns >= 49 at -inf, expf, each row's sum over the 16 values a lane
-    holds (columns 8t + 2c + e, in order of t then e) and then across the
-    quad ((l0 + l1) + (l2 + l3)), p = e / sum rounded to bf16, O = P V in
-    four k16 steps over 64 keys (49-63 zero), rounded to bf16."""
-    Bn, n, H, d = q.shape
-    pad = torch.zeros(Bn, 64 - n, H, d, dtype=q.dtype)
-    qp, kp, vp = (torch.cat([t, pad], dim=1) for t in (q, k, v))
-    qu, ku = (t.permute(0, 2, 1, 3) for t in (qp, kp))   # (B, H, 64, d)
-    vu = vp.permute(0, 2, 3, 1)                          # (B, H, d, 64)
-    acc = _k16_steps(qu.unsqueeze(3), ku.unsqueeze(2), "bhijd,bhijd->bhij",
-                     d)
-    sm = torch.tensor(d ** -0.5, dtype=torch.float32)
-    s = acc * sm
-    s[..., n:] = -torch.inf
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    lanes = e.reshape(Bn, H, 64, 8, 4, 2).permute(0, 1, 2, 4, 3, 5).reshape(
-        Bn, H, 64, 4, 16)
-    part = torch.zeros(Bn, H, 64, 4, dtype=torch.float32)
-    for i in range(16):
-        part = part + lanes[..., i]
-    total = (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
-    p = (e / total[..., None]).to(torch.bfloat16)
-    o = _k16_steps(p.unsqueeze(3), vu.unsqueeze(2), "bhijm,bhijm->bhij", 64)
-    return o[:, :, :n].permute(0, 2, 1, 3).to(torch.bfloat16)
+def _emulated_gate(form):
+    """(worst |diff| / limit, share differing) of the emulated tile in
+    `form` against the plain version under the form's gate
+    (chip_smoke.form_gate), over the lab's 4096 windows in chunks."""
+    q, k, v = plab._data("cpu")
+    switches = chip_smoke.K6_FORMS.get(form, {})
+    worst, differing = 0.0, 0.0
+    for b0 in range(0, plab.Bn, 128):
+        qc, kc, vc = (t[b0:b0 + 128] for t in (q, k, v))
+        got = chip_smoke.emulate_tc_tile(qc, kc, vc, form)
+        _, w, share = chip_smoke.form_gate(
+            form, got, wa.window_attn_units_reference(qc, kc, vc, **switches),
+            qc, kc, vc)
+        worst, differing = max(worst, w), differing + share * got.numel()
+    return worst, differing / q.numel()
 
 
 def test_tensor_core_sum_order_stays_inside_the_tail_gate():
-    """The emulated K7/K8 against the plain version on the lab's data (all
-    4096 windows, in chunks): every element within the tail gate and at
-    most 0.1 % differing, the margin the card's gate has before it runs."""
-    q, k, v = plab._data("cpu")
-    worst, differing = 0.0, 0.0
-    for b0 in range(0, plab.Bn, 512):
-        qc, kc, vc = (t[b0:b0 + 512] for t in (q, k, v))
-        got = _emulate_tc_tail(qc, kc, vc)
-        ok, w, share = tail_within_gate(
-            got, wa.window_attn_tail_reference(qc, kc, vc), qc, kc, vc)
-        worst, differing = max(worst, w), differing + share * got.numel()
-    share = differing / q.numel()
+    """The emulated K6-K8 tile against the plain version on the lab's data
+    (all 4096 windows, in chunks): every element within the tail gate and
+    at most 0.1 % differing (emulated worst |diff| / limit 0.723; the
+    card's expf is its own, so the card's reading may differ)."""
+    worst, share = _emulated_gate("full")
     assert worst <= 1.0 and share <= chip_smoke.TAIL_DIFFERING, (worst,
                                                                  share)
     assert share > 0  # another order than the plain version's
+
+
+@pytest.mark.parametrize("form", sorted(chip_smoke.K6_FORMS))
+def test_k6_forms_tensor_core_sum_order_stays_inside_their_gates(form):
+    """K6's ablation forms on the tensor-core tile, emulated with the card's
+    accumulator (`chip_smoke.mma_sum`, whose bits the card run holds equal
+    to the kernel's in these forms), against their plain versions on the
+    lab's data: each inside its unchanged gate (emulated worst |diff| /
+    limit: nosm 0.477, 8.9e-5 of the elements differing; scoresonly 0.991,
+    1.6e-5; nodots bit-exact)."""
+    worst, share = _emulated_gate(form)
+    assert worst <= 1.0 and share <= chip_smoke.TAIL_DIFFERING, (worst,
+                                                                 share)
+    if form == "nodots":
+        assert worst == 0.0 and share == 0.0
+
+
+def test_mma_sum_cuts_below_the_largest_unnormalized_exponent():
+    """One k16 step: 1.5 * 1.5 (unnormalized exponent 0) and fifteen
+    products of 2^-25 (kept: the cut is below 2^-25; with the normalized
+    exponent 1 it would be below 2^-24 and drop them), summed exactly to
+    2.25 + 1.875 * 2^-22, cut toward zero to fp32: 2.25 + 2^-22 (round to
+    nearest would give 2.25 + 2^-21)."""
+    a = torch.tensor([1.5] + [2 ** -13] * 15).to(torch.bfloat16)
+    b = torch.tensor([1.5] + [2 ** -12] * 15).to(torch.bfloat16)
+    assert chip_smoke.mma_sum(a, b).item() == 2.25 + 2 ** -22
+    assert chip_smoke.mma_sum(-a, b).item() == -(2.25 + 2 ** -22)
+    # the running sum joins the next step's alignment: 2.25 + 2^-22 again
+    a2, b2 = torch.cat([a, a]), torch.cat([b, torch.zeros(16).to(b.dtype)])
+    assert chip_smoke.mma_sum(a2, b2).item() == 2.25 + 2 ** -22
+
+
+def test_mma_sum_error_is_inside_the_kernels_share_of_the_scores_gate():
+    """The scores gate (`chip_smoke._scores_gate`) allows two fp32 sums of
+    32 terms, 2 x 32 x 2^-24 sum_d |q_d k_d| (before the scale), half for
+    each side.  The card's accumulator loses less than 17 x 2^-25 x the
+    step's largest term plus 2^-23 x |sum| a k16 step, at most 21 x 2^-24
+    sum |q k| over d = 32; on the lab's first 512 windows the emulated
+    sums read at most 2.13 x 2^-24 sum |q k| from the exact ones."""
+    q, k, _ = plab._data("cpu", 512)
+    qu, ku = (t.permute(0, 2, 1, 3) for t in (q, k))
+    acc = chip_smoke.mma_sum(qu.unsqueeze(3), ku.unsqueeze(2)).double()
+    exact = torch.einsum("bhid,bhjd->bhij", qu.double(), ku.double())
+    size = torch.einsum("bhid,bhjd->bhij", qu.double().abs(),
+                        ku.double().abs())
+    worst = float(((acc - exact).abs() / (size * 2 ** -24)).max())
+    assert 0 < worst <= 21 < 32, worst
