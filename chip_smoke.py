@@ -283,8 +283,9 @@ def phase_build():
                 ptxas={n: reports.get(n, "") for n in REPORT_SOURCES})
 
 
-# the sources that --baseline builds from the earlier tree: K1, K3, K7/K8
-BASELINE_SOURCES = ("fused_qlinear", "fused_attention_bwd",
+# the sources that --baseline builds from the earlier tree: K1, K2, K3,
+# K6-K8
+BASELINE_SOURCES = ("fused_qlinear", "fused_attention", "fused_attention_bwd",
                     "window_attention")
 
 
@@ -347,6 +348,35 @@ def raw_k1(lib, args):
     return run
 
 
+def raw_k2(lib, args):
+    """K2's C launcher for the stream dtype of `args` (qkr_attention_fwd's)
+    in `lib` (the current tree's or an earlier one's: the same C
+    signatures) called straight on `args` into an output allocated once;
+    the launcher sets its own shared memory."""
+    import ctypes
+    import torch
+    lhs, rhs, v, s, bits, sm_scale, quantize = args
+    B, N, H, K = rhs.shape
+    out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    fn = getattr(lib, "ofq_qkr_attention_fwd"
+                 + ("_bf16" if v.dtype == torch.bfloat16 else ""))
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+    call = [lhs.data_ptr(), int(lhs.ndim == 4), rhs.data_ptr(), v.data_ptr(),
+            s.data_ptr(), out.data_ptr(), B, N, H, K, v.shape[-1],
+            float(2 ** bits - 1), float(sm_scale), int(bool(quantize)),
+            torch.cuda.current_stream().cuda_stream]
+
+    def run():
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"K2 launcher: CUDA error {err}")
+        return out
+    return run
+
+
 def raw_k3(lib, args):
     """K3's C launcher for the stream dtype of `args` (qkr_attention_bwd's)
     in `lib` (the current tree's or an earlier one's: the same C
@@ -397,11 +427,11 @@ def _versus(raw_ms, base_ms, differing):
 
 def against_earlier(current, earlier):
     """(ms, earlier ms, output elements differing) of two launchers alone
-    (`raw_k1`/`raw_k3` runners) on the same inputs (--baseline)."""
+    (`raw_k1`/`raw_k2`/`raw_k3` runners) on the same inputs (--baseline)."""
     ms, base_ms = median_ms(current), median_ms(earlier)
     outs = [current(), earlier()]
     outs = [o if isinstance(o, list) else [o] for o in outs]
-    # the cotangents and ds (K3), or y (K1); not K3's scratch
+    # the cotangents and ds (K3), or the output (K1, K2); not K3's scratch
     differing = sum(int((a != b).sum()) for a, b in zip(outs[0][:4],
                                                         outs[1][:4]))
     return ms, base_ms, differing
@@ -585,7 +615,41 @@ def _attn_cases(dev, seed, N, B, with_g):
                 .contiguous() for i, t in enumerate(ts)]
 
 
-def phase_k2(dev, N, B=BATCH):
+def _k2_design(dtype, N, K):
+    """K2's score form and occupancy at N keys of depth K (a log label)."""
+    import torch
+    from ofq_tpu_torch.ops import fused_attention as fa
+    smem, blocks = fa.fwd_launch_config(N, K, dtype == torch.bfloat16)
+    return (f"CUDA cores, the shared score tile (8 x 7 a thread, one FMA "
+            f"chain a score, 3-stage cp.async ring) and pq v (8 x 2 a "
+            f"thread); {smem} B shared, {blocks} blocks per SM (the CUDA "
+            f"runtime's occupancy)")
+
+
+def k2_gate(what, o_k, o_ref, s, v):
+    """K2 against its plain version (PERF.md section 2): finite, at most
+    0.1 % of the elements outside `_attn_outside`, max|diff| at most
+    2 max(s) max|v| (one LSQ level); raises GateTripped, else returns
+    (max|diff|, its limit, elements outside)."""
+    import torch
+    diff = (o_k.float() - o_ref.float()).abs()
+    outside = int(_attn_outside(o_k, o_ref).sum())
+    hard = 2 * float(s.max()) * float(v.float().abs().max())
+    err = float(diff.max())
+    if not (torch.isfinite(o_k.float()).all() and outside <= 1e-3 * diff.numel()
+            and err <= hard and o_k.dtype == o_ref.dtype):
+        raise GateTripped(
+            f"{what}: {outside} elements outside the tolerance "
+            f"({outside / diff.numel():.2e}), max|diff| {err} (limit {hard}), "
+            f"{o_k.dtype}")
+    return err, hard, outside
+
+
+def phase_k2(dev, N, B=BATCH, base=None):
+    """K2 against its plain version (`k2_gate`), with SDPA (LSQ off, lhs
+    expanded per head) as the yardstick; with `base` (--baseline) also the
+    launcher alone, the current tree's and the earlier one's, and the
+    output elements where the two differ."""
     import torch
     import torch.nn.functional as F
     from ofq_tpu_torch.ops import fused_attention as fa
@@ -599,22 +663,18 @@ def phase_k2(dev, N, B=BATCH):
             o_k = fa.qkr_attention_fwd(*args)
             o_ref = fa.qkr_attention_fwd_reference(*args)
             torch.cuda.synchronize()
-            diff = (o_k.float() - o_ref.float()).abs()
-            outside = int(_attn_outside(o_k, o_ref).sum())
-            frac = outside / diff.numel()
-            hard = 2 * float(s.max()) * float(v.float().abs().max())
-            err = float(diff.max())
             name = (f"{'shared' if shared else 'per-head'} lhs, "
                     f"LSQ {'on' if quantize else 'off'}, {dt}")
-            if not (torch.isfinite(o_k.float()).all() and frac <= 1e-3
-                    and err <= hard and o_k.dtype == dtype):
-                raise AssertionError(
-                    f"K2 {name}: {outside} elements outside the tolerance "
-                    f"({frac:.2e}), max|diff| {err} (limit {hard}), "
-                    f"{o_k.dtype}")
+            err, hard, outside = k2_gate(f"K2 {name}", o_k, o_ref, s, v)
             ms = median_ms(lambda: fa.qkr_attention_fwd(*args))
             plain_ms = median_ms(
                 lambda: fa.qkr_attention_fwd_reference(*args), reps=10)
+            raw_ms = base_ms = differing = None
+            if base:
+                from ofq_tpu_torch.ops import _build
+                raw_ms, base_ms, differing = against_earlier(
+                    raw_k2(_build.load("fused_attention"), args),
+                    raw_k2(base["fused_attention"], args))
             q = (lhs[:, None].expand(B, H, N, K) if shared
                  else lhs.permute(0, 2, 1, 3)).contiguous()
             kk = rhs.permute(0, 2, 1, 3).contiguous()
@@ -624,15 +684,20 @@ def phase_k2(dev, N, B=BATCH):
             del q, kk, vv
             nbytes, flops, (b_ms, b_by) = _attn_bound(
                 B, N, H, K, d, lhs.numel(), dtype, backward=False)
+            design = _k2_design(dtype, N, K)
             log(f"[K2] {name:30s} B={B} N={N} H={H} K={K} d={d}: max|diff| "
-                f"{err:.3e} (limit {hard:.3e}), {outside} of {diff.numel()} "
-                f"outside the tolerance; kernel {ms:.4f} ms, plain "
+                f"{err:.3e} (limit {hard:.3e}), {outside} of {o_k.numel()} "
+                f"outside the tolerance; kernel ({design}) {ms:.4f} ms"
+                f"{_versus(raw_ms, base_ms, differing)}, plain "
                 f"{plain_ms:.4f} ms, SDPA (unquantized, {dt}) "
                 f"{sdpa_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
             results.append(dict(name=name, dtype=dt, shared=shared,
                                 quantize=quantize, B=B, N=N, H=H, K=K, d=d,
                                 max_abs_err=err, outside=outside, ms=ms,
+                                design=design, raw_ms=raw_ms,
+                                baseline_raw_ms=base_ms,
+                                baseline_differing=differing,
                                 plain_ms=plain_ms, sdpa_ms=sdpa_ms,
                                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                                 flops=flops, main_path=shared and quantize))
@@ -647,13 +712,13 @@ def _k3_design(dtype, N):
     smem, ldp, stages, blocks = fa.bwd_launch_config(N, bf16)
     tail = (f"pass A {smem} B shared, {blocks} blocks per SM (the CUDA "
             f"runtime's occupancy), scratch rows {ldp} apart")
+    scores = (f"pass A's score tile K2's (CUDA cores, 8 x 7 a thread, "
+              f"{stages}-stage cp.async ring)")
     if bf16:
-        return ("mma.sync m16n8k16 for dpq and passes B, C; score tile on "
-                f"the CUDA cores (K2-bf16's loop); {tail}")
+        return f"mma.sync m16n8k16 for dpq and passes B, C; {scores}; {tail}"
     return ("CUDA cores, register tiles (8 x 8 outputs a thread in passes "
-            "B, C, 8 x 7 and 4 x 7 in pass A), float4 operand reads, "
-            f"cp.async rings (pass A {stages} stages of 8-deep chunks, B "
-            f"and C 3 of 16); {tail}")
+            "B, C, 4 x 7 in pass A's dpq), float4 operand reads, cp.async "
+            f"rings (B and C 3 stages of 16); {scores}; {tail}")
 
 
 # K3's four launches by a part of their kernels' names: A (rows: the score
@@ -2601,8 +2666,8 @@ def compare_baseline(full):
     """The redesigned kernels' times summed over their launches on a path,
     the current launchers' and the earlier tree's (--baseline), each
     launcher alone into preallocated outputs, and the ratio: K1 over a
-    fused step's 36, K3 over a fused step's 12 (fp32) and a fused bf16
-    step's 12, K6 in every form and at both WB, K7 and K8 at their defaults
+    fused step's 36, K2 and K3 over a fused step's 12 each (fp32) and a
+    fused bf16 step's 12 each, K6 in every form and at both WB, K7 and K8 at their defaults
     per launch."""
     shapes = full["train"]["launch_shapes"]
     sums = {
@@ -2610,10 +2675,12 @@ def compare_baseline(full):
             (shapes.get(str((r["M"], r["K"], r["N"])), 0), r)
             for r in full["k1"] if r["main_path"]]}
     for dt, train in (("float32", "train"), ("bfloat16", "train_fused_bf16")):
-        k3_launches = full[train]["launches"]["qkr_attention_bwd"]
-        sums[f"K3 {dt}, fused {dt} DeiT-S train step"] = [
-            (k3_launches, r) for r in full["k3"]
-            if r["main_path"] and r["dtype"] == dt]
+        for key, fn in (("k2", "qkr_attention_fwd"),
+                        ("k3", "qkr_attention_bwd")):
+            launches = full[train]["launches"][fn]
+            sums[f"{key.upper()} {dt}, fused {dt} DeiT-S train step"] = [
+                (launches, r) for r in full[key]
+                if r["main_path"] and r["dtype"] == dt]
     for r in full["k678"]:
         if "raw_ms" in r and (r["default"] or r["kernel"] == "K6"):
             sums[f"{r['kernel']} {r['name']} {r['form']} {r['params']}, one "
@@ -2658,7 +2725,7 @@ def main() -> int:
     deit = "deit_small_distilled_patch16_224"
     full = dict(card=card, build_s=build["seconds"], build=build)
     full["k1"] = phase_k1(dev, n_tok, base=base)
-    full["k2"] = phase_k2(dev, n_tok)
+    full["k2"] = phase_k2(dev, n_tok, base=base)
     full["k3"] = phase_k3(dev, n_tok, base=base)
     full["slice"] = phase_slice(dev, FUSED, deit, w2a2_qkr_policy(12))
     torch.cuda.empty_cache()
@@ -2735,9 +2802,7 @@ def main() -> int:
                     srcs[key.upper()],
                     (tr_bf16 if bf16 else tr)["launches"][fn], r,
                     path=f"fused {'bf16' if bf16 else 'fp32'} train step",
-                    design=(r["design"] if key == "k3" else
-                            "CUDA cores, bf16 operands widened to fp32"
-                            if bf16 else "CUDA cores, fp32"),
+                    design=r["design"],
                     yardstick_sdpa_ms=r["sdpa_ms" if key == "k2"
                                         else "sdpa_bwd_ms"]))
     for r in full["k4"]:

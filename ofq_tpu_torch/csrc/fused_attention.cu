@@ -30,12 +30,17 @@
 // Design.  One 256-thread block per (query tile of TQ = 64 rows, head,
 // batch row).  LSQ quantizes the *normalised* probability, so an online
 // (flash) softmax does not fit: the block first computes its full
-// TQ x N score tile into shared memory (N = 198 at DeiT: 64 x 257 floats,
-// ~66 KB), tiling the contraction over K in chunks of 32; then one warp per
-// row takes the max and the sum, normalises and quantizes in place; then
-// the block multiplies the quantized tile by v, 32 keys at a time.  Only
-// `out` is written to device memory.  Every product is a plain
-// shared-memory tiled loop on the CUDA cores, 4x4 outputs per thread.
+// TQ x N score tile into shared memory (N = 198 at DeiT: 64 x 208 floats,
+// ~53 KB) with the score tile that K3's pass A shares (`qkr::score_tile`,
+// csrc/qkr_scores.cuh: register tiles of 8 rows x 7 keys a thread, each
+// score one __fmaf_rn chain in ascending k, the operands through a
+// three-stage cp.async ring in the stream dtype); then one warp per row
+// takes the max and the sum, normalises and quantizes in place; then the
+// block multiplies the quantized tile by v (`qkr::pq_v`: 8 rows x 2
+// columns a thread, v through a cp.async ring of 16-key chunks, each
+// output one __fmaf_rn chain in ascending key).  Only `out` is written to
+// device memory.  ~93 KB of shared memory and at most 128 registers a
+// thread: two blocks share an SM.
 //
 // What bounds it on an H100: at DeiT-S QKR (N = 198, H = 6, K = 384, d = 64)
 // the work is 2*B*H*N^2*(K + d) operations against 4*B*N*(K + H*K + 2*H*d)
@@ -43,40 +48,29 @@
 // per byte.  The fp32 form is bound by the fp32 rate (67 TFLOP/s); the bf16
 // form's products are exact bf16 x bf16 and could run at the bf16
 // tensor-core rate, where the bytes bound it, but this template runs them
-// as fp32 FMAs on the CUDA cores (tensor cores are a later redesign).  rhs
-// is re-read once per query tile (4 tiles at N = 198), from L2.
+// as fp32 FMAs on the CUDA cores.  rhs is re-read once per query tile (4
+// tiles at N = 198), from L2.
 //
 // Rounding: rintf (half to even, as torch.round / jnp.round); expf, not
 // __expf; IEEE division; no --use_fast_math.
 //
-// Shared memory holds fp32 in both stream dtypes (a bf16 operand is widened
-// as it is stored), so the bytes a launch needs depend on N only: the
-// launcher's smem count serves both.
+// The score tile is fp32 in both stream dtypes and the rings take the
+// same bytes in both (32-byte row chunks), so the bytes a launch needs
+// depend on N only: the launcher's smem count serves both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
 
+#include "qkr_scores.cuh"
+
 namespace {
 
-constexpr int TQ = 64;       // query rows per block
-constexpr int TK = 64;       // keys per score tile
-constexpr int KC = 32;       // contraction chunk
-constexpr int TV = 32;       // keys per v tile
-constexpr int TD = 64;       // output columns per pass
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+using qkr::TQ;
+using qkr::THREADS;
+using qkr::WARPS;
 
-// loads widen to fp32, stores round to the stream dtype (nearest-even)
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 // x rounded to T and widened back: the value a product of T operands reads
 template <typename T>
 __device__ __forceinline__ float round_to(float x);
@@ -99,20 +93,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// the score tile's row stride: N rounded up to pq_v's key chunk (16-byte
+// rows; the columns past N hold pq's zeros)
+int score_ld(int N) { return (N + qkr::PV_KEYS - 1) / qkr::PV_KEYS * qkr::PV_KEYS; }
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS) qkr_attention_fwd_kernel(
+__global__ void __launch_bounds__(THREADS, 2) qkr_attention_fwd_kernel(
     const T* __restrict__ lhs, int lhs_per_head, const T* __restrict__ rhs,
     const T* __restrict__ v, const float* __restrict__ s, T* __restrict__ out,
     int N, int H, int K, int D, int ld_s, float thd_pos, float sm_scale,
     int quantize) {
-  extern __shared__ float smem[];
-  float* S = smem;                        // [TQ][ld_s] scores, then pq
-  float* As = S + TQ * ld_s;              // [KC][TQ + 1] lhs chunk
-  float* Bs = As + KC * (TQ + 1);         // [KC][TK + 1] rhs chunk; v tile
+  extern __shared__ __align__(16) float smem[];
+  float* S = smem;                                  // [TQ][ld_s] scores, pq
+  T* ring = reinterpret_cast<T*>(S + TQ * ld_s);    // the products' rings
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
   const int q0 = blockIdx.x * TQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -124,67 +119,18 @@ __global__ void __launch_bounds__(THREADS) qkr_attention_fwd_kernel(
   T* out_b = out + (size_t)b * N * H * D + (size_t)h * D;
 
   // ---- phase 1: S = (lhs_tile @ rhs^T) * sm_scale -------------------------
-  const int n_key_tiles = (N + TK - 1) / TK;
-  for (int kt = 0; kt < n_key_tiles; ++kt) {
-    const int m0 = kt * TK;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      for (int e = tid; e < TQ * KC; e += THREADS) {
-        const int r = e / KC;
-        const int kk = e % KC;
-        const int n = q0 + r;
-        const int k = k0 + kk;
-        As[kk * (TQ + 1) + r] =
-            (n < N && k < K) ? ld(lhs_b + (size_t)n * lhs_row + k) : 0.0f;
-      }
-      for (int e = tid; e < TK * KC; e += THREADS) {
-        const int c = e / KC;
-        const int kk = e % KC;
-        const int m = m0 + c;
-        const int k = k0 + kk;
-        Bs[kk * (TK + 1) + c] =
-            (m < N && k < K) ? ld(rhs_b + (size_t)m * H * K + k) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KC; ++kk) {
-        float a[4], bb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk * (TQ + 1) + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bb[j] = Bs[kk * (TK + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(a[i], bb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = m0 + tx + 16 * j;
-        if (m < N) S[(ty + 16 * i) * ld_s + m] = __fmul_rn(acc[i][j], sm_scale);
-      }
-  }
+  qkr::score_tile<T>(S, ld_s, lhs_b, lhs_row, q0, rhs_b, (size_t)H * K, N, K,
+                     sm_scale, ring);
   __syncthreads();
 
   // ---- phase 2: softmax and LSQ over each row, one warp per row ----------
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int n_v_tiles = (N + TV - 1) / TV;
-  const int m_pad = n_v_tiles * TV;       // columns phase 3 reads
   for (int r = warp; r < TQ; r += WARPS) {
     float* row = S + r * ld_s;
     const int n = q0 + r;
     if (n >= N) {
-      for (int m = lane; m < m_pad; m += 32) row[m] = 0.0f;
+      for (int m = lane; m < ld_s; m += 32) row[m] = 0.0f;
       continue;
     }
     float mx = -CUDART_INF_F;
@@ -205,86 +151,70 @@ __global__ void __launch_bounds__(THREADS) qkr_attention_fwd_kernel(
       }
       row[m] = round_to<T>(p);
     }
-    for (int m = N + lane; m < m_pad; m += 32) row[m] = 0.0f;
+    for (int m = N + lane; m < ld_s; m += 32) row[m] = 0.0f;
   }
   __syncthreads();
 
   // ---- phase 3: out_tile = pq @ v ----------------------------------------
-  float* Vs = Bs;  // [TV][TD]
-  for (int d0 = 0; d0 < D; d0 += TD) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-    for (int vt = 0; vt < n_v_tiles; ++vt) {
-      const int m0 = vt * TV;
-      for (int e = tid; e < TV * TD; e += THREADS) {
-        const int mm = e / TD;
-        const int c = e % TD;
-        const int m = m0 + mm;
-        const int d = d0 + c;
-        Vs[mm * TD + c] = (m < N && d < D) ? ld(v_b + (size_t)m * H * D + d) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int mm = 0; mm < TV; ++mm) {
-        float a[4], bb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = S[(ty + 16 * i) * ld_s + m0 + mm];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bb[j] = Vs[mm * TD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(a[i], bb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = q0 + ty + 16 * i;
-      if (n >= N) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = d0 + tx + 16 * j;
-        if (d < D) st(out_b + (size_t)n * H * D + d, acc[i][j]);
-      }
-    }
-  }
+  qkr::pq_v<T>(S, ld_s, v_b, (size_t)H * D, q0, N, D, out_b, (size_t)H * D,
+               ring);
 }
 
 long long smem_bytes(int N) {
-  const int ld_s = ((N + TK - 1) / TK) * TK + 1;
-  return (long long)sizeof(float) *
-         ((long long)TQ * ld_s + KC * (TQ + 1) + KC * (TK + 1));
+  return (long long)sizeof(float) * TQ * score_ld(N) + qkr::ring_bytes(TQ);
+}
+
+// K2's kernel for stream dtype T with its dynamic shared memory at N keys
+// set, and the largest carveout, so that two blocks' shared memory fit an
+// SM; nullptr where the runtime refuses, the error in *err.
+template <typename T>
+const void* prepare_fwd(int N, cudaError_t* err) {
+  const void* fwd = (const void*)qkr_attention_fwd_kernel<T>;
+  *err = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes(N));
+  if (*err == cudaSuccess)
+    *err = cudaFuncSetAttribute(fwd,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  return *err == cudaSuccess ? fwd : nullptr;
 }
 
 template <typename T>
 int launch_fwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
                const float* s, T* out, int B, int N, int H, int K, int D,
                float thd_pos, float sm_scale, int quantize, void* stream) {
-  const int ld_s = ((N + TK - 1) / TK) * TK + 1;
-  const size_t smem = (size_t)smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      qkr_attention_fwd_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if (prepare_fwd<T>(N, &err) == nullptr) return (int)err;
   dim3 grid((N + TQ - 1) / TQ, H, B);
-  qkr_attention_fwd_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      lhs, lhs_per_head, rhs, v, s, out, N, H, K, D, ld_s, thd_pos, sm_scale,
-      quantize);
+  qkr_attention_fwd_kernel<T>
+      <<<grid, THREADS, (size_t)smem_bytes(N), (cudaStream_t)stream>>>(
+          lhs, lhs_per_head, rhs, v, s, out, N, H, K, D, score_ld(N), thd_pos,
+          sm_scale, quantize);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory the launch needs for N keys (bytes), in either stream
-// dtype; the wrapper checks it against the card's per-block limit before
-// launching.
-extern "C" long long ofq_qkr_attention_smem_bytes(int N) {
-  return smem_bytes(N);
+// How K2 launches for N keys of depth K in a stream dtype (is_bf16 != 0
+// for bf16): returns its dynamic shared memory in bytes, which the wrapper
+// checks against the card's per-block limit, and writes the blocks that
+// one SM holds (the CUDA runtime's occupancy: shared memory, threads and
+// registers; 0 where the kernel cannot take that shared memory).
+extern "C" long long ofq_qkr_attention_fwd_launch(int N, int K, int is_bf16,
+                                                  int* blocks) {
+  (void)K;
+  const long long smem = smem_bytes(N);
+  cudaError_t err;
+  const void* fwd = is_bf16 ? prepare_fwd<__nv_bfloat16>(N, &err)
+                            : prepare_fwd<float>(N, &err);
+  if (fwd != nullptr)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fwd, THREADS,
+                                                        (size_t)smem);
+  if (err != cudaSuccess) {
+    *blocks = 0;
+    cudaGetLastError();  // a refused query leaves no error for the launches
+  }
+  return smem;
 }
 
 extern "C" int ofq_qkr_attention_fwd(const float* lhs, int lhs_per_head,

@@ -37,7 +37,7 @@
 // query rows, a shared dlhs over heads).  So four launches:
 //   A  one 256-thread block per (64 query rows, head, batch row), the grid of
 //      K2: the score tile (64 x N, ~50 KB of shared memory at N = 198 in
-//      fp32) is formed in K2's arithmetic, so p is the forward's p bit for
+//      fp32) is formed by K2's score tile, so p is the forward's p bit for
 //      bit, and the dpq tile beside it, 32 x N at a time, so that pass A
 //      takes ~97 KB (bf16) or ~111 KB (fp32) and two blocks share an SM;
 //      one warp per row then forms p, pq, dp, the row's ds partial (written
@@ -51,17 +51,19 @@
 //   D  ds[n] = sum over (b, h) of the partials, in a fixed order.
 // In fp32 every product runs on the CUDA cores, register-tiled (below).
 // In bf16 pass A's dpq = g . v^T and passes B and C run on the tensor cores
-// (see below); pass A's score tile stays K2-bf16's loop.  Runs are
+// (see below).  Pass A's score tile is K2's in both stream dtypes: one
+// device function, `qkr::score_tile` (csrc/qkr_scores.cuh).  Runs are
 // repeatable (no float atomics).
 //
 // fp32, register-tiled.  Each thread holds 8 x 8 outputs (passes B, C;
 // 128 x 64 per 128-thread block, a warp's 32 rows contiguous) or 8 x 7
-// (pass A's score loop: a warp's 8 query rows against keys lane + 32 j, so
-// 224 keys per sweep) or 4 x 7 (pass A's dpq, 32 rows at a time, as the
-// bf16 form); its operands are read from shared memory as float4 (four
-// contraction steps of one row, or four rows of one step).  The operands
-// reach shared memory through cp.async rings (passes B, C: 3 stages of
-// 16-deep chunks; pass A: 3 stages of 8-deep chunks) of 16-byte copies,
+// (pass A's score tile, in either dtype: a warp's 8 query rows against
+// keys lane + 32 j, so 224 keys per sweep) or 4 x 7 (pass A's dpq, 32 rows
+// at a time, as the bf16 form); its operands are read from shared memory
+// as float4 (four contraction steps of one row, or four rows of one step).
+// The operands reach shared memory through cp.async rings (passes B, C: 3
+// stages of 16-deep chunks; pass A: 3 stages of 32-byte row chunks, 8 fp32
+// or 16 bf16 deep) of 16-byte copies,
 // 4-byte ones where a row's four values are not whole or not aligned, zero
 // past N, K and D, so the next chunks' copies run under this chunk's FMAs.
 // The scratch rows are N rounded up to 4 apart (16-byte rows).  Pass A
@@ -102,9 +104,9 @@
 // `ldmatrix` (`.trans` where the contraction runs down the stored rows:
 // dv's pq^T, drhs's dscores^T, and the g, lhs and rhs operands of B and
 // C).  The bf16 scratch rows are padded to a multiple of 8 (ldp) so that
-// they load in 16-byte chunks.  Pass A's score tile stays K2-bf16's loop
-// (tile_nt), so the backward's p is the forward's p bit for bit; it moves
-// to the tensor cores together with K2-bf16's.
+// they load in 16-byte chunks.  Pass A's score tile is K2-bf16's
+// (`qkr::score_tile` on bf16 chunks, widened as they are read), so the
+// backward's p is the forward's p bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,20 +116,17 @@
 
 #include <type_traits>
 
+#include "qkr_scores.cuh"
+
 namespace {
 
-constexpr int TQ = 64;       // query rows per block (passes A and C)
+using qkr::TQ;       // query rows per block (passes A and C)
+using qkr::THREADS;
+using qkr::WARPS;
+using qkr::smem_u32;
+using qkr::st;
 constexpr int TK = 64;       // keys per tile
-constexpr int KC = 32;       // contraction chunk
 constexpr int TD = 64;       // output columns per block (passes B and C)
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-
-// stores round to the stream dtype (nearest-even)
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -141,77 +140,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// out[r * ld_o + m] = fp32(sum_k a[n, k] * b[m, k]) * scale for the TQ rows
-// n = q0 + r of this block and every m < N, the bf16 operands widened
-// exactly; a's rows are a_ld apart, b's b_ld.  The loop order is K2-bf16's
-// phase 1, so the score tile equals the forward kernel's bit for bit.
-__device__ __forceinline__ void tile_nt(const __nv_bfloat16* __restrict__ a,
-                                        size_t a_ld,
-                                        const __nv_bfloat16* __restrict__ b,
-                                        size_t b_ld, int q0, int N, int kdim,
-                                        float scale, float* out, int ld_o,
-                                        float* As, float* Bs) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int n_key_tiles = (N + TK - 1) / TK;
-  for (int kt = 0; kt < n_key_tiles; ++kt) {
-    const int m0 = kt * TK;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < kdim; k0 += KC) {
-      for (int e = tid; e < TQ * KC; e += THREADS) {
-        const int r = e / KC;
-        const int kk = e % KC;
-        const int n = q0 + r;
-        const int k = k0 + kk;
-        As[kk * (TQ + 1) + r] = (n < N && k < kdim) ? __bfloat162float(a[(size_t)n * a_ld + k]) : 0.0f;
-      }
-      for (int e = tid; e < TK * KC; e += THREADS) {
-        const int c = e / KC;
-        const int kk = e % KC;
-        const int m = m0 + c;
-        const int k = k0 + kk;
-        Bs[kk * (TK + 1) + c] = (m < N && k < kdim) ? __bfloat162float(b[(size_t)m * b_ld + k]) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KC; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = As[kk * (TQ + 1) + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk * (TK + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = m0 + tx + 16 * j;
-        if (m < N) out[(ty + 16 * i) * ld_o + m] = __fmul_rn(acc[i][j], scale);
-      }
-  }
-}
-
 // ---- bf16 on the tensor cores (mma.sync m16n8k16, fp32 sums)
 using bf16 = __nv_bfloat16;
 constexpr int TC_K = 32;       // contraction chunk
 constexpr int LD_ROW = 40;     // a [rows][32] chunk's row stride (80 B)
 constexpr int LD_COL = 72;     // a [32][64] chunk's row stride (144 B)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 // ROWS x COLS (COLS a multiple of 8) of a row-major bf16 matrix whose rows
 // are ld apart, from (r0, c0), into dst (rows lds apart); zero at rows
@@ -398,21 +331,20 @@ __device__ __forceinline__ void bwd_row(float* row, float* drow, int n, int N,
 }
 
 // Pass A in bf16: per (query tile, head, batch row).  Shared memory: S
-// [TQ][ld_s] (scores, then p), then one region that holds tile_nt's As, Bs
-// while the scores form and then P for half the rows (dpq, then dp) with
-// dpq's bf16 chunks after it (rows_smem_bytes).
-__global__ void __launch_bounds__(THREADS) qkr_bwd_rows_tc_kernel(
+// [TQ][ld_s] (scores, then p), then one region that holds the score
+// tile's ring while the scores form and then P for half the rows (dpq,
+// then dp) with dpq's bf16 chunks after it (rows_smem_bytes).  Two blocks
+// per SM at N = 198: at most 128 registers a thread.
+__global__ void __launch_bounds__(THREADS, 2) qkr_bwd_rows_tc_kernel(
     const bf16* __restrict__ lhs, int lhs_per_head,
     const bf16* __restrict__ rhs, const bf16* __restrict__ v,
     const float* __restrict__ s, const bf16* __restrict__ g,
     bf16* __restrict__ pq_out, bf16* __restrict__ dsc_out,
     float* __restrict__ ds_part, int N, int H, int K, int D, int ld_s,
     int ldp, float thd_pos, float sm_scale, int quantize) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* S = smem;
   float* P = S + TQ * ld_s;
-  float* As = P;                   // [KC][TQ + 1]
-  float* Bs = As + KC * (TQ + 1);  // [KC][TK + 1]
 
   const int q0 = blockIdx.x * TQ;
   const int h = blockIdx.y;
@@ -423,7 +355,10 @@ __global__ void __launch_bounds__(THREADS) qkr_bwd_rows_tc_kernel(
   const bf16* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
   const bf16* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
 
-  tile_nt(lhs_b, lhs_row, rhs_b, (size_t)H * K, q0, N, K, sm_scale, S, ld_s, As, Bs);
+  // K2-bf16's score tile, so p is the forward's p bit for bit
+  qkr::score_tile<bf16>(S, ld_s, lhs_b, lhs_row, q0, rhs_b, (size_t)H * K, N,
+                        K, sm_scale, reinterpret_cast<bf16*>(P));
+  __syncthreads();
 
   const size_t unit = (size_t)b * H + h;
   const int warp = threadIdx.x / 32;
@@ -449,190 +384,11 @@ constexpr int F_BN = 64;        //   output columns per block
 constexpr int F_BK = 16;        //   contraction chunk
 constexpr int F_STAGES = 3;     //   ring stages
 constexpr int F_THREADS = 128;  //   4 warps of 32 rows x 64 columns
-constexpr int A_BK = 8;         // pass A: contraction chunk
-constexpr int A_STAGES = 3;     //   ring stages
-constexpr int A_TN = 7;         //   keys per thread: lane + 32 j, j < 7
-constexpr int A_KEYS = 32 * A_TN;  // keys per sweep
 constexpr int PAD = 4;          // row padding of a [rows][k] chunk (floats)
-constexpr int A_LD = A_BK + PAD;   // 12 floats: 8 rows' float4 reads hit
-                                   // 8 distinct 16-byte bank groups
 constexpr int F_LD = F_BK + PAD;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// R x C floats of a row-major matrix whose rows are ld apart, from (r0,
-// c0), into dst (rows lds apart), by NT threads: a 16-byte cp.async where a
-// row's 4 values are whole and aligned, 4-byte ones where they are not
-// whole or not aligned, zero at rows >= rlim and columns >= clim.
-template <int R, int C, int NT>
-__device__ __forceinline__ void load_f32(float* dst, int lds,
-                                         const float* __restrict__ src,
-                                         size_t ld, int r0, int rlim, int c0,
-                                         int clim) {
-  constexpr int CH = C / 4;
-  for (int e = threadIdx.x; e < R * CH; e += NT) {
-    const int r = e / CH, c = (e % CH) * 4;
-    const int gr = r0 + r, gc = c0 + c;
-    float* d = dst + r * lds + c;
-    if (gr >= rlim || gc >= clim) {
-      *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      continue;
-    }
-    const float* p = src + (size_t)gr * ld + gc;
-    if (gc + 4 <= clim && ((uintptr_t)p & 15) == 0) {
-      cp_async16(d, p);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (gc + j < clim) cp_async4(d + j, p + j);
-        else d[j] = 0.0f;
-      }
-    }
-  }
-}
-
-// The chunks 0..chunks-1 of a contraction through a ring of STAGES
-// buffers: load(c, stage) issues chunk c's copies, compute(stage) applies
-// a landed chunk; the copies of the next STAGES - 1 chunks are in flight
-// while one is applied.  Ends with every buffer free.
-template <int STAGES, class Load, class Compute>
-__device__ __forceinline__ void ring(int chunks, Load load, Compute compute) {
-#pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) {
-    if (c < chunks) load(c, c);
-    cp_async_commit();
-  }
-  for (int c = 0; c < chunks; ++c) {
-    cp_async_wait<STAGES - 2>();
-    // chunk c visible to all; every thread done with chunk c - 1's stage
-    __syncthreads();
-    const int next = c + STAGES - 1;
-    if (next < chunks) load(next, next % STAGES);
-    cp_async_commit();
-    compute(c % STAGES);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-// acc[i][j] += a(row i) b(column j) over one chunk of BK contraction
-// steps, in ascending order, one __fmaf_rn each.  This thread's rows are
-// ar0 + i (i < TM).  A_KM: the chunk of A is stored [k][row] (lda apart),
-// else [row][k].  B_KM: B stored [k][col] and this thread's columns are
-// bc0 + 0..3, bc0 + b_next + 0..3; else [col][k] and columns bc0 + b_next
-// * j (j < TN).
-template <int TM, int TN, int BK, bool A_KM, bool B_KM>
-__device__ __forceinline__ void fma_chunk(float (&acc)[TM][TN],
-                                          const float* As, int lda, int ar0,
-                                          const float* Bs, int ldb, int bc0,
-                                          int b_next) {
-  static_assert(!B_KM || TN == 8, "a K-major B gives two float4 columns");
-  static_assert(!A_KM || B_KM, "no product takes a K-major A alone");
-#pragma unroll
-  for (int k4 = 0; k4 < BK; k4 += 4) {
-    float a[4][TM];
-    if constexpr (!A_KM) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(As + (ar0 + i) * lda + k4);
-        a[0][i] = t.x, a[1][i] = t.y, a[2][i] = t.z, a[3][i] = t.w;
-      }
-    }
-    if constexpr (B_KM) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if constexpr (A_KM) {
-#pragma unroll
-          for (int i = 0; i < TM; i += 4) {
-            const float4 t = *reinterpret_cast<const float4*>(
-                As + (k4 + kk) * lda + ar0 + i);
-            a[kk][i] = t.x, a[kk][i + 1] = t.y, a[kk][i + 2] = t.z,
-            a[kk][i + 3] = t.w;
-          }
-        }
-        const float* brow = Bs + (k4 + kk) * ldb + bc0;
-        const float4 lo = *reinterpret_cast<const float4*>(brow);
-        const float4 hi = *reinterpret_cast<const float4*>(brow + b_next);
-        const float b[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            acc[i][j] = __fmaf_rn(a[kk][i], b[j], acc[i][j]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float4 t = *reinterpret_cast<const float4*>(
-            Bs + (bc0 + b_next * j) * ldb + k4);
-        const float b[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-            acc[i][j] = __fmaf_rn(a[kk][i], b[kk], acc[i][j]);
-      }
-    }
-  }
-}
-
-// Pass A's products, fp32: acc[i][j] = sum_k a[n, k] b[m, k] over k < kdim
-// for this warp's rows n = r0 + TM * warp + i and the keys m = m0 + lane +
-// 32 j, a's rows a_ld apart and b's b_ld, both zero past N; through a ring
-// of A_STAGES chunks at `buf`.  A warp whose rows all lie past N skips the
-// FMAs (the last query tile).
-template <int TM>
-__device__ __forceinline__ void rows_product(float (&acc)[TM][A_TN],
-                                             const float* __restrict__ a,
-                                             size_t a_ld, int r0,
-                                             const float* __restrict__ b,
-                                             size_t b_ld, int m0, int N,
-                                             int kdim, float* buf) {
-  constexpr int AR = TM * WARPS;
-  constexpr int STAGE = (AR + A_KEYS) * A_LD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool live = r0 + TM * warp < N;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < A_TN; ++j) acc[i][j] = 0.0f;
-  ring<A_STAGES>(
-      (kdim + A_BK - 1) / A_BK,
-      [&](int c, int st) {
-        float* As = buf + st * STAGE;
-        load_f32<AR, A_BK, THREADS>(As, A_LD, a, a_ld, r0, N, c * A_BK, kdim);
-        load_f32<A_KEYS, A_BK, THREADS>(As + AR * A_LD, A_LD, b, b_ld, m0, N,
-                                        c * A_BK, kdim);
-      },
-      [&](int st) {
-        const float* As = buf + st * STAGE;
-        if (live)
-          fma_chunk<TM, A_TN, A_BK, false, false>(
-              acc, As, A_LD, TM * warp, As + AR * A_LD, A_LD, lane, 32);
-      });
-}
+using qkr::A_KEYS;              // pass A: keys per sweep of its row products
+using qkr::A_STAGES;            //   ring stages
+using qkr::A_TN;                //   keys per thread
 
 // Pass A in fp32: per (query tile, head, batch row).  Shared memory: S
 // [TQ][ld_s] (scores, then p), then one region that holds the score
@@ -659,22 +415,10 @@ __global__ void __launch_bounds__(THREADS, 2) qkr_bwd_rows_f32_kernel(
   const float* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // the score tile, K2's arithmetic: each score one FMA chain over k, then
-  // times sm_scale
-  for (int m0 = 0; m0 < N; m0 += A_KEYS) {
-    float acc[8][A_TN];
-    rows_product<8>(acc, lhs_b, lhs_row, q0, rhs_b, (size_t)H * K, m0, N, K,
-                    R);
-#pragma unroll
-    for (int j = 0; j < A_TN; ++j) {
-      const int m = m0 + lane + 32 * j;
-      if (m < N) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          S[(8 * warp + i) * ld_s + m] = __fmul_rn(acc[i][j], sm_scale);
-      }
-    }
-  }
+  // K2 fp32's score tile: each score one FMA chain over k, then times
+  // sm_scale
+  qkr::score_tile<float>(S, ld_s, lhs_b, lhs_row, q0, rhs_b, (size_t)H * K, N,
+                         K, sm_scale, R);
 
   const size_t unit = (size_t)b * H + h;
   float* P = R;
@@ -682,8 +426,8 @@ __global__ void __launch_bounds__(THREADS, 2) qkr_bwd_rows_f32_kernel(
   for (int r0 = 0; r0 < TQ; r0 += TQ / 2) {
     for (int m0 = 0; m0 < N; m0 += A_KEYS) {
       float acc[4][A_TN];
-      rows_product<4>(acc, g_b, (size_t)H * D, q0 + r0, v_b, (size_t)H * D,
-                      m0, N, D, dpq_ring);
+      qkr::rows_product<float, 4>(acc, g_b, (size_t)H * D, q0 + r0, v_b,
+                                  (size_t)H * D, m0, N, D, dpq_ring);
 #pragma unroll
       for (int j = 0; j < A_TN; ++j) {
         const int m = m0 + lane + 32 * j;
@@ -774,19 +518,19 @@ __global__ void __launch_bounds__(F_THREADS) qkr_bwd_cols_f32_kernel(
   const int row0 = 32 * warp + 8 * (lane >> 3), col0 = 4 * (lane & 7);
   const bool live = m0 + 32 * warp < N;
   float acc[8][8] = {};
-  ring<F_STAGES>(
+  qkr::ring<F_STAGES>(
       (N + F_BK - 1) / F_BK,
       [&](int c, int st) {
         float* As = buf + st * STAGE;
-        load_f32<F_BK, F_BM, F_THREADS>(As, F_BM, x, ldp, c * F_BK, N, m0,
+        qkr::load_rows<float, F_BK, F_BM, F_THREADS>(As, F_BM, x, ldp, c * F_BK, N, m0,
                                         N);
-        load_f32<F_BK, F_BN, F_THREADS>(As + F_BK * F_BM, F_BN, y, ldy,
+        qkr::load_rows<float, F_BK, F_BN, F_THREADS>(As + F_BK * F_BM, F_BN, y, ldy,
                                         c * F_BK, N, c0, ncols);
       },
       [&](int st) {
         const float* As = buf + st * STAGE;
         if (live)
-          fma_chunk<8, 8, F_BK, true, true>(acc, As, F_BM, row0,
+          qkr::fma_chunk<float, 8, 8, F_BK, true, true>(acc, As, F_BM, row0,
                                             As + F_BK * F_BM, F_BN, col0, 32);
       });
   store_tile(acc, out + c0 + (size_t)m0 * ld_out, ld_out, row0, N - m0, col0,
@@ -828,21 +572,21 @@ __global__ void __launch_bounds__(F_THREADS) qkr_bwd_dlhs_f32_kernel(
   const bool live = q0 + 32 * warp < N;
   const int per_head = (N + F_BK - 1) / F_BK;
   float acc[8][8] = {};
-  ring<F_STAGES>(
+  qkr::ring<F_STAGES>(
       (h1 - h0) * per_head,
       [&](int c, int st) {
         const int h = h0 + c / per_head, m0 = (c % per_head) * F_BK;
         float* As = buf + st * STAGE;
-        load_f32<F_BM, F_BK, F_THREADS>(
+        qkr::load_rows<float, F_BM, F_BK, F_THREADS>(
             As, F_LD, dsc + ((size_t)b * H + h) * N * ldp, ldp, q0, N, m0, N);
-        load_f32<F_BK, F_BN, F_THREADS>(
+        qkr::load_rows<float, F_BK, F_BN, F_THREADS>(
             As + F_BM * F_LD, F_BN, rhs + (size_t)b * N * H * K + (size_t)h * K,
             (size_t)H * K, m0, N, c0, K);
       },
       [&](int st) {
         const float* As = buf + st * STAGE;
         if (live)
-          fma_chunk<8, 8, F_BK, false, true>(acc, As, F_LD, row0,
+          qkr::fma_chunk<float, 8, 8, F_BK, false, true>(acc, As, F_LD, row0,
                                              As + F_BM * F_LD, F_BN, col0, 32);
       });
   store_tile(acc, out + c0 + (size_t)q0 * ld_out, ld_out, row0, N - q0, col0,
@@ -967,8 +711,9 @@ __global__ void qkr_bwd_ds_kernel(const float* __restrict__ ds_part,
 }
 
 // pass A's row stride of the score and dpq tiles: past N; in bf16 odd
-// (tile_nt's column accesses miss bank conflicts), in fp32 a multiple of 4
-// (16-byte rows; the register tiles' accesses run along a row)
+// (PR 7's stride, which the dpq fragments' stores keep), in fp32 a
+// multiple of 4 (16-byte rows; the register tiles' accesses run along a
+// row)
 template <typename T>
 int rows_ld(int N) {
   return std::is_same<T, bf16>::value ? (N + 31) / 32 * 32 + 1
@@ -980,16 +725,14 @@ int rows_ld(int N) {
 template <typename T>
 long long rows_smem_bytes(int N) {
   const long long ld_s = rows_ld<T>(N);
-  if (!std::is_same<T, bf16>::value) {
-    const long long scores = (long long)A_STAGES * (TQ + A_KEYS) * A_LD;
-    const long long dpq =
-        (TQ / 2) * ld_s + (long long)A_STAGES * (TQ / 2 + A_KEYS) * A_LD;
-    return 4LL * (TQ * ld_s + (scores > dpq ? scores : dpq));
-  }
-  const long long tiles = 4LL * (KC * (TQ + 1) + KC * (TK + 1));
-  const long long half = 4LL * (TQ / 2) * ld_s +
-                         2LL * (TQ / 2 + DPQ_KEYS) * LD_ROW;
-  return 4LL * TQ * ld_s + (half > tiles ? half : tiles);
+  // the score tile's ring, then half the rows of dpq with its own
+  // (fp32: the row product's ring; bf16: the tensor cores' chunks)
+  const long long scores = qkr::ring_bytes(TQ);
+  const long long half =
+      4LL * (TQ / 2) * ld_s + (std::is_same<T, bf16>::value
+                                   ? 2LL * (TQ / 2 + DPQ_KEYS) * LD_ROW
+                                   : (long long)qkr::ring_bytes(TQ / 2));
+  return 4LL * TQ * ld_s + (half > scores ? half : scores);
 }
 
 // the scratch's row stride: N rounded up to 4 in fp32 and to 8 in bf16, so
@@ -1000,8 +743,8 @@ int scratch_ld(int N) {
 }
 
 // Pass A's kernel for stream dtype T, with its dynamic shared memory at N
-// keys set (fp32: and the largest carveout, so that two blocks' shared
-// memory fit an SM); nullptr where the runtime refuses, the error in *err.
+// keys set and the largest carveout, so that two blocks' shared memory fit
+// an SM; nullptr where the runtime refuses, the error in *err.
 template <typename T>
 const void* prepare_rows(int N, cudaError_t* err) {
   const void* rows = std::is_same<T, bf16>::value
@@ -1010,7 +753,7 @@ const void* prepare_rows(int N, cudaError_t* err) {
   *err = cudaFuncSetAttribute(rows,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)rows_smem_bytes<T>(N));
-  if (*err == cudaSuccess && !std::is_same<T, bf16>::value)
+  if (*err == cudaSuccess)
     *err = cudaFuncSetAttribute(
         rows, cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
@@ -1079,8 +822,7 @@ int launch_bwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
 // bf16): returns its dynamic shared memory in bytes, which the wrapper
 // checks against the card's per-block limit, and writes the scratch's row
 // stride (the wrapper allocates B*H*N rows of it for each of pq and
-// dscores), pass A's ring stages (1: chunks loaded and applied in turn)
-// and the blocks of pass A that one SM holds (the CUDA runtime's
+// dscores), the stages of pass A's score ring and the blocks of pass A that one SM holds (the CUDA runtime's
 // occupancy: shared memory, threads and registers; 0 where the kernel
 // cannot take that shared memory).
 extern "C" long long ofq_qkr_attention_bwd_launch(int N, int is_bf16,
@@ -1089,7 +831,7 @@ extern "C" long long ofq_qkr_attention_bwd_launch(int N, int is_bf16,
   const long long smem =
       is_bf16 ? rows_smem_bytes<bf16>(N) : rows_smem_bytes<float>(N);
   *ldp = is_bf16 ? scratch_ld<bf16>(N) : scratch_ld<float>(N);
-  *stages = is_bf16 ? 1 : A_STAGES;
+  *stages = A_STAGES;
   cudaError_t err;
   const void* rows =
       is_bf16 ? prepare_rows<bf16>(N, &err) : prepare_rows<float>(N, &err);

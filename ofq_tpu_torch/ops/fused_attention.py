@@ -188,14 +188,26 @@ def stream_dtype(t):
     return t.dtype if t.dtype in _LAUNCHERS else torch.float32
 
 
-def _smem_check(lib, fn_name, N, what):
-    smem_fn = getattr(lib, fn_name)
-    smem_fn.restype = ctypes.c_longlong
-    smem_fn.argtypes = [ctypes.c_int]
-    if smem_fn(N) > _MAX_SMEM:
+@functools.lru_cache(maxsize=None)
+def fwd_launch_config(N, K, bf16):
+    """(dynamic shared memory in bytes, blocks per SM) of K2 at N keys of
+    depth K in fp32 or (bf16=True) the bf16 stream, as the built library
+    reports them (`ofq_qkr_attention_fwd_launch`; blocks per SM: the CUDA
+    runtime's occupancy, registers counted, 0 where the shared memory does
+    not fit a block)."""
+    blocks = ctypes.c_int()
+    fn = _build.load("fused_attention").ofq_qkr_attention_fwd_launch
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    smem = fn(N, K, int(bf16), ctypes.byref(blocks))
+    return smem, blocks.value
+
+
+def _smem_check(smem, N, what):
+    if smem > _MAX_SMEM:
         raise ValueError(
-            f"{what}: N={N} keys need {smem_fn(N)} bytes of shared memory "
-            f"per block, more than the card's {_MAX_SMEM}")
+            f"{what}: N={N} keys need {smem} bytes of shared memory per "
+            f"block, more than the card's {_MAX_SMEM}")
 
 
 def _launch(lhs, rhs, v, s, bits, sm_scale, quantize):
@@ -205,7 +217,8 @@ def _launch(lhs, rhs, v, s, bits, sm_scale, quantize):
                rhs=(rhs, (B, N, H, K), dt), v=(v, (B, N, H, d), dt),
                s=(s, (N,)))
     lib = _build.load("fused_attention")
-    _smem_check(lib, "ofq_qkr_attention_smem_bytes", N, "qkr_attention_fwd")
+    _smem_check(fwd_launch_config(N, K, dt == torch.bfloat16)[0], N,
+                "qkr_attention_fwd")
     fn = getattr(lib, "ofq_qkr_attention_fwd" + _LAUNCHERS[dt])
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -244,20 +257,22 @@ def bwd_launch_plan(N, bf16):
     first three equal and the runtime's blocks per SM at most the
     fourth."""
     tq, threads = 64, 256
+    # the score tile's ring (csrc/qkr_scores.cuh): 3 stages of 48-byte
+    # rows, the 64 query rows and a sweep of 224 keys
+    stages, keys, row_bytes = 3, 224, 48
+
+    def ring(rows):
+        return stages * (rows + keys) * row_bytes
+
     if bf16:
         ld_s = -(-N // 32) * 32 + 1
-        tiles = 4 * (32 * (tq + 1) + 32 * (64 + 1))
         half = 4 * (tq // 2) * ld_s + 2 * (tq // 2 + 128) * 40
-        smem = 4 * tq * ld_s + max(half, tiles)
-        ldp, stages = -(-N // 8) * 8, 1
+        ldp = -(-N // 8) * 8
     else:
-        # 3 stages of 8-deep chunks, rows of 8 + 4 floats, 224 keys a sweep
         ld_s = -(-N // 4) * 4
-        stages, keys, ld_chunk = 3, 224, 12
-        scores = stages * (tq + keys) * ld_chunk
-        dpq = tq // 2 * ld_s + stages * (tq // 2 + keys) * ld_chunk
-        smem = 4 * (tq * ld_s + max(scores, dpq))
+        half = 4 * (tq // 2) * ld_s + ring(tq // 2)
         ldp = ld_s
+    smem = 4 * tq * ld_s + max(ring(tq), half)
     return smem, ldp, stages, blocks_per_sm(smem, threads)
 
 
@@ -284,10 +299,7 @@ def _launch_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize):
                s=(s, (N,)), g=(g, (B, N, H, d), dt))
     lib = _build.load("fused_attention_bwd")
     smem, ldp = bwd_launch_config(N, dt == torch.bfloat16)[:2]
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"qkr_attention_bwd: N={N} keys need {smem} bytes of shared "
-            f"memory per block, more than the card's {_MAX_SMEM}")
+    _smem_check(smem, N, "qkr_attention_bwd")
     fn = getattr(lib, "ofq_qkr_attention_bwd" + _LAUNCHERS[dt])
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11

@@ -32,12 +32,14 @@ def _constants(source):
 
 
 def test_mirrors_repeat_the_sources_constants():
-    k3 = _constants("fused_attention_bwd.cu")
+    # K3's own and those of the score tile it shares with K2
+    k3 = {**_constants("fused_attention_bwd.cu"),
+          **_constants("qkr_scores.cuh")}
     assert {name: k3[name] for name in (
-        "TQ", "TK", "KC", "THREADS", "A_BK", "A_STAGES", "A_TN", "PAD",
-        "DPQ_KEYS", "LD_ROW")} == dict(
-        TQ=64, TK=64, KC=32, THREADS=256, A_BK=8, A_STAGES=3, A_TN=7, PAD=4,
-        DPQ_KEYS=128, LD_ROW=40)
+        "TQ", "TK", "THREADS", "A_STAGES", "A_TN", "CHUNK_BYTES",
+        "ROW_BYTES", "DPQ_KEYS", "LD_ROW")} == dict(
+        TQ=64, TK=64, THREADS=256, A_STAGES=3, A_TN=7, CHUNK_BYTES=32,
+        ROW_BYTES=48, DPQ_KEYS=128, LD_ROW=40)
     win = _constants("window_attention.cu")
     assert {name: win[name] for name in (
         "N", "D", "NP", "TC_MAX_WARPS", "MAX_SMEM", "K6_STAGES",
@@ -57,9 +59,10 @@ def test_k3_fp32_pass_a_fits_two_blocks_at_deit_s():
 
 
 def test_k3_bf16_plan_at_deit_s():
-    """The bf16 form keeps its pass A (99 200 bytes, chunks loaded and
-    applied in turn: one stage) and its scratch rows of N rounded to 8."""
-    assert fa.bwd_launch_plan(198, bf16=True) == (99200, 200, 1, 2)
+    """The bf16 form keeps its pass A's 99 200 bytes (the score tile's
+    three-stage ring fits where tile_nt's chunks did) and its scratch rows
+    of N rounded to 8."""
+    assert fa.bwd_launch_plan(198, bf16=True) == (99200, 200, 3, 2)
 
 
 def test_k3_scratch_rows_are_whole_16_byte_rows():
