@@ -214,6 +214,8 @@ REPORT_SOURCES = ("fused_qlinear", "pallas_statsq", "fused_attention_bwd")
 # (HGMMA: wgmma; HMMA: mma.sync)
 TC_KERNELS = {
     "fused_qlinear": [("_tc_kernel", "HGMMA")],
+    # K2-bf16 and K3-bf16's pass A: the score tile on the tensor cores
+    "fused_attention": [("qkr_attention_fwd_tc_kernel", "HMMA")],
     "fused_attention_bwd": [("qkr_bwd_rows_tc_kernel", "HMMA"),
                             ("qkr_bwd_cols_tc_kernel", "HMMA"),
                             ("qkr_bwd_dlhs_tc_kernel", "HMMA")],
@@ -1689,6 +1691,8 @@ def _grad_gate(what, rows, all_params=None):
     def limit(r, plain="rel_plain"):
         return 2 * r.get("spread", r[plain]) + floor
 
+    for r in rows:
+        r["limit"] = limit(r)
     bad = [r for r in rows if r["rel_kernels"] > limit(r)]
     worst = max(rows, key=lambda r: r["rel_kernels"] / limit(r))
     spread = ""
@@ -1708,6 +1712,14 @@ def _grad_gate(what, rows, all_params=None):
         + f"; gate kernels <= 2 x {'order spread' if by_spread else 'plain'}"
         f" + {floor:.3e}, closest {worst['name']} ({worst['rel_kernels']:.3e}"
         f" against the limit {limit(worst):.3e})")
+    if by_spread:
+        # what decides a tensor-core kernel: the LSQ scales behind the
+        # softmax, and every parameter refused
+        watch = [r for r in rows if "quan_softmax" in r["name"] or r in bad]
+        log(f"{what}: kernels / limit of every quan_softmax scale and every "
+            f"refused parameter: " + ", ".join(
+                f"{r['name']} {r['rel_kernels']:.3e}/{limit(r):.3e}"
+                for r in watch))
     if bad or (all_params is not None and all_params["kernels"]
                > limit(all_params, "plain")):
         raise GateTripped(f"{what}: gradient gate failed: {bad[:5]}, "
@@ -1943,6 +1955,16 @@ def k4_slice_fault(real):
     return k4
 
 
+def k2_slice_fault(real):
+    """K2 with one 16-deep slice of the scores' contraction left out (lhs
+    zero there), the size of a tiling bug on the tensor cores."""
+    def k2(lhs, rhs, v, s, *args):
+        lhs = lhs.clone()
+        lhs[..., FAULT_K0:FAULT_K0 + 16] = 0
+        return real(lhs, rhs, v, s, *args)
+    return k2
+
+
 def k3_dv_slice_fault(real):
     """K3 with dv zeroed over one 16-key slice of one head, the size of a
     tiling bug on the tensor cores."""
@@ -1975,6 +1997,7 @@ def phase_gate_selfcheck(dev, name="deit_small_distilled_patch16_224",
     K3) for the others.  Each fault has to trip the gates it is listed
     with; a gate listed as None is reported only."""
     import numpy as np
+    import torch
     from ofq_tpu_torch.models.deit import VARIANTS
     from ofq_tpu_torch.nn import attention as nn_attention
     from ofq_tpu_torch.nn import linear as nn_linear
@@ -2024,7 +2047,26 @@ def phase_gate_selfcheck(dev, name="deit_small_distilled_patch16_224",
          f"out", {"block gate": True, "top-1 gate": None})])
     serving(FUSED_BF16, (nn_attention, "qkr_attention_fwd"), [
         (k2_scale_row_fault, "K2 reading the scale of row n + 1",
-         {"block gate": True, "top-1 gate": True})])
+         {"block gate": True, "top-1 gate": True}),
+        (k2_slice_fault,
+         f"K2 with the scores' contraction slice {FAULT_K0}:{FAULT_K0 + 16} "
+         f"left out", {"block gate": True, "top-1 gate": None})])
+    # phase_k2's gate on its main-path case (bf16, shared lhs, LSQ on) at 4
+    # batch rows, with the slice fault and unmodified
+    from ofq_tpu_torch.ops import fused_attention as fa
+    for dtype, shared, _, (lhs, rhs, v, s) in _attn_cases(
+            dev, 2, 198, 4, False):
+        if dtype != torch.bfloat16 or not shared:
+            continue
+        args = (lhs, rhs, v, s, 2, 64 ** -0.5, True)
+        ref = fa.qkr_attention_fwd_reference(*args)
+        for label, fwd, must in (
+                (f"K2 with the scores' contraction slice {FAULT_K0}:"
+                 f"{FAULT_K0 + 16} left out", k2_slice_fault(
+                     fa.qkr_attention_fwd), True),
+                ("unmodified kernels", fa.qkr_attention_fwd, False)):
+            record(label, "K2 gate (phase_k2, bf16)", *_tripped(
+                lambda: k2_gate("K2", fwd(*args), ref, s, v)), must=must)
     student, teacher, data = build_trained(dev, FUSED_BF16, name, batch)
     # the chunked plain paths' gradients, computed once for this student
     orders = {}
@@ -2256,6 +2298,76 @@ def emulate_tc_tile(q, k, v, form="full"):
     return o[:, :, :n].permute(0, 2, 1, 3).to(torch.bfloat16)
 
 
+def _lane_sums(e, h0):
+    """A row's sum over one key half of the tensor-core score tile
+    (`qkr::tc_softmax`): e holds the half's 32 h0 keys on its last axis,
+    key 8 t + 2 c + j in lane c's t-th pair; each lane sums its values in
+    order of t then j (fp32), then the quad ((l0 + l1) + (l2 + l3))."""
+    import torch
+    lanes = e.reshape(*e.shape[:-1], 2 * h0, 4, 2).transpose(-3, -2)
+    lanes = lanes.reshape(*e.shape[:-1], 4, 4 * h0)
+    part = torch.zeros(lanes.shape[:-1], dtype=torch.float32,
+                       device=e.device)
+    for i in range(4 * h0):
+        part = part + lanes[..., i]
+    return (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+
+
+def tc_scores(lhs, rhs, promote=False):
+    """The tensor-core tile's fp32 sums lhs . rhs^T, (B, H, N, N), by
+    `mma_sum` in k16 steps over K: one chain, or (promote) each 64-deep
+    chunk from zero and the chunks added in fp32 in order."""
+    B, N, H, K = rhs.shape
+    lhs_u = (lhs[:, None].expand(B, H, N, K) if lhs.dim() == 3
+             else lhs.permute(0, 2, 1, 3))
+    a, b = lhs_u.unsqueeze(3), rhs.permute(0, 2, 1, 3).unsqueeze(2)
+    if not promote:
+        return mma_sum(a, b)
+    acc = None
+    for k0 in range(0, K, 64):
+        part = mma_sum(a[..., k0:k0 + 64], b[..., k0:k0 + 64])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def emulate_qkr_tc(lhs, rhs, v, s, bits, sm_scale, quantize, promote=False):
+    """K2-bf16 on the tensor cores (csrc/qkr_scores.cuh `tc_probs` and K2's
+    pq v), its sums by `mma_sum`: the scores in k16 steps over K (promote:
+    each 64-deep chunk from zero, the chunks added in fp32), times
+    sm_scale in fp32; the softmax over the keys in two halves (16 h0 keys
+    and the rest of 16 KS, KS = fused_attention.tc_key_tiles(N), h0 = (KS
+    + 1) // 2) with keys >= N at -inf, each half's sum as `_lane_sums`,
+    the row's as half 0's + half 1's, p = e / sum; LSQ as the plain version;
+    pq rounded to bf16; out = each half's pq v by `mma_sum` over its keys,
+    half 0's + half 1's, rounded to bf16.  Returns (out (B, N, H, d), pq
+    (B, H, N, N)), bf16; exp is the device's own (torch.exp)."""
+    import torch
+    from ofq_tpu_torch.ops import fused_attention as fa
+    B, N, H, K = rhs.shape
+    ks = fa.tc_key_tiles(N)
+    h0 = (ks + 1) // 2
+    split = 16 * h0
+    sc = tc_scores(lhs, rhs, promote) * torch.tensor(
+        sm_scale, dtype=torch.float32, device=rhs.device)
+    sc = torch.cat([sc, torch.full((B, H, N, 2 * split - N), -torch.inf,
+                                   device=sc.device)], dim=-1)
+    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+    total = _lane_sums(e[..., :split], h0) + _lane_sums(e[..., split:], h0)
+    p = e / total[..., None]
+    if quantize:
+        sn = torch.clamp_min(s.float(), 1e-5)[None, None, :, None]
+        p = torch.round(torch.clamp(p / sn, 0.0, 2 ** bits - 1)) * sn
+    pq = p.to(torch.bfloat16)
+    vk = v.permute(0, 2, 3, 1)  # (B, H, d, N)
+    vk = torch.cat([vk, torch.zeros(*vk.shape[:-1], 2 * split - N,
+                                    dtype=vk.dtype, device=vk.device)], -1)
+    o = None
+    for hf in (slice(0, split), slice(split, 2 * split)):
+        part = mma_sum(pq[..., hf].unsqueeze(3), vk[..., hf].unsqueeze(2))
+        o = part if o is None else o + part
+    return o.permute(0, 2, 1, 3).to(torch.bfloat16), pq[..., :N]
+
+
 # the seeds of the card tests' K6 data (tests/test_torch_port_cuda.py:
 # `_tail_args`)
 K6_SEEDS = (4, 5, 6, 7, 8)
@@ -2325,6 +2437,66 @@ def phase_k6_emulated(dev, chunk=512):
                 f"{differing} elements: mma_sum is not the card's "
                 f"accumulator")
     return rows
+
+
+def phase_k2_emulated(dev, N, B=2):
+    """K2-bf16 and K3-bf16's pass A against `emulate_qkr_tc` (the
+    tensor-core tile with the card's accumulator, in the accumulation the
+    built header selects) on B batch rows of the K2 phase's shapes: the
+    elements of K2's output, and of the pq that K3's pass A writes to its
+    scratch, whose bits differ (0 required: the CPU tests' emulation is
+    then the card's arithmetic, and K3's p is K2's), and the emulated and
+    the kernel's K2 gate readings against the plain version."""
+    import torch
+    from ofq_tpu_torch.ops import _build
+    from ofq_tpu_torch.ops import fused_attention as fa
+    H, d, bits = 6, 64, 2
+    sm_scale = d ** -0.5
+    promote = tc_promote()
+    rows = []
+    for dtype, shared, K, (lhs, rhs, v, s, go) in _attn_cases(dev, 2, N, B,
+                                                               True):
+        if dtype != torch.bfloat16:
+            continue
+        for quantize in (True, False):
+            args = (lhs, rhs, v, s, bits, sm_scale, quantize)
+            out = raw_k2(_build.load("fused_attention"), args)().clone()
+            scratch = raw_k3(_build.load("fused_attention_bwd"),
+                             (lhs, rhs, v, s, go, *args[4:]))()[4]
+            torch.cuda.synchronize()
+            emu, pq = emulate_qkr_tc(*args, promote=promote)
+            ref = fa.qkr_attention_fwd_reference(*args)
+            d_out = int((emu.view(torch.int16) != out.view(torch.int16)).sum())
+            d_pq = int((pq.contiguous().view(torch.int16)
+                        != scratch[..., :N].view(torch.int16)).sum())
+            e_err, hard, e_out = k2_gate("K2 emulated", emu, ref, s, v)
+            k_err, _, k_out = k2_gate("K2", out, ref, s, v)
+            name = (f"{'shared' if shared else 'per-head'} lhs, LSQ "
+                    f"{'on' if quantize else 'off'}")
+            rows.append(dict(name=name, promote=promote, differing_out=d_out,
+                             differing_pq=d_pq, emulated_max_abs_err=e_err,
+                             emulated_outside=e_out, kernel_max_abs_err=k_err,
+                             kernel_outside=k_out, limit=hard))
+            log(f"[K2 emulated] {name} ({'promoted' if promote else 'plain'} "
+                f"accumulation), B={B}: K2's output differs from the "
+                f"emulated tile in {d_out} of {out.numel()} elements, K3's "
+                f"pq in {d_pq} of {pq.numel()}; K2 gate: emulated max|diff| "
+                f"{e_err:.3e}, {e_out} outside; kernel {k_err:.3e}, {k_out} "
+                f"outside (limit {hard:.3e})")
+            if d_out or d_pq:
+                raise AssertionError(
+                    f"K2 emulated {name}: {d_out} output and {d_pq} pq "
+                    f"elements differ: the emulation is not the card's tile")
+    return rows
+
+
+def tc_promote():
+    """Whether the built tensor-core score tile promotes its sums per
+    64-deep chunk (`TC_PROMOTE` in csrc/qkr_scores.cuh)."""
+    import re
+    from ofq_tpu_torch.ops import _build
+    text = (_build.CSRC / "qkr_scores.cuh").read_text()
+    return re.search(r"constexpr bool TC_PROMOTE = (\w+);", text)[1] == "true"
 
 
 def form_work(do_scores=True, do_softmax=True, do_out=True):
@@ -2727,6 +2899,7 @@ def main() -> int:
     full["k1"] = phase_k1(dev, n_tok, base=base)
     full["k2"] = phase_k2(dev, n_tok, base=base)
     full["k3"] = phase_k3(dev, n_tok, base=base)
+    full["k2_emulated"] = phase_k2_emulated(dev, n_tok)
     full["slice"] = phase_slice(dev, FUSED, deit, w2a2_qkr_policy(12))
     torch.cuda.empty_cache()
     full["train"] = phase_train(dev, FUSED)

@@ -54,6 +54,27 @@ _MAX_SMEM = 232448
 _SM_SMEM, _SM_THREADS = 233472, 2048
 
 
+# the bf16 stream's tensor-core score tile (csrc/qkr_scores.cuh) holds a
+# row's keys in registers: at most 256, in buckets of 16-key tiles
+TC_MAX_KEYS = 256
+
+
+def tc_key_tiles(N):
+    """The 16-key tiles of the tensor-core score tile's instance at N keys
+    (`qkr::tc_key_tiles`); 0 past TC_MAX_KEYS."""
+    for tiles in (4, 8, 13, 16):
+        if N <= 16 * tiles:
+            return tiles
+    return 0
+
+
+def _tc_keys_check(N, dt, what):
+    if dt == torch.bfloat16 and not tc_key_tiles(N):
+        raise ValueError(
+            f"{what}: the bf16 stream's tensor-core score tile holds at most "
+            f"{TC_MAX_KEYS} keys a row, got N={N}")
+
+
 def blocks_per_sm(smem, threads):
     """Blocks of `threads` threads and `smem` bytes of dynamic shared
     memory that one H100 SM holds as shared memory and threads allow: at
@@ -217,6 +238,7 @@ def _launch(lhs, rhs, v, s, bits, sm_scale, quantize):
                rhs=(rhs, (B, N, H, K), dt), v=(v, (B, N, H, d), dt),
                s=(s, (N,)))
     lib = _build.load("fused_attention")
+    _tc_keys_check(N, dt, "qkr_attention_fwd")
     _smem_check(fwd_launch_config(N, K, dt == torch.bfloat16)[0], N,
                 "qkr_attention_fwd")
     fn = getattr(lib, "ofq_qkr_attention_fwd" + _LAUNCHERS[dt])
@@ -257,22 +279,25 @@ def bwd_launch_plan(N, bf16):
     first three equal and the runtime's blocks per SM at most the
     fourth."""
     tq, threads = 64, 256
-    # the score tile's ring (csrc/qkr_scores.cuh): 3 stages of 48-byte
-    # rows, the 64 query rows and a sweep of 224 keys
-    stages, keys, row_bytes = 3, 224, 48
-
-    def ring(rows):
-        return stages * (rows + keys) * row_bytes
-
     if bf16:
+        # the tensor-core score tile's ring (csrc/qkr_scores.cuh): 2 stages
+        # of the 64 lhs rows and 16 KS rhs rows, 144-byte rows
+        stages = 2
+        scores = stages * (tq + 16 * tc_key_tiles(N)) * 144
         ld_s = -(-N // 32) * 32 + 1
         half = 4 * (tq // 2) * ld_s + 2 * (tq // 2 + 128) * 40
         ldp = -(-N // 8) * 8
     else:
+        # the CUDA-core score tile's ring: 3 stages of 48-byte rows, the 64
+        # query rows and a sweep of 224 keys (dpq's: 32 rows)
+        stages, keys, row_bytes = 3, 224, 48
+        scores = stages * (tq + keys) * row_bytes
         ld_s = -(-N // 4) * 4
-        half = 4 * (tq // 2) * ld_s + ring(tq // 2)
+        half = 4 * (tq // 2) * ld_s + stages * (tq // 2 + keys) * row_bytes
         ldp = ld_s
-    smem = 4 * tq * ld_s + max(ring(tq), half)
+    tile = 4 * tq * ld_s  # the fp32 score (bf16: p) tile
+    # the bf16 ring overlaps the tile (p is written after it), fp32's not
+    smem = max(scores, tile + half) if bf16 else tile + max(scores, half)
     return smem, ldp, stages, blocks_per_sm(smem, threads)
 
 
@@ -298,6 +323,7 @@ def _launch_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize):
                rhs=(rhs, (B, N, H, K), dt), v=(v, (B, N, H, d), dt),
                s=(s, (N,)), g=(g, (B, N, H, d), dt))
     lib = _build.load("fused_attention_bwd")
+    _tc_keys_check(N, dt, "qkr_attention_bwd")
     smem, ldp = bwd_launch_config(N, dt == torch.bfloat16)[:2]
     _smem_check(smem, N, "qkr_attention_bwd")
     fn = getattr(lib, "ofq_qkr_attention_bwd" + _LAUNCHERS[dt])
