@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
     python3 chip_smoke.py --profile  # also: device time by kernel (torch.profiler)
     python3 chip_smoke.py --baseline DIR
-        # also: K1's, K3's and K6-K8's sources as an earlier tree DIR
+        # also: K1's, K2's, K3's and K6-K8's sources as an earlier tree DIR
         # has them (a `git archive` of that commit), built and timed beside
         # the current ones at the same shapes in the same run
 
@@ -25,9 +25,10 @@ Phases (any failure raises and the script exits non-zero):
      differing counted (0 while the integer sums stay below 2^24);
   4. K2, the fused QKR attention core, against its plain version at
      B=64, N=198, H=6, C=384, d=64 (shared and per-head lhs, LSQ on/off),
-     in fp32 and in the bf16 stream; K3, its backward, the same way
-     (K3-bf16 on the tensor cores but for its score tile, K3 fp32
-     register-tiled on the CUDA cores);
+     in fp32 and in the bf16 stream (`k2_gate`; K2's score tile, which K3's
+     pass A shares, register-tiled on the CUDA cores in both streams);
+     K3, its backward, the same way (K3-bf16's products on the tensor
+     cores but for the score tile, K3 fp32 register-tiled);
   5. serving: DeiT-S distilled W2A2 QKR at full width (random weights from
      a seeded torch.Generator), calibrated on a seeded batch of 64 and served
      through `Predictor` with both kernels, launch counts read around one
@@ -63,10 +64,11 @@ Phases (any failure raises and the script exits non-zero):
   9b. the gate self-check: deliberate faults wrapped around the real
      kernels (K4 with one output column moved by one weight level, K4
      with one 16-deep slice of its contraction left out, K2 reading the
-     scale of row n + 1, K3 with ds doubled, K3 with dlhs doubled, K3 with
-     dv zeroed over 16 keys of one head), each of which must trip the bf16
-     gates it aims at, then the unmodified kernels, which must pass them;
-     one line per result;
+     scale of row n + 1, K2 with the same slice of its scores' contraction
+     left out (the block gate and K2's own gate, `k2_gate`), K3 with ds
+     doubled, K3 with dlhs doubled, K3 with dv zeroed over 16 keys of one
+     head), each of which must trip the bf16 gates it aims at, then the
+     unmodified kernels, which must pass them; one line per result;
  10. K6, K7, K8, the Swin window-attention tail kernels of the lab bench
      (benchmarks/window_attn_lab.py), against their plain version at the
      lab's shapes (Swin-T stage 0 at batch 64: 4096 windows of 49 tokens,
@@ -110,11 +112,11 @@ order spread (the plain path summed in other legitimate fp32 orders,
 `summed_in_chunks`) plus a floor.
 Phase 4b prints the device time of K3's four passes at the main path's
 case in each stream (torch.profiler).
-With --baseline, phases 3, 4b and 10 also time the earlier tree's K1, K3
-(both streams; its passes too), K6 (every form), K7 and K8 at the same
-shapes, both through their C launchers alone, count the output elements
-where the two differ, and the run ends with the sums over K1's and K3's
-launches on their paths and K6's, K7's and K8's times per launch.  The
+With --baseline, phases 3, 4, 4b and 10 also time the earlier tree's K1,
+K2 and K3 (both streams; K3's passes too), K6 (every form), K7 and K8 at
+the same shapes, both through their C launchers alone, count the output
+elements where the two differ, and the run ends with the sums over K1's,
+K2's and K3's launches on their paths and K6's, K7's and K8's times per launch.  The
 line before the last is a JSON object with every kernel's numbers (times
 in ms, CUDA events; bounds from the H100 SXM data sheet); the last line is
 {"ok": true, "device": {...}}.  Full results also go to
@@ -214,8 +216,6 @@ REPORT_SOURCES = ("fused_qlinear", "pallas_statsq", "fused_attention_bwd")
 # (HGMMA: wgmma; HMMA: mma.sync)
 TC_KERNELS = {
     "fused_qlinear": [("_tc_kernel", "HGMMA")],
-    # K2-bf16 and K3-bf16's pass A: the score tile on the tensor cores
-    "fused_attention": [("qkr_attention_fwd_tc_kernel", "HMMA")],
     "fused_attention_bwd": [("qkr_bwd_rows_tc_kernel", "HMMA"),
                             ("qkr_bwd_cols_tc_kernel", "HMMA"),
                             ("qkr_bwd_dlhs_tc_kernel", "HMMA")],
@@ -617,11 +617,11 @@ def _attn_cases(dev, seed, N, B, with_g):
                 .contiguous() for i, t in enumerate(ts)]
 
 
-def _k2_design(dtype, N, K):
-    """K2's score form and occupancy at N keys of depth K (a log label)."""
+def _k2_design(dtype, N):
+    """K2's score form and occupancy at N keys (a log label)."""
     import torch
     from ofq_tpu_torch.ops import fused_attention as fa
-    smem, blocks = fa.fwd_launch_config(N, K, dtype == torch.bfloat16)
+    smem, blocks = fa.fwd_launch_config(N, dtype == torch.bfloat16)
     return (f"CUDA cores, the shared score tile (8 x 7 a thread, one FMA "
             f"chain a score, 3-stage cp.async ring) and pq v (8 x 2 a "
             f"thread); {smem} B shared, {blocks} blocks per SM (the CUDA "
@@ -686,7 +686,7 @@ def phase_k2(dev, N, B=BATCH, base=None):
             del q, kk, vv
             nbytes, flops, (b_ms, b_by) = _attn_bound(
                 B, N, H, K, d, lhs.numel(), dtype, backward=False)
-            design = _k2_design(dtype, N, K)
+            design = _k2_design(dtype, N)
             log(f"[K2] {name:30s} B={B} N={N} H={H} K={K} d={d}: max|diff| "
                 f"{err:.3e} (limit {hard:.3e}), {outside} of {o_k.numel()} "
                 f"outside the tolerance; kernel ({design}) {ms:.4f} ms"
@@ -1713,13 +1713,15 @@ def _grad_gate(what, rows, all_params=None):
         f" + {floor:.3e}, closest {worst['name']} ({worst['rel_kernels']:.3e}"
         f" against the limit {limit(worst):.3e})")
     if by_spread:
-        # what decides a tensor-core kernel: the LSQ scales behind the
-        # softmax, and every parameter refused
-        watch = [r for r in rows if "quan_softmax" in r["name"] or r in bad]
-        log(f"{what}: kernels / limit of every quan_softmax scale and every "
-            f"refused parameter: " + ", ".join(
-                f"{r['name']} {r['rel_kernels']:.3e}/{limit(r):.3e}"
-                for r in watch))
+        # what decides a redesigned kernel: the LSQ scales behind the
+        # softmax, every parameter refused and the five nearest their limits
+        near = sorted(rows, key=lambda r: r["rel_kernels"] / limit(r))[-5:]
+        watch = [r for r in rows if "quan_softmax" in r["name"] or r in bad
+                 or r in near]
+        log(f"{what}: kernels / limit of every quan_softmax scale, every "
+            f"refused parameter and the five nearest their limits: "
+            + ", ".join(f"{r['name']} {r['rel_kernels']:.3e}/{limit(r):.3e}"
+                        for r in watch))
     if bad or (all_params is not None and all_params["kernels"]
                > limit(all_params, "plain")):
         raise GateTripped(f"{what}: gradient gate failed: {bad[:5]}, "
@@ -2298,76 +2300,6 @@ def emulate_tc_tile(q, k, v, form="full"):
     return o[:, :, :n].permute(0, 2, 1, 3).to(torch.bfloat16)
 
 
-def _lane_sums(e, h0):
-    """A row's sum over one key half of the tensor-core score tile
-    (`qkr::tc_softmax`): e holds the half's 32 h0 keys on its last axis,
-    key 8 t + 2 c + j in lane c's t-th pair; each lane sums its values in
-    order of t then j (fp32), then the quad ((l0 + l1) + (l2 + l3))."""
-    import torch
-    lanes = e.reshape(*e.shape[:-1], 2 * h0, 4, 2).transpose(-3, -2)
-    lanes = lanes.reshape(*e.shape[:-1], 4, 4 * h0)
-    part = torch.zeros(lanes.shape[:-1], dtype=torch.float32,
-                       device=e.device)
-    for i in range(4 * h0):
-        part = part + lanes[..., i]
-    return (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
-
-
-def tc_scores(lhs, rhs, promote=False):
-    """The tensor-core tile's fp32 sums lhs . rhs^T, (B, H, N, N), by
-    `mma_sum` in k16 steps over K: one chain, or (promote) each 64-deep
-    chunk from zero and the chunks added in fp32 in order."""
-    B, N, H, K = rhs.shape
-    lhs_u = (lhs[:, None].expand(B, H, N, K) if lhs.dim() == 3
-             else lhs.permute(0, 2, 1, 3))
-    a, b = lhs_u.unsqueeze(3), rhs.permute(0, 2, 1, 3).unsqueeze(2)
-    if not promote:
-        return mma_sum(a, b)
-    acc = None
-    for k0 in range(0, K, 64):
-        part = mma_sum(a[..., k0:k0 + 64], b[..., k0:k0 + 64])
-        acc = part if acc is None else acc + part
-    return acc
-
-
-def emulate_qkr_tc(lhs, rhs, v, s, bits, sm_scale, quantize, promote=False):
-    """K2-bf16 on the tensor cores (csrc/qkr_scores.cuh `tc_probs` and K2's
-    pq v), its sums by `mma_sum`: the scores in k16 steps over K (promote:
-    each 64-deep chunk from zero, the chunks added in fp32), times
-    sm_scale in fp32; the softmax over the keys in two halves (16 h0 keys
-    and the rest of 16 KS, KS = fused_attention.tc_key_tiles(N), h0 = (KS
-    + 1) // 2) with keys >= N at -inf, each half's sum as `_lane_sums`,
-    the row's as half 0's + half 1's, p = e / sum; LSQ as the plain version;
-    pq rounded to bf16; out = each half's pq v by `mma_sum` over its keys,
-    half 0's + half 1's, rounded to bf16.  Returns (out (B, N, H, d), pq
-    (B, H, N, N)), bf16; exp is the device's own (torch.exp)."""
-    import torch
-    from ofq_tpu_torch.ops import fused_attention as fa
-    B, N, H, K = rhs.shape
-    ks = fa.tc_key_tiles(N)
-    h0 = (ks + 1) // 2
-    split = 16 * h0
-    sc = tc_scores(lhs, rhs, promote) * torch.tensor(
-        sm_scale, dtype=torch.float32, device=rhs.device)
-    sc = torch.cat([sc, torch.full((B, H, N, 2 * split - N), -torch.inf,
-                                   device=sc.device)], dim=-1)
-    e = torch.exp(sc - sc.amax(-1, keepdim=True))
-    total = _lane_sums(e[..., :split], h0) + _lane_sums(e[..., split:], h0)
-    p = e / total[..., None]
-    if quantize:
-        sn = torch.clamp_min(s.float(), 1e-5)[None, None, :, None]
-        p = torch.round(torch.clamp(p / sn, 0.0, 2 ** bits - 1)) * sn
-    pq = p.to(torch.bfloat16)
-    vk = v.permute(0, 2, 3, 1)  # (B, H, d, N)
-    vk = torch.cat([vk, torch.zeros(*vk.shape[:-1], 2 * split - N,
-                                    dtype=vk.dtype, device=vk.device)], -1)
-    o = None
-    for hf in (slice(0, split), slice(split, 2 * split)):
-        part = mma_sum(pq[..., hf].unsqueeze(3), vk[..., hf].unsqueeze(2))
-        o = part if o is None else o + part
-    return o.permute(0, 2, 1, 3).to(torch.bfloat16), pq[..., :N]
-
-
 # the seeds of the card tests' K6 data (tests/test_torch_port_cuda.py:
 # `_tail_args`)
 K6_SEEDS = (4, 5, 6, 7, 8)
@@ -2437,66 +2369,6 @@ def phase_k6_emulated(dev, chunk=512):
                 f"{differing} elements: mma_sum is not the card's "
                 f"accumulator")
     return rows
-
-
-def phase_k2_emulated(dev, N, B=2):
-    """K2-bf16 and K3-bf16's pass A against `emulate_qkr_tc` (the
-    tensor-core tile with the card's accumulator, in the accumulation the
-    built header selects) on B batch rows of the K2 phase's shapes: the
-    elements of K2's output, and of the pq that K3's pass A writes to its
-    scratch, whose bits differ (0 required: the CPU tests' emulation is
-    then the card's arithmetic, and K3's p is K2's), and the emulated and
-    the kernel's K2 gate readings against the plain version."""
-    import torch
-    from ofq_tpu_torch.ops import _build
-    from ofq_tpu_torch.ops import fused_attention as fa
-    H, d, bits = 6, 64, 2
-    sm_scale = d ** -0.5
-    promote = tc_promote()
-    rows = []
-    for dtype, shared, K, (lhs, rhs, v, s, go) in _attn_cases(dev, 2, N, B,
-                                                               True):
-        if dtype != torch.bfloat16:
-            continue
-        for quantize in (True, False):
-            args = (lhs, rhs, v, s, bits, sm_scale, quantize)
-            out = raw_k2(_build.load("fused_attention"), args)().clone()
-            scratch = raw_k3(_build.load("fused_attention_bwd"),
-                             (lhs, rhs, v, s, go, *args[4:]))()[4]
-            torch.cuda.synchronize()
-            emu, pq = emulate_qkr_tc(*args, promote=promote)
-            ref = fa.qkr_attention_fwd_reference(*args)
-            d_out = int((emu.view(torch.int16) != out.view(torch.int16)).sum())
-            d_pq = int((pq.contiguous().view(torch.int16)
-                        != scratch[..., :N].view(torch.int16)).sum())
-            e_err, hard, e_out = k2_gate("K2 emulated", emu, ref, s, v)
-            k_err, _, k_out = k2_gate("K2", out, ref, s, v)
-            name = (f"{'shared' if shared else 'per-head'} lhs, LSQ "
-                    f"{'on' if quantize else 'off'}")
-            rows.append(dict(name=name, promote=promote, differing_out=d_out,
-                             differing_pq=d_pq, emulated_max_abs_err=e_err,
-                             emulated_outside=e_out, kernel_max_abs_err=k_err,
-                             kernel_outside=k_out, limit=hard))
-            log(f"[K2 emulated] {name} ({'promoted' if promote else 'plain'} "
-                f"accumulation), B={B}: K2's output differs from the "
-                f"emulated tile in {d_out} of {out.numel()} elements, K3's "
-                f"pq in {d_pq} of {pq.numel()}; K2 gate: emulated max|diff| "
-                f"{e_err:.3e}, {e_out} outside; kernel {k_err:.3e}, {k_out} "
-                f"outside (limit {hard:.3e})")
-            if d_out or d_pq:
-                raise AssertionError(
-                    f"K2 emulated {name}: {d_out} output and {d_pq} pq "
-                    f"elements differ: the emulation is not the card's tile")
-    return rows
-
-
-def tc_promote():
-    """Whether the built tensor-core score tile promotes its sums per
-    64-deep chunk (`TC_PROMOTE` in csrc/qkr_scores.cuh)."""
-    import re
-    from ofq_tpu_torch.ops import _build
-    text = (_build.CSRC / "qkr_scores.cuh").read_text()
-    return re.search(r"constexpr bool TC_PROMOTE = (\w+);", text)[1] == "true"
 
 
 def form_work(do_scores=True, do_softmax=True, do_out=True):
@@ -2899,7 +2771,6 @@ def main() -> int:
     full["k1"] = phase_k1(dev, n_tok, base=base)
     full["k2"] = phase_k2(dev, n_tok, base=base)
     full["k3"] = phase_k3(dev, n_tok, base=base)
-    full["k2_emulated"] = phase_k2_emulated(dev, n_tok)
     full["slice"] = phase_slice(dev, FUSED, deit, w2a2_qkr_policy(12))
     torch.cuda.empty_cache()
     full["train"] = phase_train(dev, FUSED)

@@ -160,170 +160,18 @@ __global__ void __launch_bounds__(THREADS, 2) qkr_attention_fwd_kernel(
                ring);
 }
 
-// K2-bf16 on the tensor cores: per (query tile of 64 rows, head, batch
-// row), 256 threads.  p from the shared score tile (`qkr::tc_probs`: the
-// S accumulators of warp w are rows 16 (w % 4) .. against key half w / 4,
-// softmax in registers), the first 64 columns of v loaded as the ring's
-// last chunk; then LSQ on the accumulators, pq rounded to bf16 straight
-// into the A fragments of pq v (mma.sync over this warp's key half, v
-// through ldmatrix.trans), and the halves' fp32 outputs added (half 0's +
-// half 1's, in shared memory) and rounded to bf16 once.
-template <int KS>
-__global__ void __launch_bounds__(THREADS, 2) qkr_attention_fwd_tc_kernel(
-    const __nv_bfloat16* __restrict__ lhs, int lhs_per_head,
-    const __nv_bfloat16* __restrict__ rhs, const __nv_bfloat16* __restrict__ v,
-    const float* __restrict__ s, __nv_bfloat16* __restrict__ out, int N, int H,
-    int K, int D, float thd_pos, float sm_scale, int quantize) {
-  using bf16 = __nv_bfloat16;
-  using qkr::TC_LD;
-  constexpr int H0 = qkr::tc_half0(KS);
-  constexpr int STAGE = qkr::tc_stage_elems(KS);
-  constexpr int XLD = qkr::PV_COLS + 4;  // the halves' exchange, fp32 rows
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float red[4 * TQ];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-
-  const int q0 = blockIdx.x * TQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t lhs_row = lhs_per_head ? (size_t)H * K : (size_t)K;
-  const bf16* lhs_b = lhs + (size_t)b * N * lhs_row + (lhs_per_head ? (size_t)h * K : 0);
-  const bf16* rhs_b = rhs + (size_t)b * N * H * K + (size_t)h * K;
-  const bf16* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
-  bf16* out_b = out + (size_t)b * N * H * D + (size_t)h * D;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rg = warp % 4, half = warp / 4;
-  const int i = lane >> 3, j = lane & 7, g = lane >> 2, c4 = lane & 3;
-  const bool live = q0 + 16 * rg < N;
-  const int kc = (K + qkr::TC_KC - 1) / qkr::TC_KC;
-
-  // the v tile: keys 0 .. 16 KS - 1, columns d0 .. d0 + 63 (zero past N, D)
-  auto load_v = [&](bf16* stg, int d0) {
-    qkr::load_rows<bf16, 16 * KS, qkr::PV_COLS, THREADS>(
-        stg, TC_LD, v_b, (size_t)H * D, 0, N, d0, D);
-  };
-  float p[2 * H0][4];
-  qkr::tc_probs<KS>(p, lhs_b, lhs_row, q0, rhs_b, (size_t)H * K, N, K,
-                    sm_scale, ring, red, true,
-                    [&](bf16* stg) { load_v(stg, 0); });
-
-  // LSQ on p, rounded to bf16 into the A fragments of pq v
-  float sn[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int n = q0 + 16 * rg + g + 8 * hh;
-    sn[hh] = n < N ? fmaxf(s[n], 1e-5f) : 1.0f;
-  }
-  uint32_t pa[H0][4];
-#pragma unroll
-  for (int t = 0; t < 2 * H0; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (quantize)
-        p[t][e] = __fmul_rn(
-            rintf(fminf(fmaxf(__fdiv_rn(p[t][e], sn[e >> 1]), 0.0f), thd_pos)),
-            sn[e >> 1]);
-#pragma unroll
-  for (int kk = 0; kk < H0; ++kk) {
-    pa[kk][0] = qkr::pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    pa[kk][1] = qkr::pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    pa[kk][2] = qkr::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[kk][3] = qkr::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-  }
-
-  // out = pq v, 64 columns a pass: the v tile in the ring's stage kc % 2
-  // (loaded beside the last score chunk), the halves' exchange in the other
-  bf16* Vs = ring + (kc % 2) * STAGE;
-  float* X = reinterpret_cast<float*>(ring + ((kc + 1) % 2) * STAGE);
-  const int tiles = half ? KS - H0 : H0;
-  const bf16* Vw = Vs + (16 * H0 * half + (i & 1) * 8 + j) * TC_LD + (i >> 1) * 8;
-  for (int d0 = 0; d0 < D; d0 += qkr::PV_COLS) {
-    if (d0 > 0) {
-      __syncthreads();  // every warp done with the last pass's v and X
-      load_v(Vs, d0);
-      qkr::cp_async_commit();
-      qkr::cp_async_wait<0>();
-      __syncthreads();
-    }
-    float o[8][4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.0f;
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < H0; ++kk) {
-        if (kk < tiles) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {  // columns 16 q .. 16 q + 15
-            uint32_t bv[4];
-            qkr::ldsm_x4<true>(bv, Vw + 16 * kk * TC_LD + 16 * q);
-            qkr::mma16816(o[2 * q], pa[kk], bv[0], bv[1]);
-            qkr::mma16816(o[2 * q + 1], pa[kk], bv[2], bv[3]);
-          }
-        }
-      }
-    }
-    // o[t][e]: row 16 rg + g + 8 (e >> 1), column 8 t + 2 c4 + (e & 1)
-    if (half == 1) {
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          X[(16 * rg + g + 8 * (e >> 1)) * XLD + 8 * t + 2 * c4 + (e & 1)] =
-              o[t][e];
-    }
-    __syncthreads();
-    if (half == 0 && live) {
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 16 * rg + g + 8 * (e >> 1);
-          const int col = 8 * t + 2 * c4 + (e & 1);
-          const int n = q0 + r, d = d0 + col;
-          if (n < N && d < D)
-            out_b[(size_t)n * H * D + d] =
-                __float2bfloat16_rn(__fadd_rn(o[t][e], X[r * XLD + col]));
-        }
-    }
-  }
-}
-
-// K2-bf16's dynamic shared memory at KS key tiles: the ring (the exchange
-// of the halves' outputs reuses a stage)
-long long tc_smem_bytes(int ks) { return qkr::tc_ring_bytes(ks); }
-
-// the tensor-core kernel for N keys, or nullptr past TC_MAX_KEYS
-const void* tc_kernel(int N) {
-  switch (qkr::tc_key_tiles(N)) {
-    case 4: return (const void*)qkr_attention_fwd_tc_kernel<4>;
-    case 8: return (const void*)qkr_attention_fwd_tc_kernel<8>;
-    case 13: return (const void*)qkr_attention_fwd_tc_kernel<13>;
-    case 16: return (const void*)qkr_attention_fwd_tc_kernel<16>;
-    default: return nullptr;
-  }
-}
-
 long long smem_bytes(int N) {
   return (long long)sizeof(float) * TQ * score_ld(N) + qkr::ring_bytes(TQ);
 }
 
-// K2's kernel for the stream dtype (is_bf16: the tensor-core form) at N
-// keys, its dynamic shared memory in *smem, with that memory and the
-// largest carveout set, so that two blocks' shared memory fit an SM;
-// nullptr where the runtime refuses (the error in *err) or N is past the
-// tensor-core tile's TC_MAX_KEYS (cudaErrorInvalidValue).
-const void* prepare_fwd(int N, int is_bf16, long long* smem,
-                        cudaError_t* err) {
-  const void* fwd = is_bf16 ? tc_kernel(N)
-                            : (const void*)qkr_attention_fwd_kernel<float>;
-  *smem = is_bf16 ? tc_smem_bytes(qkr::tc_key_tiles(N)) : smem_bytes(N);
-  if (fwd == nullptr) {
-    *err = cudaErrorInvalidValue;
-    return nullptr;
-  }
+// K2's kernel for stream dtype T with its dynamic shared memory at N keys
+// set, and the largest carveout, so that two blocks' shared memory fit an
+// SM; nullptr where the runtime refuses, the error in *err.
+template <typename T>
+const void* prepare_fwd(int N, cudaError_t* err) {
+  const void* fwd = (const void*)qkr_attention_fwd_kernel<T>;
   *err = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
+                              (int)smem_bytes(N));
   if (*err == cudaSuccess)
     *err = cudaFuncSetAttribute(fwd,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -331,43 +179,33 @@ const void* prepare_fwd(int N, int is_bf16, long long* smem,
   return *err == cudaSuccess ? fwd : nullptr;
 }
 
-int launch_fwd(const void* lhs, int lhs_per_head, const void* rhs,
-               const void* v, const float* s, void* out, int B, int N, int H,
-               int K, int D, float thd_pos, float sm_scale, int quantize,
-               int is_bf16, void* stream) {
-  long long smem;
+template <typename T>
+int launch_fwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
+               const float* s, T* out, int B, int N, int H, int K, int D,
+               float thd_pos, float sm_scale, int quantize, void* stream) {
   cudaError_t err;
-  const void* fwd = prepare_fwd(N, is_bf16, &smem, &err);
-  if (fwd == nullptr) return (int)err;
-  int ld_s = score_ld(N);
-  void* args[] = {(void*)&lhs, &lhs_per_head, (void*)&rhs, (void*)&v,
-                  (void*)&s, &out, &N, &H, &K, &D, &ld_s, &thd_pos,
-                  &sm_scale, &quantize};
-  // the tensor-core kernel takes no ld_s
-  void* tc_args[] = {(void*)&lhs, &lhs_per_head, (void*)&rhs, (void*)&v,
-                     (void*)&s, &out, &N, &H, &K, &D, &thd_pos, &sm_scale,
-                     &quantize};
-  err = cudaLaunchKernel(fwd, dim3((N + TQ - 1) / TQ, H, B), dim3(THREADS),
-                         is_bf16 ? tc_args : args, (size_t)smem,
-                         (cudaStream_t)stream);
-  return (int)err;
+  if (prepare_fwd<T>(N, &err) == nullptr) return (int)err;
+  dim3 grid((N + TQ - 1) / TQ, H, B);
+  qkr_attention_fwd_kernel<T>
+      <<<grid, THREADS, (size_t)smem_bytes(N), (cudaStream_t)stream>>>(
+          lhs, lhs_per_head, rhs, v, s, out, N, H, K, D, score_ld(N), thd_pos,
+          sm_scale, quantize);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// How K2 launches for N keys of depth K in a stream dtype (is_bf16 != 0
-// for bf16, the tensor-core form): returns its dynamic shared memory in
-// bytes, which the wrapper checks against the card's per-block limit, and
-// writes the blocks that one SM holds (the CUDA runtime's occupancy:
-// shared memory, threads and registers; 0 where the kernel cannot take
-// that shared memory, or, in bf16, N is past the tensor-core tile's 256
-// keys).
-extern "C" long long ofq_qkr_attention_fwd_launch(int N, int K, int is_bf16,
+// How K2 launches for N keys in a stream dtype (is_bf16 != 0 for bf16):
+// returns its dynamic shared memory in bytes, which the wrapper checks
+// against the card's per-block limit, and writes the blocks that one SM
+// holds (the CUDA runtime's occupancy: shared memory, threads and
+// registers; 0 where the kernel cannot take that shared memory).
+extern "C" long long ofq_qkr_attention_fwd_launch(int N, int is_bf16,
                                                   int* blocks) {
-  (void)K;
-  long long smem;
+  const long long smem = smem_bytes(N);
   cudaError_t err;
-  const void* fwd = prepare_fwd(N, is_bf16, &smem, &err);
+  const void* fwd = is_bf16 ? prepare_fwd<__nv_bfloat16>(N, &err)
+                            : prepare_fwd<float>(N, &err);
   if (fwd != nullptr)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fwd, THREADS,
                                                         (size_t)smem);
@@ -384,19 +222,19 @@ extern "C" int ofq_qkr_attention_fwd(const float* lhs, int lhs_per_head,
                                      int H, int K, int D, float thd_pos,
                                      float sm_scale, int quantize,
                                      void* stream) {
-  return launch_fwd(lhs, lhs_per_head, rhs, v, s, out, B, N, H, K, D, thd_pos,
-                    sm_scale, quantize, 0, stream);
+  return launch_fwd<float>(lhs, lhs_per_head, rhs, v, s, out, B, N, H, K, D,
+                           thd_pos, sm_scale, quantize, stream);
 }
 
-// The bf16 stream, on the tensor cores: lhs, rhs, v and out bf16 (s fp32);
-// N at most 256 (cudaErrorInvalidValue past it).
+// The bf16 stream: lhs, rhs, v and out bf16 (s fp32).
 extern "C" int ofq_qkr_attention_fwd_bf16(
     const __nv_bfloat16* lhs, int lhs_per_head, const __nv_bfloat16* rhs,
     const __nv_bfloat16* v, const float* s, __nv_bfloat16* out, int B, int N,
     int H, int K, int D, float thd_pos, float sm_scale, int quantize,
     void* stream) {
-  return launch_fwd(lhs, lhs_per_head, rhs, v, s, out, B, N, H, K, D, thd_pos,
-                    sm_scale, quantize, 1, stream);
+  return launch_fwd<__nv_bfloat16>(lhs, lhs_per_head, rhs, v, s, out, B, N,
+                                   H, K, D, thd_pos, sm_scale, quantize,
+                                   stream);
 }
 
 extern "C" const char* ofq_cuda_error_string(int err) {

@@ -63,9 +63,9 @@
 // as float4 (four contraction steps of one row, or four rows of one step).
 // The operands reach shared memory through cp.async rings (passes B, C: 3
 // stages of 16-deep chunks; pass A: 3 stages of 32-byte row chunks, 8 fp32
-// or 16 bf16 deep) of 16-byte copies,
-// 4-byte ones where a row's four values are not whole or not aligned, zero
-// past N, K and D, so the next chunks' copies run under this chunk's FMAs.
+// or 16 bf16 deep) of 16-byte copies, element copies where a row's 16
+// bytes are not whole or not aligned, zero past N, K and D, so the next
+// chunks' copies run under this chunk's FMAs.
 // The scratch rows are N rounded up to 4 apart (16-byte rows).  Pass A
 // keeps the score tile (64 x N) and half the dpq tile in shared memory with
 // its ring, ~111 KB at N = 198, so two blocks share an SM; a warp whose
@@ -123,8 +123,6 @@ namespace {
 using qkr::TQ;       // query rows per block (passes A and C)
 using qkr::THREADS;
 using qkr::WARPS;
-using qkr::ldsm_x4;
-using qkr::mma16816;
 using qkr::smem_u32;
 using qkr::st;
 constexpr int TK = 64;       // keys per tile
@@ -179,6 +177,31 @@ __device__ __forceinline__ void load_tile(bf16* dst, int lds,
     }
     *reinterpret_cast<uint4*>(dst + r * lds + c) = v;
   }
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  if (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p)));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, fp32) += a (16 x 16) b (16 x 8), bf16 operands
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // This warp's 16 x 32 part (rows wr.., columns wc..) of an output tile:
@@ -254,10 +277,9 @@ __device__ __forceinline__ void dpq_tc(const bf16* __restrict__ g,
 }
 
 // Row r of a pass-A tile, one warp: the softmax of its scores `row` (in
-// place: p; PROBS: `row` holds p already), and with its dpq in `drow`: pq
-// and dscores to the scratch (rows ldp apart), dp in drow, the row's ds
-// partial to ds_part_n.
-template <typename T, bool PROBS>
+// place: p), and with its dpq in `drow`: pq and dscores to the scratch
+// (rows ldp apart), dp in drow, the row's ds partial to ds_part_n.
+template <typename T>
 __device__ __forceinline__ void bwd_row(float* row, float* drow, int n, int N,
                                         const float* __restrict__ s,
                                         T* __restrict__ pq_u,
@@ -267,23 +289,21 @@ __device__ __forceinline__ void bwd_row(float* row, float* drow, int n, int N,
                                         int quantize) {
   const int lane = threadIdx.x % 32;
   // softmax, exactly as the forward kernel forms it
+  float mx = -CUDART_INF_F;
+  for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
+  mx = warp_max(mx);
   float sum = 0.0f;
-  if constexpr (!PROBS) {
-    float mx = -CUDART_INF_F;
-    for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
-    mx = warp_max(mx);
-    for (int m = lane; m < N; m += 32) {
-      const float e = expf(__fsub_rn(row[m], mx));
-      row[m] = e;
-      sum = __fadd_rn(sum, e);
-    }
-    sum = warp_sum(sum);
+  for (int m = lane; m < N; m += 32) {
+    const float e = expf(__fsub_rn(row[m], mx));
+    row[m] = e;
+    sum = __fadd_rn(sum, e);
   }
+  sum = warp_sum(sum);
   const float sn = fmaxf(s[n], 1e-5f);
   float ds_acc = 0.0f;
   float dot = 0.0f;
   for (int m = lane; m < N; m += 32) {
-    const float p = PROBS ? row[m] : __fdiv_rn(row[m], sum);
+    const float p = __fdiv_rn(row[m], sum);
     row[m] = p;
     const float dpq = drow[m];
     float pq = p;
@@ -310,15 +330,11 @@ __device__ __forceinline__ void bwd_row(float* row, float* drow, int n, int N,
   if (lane == 0) *ds_part_n = ds_acc;
 }
 
-// Pass A in bf16: per (query tile, head, batch row), KS key tiles of 16
-// (qkr::tc_key_tiles(N)).  p from K2-bf16's tensor-core score tile
-// (`qkr::tc_probs`), so the backward's p is the forward's bit for bit,
-// written to S [TQ][ld_s] (fp32); then the dpq halves and the rows.
-// Shared memory: the score ring, overlapped after it by S and one region
-// that holds P for half the rows (dpq, then dp) with dpq's bf16 chunks
-// after it (rows_smem_bytes).  Two blocks per SM at N = 198: at most 128
-// registers a thread.
-template <int KS>
+// Pass A in bf16: per (query tile, head, batch row).  Shared memory: S
+// [TQ][ld_s] (scores, then p), then one region that holds the score
+// tile's ring while the scores form and then P for half the rows (dpq,
+// then dp) with dpq's bf16 chunks after it (rows_smem_bytes).  Two blocks
+// per SM at N = 198: at most 128 registers a thread.
 __global__ void __launch_bounds__(THREADS, 2) qkr_bwd_rows_tc_kernel(
     const bf16* __restrict__ lhs, int lhs_per_head,
     const bf16* __restrict__ rhs, const bf16* __restrict__ v,
@@ -326,9 +342,7 @@ __global__ void __launch_bounds__(THREADS, 2) qkr_bwd_rows_tc_kernel(
     bf16* __restrict__ pq_out, bf16* __restrict__ dsc_out,
     float* __restrict__ ds_part, int N, int H, int K, int D, int ld_s,
     int ldp, float thd_pos, float sm_scale, int quantize) {
-  constexpr int H0 = qkr::tc_half0(KS);
   extern __shared__ __align__(16) float smem[];
-  __shared__ float red[4 * TQ];
   float* S = smem;
   float* P = S + TQ * ld_s;
 
@@ -341,24 +355,9 @@ __global__ void __launch_bounds__(THREADS, 2) qkr_bwd_rows_tc_kernel(
   const bf16* v_b = v + (size_t)b * N * H * D + (size_t)h * D;
   const bf16* g_b = g + (size_t)b * N * H * D + (size_t)h * D;
 
-  float p[2 * H0][4];
-  qkr::tc_probs<KS>(p, lhs_b, lhs_row, q0, rhs_b, (size_t)H * K, N, K,
-                    sm_scale, reinterpret_cast<bf16*>(smem), red, false,
-                    [](bf16*) {});
-  {
-    // p[t][e]: row 16 (warp % 4) + lane / 4 + 8 (e >> 1), key 16 H0 (warp /
-    // 4) + 8 t + 2 (lane % 4) + (e & 1)
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int r = 16 * (warp % 4) + (lane >> 2);
-    const int key0 = 16 * H0 * (warp / 4) + 2 * (lane & 3);
-#pragma unroll
-    for (int t = 0; t < 2 * H0; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = key0 + 8 * t + (e & 1);
-        if (m < N) S[(r + 8 * (e >> 1)) * ld_s + m] = p[t][e];
-      }
-  }
+  // K2-bf16's score tile, so p is the forward's p bit for bit
+  qkr::score_tile<bf16>(S, ld_s, lhs_b, lhs_row, q0, rhs_b, (size_t)H * K, N,
+                        K, sm_scale, reinterpret_cast<bf16*>(P));
   __syncthreads();
 
   const size_t unit = (size_t)b * H + h;
@@ -372,11 +371,9 @@ __global__ void __launch_bounds__(THREADS, 2) qkr_bwd_rows_tc_kernel(
     __syncthreads();
     for (int r = r0 + warp; r < r0 + TQ / 2; r += WARPS)
       if (q0 + r < N)
-        bwd_row<bf16, true>(S + r * ld_s, P + (r - r0) * ld_s, q0 + r, N,
-                            s, pq_out + unit * N * ldp,
-                            dsc_out + unit * N * ldp, ldp,
-                            ds_part + unit * N + q0 + r, thd_pos, sm_scale,
-                            quantize);
+        bwd_row(S + r * ld_s, P + (r - r0) * ld_s, q0 + r, N, s,
+                pq_out + unit * N * ldp, dsc_out + unit * N * ldp, ldp,
+                ds_part + unit * N + q0 + r, thd_pos, sm_scale, quantize);
     __syncthreads();
   }
 }
@@ -443,11 +440,9 @@ __global__ void __launch_bounds__(THREADS, 2) qkr_bwd_rows_f32_kernel(
     __syncthreads();
     for (int r = r0 + warp; r < r0 + TQ / 2; r += WARPS)
       if (q0 + r < N)
-        bwd_row<float, false>(S + r * ld_s, P + (r - r0) * ld_s, q0 + r, N,
-                              s, pq_out + unit * N * ldp,
-                              dsc_out + unit * N * ldp, ldp,
-                              ds_part + unit * N + q0 + r, thd_pos, sm_scale,
-                              quantize);
+        bwd_row(S + r * ld_s, P + (r - r0) * ld_s, q0 + r, N, s,
+                pq_out + unit * N * ldp, dsc_out + unit * N * ldp, ldp,
+                ds_part + unit * N + q0 + r, thd_pos, sm_scale, quantize);
     __syncthreads();
   }
 }
@@ -730,21 +725,14 @@ int rows_ld(int N) {
 template <typename T>
 long long rows_smem_bytes(int N) {
   const long long ld_s = rows_ld<T>(N);
-  // the fp32 score (bf16: p) tile, the score tile's ring, and half the
-  // rows of dpq with its own ring (fp32) or tensor-core chunks (bf16).  The
-  // fp32 ring lies after the tile (its scores are stored sweep by sweep);
-  // the bf16 one (the tensor-core tile's, at N's bucket of key tiles)
-  // under it (p is stored after it).
-  const long long tile = 4LL * TQ * ld_s;
-  if (std::is_same<T, bf16>::value) {
-    const long long ring = qkr::tc_ring_bytes(qkr::tc_key_tiles(N));
-    const long long rest =
-        tile + 4LL * (TQ / 2) * ld_s + 2LL * (TQ / 2 + DPQ_KEYS) * LD_ROW;
-    return ring > rest ? ring : rest;
-  }
-  const long long ring = qkr::ring_bytes(TQ);
-  const long long half = 4LL * (TQ / 2) * ld_s + qkr::ring_bytes(TQ / 2);
-  return tile + (half > ring ? half : ring);
+  // the score tile's ring, then half the rows of dpq with its own
+  // (fp32: the row product's ring; bf16: the tensor cores' chunks)
+  const long long scores = qkr::ring_bytes(TQ);
+  const long long half =
+      4LL * (TQ / 2) * ld_s + (std::is_same<T, bf16>::value
+                                   ? 2LL * (TQ / 2 + DPQ_KEYS) * LD_ROW
+                                   : (long long)qkr::ring_bytes(TQ / 2));
+  return 4LL * TQ * ld_s + (half > scores ? half : scores);
 }
 
 // the scratch's row stride: N rounded up to 4 in fp32 and to 8 in bf16, so
@@ -754,30 +742,14 @@ int scratch_ld(int N) {
   return std::is_same<T, bf16>::value ? (N + 7) / 8 * 8 : (N + 3) / 4 * 4;
 }
 
-// pass A's tensor-core kernel at N keys, or nullptr past qkr::TC_MAX_KEYS
-const void* rows_tc_kernel(int N) {
-  switch (qkr::tc_key_tiles(N)) {
-    case 4: return (const void*)qkr_bwd_rows_tc_kernel<4>;
-    case 8: return (const void*)qkr_bwd_rows_tc_kernel<8>;
-    case 13: return (const void*)qkr_bwd_rows_tc_kernel<13>;
-    case 16: return (const void*)qkr_bwd_rows_tc_kernel<16>;
-    default: return nullptr;
-  }
-}
-
 // Pass A's kernel for stream dtype T, with its dynamic shared memory at N
 // keys set and the largest carveout, so that two blocks' shared memory fit
-// an SM; nullptr where the runtime refuses, the error in *err (bf16 past
-// qkr::TC_MAX_KEYS keys: cudaErrorInvalidValue).
+// an SM; nullptr where the runtime refuses, the error in *err.
 template <typename T>
 const void* prepare_rows(int N, cudaError_t* err) {
   const void* rows = std::is_same<T, bf16>::value
-                         ? rows_tc_kernel(N)
+                         ? (const void*)qkr_bwd_rows_tc_kernel
                          : (const void*)qkr_bwd_rows_f32_kernel;
-  if (rows == nullptr) {
-    *err = cudaErrorInvalidValue;
-    return nullptr;
-  }
   *err = cudaFuncSetAttribute(rows,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)rows_smem_bytes<T>(N));
@@ -800,18 +772,13 @@ int launch_bwd(const T* lhs, int lhs_per_head, const T* rhs, const T* v,
   const int ldp = scratch_ld<T>(N);
   const size_t smem = (size_t)rows_smem_bytes<T>(N);
   cudaError_t err;
-  const void* rows = prepare_rows<T>(N, &err);
-  if (rows == nullptr) return (int)err;
+  if (prepare_rows<T>(N, &err) == nullptr) return (int)err;
   const int q_tiles = (N + TQ - 1) / TQ;
   const dim3 rows_grid(q_tiles, H, B);
   if constexpr (kBf16) {
-    int n = N, hh = H, k = K, d = D, lds = ld_s, lp = ldp, qz = quantize;
-    float thd = thd_pos, sm = sm_scale;
-    void* args[] = {(void*)&lhs, &lhs_per_head, (void*)&rhs, (void*)&v,
-                    (void*)&s, (void*)&g, &pq_scratch, &dsc_scratch,
-                    &ds_part, &n, &hh, &k, &d, &lds, &lp, &thd, &sm, &qz};
-    err = cudaLaunchKernel(rows, rows_grid, dim3(THREADS), args, smem, strm);
-    if (err != cudaSuccess) return (int)err;
+    qkr_bwd_rows_tc_kernel<<<rows_grid, THREADS, smem, strm>>>(
+        lhs, lhs_per_head, rhs, v, s, g, pq_scratch, dsc_scratch, ds_part, N,
+        H, K, D, ld_s, ldp, thd_pos, sm_scale, quantize);
   } else {
     qkr_bwd_rows_f32_kernel<<<rows_grid, THREADS, smem, strm>>>(
         lhs, lhs_per_head, rhs, v, s, g, pq_scratch, dsc_scratch, ds_part, N,
@@ -864,7 +831,7 @@ extern "C" long long ofq_qkr_attention_bwd_launch(int N, int is_bf16,
   const long long smem =
       is_bf16 ? rows_smem_bytes<bf16>(N) : rows_smem_bytes<float>(N);
   *ldp = is_bf16 ? scratch_ld<bf16>(N) : scratch_ld<float>(N);
-  *stages = is_bf16 ? qkr::TC_STAGES : A_STAGES;
+  *stages = A_STAGES;
   cudaError_t err;
   const void* rows =
       is_bf16 ? prepare_rows<bf16>(N, &err) : prepare_rows<float>(N, &err);

@@ -27,7 +27,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -376,240 +375,6 @@ __device__ __forceinline__ void pq_v(const float* P, int ld_p,
       }
     }
   }
-}
-
-// ---- the score tile on the tensor cores: K2-bf16 and K3-bf16's pass A ----
-//
-// S = lhs_tile rhs^T for the 64 query rows of a block and every key, bf16
-// x bf16 -> fp32 on `mma.sync` m16n8k16 through ldmatrix; then s = S *
-// sm_scale and each row's softmax in registers (`tc_softmax`), so p stays
-// in the S accumulators.  256 threads: warp w takes the 16 rows 16 (w %
-// 4) .. and the key half w / 4, the key tiles of 16 [0, H0) or [H0, KS)
-// (KS = tc_key_tiles(N), keys past N zero); the two halves' row maxima and
-// sums meet in shared memory, a row's sum as half 0's + half 1's.  The
-// contraction goes in chunks of TC_KC = 64 through a two-stage cp.async
-// ring: a stage holds the chunk of the 64 lhs rows and of the 16 KS rhs
-// rows, TC_LD = 72 bf16 (144 bytes) apart, so that ldmatrix's eight rows
-// fall on distinct banks.
-//
-// The sums: the products are exact (bf16 operands); the tensor cores add
-// them 16 at a time (a k16 step) to the accumulator, all aligned to the
-// largest exponent and cut toward zero (modelled by chip_smoke.mma_sum).
-// With TC_PROMOTE each 64-deep chunk's chain starts from zero and the
-// chunks' sums are added with __fadd_rn, a chunked round-to-nearest order;
-// without it one chain runs over all of K.
-constexpr int TC_KC = 64;          // contraction chunk (4 k16 steps)
-constexpr int TC_LD = TC_KC + 8;   // a stage row, in bf16
-constexpr int TC_STAGES = 2;
-constexpr int TC_MAX_KEYS = 256;   // the largest bucket: 16 key tiles
-constexpr bool TC_PROMOTE = false;
-
-// the key tiles of 16 the kernel is instantiated for at N keys (0: more
-// than TC_MAX_KEYS)
-__host__ __device__ constexpr int tc_key_tiles(int N) {
-  return N <= 64 ? 4 : N <= 128 ? 8 : N <= 208 ? 13 : N <= 256 ? 16 : 0;
-}
-// key tiles of half 0
-__host__ __device__ constexpr int tc_half0(int ks) { return (ks + 1) / 2; }
-__host__ __device__ constexpr int tc_stage_elems(int ks) {
-  return (TQ + 16 * ks) * TC_LD;
-}
-__host__ __device__ constexpr int tc_ring_bytes(int ks) {
-  return TC_STAGES * tc_stage_elems(ks) * (int)sizeof(bf16);
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  if (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p)));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p)));
-}
-
-// d (16 x 8, fp32) += a (16 x 16) b (16 x 8), bf16 operands
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// stage `stg` <- chunk c of the scores' operands: the lhs rows q0 .. q0 +
-// 63 (a_ld apart) and the rhs rows 0 .. 16 KS - 1 (b_ld apart), columns c
-// TC_KC ..; zero past N and K
-template <int KS>
-__device__ __forceinline__ void tc_load_chunk(bf16* stg,
-                                              const bf16* __restrict__ a,
-                                              size_t a_ld, int q0,
-                                              const bf16* __restrict__ b,
-                                              size_t b_ld, int N, int K,
-                                              int c) {
-  load_rows<bf16, TQ, TC_KC, THREADS>(stg, TC_LD, a, a_ld, q0, N, c * TC_KC,
-                                      K);
-  load_rows<bf16, 16 * KS, TC_KC, THREADS>(stg + TQ * TC_LD, TC_LD, b, b_ld, 0,
-                                           N, c * TC_KC, K);
-}
-
-// This warp's scores (rows 16 rg .., key half `half`) += one chunk at
-// `stg`.  s[t][0..1]: row 16 rg + lane / 4, keys key0 + 8 t + 2 (lane % 4)
-// + 0..1 (key0 = 16 H0 half); s[t][2..3]: the row 8 below.
-template <int KS>
-__device__ __forceinline__ void tc_chunk(float (&s)[2 * tc_half0(KS)][4],
-                                         const bf16* stg, int rg, int half) {
-  constexpr int H0 = tc_half0(KS);
-  constexpr int G = TC_PROMOTE ? 2 : H0;  // key tiles a pass over the chunk
-  const int lane = threadIdx.x % 32, i = lane >> 3, j = lane & 7;
-  const int tiles = half ? KS - H0 : H0;
-  const bf16* As = stg + (16 * rg + (lane & 15)) * TC_LD + (lane >> 4) * 8;
-  const bf16* Bs =
-      stg + (TQ + 16 * H0 * half + (i >> 1) * 8 + j) * TC_LD + (i & 1) * 8;
-#pragma unroll
-  for (int p0 = 0; p0 < H0; p0 += G) {
-    float t[TC_PROMOTE ? 2 * G : 1][4];  // a chunk's sums from zero
-    if constexpr (TC_PROMOTE) {
-#pragma unroll
-      for (int q = 0; q < 2 * G; ++q) t[q][0] = t[q][1] = t[q][2] = t[q][3] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < TC_KC / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4<false>(a, As + 16 * kk);
-#pragma unroll
-      for (int p = p0; p < p0 + G && p < H0; ++p) {
-        if (p < tiles) {
-          uint32_t b[4];
-          ldsm_x4<false>(b, Bs + 16 * p * TC_LD + 16 * kk);
-          if constexpr (TC_PROMOTE) {
-            mma16816(t[2 * (p - p0)], a, b[0], b[1]);
-            mma16816(t[2 * (p - p0) + 1], a, b[2], b[3]);
-          } else {
-            mma16816(s[2 * p], a, b[0], b[1]);
-            mma16816(s[2 * p + 1], a, b[2], b[3]);
-          }
-        }
-      }
-    }
-    if constexpr (TC_PROMOTE) {
-#pragma unroll
-      for (int p = p0; p < p0 + G && p < H0; ++p)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[2 * p][e] = __fadd_rn(s[2 * p][e], t[2 * (p - p0)][e]);
-          s[2 * p + 1][e] = __fadd_rn(s[2 * p + 1][e], t[2 * (p - p0) + 1][e]);
-        }
-    }
-  }
-}
-
-// The softmax of this warp's rows over both key halves, in place: s = p =
-// e / sum, e = expf(s sm_scale - max), 0 at keys >= N; a lane sums its
-// values in order of t then of the pair, then the quad ((l0 + l1) + (l2 +
-// l3)), then the halves (half 0's + half 1's).  red: shared [4][TQ] floats
-// (the halves' maxima, then their sums).  Every thread of the block calls
-// it: two barriers.
-template <int KS>
-__device__ __forceinline__ void tc_softmax(float (&s)[2 * tc_half0(KS)][4],
-                                           int rg, int half, int N,
-                                           float sm_scale, float* red) {
-  constexpr int H0 = tc_half0(KS);
-  const int lane = threadIdx.x % 32, c4 = lane & 3;
-  const int row = 16 * rg + (lane >> 2);  // and row + 8
-  const int key0 = 16 * H0 * half + 2 * c4;
-  float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int t = 0; t < 2 * H0; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool live = key0 + 8 * t + (e & 1) < N;
-      s[t][e] = live ? __fmul_rn(s[t][e], sm_scale) : -INFINITY;
-      m[e >> 1] = fmaxf(m[e >> 1], s[t][e]);
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
-    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
-    if (c4 == 0) red[half * TQ + row + 8 * h] = m[h];
-  }
-  __syncthreads();
-  float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    m[h] = fmaxf(red[row + 8 * h], red[TQ + row + 8 * h]);
-#pragma unroll
-  for (int t = 0; t < 2 * H0; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool live = key0 + 8 * t + (e & 1) < N;
-      s[t][e] = live ? expf(__fsub_rn(s[t][e], m[e >> 1])) : 0.0f;
-      sum[e >> 1] = __fadd_rn(sum[e >> 1], s[t][e]);
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    sum[h] = __fadd_rn(sum[h], __shfl_xor_sync(0xffffffffu, sum[h], 1));
-    sum[h] = __fadd_rn(sum[h], __shfl_xor_sync(0xffffffffu, sum[h], 2));
-    if (c4 == 0) red[(2 + half) * TQ + row + 8 * h] = sum[h];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    sum[h] = __fadd_rn(red[2 * TQ + row + 8 * h], red[3 * TQ + row + 8 * h]);
-#pragma unroll
-  for (int t = 0; t < 2 * H0; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool live = key0 + 8 * t + (e & 1) < N;
-      s[t][e] = live ? __fdiv_rn(s[t][e], sum[e >> 1]) : 0.0f;
-    }
-}
-
-// The score tile's probabilities for the 64 query rows from q0 against
-// every key (see above): p into `s` (this warp's part), through the ring
-// at `buf` (tc_ring_bytes(KS)); chunk `kc` (past the scores, when
-// extra_load is set) is loaded by extra_load(stage) beside the last
-// score chunk (K2's first v tile).  A warp whose rows all lie past N skips
-// its products.
-template <int KS, class Extra>
-__device__ __forceinline__ void tc_probs(float (&s)[2 * tc_half0(KS)][4],
-                                         const bf16* __restrict__ a,
-                                         size_t a_ld, int q0,
-                                         const bf16* __restrict__ b,
-                                         size_t b_ld, int N, int K,
-                                         float sm_scale, bf16* buf,
-                                         float* red, bool extra,
-                                         Extra extra_load) {
-  const int warp = threadIdx.x / 32, rg = warp % 4, half = warp / 4;
-  const bool live = q0 + 16 * rg < N;
-  const int kc = (K + TC_KC - 1) / TC_KC;
-#pragma unroll
-  for (int t = 0; t < 2 * tc_half0(KS); ++t)
-    s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.0f;
-  int chunk = 0;  // the chunk compute() applies, in order
-  ring<TC_STAGES>(
-      kc + (extra ? 1 : 0),
-      [&](int c, int st) {
-        bf16* stg = buf + st * tc_stage_elems(KS);
-        if (c < kc) tc_load_chunk<KS>(stg, a, a_ld, q0, b, b_ld, N, K, c);
-        else extra_load(stg);
-      },
-      [&](int st) {
-        if (chunk++ < kc && live)
-          tc_chunk<KS>(s, buf + st * tc_stage_elems(KS), rg, half);
-      });
-  tc_softmax<KS>(s, rg, half, N, sm_scale, red);
 }
 
 }  // namespace qkr

@@ -30,6 +30,9 @@ Two kernels, each with its plain PyTorch version beside it:
     (`mma.sync`, exact bf16 operands, fp32 sums); in fp32 on the CUDA
     cores, register-tiled, each output one FMA chain in ascending
     contraction order.
+K2 and K3 form the scores with one device function, register-tiled on
+the CUDA cores in both streams (`csrc/qkr_scores.cuh`), so K3's
+probabilities are K2's bit for bit.
 A wrapper launches its kernel on CUDA tensors and runs the plain version on
 CPU tensors.  `quantized_attention_core` reaches both through `_AttnCore`,
 a `torch.autograd.Function`; a wrapper called directly on a tensor that
@@ -52,27 +55,6 @@ _MAX_SMEM = 232448
 # an H100 SM: 228 KB of shared memory (1 KB of each block's reserved by
 # the system) and 2048 threads
 _SM_SMEM, _SM_THREADS = 233472, 2048
-
-
-# the bf16 stream's tensor-core score tile (csrc/qkr_scores.cuh) holds a
-# row's keys in registers: at most 256, in buckets of 16-key tiles
-TC_MAX_KEYS = 256
-
-
-def tc_key_tiles(N):
-    """The 16-key tiles of the tensor-core score tile's instance at N keys
-    (`qkr::tc_key_tiles`); 0 past TC_MAX_KEYS."""
-    for tiles in (4, 8, 13, 16):
-        if N <= 16 * tiles:
-            return tiles
-    return 0
-
-
-def _tc_keys_check(N, dt, what):
-    if dt == torch.bfloat16 and not tc_key_tiles(N):
-        raise ValueError(
-            f"{what}: the bf16 stream's tensor-core score tile holds at most "
-            f"{TC_MAX_KEYS} keys a row, got N={N}")
 
 
 def blocks_per_sm(smem, threads):
@@ -210,17 +192,17 @@ def stream_dtype(t):
 
 
 @functools.lru_cache(maxsize=None)
-def fwd_launch_config(N, K, bf16):
-    """(dynamic shared memory in bytes, blocks per SM) of K2 at N keys of
-    depth K in fp32 or (bf16=True) the bf16 stream, as the built library
-    reports them (`ofq_qkr_attention_fwd_launch`; blocks per SM: the CUDA
-    runtime's occupancy, registers counted, 0 where the shared memory does
-    not fit a block)."""
+def fwd_launch_config(N, bf16):
+    """(dynamic shared memory in bytes, blocks per SM) of K2 at N keys in
+    fp32 or (bf16=True) the bf16 stream, as the built library reports them
+    (`ofq_qkr_attention_fwd_launch`; blocks per SM: the CUDA runtime's
+    occupancy, registers counted, 0 where the shared memory does not fit
+    a block)."""
     blocks = ctypes.c_int()
     fn = _build.load("fused_attention").ofq_qkr_attention_fwd_launch
     fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    smem = fn(N, K, int(bf16), ctypes.byref(blocks))
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    smem = fn(N, int(bf16), ctypes.byref(blocks))
     return smem, blocks.value
 
 
@@ -238,8 +220,7 @@ def _launch(lhs, rhs, v, s, bits, sm_scale, quantize):
                rhs=(rhs, (B, N, H, K), dt), v=(v, (B, N, H, d), dt),
                s=(s, (N,)))
     lib = _build.load("fused_attention")
-    _tc_keys_check(N, dt, "qkr_attention_fwd")
-    _smem_check(fwd_launch_config(N, K, dt == torch.bfloat16)[0], N,
+    _smem_check(fwd_launch_config(N, dt == torch.bfloat16)[0], N,
                 "qkr_attention_fwd")
     fn = getattr(lib, "ofq_qkr_attention_fwd" + _LAUNCHERS[dt])
     fn.restype = ctypes.c_int
@@ -279,25 +260,22 @@ def bwd_launch_plan(N, bf16):
     first three equal and the runtime's blocks per SM at most the
     fourth."""
     tq, threads = 64, 256
+    # the score tile's ring (csrc/qkr_scores.cuh): 3 stages of 48-byte
+    # rows, the 64 query rows and a sweep of 224 keys
+    stages, keys, row_bytes = 3, 224, 48
+
+    def ring(rows):
+        return stages * (rows + keys) * row_bytes
+
     if bf16:
-        # the tensor-core score tile's ring (csrc/qkr_scores.cuh): 2 stages
-        # of the 64 lhs rows and 16 KS rhs rows, 144-byte rows
-        stages = 2
-        scores = stages * (tq + 16 * tc_key_tiles(N)) * 144
         ld_s = -(-N // 32) * 32 + 1
         half = 4 * (tq // 2) * ld_s + 2 * (tq // 2 + 128) * 40
         ldp = -(-N // 8) * 8
     else:
-        # the CUDA-core score tile's ring: 3 stages of 48-byte rows, the 64
-        # query rows and a sweep of 224 keys (dpq's: 32 rows)
-        stages, keys, row_bytes = 3, 224, 48
-        scores = stages * (tq + keys) * row_bytes
         ld_s = -(-N // 4) * 4
-        half = 4 * (tq // 2) * ld_s + stages * (tq // 2 + keys) * row_bytes
+        half = 4 * (tq // 2) * ld_s + ring(tq // 2)
         ldp = ld_s
-    tile = 4 * tq * ld_s  # the fp32 score (bf16: p) tile
-    # the bf16 ring overlaps the tile (p is written after it), fp32's not
-    smem = max(scores, tile + half) if bf16 else tile + max(scores, half)
+    smem = 4 * tq * ld_s + max(ring(tq), half)
     return smem, ldp, stages, blocks_per_sm(smem, threads)
 
 
@@ -323,7 +301,6 @@ def _launch_bwd(lhs, rhs, v, s, g, bits, sm_scale, quantize):
                rhs=(rhs, (B, N, H, K), dt), v=(v, (B, N, H, d), dt),
                s=(s, (N,)), g=(g, (B, N, H, d), dt))
     lib = _build.load("fused_attention_bwd")
-    _tc_keys_check(N, dt, "qkr_attention_bwd")
     smem, ldp = bwd_launch_config(N, dt == torch.bfloat16)[:2]
     _smem_check(smem, N, "qkr_attention_bwd")
     fn = getattr(lib, "ofq_qkr_attention_bwd" + _LAUNCHERS[dt])

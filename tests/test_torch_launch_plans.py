@@ -37,17 +37,9 @@ def test_mirrors_repeat_the_sources_constants():
           **_constants("qkr_scores.cuh")}
     assert {name: k3[name] for name in (
         "TQ", "TK", "THREADS", "A_STAGES", "A_TN", "CHUNK_BYTES",
-        "ROW_BYTES", "DPQ_KEYS", "LD_ROW", "TC_KC", "TC_STAGES",
-        "TC_MAX_KEYS")} == dict(
+        "ROW_BYTES", "DPQ_KEYS", "LD_ROW")} == dict(
         TQ=64, TK=64, THREADS=256, A_STAGES=3, A_TN=7, CHUNK_BYTES=32,
-        ROW_BYTES=48, DPQ_KEYS=128, LD_ROW=40, TC_KC=64, TC_STAGES=2,
-        TC_MAX_KEYS=fa.TC_MAX_KEYS)
-    # the tensor-core tile's buckets of 16-key tiles, as tc_key_tiles
-    text = (CSRC / "qkr_scores.cuh").read_text()
-    buckets = [(int(n), int(t)) for n, t in re.findall(
-        r"N <= (\d+) \? (\d+)", text)]
-    assert buckets == [(16 * t, t) for t in (4, 8, 13, 16)]
-    assert [fa.tc_key_tiles(n) for n, _ in buckets] == [4, 8, 13, 16]
+        ROW_BYTES=48, DPQ_KEYS=128, LD_ROW=40)
     win = _constants("window_attention.cu")
     assert {name: win[name] for name in (
         "N", "D", "NP", "TC_MAX_WARPS", "MAX_SMEM", "K6_STAGES",
@@ -67,11 +59,10 @@ def test_k3_fp32_pass_a_fits_two_blocks_at_deit_s():
 
 
 def test_k3_bf16_plan_at_deit_s():
-    """The bf16 form keeps its pass A's 99 200 bytes (the tensor-core score
-    tile's two-stage ring, 2 x (64 + 208) rows of 144 bytes, lies under
-    the p tile and the dpq half) and its scratch rows of N rounded to 8."""
-    assert 2 * (64 + 208) * 144 == 78336 < 99200
-    assert fa.bwd_launch_plan(198, bf16=True) == (99200, 200, 2, 2)
+    """The bf16 form keeps its pass A's 99 200 bytes (the score tile's
+    three-stage ring fits where tile_nt's chunks did) and its scratch rows
+    of N rounded to 8."""
+    assert fa.bwd_launch_plan(198, bf16=True) == (99200, 200, 3, 2)
 
 
 def test_k3_scratch_rows_are_whole_16_byte_rows():

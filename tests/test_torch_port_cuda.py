@@ -658,65 +658,17 @@ def test_window_launch_plans_are_the_librarys(dev, what, H, P):
 @pytest.mark.parametrize("N", [12, 50, 65, 197, 198, 384])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_k3_launch_plan_is_the_librarys(dev, N, bf16):
-    """The mirror's shared memory, scratch stride and stages are the
-    library's; the runtime's blocks per SM are at least one and at most
-    the mirror's, and 0 in bf16 past the tensor-core tile's keys (the
-    wrapper refuses such an N)."""
     plan, config = fa.bwd_launch_plan(N, bf16), fa.bwd_launch_config(N, bf16)
     assert config[:3] == plan[:3]
-    if bf16 and N > fa.TC_MAX_KEYS:
-        assert config[3] == 0
-    else:
-        assert 1 <= config[3] <= plan[3]
+    assert 1 <= config[3] <= plan[3]
 
 
 @pytest.mark.parametrize("bf16", [False, True])
 def test_k2_holds_two_blocks_at_deit_s(dev, bf16):
-    """K2 at DeiT-S's N = 198, K = 384 (the runtime's occupancy, registers
+    """K2 at DeiT-S's N = 198 (the runtime's occupancy, registers
     counted): two blocks of 256 threads per SM in both streams."""
-    smem, blocks = fa.fwd_launch_config(198, 384, bf16)
+    smem, blocks = fa.fwd_launch_config(198, bf16)
     assert smem <= 113 * 1024 and blocks == 2
-
-
-def test_bf16_kernels_refuse_keys_past_the_tile(dev):
-    """The bf16 stream's tensor-core score tile holds at most 256 keys a
-    row: K2 and K3 refuse more on the card, before any launch."""
-    N = fa.TC_MAX_KEYS + 1
-    lhs, rhs, v, s = (t.to(torch.bfloat16) if i < 3 else t for i, t in
-                      enumerate(_k2_args(dev, 1, N, 1, 16, 8, True)))
-    before = fa.qkr_attention_fwd.launches, fa.qkr_attention_bwd.launches
-    with pytest.raises(ValueError, match="at most 256 keys"):
-        fa.qkr_attention_fwd(lhs, rhs, v, s, 2, 0.5, True)
-    with pytest.raises(ValueError, match="at most 256 keys"):
-        fa.qkr_attention_bwd(lhs, rhs, v, s, v.clone(), 2, 0.5, True)
-    assert (fa.qkr_attention_fwd.launches,
-            fa.qkr_attention_bwd.launches) == before
-
-
-@pytest.mark.parametrize("N,shared", [(70, True), (198, True), (198, False),
-                                      (256, True)])
-def test_k2_bf16_is_the_emulated_tile(dev, N, shared):
-    """K2-bf16's output and the pq that K3-bf16's pass A writes are the
-    tensor-core tile emulated with the card's accumulator
-    (`chip_smoke.emulate_qkr_tc` in the built accumulation) bit for bit,
-    LSQ on and off."""
-    lhs, rhs, v, s = _k2_args(dev, 2, N, 6, 384 if shared else 64, 64,
-                              shared)
-    lhs, rhs, v = (t.to(torch.bfloat16) for t in (lhs, rhs, v))
-    g = torch.randn(2, N, 6, 64, generator=torch.Generator().manual_seed(3))
-    g = g.to(dev, torch.bfloat16)
-    from ofq_tpu_torch.ops import _build
-    for quantize in (True, False):
-        args = (lhs, rhs, v, s, 2, 0.125, quantize)
-        out = chip_smoke.raw_k2(_build.load("fused_attention"), args)()
-        pq_k3 = chip_smoke.raw_k3(_build.load("fused_attention_bwd"),
-                                  (lhs, rhs, v, s, g, *args[4:]))()[4]
-        emu, pq = chip_smoke.emulate_qkr_tc(*args,
-                                            promote=chip_smoke.tc_promote())
-        torch.cuda.synchronize()
-        assert torch.equal(out.view(torch.int16), emu.view(torch.int16))
-        assert torch.equal(pq_k3[..., :N].contiguous().view(torch.int16),
-                           pq.contiguous().view(torch.int16))
 
 
 def test_k3_fp32_pass_a_holds_two_blocks_at_deit_s(dev):

@@ -13,10 +13,12 @@ CPU.
    only) plus 1e-5 * (1 + |ref|) (two fp32 summation orders, and a
    probability within an ulp of an LSQ boundary falling on the other
    side); ds rtol 1e-4 with a floor of 1e-4 of its largest entry.
-2. The tensor-core tile emulated with the H100's accumulator
-   (`chip_smoke.emulate_qkr_tc`, built on `chip_smoke.mma_sum`; the card
-   run's `[K2 emulated]` holds K2-bf16's and K3-bf16's bits to it) in
-   each accumulation tried, one chain over K and 64-deep chunks from zero
+2. The tensor-core form of K2-bf16's score tile that was measured on the
+   H100 and left out (`PERF.md` section 7: the bf16 whole-step gradient
+   rule refused it), emulated with the H100's `mma.sync` accumulator
+   (`emulate_qkr_tc` below, built on `chip_smoke.mma_sum`; on the card
+   K2-bf16's output and K3-bf16's pq matched it bit for bit) in each
+   accumulation tried, one chain over K and a chain per 64-deep chunk
    added in fp32, held to K2's gate (`chip_smoke.k2_gate`: at most 0.1 %
    of the elements outside one bf16 ulp plus 1e-4 * (1 + |ref|), none
    farther than one LSQ level) against the plain version; the gate trips
@@ -96,6 +98,81 @@ def test_plain_versions_match_pallas(N, shared, quantize, dtype):
         assert not ds.any() and not np.any(ds_j)
 
 
+def _tc_key_tiles(N):
+    """The tile's 16-key tiles at N keys: the smallest of its buckets (4,
+    8, 13, 16) that holds N."""
+    return next(t for t in (4, 8, 13, 16) if N <= 16 * t)
+
+
+def _lane_sums(e, h0):
+    """A row's sum over one key half of the tensor-core score tile: e holds
+    the half's 16 h0 keys on its last axis, key 8 t + 2 c + j in lane c's
+    t-th pair; each lane sums its values in order of t then j (fp32), then
+    the quad ((l0 + l1) + (l2 + l3))."""
+    lanes = e.reshape(*e.shape[:-1], 2 * h0, 4, 2).transpose(-3, -2)
+    lanes = lanes.reshape(*e.shape[:-1], 4, 4 * h0)
+    part = torch.zeros(lanes.shape[:-1], dtype=torch.float32,
+                       device=e.device)
+    for i in range(4 * h0):
+        part = part + lanes[..., i]
+    return (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+
+
+def tc_scores(lhs, rhs, promote=False):
+    """The tensor-core tile's fp32 sums lhs . rhs^T, (B, H, N, N), by
+    `chip_smoke.mma_sum` in k16 steps over K: one chain, or (promote) each
+    64-deep chunk from zero and the chunks added in fp32 in order."""
+    B, N, H, K = rhs.shape
+    lhs_u = (lhs[:, None].expand(B, H, N, K) if lhs.dim() == 3
+             else lhs.permute(0, 2, 1, 3))
+    a, b = lhs_u.unsqueeze(3), rhs.permute(0, 2, 1, 3).unsqueeze(2)
+    if not promote:
+        return chip_smoke.mma_sum(a, b)
+    acc = None
+    for k0 in range(0, K, 64):
+        part = chip_smoke.mma_sum(a[..., k0:k0 + 64], b[..., k0:k0 + 64])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def emulate_qkr_tc(lhs, rhs, v, s, bits, sm_scale, quantize, promote=False):
+    """K2-bf16 on the tensor cores as it was measured: 256 threads, warp w
+    the 16 query rows 16 (w % 4) .. and key half w / 4; its sums by
+    `chip_smoke.mma_sum`: the scores in k16 steps over K (promote:
+    each 64-deep chunk from zero, the chunks added in fp32), times
+    sm_scale in fp32; the softmax over the keys in two halves (16 h0 keys
+    and the rest of 16 KS, KS = _tc_key_tiles(N), h0 = (KS + 1) // 2)
+    with keys >= N at -inf, each half's sum as `_lane_sums`, the row's as
+    half 0's + half 1's, p = e / sum; LSQ as the plain version; pq rounded
+    to bf16; out = each half's pq v by `mma_sum` over its keys, half 0's +
+    half 1's, rounded to bf16.  Returns (out (B, N, H, d), pq
+    (B, H, N, N)), bf16; exp is the device's own (torch.exp)."""
+    B, N, H, K = rhs.shape
+    ks = _tc_key_tiles(N)
+    h0 = (ks + 1) // 2
+    split = 16 * h0
+    sc = tc_scores(lhs, rhs, promote) * torch.tensor(
+        sm_scale, dtype=torch.float32, device=rhs.device)
+    sc = torch.cat([sc, torch.full((B, H, N, 2 * split - N), -torch.inf,
+                                   device=sc.device)], dim=-1)
+    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+    total = _lane_sums(e[..., :split], h0) + _lane_sums(e[..., split:], h0)
+    p = e / total[..., None]
+    if quantize:
+        sn = torch.clamp_min(s.float(), 1e-5)[None, None, :, None]
+        p = torch.round(torch.clamp(p / sn, 0.0, 2 ** bits - 1)) * sn
+    pq = p.to(torch.bfloat16)
+    vk = v.permute(0, 2, 3, 1)  # (B, H, d, N)
+    vk = torch.cat([vk, torch.zeros(*vk.shape[:-1], 2 * split - N,
+                                    dtype=vk.dtype, device=vk.device)], -1)
+    o = None
+    for hf in (slice(0, split), slice(split, 2 * split)):
+        part = chip_smoke.mma_sum(pq[..., hf].unsqueeze(3),
+                                  vk[..., hf].unsqueeze(2))
+        o = part if o is None else o + part
+    return o.permute(0, 2, 1, 3).to(torch.bfloat16), pq[..., :N]
+
+
 @pytest.mark.parametrize("promote", [False, True])
 @pytest.mark.parametrize("N", [37, 70])
 @pytest.mark.parametrize("shared", [True, False])
@@ -104,7 +181,7 @@ def test_tensor_core_tile_emulated_holds_k2_gate(promote, N, shared,
                                                  quantize):
     ts, _, _, _ = _case(60 + N, N, shared, torch.bfloat16)
     args = (*ts, BITS, SM_SCALE, quantize)
-    emu, pq = chip_smoke.emulate_qkr_tc(*args, promote=promote)
+    emu, pq = emulate_qkr_tc(*args, promote=promote)
     ref = t_attn.qkr_attention_fwd_reference(*args)
     assert emu.dtype == torch.bfloat16 and emu.shape == ref.shape
     assert pq.shape == (B, H, N, N)
@@ -123,7 +200,7 @@ def test_emulated_accumulations_differ():
     a, b = ts[0].double(), ts[1].double()
     exact = torch.einsum("bnk,bmhk->bhnm", a, b)
     unit = torch.einsum("bnk,bmhk->bhnm", a.abs(), b.abs()) * 2.0 ** -24
-    sums = {promote: chip_smoke.tc_scores(ts[0], ts[1], promote=promote)
+    sums = {promote: tc_scores(ts[0], ts[1], promote=promote)
             for promote in (False, True)}
     sums["rn"] = torch.einsum("bnk,bmhk->bhnm", ts[0].float(), ts[1].float())
     bias = {}
@@ -149,7 +226,7 @@ def test_lane_sums_follow_the_tile():
     lanes = [((e[2 * c] + e[2 * c + 1]) + e[8 + 2 * c]) + e[9 + 2 * c]
              for c in range(4)]
     want = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
-    got = chip_smoke._lane_sums(e, 1)
+    got = _lane_sums(e, 1)
     assert float(got) == float(want) == 1.0 + 2.0 ** -23
     in_turn = torch.zeros((), dtype=torch.float32)
     for x in e:
@@ -168,16 +245,3 @@ def test_k2_gate_trips_on_the_slice_fault():
     faulty = chip_smoke.k2_slice_fault(t_attn.qkr_attention_fwd_reference)
     with pytest.raises(chip_smoke.GateTripped):
         chip_smoke.k2_gate("K2", faulty(*args), ref, ts[3], ts[2])
-
-
-def test_tc_key_buckets():
-    """The tile's buckets of 16-key tiles (`tc_key_tiles`): the smallest
-    that holds N keys, none past 256."""
-    for n in range(1, 300):
-        tiles = t_attn.tc_key_tiles(n)
-        if n > t_attn.TC_MAX_KEYS:
-            assert tiles == 0, n
-        else:
-            assert tiles in (4, 8, 13, 16) and 16 * tiles >= n, n
-            smaller = [t for t in (4, 8, 13, 16) if t < tiles]
-            assert all(16 * t < n for t in smaller), n
