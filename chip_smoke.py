@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
     python3 chip_smoke.py --profile  # also: device time by kernel (torch.profiler)
     python3 chip_smoke.py --baseline DIR
-        # also: K1's, K2's, K3's and K6-K8's sources as an earlier tree DIR
+        # also: K1's-K8's sources as an earlier tree DIR
         # has them (a `git archive` of that commit), built and timed beside
         # the current ones at the same shapes in the same run
 
@@ -49,6 +49,7 @@ Phases (any failure raises and the script exits non-zero):
   7. K4, the StatsQ matmul kernel, and K5, its dx product, against their
      plain versions in fp32 and bf16 at the DeiT-S shapes (proj, fc1, fc2
      with M = 64 * 198) and one ragged shape, with StatsQ ties built in;
+     the pre-pass's Q(W) against `_quant_tile` bit for bit;
   8. pallas serving: the same DeiT-S student with matmul_impl="pallas" in
      the bf16 stream (compute_dtype="bfloat16", the configuration of
      bench.py's `_rate(matmul_impl="pallas", compute_dtype="bfloat16")`)
@@ -112,11 +113,13 @@ order spread (the plain path summed in other legitimate fp32 orders,
 `summed_in_chunks`) plus a floor.
 Phase 4b prints the device time of K3's four passes at the main path's
 case in each stream (torch.profiler).
-With --baseline, phases 3, 4, 4b and 10 also time the earlier tree's K1,
-K2 and K3 (both streams; K3's passes too), K6 (every form), K7 and K8 at
-the same shapes, both through their C launchers alone, count the output
-elements where the two differ, and the run ends with the sums over K1's,
-K2's and K3's launches on their paths and K6's, K7's and K8's times per launch.  The
+With --baseline, phases 3, 4, 4b, 7, 9, 10 and 12 also time the earlier
+tree's K1, K2 and K3 (both streams; K3's passes too), K4 and K5 (both
+streams, DeiT-S's and Swin-T's shapes, K5 also on the captured dx
+products), K6 (every form), K7 and K8 at the same shapes, both through
+their C launchers alone, count the output elements where the two differ,
+and the run ends with the sums over K1's to K5's launches on their paths
+and K6's, K7's and K8's times per launch.  The
 line before the last is a JSON object with every kernel's numbers (times
 in ms, CUDA events; bounds from the H100 SXM data sheet); the last line is
 {"ok": true, "device": {...}}.  Full results also go to
@@ -286,9 +289,9 @@ def phase_build():
 
 
 # the sources that --baseline builds from the earlier tree: K1, K2, K3,
-# K6-K8
+# K4 and K5, K6-K8
 BASELINE_SOURCES = ("fused_qlinear", "fused_attention", "fused_attention_bwd",
-                    "window_attention")
+                    "pallas_statsq", "window_attention")
 
 
 def build_baseline(root):
@@ -418,6 +421,53 @@ def raw_k3(lib, args):
     return run
 
 
+def raw_k45(lib, which, a, w, s, n_levels):
+    """K4's (`which` "K4": a = x) or K5's ("K5": a = g) C launcher in `lib`
+    (the current tree's or an earlier one's) called straight on (a, w, s)
+    into an output allocated once.  The current launcher also takes the
+    pre-pass's scratch, kept as `run.levels` (Q(W) for K4, Q(W)^T for K5,
+    flat); the earlier launcher, which quantized on load, takes none."""
+    import ctypes
+    import torch
+    K, N = w.shape
+    M = a.shape[0]
+    out = torch.empty((M, N if which == "K4" else K), dtype=a.dtype,
+                      device=a.device)
+    fn = getattr(lib, "ofq_pallas_statsq_" + ("fwd" if which == "K4"
+                                               else "dx"))
+    levels = None
+    if hasattr(lib, "ofq_pallas_statsq_launch"):
+        levels = torch.empty(K * N, dtype=torch.float32, device=a.device)
+    ptrs = [a.data_ptr(), w.data_ptr(), s.data_ptr()] + (
+        [] if levels is None else [levels.data_ptr()]) + [out.data_ptr()]
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    call = ptrs + [M, K, N, float(n_levels), int(a.dtype == torch.bfloat16),
+                   torch.cuda.current_stream().cuda_stream]
+
+    def run():
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"{which} launcher: CUDA error {err}")
+        return out
+    run.levels = levels
+    return run
+
+
+def levels_differing(levels, which, w, s, n_levels):
+    """Elements of the pre-pass's Q(W) (`raw_k45`'s `run.levels`, after a
+    run) whose bits differ from `_quant_tile` on the card; for K5 against
+    its transpose."""
+    import torch
+    from ofq_tpu_torch.ops import pallas_statsq as ps
+    want = ps._quant_tile(w, s, float(n_levels))
+    if which == "K5":
+        want = want.T.contiguous()
+    got = levels.view(want.shape)
+    return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+
 def _versus(raw_ms, base_ms, differing):
     """The before-and-after of a phase's log line (--baseline), or ''."""
     if base_ms is None:
@@ -429,7 +479,8 @@ def _versus(raw_ms, base_ms, differing):
 
 def against_earlier(current, earlier):
     """(ms, earlier ms, output elements differing) of two launchers alone
-    (`raw_k1`/`raw_k2`/`raw_k3` runners) on the same inputs (--baseline)."""
+    (`raw_k1`/`raw_k2`/`raw_k3`/`raw_k45` runners) on the same inputs
+    (--baseline)."""
     ms, base_ms = median_ms(current), median_ms(earlier)
     outs = [current(), earlier()]
     outs = [o if isinstance(o, list) else [o] for o in outs]
@@ -914,15 +965,34 @@ def _swin_k4_cases(batch=BATCH):
     return cases
 
 
-# K4's and K5's kernel (one template for both, in either stream)
-K45_DESIGN = "CUDA-core template, 64x64 tiles, fp32 FMAs"
+# K4's and K5's kernels (one product body for both, in either stream); the
+# block tile of each shape is the built library's (`k45_design`)
+K45_DESIGN = ("Q(W) pre-pass once per call, then register-tiled CUDA-core "
+              "fp32 FMAs (8x8 outputs a thread, 3-stage cp.async ring)")
 
 
-def phase_k45(dev, which, cases, dtypes=None):
+def k45_design(M, C, dtype):
+    """The launch of K4's or K5's product for an (M, C) output, as the built
+    library exports it, with a label."""
+    import torch
+    from ofq_tpu_torch.ops import pallas_statsq as ps
+    cfg = ps.launch_config(M, C, dtype == torch.bfloat16)
+    label = (f"{K45_DESIGN}: {cfg['tile'][0]}x{cfg['tile'][1]} tiles of "
+             f"{cfg['threads']} threads, {cfg['grid'][0]}x{cfg['grid'][1]} "
+             f"blocks, {cfg['smem']} B shared, {cfg['blocks_per_sm']} "
+             f"blocks/SM")
+    return dict(cfg, label=label)
+
+
+def phase_k45(dev, which, cases, dtypes=None, base=None):
     """K4 (`which` = "K4": y = x @ Q(W)) or K5 ("K5": dx = g @ Q(W)^T)
     against its plain version at `cases` (name, M, K, N, main path), in
-    fp32 and bf16 (or `dtypes`); a main-path case counts in bf16."""
+    fp32 and bf16 (or `dtypes`); a main-path case counts in bf16.  Each
+    case also holds the pre-pass's Q(W) to `_quant_tile` bit for bit, and
+    with `base` (--baseline) times the earlier tree's launcher beside the
+    current one and counts the output elements that differ."""
     import torch
+    from ofq_tpu_torch.ops import _build
     from ofq_tpu_torch.ops import pallas_statsq as ps
     from ofq_tpu_torch.quant.statsq import statsq_scale
     g = torch.Generator().manual_seed(4 if which == "K4" else 5)
@@ -956,51 +1026,71 @@ def phase_k45(dev, which, cases, dtypes=None):
                 out_k = N
             y_k = kern(*args)
             y_ref = plain(*args)
+            raw = raw_k45(_build.load("pallas_statsq"), which, a, w, s, n)
+            raw()
             torch.cuda.synchronize()
             err, ratio, outside = _k45_gate(y_k, y_ref, abs_sum)
+            lv_diff = levels_differing(raw.levels, which, w, s, n)
             c = torch.clamp(w / s, -1.0, 1.0 - 1e-6) * n - 0.5
             w_ties = int((c - torch.floor(c)).eq(0.5).sum())
             dt = str(dtype).replace("torch.", "")
-            if not (torch.isfinite(y_k).all() and outside == 0):
+            if not (torch.isfinite(y_k).all() and outside == 0
+                    and lv_diff == 0):
                 raise AssertionError(
                     f"{which} {name} {dt}: {outside} elements outside the "
-                    f"limit (worst ratio {ratio:.3f}), max|diff| {err}")
+                    f"limit (worst ratio {ratio:.3f}), max|diff| {err}; "
+                    f"{lv_diff} levels of the pre-pass differing from "
+                    f"_quant_tile")
+            raw_ms = base_ms = differing = None
+            if base:
+                raw_ms, base_ms, differing = against_earlier(
+                    raw, raw_k45(base["pallas_statsq"], which, a, w, s, n))
+            design = k45_design(M, N if which == "K4" else K, dtype)
             ms = median_ms(lambda: kern(*args))
             plain_ms = median_ms(lambda: plain(*args), reps=10)
             yard_ms = median_ms(yard)
             nbytes, flops, (b_ms, b_by) = _k45_bound(M, K, N, dtype)
             log(f"[{which}] {name:6s} {dt:8s} M={M} K={K} N={N}: max|diff| "
                 f"{err:.3e}, worst |diff|/limit {ratio:.3f}, {w_ties} StatsQ "
-                f"ties; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"ties, pre-pass levels bit for bit; kernel "
+                f"({design['label']}) {ms:.4f} ms"
+                f"{_versus(raw_ms, base_ms, differing)}, plain "
+                f"{plain_ms:.4f} ms, "
                 f"torch.matmul(a, Q(W){'^T' if which == 'K5' else ''}) "
                 f"{yard_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
             results.append(dict(name=name, dtype=dt, M=M, K=K, N=N,
                                 main_path=main and dtype == torch.bfloat16,
-                                design=K45_DESIGN,
+                                design=design["label"], launch=design,
+                                raw_ms=raw_ms, baseline_raw_ms=base_ms,
+                                baseline_differing=differing,
                                 max_abs_err=err, worst_ratio=ratio,
                                 statsq_ties=w_ties, ms=ms, plain_ms=plain_ms,
                                 matmul_ms=yard_ms, bound_ms=b_ms,
                                 bound_by=b_by, bytes=nbytes, flops=flops,
                                 contraction=out_k))
-            del a, w, s, wq, wq_c, abs_sum, y_k, y_ref, args
+            del a, w, s, wq, wq_c, abs_sum, y_k, y_ref, args, raw
     return results
 
 
-def phase_k5_captured(recs):
+def phase_k5_captured(recs, base=None):
     """K5 on the dx products of one backward of the pallas step: against
     its plain version (the limit of phase 7) and against the dx that the
     backward computed, which multiplies by Q(W) rounded to bf16, as JAX's
     `_vjp_bwd` does: |K5 - dx| <= (2^-8 + 1e-5) * sum |g| |Q(W)| plus
     2^-7 * max(|K5|, |dx|) (the bf16 rounding of Q(W) is at most 2^-8 of
-    each level; one output ulp).  Only these launches count as K5's."""
+    each level; one output ulp).  Only these launches count as K5's.  With
+    `base` (--baseline), each product also through the current and the
+    earlier launcher alone: times and output elements differing."""
     import torch
     from ofq_tpu_torch import ops
+    from ofq_tpu_torch.ops import _build
     from ofq_tpu_torch.ops import pallas_statsq as ps
     from ofq_tpu_torch.quant.statsq import statsq_scale
     ops.reset_launch_counts()
     worst = {"plain": 0.0, "backward": 0.0}
     errs = {"plain": 0.0, "backward": 0.0}
+    versus = []
     for rec in recs:
         w = rec["w"]
         N = w.shape[1]
@@ -1018,6 +1108,14 @@ def phase_k5_captured(recs):
                 dx_k.float().abs(), ref.float().abs())).clamp_min(1e-30)
             worst[key] = max(worst[key], float((d / lim).max()))
             errs[key] = max(errs[key], float(d.max()))
+        if base:
+            raw_ms, base_ms, differing = against_earlier(*(
+                raw_k45(lib, "K5", g2, w, s, n)
+                for lib in (_build.load("pallas_statsq"),
+                            base["pallas_statsq"])))
+            versus.append(dict(M=g2.shape[0], K=w.shape[0], N=N,
+                               raw_ms=raw_ms, baseline_raw_ms=base_ms,
+                               differing=differing))
         rec.clear()
     torch.cuda.synchronize()
     launches = ops.pallas_statsq_dx.launches
@@ -1026,11 +1124,17 @@ def phase_k5_captured(recs):
         f"{launches} launches, by (M,K,N) {shapes}; max|diff| vs plain "
         f"{errs['plain']:.3e} (worst |diff|/limit {worst['plain']:.3f}), vs "
         f"the backward's dx {errs['backward']:.3e} (worst {worst['backward']:.3f})")
+    if versus:
+        log(f"[K5] the same {len(versus)} products through the launchers "
+            f"alone: {sum(v['raw_ms'] for v in versus):.3f} ms now, "
+            f"{sum(v['baseline_raw_ms'] for v in versus):.3f} ms earlier, "
+            f"{sum(v['differing'] for v in versus)} output elements "
+            f"differing")
     if launches != len(recs) or max(worst.values()) > 1.0:
         raise AssertionError(f"K5 on the captured dx products: {launches} "
                              f"launches, worst ratios {worst}")
     return dict(launches=launches, launch_shapes=shapes, max_abs_err=errs,
-                worst_ratio=worst)
+                worst_ratio=worst, versus_baseline=versus)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2711,13 +2815,21 @@ def compare_baseline(full):
     the current launchers' and the earlier tree's (--baseline), each
     launcher alone into preallocated outputs, and the ratio: K1 over a
     fused step's 36, K2 and K3 over a fused step's 12 each (fp32) and a
-    fused bf16 step's 12 each, K6 in every form and at both WB, K7 and K8 at their defaults
-    per launch."""
-    shapes = full["train"]["launch_shapes"]
+    fused bf16 step's 12 each, K4 over a pallas step's 36 and a Swin-T
+    forward's 39, K5 over the 36 captured dx products, K6 in every form
+    and at both WB, K7 and K8 at their defaults per launch."""
+    def on_path(rows, shapes):
+        return [(shapes.get(str((r["M"], r["K"], r["N"])), 0), r)
+                for r in rows if r["main_path"]]
     sums = {
-        "K1, fused DeiT-S train step": [
-            (shapes.get(str((r["M"], r["K"], r["N"])), 0), r)
-            for r in full["k1"] if r["main_path"]]}
+        "K1, fused DeiT-S train step": on_path(
+            full["k1"], full["train"]["launch_shapes"]),
+        "K4 bfloat16, pallas DeiT-S train step": on_path(
+            full["k4"], full["train_pallas"]["launch_shapes"]),
+        "K4 bfloat16, Swin-T W2A2 QKR serving forward": on_path(
+            full["k4_swin"], full["swin_pallas"]["launch_shapes"]),
+        "K5 bfloat16, the dx products captured from one pallas step": [
+            (1, r) for r in full["k5_captured"]["versus_baseline"]]}
     for dt, train in (("float32", "train"), ("bfloat16", "train_fused_bf16")):
         for key, fn in (("k2", "qkr_attention_fwd"),
                         ("k3", "qkr_attention_bwd")):
@@ -2780,13 +2892,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     full["train_fused_bf16"] = phase_train(dev, FUSED_BF16)
     torch.cuda.empty_cache()
-    full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok))
-    full["k5"] = phase_k45(dev, "K5", _k45_cases(BATCH * n_tok))
+    full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok), base=base)
+    full["k5"] = phase_k45(dev, "K5", _k45_cases(BATCH * n_tok), base=base)
     torch.cuda.empty_cache()
     full["slice_pallas"] = phase_slice(dev, PALLAS, deit, w2a2_qkr_policy(12))
     torch.cuda.empty_cache()
     tp = full["train_pallas"] = phase_train(dev, PALLAS)
-    full["k5_captured"] = phase_k5_captured(tp.pop("captured"))
+    full["k5_captured"] = phase_k5_captured(tp.pop("captured"), base=base)
     torch.cuda.empty_cache()
     full["gate_selfcheck"] = phase_gate_selfcheck(dev)
     torch.cuda.empty_cache()
@@ -2798,8 +2910,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     full["swin_float"] = phase_swin_float(dev)
     torch.cuda.empty_cache()
+    # the path's stream; with --baseline both streams, and K5 at the same
+    # shapes, against the earlier launchers
+    swin_dtypes = ((torch.float32, torch.bfloat16) if base
+                   else (torch.bfloat16,))
     full["k4_swin"] = phase_k45(dev, "K4", _swin_k4_cases(),
-                                dtypes=(torch.bfloat16,))
+                                dtypes=swin_dtypes, base=base)
+    if base:
+        full["k5_swin"] = phase_k45(dev, "K5", _swin_k4_cases(),
+                                    dtypes=swin_dtypes, base=base)
     torch.cuda.empty_cache()
     sp = full["swin_pallas"] = phase_slice(dev, PALLAS, "swin_t",
                                            w2a2_qkr_swin_policy(),
@@ -2872,7 +2991,7 @@ def main() -> int:
                 caps.get(str((r["M"], r["K"], r["N"])), 0), r,
                 path="the dx products of one pallas bf16 train step, "
                      "captured with hooks", design=r["design"]))
-    for r in full["k4_swin"]:
+    for r in filter(lambda r: r["main_path"], full["k4_swin"]):
         kernels.append(_kernel_row(
             f"pallas_statsq_fwd Swin-T {r['name']} bf16 "
             f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],

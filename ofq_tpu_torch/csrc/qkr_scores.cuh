@@ -21,7 +21,9 @@
 //
 // The same ring and the row product serve K3 fp32's dpq (g v^T), and the
 // column chunks of K2's pq v (`pq_v`): each output one __fmaf_rn chain in
-// ascending key from 0.
+// ascending key from 0.  K4 and K5 (pallas_statsq.cu) run their product
+// on the ring, the row loads and fma_chunk too (a in the stream dtype,
+// B = Q(W) in fp32).
 
 #pragma once
 
@@ -171,10 +173,11 @@ __device__ __forceinline__ void read4(const bf16* p, float (&x)[4]) {
 // ar0 + i (i < TM).  A_KM: the chunk of A is stored [k][row] (lda apart),
 // else [row][k].  B_KM: B stored [k][col] and this thread's columns are
 // bc0 + 0..3, bc0 + b_next + 0..3; else [col][k] and columns bc0 + b_next
-// * j (j < TN).  T: the chunk's element type, widened as it is read.
-template <typename T, int TM, int TN, int BK, bool A_KM, bool B_KM>
+// * j (j < TN).  T (TB): A's (B's) element type, widened as it is read.
+template <typename T, int TM, int TN, int BK, bool A_KM, bool B_KM,
+          typename TB = T>
 __device__ __forceinline__ void fma_chunk(float (&acc)[TM][TN], const T* As,
-                                          int lda, int ar0, const T* Bs,
+                                          int lda, int ar0, const TB* Bs,
                                           int ldb, int bc0, int b_next) {
   static_assert(!B_KM || TN == 8, "a K-major B gives two 4-wide columns");
   static_assert(!A_KM || B_KM, "no product takes a K-major A alone");
@@ -201,7 +204,7 @@ __device__ __forceinline__ void fma_chunk(float (&acc)[TM][TN], const T* As,
             a[kk][i + 3] = t[3];
           }
         }
-        const T* brow = Bs + (k4 + kk) * ldb + bc0;
+        const TB* brow = Bs + (k4 + kk) * ldb + bc0;
         float lo[4], hi[4];
         read4(brow, lo);
         read4(brow + b_next, hi);

@@ -6,11 +6,13 @@
     Q(W) = s * ((round(clip(W / s, -1, 1 - 1e-6) * n - 0.5) + 0.5) / n)
 
 with the per-column scale s = 2 mean|W| (`statsq_scale`, detached)
-computed before the launch, as in JAX.  W is quantized in its own dtype
-(fp32) tile by tile inside the kernel, the sums are fp32, and the output
-has x's dtype (fp32 or bf16).  Each wrapper launches its hand-written CUDA
-kernel (`csrc/pallas_statsq.cu`, built at first use) on a CUDA tensor and
-runs its plain PyTorch version (`*_reference`) on a CPU tensor.
+computed before the launch, as in JAX.  Each wrapper launches its
+hand-written CUDA kernels (`csrc/pallas_statsq.cu`, built at first use) on
+a CUDA tensor: a pre-pass forms Q(W) in W's dtype (fp32) once per call
+into a scratch buffer the wrapper allocates, then a register-tiled
+CUDA-core product sums each output in fp32 in ascending contraction order
+and rounds it once to x's dtype (fp32 or bf16).  A CPU tensor goes to the
+plain PyTorch version (`*_reference`).
 
 `pallas_statsq_matmul` reaches K4 through `_PallasStatsQMatmul`, the custom
 VJP of the JAX package, whose backward is XLA there and torch ops here:
@@ -65,18 +67,35 @@ def pallas_statsq_dx_reference(g2, w, s, n_levels, x_dtype):
     return _acc32(g2, _quant_tile(w, s, n_levels).T).to(x_dtype)
 
 
+def launch_config(M, C, bf16):
+    """How the product launches for an (M, C) output (K4: C = N, K5: C =
+    K) in fp32 or (bf16=True) the bf16 stream, as the built library reports
+    it (`ofq_pallas_statsq_launch`): the block tile, threads, grid, dynamic
+    shared memory in bytes and blocks per SM (the CUDA runtime's
+    occupancy, registers counted)."""
+    info = (ctypes.c_int * 6)()
+    fn = _build.load("pallas_statsq").ofq_pallas_statsq_launch
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    smem = fn(M, C, int(bf16), info)
+    return dict(tile=(info[0], info[1]), threads=info[2],
+                grid=(info[3], info[4]), smem=smem, blocks_per_sm=info[5])
+
+
 def _launch(fn_name, what, a, w, s, n_levels, out_shape, M, K, N):
     lib = _build.load("pallas_statsq")
     fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    # the pre-pass's Q(W) (K4) or Q(W)^T (K5), read by the product
+    levels = torch.empty(K * N, dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-                 M, K, N, float(n_levels), int(a.dtype == torch.bfloat16),
-                 stream)
+        err = fn(a.data_ptr(), w.data_ptr(), s.data_ptr(),
+                 levels.data_ptr(), out.data_ptr(), M, K, N, float(n_levels),
+                 int(a.dtype == torch.bfloat16), stream)
     _build.check(lib, err, what)
     return out
 

@@ -2,7 +2,8 @@
 port against `ofq_tpu`, on the CPU.
 
   * K4's and K5's plain versions against the Pallas kernels `_fwd_call` /
-    `_dx_call` in interpret mode, on ragged M and StatsQ ties: fp32 within
+    `_dx_call` in interpret mode, on ragged M, the edges the CUDA
+    product's tiles leave ragged, and StatsQ ties: fp32 within
     1e-5 * (1 + |ref|), bf16 within one bf16 ulp (two fp32 sums in other
     orders, each rounded once);
   * `_PallasStatsQMatmul` against `jax.vjp` of the JAX custom VJP: fp64 as
@@ -45,6 +46,10 @@ from ofq_tpu_torch.quant.ste import weak_scalar
 jsm = importlib.import_module("ofq_tpu.ops.statsq_matmul")
 BF16 = torch.bfloat16
 SHAPES = [(37, 48, 24), (64, 96, 96), (100, 24, 72)]  # M, K, N; M ragged
+# edges the CUDA product's tiles (128 rows; 128 or 96 columns; 16-deep
+# chunks) leave ragged: M past a row tile with N = K = 96, a K (K4's
+# contraction) and an N (K5's) no multiple of the chunk
+TILE_EDGES = [(130, 96, 96), (257, 40, 96), (129, 96, 36)]
 
 
 def _bf16(a):
@@ -93,7 +98,7 @@ def test_quant_tile_bit_exact(bits):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("M,K,N", SHAPES)
+@pytest.mark.parametrize("M,K,N", SHAPES + TILE_EDGES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("which", ["K4", "K5"])
 def test_plain_matches_pallas(which, dtype, M, K, N):

@@ -340,6 +340,12 @@ def _k45_close(y, ref, abs_sum):
     (3136, 3072, 768),     # Swin-T stage 3 fc2, K = 3072
     (1000, 200, 72),       # ragged
     (37, 20, 24),          # K no multiple of 8 or of the 32-deep chunk
+    # the edges of the product's tiles (128 rows; 128 or 96 columns;
+    # 16-deep chunks): M past a row tile at N = K = 96, K = 40 and 36
+    (130, 96, 96),
+    (257, 40, 96),
+    (129, 36, 96),
+    (200704, 384, 96),     # Swin-T stage 0 fc2, N = 96
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_matches_plain(dev, M, K, N, dtype):
@@ -354,7 +360,10 @@ def test_k4_matches_plain(dev, M, K, N, dtype):
     assert _k45_close(y, ref, ps._acc32(x.abs(), wq.abs()))
 
 
-@pytest.mark.parametrize("M,K,N", [(12672, 1536, 384), (1000, 200, 72)])
+@pytest.mark.parametrize("M,K,N", [
+    (12672, 1536, 384), (1000, 200, 72),
+    # K5's output is (M, K), its contraction N: the tiles' edges
+    (130, 96, 96), (257, 40, 96), (129, 96, 36), (3136, 96, 768)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k5_matches_plain(dev, M, K, N, dtype):
     from ofq_tpu_torch.ops import pallas_statsq as ps
@@ -366,6 +375,39 @@ def test_k5_matches_plain(dev, M, K, N, dtype):
     torch.cuda.synchronize()
     assert dx.dtype == dtype and torch.isfinite(dx).all()
     assert _k45_close(dx, ref, ps._acc32(g.abs(), wq.abs().T))
+
+
+@pytest.mark.parametrize("which", ["K4", "K5"])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("M,K,N", [(12672, 384, 1536), (129, 36, 96)])
+def test_k45_levels_are_quant_tile(dev, which, bits, M, K, N):
+    """The pre-pass's Q(W) (Q(W)^T for K5), read back from the scratch the
+    launcher fills, equals `_quant_tile` on the card bit for bit, StatsQ
+    ties included."""
+    x, g, w, s, _ = _k45_args(dev, M, K, N, torch.bfloat16, seed=bits)
+    from ofq_tpu_torch.ops import _build
+    nl = float(2 ** (bits - 1))
+    run = chip_smoke.raw_k45(_build.load("pallas_statsq"), which,
+                             x if which == "K4" else g, w, s, nl)
+    run()
+    torch.cuda.synchronize()
+    assert chip_smoke.levels_differing(run.levels, which, w, s, nl) == 0
+
+
+@pytest.mark.parametrize("which", ["K4", "K5"])
+@pytest.mark.parametrize("K,N", [(384, 384), (384, 1536), (1536, 384)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k45_hold_two_blocks_at_deit_s(dev, which, K, N, bf16):
+    """The product's exported launch at DeiT-S's shapes (M = 64 * 198):
+    within the 227 KB a block may take, two blocks per SM (the runtime's
+    occupancy, registers counted), and a grid that covers the output."""
+    from ofq_tpu_torch.ops import pallas_statsq as ps
+    M, C = 64 * 198, (N if which == "K4" else K)
+    cfg = ps.launch_config(M, C, bf16)
+    assert cfg["smem"] <= fa._MAX_SMEM and cfg["blocks_per_sm"] >= 2, cfg
+    bm, bn = cfg["tile"]
+    assert cfg["grid"] == (-(-C // bn), -(-M // bm)), cfg
+    assert cfg["threads"] == bm * bn // 64, cfg
 
 
 @pytest.mark.parametrize("source,part,op", [
