@@ -104,6 +104,33 @@ Phases (any failure raises and the script exits non-zero):
      (3 per block and one per patch merging) and none of K1-K3 or K6-K8,
      the bf16 block (each block and patch merging alone) and top-1 gates,
      img/s, peak memory.
+The int8 path (bench.py's int8 configuration, INT8: matmul_impl="int8",
+composed attention, bf16 stream; no TPU kernel lies on it, its integer
+product `int8_mm` is torch._int_mm, a library call):
+ 14. int8_mm against its plain version at every shape of the int8 paths
+     (DeiT-S at B = 64 and 256, Swin-T at B = 64), codes at the ends of
+     the W2A2 and W4A8 ranges: 0 elements differing; the median of 20
+     calls, the plain version's, the bf16 torch.matmul of the dequantized
+     operands', the bound;
+ 15. DeiT-S int8 serving through `Predictor`: exactly 60 int8_mm a
+     forward (v, qkx, proj, fc1, fc2 of 12 blocks) and no kernel, the bf16
+     gates against this path's plain version, the same bits through the
+     plain product in every block output and the logits, top-1 agreement
+     with the composed products printed, img/s, peak memory; then the int8
+     gate self-check (int8_mm with one output column moved by one code
+     step must trip the 0-differing gate and the block gate, the
+     unmodified product must pass both);
+ 16. a frozen packed artifact of that student (`deploy.export_packed` on
+     the card, `Predictor.from_packed(int_core=True)`): its codes equal to
+     those the integer core rebuilds and to the live student's, the gates
+     of phase 15, img/s at B = 64 and 256, artifact bytes against fp32
+     bytes, and one forward through its fp products (int_core=False);
+ 17. bench.py's int8 train step (fp32 masters, bf16 teacher, KD
+     soft+hard, AdamW, B = 64): 60 int8_mm a step, the bf16 step gates,
+     every whole-step gradient bit-identical through the plain product;
+ 18. Swin-T int8 serving (63 int8_mm a forward: 12 blocks x 5 and 3
+     reductions) and its frozen artifact, as phases 15 and 16 at B = 64;
+every path's int8_mm launches by shape held to phase 14's count.
 The agreement gates: fp32, the kernel path against the plain path; bf16,
 each path against a rounded-once reference (the plain path with every
 product summed in fp64 and rounded once to the dtype it returns), the
@@ -121,8 +148,9 @@ their C launchers alone, count the output elements where the two differ,
 and the run ends with the sums over K1's to K5's launches on their paths
 and K6's, K7's and K8's times per launch.  The
 line before the last is a JSON object with every kernel's numbers (times
-in ms, CUDA events; bounds from the H100 SXM data sheet); the last line is
-{"ok": true, "device": {...}}.  Full results also go to
+in ms, CUDA events; bounds from the H100 SXM data sheet), after a line
+with the int8 paths' int8_mm entries ({"int8_mm": [...]}); the last line
+is {"ok": true, "device": {...}}.  Full results also go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -1141,8 +1169,15 @@ def phase_k5_captured(recs, base=None):
 def _describe(conf):
     """A label of a configuration of the student: its linears, its
     attention tail and its stream."""
-    linears = {"fused": "fused QLinear (K1)",
-               "pallas": "matmul_impl='pallas' (K4)"}[conf["matmul_impl"]]
+    if "frozen_int_bits" in conf:
+        linears = ("frozen packed artifact, integer core (int8_mm)"
+                   if conf["frozen_int_bits"] else
+                   "frozen packed artifact, fp products")
+    else:
+        linears = {"fused": "fused QLinear (K1)",
+                   "pallas": "matmul_impl='pallas' (K4)",
+                   "int8": "matmul_impl='int8' (int8_mm, torch._int_mm)"}[
+                       conf["matmul_impl"]]
     attn = ("fused attention (K2, K3)" if conf["attn_impl"] == "fused"
             else "composed attention")
     return f"{linears}, {attn}, {conf['compute_dtype'] or 'float32'} stream"
@@ -1158,6 +1193,11 @@ def _path_counts(cfg):
     return 3 * cfg.depth, cfg.depth
 
 
+def int_path(conf):
+    """Whether a configuration's products run on the integer codes."""
+    return conf["matmul_impl"] == "int8" or bool(conf.get("frozen_int_bits"))
+
+
 def _expected(conf, cfg, train):
     """Launches of every kernel wrapper in one forward (or train step)."""
     from ofq_tpu_torch import ops
@@ -1167,6 +1207,9 @@ def _expected(conf, cfg, train):
         want["fused_qlinear_fwd"] = n_linear
     if conf["matmul_impl"] == "pallas":
         want["pallas_statsq_fwd"] = n_linear
+    if int_path(conf):
+        # QKR's v and qkx products and every quantized linear, forward only
+        want["int8_mm"] = n_linear + 2 * n_attn
     if conf["attn_impl"] == "fused":
         want["qkr_attention_fwd"] = n_attn
         if train:
@@ -1430,16 +1473,20 @@ def _block_rows_gate(what, rows, limit=BLOCK_ROWS):
 
 def _shapes(fn):
     return {str(k): v for k, v in fn.launch_shapes.items()}
-def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None):
+def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None,
+                built=None):
     """Serving the W2A2 QKR student `name` under `policy` in the
-    configuration `conf` through `Predictor` (`gate`: `check_blocks`)."""
+    configuration `conf` through `Predictor` (`gate`: `check_blocks`);
+    `built`: the (model, images, rng) of `build_served`, or of a frozen
+    artifact's model."""
     import numpy as np
     import torch
     from ofq_tpu_torch import ops
     from ofq_tpu_torch.serve import Predictor
 
     t0 = time.perf_counter()
-    model, images, rng = build_served(dev, conf, name, policy, batch)
+    model, images, rng = built or build_served(dev, conf, name, policy,
+                                               batch)
     cfg = model.cfg
     log(f"[slice] {name} W2A2 QKR, {_describe(conf)}, "
         f"{sum(p.numel() for p in model.parameters())} params, built and "
@@ -1451,7 +1498,7 @@ def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None):
     probs = pred.predict(images)
     launches = ops.launch_counts()
     shapes = {**_shapes(ops.fused_qlinear_fwd),
-              **_shapes(ops.pallas_statsq_fwd)}
+              **_shapes(ops.pallas_statsq_fwd), **_shapes(ops.int8_mm)}
     log(f"[slice] launches in one predict: {launches}; by (M,K,N): {shapes}")
     want = _expected(conf, cfg, train=False)
     if launches != want:
@@ -1471,6 +1518,10 @@ def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None):
     batches = [images] + [rng.normal(size=images.shape).astype(np.float32)
                           for _ in range(CMP_BATCHES - 1)]
     top1 = check_top1(pred, batches, conf, first=probs)
+    if int_path(conf):
+        top1["same_bits"] = check_same_bits(model, images, dev)
+    if conf["matmul_impl"] == "int8":
+        top1["top1_vs_composed"] = composed_top1(pred, batches)
 
     def rate(n_calls=10):
         for _ in range(3):
@@ -1623,7 +1674,8 @@ def composed_fp64(model):
     import copy
     ref = copy.deepcopy(model).double()
     for m in ref.modules():
-        for attr in ("matmul_impl", "attn_impl", "compute_dtype"):
+        for attr in ("matmul_impl", "attn_impl", "compute_dtype",
+                     "frozen_int_bits"):
             if hasattr(m, attr):
                 setattr(m, attr, None)
     return ref
@@ -1725,7 +1777,7 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     shapes = {**_shapes(ops.fused_qlinear_fwd),
-              **_shapes(ops.pallas_statsq_fwd)}
+              **_shapes(ops.pallas_statsq_fwd), **_shapes(ops.int8_mm)}
     loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
     log(f"[train] launches in one step: {launches}; by (M,K,N): {shapes}; "
         f"loss {loss:.6f}, grad_norm {gnorm:.6f}")
@@ -1738,6 +1790,12 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
 
     blocks = check_blocks_backward(student, teacher, data, conf)
     grads = check_step_grads(student, teacher, data, conf)
+    if int_path(conf) and grads["kernels_vs_plain_max"] != 0:
+        # int8_mm and its plain version are both exact, and nothing else
+        # of the step differs between the two paths
+        raise GateTripped(f"[train] the whole-step gradients through "
+                          f"int8_mm and through its plain version differ "
+                          f"({grads['kernels_vs_plain_max']})")
     captured = (capture_dx_products(student, teacher, data)
                 if conf["matmul_impl"] == "pallas" else None)
 
@@ -2772,6 +2830,373 @@ def phase_swin_float(dev, batch=BATCH):
 
 
 # ------------------------------------------------- optional: --profile
+# ------------------------------------------------------------ the int8 path
+# bench.py's int8 configuration (bench.py:256-260): every quantized product
+# on the integer codes (`int8_mm`: torch._int_mm, a library call; the JAX
+# package hands it to XLA, no Pallas kernel), the composed attention tail,
+# the bf16 stream
+INT8 = dict(matmul_impl="int8", attn_impl=None, compute_dtype="bfloat16")
+# a frozen packed artifact (bench.py's serving_rate, :166-204: export_packed,
+# restore_packed(int_core=True), weight_frozen=True, frozen_int_bits=2)
+# served through the integer core, and once through its fp products
+FROZEN_INT = dict(matmul_impl=None, attn_impl=None,
+                  compute_dtype="bfloat16", frozen_int_bits=2)
+# bench.py's serving_rate batch
+FROZEN_BATCH = 256
+# H100 SXM data sheet (dense): int8 tensor-core operations per second
+PEAK_INT8_OPS = 1979e12
+
+
+def _int8_cases():
+    """(path, name, M, K, N, launches per forward) of every int product of
+    the int8 paths: DeiT-S at B = 64 and, frozen, at bench.py's B = 256
+    (QKR's v and qkx, proj, fc1, fc2 of each block); Swin-T at B = 64 (the
+    same five per block on the window tokens, and each patch merging's
+    reduction)."""
+    from ofq_tpu_torch.models.deit import DEIT_SMALL as d
+    from ofq_tpu_torch.models.swin import SWIN_TINY as sw
+    cases = []
+
+    def block(path, prefix, M, C, H, hid, per):
+        for name, K, N in (("v", C, C), ("qkx", C, H * C), ("proj", C, C),
+                           ("fc1", C, hid), ("fc2", hid, C)):
+            cases.append((path, prefix + name, M, K, N, per))
+
+    for path, B in (("DeiT-S B=64", BATCH),
+                    (f"DeiT-S B={FROZEN_BATCH}", FROZEN_BATCH)):
+        block(path, "", B * d.n_tokens, d.embed_dim, d.num_heads,
+              int(d.embed_dim * d.mlp_ratio), d.depth)
+    side, C = sw.img_size // sw.patch_size, sw.embed_dim
+    for stage, depth in enumerate(sw.depths):
+        # 56, 28, 14, 7: whole windows of 7 x 7, so the window tokens are
+        # the map's
+        block("Swin-T B=64", f"s{stage} ", BATCH * side * side, C,
+              sw.num_heads[stage], int(C * sw.mlp_ratio), depth)
+        if stage < len(sw.depths) - 1:
+            side = (side + 1) // 2
+            cases.append(("Swin-T B=64", f"s{stage} reduction",
+                          BATCH * side * side, 4 * C, 2 * C, 1))
+            C *= 2
+    return cases
+
+
+def phase_int8_mm(dev):
+    """`int8_mm` (torch._int_mm) against its plain version at every shape
+    of the int8 paths, with codes at the ends of the W2A2 and W4A8 ranges
+    (0 elements may differ), and, on the W2A2 codes, the median of 20
+    calls of each, of torch._int_mm alone with B row-major (the layout the
+    wrapper does not use), of the bf16 torch.matmul of the dequantized
+    operands, and the bound (int32 out: bytes)."""
+    import torch
+    from ofq_tpu_torch.ops import int8_qlinear as iq
+    g = torch.Generator(device=dev).manual_seed(12)
+    ranges = (("W2A2", (-2, 1), 3), ("W4A8", (-128, 127), 15))
+    rows = []
+    for path, name, M, K, N, per in _int8_cases():
+        differing = {}
+        for label, (lo, hi), wmax in ranges:
+            a = torch.where(torch.rand(M, K, generator=g, device=dev) < 0.5,
+                            lo, hi).to(torch.int8)
+            # the weight codes column-major, as the int8 path hands them
+            b = torch.where(torch.rand(N, K, generator=g, device=dev) < 0.5,
+                            -wmax, wmax).to(torch.int8).t()
+            y = iq.int8_mm(a, b)
+            differing[label] = int((y != iq.int8_mm_reference(a, b)).sum())
+            if label == "W2A2":
+                ms = median_ms(lambda: iq.int8_mm(a, b))
+                b_rows = b.contiguous()
+                row_ms = median_ms(lambda: torch._int_mm(a, b_rows))
+                del b_rows
+                plain_ms = median_ms(lambda: iq.int8_mm_reference(a, b),
+                                     reps=10)
+                af = (a.float() * 0.25).bfloat16()
+                bf = (b.float() * 0.125).bfloat16().contiguous()
+                mm_ms = median_ms(lambda: torch.matmul(af, bf))
+                del af, bf
+            del y
+        if any(differing.values()):
+            raise AssertionError(f"int8_mm {path} {name} ({M}x{K}x{N}): "
+                                 f"elements differing from the plain "
+                                 f"version {differing}")
+        nbytes = M * K + K * N + 4 * M * N
+        ops = 2 * M * K * N
+        b_ms, b_by = bound(nbytes, ops, PEAK_INT8_OPS)
+        log(f"[int8_mm] {path} {name} M={M} K={K} N={N}: 0 elements "
+            f"differing ({', '.join(differing)} codes); torch._int_mm "
+            f"{ms:.4f} ms (B row-major, torch._int_mm alone: {row_ms:.4f} "
+            f"ms), plain (fp64 product) {plain_ms:.4f} ms, bf16 "
+            f"torch.matmul of the dequantized operands {mm_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.2f} GOP); {per} a forward")
+        rows.append(dict(path=path, name=name, M=M, K=K, N=N,
+                         per_forward=per, differing=differing,
+                         max_abs_err=0.0, ms=ms, row_major_b_ms=row_ms,
+                         plain_ms=plain_ms,
+                         bf16_matmul_ms=mm_ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes=nbytes, ops=ops))
+        del a, b
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_int8_shapes(rows, path, shapes):
+    """The int products a path launched, by (M, K, N), against
+    `_int8_cases`' count for it (the counts read from the code)."""
+    want = {}
+    for r in rows:
+        if r["path"] == path:
+            key = str((r["M"], r["K"], r["N"]))
+            want[key] = want.get(key, 0) + r["per_forward"]
+    if shapes != want:
+        raise AssertionError(f"{path}: int8_mm launches by (M,K,N) {shapes}"
+                             f", expected {want}")
+
+
+def check_same_bits(model, images, dev):
+    """The int path through `int8_mm` and through its plain version: the
+    same bits in every block's output (on the plain path's input to it)
+    and in the logits."""
+    import torch
+    differing = []
+    with torch.inference_mode():
+        for name, (x, ref) in zip(model.block_names,
+                                  _capture_blocks(model, images, dev)):
+            differing.append(int((getattr(model, name)(x) != ref).sum()))
+        xt = torch.from_numpy(images).to(dev)
+        logits = model(xt)
+        with plain_path(model):
+            logits_plain = model(xt)
+    n_logits = int((logits != logits_plain).sum())
+    log(f"[slice] int8_mm against its plain version: elements differing in "
+        f"each block's output {differing}, in the logits {n_logits}")
+    if any(differing) or n_logits:
+        raise GateTripped(f"int8_mm and its plain version give other bits: "
+                          f"blocks {differing}, logits {n_logits}")
+    return dict(blocks=differing, logits=n_logits)
+
+
+def composed_top1(pred, batches):
+    """Top-1 agreement of the int8 path with the same model on the
+    composed products in the same stream (matmul_impl=None), printed."""
+    import copy
+    import numpy as np
+    from ofq_tpu_torch.serve import Predictor
+    ref = copy.deepcopy(pred.model)
+    for m in ref.modules():
+        if hasattr(m, "matmul_impl"):
+            m.matmul_impl = None
+    other = Predictor(ref, batch_size=pred.batch_size,
+                      img_size=pred.img_size, device=pred.device)
+    a = np.concatenate([pred.predict(b) for b in batches]).argmax(-1)
+    c = np.concatenate([other.predict(b) for b in batches]).argmax(-1)
+    del ref, other
+    agree = float((a == c).mean())
+    log(f"[slice] top-1 agreement of the int8 path with the composed "
+        f"products in the same stream (matmul_impl=None): "
+        f"{agree * 100:.2f} % of {len(a)} images")
+    return agree
+
+
+def frozen_codes(model, exported, live):
+    """Per StatsQ entry of the artifact, its codes against those that
+    `frozen_weight_int` rebuilds from the frozen model's dequantized
+    weights and stored scales (the integer core's), and against the live
+    student's own int8-path codes (`_weight_int` on its kernels; W_qk
+    formed by `nn/attention.py`): the elements differing."""
+    import math
+    import torch
+    from ofq_tpu_torch.deploy import artifact_meta, unpack_codes
+    from ofq_tpu_torch.nn.attention import _w_qk
+    from ofq_tpu_torch.ops.int8_qlinear import (_weight_int,
+                                                frozen_weight_int)
+    params = dict(model.named_parameters())
+    dev = next(model.parameters()).device
+    out = {}
+    for key, info in artifact_meta(exported)["entries"].items():
+        if info["kind"] != "statsq":
+            continue
+        bits, shape = info["bits"], info["enc_shape"]
+        n = 2 ** (bits - 1)
+        codes = torch.from_numpy(unpack_codes(
+            exported[key + ".codes"], bits, math.prod(shape)).reshape(
+                shape)).to(dev, torch.float32)
+        name = key.replace("/", ".")
+        if name.endswith("w_qk_frozen"):
+            owner = name[:-len(".w_qk_frozen")]
+            scale = params[owner + ".w_qk_scale"]
+            attn = live.get_submodule(owner)
+            H, C = attn.num_heads, shape[1]
+            live_w = _w_qk(attn, H, C, C // H, True).reshape(H * C, C)
+            live_int, _ = _weight_int(live_w.float(), bits, reduce_axis=-1)
+        else:
+            scale = params[name + "_scale"]
+            live_int, _ = _weight_int(
+                live.get_parameter(name).float(), bits)
+        w_int, _ = frozen_weight_int(params[name].reshape(shape), scale,
+                                     bits)
+        out[key] = (int(((w_int - 1) / 2 + n != codes).sum()),
+                    int(((live_int - 1) / 2 + n != codes).sum()))
+    return out
+
+
+def phase_frozen(dev, name, policy, built, export_kw, gate=None,
+                 rate_batch=None):
+    """A frozen packed artifact of the calibrated student `built` (its
+    model, images, rng): exported on the card (`deploy.export_packed` of
+    `model_tree`), its codes against the integer core's and the live
+    student's, served through `Predictor.from_packed(int_core=True)` under
+    phase_slice's gates against this path's own plain version (and at
+    `rate_batch`, img/s), then once through its fp products."""
+    import numpy as np
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.deploy import (artifact_nbytes, export_packed,
+                                      model_tree)
+    from ofq_tpu_torch.serve import Predictor
+    student, images, rng = built
+    t0 = time.perf_counter()
+    exported = export_packed(model_tree(student), weight_bits=2,
+                             qk_reparam=True, **export_kw)
+    nbytes = artifact_nbytes(exported)
+    fp32 = sum(p.numel() * 4 for p in student.parameters())
+    kw = dict(model_name=name, policy=policy, compute_dtype="bfloat16",
+              batch_size=len(images), device=dev)
+    pred = Predictor.from_packed(exported, int_core=True, **kw)
+    codes = frozen_codes(pred.model, exported, student)
+    n_int = sum(a for a, _ in codes.values())
+    n_live = sum(b for _, b in codes.values())
+    log(f"[frozen] {name}: artifact {nbytes / 1e6:.2f} MB against "
+        f"{fp32 / 1e6:.2f} MB of fp32 parameters ({fp32 / nbytes:.2f}x), "
+        f"exported and restored in {time.perf_counter() - t0:.1f} s; "
+        f"{len(codes)} StatsQ entries, codes differing from the integer "
+        f"core's {n_int}, from the live student's int8 codes {n_live}")
+    if n_int or n_live:
+        raise AssertionError(f"[frozen] codes differing: {codes}")
+    res = phase_slice(dev, FROZEN_INT, name, policy, batch=len(images),
+                      gate=gate, built=(pred.model, images, rng))
+    res.update(artifact_bytes=nbytes, fp32_bytes=fp32,
+               codes_differing=dict(integer_core=n_int, live=n_live))
+    if rate_batch:
+        big = Predictor(pred.model, batch_size=rate_batch,
+                        img_size=pred.img_size, device=dev)
+        x = rng.normal(size=(rate_batch,) + images.shape[1:]).astype(
+            np.float32)
+        ops.reset_launch_counts()
+        big.predict(x)
+        res["rate_batch_shapes"] = _shapes(ops.int8_mm)
+        for _ in range(2):
+            big.predict(x)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            big.predict(x)
+        torch.cuda.synchronize()
+        res["img_per_s_rate_batch"] = rate_batch * 5 / (
+            time.perf_counter() - t)
+        log(f"[frozen] {name} integer core, B={rate_batch} (bench.py's "
+            f"serving_rate batch): {res['img_per_s_rate_batch']:.1f} img/s "
+            f"(5 calls after 2 warm-ups)")
+        del big, x
+    del pred
+    torch.cuda.empty_cache()
+    fp = Predictor.from_packed(exported, int_core=False, **kw)
+    ops.reset_launch_counts()
+    p_fp = fp.predict(images)
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    int_model = Predictor.from_packed(exported, int_core=True, **kw)
+    p_int = int_model.predict(images)
+    agree = float((p_fp.argmax(-1) == p_int.argmax(-1)).mean())
+    log(f"[frozen] {name} fp products (int_core=False), B={len(images)}: kernel "
+        f"launches {launches or 'none'}, finite "
+        f"{bool(np.isfinite(p_fp).all())}, top-1 agreement with the "
+        f"integer core {agree * 100:.2f} %")
+    if launches or not np.isfinite(p_fp).all():
+        raise AssertionError(f"[frozen] the fp path launched {launches} or "
+                             f"gave non-finite probabilities")
+    res["fp_path"] = dict(top1_vs_int_core=agree)
+    del fp, int_model
+    torch.cuda.empty_cache()
+    return res
+
+
+def int8_column_fault(real):
+    """int8_mm with one output column's sum moved by one code step: weight
+    code (0, 0) one level (2) up."""
+    def mm(a8, b8):
+        y = real(a8, b8)
+        y[:, 0] += 2 * a8[:, 0].to(y.dtype)
+        return y
+    return mm
+
+
+def phase_int8_selfcheck(dev, built):
+    """The int8 gates shown to fail: `int8_column_fault` around the real
+    `int8_mm` must trip the 0-differing gate (at DeiT-S's fc1 shape) and the
+    block gate of the int8 DeiT-S serving path; the unmodified product must
+    pass both."""
+    import torch
+    from ofq_tpu_torch.nn import linear as nn_linear
+    from ofq_tpu_torch.ops import int8_qlinear as iq
+    model, images, _ = built
+    g = torch.Generator(device=dev).manual_seed(13)
+    M = BATCH * model.cfg.n_tokens
+    a = torch.randint(-2, 2, (M, 384), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = (torch.randint(-2, 2, (1536, 384), generator=g, device=dev) * 2
+         + 1).to(torch.int8).t()
+    ref = iq.int8_mm_reference(a, b)
+
+    def zero_gate():
+        d = int((nn_linear.int8_mm(a, b) != ref).sum())
+        if d:
+            raise GateTripped(f"int8_mm: {d} elements differing")
+
+    checks = {"0-differing gate": (zero_gate,),
+              "block gate": (check_blocks, model, images, dev, INT8)}
+    results, failed = [], []
+    for label, fault, must in (
+            ("int8_mm with one output column moved by one code step",
+             int8_column_fault, True),
+            ("unmodified int8_mm", None, False)):
+        for gate, args in checks.items():
+            ctx = (injected(nn_linear, "int8_mm", fault) if fault
+                   else contextlib.nullcontext())
+            with ctx:
+                tripped, msg = _tripped(*args)
+            ok = tripped == must
+            results.append(dict(fault=label, gate=gate, tripped=tripped,
+                                required=must, ok=ok))
+            log(f"[selfcheck] {label}: {gate} "
+                f"{'tripped' if tripped else 'passed'} (required: "
+                f"{'trip' if must else 'pass'}){' -- ' + msg if msg else ''}")
+            if not ok:
+                failed.append((label, gate))
+    if failed:
+        raise AssertionError(f"int8 gate self-check: {failed}")
+    return results
+
+
+def int8_rows(rows, launches):
+    """The int product's entries of the result (a library call, not one of
+    the port's kernels): its launches on each path beside its times."""
+    out = []
+    for r in rows:
+        key = str((r["M"], r["K"], r["N"]))
+        out.append(dict(
+            name=f"int8_mm {r['path']} {r['name']} ({r['M']}x{r['K']}x"
+                 f"{r['N']})", route="library (torch._int_mm)",
+            source="ofq_tpu_torch/ops/int8_qlinear.py",
+            replaces="ofq_tpu/ops/int8_qlinear.py:77 (XLA's int8 "
+                     "dot_general; no pallas_call)",
+            launches={p: s[key] for p, s in launches.items()
+                      if s.get(key)},
+            max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None, row_major_b_ms=r["row_major_b_ms"],
+            yardstick_bf16_matmul_ms=r["bf16_matmul_ms"]))
+    return out
+
+
 def phase_profile(fn, what, n_calls=3):
     """Device time by kernel over `n_calls` calls of `fn` (torch.profiler)
     and the device's idle share of the window's wall time."""
@@ -2924,6 +3349,41 @@ def main() -> int:
                                            w2a2_qkr_swin_policy(),
                                            gate=SWIN_GATE)
     torch.cuda.empty_cache()
+    full["int8_mm"] = phase_int8_mm(dev)
+    built = build_served(dev, INT8, deit, w2a2_qkr_policy(12))
+    full["slice_int8"] = phase_slice(dev, INT8, deit, w2a2_qkr_policy(12),
+                                     built=built)
+    full["int8_selfcheck"] = phase_int8_selfcheck(dev, built)
+    full["frozen_deit"] = phase_frozen(
+        dev, deit, w2a2_qkr_policy(12), built, dict(num_heads=6),
+        rate_batch=FROZEN_BATCH)
+    del built
+    torch.cuda.empty_cache()
+    full["train_int8"] = phase_train(dev, INT8)
+    torch.cuda.empty_cache()
+    built = build_served(dev, INT8, "swin_t", w2a2_qkr_swin_policy())
+    full["swin_int8"] = phase_slice(dev, INT8, "swin_t",
+                                    w2a2_qkr_swin_policy(), gate=SWIN_GATE,
+                                    built=built)
+    full["frozen_swin"] = phase_frozen(
+        dev, "swin_t", w2a2_qkr_swin_policy(), built, dict(head_dim=32),
+        gate=SWIN_GATE)
+    del built
+    torch.cuda.empty_cache()
+    int8_launches = {
+        "DeiT-S int8 serving": full["slice_int8"]["launch_shapes"],
+        "DeiT-S int8 train step": full["train_int8"]["launch_shapes"],
+        "DeiT-S frozen integer core, B=64":
+            full["frozen_deit"]["launch_shapes"],
+        f"DeiT-S frozen integer core, B={FROZEN_BATCH}":
+            full["frozen_deit"]["rate_batch_shapes"],
+        "Swin-T int8 serving": full["swin_int8"]["launch_shapes"],
+        "Swin-T frozen integer core": full["frozen_swin"]["launch_shapes"]}
+    for what, shapes in int8_launches.items():
+        rows_of = ("Swin-T B=64" if what.startswith("Swin")
+                   else f"DeiT-S B={FROZEN_BATCH}" if str(FROZEN_BATCH)
+                   in what else "DeiT-S B=64")
+        check_int8_shapes(full["int8_mm"], rows_of, shapes)
 
     srcs = {
         "K1": ("ofq_tpu_torch/csrc/fused_qlinear.cu",
@@ -3028,11 +3488,15 @@ def main() -> int:
     if base:
         full["versus_baseline"] = compare_baseline(full)
     full["seconds"] = time.perf_counter() - t_start
+    int8 = int8_rows(full["int8_mm"], int8_launches)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(full, f, indent=1)
     log(f"[done] {full['seconds']:.1f} s")
+    # the int8 paths' integer product, a library call (no TPU kernel lies
+    # on those paths), on a line of its own
+    log(json.dumps({"int8_mm": int8}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,11 @@ DeiT W2A2 QKR serves and trains, and Swin-T (W2A2 QKR and float) serves,
 through hand-written CUDA kernels (`ops/fused_qlinear.py`,
 `ops/fused_attention.py`, `ops/pallas_statsq.py`, and the Swin
 window-attention lab kernels of `ops/window_attention.py`); every kernel
-has a plain PyTorch version beside it, used for tensors on the CPU.
+has a plain PyTorch version beside it, used for tensors on the CPU.  The
+int8 path (`matmul_impl="int8"`) runs every quantized product on the
+integer codes (`ops/int8_qlinear.py`, `torch._int_mm` on the card), and
+a trained student freezes into a packed artifact (`deploy.py`) served
+through the same integer core (`serve.Predictor.from_packed`).
 Nothing in this package imports JAX or `ofq_tpu`, and importing it builds
 nothing: the kernels are compiled with `nvcc` at their first launch.
 """

@@ -52,7 +52,8 @@ class DeiTConfig:
     attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.0
     # quantized linears: None/'xla' (composition) | 'pallas' (K4, the
-    # StatsQ matmul kernel) | 'fused' (K1, the fused QLinear kernel)
+    # StatsQ matmul kernel) | 'fused' (K1, the fused QLinear kernel) |
+    # 'int8' (the products on the integer codes, `ops/int8_qlinear.py`)
     matmul_impl: Optional[str] = None
     # attention tail: None/'xla' (composition) | 'fused' (CUDA kernel)
     attn_impl: Optional[str] = None
@@ -121,6 +122,10 @@ class Block(nn.Module):
         hidden = int(C * cfg.mlp_ratio)
         n_tok = cfg.n_tokens
         cd = cfg.compute_dtype
+        # deployment: the kernels already hold dequantized StatsQ values
+        frozen = policy.weight_frozen
+        wb = 32 if frozen else policy.weight.bit
+        fib = policy.frozen_int_bits if frozen else None
         self.norm1 = LayerNorm(C, cfg.ln_eps, cd)
         if policy.quantizes(f"blocks.{index}.attn"):
             if not policy.qk_reparam:
@@ -128,12 +133,12 @@ class Block(nn.Module):
             if policy.lsq_weights:
                 raise not_in_port("full-LSQ weights (LsqLinear)", 3)
             self.attn = QAttentionQKR(
-                C, cfg.num_heads, n_tok, weight_bits=policy.weight.bit,
+                C, cfg.num_heads, n_tok, weight_bits=wb,
                 input_bits=policy.act.bit,
                 quantize_softmax=policy.quantize_softmax,
                 aq_learnable=policy.act.learnable,
                 matmul_impl=cfg.matmul_impl, attn_impl=cfg.attn_impl,
-                compute_dtype=cd)
+                compute_dtype=cd, frozen_wqk=frozen, frozen_int_bits=fib)
         else:
             self.attn = Attention(C, cfg.num_heads)
         self.norm2 = LayerNorm(C, cfg.ln_eps, cd)
@@ -142,10 +147,11 @@ class Block(nn.Module):
                 raise not_in_port("full-LSQ weights (LsqLinear)", 3)
             self.mlp = QMlp(
                 C, hidden, C, n_tok,
-                weight_bits=policy.weight.bit, input_bits=policy.act.bit,
+                weight_bits=wb, input_bits=policy.act.bit,
                 act_layer=policy.act_layer,
                 aq_learnable=policy.act.learnable,
-                matmul_impl=cfg.matmul_impl, compute_dtype=cd)
+                matmul_impl=cfg.matmul_impl, compute_dtype=cd,
+                frozen=frozen, frozen_int_bits=fib)
         else:
             self.mlp = Mlp(C, hidden, C)
 
@@ -287,7 +293,9 @@ def init_weights(model: nn.Module, generator: torch.Generator, *,
                 fan_in = math.prod(p.shape[:-1])
                 _trunc_normal_(p, lecun_std_unit / math.sqrt(fan_in),
                                generator)
-            elif leaf in ("scale", "s"):
+            elif leaf in ("scale", "s") or leaf.endswith("_scale"):
+                # LayerNorm scales, LSQ scales and a frozen artifact's
+                # StatsQ scales (ones, as the JAX initializers give them)
                 p.fill_(1.0)
             else:
                 p.zero_()

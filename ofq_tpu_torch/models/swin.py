@@ -63,7 +63,7 @@ class SwinConfig:
     qqkkvv: bool = False
     ln_eps: float = 1e-5
     norm_layer: str = "layernorm"
-    # quantized linears: None/'xla' (composition) | 'pallas' (K4)
+    # quantized linears: None/'xla' (composition) | 'pallas' (K4) | 'int8'
     matmul_impl: Optional[str] = None
     compute_dtype: Optional[str] = None
     remat_stages: Tuple[int, ...] = ()
@@ -255,9 +255,7 @@ class QSwinAttentionQKR(WindowAttentionBase, QAttentionQKR):
     `proj` QLinear.  The composed tail only."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 shift_size: int, *, attn_impl: Optional[str] = None,
-                 frozen_wqk: bool = False,
-                 frozen_int_bits: Optional[int] = None, **kw):
+                 shift_size: int, *, attn_impl: Optional[str] = None, **kw):
         if attn_impl == "remat":
             raise not_in_port("attn_impl='remat' for Swin (the checkpointed "
                               "window-attention tail)", 5)
@@ -266,9 +264,6 @@ class QSwinAttentionQKR(WindowAttentionBase, QAttentionQKR):
                 f"attn_impl={attn_impl!r}: Swin's window attention runs the "
                 "composition (the fused attention core is not supported for "
                 "Swin, as in the JAX package)")
-        if frozen_wqk or frozen_int_bits is not None:
-            raise not_in_port("frozen deployment weights (frozen_wqk, "
-                              "frozen_int_bits)", 2)
         super().__init__(dim, num_heads, window_size * window_size, **kw)
         self._init_window(num_heads, window_size, shift_size)
 
@@ -287,10 +282,18 @@ class QSwinAttentionQKR(WindowAttentionBase, QAttentionQKR):
 
 
 # ------------------------------------------------------------- structure
-def _quantized_kw(policy: QuantPolicy, cfg: SwinConfig) -> dict:
-    return dict(weight_bits=policy.weight.bit, input_bits=policy.act.bit,
-                aq_learnable=policy.act.learnable,
-                matmul_impl=cfg.matmul_impl, compute_dtype=cfg.compute_dtype)
+def _quantized_kw(policy: QuantPolicy, cfg: SwinConfig,
+                  frozen_name: str = "frozen") -> dict:
+    """The quantized modules' settings; under a frozen policy (a deployment
+    artifact) the weights are 32-bit dequantized levels and
+    `frozen_int_bits` comes from the policy, as in JAX."""
+    frozen = policy.weight_frozen
+    return {"weight_bits": 32 if frozen else policy.weight.bit,
+            "input_bits": policy.act.bit,
+            "aq_learnable": policy.act.learnable,
+            "matmul_impl": cfg.matmul_impl,
+            "compute_dtype": cfg.compute_dtype, frozen_name: frozen,
+            "frozen_int_bits": policy.frozen_int_bits if frozen else None}
 
 
 class PatchMerging(nn.Module):
@@ -338,7 +341,8 @@ class SwinBlock(nn.Module):
                 raise not_in_port("full-LSQ weights (LsqLinear)", 3)
             self.attn = QSwinAttentionQKR(
                 dim, num_heads, quantize_softmax=policy.quantize_softmax,
-                attn_impl=cfg.attn_impl, **geom, **_quantized_kw(policy, cfg))
+                attn_impl=cfg.attn_impl, **geom,
+                **_quantized_kw(policy, cfg, "frozen_wqk"))
         else:
             self.attn = SwinAttention(dim, num_heads, qqkkvv=cfg.qqkkvv,
                                       **geom)

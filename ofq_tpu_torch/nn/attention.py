@@ -9,6 +9,12 @@ one (H*C, C) matrix with per-row scales, and the attention logits become
   * the composition (einsum -> softmax -> LSQ -> einsum), and
   * 'fused': the CUDA kernels of `ops/fused_attention.py` (K2 forward, K3
     backward).
+The QKR chain has three implementations of its v and qkx products
+(`qkr_quant_chain`): the composition; with `matmul_impl='int8'`, products
+on the shared input's integer codes (`ops/int8_qlinear.py`); and, for a
+frozen deployment artifact (`frozen_wqk`: the quantized product is stored
+as `w_qk_frozen`, there are no q/k kernels) with `frozen_int_bits`, the
+same products on codes rebuilt from the artifact's stored scales.
 Calibration always runs the composition, so `quan_softmax.s` is set from
 the probabilities themselves, never through the kernel (the rule the JAX
 package enforces in `_SoftmaxScaleParam`).  Under `compute_dtype`
@@ -28,43 +34,100 @@ from ..ops.fused_attention import (qkr_attention_bwd,
                                    qkr_attention_fwd,
                                    qkr_attention_fwd_reference,
                                    quantized_attention_core, softmax)
+from ..ops.int8_qlinear import (frozen_int8_linear, frozen_int8_qkx,
+                                int8_eligible, int8_statsq_linear,
+                                int8_statsq_qkx, qkr_int8_codes)
 from ..quant.lsq import grad_scale_factor
 from ..quant.statsq import statsq_quantize
 from ..quant.ste import as_dtype, clip_lower, grad_scale, weak_scalar
 from .bias import LearnableBias
-from .linear import Dense, QLinear, check_bits
+from .linear import Dense, QLinear, check_bits, int_product
 from .quantizers import LsqAct
 
 
+def qkr_int8_flags(mod) -> tuple[bool, bool]:
+    """(codes, frozen_int) of a QKR attention (`ofq_tpu.nn.attention.
+    qkr_int8_flags`): whether its v and qkx products run on the integer
+    codes, and whether those codes' weights come from a frozen artifact.
+    One definition for QAttentionQKR and QSwinAttentionQKR; off while
+    calibrating, so calibration runs the composition."""
+    if mod.calibrating:
+        return False, False
+    use_int8 = (mod.matmul_impl == "int8" and not mod.frozen_wqk
+                and int8_eligible(mod.weight_bits, mod.input_bits))
+    frozen_int = (mod.frozen_wqk and mod.frozen_int_bits is not None
+                  and int8_eligible(mod.frozen_int_bits, mod.input_bits))
+    return use_int8 or frozen_int, frozen_int
+
+
+def _w_qk(mod, H, C, d, codes):
+    """The (H, C, C) per-head product: the stored `w_qk_frozen` of an
+    artifact, else Wq^T Wk from the q/k kernels, StatsQ-quantized per row
+    of its (H*C, C) view unless the integer branch quantizes it itself."""
+    if mod.frozen_wqk:
+        return mod.w_qk_frozen
+    qh = mod.q_kernel.reshape(C, H, d)
+    kh = mod.k_kernel.reshape(C, H, d)
+    w_qk = torch.einsum("ihd,jhd->hij", qh, kh)
+    if codes:
+        return w_qk
+    w_qk = statsq_quantize(w_qk.reshape(H * C, C), mod.weight_bits,
+                           reduce_axis=-1)
+    return w_qk.reshape(H, C, C)
+
+
 def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
-    """Shared QKR scaffold, composed branch: the input quantization shared
-    by the v and qkx products, the v path, the quantized per-head W_qk
-    product and the 4-D qkx bias/LSQ chain.
+    """Shared QKR scaffold (`ofq_tpu.nn.attention.qkr_quant_chain`): the
+    input quantization shared by the v and qkx products, the v path, the
+    per-head W_qk product and the 4-D qkx bias/LSQ chain; the products
+    composed, on the integer codes (int8), or on an artifact's codes
+    (frozen int).
 
     Returns xq (B, N, C), v (B, N, H, d), qkx (B, N, H, C)."""
     B, N, C = x.shape
     H = mod.num_heads
     d = C // H
     cd = mod.compute_dtype
-    xq = mod.quant_x_move_aft(mod.quant_x(mod.quant_x_move_b4(x)))
+    codes, frozen_int = qkr_int8_flags(mod)
+    x1 = mod.quant_x_move_b4(x)
+    # the fp view (the attention lhs) is built from the composed primitives
+    # on every branch, so the s and bx gradients its consumers give are
+    # summed in fp32 under the bf16 stream (the fused LSQ VJP, `bias_add`)
+    xq = mod.quant_x_move_aft(mod.quant_x(x1))
+    if codes:
+        mm = int_product(mod)
+        s = mod.quant_x.s if mod.quant_x.learnable else mod.quant_x.s.detach()
+        xi, s_eff = qkr_int8_codes(x1, s, mod.input_bits)
+        bx = mod.quant_x_move_aft.bias
 
-    vq = statsq_quantize(mod.v_kernel, mod.weight_bits)
-    if cd is not None:
-        vq = vq.to(cd)
-    v_out = _matmul(xq, vq) + mod.v_bias.to(xq.dtype)
+    if frozen_int:
+        v_out = (frozen_int8_linear(xi, s_eff, bx, mod.v_kernel,
+                                    mod.v_kernel_scale, mod.frozen_int_bits,
+                                    mm) + mod.v_bias.to(xi.dtype))
+    elif codes:
+        v_out = (int8_statsq_linear(xi, s_eff, bx, mod.v_kernel,
+                                    mod.weight_bits, mm)
+                 + mod.v_bias.to(xi.dtype))
+    else:
+        vq = (mod.v_kernel if mod.frozen_wqk
+              else statsq_quantize(mod.v_kernel, mod.weight_bits))
+        if cd is not None:
+            vq = vq.to(cd)
+        v_out = _matmul(xq, vq) + mod.v_bias.to(xq.dtype)
     v_out = mod.move_v_aft(mod.quan_v(mod.move_v_b4(v_out)))
     v = v_out.reshape(B, N, H, d)
 
-    qh = mod.q_kernel.reshape(C, H, d)
-    kh = mod.k_kernel.reshape(C, H, d)
-    w_qk = torch.einsum("ihd,jhd->hij", qh, kh).reshape(H * C, C)
-    w_qk = statsq_quantize(w_qk, mod.weight_bits, reduce_axis=-1)
-    w_qk = w_qk.reshape(H, C, C)
-    if cd is not None:
-        w_qk = w_qk.to(cd)
-
-    dt = torch.promote_types(xq.dtype, w_qk.dtype)
-    qkx = torch.einsum("bnj,hij->bnhi", xq.to(dt), w_qk.to(dt))
+    w_qk = _w_qk(mod, H, C, d, codes)
+    if frozen_int:
+        qkx = frozen_int8_qkx(xi, s_eff, bx, w_qk, mod.w_qk_scale,
+                              mod.frozen_int_bits, mm)
+    elif codes:
+        qkx = int8_statsq_qkx(xi, s_eff, bx, w_qk, mod.weight_bits, mm)
+    else:
+        if cd is not None:
+            w_qk = w_qk.to(cd)
+        dt = torch.promote_types(xq.dtype, w_qk.dtype)
+        qkx = torch.einsum("bnj,hij->bnhi", xq.to(dt), w_qk.to(dt))
     qkx = mod.move_qkx_aft(mod.quan_qkx(mod.move_qkx_b4(qkx)))
     return xq, v, qkx
 
@@ -101,7 +164,10 @@ class QAttentionQKR(nn.Module):
     `n_tokens` is the sequence length N; the per-token scales
     (`quant_x.s`, `quan_softmax.s`: (N,); `quan_qkx.s`: (N*H,)) depend on it.
     `sm_scale` is `(C // H) ** -0.5` although the QKR contraction runs over
-    C, as in the reference.
+    C, as in the reference.  `frozen_wqk` (a deployment artifact: weight
+    bits 32, `w_qk_frozen` (H, C, C) in place of the q/k kernels) and
+    `frozen_int_bits` (with `v_kernel_scale` (1, C) and `w_qk_scale`
+    (H*C, 1), the artifact's scales) as in JAX; `proj` follows them.
     """
 
     def __init__(self, dim: int, num_heads: int, n_tokens: int, *,
@@ -109,9 +175,12 @@ class QAttentionQKR(nn.Module):
                  quantize_softmax: bool = True,
                  aq_learnable: bool = True,
                  matmul_impl: str | None = None,
-                 attn_impl: str | None = None, compute_dtype=None):
+                 attn_impl: str | None = None, compute_dtype=None,
+                 frozen_wqk: bool = False,
+                 frozen_int_bits: int | None = None):
         super().__init__()
-        check_bits(weight_bits=weight_bits, input_bits=input_bits)
+        check_bits(frozen_wqk, weight_bits=weight_bits,
+                   input_bits=input_bits)
         if attn_impl not in (None, "xla", "fused"):
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r}: the port has the composition and "
@@ -124,7 +193,10 @@ class QAttentionQKR(nn.Module):
         self.quantize_softmax = quantize_softmax
         self.aq_learnable = aq_learnable
         self.attn_impl = attn_impl
+        self.matmul_impl = matmul_impl
         self.compute_dtype = compute_dtype
+        self.frozen_wqk = frozen_wqk
+        self.frozen_int_bits = frozen_int_bits
         self.use_kernels = True
         self.calibrating = False
 
@@ -137,8 +209,15 @@ class QAttentionQKR(nn.Module):
         self.move_v_b4 = LearnableBias(C)
         self.quan_v = LsqAct(input_bits, C, channel_axis=-1, **lrn)
         self.move_v_aft = LearnableBias(C)
-        self.q_kernel = nn.Parameter(torch.zeros(C, C))
-        self.k_kernel = nn.Parameter(torch.zeros(C, C))
+        if frozen_wqk:
+            self.w_qk_frozen = nn.Parameter(torch.zeros(H, C, C))
+            if frozen_int_bits is not None and int8_eligible(
+                    frozen_int_bits, input_bits):
+                self.v_kernel_scale = nn.Parameter(torch.ones(1, C))
+                self.w_qk_scale = nn.Parameter(torch.ones(H * C, 1))
+        else:
+            self.q_kernel = nn.Parameter(torch.zeros(C, C))
+            self.k_kernel = nn.Parameter(torch.zeros(C, C))
         self.move_qkx_b4 = LearnableBias(H * C, apply_shape=(H, C))
         self.quan_qkx = LsqAct(input_bits, n_tokens * H, channel_axis=(1, 2),
                                **lrn)
@@ -149,7 +228,8 @@ class QAttentionQKR(nn.Module):
         self.proj = QLinear(C, C, n_tokens, weight_bits=weight_bits,
                             input_bits=input_bits, aq_learnable=aq_learnable,
                             matmul_impl=matmul_impl,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype, frozen=frozen_wqk,
+                            frozen_int_bits=frozen_int_bits)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape

@@ -4,13 +4,23 @@
 Kernels keep the Flax `(in, out)` layout.  `QLinear` has the composed
 branch (bias -> LSQ -> bias -> x @ StatsQ(W)), whose product is the
 composition or, with `matmul_impl='pallas'`, the K4 kernel
-(`ops/pallas_statsq.py`), and the fused branch (`matmul_impl='fused'`: one
-CUDA kernel, `ops/fused_qlinear.py`); all read the same parameters
-(`move_b4.bias`, `input_quant.s`, `move_aft.bias`, `kernel`, `bias`), as
-the JAX param tree is the same for every `matmul_impl`.  `compute_dtype`
-('bfloat16') runs the product in that dtype with fp32 sums, as JAX's
-`statsq_matmul` does; the fused kernel, as JAX's, takes x in fp32 whatever
-the stream and returns y in x's dtype.
+(`ops/pallas_statsq.py`), the fused branch (`matmul_impl='fused'`: one
+CUDA kernel, `ops/fused_qlinear.py`) and the int8 branch
+(`matmul_impl='int8'`: the product on the integer codes,
+`ops/int8_qlinear.py`; widths whose codes do not fit int8 take the
+composed branch); all read the same parameters (`move_b4.bias`,
+`input_quant.s`, `move_aft.bias`, `kernel`, `bias`), as the JAX param tree
+is the same for every `matmul_impl`.  `compute_dtype` ('bfloat16') runs
+the product in that dtype with fp32 sums, as JAX's `statsq_matmul` does;
+the fused kernel, as JAX's, takes x in fp32 whatever the stream and
+returns y in x's dtype.
+
+Frozen serving (`frozen=True`, from a policy with `weight_frozen`): the
+kernel holds dequantized StatsQ values restored from a packed artifact, so
+`weight_bits` is 32 and the product skips the quantizer; with
+`frozen_int_bits` the layer also holds the artifact's scale
+(`kernel_scale`, (1, out)) and runs the integer core on the codes rebuilt
+from it.
 """
 
 from __future__ import annotations
@@ -20,9 +30,11 @@ from torch import nn
 
 from ..ops.fused_qlinear import (fused_qlinear, fused_qlinear_fwd,
                                  fused_qlinear_fwd_reference)
+from ..ops.int8_qlinear import (frozen_int8_forward, int8_eligible, int8_mm,
+                                int8_mm_reference, int8_qlinear)
 from ..ops.pallas_statsq import pallas_statsq_fwd, pallas_statsq_fwd_reference
 from ..ops.statsq_matmul import statsq_matmul
-from ..quant.ste import as_dtype
+from ..quant.ste import as_dtype, at_least_f32
 from .bias import LearnableBias
 from .quantizers import LsqAct, LsqWeight
 
@@ -38,13 +50,23 @@ def _check_act(act_layer: str) -> None:
             f"act_layer={act_layer!r}: the port has GELU only")
 
 
-def check_bits(**bits: int) -> None:
-    """The slice quantizes every site: reject bit widths >= 32."""
+def check_bits(frozen: bool = False, **bits: int) -> None:
+    """The slice quantizes every site: reject bit widths >= 32, but for the
+    frozen weights of a deployment artifact (`frozen=True`: `weight_bits`
+    32, the kernel already holds its levels)."""
     for name, b in bits.items():
+        if frozen and name == "weight_bits" and b == 32:
+            continue
         if not 1 <= b < 32:
             raise NotImplementedError(
                 f"{name}={b}: the port quantizes every site of the slice "
                 "(1 <= bits < 32); unquantized sites are a ROADMAP item")
+
+
+def int_product(module):
+    """The int product a module's int8 branches run: `int8_mm` or, with the
+    module's `use_kernels` off, its plain version."""
+    return int8_mm if module.use_kernels else int8_mm_reference
 
 
 class QLinear(nn.Module):
@@ -53,26 +75,38 @@ class QLinear(nn.Module):
     `symmetric=False` selects the all-positive input quantizer (post-GELU
     fc2 inputs).  `n_tokens` is the length of the token axis (axis -2 of
     the input), which carries the per-token LSQ scale.  `use_kernels`
-    and `calibrating` are set model-wide (see `VisionTransformer`).
+    and `calibrating` are set model-wide (see `VisionTransformer`); every
+    branch but the composed one is bypassed while calibrating.
     `aq_learnable=False` detaches the input scale on every branch.
+    `frozen`/`frozen_int_bits`: see the module docstring.
     """
 
     def __init__(self, in_features: int, features: int, n_tokens: int, *,
                  weight_bits: int, input_bits: int, symmetric: bool = True,
                  aq_learnable: bool = True,
-                 matmul_impl: str | None = None, compute_dtype=None):
+                 matmul_impl: str | None = None, compute_dtype=None,
+                 frozen: bool = False, frozen_int_bits: int | None = None):
         super().__init__()
-        check_bits(weight_bits=weight_bits, input_bits=input_bits)
-        if matmul_impl not in (None, "xla", "fused", "pallas"):
+        check_bits(frozen, weight_bits=weight_bits, input_bits=input_bits)
+        if matmul_impl not in (None, "xla", "fused", "pallas", "int8"):
             raise NotImplementedError(
                 f"matmul_impl={matmul_impl!r}: the port has the composed "
-                "path, 'pallas' and 'fused'; 'int8' is a ROADMAP item")
+                "path, 'pallas', 'fused' and 'int8'")
+        if frozen != (weight_bits == 32) or (
+                frozen_int_bits is not None and not frozen):
+            raise ValueError(
+                f"frozen={frozen}, weight_bits={weight_bits}, "
+                f"frozen_int_bits={frozen_int_bits}: frozen weights are the "
+                "32-bit dequantized kernels of an artifact, and only they "
+                "take frozen_int_bits")
         compute_dtype = as_dtype(compute_dtype)
         self.weight_bits = weight_bits
         self.input_bits = input_bits
         self.symmetric = symmetric
         self.matmul_impl = matmul_impl
         self.compute_dtype = compute_dtype
+        self.frozen = frozen
+        self.frozen_int_bits = frozen_int_bits
         self.use_kernels = True
         self.calibrating = False
         self.kernel = nn.Parameter(torch.zeros(in_features, features))
@@ -82,25 +116,68 @@ class QLinear(nn.Module):
                                   learnable=aq_learnable)
         self.move_aft = LearnableBias(in_features)
         self.bias = nn.Parameter(torch.zeros(features))
+        if self._int_eligible(frozen_int_bits):
+            self.kernel_scale = nn.Parameter(torch.ones(1, features))
+
+    def _int_eligible(self, w_bits):
+        return w_bits is not None and int8_eligible(
+            w_bits, self.input_bits, not self.symmetric)
+
+    def _scale(self):
+        s = self.input_quant.s
+        return s if self.input_quant.learnable else s.detach()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.matmul_impl == "fused" and not self.calibrating:
-            s = self.input_quant.s
+        if not self.calibrating:
+            y = self._integer_branch(x)
+            if y is not None:
+                return y + self.bias.to(y.dtype)
+        if self.matmul_impl == "fused" and not self.calibrating \
+                and not self.frozen:
             return fused_qlinear(
-                x, self.kernel, s if self.input_quant.learnable else s.detach(),
-                self.move_b4.bias,
+                x, self.kernel, self._scale(), self.move_b4.bias,
                 self.move_aft.bias, self.bias, w_bits=self.weight_bits,
                 a_bits=self.input_bits, all_positive=not self.symmetric,
                 fwd=(fused_qlinear_fwd if self.use_kernels
                      else fused_qlinear_fwd_reference))
         x = self.move_aft(self.input_quant(self.move_b4(x)))
-        y = statsq_matmul(
-            x, self.kernel, self.weight_bits,
-            impl="pallas" if self.matmul_impl == "pallas" else "xla",
-            compute_dtype=self.compute_dtype,
-            fwd=(pallas_statsq_fwd if self.use_kernels
-                 else pallas_statsq_fwd_reference))
+        if self.frozen:
+            # the kernel already holds its levels: no weight quantizer, the
+            # compute-dtype semantics of `statsq_matmul`
+            cd, k = self.compute_dtype, self.kernel
+            if cd is not None:
+                x, k = x.to(cd), k.to(cd)
+            acc = at_least_f32(x.dtype)
+            y = torch.matmul(x.to(acc), k.to(acc))
+            y = y if cd is None else y.to(cd)
+        else:
+            y = statsq_matmul(
+                x, self.kernel, self.weight_bits,
+                impl="pallas" if self.matmul_impl == "pallas" else "xla",
+                compute_dtype=self.compute_dtype,
+                fwd=(pallas_statsq_fwd if self.use_kernels
+                     else pallas_statsq_fwd_reference))
         return y + self.bias.to(y.dtype)
+
+    def _integer_branch(self, x):
+        """The frozen integer core or the int8 training branch, without
+        the output bias; None where neither applies (frozen fp serving, or
+        widths whose codes do not fit int8)."""
+        if self.frozen:
+            if not self._int_eligible(self.frozen_int_bits):
+                return None
+            return frozen_int8_forward(
+                x, self.kernel, self.kernel_scale, self._scale(),
+                self.move_b4.bias, self.move_aft.bias,
+                w_bits=self.frozen_int_bits, a_bits=self.input_bits,
+                all_positive=not self.symmetric, mm=int_product(self))
+        if self.matmul_impl != "int8" or not self._int_eligible(
+                self.weight_bits):
+            return None
+        return int8_qlinear(
+            x, self.kernel, self._scale(), self.move_b4.bias,
+            self.move_aft.bias, self.weight_bits, self.input_bits,
+            not self.symmetric, mm=int_product(self))
 
 
 class QHeadLinear(nn.Module):
@@ -129,12 +206,14 @@ class QMlp(nn.Module):
                  out_features: int, n_tokens: int, *, weight_bits: int,
                  input_bits: int, act_layer: str = "gelu",
                  aq_learnable: bool = True,
-                 matmul_impl: str | None = None, compute_dtype=None):
+                 matmul_impl: str | None = None, compute_dtype=None,
+                 frozen: bool = False, frozen_int_bits: int | None = None):
         super().__init__()
         _check_act(act_layer)
         kw = dict(weight_bits=weight_bits, input_bits=input_bits,
                   aq_learnable=aq_learnable, matmul_impl=matmul_impl,
-                  compute_dtype=compute_dtype)
+                  compute_dtype=compute_dtype, frozen=frozen,
+                  frozen_int_bits=frozen_int_bits)
         self.fc1 = QLinear(in_features, hidden_features, n_tokens,
                            symmetric=True, **kw)
         self.fc2 = QLinear(hidden_features, out_features, n_tokens,

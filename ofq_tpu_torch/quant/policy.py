@@ -3,9 +3,14 @@
 Models take a `QuantPolicy` at construction and build quantized or float
 submodules per path, with the reference's path strings
 ("blocks.3.attn", "patch_embed.proj", "head", and Swin's torchvision
-feature paths "features.1.0.attn", "features.2.reduction", ...).  The deploy-artifact
-fields of the JAX policy (`weight_frozen`, `frozen_int_bits`) and the CGA
-fields (`qk_reparam_type`, `boundary_range`) belong to later slices.
+feature paths "features.1.0.attn", "features.2.reduction", ...).  The
+deployment fields serve a packed artifact (`deploy.py`): `weight_frozen`
+(the kernels already hold dequantized StatsQ values, so weight fake-quant
+is skipped and QKR reads a stored `w_qk_frozen`) and `frozen_int_bits`
+(with it, the integer codes are rebuilt from the artifact's stored scales
+and the products run on them, `ops/int8_qlinear.py`).  The CGA fields of
+the JAX policy (`qk_reparam_type`, `boundary_range`) belong to a later
+slice.
 """
 
 from __future__ import annotations
@@ -37,6 +42,18 @@ class QuantPolicy:
     act_layer: str = "gelu"
     # --apply_q_attn_dropout: 0/3 quantize the post-softmax attention
     q_attn_mode: int = 0
+    # deployment: kernels hold dequantized StatsQ values restored from a
+    # packed artifact; StatsQ recomputes its scale from live weights and is
+    # not idempotent, so weight fake-quant is skipped and QKR reads the
+    # stored `w_qk_frozen`.  Activation quantizers and the LSQ-weight heads
+    # (idempotent) run as usual.
+    weight_frozen: bool = False
+    # integer-core serving: with weight_frozen, the artifact's StatsQ scales
+    # ride in the param tree (`kernel_scale`, `v_kernel_scale`,
+    # `w_qk_scale`, written by `deploy.restore_packed(int_core=True)`) and
+    # the codes W_int = round(w_q * 2n / s) feed the int8 products.  None:
+    # frozen fp serving.
+    frozen_int_bits: int | None = None
 
     @property
     def quantize_softmax(self) -> bool:

@@ -6,17 +6,30 @@
                                 policy=w2a2_qkr_policy(12))
     probs = p.predict(images_nhwc)          # (B, 1000) softmax
 
+A frozen packed artifact (`deploy.export_packed`, saved with `np.savez`)
+serves through the integer core:
+
+    exported = dict(np.load("w2a2_deit_s_packed.npz"))
+    p = Predictor.from_packed(exported,
+                              model_name="deit_small_distilled_patch16_224",
+                              policy=w2a2_qkr_policy(12), int_core=True,
+                              compute_dtype="bfloat16")
+
 A batch shorter than `batch_size` is padded to it and the result trimmed,
 so every call runs the same shapes.  Runs on CUDA unless `device="cpu"`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .convert import load_flax_params
+from .deploy import artifact_meta, restore_packed
 from .models.registry import create_model, resolve_device
+from .ops.int8_qlinear import int8_eligible
 from .quant.policy import QuantPolicy
 
 
@@ -42,6 +55,46 @@ class Predictor:
                              matmul_impl=matmul_impl, attn_impl=attn_impl,
                              compute_dtype=compute_dtype)
         load_flax_params(model, npz_path)
+        return cls(model, batch_size=batch_size,
+                   img_size=model.cfg.img_size, device=device)
+
+    @classmethod
+    def from_packed(cls, exported, *, model_name: str, policy: QuantPolicy,
+                    int_core: bool = True, compute_dtype=None,
+                    batch_size: int = 64, device="cuda") -> "Predictor":
+        """A predictor for a packed artifact (a dict of arrays, or the path
+        of its `.npz`) of the W2A2 student trained under `policy`.  The
+        model is built frozen (`weight_frozen=True`, and with `int_core`
+        `frozen_int_bits` = the artifact's weight bits: its products run on
+        the codes rebuilt from the stored scales), in `bench.py`'s
+        configuration (composed attention tail; `compute_dtype` as given)
+        and loaded strictly, the image quantizer's state with it (an
+        artifact of `deploy.model_tree`; the JAX package's exports hold the
+        params collection alone: restore those with `restore_packed` and
+        load them with their `quant_stats`)."""
+        if isinstance(exported, (str, bytes)) or hasattr(exported,
+                                                         "__fspath__"):
+            with np.load(exported) as npz:
+                exported = dict(npz)
+        meta = artifact_meta(exported)
+        bits = meta["weight_bits"]
+        if bool(meta["qk_reparam"]) != policy.qk_reparam or \
+                meta["wq_mode"] != "statsq" or bits != policy.weight.bit:
+            raise ValueError(
+                f"artifact (W{bits}, qk_reparam={meta['qk_reparam']}, "
+                f"wq_mode={meta['wq_mode']!r}) does not match the policy "
+                f"(W{policy.weight.bit}, qk_reparam={policy.qk_reparam})")
+        if int_core and not int8_eligible(bits, policy.act.bit, True):
+            # outside these widths the layers would serve the fp frozen
+            # path under an int-core name
+            raise ValueError(f"int_core serves W2..W4 / A<=7 artifacts, got "
+                             f"W{bits}A{policy.act.bit}")
+        frozen = dataclasses.replace(
+            policy, weight_frozen=True,
+            frozen_int_bits=bits if int_core else None)
+        model = create_model(model_name, policy=frozen, device=device,
+                             compute_dtype=compute_dtype)
+        load_flax_params(model, restore_packed(exported, int_core=int_core))
         return cls(model, batch_size=batch_size,
                    img_size=model.cfg.img_size, device=device)
 

@@ -717,3 +717,36 @@ def test_k3_fp32_pass_a_holds_two_blocks_at_deit_s(dev):
     """Pass A in fp32 at N = 198 (113 664 bytes, __launch_bounds__(256,
     2)): the runtime's occupancy, registers counted, is two blocks."""
     assert fa.bwd_launch_config(198, False)[3] == 2
+
+
+# ------------------------------------------ the int8 path's int product
+@pytest.mark.parametrize("M,K,N", [(1, 8, 8), (16, 96, 288), (17, 96, 288),
+                                   (198, 12, 10), (12672, 384, 2304),
+                                   (3136, 3072, 768)])
+@pytest.mark.parametrize("column_major", [False, True])
+def test_int8_mm_exact_at_padded_shapes_and_layouts(dev, M, K, N,
+                                                    column_major):
+    """`int8_mm` (torch._int_mm) against its plain version, 0 elements
+    differing, at the path's shapes and at those `_int_mm` refuses (M <= 16
+    or not a multiple of 8, K or N not a multiple of 8), which the wrapper
+    pads; B in either layout; each call counted once."""
+    from ofq_tpu_torch.ops import int8_qlinear as iq
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    a = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-15, 16, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    if column_major:
+        b = b.t().contiguous().t()
+    before = iq.int8_mm.launches
+    y = iq.int8_mm(a, b)
+    assert iq.int8_mm.launches == before + 1
+    assert y.dtype == torch.int32 and tuple(y.shape) == (M, N)
+    assert torch.equal(y, iq.int8_mm_reference(a, b))
+
+
+def test_int8_mm_refuses_other_dtypes(dev):
+    from ofq_tpu_torch.ops import int8_qlinear as iq
+    a = torch.zeros(32, 8, device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        iq.int8_mm(a, torch.zeros(8, 8, dtype=torch.int8, device=dev))
