@@ -46,6 +46,22 @@ Phases (any failure raises and the script exits non-zero):
   5b, 6b. the same serving and train step with the fused kernels in the
      bf16 stream (FUSED_BF16: bench.py's `matmul_impl="fused"` bf16 row,
      fp32 masters, bf16 teacher): the same launch counts, the bf16 gates;
+  6c. the CGA finetune step (phase 2 of train_scripts/deit_s/
+     w2a2_deit_s.sh: qk_reparam_type=1, boundary range 0.005, the learning
+     rate pinned at 1e-5) of the same student in FUSED (fp32 masters) and
+     in FUSED_BF16 (bf16 masters, EMA 0.9999, AGC 0.01): 3 steps, each with
+     the plain step's launches (36 K1, 12 K2, 12 K3), no frozen entry's
+     bits changed, the masks against the CPU's from the same fp32 masters
+     (equal but within 2 fp32 ulps of a band edge), a trainable share in
+     (0, 0.1) per selected kernel, zero moments for the entries frozen at
+     every step, (fp32) a moved trainable entry in every selected kernel,
+     (bf16) bf16 masters, fp32 moments and the EMA recomputed bit for bit;
+     the eval step over 256 seeded images (the last batch padded by 8
+     rows of label -1) against the Predictor's top-1 and top-5 hits; the
+     step's wall ms beside the same step without CGA; under FUSED the
+     self-check (`restore_frozen` taking the new value must trip the
+     frozen-bits gate, `mask_grads` as the identity the moments gate, the
+     unmodified step must pass; one `[selfcheck]` line each);
   7. K4, the StatsQ matmul kernel, and K5, its dx product, against their
      plain versions in fp32 and bf16 at the DeiT-S shapes (proj, fc1, fc2
      with M = 64 * 198) and one ragged shape, with StatsQ ties built in;
@@ -1716,10 +1732,11 @@ GRAD_GATE_MIN_FLOOR = 1e-3
 
 
 def build_trained(dev, conf, name="deit_small_distilled_patch16_224",
-                  batch=BATCH):
-    """The W2A2 QKR student of the train phases in `conf`, calibrated, its
-    float teacher (bf16 parameters under the bf16 stream, as bench.py
-    builds it) and bench.py's seeded batch, kept on the device."""
+                  batch=BATCH, policy=None):
+    """The W2A2 QKR student of the train phases in `conf` (or under
+    `policy`), calibrated, its float teacher (bf16 parameters under the
+    bf16 stream, as bench.py builds it) and bench.py's seeded batch, kept
+    on the device."""
     import numpy as np
     import torch
     from ofq_tpu_torch.calibrate import calibrate
@@ -1729,7 +1746,7 @@ def build_trained(dev, conf, name="deit_small_distilled_patch16_224",
     cfg = VARIANTS[name]
     cd = conf["compute_dtype"]
     student = create_model(
-        name, policy=w2a2_qkr_policy(cfg.depth), device=dev,
+        name, policy=policy or w2a2_qkr_policy(cfg.depth), device=dev,
         generator=torch.Generator().manual_seed(0), head_std=0.02, **conf)
     teacher = create_model(name, policy=QuantPolicy(), device=dev,
                            generator=torch.Generator().manual_seed(1),
@@ -1828,6 +1845,329 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
                 blocks=blocks, grads=grads, img_per_s=img_s,
                 img_per_s_plain=img_s_plain, peak_mem_gb=peak_gb,
                 captured=captured)
+
+
+# --------------------------------------------------------------- phase 6c
+# The CGA finetune, phase 2 of train_scripts/deit_s/w2a2_deit_s.sh
+# (`ofq_tpu.cli.cga ... --qk_reparam_type 1 --boundaryRange 0.005`): the
+# learning rate pinned at min_lr, the selected kernels' freeze masks
+# recomputed every step from the pre-update masters.  The FUSED_BF16 run
+# also takes bf16 masters, the EMA and AGC on the card (the dampening loss
+# and the norm and value clips run in the CPU tests only).
+CGA = dict(bits=2, boundary_range=0.005, qk_reparam=True, model_type="deit")
+CGA_LR = 1e-5
+CGA_STEPS = 3
+# the eval step's images, the last batch padded by EVAL_PAD rows of label -1
+EVAL_IMAGES, EVAL_PAD = 256, 8
+# the card's masks against the CPU's from the same fp32 masters: equal but
+# where the pre-round image lies within this many fp32 ulps of a band edge
+# (the scale's mean is summed in another order)
+MASK_EDGE_ULPS = 2
+
+
+def _bits(t):
+    """A tensor's bit pattern, for comparisons that see every bit."""
+    import torch
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                   torch.float64: torch.int64}[t.dtype])
+
+
+def _cga_masks(state):
+    """The port's freeze masks of the selected parameters, from the
+    masters' fp32 view, as the step computes them."""
+    import torch
+    from ofq_tpu_torch.train import freeze_masks
+    with torch.no_grad():
+        views = {n: p.float() for n, p in state.params.items()}
+        return {n: m for n, m in freeze_masks(
+            views, bits=CGA["bits"], boundary_range=CGA["boundary_range"],
+            qk_reparam=CGA["qk_reparam"]).items() if m is not None}
+
+
+def cga_masks_on_cpu(state, masks):
+    """The same fp32 masters taken to the CPU and masked there by the same
+    function: the masks equal the card's, but where the pre-round image
+    lies within MASK_EDGE_ULPS fp32 ulps of a band edge.  (differing,
+    entries within the allowance)"""
+    import numpy as np
+    import torch
+    from ofq_tpu_torch.quant import outer_freeze_mask, statsq_b4_round
+    br = CGA["boundary_range"]
+    differ = near = 0
+    for n, m in masks.items():
+        w = state.params[n].detach().float().cpu()
+        b4 = statsq_b4_round(w, CGA["bits"])[0].numpy()
+        frac = b4 - np.floor(b4)
+        dist = np.minimum(np.abs(frac - (0.5 - br)), np.abs(frac - (0.5 + br)))
+        edge = dist <= MASK_EDGE_ULPS * np.spacing(np.abs(b4))
+        d = (outer_freeze_mask(w, CGA["bits"], br) != m.cpu()).numpy()
+        if np.any(d & ~edge):
+            raise GateTripped(f"masks: {n}: {int(np.sum(d & ~edge))} entries "
+                              f"differ between the card and the CPU away "
+                              f"from a band edge")
+        differ += int(d.sum())
+        near += int(edge.sum())
+    return differ, near
+
+
+def cga_steps(state, step, data, n, *, bf16, conf=None, cfg=None,
+              cpu_masks=False):
+    """`n` CGA steps from `state`, each gated: the launches of the plain
+    step (when `conf` is given), no frozen entry's bits changed, a
+    trainable share in (0, 0.1) for every selected parameter, the masks
+    against the CPU's (`cpu_masks`), the masters' and moments' dtypes and
+    the EMA recomputed bit for bit (bf16 masters); after the last, the
+    entries frozen at every step have zero moments (the state starts with
+    zero moments).  Each gate raises GateTripped naming itself."""
+    import torch
+    from ofq_tpu_torch import ops
+    out = dict(frozen_changed=0, moved=[], share=[], cpu_differing=0,
+               cpu_near_edge=0, launches=None)
+    always = None
+    for _ in range(n):
+        masks = _cga_masks(state)
+        for name, m in masks.items():
+            share = float((m == 0).float().mean())
+            if not 0.0 < share < 0.1:
+                raise GateTripped(f"trainable share: {name} {share}")
+            out["share"].append(share)
+        always = ({k: m > 0.5 for k, m in masks.items()} if always is None
+                  else {k: always[k] & (m > 0.5) for k, m in masks.items()})
+        if cpu_masks:
+            d, e = cga_masks_on_cpu(state, masks)
+            out["cpu_differing"] += d
+            out["cpu_near_edge"] += e
+        before = {k: state.params[k].detach().clone() for k in masks}
+        ema = ({k: e.clone() for k, e in state.ema_params.items()}
+               if state.ema_params is not None else None)
+        ops.reset_launch_counts()
+        state, metrics = step(state, data)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if conf is not None:
+            want = _expected(conf, cfg, train=True)
+            if launches != want:
+                raise AssertionError(f"[cga] expected launches per step "
+                                     f"{want}, got {launches}")
+            out["launches"] = launches
+        moved = {}
+        for k, m in masks.items():
+            diff = _bits(state.params[k].detach()) != _bits(before[k])
+            out["frozen_changed"] += int((diff & (m > 0.5)).sum())
+            moved[k] = int((diff & (m <= 0.5)).sum())
+        out["moved"].append(moved)
+        if out["frozen_changed"]:
+            raise GateTripped(f"frozen bits: {out['frozen_changed']} frozen "
+                              f"entries changed")
+        if bf16:
+            if any(p.dtype != torch.bfloat16 for p in state.params.values()):
+                raise AssertionError("[cga] the masters left bf16")
+            for k, e in state.ema_params.items():
+                want = 0.9999 * ema[k] + (1.0 - 0.9999) * state.params[k].float()
+                if e.dtype != torch.float32 or not torch.equal(
+                        _bits(e), _bits(want)):
+                    raise AssertionError(f"[cga] the EMA of {k} is not "
+                                         f"decay * e + (1 - decay) * p")
+        moments = (list(state.opt_state.mu.values())
+                   + list(state.opt_state.nu.values()))
+        if any(t.dtype != torch.float32 for t in moments):
+            raise AssertionError("[cga] the moments are not fp32")
+        out["loss"] = float(metrics["loss"])
+        out["grad_norm"] = float(metrics["grad_norm"])
+    nonzero = sum(int((state.opt_state.mu[k][a] != 0).sum()
+                      + (state.opt_state.nu[k][a] != 0).sum())
+                  for k, a in always.items())
+    out["always_frozen"] = sum(int(a.sum()) for a in always.values())
+    if nonzero or not out["always_frozen"]:
+        raise GateTripped(f"moments: {nonzero} moments nonzero among the "
+                          f"{out['always_frozen']} entries frozen at every "
+                          f"step")
+    return state, out
+
+
+def check_eval(student, state, dev):
+    """`make_eval_step` over EVAL_IMAGES seeded images in batches of
+    BATCH, the last padded by EVAL_PAD rows of label -1, against the top-1
+    and top-5 hits of `Predictor.predict` on the same images (the padded
+    batch through a Predictor of that batch size, so that both run the
+    same shapes)."""
+    import numpy as np
+    from ofq_tpu_torch.serve import Predictor
+    from ofq_tpu_torch.train import make_eval_step
+    cfg = student.cfg
+    rng = np.random.default_rng(7)
+    images = rng.normal(size=(EVAL_IMAGES, cfg.img_size, cfg.img_size,
+                              3)).astype(np.float32)
+    chunks = [images[i:i + BATCH] for i in range(0, EVAL_IMAGES, BATCH)]
+    probs = np.concatenate([
+        Predictor(student, batch_size=BATCH + (EVAL_PAD if i == len(chunks)
+                                               else 0),
+                  img_size=cfg.img_size, device=dev).predict(c)
+        for i, c in enumerate(chunks, 1)])
+    order = np.argsort(-probs, axis=1, kind="stable")[:, :5]
+    label = rng.integers(0, cfg.num_classes, size=EVAL_IMAGES)
+    # labels that the predictions hit at rank 1 and rank 3
+    label[::4], label[1::4] = order[::4, 0], order[1::4, 2]
+    want1 = int(np.sum(order[:, 0] == label))
+    want5 = int(np.sum(np.any(order == label[:, None], axis=1)))
+    # rows whose probabilities tie across rank 1 or rank 5 (both sides rank
+    # the lower class first there)
+    srt = -np.sort(-probs, axis=1)
+    ties = int(np.sum((srt[:, 0] == srt[:, 1]) | (srt[:, 4] == srt[:, 5])))
+    step = make_eval_step(student)
+    got = dict(correct1=0, correct5=0, count=0, loss_sum=0.0)
+    for i in range(0, EVAL_IMAGES, BATCH):
+        x, y = images[i:i + BATCH], label[i:i + BATCH]
+        if i + BATCH >= EVAL_IMAGES:
+            x = np.concatenate([x, np.zeros((EVAL_PAD,) + x.shape[1:],
+                                            x.dtype)])
+            y = np.concatenate([y, -np.ones(EVAL_PAD, y.dtype)])
+        m = step(state.params, {"image": x, "label": y})
+        for k in got:
+            got[k] += float(m[k])
+    if (got["correct1"], got["correct5"], got["count"]) != (
+            want1, want5, EVAL_IMAGES):
+        raise AssertionError(f"[cga] eval step {got} against the "
+                             f"Predictor's top-1 {want1}, top-5 {want5} of "
+                             f"{EVAL_IMAGES} ({ties} rows tied at rank 1 "
+                             f"or 5)")
+    return dict(got, predictor_top1=want1, predictor_top5=want5, ties=ties)
+
+
+def phase_cga(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
+              batch=BATCH):
+    """The CGA finetune step of DeiT-S W2A2 QKR (`qk_reparam_type=1`,
+    boundary range 0.005) with the float teacher, KD soft+hard and AdamW
+    at the constant learning rate CGA_LR, through the kernels of `conf`
+    (fp32 masters; under FUSED_BF16 bf16 masters, EMA 0.9999 and AGC
+    0.01): CGA_STEPS gated steps (`cga_steps`), the eval step against the
+    Predictor (`check_eval`), the step's wall ms beside the same step
+    without CGA (plain, CGA, CGA, plain), with --profile its device time.
+    Under FUSED the gate self-check: `restore_frozen` replaced by "take
+    the new value" must trip the frozen-bits gate, `mask_grads` replaced
+    by the identity the moments gate, and the unmodified step must pass
+    (at CGA_LR in bf16 the weight decay of a frozen entry stays under half
+    a bf16 ulp, so the restore fault is seen only with fp32 masters)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from ofq_tpu_torch.models.deit import VARIANTS
+    from ofq_tpu_torch.quant import w2a2_qkr_policy
+    from ofq_tpu_torch.train import (TrainState, constant_lr, make_optimizer,
+                                     make_train_step)
+    from ofq_tpu_torch.train import cga as cga_lib
+
+    bf16 = conf["compute_dtype"] == "bfloat16"
+    t0 = time.perf_counter()
+    policy = dataclasses.replace(w2a2_qkr_policy(VARIANTS[name].depth),
+                                 qk_reparam_type=1,
+                                 boundary_range=CGA["boundary_range"])
+    student, teacher, data = build_trained(dev, conf, name, batch,
+                                           policy=policy)
+    cfg = student.cfg
+    options = (dict(master_dtype="bfloat16", ema_decay=0.9999) if bf16
+               else {})
+    opt = make_optimizer(constant_lr(CGA_LR), weight_decay=0.05,
+                         **(dict(clip_grad=0.01, clip_mode="agc") if bf16
+                            else {}))
+
+    def fresh():
+        return TrainState.create(student, opt, ema=bf16,
+                                 master_dtype=options.get("master_dtype"))
+
+    def make(cga):
+        return make_train_step(student, opt, teacher=teacher,
+                               loss_kind="kd_soft_hard", device=dev, cga=cga,
+                               **options)
+
+    step, plain = make(CGA), make(None)
+    torch.cuda.synchronize()
+    what = (f"{_describe(conf)}, {'bf16 masters, EMA 0.9999, AGC 0.01' if bf16 else 'fp32 masters'}")
+    log(f"[cga] {name} W2A2 QKR student (qk_reparam_type=1) and float "
+        f"teacher built in {time.perf_counter() - t0:.1f} s; {what}")
+
+    # under fp32 masters a fresh state holds the student's own tensors,
+    # so the self-check steps would move the student: they start from a
+    # snapshot of it (the image quantizer's sign included) and it is put
+    # back after them
+    snapshot = {k: v.clone() for k, v in student.state_dict().items()}
+    selfcheck = []
+    faults = {"restore_frozen": lambda real: (
+                  lambda old, new, masks: dict(new)),
+              "mask_grads": lambda real: (lambda g, masks: dict(g))}
+    if not bf16:
+        for fault, label, gate in (
+                ("restore_frozen", "restore_frozen taking the new value",
+                 "frozen bits"),
+                ("mask_grads", "mask_grads as the identity", "moments"),
+                (None, "unmodified step", None)):
+            ctx = (injected(cga_lib, fault, faults[fault]) if fault
+                   else contextlib.nullcontext())
+            with ctx:
+                tripped, msg = _tripped(lambda: cga_steps(
+                    fresh(), step, data, 1, bf16=bf16))
+            ok = (tripped and msg.startswith(gate)) if fault else not tripped
+            selfcheck.append(dict(fault=label, gate=gate, tripped=tripped,
+                                  ok=ok))
+            log(f"[selfcheck] CGA step, {label}: "
+                f"{'tripped' if tripped else 'passed'} (required: "
+                f"{'the ' + gate + ' gate trips' if fault else 'pass'})"
+                f"{' -- ' + msg if msg else ''}")
+            if not ok:
+                raise AssertionError(f"CGA gate self-check: {label}")
+            student.load_state_dict(snapshot)
+
+    state = fresh()
+    state, gates = cga_steps(state, step, data, CGA_STEPS, bf16=bf16,
+                             conf=conf, cfg=cfg, cpu_masks=True)
+    never = [k for k in gates["moved"][0]
+             if not all(m[k] for m in gates["moved"])]
+    if not bf16 and never:
+        raise GateTripped(f"trainable moved: no trainable entry of {never} "
+                          f"moved at some step")
+    moved = [sum(m.values()) for m in gates["moved"]]
+    share = gates["share"]
+    ev = check_eval(student, state, dev)
+
+    def ms(fn):
+        nonlocal state
+        for _ in range(TRAIN_STEPS_WARM):
+            state, m = fn(state, data)
+        float(m["loss"])
+        t = time.perf_counter()
+        for _ in range(TRAIN_STEPS_TIMED):
+            state, m = fn(state, data)
+        if not np.isfinite(float(m["loss"])):  # host fetch: the barrier
+            raise AssertionError("non-finite loss")
+        return (time.perf_counter() - t) * 1e3 / TRAIN_STEPS_TIMED
+
+    times = [ms(f) for f in (plain, step, step, plain)]
+    cga_ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+    log(f"[cga] {_describe(conf)}, "
+        f"{'bf16 masters, EMA, AGC' if bf16 else 'fp32 masters'}: "
+        f"{CGA_STEPS} steps at lr {CGA_LR}, launches per step "
+        f"{gates['launches']}; {gates['frozen_changed']} of the frozen "
+        f"entries changed "
+        f"({gates['always_frozen']} frozen at every step, their moments 0); "
+        f"trainable entries moved per step {moved}; trainable share per "
+        f"parameter min {min(share):.5f} mean {np.mean(share):.5f} max "
+        f"{max(share):.5f}; masks card vs CPU: {gates['cpu_differing']} "
+        f"differing, {gates['cpu_near_edge']} images within "
+        f"{MASK_EDGE_ULPS} ulps of a band edge; loss "
+        f"{gates['loss']:.6f}, grad_norm {gates['grad_norm']:.6f}; eval "
+        f"top-1 {ev['correct1']:.0f} top-5 {ev['correct5']:.0f} of "
+        f"{ev['count']:.0f} (Predictor {ev['predictor_top1']} / "
+        f"{ev['predictor_top5']}; {ev['ties']} rows tied at rank 1 or 5), "
+        f"loss_sum {ev['loss_sum']:.4f}; wall ms "
+        f"per step B={batch}: CGA {cga_ms:.2f}, without CGA {plain_ms:.2f} "
+        f"(plain, CGA, CGA, plain: {', '.join(f'{t:.2f}' for t in times)})")
+    prof = (phase_profile(lambda: float(step(state, data)[1]["loss"]),
+                          "CGA train step")
+            if "--profile" in sys.argv else None)
+    return dict(config=conf, bf16_masters=bf16, gates=gates, eval=ev,
+                selfcheck=selfcheck, cga_ms=cga_ms, plain_ms=plain_ms,
+                ms_in_turns=times, profile=prof)
 
 
 def _kd_loss(model, teacher, x, label):
@@ -3316,6 +3656,10 @@ def main() -> int:
                                            w2a2_qkr_policy(12))
     torch.cuda.empty_cache()
     full["train_fused_bf16"] = phase_train(dev, FUSED_BF16)
+    torch.cuda.empty_cache()
+    full["cga"] = phase_cga(dev, FUSED)
+    torch.cuda.empty_cache()
+    full["cga_fused_bf16"] = phase_cga(dev, FUSED_BF16)
     torch.cuda.empty_cache()
     full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok), base=base)
     full["k5"] = phase_k45(dev, "K5", _k45_cases(BATCH * n_tok), base=base)

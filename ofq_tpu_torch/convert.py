@@ -94,7 +94,13 @@ def load_optax_adamw_state(state, adam_state, *, step=None):
     frameworks can start from the same mid-run state.  `adam_state` is
     the optax state or a mapping with those keys; `step` sets
     `state.step` (the JAX TrainState's own counter).  Strict both ways,
-    like `load_flax_params`."""
+    like `load_flax_params`.
+
+    `ofq_tpu.train.make_optimizer` chains `optax.adamw` (whose state is
+    `(ScaleByAdamState, masked, schedule)`) after the clipping transform
+    when it clips, so the Adam state is `opt_state[0][0]` without
+    clipping and `opt_state[1][0]` with it; the clipping transforms hold
+    no state."""
     def get(key):
         return (adam_state[key] if isinstance(adam_state, Mapping)
                 else getattr(adam_state, key))
@@ -110,4 +116,17 @@ def load_optax_adamw_state(state, adam_state, *, step=None):
     opt.count = int(np.asarray(get("count")))
     if step is not None:
         state.step = int(np.asarray(step))
+    return state
+
+
+def load_ema_params(state, ema_tree):
+    """Carry the JAX TrainState's `ema_params` (a Flax params tree) into
+    `state.ema_params`, in place, by the model's parameter names, as fp32
+    on the masters' device.  Strict both ways, like `load_flax_params`."""
+    given = _port_entries(flatten_flax_tree(ema_tree))
+    _check_match("load_ema_params", given, state.params)
+    state.ema_params = {
+        k: torch.from_numpy(np.array(given[k])).to(
+            device=p.device, dtype=torch.float32)
+        for k, p in state.params.items()}
     return state

@@ -8,9 +8,12 @@ deployment fields serve a packed artifact (`deploy.py`): `weight_frozen`
 (the kernels already hold dequantized StatsQ values, so weight fake-quant
 is skipped and QKR reads a stored `w_qk_frozen`) and `frozen_int_bits`
 (with it, the integer codes are rebuilt from the artifact's stored scales
-and the products run on them, `ops/int8_qlinear.py`).  The CGA fields of
-the JAX policy (`qk_reparam_type`, `boundary_range`) belong to a later
-slice.
+and the products run on them, `ops/int8_qlinear.py`).  The CGA fields:
+`boundary_range` is the finetune's freeze band, which `make_train_step(
+cga=...)` takes from the policy (with `qk_reparam`, its selection rule)
+and holds `cga` to; `qk_reparam_type` records the recipe's flag and
+changes nothing, as in the JAX package, since type 1's in-forward quantizer
+equals plain StatsQ (`quant/statsq.py:statsq_quantize_cga`).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ class QuantPolicy:
     act: QuantSpec = QuantSpec(mode="lsq", bit=8)
     qmodules: tuple[str, ...] = ()
     qk_reparam: bool = False
+    qk_reparam_type: int = 0  # 0: QKR, 1: QKR + CGA in-forward quantizer
+    boundary_range: float = 0.005
     act_layer: str = "gelu"
     # --apply_q_attn_dropout: 0/3 quantize the post-softmax attention
     q_attn_mode: int = 0

@@ -1,4 +1,5 @@
-"""StatsQ weight fake-quantization (port of `ofq_tpu/quant/statsq.py:31-80`).
+"""StatsQ weight fake-quantization (port of `ofq_tpu/quant/statsq.py:31-80`)
+and CGA's band tests on its pre-round image (`:98-178`).
 
 Per-output-column scale `s = 2 * mean|W|` (floored at 1e-12), scaled
 weights clamped to `[-1, 1 - 1e-6]`, mid-rise levels
@@ -40,3 +41,50 @@ def statsq_quantize(w: torch.Tensor, num_bits: int, *,
     n = float(2 ** (num_bits - 1))
     q = (s * ((torch.round(b4_round) + 0.5) / n)).to(w.dtype)
     return passthrough(q.detach(), w)
+
+
+def cga_band_mask(b4_round: torch.Tensor, num_bits: int,
+                  boundary_range: float, *, level_lo: int | None = None,
+                  level_hi: int | None = None) -> torch.Tensor:
+    """True where the pre-round value sits in a rounding-decision band:
+    `floor(b4_round)` in [level_lo, level_hi] and `|frac - 0.5| <=
+    boundary_range` (the bands are disjoint for boundary_range < 0.5).
+    The levels default to the in-forward range [-2^(b-1), 2^(b-1) - 2]."""
+    if level_lo is None:
+        level_lo = -(2 ** (num_bits - 1))
+    if level_hi is None:
+        level_hi = 2 ** (num_bits - 1) - 2
+    floor = torch.floor(b4_round)
+    frac = b4_round - floor
+    in_band = (frac >= 0.5 - boundary_range) & (frac <= 0.5 + boundary_range)
+    return in_band & (floor >= level_lo) & (floor <= level_hi)
+
+
+def statsq_quantize_cga(w: torch.Tensor, num_bits: int,
+                        boundary_range: float, *, training: bool,
+                        reduce_axis: int = 0) -> torch.Tensor:
+    """StatsQ with in-forward CGA (`qk_reparam_type=1`).  The band masking
+    only feeds a value that is detached before the straight-through
+    passthrough, so value and gradient are plain StatsQ's; CGA acts in the
+    train step (`train/cga.py`)."""
+    del boundary_range, training
+    return statsq_quantize(w, num_bits, reduce_axis=reduce_axis)
+
+
+def outer_freeze_mask(w: torch.Tensor, num_bits: int, boundary_range: float,
+                      *, reduce_axis: int = 0) -> torch.Tensor:
+    """CGA's freeze mask, exact fp32 0/1: 1 where a weight is frozen, 0
+    where its pre-round value lies in a band whose level is in
+    [min(round(b4)), max(round(b4)) - 1] over the whole tensor.  The band
+    test runs on `statsq_b4_round`, at least fp32 even for bf16 weights;
+    the level range stays on the device (no host sync)."""
+    with torch.no_grad():
+        b4_round, _ = statsq_b4_round(w, num_bits, reduce_axis=reduce_axis)
+        rounded = torch.round(b4_round)
+        floor = torch.floor(b4_round)
+        frac = b4_round - floor
+        in_band = ((frac >= 0.5 - boundary_range)
+                   & (frac <= 0.5 + boundary_range))
+        in_range = ((floor >= torch.amin(rounded))
+                    & (floor <= torch.amax(rounded) - 1.0))
+        return 1.0 - (in_band & in_range).to(torch.float32)

@@ -1,11 +1,15 @@
-from .losses import hard_ce, kd_soft_and_hard, soft_ce
-from .loop import global_norm, make_train_step
-from .optim import AdamW, AdamWState, make_optimizer, wd_mask
-from .schedule import cosine_with_warmup_cooldown
+from .cga import freeze_masks, is_cga_kernel, mask_grads, restore_frozen
+from .losses import dampening_loss, hard_ce, kd_soft_and_hard, soft_ce
+from .loop import make_eval_step, make_train_step
+from .optim import (AdamW, AdamWState, clip_gradients, ema_update, global_norm,
+                    make_optimizer, wd_mask)
+from .schedule import constant_lr, cosine_with_warmup_cooldown
 from .state import TrainState
 
 __all__ = [
-    "AdamW", "AdamWState", "TrainState", "cosine_with_warmup_cooldown",
-    "global_norm", "hard_ce", "kd_soft_and_hard", "make_optimizer",
-    "make_train_step", "soft_ce", "wd_mask",
+    "AdamW", "AdamWState", "TrainState", "clip_gradients", "constant_lr", "cosine_with_warmup_cooldown",
+    "dampening_loss", "ema_update", "freeze_masks", "global_norm",
+    "hard_ce", "is_cga_kernel", "kd_soft_and_hard", "make_eval_step",
+    "make_optimizer", "make_train_step", "mask_grads", "restore_frozen",
+    "soft_ce", "wd_mask",
 ]

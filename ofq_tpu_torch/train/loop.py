@@ -1,14 +1,26 @@
-"""The QAT train step (port of `ofq_tpu/train/loop.py:25-188`).
+"""The QAT train step and the eval step (port of
+`ofq_tpu/train/loop.py:25-223`).
 
-One step: the student forward in train mode (distilled: `(cls, dist)`
-logits; the image quantizer's sticky sign updates), the float teacher
-forward in eval mode under `torch.no_grad()`, the loss, the backward
-through every STE and kernel, AdamW, and the update added in place to
-each parameter (fp32 or fp64, as JAX adds it in at least fp32).  Eager PyTorch, no host synchronisation: the
-metrics come back as device tensors.
+One step, in JAX's order: the student forward in train mode (distilled:
+`(cls, dist)` logits; the image quantizer's sticky sign updates), the
+float teacher forward in eval mode under `torch.no_grad()`, the loss plus
+the optional dampening term, the backward through every STE and kernel,
+then, with `cga`, the freeze masks from the pre-update masters and the
+masked gradients, the optional clipping and AdamW on the >= fp32 view,
+the update added in >= fp32 and cast to the masters' dtype, the frozen
+entries restored, and the EMA of the result.  Eager PyTorch, no host
+synchronisation: the metrics come back as device tensors.
 
-Not in the port yet, and refused: EMA, CGA, the oscillation hook, the
-dampening loss, token/q-k distillation, bf16 master weights.  The step
+bf16 master weights (a state from `TrainState.create(...,
+master_dtype="bfloat16")`; the step reads the masters' dtype from the
+state): the state holds the bf16 masters and the model fp32 working
+parameters, which each step fills from the masters (an exact upcast) and
+which carry the forward.  The gradients are rounded to bf16 (the transpose
+of JAX's upcast inside its loss), the update math runs in fp32 and its
+result is rounded to bf16.  With fp32 masters the update is added in place.
+
+Not in the port yet, and refused: the oscillation hook (ROADMAP.md, Queue
+1 item 6) and the q-k and token distillation losses (item 5).  The step
 draws no random numbers (dropout and drop-path are refused by the model).
 """
 
@@ -18,94 +30,167 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
+from ..models.deit import not_in_port
 from ..models.registry import resolve_device
-from .losses import hard_ce, kd_soft_and_hard, soft_ce
-from .optim import AdamW
+from ..quant.ste import at_least_f32
+from . import cga as cga_lib
+from .losses import dampening_loss, hard_ce, kd_soft_and_hard, soft_ce
+from .optim import AdamW, ema_update, global_norm
 from .state import TrainState
 
 LOSS_KINDS = ("ce", "kd_soft", "kd_soft_hard")
-
-
-def global_norm(grads) -> torch.Tensor:
-    """optax.global_norm: the L2 norm of every leaf's entries together."""
-    return torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(list(grads))))
+# the JAX step's other losses, which need the q-k Gram and token telemetry
+LATER_LOSS_KINDS = ("kd_qk", "kd_qkv", "kd_token")
 
 
 def _first(out):
     return out[0] if isinstance(out, tuple) else out
 
 
+def _tensor(a, device, dtype=None):
+    t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+    return t.to(device) if dtype is None else t.to(device, dtype)
+
+
+def _cga_settings(cga: dict, policy) -> dict:
+    """`freeze_masks`' keywords from `cga`, whose `boundary_range` and
+    `qk_reparam` default to the policy's (the recipe sets both from one
+    flag) and must agree with it."""
+    out = dict(bits=cga["bits"], model_type=cga.get("model_type", "deit"))
+    for key in ("boundary_range", "qk_reparam"):
+        pol = getattr(policy, key, None)
+        val = cga.get(key, pol)
+        if val is None:
+            raise ValueError(f"cga needs {key!r}: the model has no policy")
+        if pol is not None and val != pol:
+            raise ValueError(f"cga[{key!r}]={val!r}, but the model's policy "
+                             f"has {key}={pol!r}")
+        out[key] = val
+    return out
+
+
 def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                     teacher: Optional[torch.nn.Module] = None,
                     loss_kind: str = "kd_soft_hard",
                     label_smoothing: float = 0.0, device="cuda",
-                    ema_decay=None, cga=None, oscillation=None,
-                    dampening=None, master_dtype=None) -> Callable:
+                    ema_decay: Optional[float] = None,
+                    cga: Optional[dict] = None, oscillation=None,
+                    dampening: Optional[dict] = None,
+                    master_dtype: Optional[str] = None) -> Callable:
     """Build `train_step(state, batch) -> (state, metrics)`.
 
     `batch` is {"image": (B, H, W, 3) NHWC, "label": (B,) class ids}, as
-    numpy arrays or tensors; `metrics` holds `loss` and `grad_norm`.
+    numpy arrays or tensors; `metrics` holds `loss` and `grad_norm` (of
+    the masked gradients).  `cga` is dict(bits, boundary_range,
+    qk_reparam, model_type): `boundary_range` and `qk_reparam` default to
+    the model's policy's and must agree with it.  `dampening` is
+    dict(bits, weighting); with `ema_decay` the state must hold an EMA
+    (`TrainState.create(..., ema=True)`).  `master_dtype` is the JAX
+    step's option, checked against the state's masters at each step.
     Runs on CUDA unless `device="cpu"`; the model (and teacher) must
     already live there.
     """
+    if loss_kind in LATER_LOSS_KINDS:
+        raise not_in_port(f"loss_kind={loss_kind!r}", 5)
     if loss_kind not in LOSS_KINDS:
-        raise NotImplementedError(
-            f"loss_kind={loss_kind!r}: the port has {LOSS_KINDS} "
-            "(ROADMAP.md, Queue 1)")
-    for name, value in (("ema_decay", ema_decay), ("cga", cga),
-                        ("oscillation", oscillation),
-                        ("dampening", dampening),
-                        ("master_dtype", master_dtype)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} is not in the port yet (ROADMAP.md, Queue 1)")
+        raise ValueError(f"loss_kind={loss_kind!r}: one of "
+                         f"{LOSS_KINDS + LATER_LOSS_KINDS}")
+    if oscillation is not None:
+        raise not_in_port("the oscillation hook", 6)
+    if master_dtype not in (None, "float32", "bfloat16"):
+        raise ValueError(f"master_dtype={master_dtype!r}")
+    if cga is not None:
+        cga = _cga_settings(cga, getattr(model, "policy", None))
     if loss_kind != "ce" and teacher is None:
         raise ValueError(f"loss_kind={loss_kind!r} needs a teacher")
     dev = resolve_device(device)
+    work = dict(model.named_parameters())
     if any(p.dtype not in (torch.float32, torch.float64)
-           for p in model.parameters()):
-        raise NotImplementedError(
-            "parameters in fp32 or fp64 only; bf16 master weights are not "
-            "in the port yet (ROADMAP.md, Queue 1)")
-    p0 = next(model.parameters())
+           for p in work.values()):
+        raise ValueError("the model's parameters must be fp32 or fp64; for "
+                         "bf16 masters keep them in the state "
+                         "(TrainState.create(..., master_dtype='bfloat16'))")
+    p0 = next(iter(work.values()))
     if p0.device.type != dev.type:
         raise ValueError(f"the model lives on {p0.device}, not on {dev}")
+    if dampening is not None and dampening.get("weighting", 0.0) <= 0:
+        dampening = None
 
     def loss_fn(x, label):
         out = model(x)
         if loss_kind == "ce":
-            return hard_ce(_first(out), label, label_smoothing)
-        with torch.no_grad():
-            t_logits = _first(teacher(x))
-        if loss_kind == "kd_soft":
-            return soft_ce(_first(out), t_logits)
-        return kd_soft_and_hard(out, label, t_logits)
+            loss = hard_ce(_first(out), label, label_smoothing)
+        else:
+            with torch.no_grad():
+                t_logits = _first(teacher(x))
+            if loss_kind == "kd_soft":
+                loss = soft_ce(_first(out), t_logits)
+            else:
+                loss = kd_soft_and_hard(out, label, t_logits)
+        if dampening is not None:
+            loss = loss + dampening_loss(work, dampening["bits"],
+                                         dampening["weighting"])
+        return loss
 
     def train_step(state: TrainState, batch):
         model.train()
         if teacher is not None:
             teacher.eval()
-        x = torch.as_tensor(np.asarray(batch["image"])
-                            if not torch.is_tensor(batch["image"])
-                            else batch["image"]).to(p0.device, p0.dtype)
-        label = torch.as_tensor(np.asarray(batch["label"])
-                                if not torch.is_tensor(batch["label"])
-                                else batch["label"]).to(p0.device)
+        x = _tensor(batch["image"], p0.device, p0.dtype)
+        label = _tensor(batch["label"], p0.device)
         names = list(state.params)
-        tensors = [state.params[n] for n in names]
+        masters = [state.params[n] for n in names]
+        master_bf16 = masters[0].dtype == torch.bfloat16
+        if master_dtype is not None and master_bf16 != (
+                master_dtype == "bfloat16"):
+            raise ValueError(f"master_dtype={master_dtype!r}, but the "
+                             f"state's masters are {masters[0].dtype}")
+        if master_bf16:
+            tensors = [work[n] for n in names]
+            with torch.no_grad():
+                torch._foreach_copy_(tensors, masters)
+        else:
+            tensors = masters
         loss = loss_fn(x, label)
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         # a parameter the loss does not reach (a detached scale) has a
         # zero gradient, as under jax.grad
         grads = {n: torch.zeros_like(t) if g is None else g
                  for n, t, g in zip(names, tensors, grads)}
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params)
         with torch.no_grad():
-            # parameters are fp32 or fp64: the >= fp32 add is in place
+            if master_bf16:
+                grads = {n: g.to(torch.bfloat16) for n, g in grads.items()}
+            # the >= fp32 view of the pre-update masters
+            views = dict(zip(names, tensors))
+            masks = None
+            if cga is not None:
+                masks = cga_lib.freeze_masks(views, **cga)
+                grads = cga_lib.mask_grads(grads, masks)
+            updates, opt_state = optimizer.update(
+                {n: g.to(at_least_f32(g.dtype)) for n, g in grads.items()},
+                state.opt_state, views)
+            frozen = [] if masks is None else [
+                n for n in names if masks[n] is not None]
+            # the selected fp32 masters as they were, for the restore
+            old = ({n: views[n].clone() for n in frozen} if not master_bf16
+                   else state.params)
             torch._foreach_add_(tensors, [updates[n] for n in names])
+            if master_bf16:
+                new = {n: t.to(torch.bfloat16) for n, t in zip(names, tensors)}
+                if masks is not None:
+                    new = cga_lib.restore_frozen(old, new, masks)
+                torch._foreach_copy_(masters, [new[n] for n in names])
+                torch._foreach_copy_(tensors, masters)
+            elif frozen:
+                new = cga_lib.restore_frozen(
+                    old, {n: views[n] for n in frozen}, masks)
+                torch._foreach_copy_([views[n] for n in frozen],
+                                     [new[n] for n in frozen])
+            if ema_decay is not None and state.ema_params is not None:
+                state.ema_params = ema_update(state.ema_params, state.params,
+                                              ema_decay)
         state.opt_state = opt_state
         state.step += 1
         metrics = {"loss": loss.detach(),
@@ -113,3 +198,40 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(model: torch.nn.Module) -> Callable:
+    """Build `eval_step(params, batch) -> counts` for one batch: `correct1`
+    and `correct5` (top-k hits, ties to the lower class as in JAX),
+    `count` and `loss_sum` (the summed fp32
+    cross-entropy), all over the rows whose label is >= 0 (a row with
+    label -1 is padding and counts nothing), as device tensors.  `params`
+    (by name: `state.params`, `state.ema_params`) replace the model's for
+    the call, bf16 masters as fp32; None evaluates the model as it
+    stands."""
+    p0 = next(model.parameters())
+
+    def eval_step(params, batch):
+        model.eval()
+        x = _tensor(batch["image"], p0.device, p0.dtype)
+        label = _tensor(batch["label"], p0.device)
+        with torch.no_grad():
+            if params is None:
+                logits = _first(model(x))
+            else:
+                logits = _first(functional_call(
+                    model, {n: p.to(at_least_f32(p.dtype))
+                            for n, p in params.items()}, (x,)))
+            # equal logits rank the lower class first, as under
+            # jax.lax.top_k (torch.topk leaves their order open)
+            top = torch.sort(logits, dim=-1, descending=True,
+                             stable=True).indices[:, :min(5, logits.shape[-1])]
+            valid = label >= 0
+            hit = (top == label[:, None]) & valid[:, None]
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            nll = -torch.gather(logp, -1,
+                                label.clamp_min(0)[:, None].long())[:, 0]
+            return {"correct1": hit[:, :1].sum(), "correct5": hit.sum(),
+                    "count": valid.sum(), "loss_sum": torch.sum(nll * valid)}
+
+    return eval_step

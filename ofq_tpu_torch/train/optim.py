@@ -1,8 +1,9 @@
-"""AdamW with the JAX package's no-weight-decay mask (port of
-`ofq_tpu/train/optim.py:24-40, 137-170`, without gradient clipping).
+"""AdamW with the JAX package's no-weight-decay mask, gradient clipping
+and the EMA (port of `ofq_tpu/train/optim.py`).
 
 `make_optimizer` repeats `optax.adamw`'s arithmetic, leaf by leaf, over a
-dict of named parameters (the Flax tree paths with '.' for '/'):
+dict of named parameters (the Flax tree paths with '.' for '/'), after the
+optional clipping transform of the chain (`clip_gradients`):
 
     mu    = (1 - b1) * g + b1 * mu
     nu    = (1 - b2) * g^2 + b2 * nu
@@ -18,11 +19,12 @@ caller adds `u` to the parameter in at least fp32 (`loop.py`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Optional
 
 import torch
 
 _NO_DECAY_NAMES = ("pos_embed", "cls_token", "dist_token")
+CLIP_MODES = ("norm", "value", "agc")
 
 
 def wd_mask(params: Mapping[str, torch.Tensor]) -> dict[str, bool]:
@@ -35,6 +37,97 @@ def wd_mask(params: Mapping[str, torch.Tensor]) -> dict[str, bool]:
         out[name] = (not any(n in _NO_DECAY_NAMES for n in parts)
                      and parts[-1] not in ("bias", "s") and p.ndim >= 2)
     return out
+
+
+def global_norm(grads) -> torch.Tensor:
+    """optax.global_norm: the L2 norm of every leaf's entries together."""
+    return torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(list(grads))))
+
+
+def unitwise_norm(x: torch.Tensor, keep_axis: int = -1) -> torch.Tensor:
+    """The L2 norm per unit along `keep_axis` (the whole tensor's when it
+    has at most one dimension), keeping dimensions."""
+    if x.ndim <= 1:
+        return torch.linalg.vector_norm(x)
+    keep = keep_axis % x.ndim
+    axes = tuple(a for a in range(x.ndim) if a != keep)
+    return torch.sqrt(torch.sum(x * x, dim=axes, keepdim=True))
+
+
+def _agc_norm(name: str, t: torch.Tensor) -> torch.Tensor:
+    """AGC's units: a `*kernel` (Flax's (in, out) layout) keeps its last
+    axis, the 2-D ImageBias (`bias`, flat in the original) takes the
+    whole-tensor norm, every other parameter keeps axis 0."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf.endswith("kernel"):
+        return unitwise_norm(t, keep_axis=-1)
+    if leaf == "bias" and t.ndim == 2:
+        return torch.linalg.vector_norm(t)
+    return unitwise_norm(t, keep_axis=0)
+
+
+def _agc_skipped(names) -> set[str]:
+    """The parameters `adaptive_grad_clip(exclude_head=True)` leaves alone:
+    the original's last two parameters of the model, the last head
+    module's `move_b4` and `move_aft` when it is quantized, its `kernel`
+    and `bias` when it is float."""
+    split = [n.split(".") for n in names]
+    head = ("head_dist" if any("head_dist" in p for p in split) else "head")
+    quantized = any(p[:2] == [head, "move_b4"] for p in split)
+    leaves = ("move_b4", "move_aft") if quantized else ("kernel", "bias")
+    return {n for n, p in zip(names, split)
+            if head in p and any(x in leaves for x in p)}
+
+
+def adaptive_grad_clip(grads: Mapping[str, torch.Tensor],
+                       params: Mapping[str, torch.Tensor],
+                       clip_factor: float, eps: float = 1e-3
+                       ) -> dict[str, torch.Tensor]:
+    """AGC with `exclude_head=True`: each unit's gradient clipped to
+    clip_factor * max(||p||, eps), `ofq_tpu.train.optim.
+    adaptive_grad_clip`'s arithmetic."""
+    skip = _agc_skipped(list(grads))
+    out = {}
+    for n, g in grads.items():
+        if n in skip:
+            out[n] = g
+            continue
+        p_norm = torch.clamp_min(_agc_norm(n, params[n]), eps) * clip_factor
+        g_norm = _agc_norm(n, g)
+        clipped = g * (p_norm / torch.clamp_min(g_norm, 1e-6))
+        out[n] = torch.where(g_norm < p_norm, g, clipped)
+    return out
+
+
+def clip_gradients(grads: Mapping[str, torch.Tensor],
+                   params: Mapping[str, torch.Tensor], clip_grad: float,
+                   clip_mode: str) -> dict[str, torch.Tensor]:
+    """The chain's first transform: `norm`, optax.clip_by_global_norm
+    (`select(||g|| < max, g, g / ||g|| * max)`); `value`, optax.clip;
+    `agc`, `adaptive_grad_clip` with clip_grad as its factor."""
+    if clip_mode == "norm":
+        g_norm = global_norm(grads.values())
+        keep = g_norm < clip_grad
+        return {n: torch.where(keep, g, (g / g_norm.to(g.dtype)) * clip_grad)
+                for n, g in grads.items()}
+    if clip_mode == "value":
+        return {n: torch.clamp(g, -clip_grad, clip_grad)
+                for n, g in grads.items()}
+    return adaptive_grad_clip(grads, params, clip_grad)
+
+
+def ema_update(ema: Mapping[str, torch.Tensor],
+               params: Mapping[str, torch.Tensor], decay: float = 0.9999
+               ) -> dict[str, torch.Tensor]:
+    """`decay * e + (1 - decay) * p.float()` by name; the accumulators are
+    fp32 whatever the masters' dtype (a bf16 EMA at decay 0.9999 would
+    never move)."""
+    names = list(ema)
+    return dict(zip(names, torch._foreach_add(
+        torch._foreach_mul([ema[n] for n in names], decay),
+        torch._foreach_mul([params[n].float() for n in names],
+                           1.0 - decay))))
 
 
 def _moment_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -57,6 +150,8 @@ class AdamW:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    clip_grad: Optional[float] = None
+    clip_mode: str = "norm"
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
         zeros = {n: torch.zeros_like(p, dtype=_moment_dtype(p.dtype))
@@ -70,10 +165,14 @@ class AdamW:
                params: Mapping[str, torch.Tensor]
                ) -> tuple[dict[str, torch.Tensor], AdamWState]:
         """(updates, new state) for `grads` and `params` in >= fp32; the
-        moment tensors are replaced, not written in place.  Each line is
-        one elementwise step of optax's, over every tensor at once
+        moment tensors are replaced, not written in place.  The gradients
+        are clipped first when `clip_grad` is set.  Each line is one
+        elementwise step of optax's, over every tensor at once
         (`torch._foreach_*`: a few launches per step on the card, not a
         few per parameter)."""
+        if self.clip_grad is not None:
+            grads = clip_gradients(grads, params, self.clip_grad,
+                                   self.clip_mode)
         names = list(grads)
         g = [grads[n] for n in names]
         lr = self.lr_schedule(state.count)
@@ -105,12 +204,13 @@ class AdamW:
 def make_optimizer(lr_schedule: Callable[[int], float], *,
                    weight_decay: float = 0.05,
                    betas: tuple[float, float] = (0.9, 0.999),
-                   eps: float = 1e-8, clip_grad=None) -> AdamW:
-    """AdamW as `ofq_tpu.train.make_optimizer` builds it; gradient clipping
-    is not in the port yet."""
-    if clip_grad is not None:
-        raise NotImplementedError(
-            "gradient clipping (norm, value, AGC) is not in the port yet "
-            "(ROADMAP.md, Queue 1)")
+                   eps: float = 1e-8, clip_grad: Optional[float] = None,
+                   clip_mode: str = "norm") -> AdamW:
+    """AdamW as `ofq_tpu.train.make_optimizer` builds it, with the
+    gradients clipped first (`clip_mode` norm, value or agc) when
+    `clip_grad` is given."""
+    if clip_grad is not None and clip_mode not in CLIP_MODES:
+        raise ValueError(f"clip_mode={clip_mode!r}: one of {CLIP_MODES}")
     return AdamW(lr_schedule, weight_decay=weight_decay, b1=betas[0],
-                 b2=betas[1], eps=eps)
+                 b2=betas[1], eps=eps, clip_grad=clip_grad,
+                 clip_mode=clip_mode)

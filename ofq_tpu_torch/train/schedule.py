@@ -1,6 +1,7 @@
-"""Learning-rate schedule (port of `ofq_tpu/train/schedule.py`): cosine
+"""Learning-rate schedules (port of `ofq_tpu/train/schedule.py`): cosine
 with linear warmup and a constant cooldown, a function of the step count
-(the JAX package's epoch index), computed in float32 as JAX does.
+(the JAX package's epoch index), computed in float32 as JAX does; and the
+constant rate of the CGA finetune, pinned at `min_lr`.
 
   * t >= epochs:           min_lr
   * t < warmup_epochs:     warmup_lr + (base_lr - warmup_lr) * t / warmup
@@ -30,5 +31,15 @@ def cosine_with_warmup_cooldown(base_lr: float, *, epochs: int,
             lr = min_lr + 0.5 * (base_lr - min_lr) * (
                 1.0 + torch.cos(math.pi * t / epochs))
         return float(lr)
+
+    return lr_fn
+
+
+def constant_lr(value: float):
+    """Returns lr(count) -> `value` as a float32, whatever the count."""
+    lr = float(torch.tensor(value, dtype=torch.float32))
+
+    def lr_fn(count) -> float:
+        return lr
 
     return lr_fn

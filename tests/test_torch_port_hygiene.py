@@ -45,6 +45,7 @@ def test_import_loads_no_jax():
         "import ofq_tpu_torch, ofq_tpu_torch.serve, ofq_tpu_torch.calibrate\n"
         "import ofq_tpu_torch.convert, ofq_tpu_torch.models\n"
         "import ofq_tpu_torch.train, ofq_tpu_torch.train.loop\n"
+        "import ofq_tpu_torch.train.cga\n"
         "import ofq_tpu_torch.deploy, ofq_tpu_torch.ops.int8_qlinear\n"
         "import ofq_tpu_torch.models.swin, ofq_tpu_torch.ops.window_attention\n"
         "import ofq_tpu_torch.benchmarks.window_attn_lab\n"

@@ -210,14 +210,22 @@ def test_global_norm_matches_optax():
 
 
 def test_clipping_and_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="clipping"):
-        make_optimizer(lambda c: 1e-3, clip_grad=1.0)
+    """What is still refused names its Queue 1 item: the oscillation hook,
+    the q-k and token distillation losses and dropout in the model; a
+    clipping mode that JAX does not have raises as JAX's does."""
+    with pytest.raises(ValueError, match="clip_mode"):
+        make_optimizer(lambda c: 1e-3, clip_grad=1.0, clip_mode="global")
     m = create_model(NAME, policy=w2a2_qkr_policy(DEPTH), device="cpu")
     opt = make_optimizer(lambda c: 1e-3)
-    for kw in (dict(ema_decay=0.99), dict(cga={}), dict(oscillation={}),
-               dict(master_dtype="bfloat16"), dict(loss_kind="kd_qk")):
-        with pytest.raises(NotImplementedError):
+    for kw, item in ((dict(oscillation={}), 6), (dict(loss_kind="kd_qk"), 5),
+                     (dict(loss_kind="kd_qkv"), 5),
+                     (dict(loss_kind="kd_token"), 5)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             make_train_step(m, opt, teacher=m, device="cpu", **kw)
+    for field in ("drop_rate", "attn_drop_rate", "drop_path_rate"):
+        with pytest.raises(NotImplementedError, match="item 1"):
+            create_model(NAME, policy=w2a2_qkr_policy(DEPTH), device="cpu",
+                         **{field: 0.1})
 
 
 # ------------------------------------------------------------ the teacher
