@@ -119,7 +119,30 @@ Phases (any failure raises and the script exits non-zero):
      seeded batch, through `Predictor`: exactly 39 K4 launches per forward
      (3 per block and one per patch merging) and none of K1-K3 or K6-K8,
      the bf16 block (each block and patch merging alone) and top-1 gates,
-     img/s, peak memory.
+     img/s, peak memory;
+ 13b. the Swin-T QAT train step, pallas bf16 at B=64 with drop_path 0.0
+     (bench.py's Swin rows; fp32 masters, the float Swin-T teacher in
+     bf16, KD soft+hard on non-distilled logits, AdamW): exactly 39 K4 a
+     step and nothing else, finite loss and gradient norm, each block's
+     and patch merging's backward under SWIN_GATE, the whole-step rule as
+     it stands (2 x the order spread + the floor, the composed fp64 Swin-T
+     beside it), the relative-position bias tables' readings printed,
+     img/s kernels and plain, peak memory;
+ 13c. the Swin-T CGA finetune step (phase 2 of w2a2_swin_t.sh:
+     model_type "swin", qk_reparam_type=1, boundary 0.005, lr 1e-5),
+     pallas bf16 with fp32 masters: the selection with the 3 reductions,
+     3 gated steps (`cga_steps`), the eval step against the Predictor,
+     wall ms beside the step without CGA;
+ 13d. dropout and drop-path (`phase_dropout`): the DeiT-S fused fp32 step
+     with drop_rate = drop_path_rate = 0.1 and a CUDA generator (36 K1,
+     12 K2, 12 K3; every mask's kept share within KEPT_SIGMAS of keep; the
+     default CUDA generator untouched), two steps seeded alike bit-equal,
+     another seed not; attn_drop_rate 0.1: no K2 or K3 in the train step,
+     12 K2 in eval; one Swin-T pallas step at drop_path_rate 0.2 (39 K4);
+ 13e. remat (`phase_remat`), dropout on: DeiT-S fused fp32 with remat=True
+     and with attn_impl='remat', Swin-T pallas with remat_stages=(0, 1, 2,
+     3) and with attn_impl='remat', each one's loss and gradients bit-equal
+     to the same step without remat, peak memory of both.
 The int8 path (bench.py's int8 configuration, INT8: matmul_impl="int8",
 composed attention, bf16 stream; no TPU kernel lies on it, its integer
 product `int8_mm` is torch._int_mm, a library call):
@@ -146,6 +169,9 @@ product `int8_mm` is torch._int_mm, a library call):
      every whole-step gradient bit-identical through the plain product;
  18. Swin-T int8 serving (63 int8_mm a forward: 12 blocks x 5 and 3
      reductions) and its frozen artifact, as phases 15 and 16 at B = 64;
+ 19. bench.py's Swin-T int8 train step at B = 48 (drop_path 0.0): 63
+     int8_mm a step, the bf16 step gates under SWIN_GATE, every whole-step
+     gradient bit-identical through the plain product;
 every path's int8_mm launches by shape held to phase 14's count.
 The agreement gates: fp32, the kernel path against the plain path; bf16,
 each path against a rounded-once reference (the plain path with every
@@ -1731,23 +1757,42 @@ TRAIN_STEPS_TIMED, TRAIN_STEPS_WARM = 5, 2
 GRAD_GATE_MIN_FLOOR = 1e-3
 
 
+def _family(name):
+    """(config, W2A2 QKR policy) of a model name, DeiT or Swin."""
+    from ofq_tpu_torch.models import deit, swin
+    from ofq_tpu_torch.quant import w2a2_qkr_policy, w2a2_qkr_swin_policy
+    if name in swin.VARIANTS:
+        cfg = swin.VARIANTS[name]
+        return cfg, w2a2_qkr_swin_policy(cfg.depths)
+    cfg = deit.VARIANTS[name]
+    return cfg, w2a2_qkr_policy(cfg.depth)
+
+
+def is_swin(name):
+    return hasattr(_family(name)[0], "depths")
+
+
+# bench.py's Swin-T rows and the recipe train with drop_path 0.0
+SWIN_BENCH = dict(drop_path_rate=0.0)
+
+
 def build_trained(dev, conf, name="deit_small_distilled_patch16_224",
-                  batch=BATCH, policy=None):
+                  batch=BATCH, policy=None, overrides=None):
     """The W2A2 QKR student of the train phases in `conf` (or under
-    `policy`), calibrated, its float teacher (bf16 parameters under the
-    bf16 stream, as bench.py builds it) and bench.py's seeded batch, kept
-    on the device."""
+    `policy`; `overrides` replace config fields), calibrated, its float
+    teacher (bf16 parameters under the bf16 stream, as bench.py builds it)
+    and bench.py's seeded batch, kept on the device."""
     import numpy as np
     import torch
     from ofq_tpu_torch.calibrate import calibrate
     from ofq_tpu_torch.models import create_model
-    from ofq_tpu_torch.models.deit import VARIANTS
-    from ofq_tpu_torch.quant import QuantPolicy, w2a2_qkr_policy
-    cfg = VARIANTS[name]
+    from ofq_tpu_torch.quant import QuantPolicy
+    cfg, default_policy = _family(name)
     cd = conf["compute_dtype"]
     student = create_model(
-        name, policy=policy or w2a2_qkr_policy(cfg.depth), device=dev,
-        generator=torch.Generator().manual_seed(0), head_std=0.02, **conf)
+        name, policy=policy or default_policy, device=dev,
+        generator=torch.Generator().manual_seed(0), head_std=0.02, **conf,
+        **(overrides or {}))
     teacher = create_model(name, policy=QuantPolicy(), device=dev,
                            generator=torch.Generator().manual_seed(1),
                            compute_dtype=cd)
@@ -1763,12 +1808,13 @@ def build_trained(dev, conf, name="deit_small_distilled_patch16_224",
 
 
 def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
-                batch=BATCH):
-    """One QAT train step of DeiT-S W2A2 QKR with the float teacher, KD
-    soft+hard and AdamW, through the kernels of `conf`: K1 and K2 forward
-    and K3 backward (fused, fp32 or the bf16 stream), or K4 forward
-    (pallas, bf16); the bf16 stream with fp32 masters and a bf16 teacher,
-    as bench.py builds it."""
+                batch=BATCH, gate=None, overrides=None):
+    """One QAT train step of the W2A2 QKR student `name` (DeiT-S; Swin-T
+    with `gate=SWIN_GATE` and `overrides=SWIN_BENCH`) with the float
+    teacher, KD soft+hard and AdamW, through the kernels of `conf`: K1 and
+    K2 forward and K3 backward (fused, fp32 or the bf16 stream), K4
+    forward (pallas, bf16) or `int8_mm` (int8, bf16); the bf16 stream
+    with fp32 masters and a bf16 teacher, as bench.py builds it."""
     import numpy as np
     import torch
     from ofq_tpu_torch import ops
@@ -1776,7 +1822,8 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
                                      make_optimizer, make_train_step)
 
     t0 = time.perf_counter()
-    student, teacher, data = build_trained(dev, conf, name, batch)
+    student, teacher, data = build_trained(dev, conf, name, batch,
+                                           overrides=overrides)
     cfg = student.cfg
     opt = make_optimizer(cosine_with_warmup_cooldown(
         5.47e-4, epochs=300, warmup_epochs=5, warmup_lr=1e-6, min_lr=1e-5),
@@ -1805,16 +1852,27 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
     if not (np.isfinite(loss) and np.isfinite(gnorm)):
         raise AssertionError(f"loss {loss}, grad_norm {gnorm}")
 
-    blocks = check_blocks_backward(student, teacher, data, conf)
+    blocks = check_blocks_backward(student, teacher, data, conf, gate)
     grads = check_step_grads(student, teacher, data, conf)
+    tables = [r for r in grads["per_param"]
+              if r["name"].endswith("relative_position_bias_table")]
+    if tables:
+        # the tables' gradient: a scatter-add of the gathered bias's
+        log(f"[train] relative_position_bias_table gradients, kernels / "
+            f"limit (plain, order spread): " + ", ".join(
+                f"{r['name'].split('.')[0]} {r['rel_kernels']:.3e}/"
+                f"{r['limit']:.3e} ({r['rel_plain']:.3e}, "
+                f"{r.get('spread', float('nan')):.3e})" for r in tables))
     if int_path(conf) and grads["kernels_vs_plain_max"] != 0:
         # int8_mm and its plain version are both exact, and nothing else
         # of the step differs between the two paths
         raise GateTripped(f"[train] the whole-step gradients through "
                           f"int8_mm and through its plain version differ "
                           f"({grads['kernels_vs_plain_max']})")
+    # K5's captured products: DeiT-S's (phase_k5_captured)
     captured = (capture_dx_products(student, teacher, data)
-                if conf["matmul_impl"] == "pallas" else None)
+                if conf["matmul_impl"] == "pallas" and not is_swin(name)
+                else None)
 
     def rate():
         nonlocal state
@@ -1855,6 +1913,9 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
 # also takes bf16 masters, the EMA and AGC on the card (the dampening loss
 # and the norm and value clips run in the CPU tests only).
 CGA = dict(bits=2, boundary_range=0.005, qk_reparam=True, model_type="deit")
+# Swin-T's (train_scripts/swin_t/w2a2_swin_t.sh: --model_type swin), whose
+# selection adds the patch mergings' reductions
+CGA_SWIN = dict(CGA, model_type="swin")
 CGA_LR = 1e-5
 CGA_STEPS = 3
 # the eval step's images, the last batch padded by EVAL_PAD rows of label -1
@@ -1872,16 +1933,15 @@ def _bits(t):
                    torch.float64: torch.int64}[t.dtype])
 
 
-def _cga_masks(state):
+def _cga_masks(state, cga=CGA):
     """The port's freeze masks of the selected parameters, from the
     masters' fp32 view, as the step computes them."""
     import torch
     from ofq_tpu_torch.train import freeze_masks
     with torch.no_grad():
         views = {n: p.float() for n, p in state.params.items()}
-        return {n: m for n, m in freeze_masks(
-            views, bits=CGA["bits"], boundary_range=CGA["boundary_range"],
-            qk_reparam=CGA["qk_reparam"]).items() if m is not None}
+        return {n: m for n, m in freeze_masks(views, **cga).items()
+                if m is not None}
 
 
 def cga_masks_on_cpu(state, masks):
@@ -1911,7 +1971,7 @@ def cga_masks_on_cpu(state, masks):
 
 
 def cga_steps(state, step, data, n, *, bf16, conf=None, cfg=None,
-              cpu_masks=False):
+              cpu_masks=False, cga=CGA):
     """`n` CGA steps from `state`, each gated: the launches of the plain
     step (when `conf` is given), no frozen entry's bits changed, a
     trainable share in (0, 0.1) for every selected parameter, the masks
@@ -1925,7 +1985,7 @@ def cga_steps(state, step, data, n, *, bf16, conf=None, cfg=None,
                cpu_near_edge=0, launches=None)
     always = None
     for _ in range(n):
-        masks = _cga_masks(state)
+        masks = _cga_masks(state, cga)
         for name, m in masks.items():
             share = float((m == 0).float().mean())
             if not 0.0 < share < 0.1:
@@ -2035,15 +2095,19 @@ def check_eval(student, state, dev):
 
 
 def phase_cga(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
-              batch=BATCH):
-    """The CGA finetune step of DeiT-S W2A2 QKR (`qk_reparam_type=1`,
-    boundary range 0.005) with the float teacher, KD soft+hard and AdamW
+              batch=BATCH, bf16_masters=None, selfchecks=True):
+    """The CGA finetune step of the W2A2 QKR student `name` (DeiT-S, or
+    Swin-T with `model_type="swin"` and bench.py's drop_path 0.0;
+    `qk_reparam_type=1`, boundary range 0.005) with the float teacher, KD
+    soft+hard and AdamW
     at the constant learning rate CGA_LR, through the kernels of `conf`
     (fp32 masters; under FUSED_BF16 bf16 masters, EMA 0.9999 and AGC
     0.01): CGA_STEPS gated steps (`cga_steps`), the eval step against the
     Predictor (`check_eval`), the step's wall ms beside the same step
     without CGA (plain, CGA, CGA, plain), with --profile its device time.
-    Under FUSED the gate self-check: `restore_frozen` replaced by "take
+    `bf16_masters` (default: whether `conf` runs the bf16 stream) selects
+    bf16 masters, the EMA and AGC.  With fp32 masters (and `selfchecks`)
+    the gate self-check: `restore_frozen` replaced by "take
     the new value" must trip the frozen-bits gate, `mask_grads` replaced
     by the identity the moments gate, and the unmodified step must pass
     (at CGA_LR in bf16 the weight decay of a frozen entry stays under half
@@ -2052,19 +2116,20 @@ def phase_cga(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
 
     import numpy as np
     import torch
-    from ofq_tpu_torch.models.deit import VARIANTS
-    from ofq_tpu_torch.quant import w2a2_qkr_policy
     from ofq_tpu_torch.train import (TrainState, constant_lr, make_optimizer,
                                      make_train_step)
     from ofq_tpu_torch.train import cga as cga_lib
 
-    bf16 = conf["compute_dtype"] == "bfloat16"
+    bf16 = (conf["compute_dtype"] == "bfloat16" if bf16_masters is None
+            else bf16_masters)
+    swin = is_swin(name)
+    cga = CGA_SWIN if swin else CGA
     t0 = time.perf_counter()
-    policy = dataclasses.replace(w2a2_qkr_policy(VARIANTS[name].depth),
-                                 qk_reparam_type=1,
-                                 boundary_range=CGA["boundary_range"])
-    student, teacher, data = build_trained(dev, conf, name, batch,
-                                           policy=policy)
+    policy = dataclasses.replace(_family(name)[1], qk_reparam_type=1,
+                                 boundary_range=cga["boundary_range"])
+    student, teacher, data = build_trained(
+        dev, conf, name, batch, policy=policy,
+        overrides=SWIN_BENCH if swin else None)
     cfg = student.cfg
     options = (dict(master_dtype="bfloat16", ema_decay=0.9999) if bf16
                else {})
@@ -2081,7 +2146,7 @@ def phase_cga(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
                                loss_kind="kd_soft_hard", device=dev, cga=cga,
                                **options)
 
-    step, plain = make(CGA), make(None)
+    step, plain = make(cga), make(None)
     torch.cuda.synchronize()
     what = (f"{_describe(conf)}, {'bf16 masters, EMA 0.9999, AGC 0.01' if bf16 else 'fp32 masters'}")
     log(f"[cga] {name} W2A2 QKR student (qk_reparam_type=1) and float "
@@ -2096,7 +2161,7 @@ def phase_cga(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
     faults = {"restore_frozen": lambda real: (
                   lambda old, new, masks: dict(new)),
               "mask_grads": lambda real: (lambda g, masks: dict(g))}
-    if not bf16:
+    if not bf16 and selfchecks:
         for fault, label, gate in (
                 ("restore_frozen", "restore_frozen taking the new value",
                  "frozen bits"),
@@ -2119,8 +2184,13 @@ def phase_cga(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
             student.load_state_dict(snapshot)
 
     state = fresh()
+    selected = sorted(_cga_masks(state, cga))
+    reductions = [k for k in selected if ".reduction." in k]
+    if swin and len(reductions) != len(cfg.depths) - 1:
+        raise AssertionError(f"[cga] the Swin selection holds the "
+                             f"reductions {reductions}")
     state, gates = cga_steps(state, step, data, CGA_STEPS, bf16=bf16,
-                             conf=conf, cfg=cfg, cpu_masks=True)
+                             conf=conf, cfg=cfg, cpu_masks=True, cga=cga)
     never = [k for k in gates["moved"][0]
              if not all(m[k] for m in gates["moved"])]
     if not bf16 and never:
@@ -2144,8 +2214,9 @@ def phase_cga(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
 
     times = [ms(f) for f in (plain, step, step, plain)]
     cga_ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
-    log(f"[cga] {_describe(conf)}, "
+    log(f"[cga] {name}, {_describe(conf)}, "
         f"{'bf16 masters, EMA, AGC' if bf16 else 'fp32 masters'}: "
+        f"{len(selected)} kernels selected ({len(reductions)} reductions); "
         f"{CGA_STEPS} steps at lr {CGA_LR}, launches per step "
         f"{gates['launches']}; {gates['frozen_changed']} of the frozen "
         f"entries changed "
@@ -2165,7 +2236,8 @@ def phase_cga(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
     prof = (phase_profile(lambda: float(step(state, data)[1]["loss"]),
                           "CGA train step")
             if "--profile" in sys.argv else None)
-    return dict(config=conf, bf16_masters=bf16, gates=gates, eval=ev,
+    return dict(model=name, config=conf, bf16_masters=bf16, gates=gates,
+                eval=ev, selected=len(selected), reductions=reductions,
                 selfcheck=selfcheck, cga_ms=cga_ms, plain_ms=plain_ms,
                 ms_in_turns=times, profile=prof)
 
@@ -2235,13 +2307,17 @@ def _rel(a, ref):
     return float((a - ref).norm()) / max(float(ref.norm()), 1e-30)
 
 
-def check_blocks_backward(model, teacher, data, conf=FUSED):
+def check_blocks_backward(model, teacher, data, conf=FUSED, gate=None):
     """Each block's VJP alone, on the plain path's input to that block and
     its upstream gradient (captured with hooks on one plain backward): in
     fp32 the rows of dx through the kernels against the plain versions; in
     bf16 the rows of dx and the block's parameter gradients of both paths
-    against the rounded-once reference (above BLOCK_ROWS)."""
+    against the rounded-once reference (above BLOCK_ROWS).  The blocks are
+    `model.block_names` (DeiT's `blocks_*`, Swin's `features_*`: its
+    blocks and patch mergings); `gate` (`rows`, `row_floor`: SWIN_GATE)
+    replaces BLOCK_ROWS and, where larger, BACKWARD_ROW_FLOOR."""
     import torch
+    gate = gate or dict(rows=BLOCK_ROWS, row_floor=0.0)
     seen = {}
     bf16 = conf["compute_dtype"] is not None
 
@@ -2289,7 +2365,7 @@ def check_blocks_backward(model, teacher, data, conf=FUSED):
             rows.append(_row_shares(dx_k, dx_p, conf))
             continue
         dx_r = out["reference"][0]
-        fl = BACKWARD_ROW_FLOOR
+        fl = max(BACKWARD_ROW_FLOOR, gate["row_floor"])
         rows.append((_row_shares(dx_k, dx_r, conf, fl)[0],
                      _row_shares(dx_p, dx_r, conf, fl)[0],
                      *_row_shares(dx_k, dx_p, conf)))
@@ -2302,7 +2378,7 @@ def check_blocks_backward(model, teacher, data, conf=FUSED):
            "upstream gradient, rows of dx"
     if not bf16:
         return _log_rows(what + ", kernels vs plain", rows)
-    res = _block_rows_gate(what, rows)
+    res = _block_rows_gate(what, rows, gate["rows"])
     res["param_floor"] = _grad_gate(
         "[train] each block's parameter gradients alone against the "
         "rounded-once reference", params)
@@ -2390,6 +2466,283 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None):
     return dict(floor=floor, all_params=glob, all_params_fp64=glob_64,
                 kernels_vs_plain_max=rkp, per_param=rows,
                 per_param_fp64=rows_64)
+
+
+# ------------------------------------------------------ dropout, remat
+# the rates of phase_dropout's and phase_remat's steps (attention dropout
+# 0, so the fused and checkpointed tails run)
+DROP = dict(drop_rate=0.1, drop_path_rate=0.1)
+# a mask's kept share: within this many binomial standard deviations of
+# keep
+KEPT_SIGMAS = 5
+
+
+def _step_grads(model, teacher, data, generator):
+    """The KD loss of one train-mode forward of `model` drawing its masks
+    from `generator`, and every parameter's gradient."""
+    import torch
+    from ofq_tpu_torch.train import kd_soft_and_hard
+    model.train()
+    with torch.no_grad():
+        t_logits = teacher(data["image"])
+    params = dict(model.named_parameters())
+    loss = kd_soft_and_hard(model(data["image"], generator), data["label"],
+                            t_logits)
+    g = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return loss.detach(), {n: gi for n, gi in zip(params, g)
+                           if gi is not None}
+
+
+def _differing(a, b):
+    """The names whose loss or gradient bits differ between two
+    `_step_grads` results."""
+    import torch
+    (la, ga), (lb, gb) = a, b
+    out = [] if torch.equal(_bits(la), _bits(lb)) else ["loss"]
+    if set(ga) != set(gb):
+        return out + sorted(set(ga) ^ set(gb))
+    return out + [n for n in ga if not torch.equal(_bits(ga[n]),
+                                                   _bits(gb[n]))]
+
+
+@contextlib.contextmanager
+def recorded_masks():
+    """Every mask `nn.dropout.bernoulli` draws while active, as (shape,
+    keep, kept count on the device)."""
+    from ofq_tpu_torch.nn import dropout as dmod
+    seen = []
+
+    def record(real):
+        def rec(shape, keep, generator):
+            m = real(shape, keep, generator)
+            seen.append((tuple(shape), keep, m.sum()))
+            return m
+        return rec
+
+    with injected(dmod, "bernoulli", record):
+        yield seen
+
+
+def _kept_shares(masks):
+    """Each mask's kept share against keep (binomial: within KEPT_SIGMAS
+    standard deviations)."""
+    import math
+    rows = []
+    for shape, keep, kept in masks:
+        n = math.prod(shape)
+        share = float(kept) / n
+        sd = math.sqrt(keep * (1 - keep) / n)
+        rows.append(dict(shape=list(shape), keep=keep, share=share,
+                         sigmas=abs(share - keep) / sd))
+    bad = [r for r in rows if r["sigmas"] > KEPT_SIGMAS]
+    if bad:
+        raise GateTripped(f"kept shares outside {KEPT_SIGMAS} sigma: "
+                          f"{bad[:5]}")
+    return rows
+
+
+def _one_step(dev, student, teacher, data, conf, generator):
+    """One `make_train_step` step (lr 1e-5) drawing from `generator`: its
+    launches against `_expected`, every mask's kept share, the default
+    CUDA generator untouched; the student is put back afterwards."""
+    import numpy as np
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.train import (TrainState, constant_lr, make_optimizer,
+                                     make_train_step)
+    snapshot = {k: v.clone() for k, v in student.state_dict().items()}
+    opt = make_optimizer(constant_lr(1e-5), weight_decay=0.05)
+    step = make_train_step(student, opt, teacher=teacher,
+                           loss_kind="kd_soft_hard", device=dev)
+    default = torch.cuda.get_rng_state()
+    ops.reset_launch_counts()
+    with recorded_masks() as masks:
+        _, met = step(TrainState.create(student, opt), data, generator)
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = _expected(conf, student.cfg, train=True)
+    if launches != want:
+        raise AssertionError(f"[dropout] expected launches per step {want}"
+                             f", got {launches}")
+    if not torch.equal(torch.cuda.get_rng_state(), default):
+        raise AssertionError("[dropout] the step drew from the default "
+                             "CUDA generator")
+    loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+    if not (np.isfinite(loss) and np.isfinite(gnorm)):
+        raise AssertionError(f"[dropout] loss {loss}, grad_norm {gnorm}")
+    student.load_state_dict(snapshot)
+    return dict(launches=launches, loss=loss, grad_norm=gnorm,
+                masks=_kept_shares(masks))
+
+
+def phase_dropout(dev, name="deit_small_distilled_patch16_224",
+                  swin_name="swin_t", batch=BATCH):
+    """Dropout and drop-path on the card, masks from CUDA generators: one
+    DeiT-S fused fp32 step with drop_rate = drop_path_rate = 0.1 (36 K1,
+    12 K2, 12 K3, as the plain step; every mask's kept share within
+    KEPT_SIGMAS binomial standard deviations of keep; the default CUDA
+    generator untouched); the loss and gradients of two steps from the
+    same state with generators seeded alike bit for bit equal, another
+    seed's not; attention dropout 0.1: no K2 or K3 in the train step (the
+    composition, as in JAX), 12 K2 in an eval forward; one Swin-T pallas
+    step at SwinConfig's default drop_path_rate 0.2 (39 K4)."""
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.models import create_model
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    from ofq_tpu_torch.models.swin import SwinConfig
+
+    t0 = time.perf_counter()
+    student, teacher, data = build_trained(dev, FUSED, name, batch,
+                                           overrides=DROP)
+    fused = _one_step(dev, student, teacher, data, FUSED, gen(5))
+    sites = fused["masks"]
+    depth = student.cfg.depth
+    # pos_drop, each block's proj_drop and two MLP dropouts, drop-path on
+    # both branches of every block but the first (rate 0)
+    if len(sites) != 1 + 3 * depth + 2 * (depth - 1):
+        raise AssertionError(f"[dropout] {len(sites)} masks drawn")
+    a = _step_grads(student, teacher, data, gen(7))
+    b = _step_grads(student, teacher, data, gen(7))
+    c = _step_grads(student, teacher, data, gen(8))
+    same, other = _differing(a, b), _differing(a, c)
+    n_grads = len(a[1])
+    del a, b, c
+    if same or len(other) < n_grads // 4:
+        raise AssertionError(f"[dropout] same seed: {same[:5]} differ; "
+                             f"other seed: {len(other)} differ")
+    cfg = student.cfg
+    attn = create_model(name, policy=student.policy, device=dev, **FUSED,
+                        **DROP, attn_drop_rate=0.1)
+    attn.load_state_dict(student.state_dict())
+    del student
+    torch.cuda.empty_cache()
+    train_attn = _one_step(dev, attn, teacher, data,
+                           dict(FUSED, attn_impl=None), gen(6))
+    attn.eval()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        attn(data["image"])
+    torch.cuda.synchronize()
+    eval_attn = ops.launch_counts()
+    want = _expected(FUSED, cfg, train=False)
+    if eval_attn != want:
+        raise AssertionError(f"[dropout] eval with attention dropout: "
+                             f"expected {want}, got {eval_attn}")
+    del attn, teacher, data
+    torch.cuda.empty_cache()
+    s_student, s_teacher, s_data = build_trained(
+        dev, PALLAS, swin_name, batch,
+        overrides=dict(drop_path_rate=SwinConfig().drop_path_rate))
+    if s_student.cfg.drop_path_rate != 0.2:
+        raise AssertionError("[dropout] SwinConfig's default drop_path_rate")
+    swin = _one_step(dev, s_student, s_teacher, s_data, PALLAS, gen(9))
+    n_blocks = sum(s_student.cfg.depths)
+    if len(swin["masks"]) != 2 * (n_blocks - 1):
+        raise AssertionError(f"[dropout] Swin-T: {len(swin['masks'])} "
+                             f"masks drawn")
+    del s_student, s_teacher, s_data
+    torch.cuda.empty_cache()
+
+    def worst(rows):
+        return max(r["sigmas"] for r in rows)
+
+    def nz(launches):
+        return {k: v for k, v in launches.items() if v}
+
+    log(f"[dropout] DeiT-S fused fp32, drop_rate = drop_path_rate = 0.1: "
+        f"launches {fused['launches']}, {len(sites)} masks, kept shares "
+        f"within {worst(sites):.2f} sigma (drop-path: "
+        f"{[round(r['share'], 4) for r in sites if len(r['shape']) == 3 and r['shape'][1] == 1]}"
+        f"), the default CUDA generator untouched; same seed: 0 of the "
+        f"loss and gradients differ, another seed: {len(other)}; "
+        f"attn_drop_rate 0.1: train step launches "
+        f"{nz(train_attn['launches'])}, eval forward {nz(eval_attn)}; "
+        f"Swin-T pallas bf16 at drop_path_rate 0.2: launches "
+        f"{nz(swin['launches'])}, {len(swin['masks'])} drop-path "
+        f"masks within {worst(swin['masks']):.2f} sigma, loss "
+        f"{swin['loss']:.6f} ({time.perf_counter() - t0:.1f} s)")
+    return dict(fused=fused, other_seed_differing=len(other),
+                attn_train=train_attn, attn_eval_launches=eval_attn,
+                swin=swin)
+
+
+def phase_remat(dev, names=("deit_small_distilled_patch16_224", "swin_t"),
+                batch=BATCH):
+    """Block and attention-tail remat with dropout on (DROP): DeiT-S fused
+    fp32 with `remat=True` and with `attn_impl='remat'`, Swin-T pallas
+    bf16 with `remat_stages=(0, 1, 2, 3)` and with `attn_impl='remat'`.
+    Each one's loss and gradients bit for bit equal to the same step
+    without remat from a CUDA generator seeded alike (the block forms
+    against the model without them, the tail against the same tail with
+    the checkpoint a direct call); peak memory of both; the launches of
+    the remat step (a checkpointed block's kernels run again in the
+    recompute).  Also two plain steps alike, the witness that the step is
+    deterministic on the card."""
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.models import create_model
+    from ofq_tpu_torch.nn import attention as tattn
+
+    def direct(real):
+        return lambda fn, *args, **kw: fn(*args)
+
+    def measured(model, teacher, data, ctx=contextlib.nullcontext):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with ctx():
+            r = _step_grads(model, teacher, data,
+                            torch.Generator(device=dev).manual_seed(11))
+        torch.cuda.synchronize()
+        return r, torch.cuda.max_memory_allocated() / 1e9, {
+            k: v for k, v in ops.launch_counts().items() if v}
+
+    out = []
+    for name in names:
+        conf, overrides = (PALLAS if is_swin(name) else FUSED), DROP
+        t0 = time.perf_counter()
+        student, teacher, data = build_trained(dev, conf, name, batch,
+                                               overrides=overrides)
+        plain, plain_gb, plain_launches = measured(student, teacher, data)
+        again = _differing(plain, measured(student, teacher, data)[0])
+        block = (dict(remat=True) if not is_swin(name)
+                 else dict(remat_stages=(0, 1, 2, 3)))
+        for form, extra in (("block", block),
+                            ("attention tail", dict(attn_impl="remat"))):
+            m = create_model(name, policy=student.policy, device=dev,
+                             **dict(conf, **extra), **overrides)
+            m.load_state_dict(student.state_dict())
+            if form == "block":
+                ref, ref_gb = plain, plain_gb
+            else:
+                ref, ref_gb, _ = measured(
+                    m, teacher, data,
+                    lambda: injected(tattn, "checkpoint", direct))
+            got, gb, launches = measured(m, teacher, data)
+            differ = _differing(ref, got)
+            row = dict(model=name, form=form, config=extra,
+                       differing=differ, peak_gb=gb, without_gb=ref_gb,
+                       launches=launches, plain_launches=plain_launches,
+                       plain_twice_differing=again)
+            out.append(row)
+            log(f"[remat] {name} {_describe(conf)}, {form} remat {extra}, "
+                f"dropout {overrides}: {len(differ)} of the loss and "
+                f"{len(got[1])} gradients differ from the step without it "
+                f"{differ[:5]}; peak memory {gb:.2f} GB against "
+                f"{ref_gb:.2f}; launches {launches} (without remat "
+                f"{plain_launches}); two plain steps alike: {len(again)} "
+                f"differ {again[:3]}")
+            del m, got, ref
+            if differ:
+                raise GateTripped(f"[remat] {name} {form}: {differ[:5]}")
+        del student, teacher, data, plain
+        torch.cuda.empty_cache()
+        log(f"[remat] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ------------------------------------------------------ gate self-check
@@ -3183,6 +3536,8 @@ FROZEN_INT = dict(matmul_impl=None, attn_impl=None,
                   compute_dtype="bfloat16", frozen_int_bits=2)
 # bench.py's serving_rate batch
 FROZEN_BATCH = 256
+# bench.py's Swin-T family row: the int8 step at B = 48 (bench.py:303)
+SWIN_INT8_TRAIN_BATCH = 48
 # H100 SXM data sheet (dense): int8 tensor-core operations per second
 PEAK_INT8_OPS = 1979e12
 
@@ -3190,9 +3545,9 @@ PEAK_INT8_OPS = 1979e12
 def _int8_cases():
     """(path, name, M, K, N, launches per forward) of every int product of
     the int8 paths: DeiT-S at B = 64 and, frozen, at bench.py's B = 256
-    (QKR's v and qkx, proj, fc1, fc2 of each block); Swin-T at B = 64 (the
-    same five per block on the window tokens, and each patch merging's
-    reduction)."""
+    (QKR's v and qkx, proj, fc1, fc2 of each block); Swin-T at B = 64 and
+    at bench.py's int8 train batch, 48 (the same five per block on the
+    window tokens, and each patch merging's reduction)."""
     from ofq_tpu_torch.models.deit import DEIT_SMALL as d
     from ofq_tpu_torch.models.swin import SWIN_TINY as sw
     cases = []
@@ -3206,17 +3561,19 @@ def _int8_cases():
                     (f"DeiT-S B={FROZEN_BATCH}", FROZEN_BATCH)):
         block(path, "", B * d.n_tokens, d.embed_dim, d.num_heads,
               int(d.embed_dim * d.mlp_ratio), d.depth)
-    side, C = sw.img_size // sw.patch_size, sw.embed_dim
-    for stage, depth in enumerate(sw.depths):
-        # 56, 28, 14, 7: whole windows of 7 x 7, so the window tokens are
-        # the map's
-        block("Swin-T B=64", f"s{stage} ", BATCH * side * side, C,
-              sw.num_heads[stage], int(C * sw.mlp_ratio), depth)
-        if stage < len(sw.depths) - 1:
-            side = (side + 1) // 2
-            cases.append(("Swin-T B=64", f"s{stage} reduction",
-                          BATCH * side * side, 4 * C, 2 * C, 1))
-            C *= 2
+    for B in (BATCH, SWIN_INT8_TRAIN_BATCH):
+        path = f"Swin-T B={B}"
+        side, C = sw.img_size // sw.patch_size, sw.embed_dim
+        for stage, depth in enumerate(sw.depths):
+            # 56, 28, 14, 7: whole windows of 7 x 7, so the window tokens
+            # are the map's
+            block(path, f"s{stage} ", B * side * side, C,
+                  sw.num_heads[stage], int(C * sw.mlp_ratio), depth)
+            if stage < len(sw.depths) - 1:
+                side = (side + 1) // 2
+                cases.append((path, f"s{stage} reduction",
+                              B * side * side, 4 * C, 2 * C, 1))
+                C *= 2
     return cases
 
 
@@ -3693,6 +4050,16 @@ def main() -> int:
                                            w2a2_qkr_swin_policy(),
                                            gate=SWIN_GATE)
     torch.cuda.empty_cache()
+    st = full["train_swin_pallas"] = phase_train(
+        dev, PALLAS, "swin_t", gate=SWIN_GATE, overrides=SWIN_BENCH)
+    torch.cuda.empty_cache()
+    full["cga_swin"] = phase_cga(dev, PALLAS, "swin_t", bf16_masters=False,
+                                 selfchecks=False)
+    torch.cuda.empty_cache()
+    full["dropout"] = phase_dropout(dev)
+    torch.cuda.empty_cache()
+    full["remat"] = phase_remat(dev)
+    torch.cuda.empty_cache()
     full["int8_mm"] = phase_int8_mm(dev)
     built = build_served(dev, INT8, deit, w2a2_qkr_policy(12))
     full["slice_int8"] = phase_slice(dev, INT8, deit, w2a2_qkr_policy(12),
@@ -3714,6 +4081,10 @@ def main() -> int:
         gate=SWIN_GATE)
     del built
     torch.cuda.empty_cache()
+    full["train_swin_int8"] = phase_train(
+        dev, INT8, "swin_t", batch=SWIN_INT8_TRAIN_BATCH, gate=SWIN_GATE,
+        overrides=SWIN_BENCH)
+    torch.cuda.empty_cache()
     int8_launches = {
         "DeiT-S int8 serving": full["slice_int8"]["launch_shapes"],
         "DeiT-S int8 train step": full["train_int8"]["launch_shapes"],
@@ -3722,9 +4093,13 @@ def main() -> int:
         f"DeiT-S frozen integer core, B={FROZEN_BATCH}":
             full["frozen_deit"]["rate_batch_shapes"],
         "Swin-T int8 serving": full["swin_int8"]["launch_shapes"],
-        "Swin-T frozen integer core": full["frozen_swin"]["launch_shapes"]}
+        "Swin-T frozen integer core": full["frozen_swin"]["launch_shapes"],
+        f"Swin-T int8 train step, B={SWIN_INT8_TRAIN_BATCH}":
+            full["train_swin_int8"]["launch_shapes"]}
     for what, shapes in int8_launches.items():
-        rows_of = ("Swin-T B=64" if what.startswith("Swin")
+        rows_of = (f"Swin-T B={SWIN_INT8_TRAIN_BATCH}" if "train step" in what
+                   and what.startswith("Swin")
+                   else "Swin-T B=64" if what.startswith("Swin")
                    else f"DeiT-S B={FROZEN_BATCH}" if str(FROZEN_BATCH)
                    in what else "DeiT-S B=64")
         check_int8_shapes(full["int8_mm"], rows_of, shapes)
@@ -3801,6 +4176,13 @@ def main() -> int:
             f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
             sp["launch_shapes"].get(str((r["M"], r["K"], r["N"])), 0), r,
             path="Swin-T W2A2 QKR pallas bf16 serving forward",
+            design=r["design"]))
+    for r in filter(lambda r: r["main_path"], full["k4_swin"]):
+        kernels.append(_kernel_row(
+            f"pallas_statsq_fwd Swin-T {r['name']} bf16 "
+            f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
+            st["launch_shapes"].get(str((r["M"], r["K"], r["N"])), 0), r,
+            path="Swin-T W2A2 QKR pallas bf16 train step",
             design=r["design"]))
     captured = full["swin_float"]["captured"]
     lab_launches = full["lab"]["launches"]

@@ -9,7 +9,13 @@ carry the Flax names (`patch_embed`, `blocks_<i>`, `norm1`, `attn`, `mlp`,
 tree paths with '.' for '/'.  Each path is quantized or float as the policy
 says: the quantized DeiT of the shipped recipes (W8A8 patch embedding and
 heads, QKR attention and quantized MLPs in every block) and the float
-teacher (empty policy).  LayerNorm; no dropout or drop-path.
+teacher (empty policy).  LayerNorm.  In train mode, dropout after the
+position embedding, in the attention and the MLP, and drop-path on each
+residual branch at `drop_path_rate * i / max(depth - 1, 1)` for block i,
+as in JAX, with masks from the `generator` handed to `forward`
+(`nn/dropout.py`); `remat` recomputes every block's activations in the
+backward (JAX's `nn.remat(Block)`), the recompute drawing the forward's
+masks.
 
 `compute_dtype='bfloat16'` runs the token stream in bf16 from the cast
 after `pos_embed` to the final norm (matmuls, residuals, norms and the
@@ -30,7 +36,8 @@ from torch import nn
 
 from ..nn.attention import Attention, QAttentionQKR
 from ..nn.conv import PatchEmbedConv, QPatchEmbedConv
-from ..nn.linear import Dense, Mlp, QHeadLinear, QMlp
+from ..nn.dropout import checkpointed, drop_path, dropout
+from ..nn.linear import Dense, Mlp, QHeadLinear, QMlp, not_in_port
 from ..quant.policy import QuantPolicy
 from ..quant.ste import as_dtype, at_least_f32
 
@@ -47,15 +54,19 @@ class DeiTConfig:
     distilled: bool = True
     ln_eps: float = 1e-6
     in_chans: int = 3
-    # dropout and stochastic depth: 0.0 only (the recipe's values)
+    # dropout and stochastic depth, in train mode only (masks from the
+    # forward's generator)
     drop_rate: float = 0.0
     attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.0
+    # every block under torch.utils.checkpoint
+    remat: bool = False
     # quantized linears: None/'xla' (composition) | 'pallas' (K4, the
     # StatsQ matmul kernel) | 'fused' (K1, the fused QLinear kernel) |
     # 'int8' (the products on the integer codes, `ops/int8_qlinear.py`)
     matmul_impl: Optional[str] = None
-    # attention tail: None/'xla' (composition) | 'fused' (CUDA kernel)
+    # attention tail: None/'xla' (composition) | 'fused' (K2, K3) |
+    # 'remat' (the composition's arithmetic under torch.utils.checkpoint)
     attn_impl: Optional[str] = None
     # None (fp32 stream) | 'bfloat16' (bf16 stream, fp32 parameters)
     compute_dtype: Optional[str] = None
@@ -105,19 +116,15 @@ class LayerNorm(nn.Module):
         return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
 
-def not_in_port(what: str, item: int) -> NotImplementedError:
-    """The error for a configuration the port does not have yet, naming its
-    item in ROADMAP.md's Queue 1."""
-    return NotImplementedError(
-        f"{what} is not in the port yet (ROADMAP.md, Queue 1 item {item})")
-
-
 class Block(nn.Module):
     """Pre-norm transformer block: quantized QKR attention or float
-    attention, quantized or float MLP, as the policy says per path."""
+    attention, quantized or float MLP, as the policy says per path, each
+    residual branch with drop-path at `drop_path`."""
 
-    def __init__(self, cfg: DeiTConfig, policy: QuantPolicy, index: int):
+    def __init__(self, cfg: DeiTConfig, policy: QuantPolicy, index: int,
+                 drop_path: float = 0.0):
         super().__init__()
+        self.drop_path = drop_path
         C = cfg.embed_dim
         hidden = int(C * cfg.mlp_ratio)
         n_tok = cfg.n_tokens
@@ -138,9 +145,15 @@ class Block(nn.Module):
                 quantize_softmax=policy.quantize_softmax,
                 aq_learnable=policy.act.learnable,
                 matmul_impl=cfg.matmul_impl, attn_impl=cfg.attn_impl,
-                compute_dtype=cd, frozen_wqk=frozen, frozen_int_bits=fib)
+                compute_dtype=cd, frozen_wqk=frozen, frozen_int_bits=fib,
+                # --apply_q_attn_dropout gates the attention dropout
+                attn_drop=(cfg.attn_drop_rate
+                           if policy.attn_dropout_enabled else 0.0),
+                proj_drop=cfg.drop_rate)
         else:
-            self.attn = Attention(C, cfg.num_heads)
+            self.attn = Attention(C, cfg.num_heads,
+                                  attn_drop=cfg.attn_drop_rate,
+                                  proj_drop=cfg.drop_rate)
         self.norm2 = LayerNorm(C, cfg.ln_eps, cd)
         if policy.quantizes(f"blocks.{index}.mlp"):
             if policy.lsq_weights:
@@ -151,13 +164,25 @@ class Block(nn.Module):
                 act_layer=policy.act_layer,
                 aq_learnable=policy.act.learnable,
                 matmul_impl=cfg.matmul_impl, compute_dtype=cd,
-                frozen=frozen, frozen_int_bits=fib)
+                frozen=frozen, frozen_int_bits=fib,
+                dropout_rate=cfg.drop_rate)
         else:
-            self.mlp = Mlp(C, hidden, C)
+            self.mlp = Mlp(C, hidden, C, dropout_rate=cfg.drop_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return residual_branches(self, x, generator)
+
+
+def residual_branches(block: nn.Module, x: torch.Tensor,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+    """x + drop_path(attn(norm1(x))), then the same with the MLP: a DeiT or
+    Swin block's forward."""
+    kw = dict(train=block.training)
+    x = x + drop_path(block.attn(block.norm1(x), generator),
+                      block.drop_path, generator, **kw)
+    return x + drop_path(block.mlp(block.norm2(x), generator),
+                         block.drop_path, generator, **kw)
 
 
 class KernelSwitch:
@@ -193,10 +218,6 @@ class VisionTransformer(KernelSwitch, nn.Module):
         self.policy = policy
         self.compute_dtype = as_dtype(cfg.compute_dtype)
         C = cfg.embed_dim
-        for f in ("drop_rate", "attn_drop_rate", "drop_path_rate"):
-            if getattr(cfg, f) != 0.0:
-                raise not_in_port(f"{f}={getattr(cfg, f)} (dropout and "
-                                  "drop-path)", 1)
         grid = cfg.img_size // cfg.patch_size
         if policy.quantizes("patch_embed.proj"):
             self.patch_embed = QPatchEmbedConv(
@@ -209,8 +230,9 @@ class VisionTransformer(KernelSwitch, nn.Module):
             self.dist_token = nn.Parameter(torch.zeros(1, 1, C))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.n_tokens, C))
         self.block_names = [f"blocks_{i}" for i in range(cfg.depth)]
-        for name in self.block_names:
-            self.add_module(name, Block(cfg, policy, int(name[7:])))
+        for i, name in enumerate(self.block_names):
+            dpr = cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
+            self.add_module(name, Block(cfg, policy, i, dpr))
         self.norm = LayerNorm(C, cfg.ln_eps, cfg.compute_dtype)
         self.head = self._head("head")
         if cfg.distilled:
@@ -223,7 +245,10 @@ class VisionTransformer(KernelSwitch, nn.Module):
             return QHeadLinear(C, classes)
         return Dense(C, classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` (on x's device) draws the dropout and drop-path
+        masks in train mode; required there when a rate is above 0."""
         B = x.shape[0]
         C = self.cfg.embed_dim
         patches = self.patch_embed(x).reshape(B, self._grid * self._grid, C)
@@ -232,10 +257,15 @@ class VisionTransformer(KernelSwitch, nn.Module):
             tokens.append(self.dist_token.expand(B, 1, C).to(patches.dtype))
         x = torch.cat(tokens + [patches], dim=1)
         x = x + self.pos_embed.to(x.dtype)
+        x = dropout(x, self.cfg.drop_rate, generator, train=self.training)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = checkpointed(block, x, generator)
+            else:
+                x = block(x, generator)
         # the heads stay >= fp32
         x = self.norm(x)
         x = x.to(at_least_f32(x.dtype))

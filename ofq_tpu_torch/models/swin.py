@@ -1,5 +1,5 @@
 """Swin Transformer (Swin-T), float and W2A2 QKR quantized (port of
-`ofq_tpu/models/swin.py:49-669`), for serving.
+`ofq_tpu/models/swin.py:49-669`), for serving and training.
 
 NHWC images in, logits out.  The token map stays 4-D, (B, H, W, C), from
 the patch embedding to the final pooling; each block partitions it into
@@ -23,7 +23,17 @@ LSQ scale runs along its width (one scale per column, shared by the rows),
 as in the reference.  `compute_dtype='bfloat16'` runs the stream in bf16
 from the cast after `patch_norm` to the final norm, as in JAX.  The
 window-attention tail is the composition (the scores also take the bias
-and the mask, which the lab kernels of `ops/window_attention.py` do not).
+and the mask, which the lab kernels of `ops/window_attention.py` do not),
+or with `attn_impl='remat'` the same arithmetic under
+`torch.utils.checkpoint`, bias and mask inside (JAX's `_remat_swin_tail`;
+the composition in train mode with attention dropout).
+
+Train mode: attention and projection dropout in every window attention,
+dropout in the MLPs, and drop-path on each residual branch at
+`drop_path_rate * i / max(total - 1, 1)` for the i-th block over all
+stages, with masks from the `generator` handed to `forward`
+(`nn/dropout.py`); the blocks of the stages in `remat_stages` are
+recomputed in the backward, their masks replayed.
 """
 
 from __future__ import annotations
@@ -36,13 +46,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.attention import QAttentionQKR, qkr_quant_chain
+from ..nn.attention import (QAttentionQKR, qkr_quant_chain,
+                            remat_attention_tail)
 from ..nn.conv import PatchEmbedConv, QPatchEmbedConv
+from ..nn.dropout import checkpointed, dropout
 from ..nn.linear import Dense, Mlp, QHeadLinear, QLinear, QMlp
 from ..ops.fused_attention import softmax
 from ..quant.policy import QuantPolicy
 from ..quant.ste import as_dtype, at_least_f32, weak_scalar
-from .deit import KernelSwitch, LayerNorm, not_in_port
+from .deit import KernelSwitch, LayerNorm, not_in_port, residual_branches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +67,8 @@ class SwinConfig:
     window_size: int = 7
     mlp_ratio: float = 4.0
     num_classes: int = 1000
-    # dropout and stochastic depth act in training only, which the port
-    # does not run for Swin yet (a forward in train mode raises)
+    # dropout and stochastic depth act in train mode only, with masks from
+    # the forward's generator
     drop_rate: float = 0.0
     attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.2
@@ -66,7 +78,9 @@ class SwinConfig:
     # quantized linears: None/'xla' (composition) | 'pallas' (K4) | 'int8'
     matmul_impl: Optional[str] = None
     compute_dtype: Optional[str] = None
+    # the stages whose blocks run under torch.utils.checkpoint
     remat_stages: Tuple[int, ...] = ()
+    # None/'xla' (composition) | 'remat' (the checkpointed tail)
     attn_impl: Optional[str] = None
     in_chans: int = 3
 
@@ -220,20 +234,25 @@ class WindowAttentionBase:
 class SwinAttention(WindowAttentionBase, nn.Module):
     """Float shifted-window attention: qkv Dense -> q, k, v split from the
     last axis in the natural (B*nW, n, H, d) layout -> scores, bias, mask,
-    softmax -> @v -> proj Dense."""
+    softmax -> attention dropout -> @v -> proj Dense -> projection
+    dropout."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 shift_size: int, qqkkvv: bool = False):
+                 shift_size: int, qqkkvv: bool = False,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         if qqkkvv:
             raise not_in_port("qqkkvv (the attention Gram telemetry of "
                               "kd_qk)", 5)
         self.num_heads = num_heads
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.qkv = Dense(dim, 3 * dim)
         self.proj = Dense(dim, dim)
         self._init_window(num_heads, window_size, shift_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         tokens, geom, mask = self.geometry(x)
         Bn, n, C = tokens.shape
         H = self.num_heads
@@ -243,42 +262,60 @@ class SwinAttention(WindowAttentionBase, nn.Module):
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k)
         attn = self.scores_tail(attn * weak_scalar(d ** -0.5, attn.dtype),
                                 mask, geom)
+        attn = dropout(attn, self.attn_drop, generator, train=self.training)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(Bn, n, C)
-        return self.finish(self.proj(out), geom)
+        out = dropout(self.proj(out), self.proj_drop, generator,
+                      train=self.training)
+        return self.finish(out, geom)
 
 
 class QSwinAttentionQKR(WindowAttentionBase, QAttentionQKR):
     """QKR inside windowed attention: `QAttentionQKR`'s parameters and
     quantization chain on the (B*nW, n, C) window tokens, so every
     per-token LSQ scale has n = window² entries; then the scores, bias,
-    mask, softmax, the all-positive per-row `quan_softmax`, @v and the
-    `proj` QLinear.  The composed tail only."""
+    mask, softmax, the all-positive per-row `quan_softmax`, attention
+    dropout, @v, the `proj` QLinear and projection dropout.  The composed
+    tail, or with `attn_impl='remat'` the checkpointed one (no attention
+    dropout: in train mode with `attn_drop > 0` the composition runs, as
+    in JAX)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift_size: int, *, attn_impl: Optional[str] = None, **kw):
-        if attn_impl == "remat":
-            raise not_in_port("attn_impl='remat' for Swin (the checkpointed "
-                              "window-attention tail)", 5)
-        if attn_impl not in (None, "xla"):
+        if attn_impl not in (None, "xla", "remat"):
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r}: Swin's window attention runs the "
-                "composition (the fused attention core is not supported for "
-                "Swin, as in the JAX package)")
-        super().__init__(dim, num_heads, window_size * window_size, **kw)
+                "composition or 'remat' (the fused attention core is not "
+                "supported for Swin, as in the JAX package)")
+        super().__init__(dim, num_heads, window_size * window_size,
+                         attn_impl=attn_impl, **kw)
         self._init_window(num_heads, window_size, shift_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         tokens, geom, mask = self.geometry(x)
         Bn, n, C = tokens.shape
         d = C // self.num_heads
         xq, v, qkx = qkr_quant_chain(self, tokens)
-        attn = torch.einsum("bnc,bmhc->bhnm", xq, qkx)
-        attn = self.scores_tail(attn * weak_scalar(d ** -0.5, attn.dtype),
-                                mask, geom)
-        if self.quantize_softmax:
-            attn = self.quan_softmax(attn)
-        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(Bn, n, C)
-        return self.finish(self.proj(out), geom)
+        if self.tail_eligible():
+            out = remat_attention_tail(
+                xq, qkx, v,
+                self.quan_softmax.s if self.quantize_softmax else None,
+                bits=self.input_bits, sm_scale=d ** -0.5,
+                quantize_softmax=self.quantize_softmax,
+                aq_learnable=self.aq_learnable, einsum_spec="bnc,bmhc->bhnm",
+                bias=self.rel_pos_bias(), mask=mask)
+        else:
+            attn = torch.einsum("bnc,bmhc->bhnm", xq, qkx)
+            attn = self.scores_tail(
+                attn * weak_scalar(d ** -0.5, attn.dtype), mask, geom)
+            if self.quantize_softmax:
+                attn = self.quan_softmax(attn)
+            attn = dropout(attn, self.attn_drop, generator,
+                           train=self.training)
+            out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+        out = self.proj(out.reshape(Bn, n, C))
+        out = dropout(out, self.proj_drop, generator, train=self.training)
+        return self.finish(out, geom)
 
 
 # ------------------------------------------------------------- structure
@@ -325,14 +362,17 @@ class PatchMerging(nn.Module):
 class SwinBlock(nn.Module):
     """Pre-norm Swin block on the 4-D map: window attention (QKR quantized
     or float) and the MLP (quantized, with per-width-column input scales,
-    or float), each with a residual.  `width` is the map's width."""
+    or float), each with a residual and drop-path at `drop_path`.
+    `width` is the map's width."""
 
     def __init__(self, cfg: SwinConfig, policy: QuantPolicy, dim: int,
                  num_heads: int, shift: int, attn_path: str, mlp_path: str,
-                 width: int):
+                 width: int, drop_path: float = 0.0):
         super().__init__()
+        self.drop_path = drop_path
         cd = cfg.compute_dtype
-        geom = dict(window_size=cfg.window_size, shift_size=shift)
+        geom = dict(window_size=cfg.window_size, shift_size=shift,
+                    proj_drop=cfg.drop_rate)
         self.norm1 = LayerNorm(dim, cfg.ln_eps, cd)
         if policy.quantizes(attn_path):
             if not policy.qk_reparam:
@@ -342,10 +382,13 @@ class SwinBlock(nn.Module):
             self.attn = QSwinAttentionQKR(
                 dim, num_heads, quantize_softmax=policy.quantize_softmax,
                 attn_impl=cfg.attn_impl, **geom,
+                # --apply_q_attn_dropout gates the attention dropout
+                attn_drop=(cfg.attn_drop_rate
+                           if policy.attn_dropout_enabled else 0.0),
                 **_quantized_kw(policy, cfg, "frozen_wqk"))
         else:
             self.attn = SwinAttention(dim, num_heads, qqkkvv=cfg.qqkkvv,
-                                      **geom)
+                                      attn_drop=cfg.attn_drop_rate, **geom)
         self.norm2 = LayerNorm(dim, cfg.ln_eps, cd)
         hidden = int(dim * cfg.mlp_ratio)
         if policy.quantizes(mlp_path):
@@ -353,18 +396,20 @@ class SwinBlock(nn.Module):
                 raise not_in_port("full-LSQ weights (LsqLinear)", 3)
             self.mlp = QMlp(dim, hidden, dim, width,
                             act_layer=policy.act_layer,
+                            dropout_rate=cfg.drop_rate,
                             **_quantized_kw(policy, cfg))
         else:
-            self.mlp = Mlp(dim, hidden, dim)
+            self.mlp = Mlp(dim, hidden, dim, dropout_rate=cfg.drop_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return residual_branches(self, x, generator)
 
 
 class SwinTransformer(KernelSwitch, nn.Module):
     """Swin: (B, H, W, 3) NHWC -> (B, classes).  `block_names` lists the
-    blocks and patch mergings in the order they run."""
+    blocks and patch mergings in the order they run; `remat_names` the
+    blocks checkpointed (those of `remat_stages`)."""
 
     # the JAX head is a default nn.Dense: lecun-normal (`init_weights`)
     FLOAT_HEAD_STD = None
@@ -374,8 +419,6 @@ class SwinTransformer(KernelSwitch, nn.Module):
         if cfg.norm_layer != "layernorm":
             raise not_in_port(f"norm_layer={cfg.norm_layer!r} (the LN->BN "
                               "swap)", 6)
-        if cfg.remat_stages:
-            raise not_in_port("remat_stages for Swin", 5)
         self.cfg = cfg
         self.policy = policy
         self.compute_dtype = as_dtype(cfg.compute_dtype)
@@ -388,18 +431,24 @@ class SwinTransformer(KernelSwitch, nn.Module):
                                               (P, P))
         self.patch_norm = LayerNorm(cfg.embed_dim, cfg.ln_eps)
         self.block_names = []
+        self.remat_names = set()
         width = cfg.img_size // P
         dim = cfg.embed_dim
         feat_idx = 1
+        total, block_id = sum(cfg.depths), 0
         for stage, depth in enumerate(cfg.depths):
             for blk in range(depth):
                 name = f"features_{feat_idx}_{blk}"
                 shift = 0 if blk % 2 == 0 else cfg.window_size // 2
+                sd = cfg.drop_path_rate * block_id / max(total - 1, 1)
                 self.add_module(name, SwinBlock(
                     cfg, policy, dim, cfg.num_heads[stage], shift,
                     f"features.{feat_idx}.{blk}.attn",
-                    f"features.{feat_idx}.{blk}.mlp", width))
+                    f"features.{feat_idx}.{blk}.mlp", width, sd))
                 self.block_names.append(name)
+                if stage in cfg.remat_stages:
+                    self.remat_names.add(name)
+                block_id += 1
             feat_idx += 1
             if stage < len(cfg.depths) - 1:
                 name = f"features_{feat_idx}"
@@ -416,17 +465,21 @@ class SwinTransformer(KernelSwitch, nn.Module):
         else:
             self.head = Dense(dim, cfg.num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        if self.training and max(cfg.drop_rate, cfg.attn_drop_rate,
-                                 cfg.drop_path_rate) > 0:
-            raise not_in_port("Swin in train mode with dropout or drop-path "
-                              "(the Swin train step)", 5)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` (on x's device) draws the dropout and drop-path
+        masks in train mode; required there when a rate is above 0."""
         x = self.patch_norm(self.patch_embed(x))
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if isinstance(block, PatchMerging):
+                x = block(x)
+            elif name in self.remat_names and torch.is_grad_enabled():
+                x = checkpointed(block, x, generator)
+            else:
+                x = block(x, generator)
         x = self.norm(x)
         # global average pool; the head stays >= fp32
         x = torch.mean(x, dim=(1, 2))

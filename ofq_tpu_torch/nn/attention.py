@@ -4,11 +4,18 @@ attention of the teacher (port of `ofq_tpu/nn/attention.py:57-202,
 
 The per-head product `W_qk[h] = Wq[h]^T @ Wk[h]` is StatsQ-quantized as
 one (H*C, C) matrix with per-row scales, and the attention logits become
-`xq @ (W_qk xq^T)`.  Two implementations of the attention tail, chosen by
+`xq @ (W_qk xq^T)`.  Three implementations of the attention tail, chosen by
 `attn_impl`:
-  * the composition (einsum -> softmax -> LSQ -> einsum), and
+  * the composition (einsum -> softmax -> LSQ -> dropout -> einsum),
   * 'fused': the CUDA kernels of `ops/fused_attention.py` (K2 forward, K3
-    backward).
+    backward), and
+  * 'remat': the tail's arithmetic under `torch.utils.checkpoint`
+    (`remat_attention_tail`), its (B, H, N, N) intermediates recomputed in
+    the backward instead of kept.
+The last two have no attention dropout: in train mode with `attn_drop > 0`
+the composition runs, as JAX's eligibility rule says
+(`ofq_tpu/nn/attention.py:509-521`); `proj_drop` applies on every path.
+Masks come from the generator handed to `forward` (`nn/dropout.py`).
 The QKR chain has three implementations of its v and qkx products
 (`qkr_quant_chain`): the composition; with `matmul_impl='int8'`, products
 on the shared input's integer codes (`ops/int8_qlinear.py`); and, for a
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused_attention import (qkr_attention_bwd,
                                    qkr_attention_bwd_reference,
@@ -41,6 +49,7 @@ from ..quant.lsq import grad_scale_factor
 from ..quant.statsq import statsq_quantize
 from ..quant.ste import as_dtype, clip_lower, grad_scale, weak_scalar
 from .bias import LearnableBias
+from .dropout import dropout
 from .linear import Dense, QLinear, check_bits, int_product
 from .quantizers import LsqAct
 
@@ -138,19 +147,23 @@ def _matmul(a, b):
     return torch.matmul(a.to(dt), b.to(dt))
 
 
+def _tail_scale(scale_param, shape, bits, aq_learnable):
+    """The composition's scale semantics for the fused and remat tails (eps
+    clip with identity gradient and the grad-scale factor, so a tail's ds
+    is the cotangent of the pre-processed scale); `shape` (B, H, N, N)."""
+    gf = grad_scale_factor(shape, bits, True, -2)
+    s = grad_scale(clip_lower(scale_param, 1e-5), gf)
+    return s if aq_learnable else s.detach()
+
+
 def _fused_attention(lhs, rhs, v, scale_param, *, bits, sm_scale,
                      quantize_softmax, aq_learnable=True,
                      fwd=qkr_attention_fwd, bwd=qkr_attention_bwd):
-    """Glue for the fused core: the composition's scale semantics (eps clip
-    with identity gradient and the grad-scale factor, so the core's ds is
-    the cotangent of the pre-processed scale), then the kernels.
+    """Glue for the fused core: `_tail_scale`, then the kernels.
     lhs (B, N, K) or (B, N, H, K); rhs/v (B, N, H, .)."""
     B, N, H, _ = rhs.shape
     if quantize_softmax:
-        gf = grad_scale_factor((B, H, N, N), bits, True, -2)
-        s = grad_scale(clip_lower(scale_param, 1e-5), gf)
-        if not aq_learnable:
-            s = s.detach()
+        s = _tail_scale(scale_param, (B, H, N, N), bits, aq_learnable)
     else:
         s = torch.ones(N, dtype=torch.float32, device=rhs.device)
     return quantized_attention_core(
@@ -158,8 +171,44 @@ def _fused_attention(lhs, rhs, v, scale_param, *, bits, sm_scale,
         quantize_softmax=quantize_softmax, fwd=fwd, bwd=bwd)
 
 
+def remat_attention_tail(lhs, rhs, v, scale_param, *, bits, sm_scale,
+                         quantize_softmax, aq_learnable, einsum_spec,
+                         bias=None, mask=None):
+    """The attention tail under `torch.utils.checkpoint` (JAX's
+    `_remat_attention_tail`, and with `bias` and `mask` Swin's
+    `_remat_swin_tail`): scores * sm_scale (+ the relative-position bias,
+    + the shift mask over its (nW, n, n) windows) -> softmax -> the raw
+    LSQ of the probabilities -> @ v, the (B, H, N, N) intermediates
+    recomputed in the backward.  The scale is pre-processed outside the
+    checkpoint (`_tail_scale`).  Returns (B, N, H, d)."""
+    B, N, H, _ = rhs.shape
+    s = (_tail_scale(scale_param, (B, H, N, N), bits, aq_learnable)
+         if quantize_softmax else None)
+
+    def tail(lhs, rhs, v, s, bias):
+        attn = torch.einsum(einsum_spec, lhs, rhs)
+        attn = attn * weak_scalar(sm_scale, attn.dtype)
+        if bias is not None:
+            attn = attn + bias.to(attn.dtype)
+        if mask is not None:
+            nW = mask.shape[0]
+            attn = attn.reshape(B // nW, nW, H, N, N)
+            attn = (attn + mask[None, :, None].to(attn.dtype)).reshape(
+                B, H, N, N)
+        attn = softmax(attn)
+        if quantize_softmax:
+            thd = 2 ** bits - 1
+            sb = s[None, None, :, None].to(attn.dtype)
+            u = torch.clamp(attn / sb, 0, thd)
+            attn = (u + (torch.round(u) - u).detach()) * sb
+        return torch.einsum("bhnm,bmhd->bnhd", attn, v)
+
+    return checkpoint(tail, lhs, rhs, v, s, bias, use_reentrant=False)
+
+
 class QAttentionQKR(nn.Module):
-    """Query-key reparameterized quantized attention (no dropout).
+    """Query-key reparameterized quantized attention, with JAX's attention
+    and projection dropout (`attn_drop`, `proj_drop`).
 
     `n_tokens` is the sequence length N; the per-token scales
     (`quant_x.s`, `quan_softmax.s`: (N,); `quan_qkx.s`: (N*H,)) depend on it.
@@ -177,17 +226,20 @@ class QAttentionQKR(nn.Module):
                  matmul_impl: str | None = None,
                  attn_impl: str | None = None, compute_dtype=None,
                  frozen_wqk: bool = False,
-                 frozen_int_bits: int | None = None):
+                 frozen_int_bits: int | None = None,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         check_bits(frozen_wqk, weight_bits=weight_bits,
                    input_bits=input_bits)
-        if attn_impl not in (None, "xla", "fused"):
+        if attn_impl not in (None, "xla", "fused", "remat"):
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: the port has the composition and "
-                "'fused'")
+                f"attn_impl={attn_impl!r}: the port has the composition, "
+                "'fused' and 'remat'")
         compute_dtype = as_dtype(compute_dtype)
         C, H = dim, num_heads
         self.num_heads = H
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.weight_bits = weight_bits
         self.input_bits = input_bits
         self.quantize_softmax = quantize_softmax
@@ -231,43 +283,61 @@ class QAttentionQKR(nn.Module):
                             compute_dtype=compute_dtype, frozen=frozen_wqk,
                             frozen_int_bits=frozen_int_bits)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def tail_eligible(self) -> bool:
+        """Whether the 'fused' or 'remat' tail runs: never while
+        calibrating, and not with attention dropout in train mode, which
+        needs the probabilities (JAX's `fused_ok`)."""
+        return (self.attn_impl in ("fused", "remat") and not self.calibrating
+                and (self.attn_drop == 0.0 or not self.training))
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
         scale = (C // H) ** -0.5
         xq, v, qkx = qkr_quant_chain(self, x)
-        if self.attn_impl == "fused" and not self.calibrating:
-            sp = self.quan_softmax.s if self.quantize_softmax else None
+        sp = self.quan_softmax.s if self.quantize_softmax else None
+        tail = dict(bits=self.input_bits, sm_scale=scale,
+                    quantize_softmax=self.quantize_softmax,
+                    aq_learnable=self.aq_learnable)
+        if self.tail_eligible() and self.attn_impl == "fused":
             kernels = ((qkr_attention_fwd, qkr_attention_bwd)
                        if self.use_kernels else
                        (qkr_attention_fwd_reference,
                         qkr_attention_bwd_reference))
-            out = _fused_attention(
-                xq, qkx, v, sp, bits=self.input_bits, sm_scale=scale,
-                quantize_softmax=self.quantize_softmax,
-                aq_learnable=self.aq_learnable, fwd=kernels[0],
-                bwd=kernels[1])
+            out = _fused_attention(xq, qkx, v, sp, fwd=kernels[0],
+                                   bwd=kernels[1], **tail)
+        elif self.tail_eligible():
+            out = remat_attention_tail(xq, qkx, v, sp,
+                                       einsum_spec="bnc,bmhc->bhnm", **tail)
         else:
             attn = torch.einsum("bnc,bmhc->bhnm", xq, qkx)
             attn = softmax(attn * weak_scalar(scale, attn.dtype))
             if self.quantize_softmax:
                 attn = self.quan_softmax(attn)
+            attn = dropout(attn, self.attn_drop, generator,
+                           train=self.training)
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
-        return self.proj(out.reshape(B, N, C))
+        out = self.proj(out.reshape(B, N, C))
+        return dropout(out, self.proj_drop, generator, train=self.training)
 
 
 class Attention(nn.Module):
     """Float multi-head self-attention (`ofq_tpu.nn.attention.Attention`,
-    no dropout, no Gram telemetry): qkv Dense -> einsum -> the division-form
-    softmax -> einsum -> proj Dense."""
+    no Gram telemetry): qkv Dense -> einsum -> the division-form softmax ->
+    attention dropout -> einsum -> proj Dense -> projection dropout."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias)
         self.proj = Dense(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
         d = C // H
@@ -275,5 +345,7 @@ class Attention(nn.Module):
                    for t in torch.split(self.qkv(x), C, dim=-1))
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k)
         attn = softmax(attn * weak_scalar(d ** -0.5, attn.dtype))
+        attn = dropout(attn, self.attn_drop, generator, train=self.training)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
-        return self.proj(out)
+        return dropout(self.proj(out), self.proj_drop, generator,
+                       train=self.training)

@@ -1,0 +1,105 @@
+"""Dropout and drop-path with masks drawn from an explicit generator (port of
+Flax's `nn.Dropout` and `ofq_tpu/models/deit.py:_drop_path`), and the
+rematerialized block that replays them.
+
+Every mask of the port comes from one function, `bernoulli`, in the order
+the forward asks for them: the counterpart of `jax.random.bernoulli`
+(uniform < p), drawn from the `torch.Generator` the caller hands to the
+model's forward.  There is no default stream: a site with a rate above 0
+in train mode raises without a generator, and a generator on another
+device than the tensor raises.  The arithmetic is JAX's: the kept values
+are divided by `keep` rounded to the tensor's dtype (a weakly typed
+constant in JAX), so a bf16 stream divides by bf16(keep).
+
+`checkpointed` runs a block under `torch.utils.checkpoint`, which saves
+and restores the default CPU and CUDA generators only: the block's
+function puts the caller's generator back to its state at the block's
+start before the recompute and returns it where it was afterwards, so
+the recompute draws the forward's masks (JAX's remat replays its keys).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..quant.ste import weak_scalar
+
+
+def bernoulli(shape: tuple[int, ...], keep: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """A boolean mask of `shape`, True with probability `keep`, drawn from
+    `generator` on its device."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u < keep
+
+
+def check_generator(x: torch.Tensor, generator: Optional[torch.Generator],
+                    what: str) -> None:
+    """Raise unless `generator` is a generator on `x`'s device."""
+    if generator is None:
+        raise ValueError(
+            f"{what} draws a mask in train mode and needs a torch.Generator "
+            f"on {x.device} (the model's `generator` argument)")
+    g = generator.device
+    if g.type != x.device.type or (
+            g.index is not None and x.device.index is not None
+            and g.index != x.device.index):
+        raise ValueError(f"{what}: the generator lives on {g}, the tensor on "
+                         f"{x.device}; a CUDA tensor needs a CUDA generator")
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], *,
+            train: bool) -> torch.Tensor:
+    """Flax's `nn.Dropout(rate)`: in train mode `where(mask, x / keep, 0)`
+    with one mask entry per element, zeros at rate 1; the identity in eval
+    mode or at rate 0 (nothing drawn)."""
+    if not train or rate == 0.0:
+        return x
+    check_generator(x, generator, f"dropout (rate {rate})")
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = bernoulli(tuple(x.shape), keep, generator)
+    return torch.where(mask, x / weak_scalar(keep, x.dtype),
+                       torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator], *,
+              train: bool) -> torch.Tensor:
+    """Stochastic depth on a residual branch (`_drop_path`): one mask entry
+    per sample, of shape (B, 1, ..., 1), `where(mask, x / keep, 0)`."""
+    if not train or rate == 0.0:
+        return x
+    check_generator(x, generator, f"drop-path (rate {rate})")
+    keep = 1.0 - rate
+    mask = bernoulli((x.shape[0],) + (1,) * (x.ndim - 1), keep, generator)
+    return torch.where(mask, x / weak_scalar(keep, x.dtype), 0.0)
+
+
+def checkpointed(fn: Callable, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """`fn(x, generator)` with its activations recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant), the recompute drawing the
+    same masks from `generator` as the forward did."""
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(x):
+        if start is None:
+            return fn(x, None)
+        if not calls:
+            calls.append(True)
+            return fn(x, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(x, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False)

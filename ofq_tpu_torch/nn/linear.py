@@ -36,7 +36,15 @@ from ..ops.pallas_statsq import pallas_statsq_fwd, pallas_statsq_fwd_reference
 from ..ops.statsq_matmul import statsq_matmul
 from ..quant.ste import as_dtype, at_least_f32
 from .bias import LearnableBias
+from .dropout import dropout
 from .quantizers import LsqAct, LsqWeight
+
+
+def not_in_port(what: str, item: int) -> NotImplementedError:
+    """The error for a configuration the port does not have yet, naming its
+    item in ROADMAP.md's Queue 1."""
+    return NotImplementedError(
+        f"{what} is not in the port yet (ROADMAP.md, Queue 1 item {item})")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -58,9 +66,8 @@ def check_bits(frozen: bool = False, **bits: int) -> None:
         if frozen and name == "weight_bits" and b == 32:
             continue
         if not 1 <= b < 32:
-            raise NotImplementedError(
-                f"{name}={b}: the port quantizes every site of the slice "
-                "(1 <= bits < 32); unquantized sites are a ROADMAP item")
+            raise not_in_port(f"{name}={b} (an unquantized site; the port "
+                              "quantizes with 1 <= bits < 32)", 3)
 
 
 def int_product(module):
@@ -200,16 +207,19 @@ class QHeadLinear(nn.Module):
 
 
 class QMlp(nn.Module):
-    """fc1 (signed input) -> GELU -> fc2 (all-positive input)."""
+    """fc1 (signed input) -> GELU -> dropout -> fc2 (all-positive input) ->
+    dropout."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, n_tokens: int, *, weight_bits: int,
                  input_bits: int, act_layer: str = "gelu",
                  aq_learnable: bool = True,
                  matmul_impl: str | None = None, compute_dtype=None,
-                 frozen: bool = False, frozen_int_bits: int | None = None):
+                 frozen: bool = False, frozen_int_bits: int | None = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         _check_act(act_layer)
+        self.dropout_rate = dropout_rate
         kw = dict(weight_bits=weight_bits, input_bits=input_bits,
                   aq_learnable=aq_learnable, matmul_impl=matmul_impl,
                   compute_dtype=compute_dtype, frozen=frozen,
@@ -219,8 +229,17 @@ class QMlp(nn.Module):
         self.fc2 = QLinear(hidden_features, out_features, n_tokens,
                            symmetric=False, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return _mlp(self, x, generator)
+
+
+def _mlp(mod, x, generator):
+    """fc1 -> GELU -> dropout -> fc2 -> dropout (`ofq_tpu.nn.linear.Mlp`,
+    `QMlp`)."""
+    kw = dict(train=mod.training)
+    x = dropout(gelu(mod.fc1(x)), mod.dropout_rate, generator, **kw)
+    return dropout(mod.fc2(x), mod.dropout_rate, generator, **kw)
 
 
 class Dense(nn.Module):
@@ -240,14 +259,18 @@ class Dense(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Float transformer MLP: fc1 -> exact GELU -> fc2."""
+    """Float transformer MLP: fc1 -> exact GELU -> dropout -> fc2 ->
+    dropout."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: int, act_layer: str = "gelu"):
+                 out_features: int, act_layer: str = "gelu",
+                 dropout_rate: float = 0.0):
         super().__init__()
         _check_act(act_layer)
+        self.dropout_rate = dropout_rate
         self.fc1 = Dense(in_features, hidden_features)
         self.fc2 = Dense(hidden_features, out_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return _mlp(self, x, generator)

@@ -45,7 +45,8 @@ class QuantPolicy:
     qk_reparam_type: int = 0  # 0: QKR, 1: QKR + CGA in-forward quantizer
     boundary_range: float = 0.005
     act_layer: str = "gelu"
-    # --apply_q_attn_dropout: 0/3 quantize the post-softmax attention
+    # --apply_q_attn_dropout: 0/3 quantize the post-softmax attention,
+    # 0/1 apply the quantized attention's dropout
     q_attn_mode: int = 0
     # deployment: kernels hold dequantized StatsQ values restored from a
     # packed artifact; StatsQ recomputes its scale from live weights and is
@@ -63,6 +64,11 @@ class QuantPolicy:
     @property
     def quantize_softmax(self) -> bool:
         return self.q_attn_mode in (0, 3)
+
+    @property
+    def attn_dropout_enabled(self) -> bool:
+        """Whether a quantized attention applies its attention dropout."""
+        return self.q_attn_mode in (0, 1)
 
     def quantizes(self, path: str) -> bool:
         return path in self.qmodules

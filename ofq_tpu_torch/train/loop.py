@@ -19,9 +19,18 @@ which carry the forward.  The gradients are rounded to bf16 (the transpose
 of JAX's upcast inside its loss), the update math runs in fp32 and its
 result is rounded to bf16.  With fp32 masters the update is added in place.
 
+Dropout and drop-path: `train_step(state, batch, generator)` takes the
+counterpart of JAX's `rng`, a `torch.Generator` on the model's device (a
+CUDA generator on the card), and hands it to the student's forward for
+that call only; every mask of the step is drawn from it, in the forward's
+order (`nn/dropout.py`), and the teacher, in eval mode, draws nothing.  A
+student with a rate above 0 and no generator raises; the step draws no
+random number from any other stream.  DeiT and Swin students go through
+the same step (Swin: non-distilled logits, the CGA selection with
+`model_type="swin"`).
+
 Not in the port yet, and refused: the oscillation hook (ROADMAP.md, Queue
-1 item 6) and the q-k and token distillation losses (item 5).  The step
-draws no random numbers (dropout and drop-path are refused by the model).
+1 item 6) and the q-k and token distillation losses (item 5).
 """
 
 from __future__ import annotations
@@ -32,8 +41,9 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..models.deit import not_in_port
 from ..models.registry import resolve_device
+from ..nn.dropout import check_generator
+from ..nn.linear import not_in_port
 from ..quant.ste import at_least_f32
 from . import cga as cga_lib
 from .losses import dampening_loss, hard_ce, kd_soft_and_hard, soft_ce
@@ -79,11 +89,14 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                     cga: Optional[dict] = None, oscillation=None,
                     dampening: Optional[dict] = None,
                     master_dtype: Optional[str] = None) -> Callable:
-    """Build `train_step(state, batch) -> (state, metrics)`.
+    """Build `train_step(state, batch, generator=None) -> (state,
+    metrics)`.
 
     `batch` is {"image": (B, H, W, 3) NHWC, "label": (B,) class ids}, as
     numpy arrays or tensors; `metrics` holds `loss` and `grad_norm` (of
-    the masked gradients).  `cga` is dict(bits, boundary_range,
+    the masked gradients).  `generator` draws the student's dropout and
+    drop-path masks; it must be given, on the model's device, when the
+    model has a rate above 0.  `cga` is dict(bits, boundary_range,
     qk_reparam, model_type): `boundary_range` and `qk_reparam` default to
     the model's policy's and must agree with it.  `dampening` is
     dict(bits, weighting); with `ema_decay` the state must hold an EMA
@@ -117,9 +130,12 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
         raise ValueError(f"the model lives on {p0.device}, not on {dev}")
     if dampening is not None and dampening.get("weighting", 0.0) <= 0:
         dampening = None
+    cfg = getattr(model, "cfg", None)
+    draws = cfg is not None and max(cfg.drop_rate, cfg.attn_drop_rate,
+                                    cfg.drop_path_rate) > 0
 
-    def loss_fn(x, label):
-        out = model(x)
+    def loss_fn(x, label, generator):
+        out = model(x, generator)
         if loss_kind == "ce":
             loss = hard_ce(_first(out), label, label_smoothing)
         else:
@@ -134,11 +150,15 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                                          dampening["weighting"])
         return loss
 
-    def train_step(state: TrainState, batch):
+    def train_step(state: TrainState, batch,
+                   generator: Optional[torch.Generator] = None):
+        x = _tensor(batch["image"], p0.device, p0.dtype)
+        if draws or generator is not None:
+            check_generator(x, generator, "the student's dropout and "
+                            "drop-path")
         model.train()
         if teacher is not None:
             teacher.eval()
-        x = _tensor(batch["image"], p0.device, p0.dtype)
         label = _tensor(batch["label"], p0.device)
         names = list(state.params)
         masters = [state.params[n] for n in names]
@@ -153,7 +173,7 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                 torch._foreach_copy_(tensors, masters)
         else:
             tensors = masters
-        loss = loss_fn(x, label)
+        loss = loss_fn(x, label, generator)
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         # a parameter the loss does not reach (a detached scale) has a
         # zero gradient, as under jax.grad

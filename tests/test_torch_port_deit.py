@@ -26,7 +26,7 @@ from ofq_tpu.serve import Predictor as JaxPredictor
 from ofq_tpu_torch.calibrate import calibrate
 from ofq_tpu_torch.convert import flatten_flax_tree, load_flax_params
 from ofq_tpu_torch.models import create_model
-from ofq_tpu_torch.quant import QuantPolicy, QuantSpec, w2a2_qkr_policy
+from ofq_tpu_torch.quant import QuantSpec, w2a2_qkr_policy
 from ofq_tpu_torch.serve import Predictor
 
 NAME = "deit_test_distilled"
@@ -236,15 +236,33 @@ class TestPredictor:
             create_model(NAME, policy=_port_policy())
 
 
+@pytest.mark.parametrize("field", ["drop_rate", "attn_drop_rate",
+                                   "drop_path_rate"])
+def test_dropout_configs_build_and_draw_only_in_train_mode(field):
+    """Each dropout rate (once refused) builds the model; eval mode is the
+    model without it, train mode needs a generator and draws from it."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, IMG, IMG, 3)).astype(np.float32))
+    plain = create_model(NAME, policy=_port_policy(), device="cpu")
+    m = create_model(NAME, policy=_port_policy(), device="cpu",
+                     **{field: 0.5})
+    m.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        assert torch.equal(m(x), plain(x))
+        m.train()
+        with pytest.raises(ValueError, match="needs a torch.Generator"):
+            m(x)
+        a = m(x, torch.Generator().manual_seed(0))
+        b = m(x, torch.Generator().manual_seed(0))
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
 def test_unsupported_configs_raise():
     with pytest.raises(KeyError, match="unknown model.*swin_t"):
         create_model("swin_b", policy=_port_policy(), device="cpu")
     non_qkr = dataclasses.replace(_port_policy(), qk_reparam=False)
     with pytest.raises(NotImplementedError, match="non-QKR"):
         create_model(NAME, policy=non_qkr, device="cpu")
-    with pytest.raises(NotImplementedError, match="drop"):
-        create_model(NAME, policy=QuantPolicy(), device="cpu",
-                     drop_path_rate=0.1)
     lsq = dataclasses.replace(_port_policy(),
                               weight=QuantSpec(mode="lsq", bit=2))
     with pytest.raises(NotImplementedError, match="LsqLinear"):

@@ -208,3 +208,13 @@ def test_qattention_qkr_calibration_bypasses_kernel():
     calibrate(b, x)
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         torch.testing.assert_close(va, vb, rtol=0, atol=0, msg=k)
+
+
+@pytest.mark.parametrize("bits", [dict(weight_bits=32, input_bits=2),
+                                  dict(weight_bits=2, input_bits=32)])
+def test_unquantized_site_names_its_roadmap_item(bits):
+    """An unquantized site (32 bits) is refused naming Queue 1 item 3."""
+    name = next(k for k, v in bits.items() if v == 32)
+    with pytest.raises(NotImplementedError,
+                       match=rf"{name}=32 .*Queue 1 item 3\)"):
+        QLinear(C, 16, N, **bits)

@@ -9,7 +9,7 @@ Swin-T's parameter tree.
   * Swin-T's float and W2A2 QKR trees (`jax.eval_shape`) load strictly
     both ways, so the parameter count is JAX's (28 288 354 float);
   * the configurations the port does not have yet, each naming its
-    ROADMAP item.
+    ROADMAP item; the remat configurations, which it has.
 The bf16 stream and the Predictor: `test_torch_swin_serving.py`.
 """
 
@@ -162,8 +162,6 @@ def test_cuda_default_raises_without_cuda():
     ("non-QKR", dict(policy=dataclasses.replace(
         w2a2_qkr_swin_policy((1, 1)), qk_reparam=False)), 3),
     ("LN->BN", dict(norm_layer="batchnorm"), 6),
-    ("remat_stages", dict(remat_stages=(0,)), 5),
-    ("remat", dict(attn_impl="remat"), 5),
     ("qqkkvv", dict(qqkkvv=True, policy=QuantPolicy()), 5),
 ])
 def test_unsupported_configs_name_their_roadmap_item(what, kw, item):
@@ -174,11 +172,38 @@ def test_unsupported_configs_name_their_roadmap_item(what, kw, item):
 
 
 def test_fused_attention_and_train_mode_drop_path_raise():
+    """The fused core is not Swin's; train-mode drop-path (Swin-T's
+    default rate 0.2) needs a generator and runs with one."""
     with pytest.raises(NotImplementedError, match="not supported for Swin"):
         create_model(NAME, policy=w2a2_qkr_swin_policy((1, 1)),
                      device="cpu", attn_impl="fused")
     m = create_model("swin_t", policy=QuantPolicy(), device="cpu",
-                     depths=(1,), num_heads=(3,), img_size=28)
+                     depths=(2,), num_heads=(3,), img_size=28)
     m.train()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
         m(torch.zeros(1, 28, 28, 3))
+    y = m(torch.ones(1, 28, 28, 3), torch.Generator().manual_seed(0))
+    assert y.shape == (1, 1000) and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("kw", [dict(remat_stages=(0, 1)),
+                                dict(attn_impl="remat")])
+def test_remat_configs_run_as_the_plain_model(kw):
+    """`remat_stages` and `attn_impl='remat'` (once refused) build, and in
+    train mode give the plain model's logits and gradients in fp64, with
+    drop-path on (the bit-level checks: `test_torch_remat.py`)."""
+    pol = w2a2_qkr_swin_policy((2, 2))
+    x = torch.from_numpy(_images(0)).double()
+    outs = []
+    for extra in ({}, kw):
+        m = create_model(NAME, policy=pol, device="cpu", depths=(2, 2),
+                         drop_path_rate=0.2, **extra).double().train()
+        if extra:
+            m.load_state_dict(ref_state)
+        ref_state = m.state_dict()
+        y = m(x, torch.Generator().manual_seed(1))
+        g = torch.autograd.grad(y.square().sum(),
+                                m.features_1_1.attn.q_kernel)[0]
+        outs.append((y, g))
+    assert torch.allclose(outs[0][0], outs[1][0], rtol=1e-12, atol=0)
+    assert torch.allclose(outs[0][1], outs[1][1], rtol=1e-9, atol=1e-15)

@@ -210,9 +210,9 @@ def test_global_norm_matches_optax():
 
 
 def test_clipping_and_unported_options_raise():
-    """What is still refused names its Queue 1 item: the oscillation hook,
-    the q-k and token distillation losses and dropout in the model; a
-    clipping mode that JAX does not have raises as JAX's does."""
+    """What is still refused names its Queue 1 item: the oscillation hook
+    and the q-k and token distillation losses; a clipping mode that JAX
+    does not have raises as JAX's does."""
     with pytest.raises(ValueError, match="clip_mode"):
         make_optimizer(lambda c: 1e-3, clip_grad=1.0, clip_mode="global")
     m = create_model(NAME, policy=w2a2_qkr_policy(DEPTH), device="cpu")
@@ -222,10 +222,26 @@ def test_clipping_and_unported_options_raise():
                      (dict(loss_kind="kd_token"), 5)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             make_train_step(m, opt, teacher=m, device="cpu", **kw)
-    for field in ("drop_rate", "attn_drop_rate", "drop_path_rate"):
-        with pytest.raises(NotImplementedError, match="item 1"):
-            create_model(NAME, policy=w2a2_qkr_policy(DEPTH), device="cpu",
-                         **{field: 0.1})
+
+
+@pytest.mark.parametrize("field", ["drop_rate", "attn_drop_rate",
+                                   "drop_path_rate"])
+def test_dropout_step_takes_a_generator(field):
+    """Each dropout rate (once refused, Queue 1 item 1): the step raises
+    without a generator and steps with one."""
+    m = create_model(NAME, policy=w2a2_qkr_policy(DEPTH), device="cpu",
+                     **{field: 0.1})
+    opt = make_optimizer(lambda c: 1e-3)
+    step = make_train_step(m, opt, teacher=_port_teacher(
+        _teacher_variables()).float(), device="cpu")
+    state = TrainState.create(m, opt)
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.normal(size=(BATCH, IMG, IMG, 3)).astype(
+        np.float32), "label": rng.integers(0, CLASSES, size=BATCH)}
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
+        step(state, batch)
+    state, met = step(state, batch, torch.Generator().manual_seed(0))
+    assert state.step == 1 and np.isfinite(float(met["loss"]))
 
 
 # ------------------------------------------------------------ the teacher
