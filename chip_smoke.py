@@ -20,7 +20,8 @@ Phases (any failure raises and the script exits non-zero):
      none;
   3. K1, the fused QLinear kernel (wgmma on the integer codes), against its
      plain PyTorch version on the card at the DeiT-S shapes, M = 64 * 198
-     tokens (proj, fc1, fc2 at W2A2, one W4A4, one ragged case), with
+     tokens (proj, fc1, fc2 and, without QKR, qkv at W2A2, one W4A4, one
+     ragged case), with
      inputs built to land on LSQ and StatsQ rounding ties; elements
      differing counted (0 while the integer sums stay below 2^24);
   4. K2, the fused QKR attention core, against its plain version at
@@ -63,7 +64,8 @@ Phases (any failure raises and the script exits non-zero):
      frozen-bits gate, `mask_grads` as the identity the moments gate, the
      unmodified step must pass; one `[selfcheck]` line each);
   7. K4, the StatsQ matmul kernel, and K5, its dx product, against their
-     plain versions in fp32 and bf16 at the DeiT-S shapes (proj, fc1, fc2
+     plain versions in fp32 and bf16 at the DeiT-S shapes (proj, fc1, fc2,
+     K4 also qkv
      with M = 64 * 198) and one ragged shape, with StatsQ ties built in;
      the pre-pass's Q(W) against `_quant_tile` bit for bit;
   8. pallas serving: the same DeiT-S student with matmul_impl="pallas" in
@@ -82,8 +84,9 @@ Phases (any failure raises and the script exits non-zero):
      kernels (K4 with one output column moved by one weight level, K4
      with one 16-deep slice of its contraction left out, K2 reading the
      scale of row n + 1, K2 with the same slice of its scores' contraction
-     left out (the block gate and K2's own gate, `k2_gate`), K3 with ds
-     doubled, K3 with dlhs doubled, K3 with dv zeroed over 16 keys of one
+     left out (the block gate and K2's own gate, `k2_gate`), K2 in its
+     per-head form reading head h + 1's q (the fp32 block gate of the
+     student without QKR), K3 with ds doubled, K3 with dlhs doubled, K3 with dv zeroed over 16 keys of one
      head), each of which must trip the bf16 gates it aims at, then the
      unmodified kernels, which must pass them; one line per result;
  10. K6, K7, K8, the Swin window-attention tail kernels of the lab bench
@@ -112,7 +115,8 @@ Phases (any failure raises and the script exits non-zero):
      no kernel in its forward; K6-K8 at their default parameters on the
      q, k, v of its two stage-0 blocks, captured with forward hooks (two
      launches each); img/s, peak memory;
- 12. K4 at Swin-T's 15 shapes (M = 200 704 rows and K = 96 at stage 0)
+ 12. K4 at Swin-T's 19 shapes, qkv's among them (M = 200 704 rows and
+     K = 96 at stage 0)
      in bf16 against its plain version;
  13. Swin-T W2A2 QKR serving, matmul_impl="pallas" in the bf16 stream
      (the student of train_scripts/swin_t/w2a2_swin_t.sh), calibrated on a
@@ -143,6 +147,27 @@ Phases (any failure raises and the script exits non-zero):
      and with attn_impl='remat', Swin-T pallas with remat_stages=(0, 1, 2,
      3) and with attn_impl='remat', each one's loss and gradients bit-equal
      to the same step without remat, peak memory of both.
+ 13f. the students without QKR (train_scripts' W2A2 flags with
+     --qk_reparam dropped: `QAttention`, whose fused tail runs K2 and K3
+     in their per-head form, lhs = q, K = d = 64) and with full-LSQ
+     weights (--wq-mode lsq: `LsqLinear`, plain products), at full depth:
+     DeiT-S fused fp32 serving (48 K1 and 12 K2 a forward) and train step
+     (48 K1, 12 K2, 12 K3), the fused bf16 step, the pallas bf16 step (48
+     K4), the full-LSQ fused fp32 step (12 K2, 12 K3, no K1), each under
+     phase_slice's and phase_train's gates; the telemetry losses on the
+     QKR student, fused fp32, with the float teacher built alike: kd_qk
+     and kd_qkv (`qqkkvv`: 36 K1, the composed attention, no K2 or K3)
+     and kd_token (`return_features`: 36 K1, 12 K2, 12 K3), each loss
+     beside its plain path's and the fp64 model's (the kernel path's no
+     farther from the fp64 loss than 2 x the plain path's + 1e-4 of it)
+     and the whole-step rule on that loss; Swin-T without QKR pallas bf16
+     serving and train step (51 K4: qkv, proj, fc1, fc2 of 12 blocks and 3
+     reductions) under SWIN_GATE; then, after phase 14, the int8 serving
+     of DeiT-S without QKR (48 int8_mm) and the frozen packed artifact of
+     the full-LSQ student (`export_packed(..., wq_mode="lsq")`: every W2
+     block kernel's codes equal to those the integer core rebuilds from
+     the restored `weight_quant.s` and to the live student's, served
+     through `Predictor.from_packed(int_core=True)`: 48 int8_mm).
 The int8 path (bench.py's int8 configuration, INT8: matmul_impl="int8",
 composed attention, bf16 stream; no TPU kernel lies on it, its integer
 product `int8_mm` is torch._int_mm, a library call):
@@ -617,6 +642,8 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
         ("proj", m_tok, n_tok_main, 384, 384, 2, False, True),
         ("fc1", m_tok, n_tok_main, 384, 1536, 2, False, True),
         ("fc2", m_tok, n_tok_main, 1536, 384, 2, True, True),
+        # the non-QKR QAttention's qkv linear (QKR has none)
+        ("qkv", m_tok, n_tok_main, 384, 1152, 2, False, True),
         ("proj_w4a4", m_tok, n_tok_main, 384, 384, 4, False, False),
         ("ragged", 3 * 37, 37, 200, 72, 2, False, False),
     ]
@@ -981,11 +1008,14 @@ def phase_k3(dev, N, B=BATCH, base=None):
 
 
 # ---------------------------------------------------------------- phase 7
-def _k45_cases(m_tok):
+def _k45_cases(m_tok, qkv=False):
+    """K4's or K5's cases; `qkv`: with the non-QKR qkv linear's shape (K4
+    only: K5 lies on no path of the non-QKR student)."""
     return [  # name, M, K, N (K4: x (M, K) @ Q(W) (K, N)), main path
         ("proj", m_tok, 384, 384, True),
         ("fc1", m_tok, 384, 1536, True),
         ("fc2", m_tok, 1536, 384, True),
+        *([("qkv", m_tok, 384, 1152, True)] if qkv else []),
         ("ragged", 1000, 200, 72, False),
     ]
 
@@ -1018,15 +1048,17 @@ def _k45_bound(M, K, N, dtype):
 
 def _swin_k4_cases(batch=BATCH):
     """K4's shapes in one Swin-T forward at `batch` (M, K, N): proj, fc1,
-    fc2 of each stage on its (batch * H * W) tokens, and the reduction of
-    each patch merging on the merged map's tokens."""
+    fc2 of each stage on its (batch * H * W) tokens, the non-QKR qkv
+    linear's, and the reduction of each patch merging on the merged map's
+    tokens."""
     from ofq_tpu_torch.models.swin import SWIN_TINY as cfg
     side, dim, cases = cfg.img_size // cfg.patch_size, cfg.embed_dim, []
     for stage in range(len(cfg.depths)):
         M, hid = batch * side * side, int(dim * cfg.mlp_ratio)
         cases += [(f"s{stage} proj", M, dim, dim, True),
                   (f"s{stage} fc1", M, dim, hid, True),
-                  (f"s{stage} fc2", M, hid, dim, True)]
+                  (f"s{stage} fc2", M, hid, dim, True),
+                  (f"s{stage} qkv", M, dim, 3 * dim, True)]
         if stage < len(cfg.depths) - 1:
             side = (side + 1) // 2
             cases.append((f"s{stage} reduction", batch * side * side,
@@ -1225,14 +1257,25 @@ def _describe(conf):
     return f"{linears}, {attn}, {conf['compute_dtype'] or 'float32'} stream"
 
 
-def _path_counts(cfg):
-    """(quantized linears, attention blocks) of a model configuration:
-    DeiT, 3 linears per block (proj, fc1, fc2); Swin, 3 per block and the
-    reduction of each patch merging (Swin-T: 36 + 3 = 39)."""
+def _policy_label(policy):
+    """The student's recipe: W2A2 QKR, W2A2 without QKR, or full-LSQ."""
+    if policy is None or policy.qk_reparam:
+        return "W2A2 QKR"
+    return ("W2A2 full-LSQ (--wq-mode lsq), no QKR" if policy.lsq_weights
+            else "W2A2 without QKR")
+
+
+def _path_counts(cfg, policy=None):
+    """(quantized linears in the blocks, attention blocks, reductions) of a
+    model configuration under `policy` (None: W2A2 QKR): QKR, 3 linears
+    per block (proj, fc1, fc2); without QKR 4 (and qkv); Swin adds the
+    reduction of each patch merging (Swin-T QKR: 36 + 3 = 39, without QKR
+    48 + 3 = 51)."""
+    per = 3 if policy is None or policy.qk_reparam else 4
     if hasattr(cfg, "depths"):
         blocks = sum(cfg.depths)
-        return 3 * blocks + len(cfg.depths) - 1, blocks
-    return 3 * cfg.depth, cfg.depth
+        return per * blocks, blocks, len(cfg.depths) - 1
+    return per * cfg.depth, cfg.depth, 0
 
 
 def int_path(conf):
@@ -1240,19 +1283,26 @@ def int_path(conf):
     return conf["matmul_impl"] == "int8" or bool(conf.get("frozen_int_bits"))
 
 
-def _expected(conf, cfg, train):
-    """Launches of every kernel wrapper in one forward (or train step)."""
+def _expected(conf, cfg, train, policy=None):
+    """Launches of every kernel wrapper in one forward (or train step) of
+    the student under `policy` (None: W2A2 QKR), as JAX's module tree
+    implies: a full-LSQ DeiT's linears are `torch.matmul` (no K1, K4); the
+    Gram telemetry (`qqkkvv`) runs the composed attention (no K2, K3)."""
     from ofq_tpu_torch import ops
-    n_linear, n_attn = _path_counts(cfg)
+    n_linear, n_attn, n_red = _path_counts(cfg, policy)
+    qkr = policy is None or policy.qk_reparam
+    lsq = (policy is not None and policy.lsq_weights
+           and not hasattr(cfg, "depths"))
     want = dict.fromkeys(ops.launch_counts(), 0)
-    if conf["matmul_impl"] == "fused":
-        want["fused_qlinear_fwd"] = n_linear
-    if conf["matmul_impl"] == "pallas":
-        want["pallas_statsq_fwd"] = n_linear
+    if conf["matmul_impl"] == "fused" and not lsq:
+        want["fused_qlinear_fwd"] = n_linear + n_red
+    if conf["matmul_impl"] == "pallas" and not lsq:
+        want["pallas_statsq_fwd"] = n_linear + n_red
     if int_path(conf):
-        # QKR's v and qkx products and every quantized linear, forward only
-        want["int8_mm"] = n_linear + 2 * n_attn
-    if conf["attn_impl"] == "fused":
+        # every quantized linear (a full-LSQ one's frozen integer core
+        # too) and QKR's v and qkx products, forward only
+        want["int8_mm"] = n_linear + n_red + (2 * n_attn if qkr else 0)
+    if conf["attn_impl"] == "fused" and not getattr(cfg, "qqkkvv", False):
         want["qkr_attention_fwd"] = n_attn
         if train:
             want["qkr_attention_bwd"] = n_attn
@@ -1517,8 +1567,9 @@ def _shapes(fn):
     return {str(k): v for k, v in fn.launch_shapes.items()}
 def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None,
                 built=None):
-    """Serving the W2A2 QKR student `name` under `policy` in the
-    configuration `conf` through `Predictor` (`gate`: `check_blocks`);
+    """Serving the W2A2 student `name` under `policy` (QKR, or without
+    it) in the configuration `conf` through `Predictor` (`gate`:
+    `check_blocks`);
     `built`: the (model, images, rng) of `build_served`, or of a frozen
     artifact's model."""
     import numpy as np
@@ -1530,7 +1581,7 @@ def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None,
     model, images, rng = built or build_served(dev, conf, name, policy,
                                                batch)
     cfg = model.cfg
-    log(f"[slice] {name} W2A2 QKR, {_describe(conf)}, "
+    log(f"[slice] {name} {_policy_label(policy)}, {_describe(conf)}, "
         f"{sum(p.numel() for p in model.parameters())} params, built and "
         f"calibrated in {time.perf_counter() - t0:.1f} s")
     pred = Predictor(model, batch_size=batch, img_size=cfg.img_size,
@@ -1542,7 +1593,7 @@ def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None,
     shapes = {**_shapes(ops.fused_qlinear_fwd),
               **_shapes(ops.pallas_statsq_fwd), **_shapes(ops.int8_mm)}
     log(f"[slice] launches in one predict: {launches}; by (M,K,N): {shapes}")
-    want = _expected(conf, cfg, train=False)
+    want = _expected(conf, cfg, train=False, policy=policy)
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     if not (probs.shape == (batch, cfg.num_classes)
@@ -1592,7 +1643,8 @@ def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None,
 
 
 def build_served(dev, conf, name, policy, batch=BATCH):
-    """The W2A2 QKR student `name` of the serving phases, from seeded
+    """The W2A2 student `name` under `policy` of the serving phases, from
+    seeded
     weights, calibrated on a seeded batch; the seeded images it serves
     first and the generator of the further batches."""
     import numpy as np
@@ -1757,15 +1809,16 @@ TRAIN_STEPS_TIMED, TRAIN_STEPS_WARM = 5, 2
 GRAD_GATE_MIN_FLOOR = 1e-3
 
 
-def _family(name):
-    """(config, W2A2 QKR policy) of a model name, DeiT or Swin."""
+def _family(name, **recipe):
+    """(config, W2A2 policy) of a model name, DeiT or Swin: QKR, or with
+    `recipe` (`qk_reparam=False`, `wq_mode="lsq"`) the recipe's variants."""
     from ofq_tpu_torch.models import deit, swin
-    from ofq_tpu_torch.quant import w2a2_qkr_policy, w2a2_qkr_swin_policy
+    from ofq_tpu_torch.quant import w2a2_deit_policy, w2a2_swin_policy
     if name in swin.VARIANTS:
         cfg = swin.VARIANTS[name]
-        return cfg, w2a2_qkr_swin_policy(cfg.depths)
+        return cfg, w2a2_swin_policy(cfg.depths, **recipe)
     cfg = deit.VARIANTS[name]
-    return cfg, w2a2_qkr_policy(cfg.depth)
+    return cfg, w2a2_deit_policy(cfg.depth, **recipe)
 
 
 def is_swin(name):
@@ -1780,8 +1833,9 @@ def build_trained(dev, conf, name="deit_small_distilled_patch16_224",
                   batch=BATCH, policy=None, overrides=None):
     """The W2A2 QKR student of the train phases in `conf` (or under
     `policy`; `overrides` replace config fields), calibrated, its float
-    teacher (bf16 parameters under the bf16 stream, as bench.py builds it)
-    and bench.py's seeded batch, kept on the device."""
+    teacher (bf16 parameters under the bf16 stream, as bench.py builds it;
+    with the student's `qqkkvv` and `return_features`) and bench.py's
+    seeded batch, kept on the device."""
     import numpy as np
     import torch
     from ofq_tpu_torch.calibrate import calibrate
@@ -1793,9 +1847,11 @@ def build_trained(dev, conf, name="deit_small_distilled_patch16_224",
         name, policy=policy or default_policy, device=dev,
         generator=torch.Generator().manual_seed(0), head_std=0.02, **conf,
         **(overrides or {}))
+    telemetry = {k: v for k, v in (overrides or {}).items()
+                 if k in ("qqkkvv", "return_features")}
     teacher = create_model(name, policy=QuantPolicy(), device=dev,
                            generator=torch.Generator().manual_seed(1),
-                           compute_dtype=cd)
+                           compute_dtype=cd, **telemetry)
     if cd:
         teacher.to(torch.bfloat16)
     rng = np.random.default_rng(0)
@@ -1808,13 +1864,17 @@ def build_trained(dev, conf, name="deit_small_distilled_patch16_224",
 
 
 def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
-                batch=BATCH, gate=None, overrides=None):
-    """One QAT train step of the W2A2 QKR student `name` (DeiT-S; Swin-T
-    with `gate=SWIN_GATE` and `overrides=SWIN_BENCH`) with the float
-    teacher, KD soft+hard and AdamW, through the kernels of `conf`: K1 and
-    K2 forward and K3 backward (fused, fp32 or the bf16 stream), K4
-    forward (pallas, bf16) or `int8_mm` (int8, bf16); the bf16 stream
-    with fp32 masters and a bf16 teacher, as bench.py builds it."""
+                batch=BATCH, gate=None, overrides=None, policy=None,
+                loss_kind="kd_soft_hard", timed=True):
+    """One QAT train step of the W2A2 student `name` (DeiT-S; Swin-T
+    with `gate=SWIN_GATE` and `overrides=SWIN_BENCH`) under `policy` (None:
+    QKR) with the float teacher, `loss_kind` (KD soft+hard; the telemetry
+    losses with `overrides` `qqkkvv` or `return_features`) and AdamW,
+    through the kernels of `conf`: K1 and K2 forward and K3 backward
+    (fused, fp32 or the bf16 stream), K4 forward (pallas, bf16) or
+    `int8_mm` (int8, bf16); the bf16 stream with fp32 masters and a bf16
+    teacher, as bench.py builds it.  `timed=False` skips the img/s
+    measurement."""
     import numpy as np
     import torch
     from ofq_tpu_torch import ops
@@ -1823,6 +1883,7 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
 
     t0 = time.perf_counter()
     student, teacher, data = build_trained(dev, conf, name, batch,
+                                           policy=policy,
                                            overrides=overrides)
     cfg = student.cfg
     opt = make_optimizer(cosine_with_warmup_cooldown(
@@ -1830,9 +1891,10 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
         weight_decay=0.05)
     state = TrainState.create(student, opt)
     step = make_train_step(student, opt, teacher=teacher,
-                           loss_kind="kd_soft_hard", device=dev)
+                           loss_kind=loss_kind, device=dev)
     torch.cuda.synchronize()
-    log(f"[train] {name} W2A2 QKR student ({_describe(conf)}) and float "
+    log(f"[train] {name} {_policy_label(policy)} student ({_describe(conf)}"
+        f", {loss_kind}) and float "
         f"teacher ({next(teacher.parameters()).dtype}) built, calibrated in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1845,7 +1907,7 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
     loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
     log(f"[train] launches in one step: {launches}; by (M,K,N): {shapes}; "
         f"loss {loss:.6f}, grad_norm {gnorm:.6f}")
-    want = _expected(conf, cfg, train=True)
+    want = _expected(conf, cfg, train=True, policy=policy)
     if launches != want:
         raise AssertionError(f"expected launches per step {want}, got "
                              f"{launches}")
@@ -1853,7 +1915,8 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
         raise AssertionError(f"loss {loss}, grad_norm {gnorm}")
 
     blocks = check_blocks_backward(student, teacher, data, conf, gate)
-    grads = check_step_grads(student, teacher, data, conf)
+    grads = check_step_grads(student, teacher, data, conf,
+                             loss_kind=loss_kind)
     tables = [r for r in grads["per_param"]
               if r["name"].endswith("relative_position_bias_table")]
     if tables:
@@ -1872,7 +1935,7 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
     # K5's captured products: DeiT-S's (phase_k5_captured)
     captured = (capture_dx_products(student, teacher, data)
                 if conf["matmul_impl"] == "pallas" and not is_swin(name)
-                else None)
+                and policy is None else None)
 
     def rate():
         nonlocal state
@@ -1886,6 +1949,14 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
             raise AssertionError("non-finite loss")
         return batch * TRAIN_STEPS_TIMED / (time.perf_counter() - t)
 
+    if not timed:
+        prof = (phase_profile(lambda: float(step(state, data)[1]["loss"]),
+                              f"{loss_kind} train step")
+                if "--profile" in sys.argv else None)
+        return dict(config=conf, loss_kind=loss_kind, profile=prof,
+                    launches=launches, launch_shapes=shapes, loss=loss,
+                    grad_norm=gnorm, blocks=blocks, grads=grads,
+                    captured=None)
     torch.cuda.reset_peak_memory_stats()
     img_s = rate()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2242,12 +2313,24 @@ def phase_cga(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
                 ms_in_turns=times, profile=prof)
 
 
-def _kd_loss(model, teacher, x, label):
+def _kd_loss(model, teacher, x, label, loss_kind="kd_soft_hard"):
+    """The step's loss as `make_train_step` forms it (KD soft+hard, or a
+    telemetry loss on the models' aux)."""
     import torch
-    from ofq_tpu_torch.train import kd_soft_and_hard
+    from ofq_tpu_torch.train import (kd_soft_and_hard, kd_soft_hard_qk,
+                                     kl_token_mse)
+    if loss_kind == "kd_soft_hard":
+        with torch.no_grad():
+            t_logits = teacher(x)
+        return kd_soft_and_hard(model(x), label, t_logits)
     with torch.no_grad():
-        t_logits = teacher(x)
-    return kd_soft_and_hard(model(x), label, t_logits)
+        t_logits, t_info = teacher(x, aux=True)
+    out, info = model(x, aux=True)
+    if loss_kind == "kd_token":
+        return kl_token_mse(out[0] if isinstance(out, tuple) else out,
+                            info["features"], t_logits, t_info["features"])
+    return kd_soft_hard_qk(out, info, label, t_logits, t_info,
+                           include_v=loss_kind == "kd_qkv")
 
 
 def _grad_gate(what, rows, all_params=None):
@@ -2386,7 +2469,8 @@ def check_blocks_backward(model, teacher, data, conf=FUSED, gate=None):
     return res
 
 
-def check_step_grads(model, teacher, data, conf=FUSED, orders=None):
+def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
+                     loss_kind="kd_soft_hard"):
     """The whole step's parameter gradients through the kernels and through
     the plain versions, each against the reference (above
     GRAD_GATE_MIN_FLOOR) and against the composed model in fp64 on the
@@ -2396,24 +2480,41 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None):
     the reference over the plain path and the plain path summed in
     ORDER_CHUNKS chunks (`summed_in_chunks`).  `orders`: a dict that keeps
     the chunked paths' gradients between calls on the same model, weights
-    and batch (they do not depend on the kernels)."""
+    and batch (they do not depend on the kernels).  The loss is
+    `loss_kind`'s; the three paths' losses are printed, and for a
+    telemetry loss in fp32 the kernel path's is held to 2 x the plain
+    path's distance from the fp64 model's + 1e-4 of it."""
     import torch
+    losses = {}
 
-    def grads(m, t, x):
+    def grads(m, t, x, key=None):
         params = dict(m.named_parameters())
-        g = torch.autograd.grad(_kd_loss(m, t, x, data["label"]),
-                                list(params.values()), allow_unused=True)
+        loss = _kd_loss(m, t, x, data["label"], loss_kind)
+        g = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+        if key:
+            losses[key] = float(loss.detach())
         return {n: (torch.zeros_like(p) if gi is None else gi).double()
                 for (n, p), gi in zip(params.items(), g)}
 
     model.train()
-    g_k = grads(model, teacher, data["image"])
+    g_k = grads(model, teacher, data["image"], "kernels")
     with plain_path(model):
-        g_p = grads(model, teacher, data["image"])
+        g_p = grads(model, teacher, data["image"], "plain")
     ref = composed_fp64(model)
     t64 = composed_fp64(teacher)
-    g_64 = grads(ref, t64, data["image"].double())
+    g_64 = grads(ref, t64, data["image"].double(), "fp64")
     del ref, t64
+    lim = 2 * abs(losses["plain"] - losses["fp64"]) + 1e-4 * abs(
+        losses["fp64"])
+    gated = loss_kind != "kd_soft_hard" and conf["compute_dtype"] is None
+    log(f"[train] {loss_kind} loss: kernels {losses['kernels']:.8f}, plain "
+        f"{losses['plain']:.8f}, composed fp64 {losses['fp64']:.8f}"
+        + (f" (gate: |kernels - fp64| <= {lim:.3e})" if gated else ""))
+    if gated and abs(losses["kernels"] - losses["fp64"]) > lim:
+        raise GateTripped(f"{loss_kind}: the kernel path's loss "
+                          f"{losses['kernels']} is farther than {lim} from "
+                          f"the fp64 model's {losses['fp64']}")
     bf16 = conf["compute_dtype"] is not None
     if bf16:
         with reference_path(model):
@@ -2465,7 +2566,7 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None):
         rows, glob)
     return dict(floor=floor, all_params=glob, all_params_fp64=glob_64,
                 kernels_vs_plain_max=rkp, per_param=rows,
-                per_param_fp64=rows_64)
+                per_param_fp64=rows_64, losses=losses)
 
 
 # ------------------------------------------------------ dropout, remat
@@ -2822,6 +2923,16 @@ def k2_slice_fault(real):
     return k2
 
 
+def k2_head_fault(real):
+    """K2 in its per-head form reading head h + 1's q (lhs rolled along the
+    head axis)."""
+    def k2(lhs, rhs, v, s, *args):
+        if lhs.ndim == 4:
+            lhs = lhs.roll(-1, dims=2).contiguous()
+        return real(lhs, rhs, v, s, *args)
+    return k2
+
+
 def k3_dv_slice_fault(real):
     """K3 with dv zeroed over one 16-key slice of one head, the size of a
     tiling bug on the tensor cores."""
@@ -2876,24 +2987,27 @@ def phase_gate_selfcheck(dev, name="deit_small_distilled_patch16_224",
         if not ok:
             failed.append((fault, gate))
 
-    def serving(conf, fault_site, faults):
+    def serving(conf, fault_site, faults, pol=policy):
         """`faults`: (fault, label, gates) each, injected at `fault_site`
-        of one model of `conf`."""
-        model, images, rng = build_served(dev, conf, name, policy, batch)
+        of one model of `conf` under `pol`; the gates each fault lists
+        run."""
+        model, images, rng = build_served(dev, conf, name, pol, batch)
         pred = Predictor(model, batch_size=batch,
                          img_size=model.cfg.img_size, device=dev)
         batches = [images] + [rng.normal(size=images.shape).astype(
             np.float32) for _ in range(CMP_BATCHES - 1)]
         checks = {"block gate": (check_blocks, model, images, dev, conf),
                   "top-1 gate": (check_top1, pred, batches, conf)}
+        used = [g for g in checks if any(g in f[2] for f in faults)]
         for fault, label, gates in faults:
-            for gate in checks:
+            for gate in gates:
                 with injected(*fault_site, fault):
                     record(label, gate, *_tripped(*checks[gate]),
                            must=gates[gate])
-        for gate, args in checks.items():
-            record("unmodified kernels", f"{gate} ({_describe(conf)})",
-                   *_tripped(*args), must=False)
+        for gate in used:
+            record("unmodified kernels", f"{gate} ({_describe(conf)}, "
+                   f"{_policy_label(pol)})", *_tripped(*checks[gate]),
+                   must=False)
 
     serving(PALLAS, (nn_linear, "pallas_statsq_fwd"), [
         (k4_column_fault,
@@ -2908,6 +3022,11 @@ def phase_gate_selfcheck(dev, name="deit_small_distilled_patch16_224",
         (k2_slice_fault,
          f"K2 with the scores' contraction slice {FAULT_K0}:{FAULT_K0 + 16} "
          f"left out", {"block gate": True, "top-1 gate": None})])
+    # the per-head form of the non-QKR student (fp32)
+    serving(FUSED, (nn_attention, "qkr_attention_fwd"), [
+        (k2_head_fault, "K2 (per-head lhs) reading head h + 1's q",
+         {"block gate": True})],
+        pol=_family(name, qk_reparam=False)[1])
     # phase_k2's gate on its main-path case (bf16, shared lhs, LSQ on) at 4
     # batch rows, with the slice fault and unmodified
     from ofq_tpu_torch.ops import fused_attention as fa
@@ -3540,6 +3659,8 @@ FROZEN_BATCH = 256
 SWIN_INT8_TRAIN_BATCH = 48
 # H100 SXM data sheet (dense): int8 tensor-core operations per second
 PEAK_INT8_OPS = 1979e12
+# the int products of the DeiT-S student without QKR at B = 64
+NONQKR_INT8_ROWS = "DeiT-S without QKR B=64"
 
 
 def _int8_cases():
@@ -3561,6 +3682,11 @@ def _int8_cases():
                     (f"DeiT-S B={FROZEN_BATCH}", FROZEN_BATCH)):
         block(path, "", B * d.n_tokens, d.embed_dim, d.num_heads,
               int(d.embed_dim * d.mlp_ratio), d.depth)
+    # without QKR (and full-LSQ's frozen integer core): qkv, proj, fc1, fc2
+    M, C = BATCH * d.n_tokens, d.embed_dim
+    for name, K, N in (("qkv", C, 3 * C), ("proj", C, C),
+                       ("fc1", C, 4 * C), ("fc2", 4 * C, C)):
+        cases.append((NONQKR_INT8_ROWS, name, M, K, N, d.depth))
     for B in (BATCH, SWIN_INT8_TRAIN_BATCH):
         path = f"Swin-T B={B}"
         side, C = sw.img_size // sw.patch_size, sw.embed_dim
@@ -3816,6 +3942,61 @@ def phase_frozen(dev, name, policy, built, export_kw, gate=None,
     return res
 
 
+def phase_frozen_lsq(dev, name, policy, batch=BATCH):
+    """A frozen packed artifact of the calibrated full-LSQ student
+    (`--wq-mode lsq`, no QKR): exported on the card (`export_packed(...,
+    wq_mode="lsq")`), every block kernel's codes against those the integer
+    core rebuilds from the restored `weight_quant.s`
+    (`frozen_lsq_weight_int`) and against the live student's LSQ codes
+    (round(clip(w / max(s, 1e-5), -2, 1))), then served through
+    `Predictor.from_packed(int_core=True)` under phase_slice's gates."""
+    import math
+    import torch
+    from ofq_tpu_torch.deploy import (artifact_meta, export_packed,
+                                      model_tree, unpack_codes)
+    from ofq_tpu_torch.ops.int8_qlinear import frozen_lsq_weight_int
+    from ofq_tpu_torch.serve import Predictor
+    t0 = time.perf_counter()
+    student, images, rng = build_served(dev, FUSED, name, policy, batch)
+    exported = export_packed(model_tree(student), weight_bits=2,
+                             qk_reparam=False, wq_mode="lsq")
+    pred = Predictor.from_packed(exported, model_name=name, policy=policy,
+                                 int_core=True, compute_dtype="bfloat16",
+                                 batch_size=batch, device=dev)
+    params = dict(pred.model.named_parameters())
+    codes = {}
+    for key, info in artifact_meta(exported)["entries"].items():
+        if info["kind"] != "lsq" or info["bits"] != 2:
+            continue  # the W8 heads and patch embedding
+        shape = info["enc_shape"]
+        got = torch.from_numpy(unpack_codes(
+            exported[key + ".codes"], 2, math.prod(shape)).reshape(
+                shape)).to(dev, torch.float32) - 2
+        name_ = key.replace("/", ".")
+        owner = name_[:-len(".kernel")]
+        core, _ = frozen_lsq_weight_int(params[name_],
+                                        params[owner + ".weight_quant.s"])
+        s = torch.clamp_min(student.get_parameter(
+            owner + ".weight_quant.s").float(), 1e-5)
+        live = torch.round(torch.clamp(
+            student.get_parameter(name_).float() / s, -2, 1))
+        codes[key] = (int((core != got).sum()), int((live != got).sum()))
+    n_core = sum(a for a, _ in codes.values())
+    n_live = sum(b for _, b in codes.values())
+    log(f"[frozen] {name} full-LSQ: {len(codes)} W2 LSQ entries exported "
+        f"and restored in {time.perf_counter() - t0:.1f} s; codes differing "
+        f"from the integer core's {n_core}, from the live student's "
+        f"{n_live}")
+    if n_core or n_live or len(codes) != 4 * student.cfg.depth:
+        raise AssertionError(f"[frozen] full-LSQ codes: {codes}")
+    res = phase_slice(dev, FROZEN_INT, name, policy, batch=batch,
+                      built=(pred.model, images, rng))
+    res.update(codes_differing=dict(integer_core=n_core, live=n_live))
+    del pred, student
+    torch.cuda.empty_cache()
+    return res
+
+
 def int8_column_fault(real):
     """int8_mm with one output column's sum moved by one code step: weight
     code (0, 0) one level (2) up."""
@@ -3998,7 +4179,8 @@ def main() -> int:
     if "--baseline" in sys.argv:
         base = build_baseline(sys.argv[sys.argv.index("--baseline") + 1])
     from ofq_tpu_torch.models.deit import DEIT_SMALL
-    from ofq_tpu_torch.quant import w2a2_qkr_policy, w2a2_qkr_swin_policy
+    from ofq_tpu_torch.quant import (w2a2_deit_policy, w2a2_qkr_policy,
+                                     w2a2_qkr_swin_policy, w2a2_swin_policy)
     n_tok = DEIT_SMALL.n_tokens  # 14 * 14 patches + cls + dist = 198
     deit = "deit_small_distilled_patch16_224"
     full = dict(card=card, build_s=build["seconds"], build=build)
@@ -4018,7 +4200,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     full["cga_fused_bf16"] = phase_cga(dev, FUSED_BF16)
     torch.cuda.empty_cache()
-    full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok), base=base)
+    full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok, qkv=True),
+                           base=base)
     full["k5"] = phase_k45(dev, "K5", _k45_cases(BATCH * n_tok), base=base)
     torch.cuda.empty_cache()
     full["slice_pallas"] = phase_slice(dev, PALLAS, deit, w2a2_qkr_policy(12))
@@ -4060,7 +4243,39 @@ def main() -> int:
     torch.cuda.empty_cache()
     full["remat"] = phase_remat(dev)
     torch.cuda.empty_cache()
+    # the non-QKR and full-LSQ DeiT-S students, the telemetry losses, and
+    # the non-QKR Swin-T (this slice's paths, at full depth)
+    nonqkr = w2a2_deit_policy(12, qk_reparam=False)
+    full["slice_nonqkr"] = phase_slice(dev, FUSED, deit, nonqkr)
+    torch.cuda.empty_cache()
+    full["train_nonqkr"] = phase_train(dev, FUSED, policy=nonqkr)
+    torch.cuda.empty_cache()
+    full["train_nonqkr_bf16"] = phase_train(dev, FUSED_BF16, policy=nonqkr)
+    torch.cuda.empty_cache()
+    full["train_nonqkr_pallas"] = phase_train(dev, PALLAS, policy=nonqkr)
+    torch.cuda.empty_cache()
+    lsq = w2a2_deit_policy(12, qk_reparam=False, wq_mode="lsq")
+    full["train_lsq"] = phase_train(dev, FUSED, policy=lsq)
+    torch.cuda.empty_cache()
+    for kind, over in (("kd_qk", dict(qqkkvv=True)),
+                       ("kd_qkv", dict(qqkkvv=True)),
+                       ("kd_token", dict(return_features=True))):
+        full[f"train_{kind}"] = phase_train(dev, FUSED, loss_kind=kind,
+                                            overrides=over, timed=False)
+        torch.cuda.empty_cache()
+    swin_nonqkr = w2a2_swin_policy(qk_reparam=False)
+    snq = full["swin_nonqkr"] = phase_slice(dev, PALLAS, "swin_t",
+                                            swin_nonqkr, gate=SWIN_GATE)
+    torch.cuda.empty_cache()
+    stq = full["train_swin_nonqkr"] = phase_train(
+        dev, PALLAS, "swin_t", gate=SWIN_GATE, overrides=SWIN_BENCH,
+        policy=swin_nonqkr)
+    torch.cuda.empty_cache()
     full["int8_mm"] = phase_int8_mm(dev)
+    full["slice_nonqkr_int8"] = phase_slice(dev, INT8, deit, nonqkr)
+    torch.cuda.empty_cache()
+    full["frozen_lsq"] = phase_frozen_lsq(dev, deit, lsq)
+    torch.cuda.empty_cache()
     built = build_served(dev, INT8, deit, w2a2_qkr_policy(12))
     full["slice_int8"] = phase_slice(dev, INT8, deit, w2a2_qkr_policy(12),
                                      built=built)
@@ -4086,6 +4301,10 @@ def main() -> int:
         overrides=SWIN_BENCH)
     torch.cuda.empty_cache()
     int8_launches = {
+        "DeiT-S without QKR int8 serving":
+            full["slice_nonqkr_int8"]["launch_shapes"],
+        "DeiT-S full-LSQ frozen integer core":
+            full["frozen_lsq"]["launch_shapes"],
         "DeiT-S int8 serving": full["slice_int8"]["launch_shapes"],
         "DeiT-S int8 train step": full["train_int8"]["launch_shapes"],
         "DeiT-S frozen integer core, B=64":
@@ -4101,7 +4320,8 @@ def main() -> int:
                    and what.startswith("Swin")
                    else "Swin-T B=64" if what.startswith("Swin")
                    else f"DeiT-S B={FROZEN_BATCH}" if str(FROZEN_BATCH)
-                   in what else "DeiT-S B=64")
+                   in what else NONQKR_INT8_ROWS if "QKR" in what
+                   or "LSQ" in what else "DeiT-S B=64")
         check_int8_shapes(full["int8_mm"], rows_of, shapes)
 
     srcs = {
@@ -4124,36 +4344,52 @@ def main() -> int:
     }
     kernels = []
     tr = full["train"]
+    tr_nq = full["train_nonqkr"]
     for r in full["k1"]:
         if r["main_path"]:
+            # qkv: the linear of the student without QKR only
+            qkv = r["name"] == "qkv"
             kernels.append(_kernel_row(
                 f"fused_qlinear_fwd {r['name']} "
                 f"({r['M']}x{r['K']}x{r['N']}) [{r['design']['label']}]",
                 srcs["K1"],
-                tr["launch_shapes"].get(str((r["M"], r["K"], r["N"])), 0),
-                r, path="fused train step", design=r["design"]["label"]))
+                (tr_nq if qkv else tr)["launch_shapes"].get(
+                    str((r["M"], r["K"], r["N"])), 0),
+                r, path=("fused train step without QKR" if qkv
+                         else "fused train step"),
+                design=r["design"]["label"]))
     tr_bf16 = full["train_fused_bf16"]
+    tr_nq_bf16 = full["train_nonqkr_bf16"]
     for key, fn in (("k2", "qkr_attention_fwd"),
                     ("k3", "qkr_attention_bwd")):
         for r in full[key]:
-            if r["main_path"]:
-                bf16 = r["dtype"] == "bfloat16"
-                kernels.append(_kernel_row(
-                    f"{fn} {'bf16' if bf16 else 'fp32'} (shared lhs, LSQ "
-                    f"on, {r['B']}x{r['N']}x{r['H']}x{r['K']}, d={r['d']})",
-                    srcs[key.upper()],
-                    (tr_bf16 if bf16 else tr)["launches"][fn], r,
-                    path=f"fused {'bf16' if bf16 else 'fp32'} train step",
-                    design=r["design"],
-                    yardstick_sdpa_ms=r["sdpa_ms" if key == "k2"
-                                        else "sdpa_bwd_ms"]))
+            if not r["quantize"]:
+                continue
+            bf16 = r["dtype"] == "bfloat16"
+            # the shared lhs runs on the QKR steps, the per-head lhs on the
+            # steps without QKR
+            steps = ((tr_bf16, tr) if r["shared"] else (tr_nq_bf16, tr_nq))
+            kernels.append(_kernel_row(
+                f"{fn} {'bf16' if bf16 else 'fp32'} ("
+                f"{'shared' if r['shared'] else 'per-head'} lhs, LSQ on, "
+                f"{r['B']}x{r['N']}x{r['H']}x{r['K']}, d={r['d']})",
+                srcs[key.upper()], steps[0 if bf16 else 1]["launches"][fn],
+                r, path=f"fused {'bf16' if bf16 else 'fp32'} train step"
+                + ("" if r["shared"] else " without QKR"),
+                design=r["design"],
+                yardstick_sdpa_ms=r["sdpa_ms" if key == "k2"
+                                    else "sdpa_bwd_ms"]))
+    tp_nq = full["train_nonqkr_pallas"]
     for r in full["k4"]:
         if r["main_path"]:
+            qkv = r["name"] == "qkv"
             kernels.append(_kernel_row(
                 f"pallas_statsq_fwd {r['name']} bf16 "
                 f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
-                tp["launch_shapes"].get(str((r["M"], r["K"], r["N"])), 0), r,
-                path="pallas bf16 train step", design=r["design"]))
+                (tp_nq if qkv else tp)["launch_shapes"].get(
+                    str((r["M"], r["K"], r["N"])), 0), r,
+                path=("pallas bf16 train step without QKR" if qkv
+                      else "pallas bf16 train step"), design=r["design"]))
         elif r["dtype"] == "float32" and r["name"] == "fc1":
             # no model path runs the fp32 stream: the row of K4 in fp32,
             # launched only by this phase's comparison
@@ -4170,20 +4406,17 @@ def main() -> int:
                 caps.get(str((r["M"], r["K"], r["N"])), 0), r,
                 path="the dx products of one pallas bf16 train step, "
                      "captured with hooks", design=r["design"]))
-    for r in filter(lambda r: r["main_path"], full["k4_swin"]):
-        kernels.append(_kernel_row(
-            f"pallas_statsq_fwd Swin-T {r['name']} bf16 "
-            f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
-            sp["launch_shapes"].get(str((r["M"], r["K"], r["N"])), 0), r,
-            path="Swin-T W2A2 QKR pallas bf16 serving forward",
-            design=r["design"]))
-    for r in filter(lambda r: r["main_path"], full["k4_swin"]):
-        kernels.append(_kernel_row(
-            f"pallas_statsq_fwd Swin-T {r['name']} bf16 "
-            f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
-            st["launch_shapes"].get(str((r["M"], r["K"], r["N"])), 0), r,
-            path="Swin-T W2A2 QKR pallas bf16 train step",
-            design=r["design"]))
+    for serving, (res, res_nq) in ((True, (sp, snq)), (False, (st, stq))):
+        for r in filter(lambda r: r["main_path"], full["k4_swin"]):
+            qkv = r["name"].endswith("qkv")
+            kernels.append(_kernel_row(
+                f"pallas_statsq_fwd Swin-T {r['name']} bf16 "
+                f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
+                (res_nq if qkv else res)["launch_shapes"].get(
+                    str((r["M"], r["K"], r["N"])), 0), r,
+                path=f"Swin-T W2A2 {'without QKR' if qkv else 'QKR'} pallas "
+                     f"bf16 {'serving forward' if serving else 'train step'}",
+                design=r["design"]))
     captured = full["swin_float"]["captured"]
     lab_launches = full["lab"]["launches"]
     for r in full["k678"]:

@@ -4,7 +4,8 @@ The port's parameter and buffer names are the Flax tree paths with '.' for
 '/' (`blocks_3/attn/quan_qkx/s` -> `blocks_3.attn.quan_qkx.s`) and its
 kernels keep Flax's `(in, out)` layout, so loading is a flatten-and-copy
 with no transposes.  The loader is strict both ways: a key the model lacks,
-a model entry the tree lacks, or a shape mismatch raises.
+a model entry the tree lacks, or a shape mismatch raises.  An
+`oscillation` state (a NamedTuple in JAX) is flattened by its fields.
 """
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-# Flax variable collections the port holds: parameters and the image
-# quantizer's sticky `signed` state.
-COLLECTIONS = ("params", "quant_stats")
+# Flax variable collections the port holds: parameters, the image
+# quantizer's sticky `signed` state and `LsqWeightIterativeFreezing`'s
+# oscillation state.
+COLLECTIONS = ("params", "quant_stats", "oscillation")
 
 
 def flatten_flax_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -24,6 +26,8 @@ def flatten_flax_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else str(k)
+        if hasattr(v, "_fields"):  # a NamedTuple state
+            v = v._asdict()
         if isinstance(v, Mapping):
             out.update(flatten_flax_tree(v, path))
         else:

@@ -11,8 +11,9 @@ artifact, a flat dict for `np.savez`, in the JAX package's format:
     fake-quant values.
   * QKR q/k kernels -> the quantized per-head product W_qk, stored as codes
     under `w_qk_frozen`; the q/k kernels are dropped.
-  * LSQ-weight layers (the W8 heads) -> codes with their learned scale
-    (idempotent under re-quantization).
+  * LSQ-weight layers (the W8 heads, and every block kernel of a full-LSQ
+    `--wq-mode lsq` model at the weight bits, unsigned with `--wq_asym`)
+    -> codes with their learned scale (idempotent under re-quantization).
   * everything else passes through in fp32.
 
 The encode runs the port's own ops (`statsq_b4_round`, the W_qk einsum of
@@ -26,8 +27,9 @@ n and multiplies by s.
 `weight_frozen=True` (weight fake-quant skipped: StatsQ is not idempotent),
 and with `int_core=True` also writes the artifact's scales as the sibling
 params `kernel_scale` / `v_kernel_scale` / `w_qk_scale` for
-`frozen_int_bits` serving.  Full-LSQ (`--wq-mode lsq`) block kernels wait
-for `LsqLinear` (ROADMAP.md, Queue 1 item 3).
+`frozen_int_bits` serving; a full-LSQ kernel's learned `weight_quant.s`
+passes through and gives its codes there (`ops/int8_qlinear.py:
+frozen_lsq_weight_int`).
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from .models.deit import not_in_port
 from .quant.statsq import statsq_b4_round
 
 _STATSQ_PARENTS = ("qkv", "proj", "fc1", "fc2", "reduction")
@@ -180,8 +181,21 @@ def export_packed(params: Mapping, *, weight_bits: int, qk_reparam: bool,
             codes, s = _statsq_encode(w, weight_bits, reduce_axis=0)
         elif (leaf == "kernel" and parent in _STATSQ_PARENTS
                 and _lsq_weight_scale(names, path) is not None):
-            raise not_in_port(f"{key}: full-LSQ block kernels (--wq-mode "
-                              "lsq) in a packed artifact", 3)
+            # a full-LSQ block kernel: its learned scale, the weight bits
+            if wq_mode != "lsq":
+                raise ValueError(
+                    f"param tree has an LSQ weight scale under {key} but "
+                    f"wq_mode={wq_mode!r}; pass wq_mode='lsq' (and wq_asym "
+                    "for --wq_asym runs)")
+            codes, sb = _lsq_encode(w, _lsq_weight_scale(names, path),
+                                    weight_bits, axis=-1,
+                                    all_positive=wq_asym)
+            out[key + ".codes"] = pack_codes(codes, weight_bits)
+            out[key + ".scale"] = sb
+            meta["entries"][key] = {
+                "kind": "lsq", "bits": weight_bits, "all_positive": wq_asym,
+                "shape": list(w.shape), "enc_shape": list(w.shape)}
+            continue
         elif (leaf == "kernel" and parent in _STATSQ_PARENTS
                 and _in_quantized_module(names, path)):
             # StatsQ'd QLinear kernels; float Dense kernels pass through
@@ -255,6 +269,21 @@ def restore_packed(exported: Mapping, *, int_core: bool = False) -> dict:
             continue
         _set(tree, tuple(key.split("/")), np.asarray(v))
     return tree
+
+
+def drop_block_lsq_scales(tree: dict) -> dict:
+    """A restored tree without the full-LSQ block kernels' `weight_quant`
+    scales: the fp frozen model holds none (its `LsqWeight` at 32 bits is
+    the identity on the restored levels, as JAX's), only the integer core
+    reads them."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            v = drop_block_lsq_scales(v)
+            if k in _STATSQ_PARENTS and "kernel" in v:
+                v.pop("weight_quant", None)
+        out[k] = v
+    return out
 
 
 def artifact_meta(exported: Mapping) -> dict:

@@ -8,8 +8,15 @@ carry the Flax names (`patch_embed`, `blocks_<i>`, `norm1`, `attn`, `mlp`,
 `norm`, `head`, `head_dist`), so the port's parameter names are the JAX
 tree paths with '.' for '/'.  Each path is quantized or float as the policy
 says: the quantized DeiT of the shipped recipes (W8A8 patch embedding and
-heads, QKR attention and quantized MLPs in every block) and the float
-teacher (empty policy).  LayerNorm.  In train mode, dropout after the
+heads, QKR attention -- or, without `qk_reparam`, `QAttention` -- and
+quantized MLPs in every block; full-LSQ linears under a policy whose
+weight and activation modes are both 'lsq') and the float teacher (empty
+policy).  LayerNorm.
+
+`forward(x, generator, aux=True)` returns `(logits, aux)` as JAX's model
+does: aux is the per-block Gram telemetry (`qqkkvv`; None without it) or,
+with `return_features`, `{"attn_infos": ..., "features": [the token
+stream after each block]}`; without `aux` the logits alone.  In train mode, dropout after the
 position embedding, in the attention and the MLP, and drop-path on each
 residual branch at `drop_path_rate * i / max(depth - 1, 1)` for block i,
 as in JAX, with masks from the `generator` handed to `forward`
@@ -28,16 +35,17 @@ and the heads stay >= fp32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
 import torch
 from torch import nn
 
-from ..nn.attention import Attention, QAttentionQKR
+from ..nn.attention import Attention, QAttention, QAttentionQKR
 from ..nn.conv import PatchEmbedConv, QPatchEmbedConv
 from ..nn.dropout import checkpointed, drop_path, dropout
-from ..nn.linear import Dense, Mlp, QHeadLinear, QMlp, not_in_port
+from ..nn.linear import Dense, Mlp, QHeadLinear, QMlp
 from ..quant.policy import QuantPolicy
 from ..quant.ste import as_dtype, at_least_f32
 
@@ -70,6 +78,10 @@ class DeiTConfig:
     attn_impl: Optional[str] = None
     # None (fp32 stream) | 'bfloat16' (bf16 stream, fp32 parameters)
     compute_dtype: Optional[str] = None
+    # the attentions' Gram telemetry (kd_qk, kd_qkv), in `aux`
+    qqkkvv: bool = False
+    # the token stream after each block in `aux` (kd_token)
+    return_features: bool = False
 
     @property
     def n_tokens(self) -> int:
@@ -134,30 +146,31 @@ class Block(nn.Module):
         wb = 32 if frozen else policy.weight.bit
         fib = policy.frozen_int_bits if frozen else None
         self.norm1 = LayerNorm(C, cfg.ln_eps, cd)
+        lsq = policy.lsq_weights
+        wq = dict(wq_learnable=policy.weight.learnable,
+                  wq_all_positive=not policy.weight.symmetric)
         if policy.quantizes(f"blocks.{index}.attn"):
-            if not policy.qk_reparam:
-                raise not_in_port("QAttention (non-QKR)", 3)
-            if policy.lsq_weights:
-                raise not_in_port("full-LSQ weights (LsqLinear)", 3)
-            self.attn = QAttentionQKR(
-                C, cfg.num_heads, n_tok, weight_bits=wb,
-                input_bits=policy.act.bit,
-                quantize_softmax=policy.quantize_softmax,
-                aq_learnable=policy.act.learnable,
-                matmul_impl=cfg.matmul_impl, attn_impl=cfg.attn_impl,
-                compute_dtype=cd, frozen_wqk=frozen, frozen_int_bits=fib,
-                # --apply_q_attn_dropout gates the attention dropout
-                attn_drop=(cfg.attn_drop_rate
-                           if policy.attn_dropout_enabled else 0.0),
-                proj_drop=cfg.drop_rate)
+            kw = dict(weight_bits=wb, input_bits=policy.act.bit,
+                      quantize_softmax=policy.quantize_softmax,
+                      aq_learnable=policy.act.learnable,
+                      matmul_impl=cfg.matmul_impl, attn_impl=cfg.attn_impl,
+                      compute_dtype=cd, frozen_int_bits=fib,
+                      # --apply_q_attn_dropout gates the attention dropout
+                      attn_drop=(cfg.attn_drop_rate
+                                 if policy.attn_dropout_enabled else 0.0),
+                      proj_drop=cfg.drop_rate, qqkkvv=cfg.qqkkvv)
+            if policy.qk_reparam:
+                self.attn = QAttentionQKR(C, cfg.num_heads, n_tok,
+                                          frozen_wqk=frozen, **kw)
+            else:
+                self.attn = QAttention(C, cfg.num_heads, n_tok, frozen=frozen,
+                                       lsq_weights=lsq, **wq, **kw)
         else:
             self.attn = Attention(C, cfg.num_heads,
                                   attn_drop=cfg.attn_drop_rate,
-                                  proj_drop=cfg.drop_rate)
+                                  proj_drop=cfg.drop_rate, qqkkvv=cfg.qqkkvv)
         self.norm2 = LayerNorm(C, cfg.ln_eps, cd)
         if policy.quantizes(f"blocks.{index}.mlp"):
-            if policy.lsq_weights:
-                raise not_in_port("full-LSQ weights (LsqLinear)", 3)
             self.mlp = QMlp(
                 C, hidden, C, n_tok,
                 weight_bits=wb, input_bits=policy.act.bit,
@@ -165,24 +178,54 @@ class Block(nn.Module):
                 aq_learnable=policy.act.learnable,
                 matmul_impl=cfg.matmul_impl, compute_dtype=cd,
                 frozen=frozen, frozen_int_bits=fib,
-                dropout_rate=cfg.drop_rate)
+                dropout_rate=cfg.drop_rate, lsq_weights=lsq, **wq)
         else:
             self.mlp = Mlp(C, hidden, C, dropout_rate=cfg.drop_rate)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return residual_branches(self, x, generator)
+                generator: Optional[torch.Generator] = None,
+                info: bool = False):
+        return residual_branches(self, x, generator, info)
 
 
 def residual_branches(block: nn.Module, x: torch.Tensor,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      generator: Optional[torch.Generator],
+                      info: bool = False):
     """x + drop_path(attn(norm1(x))), then the same with the MLP: a DeiT or
-    Swin block's forward."""
+    Swin block's forward; with `info`, (x, the attention's info)."""
     kw = dict(train=block.training)
-    x = x + drop_path(block.attn(block.norm1(x), generator),
+    out = block.attn(block.norm1(x), generator, info=info)
+    out, attn_info = out if info else (out, None)
+    x = x + drop_path(out, block.drop_path, generator, **kw)
+    x = x + drop_path(block.mlp(block.norm2(x), generator),
                       block.drop_path, generator, **kw)
-    return x + drop_path(block.mlp(block.norm2(x), generator),
-                         block.drop_path, generator, **kw)
+    return (x, attn_info) if info else x
+
+
+def run_blocks(model: nn.Module, x: torch.Tensor,
+               generator: Optional[torch.Generator], aux: bool):
+    """`model.block_names` in order, each of `model.remat_names` under
+    `checkpointed` when grad is on; with `aux`, (x, [each block's info],
+    [the stream after each block]) (a Swin patch merging adds neither),
+    else x."""
+    infos, feats = [], []
+    for name in model.block_names:
+        block = getattr(model, name)
+        if not hasattr(block, "attn"):  # Swin's patch merging
+            x = block(x)
+            continue
+        fn = functools.partial(block, info=True) if aux else block
+        if name in model.remat_names and torch.is_grad_enabled():
+            out = checkpointed(fn, x, generator)
+        else:
+            out = fn(x, generator)
+        if aux:
+            x, attn_info = out
+            infos.append(attn_info)
+            feats.append(x)
+        else:
+            x = out
+    return (x, infos, feats) if aux else x
 
 
 class KernelSwitch:
@@ -230,6 +273,7 @@ class VisionTransformer(KernelSwitch, nn.Module):
             self.dist_token = nn.Parameter(torch.zeros(1, 1, C))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.n_tokens, C))
         self.block_names = [f"blocks_{i}" for i in range(cfg.depth)]
+        self.remat_names = set(self.block_names) if cfg.remat else set()
         for i, name in enumerate(self.block_names):
             dpr = cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
             self.add_module(name, Block(cfg, policy, i, dpr))
@@ -246,9 +290,11 @@ class VisionTransformer(KernelSwitch, nn.Module):
         return Dense(C, classes)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                aux: bool = False):
         """`generator` (on x's device) draws the dropout and drop-path
-        masks in train mode; required there when a rate is above 0."""
+        masks in train mode; required there when a rate is above 0.  With
+        `aux`, (logits, aux) (see the module docstring)."""
         B = x.shape[0]
         C = self.cfg.embed_dim
         patches = self.patch_embed(x).reshape(B, self._grid * self._grid, C)
@@ -260,22 +306,25 @@ class VisionTransformer(KernelSwitch, nn.Module):
         x = dropout(x, self.cfg.drop_rate, generator, train=self.training)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        for name in self.block_names:
-            block = getattr(self, name)
-            if self.cfg.remat and torch.is_grad_enabled():
-                x = checkpointed(block, x, generator)
-            else:
-                x = block(x, generator)
+        x = run_blocks(self, x, generator, aux)
+        if aux:
+            x, infos, feats = x
         # the heads stay >= fp32
         x = self.norm(x)
         x = x.to(at_least_f32(x.dtype))
         if self.cfg.distilled:
             cls_logits = self.head(x[:, 0])
             dist_logits = self.head_dist(x[:, 1])
-            if self.training:
-                return cls_logits, dist_logits
-            return (cls_logits + dist_logits) / 2.0
-        return self.head(x[:, 0])
+            logits = ((cls_logits, dist_logits) if self.training
+                      else (cls_logits + dist_logits) / 2.0)
+        else:
+            logits = self.head(x[:, 0])
+        if not aux:
+            return logits
+        infos = infos if self.cfg.qqkkvv else None
+        if self.cfg.return_features:
+            return logits, {"attn_infos": infos, "features": feats}
+        return logits, infos
 
 
 def _trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:

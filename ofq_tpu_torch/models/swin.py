@@ -15,8 +15,12 @@ Submodules carry the Flax names (`patch_embed`, `patch_norm`,
 names are the JAX tree paths with '.' for '/'.  Each path is quantized or
 float as the policy says (`default_swin_qmodules`): the W2A2 QKR student
 of `train_scripts/swin_t/w2a2_swin_t.sh` (W8A8 patch embedding and head,
-`QSwinAttentionQKR`, quantized MLPs and patch-merging reductions), or the
-float model, its warm start and teacher.
+`QSwinAttentionQKR`, quantized MLPs and patch-merging reductions), the
+same without `--qk_reparam` (`QSwinAttention`), or the float model, its
+warm start and teacher.  As in JAX, a full-LSQ policy builds the StatsQ
+linears (Swin reads no `lsq_weights`).  `forward(x, generator,
+aux=True)` returns `(logits, the float attentions' Gram telemetry)` under
+`qqkkvv` (None otherwise; the quantized window attentions give None).
 
 The quantized MLPs and reductions see the 4-D map, so their per-"token"
 LSQ scale runs along its width (one scale per column, shared by the rows),
@@ -46,15 +50,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.attention import (QAttentionQKR, qkr_quant_chain,
-                            remat_attention_tail)
+from ..nn.attention import (QAttention, QAttentionQKR, gram_info,
+                            qkr_quant_chain, remat_attention_tail)
 from ..nn.conv import PatchEmbedConv, QPatchEmbedConv
-from ..nn.dropout import checkpointed, dropout
-from ..nn.linear import Dense, Mlp, QHeadLinear, QLinear, QMlp
+from ..nn.dropout import dropout
+from ..nn.linear import (Dense, Mlp, QHeadLinear, QLinear, QMlp,
+                         not_in_port)
 from ..ops.fused_attention import softmax
 from ..quant.policy import QuantPolicy
 from ..quant.ste import as_dtype, at_least_f32, weak_scalar
-from .deit import KernelSwitch, LayerNorm, not_in_port, residual_branches
+from .deit import KernelSwitch, LayerNorm, residual_branches, run_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,9 +246,7 @@ class SwinAttention(WindowAttentionBase, nn.Module):
                  shift_size: int, qqkkvv: bool = False,
                  attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
-        if qqkkvv:
-            raise not_in_port("qqkkvv (the attention Gram telemetry of "
-                              "kd_qk)", 5)
+        self.qqkkvv = qqkkvv
         self.num_heads = num_heads
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
@@ -252,7 +255,8 @@ class SwinAttention(WindowAttentionBase, nn.Module):
         self._init_window(num_heads, window_size, shift_size)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                info: bool = False):
         tokens, geom, mask = self.geometry(x)
         Bn, n, C = tokens.shape
         H = self.num_heads
@@ -262,11 +266,72 @@ class SwinAttention(WindowAttentionBase, nn.Module):
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k)
         attn = self.scores_tail(attn * weak_scalar(d ** -0.5, attn.dtype),
                                 mask, geom)
+        attn_info = gram_info(attn, q, k, v) if self.qqkkvv else None
         attn = dropout(attn, self.attn_drop, generator, train=self.training)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(Bn, n, C)
         out = dropout(self.proj(out), self.proj_drop, generator,
                       train=self.training)
-        return self.finish(out, geom)
+        out = self.finish(out, geom)
+        return (out, attn_info) if info else out
+
+
+def _check_window_impl(attn_impl):
+    if attn_impl not in (None, "xla", "remat"):
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r}: Swin's window attention runs the "
+            "composition or 'remat' (the fused attention core is not "
+            "supported for Swin, as in the JAX package)")
+
+
+def _window_tail(mod, lhs, rhs, v, spec, mask, geom, generator):
+    """The window attention's tail on (Bn, n, ...) `lhs`, `rhs`, `v`: the
+    checkpointed tail with bias and mask inside, or the composition."""
+    d = v.shape[-1]
+    if mod.tail_eligible():
+        return remat_attention_tail(
+            lhs, rhs, v,
+            mod.quan_softmax.s if mod.quantize_softmax else None,
+            bits=mod.input_bits, sm_scale=d ** -0.5,
+            quantize_softmax=mod.quantize_softmax,
+            aq_learnable=mod.aq_learnable, einsum_spec=spec,
+            bias=mod.rel_pos_bias(), mask=mask)
+    attn = torch.einsum(spec, lhs, rhs)
+    attn = mod.scores_tail(attn * weak_scalar(d ** -0.5, attn.dtype), mask,
+                           geom)
+    if mod.quantize_softmax:
+        attn = mod.quan_softmax(attn)
+    attn = dropout(attn, mod.attn_drop, generator, train=mod.training)
+    return torch.einsum("bhnm,bmhd->bnhd", attn, v)
+
+
+class QSwinAttention(WindowAttentionBase, QAttention):
+    """Quantized window attention without the reparameterization (JAX's
+    `QSwinAttention`): `QAttention`'s parameters and q, k, v chain on the
+    (B*nW, n, C) window tokens (per-token scales of n = window² entries),
+    StatsQ `QLinear`s, then the scores, bias, mask, softmax, `quan_softmax`,
+    attention dropout, @v, `proj` and projection dropout; the composed or
+    the checkpointed tail, as `QSwinAttentionQKR`.  Its info is None."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int,
+                 shift_size: int, *, attn_impl: Optional[str] = None,
+                 frozen_wqk: bool = False, **kw):
+        _check_window_impl(attn_impl)
+        super().__init__(dim, num_heads, window_size * window_size,
+                         attn_impl=attn_impl, frozen=frozen_wqk, **kw)
+        self._init_window(num_heads, window_size, shift_size)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                info: bool = False):
+        tokens, geom, mask = self.geometry(x)
+        Bn, n, C = tokens.shape
+        q, k, v = self.qkv_chain(tokens)
+        out = _window_tail(self, q, k, v, "bnhd,bmhd->bhnm", mask, geom,
+                           generator)
+        out = self.proj(out.reshape(Bn, n, C))
+        out = dropout(out, self.proj_drop, generator, train=self.training)
+        out = self.finish(out, geom)
+        return (out, None) if info else out
 
 
 class QSwinAttentionQKR(WindowAttentionBase, QAttentionQKR):
@@ -281,41 +346,23 @@ class QSwinAttentionQKR(WindowAttentionBase, QAttentionQKR):
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift_size: int, *, attn_impl: Optional[str] = None, **kw):
-        if attn_impl not in (None, "xla", "remat"):
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: Swin's window attention runs the "
-                "composition or 'remat' (the fused attention core is not "
-                "supported for Swin, as in the JAX package)")
+        _check_window_impl(attn_impl)
         super().__init__(dim, num_heads, window_size * window_size,
                          attn_impl=attn_impl, **kw)
         self._init_window(num_heads, window_size, shift_size)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                info: bool = False):
         tokens, geom, mask = self.geometry(x)
         Bn, n, C = tokens.shape
-        d = C // self.num_heads
         xq, v, qkx = qkr_quant_chain(self, tokens)
-        if self.tail_eligible():
-            out = remat_attention_tail(
-                xq, qkx, v,
-                self.quan_softmax.s if self.quantize_softmax else None,
-                bits=self.input_bits, sm_scale=d ** -0.5,
-                quantize_softmax=self.quantize_softmax,
-                aq_learnable=self.aq_learnable, einsum_spec="bnc,bmhc->bhnm",
-                bias=self.rel_pos_bias(), mask=mask)
-        else:
-            attn = torch.einsum("bnc,bmhc->bhnm", xq, qkx)
-            attn = self.scores_tail(
-                attn * weak_scalar(d ** -0.5, attn.dtype), mask, geom)
-            if self.quantize_softmax:
-                attn = self.quan_softmax(attn)
-            attn = dropout(attn, self.attn_drop, generator,
-                           train=self.training)
-            out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+        out = _window_tail(self, xq, qkx, v, "bnc,bmhc->bhnm", mask, geom,
+                           generator)
         out = self.proj(out.reshape(Bn, n, C))
         out = dropout(out, self.proj_drop, generator, train=self.training)
-        return self.finish(out, geom)
+        out = self.finish(out, geom)
+        return (out, None) if info else out
 
 
 # ------------------------------------------------------------- structure
@@ -375,11 +422,9 @@ class SwinBlock(nn.Module):
                     proj_drop=cfg.drop_rate)
         self.norm1 = LayerNorm(dim, cfg.ln_eps, cd)
         if policy.quantizes(attn_path):
-            if not policy.qk_reparam:
-                raise not_in_port("QSwinAttention (non-QKR)", 3)
-            if policy.lsq_weights:
-                raise not_in_port("full-LSQ weights (LsqLinear)", 3)
-            self.attn = QSwinAttentionQKR(
+            cls = (QSwinAttentionQKR if policy.qk_reparam
+                   else QSwinAttention)
+            self.attn = cls(
                 dim, num_heads, quantize_softmax=policy.quantize_softmax,
                 attn_impl=cfg.attn_impl, **geom,
                 # --apply_q_attn_dropout gates the attention dropout
@@ -392,8 +437,6 @@ class SwinBlock(nn.Module):
         self.norm2 = LayerNorm(dim, cfg.ln_eps, cd)
         hidden = int(dim * cfg.mlp_ratio)
         if policy.quantizes(mlp_path):
-            if policy.lsq_weights:
-                raise not_in_port("full-LSQ weights (LsqLinear)", 3)
             self.mlp = QMlp(dim, hidden, dim, width,
                             act_layer=policy.act_layer,
                             dropout_rate=cfg.drop_rate,
@@ -402,8 +445,9 @@ class SwinBlock(nn.Module):
             self.mlp = Mlp(dim, hidden, dim, dropout_rate=cfg.drop_rate)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return residual_branches(self, x, generator)
+                generator: Optional[torch.Generator] = None,
+                info: bool = False):
+        return residual_branches(self, x, generator, info)
 
 
 class SwinTransformer(KernelSwitch, nn.Module):
@@ -466,24 +510,24 @@ class SwinTransformer(KernelSwitch, nn.Module):
             self.head = Dense(dim, cfg.num_classes)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                aux: bool = False):
         """`generator` (on x's device) draws the dropout and drop-path
-        masks in train mode; required there when a rate is above 0."""
+        masks in train mode; required there when a rate is above 0.  With
+        `aux`, (logits, the Gram telemetry under `qqkkvv`, else None)."""
         x = self.patch_norm(self.patch_embed(x))
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        for name in self.block_names:
-            block = getattr(self, name)
-            if isinstance(block, PatchMerging):
-                x = block(x)
-            elif name in self.remat_names and torch.is_grad_enabled():
-                x = checkpointed(block, x, generator)
-            else:
-                x = block(x, generator)
+        x = run_blocks(self, x, generator, aux)
+        if aux:
+            x, infos, _ = x
         x = self.norm(x)
         # global average pool; the head stays >= fp32
         x = torch.mean(x, dim=(1, 2))
-        return self.head(x.to(at_least_f32(x.dtype)))
+        logits = self.head(x.to(at_least_f32(x.dtype)))
+        if not aux:
+            return logits
+        return logits, (infos if self.cfg.qqkkvv else None)
 
 
 def swin_model(variant: str, policy: QuantPolicy, **overrides: Any

@@ -1,12 +1,13 @@
-from .attention import Attention, QAttentionQKR, qkr_quant_chain
+from .attention import Attention, QAttention, QAttentionQKR, qkr_quant_chain
 from .bias import ImageBias, LearnableBias
 from .conv import LsqImgQuantizer, PatchEmbedConv, QPatchEmbedConv
-from .linear import Dense, Mlp, QHeadLinear, QLinear, QMlp, gelu
-from .quantizers import LsqAct, LsqWeight
+from .linear import Dense, LsqLinear, Mlp, QHeadLinear, QLinear, QMlp, gelu
+from .quantizers import LsqAct, LsqWeight, LsqWeightIterativeFreezing
 
 __all__ = [
     "Attention", "Dense", "ImageBias", "LearnableBias", "LsqAct",
-    "LsqImgQuantizer", "LsqWeight", "Mlp", "PatchEmbedConv", "QAttentionQKR",
+    "LsqImgQuantizer", "LsqLinear", "LsqWeight", "LsqWeightIterativeFreezing",
+    "Mlp", "PatchEmbedConv", "QAttention", "QAttentionQKR",
     "QHeadLinear", "QLinear", "QMlp", "QPatchEmbedConv", "gelu",
     "qkr_quant_chain",
 ]

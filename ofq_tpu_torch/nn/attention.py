@@ -1,6 +1,11 @@
-"""Attention: query-key reparameterized quantized attention and the float
-attention of the teacher (port of `ofq_tpu/nn/attention.py:57-202,
-205-234, 271-334, 455-572`).
+"""Attention: the quantized attentions, with and without the query-key
+reparameterization, and the float attention of the teacher (port of
+`ofq_tpu/nn/attention.py`).
+
+`QAttention` (no reparameterization) quantizes the qkv and proj linears
+(`QLinear`, or `LsqLinear` under full-LSQ weights), q and k per token, v
+per channel and the probabilities per row; its fused tail runs K2 and K3
+in their per-head form (lhs = q, (B, N, H, d)).
 
 The per-head product `W_qk[h] = Wq[h]^T @ Wk[h]` is StatsQ-quantized as
 one (H*C, C) matrix with per-row scales, and the attention logits become
@@ -16,6 +21,12 @@ The last two have no attention dropout: in train mode with `attn_drop > 0`
 the composition runs, as JAX's eligibility rule says
 (`ofq_tpu/nn/attention.py:509-521`); `proj_drop` applies on every path.
 Masks come from the generator handed to `forward` (`nn/dropout.py`).
+With `qqkkvv` each attention also returns its Gram telemetry (`forward(x,
+generator, info=True)` gives `(out, info)`): (attn, q q^T, k k^T, v v^T)
+/ sqrt(d) per head, of the float q, k, v (`Attention`), of the quantized
+ones (`QAttention`), or, under QKR, of the un-reparameterized q and k
+projections of the shared quantized input and the quantized v; the
+probabilities are then needed, so the tail is the composition.
 The QKR chain has three implementations of its v and qkx products
 (`qkr_quant_chain`): the composition; with `matmul_impl='int8'`, products
 on the shared input's integer codes (`ops/int8_qlinear.py`); and, for a
@@ -47,10 +58,11 @@ from ..ops.int8_qlinear import (frozen_int8_linear, frozen_int8_qkx,
                                 int8_statsq_qkx, qkr_int8_codes)
 from ..quant.lsq import grad_scale_factor
 from ..quant.statsq import statsq_quantize
-from ..quant.ste import as_dtype, clip_lower, grad_scale, weak_scalar
+from ..quant.ste import (as_dtype, at_least_f32, clip_lower, grad_scale,
+                         weak_scalar)
 from .bias import LearnableBias
 from .dropout import dropout
-from .linear import Dense, QLinear, check_bits, int_product
+from .linear import Dense, LsqLinear, QLinear, int_product
 from .quantizers import LsqAct
 
 
@@ -60,7 +72,7 @@ def qkr_int8_flags(mod) -> tuple[bool, bool]:
     codes, and whether those codes' weights come from a frozen artifact.
     One definition for QAttentionQKR and QSwinAttentionQKR; off while
     calibrating, so calibration runs the composition."""
-    if mod.calibrating:
+    if mod.calibrating or mod.qqkkvv:
         return False, False
     use_int8 = (mod.matmul_impl == "int8" and not mod.frozen_wqk
                 and int8_eligible(mod.weight_bits, mod.input_bits))
@@ -92,7 +104,8 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
     composed, on the integer codes (int8), or on an artifact's codes
     (frozen int).
 
-    Returns xq (B, N, C), v (B, N, H, d), qkx (B, N, H, C)."""
+    Returns xq (B, N, C), v (B, N, H, d), qkx (B, N, H, C).  At 32 input
+    bits every activation quantizer is the identity."""
     B, N, C = x.shape
     H = mod.num_heads
     d = C // H
@@ -118,7 +131,7 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
                                     mod.weight_bits, mm)
                  + mod.v_bias.to(xi.dtype))
     else:
-        vq = (mod.v_kernel if mod.frozen_wqk
+        vq = (mod.v_kernel if mod.frozen_wqk or mod.weight_bits >= 32
               else statsq_quantize(mod.v_kernel, mod.weight_bits))
         if cd is not None:
             vq = vq.to(cd)
@@ -139,6 +152,19 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
         qkx = torch.einsum("bnj,hij->bnhi", xq.to(dt), w_qk.to(dt))
     qkx = mod.move_qkx_aft(mod.quan_qkx(mod.move_qkx_b4(qkx)))
     return xq, v, qkx
+
+
+def gram_info(attn, q, k, v):
+    """(attn, q q^T, k k^T, v v^T) / sqrt(d) per head of (B, N, H, d)
+    q, k, v: JAX's `jnp.einsum(...) * (1.0 / jnp.sqrt(d))`, whose factor
+    is an fp32 array (fp64 under x64), so a bf16 Gram comes out fp32."""
+    d = q.shape[-1]
+    dt = at_least_f32(q.dtype)
+    sq = float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=dt)))
+
+    def gram(t):
+        return torch.einsum("bnhd,bmhd->bhnm", t, t).to(dt) * sq
+    return attn, gram(q), gram(k), gram(v)
 
 
 def _matmul(a, b):
@@ -206,6 +232,145 @@ def remat_attention_tail(lhs, rhs, v, scale_param, *, bits, sm_scale,
     return checkpoint(tail, lhs, rhs, v, s, bias, use_reentrant=False)
 
 
+def _check_attn_impl(attn_impl):
+    if attn_impl not in (None, "xla", "fused", "remat"):
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r}: the port has the composition, "
+            "'fused' and 'remat'")
+
+
+def _tail_eligible(mod) -> bool:
+    """Whether the 'fused' or 'remat' tail runs (JAX's `fused_ok`): never
+    while calibrating, with the Gram telemetry, at 32 input bits (no
+    softmax scale exists), or with attention dropout in train mode, all of
+    which need the composition."""
+    return (mod.attn_impl in ("fused", "remat") and not mod.calibrating
+            and not mod.qqkkvv and mod.input_bits < 32
+            and (mod.attn_drop == 0.0 or not mod.training))
+
+
+def _attention_tail(mod, lhs, rhs, v, spec, scale, generator, grams=None):
+    """The attention tail of a quantized attention on `lhs` and `rhs`
+    (`spec`: their score einsum), through the fused kernels, the remat
+    tail or the composition; returns (B, N, H, d) and the Gram info (None
+    unless `grams` = (q, k, v) is given: the composition runs then)."""
+    sp = mod.quan_softmax.s if mod.quantize_softmax else None
+    tail = dict(bits=mod.input_bits, sm_scale=scale,
+                quantize_softmax=mod.quantize_softmax,
+                aq_learnable=mod.aq_learnable)
+    if _tail_eligible(mod) and mod.attn_impl == "fused":
+        kernels = ((qkr_attention_fwd, qkr_attention_bwd)
+                   if mod.use_kernels else
+                   (qkr_attention_fwd_reference,
+                    qkr_attention_bwd_reference))
+        return _fused_attention(lhs, rhs, v, sp, fwd=kernels[0],
+                                bwd=kernels[1], **tail), None
+    if _tail_eligible(mod):
+        return remat_attention_tail(lhs, rhs, v, sp, einsum_spec=spec,
+                                    **tail), None
+    attn = torch.einsum(spec, lhs, rhs)
+    attn = softmax(attn * weak_scalar(scale, attn.dtype))
+    info = None if grams is None else gram_info(attn, *grams)
+    if mod.quantize_softmax:
+        attn = mod.quan_softmax(attn)
+    attn = dropout(attn, mod.attn_drop, generator, train=mod.training)
+    return torch.einsum("bhnm,bmhd->bnhd", attn, v), info
+
+
+class QAttention(nn.Module):
+    """Quantized multi-head attention without the reparameterization
+    (`ofq_tpu.nn.attention.QAttention`): the `qkv` linear -> `move_qkv_b4`
+    -> q, k, v split from the last axis in the natural (B, N, H, d) layout
+    -> `quan_q`, `quan_k` per token (N scales), `quan_v` per channel (C)
+    -> `move_*_aft` -> the tail on (q, k) per head -> `proj`.  At 32 input
+    bits the activation quantizers and shifts do not exist.  The linears
+    are `QLinear`s (`matmul_impl`, `compute_dtype`, `frozen`,
+    `frozen_int_bits`) or, with `lsq_weights`, `LsqLinear`s
+    (`wq_learnable`, `wq_all_positive`, `frozen_int_bits`)."""
+
+    def __init__(self, dim: int, num_heads: int, n_tokens: int, *,
+                 weight_bits: int, input_bits: int,
+                 quantize_softmax: bool = True, aq_learnable: bool = True,
+                 wq_learnable: bool = True, lsq_weights: bool = False,
+                 wq_all_positive: bool = False,
+                 matmul_impl: str | None = None,
+                 attn_impl: str | None = None, compute_dtype=None,
+                 frozen: bool = False, frozen_int_bits: int | None = None,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 qqkkvv: bool = False):
+        super().__init__()
+        _check_attn_impl(attn_impl)
+        C, H = dim, num_heads
+        d = C // H
+        self.num_heads = H
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
+        self.input_bits = input_bits
+        self.quantize_softmax = quantize_softmax
+        self.aq_learnable = aq_learnable
+        self.attn_impl = attn_impl
+        self.qqkkvv = qqkkvv
+        self.use_kernels = True
+        self.calibrating = False
+        kw = dict(weight_bits=weight_bits, input_bits=input_bits,
+                  aq_learnable=aq_learnable, frozen_int_bits=frozen_int_bits)
+        if lsq_weights:
+            cls = LsqLinear
+            kw.update(wq_learnable=wq_learnable,
+                      wq_all_positive=wq_all_positive)
+        else:
+            cls = QLinear
+            kw.update(matmul_impl=matmul_impl,
+                      compute_dtype=as_dtype(compute_dtype), frozen=frozen)
+        self.qkv = cls(C, 3 * C, n_tokens, **kw)
+        lrn = dict(learnable=aq_learnable)
+        quantized = input_bits < 32
+        if quantized:
+            self.move_qkv_b4 = LearnableBias(3 * C)
+        self.quan_q = LsqAct(input_bits, n_tokens, channel_axis=1, **lrn)
+        self.quan_k = LsqAct(input_bits, n_tokens, channel_axis=1, **lrn)
+        self.quan_v = LsqAct(input_bits, C, channel_axis=-1, **lrn)
+        if quantized:
+            self.move_q_aft = LearnableBias(C, apply_shape=(H, d))
+            self.move_k_aft = LearnableBias(C, apply_shape=(H, d))
+            self.move_v_aft = LearnableBias(C)
+        if quantize_softmax:
+            self.quan_softmax = LsqAct(input_bits, n_tokens,
+                                       all_positive=True, channel_axis=-2,
+                                       **lrn)
+        self.proj = cls(C, C, n_tokens, **kw)
+
+    def tail_eligible(self) -> bool:
+        return _tail_eligible(self)
+
+    def qkv_chain(self, x: torch.Tensor):
+        """q, k, v (B, N, H, d), quantized and shifted."""
+        B, N, C = x.shape
+        H = self.num_heads
+        qkv = self.qkv(x)
+        if self.input_bits < 32:
+            qkv = self.move_qkv_b4(qkv)
+        qs, ks, v = torch.split(qkv, C, dim=-1)
+        q = self.quan_q(qs.reshape(B, N, H, C // H))
+        k = self.quan_k(ks.reshape(B, N, H, C // H))
+        v = self.quan_v(v)
+        if self.input_bits < 32:
+            q, k, v = self.move_q_aft(q), self.move_k_aft(k), \
+                self.move_v_aft(v)
+        return q, k, v.reshape(B, N, H, C // H)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None, info: bool = False):
+        B, N, C = x.shape
+        q, k, v = self.qkv_chain(x)
+        out, attn_info = _attention_tail(
+            self, q, k, v, "bnhd,bmhd->bhnm", (C // self.num_heads) ** -0.5,
+            generator, (q, k, v) if self.qqkkvv else None)
+        out = self.proj(out.reshape(B, N, C))
+        out = dropout(out, self.proj_drop, generator, train=self.training)
+        return (out, attn_info) if info else out
+
+
 class QAttentionQKR(nn.Module):
     """Query-key reparameterized quantized attention, with JAX's attention
     and projection dropout (`attn_drop`, `proj_drop`).
@@ -227,14 +392,14 @@ class QAttentionQKR(nn.Module):
                  attn_impl: str | None = None, compute_dtype=None,
                  frozen_wqk: bool = False,
                  frozen_int_bits: int | None = None,
-                 attn_drop: float = 0.0, proj_drop: float = 0.0):
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 qqkkvv: bool = False):
         super().__init__()
-        check_bits(frozen_wqk, weight_bits=weight_bits,
-                   input_bits=input_bits)
-        if attn_impl not in (None, "xla", "fused", "remat"):
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: the port has the composition, "
-                "'fused' and 'remat'")
+        if frozen_wqk and qqkkvv:
+            raise ValueError(
+                "deployment artifacts carry only the quantized W_qk "
+                "product; qqkkvv Gram telemetry needs the q/k kernels")
+        _check_attn_impl(attn_impl)
         compute_dtype = as_dtype(compute_dtype)
         C, H = dim, num_heads
         self.num_heads = H
@@ -249,6 +414,7 @@ class QAttentionQKR(nn.Module):
         self.compute_dtype = compute_dtype
         self.frozen_wqk = frozen_wqk
         self.frozen_int_bits = frozen_int_bits
+        self.qqkkvv = qqkkvv
         self.use_kernels = True
         self.calibrating = False
 
@@ -284,52 +450,39 @@ class QAttentionQKR(nn.Module):
                             frozen_int_bits=frozen_int_bits)
 
     def tail_eligible(self) -> bool:
-        """Whether the 'fused' or 'remat' tail runs: never while
-        calibrating, and not with attention dropout in train mode, which
-        needs the probabilities (JAX's `fused_ok`)."""
-        return (self.attn_impl in ("fused", "remat") and not self.calibrating
-                and (self.attn_drop == 0.0 or not self.training))
+        return _tail_eligible(self)
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, info: bool = False):
         B, N, C = x.shape
         H = self.num_heads
-        scale = (C // H) ** -0.5
         xq, v, qkx = qkr_quant_chain(self, x)
-        sp = self.quan_softmax.s if self.quantize_softmax else None
-        tail = dict(bits=self.input_bits, sm_scale=scale,
-                    quantize_softmax=self.quantize_softmax,
-                    aq_learnable=self.aq_learnable)
-        if self.tail_eligible() and self.attn_impl == "fused":
-            kernels = ((qkr_attention_fwd, qkr_attention_bwd)
-                       if self.use_kernels else
-                       (qkr_attention_fwd_reference,
-                        qkr_attention_bwd_reference))
-            out = _fused_attention(xq, qkx, v, sp, fwd=kernels[0],
-                                   bwd=kernels[1], **tail)
-        elif self.tail_eligible():
-            out = remat_attention_tail(xq, qkx, v, sp,
-                                       einsum_spec="bnc,bmhc->bhnm", **tail)
-        else:
-            attn = torch.einsum("bnc,bmhc->bhnm", xq, qkx)
-            attn = softmax(attn * weak_scalar(scale, attn.dtype))
-            if self.quantize_softmax:
-                attn = self.quan_softmax(attn)
-            attn = dropout(attn, self.attn_drop, generator,
-                           train=self.training)
-            out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+        grams = None
+        if self.qqkkvv:
+            # q and k from the un-reparameterized projections of the
+            # shared quantized input (JAX's QKR analog of the Grams)
+            d = C // H
+            qf = torch.matmul(xq, self.q_kernel.to(xq.dtype))
+            kf = torch.matmul(xq, self.k_kernel.to(xq.dtype))
+            grams = (qf.reshape(B, N, H, d), kf.reshape(B, N, H, d), v)
+        out, attn_info = _attention_tail(self, xq, qkx, v, "bnc,bmhc->bhnm",
+                                         (C // H) ** -0.5, generator, grams)
         out = self.proj(out.reshape(B, N, C))
-        return dropout(out, self.proj_drop, generator, train=self.training)
+        out = dropout(out, self.proj_drop, generator, train=self.training)
+        return (out, attn_info) if info else out
 
 
 class Attention(nn.Module):
-    """Float multi-head self-attention (`ofq_tpu.nn.attention.Attention`,
-    no Gram telemetry): qkv Dense -> einsum -> the division-form softmax ->
-    attention dropout -> einsum -> proj Dense -> projection dropout."""
+    """Float multi-head self-attention (`ofq_tpu.nn.attention.Attention`):
+    qkv Dense -> einsum -> the division-form softmax -> attention dropout ->
+    einsum -> proj Dense -> projection dropout; `qqkkvv` adds the Grams of
+    q, k, v to the info."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 attn_drop: float = 0.0, proj_drop: float = 0.0):
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 qqkkvv: bool = False):
         super().__init__()
+        self.qqkkvv = qqkkvv
         self.num_heads = num_heads
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
@@ -337,7 +490,7 @@ class Attention(nn.Module):
         self.proj = Dense(dim, dim)
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, info: bool = False):
         B, N, C = x.shape
         H = self.num_heads
         d = C // H
@@ -345,7 +498,9 @@ class Attention(nn.Module):
                    for t in torch.split(self.qkv(x), C, dim=-1))
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k)
         attn = softmax(attn * weak_scalar(d ** -0.5, attn.dtype))
+        attn_info = gram_info(attn, q, k, v) if self.qqkkvv else None
         attn = dropout(attn, self.attn_drop, generator, train=self.training)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
-        return dropout(self.proj(out), self.proj_drop, generator,
-                       train=self.training)
+        out = dropout(self.proj(out), self.proj_drop, generator,
+                      train=self.training)
+        return (out, attn_info) if info else out

@@ -1,5 +1,5 @@
 """Dense layers and MLPs, quantized and float (port of
-`ofq_tpu/nn/linear.py:125-252, 333-451`, and Flax's `nn.Dense`).
+`ofq_tpu/nn/linear.py:125-451`, and Flax's `nn.Dense`).
 
 Kernels keep the Flax `(in, out)` layout.  `QLinear` has the composed
 branch (bias -> LSQ -> bias -> x @ StatsQ(W)), whose product is the
@@ -14,6 +14,17 @@ is the same for every `matmul_impl`.  `compute_dtype` ('bfloat16') runs
 the product in that dtype with fp32 sums, as JAX's `statsq_matmul` does;
 the fused kernel, as JAX's, takes x in fp32 whatever the stream and
 returns y in x's dtype.
+
+An unquantized site runs as JAX's `QLinear` runs it: at 32 input bits the
+input chain is skipped (and its parameters do not exist), at 32 weight
+bits the product is the plain `x @ kernel` in the compute dtype; the fused
+branch needs both quantized and the int8 branches integer codes.
+
+`LsqLinear` is the full-LSQ linear (`--wq-mode lsq`): learned-scale
+weights (`weight_quant.s`, per output column) and activations, the product
+a plain `x @ wq` in the promoted dtype, as JAX's (no kernel); a frozen
+artifact's kernel with `frozen_int_bits` runs the integer core on the
+codes rebuilt from its restored scale.
 
 Frozen serving (`frozen=True`, from a policy with `weight_frozen`): the
 kernel holds dequantized StatsQ values restored from a packed artifact, so
@@ -30,8 +41,9 @@ from torch import nn
 
 from ..ops.fused_qlinear import (fused_qlinear, fused_qlinear_fwd,
                                  fused_qlinear_fwd_reference)
-from ..ops.int8_qlinear import (frozen_int8_forward, int8_eligible, int8_mm,
-                                int8_mm_reference, int8_qlinear)
+from ..ops.int8_qlinear import (frozen_int8_forward, frozen_lsq_int8_forward,
+                                int8_eligible, int8_mm, int8_mm_reference,
+                                int8_qlinear, lsq_int8_eligible)
 from ..ops.pallas_statsq import pallas_statsq_fwd, pallas_statsq_fwd_reference
 from ..ops.statsq_matmul import statsq_matmul
 from ..quant.ste import as_dtype, at_least_f32
@@ -58,18 +70,6 @@ def _check_act(act_layer: str) -> None:
             f"act_layer={act_layer!r}: the port has GELU only")
 
 
-def check_bits(frozen: bool = False, **bits: int) -> None:
-    """The slice quantizes every site: reject bit widths >= 32, but for the
-    frozen weights of a deployment artifact (`frozen=True`: `weight_bits`
-    32, the kernel already holds its levels)."""
-    for name, b in bits.items():
-        if frozen and name == "weight_bits" and b == 32:
-            continue
-        if not 1 <= b < 32:
-            raise not_in_port(f"{name}={b} (an unquantized site; the port "
-                              "quantizes with 1 <= bits < 32)", 3)
-
-
 def int_product(module):
     """The int product a module's int8 branches run: `int8_mm` or, with the
     module's `use_kernels` off, its plain version."""
@@ -94,12 +94,11 @@ class QLinear(nn.Module):
                  matmul_impl: str | None = None, compute_dtype=None,
                  frozen: bool = False, frozen_int_bits: int | None = None):
         super().__init__()
-        check_bits(frozen, weight_bits=weight_bits, input_bits=input_bits)
         if matmul_impl not in (None, "xla", "fused", "pallas", "int8"):
             raise NotImplementedError(
                 f"matmul_impl={matmul_impl!r}: the port has the composed "
                 "path, 'pallas', 'fused' and 'int8'")
-        if frozen != (weight_bits == 32) or (
+        if (frozen and weight_bits != 32) or (
                 frozen_int_bits is not None and not frozen):
             raise ValueError(
                 f"frozen={frozen}, weight_bits={weight_bits}, "
@@ -117,11 +116,8 @@ class QLinear(nn.Module):
         self.use_kernels = True
         self.calibrating = False
         self.kernel = nn.Parameter(torch.zeros(in_features, features))
-        self.move_b4 = LearnableBias(in_features)
-        self.input_quant = LsqAct(input_bits, n_tokens,
-                                  all_positive=not symmetric, channel_axis=-2,
-                                  learnable=aq_learnable)
-        self.move_aft = LearnableBias(in_features)
+        _input_chain(self, in_features, n_tokens, input_bits, symmetric,
+                     aq_learnable)
         self.bias = nn.Parameter(torch.zeros(features))
         if self._int_eligible(frozen_int_bits):
             self.kernel_scale = nn.Parameter(torch.ones(1, features))
@@ -140,17 +136,18 @@ class QLinear(nn.Module):
             if y is not None:
                 return y + self.bias.to(y.dtype)
         if self.matmul_impl == "fused" and not self.calibrating \
-                and not self.frozen:
+                and not self.frozen and self.weight_bits < 32 \
+                and self.input_bits < 32:
             return fused_qlinear(
                 x, self.kernel, self._scale(), self.move_b4.bias,
                 self.move_aft.bias, self.bias, w_bits=self.weight_bits,
                 a_bits=self.input_bits, all_positive=not self.symmetric,
                 fwd=(fused_qlinear_fwd if self.use_kernels
                      else fused_qlinear_fwd_reference))
-        x = self.move_aft(self.input_quant(self.move_b4(x)))
-        if self.frozen:
-            # the kernel already holds its levels: no weight quantizer, the
-            # compute-dtype semantics of `statsq_matmul`
+        x = _quantize_input(self, x)
+        if self.weight_bits >= 32:
+            # frozen levels or an unquantized weight: no weight quantizer,
+            # the compute-dtype semantics of `statsq_matmul`
             cd, k = self.compute_dtype, self.kernel
             if cd is not None:
                 x, k = x.to(cd), k.to(cd)
@@ -187,6 +184,82 @@ class QLinear(nn.Module):
             not self.symmetric, mm=int_product(self))
 
 
+def _input_chain(mod, in_features, n_tokens, input_bits, symmetric,
+                 aq_learnable):
+    """The input quantizer's modules (move_b4, input_quant, move_aft); none
+    at 32 bits or more (an unquantized input, as in JAX)."""
+    if input_bits >= 32:
+        mod.move_b4 = mod.input_quant = mod.move_aft = None
+        return
+    mod.move_b4 = LearnableBias(in_features)
+    mod.input_quant = LsqAct(input_bits, n_tokens, all_positive=not symmetric,
+                             channel_axis=-2, learnable=aq_learnable)
+    mod.move_aft = LearnableBias(in_features)
+
+
+def _quantize_input(mod, x):
+    if mod.input_quant is None:
+        return x
+    return mod.move_aft(mod.input_quant(mod.move_b4(x)))
+
+
+class LsqLinear(nn.Module):
+    """Full-LSQ linear (`ofq_tpu.nn.linear.LsqLinear`): bias -> LSQ -> bias
+    on the input, `weight_quant` (`LsqWeight`, per output column unless
+    `weight_per_channel=False`; unsigned with `wq_all_positive`) on the
+    kernel, `x @ wq + bias` in the promoted dtype.  `weight_bits` 32 is a
+    frozen artifact's kernel (its levels already applied); with
+    `frozen_int_bits` the layer keeps the restored `weight_quant.s` and
+    runs the integer core on the codes it gives."""
+
+    def __init__(self, in_features: int, features: int, n_tokens: int, *,
+                 weight_bits: int, input_bits: int, symmetric: bool = True,
+                 aq_learnable: bool = True, wq_learnable: bool = True,
+                 weight_per_channel: bool = True,
+                 wq_all_positive: bool = False,
+                 frozen_int_bits: int | None = None):
+        super().__init__()
+        self.input_bits = input_bits
+        self.symmetric = symmetric
+        self.wq_all_positive = wq_all_positive
+        self.frozen_int_bits = frozen_int_bits
+        self.use_kernels = True
+        self.calibrating = False
+        self.kernel = nn.Parameter(torch.zeros(in_features, features))
+        _input_chain(self, in_features, n_tokens, input_bits, symmetric,
+                     aq_learnable)
+        # the integer core's branch declares the restored scale, per column
+        # (its quantizer, idempotent on the restored levels, runs when the
+        # integer core is switched off)
+        frozen_int = self._frozen_int()
+        self.weight_quant = LsqWeight(
+            frozen_int_bits if frozen_int else weight_bits, features,
+            learnable=wq_learnable, all_positive=wq_all_positive,
+            per_channel=weight_per_channel or frozen_int)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def _frozen_int(self) -> bool:
+        return (self.frozen_int_bits is not None and self.input_bits < 32
+                and lsq_int8_eligible(self.frozen_int_bits, self.input_bits,
+                                      not self.symmetric,
+                                      self.wq_all_positive))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._frozen_int() and not self.calibrating:
+            iq = self.input_quant
+            y = frozen_lsq_int8_forward(
+                x, self.kernel, self.weight_quant.s,
+                iq.s if iq.learnable else iq.s.detach(), self.move_b4.bias,
+                self.move_aft.bias, a_bits=self.input_bits,
+                all_positive=not self.symmetric, mm=int_product(self))
+            return y + self.bias.to(y.dtype)
+        x = _quantize_input(self, x)
+        wq = self.weight_quant(self.kernel)
+        dt = torch.promote_types(x.dtype, wq.dtype)
+        y = torch.matmul(x.to(dt), wq.to(dt))
+        return y + self.bias.to(y.dtype)
+
+
 class QHeadLinear(nn.Module):
     """W8A8 classifier head (pinned to 8 bits whatever the policy):
     per-tensor input LSQ + per-column weight LSQ."""
@@ -208,7 +281,8 @@ class QHeadLinear(nn.Module):
 
 class QMlp(nn.Module):
     """fc1 (signed input) -> GELU -> dropout -> fc2 (all-positive input) ->
-    dropout."""
+    dropout; `lsq_weights` takes the full-LSQ pair (`LsqLinear`, with
+    `wq_learnable` and `wq_all_positive`)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, n_tokens: int, *, weight_bits: int,
@@ -216,18 +290,25 @@ class QMlp(nn.Module):
                  aq_learnable: bool = True,
                  matmul_impl: str | None = None, compute_dtype=None,
                  frozen: bool = False, frozen_int_bits: int | None = None,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, lsq_weights: bool = False,
+                 wq_learnable: bool = True, wq_all_positive: bool = False):
         super().__init__()
         _check_act(act_layer)
         self.dropout_rate = dropout_rate
         kw = dict(weight_bits=weight_bits, input_bits=input_bits,
-                  aq_learnable=aq_learnable, matmul_impl=matmul_impl,
-                  compute_dtype=compute_dtype, frozen=frozen,
-                  frozen_int_bits=frozen_int_bits)
-        self.fc1 = QLinear(in_features, hidden_features, n_tokens,
-                           symmetric=True, **kw)
-        self.fc2 = QLinear(hidden_features, out_features, n_tokens,
-                           symmetric=False, **kw)
+                  aq_learnable=aq_learnable, frozen_int_bits=frozen_int_bits)
+        if lsq_weights:
+            cls = LsqLinear
+            kw.update(wq_learnable=wq_learnable,
+                      wq_all_positive=wq_all_positive)
+        else:
+            cls = QLinear
+            kw.update(matmul_impl=matmul_impl, compute_dtype=compute_dtype,
+                      frozen=frozen)
+        self.fc1 = cls(in_features, hidden_features, n_tokens,
+                       symmetric=True, **kw)
+        self.fc2 = cls(hidden_features, out_features, n_tokens,
+                       symmetric=False, **kw)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:

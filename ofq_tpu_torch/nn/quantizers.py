@@ -1,4 +1,4 @@
-"""LSQ quantizer modules (port of `ofq_tpu/nn/quantizers.py:23-62, 124-152`).
+"""LSQ quantizer modules (port of `ofq_tpu/nn/quantizers.py:23-152`).
 
 `learnable=False` detaches the scale (JAX's `stop_gradient` on `s`): the
 quantizer still uses it, but no gradient reaches it.
@@ -16,8 +16,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..quant.lsq import init_scale, lsq_quantize
-from ..quant.ste import at_least_f32
+from ..quant.lsq import (grad_scale_factor, init_scale, lsq_quantize,
+                         thresholds)
+from ..quant.oscillation import (OscillationState, init_oscillation_state,
+                                 track_oscillation)
+from ..quant.ste import at_least_f32, clip_lower, grad_scale, round_pass
 
 
 def _calibrate_scale(param: nn.Parameter, value: torch.Tensor,
@@ -47,9 +50,11 @@ class LsqAct(nn.Module):
         self.channel_axis = channel_axis
         self.learnable = learnable
         self.calibrating = False
-        self.s = nn.Parameter(torch.ones(num_scales))
+        self.s = nn.Parameter(torch.ones(num_scales)) if bit < 32 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bit >= 32:
+            return x
         if self.calibrating:
             _calibrate_scale(self.s, init_scale(
                 x.to(at_least_f32(x.dtype)), self.bit, self.all_positive,
@@ -61,21 +66,95 @@ class LsqAct(nn.Module):
 
 
 class LsqWeight(nn.Module):
-    """Signed LSQ weight fake-quantizer, one scale per output column (last
-    axis); calibrated from the kernel itself."""
+    """LSQ weight fake-quantizer, one scale per output column (last axis;
+    `per_channel=False`: one per tensor), calibrated from the kernel
+    itself; `all_positive` (--wq_asym) takes the unsigned range."""
 
-    def __init__(self, bit: int, num_scales: int, *, learnable: bool = True):
+    def __init__(self, bit: int, num_scales: int, *, learnable: bool = True,
+                 per_channel: bool = True, all_positive: bool = False):
         super().__init__()
         self.bit = bit
         self.learnable = learnable
+        self.all_positive = all_positive
+        self.axis = -1 if per_channel else None
         self.calibrating = False
-        self.s = nn.Parameter(torch.ones(num_scales))
+        self.s = (nn.Parameter(torch.ones(num_scales if per_channel else 1))
+                  if bit < 32 else None)
 
     def forward(self, w: torch.Tensor) -> torch.Tensor:
+        if self.bit >= 32:
+            return w
         w32 = w.to(at_least_f32(w.dtype))
         if self.calibrating:
-            _calibrate_scale(self.s, init_scale(w32, self.bit, False, -1),
-                             "LsqWeight")
+            _calibrate_scale(self.s, init_scale(
+                w32, self.bit, self.all_positive, self.axis), "LsqWeight")
         s = self.s if self.learnable else self.s.detach()
-        return lsq_quantize(w32, s, self.bit,
-                            channel_axis=-1).to(w.dtype)
+        return lsq_quantize(w32, s, self.bit, all_positive=self.all_positive,
+                            channel_axis=self.axis).to(w.dtype)
+
+
+class LsqWeightIterativeFreezing(nn.Module):
+    """LSQ weight quantizer that tracks the oscillation of its integer codes
+    and pins those that oscillate (`ofq_tpu.nn.quantizers.
+    LsqWeightIterativeFreezing`; no model wires it, in JAX either).
+
+    The state (JAX's `oscillation` collection, `<path>/state/<field>`) is
+    the buffers of the child `state`; `calibrate` sets it from the codes
+    of the calibrated scale, as JAX's init does, and `load_flax_params`
+    carries JAX's.  A training forward (`training=True`) tracks and
+    updates it, and raises where it may not (`track=False`, JAX's
+    immutable collection); any other forward pins the frozen codes without
+    tracking."""
+
+    def __init__(self, bit: int, shape: tuple, *, per_channel: bool = True,
+                 learnable: bool = True, freeze_momentum: float = 0.01,
+                 freeze_threshold: float = 0.0):
+        super().__init__()
+        self.bit = bit
+        self.learnable = learnable
+        self.axis = -1 if per_channel else None
+        self.freeze_momentum = freeze_momentum
+        self.freeze_threshold = freeze_threshold
+        self.calibrating = False
+        self.track = True
+        self.s = nn.Parameter(torch.ones(shape[-1] if per_channel else 1))
+        self.state = nn.Module()
+        self._set_state(init_oscillation_state(torch.zeros(shape)))
+
+    def oscillation_state(self) -> OscillationState:
+        return OscillationState(*(getattr(self.state, n)
+                                  for n in OscillationState._fields))
+
+    def _set_state(self, state: OscillationState) -> None:
+        for name, t in zip(OscillationState._fields, state):
+            self.state.register_buffer(name, t.detach())
+
+    def forward(self, w: torch.Tensor, *,
+                training: bool = False) -> torch.Tensor:
+        w32 = w.to(at_least_f32(w.dtype))
+        if self.calibrating:
+            _calibrate_scale(self.s, init_scale(w32, self.bit, False,
+                                                self.axis),
+                             "LsqWeightIterativeFreezing")
+        s = self.s if self.learnable else self.s.detach()
+        thd_neg, thd_pos = thresholds(self.bit, False)
+        gf = grad_scale_factor(w32.shape, self.bit, False, self.axis)
+        shape = [1] * w32.ndim
+        if self.axis is not None:
+            shape[self.axis] = s.shape[0]
+        s_eff = grad_scale(clip_lower(s.reshape(shape), 1e-5), gf)
+        x_int = round_pass(torch.clamp(w32 / s_eff, thd_neg, thd_pos))
+        state = self.oscillation_state()
+        if self.calibrating:
+            self._set_state(init_oscillation_state(x_int))
+        elif training:
+            if not self.track:
+                raise ValueError("a training forward needs the oscillation "
+                                 "state mutable (track=True)")
+            x_int, new = track_oscillation(
+                x_int, state, momentum=self.freeze_momentum,
+                freeze_threshold=self.freeze_threshold)
+            self._set_state(new)
+        else:
+            x_int = torch.where(state.frozen, state.frozen_x_int, x_int)
+        return (x_int * s_eff).to(w.dtype)

@@ -31,8 +31,9 @@ Frozen serving (`frozen_*`): the kernel holds dequantized StatsQ values
 restored from a packed artifact (`deploy.py`) and the codes are
 reconstructed from the artifact's stored scale, never recomputed (StatsQ
 is not idempotent).  Inference only.  The full-LSQ forms
-(`lsq_int8_eligible`, `frozen_lsq_*`) wait for `LsqLinear` (ROADMAP.md,
-Queue 1 item 3).
+(`lsq_int8_eligible`, `frozen_lsq_*`, `ofq_tpu/ops/int8_qlinear.py:
+422-455`) rebuild a full-LSQ kernel's codes from its learned per-column
+scale (`weight_quant.s`): w_q = max(s, 1e-5) * k with k an integer.
 """
 
 from __future__ import annotations
@@ -444,7 +445,36 @@ def frozen_int8_forward(x, w_q, w_scale, s, b_pre, b_post, *, w_bits,
                             all_positive=all_positive, mm=mm)
 
 
+def lsq_int8_eligible(w_bits: int, a_bits: int,
+                      act_all_positive: bool = False,
+                      w_all_positive: bool = False) -> bool:
+    """Full-LSQ integer-core eligibility: signed LSQ weight codes span
+    [-2^(b-1), 2^(b-1) - 1] (int8 for b <= 8), unsigned (--wq_asym) ones
+    [0, 2^b - 1] (b <= 7); activations as `int8_eligible`."""
+    act_ok = a_bits <= (7 if act_all_positive else 8)
+    return 2 <= w_bits <= (7 if w_all_positive else 8) and act_ok
+
+
+def frozen_lsq_weight_int(w_q: torch.Tensor, w_s: torch.Tensor):
+    """Integer codes of a dequantized full-LSQ kernel from its learned
+    scale: w_q = max(s, 1e-5) * k exactly (`deploy._lsq_encode` /
+    `_lsq_decode`), so round(w_q / max(s, 1e-5)) is k.  Returns (codes,
+    the (1, out) column scale)."""
+    col = torch.clamp_min(w_s.to(F32).reshape(1, -1), _S_EPS)
+    return torch.round(w_q.to(F32) / col), col
+
+
+def frozen_lsq_int8_forward(x, w_q, w_s, s, b_pre, b_post, *, a_bits,
+                            all_positive, mm=int8_mm):
+    """`frozen_int8_forward` for a full-LSQ kernel: the codes from the
+    restored `weight_quant.s` in place of a StatsQ scale."""
+    w_int, col = frozen_lsq_weight_int(w_q, w_s)
+    return _frozen_int_core(x, w_int, col, s, b_pre, b_post, a_bits=a_bits,
+                            all_positive=all_positive, mm=mm)
+
+
 __all__ = ["frozen_int8_forward", "frozen_int8_linear", "frozen_int8_qkx",
+           "frozen_lsq_int8_forward", "frozen_lsq_weight_int",
            "frozen_weight_int", "int8_code_dot", "int8_eligible", "int8_mm",
            "int8_mm_reference", "int8_qlinear", "int8_statsq_linear",
-           "int8_statsq_qkx", "qkr_int8_codes"]
+           "int8_statsq_qkx", "lsq_int8_eligible", "qkr_int8_codes"]

@@ -1,4 +1,4 @@
-"""Quantization policy (port of `ofq_tpu/quant/policy.py:23-131`).
+"""Quantization policy (port of `ofq_tpu/quant/policy.py:23-195`).
 
 Models take a `QuantPolicy` at construction and build quantized or float
 submodules per path, with the reference's path strings
@@ -14,6 +14,9 @@ cga=...)` takes from the policy (with `qk_reparam`, its selection rule)
 and holds `cga` to; `qk_reparam_type` records the recipe's flag and
 changes nothing, as in the JAX package, since type 1's in-forward quantizer
 equals plain StatsQ (`quant/statsq.py:statsq_quantize_cga`).
+`policy_from_args` builds a policy from the reference's CLI flags, as the
+JAX package's does; `lsq_weights` (both modes 'lsq') selects the full-LSQ
+linears (`nn/linear.py:LsqLinear`) in DeiT's blocks.
 """
 
 from __future__ import annotations
@@ -74,7 +77,13 @@ class QuantPolicy:
         return path in self.qmodules
 
     @property
+    def is_float(self) -> bool:
+        return not self.qmodules
+
+    @property
     def lsq_weights(self) -> bool:
+        """Both weight and activation in 'lsq' mode: the full-LSQ path
+        (reference modules/utils.py:65)."""
         return self.weight.mode == "lsq" and self.act.mode == "lsq"
 
 
@@ -127,3 +136,71 @@ def w2a2_qkr_swin_policy(depths: Sequence[int] = (2, 2, 6, 2)
     """The policy of train_scripts/swin_t/w2a2_swin_t.sh (`--wq-bitw 2
     --aq-bitw 2 --qk_reparam --qk_reparam_type 0`)."""
     return _w2a2_qkr(default_swin_qmodules(depths))
+
+
+def policy_from_args(*, wq_enable: bool = True, wq_mode: str = "statsq",
+                     wq_bitw: int = 8, wq_per_channel: bool = True,
+                     wq_learnable: bool = False, wq_asym: bool = False,
+                     aq_enable: bool = True, aq_mode: str = "lsq",
+                     aq_bitw: int = 8, aq_per_channel: bool = True,
+                     aq_learnable: bool = True, qmodules: Sequence[str] = (),
+                     qk_reparam: bool = False, qk_reparam_type: int = 0,
+                     boundary_range: float = 0.005, act_layer: str = "gelu",
+                     apply_q_attn_dropout: int = 0) -> QuantPolicy:
+    """A QuantPolicy from the reference's CLI flags, as
+    `ofq_tpu.quant.policy_from_args` builds it: the weight bits fall back
+    to identity unless `wq_bitw < 32` and `aq_enable` (the reference's
+    train.py:402), the activation spec to identity (bit 32) unless
+    `aq_enable` and `aq_bitw < 32`; `--wq_asym` needs `--wq-mode lsq`."""
+    w_mode = wq_mode if wq_enable else "identity"
+    w_bits_valid = wq_bitw < 32 and aq_enable
+    if wq_asym and w_mode == "statsq" and w_bits_valid:
+        raise ValueError(
+            "--wq_asym requires --wq-mode lsq: StatsQ's scale defines a "
+            "symmetric mid-rise grid with no asymmetric form")
+    weight = QuantSpec(mode=w_mode if w_bits_valid else "identity",
+                       bit=wq_bitw if w_bits_valid else 32,
+                       per_channel=wq_per_channel, learnable=wq_learnable,
+                       all_positive=wq_asym, symmetric=not wq_asym)
+    a_bits_valid = aq_enable and aq_bitw < 32
+    act = QuantSpec(mode=aq_mode if a_bits_valid else "identity",
+                    bit=aq_bitw if a_bits_valid else 32,
+                    per_channel=aq_per_channel, learnable=aq_learnable)
+    return QuantPolicy(weight=weight, act=act, qmodules=tuple(qmodules),
+                       qk_reparam=qk_reparam,
+                       qk_reparam_type=qk_reparam_type,
+                       boundary_range=boundary_range, act_layer=act_layer,
+                       q_attn_mode=int(apply_q_attn_dropout))
+
+
+# the flags of train_scripts/{deit_s,swin_t}/w2a2_*.sh's first phase
+W2A2_FLAGS = dict(wq_enable=True, wq_mode="statsq", wq_bitw=2,
+                  wq_per_channel=True, aq_enable=True, aq_mode="lsq",
+                  aq_bitw=2, aq_per_channel=True, aq_learnable=True,
+                  qk_reparam=True, qk_reparam_type=0)
+
+
+def w2a2_policy(qmodules: Sequence[str], *, qk_reparam: bool = True,
+                wq_mode: str = "statsq") -> QuantPolicy:
+    """The W2A2 recipe's policy over `qmodules`, with `--qk_reparam`
+    dropped (`qk_reparam=False`: the non-QKR `QAttention`) or `--wq-mode
+    lsq` (`wq_mode="lsq"`: full-LSQ weights)."""
+    return policy_from_args(**dict(W2A2_FLAGS, qk_reparam=qk_reparam,
+                                   wq_mode=wq_mode), qmodules=qmodules)
+
+
+def w2a2_deit_policy(depth: int = 12, distilled: bool = True, *,
+                     qk_reparam: bool = True,
+                     wq_mode: str = "statsq") -> QuantPolicy:
+    """`w2a2_policy` over DeiT's qmodules: the W2A2 recipe without QKR
+    (`qk_reparam=False`) or with full-LSQ weights (`wq_mode="lsq"`)."""
+    return w2a2_policy(default_deit_qmodules(depth, distilled),
+                       qk_reparam=qk_reparam, wq_mode=wq_mode)
+
+
+def w2a2_swin_policy(depths: Sequence[int] = (2, 2, 6, 2), *,
+                     qk_reparam: bool = True,
+                     wq_mode: str = "statsq") -> QuantPolicy:
+    """`w2a2_policy` over Swin-T's qmodules."""
+    return w2a2_policy(default_swin_qmodules(depths),
+                       qk_reparam=qk_reparam, wq_mode=wq_mode)

@@ -15,7 +15,9 @@ serves through the integer core:
                               policy=w2a2_qkr_policy(12), int_core=True,
                               compute_dtype="bfloat16")
 
-A batch shorter than `batch_size` is padded to it and the result trimmed,
+A full-LSQ artifact (`--wq-mode lsq`, a policy whose `lsq_weights` holds)
+serves the same way, its integer codes rebuilt from the learned weight
+scales.  A batch shorter than `batch_size` is padded to it and the result trimmed,
 so every call runs the same shapes.  Runs on CUDA unless `device="cpu"`.
 """
 
@@ -27,9 +29,9 @@ import numpy as np
 import torch
 
 from .convert import load_flax_params
-from .deploy import artifact_meta, restore_packed
+from .deploy import artifact_meta, drop_block_lsq_scales, restore_packed
 from .models.registry import create_model, resolve_device
-from .ops.int8_qlinear import int8_eligible
+from .ops.int8_qlinear import int8_eligible, lsq_int8_eligible
 from .quant.policy import QuantPolicy
 
 
@@ -78,13 +80,26 @@ class Predictor:
                 exported = dict(npz)
         meta = artifact_meta(exported)
         bits = meta["weight_bits"]
+        lsq = policy.lsq_weights
+        asym = not policy.weight.symmetric
         if bool(meta["qk_reparam"]) != policy.qk_reparam or \
-                meta["wq_mode"] != "statsq" or bits != policy.weight.bit:
+                meta["wq_mode"] != ("lsq" if lsq else "statsq") or \
+                bool(meta.get("wq_asym", False)) != asym or \
+                bits != policy.weight.bit:
             raise ValueError(
                 f"artifact (W{bits}, qk_reparam={meta['qk_reparam']}, "
-                f"wq_mode={meta['wq_mode']!r}) does not match the policy "
-                f"(W{policy.weight.bit}, qk_reparam={policy.qk_reparam})")
-        if int_core and not int8_eligible(bits, policy.act.bit, True):
+                f"wq_mode={meta['wq_mode']!r}, wq_asym="
+                f"{meta.get('wq_asym', False)}) does not match the policy "
+                f"(W{policy.weight.bit}, qk_reparam={policy.qk_reparam}, "
+                f"full-LSQ {lsq}, wq_asym={asym})")
+        if int_core and lsq and (policy.qk_reparam or not lsq_int8_eligible(
+                bits, policy.act.bit, True, asym)):
+            raise ValueError(f"int_core serves full-LSQ artifacts without "
+                             f"QKR at W2..W{7 if asym else 8} / A<=7, got "
+                             f"W{bits}A{policy.act.bit}, qk_reparam="
+                             f"{policy.qk_reparam}")
+        if int_core and not lsq and not int8_eligible(bits, policy.act.bit,
+                                                      True):
             # outside these widths the layers would serve the fp frozen
             # path under an int-core name
             raise ValueError(f"int_core serves W2..W4 / A<=7 artifacts, got "
@@ -94,7 +109,10 @@ class Predictor:
             frozen_int_bits=bits if int_core else None)
         model = create_model(model_name, policy=frozen, device=device,
                              compute_dtype=compute_dtype)
-        load_flax_params(model, restore_packed(exported, int_core=int_core))
+        tree = restore_packed(exported, int_core=int_core)
+        if lsq and not int_core:
+            tree = drop_block_lsq_scales(tree)
+        load_flax_params(model, tree)
         return cls(model, batch_size=batch_size,
                    img_size=model.cfg.img_size, device=device)
 

@@ -29,8 +29,14 @@ random number from any other stream.  DeiT and Swin students go through
 the same step (Swin: non-distilled logits, the CGA selection with
 `model_type="swin"`).
 
+The distillation losses with telemetry take the models' `aux` (`forward(x,
+generator, aux=True)`): `kd_qk` and `kd_qkv` the attentions' Grams
+(student and teacher built with `qqkkvv=True`), `kd_token` the token
+features (`return_features=True`, with `token_kd_alpha` and
+`token_kd_type`); the teacher's run under `torch.no_grad()`.
+
 Not in the port yet, and refused: the oscillation hook (ROADMAP.md, Queue
-1 item 6) and the q-k and token distillation losses (item 5).
+1 item 6).
 """
 
 from __future__ import annotations
@@ -46,13 +52,14 @@ from ..nn.dropout import check_generator
 from ..nn.linear import not_in_port
 from ..quant.ste import at_least_f32
 from . import cga as cga_lib
-from .losses import dampening_loss, hard_ce, kd_soft_and_hard, soft_ce
+from .losses import (dampening_loss, hard_ce, kd_soft_and_hard,
+                     kd_soft_hard_qk, kl_token_mse, soft_ce)
 from .optim import AdamW, ema_update, global_norm
 from .state import TrainState
 
-LOSS_KINDS = ("ce", "kd_soft", "kd_soft_hard")
-# the JAX step's other losses, which need the q-k Gram and token telemetry
-LATER_LOSS_KINDS = ("kd_qk", "kd_qkv", "kd_token")
+LOSS_KINDS = ("ce", "kd_soft", "kd_soft_hard", "kd_qk", "kd_qkv", "kd_token")
+# the losses that read the models' aux (Grams or token features)
+AUX_LOSS_KINDS = ("kd_qk", "kd_qkv", "kd_token")
 
 
 def _first(out):
@@ -87,6 +94,7 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                     label_smoothing: float = 0.0, device="cuda",
                     ema_decay: Optional[float] = None,
                     cga: Optional[dict] = None, oscillation=None,
+                    token_kd_alpha: float = 0.5, token_kd_type: str = "last",
                     dampening: Optional[dict] = None,
                     master_dtype: Optional[str] = None) -> Callable:
     """Build `train_step(state, batch, generator=None) -> (state,
@@ -100,16 +108,15 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
     qk_reparam, model_type): `boundary_range` and `qk_reparam` default to
     the model's policy's and must agree with it.  `dampening` is
     dict(bits, weighting); with `ema_decay` the state must hold an EMA
-    (`TrainState.create(..., ema=True)`).  `master_dtype` is the JAX
+    (`TrainState.create(..., ema=True)`).  `token_kd_alpha` and
+    `token_kd_type` are `kd_token`'s (`kl_token_mse`).  `master_dtype` is
+    the JAX
     step's option, checked against the state's masters at each step.
     Runs on CUDA unless `device="cpu"`; the model (and teacher) must
     already live there.
     """
-    if loss_kind in LATER_LOSS_KINDS:
-        raise not_in_port(f"loss_kind={loss_kind!r}", 5)
     if loss_kind not in LOSS_KINDS:
-        raise ValueError(f"loss_kind={loss_kind!r}: one of "
-                         f"{LOSS_KINDS + LATER_LOSS_KINDS}")
+        raise ValueError(f"loss_kind={loss_kind!r}: one of {LOSS_KINDS}")
     if oscillation is not None:
         raise not_in_port("the oscillation hook", 6)
     if master_dtype not in (None, "float32", "bfloat16"):
@@ -134,17 +141,29 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
     draws = cfg is not None and max(cfg.drop_rate, cfg.attn_drop_rate,
                                     cfg.drop_path_rate) > 0
 
+    aux = loss_kind in AUX_LOSS_KINDS
+
     def loss_fn(x, label, generator):
-        out = model(x, generator)
+        out = model(x, generator, aux=True) if aux else model(x, generator)
+        out, info = out if aux else (out, None)
         if loss_kind == "ce":
             loss = hard_ce(_first(out), label, label_smoothing)
         else:
             with torch.no_grad():
-                t_logits = _first(teacher(x))
+                t_out = teacher(x, aux=True) if aux else teacher(x)
+                t_out, t_info = t_out if aux else (t_out, None)
+                t_logits = _first(t_out)
             if loss_kind == "kd_soft":
                 loss = soft_ce(_first(out), t_logits)
-            else:
+            elif loss_kind == "kd_soft_hard":
                 loss = kd_soft_and_hard(out, label, t_logits)
+            elif loss_kind == "kd_token":
+                loss = kl_token_mse(_first(out), info["features"], t_logits,
+                                    t_info["features"], alpha=token_kd_alpha,
+                                    kd_type=token_kd_type)
+            else:
+                loss = kd_soft_hard_qk(out, info, label, t_logits, t_info,
+                                       include_v=loss_kind == "kd_qkv")
         if dampening is not None:
             loss = loss + dampening_loss(work, dampening["bits"],
                                          dampening["weighting"])

@@ -1,11 +1,12 @@
 """Distillation and classification losses (port of
-`ofq_tpu/train/losses.py:17-58`): pure functions of the student's outputs,
-the targets and the teacher's logits; and the oscillation-dampening
-regularizer on the StatsQ kernels (`:131-151`)."""
+`ofq_tpu/train/losses.py:17-151`): pure functions of the student's outputs,
+the targets and the teacher's outputs (logits, the attentions' Gram
+telemetry, the token features); and the oscillation-dampening regularizer
+on the StatsQ kernels."""
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import torch
 
@@ -50,6 +51,68 @@ def kd_soft_and_hard(student_out, hard_target: torch.Tensor,
                                                            hard_target)
     return (soft_ce(student_out, teacher_logits)
             + hard_ce(student_out, hard_target))
+
+
+def _normed_l2_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """||a / ||a|| - b / ||b|| ||_2 over all elements."""
+    a = a / torch.linalg.vector_norm(a)
+    b = b / torch.linalg.vector_norm(b)
+    return torch.linalg.vector_norm(a - b)
+
+
+def direction_matching(student_scores: Sequence[torch.Tensor],
+                       teacher_scores: Sequence[torch.Tensor]
+                       ) -> torch.Tensor:
+    """The normalized L2 distances summed over layers, entries <= -100
+    (masked scores) set to 0 on both sides."""
+    total = 0.0
+    for s, t in zip(student_scores, teacher_scores):
+        s = torch.where(s <= -1e2, torch.zeros_like(s), s)
+        t = torch.where(t <= -1e2, torch.zeros_like(t), t)
+        total = total + _normed_l2_distance(s, t)
+    return total
+
+
+def kd_soft_hard_qk(student_out, student_attn_info, hard_target,
+                    teacher_logits, teacher_attn_info,
+                    include_v: bool = False) -> torch.Tensor:
+    """`kd_soft_and_hard` plus the direction matching of the q and k (and
+    with `include_v` the v) Grams; an info is a per-layer tuple (attn,
+    q q^T, k k^T, v v^T)."""
+    base = kd_soft_and_hard(student_out, hard_target, teacher_logits)
+    parts = (1, 2, 3) if include_v else (1, 2)
+    extra = 0.0
+    for i in parts:
+        extra = extra + direction_matching(
+            [info[i] for info in student_attn_info],
+            [info[i] for info in teacher_attn_info])
+    return base + extra
+
+
+def kl_token_mse(student_logits, student_tokens, teacher_logits,
+                 teacher_tokens, alpha: float = 0.5,
+                 kd_type: str = "last") -> torch.Tensor:
+    """Soft KD plus `alpha` times the MSE of the token features, of the
+    last block ('last') or averaged over all blocks ('all'); the student's
+    extra leading tokens are cut to the teacher's N."""
+    kl = soft_ce(student_logits, teacher_logits)
+    if kd_type == "last":
+        s = (student_tokens[-1] if isinstance(student_tokens, (list, tuple))
+             else student_tokens)
+        t = (teacher_tokens[-1] if isinstance(teacher_tokens, (list, tuple))
+             else teacher_tokens)
+        mse = torch.mean((s[:, -t.shape[1]:] - t) ** 2)
+    elif kd_type == "all":
+        if len(student_tokens) != len(teacher_tokens):
+            raise ValueError("kd_type='all' needs as many student blocks as "
+                             "teacher blocks")
+        mse = 0.0
+        for s, t in zip(student_tokens, teacher_tokens):
+            mse = mse + torch.mean((s[:, -t.shape[1]:] - t) ** 2)
+        mse = mse / len(student_tokens)
+    else:
+        raise NotImplementedError(kd_type)
+    return kl + alpha * mse
 
 
 def dampening_loss(params: Mapping[str, torch.Tensor], bits: int,

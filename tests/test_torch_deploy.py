@@ -14,7 +14,8 @@
     pre-round value `clip(w/s) * n - 0.5` within one ulp of a
     half-integer; measured: none differ at these widths, ROADMAP.md
     Queue 3);
-  * the full-LSQ refusal, the one-bit refusal, and strict loading of the
+  * the full-LSQ kernel without `wq_mode='lsq'`, the one-bit refusal,
+    and strict loading of the
     frozen trees (DeiT and Swin-T, fp and int core, shapes from
     `jax.eval_shape`).
 """
@@ -264,9 +265,10 @@ def test_refusals():
         "kernel": np.ones((4, 4), np.float32),
         "weight_quant": {"s": np.ones(4, np.float32)},
         "input_quant": {"s": np.ones(4, np.float32)}}}}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tdep.export_packed(lsq_tree, weight_bits=2, qk_reparam=False,
-                           wq_mode="lsq")
+    # a full-LSQ block kernel needs wq_mode='lsq' (its packing:
+    # test_torch_full_lsq_deploy.py)
+    with pytest.raises(ValueError, match="wq_mode='lsq'"):
+        tdep.export_packed(lsq_tree, weight_bits=2, qk_reparam=False)
     variables, _ = _trained("deit")
     ex = jdep.export_packed(variables["params"], weight_bits=2,
                             qk_reparam=True, num_heads=2)

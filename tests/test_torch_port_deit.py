@@ -260,10 +260,37 @@ def test_dropout_configs_build_and_draw_only_in_train_mode(field):
 def test_unsupported_configs_raise():
     with pytest.raises(KeyError, match="unknown model.*swin_t"):
         create_model("swin_b", policy=_port_policy(), device="cpu")
-    non_qkr = dataclasses.replace(_port_policy(), qk_reparam=False)
-    with pytest.raises(NotImplementedError, match="non-QKR"):
-        create_model(NAME, policy=non_qkr, device="cpu")
-    lsq = dataclasses.replace(_port_policy(),
-                              weight=QuantSpec(mode="lsq", bit=2))
-    with pytest.raises(NotImplementedError, match="LsqLinear"):
-        create_model(NAME, policy=lsq, device="cpu")
+
+
+@pytest.mark.parametrize("what", ["non-QKR", "full-LSQ"])
+def test_non_qkr_and_full_lsq_fp64_logits(what):
+    """The configurations once refused: without QKR (`QAttention`) and
+    with full-LSQ weights (`LsqLinear`), calibrated as Flax inits them,
+    their composed fp64 logits within rtol 1e-9 of JAX's."""
+    mode = "lsq" if what == "full-LSQ" else "statsq"
+    jpol = policy_from_args(wq_bitw=2, aq_bitw=2, qk_reparam=False,
+                            wq_mode=mode,
+                            qmodules=default_deit_qmodules(DEPTH))
+    tpol = dataclasses.replace(
+        _port_policy(), qk_reparam=False,
+        weight=QuantSpec(mode=mode, bit=2, learnable=False))
+    x = _images(5)
+    jm = jax_deit_model(NAME, jpol)
+    with x64():
+        variables = to_numpy_tree(jm.init(
+            {"params": jax.random.key(0)}, jnp.asarray(x), train=False),
+            np.float64)
+    variables = jax_calibrate(jm, variables, x, train=False)
+    m = load_into(create_model(NAME, policy=tpol, device="cpu").double(),
+                  variables)
+    calibrate(m, x)
+    assert_scales_match(variables, m)
+    shifted = _with_heads(variables, np.random.default_rng(6))
+    with x64():
+        want, _ = jm.apply(to_jax_tree(shifted, np.float64), jnp.asarray(x),
+                           train=False)
+    load_into(m, shifted)
+    with torch.no_grad():
+        got = m(torch.from_numpy(x)).numpy()
+    assert np.abs(want).max() > 1e-3
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-9, atol=1e-12)

@@ -212,9 +212,44 @@ def test_qattention_qkr_calibration_bypasses_kernel():
 
 @pytest.mark.parametrize("bits", [dict(weight_bits=32, input_bits=2),
                                   dict(weight_bits=2, input_bits=32)])
-def test_unquantized_site_names_its_roadmap_item(bits):
-    """An unquantized site (32 bits) is refused naming Queue 1 item 3."""
-    name = next(k for k, v in bits.items() if v == 32)
-    with pytest.raises(NotImplementedError,
-                       match=rf"{name}=32 .*Queue 1 item 3\)"):
-        QLinear(C, 16, N, **bits)
+def test_unquantized_site_runs_as_jax(bits):
+    """An unquantized site (32 bits), once refused: weight-only A32 holds
+    no input chain, W32 takes the plain product; the same parameters as
+    JAX's and its fp64 output, fused or not (JAX's fused branch needs both
+    quantized, so both run the composition)."""
+    x = _tokens(13)
+    for impl in (None, "fused"):
+        jm = jlin.QLinear(16, matmul_impl=impl, **bits)
+        tm = QLinear(C, 16, N, matmul_impl=impl, **bits)
+        rng = np.random.default_rng(14)
+        with x64():
+            variables = perturb(to_numpy_tree(jm.init(
+                {"params": jax.random.key(0)}, jnp.asarray(x)),
+                np.float64), rng)
+            yj = np.asarray(jm.apply(to_jax_tree(variables, np.float64),
+                                     jnp.asarray(x)))
+        load_into(tm.double(), variables)
+        assert (tm.input_quant is None) == (bits["input_bits"] == 32)
+        with torch.no_grad():
+            yt = tm(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(yt, yj, rtol=1e-10, atol=1e-12)
+
+
+def test_unquantized_attention_sites_run_as_jax():
+    """QKR at 32 input bits (its activation quantizers the identity, no
+    softmax scale) and at 32 weight bits, in fp64 against JAX's."""
+    x = _tokens(15)
+    for bits in (dict(weight_bits=32, input_bits=2),
+                 dict(weight_bits=2, input_bits=32)):
+        jm = jattn.QAttentionQKR(num_heads=H, **bits)
+        tm = QAttentionQKR(C, H, N, **bits)
+        with x64():
+            variables = perturb(to_numpy_tree(jm.init(
+                {"params": jax.random.key(0)}, jnp.asarray(x)),
+                np.float64), np.random.default_rng(16))
+            yj = np.asarray(_out(jm.apply(to_jax_tree(variables, np.float64),
+                                          jnp.asarray(x))))
+        load_into(tm.double(), variables)
+        with torch.no_grad():
+            yt = tm(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(yt, yj, rtol=1e-10, atol=1e-12)

@@ -9,7 +9,8 @@ Swin-T's parameter tree.
   * Swin-T's float and W2A2 QKR trees (`jax.eval_shape`) load strictly
     both ways, so the parameter count is JAX's (28 288 354 float);
   * the configurations the port does not have yet, each naming its
-    ROADMAP item; the remat configurations, which it has.
+    ROADMAP item; the remat configurations, the student without QKR and
+    the float model's Gram telemetry, which it has.
 The bf16 stream and the Predictor: `test_torch_swin_serving.py`.
 """
 
@@ -159,16 +160,54 @@ def test_cuda_default_raises_without_cuda():
 
 
 @pytest.mark.parametrize("what,kw,item", [
-    ("non-QKR", dict(policy=dataclasses.replace(
-        w2a2_qkr_swin_policy((1, 1)), qk_reparam=False)), 3),
     ("LN->BN", dict(norm_layer="batchnorm"), 6),
-    ("qqkkvv", dict(qqkkvv=True, policy=QuantPolicy()), 5),
 ])
 def test_unsupported_configs_name_their_roadmap_item(what, kw, item):
     kw.setdefault("policy", w2a2_qkr_swin_policy((1, 1)))
     with pytest.raises(NotImplementedError,
                        match=rf"{what}.*Queue 1 item {item}\)"):
         create_model(NAME, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("what", ["non-QKR", "qqkkvv"])
+def test_once_refused_configs_fp64(what):
+    """The configurations once refused: the W2A2 student without QKR
+    (`QSwinAttention`, calibrated as Flax inits it) and the float model
+    with the Gram telemetry (`qqkkvv`: each block's (attn, q q^T, k k^T,
+    v v^T) / sqrt(d)), in fp64 against JAX's within rtol 1e-9."""
+    x = _images(3)
+    if what == "non-QKR":
+        jpol = dataclasses.replace(_jax_policy((1, 1)), qk_reparam=False)
+        tpol = dataclasses.replace(w2a2_qkr_swin_policy((1, 1)),
+                                   qk_reparam=False)
+        kw = {}
+    else:
+        jpol, tpol, kw = jswin.QuantPolicy(), QuantPolicy(), dict(
+            qqkkvv=True)
+    jm = jswin.swin_model(NAME, jpol, depths=(1, 1), **kw)
+    tm = create_model(NAME, policy=tpol, device="cpu", depths=(1, 1), **kw)
+    variables = _fp64_variables(jm, x, what == "non-QKR")
+    if what == "non-QKR":
+        load_into(tm.double(), variables)
+        calibrate(tm, x)
+        assert_scales_match(variables, tm)
+    shifted = _with_head(variables, np.random.default_rng(4))
+    with x64():
+        want, info = jm.apply(to_jax_tree(shifted, np.float64),
+                              jnp.asarray(x), train=False)
+    load_into(tm.double(), shifted)
+    with torch.no_grad():
+        got, got_info = tm(torch.from_numpy(x), aux=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
+                               atol=1e-12)
+    if what == "non-QKR":
+        assert info is None and got_info is None
+        return
+    assert len(got_info) == len(info) == 2
+    for a, b in zip(got_info, info):
+        for u, w in zip(a, b):
+            np.testing.assert_allclose(u.numpy(), np.asarray(w), rtol=1e-9,
+                                       atol=1e-12)
 
 
 def test_fused_attention_and_train_mode_drop_path_raise():
