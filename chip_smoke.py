@@ -87,8 +87,11 @@ Phases (any failure raises and the script exits non-zero):
      left out (the block gate and K2's own gate, `k2_gate`), K2 in its
      per-head form reading head h + 1's q (the fp32 block gate of the
      student without QKR), K3 with ds doubled, K3 with dlhs doubled, K3 with dv zeroed over 16 keys of one
-     head), each of which must trip the bf16 gates it aims at, then the
-     unmodified kernels, which must pass them; one line per result;
+     head), each of which must trip the bf16 gates it aims at, and on a
+     Swin-T path K4 with one output column moved by one weight level in
+     stage 2's fc1 alone, which must trip the Swin-T block gate
+     (SWIN_GATE), then the unmodified kernels, which must pass them; one
+     line per result;
  10. K6, K7, K8, the Swin window-attention tail kernels of the lab bench
      (benchmarks/window_attn_lab.py), against their plain version at the
      lab's shapes (Swin-T stage 0 at batch 64: 4096 windows of 49 tokens,
@@ -146,7 +149,26 @@ Phases (any failure raises and the script exits non-zero):
  13e. remat (`phase_remat`), dropout on: DeiT-S fused fp32 with remat=True
      and with attn_impl='remat', Swin-T pallas with remat_stages=(0, 1, 2,
      3) and with attn_impl='remat', each one's loss and gradients bit-equal
-     to the same step without remat, peak memory of both.
+     to the same step without remat, peak memory of both; a BatchNorm
+     DeiT-S step with and without remat=True (`bn_remat_step`): every
+     parameter and running statistic bit-equal (they move once a step).
+ 13g. the LN->BN swap, the oscillation hook, per-layer gradient norms and
+     the MLP activations besides GELU, at full width: DeiT-S W2A2 QKR with
+     norm_layer="batchnorm" fused fp32 (`phase_bn`): one step (36 K1, 12
+     K2, 12 K3; `per_layer_grad_norms`, the squares summing to grad_norm's
+     within 1e-5) under phase_train's gates, the running statistics'
+     updates held by the whole-step rule as the gradients are, then served
+     in eval mode through them (36 K1, 12 K2); Swin-T with the swap,
+     pallas bf16: one step (39 K4) under SWIN_GATE, its statistics'
+     updates against the rounded-once reference; the oscillation hook
+     (`phase_oscillation`): DeiT-S fused bf16, bf16 masters, EMA, 3 steps
+     with momentum 0.5 and threshold 0.4 (36 K1, 12 K2, 12 K3 each), every
+     frozen entry's image its frozen integer, the hook's update against
+     the same on the CPU from the masters it read, the per-layer norms
+     (bf16: 2^-6), wall ms beside the step without it; prelu and rprelu
+     fused fp32 steps (36 K1, 12 K2, 12 K3) under phase_train's gates (the
+     `act` parameters' gradients among the whole step's), relu and
+     'None' fused fp32 serving (36 K1, 12 K2).
  13f. the students without QKR (train_scripts' W2A2 flags with
      --qk_reparam dropped: `QAttention`, whose fused tail runs K2 and K3
      in their per-head form, lhs = q, K = d = 64) and with full-LSQ
@@ -224,6 +246,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -1258,11 +1281,14 @@ def _describe(conf):
 
 
 def _policy_label(policy):
-    """The student's recipe: W2A2 QKR, W2A2 without QKR, or full-LSQ."""
+    """The student's recipe: W2A2 QKR, W2A2 without QKR, or full-LSQ, and
+    its MLP activation where it is not GELU."""
+    act = ("" if policy is None or policy.act_layer == "gelu"
+           else f", act_layer {policy.act_layer}")
     if policy is None or policy.qk_reparam:
-        return "W2A2 QKR"
+        return "W2A2 QKR" + act
     return ("W2A2 full-LSQ (--wq-mode lsq), no QKR" if policy.lsq_weights
-            else "W2A2 without QKR")
+            else "W2A2 without QKR") + act
 
 
 def _path_counts(cfg, policy=None):
@@ -1566,12 +1592,13 @@ def _block_rows_gate(what, rows, limit=BLOCK_ROWS):
 def _shapes(fn):
     return {str(k): v for k, v in fn.launch_shapes.items()}
 def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None,
-                built=None):
+                built=None, timed=True):
     """Serving the W2A2 student `name` under `policy` (QKR, or without
     it) in the configuration `conf` through `Predictor` (`gate`:
     `check_blocks`);
     `built`: the (model, images, rng) of `build_served`, or of a frozen
-    artifact's model."""
+    artifact's or a trained student's model; `timed=False` skips the
+    img/s measurement."""
     import numpy as np
     import torch
     from ofq_tpu_torch import ops
@@ -1626,6 +1653,11 @@ def phase_slice(dev, conf, name, policy, batch=BATCH, gate=None,
         torch.cuda.synchronize()
         return batch * n_calls / (time.perf_counter() - t)
 
+    if not timed:
+        prof = (phase_profile(lambda: pred.predict(images), "predict call")
+                if "--profile" in sys.argv else None)
+        return dict(config=conf, profile=prof, launches=launches,
+                    launch_shapes=shapes, blocks=blocks, **top1)
     torch.cuda.reset_peak_memory_stats()
     img_s = rate()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1863,9 +1895,46 @@ def build_trained(dev, conf, name="deit_small_distilled_patch16_224",
     return student, teacher, {"image": x, "label": label}
 
 
+def bn_stats(model):
+    """Every BatchNorm's running statistics by name (the model's own
+    buffers); empty for a LayerNorm model."""
+    from ofq_tpu_torch.models import BatchNorm
+    return {f"{n}.{k}": getattr(m, k) for n, m in model.named_modules()
+            if isinstance(m, BatchNorm) for k in ("mean", "var")}
+
+
+# `per_layer_grad_norms`: the squares of the per-layer norms sum to the
+# total's square within this share of it, with fp32 gradients (fp32
+# masters) and with bf16 ones (bf16 masters: each layer's norm and the
+# total, as JAX's, are rounded once to bf16 from the per-parameter norms,
+# so each square moves by at most 2^-7 of itself, and the two the other
+# way)
+LAYER_NORMS_FP32, LAYER_NORMS_BF16 = 1e-5, 2.0 ** -6
+
+
+def check_layer_norms(metrics, bf16):
+    """`grad_norm/<name>` of `per_layer_grad_norms`: present, finite, and
+    their squares summing to `grad_norm`'s."""
+    import math
+    layers = {k: float(v) for k, v in metrics.items()
+              if k.startswith("grad_norm/")}
+    total = float(metrics["grad_norm"]) ** 2
+    sq = sum(v * v for v in layers.values())
+    rel = abs(sq - total) / total
+    limit = LAYER_NORMS_BF16 if bf16 else LAYER_NORMS_FP32
+    log(f"[train] per_layer_grad_norms: {len(layers)} layers, sum of "
+        f"squares / grad_norm^2 - 1 = {rel:.3e} (limit {limit:.1e}); "
+        f"largest {max(layers, key=layers.get)} {max(layers.values()):.4f}")
+    if not layers or not all(map(math.isfinite, layers.values())) or (
+            rel > limit):
+        raise GateTripped(f"per-layer gradient norms: {rel} > {limit}")
+    return dict(layers=len(layers), rel=rel)
+
+
 def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
                 batch=BATCH, gate=None, overrides=None, policy=None,
-                loss_kind="kd_soft_hard", timed=True):
+                loss_kind="kd_soft_hard", timed=True, step_options=None,
+                keep=False, order_spread=False):
     """One QAT train step of the W2A2 student `name` (DeiT-S; Swin-T
     with `gate=SWIN_GATE` and `overrides=SWIN_BENCH`) under `policy` (None:
     QKR) with the float teacher, `loss_kind` (KD soft+hard; the telemetry
@@ -1874,7 +1943,11 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
     (fused, fp32 or the bf16 stream), K4 forward (pallas, bf16) or
     `int8_mm` (int8, bf16); the bf16 stream with fp32 masters and a bf16
     teacher, as bench.py builds it.  `timed=False` skips the img/s
-    measurement."""
+    measurement; `step_options` go to `make_train_step`
+    (`per_layer_grad_norms=True`: `check_layer_norms`); `keep` returns the
+    student under "model".  A BatchNorm student (`overrides`
+    `norm_layer="batchnorm"`): its running statistics must move in the
+    step, and `check_step_grads` holds their updates as gradients."""
     import numpy as np
     import torch
     from ofq_tpu_torch import ops
@@ -1891,13 +1964,15 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
         weight_decay=0.05)
     state = TrainState.create(student, opt)
     step = make_train_step(student, opt, teacher=teacher,
-                           loss_kind=loss_kind, device=dev)
+                           loss_kind=loss_kind, device=dev,
+                           **(step_options or {}))
     torch.cuda.synchronize()
     log(f"[train] {name} {_policy_label(policy)} student ({_describe(conf)}"
-        f", {loss_kind}) and float "
-        f"teacher ({next(teacher.parameters()).dtype}) built, calibrated in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f", {loss_kind}{', ' + str(overrides) if overrides else ''}) and "
+        f"float teacher ({next(teacher.parameters()).dtype}) built, "
+        f"calibrated in {time.perf_counter() - t0:.1f} s")
 
+    stats0 = {k: v.clone() for k, v in bn_stats(student).items()}
     ops.reset_launch_counts()
     state, metrics = step(state, data)
     torch.cuda.synchronize()
@@ -1913,10 +1988,22 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
                              f"{launches}")
     if not (np.isfinite(loss) and np.isfinite(gnorm)):
         raise AssertionError(f"loss {loss}, grad_norm {gnorm}")
+    extra = {}
+    if stats0:
+        stats = bn_stats(student)
+        still = [k for k, v in stats.items()
+                 if torch.equal(v, stats0[k]) or not torch.isfinite(v).all()]
+        log(f"[train] BatchNorm: {len(stats)} running statistics, each "
+            f"moved by the step and finite ({len(still)} not)")
+        if still:
+            raise AssertionError(f"running statistics not moved or not "
+                                 f"finite: {still[:5]}")
+    if (step_options or {}).get("per_layer_grad_norms"):
+        extra["layer_norms"] = check_layer_norms(metrics, False)
 
     blocks = check_blocks_backward(student, teacher, data, conf, gate)
     grads = check_step_grads(student, teacher, data, conf,
-                             loss_kind=loss_kind)
+                             loss_kind=loss_kind, order_spread=order_spread)
     tables = [r for r in grads["per_param"]
               if r["name"].endswith("relative_position_bias_table")]
     if tables:
@@ -1949,6 +2036,8 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
             raise AssertionError("non-finite loss")
         return batch * TRAIN_STEPS_TIMED / (time.perf_counter() - t)
 
+    if keep:
+        extra["model"] = student
     if not timed:
         prof = (phase_profile(lambda: float(step(state, data)[1]["loss"]),
                               f"{loss_kind} train step")
@@ -1956,7 +2045,7 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
         return dict(config=conf, loss_kind=loss_kind, profile=prof,
                     launches=launches, launch_shapes=shapes, loss=loss,
                     grad_norm=gnorm, blocks=blocks, grads=grads,
-                    captured=None)
+                    captured=None, **extra)
     torch.cuda.reset_peak_memory_stats()
     img_s = rate()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1973,7 +2062,7 @@ def phase_train(dev, conf=FUSED, name="deit_small_distilled_patch16_224",
                 launch_shapes=shapes, loss=loss, grad_norm=gnorm,
                 blocks=blocks, grads=grads, img_per_s=img_s,
                 img_per_s_plain=img_s_plain, peak_mem_gb=peak_gb,
-                captured=captured)
+                captured=captured, **extra)
 
 
 # --------------------------------------------------------------- phase 6c
@@ -2470,7 +2559,7 @@ def check_blocks_backward(model, teacher, data, conf=FUSED, gate=None):
 
 
 def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
-                     loss_kind="kd_soft_hard"):
+                     loss_kind="kd_soft_hard", order_spread=False):
     """The whole step's parameter gradients through the kernels and through
     the plain versions, each against the reference (above
     GRAD_GATE_MIN_FLOOR) and against the composed model in fp64 on the
@@ -2483,17 +2572,31 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
     and batch (they do not depend on the kernels).  The loss is
     `loss_kind`'s; the three paths' losses are printed, and for a
     telemetry loss in fp32 the kernel path's is held to 2 x the plain
-    path's distance from the fp64 model's + 1e-4 of it."""
+    path's distance from the fp64 model's + 1e-4 of it.  `order_spread`
+    holds an fp32 path to the order spread too (against the fp64 model),
+    and prints how many parameters 2 x the plain path's distance alone
+    would refuse."""
     import torch
     losses = {}
+    # a BatchNorm student's running-statistic updates on each path (each
+    # path starts from the same statistics)
+    updates = {}
 
-    def grads(m, t, x, key=None):
+    def grads(m, t, x, key=None, tag=None):
         params = dict(m.named_parameters())
+        before = {k: v.clone() for k, v in bn_stats(m).items()}
         loss = _kd_loss(m, t, x, data["label"], loss_kind)
         g = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
         if key:
             losses[key] = float(loss.detach())
+        if before:
+            with torch.no_grad():
+                after = bn_stats(m)
+                updates[tag or key] = {k: after[k].double() - v.double()
+                                       for k, v in before.items()}
+                for k, v in before.items():
+                    after[k].copy_(v)
         return {n: (torch.zeros_like(p) if gi is None else gi).double()
                 for (n, p), gi in zip(params.items(), g)}
 
@@ -2518,7 +2621,7 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
     bf16 = conf["compute_dtype"] is not None
     if bf16:
         with reference_path(model):
-            g_r = grads(model, teacher, data["image"])
+            g_r = grads(model, teacher, data["image"], tag="reference")
     else:
         g_r = g_64
 
@@ -2548,25 +2651,58 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
             f"median {rp[len(rp) // 2]:.3e}; all parameters together: "
             f"kernels {glob_64['kernels']:.3e}, plain {glob_64['plain']:.3e}")
     rows, glob = rows_against(g_r), together(g_r)
-    if bf16:
+    spread = bf16 or order_spread
+    if spread:
         orders = {} if orders is None else orders
         for j in ORDER_CHUNKS:
             if j not in orders:
                 with plain_path(model), summed_in_chunks(j):
-                    orders[j] = grads(model, teacher, data["image"])
+                    orders[j] = grads(model, teacher, data["image"],
+                                      tag=("chunks", j))
+                    if ("chunks", j) in updates:
+                        orders[("stats", j)] = updates[("chunks", j)]
         paths = [g_p] + [orders[j] for j in ORDER_CHUNKS]
         for r in rows:
             r["spread"] = max(_rel(g[r["name"]], g_r[r["name"]])
                               for g in paths)
         glob["spread"] = max(
             together(g_r, {"kernels": g})["kernels"] for g in paths)
+    if spread and not bf16:
+        rp = sorted(r["rel_plain"] for r in rows)
+        fl = max(GRAD_GATE_MIN_FLOOR, rp[len(rp) // 2])
+        past = [r["name"] for r in rows
+                if r["rel_kernels"] > 2 * r["rel_plain"] + fl]
+        log(f"[train] whole-step gradients, fp32 held to the order spread: "
+            f"2 x the plain path's distance + {fl:.3e} alone would refuse "
+            f"{len(past)} of {len(rows)} parameters {past[:5]}")
     floor = _grad_gate(
         "[train] whole-step gradients vs the "
         + ("rounded-once reference" if bf16 else "composed fp64 model"),
         rows, glob)
-    return dict(floor=floor, all_params=glob, all_params_fp64=glob_64,
-                kernels_vs_plain_max=rkp, per_param=rows,
-                per_param_fp64=rows_64, losses=losses)
+    out = dict(floor=floor, all_params=glob, all_params_fp64=glob_64,
+               kernels_vs_plain_max=rkp, per_param=rows,
+               per_param_fp64=rows_64, losses=losses)
+    if updates:
+        # the running statistics held as the gradients are: each
+        # BatchNorm's update (new - old) through the kernels against the
+        # reference's, within 2 x the plain path's distance (bf16: its
+        # order spread) + the floor
+        u_r = updates["reference" if bf16 else "fp64"]
+        srows = [dict(name=k, rel_kernels=_rel(updates["kernels"][k], r),
+                      rel_plain=_rel(updates["plain"][k], r))
+                 for k, r in u_r.items()]
+        if spread:
+            for r in srows:
+                r["spread"] = max(_rel(u[r["name"]], u_r[r["name"]])
+                                  for u in [updates["plain"]] + [
+                                      orders[("stats", j)]
+                                      for j in ORDER_CHUNKS])
+        out["bn_floor"] = _grad_gate(
+            "[train] BatchNorm running-statistic updates vs the "
+            + ("rounded-once reference" if bf16 else "composed fp64 model"),
+            srows)
+        out["bn_stats"] = srows
+    return out
 
 
 # ------------------------------------------------------ dropout, remat
@@ -2843,7 +2979,283 @@ def phase_remat(dev, names=("deit_small_distilled_patch16_224", "swin_t"),
         del student, teacher, data, plain
         torch.cuda.empty_cache()
         log(f"[remat] {name}: {time.perf_counter() - t0:.1f} s")
+    out.append(bn_remat_step(dev, batch=batch))
     return out
+
+
+def bn_remat_step(dev, name="deit_small_distilled_patch16_224",
+                  batch=BATCH):
+    """A BatchNorm DeiT-S (fused fp32, dropout on: DROP) and the same with
+    `remat=True`: one `make_train_step` step each from the same state,
+    batch and CUDA generator seed.  Every parameter and every running
+    statistic bit-equal between the two (the recompute leaves the
+    statistics alone: they move once per step), and every statistic
+    moved."""
+    import torch
+    from ofq_tpu_torch.models import create_model
+    from ofq_tpu_torch.train import (TrainState, constant_lr, make_optimizer,
+                                     make_train_step)
+    t0 = time.perf_counter()
+    over = dict(DROP, **BN)
+    student, teacher, data = build_trained(dev, FUSED, name, batch,
+                                           overrides=over)
+    start = {k: v.clone() for k, v in student.state_dict().items()}
+    remat = create_model(name, policy=student.policy, device=dev, **FUSED,
+                         **over, remat=True)
+    after = []
+    for m in (student, remat):
+        m.load_state_dict(start)
+        opt = make_optimizer(constant_lr(1e-5), weight_decay=0.05)
+        step = make_train_step(m, opt, teacher=teacher,
+                               loss_kind="kd_soft_hard", device=dev)
+        step(TrainState.create(m, opt), data,
+             torch.Generator(device=dev).manual_seed(11))
+        torch.cuda.synchronize()
+        after.append({k: v.clone() for k, v in m.state_dict().items()})
+    differ = [k for k, v in after[0].items()
+              if not torch.equal(_bits(v), _bits(after[1][k]))]
+    stats = list(bn_stats(student))
+    still = [k for k in stats if torch.equal(after[1][k], start[k])]
+    log(f"[remat] BatchNorm {name} {_describe(FUSED)}, dropout {DROP}: one "
+        f"step with and without remat=True, {len(differ)} of "
+        f"{len(after[0])} parameters and buffers differ {differ[:5]} "
+        f"({len(stats)} running statistics, {len(still)} not moved) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del student, remat, teacher, data
+    torch.cuda.empty_cache()
+    if differ or still:
+        raise GateTripped(f"[remat] BatchNorm: {differ[:5]} differ, "
+                          f"{still[:5]} not moved")
+    return dict(model=name, form="block, BatchNorm step", differing=differ,
+                stats=len(stats))
+
+
+# ------------------------------------------------- the LN->BN swap, acts
+BN = dict(norm_layer="batchnorm")
+# The fp32 steps of the LN->BN swap and of the prelu / rprelu MLPs are held
+# to the whole-step rule with the order spread (bf16's form, against the
+# composed fp64 model): their K1 is exact and K2 / K3 differ from the plain
+# path only in fp32 summation order, which is what the spread measures.
+# 2 x the plain path's distance alone refuses LSQ-scale gradients there
+# that the plain path's own chunked orders move as far (BN DeiT-S: 5 of
+# 419, blocks_5.attn.proj.input_quant.s 3.828 from the fp64 model, plain
+# 0.073, its order spread 1.62; rprelu: 1 of 455), while every block's
+# backward agrees to 1e-4 (PERF.md, section 6).
+
+
+def phase_bn(dev, batch=BATCH):
+    """The LN->BN swap (--replace-ln-by-bn): DeiT-S W2A2 QKR with
+    `norm_layer="batchnorm"`, fused fp32: one train step (36 K1, 12 K2,
+    12 K3, `per_layer_grad_norms` on: `check_layer_norms`) under
+    phase_train's gates, the whole step and the running statistics'
+    updates held to 2 x the order spread + the floor against the
+    composed fp64 model's (`check_step_grads(order_spread=True)`),
+    then the trained student served in eval mode through its running
+    statistics (`phase_slice`: 36 K1, 12 K2 a forward, the block and
+    top-1 gates); Swin-T W2A2 QKR with the swap, pallas bf16: one train
+    step (39 K4) under SWIN_GATE, the statistics' updates against the
+    rounded-once reference (2 x the order spread + the floor)."""
+    import numpy as np
+    from ofq_tpu_torch.quant import w2a2_qkr_policy
+    deit = "deit_small_distilled_patch16_224"
+    out = {}
+    tr = out["train"] = phase_train(
+        dev, FUSED, deit, batch, overrides=BN, timed=False, keep=True,
+        step_options=dict(per_layer_grad_norms=True), order_spread=True)
+    student = tr.pop("model")
+    rng = np.random.default_rng(3)
+    images = rng.normal(size=(batch, 224, 224, 3)).astype(np.float32)
+    out["serve"] = phase_slice(dev, FUSED, deit, w2a2_qkr_policy(12), batch,
+                               built=(student, images, rng), timed=False)
+    del student
+    out["swin_train"] = phase_train(
+        dev, PALLAS, "swin_t", batch, gate=SWIN_GATE,
+        overrides=dict(SWIN_BENCH, **BN), timed=False)
+    return out
+
+
+# the oscillation hook of the JAX package's tests (tests/test_oscillation.py)
+# on the QKR selection; the step's constant learning rate, large enough to
+# move bf16 masters (a bf16 ulp of a 2-bit DeiT-S kernel entry is ~2e-4)
+OSC = dict(bits=2, momentum=0.5, freeze_threshold=0.4, qk_reparam=True)
+OSC_LR = 5e-4
+OSC_STEPS = 3
+
+
+def seeded_tracking(params, generator):
+    """The hook's state at `params` with half the entries already past a
+    switch (up or down) at EMA 0.35, so that a switch back freezes them
+    in the first steps (a fresh state needs two switches)."""
+    import torch
+    from ofq_tpu_torch.train.oscillation_hook import init_oscillation_states
+    out = {}
+    for n, st in init_oscillation_states(params, bits=OSC["bits"],
+                                         qk_reparam=True).items():
+        x = st.prev_x_int
+        u = torch.rand((2,) + tuple(x.shape), generator=generator,
+                       device=x.device)
+        half = u[0] < 0.5
+        direction = torch.where(u[1] < 0.5, -1.0, 1.0).to(x.dtype)
+        zero = torch.zeros_like(x)
+        out[n] = st._replace(
+            prev_switch_dir=torch.where(half, direction, zero),
+            ema_oscillation=torch.where(half, torch.full_like(x, 0.35),
+                                        zero))
+    return out
+
+
+def hook_on_cpu(rec):
+    """The hook's update of one step (the masters it read and the states
+    it started from, recorded on the card) run again on the CPU: the new
+    images, frozen masks and frozen integers equal the card's but where
+    the pre-round image lies within MASK_EDGE_ULPS fp32 ulps of a rounding
+    edge (the scale's mean summed in another order); `oscillation/
+    ema_mean` within momentum / entries per such entry + 1e-6 of it.
+    (differing, entries within the allowance)"""
+    import numpy as np
+    from ofq_tpu_torch.quant import statsq_b4_round
+    from ofq_tpu_torch.train import oscillation_hook as osc
+    params, states, (new, met) = rec
+    cpu = {n: p.cpu() for n, p in params.items()}
+    c_states = {n: type(st)(*[t.cpu() for t in st])
+                for n, st in states.items()}
+    c_new, c_met = osc.update_oscillation_states(
+        cpu, c_states, **{k: v for k, v in OSC.items()})
+    differ = near = count = 0
+    for n, st in c_new.items():
+        b4 = statsq_b4_round(cpu[n].float(), OSC["bits"])[0].numpy()
+        frac = b4 - np.floor(b4)
+        # (the clip's lower end sits on an edge whatever the scale)
+        edge = (np.abs(frac - 0.5) <= MASK_EDGE_ULPS * np.spacing(np.abs(b4))
+                ) & (b4 > -(2 ** (OSC["bits"] - 1)) - 0.5)
+        d = np.zeros(b4.shape, bool)
+        for f in ("prev_x_int", "frozen", "frozen_x_int"):
+            d |= (getattr(st, f) != getattr(new[n], f).cpu()).numpy()
+        if np.any(d & ~edge):
+            raise GateTripped(f"oscillation: {n}: {int(np.sum(d & ~edge))} "
+                              f"entries differ between the card and the "
+                              f"CPU away from a rounding edge")
+        differ += int(d.sum())
+        near += int(edge.sum())
+        count += d.size
+    a, b = float(met["oscillation/ema_mean"]), float(
+        c_met["oscillation/ema_mean"])
+    if abs(a - b) > OSC["momentum"] * differ / count + 1e-6 * abs(b):
+        raise GateTripped(f"oscillation/ema_mean: card {a}, CPU {b}")
+    return differ, near
+
+
+def phase_oscillation(dev, name="deit_small_distilled_patch16_224",
+                      batch=BATCH):
+    """The oscillation hook on the card: DeiT-S W2A2 QKR fused bf16 with
+    bf16 masters and EMA 0.9999, constant lr OSC_LR, OSC (momentum 0.5,
+    threshold 0.4) from `seeded_tracking`, `per_layer_grad_norms` on;
+    OSC_STEPS steps, each with the plain step's launches (36 K1, 12 K2,
+    12 K3), every frozen entry's StatsQ image its frozen integer, the
+    hook's update against the same update on the CPU from the masters it
+    read (`hook_on_cpu`), the working parameters the masters,
+    `check_layer_norms` (bf16); entries frozen from the first step on;
+    wall ms beside the step without the hook (plain, hook, hook,
+    plain)."""
+    import numpy as np
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.quant import statsq_b4_round
+    from ofq_tpu_torch.train import (TrainState, constant_lr, make_optimizer,
+                                     make_train_step)
+    from ofq_tpu_torch.train import oscillation_hook as osc_lib
+    t0 = time.perf_counter()
+    student, teacher, data = build_trained(dev, FUSED_BF16, name, batch)
+    cfg = student.cfg
+    opt = make_optimizer(constant_lr(OSC_LR), weight_decay=0.05)
+    state = TrainState.create(student, opt, ema=True,
+                              master_dtype="bfloat16")
+    state.extra = {"oscillation": seeded_tracking(
+        state.params, torch.Generator(device=dev).manual_seed(3))}
+    kw = dict(teacher=teacher, loss_kind="kd_soft_hard", device=dev,
+              ema_decay=0.9999, master_dtype="bfloat16")
+    step = make_train_step(student, opt, oscillation=OSC,
+                           per_layer_grad_norms=True, **kw)
+    plain = make_train_step(student, opt, **kw)
+    tracked = sorted(state.extra["oscillation"])
+    log(f"[oscillation] {name} W2A2 QKR, {_describe(FUSED_BF16)}, bf16 "
+        f"masters, EMA, lr {OSC_LR}, {OSC}: {len(tracked)} kernels "
+        f"tracked; built in {time.perf_counter() - t0:.1f} s")
+    recs = []
+
+    def record(real):
+        def update(params, states, **k):
+            got = real(params, states, **k)
+            recs.append(({n: params[n].detach().clone() for n in states},
+                         states, got))
+            return got
+        return update
+
+    rows = []
+    for i in range(OSC_STEPS):
+        recs.clear()
+        ops.reset_launch_counts()
+        with injected(osc_lib, "update_oscillation_states", record):
+            state, met = step(state, data)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        want = _expected(FUSED_BF16, cfg, train=True)
+        if launches != want:
+            raise AssertionError(f"[oscillation] expected launches per "
+                                 f"step {want}, got {launches}")
+        frozen = bad = 0
+        for n, st in state.extra["oscillation"].items():
+            img = torch.round(statsq_b4_round(state.params[n],
+                                              OSC["bits"])[0])
+            bad += int((img[st.frozen] != st.frozen_x_int[st.frozen]).sum())
+            frozen += int(st.frozen.sum())
+        if bad:
+            raise GateTripped(f"oscillation: {bad} frozen entries' images "
+                              f"are not their frozen integers")
+        work = dict(student.named_parameters())
+        if not all(torch.equal(work[n], p.float())
+                   for n, p in state.params.items()):
+            raise AssertionError("[oscillation] the working parameters are "
+                                 "not the masters")
+        differ, near = hook_on_cpu(recs[0])
+        norms = check_layer_norms(met, True)
+        rows.append(dict(launches=launches, frozen=frozen,
+                         cpu_differing=differ, cpu_near_edge=near,
+                         ema_mean=float(met["oscillation/ema_mean"]),
+                         loss=float(met["loss"]), layer_norms=norms))
+    if not 0 < rows[0]["frozen"] <= rows[-1]["frozen"]:
+        raise GateTripped(f"oscillation: frozen entries per step "
+                          f"{[r['frozen'] for r in rows]}")
+
+    def ms(fn):
+        nonlocal state
+        for _ in range(TRAIN_STEPS_WARM):
+            state, m = fn(state, data)
+        float(m["loss"])
+        t = time.perf_counter()
+        for _ in range(TRAIN_STEPS_TIMED):
+            state, m = fn(state, data)
+        if not np.isfinite(float(m["loss"])):  # host fetch: the barrier
+            raise AssertionError("non-finite loss")
+        return (time.perf_counter() - t) * 1e3 / TRAIN_STEPS_TIMED
+
+    times = [ms(f) for f in (plain, step, step, plain)]
+    hook_ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+    log(f"[oscillation] {OSC_STEPS} steps: launches {rows[0]['launches']}; "
+        f"frozen entries {[r['frozen'] for r in rows]}, each at its frozen "
+        f"integer's level; oscillation/ema_mean "
+        f"{[round(r['ema_mean'], 6) for r in rows]}; the hook on the CPU "
+        f"from the same masters: {[r['cpu_differing'] for r in rows]} "
+        f"entries differing, {[r['cpu_near_edge'] for r in rows]} within "
+        f"{MASK_EDGE_ULPS} ulps of a rounding edge; wall ms per step "
+        f"B={batch}: hook {hook_ms:.2f}, without {plain_ms:.2f} (plain, "
+        f"hook, hook, plain: {', '.join(f'{t:.2f}' for t in times)})")
+    prof = (phase_profile(lambda: float(step(state, data)[1]["loss"]),
+                          "oscillation train step")
+            if "--profile" in sys.argv else None)
+    return dict(model=name, steps=rows, tracked=len(tracked),
+                hook_ms=hook_ms, plain_ms=plain_ms, ms_in_turns=times,
+                profile=prof)
 
 
 # ------------------------------------------------------ gate self-check
@@ -2867,6 +3279,22 @@ def k4_column_fault(real):
         y[:, 0] = (y[:, 0].float() + x2[:, 0].float()
                    * float(s[0, 0] / n_levels)).to(y.dtype)
         return y
+    return k4
+
+
+# the one stage of K4's Swin-T fault: stage 2's fc1 (6 blocks)
+SWIN_FAULT_SHAPE = (384, 1536)
+
+
+def k4_stage_fault(real):
+    """K4 with one output column moved by one weight level in one stage of
+    Swin-T only: the products whose weight is SWIN_FAULT_SHAPE."""
+    fault = k4_column_fault(real)
+
+    def k4(x2, w, s, n_levels):
+        if tuple(w.shape) == SWIN_FAULT_SHAPE:
+            return fault(x2, w, s, n_levels)
+        return real(x2, w, s, n_levels)
     return k4
 
 
@@ -2956,14 +3384,16 @@ def _tripped(check, *args):
 
 
 def phase_gate_selfcheck(dev, name="deit_small_distilled_patch16_224",
-                         batch=BATCH):
+                         batch=BATCH, swin_name="swin_t"):
     """The bf16 agreement gates shown to fail: deliberate faults injected
     into the kernel path (wrappers around the real kernels, patched where
     the port's modules look them up), each of which must trip its gates,
     then the unmodified kernels, which must pass every gate.  DeiT-S
-    pallas serving (PR 3's K4) for the K4 fault; DeiT-S fused bf16 (K2 and
-    K3) for the others.  Each fault has to trip the gates it is listed
-    with; a gate listed as None is reported only."""
+    pallas serving (K4) for the K4 faults, Swin-T pallas serving
+    (`swin_name`; None skips it) for K4's fault in one stage under
+    SWIN_GATE; DeiT-S fused bf16 (K2 and K3) for the others.  Each fault
+    has to trip the gates it is listed with; a gate listed as None is
+    reported only."""
     import numpy as np
     import torch
     from ofq_tpu_torch.models.deit import VARIANTS
@@ -2987,16 +3417,18 @@ def phase_gate_selfcheck(dev, name="deit_small_distilled_patch16_224",
         if not ok:
             failed.append((fault, gate))
 
-    def serving(conf, fault_site, faults, pol=policy):
+    def serving(conf, fault_site, faults, pol=policy, model_name=name,
+                gate=None):
         """`faults`: (fault, label, gates) each, injected at `fault_site`
-        of one model of `conf` under `pol`; the gates each fault lists
-        run."""
-        model, images, rng = build_served(dev, conf, name, pol, batch)
+        of one model `model_name` of `conf` under `pol`; the gates each
+        fault lists run (the block gate under `gate`)."""
+        model, images, rng = build_served(dev, conf, model_name, pol, batch)
         pred = Predictor(model, batch_size=batch,
                          img_size=model.cfg.img_size, device=dev)
         batches = [images] + [rng.normal(size=images.shape).astype(
             np.float32) for _ in range(CMP_BATCHES - 1)]
-        checks = {"block gate": (check_blocks, model, images, dev, conf),
+        checks = {"block gate": (functools.partial(check_blocks, gate=gate),
+                                 model, images, dev, conf),
                   "top-1 gate": (check_top1, pred, batches, conf)}
         used = [g for g in checks if any(g in f[2] for f in faults)]
         for fault, label, gates in faults:
@@ -3027,6 +3459,14 @@ def phase_gate_selfcheck(dev, name="deit_small_distilled_patch16_224",
         (k2_head_fault, "K2 (per-head lhs) reading head h + 1's q",
          {"block gate": True})],
         pol=_family(name, qk_reparam=False)[1])
+    # a Swin-T path: pallas bf16 serving under SWIN_GATE
+    if swin_name is not None:
+        serving(PALLAS, (nn_linear, "pallas_statsq_fwd"), [
+            (k4_stage_fault, f"Swin-T K4 with one output column moved by "
+             f"one weight level in stage 2's fc1 {SWIN_FAULT_SHAPE}",
+             {"block gate": True})],
+            pol=_family(swin_name)[1], model_name=swin_name,
+            gate=SWIN_GATE)
     # phase_k2's gate on its main-path case (bf16, shared lhs, LSQ on) at 4
     # batch rows, with the slice fault and unmodified
     from ofq_tpu_torch.ops import fused_attention as fa
@@ -4167,6 +4607,7 @@ def _kernel_row(name, src, launches, r, library_ms=None, **extra):
 
 
 def main() -> int:
+    import dataclasses
     t_start = time.perf_counter()
     sys.path.insert(0, HERE)
     import torch
@@ -4243,6 +4684,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     full["remat"] = phase_remat(dev)
     torch.cuda.empty_cache()
+    # the LN->BN swap, the oscillation hook and per-layer gradient norms,
+    # the MLP activations besides GELU (DeiT-S and Swin-T at full width)
+    full["bn"] = phase_bn(dev)
+    torch.cuda.empty_cache()
+    full["oscillation"] = phase_oscillation(dev)
+    torch.cuda.empty_cache()
+    for act in ("prelu", "rprelu"):
+        full[f"train_{act}"] = phase_train(
+            dev, FUSED, policy=dataclasses.replace(w2a2_qkr_policy(12),
+                                                   act_layer=act),
+            timed=False, order_spread=True)
+        torch.cuda.empty_cache()
+    for act in ("relu", "None"):
+        full[f"slice_{act}"] = phase_slice(
+            dev, FUSED, deit, dataclasses.replace(w2a2_qkr_policy(12),
+                                                  act_layer=act),
+            timed=False)
+        torch.cuda.empty_cache()
     # the non-QKR and full-LSQ DeiT-S students, the telemetry losses, and
     # the non-QKR Swin-T (this slice's paths, at full depth)
     nonqkr = w2a2_deit_policy(12, qk_reparam=False)

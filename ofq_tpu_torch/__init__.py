@@ -14,7 +14,10 @@ has a plain PyTorch version beside it, used for tensors on the CPU.  The
 int8 path (`matmul_impl="int8"`) runs every quantized product on the
 integer codes (`ops/int8_qlinear.py`, `torch._int_mm` on the card), and
 a trained student freezes into a packed artifact (`deploy.py`) served
-through the same integer core (`serve.Predictor.from_packed`).
+through the same integer core (`serve.Predictor.from_packed`).  The
+models take the LN->BN swap (`norm_layer="batchnorm"`) and the MLP
+activations of the policy's `act_layer`; the train step, the oscillation
+hook and per-layer gradient norms (`train/`).
 Nothing in this package imports JAX or `ofq_tpu`, and importing it builds
 nothing: the kernels are compiled with `nvcc` at their first launch.
 """

@@ -7,7 +7,10 @@ sets its scale by `init_scale` from the input it sees and then quantizes
 with it, so later quantizers see the already-quantized activations -- the
 sequential order of Flax's data-dependent init.  The image quantizer's
 `signed` state is set from the batch.  The fused kernels are bypassed for
-this forward, so the softmax scale is fitted on the composition.
+this forward, so the softmax scale is fitted on the composition.  A
+BatchNorm normalizes with its running statistics and updates nothing,
+whatever mode the model is in (JAX's `model.init(..., train=False)`; a
+fresh model's are mean 0, var 1).
 """
 
 from __future__ import annotations

@@ -16,9 +16,10 @@ import numpy as np
 import torch
 
 # Flax variable collections the port holds: parameters, the image
-# quantizer's sticky `signed` state and `LsqWeightIterativeFreezing`'s
-# oscillation state.
-COLLECTIONS = ("params", "quant_stats", "oscillation")
+# quantizer's sticky `signed` state, `LsqWeightIterativeFreezing`'s
+# oscillation state and a BatchNorm's running statistics (buffers `mean`,
+# `var`).
+COLLECTIONS = ("params", "quant_stats", "oscillation", "batch_stats")
 
 
 def flatten_flax_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -133,4 +134,28 @@ def load_ema_params(state, ema_tree):
         k: torch.from_numpy(np.array(given[k])).to(
             device=p.device, dtype=torch.float32)
         for k, p in state.params.items()}
+    return state
+
+
+def load_oscillation_states(state, extra):
+    """Carry the JAX TrainState's `extra["oscillation"]` (the oscillation
+    hook's {'/'-joined param path: OscillationState}) into
+    `state.extra["oscillation"]`, in place, by the port's parameter names,
+    each field in the dtype and on the device of the port's own.  The
+    port's state must hold one already
+    (`oscillation_hook.init_oscillation_states`); strict both ways, like
+    `load_flax_params`: the same kernels, fields and shapes."""
+    if state.extra is None or "oscillation" not in state.extra:
+        raise ValueError("load_oscillation_states: the port's state has no "
+                         "oscillation state; create it with "
+                         "oscillation_hook.init_oscillation_states")
+    targets = state.extra["oscillation"]
+    given = _port_entries(flatten_flax_tree(extra["oscillation"]))
+    _check_match("load_oscillation_states", given, {
+        f"{n}.{f}": t for n, st in targets.items()
+        for f, t in st._asdict().items()})
+    state.extra = {**state.extra, "oscillation": {
+        n: type(st)(**{f: torch.from_numpy(np.array(given[f"{n}.{f}"])).to(
+            device=t.device, dtype=t.dtype) for f, t in st._asdict().items()})
+        for n, st in targets.items()}}
     return state

@@ -1,17 +1,20 @@
-"""DeiT / ViT, quantized or float (port of `ofq_tpu/models/deit.py:40-83,
+"""DeiT / ViT, quantized or float (port of `ofq_tpu/models/deit.py:40-162,
 178-363, 370-387`).
 
 NHWC images in, logits out.  A distilled model returns `(cls + dist) / 2`
 in eval mode and `(cls_logits, dist_logits)` in train mode
 (`model.train()`), as the JAX model does with `train=True`.  Submodules
 carry the Flax names (`patch_embed`, `blocks_<i>`, `norm1`, `attn`, `mlp`,
-`norm`, `head`, `head_dist`), so the port's parameter names are the JAX
-tree paths with '.' for '/'.  Each path is quantized or float as the policy
-says: the quantized DeiT of the shipped recipes (W8A8 patch embedding and
-heads, QKR attention -- or, without `qk_reparam`, `QAttention` -- and
-quantized MLPs in every block; full-LSQ linears under a policy whose
-weight and activation modes are both 'lsq') and the float teacher (empty
-policy).  LayerNorm.
+`norm`, `head`, `head_dist`), so the port's parameter and buffer names
+are the JAX tree paths with '.' for '/'.  Each path is quantized or float
+as the policy says: the quantized DeiT of the shipped recipes (W8A8 patch
+embedding and heads, QKR attention -- or, without `qk_reparam`,
+`QAttention` -- and quantized MLPs in every block; full-LSQ linears
+under a policy whose weight and activation modes are both 'lsq') and the
+float teacher (empty policy).  LayerNorm, or with
+`norm_layer='batchnorm'` the reference's --replace-ln-by-bn swap at every
+norm (`BatchNorm`, its running statistics buffers named as JAX's
+`batch_stats`).
 
 `forward(x, generator, aux=True)` returns `(logits, aux)` as JAX's model
 does: aux is the per-block Gram telemetry (`qqkkvv`; None without it) or,
@@ -62,6 +65,9 @@ class DeiTConfig:
     distilled: bool = True
     ln_eps: float = 1e-6
     in_chans: int = 3
+    # 'layernorm', or 'batchnorm' (--replace-ln-by-bn: `BatchNorm` at
+    # norm1, norm2 and the final norm)
+    norm_layer: str = "layernorm"
     # dropout and stochastic depth, in train mode only (masks from the
     # forward's generator)
     drop_rate: float = 0.0
@@ -128,6 +134,78 @@ class LayerNorm(nn.Module):
         return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
 
+class BatchNorm(nn.Module):
+    """Feature-axis BatchNorm with torch `_BatchNorm` semantics (JAX's
+    `TorchBatchNorm`): statistics over every axis but the last, in
+    `promote(x.dtype, fp32)`; in train mode the biased batch variance
+    normalizes and the unbiased one (n = x.numel() // C) feeds the running
+    update at `momentum` (torch's convention, new = (1 - m) old + m batch),
+    promoted to the statistics' dtype as in JAX; eps 1e-5 (torch's
+    BatchNorm default, not the LN's).  `(x - mean) / sqrt(var + eps)`,
+    not rsqrt (JAX's comment: the ulp flips STE masks over a trajectory),
+    then `* scale + bias`, returned in `compute_dtype` when given, else in
+    x's dtype.  `scale` and `bias` are parameters, `mean` and `var`
+    buffers.
+
+    Eval mode normalizes with the running statistics.  So does a
+    calibrating forward, whatever the mode (JAX calibrates with
+    `train=False`), and neither updates them.  A `checkpointed` block's
+    recompute (`recomputing` set) uses the batch statistics and leaves
+    the running ones alone: they move once per forward, as under JAX's
+    `nn.remat`."""
+
+    EPS, MOMENTUM = 1e-5, 0.1
+
+    def __init__(self, dim: int, compute_dtype=None):
+        super().__init__()
+        self.compute_dtype = as_dtype(compute_dtype)
+        self.calibrating = False
+        self.recomputing = False
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        stat = torch.promote_types(x.dtype, torch.float32)
+        if not self.training or self.calibrating:
+            mean, var = self.mean.to(stat), self.var.to(stat)
+        else:
+            xf = x.to(stat)
+            red = tuple(range(x.ndim - 1))
+            mean = torch.mean(xf, dim=red)
+            var = torch.mean(torch.square(xf - mean), dim=red)
+            if not self.recomputing:
+                n = x.numel() // x.shape[-1]
+                self._update(mean.detach(),
+                             var.detach() * (n / max(n - 1, 1)))
+        out = self.compute_dtype or x.dtype
+        y = (x.to(stat) - mean) / torch.sqrt(var + self.EPS)
+        y = y * self.scale.to(stat) + self.bias.to(stat)
+        return y.to(out)
+
+    @torch.no_grad()
+    def _update(self, mean: torch.Tensor, unbiased: torch.Tensor) -> None:
+        m = self.MOMENTUM
+        for name, batch in (("mean", mean), ("var", unbiased)):
+            old = getattr(self, name)
+            new = (1 - m) * old + m * batch
+            if new.dtype == old.dtype:
+                old.copy_(new)
+            else:
+                setattr(self, name, new)
+
+
+def make_norm(norm_layer: str, dim: int, eps: float, compute_dtype=None
+              ) -> nn.Module:
+    """The models' one norm constructor (JAX's `make_norm`): BatchNorm
+    for 'batchnorm' (eps 1e-5 whatever the LN's), else LayerNorm at
+    `eps`; both return `compute_dtype` when given."""
+    if norm_layer == "batchnorm":
+        return BatchNorm(dim, compute_dtype)
+    return LayerNorm(dim, eps, compute_dtype)
+
+
 class Block(nn.Module):
     """Pre-norm transformer block: quantized QKR attention or float
     attention, quantized or float MLP, as the policy says per path, each
@@ -145,7 +223,7 @@ class Block(nn.Module):
         frozen = policy.weight_frozen
         wb = 32 if frozen else policy.weight.bit
         fib = policy.frozen_int_bits if frozen else None
-        self.norm1 = LayerNorm(C, cfg.ln_eps, cd)
+        self.norm1 = make_norm(cfg.norm_layer, C, cfg.ln_eps, cd)
         lsq = policy.lsq_weights
         wq = dict(wq_learnable=policy.weight.learnable,
                   wq_all_positive=not policy.weight.symmetric)
@@ -169,7 +247,7 @@ class Block(nn.Module):
             self.attn = Attention(C, cfg.num_heads,
                                   attn_drop=cfg.attn_drop_rate,
                                   proj_drop=cfg.drop_rate, qqkkvv=cfg.qqkkvv)
-        self.norm2 = LayerNorm(C, cfg.ln_eps, cd)
+        self.norm2 = make_norm(cfg.norm_layer, C, cfg.ln_eps, cd)
         if policy.quantizes(f"blocks.{index}.mlp"):
             self.mlp = QMlp(
                 C, hidden, C, n_tok,
@@ -216,7 +294,7 @@ def run_blocks(model: nn.Module, x: torch.Tensor,
             continue
         fn = functools.partial(block, info=True) if aux else block
         if name in model.remat_names and torch.is_grad_enabled():
-            out = checkpointed(fn, x, generator)
+            out = checkpointed(fn, x, generator, block)
         else:
             out = fn(x, generator)
         if aux:
@@ -277,7 +355,8 @@ class VisionTransformer(KernelSwitch, nn.Module):
         for i, name in enumerate(self.block_names):
             dpr = cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
             self.add_module(name, Block(cfg, policy, i, dpr))
-        self.norm = LayerNorm(C, cfg.ln_eps, cfg.compute_dtype)
+        self.norm = make_norm(cfg.norm_layer, C, cfg.ln_eps,
+                              cfg.compute_dtype)
         self.head = self._head("head")
         if cfg.distilled:
             self.head_dist = self._head("head_dist")
@@ -344,8 +423,10 @@ def init_weights(model: nn.Module, generator: torch.Generator, *,
     """Random weights with the JAX package's initializers, drawn from
     `generator`: lecun-normal kernels (truncated normal, std
     1/sqrt(fan_in)/0.8796), truncated-normal 0.02 tokens, pos_embed and
-    relative-position bias tables, zero biases, unit LayerNorm scales,
-    unit LSQ scales (until `calibrate`).  Quantized heads' kernels are
+    relative-position bias tables, zero biases and shifts, unit norm
+    scales, 0.25 PReLU / RPReLU slopes, unit LSQ scales (until
+    `calibrate`); BatchNorm's running statistics stay at mean 0, var 1.
+    Quantized heads' kernels are
     zero as in JAX unless `head_std` is given; float heads' kernels are
     drawn with the model's `FLOAT_HEAD_STD` (DeiT: truncated-normal 0.02;
     None, Swin: lecun-normal) or `head_std`.  The draws differ from
@@ -372,6 +453,9 @@ def init_weights(model: nn.Module, generator: torch.Generator, *,
                 fan_in = math.prod(p.shape[:-1])
                 _trunc_normal_(p, lecun_std_unit / math.sqrt(fan_in),
                                generator)
+            elif leaf == "alpha":
+                # the MLP's PReLU / RPReLU slopes
+                p.fill_(0.25)
             elif leaf in ("scale", "s") or leaf.endswith("_scale"):
                 # LayerNorm scales, LSQ scales and a frozen artifact's
                 # StatsQ scales (ones, as the JAX initializers give them)

@@ -7,7 +7,11 @@ windows of `window_size`² tokens (padding the map to a multiple of the
 window, and cyclically shifting it in every second block), runs windowed
 attention with a learned relative-position bias (and, in shifted blocks,
 the -100 mask between regions that the shift made neighbours), and puts
-the windows back.  Patch merging halves the map between stages.
+the windows back.  Patch merging halves the map between stages.  Every
+norm (`patch_norm`, each block's two, each patch merging's on the 4-D
+map, the final one) is a LayerNorm or, with `norm_layer='batchnorm'`,
+the reference's --replace-ln-by-bn swap (`deit.BatchNorm`), as JAX's
+`_norm` builds them.
 
 Submodules carry the Flax names (`patch_embed`, `patch_norm`,
 `features_<stage>_<block>` with `norm1`, `attn`, `norm2`, `mlp`,
@@ -54,12 +58,11 @@ from ..nn.attention import (QAttention, QAttentionQKR, gram_info,
                             qkr_quant_chain, remat_attention_tail)
 from ..nn.conv import PatchEmbedConv, QPatchEmbedConv
 from ..nn.dropout import dropout
-from ..nn.linear import (Dense, Mlp, QHeadLinear, QLinear, QMlp,
-                         not_in_port)
+from ..nn.linear import Dense, Mlp, QHeadLinear, QLinear, QMlp
 from ..ops.fused_attention import softmax
 from ..quant.policy import QuantPolicy
 from ..quant.ste import as_dtype, at_least_f32, weak_scalar
-from .deit import KernelSwitch, LayerNorm, residual_branches, run_blocks
+from .deit import KernelSwitch, make_norm, residual_branches, run_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -382,7 +385,8 @@ def _quantized_kw(policy: QuantPolicy, cfg: SwinConfig,
 
 class PatchMerging(nn.Module):
     """2x downsampling: odd sizes padded, the four neighbours of each 2x2
-    patch concatenated (B, H/2, W/2, 4C), LayerNorm, then the reduction to
+    patch concatenated (B, H/2, W/2, 4C), the norm (a BatchNorm's
+    statistics over B, H/2, W/2), then the reduction to
     2C: a quantized QLinear with a bias (the reference's QLinear always
     has one) whose per-"token" LSQ scale runs along the merged map's width
     (`width` entries), or a float Dense without a bias."""
@@ -390,7 +394,8 @@ class PatchMerging(nn.Module):
     def __init__(self, dim: int, cfg: SwinConfig, policy: QuantPolicy,
                  qpath: str, width: int):
         super().__init__()
-        self.norm = LayerNorm(4 * dim, cfg.ln_eps, cfg.compute_dtype)
+        self.norm = make_norm(cfg.norm_layer, 4 * dim, cfg.ln_eps,
+                              cfg.compute_dtype)
         if policy.quantizes(qpath):
             self.reduction = QLinear(4 * dim, 2 * dim, width,
                                      **_quantized_kw(policy, cfg))
@@ -420,7 +425,7 @@ class SwinBlock(nn.Module):
         cd = cfg.compute_dtype
         geom = dict(window_size=cfg.window_size, shift_size=shift,
                     proj_drop=cfg.drop_rate)
-        self.norm1 = LayerNorm(dim, cfg.ln_eps, cd)
+        self.norm1 = make_norm(cfg.norm_layer, dim, cfg.ln_eps, cd)
         if policy.quantizes(attn_path):
             cls = (QSwinAttentionQKR if policy.qk_reparam
                    else QSwinAttention)
@@ -434,7 +439,7 @@ class SwinBlock(nn.Module):
         else:
             self.attn = SwinAttention(dim, num_heads, qqkkvv=cfg.qqkkvv,
                                       attn_drop=cfg.attn_drop_rate, **geom)
-        self.norm2 = LayerNorm(dim, cfg.ln_eps, cd)
+        self.norm2 = make_norm(cfg.norm_layer, dim, cfg.ln_eps, cd)
         hidden = int(dim * cfg.mlp_ratio)
         if policy.quantizes(mlp_path):
             self.mlp = QMlp(dim, hidden, dim, width,
@@ -460,9 +465,6 @@ class SwinTransformer(KernelSwitch, nn.Module):
 
     def __init__(self, cfg: SwinConfig, policy: QuantPolicy):
         super().__init__()
-        if cfg.norm_layer != "layernorm":
-            raise not_in_port(f"norm_layer={cfg.norm_layer!r} (the LN->BN "
-                              "swap)", 6)
         self.cfg = cfg
         self.policy = policy
         self.compute_dtype = as_dtype(cfg.compute_dtype)
@@ -473,7 +475,8 @@ class SwinTransformer(KernelSwitch, nn.Module):
         else:
             self.patch_embed = PatchEmbedConv(cfg.in_chans, cfg.embed_dim,
                                               (P, P))
-        self.patch_norm = LayerNorm(cfg.embed_dim, cfg.ln_eps)
+        self.patch_norm = make_norm(cfg.norm_layer, cfg.embed_dim,
+                                    cfg.ln_eps)
         self.block_names = []
         self.remat_names = set()
         width = cfg.img_size // P
@@ -503,7 +506,8 @@ class SwinTransformer(KernelSwitch, nn.Module):
                 self.block_names.append(name)
                 feat_idx += 1
                 dim *= 2
-        self.norm = LayerNorm(dim, cfg.ln_eps, cfg.compute_dtype)
+        self.norm = make_norm(cfg.norm_layer, dim, cfg.ln_eps,
+                              cfg.compute_dtype)
         if policy.quantizes("head"):
             self.head = QHeadLinear(dim, cfg.num_classes)
         else:

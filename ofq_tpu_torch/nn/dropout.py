@@ -16,6 +16,10 @@ and restores the default CPU and CUDA generators only: the block's
 function puts the caller's generator back to its state at the block's
 start before the recompute and returns it where it was afterwards, so
 the recompute draws the forward's masks (JAX's remat replays its keys).
+While the recompute runs, every submodule of the block that has a
+`recomputing` flag (a BatchNorm) has it set: it normalizes with the batch
+statistics as before but leaves its running statistics alone, so they
+are updated once per forward, as under JAX's `nn.remat`.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..quant.ste import weak_scalar
@@ -82,24 +87,37 @@ def drop_path(x: torch.Tensor, rate: float,
 
 
 def checkpointed(fn: Callable, x: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Optional[torch.Generator],
+                 owner: Optional[nn.Module] = None) -> torch.Tensor:
     """`fn(x, generator)` with its activations recomputed in the backward
     (`torch.utils.checkpoint`, non-reentrant), the recompute drawing the
-    same masks from `generator` as the forward did."""
+    same masks from `generator` as the forward did, with the `recomputing`
+    flag of every submodule of `owner` that has one set while it runs."""
     start = None if generator is None else generator.get_state()
     calls = []
 
-    def run(x):
+    def recompute(x):
         if start is None:
             return fn(x, None)
-        if not calls:
-            calls.append(True)
-            return fn(x, generator)
         now = generator.get_state()
         generator.set_state(start)
         try:
             return fn(x, generator)
         finally:
             generator.set_state(now)
+
+    def run(x):
+        if not calls:
+            calls.append(True)
+            return fn(x, generator)
+        flagged = ([] if owner is None else
+                   [m for m in owner.modules() if hasattr(m, "recomputing")])
+        for m in flagged:
+            m.recomputing = True
+        try:
+            return recompute(x)
+        finally:
+            for m in flagged:
+                m.recomputing = False
 
     return checkpoint(run, x, use_reentrant=False)

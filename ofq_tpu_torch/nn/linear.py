@@ -1,5 +1,5 @@
-"""Dense layers and MLPs, quantized and float (port of
-`ofq_tpu/nn/linear.py:125-451`, and Flax's `nn.Dense`).
+"""Dense layers, MLPs and their activations, quantized and float (port of
+`ofq_tpu/nn/linear.py:30-90,125-451`, and Flax's `nn.Dense`).
 
 Kernels keep the Flax `(in, out)` layout.  `QLinear` has the composed
 branch (bias -> LSQ -> bias -> x @ StatsQ(W)), whose product is the
@@ -32,6 +32,13 @@ kernel holds dequantized StatsQ values restored from a packed artifact, so
 `frozen_int_bits` the layer also holds the artifact's scale
 (`kernel_scale`, (1, out)) and runs the integer core on the codes rebuilt
 from it.
+
+The MLP activation (`act_layer`): exact GELU, 'relu', 'None' /
+'identity', 'prelu' (one learnable slope, `act.alpha`, 0.25 at init) or
+'rprelu' (per-channel `act.move1`, `act.alpha`, `act.move2`), as JAX's
+`apply_act`; slopes and shifts are cast to the stream's dtype before use
+and `x >= 0` takes the identity branch.  An unknown name raises KeyError,
+as JAX's lookup does.
 """
 
 from __future__ import annotations
@@ -52,22 +59,55 @@ from .dropout import dropout
 from .quantizers import LsqAct, LsqWeight
 
 
-def not_in_port(what: str, item: int) -> NotImplementedError:
-    """The error for a configuration the port does not have yet, naming its
-    item in ROADMAP.md's Queue 1."""
-    return NotImplementedError(
-        f"{what} is not in the port yet (ROADMAP.md, Queue 1 item {item})")
-
-
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, `jax.nn.gelu(approximate=False)`."""
     return torch.nn.functional.gelu(x, approximate="none")
 
 
-def _check_act(act_layer: str) -> None:
-    if act_layer != "gelu":
-        raise NotImplementedError(
-            f"act_layer={act_layer!r}: the port has GELU only")
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+class PReLU(nn.Module):
+    """`torch.nn.PReLU()` semantics: one learnable slope `alpha` (shape
+    (1,), init 0.25) shared across channels, `where(x >= 0, x, a * x)`
+    with `a` in x's dtype."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((1,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.alpha[0].to(x.dtype)
+        return torch.where(x >= 0, x, a * x)
+
+
+class RPReLU(nn.Module):
+    """ReActNet RPReLU: `PReLU(x - move1) + move2` with per-channel shifts
+    and slopes (`move1`, `alpha` at 0.25, `move2`), each in x's dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.move1 = nn.Parameter(torch.zeros(dim))
+        self.alpha = nn.Parameter(torch.full((dim,), 0.25))
+        self.move2 = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xs = x - self.move1.to(x.dtype)
+        y = torch.where(xs >= 0, xs, self.alpha.to(x.dtype) * xs)
+        return y + self.move2.to(x.dtype)
+
+
+def make_act(name: str, dim: int):
+    """An MLP's activation over `dim` channels by JAX's name: the PReLU or
+    RPReLU module (its parameters under `act`) or a function; KeyError
+    for an unknown name."""
+    if name == "prelu":
+        return PReLU()
+    if name == "rprelu":
+        return RPReLU(dim)
+    return {"gelu": gelu, "relu": torch.relu, "None": _identity,
+            "identity": _identity}[name]
 
 
 def int_product(module):
@@ -280,9 +320,9 @@ class QHeadLinear(nn.Module):
 
 
 class QMlp(nn.Module):
-    """fc1 (signed input) -> GELU -> dropout -> fc2 (all-positive input) ->
-    dropout; `lsq_weights` takes the full-LSQ pair (`LsqLinear`, with
-    `wq_learnable` and `wq_all_positive`)."""
+    """fc1 (signed input) -> `act_layer` -> dropout -> fc2 (all-positive
+    input) -> dropout; `lsq_weights` takes the full-LSQ pair (`LsqLinear`,
+    with `wq_learnable` and `wq_all_positive`)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, n_tokens: int, *, weight_bits: int,
@@ -293,7 +333,7 @@ class QMlp(nn.Module):
                  dropout_rate: float = 0.0, lsq_weights: bool = False,
                  wq_learnable: bool = True, wq_all_positive: bool = False):
         super().__init__()
-        _check_act(act_layer)
+        self.act = make_act(act_layer, hidden_features)
         self.dropout_rate = dropout_rate
         kw = dict(weight_bits=weight_bits, input_bits=input_bits,
                   aq_learnable=aq_learnable, frozen_int_bits=frozen_int_bits)
@@ -316,10 +356,10 @@ class QMlp(nn.Module):
 
 
 def _mlp(mod, x, generator):
-    """fc1 -> GELU -> dropout -> fc2 -> dropout (`ofq_tpu.nn.linear.Mlp`,
-    `QMlp`)."""
+    """fc1 -> the activation -> dropout -> fc2 -> dropout
+    (`ofq_tpu.nn.linear.Mlp`, `QMlp`)."""
     kw = dict(train=mod.training)
-    x = dropout(gelu(mod.fc1(x)), mod.dropout_rate, generator, **kw)
+    x = dropout(mod.act(mod.fc1(x)), mod.dropout_rate, generator, **kw)
     return dropout(mod.fc2(x), mod.dropout_rate, generator, **kw)
 
 
@@ -340,14 +380,15 @@ class Dense(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Float transformer MLP: fc1 -> exact GELU -> dropout -> fc2 ->
-    dropout."""
+    """Float transformer MLP: fc1 -> `act_layer` -> dropout -> fc2 ->
+    dropout.  The models build it with GELU whatever the policy's
+    `act_layer` (the float teacher and unquantized sites), as JAX's do."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, act_layer: str = "gelu",
                  dropout_rate: float = 0.0):
         super().__init__()
-        _check_act(act_layer)
+        self.act = make_act(act_layer, hidden_features)
         self.dropout_rate = dropout_rate
         self.fc1 = Dense(in_features, hidden_features)
         self.fc2 = Dense(hidden_features, out_features)

@@ -47,15 +47,19 @@ class Predictor:
     def from_flax_npz(cls, npz_path: str, *, model_name: str,
                       policy: QuantPolicy, matmul_impl: str = "fused",
                       attn_impl: str | None = "fused", compute_dtype=None,
-                      batch_size: int = 64, device="cuda") -> "Predictor":
+                      batch_size: int = 64, device="cuda",
+                      **overrides) -> "Predictor":
         """A predictor for JAX variables saved as a flat `.npz` keyed by
-        '/'-joined Flax paths (see `convert.load_flax_params`).  The bf16
-        stream of bench.py's pallas configuration:
+        '/'-joined Flax paths (see `convert.load_flax_params`; a BN
+        student's running statistics, `batch_stats`, serve in eval mode).
+        The bf16 stream of bench.py's pallas configuration:
         `matmul_impl="pallas", attn_impl=None, compute_dtype="bfloat16"`;
-        of its fused one: the defaults with `compute_dtype="bfloat16"`."""
+        of its fused one: the defaults with `compute_dtype="bfloat16"`.
+        `overrides` replace further config fields (e.g.
+        `norm_layer="batchnorm"`)."""
         model = create_model(model_name, policy=policy, device=device,
                              matmul_impl=matmul_impl, attn_impl=attn_impl,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, **overrides)
         load_flax_params(model, npz_path)
         return cls(model, batch_size=batch_size,
                    img_size=model.cfg.img_size, device=device)

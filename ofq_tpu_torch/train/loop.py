@@ -35,8 +35,18 @@ generator, aux=True)`): `kd_qk` and `kd_qkv` the attentions' Grams
 features (`return_features=True`, with `token_kd_alpha` and
 `token_kd_type`); the teacher's run under `torch.no_grad()`.
 
-Not in the port yet, and refused: the oscillation hook (ROADMAP.md, Queue
-1 item 6).
+The oscillation hook (`oscillation=dict(bits, momentum, freeze_threshold,
+qk_reparam, model_type)`, with the tracking state in `state.extra`, from
+`oscillation_hook.init_oscillation_states`) runs after AdamW and the CGA
+restore and before the EMA, as in JAX: the states update from the new
+masters and, with `freeze_threshold > 0`, the frozen entries are pinned
+(under bf16 masters the pinned masters are copied into the working
+parameters too).  `per_layer_grad_norms` adds `grad_norm/<name>` for each
+top-level name (the first component of the parameter names: `blocks_0`,
+`cls_token`, `head`, ...) over the masked gradients.  A BatchNorm
+student's running statistics update in its train-mode forward, once per
+step (also under remat); they take no gradient, AdamW, CGA or EMA, and
+`make_eval_step` normalizes with them.
 """
 
 from __future__ import annotations
@@ -49,9 +59,9 @@ from torch.func import functional_call
 
 from ..models.registry import resolve_device
 from ..nn.dropout import check_generator
-from ..nn.linear import not_in_port
 from ..quant.ste import at_least_f32
 from . import cga as cga_lib
+from . import oscillation_hook as osc_lib
 from .losses import (dampening_loss, hard_ce, kd_soft_and_hard,
                      kd_soft_hard_qk, kl_token_mse, soft_ce)
 from .optim import AdamW, ema_update, global_norm
@@ -88,6 +98,25 @@ def _cga_settings(cga: dict, policy) -> dict:
     return out
 
 
+def _oscillation_settings(oscillation: dict) -> dict:
+    """The hook's keywords, with JAX's defaults; `bits` is required."""
+    if "bits" not in oscillation:
+        raise ValueError("oscillation needs 'bits'")
+    return dict(bits=oscillation["bits"],
+                momentum=oscillation.get("momentum", 0.01),
+                freeze_threshold=oscillation.get("freeze_threshold", 0.0),
+                qk_reparam=oscillation.get("qk_reparam", False),
+                model_type=oscillation.get("model_type", "deit"))
+
+
+def _per_layer_norms(grads: dict) -> dict:
+    """`grad_norm/<top-level name>` over each group of gradients."""
+    groups = {}
+    for n, g in grads.items():
+        groups.setdefault(n.split(".")[0], []).append(g)
+    return {f"grad_norm/{k}": global_norm(v) for k, v in groups.items()}
+
+
 def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                     teacher: Optional[torch.nn.Module] = None,
                     loss_kind: str = "kd_soft_hard",
@@ -96,7 +125,8 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                     cga: Optional[dict] = None, oscillation=None,
                     token_kd_alpha: float = 0.5, token_kd_type: str = "last",
                     dampening: Optional[dict] = None,
-                    master_dtype: Optional[str] = None) -> Callable:
+                    master_dtype: Optional[str] = None,
+                    per_layer_grad_norms: bool = False) -> Callable:
     """Build `train_step(state, batch, generator=None) -> (state,
     metrics)`.
 
@@ -109,16 +139,21 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
     the model's policy's and must agree with it.  `dampening` is
     dict(bits, weighting); with `ema_decay` the state must hold an EMA
     (`TrainState.create(..., ema=True)`).  `token_kd_alpha` and
-    `token_kd_type` are `kd_token`'s (`kl_token_mse`).  `master_dtype` is
-    the JAX
-    step's option, checked against the state's masters at each step.
+    `token_kd_type` are `kd_token`'s (`kl_token_mse`).  `oscillation` is
+    dict(bits, momentum=0.01, freeze_threshold=0.0, qk_reparam=False,
+    model_type="deit"); the hook runs when the state holds
+    `extra["oscillation"]` (as in JAX, a state without it skips the
+    hook) and adds `oscillation/ema_mean` to the metrics.
+    `per_layer_grad_norms` adds `grad_norm/<top-level name>`.
+    `master_dtype` is the JAX step's option, checked against the state's
+    masters at each step.
     Runs on CUDA unless `device="cpu"`; the model (and teacher) must
     already live there.
     """
     if loss_kind not in LOSS_KINDS:
         raise ValueError(f"loss_kind={loss_kind!r}: one of {LOSS_KINDS}")
     if oscillation is not None:
-        raise not_in_port("the oscillation hook", 6)
+        oscillation = _oscillation_settings(oscillation)
     if master_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(f"master_dtype={master_dtype!r}")
     if cga is not None:
@@ -227,6 +262,10 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                     old, {n: views[n] for n in frozen}, masks)
                 torch._foreach_copy_([views[n] for n in frozen],
                                      [new[n] for n in frozen])
+            osc_metrics = {}
+            if oscillation is not None and state.extra is not None:
+                osc_metrics = _oscillation_step(state, tensors, names,
+                                                master_bf16)
             if ema_decay is not None and state.ema_params is not None:
                 state.ema_params = ema_update(state.ema_params, state.params,
                                               ema_decay)
@@ -234,7 +273,33 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
         state.step += 1
         metrics = {"loss": loss.detach(),
                    "grad_norm": global_norm(grads.values())}
+        if per_layer_grad_norms:
+            metrics.update(_per_layer_norms(grads))
+        metrics.update(osc_metrics)
         return state, metrics
+
+    def _oscillation_step(state, tensors, names, master_bf16):
+        """The hook on the updated masters, in place: the states into
+        `state.extra`, the pinned entries into the masters (and the
+        working parameters under bf16 masters); returns its metrics."""
+        o = oscillation
+        kw = dict(bits=o["bits"], qk_reparam=o["qk_reparam"],
+                  model_type=o["model_type"])
+        osc, met = osc_lib.update_oscillation_states(
+            state.params, state.extra["oscillation"], momentum=o["momentum"],
+            freeze_threshold=o["freeze_threshold"], **kw)
+        state.extra = {**state.extra, "oscillation": osc}
+        if o["freeze_threshold"] > 0:
+            pinned = osc_lib.apply_frozen(state.params, state.params, osc,
+                                          **kw)
+            tracked = [n for n in names if n in osc]
+            torch._foreach_copy_([state.params[n] for n in tracked],
+                                 [pinned[n] for n in tracked])
+            if master_bf16:
+                idx = {n: i for i, n in enumerate(names)}
+                torch._foreach_copy_([tensors[idx[n]] for n in tracked],
+                                     [state.params[n] for n in tracked])
+        return met
 
     return train_step
 
@@ -247,7 +312,9 @@ def make_eval_step(model: torch.nn.Module) -> Callable:
     label -1 is padding and counts nothing), as device tensors.  `params`
     (by name: `state.params`, `state.ema_params`) replace the model's for
     the call, bf16 masters as fp32; None evaluates the model as it
-    stands."""
+    stands.  A BatchNorm model normalizes with its running statistics,
+    the model's buffers, for any `params` (JAX's runner passes the full
+    variables, the EMA's too)."""
     p0 = next(model.parameters())
 
     def eval_step(params, batch):

@@ -1,5 +1,9 @@
 """Train state (port of `ofq_tpu/train/state.py`): the parameters by name,
-the AdamW state, the step and epoch counts and the EMA.
+the AdamW state, the step and epoch counts, the EMA and `extra`, the
+auxiliary state the step threads through (None, or {"oscillation": {name:
+OscillationState}} for the oscillation hook, `oscillation_hook.py`).
+A BatchNorm's running statistics are buffers of the model, not part of
+the state: the step's train-mode forward updates them.
 
 With fp32 (or fp64) masters, `params` holds the model's own parameter
 tensors, not copies: a train step updates them in place (and the image
@@ -12,7 +16,7 @@ fills from them, an exact upcast (`loop.py`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -27,10 +31,13 @@ class TrainState:
     epoch: int = 0
     # fp32 accumulators by parameter name, or None without an EMA
     ema_params: Optional[dict[str, torch.Tensor]] = None
+    # auxiliary state, e.g. {"oscillation": {name: OscillationState}}
+    extra: Optional[dict[str, Any]] = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: AdamW,
-               ema: bool = False, master_dtype=None) -> "TrainState":
+               ema: bool = False, master_dtype=None,
+               extra: Optional[dict[str, Any]] = None) -> "TrainState":
         """The state at step 0.  The Adam moments live in at least fp32 and
         the EMA in fp32, whatever the masters' dtype.  `master_dtype=
         "bfloat16"` rounds the masters to bf16 and writes the rounded
@@ -49,4 +56,5 @@ class TrainState:
             params = masters
         return cls(params=params, opt_state=optimizer.init(params), step=0,
                    ema_params=({n: p.detach().to(torch.float32, copy=True)
-                                for n, p in params.items()} if ema else None))
+                                for n, p in params.items()} if ema else None),
+                   extra=extra)

@@ -8,9 +8,9 @@ Swin-T's parameter tree.
     within rtol 1e-9; `calibrate` against Flax's data-dependent init;
   * Swin-T's float and W2A2 QKR trees (`jax.eval_shape`) load strictly
     both ways, so the parameter count is JAX's (28 288 354 float);
-  * the configurations the port does not have yet, each naming its
-    ROADMAP item; the remat configurations, the student without QKR and
-    the float model's Gram telemetry, which it has.
+  * the configurations once refused: the remat configurations, the
+    student without QKR, the float model's Gram telemetry and the LN->BN
+    swap (BN statistics, steps and serving: `test_torch_batchnorm.py`).
 The bf16 stream and the Predictor: `test_torch_swin_serving.py`.
 """
 
@@ -159,35 +159,31 @@ def test_cuda_default_raises_without_cuda():
         create_model("swin_t", policy=w2a2_qkr_swin_policy())
 
 
-@pytest.mark.parametrize("what,kw,item", [
-    ("LN->BN", dict(norm_layer="batchnorm"), 6),
-])
-def test_unsupported_configs_name_their_roadmap_item(what, kw, item):
-    kw.setdefault("policy", w2a2_qkr_swin_policy((1, 1)))
-    with pytest.raises(NotImplementedError,
-                       match=rf"{what}.*Queue 1 item {item}\)"):
-        create_model(NAME, device="cpu", **kw)
-
-
-@pytest.mark.parametrize("what", ["non-QKR", "qqkkvv"])
+@pytest.mark.parametrize("what", ["non-QKR", "qqkkvv", "BN"])
 def test_once_refused_configs_fp64(what):
     """The configurations once refused: the W2A2 student without QKR
-    (`QSwinAttention`, calibrated as Flax inits it) and the float model
+    (`QSwinAttention`, calibrated as Flax inits it), the float model
     with the Gram telemetry (`qqkkvv`: each block's (attn, q q^T, k k^T,
-    v v^T) / sqrt(d)), in fp64 against JAX's within rtol 1e-9."""
+    v v^T) / sqrt(d)) and the W2A2 QKR student with the LN->BN swap
+    (`norm_layer='batchnorm'`, calibrated, in eval mode through its
+    running statistics), in fp64 against JAX's within rtol 1e-9."""
     x = _images(3)
     if what == "non-QKR":
         jpol = dataclasses.replace(_jax_policy((1, 1)), qk_reparam=False)
         tpol = dataclasses.replace(w2a2_qkr_swin_policy((1, 1)),
                                    qk_reparam=False)
         kw = {}
+    elif what == "BN":
+        jpol, tpol = _jax_policy((1, 1)), w2a2_qkr_swin_policy((1, 1))
+        kw = dict(norm_layer="batchnorm")
     else:
         jpol, tpol, kw = jswin.QuantPolicy(), QuantPolicy(), dict(
             qqkkvv=True)
     jm = jswin.swin_model(NAME, jpol, depths=(1, 1), **kw)
     tm = create_model(NAME, policy=tpol, device="cpu", depths=(1, 1), **kw)
-    variables = _fp64_variables(jm, x, what == "non-QKR")
-    if what == "non-QKR":
+    quantized = what != "qqkkvv"
+    variables = _fp64_variables(jm, x, quantized)
+    if quantized:
         load_into(tm.double(), variables)
         calibrate(tm, x)
         assert_scales_match(variables, tm)
@@ -200,7 +196,7 @@ def test_once_refused_configs_fp64(what):
         got, got_info = tm(torch.from_numpy(x), aux=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
                                atol=1e-12)
-    if what == "non-QKR":
+    if quantized:
         assert info is None and got_info is None
         return
     assert len(got_info) == len(info) == 2

@@ -210,15 +210,15 @@ def test_global_norm_matches_optax():
 
 
 def test_clipping_and_unported_options_raise():
-    """What is still refused names its Queue 1 item: the oscillation hook
-    (the telemetry losses, once refused, step: `test_torch_kd_telemetry
-    .py`); a clipping mode or a loss that JAX does not have raises as
-    JAX's does."""
+    """A clipping mode or a loss that JAX does not have raises as JAX's
+    does, and an oscillation hook without `bits` raises (the hook, once
+    refused, steps: `test_torch_oscillation_hook.py`; the telemetry
+    losses: `test_torch_kd_telemetry.py`)."""
     with pytest.raises(ValueError, match="clip_mode"):
         make_optimizer(lambda c: 1e-3, clip_grad=1.0, clip_mode="global")
     m = create_model(NAME, policy=w2a2_qkr_policy(DEPTH), device="cpu")
     opt = make_optimizer(lambda c: 1e-3)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="bits"):
         make_train_step(m, opt, teacher=m, device="cpu", oscillation={})
     with pytest.raises(ValueError, match="loss_kind"):
         make_train_step(m, opt, teacher=m, device="cpu", loss_kind="kd_x")
