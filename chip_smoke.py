@@ -220,6 +220,26 @@ product `int8_mm` is torch._int_mm, a library call):
      int8_mm a step, the bf16 step gates under SWIN_GATE, every whole-step
      gradient bit-identical through the plain product;
 every path's int8_mm launches by shape held to phase 14's count.
+The training CLI (`phase_cli`, in a temporary directory, synthetic data):
+ 20. the recipe train_scripts/deit_s/w2a2_deit_s.sh through
+     `cli.train.main` / `cli.cga.main` / `cli.eval.main` / `serve.main`
+     at DeiT-S width, B = 64, 2 steps an epoch: (a) the float DeiT-S from
+     seed 0 written as the original layout's `.pth.tar`, the warm start
+     and the teacher loaded from it bit for bit (q/k/v the thirds of the
+     file's qkv); (b) phase 1 with --matmul-impl fused --attn-impl fused,
+     2 epochs: 36 K1 + 12 K2 + 12 K3 each step, the epoch-0 checkpoint
+     the same bits as the steps composed from the loaded start; (c)
+     auto-resume to epoch 2, restored bit for bit; (d) the CGA command
+     from phase 1: no frozen entry's bits change, the rate min_lr at every
+     step; (e) eval equal to `Predictor.from_experiment`; (f) serving,
+     `--export`, `--artifact --int-core` (its codes the integer core's
+     and the live student's, 60 int8_mm a forward); (g) Swin-T through
+     its recipe without the warm-start flags, --matmul-impl pallas
+     --compute-dtype bfloat16, one epoch: 39 K4 a step and a forward.
+     One `[cli]` line each (wall s, steps, launches, checkpoint bytes,
+     save and restore GB/s); the K1, K2, K3 and Swin-T K4 entries of the
+     kernels line carry their launches there (`cli_launches`), the int8
+     line the integer-core forward's.
 The agreement gates: fp32, the kernel path against the plain path; bf16,
 each path against a rounded-once reference (the plain path with every
 product summed in fp64 and rounded once to the dtype it returns), the
@@ -4515,6 +4535,562 @@ def int8_rows(rows, launches):
     return out
 
 
+# ---------------------------------------------------------------- the CLI
+DEIT_RECIPE = "train_scripts/deit_s/w2a2_deit_s.sh"
+SWIN_RECIPE = "train_scripts/swin_t/w2a2_swin_t.sh"
+# the recipe's warm-start flags (dropped for the Swin-T run, which trains
+# from the seeded initialisation with a seeded teacher)
+WARM_START = ("--pretrained_initialized", "--initial-checkpoint",
+              "--teacher_pretrained", "--teacher_checkpoint")
+
+
+def recipe_argvs(script, data_dir, fp_ckpt):
+    """The argv of each `python3 -m ofq_tpu.cli.*` command of a recipe in
+    train_scripts/, with its data directory and float checkpoint given and
+    its config path made absolute."""
+    import re
+    import shlex
+    with open(os.path.join(HERE, script)) as f:
+        text = f.read().replace("\\\n", " ")
+    out = []
+    for line in text.splitlines():
+        m = re.match(r"\s*python3 -m ofq_tpu\.cli\.\w+ (.*)", line)
+        if m:
+            argv = m.group(1).replace('"$DATA_DIR"', data_dir).replace(
+                '"$FP_CKPT"', fp_ckpt)
+            out.append([os.path.join(HERE, a) if a.startswith("configs/")
+                        else a for a in shlex.split(argv)])
+    return out
+
+
+def _drop_flags(argv, flags):
+    """`argv` without `flags` (and the value of those that take one)."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in flags:
+            skip = a in ("--initial-checkpoint", "--teacher_checkpoint")
+        else:
+            out.append(a)
+    return out
+
+
+def _sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+class CliSpy:
+    """Wraps the runner's `make_train_step`, `save_epoch` and
+    `restore_latest` for the duration of the phase: each train step's
+    launches (counts around the call), learning rate and, under CGA, the
+    bits of its frozen entries before and after; the student's state when
+    the step is built (the loaded start); each save's and restore's wall
+    time and bytes; the runners."""
+
+    def __init__(self):
+        self.steps, self.starts, self.saves, self.restores = [], [], [], []
+        self.runners = []
+
+    @contextlib.contextmanager
+    def active(self):
+        from ofq_tpu_torch.cli import runner as cli_runner
+        names = ("make_train_step", "save_epoch", "restore_latest")
+        real = {n: getattr(cli_runner, n) for n in names}
+        real_init = cli_runner.Runner.__init__
+        spy = self
+
+        def init(runner, *a, **kw):
+            real_init(runner, *a, **kw)
+            spy.runners.append(runner)
+
+        cli_runner.make_train_step = self._make_train_step(
+            real["make_train_step"])
+        cli_runner.save_epoch = self._save_epoch(real["save_epoch"])
+        cli_runner.restore_latest = self._restore_latest(
+            real["restore_latest"])
+        cli_runner.Runner.__init__ = init
+        try:
+            yield self
+        finally:
+            for n, fn in real.items():
+                setattr(cli_runner, n, fn)
+            cli_runner.Runner.__init__ = real_init
+
+    def _make_train_step(self, real):
+        from ofq_tpu_torch import ops
+        from ofq_tpu_torch.train import freeze_masks
+        spy = self
+
+        def make(model, optimizer, **kw):
+            spy.starts.append({k: v.detach().clone()
+                               for k, v in model.state_dict().items()})
+            step = real(model, optimizer, **kw)
+            cga = kw.get("cga")
+
+            def wrapped(state, batch, generator=None):
+                lr = optimizer.lr_schedule(state.opt_state.count)
+                frozen = {}
+                if cga is not None:
+                    masks = freeze_masks(state.params, **cga)
+                    frozen = {n: (m > 0.5, state.params[n].detach().clone())
+                              for n, m in masks.items() if m is not None}
+                before = ops.launch_counts()
+                state, metrics = step(state, batch, generator)
+                after = ops.launch_counts()
+                changed = sum(int((state.params[n][m] != old[m]).sum())
+                              for n, (m, old) in frozen.items())
+                spy.steps.append(dict(
+                    launches={k: after[k] - before[k] for k in after},
+                    lr=lr, frozen=sum(int(m.sum()) for m, _ in
+                                      frozen.values()),
+                    frozen_changed=changed,
+                    loss=metrics["loss"]))
+                return state, metrics
+
+            return wrapped
+
+        return make
+
+    def _save_epoch(self, real):
+        spy = self
+
+        def save(mgr, epoch, state, metrics=None, **kw):
+            _sync()
+            t0 = time.perf_counter()
+            real(mgr, epoch, state, metrics, **kw)
+            dt = time.perf_counter() - t0
+            path = mgr._path(epoch)
+            nbytes = os.path.getsize(path) if os.path.exists(path) else 0
+            spy.saves.append(dict(seconds=dt, bytes=nbytes))
+
+        return save
+
+    def _restore_latest(self, real):
+        from ofq_tpu_torch.train.checkpoint import load
+        spy = self
+
+        def restore(mgr, state, model=None):
+            _sync()
+            t0 = time.perf_counter()
+            out, nxt = real(mgr, state, model)
+            _sync()
+            dt = time.perf_counter() - t0
+            if out is not None:
+                step = mgr.latest_step()
+                saved = load(mgr, step)
+                differing = sum(
+                    int((state.params[n].cpu() != t).sum())
+                    for n, t in saved["params"].items())
+                differing += sum(
+                    int((b.cpu() != saved["buffers"][n]).sum())
+                    for n, b in model.named_buffers())
+                spy.restores.append(dict(
+                    seconds=dt, bytes=os.path.getsize(mgr._path(step)),
+                    next_epoch=nxt, differing=differing))
+            return out, nxt
+
+        return restore
+
+    def take(self):
+        """Everything recorded so far, and reset."""
+        out = dict(steps=self.steps, starts=self.starts, saves=self.saves,
+                   restores=self.restores, runners=self.runners)
+        self.__init__()
+        return out
+
+
+def _summary_epochs(exp_dir):
+    import csv
+    with open(os.path.join(exp_dir, "summary.csv")) as f:
+        return [int(r["epoch"]) for r in csv.DictReader(f)]
+
+
+def _gb_per_s(recs):
+    s = sum(r["seconds"] for r in recs)
+    b = sum(r["bytes"] for r in recs)
+    return (b / s / 1e9 if s else float("nan")), b
+
+
+def _cli_line(what, t0, rec, launches):
+    save_rate, save_bytes = _gb_per_s(rec["saves"])
+    rest_rate, rest_bytes = _gb_per_s(rec["restores"])
+    nz = {k: v for k, v in launches.items() if v}
+    log(f"[cli] {what}: wall {time.perf_counter() - t0:.1f} s, "
+        f"{len(rec['steps'])} steps, launches {nz}, checkpoints "
+        f"{len(rec['saves'])} x {save_bytes / max(len(rec['saves']), 1)/1e6:.1f}"
+        f" MB saved at {save_rate:.2f} GB/s, {len(rec['restores'])} "
+        f"restored ({rest_bytes / 1e6:.1f} MB) at {rest_rate:.2f} GB/s")
+    return dict(seconds=time.perf_counter() - t0, steps=len(rec["steps"]),
+                launches=launches, saves=rec["saves"],
+                restores=rec["restores"], save_gb_per_s=save_rate,
+                restore_gb_per_s=rest_rate)
+
+
+def _check_steps(what, steps, want, n):
+    if len(steps) != n:
+        raise AssertionError(f"{what}: {len(steps)} train steps, expected "
+                             f"{n}")
+    for i, s in enumerate(steps):
+        if s["launches"] != want:
+            raise AssertionError(f"{what}: step {i} launched "
+                                 f"{s['launches']}, expected {want}")
+
+
+def _check_warm_start(start, teacher, fp_path, depth):
+    """The loaded student (its state when the first step was built) and
+    the teacher against the `.pth.tar`: every student entry the converted
+    tree holds bit for bit, q/k/v the thirds of the file's qkv (v's bias
+    the last third), every teacher parameter the file's."""
+    import numpy as np
+    import torch
+    from ofq_tpu_torch.convert import (convert_deit, flatten_flax_tree,
+                                       load_torch_state_dict,
+                                       split_qkv_for_qkr)
+    sd = load_torch_state_dict(fp_path)
+    tree = convert_deit(sd, depth=12, img_size=224)
+    flat_t = {k.replace("/", "."): v for k, v in
+              flatten_flax_tree(tree).items()}
+    flat_s = {k.replace("/", "."): v for k, v in flatten_flax_tree(
+        split_qkv_for_qkr(convert_deit(sd, depth=depth))).items()}
+    compared = differing = 0
+    for n, t in start.items():
+        if n in flat_s and tuple(t.shape) == flat_s[n].shape:
+            compared += 1
+            differing += int((t.cpu() != torch.from_numpy(
+                np.asarray(flat_s[n]))).sum())
+    kernels = [n for n in start if n.endswith("kernel")
+               and not n.startswith(("head", "patch_embed"))]
+    missing = [n for n in kernels if n not in flat_s]
+    qkv = 0
+    for i in range(depth):
+        w = sd[f"blocks.{i}.attn.qkv.weight"].T
+        b = sd[f"blocks.{i}.attn.qkv.bias"]
+        C = w.shape[0]
+        for j, part in enumerate("qkv"):
+            got = start[f"blocks_{i}.attn.{part}_kernel"].cpu().numpy()
+            qkv += int((got != w[:, j * C:(j + 1) * C]).sum())
+        qkv += int((start[f"blocks_{i}.attn.v_bias"].cpu().numpy()
+                    != b[2 * C:]).sum())
+    t_diff = sum(int((p.detach().cpu() != torch.from_numpy(
+        np.asarray(flat_t[n]))).sum()) for n, p in teacher.named_parameters())
+    t_missing = [n for n, _ in teacher.named_parameters() if n not in flat_t]
+    log(f"[cli] warm start: {compared} student entries from the file, "
+        f"{differing} elements differing; q/k/v against the file's qkv "
+        f"thirds: {qkv} differing; teacher: "
+        f"{sum(1 for _ in teacher.parameters())} parameters, {t_diff} "
+        f"elements differing")
+    if differing or missing or qkv or t_diff or t_missing or not compared:
+        raise AssertionError(f"warm start: student {differing} differing, "
+                             f"missing {missing[:5]}, qkv {qkv}, teacher "
+                             f"{t_diff} differing, missing {t_missing[:5]}")
+    return dict(student_entries=compared, teacher_entries=len(flat_t))
+
+
+def _composed_steps(dev, runner, start, n):
+    """`n` steps of `make_train_step` composed from the runner's loaded
+    start, its optimizer, `synthetic_batches` and the step's generator:
+    (student, state)."""
+    import torch
+    from ofq_tpu_torch.cli.runner import build_model
+    from ofq_tpu_torch.data import synthetic_batches
+    from ofq_tpu_torch.train import TrainState, make_train_step
+    args = runner.args
+    student = build_model(args, runner.policy, device=dev)
+    student.load_state_dict(start)
+    tx, _ = runner.build_optimizer(args.steps_per_epoch)
+    state = TrainState.create(student, tx, master_dtype="float32")
+    step = make_train_step(student, tx, teacher=runner.teacher,
+                           loss_kind=runner.loss_kind,
+                           label_smoothing=args.smoothing, device=dev,
+                           token_kd_alpha=args.kd_alpha,
+                           token_kd_type=args.kd_type,
+                           master_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    stream = synthetic_batches(runner.data_cfg, train=True)
+    for _ in range(n):
+        b = next(stream)
+        state, _ = step(state, {k: torch.from_numpy(v).to(dev)
+                                for k, v in b.items()}, gen)
+    return student, state
+
+
+def _same_as_checkpoint(exp_dir, epoch, student, state):
+    """Elements differing between checkpoint `epoch` and the state."""
+    from ofq_tpu_torch.train.checkpoint import load, make_manager
+    saved = load(make_manager(exp_dir), epoch)
+    out = {}
+    for what, got, want in (
+            ("params", saved["params"], dict(student.named_parameters())),
+            ("mu", saved["opt_state"]["mu"], state.opt_state.mu),
+            ("nu", saved["opt_state"]["nu"], state.opt_state.nu),
+            ("buffers", saved["buffers"], dict(student.named_buffers()))):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"checkpoint {what}: other names")
+        out[what] = sum(int((got[k] != w.detach().cpu()).sum())
+                        for k, w in want.items())
+    return out
+
+
+def _eval_counts(model, data_cfg, dev):
+    """top-1 and top-5 (percent) of `model` over the runner's synthetic
+    validation batches, by `make_eval_step`'s ranking."""
+    import torch
+    from ofq_tpu_torch.data import synthetic_batches
+    from ofq_tpu_torch.train import make_eval_step
+    step = make_eval_step(model)
+    tot = None
+    for b in synthetic_batches(data_cfg, train=False):
+        out = step(None, {k: torch.from_numpy(v).to(dev)
+                          for k, v in b.items()})
+        row = torch.stack([out[k].double() for k in
+                           ("correct1", "correct5", "count")])
+        tot = row if tot is None else tot + row
+    c1, c5, n = tot.tolist()
+    return {"top1": 100.0 * c1 / n, "top5": 100.0 * c5 / n}
+
+
+def phase_cli(dev, deit="deit_small_distilled_patch16_224", swin="swin_t",
+              batch=BATCH, steps=2, extra=()):
+    """The recipe's runs through the port's entry points
+    (`cli.train.main`, `cli.cga.main`, `cli.eval.main`, `serve.main`) at
+    full width, synthetic data, in a temporary directory (`extra`: more
+    flags for every run, e.g. a test model's `--img-size`):
+
+      (a) the float `deit` from seed 0 written as the original layout's
+          `.pth.tar` (`convert.torch_export`): the recipe's
+          `--initial-checkpoint` and `--teacher_checkpoint`; the loaded
+          student and teacher held to the file bit for bit;
+      (b) phase 1, train_scripts/deit_s/w2a2_deit_s.sh's first command
+          with `--batch-size`, `--steps-per-epoch`, `--epochs 2`, no
+          warmup or cooldown, `--matmul-impl fused --attn-impl fused`:
+          36 K1 + 12 K2 + 12 K3 each step; the epoch-0 checkpoint the
+          same bits as `steps` steps of `make_train_step` composed from
+          the loaded start; summary epochs 0, 1;
+      (c) auto-resume with `--epochs 3`: continues at epoch 2 from the
+          saved state bit for bit; summary 0, 1, 2;
+      (d) the recipe's CGA command from phase 1 (`--resume`, type 1,
+          boundary 0.005, one epoch): no frozen entry's bits change, the
+          rate is `--min-lr` at every step, the launches of (b);
+      (e) `cli.eval.main --resume <cga>`: top-1 / top-5 equal to
+          `Predictor.from_experiment`'s model on the same batches;
+      (f) `serve.main <cga> --bench-iters 5`, `--export`, `--artifact
+          --int-core`: the artifact's codes those the integer core
+          rebuilds and the live student's, 60 int8_mm a forward;
+      (g) `swin` through the Swin-T recipe's first command without its
+          warm-start flags, one epoch of `steps` steps, `--matmul-impl
+          pallas --compute-dtype bfloat16`: 39 K4 a step and a forward.
+    One `[cli]` line each: wall s, steps, launches, checkpoint bytes, the
+    GB/s of save and restore (host copy and file, synchronous)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from ofq_tpu_torch import ops, serve
+    from ofq_tpu_torch.cli import cga as cli_cga
+    from ofq_tpu_torch.cli import eval as cli_eval
+    from ofq_tpu_torch.cli import train as cli_train
+    from ofq_tpu_torch.convert import (model_variables, save_pth_tar,
+                                       torch_export)
+    from ofq_tpu_torch.models import create_model
+    from ofq_tpu_torch.quant import QuantPolicy
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="ofq_cli_")
+    spy = CliSpy()
+    try:
+        # (a) the warm-start file (12 blocks: the runner converts a
+        # teacher file at convert_deit's default depth, as JAX's does)
+        t0 = time.perf_counter()
+        fp = create_model(deit, policy=QuantPolicy(), device=dev,
+                          generator=torch.Generator().manual_seed(0),
+                          depth=12)
+        fp_path = save_pth_tar(
+            torch_export.export_deit(model_variables(fp)["params"]),
+            os.path.join(tmp, "fp.pth.tar"), arch=deit)
+        del fp
+        log(f"[cli] (a) float {deit} written as {os.path.getsize(fp_path)}"
+            f" bytes of .pth.tar in {time.perf_counter() - t0:.1f} s")
+        p1, c1 = recipe_argvs(DEIT_RECIPE, "synthetic", fp_path)
+        common = ["--batch-size", str(batch), "--steps-per-epoch",
+                  str(steps), "--warmup-epochs", "0", "--cooldown-epochs",
+                  "0", "--matmul-impl", "fused", "--attn-impl", "fused",
+                  "--output", tmp, "--log-interval", "1", "--model", deit,
+                  "--teacher", deit, *extra]
+        phase1 = os.path.join(tmp, "phase1")
+
+        # (b) phase 1
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        with spy.active():
+            cli_train.main(p1 + common + ["--epochs", "2", "--experiment",
+                                          "phase1"], device=dev)
+        launches = ops.launch_counts()
+        k1_shapes = _shapes(ops.fused_qlinear_fwd)
+        rec = spy.take()
+        r = rec["runners"][0]
+        cfg = r.model.cfg
+        want = _expected(FUSED, cfg, train=True)
+        _check_steps("(b) phase 1", rec["steps"], want, 2 * steps)
+        out["warm_start"] = _check_warm_start(rec["starts"][0], r.teacher,
+                                              fp_path, cfg.depth)
+        student, state = _composed_steps(dev, r, rec["starts"][0], steps)
+        diff = _same_as_checkpoint(phase1, 0, student, state)
+        del student, state
+        log(f"[cli] (b) epoch-0 checkpoint against {steps} composed steps "
+            f"from the same start: elements differing {diff}")
+        if any(diff.values()):
+            raise AssertionError(f"the runner's checkpoint is not the "
+                                 f"composed steps': {diff}")
+        if _summary_epochs(phase1) != [0, 1]:
+            raise AssertionError(f"summary epochs {_summary_epochs(phase1)}")
+        out["phase1"] = _cli_line("(b) phase 1", t0, rec, launches)
+        out["phase1"].update(composed_differing=diff,
+                             k1_launch_shapes=k1_shapes,
+                             per_step=rec["steps"][0]["launches"])
+
+        # (c) auto-resume
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        with spy.active():
+            cli_train.main(p1 + common + ["--epochs", "3", "--experiment",
+                                          "phase1"], device=dev)
+        launches = ops.launch_counts()
+        rec = spy.take()
+        _check_steps("(c) resume", rec["steps"], want, steps)
+        res = rec["restores"]
+        if len(res) != 1 or res[0]["next_epoch"] != 2 or res[0]["differing"]:
+            raise AssertionError(f"(c) resume: {res}")
+        if _summary_epochs(phase1) != [0, 1, 2]:
+            raise AssertionError(f"summary epochs {_summary_epochs(phase1)}")
+        out["resume"] = _cli_line("(c) auto-resume", t0, rec, launches)
+
+        # (d) CGA
+        t0 = time.perf_counter()
+        cga_dir = os.path.join(tmp, "cga")
+        cga_argv = c1 + common + [
+            "--resume", phase1, "--qk_reparam_type", "1", "--boundaryRange",
+            "0.005", "--freeze_for_n_epochs", "1", "--experiment", "cga"]
+        ops.reset_launch_counts()
+        with spy.active():
+            cli_cga.main(cga_argv, device=dev)
+        launches = ops.launch_counts()
+        rec = spy.take()
+        _check_steps("(d) CGA", rec["steps"], want, steps)
+        min_lr = float(np.float32(rec["runners"][0].args.min_lr))
+        lrs = [s["lr"] for s in rec["steps"]]
+        changed = [s["frozen_changed"] for s in rec["steps"]]
+        log(f"[cli] (d) CGA: frozen entries per step "
+            f"{[s['frozen'] for s in rec['steps']]}, their elements changed "
+            f"{changed}; learning rates {lrs}")
+        if any(changed) or any(lr != min_lr for lr in lrs) or not all(
+                s["frozen"] for s in rec["steps"]):
+            raise AssertionError(f"(d) CGA: frozen changed {changed}, "
+                                 f"rates {lrs} (min_lr {min_lr})")
+        out["cga"] = _cli_line("(d) CGA", t0, rec, launches)
+
+        # (e) eval
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        with spy.active():
+            got = cli_eval.main(cga_argv[:-2] + ["--experiment", "eval",
+                                                 "--resume", cga_dir],
+                                device=dev)
+        rec = spy.take()
+        pred = serve.Predictor.from_experiment(cga_dir, batch_size=batch,
+                                               device=dev)
+        ref = _eval_counts(pred.model, rec["runners"][0].data_cfg, dev)
+        log(f"[cli] (e) eval: top1 {got['top1']:.3f} top5 "
+            f"{got['top5']:.3f}; Predictor.from_experiment on the same "
+            f"batches: {ref}")
+        if (got["top1"], got["top5"]) != (ref["top1"], ref["top5"]):
+            raise AssertionError(f"(e) eval {got} != predictor {ref}")
+        out["eval"] = _cli_line("(e) eval", t0, rec, ops.launch_counts())
+        out["eval"].update(top1=got["top1"], top5=got["top5"])
+        del pred
+
+        # (f) serving
+        t0 = time.perf_counter()
+        bs = ["--batch-size", str(batch)]
+        live = serve.main([cga_dir, "--bench-iters", "5", *bs], device=dev)
+        x = np.random.default_rng(0).normal(
+            size=(batch, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+        ops.reset_launch_counts()
+        live.predict(x)
+        served = ops.launch_counts()
+        want_fwd = _expected(FUSED, cfg, train=False)
+        if served != want_fwd:
+            raise AssertionError(f"(f) served {served}, expected {want_fwd}")
+        art = os.path.join(tmp, "art.npz")
+        serve.main([cga_dir, "--export", art, *bs], device=dev)
+        frozen = serve.main([cga_dir, "--artifact", art, "--int-core", *bs],
+                            device=dev)
+        ops.reset_launch_counts()
+        frozen.predict(x)
+        int_launches = ops.launch_counts()
+        int_shapes = _shapes(ops.int8_mm)
+        exported = dict(np.load(art))
+        codes = frozen_codes(frozen.model, exported, live.model)
+        bad = {k: v for k, v in codes.items() if any(v)}
+        n_int = _path_counts(cfg)[0] + 2 * cfg.depth
+        log(f"[cli] (f) serving: {served} a forward; the artifact "
+            f"({os.path.getsize(art)} bytes): {len(codes)} StatsQ entries, "
+            f"codes differing from the integer core's and the live "
+            f"student's {bad or 0}; --int-core {int_launches} a forward")
+        if bad or int_launches["int8_mm"] != n_int or int_launches[
+                "fused_qlinear_fwd"]:
+            raise AssertionError(f"(f) codes {bad}, int core launches "
+                                 f"{int_launches} (int8_mm {n_int})")
+        out["serve"] = dict(seconds=time.perf_counter() - t0,
+                            launches=served, int_core_launches=int_launches,
+                            int8_launch_shapes=int_shapes,
+                            artifact_bytes=os.path.getsize(art))
+        log(f"[cli] (f) serving: wall {out['serve']['seconds']:.1f} s")
+        del live, frozen
+        shutil.rmtree(phase1)
+        torch.cuda.empty_cache()
+
+        # (g) Swin-T, pallas bf16
+        t0 = time.perf_counter()
+        s1 = _drop_flags(recipe_argvs(SWIN_RECIPE, "synthetic", "-")[0],
+                         WARM_START)
+        ops.reset_launch_counts()
+        with spy.active():
+            cli_train.main(s1 + [
+                "--batch-size", str(batch), "--steps-per-epoch", str(steps),
+                "--epochs", "1", "--warmup-epochs", "0", "--cooldown-epochs",
+                "0", "--matmul-impl", "pallas", "--compute-dtype",
+                "bfloat16", "--output", tmp, "--experiment", "swin",
+                "--log-interval", "1", "--model", swin, "--teacher", swin,
+                *extra], device=dev)
+        launches = ops.launch_counts()
+        k4_shapes = _shapes(ops.pallas_statsq_fwd)
+        rec = spy.take()
+        scfg = rec["runners"][0].model.cfg
+        want_swin = _expected(PALLAS, scfg, train=True)
+        _check_steps("(g) Swin-T", rec["steps"], want_swin, steps)
+        # the calibration forward launches K4 too (calibrating bypasses
+        # only the fused branch), then every step and eval batch
+        n_eval = len(list(_eval_batches(rec["runners"][0].data_cfg)))
+        per = want_swin["pallas_statsq_fwd"]
+        if launches["pallas_statsq_fwd"] != per * (1 + steps + n_eval):
+            raise AssertionError(
+                f"(g) K4 {launches}, expected {per} x (the calibration "
+                f"forward, {steps} steps, {n_eval} eval batches)")
+        out["swin"] = _cli_line("(g) Swin-T pallas bf16", t0, rec, launches)
+        out["swin"].update(k4_launch_shapes=k4_shapes,
+                           per_step=rec["steps"][0]["launches"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _eval_batches(data_cfg):
+    from ofq_tpu_torch.data import synthetic_batches
+    return synthetic_batches(data_cfg, train=False)
+
+
 def phase_profile(fn, what, n_calls=3):
     """Device time by kernel over `n_calls` calls of `fn` (torch.profiler)
     and the device's idle share of the window's wall time."""
@@ -4759,6 +5335,9 @@ def main() -> int:
         dev, INT8, "swin_t", batch=SWIN_INT8_TRAIN_BATCH, gate=SWIN_GATE,
         overrides=SWIN_BENCH)
     torch.cuda.empty_cache()
+    # the recipe through the training CLI, the checkpoints and serving
+    cli = full["cli"] = phase_cli(dev)
+    torch.cuda.empty_cache()
     int8_launches = {
         "DeiT-S without QKR int8 serving":
             full["slice_nonqkr_int8"]["launch_shapes"],
@@ -4773,7 +5352,9 @@ def main() -> int:
         "Swin-T int8 serving": full["swin_int8"]["launch_shapes"],
         "Swin-T frozen integer core": full["frozen_swin"]["launch_shapes"],
         f"Swin-T int8 train step, B={SWIN_INT8_TRAIN_BATCH}":
-            full["train_swin_int8"]["launch_shapes"]}
+            full["train_swin_int8"]["launch_shapes"],
+        "DeiT-S CLI serve.main --artifact --int-core, B=64":
+            cli["serve"]["int8_launch_shapes"]}
     for what, shapes in int8_launches.items():
         rows_of = (f"Swin-T B={SWIN_INT8_TRAIN_BATCH}" if "train step" in what
                    and what.startswith("Swin")
@@ -4816,7 +5397,10 @@ def main() -> int:
                     str((r["M"], r["K"], r["N"])), 0),
                 r, path=("fused train step without QKR" if qkv
                          else "fused train step"),
-                design=r["design"]["label"]))
+                design=r["design"]["label"],
+                # over the CLI's phase 1 (its steps and eval forwards)
+                cli_launches=cli["phase1"]["k1_launch_shapes"].get(
+                    str((r["M"], r["K"], r["N"])), 0)))
     tr_bf16 = full["train_fused_bf16"]
     tr_nq_bf16 = full["train_nonqkr_bf16"]
     for key, fn in (("k2", "qkr_attention_fwd"),
@@ -4837,7 +5421,9 @@ def main() -> int:
                 + ("" if r["shared"] else " without QKR"),
                 design=r["design"],
                 yardstick_sdpa_ms=r["sdpa_ms" if key == "k2"
-                                    else "sdpa_bwd_ms"]))
+                                    else "sdpa_bwd_ms"],
+                cli_launches=(cli["phase1"]["launches"][fn]
+                              if r["shared"] and not bf16 else 0)))
     tp_nq = full["train_nonqkr_pallas"]
     for r in full["k4"]:
         if r["main_path"]:
@@ -4875,7 +5461,9 @@ def main() -> int:
                     str((r["M"], r["K"], r["N"])), 0), r,
                 path=f"Swin-T W2A2 {'without QKR' if qkv else 'QKR'} pallas "
                      f"bf16 {'serving forward' if serving else 'train step'}",
-                design=r["design"]))
+                design=r["design"],
+                cli_launches=cli["swin"]["k4_launch_shapes"].get(
+                    str((r["M"], r["K"], r["N"])), 0)))
     captured = full["swin_float"]["captured"]
     lab_launches = full["lab"]["launches"]
     for r in full["k678"]:

@@ -17,7 +17,12 @@ a trained student freezes into a packed artifact (`deploy.py`) served
 through the same integer core (`serve.Predictor.from_packed`).  The
 models take the LN->BN swap (`norm_layer="batchnorm"`) and the MLP
 activations of the policy's `act_layer`; the train step, the oscillation
-hook and per-layer gradient norms (`train/`).
+hook and per-layer gradient norms (`train/`).  The training harness:
+the CLIs (`cli/train.py`, `cli/cga.py`, `cli/eval.py`, with the JAX
+package's flags), the runner, `torch.save` checkpoints
+(`train/checkpoint.py`), the original repository's `.pth.tar` in and out
+(`convert/`), the synthetic stream and mixup (`data/`), the FLOP count and
+profiling (`utils/`), and serving from an experiment (`serve.py`).
 Nothing in this package imports JAX or `ofq_tpu`, and importing it builds
 nothing: the kernels are compiled with `nvcc` at their first launch.
 """

@@ -1,4 +1,4 @@
-"""Carry weights across from the JAX package.
+"""Carry weights across from the JAX package (`convert.flax`).
 
 The port's parameter and buffer names are the Flax tree paths with '.' for
 '/' (`blocks_3/attn/quan_qkx/s` -> `blocks_3.attn.quan_qkx.s`) and its
@@ -72,6 +72,42 @@ def load_flax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
         for k, t in targets.items():
             t.copy_(torch.from_numpy(np.array(given[k])).to(t.dtype))
     return model
+
+
+def buffer_collection(name: str) -> str:
+    """The Flax collection of a port buffer: the image quantizer's
+    `signed` -> quant_stats, a BatchNorm's `mean`/`var` -> batch_stats,
+    every other (`LsqWeightIterativeFreezing`'s state) -> oscillation."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "signed":
+        return "quant_stats"
+    if leaf in ("mean", "var"):
+        return "batch_stats"
+    return "oscillation"
+
+
+def nest(named: Mapping[str, torch.Tensor]) -> dict:
+    """{port name: tensor} -> a nested dict keyed by the Flax path, of
+    host numpy copies (floats as fp32)."""
+    out: dict = {}
+    for name, t in named.items():
+        node = out
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        t = t.detach().cpu()
+        node[leaf] = (t.float() if t.is_floating_point() else t).numpy()
+    return out
+
+
+def model_variables(model: torch.nn.Module) -> dict:
+    """The inverse of `load_flax_params`: a port model's parameters and
+    buffers as Flax variables, {collection: `nest`ed tree} (a collection
+    the model lacks is absent)."""
+    colls: dict = {"params": dict(model.named_parameters())}
+    for n, t in model.named_buffers():
+        colls.setdefault(buffer_collection(n), {})[n] = t
+    return {c: nest(named) for c, named in colls.items()}
 
 
 def _check_match(what: str, given: Mapping[str, np.ndarray],

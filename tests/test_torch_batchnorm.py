@@ -33,6 +33,7 @@ options) serves `test_torch_oscillation_hook.py` and
 """
 
 import contextlib
+import copy
 import dataclasses
 
 import jax
@@ -44,8 +45,8 @@ import torch
 from test_torch_cga_slice import _jax_state
 from test_torch_dropout import x64_jit
 from test_torch_kd_telemetry import _jax_deit_policy
-from test_torch_port_common import (perturb, to_jax_tree, to_numpy_tree,
-                                    without_scales)
+from test_torch_port_common import (jitted_init, perturb, to_jax_tree,
+                                    to_numpy_tree, without_scales)
 from test_torch_swin_model import _jax_policy as _jax_swin_policy
 from test_torch_swin_model import _with_head
 from test_torch_train_loop import _flat, _mid_run_adam
@@ -98,12 +99,19 @@ def with_stats(variables, rng):
     return {**variables, "batch_stats": draw(variables["batch_stats"])}
 
 
+_INITS = {}
+
+
 def _init(jm, x, dtype=np.float64):
     """Variables from a jitted float32 init (the LSQ scales set from `x`),
-    in `dtype`."""
-    v = jax.jit(lambda k, xx: jm.init({"params": k}, xx, train=False))(
-        jax.random.key(0), jnp.asarray(x, jnp.float32))
-    return to_numpy_tree(v, dtype)
+    in `dtype`; computed once per module configuration, input and dtype
+    (a copy each call)."""
+    key = (repr(jm), np.asarray(x).tobytes(), np.dtype(dtype).str)
+    if key not in _INITS:
+        v = jitted_init(jm)(
+            jax.random.key(0), jnp.asarray(x, jnp.float32))
+        _INITS[key] = to_numpy_tree(v, dtype)
+    return copy.deepcopy(_INITS[key])
 
 
 def start(name, jpol, tpol, *, conf=None, dtype=np.float64):

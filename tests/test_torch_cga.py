@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_common import to_jax_tree, to_numpy_tree, x64
+from test_torch_port_common import (jitted_init, to_jax_tree, to_numpy_tree,
+                                    x64)
 
 from ofq_tpu.models import swin as jswin
 from ofq_tpu.models.deit import deit_model as jax_deit_model
@@ -227,7 +228,7 @@ def _jax_swin():
 
 def _jax_params(jm, seed=0):
     x = np.random.default_rng(seed).normal(size=(2, IMG, IMG, 3))
-    v = jax.jit(lambda k, xx: jm.init({"params": k}, xx, train=False))(
+    v = jitted_init(jm)(
         jax.random.key(seed), jnp.asarray(x, jnp.float32))
     return to_numpy_tree(v)
 

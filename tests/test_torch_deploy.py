@@ -29,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_common import perturb, to_jax_tree, to_numpy_tree, x64
+from test_torch_port_common import (jitted_init, perturb, to_jax_tree,
+                                    to_numpy_tree, x64)
 
 import ofq_tpu.deploy as jdep
 from ofq_tpu.models import deit as jdeit
@@ -74,8 +75,7 @@ def _trained(family, seed=0):
     jm = (_jax_deit if family == "deit" else _jax_swin)(_jpol(family))
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(4, 32, 32, 3))
-    v = to_numpy_tree(jax.jit(lambda k, xx: jm.init(
-        {"params": k}, xx, train=False))(jax.random.key(seed),
+    v = to_numpy_tree(jitted_init(jm)(jax.random.key(seed),
                                          jnp.asarray(x, jnp.float32)))
     v = perturb(v, rng)
     for h in ("head", "head_dist"):

@@ -39,7 +39,7 @@ import pytest
 import torch
 
 from test_torch_port_common import (  # noqa: F401 (jax_interpret: fixture)
-    jax_interpret, load_into, to_jax_tree, to_numpy_tree)
+    jax_interpret, jitted_init, load_into, to_jax_tree, to_numpy_tree)
 from test_torch_swin_model import _with_head
 from test_torch_swin_model import _jax_policy as _jax_swin_policy
 from test_torch_train_loop import (BATCH, DEPTH, IMG, NAME, _jax_policy,
@@ -205,12 +205,19 @@ def _deit_variables(quantized):
     return _teacher_variables(4)
 
 
+_INITS = {}
+
+
 def _jitted_init(jm, x):
     """Variables from a jitted float32 init (the LSQ scales set from `x`
-    by Flax's data-dependent init), in fp64."""
-    v = jax.jit(lambda k, xx: jm.init({"params": k}, xx, train=False))(
-        jax.random.key(0), jnp.asarray(x, jnp.float32))
-    return to_numpy_tree(v, np.float64)
+    by Flax's data-dependent init), in fp64; computed once per module
+    configuration and input (a copy each call)."""
+    key = (repr(jm), np.asarray(x).tobytes())
+    if key not in _INITS:
+        v = jitted_init(jm)(
+            jax.random.key(0), jnp.asarray(x, jnp.float32))
+        _INITS[key] = to_numpy_tree(v, np.float64)
+    return copy.deepcopy(_INITS[key])
 
 
 def _images(seed, n=BATCH):

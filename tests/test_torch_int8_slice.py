@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from test_torch_pallas_slice import _codes_port, _statsq_levels
-from test_torch_port_common import to_jax_tree, to_numpy_tree, x64
+from test_torch_port_common import (jitted_init, to_jax_tree, to_numpy_tree,
+                                    x64)
 from test_torch_swin_model import _images, _with_head
 from test_torch_swin_model import _jax_policy as _jax_swin_policy
 from test_torch_train_loop import (BATCH, DEPTH, NAME, _flat, _jax_policy,
@@ -211,8 +212,7 @@ def test_swin_int8_fp64():
     depths = (1, 1)
     jm = jswin.swin_model("swin_test", _jax_swin_policy(depths),
                           depths=depths, matmul_impl="int8")
-    variables = to_numpy_tree(jax.jit(lambda k, xx: jm.init(
-        {"params": k}, xx, train=False))(jax.random.key(0), jnp.asarray(
+    variables = to_numpy_tree(jitted_init(jm)(jax.random.key(0), jnp.asarray(
             x, jnp.float32)), np.float64)
     shifted = _with_head(variables, np.random.default_rng(1))
     with x64():

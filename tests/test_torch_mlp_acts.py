@@ -31,7 +31,7 @@ import torch
 
 from test_torch_batchnorm import assert_step_and_stats, family, step_run
 from test_torch_dropout import x64_jit
-from test_torch_port_common import to_jax_tree, to_numpy_tree
+from test_torch_port_common import jitted_init, to_jax_tree, to_numpy_tree
 from test_torch_train_loop import _flat
 from test_torch_train_slice import _with_heads
 
@@ -123,7 +123,7 @@ def test_model_logits_fp64(act):
     jm = jdeit.deit_model(NAME, jpol)
     x = np.random.default_rng(1).normal(size=(3, 32, 32, 3))
     with x64_jit():
-        v = jax.jit(lambda k, xx: jm.init({"params": k}, xx, train=False))(
+        v = jitted_init(jm)(
             jax.random.key(0), jnp.asarray(x))
         v = _act_params(_with_heads(to_numpy_tree(v, np.float64),
                                     np.random.default_rng(4)),
@@ -197,7 +197,7 @@ def test_rprelu_predictor_from_flax_npz(tmp_path):
     jm = jdeit.deit_model(NAME, jpol)
     x = np.random.default_rng(5).normal(size=(3, 32, 32, 3)).astype(
         np.float32)
-    v = jax.jit(lambda k, xx: jm.init({"params": k}, xx, train=False))(
+    v = jitted_init(jm)(
         jax.random.key(0), jnp.asarray(x))
     v = _act_params(_with_heads(to_numpy_tree(v), np.random.default_rng(7)),
                     np.random.default_rng(6))

@@ -44,7 +44,7 @@ import torch
 from test_torch_batchnorm import SCALE_LEAF, assert_close, family, step_run
 from test_torch_cga_slice import CGA, _jax_policy, _port_policy
 from test_torch_dropout import x64_jit
-from test_torch_port_common import to_jax_tree, to_numpy_tree
+from test_torch_port_common import jitted_init, to_jax_tree, to_numpy_tree
 from test_torch_train_loop import _flat
 
 from ofq_tpu.models import deit as jdeit
@@ -143,7 +143,7 @@ def test_hook_functions_match_jax():
     jm = jdeit.deit_model(NAME, jpol)
     x = np.random.default_rng(0).normal(size=(2, 32, 32, 3))
     with x64_jit():
-        v = jax.jit(lambda k, xx: jm.init({"params": k}, xx, train=False))(
+        v = jitted_init(jm)(
             jax.random.key(0), jnp.asarray(x))
         params = to_jax_tree(to_numpy_tree(v["params"]), np.float64)
         jstates = josc.init_oscillation_states(params, bits=2,

@@ -30,6 +30,20 @@ def x64():
         jax.config.update("jax_enable_x64", False)
 
 
+_INIT_FNS = {}
+
+
+def jitted_init(jm):
+    """`jax.jit` of `jm.init(..., train=False)`, one per module
+    configuration (its repr), so every case that initialises that
+    configuration at one input shape and dtype reuses a single compile."""
+    key = repr(jm)
+    if key not in _INIT_FNS:
+        _INIT_FNS[key] = jax.jit(
+            lambda k, xx: jm.init({"params": k}, xx, train=False))
+    return _INIT_FNS[key]
+
+
 @pytest.fixture
 def jax_interpret(monkeypatch):
     """Run the JAX fused-QLinear Pallas kernel in interpret mode (the CPU

@@ -49,6 +49,14 @@ def test_import_loads_no_jax():
         "import ofq_tpu_torch.deploy, ofq_tpu_torch.ops.int8_qlinear\n"
         "import ofq_tpu_torch.models.swin, ofq_tpu_torch.ops.window_attention\n"
         "import ofq_tpu_torch.benchmarks.window_attn_lab\n"
+        "import ofq_tpu_torch.cli.train, ofq_tpu_torch.cli.cga\n"
+        "import ofq_tpu_torch.cli.eval, ofq_tpu_torch.cli.runner\n"
+        "import ofq_tpu_torch.cli.common, ofq_tpu_torch.data.pipeline\n"
+        "import ofq_tpu_torch.utils.flops, ofq_tpu_torch.utils.profiling\n"
+        "import ofq_tpu_torch.convert.flax\n"
+        "import ofq_tpu_torch.convert.torch_import\n"
+        "import ofq_tpu_torch.convert.torch_export\n"
+        "import ofq_tpu_torch.train.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'ofq_tpu', 'benchmarks', 'window_attn_lab') or m.startswith(("
         "'jax.', 'flax.', 'ofq_tpu.', 'benchmarks.')))\n"

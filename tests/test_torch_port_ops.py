@@ -171,6 +171,7 @@ def test_import_builds_nothing(tmp_path):
         import ofq_tpu_torch, ofq_tpu_torch.ops, ofq_tpu_torch.serve
         import ofq_tpu_torch.calibrate, ofq_tpu_torch.convert
         import ofq_tpu_torch.models, ofq_tpu_torch.nn, ofq_tpu_torch.quant
+        import ofq_tpu_torch.cli.runner, ofq_tpu_torch.train.checkpoint
         from ofq_tpu_torch.ops import _build
         assert _build._LIBS == {}, _build._LIBS
         print("ok")

@@ -4,6 +4,9 @@ side): losses, schedule, the weight-decay mask, AdamW against
 train step as a whole is in `test_torch_train_slice.py`.
 """
 
+import copy
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +14,8 @@ import optax
 import pytest
 import torch
 
-from test_torch_port_common import perturb, to_jax_tree, to_numpy_tree, x64
+from test_torch_port_common import (jitted_init, perturb, to_jax_tree,
+                                    to_numpy_tree, x64)
 
 from ofq_tpu.models.deit import deit_model as jax_deit_model
 from ofq_tpu.quant import default_deit_qmodules, policy_from_args
@@ -104,14 +108,20 @@ def test_schedule_matches_jax():
             assert abs(tf(t) - want) <= 3e-7 * want, t
 
 
-def _student_variables(seed=0, dtype=np.float64):
-    """The JAX student's variables, made by a jitted float32 init (scales
-    calibrated on a seeded batch), cast to `dtype`."""
+@functools.lru_cache(maxsize=None)
+def _student_variables_once(seed, dtype):
     x = np.random.default_rng(seed).normal(size=(BATCH, IMG, IMG, 3))
     jm = jax_deit_model(NAME, _jax_policy())
-    v = jax.jit(lambda k, xx: jm.init({"params": k}, xx, train=False))(
+    v = jitted_init(jm)(
         jax.random.key(seed), jnp.asarray(x, jnp.float32))
     return to_numpy_tree(v, dtype)
+
+
+def _student_variables(seed=0, dtype=np.float64):
+    """The JAX student's variables, made by a jitted float32 init (scales
+    calibrated on a seeded batch), cast to `dtype`; computed once per seed
+    and dtype (a copy each call)."""
+    return copy.deepcopy(_student_variables_once(seed, np.dtype(dtype)))
 
 
 def _jax_policy():
