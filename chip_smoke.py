@@ -240,6 +240,20 @@ The training CLI (`phase_cli`, in a temporary directory, synthetic data):
      save and restore GB/s); the K1, K2, K3 and Swin-T K4 entries of the
      kernels line carry their launches there (`cli_launches`), the int8
      line the integer-core forward's.
+ 21. the ImageFolder input pipeline (`phase_imagefolder`): (a) every
+     fixture of tests/torch_fixtures/imagefolder decoded on the card
+     against TensorFlow's decode stored beside it (JPEG through nvJPEG
+     within JPEG_GATE, its per-image time; PNG, BMP exact; the CMYK JPEG
+     refused, naming the file); (b) one set of draws through the train
+     and eval transforms and every RandAugment op on the card and the
+     CPU (gathers and integer ops exact, the rest within one level); (d)
+     the train stream's images/s at B = 64, 224 px, on JPEG copies and
+     on the fixture mix, and one batch by part; (c) the recipe's train,
+     CGA and eval commands on an ImageFolder of fixture copies at DeiT-S
+     width (36 K1 + 12 K2 + 12 K3 a step, nvJPEG launched, eval equal to
+     `Predictor.from_experiment`); an `[imagefolder]` line with the
+     decode and stream rates and the CLI step on ImageFolder against
+     synthetic data (wall s of the step and of the input before it).
 The agreement gates: fp32, the kernel path against the plain path; bf16,
 each path against a rounded-once reference (the plain path with every
 product summed in fp64 and rounded once to the dtype it returns), the
@@ -258,7 +272,8 @@ and the run ends with the sums over K1's to K5's launches on their paths
 and K6's, K7's and K8's times per launch.  The
 line before the last is a JSON object with every kernel's numbers (times
 in ms, CUDA events; bounds from the H100 SXM data sheet), after a line
-with the int8 paths' int8_mm entries ({"int8_mm": [...]}); the last line
+with the int8 paths' int8_mm entries ({"int8_mm": [...]}) and one with
+nvJPEG's ({"decode": [...]}, a library call, no kernel); the last line
 is {"ok": true, "device": {...}}.  Full results also go to
 chiprun_out/chip_smoke.json.
 """
@@ -4585,7 +4600,10 @@ def _sync():
 class CliSpy:
     """Wraps the runner's `make_train_step`, `save_epoch` and
     `restore_latest` for the duration of the phase: each train step's
-    launches (counts around the call), learning rate and, under CGA, the
+    launches (counts around the call), wall time (synchronised on both
+    sides), the wall time before it since the previous step ended (the
+    input: the next batch, its move to the device, mixup), learning
+    rate and, under CGA, the
     bits of its frozen entries before and after; the student's state when
     the step is built (the loaded start); each save's and restore's wall
     time and bytes; the runners."""
@@ -4593,6 +4611,7 @@ class CliSpy:
     def __init__(self):
         self.steps, self.starts, self.saves, self.restores = [], [], [], []
         self.runners = []
+        self.last_end = None
 
     @contextlib.contextmanager
     def active(self):
@@ -4637,17 +4656,26 @@ class CliSpy:
                     masks = freeze_masks(state.params, **cga)
                     frozen = {n: (m > 0.5, state.params[n].detach().clone())
                               for n, m in masks.items() if m is not None}
+                _sync()
+                t0 = time.perf_counter()
                 before = ops.launch_counts()
                 state, metrics = step(state, batch, generator)
                 after = ops.launch_counts()
+                _sync()
+                t1 = time.perf_counter()
                 changed = sum(int((state.params[n][m] != old[m]).sum())
                               for n, (m, old) in frozen.items())
+                # the input's share: from the end of the previous step
+                # to this one's start (the next batch, its move to the
+                # device, mixup)
+                gap = t0 - spy.last_end if spy.last_end else None
+                spy.last_end = t1
                 spy.steps.append(dict(
                     launches={k: after[k] - before[k] for k in after},
                     lr=lr, frozen=sum(int(m.sum()) for m, _ in
                                       frozen.values()),
                     frozen_changed=changed,
-                    loss=metrics["loss"]))
+                    loss=metrics["loss"], seconds=t1 - t0, input_s=gap))
                 return state, metrics
 
             return wrapped
@@ -4835,15 +4863,16 @@ def _same_as_checkpoint(exp_dir, epoch, student, state):
 
 
 def _eval_counts(model, data_cfg, dev):
-    """top-1 and top-5 (percent) of `model` over the runner's synthetic
-    validation batches, by `make_eval_step`'s ranking."""
+    """top-1 and top-5 (percent) of `model` over the runner's validation
+    batches (synthetic, or the ImageFolder's on the card), by
+    `make_eval_step`'s ranking."""
     import torch
-    from ofq_tpu_torch.data import synthetic_batches
+    from ofq_tpu_torch.data import make_dataset
     from ofq_tpu_torch.train import make_eval_step
     step = make_eval_step(model)
     tot = None
-    for b in synthetic_batches(data_cfg, train=False):
-        out = step(None, {k: torch.from_numpy(v).to(dev)
+    for b in make_dataset(data_cfg, train=False, device=dev):
+        out = step(None, {k: torch.as_tensor(v).to(dev)
                           for k, v in b.items()})
         row = torch.stack([out[k].double() for k in
                            ("correct1", "correct5", "count")])
@@ -4948,7 +4977,9 @@ def phase_cli(dev, deit="deit_small_distilled_patch16_224", swin="swin_t",
         out["phase1"] = _cli_line("(b) phase 1", t0, rec, launches)
         out["phase1"].update(composed_differing=diff,
                              k1_launch_shapes=k1_shapes,
-                             per_step=rec["steps"][0]["launches"])
+                             per_step=rec["steps"][0]["launches"],
+                             step_s=[s["seconds"] for s in rec["steps"]],
+                             input_s=[s["input_s"] for s in rec["steps"]])
 
         # (c) auto-resume
         t0 = time.perf_counter()
@@ -5084,6 +5115,371 @@ def phase_cli(dev, deit="deit_small_distilled_patch16_224", swin="swin_t",
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+# ------------------------------------------------- the ImageFolder slice
+FIXTURE_DIR = os.path.join(HERE, "tests", "torch_fixtures", "imagefolder")
+# nvJPEG against TensorFlow's libjpeg decode of the same file, in levels
+# (PERF.md section 6, written before the first card run): the mean |diff|
+# over every pixel and channel, and its 99.9th percentile.  IDCT rounding
+# and chroma upsampling differ between the two decoders; a wrong colour
+# conversion, a swapped channel or a lost block is tens of levels.
+JPEG_GATE = dict(mean=2.0, p999=10.0)
+# batches timed by the input pipeline's rate, after one warm-up batch
+PIPE_BATCHES = 3
+# decodes of each JPEG fixture timed for the decode rate
+DECODE_REPS = 50
+
+
+def _fixtures():
+    """[(name, bytes, TF's decode)] of tests/torch_fixtures/imagefolder."""
+    import lzma
+    import numpy as np
+    out = []
+    for name in sorted(os.listdir(FIXTURE_DIR)):
+        if name.endswith((".xz", ".py")):
+            continue
+        path = os.path.join(FIXTURE_DIR, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        with lzma.open(path + ".npy.xz") as f:
+            out.append((name, data, np.load(f)))
+    return out
+
+
+def phase_decode(dev):
+    """(a) every fixture decoded on the card against TensorFlow's decode:
+    PNG and BMP (host numpy, moved to the card) exact; JPEG (nvJPEG) within
+    JPEG_GATE, or, for a 4-component CMYK frame, a DecodeError naming the
+    file; per JPEG form the decode rate over DECODE_REPS decodes."""
+    import numpy as np
+    import torch
+    from ofq_tpu_torch.data import decode
+    rows, images = [], {}
+    for name, data, ref in _fixtures():
+        form = decode.image_form(data)
+        info = (decode.jpeg_info(data, name, dev) if form == "jpeg"
+                else None)
+        try:
+            img = decode.decode_image(data, name, dev)
+        except decode.DecodeError as e:
+            if not (info and info["components"] == 4 and name in str(e)):
+                raise
+            log(f"[decode] {name}: refused, {e}")
+            rows.append(dict(name=name, form=form, info=info,
+                             refused=str(e)))
+            continue
+        torch.cuda.synchronize()
+        if img.device != dev or img.dtype != torch.uint8 or \
+                tuple(img.shape) != ref.shape:
+            raise AssertionError(f"{name}: {img.device} {img.dtype} "
+                                 f"{tuple(img.shape)} against {ref.shape}")
+        d = np.abs(img.cpu().numpy().astype(np.int32) - ref)
+        row = dict(name=name, form=form, info=info, shape=list(ref.shape),
+                   mean=float(d.mean()),
+                   p999=float(np.percentile(d, 99.9)), max=int(d.max()),
+                   differing=int((d > 0).sum()))
+        if form == "jpeg":
+            fn = lambda: decode.decode_jpeg(data, name, dev)  # noqa: E731
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DECODE_REPS):
+                fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / DECODE_REPS
+            row.update(ms=ms, images_per_s=1e3 / ms)
+            ok = row["mean"] <= JPEG_GATE["mean"] and \
+                row["p999"] <= JPEG_GATE["p999"]
+        else:
+            ok = row["max"] == 0
+        log(f"[decode] {name}: {form} {info or ''} {ref.shape}: |diff| "
+            f"mean {row['mean']:.4f}, p99.9 {row['p999']:.1f}, max "
+            f"{row['max']} levels, {row['differing']} differing"
+            + (f"; {row['ms']:.3f} ms an image ({row['images_per_s']:.0f}"
+               f" images/s)" if "ms" in row else ""))
+        if not ok:
+            raise AssertionError(f"{name}: decode outside its gate "
+                                 f"{JPEG_GATE if form == 'jpeg' else 0}: "
+                                 f"{row}")
+        rows.append(row)
+        images[name] = img
+    return rows, images
+
+
+def phase_transforms(dev, images):
+    """(b) one set of draws through the train and the eval transform on
+    the card and on the CPU (each decoded fixture, 224 px, the recipe's
+    RandAugment, erasing always on): every RandAugment op at magnitude 9
+    and both signs on each image; gathers and integer ops exact,
+    resize and blends within one level (the normalized images within
+    1 / (255 std))."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from ofq_tpu_torch.data import augment, pipeline
+    cfg = dataclasses.replace(pipeline.DataConfig(), reprob=1.0)
+    exact = {"equalize", "invert", "posterize", "solarize", "solarize_add",
+             "rotate", "shear_x", "shear_y", "translate_x", "translate_y"}
+    cpu = {k: v.cpu() for k, v in images.items()}
+    ops = {}
+    for op in augment.OPS:
+        worst = 0
+        for name, img in images.items():
+            small = pipeline.saturate_u8(pipeline.resize(img, (224, 224),
+                                                         "bilinear"))
+            for sign in (-1.0, 1.0):
+                a = augment.apply_op(small, op, 9.0, sign).cpu()
+                b = augment.apply_op(small.cpu(), op, 9.0, sign)
+                worst = max(worst, int((a.int() - b.int()).abs().max()))
+        ops[op] = worst
+        if worst > (0 if op in exact else 1):
+            raise AssertionError(f"RandAugment {op}: card and CPU {worst} "
+                                 f"levels apart")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    names = sorted(images)
+    draws, noises = pipeline.train_draws(
+        gen, [tuple(images[n].shape[:2]) for n in names], cfg)
+    level = 1.0 / (255.0 * min(cfg.std))
+    worst_train = worst_eval = 0.0
+    for n, d, z in zip(names, draws, noises):
+        a = pipeline.train_transform(images[n], d, z, cfg).cpu()
+        b = pipeline.train_transform(cpu[n], d, None if z is None
+                                     else z.cpu(), cfg)
+        worst_train = max(worst_train, float((a - b).abs().max()))
+        a = pipeline.eval_transform(images[n], cfg).cpu()
+        b = pipeline.eval_transform(cpu[n], cfg)
+        worst_eval = max(worst_eval, float((a - b).abs().max()))
+    log(f"[transforms] card against CPU, the same draws: RandAugment ops "
+        f"at m9 max levels apart {ops}; train transform "
+        f"{worst_train / level:.3f}, eval transform "
+        f"{worst_eval / level:.3f} levels at most ({len(names)} images, "
+        f"{sum(d.erase is not None for d in draws)} erased)")
+    if worst_train > level + 1e-5 or worst_eval > level + 1e-5:
+        raise AssertionError(f"transforms: card and CPU {worst_train} / "
+                             f"{worst_eval} apart, over one level {level}")
+    return dict(ops_max_levels=ops, train_max_levels=worst_train / level,
+                eval_max_levels=worst_eval / level)
+
+
+def make_imagefolder(root, fixtures, n_train, n_val):
+    """<root>/train and <root>/val, 2 classes each, of copies of the
+    fixtures that decode (cycled), named by index."""
+    names = [n for n, _, _ in fixtures]
+    data = {n: d for n, d, _ in fixtures}
+    for split, n in (("train", n_train), ("val", n_val)):
+        for i in range(n):
+            src = names[i % len(names)]
+            d = os.path.join(root, split, f"c{i % 2}")
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, f"{i:04d}_{src}"), "wb") as f:
+                f.write(data[src])
+    return root
+
+
+def phase_pipeline_rate(dev, root, batch=BATCH, what="JPEG"):
+    """(d) the train stream of the ImageFolder at `root` at B=batch, 224
+    px, the recipe's transform (decode, RRC, RandAugment, erasing) without
+    the model: images/s over PIPE_BATCHES batches after one, and one batch
+    split into file reads and decode, draws and transforms."""
+    import torch
+    from ofq_tpu_torch.data import pipeline
+    from ofq_tpu_torch.data.decode import decode_image
+    cfg = pipeline.DataConfig(data_dir=root, batch_size=batch)
+    it = pipeline.make_dataset(cfg, train=True, device=dev)
+    next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PIPE_BATCHES):
+        b = next(it)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / PIPE_BATCHES
+    if tuple(b["image"].shape) != (batch, 224, 224, 3) or \
+            b["image"].device != dev or not torch.isfinite(
+                b["image"]).all():
+        raise AssertionError(f"pipeline batch {b['image'].shape} on "
+                             f"{b['image'].device}")
+    files, _ = pipeline.host_files(cfg, train=True)
+    files = (files * batch)[:batch]
+    parts = {}
+    t = time.perf_counter()
+    imgs = [decode_image(pipeline._read(f), f, dev) for f in files]
+    torch.cuda.synchronize()
+    parts["read_decode"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws, noises = pipeline.train_draws(
+        gen, [tuple(i.shape[:2]) for i in imgs], cfg)
+    torch.cuda.synchronize()
+    parts["draws"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out = torch.stack([pipeline.train_transform(i, d, z, cfg)
+                       for i, d, z in zip(imgs, draws, noises)])
+    torch.cuda.synchronize()
+    parts["transforms"] = time.perf_counter() - t
+    del out
+    log(f"[pipeline] {what} train stream B={batch} 224 px: "
+        f"{dt * 1e3:.1f} ms a "
+        f"batch, {batch / dt:.1f} images/s; one batch by part: "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in parts.items()))
+    return dict(ms_per_batch=dt * 1e3, images_per_s=batch / dt,
+                parts_ms={k: v * 1e3 for k, v in parts.items()})
+
+
+def phase_imagefolder(dev, deit="deit_small_distilled_patch16_224",
+                      batch=BATCH, steps=2, extra=()):
+    """The ImageFolder input pipeline on the card: (a) `phase_decode`,
+    (b) `phase_transforms`, (d) `phase_pipeline_rate` on an ImageFolder of
+    fixture copies (train: enough for the calibration batch and `steps`
+    steps at B=`batch`; val: batch + batch // 2 + 1 files, so that the eval
+    stream keeps a remainder), and (c) the recipe through the CLIs on it:
+    `cli.train.main` (phase 1 of train_scripts/deit_s/w2a2_deit_s.sh
+    without its warm-start flags, one epoch of `steps` steps,
+    `--matmul-impl fused --attn-impl fused`: 36 K1 + 12 K2 + 12 K3 a
+    step), `cli.cga.main` for one epoch from it, `cli.eval.main` of the
+    CGA experiment, whose top-1 / top-5 must equal
+    `Predictor.from_experiment`'s on the same batches.  The train stream
+    runs through nvJPEG (its launches counted)."""
+    import shutil
+    import tempfile
+    import torch
+    from ofq_tpu_torch import ops, serve
+    from ofq_tpu_torch.cli import cga as cli_cga
+    from ofq_tpu_torch.cli import eval as cli_eval
+    from ofq_tpu_torch.cli import train as cli_train
+    from ofq_tpu_torch.data import decode
+    out = {}
+    rows, images = phase_decode(dev)
+    out["decode"] = rows
+    out["transforms"] = phase_transforms(dev, images)
+    del images
+    usable = [f for f in _fixtures()
+              if not any(r["name"] == f[0] and "refused" in r for r in rows)]
+    tmp = tempfile.mkdtemp(prefix="ofq_imagefolder_")
+    spy = CliSpy()
+    try:
+        root = make_imagefolder(os.path.join(tmp, "data"), usable,
+                                n_train=(steps + 1) * batch,
+                                n_val=batch + batch // 2 + 1)
+        # the rate on JPEG alone (ImageNet's form), and on the CLI's mix,
+        # whose PNG and BMP copies decode in numpy on the host
+        jpeg_root = make_imagefolder(
+            os.path.join(tmp, "jpeg"),
+            [f for f in usable if f[0].endswith(".jpg")], 2 * batch, 1)
+        out["pipeline"] = phase_pipeline_rate(dev, jpeg_root, batch)
+        out["pipeline_mixed"] = phase_pipeline_rate(
+            dev, root, batch, what="fixture mix (JPEG, PNG, BMP)")
+        torch.cuda.empty_cache()
+        p1 = _drop_flags(recipe_argvs(DEIT_RECIPE, root, "-")[0],
+                         WARM_START)
+        c1 = _drop_flags(recipe_argvs(DEIT_RECIPE, root, "-")[1],
+                         WARM_START)
+        common = ["--batch-size", str(batch), "--steps-per-epoch",
+                  str(steps), "--epochs", "1", "--warmup-epochs", "0",
+                  "--cooldown-epochs", "0", "--matmul-impl", "fused",
+                  "--attn-impl", "fused", "--output", tmp,
+                  "--log-interval", "1", "--model", deit, "--teacher", deit,
+                  *extra]
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        decode.decode_jpeg.launches = 0
+        with spy.active():
+            cli_train.main(p1 + common + ["--experiment", "if1"], device=dev)
+        launches = ops.launch_counts()
+        jpeg_launches = decode.decode_jpeg.launches
+        rec = spy.take()
+        cfg = rec["runners"][0].model.cfg
+        want = _expected(FUSED, cfg, train=True)
+        _check_steps("(c) ImageFolder phase 1", rec["steps"], want, steps)
+        if jpeg_launches <= 0:
+            raise AssertionError("(c) the train run decoded no JPEG")
+        out["train"] = _cli_line("(c) ImageFolder phase 1", t0, rec,
+                                 launches)
+        out["train"].update(
+            per_step=rec["steps"][0]["launches"], jpeg_launches=jpeg_launches,
+            step_s=[s["seconds"] for s in rec["steps"]],
+            input_s=[s["input_s"] for s in rec["steps"]])
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        cga_argv = c1 + common + [
+            "--resume", os.path.join(tmp, "if1"), "--qk_reparam_type", "1",
+            "--boundaryRange", "0.005", "--freeze_for_n_epochs", "1",
+            "--experiment", "ifcga"]
+        with spy.active():
+            cli_cga.main(cga_argv, device=dev)
+        launches = ops.launch_counts()
+        rec = spy.take()
+        _check_steps("(c) ImageFolder CGA", rec["steps"], want, steps)
+        if any(s["frozen_changed"] for s in rec["steps"]):
+            raise AssertionError(f"(c) CGA moved frozen entries: "
+                                 f"{rec['steps']}")
+        out["cga"] = _cli_line("(c) ImageFolder CGA", t0, rec, launches)
+        t0 = time.perf_counter()
+        cga_dir = os.path.join(tmp, "ifcga")
+        with spy.active():
+            got = cli_eval.main(cga_argv[:-2] + ["--experiment", "ifeval",
+                                                 "--resume", cga_dir],
+                                device=dev)
+        rec = spy.take()
+        pred = serve.Predictor.from_experiment(cga_dir, batch_size=batch,
+                                               device=dev)
+        ref = _eval_counts(pred.model, rec["runners"][0].data_cfg, dev)
+        log(f"[cli] (c) ImageFolder eval: top1 {got['top1']:.3f} top5 "
+            f"{got['top5']:.3f}; Predictor.from_experiment on the same "
+            f"batches: {ref}")
+        if (got["top1"], got["top5"]) != (ref["top1"], ref["top5"]):
+            raise AssertionError(f"(c) eval {got} != predictor {ref}")
+        out["eval"] = dict(seconds=time.perf_counter() - t0,
+                           top1=got["top1"], top5=got["top5"])
+        del pred
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def imagefolder_numbers(full):
+    """(d) the numbers of the slice, each beside the card: nvJPEG's decode
+    rate, the input pipeline's rate, the CLI step on ImageFolder data
+    against the same step on synthetic data (phase_cli's phase 1)."""
+    im = full["imagefolder"]
+    syn = full["cli"]["phase1"]
+    out = dict(
+        card=full["card"],
+        decode_images_per_s={r["name"]: r["images_per_s"]
+                             for r in im["decode"] if "images_per_s" in r},
+        pipeline_images_per_s=im["pipeline"]["images_per_s"],
+        pipeline_parts_ms=im["pipeline"]["parts_ms"],
+        pipeline_mixed_images_per_s=im["pipeline_mixed"]["images_per_s"],
+        pipeline_mixed_parts_ms=im["pipeline_mixed"]["parts_ms"])
+    for what, rec in (("imagefolder", im["train"]), ("synthetic", syn)):
+        step, gap = rec["step_s"][-1], rec["input_s"][-1]
+        out[f"cli_{what}"] = dict(step_s=step, input_s=gap,
+                                  images_per_s=BATCH / (step + gap))
+    log(f"[imagefolder] {json.dumps(out)}")
+    return out
+
+
+def decode_row(full):
+    """nvJPEG's entry beside the kernels line: a library call where the JAX
+    package calls TensorFlow's decoder, no TPU kernel."""
+    im = full["imagefolder"]
+    jpeg = [r for r in im["decode"] if r["form"] == "jpeg" and "ms" in r]
+    main = next(r for r in jpeg if r["name"] == "baseline_420.jpg")
+    h, w, _ = main["shape"]
+    size = os.path.getsize(os.path.join(FIXTURE_DIR, main["name"]))
+    t_bytes, by = bound(size + h * w * 3, 0, PEAK_FP32_FLOPS)
+    return dict(name=f"nvJPEG decode {main['name']} ({h}x{w})",
+                route="library (nvJPEG), not a kernel",
+                source="ofq_tpu_torch/csrc/image_decode.cu",
+                replaces="ofq_tpu/data/pipeline.py:238 (tf.io.decode_image)",
+                launches=im["train"]["jpeg_launches"],
+                max_abs_err=max(r["max"] for r in jpeg),
+                mean_abs_err=main["mean"], ms=main["ms"], plain_ms=None,
+                bound_ms=t_bytes, bound_by=by, library_ms=main["ms"],
+                forms={r["name"]: dict(ms=r["ms"], mean=r["mean"],
+                                       p999=r["p999"], max=r["max"])
+                       for r in jpeg},
+                refused=[r["name"] for r in im["decode"] if "refused" in r])
 
 
 def _eval_batches(data_cfg):
@@ -5338,6 +5734,10 @@ def main() -> int:
     # the recipe through the training CLI, the checkpoints and serving
     cli = full["cli"] = phase_cli(dev)
     torch.cuda.empty_cache()
+    # the ImageFolder input pipeline: decode, transforms, the recipe on it
+    full["imagefolder"] = phase_imagefolder(dev)
+    torch.cuda.empty_cache()
+    full["imagefolder_numbers"] = imagefolder_numbers(full)
     int8_launches = {
         "DeiT-S without QKR int8 serving":
             full["slice_nonqkr_int8"]["launch_shapes"],
@@ -5503,6 +5903,9 @@ def main() -> int:
     # the int8 paths' integer product, a library call (no TPU kernel lies
     # on those paths), on a line of its own
     log(json.dumps({"int8_mm": int8}))
+    # nvJPEG, where the JAX package calls TensorFlow's decoder: a library
+    # call, no TPU kernel, on a line of its own
+    log(json.dumps({"decode": [decode_row(full)]}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

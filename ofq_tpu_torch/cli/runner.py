@@ -28,6 +28,10 @@ Where the port differs from the JAX runner:
     `local_to_global`, `make_mesh`/`shard_params`) are not ported yet:
     `--mesh-model-parallel` above 1, or a `WORLD_SIZE` above 1, raises
     `NotImplementedError` (ROADMAP.md, Queue 1 item 7).
+  * The data.  `synthetic` yields numpy batches as in JAX; an ImageFolder
+    `data_dir` is decoded and augmented on the runner's device
+    (`data/pipeline.py`), in the port's own train order and random
+    streams, so its batches are not JAX's batch for batch.
 
 The variables move between the steps of the set-up as Flax trees of
 numpy arrays ({collection: nested dict}, `convert.model_variables`), so
@@ -207,7 +211,8 @@ def recalibrate_missing_scales(model, variables, loaded, image):
                 continue
         flagged.append(m)
     p = next(model.parameters())
-    x = torch.as_tensor(np.asarray(image)).to(device=p.device, dtype=p.dtype)
+    x = (image if torch.is_tensor(image) else torch.as_tensor(
+        np.asarray(image))).to(device=p.device, dtype=p.dtype)
     was_training = model.training
     model.eval()
     try:
@@ -490,8 +495,13 @@ class Runner:
             self.teacher.to(torch.bfloat16)
 
     def _device_batch(self, batch) -> dict:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+        """Numpy (synthetic) or device (ImageFolder) arrays -> tensors on
+        the runner's device."""
+        return {k: (v if torch.is_tensor(v) else torch.from_numpy(
+            np.asarray(v))).to(self.device) for k, v in batch.items()}
+
+    def _dataset(self, cfg, *, train: bool):
+        return make_dataset(cfg, train=train, device=self.device)
 
     def _fit(self) -> dict:
         args = self.args
@@ -500,12 +510,15 @@ class Runner:
         with open(os.path.join(self.out_dir, "args.yaml"), "w") as f:
             yaml.safe_dump(vars(args), f)
 
-        train_it = make_dataset(self.data_cfg, train=True)
+        train_it = self._dataset(self.data_cfg, train=True)
         steps_per_epoch = args.steps_per_epoch or max(
             num_samples(self.data_cfg, train=True) // args.batch_size, 1)
-        calib_cfg = dataclasses.replace(self.data_cfg, seed=args.seed,
-                                        eval_transform=True)
-        first = next(iter(make_dataset(calib_cfg, train=True)))
+        # calibration: the first batch of the train split under the
+        # deterministic eval transform
+        calib_cfg = dataclasses.replace(
+            self.data_cfg, seed=args.seed, shard_index=0, shard_count=1,
+            eval_transform=True)
+        first = next(iter(self._dataset(calib_cfg, train=True)))
         variables = self.calibrate_init(first)
         self.load_pretrained(variables, calib_batch=first)
         tx, lr_epoch = self.build_optimizer(steps_per_epoch)
@@ -692,7 +705,7 @@ class Runner:
         stands.  The counts accumulate on the device: one host fetch."""
         totals = None
         eval_cfg = dataclasses.replace(self.data_cfg, seed=self.args.seed)
-        for batch in make_dataset(eval_cfg, train=False):
+        for batch in self._dataset(eval_cfg, train=False):
             out = eval_step(params, self._device_batch(batch))
             out = torch.stack([out[k].to(torch.float64) for k in
                                ("correct1", "correct5", "count",
@@ -711,7 +724,10 @@ class Runner:
         original-layout `.pth.tar`; or a pickle of the Flax params tree),
         validate."""
         args = self.args
-        first = next(iter(make_dataset(self.data_cfg, train=False)))
+        # calibration on the validation stream, as JAX's eval.py path
+        calib_cfg = dataclasses.replace(self.data_cfg, shard_index=0,
+                                        shard_count=1)
+        first = next(iter(self._dataset(calib_cfg, train=False)))
         variables = self.calibrate_init(first)
         if args.resume and os.path.isdir(args.resume):
             variables, loaded = self.restore_experiment_params(

@@ -1,4 +1,5 @@
-"""The synthetic input stream and device-side mixup/cutmix."""
+"""The input stream (synthetic or ImageFolder) and device-side
+mixup/cutmix."""
 
 from .pipeline import (IMAGENET_MEAN, IMAGENET_STD, DataConfig, MixupDraws,
                        make_dataset, mixup_apply, mixup_cutmix, mixup_draws,

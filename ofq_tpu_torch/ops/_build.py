@@ -4,10 +4,12 @@ Each `.cu` source exports a plain C launcher and is compiled by `nvcc` into
 its own shared library, loaded with `ctypes`: no PyTorch headers, so a
 source compiles in seconds.  A source may include a header of `csrc/`
 (`tc_gemm.cuh`, K1's tensor-core GEMM); every header is hashed into every
-library's name.  Libraries go to `ofq_tpu_torch/_build/`
-under a name that hashes the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.  `build_all()` starts one `nvcc`
-per source, all at once.
+library's name.  A source that calls a library of the toolkit names it in
+`LINK_FLAGS` (`image_decode`: nvJPEG); those flags join its hash, and a
+source without them hashes as it always did.  Libraries go to
+`ofq_tpu_torch/_build/` under a name that hashes the source and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+`build_all()` starts one `nvcc` per source, all at once.
 
 Nothing here runs at import: a kernel's library is built at its first
 launch (or by an explicit `build_all()`), and a build failure raises.
@@ -32,7 +34,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 SOURCES = ("fused_qlinear", "fused_attention", "fused_attention_bwd",
-           "pallas_statsq", "window_attention")
+           "pallas_statsq", "window_attention", "image_decode")
+# per source: the toolkit libraries it links (found at run time through an
+# rpath to the toolkit's lib64)
+LINK_FLAGS = {"image_decode": ("-lnvjpeg",)}
 
 # name -> loaded library; a process-wide cache of immutable handles
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -52,11 +57,20 @@ def _nvcc() -> str:
     return found
 
 
+def _link_flags(name: str, nvcc: str) -> list[str]:
+    libs = LINK_FLAGS.get(name)
+    if not libs:
+        return []
+    lib64 = Path(nvcc).resolve().parent.parent / "lib64"
+    return [f"-L{lib64}", *libs, f"-Xlinker=-rpath={lib64}"]
+
+
 def _lib_path(name: str) -> Path:
     # the source and every shared header it may include
     src = b"".join(p.read_bytes() for p in
                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS + list(LINK_FLAGS.get(name, ())))
+    h = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{h}.so"
 
 
@@ -71,7 +85,8 @@ def build_all(names=SOURCES) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *_link_flags(name, nvcc)]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)

@@ -176,12 +176,21 @@ def test_synthetic_batches_bit_equal(cfg, train):
 
 
 def test_dataset_fields_and_imagefolder_refusal(tmp_path):
+    """The fields are JAX's.  An ImageFolder data_dir is no longer refused
+    as not ported: it is listed, and only a split without images, or a
+    missing directory, raises."""
     assert [f.name for f in dataclasses.fields(pipeline.DataConfig)] == [
         f.name for f in dataclasses.fields(jpipeline.DataConfig)]
+    (tmp_path / "train" / "c0").mkdir(parents=True)
     cfg = pipeline.DataConfig(data_dir=str(tmp_path))
-    for call in (lambda: pipeline.make_dataset(cfg, train=True),
-                 lambda: pipeline.num_samples(cfg, train=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    assert pipeline.num_samples(cfg, train=True) == 0
+    with pytest.raises(ValueError, match="no images in its train split"):
+        pipeline.make_dataset(cfg, train=True, device="cpu")
+    missing = pipeline.DataConfig(data_dir=str(tmp_path / "absent"))
+    for call in (lambda: pipeline.make_dataset(missing, train=False,
+                                               device="cpu"),
+                 lambda: pipeline.num_samples(missing, train=False)):
+        with pytest.raises(FileNotFoundError):
             call()
 
 

@@ -1,6 +1,7 @@
 """The port stands alone: `ofq_tpu_torch` and `chip_smoke.py` import neither
 JAX/Flax nor anything of the JAX package `ofq_tpu` or of its lab benches
-(`benchmarks`, which import JAX)."""
+(`benchmarks`, which import JAX), nor the image libraries that the card's
+machine lacks (TensorFlow, PIL, OpenCV, torchvision)."""
 
 import re
 import subprocess
@@ -8,9 +9,10 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
+_NAMES = r"(jax|flax|ofq_tpu|benchmarks|tensorflow|PIL|cv2|torchvision)"
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax|ofq_tpu|benchmarks)\b(?!_torch)"
-    r"|from\s+(jax|flax|ofq_tpu|benchmarks)\b(?!_torch))", re.M)
+    rf"^\s*(import\s+{_NAMES}\b(?!_torch)"
+    rf"|from\s+{_NAMES}\b(?!_torch))", re.M)
 
 
 def _sources():
@@ -32,7 +34,9 @@ def test_pattern_catches_what_it_should():
                  "import ofq_tpu", "from ofq_tpu.quant import lsq",
                  "    from ofq_tpu import serve",
                  "from benchmarks import window_attn_lab",
-                 "import benchmarks.window_attn_lab as lab"):
+                 "import benchmarks.window_attn_lab as lab",
+                 "import tensorflow as tf", "from PIL import Image",
+                 "import cv2", "from torchvision import transforms"):
         assert FORBIDDEN.search(line), line
     for line in ("import ofq_tpu_torch", "from ofq_tpu_torch.ops import x",
                  "import jaxlib_free_module_name_is_not_jax"):
@@ -52,14 +56,18 @@ def test_import_loads_no_jax():
         "import ofq_tpu_torch.cli.train, ofq_tpu_torch.cli.cga\n"
         "import ofq_tpu_torch.cli.eval, ofq_tpu_torch.cli.runner\n"
         "import ofq_tpu_torch.cli.common, ofq_tpu_torch.data.pipeline\n"
+        "import ofq_tpu_torch.data.decode, ofq_tpu_torch.data.resize\n"
+        "import ofq_tpu_torch.data.augment\n"
         "import ofq_tpu_torch.utils.flops, ofq_tpu_torch.utils.profiling\n"
         "import ofq_tpu_torch.convert.flax\n"
         "import ofq_tpu_torch.convert.torch_import\n"
         "import ofq_tpu_torch.convert.torch_export\n"
         "import ofq_tpu_torch.train.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
-        "'ofq_tpu', 'benchmarks', 'window_attn_lab') or m.startswith(("
-        "'jax.', 'flax.', 'ofq_tpu.', 'benchmarks.')))\n"
+        "'ofq_tpu', 'benchmarks', 'window_attn_lab', 'tensorflow', 'PIL', "
+        "'cv2', 'torchvision') or m.startswith(("
+        "'jax.', 'flax.', 'ofq_tpu.', 'benchmarks.', 'tensorflow.', "
+        "'PIL.', 'cv2.', 'torchvision.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
