@@ -2594,7 +2594,9 @@ def check_blocks_backward(model, teacher, data, conf=FUSED, gate=None):
 
 
 def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
-                     loss_kind="kd_soft_hard", order_spread=False):
+                     loss_kind="kd_soft_hard", order_spread=False,
+                     kernel_grads=None, kernel_loss=None,
+                     kernel_updates=None, refs=None, tag="[train]"):
     """The whole step's parameter gradients through the kernels and through
     the plain versions, each against the reference (above
     GRAD_GATE_MIN_FLOOR) and against the composed model in fp64 on the
@@ -2610,7 +2612,11 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
     path's distance from the fp64 model's + 1e-4 of it.  `order_spread`
     holds an fp32 path to the order spread too (against the fp64 model),
     and prints how many parameters 2 x the plain path's distance alone
-    would refuse."""
+    would refuse.  `kernel_grads` (by name; with `kernel_loss` and, for a
+    BatchNorm student, `kernel_updates`) stand in for the kernel path's:
+    a step taken elsewhere (the data-parallel step) held to the same
+    rule; `refs` keeps the plain, fp64 and reference paths' results
+    between such calls (they depend on neither); `tag` heads the lines."""
     import torch
     losses = {}
     # a BatchNorm student's running-statistic updates on each path (each
@@ -2635,28 +2641,63 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
         return {n: (torch.zeros_like(p) if gi is None else gi).double()
                 for (n, p), gi in zip(params.items(), g)}
 
+    def path(key, fn):
+        """`fn()`'s gradients, its loss and statistic updates kept in (or
+        taken from) `refs`."""
+        if refs is not None and key in refs:
+            g, loss, upd = refs[key]
+            if loss is not None:
+                losses[key] = loss
+            if upd is not None:
+                updates[key] = upd
+            return g
+        g = fn()
+        if refs is not None:
+            refs[key] = (g, losses.get(key), updates.get(key))
+        return g
+
+    def plain():
+        with plain_path(model):
+            return grads(model, teacher, data["image"], "plain")
+
+    def fp64():
+        ref = composed_fp64(model)
+        t64 = composed_fp64(teacher)
+        try:
+            return grads(ref, t64, data["image"].double(), "fp64")
+        finally:
+            del ref, t64
+
     model.train()
-    g_k = grads(model, teacher, data["image"], "kernels")
-    with plain_path(model):
-        g_p = grads(model, teacher, data["image"], "plain")
-    ref = composed_fp64(model)
-    t64 = composed_fp64(teacher)
-    g_64 = grads(ref, t64, data["image"].double(), "fp64")
-    del ref, t64
+    if kernel_grads is None:
+        g_k = grads(model, teacher, data["image"], "kernels")
+    else:
+        g_k = {n: g.to(data["image"].device, torch.float64)
+               for n, g in kernel_grads.items()}
+        losses["kernels"] = kernel_loss
+        if kernel_updates:
+            updates["kernels"] = {
+                k: u.to(data["image"].device, torch.float64)
+                for k, u in kernel_updates.items()}
+    g_p = path("plain", plain)
+    g_64 = path("fp64", fp64)
     lim = 2 * abs(losses["plain"] - losses["fp64"]) + 1e-4 * abs(
         losses["fp64"])
     gated = loss_kind != "kd_soft_hard" and conf["compute_dtype"] is None
-    log(f"[train] {loss_kind} loss: kernels {losses['kernels']:.8f}, plain "
+    log(f"{tag} {loss_kind} loss: kernels {losses['kernels']:.8f}, plain "
         f"{losses['plain']:.8f}, composed fp64 {losses['fp64']:.8f}"
         + (f" (gate: |kernels - fp64| <= {lim:.3e})" if gated else ""))
     if gated and abs(losses["kernels"] - losses["fp64"]) > lim:
-        raise GateTripped(f"{loss_kind}: the kernel path's loss "
+        raise GateTripped(f"{tag} {loss_kind}: the kernel path's loss "
                           f"{losses['kernels']} is farther than {lim} from "
                           f"the fp64 model's {losses['fp64']}")
     bf16 = conf["compute_dtype"] is not None
     if bf16:
-        with reference_path(model):
-            g_r = grads(model, teacher, data["image"], tag="reference")
+        def reference():
+            with reference_path(model):
+                return grads(model, teacher, data["image"], tag="reference")
+
+        g_r = path("reference", reference)
     else:
         g_r = g_64
 
@@ -2675,13 +2716,13 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
                 (paths or {"kernels": g_k, "plain": g_p}).items()}
 
     rkp = max(_rel(g_k[n], g_p[n]) for n in g_p)
-    log(f"[train] whole-step gradients, kernels vs plain: largest relative "
+    log(f"{tag} whole-step gradients, kernels vs plain: largest relative "
         f"L2 per parameter {rkp:.3e}")
     rows_64, glob_64 = rows_against(g_64), together(g_64)
     if bf16:
         rk = sorted(r["rel_kernels"] for r in rows_64)
         rp = sorted(r["rel_plain"] for r in rows_64)
-        log(f"[train] whole-step gradients vs the composed fp64 model (not "
+        log(f"{tag} whole-step gradients vs the composed fp64 model (not "
             f"gated in bf16): kernels median {rk[len(rk) // 2]:.3e}, plain "
             f"median {rp[len(rp) // 2]:.3e}; all parameters together: "
             f"kernels {glob_64['kernels']:.3e}, plain {glob_64['plain']:.3e}")
@@ -2707,11 +2748,11 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
         fl = max(GRAD_GATE_MIN_FLOOR, rp[len(rp) // 2])
         past = [r["name"] for r in rows
                 if r["rel_kernels"] > 2 * r["rel_plain"] + fl]
-        log(f"[train] whole-step gradients, fp32 held to the order spread: "
+        log(f"{tag} whole-step gradients, fp32 held to the order spread: "
             f"2 x the plain path's distance + {fl:.3e} alone would refuse "
             f"{len(past)} of {len(rows)} parameters {past[:5]}")
     floor = _grad_gate(
-        "[train] whole-step gradients vs the "
+        f"{tag} whole-step gradients vs the "
         + ("rounded-once reference" if bf16 else "composed fp64 model"),
         rows, glob)
     out = dict(floor=floor, all_params=glob, all_params_fp64=glob_64,
@@ -2733,7 +2774,7 @@ def check_step_grads(model, teacher, data, conf=FUSED, orders=None,
                                       orders[("stats", j)]
                                       for j in ORDER_CHUNKS])
         out["bn_floor"] = _grad_gate(
-            "[train] BatchNorm running-statistic updates vs the "
+            f"{tag} BatchNorm running-statistic updates vs the "
             + ("rounded-once reference" if bf16 else "composed fp64 model"),
             srows)
         out["bn_stats"] = srows
@@ -4881,8 +4922,22 @@ def _eval_counts(model, data_cfg, dev):
     return {"top1": 100.0 * c1 / n, "top5": 100.0 * c5 / n}
 
 
+def phase1_argv(fp_path, out_dir, deit="deit_small_distilled_patch16_224",
+                batch=BATCH, steps=2, extra=()):
+    """Phase 1 of train_scripts/deit_s/w2a2_deit_s.sh as `phase_cli` (b)
+    runs it (without `--epochs` and `--experiment`), and the CGA
+    command's arguments it shares: (phase 1, CGA, common)."""
+    p1, c1 = recipe_argvs(DEIT_RECIPE, "synthetic", fp_path)
+    common = ["--batch-size", str(batch), "--steps-per-epoch",
+              str(steps), "--warmup-epochs", "0", "--cooldown-epochs",
+              "0", "--matmul-impl", "fused", "--attn-impl", "fused",
+              "--output", out_dir, "--log-interval", "1", "--model", deit,
+              "--teacher", deit, *extra]
+    return p1 + common, c1, common
+
+
 def phase_cli(dev, deit="deit_small_distilled_patch16_224", swin="swin_t",
-              batch=BATCH, steps=2, extra=()):
+              batch=BATCH, steps=2, extra=(), keep=None):
     """The recipe's runs through the port's entry points
     (`cli.train.main`, `cli.cga.main`, `cli.eval.main`, `serve.main`) at
     full width, synthetic data, in a temporary directory (`extra`: more
@@ -4912,7 +4967,9 @@ def phase_cli(dev, deit="deit_small_distilled_patch16_224", swin="swin_t",
           warm-start flags, one epoch of `steps` steps, `--matmul-impl
           pallas --compute-dtype bfloat16`: 39 K4 a step and a forward.
     One `[cli]` line each: wall s, steps, launches, checkpoint bytes, the
-    GB/s of save and restore (host copy and file, synchronous)."""
+    GB/s of save and restore (host copy and file, synchronous).  `keep`: a
+    directory that receives the warm-start file and phase 1's epoch-0
+    checkpoint (`phase_ddp` holds its NCCL run to them)."""
     import shutil
     import tempfile
     import numpy as np
@@ -4941,12 +4998,9 @@ def phase_cli(dev, deit="deit_small_distilled_patch16_224", swin="swin_t",
         del fp
         log(f"[cli] (a) float {deit} written as {os.path.getsize(fp_path)}"
             f" bytes of .pth.tar in {time.perf_counter() - t0:.1f} s")
-        p1, c1 = recipe_argvs(DEIT_RECIPE, "synthetic", fp_path)
-        common = ["--batch-size", str(batch), "--steps-per-epoch",
-                  str(steps), "--warmup-epochs", "0", "--cooldown-epochs",
-                  "0", "--matmul-impl", "fused", "--attn-impl", "fused",
-                  "--output", tmp, "--log-interval", "1", "--model", deit,
-                  "--teacher", deit, *extra]
+        p1, c1, common = phase1_argv(fp_path, tmp, deit, batch, steps,
+                                     extra)
+        p1 = p1[:-len(common)]
         phase1 = os.path.join(tmp, "phase1")
 
         # (b) phase 1
@@ -5079,6 +5133,10 @@ def phase_cli(dev, deit="deit_small_distilled_patch16_224", swin="swin_t",
                             artifact_bytes=os.path.getsize(art))
         log(f"[cli] (f) serving: wall {out['serve']['seconds']:.1f} s")
         del live, frozen
+        if keep:
+            shutil.copy(fp_path, os.path.join(keep, "fp.pth.tar"))
+            shutil.copytree(os.path.join(phase1, "0"),
+                            os.path.join(keep, "phase1_epoch0"))
         shutil.rmtree(phase1)
         torch.cuda.empty_cache()
 
@@ -5487,6 +5545,584 @@ def _eval_batches(data_cfg):
     return synthetic_batches(data_cfg, train=False)
 
 
+# ------------------------------------------------- data parallelism
+# Phase 22 (`phase_ddp`): the port's data-parallel training on the card.
+# The second rank shares the one card: NCCL refuses two ranks on one
+# device, so they run over gloo, which stages each collective through the
+# host, and they share the card's SMs: no number here is a data-parallel
+# rate, each is a functional reading.
+DDP_WORLD = 2
+DDP_TIMEOUT = 420       # s, one spawn of the ranks
+DDP_NCCL_TIMEOUT = 90   # s, the NCCL trial
+# (key, configuration, model, config overrides) of the two-rank steps
+DDP_STEPS = (("deit", FUSED, "deit_small_distilled_patch16_224", None),
+             ("deit_bn", FUSED, "deit_small_distilled_patch16_224", BN),
+             ("swin", PALLAS, "swin_t", SWIN_BENCH))
+# the data-parallel faults of the gate self-check (the DeiT-S step): the
+# LSQ gradient scales taken at the local batch's shape, the gradient mean
+# over the ranks replaced by their sum
+DDP_FAULTS = ("local_lsq_scale", "gradient_sum")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class RecordingOptimizer:
+    """An optimizer that keeps the gradients the step hands it (after the
+    all-reduce over the ranks)."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        return self.opt.update(grads, state, params)
+
+
+@contextlib.contextmanager
+def ddp_fault(fault):
+    """One of DDP_FAULTS (None: none) in effect."""
+    from ofq_tpu_torch.parallel import collectives
+    from ofq_tpu_torch.quant import lsq
+    if fault == "local_lsq_scale":
+        # the activations' gradient scale (`act_grad_scale_factor`, and
+        # the image quantizer's) at this rank's shape
+        sites = [(lsq, "batch_shape", tuple)]
+    elif fault == "gradient_sum":
+        real = collectives.all_reduce_mean
+        sites = [(collectives, "all_reduce_mean", lambda g, mesh: {
+            k: v * mesh.world for k, v in real(g, mesh).items()})]
+    else:
+        sites = []
+    saved = [(m, n, getattr(m, n)) for m, n, _ in sites]
+    for m, n, fn in sites:
+        setattr(m, n, fn)
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def _ddp_child(rank, world, port, backend, job, tmp, device):
+    """One rank (torchrun's environment with LOCAL_RANK 0: on the card,
+    both ranks on cuda:0; `device` "cpu" for a rehearsal):
+    `initialize_multihost(backend=backend)`, then `job(rank, world, tmp,
+    mesh)`, whose result goes to <tmp>/<job>.rank<r>.pt (a traceback to
+    .err)."""
+    import traceback
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if backend == "nccl":
+        # NCCL's own words for a refusal go to its debug log, not to the
+        # exception
+        os.environ.update(NCCL_DEBUG="WARN", NCCL_DEBUG_FILE=os.path.join(
+            tmp, f"nccl.rank{rank}.log"))
+    sys.path.insert(0, HERE)
+    import torch
+    try:
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        from ofq_tpu_torch.parallel import initialize_multihost, make_mesh
+        initialize_multihost(backend=backend, device=device)
+        out = globals()[job](rank, world, tmp, make_mesh(device=device))
+        torch.save(out, os.path.join(tmp, f"{job}.rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(tmp, f"{job}.rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    if backend == "nccl":
+        os._exit(0)  # a communicator NCCL refused may hang at exit
+    torch.distributed.destroy_process_group()
+
+
+def ddp_spawn(job, tmp, backend="gloo", world=DDP_WORLD,
+              timeout=DDP_TIMEOUT, required=True, device="cuda"):
+    """`world` ranks of `job` (a function of this file), each a process of
+    its own (spawned); (their results by rank, the ranks that outlived
+    `timeout`).  Every rank still alive at the deadline is killed.  A rank
+    that failed, hung or left no result fails the run unless
+    `required=False` (the NCCL trial, whose outcome is only recorded)."""
+    import multiprocessing as mp
+    import torch
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_ddp_child,
+                         args=(r, world, port, backend, job, tmp, device))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(deadline - time.perf_counter(), 0.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results, errors = [], []
+    for r in range(world):
+        path = os.path.join(tmp, f"{job}.rank{r}.pt")
+        results.append(torch.load(path, weights_only=False)
+                       if os.path.exists(path) else None)
+        err = os.path.join(tmp, f"{job}.rank{r}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append(f"rank {r}:\n{f.read()[-3000:]}")
+    codes = [p.exitcode for p in procs]
+    if required and (hung or errors or any(codes) or None in results):
+        raise AssertionError(f"{job}: ranks hung {hung}, exit codes {codes}"
+                             + "".join("\n" + e for e in errors))
+    return results, hung
+
+
+def _ddp_nccl_trial(rank, world, tmp, mesh):
+    """One NCCL all-reduce with both ranks on one card: its outcome, and
+    the WARN lines of NCCL's debug log."""
+    import torch
+    t = torch.ones(4, device=mesh.device)
+    try:
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        out = dict(ran=True, value=float(t[0]))
+    except Exception as e:  # recorded: NCCL's words are the result
+        out = dict(ran=False, error=f"{type(e).__name__}: {e}"[:600])
+    path = os.path.join(tmp, f"nccl.rank{rank}.log")
+    if os.path.exists(path):
+        with open(path, errors="replace") as f:
+            out["warn"] = [ln.strip()[:300] for ln in f if "WARN" in ln][:4]
+    return out
+
+
+def _cpu(tree):
+    return {k: v.detach().cpu() for k, v in tree.items()}
+
+
+def ddp_step(mesh, student, teacher, rows, timed=True):
+    """One data-parallel step of `student` on this rank's `rows` (the
+    schedule of `phase_train`): the all-reduced gradients, the parameters
+    after it, the running-statistic updates, the loss and the launches;
+    with `timed`, the wall time of one more step, the gradient bytes and
+    the gradient all-reduce's wall time, and the bytes and wall time of
+    mixup's partner fetch (`flip_partner` of the rank's images and labels:
+    an all-reduce of the global batch) at these rows (medians of 3 after
+    a warm-up)."""
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.parallel import collectives
+    from ofq_tpu_torch.train import (TrainState, cosine_with_warmup_cooldown,
+                                     make_optimizer, make_train_step)
+    opt = RecordingOptimizer(make_optimizer(cosine_with_warmup_cooldown(
+        5.47e-4, epochs=300, warmup_epochs=5, warmup_lr=1e-6, min_lr=1e-5),
+        weight_decay=0.05))
+    state = TrainState.create(student, opt)
+    step = make_train_step(student, opt, teacher=teacher,
+                           loss_kind="kd_soft_hard", device=mesh.device,
+                           mesh=mesh)
+    stats0 = {k: v.double() for k, v in bn_stats(student).items()}
+    ops.reset_launch_counts()
+    state, met = step(state, rows)
+    _sync()
+    res = dict(grads=_cpu(opt.grads), params=_cpu(state.params),
+               stat_updates={k: (v.double() - stats0[k]).cpu()
+                             for k, v in bn_stats(student).items()},
+               loss=float(met["loss"]), launches=ops.launch_counts(),
+               shapes={**_shapes(ops.fused_qlinear_fwd),
+                       **_shapes(ops.pallas_statsq_fwd)})
+    if timed:
+        t0 = time.perf_counter()
+        state, met = step(state, rows)
+        float(met["loss"])
+        res["step_s"] = time.perf_counter() - t0
+        grads = opt.grads
+        res["grad_bytes"] = sum(g.numel() * g.element_size()
+                                for g in grads.values())
+        res["flip_bytes"] = mesh.world * sum(
+            rows[k].numel() * rows[k].element_size()
+            for k in ("image", "label"))
+
+        def wall(fn):
+            times = []
+            for _ in range(4):
+                _sync()
+                t0 = time.perf_counter()
+                fn()
+                _sync()
+                times.append(time.perf_counter() - t0)
+            return sorted(times[1:])[1]
+
+        res["all_reduce_s"] = wall(
+            lambda: collectives.all_reduce_mean(grads, mesh))
+        res["flip_s"] = wall(lambda: [collectives.flip_partner(rows[k], mesh)
+                                      for k in ("image", "label")])
+    return res
+
+
+def _ddp_steps(rank, world, tmp, mesh):
+    """Rank `rank`'s steps of the parent's list (`ddp_steps.pt`: DDP_STEPS
+    and the batch; the first's also under DDP_FAULTS), each from the
+    start the parent saved, on its rows of the batch."""
+    import torch
+    spec = torch.load(os.path.join(tmp, "ddp_steps.pt"), weights_only=False)
+    out = {}
+    for i, (key, conf, name, overrides) in enumerate(spec["steps"]):
+        start = torch.load(os.path.join(tmp, f"{key}.start.pt"),
+                           weights_only=True)
+        student, teacher, data = build_trained(
+            mesh.device, conf, name, spec["batch"], overrides=overrides)
+        per = spec["batch"] // world
+        rows = {k: v[rank * per:(rank + 1) * per] for k, v in data.items()}
+        out[key] = {}
+        for fault in (None,) + (DDP_FAULTS if i == 0 else ()):
+            student.load_state_dict(start["student"])
+            teacher.load_state_dict(start["teacher"])
+            with ddp_fault(fault):
+                out[key][fault or "ok"] = ddp_step(mesh, student, teacher,
+                                                   rows, fault is None)
+        del student, teacher, data
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_recipe(rank, world, tmp, mesh):
+    """The recipe's train and eval commands at world 2 (`recipe.json`)."""
+    from ofq_tpu_torch.cli import eval as cli_eval
+    from ofq_tpu_torch.cli import train as cli_train
+    with open(os.path.join(tmp, "recipe.json")) as f:
+        spec = json.load(f)
+    spy = CliSpy()
+    t0 = time.perf_counter()
+    with spy.active():
+        cli_train.main(spec["train"], device=str(mesh.device))
+    rec = spy.take()
+    t1 = time.perf_counter()
+    got = cli_eval.main(spec["eval"], device=str(mesh.device))
+    return dict(steps=[dict(launches=s["launches"], seconds=s["seconds"])
+                       for s in rec["steps"]],
+                batch=rec["runners"][0].data_cfg.batch_size,
+                train_s=t1 - t0, eval=got, eval_s=time.perf_counter() - t1)
+
+
+def ddp_draw_cost(dev, name="deit_small_distilled_patch16_224",
+                  batch=BATCH):
+    """What drawing each dropout and drop-path mask at the global batch's
+    shape costs a rank: the masks of one train forward of `name` under
+    DROP (their shapes recorded through `nn.dropout.bernoulli`), drawn
+    through `bernoulli` at one rank's `batch // DDP_WORLD` rows, alone and
+    inside a world-2 data-parallel context (the global draw, cut to the
+    rank's rows); CUDA events, median of 20."""
+    import contextlib as cl
+    import torch
+    from ofq_tpu_torch.models import create_model
+    from ofq_tpu_torch.nn import dropout as nn_dropout
+    from ofq_tpu_torch.parallel import Mesh, collectives
+    cfg, policy = _family(name)
+    model = create_model(name, policy=policy, device=dev, **FUSED, **DROP)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes, real = [], nn_dropout.bernoulli
+
+    def record(shape, keep, generator):
+        shapes.append((tuple(shape), keep))
+        return real(shape, keep, generator)
+
+    x = torch.zeros(2, cfg.img_size, cfg.img_size, 3, device=dev)
+    model.train()
+    nn_dropout.bernoulli = record
+    try:
+        with torch.no_grad():
+            model(x, gen)
+    finally:
+        nn_dropout.bernoulli = real
+    del model
+    per = batch // DDP_WORLD
+    local = [((per,) + s[1:], keep) for s, keep in shapes]
+
+    def draw(ctx):
+        with ctx:
+            for s, keep in local:
+                nn_dropout.bernoulli(s, keep, gen)
+
+    mesh = Mesh(world=DDP_WORLD, rank=0, local_rank=0, device=dev)
+    out = dict(masks=len(local),
+               local_ms=median_ms(lambda: draw(cl.nullcontext())),
+               global_ms=median_ms(lambda: draw(
+                   collectives.data_parallel(mesh))))
+    log(f"[ddp] the {out['masks']} dropout and drop-path masks of one "
+        f"{name} train forward ({DROP}), per rank at {per} rows: drawn at "
+        f"the rank's shape {out['local_ms']:.3f} ms, at the global "
+        f"batch's and cut {out['global_ms']:.3f} ms")
+    return out
+
+
+def payload_differing(got, want, path="") -> dict:
+    """{path: elements differing} between two checkpoint payloads (every
+    tensor, number and string of the tree; a missing key differs)."""
+    import torch
+    out = {}
+    if isinstance(want, dict):
+        for k in set(got) | set(want):
+            if k not in got or k not in want:
+                out[f"{path}/{k}"] = -1
+            else:
+                out.update(payload_differing(got[k], want[k], f"{path}/{k}"))
+    elif torch.is_tensor(want):
+        same = (got.shape == want.shape and got.dtype == want.dtype)
+        n = int((got != want).sum()) if same else -1
+        if n:
+            out[path] = n
+    elif got != want:
+        out[path] = -1
+    return out
+
+
+def _decodes(fixture, dev):
+    from ofq_tpu_torch.data import decode
+    name, data, _ = fixture
+    try:
+        decode.decode_image(data, name, dev)
+    except decode.DecodeError:
+        return False
+    return True
+
+
+def phase_ddp(dev, kept, deit="deit_small_distilled_patch16_224",
+              batch=BATCH, steps=2, extra=(), ddp_steps=DDP_STEPS):
+    """The port's data parallelism (`ofq_tpu_torch.parallel`) on the card:
+
+      (a) NCCL at world 1 through the CLI: in this process, with RANK=0
+          WORLD_SIZE=1 LOCAL_RANK=0 and a free MASTER_PORT, `phase_cli`'s
+          phase 1 (DeiT-S W2A2 QKR fused, 36 K1 + 12 K2 + 12 K3 a step)
+          to its epoch-0 checkpoint, which must be the bits of `phase_cli`'s
+          single-process one (`kept`: its warm-start file and that
+          checkpoint);
+      (b) two ranks on the one card: NCCL tried once (its words
+          recorded), then gloo over CUDA tensors.  From the states this
+          process builds, each of DDP_STEPS at 2 x `batch // 2` (the
+          DeiT-S fused fp32 step, the BN DeiT-S step, the Swin-T pallas
+          bf16 step): the ranks' all-reduced gradients and updated
+          parameters bit for bit equal, their launches `_expected`'s,
+          and the gradients (and BN's running-statistic updates) held by
+          `check_step_grads`' whole-step rule against the single-process
+          paths at `batch`; the LSQ scales named.  The gate self-check's
+          data-parallel faults (DDP_FAULTS) must trip that rule;
+      (c) the recipe at world 2: `cli.train.main` (phase 1 without its
+          warm start, one epoch of `steps` steps) and `cli.eval.main` on an
+          ImageFolder of fixture copies (97 validation files: a remainder,
+          so the -1 padding runs); each rank's top-1 and top-5 must equal
+          this process's single-process eval of the checkpoint exactly.
+    One `[ddp]` line each (wall s per step per rank, gradient bytes
+    reduced, the all-reduce's wall time: functional numbers, two ranks
+    sharing one card over gloo)."""
+    import shutil
+    import tempfile
+    import torch
+    from ofq_tpu_torch.cli import eval as cli_eval
+    from ofq_tpu_torch.cli import train as cli_train
+    from ofq_tpu_torch.parallel import backend_for
+    out, selfcheck = {}, []
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ofq_ddp_")
+    try:
+        # (a) NCCL at world 1, through the CLI
+        t0 = time.perf_counter()
+        argv = phase1_argv(os.path.join(kept, "fp.pth.tar"), tmp, deit,
+                           batch, steps, extra)[0]
+        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+        os.environ.update(env)
+        spy = CliSpy()
+        try:
+            with spy.active():
+                cli_train.main(argv + ["--epochs", "2", "--max-steps",
+                                       str(steps), "--experiment", "nccl1"],
+                               device=dev)
+            backend = torch.distributed.get_backend()
+            world = torch.distributed.get_world_size()
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+            for k in env:
+                os.environ.pop(k, None)
+        rec = spy.take()
+        want = _expected(FUSED, rec["runners"][0].model.cfg, train=True)
+        _check_steps("[ddp] (a)", rec["steps"], want, steps)
+        diff = payload_differing(
+            torch.load(os.path.join(tmp, "nccl1", "0", "checkpoint.pt"),
+                       weights_only=True),
+            torch.load(os.path.join(kept, "phase1_epoch0", "checkpoint.pt"),
+                       weights_only=True))
+        out["nccl_world1"] = dict(seconds=time.perf_counter() - t0,
+                                  backend=backend, world=world,
+                                  differing=diff)
+        log(f"[ddp] (a) NCCL at world 1 through cli.train.main (phase 1, "
+            f"{steps} steps, {backend}, world {world}): wall "
+            f"{out['nccl_world1']['seconds']:.1f} s; the epoch-0 checkpoint "
+            f"against the single-process one: entries differing "
+            f"{diff or 0}")
+        if backend != backend_for(dev) or world != 1 or diff:
+            raise AssertionError(f"[ddp] (a) {backend} world {world}: "
+                                 f"{diff}")
+        shutil.rmtree(os.path.join(tmp, "nccl1"))
+
+        # (b) two ranks on one card: NCCL once, then gloo
+        t0 = time.perf_counter()
+        trial, hung = (ddp_spawn("_ddp_nccl_trial", tmp, backend="nccl",
+                                 timeout=DDP_NCCL_TIMEOUT, required=False)
+                       if dev.type == "cuda" else ([None] * DDP_WORLD, []))
+        out["nccl_two_ranks"] = dict(results=trial, hung=hung,
+                                     seconds=time.perf_counter() - t0)
+        log(f"[ddp] (b) NCCL with two ranks on one card: "
+            + "; ".join(f"rank {r}: " + (
+                "hung, killed" if r in hung else "no result" if t is None
+                else "all-reduce ran" if t["ran"] else
+                t["error"] + " | NCCL WARN: " + " / ".join(t.get("warn", [])))
+                for r, t in enumerate(trial)))
+        built = {}
+        torch.save(dict(steps=ddp_steps, batch=batch),
+                   os.path.join(tmp, "ddp_steps.pt"))
+        for key, conf, name, overrides in ddp_steps:
+            student, teacher, data = build_trained(dev, conf, name, batch,
+                                                   overrides=overrides)
+            torch.save({"student": _cpu(student.state_dict()),
+                        "teacher": _cpu(teacher.state_dict())},
+                       os.path.join(tmp, f"{key}.start.pt"))
+            built[key] = (student, teacher, data)
+        t0 = time.perf_counter()
+        ranks, _ = ddp_spawn("_ddp_steps", tmp, device=dev.type)
+        spawn_s = time.perf_counter() - t0
+        for i, (key, conf, name, overrides) in enumerate(ddp_steps):
+            student, teacher, data = built.pop(key)
+            r0, r1 = (r[key]["ok"] for r in ranks)
+            want = _expected(conf, student.cfg, train=True)
+            label = (f"{'Swin-T' if is_swin(name) else 'DeiT-S'}"
+                     f"{' BN' if overrides == BN else ''} "
+                     f"({_describe(conf)})")
+            for what in ("grads", "params", "stat_updates"):
+                bad = [k for k in r0[what]
+                       if not torch.equal(r0[what][k], r1[what][k])]
+                if bad:
+                    raise AssertionError(f"[ddp] (b) {label}: {what} differ "
+                                         f"across the ranks: {bad[:5]}")
+            for r in (r0, r1):
+                if r["launches"] != want:
+                    raise AssertionError(f"[ddp] (b) {label}: launches per "
+                                         f"rank {r['launches']}, expected "
+                                         f"{want}")
+            refs = {}
+            grads = check_step_grads(
+                student, teacher, data, conf, kernel_grads=r0["grads"],
+                kernel_loss=r0["loss"], kernel_updates=r0["stat_updates"],
+                refs=refs, tag=f"[ddp] (b) {label} 2 x {batch // 2}")
+            scales = sorted((r for r in grads["per_param"]
+                             if r["name"].endswith(".s")),
+                            key=lambda r: r["rel_kernels"] / r["limit"])
+            log(f"[ddp] (b) {label}: the LSQ scales' gradients ({len(scales)}"
+                f", the rule passed), the five nearest their limits: "
+                + ", ".join(f"{r['name']} {r['rel_kernels']:.3e}/"
+                            f"{r['limit']:.3e}" for r in scales[-5:]))
+            row = dict(launches=r0["launches"], shapes=r0["shapes"],
+                       step_s=[r0["step_s"], r1["step_s"]],
+                       grad_bytes=r0["grad_bytes"],
+                       all_reduce_s=[r0["all_reduce_s"], r1["all_reduce_s"]],
+                       flip_bytes=r0["flip_bytes"],
+                       flip_s=[r0["flip_s"], r1["flip_s"]],
+                       loss=r0["loss"], floor=grads["floor"],
+                       all_params=grads["all_params"],
+                       scales={r["name"]: r["rel_kernels"] for r in scales})
+            log(f"[ddp] (b) {label}, 2 ranks x {batch // 2} on one card over "
+                f"gloo: wall {row['step_s'][0]:.3f} / {row['step_s'][1]:.3f}"
+                f" s a step (rank 0 / 1), {row['grad_bytes']} gradient bytes "
+                f"all-reduced a step in {1e3 * row['all_reduce_s'][0]:.1f} / "
+                f"{1e3 * row['all_reduce_s'][1]:.1f} ms; mixup's partner "
+                f"fetch (flip_partner, images and labels) all-reduces "
+                f"{row['flip_bytes']} bytes in "
+                f"{1e3 * row['flip_s'][0]:.1f} / {1e3 * row['flip_s'][1]:.1f}"
+                f" ms; launches per rank "
+                f"{ {k: v for k, v in r0['launches'].items() if v} } by "
+                f"(M,K,N) {r0['shapes']}; gradients, parameters and "
+                f"running-statistic updates bit-equal across the ranks")
+            for fault in (DDP_FAULTS if i == 0 else ()):
+                rf = ranks[0][key][fault]
+                tripped, msg = _tripped(functools.partial(
+                    check_step_grads, kernel_grads=rf["grads"],
+                    kernel_loss=rf["loss"], kernel_updates=rf["stat_updates"],
+                    refs=refs, tag=f"[ddp] fault {fault}"),
+                    student, teacher, data, conf)
+                selfcheck.append(dict(fault=fault, tripped=tripped))
+                log(f"[selfcheck] data-parallel {fault}: the whole-step rule "
+                    f"{'tripped' if tripped else 'passed'} (required: trip)"
+                    f"{' -- ' + msg if msg else ''}")
+            out[key] = row
+            del student, teacher, data, refs
+            torch.cuda.empty_cache()
+        log(f"[selfcheck] data-parallel unmodified step: the whole-step rule "
+            f"passed (required: pass)")
+        out["selfcheck"] = selfcheck
+        if not all(s["tripped"] for s in selfcheck):
+            raise AssertionError(f"[ddp] a data-parallel fault passed the "
+                                 f"gate: {selfcheck}")
+        out["steps_spawn_s"] = spawn_s
+        out["draws"] = ddp_draw_cost(dev, deit, batch)
+
+        # (c) the recipe at world 2 on ImageFolder data
+        t0 = time.perf_counter()
+        fixtures = [f for f in _fixtures() if _decodes(f, dev)]
+        root = make_imagefolder(os.path.join(tmp, "data"), fixtures,
+                                n_train=(steps + 1) * batch,
+                                n_val=batch + batch // 2 + 1)
+        p1 = _drop_flags(recipe_argvs(DEIT_RECIPE, root, "-")[0],
+                         WARM_START)
+        common = ["--batch-size", str(batch), "--steps-per-epoch",
+                  str(steps), "--epochs", "1", "--warmup-epochs", "0",
+                  "--cooldown-epochs", "0", "--matmul-impl", "fused",
+                  "--attn-impl", "fused", "--output", tmp,
+                  "--log-interval", "1", "--model", deit, "--teacher", deit,
+                  *extra]
+        exp = os.path.join(tmp, "ddp")
+        with open(os.path.join(tmp, "recipe.json"), "w") as f:
+            json.dump(dict(train=p1 + common + ["--experiment", "ddp"],
+                           eval=p1 + common + ["--experiment", "ddp_eval",
+                                               "--resume", exp]), f)
+        ranks, _ = ddp_spawn("_ddp_recipe", tmp, device=dev.type)
+        single = cli_eval.main(p1 + common + ["--experiment", "single_eval",
+                                              "--resume", exp], device=dev)
+        want = _expected(FUSED, _family(deit)[0], train=True)
+        for r, got in enumerate(ranks):
+            _check_steps(f"[ddp] (c) rank {r}", got["steps"], want, steps)
+            if got["batch"] != batch // DDP_WORLD:
+                raise AssertionError(f"[ddp] (c) rank {r}: batch "
+                                     f"{got['batch']}")
+        evals = [(g["eval"]["top1"], g["eval"]["top5"]) for g in ranks]
+        out["recipe"] = dict(
+            seconds=time.perf_counter() - t0,
+            step_s=[[s["seconds"] for s in g["steps"]] for g in ranks],
+            train_s=[g["train_s"] for g in ranks],
+            eval_s=[g["eval_s"] for g in ranks], evals=evals,
+            single=(single["top1"], single["top5"]))
+        log(f"[ddp] (c) the recipe at world 2 on {batch + batch // 2 + 1} "
+            f"ImageFolder validation files: train {steps} steps of 2 x "
+            f"{batch // 2} (wall s per step, rank 0 / 1: "
+            f"{out['recipe']['step_s']}), eval top1/top5 by rank {evals}, "
+            f"single-process eval of the checkpoint "
+            f"{out['recipe']['single']}")
+        if any(e != out["recipe"]["single"] for e in evals):
+            raise AssertionError(f"[ddp] (c) world-2 eval {evals} != the "
+                                 f"single-process eval "
+                                 f"{out['recipe']['single']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[ddp] phase wall {out['seconds']:.1f} s")
+    return out
+
+
 def phase_profile(fn, what, n_calls=3):
     """Device time by kernel over `n_calls` calls of `fn` (torch.profiler)
     and the device's idle share of the window's wall time."""
@@ -5732,12 +6368,21 @@ def main() -> int:
         overrides=SWIN_BENCH)
     torch.cuda.empty_cache()
     # the recipe through the training CLI, the checkpoints and serving
-    cli = full["cli"] = phase_cli(dev)
+    import shutil
+    import tempfile
+    kept = tempfile.mkdtemp(prefix="ofq_kept_")
+    cli = full["cli"] = phase_cli(dev, keep=kept)
     torch.cuda.empty_cache()
     # the ImageFolder input pipeline: decode, transforms, the recipe on it
     full["imagefolder"] = phase_imagefolder(dev)
     torch.cuda.empty_cache()
     full["imagefolder_numbers"] = imagefolder_numbers(full)
+    # data parallelism: NCCL at world 1, two ranks on the card over gloo
+    try:
+        ddp = full["ddp"] = phase_ddp(dev, kept)
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
+    torch.cuda.empty_cache()
     int8_launches = {
         "DeiT-S without QKR int8 serving":
             full["slice_nonqkr_int8"]["launch_shapes"],
@@ -5800,7 +6445,10 @@ def main() -> int:
                 design=r["design"]["label"],
                 # over the CLI's phase 1 (its steps and eval forwards)
                 cli_launches=cli["phase1"]["k1_launch_shapes"].get(
-                    str((r["M"], r["K"], r["N"])), 0)))
+                    str((r["M"], r["K"], r["N"])), 0),
+                # per rank in the two-rank step, at half the rows
+                ddp_launches=(0 if qkv else ddp["deit"]["shapes"].get(
+                    str((r["M"] // DDP_WORLD, r["K"], r["N"])), 0))))
     tr_bf16 = full["train_fused_bf16"]
     tr_nq_bf16 = full["train_nonqkr_bf16"]
     for key, fn in (("k2", "qkr_attention_fwd"),
@@ -5823,6 +6471,8 @@ def main() -> int:
                 yardstick_sdpa_ms=r["sdpa_ms" if key == "k2"
                                     else "sdpa_bwd_ms"],
                 cli_launches=(cli["phase1"]["launches"][fn]
+                              if r["shared"] and not bf16 else 0),
+                ddp_launches=(ddp["deit"]["launches"][fn]
                               if r["shared"] and not bf16 else 0)))
     tp_nq = full["train_nonqkr_pallas"]
     for r in full["k4"]:
@@ -5863,7 +6513,11 @@ def main() -> int:
                      f"bf16 {'serving forward' if serving else 'train step'}",
                 design=r["design"],
                 cli_launches=cli["swin"]["k4_launch_shapes"].get(
-                    str((r["M"], r["K"], r["N"])), 0)))
+                    str((r["M"], r["K"], r["N"])), 0),
+                ddp_launches=(0 if serving or qkv else
+                              ddp["swin"]["shapes"].get(str((
+                                  r["M"] // DDP_WORLD, r["K"], r["N"])),
+                                  0))))
     captured = full["swin_float"]["captured"]
     lab_launches = full["lab"]["launches"]
     for r in full["k678"]:

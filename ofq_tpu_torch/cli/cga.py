@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import sys
 
+from ..parallel import initialize_multihost
 from .common import parse_args, set_matmul_precision
 from .runner import Runner
 from .train import setup_logging
@@ -19,6 +20,7 @@ from .train import setup_logging
 
 def main(argv=None, device="cuda"):
     setup_logging()
+    initialize_multihost(device=device)  # torchrun's group, as train.main
     args = parse_args(argv)
     set_matmul_precision(args.matmul_precision)
     if args.resume and not args.initial_checkpoint:

@@ -162,7 +162,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     # accepted-and-ignored process-launch flags (reference GPU workflow)
     p.add_argument("--world_size", default=None,
-                   help="ignored: the port runs one process")
+                   help="ignored: torchrun sets the world "
+                        "(torchrun --nproc_per_node N -m "
+                        "ofq_tpu_torch.cli.train ...)")
     p.add_argument("--visible_gpu", default=None, help="ignored")
     p.add_argument("--tcp_port", default=None, help="ignored")
     p.add_argument("--amp", action="store_true", default=False,
@@ -171,7 +173,9 @@ def build_parser() -> argparse.ArgumentParser:
     # the JAX package's extensions
     p.add_argument("--mesh-model-parallel", dest="mesh_model_parallel",
                    type=int, default=1,
-                   help="model-parallel mesh axis; the port runs 1 only")
+                   help="model-parallel mesh axis; the port runs 1 only: "
+                        "tensor parallelism is the next slice (ROADMAP.md, "
+                        "Queue 1 item 7.2b)")
     p.add_argument("--compute-dtype", dest="compute_dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--master-dtype", dest="master_dtype", default="float32",

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import sys
 
+from ..parallel import initialize_multihost
 from .common import parse_args, set_matmul_precision
 from .runner import Runner
 from .train import setup_logging
@@ -18,6 +19,7 @@ from .train import setup_logging
 
 def main(argv=None, device="cuda"):
     setup_logging()
+    initialize_multihost(device=device)  # torchrun's group, as train.main
     args = parse_args(argv)
     set_matmul_precision(args.matmul_precision or "highest")
     runner = Runner(args, cga_mode=False, device=device)

@@ -24,10 +24,18 @@ Where the port differs from the JAX runner:
     (a pickle of the Flax params tree through `--initial-checkpoint`).
   * The SIGTERM handler is installed when `fit` starts and the previous
     one restored on every way out of `fit`.
-  * One process.  JAX's multi-process branches (`host_batch_slice`,
-    `local_to_global`, `make_mesh`/`shard_params`) are not ported yet:
-    `--mesh-model-parallel` above 1, or a `WORLD_SIZE` above 1, raises
-    `NotImplementedError` (ROADMAP.md, Queue 1 item 7).
+  * Data parallelism is one process per card (torchrun), where JAX runs
+    one SPMD program: each rank loads its slice of the global batch
+    (`host_batch_slice`, `shard_index = rank`), the train and eval steps
+    reduce over the ranks (`parallel/collectives.py`; JAX's
+    `local_to_global` has no counterpart), `shard_params` broadcasts rank
+    0's state after init, warm start or resume, rank 0 alone writes the
+    checkpoints, recovery snapshots, `summary.csv`, wandb and the
+    profiler trace (the others wait at a barrier), every rank restores,
+    and the SIGTERM decision is agreed at every step.  Calibration runs
+    on shard 0's first batch on every rank.  `--mesh-model-parallel`
+    above 1 raises `NotImplementedError` (ROADMAP.md, Queue 1 item
+    7.2b).
   * The data.  `synthetic` yields numpy batches as in JAX; an ImageFolder
     `data_dir` is decoded and augmented on the runner's device
     (`data/pipeline.py`), in the port's own train order and random
@@ -66,6 +74,7 @@ from ..models import create_model
 from ..models import deit as deit_models
 from ..models import swin as swin_models
 from ..models.registry import resolve_device
+from ..parallel import collectives, host_batch_slice, make_mesh, shard_params
 from ..quant.policy import QuantPolicy
 from ..train import TrainState, make_eval_step, make_optimizer, make_train_step
 from ..train.checkpoint import (load, make_manager, restore_best,
@@ -227,21 +236,16 @@ def recalibrate_missing_scales(model, variables, loaded, image):
     return {**variables, "params": model_variables(model)["params"]}, n
 
 
-def _check_one_process(args) -> None:
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if getattr(args, "mesh_model_parallel", 1) > 1 or world > 1:
-        raise NotImplementedError(
-            f"--mesh-model-parallel {args.mesh_model_parallel}, WORLD_SIZE "
-            f"{world}: the port runs one process on one device; the "
-            "parallel/ layer is not ported yet (ROADMAP.md, Queue 1 item 7)")
-
-
 class Runner:
     def __init__(self, args, *, cga_mode: bool = False, device="cuda"):
-        _check_one_process(args)
+        # the data-parallel mesh (one process: a world of 1); a CUDA
+        # device without an index is the rank's card, cuda:LOCAL_RANK
+        self.mesh = make_mesh(
+            model_parallel=getattr(args, "mesh_model_parallel", 1),
+            device=device)
         self.args = args
         self.cga_mode = cga_mode
-        self.device = resolve_device(device)
+        self.device = resolve_device(self.mesh.device)
         self.policy = policy_from_namespace(args)
         self.model = build_model(
             args, self.policy, device=self.device,
@@ -255,12 +259,16 @@ class Runner:
         data_dir = args.data_dir
         if data_dir in ("synthetic", "", None):
             data_dir = None
+        # each rank loads its slice of the global batch from its own shard
+        # of the files (and its own synthetic stream)
+        per_rank, _ = host_batch_slice(args.batch_size)
         self.data_cfg = DataConfig(
             data_dir=data_dir, img_size=args.img_size,
-            batch_size=args.batch_size, num_classes=args.num_classes,
+            batch_size=per_rank, num_classes=args.num_classes,
             crop_pct=args.crop_pct, aa=args.aa or None, reprob=args.reprob,
             seed=args.seed, num_aug_repeats=args.num_aug_repeats,
-            synthetic_length=args.batch_size * (args.steps_per_epoch or 4))
+            synthetic_length=per_rank * (args.steps_per_epoch or 4),
+            shard_index=self.mesh.rank, shard_count=self.mesh.world)
         self._prof = None
 
     # ------------------------------------------------------------ setup
@@ -428,7 +436,8 @@ class Runner:
             self._recovery_saved = set()
         if total_steps in self._recovery_saved:
             return False
-        if total_steps in self._recovery_mgr.all_steps():
+        if total_steps in self._recovery_mgr.all_steps() and \
+                collectives.is_writer():
             _logger.warning(
                 "recovery snapshot for step %d exists from a prior run; "
                 "replacing it with the live state", total_steps)
@@ -506,9 +515,11 @@ class Runner:
     def _fit(self) -> dict:
         args = self.args
         os.makedirs(self.out_dir, exist_ok=True)
-        wandb = self._wandb() if args.log_wandb else None
-        with open(os.path.join(self.out_dir, "args.yaml"), "w") as f:
-            yaml.safe_dump(vars(args), f)
+        writer = collectives.is_writer()
+        wandb = self._wandb() if args.log_wandb and writer else None
+        if writer:
+            with open(os.path.join(self.out_dir, "args.yaml"), "w") as f:
+                yaml.safe_dump(vars(args), f)
 
         train_it = self._dataset(self.data_cfg, train=True)
         steps_per_epoch = args.steps_per_epoch or max(
@@ -563,7 +574,8 @@ class Runner:
             cga=cga_cfg, oscillation=osc_cfg, token_kd_alpha=args.kd_alpha,
             token_kd_type=args.kd_type, dampening=damp_cfg,
             master_dtype=master_dtype,
-            per_layer_grad_norms=getattr(args, "wandb_watch", False))
+            per_layer_grad_norms=getattr(args, "wandb_watch", False),
+            mesh=self.mesh)
         eval_step = make_eval_step(self.model)
 
         mgr = make_manager(self.out_dir, max_to_keep=args.checkpoint_hist,
@@ -584,6 +596,8 @@ class Runner:
                 _logger.info(
                     "resumed from recovery snapshot at step %d (restarting "
                     "epoch %d)", rec_step, start_epoch)
+        # every rank from rank 0's state (init, warm start or resume)
+        shard_params(state, self.mesh, self.model)
         # CGA: a fixed window (cga.py:760,835); resume never extends it
         num_epochs = (args.freeze_for_n_epochs if self.cga_mode
                       else args.epochs + args.cooldown_epochs)
@@ -617,9 +631,9 @@ class Runner:
                         cutmix_alpha=args.cutmix, prob=args.mixup_prob,
                         switch_prob=args.mixup_switch_prob,
                         num_classes=args.num_classes,
-                        label_smoothing=args.smoothing)
+                        label_smoothing=args.smoothing, mesh=self.mesh)
                     dev_batch["label"] = dev_batch.pop("soft_label")
-                if prof_n and total_steps == prof_start:
+                if prof_n and total_steps == prof_start and writer:
                     from ..utils.profiling import Trace
 
                     self._prof = Trace(os.path.join(self.out_dir,
@@ -646,6 +660,9 @@ class Runner:
                 if args.recovery_interval and \
                         total_steps % args.recovery_interval == 0:
                     self._save_recovery(total_steps, state)
+                # a SIGTERM on any rank stops every rank at this step
+                self._preempted = collectives.agree(self._preempted,
+                                                    self.mesh)
                 if self._preempted:
                     break
                 if args.max_steps and total_steps >= args.max_steps:
@@ -678,15 +695,16 @@ class Runner:
                          eval_metrics["top5"])
             save_epoch(mgr, epoch, state, eval_metrics,
                        buffers=dict(self.model.named_buffers()))
-            write_header = not os.path.exists(summary_path)
-            with open(summary_path, "a", newline="") as f:
-                w = csv.writer(f)
-                if write_header:
-                    w.writerow(["epoch", "train_loss", "top1", "top5", "lr",
-                                "seconds"])
-                w.writerow([epoch, np.mean(losses) if losses else "",
-                            eval_metrics["top1"], eval_metrics["top5"],
-                            float(lr_epoch(epoch)), round(dt, 1)])
+            if writer:
+                write_header = not os.path.exists(summary_path)
+                with open(summary_path, "a", newline="") as f:
+                    w = csv.writer(f)
+                    if write_header:
+                        w.writerow(["epoch", "train_loss", "top1", "top5",
+                                    "lr", "seconds"])
+                    w.writerow([epoch, np.mean(losses) if losses else "",
+                                eval_metrics["top1"], eval_metrics["top5"],
+                                float(lr_epoch(epoch)), round(dt, 1)])
             if eval_metrics["top1"] > best["top1"]:
                 best = {"top1": eval_metrics["top1"], "epoch": epoch}
             if wandb is not None:
@@ -702,7 +720,10 @@ class Runner:
     def evaluate(self, eval_step, params) -> dict:
         """top-1, top-5 and the mean loss over the validation stream;
         `params` (by name) replace the model's, None evaluates it as it
-        stands.  The counts accumulate on the device: one host fetch."""
+        stands.  The counts accumulate on the device: one host fetch.
+        With several ranks each evaluates its shard (padded with label -1
+        to equal lengths) and the totals are summed over the ranks (one
+        all-reduce) before they are divided."""
         totals = None
         eval_cfg = dataclasses.replace(self.data_cfg, seed=self.args.seed)
         for batch in self._dataset(eval_cfg, train=False):
@@ -713,6 +734,7 @@ class Runner:
             totals = out if totals is None else totals + out
         if totals is None:
             return {"top1": 0.0, "top5": 0.0, "loss": float("nan")}
+        totals = collectives.all_reduce_sum(totals, self.mesh)
         c1, c5, count, loss_sum = totals.tolist()
         n = max(count, 1.0)
         return {"top1": 100.0 * c1 / n, "top5": 100.0 * c5 / n,

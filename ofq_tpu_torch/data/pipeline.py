@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..models.registry import resolve_device
+from ..parallel.collectives import flip_partner
 from .augment import (ERASING_UNIFORMS, ErasingParams, RandAugmentParams,
                       erasing_params, parse_rand_augment, rand_augment_apply,
                       rand_augment_params, random_erasing_apply, saturate_u8)
@@ -392,19 +393,24 @@ def mixup_draws(generator: torch.Generator, *, height: int, width: int,
 
 
 def mixup_apply(batch: dict, draws: MixupDraws, *, num_classes: int = 1000,
-                label_smoothing: float = 0.1) -> dict:
+                label_smoothing: float = 0.1, mesh=None) -> dict:
     """The mixing of `ofq_tpu.data.mixup_cutmix` given its draws, in torch
     ops on the batch's device: {'image', 'label', 'soft_label'}.  The
-    batch is paired with its reverse (timm's 'batch' mode)."""
+    batch is paired with its reverse (timm's 'batch' mode); with a
+    data-parallel `mesh`, `batch` is this rank's rows of the global batch,
+    which is what is reversed (`parallel.collectives.flip_partner`: rank
+    r's partners are rank W - 1 - r's rows)."""
     x, y = batch["image"], batch["label"]
-    B, H, W = x.shape[0], x.shape[1], x.shape[2]
+    H, W = x.shape[1], x.shape[2]
     dev = x.device
     d = MixupDraws(*(torch.as_tensor(v, device=dev) for v in draws))
     off = label_smoothing / num_classes
     on = 1.0 - label_smoothing + off
-    y1 = torch.nn.functional.one_hot(y.long(), num_classes).to(
-        torch.float32) * (on - off) + off
-    perm = torch.arange(B - 1, -1, -1, device=dev)
+    def smoothed(labels):
+        return torch.nn.functional.one_hot(labels.long(), num_classes).to(
+            torch.float32) * (on - off) + off
+
+    y1 = smoothed(y)
     lam_mix = d.lam_mix.to(torch.float32)
     rh = torch.sqrt(1.0 - d.lam_cut.to(torch.float32))
     ch = (H * rh).to(torch.int32)
@@ -418,12 +424,12 @@ def mixup_apply(batch: dict, draws: MixupDraws, *, num_classes: int = 1000,
     cols = torch.arange(W, device=dev)[None, None, :, None]
     box = (rows >= y0c) & (rows < y1c) & (cols >= x0c) & (cols < x1c)
     lam_cut_adj = 1.0 - ((y1c - y0c) * (x1c - x0c)) / (H * W)
-    xp = x[perm]
+    xp = flip_partner(x, mesh)
     x_mix = lam_mix * x + (1 - lam_mix) * xp
     x_cut = torch.where(box, xp, x)
     lam = torch.where(d.use_cutmix, lam_cut_adj.to(torch.float32), lam_mix)
     x_out = torch.where(d.use_cutmix, x_cut, x_mix)
-    y_out = lam * y1 + (1 - lam) * y1[perm]
+    y_out = lam * y1 + (1 - lam) * smoothed(flip_partner(y, mesh))
     return {"image": torch.where(d.use_mix, x_out, x), "label": y,
             "soft_label": torch.where(d.use_mix, y_out, y1)}
 
@@ -431,14 +437,15 @@ def mixup_apply(batch: dict, draws: MixupDraws, *, num_classes: int = 1000,
 def mixup_cutmix(batch: dict, generator: torch.Generator, *,
                  mixup_alpha: float = 0.8, cutmix_alpha: float = 1.0,
                  prob: float = 1.0, switch_prob: float = 0.5,
-                 num_classes: int = 1000, label_smoothing: float = 0.1
-                 ) -> dict:
+                 num_classes: int = 1000, label_smoothing: float = 0.1,
+                 mesh=None) -> dict:
     """Device-side mixup/cutmix producing soft labels (timm Mixup analog,
     train.py:604-613): `mixup_draws` from `generator`, then
-    `mixup_apply`."""
+    `mixup_apply` (with a data-parallel `mesh`, over the global batch;
+    the generator must then be seeded alike on every rank)."""
     x = batch["image"]
     draws = mixup_draws(generator, height=x.shape[1], width=x.shape[2],
                         mixup_alpha=mixup_alpha, cutmix_alpha=cutmix_alpha,
                         prob=prob, switch_prob=switch_prob)
     return mixup_apply(batch, draws, num_classes=num_classes,
-                       label_smoothing=label_smoothing)
+                       label_smoothing=label_smoothing, mesh=mesh)

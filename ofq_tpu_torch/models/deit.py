@@ -49,6 +49,7 @@ from ..nn.attention import Attention, QAttention, QAttentionQKR
 from ..nn.conv import PatchEmbedConv, QPatchEmbedConv
 from ..nn.dropout import checkpointed, drop_path, dropout
 from ..nn.linear import Dense, Mlp, QHeadLinear, QMlp
+from ..parallel.collectives import active_mesh, sum_over_ranks
 from ..quant.policy import QuantPolicy
 from ..quant.ste import as_dtype, at_least_f32
 
@@ -152,7 +153,15 @@ class BatchNorm(nn.Module):
     `train=False`), and neither updates them.  A `checkpointed` block's
     recompute (`recomputing` set) uses the batch statistics and leaves
     the running ones alone: they move once per forward, as under JAX's
-    `nn.remat`."""
+    `nn.remat`.
+
+    In a data-parallel step (`parallel.collectives.data_parallel`) the
+    train-mode statistics are the global batch's, as under JAX's SPMD:
+    each rank's sums over its rows are summed over the ranks by an
+    all-reduce whose backward all-reduces the cotangent (so each input's
+    gradient takes every rank's term), the running update's `n` counts
+    the global batch, and a recompute issues the same two all-reduces in
+    the same order on every rank."""
 
     EPS, MOMENTUM = 1e-5, 0.1
 
@@ -173,10 +182,12 @@ class BatchNorm(nn.Module):
         else:
             xf = x.to(stat)
             red = tuple(range(x.ndim - 1))
-            mean = torch.mean(xf, dim=red)
-            var = torch.mean(torch.square(xf - mean), dim=red)
+            mesh = active_mesh()
+            n = x.numel() // x.shape[-1] * (mesh.world if mesh else 1)
+            mean = sum_over_ranks(torch.sum(xf, dim=red), mesh) / n
+            var = sum_over_ranks(torch.sum(torch.square(xf - mean), dim=red),
+                                 mesh) / n
             if not self.recomputing:
-                n = x.numel() // x.shape[-1]
                 self._update(mean.detach(),
                              var.detach() * (n / max(n - 1, 1)))
         out = self.compute_dtype or x.dtype

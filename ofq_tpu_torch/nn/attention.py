@@ -56,7 +56,7 @@ from ..ops.fused_attention import (qkr_attention_bwd,
 from ..ops.int8_qlinear import (frozen_int8_linear, frozen_int8_qkx,
                                 int8_eligible, int8_statsq_linear,
                                 int8_statsq_qkx, qkr_int8_codes)
-from ..quant.lsq import grad_scale_factor
+from ..quant.lsq import act_grad_scale_factor
 from ..quant.statsq import statsq_quantize
 from ..quant.ste import (as_dtype, at_least_f32, clip_lower, grad_scale,
                          weak_scalar)
@@ -177,7 +177,7 @@ def _tail_scale(scale_param, shape, bits, aq_learnable):
     """The composition's scale semantics for the fused and remat tails (eps
     clip with identity gradient and the grad-scale factor, so a tail's ds
     is the cotangent of the pre-processed scale); `shape` (B, H, N, N)."""
-    gf = grad_scale_factor(shape, bits, True, -2)
+    gf = act_grad_scale_factor(shape, bits, True, -2)
     s = grad_scale(clip_lower(scale_param, 1e-5), gf)
     return s if aq_learnable else s.detach()
 

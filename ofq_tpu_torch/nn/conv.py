@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ..quant.lsq import init_scale, lsq_quantize_dynamic_signed
+from ..parallel.collectives import active_mesh, all_reduce_max_
 from ..quant.ste import at_least_f32
 from .bias import ImageBias
 from .quantizers import LsqWeight, _calibrate_scale
@@ -24,7 +25,9 @@ class LsqImgQuantizer(nn.Module):
     calibration sets it from the batch (any value below -1e-5 makes the
     range signed); in train mode it becomes `max(signed, batch_signed)`
     before use, as JAX's train step (every non-`params` collection
-    mutable) updates it; the eval forward reads it as stored.
+    mutable) updates it; the eval forward reads it as stored.  In a
+    data-parallel step the batch's sign is the global batch's (a maximum
+    over the ranks).
     """
 
     def __init__(self, bit: int, channels: int):
@@ -44,6 +47,7 @@ class LsqImgQuantizer(nn.Module):
             _calibrate_scale(self.s, init_scale(x32, self.bit, False, -1),
                              "LsqImgQuantizer")
         elif self.training:
+            all_reduce_max_(batch_signed, active_mesh())
             self.signed.copy_(torch.maximum(self.signed, batch_signed))
         y = lsq_quantize_dynamic_signed(x32, self.s, self.bit,
                                         self.signed != 0, channel_axis=-1)

@@ -30,15 +30,22 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import own_rows
 from ..quant.ste import weak_scalar
 
 
 def bernoulli(shape: tuple[int, ...], keep: float,
               generator: torch.Generator) -> torch.Tensor:
     """A boolean mask of `shape`, True with probability `keep`, drawn from
-    `generator` on its device."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return u < keep
+    `generator` on its device.  In a data-parallel step `shape` is this
+    rank's rows of a batch-major tensor: the mask is drawn at the global
+    batch's shape (JAX draws one mask over the global shape from one key)
+    and this rank keeps its own rows."""
+    def draw(full):
+        return torch.rand(full, generator=generator,
+                          device=generator.device)
+
+    return own_rows(draw, shape) < keep
 
 
 def check_generator(x: torch.Tensor, generator: Optional[torch.Generator],

@@ -90,7 +90,7 @@ class LsqWeight(nn.Module):
                 w32, self.bit, self.all_positive, self.axis), "LsqWeight")
         s = self.s if self.learnable else self.s.detach()
         return lsq_quantize(w32, s, self.bit, all_positive=self.all_positive,
-                            channel_axis=self.axis).to(w.dtype)
+                            channel_axis=self.axis, weight=True).to(w.dtype)
 
 
 class LsqWeightIterativeFreezing(nn.Module):

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from ..quant.lsq import grad_scale_factor, thresholds
+from ..quant.lsq import act_grad_scale_factor, thresholds
 from ..quant.statsq import _CLIP_HI_EPS, statsq_scale
 from ..quant.ste import needs_grad
 from . import _build
@@ -175,7 +175,7 @@ class _FusedQLinear(torch.autograd.Function):
         w_bits, a_bits, all_positive, has_bias, bias_dtype = ctx.cfg
         a_lo, a_hi = thresholds(a_bits, all_positive)
         n_w = float(2 ** (w_bits - 1))
-        gf = grad_scale_factor(x.shape, a_bits, all_positive, -2)
+        gf = act_grad_scale_factor(x.shape, a_bits, all_positive, -2)
         x2, s_eff, n_tok = _prep(x, s)
         s_full = s_eff.repeat(x2.shape[0] // n_tok).reshape(-1, 1)
         g2 = g.reshape(-1, g.shape[-1]).to(torch.float32)

@@ -42,7 +42,8 @@ import collections
 
 import torch
 
-from ..quant.lsq import _broadcast_scale, _clip, grad_scale_factor, thresholds
+from ..quant.lsq import (_broadcast_scale, _clip, act_grad_scale_factor,
+                         thresholds)
 from ..quant.statsq import statsq_b4_round
 from ..quant.ste import at_least_f32, clip_lower, grad_scale, round_pass
 from .fused_attention import on_card, refuse_graph_cut
@@ -226,7 +227,7 @@ class _Int8QLinear(torch.autograd.Function):
         x, kernel, s, b_pre, b_post = ctx.saved_tensors
         w_bits, a_bits, all_positive = ctx.cfg
         thd_neg, thd_pos = thresholds(a_bits, all_positive)
-        gf = grad_scale_factor(x.shape, a_bits, all_positive, -2)
+        gf = act_grad_scale_factor(x.shape, a_bits, all_positive, -2)
         x1 = x + b_pre.to(x.dtype)
         s_eff = _s_eff(s, x1)
         u = x1 / s_eff
@@ -270,7 +271,7 @@ def qkr_int8_codes(x1, s, input_bits):
     scale, with LsqAct(channel_axis=-2, signed)'s forward and gradient:
     per-token grad-scale factor, eps clip with identity gradient, STE
     round."""
-    gf = grad_scale_factor(x1.shape, input_bits, False, -2)
+    gf = act_grad_scale_factor(x1.shape, input_bits, False, -2)
     s_b = _broadcast_scale(s, x1.shape, -2)
     s_eff = grad_scale(clip_lower(s_b, _S_EPS), gf).to(x1.dtype)
     thd_neg, thd_pos = thresholds(input_bits, False)

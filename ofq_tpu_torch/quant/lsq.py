@@ -9,9 +9,13 @@ learned scale:
   * a tuple, e.g. (1, 2) on (B, N, H, C): one entry per (token, head),
     stored flat in row-major order.
 The scale-gradient factors keep the per-shape formulas of the reference
-(`grad_scale_factor`).  `lsq_quantize` differentiates through the fused
-custom VJP of the JAX package (`_LsqFused`); the image quantizer's
-`lsq_quantize_dynamic_signed` through the composition, as in JAX.
+(`grad_scale_factor`); an activation's (`act_grad_scale_factor`, every
+activation quantizer's one rule) are taken at the global batch's shape
+inside a data-parallel step (`parallel.collectives.batch_shape`), as JAX's
+under `jit` over a sharded batch.  `lsq_quantize` differentiates through
+the fused custom VJP of the JAX package (`_LsqFused`); the image
+quantizer's `lsq_quantize_dynamic_signed` through the composition, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Sequence
 
 import torch
 
+from ..parallel.collectives import batch_shape
 from .ste import at_least_f32, clip_lower, grad_scale, needs_grad, round_pass
 
 _S_EPS = 1e-5  # lower bound on the learned scale
@@ -105,6 +110,15 @@ def grad_scale_factor(x_shape: Sequence[int], bit: int, all_positive: bool,
     return 1.0 / math.sqrt(thd_pos * numel)
 
 
+def act_grad_scale_factor(x_shape: Sequence[int], bit: int,
+                          all_positive: bool, channel_axis) -> float:
+    """`grad_scale_factor` of a batch-major activation, at the global
+    batch's shape inside a data-parallel step (a weight's shape has no
+    batch: it takes `grad_scale_factor`)."""
+    return grad_scale_factor(batch_shape(x_shape), bit, all_positive,
+                             channel_axis)
+
+
 def init_scale(x: torch.Tensor, bit: int, all_positive: bool,
                channel_axis) -> torch.Tensor:
     """Data-dependent scale init from a calibration batch.
@@ -140,13 +154,15 @@ def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
 
 
 def lsq_quantize_composed(x: torch.Tensor, s: torch.Tensor, bit: int, *,
-                          all_positive: bool = False,
-                          channel_axis=-2) -> torch.Tensor:
+                          all_positive: bool = False, channel_axis=-2,
+                          weight: bool = False) -> torch.Tensor:
     """LSQ fake-quantization by autograd through the composition
     (`ofq_tpu.quant.lsq.lsq_quantize_composed`).  bit == 1 signed is
-    sign(x)."""
+    sign(x).  x is a batch-major activation (`act_grad_scale_factor`)
+    unless `weight`."""
     thd_neg, thd_pos = thresholds(bit, all_positive)
-    g = grad_scale_factor(x.shape, bit, all_positive, channel_axis)
+    factor = grad_scale_factor if weight else act_grad_scale_factor
+    g = factor(x.shape, bit, all_positive, channel_axis)
     s_b = _broadcast_scale(s, x.shape, channel_axis)
     s_eff = grad_scale(clip_lower(s_b, _S_EPS), g).to(x.dtype)
     y = x / s_eff
@@ -167,18 +183,19 @@ class _LsqFused(torch.autograd.Function):
     with u = x / max(s, 1e-5); no masking of ds where s was floored."""
 
     @staticmethod
-    def forward(ctx, x, s, bit, all_positive, channel_axis):
+    def forward(ctx, x, s, bit, all_positive, channel_axis, weight):
         ctx.save_for_backward(x, s)
-        ctx.cfg = (bit, all_positive, channel_axis)
+        ctx.cfg = (bit, all_positive, channel_axis, weight)
         return lsq_quantize_composed(x, s, bit, all_positive=all_positive,
-                                     channel_axis=channel_axis)
+                                     channel_axis=channel_axis, weight=weight)
 
     @staticmethod
     def backward(ctx, g):
         x, s = ctx.saved_tensors
-        bit, all_positive, channel_axis = ctx.cfg
+        bit, all_positive, channel_axis, weight = ctx.cfg
         thd_neg, thd_pos = thresholds(bit, all_positive)
-        gf = grad_scale_factor(x.shape, bit, all_positive, channel_axis)
+        factor = grad_scale_factor if weight else act_grad_scale_factor
+        gf = factor(x.shape, bit, all_positive, channel_axis)
         s_b = _broadcast_scale(s, x.shape, channel_axis)
         s_eff = torch.where(s_b > _S_EPS, s_b,
                             torch.full_like(s_b, _S_EPS)).to(x.dtype)
@@ -198,19 +215,21 @@ class _LsqFused(torch.autograd.Function):
         axes = tuple(a for a in range(x.ndim) if a not in keep)
         ds = torch.sum(ds_elem, dim=axes) if axes else ds_elem
         ds = (ds.reshape(s.shape) * gf).to(s.dtype)
-        return dx, ds, None, None, None
+        return dx, ds, None, None, None, None
 
 
 def lsq_quantize(x: torch.Tensor, s: torch.Tensor, bit: int, *,
-                 all_positive: bool = False, channel_axis=-2) -> torch.Tensor:
+                 all_positive: bool = False, channel_axis=-2,
+                 weight: bool = False) -> torch.Tensor:
     """LSQ fake-quantization with learned scale `s`
     (`ofq_tpu.quant.lsq.lsq_quantize`): the fused custom VJP for bit > 1
     or an all-positive range, the composition for the bit == 1 sign path
-    (whose gradient through sign is zero)."""
+    (whose gradient through sign is zero).  `weight` as in
+    `lsq_quantize_composed`."""
     if (bit == 1 and not all_positive) or not needs_grad(x, s):
         return lsq_quantize_composed(x, s, bit, all_positive=all_positive,
-                                     channel_axis=channel_axis)
-    return _LsqFused.apply(x, s, bit, all_positive, channel_axis)
+                                     channel_axis=channel_axis, weight=weight)
+    return _LsqFused.apply(x, s, bit, all_positive, channel_axis, weight)
 
 
 def lsq_quantize_dynamic_signed(x: torch.Tensor, s: torch.Tensor, bit: int,
@@ -219,13 +238,15 @@ def lsq_quantize_dynamic_signed(x: torch.Tensor, s: torch.Tensor, bit: int,
     """LSQ whose signed/unsigned range is a tensor-valued boolean (the
     sticky `signed` state of the image quantizer); stays on the device,
     no host synchronisation.  Differentiated through the composition, as
-    in JAX."""
+    in JAX.  x is the batch-major image: its gradient scale counts the
+    global batch in a data-parallel step."""
     lo = torch.where(signed, -(2 ** (bit - 1)), 0).to(x.dtype)
     thd_pos = torch.where(signed, 2 ** (bit - 1) - 1, 2 ** bit - 1)
+    shape = batch_shape(x.shape)
     if channel_axis is None:
-        numel = math.prod(x.shape)
+        numel = math.prod(shape)
     else:
-        numel = math.prod(x.shape) // x.shape[channel_axis % x.ndim]
+        numel = math.prod(shape) // shape[channel_axis % x.ndim]
     g = 1.0 / torch.sqrt(thd_pos.to(torch.float32) * numel)
     s_b = _broadcast_scale(s, x.shape, channel_axis)
     s_eff = grad_scale(clip_lower(s_b, _S_EPS), g)

@@ -24,6 +24,10 @@ file is ignored.  The JAX package's `abstract_like` has no counterpart:
 a restore copies into the live state's tensors, whose names, shapes and
 devices are the target (`restore_into`), and the file carries its own
 structure.
+
+In a data-parallel run rank 0 alone writes (and applies the retention),
+and every rank waits at a barrier after the save, so that a restore that
+follows reads a complete directory; every rank restores.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel.collectives import barrier, is_writer
 from .state import TrainState
 
 _FILE = "checkpoint.pt"
@@ -138,7 +143,14 @@ def state_payload(state: TrainState, buffers=None,
 
 def save(mgr: CheckpointManager, step: int, payload: dict) -> None:
     """Write `payload` as checkpoint `step`: to a temporary name, renamed
-    when complete; then apply the retention."""
+    when complete; then apply the retention.  Rank 0 writes; every rank
+    then waits at a barrier."""
+    if is_writer():
+        _write(mgr, step, payload)
+    barrier()
+
+
+def _write(mgr: CheckpointManager, step: int, payload: dict) -> None:
     d = os.path.join(mgr.directory, str(step))
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, _METRICS), "w") as f:
@@ -153,8 +165,11 @@ def save_epoch(mgr: CheckpointManager, epoch: int, state: TrainState,
                metrics: Optional[dict] = None, *, buffers=None) -> None:
     """Checkpoint `state` (and the model's `buffers`) as step `epoch`,
     ranked by `metrics`; a save without metrics records {} (every metric
-    -inf), as the JAX package's does."""
-    save(mgr, epoch, state_payload(state, buffers, metrics or {}))
+    -inf), as the JAX package's does.  Only rank 0 copies the state to the
+    host."""
+    payload = (state_payload(state, buffers, metrics or {}) if is_writer()
+               else None)
+    save(mgr, epoch, payload)
 
 
 def load(mgr: CheckpointManager, step: int) -> dict:

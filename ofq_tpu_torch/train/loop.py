@@ -47,6 +47,19 @@ top-level name (the first component of the parameter names: `blocks_0`,
 student's running statistics update in its train-mode forward, once per
 step (also under remat); they take no gradient, AdamW, CGA or EMA, and
 `make_eval_step` normalizes with them.
+
+Data parallelism (`mesh`, from `parallel.make_mesh` in a process group):
+each rank takes its rows of the global batch, and the step computes the
+JAX package's step on the global batch (GSPMD's reductions written out,
+`parallel/collectives.py`).  The forward and backward run in
+`collectives.data_parallel(mesh)`, where the LSQ gradient scales take the
+global batch's shape, BatchNorm the global statistics, the dropout masks
+the global draw and the image quantizer the global sign; between
+`torch.autograd.grad` and everything that reads the gradients (the CGA
+masks, clipping, AdamW, the per-layer norms, the oscillation hook) the
+gradients are averaged over the ranks, so every rank applies the same
+update to the same state.  The reported `loss` is the global mean (the
+runner sums `make_eval_step`'s counts over the ranks).
 """
 
 from __future__ import annotations
@@ -59,6 +72,7 @@ from torch.func import functional_call
 
 from ..models.registry import resolve_device
 from ..nn.dropout import check_generator
+from ..parallel import collectives
 from ..quant.ste import at_least_f32
 from . import cga as cga_lib
 from . import oscillation_hook as osc_lib
@@ -126,7 +140,8 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                     token_kd_alpha: float = 0.5, token_kd_type: str = "last",
                     dampening: Optional[dict] = None,
                     master_dtype: Optional[str] = None,
-                    per_layer_grad_norms: bool = False) -> Callable:
+                    per_layer_grad_norms: bool = False,
+                    mesh=None) -> Callable:
     """Build `train_step(state, batch, generator=None) -> (state,
     metrics)`.
 
@@ -146,7 +161,9 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
     hook) and adds `oscillation/ema_mean` to the metrics.
     `per_layer_grad_norms` adds `grad_norm/<top-level name>`.
     `master_dtype` is the JAX step's option, checked against the state's
-    masters at each step.
+    masters at each step.  `mesh` (`parallel.make_mesh`): `batch` is this
+    rank's rows of the global batch, the step the global batch's (module
+    docstring); None is the single-process step.
     Runs on CUDA unless `device="cpu"`; the model (and teacher) must
     already live there.
     """
@@ -227,13 +244,18 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                 torch._foreach_copy_(tensors, masters)
         else:
             tensors = masters
-        loss = loss_fn(x, label, generator)
-        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        with collectives.data_parallel(mesh):
+            loss = loss_fn(x, label, generator)
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         # a parameter the loss does not reach (a detached scale) has a
         # zero gradient, as under jax.grad
         grads = {n: torch.zeros_like(t) if g is None else g
                  for n, t, g in zip(names, tensors, grads)}
         with torch.no_grad():
+            # GSPMD's gradient all-reduce: the mean over the ranks
+            grads = collectives.all_reduce_mean(grads, mesh)
+            loss = collectives.all_reduce_mean({"loss": loss.detach()},
+                                               mesh)["loss"]
             if master_bf16:
                 grads = {n: g.to(torch.bfloat16) for n, g in grads.items()}
             # the >= fp32 view of the pre-update masters

@@ -29,6 +29,14 @@ def test_no_forbidden_import_statements():
     assert not bad, bad
 
 
+def test_sources_cover_the_parallel_layer():
+    """`parallel/` (the data-parallel port of `ofq_tpu/parallel/`) is
+    among the scanned sources, and so is every module of it."""
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    for mod in ("__init__", "mesh", "multihost", "collectives"):
+        assert f"ofq_tpu_torch/parallel/{mod}.py" in names, mod
+
+
 def test_pattern_catches_what_it_should():
     for line in ("import jax", "import jax.numpy as jnp", "from flax import linen",
                  "import ofq_tpu", "from ofq_tpu.quant import lsq",
@@ -63,6 +71,9 @@ def test_import_loads_no_jax():
         "import ofq_tpu_torch.convert.torch_import\n"
         "import ofq_tpu_torch.convert.torch_export\n"
         "import ofq_tpu_torch.train.checkpoint\n"
+        "import ofq_tpu_torch.parallel, ofq_tpu_torch.parallel.mesh\n"
+        "import ofq_tpu_torch.parallel.multihost\n"
+        "import ofq_tpu_torch.parallel.collectives\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'ofq_tpu', 'benchmarks', 'window_attn_lab', 'tensorflow', 'PIL', "
         "'cv2', 'torchvision') or m.startswith(("

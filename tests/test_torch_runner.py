@@ -394,12 +394,17 @@ def test_sigterm_handler_restored(runs, monkeypatch):
 
 
 def test_one_process_refusals(monkeypatch):
+    """The model-parallel axis still refuses, naming the tensor-parallel
+    slice; the one-process guard on WORLD_SIZE is gone: without a process
+    group the Runner is a world of one, with one rank's batch."""
     args = common.parse_args(["synthetic", "--mesh-model-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2b"):
         runner.Runner(args, device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        runner.Runner(common.parse_args(["synthetic"]), device="cpu")
+    r = runner.Runner(common.parse_args(BASE), device="cpu")
+    assert (r.mesh.world, r.mesh.rank) == (1, 0)
+    assert r.data_cfg.batch_size == r.args.batch_size
+    assert (r.data_cfg.shard_index, r.data_cfg.shard_count) == (0, 1)
 
 
 def test_device_defaults_to_the_card():
