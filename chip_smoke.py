@@ -254,6 +254,20 @@ The training CLI (`phase_cli`, in a temporary directory, synthetic data):
      `Predictor.from_experiment`); an `[imagefolder]` line with the
      decode and stream rates and the CLI step on ImageFolder against
      synthetic data (wall s of the step and of the input before it).
+ 22. data parallelism (`phase_ddp`): NCCL at world 1 through the CLI, two
+     ranks on the card over gloo (DeiT-S, BN DeiT-S, Swin-T steps), the
+     recipe at world 2.
+ 23. tensor parallelism (`phase_tp`): one model group of two ranks on the
+     card over gloo (DeiT-S's 6 heads, 3 a rank), each on the whole batch
+     of 64: the fused fp32 and pallas bf16 steps under the whole-step rule
+     against the single process (36 K1 or 36 K4 per rank at M = 12672 x
+     {192x384, 384x768, 768x384}, 12 K2 and 12 K3 at 3 heads), the
+     gradients held whole bit-equal across the ranks; the sharded serving
+     forward's block and top-1 gates; TP_FAULTS tripping the rule; a CGA
+     step; the recipe's train and eval with --mesh-model-parallel 2, the
+     eval equal to one process's.  Phases 3, 4 and 7 also hold K1, K2, K3
+     (3 heads) and K4 at those shapes against their plain versions (K1
+     bit for bit).
 The agreement gates: fp32, the kernel path against the plain path; bf16,
 each path against a rounded-once reference (the plain path with every
 product summed in fp64 and rounded once to the dtype it returns), the
@@ -704,6 +718,10 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
         ("qkv", m_tok, n_tok_main, 384, 1152, 2, False, True),
         ("proj_w4a4", m_tok, n_tok_main, 384, 384, 4, False, False),
         ("ragged", 3 * 37, 37, 200, 72, 2, False, False),
+        # tensor parallelism at TP = 2 (`phase_tp`): a rank's proj rows
+        # (K = 192), fc1 columns (N = 768) and fc2 rows (K = 768)
+        *((f"tp {nm}", m_tok, n_tok_main, K, N, 2, nm == "fc2", False)
+          for (_, K, N), nm in zip(tp_shapes(m_tok), ("proj", "fc1", "fc2"))),
     ]
     results = []
     for name, M, n_tok, K, N, bits, all_pos, main in cases:
@@ -719,7 +737,7 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
         y_ref = fq.fused_qlinear_fwd_reference(*args)
         torch.cuda.synchronize()
         err = float((y_k - y_ref).abs().max())
-        differing = int((y_k != y_ref).sum())
+        plain_differing = int((y_k != y_ref).sum())
         scale = float(y_ref.abs().max())
         n_ties = int(((x + b_pre) / s.repeat(M // n_tok)[:, None]
                       - 0.5).remainder(1.0).eq(0).sum())
@@ -728,6 +746,11 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
         if not (torch.isfinite(y_k).all() and err <= 1e-5 * scale):
             raise AssertionError(
                 f"K1 {name}: kernel vs plain max|diff| {err} > 1e-5 * {scale}")
+        if name.startswith("tp") and plain_differing:
+            # exact on integer codes: the TP shapes' bits are the plain
+            # version's
+            raise AssertionError(f"K1 {name}: {plain_differing} elements "
+                                 f"differ from the plain version")
         ms = median_ms(lambda: fq.fused_qlinear_fwd(*args))
         plain_ms = median_ms(lambda: fq.fused_qlinear_fwd_reference(*args),
                              reps=10)
@@ -747,7 +770,8 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
         b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
         log(f"[K1] {name:10s} M={M} K={K} N={N} W{bits}A{bits}"
             f"{' unsigned' if all_pos else ''}: max|diff| {err:.3e} "
-            f"(bound {1e-5 * scale:.3e}), {differing} elements differing, "
+            f"(bound {1e-5 * scale:.3e}), {plain_differing} elements "
+            f"differing, "
             f"{n_ties} LSQ and {w_ties} StatsQ ties; kernel "
             f"({design['label']}) {ms:.4f} ms"
             f"{_versus(raw_ms, base_ms, differing)}, "
@@ -756,7 +780,7 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
             f"{mm_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         results.append(dict(name=name, M=M, K=K, N=N, bits=bits,
                             all_positive=all_pos, main_path=main,
-                            design=design, differing=differing,
+                            design=design, differing=plain_differing,
                             raw_ms=raw_ms, baseline_raw_ms=base_ms,
                             baseline_differing=differing,
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -801,14 +825,17 @@ def _attn_bound(B, N, H, K, d, lhs_numel, dtype, backward):
     return nbytes, flops, bound(nbytes, flops, peak)
 
 
-def _attn_cases(dev, seed, N, B, with_g):
+def _attn_cases(dev, seed, N, B, with_g, heads=6):
     """K2's and K3's inputs at the slice's shapes, per stream dtype: fp32,
     then the same values rounded to bf16 (s fp32), shared and per-head
-    lhs; yields (dtype, shared, K, tensors)."""
+    lhs; yields (dtype, shared, K, tensors).  `heads` other than 6: a TP
+    rank's share of DeiT-S's heads, shared lhs in fp32 only (the TP
+    fused step's case)."""
     import torch
     g = torch.Generator().manual_seed(seed)
-    H, C, d = 6, 384, 64
-    for shared in (True, False):
+    H, C, d = heads, 384, 64
+    tp = heads != 6
+    for shared in (True,) if tp else (True, False):
         K = C if shared else d
         ts = [torch.randn(*((B, N, K) if shared else (B, N, H, K)),
                           generator=g) * 0.5,
@@ -817,7 +844,8 @@ def _attn_cases(dev, seed, N, B, with_g):
               torch.rand(N, generator=g) * 0.01 + 0.005]
         if with_g:
             ts.append(torch.randn(B, N, H, d, generator=g))
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32,) if tp else (torch.float32,
+                                                  torch.bfloat16):
             yield dtype, shared, K, [
                 t.to(dev, dtype if i != 3 else torch.float32)
                 .contiguous() for i, t in enumerate(ts)]
@@ -853,20 +881,22 @@ def k2_gate(what, o_k, o_ref, s, v):
     return err, hard, outside
 
 
-def phase_k2(dev, N, B=BATCH, base=None):
+def phase_k2(dev, N, B=BATCH, base=None, heads=6):
     """K2 against its plain version (`k2_gate`), with SDPA (LSQ off, lhs
     expanded per head) as the yardstick; with `base` (--baseline) also the
     launcher alone, the current tree's and the earlier one's, and the
-    output elements where the two differ."""
+    output elements where the two differ.  `heads` other than 6: a TP
+    rank's heads, the shared lhs with LSQ on in fp32 only."""
     import torch
     import torch.nn.functional as F
     from ofq_tpu_torch.ops import fused_attention as fa
-    H, d, bits = 6, 64, 2
+    H, d, bits = heads, 64, 2
     sm_scale = d ** -0.5
     results = []
-    for dtype, shared, K, (lhs, rhs, v, s) in _attn_cases(dev, 2, N, B, False):
+    for dtype, shared, K, (lhs, rhs, v, s) in _attn_cases(dev, 2, N, B, False,
+                                                          heads):
         dt = _dtype_name(dtype)
-        for quantize in (True, False):
+        for quantize in (True,) if heads != 6 else (True, False):
             args = (lhs, rhs, v, s, bits, sm_scale, quantize)
             o_k = fa.qkr_attention_fwd(*args)
             o_ref = fa.qkr_attention_fwd_reference(*args)
@@ -964,22 +994,23 @@ def _passes_label(times):
             + " ms" if times else "not measured")
 
 
-def phase_k3(dev, N, B=BATCH, base=None):
+def phase_k3(dev, N, B=BATCH, base=None, heads=6):
     """K3, the attention backward, against its plain version, with the
     backward of F.scaled_dot_product_attention (LSQ off, lhs expanded per
     head, only the autograd.grad call timed) as the yardstick; with `base`
     (--baseline) also the launcher alone, the current tree's and the
-    earlier one's, and the output elements where the two differ."""
+    earlier one's, and the output elements where the two differ.
+    `heads` other than 6: as `phase_k2`'s (no pass times)."""
     import torch
     import torch.nn.functional as F
     from ofq_tpu_torch.ops import fused_attention as fa
-    H, d, bits = 6, 64, 2
+    H, d, bits = heads, 64, 2
     sm_scale = d ** -0.5
     results = []
     for dtype, shared, K, (lhs, rhs, v, s, go) in _attn_cases(
-            dev, 3, N, B, True):
+            dev, 3, N, B, True, heads):
         dt = _dtype_name(dtype)
-        for quantize in (True, False):
+        for quantize in (True,) if heads != 6 else (True, False):
             args = (lhs, rhs, v, s, go, bits, sm_scale, quantize)
             got = fa.qkr_attention_bwd(*args)
             ref = fa.qkr_attention_bwd_reference(*args)
@@ -1019,7 +1050,7 @@ def phase_k3(dev, N, B=BATCH, base=None):
                 if base:
                     raw_ms, base_ms, differing = against_earlier(current,
                                                                  earlier)
-                if shared and quantize:
+                if shared and quantize and heads == 6:
                     # the main path's case: device time by pass, the
                     # earlier tree's beside it
                     passes = pass_times(current)
@@ -1076,6 +1107,16 @@ def _k45_cases(m_tok, qkv=False):
         *([("qkv", m_tok, 384, 1152, True)] if qkv else []),
         ("ragged", 1000, 200, 72, False),
     ]
+
+
+def _k45_tp_cases(m_tok):
+    """K4's cases of a TP = 2 rank (`tp_shapes`), each in the stream the
+    TP pallas step runs it in: the row-parallel proj and fc2 on x upcast
+    to fp32 (their partial sums reach the all-reduce unrounded), fc1 in
+    bf16; [(dtype name, cases)]."""
+    (p, f1, f2) = tp_shapes(m_tok)
+    return [("float32", [("tp proj", *p, False), ("tp fc2", *f2, False)]),
+            ("bfloat16", [("tp fc1", *f1, False)])]
 
 
 def _k45_gate(y, ref, abs_sum):
@@ -6123,6 +6164,518 @@ def phase_ddp(dev, kept, deit="deit_small_distilled_patch16_224",
     return out
 
 
+# ---------------------------------------------------- tensor parallelism
+# Phase 23 (`phase_tp`): the port's 'model' axis on the card.  As in phase
+# 22 the two ranks share the one card over gloo: every time is a
+# functional reading, not a tensor-parallel rate.
+TP = 2                  # the model group: DeiT-S's 6 heads, 3 a rank
+TP_TIMEOUT = 540        # s, the one spawn of the ranks
+# the tensor-parallel faults of the gate self-check (the fused step): a
+# row-parallel kernel's StatsQ scale from its rank's rows alone, the
+# softmax scale's ds left unreduced over the model group
+TP_FAULTS = ("local_statsq_scale", "softmax_ds_unreduced")
+
+
+def tp_shapes(m_tok):
+    """{(M, K, N): launches} of K1 (fused) or K4 (pallas) per rank in one
+    DeiT-S step at TP (12 blocks): proj (rows of C), fc1 (columns of
+    4C), fc2 (rows of 4C)."""
+    C, hid = 384, 1536
+    return {(m_tok, C // TP, C): 12, (m_tok, C, hid // TP): 12,
+            (m_tok, hid // TP, C): 12}
+
+
+@contextlib.contextmanager
+def tp_fault(fault):
+    """One of TP_FAULTS (None: none) in effect."""
+    from ofq_tpu_torch.nn import attention
+    from ofq_tpu_torch.quant import statsq
+    if fault == "local_statsq_scale":
+        # the scale's mean over this rank's rows only
+        sites = [(statsq, "gather_rows", lambda t, mesh, axis=0: t)]
+    elif fault == "softmax_ds_unreduced":
+        real = attention.copy_to_model
+        # the scale (1-D) keeps its partial ds; the shared input its sum
+        sites = [(attention, "copy_to_model",
+                  lambda t, mesh: t if t.ndim == 1 else real(t, mesh))]
+    else:
+        sites = []
+    saved = [(m, n, getattr(m, n)) for m, n, _ in sites]
+    for m, n, fn in sites:
+        setattr(m, n, fn)
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+class ModelGroupMeter:
+    """The bytes (summed in at least fp32) and wall time of the model
+    group's all-reduces (`parallel.tensor._all_reduce`) while active,
+    synchronised around each."""
+
+    def __init__(self):
+        self.bytes, self.seconds, self.calls = 0, 0.0, 0
+
+    @contextlib.contextmanager
+    def active(self):
+        from ofq_tpu_torch.parallel import tensor
+        real = tensor._all_reduce
+
+        def timed(t, mesh, op=None):
+            _sync()
+            t0 = time.perf_counter()
+            out = real(t, mesh, op)
+            _sync()
+            self.seconds += time.perf_counter() - t0
+            self.bytes += t.numel() * max(t.element_size(), 4)
+            self.calls += 1
+            return out
+
+        tensor._all_reduce = timed
+        try:
+            yield self
+        finally:
+            tensor._all_reduce = real
+
+
+def tp_step(mesh, full, teacher, data, *, cga=None, fault=None,
+            timed=False):
+    """One TP step of a copy of the whole student `full` (sharded here,
+    the state with it) on the whole batch (the model group's rows): the
+    gathered gradients, the gradients this rank holds whole, the loss,
+    launches and shapes, the sharded parameters' bytes and the peak
+    memory; with `cga`, its masks (gathered) and the frozen entries that
+    changed; with `timed`, the wall time of one more step and the model
+    group's all-reduce bytes and time in a third."""
+    import copy
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.parallel import shard_params
+    from ofq_tpu_torch.train import (TrainState, constant_lr,
+                                     cosine_with_warmup_cooldown,
+                                     freeze_masks, make_optimizer,
+                                     make_train_step)
+    student = copy.deepcopy(full)
+    sched = (constant_lr(CGA_LR) if cga else cosine_with_warmup_cooldown(
+        5.47e-4, epochs=300, warmup_epochs=5, warmup_lr=1e-6, min_lr=1e-5))
+    opt = RecordingOptimizer(make_optimizer(sched, weight_decay=0.05))
+    state = shard_params(TrainState.create(student, opt), mesh, student)
+    layout = state.tp
+    step = make_train_step(student, opt, teacher=teacher,
+                           loss_kind="kd_soft_hard", device=mesh.device,
+                           mesh=mesh, cga=cga)
+    res = {}
+    if cga is not None:
+        masks = {n: m for n, m in freeze_masks(
+            state.params, **cga, layout=layout).items() if m is not None}
+        before = {n: state.params[n].detach().clone() for n in masks}
+    _peak_reset()
+    ops.reset_launch_counts()
+    with tp_fault(fault):
+        state, met = step(state, data)
+    _sync()
+    res.update(
+        loss=float(met["loss"]), launches=ops.launch_counts(),
+        shapes={**_shapes(ops.fused_qlinear_fwd),
+                **_shapes(ops.pallas_statsq_fwd)},
+        grads=_cpu(layout.gather(opt.grads)),
+        whole=_cpu({n: g for n, g in opt.grads.items()
+                    if n not in layout.cuts}),
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in state.params.values()),
+        peak_gb=_peak_gb())
+    if cga is not None:
+        res["frozen_changed"] = sum(
+            int(((_bits(state.params[n].detach()) != _bits(before[n]))
+                 & (m > 0.5)).sum()) for n, m in masks.items())
+        res["masks"] = _cpu(layout.gather(masks))
+    if timed:
+        _sync()
+        t0 = time.perf_counter()
+        state, met = step(state, data)
+        float(met["loss"])
+        res["step_s"] = time.perf_counter() - t0
+        meter = ModelGroupMeter()
+        with meter.active():
+            state, met = step(state, data)
+        res.update(ar_bytes=meter.bytes, ar_s=meter.seconds,
+                   ar_calls=meter.calls)
+    del student, state, step
+    _empty_cache()
+    return res
+
+
+def _peak_reset():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb():
+    """The peak device memory since `_peak_reset` (0 off the card)."""
+    import torch
+    return (torch.cuda.max_memory_allocated() / 1e9
+            if torch.cuda.is_available() else 0.0)
+
+
+def _empty_cache():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def tp_serving(mesh, full, batches):
+    """The sharded student's eval forward (kernels) against the single
+    process's plain path on `batches`: each block alone on the plain
+    path's input to it (`_row_shares`), the top-1 agreement, one
+    forward's launches and shapes."""
+    import copy
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.parallel import shard_model
+    m = copy.deepcopy(full).eval()
+    dev = mesh.device
+    caps = _capture_blocks(m, batches[0], dev)
+    with torch.inference_mode():
+        with plain_path(m):
+            p_plain = [torch.softmax(m(torch.from_numpy(b).to(dev)), -1)
+                       for b in batches]
+        # the single process's kernel path: how close TP's bits come
+        p_single = [torch.softmax(m(torch.from_numpy(b).to(dev)), -1)
+                    for b in batches]
+    shard_model(m, mesh)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        p_k = [torch.softmax(m(torch.from_numpy(batches[0]).to(dev)), -1)]
+        _sync()
+        launches = ops.launch_counts()
+        shapes = _shapes(ops.fused_qlinear_fwd)
+        p_k += [torch.softmax(m(torch.from_numpy(b).to(dev)), -1)
+                for b in batches[1:]]
+        rows = [_row_shares(getattr(m, n)(x), ref, FUSED)
+                for n, (x, ref) in zip(m.block_names, caps)]
+    top1 = float((torch.cat(p_k).argmax(-1)
+                  == torch.cat(p_plain).argmax(-1)).float().mean())
+    same = (torch.cat(p_k) == torch.cat(p_single)).all(-1)
+    finite = all(bool(torch.isfinite(p).all()) for p in p_k)
+    del m, caps
+    _empty_cache()
+    return dict(rows=rows, top1=top1, launches=launches, shapes=shapes,
+                finite=finite, images=sum(len(b) for b in batches),
+                same_as_single=float(same.float().mean()))
+
+
+def _tp_job(rank, world, tmp, mesh):
+    """Rank `rank` of the two-rank TP run on the one card (`tp_job.pt`):
+    (a) the fused fp32 and pallas bf16 steps from the parent's starts and
+    the sharded serving forward, (b) the fused step under TP_FAULTS, (c)
+    a fused CGA step, (d) the recipe's train and eval commands at
+    `--mesh-model-parallel` TP."""
+    import numpy as np
+    import torch
+    from ofq_tpu_torch.cli import eval as cli_eval
+    from ofq_tpu_torch.cli import train as cli_train
+    from ofq_tpu_torch.parallel import make_mesh
+    spec = torch.load(os.path.join(tmp, "tp_job.pt"), weights_only=False)
+    tp = make_mesh(model_parallel=TP, device=mesh.device)
+    out = dict(mesh=(tp.data_index, tp.model_index))
+    for key, conf in (("fused", FUSED), ("pallas", PALLAS)):
+        start = torch.load(os.path.join(tmp, f"tp_{key}.start.pt"),
+                           weights_only=True)
+        student, teacher, data = build_trained(mesh.device, conf,
+                                               spec["name"], spec["batch"])
+        student.load_state_dict(start["student"])
+        teacher.load_state_dict(start["teacher"])
+        out[key] = dict(ok=tp_step(tp, student, teacher, data, timed=True))
+        if key == "fused":
+            rng = np.random.default_rng(0)
+            batches = [data["image"].cpu().numpy()] + [
+                rng.normal(size=tuple(data["image"].shape)).astype(
+                    np.float32) for _ in range(CMP_BATCHES - 1)]
+            out["serving"] = tp_serving(tp, student, batches)
+            for fault in TP_FAULTS:
+                out[key][fault] = tp_step(tp, student, teacher, data,
+                                          fault=fault)
+            out["cga"] = tp_step(tp, student, teacher, data, cga=CGA)
+        del student, teacher, data
+        _empty_cache()
+    spy = CliSpy()
+    t0 = time.perf_counter()
+    with spy.active():
+        cli_train.main(spec["train"], device=str(mesh.device))
+    rec = spy.take()
+    t1 = time.perf_counter()
+    got = cli_eval.main(spec["eval"], device=str(mesh.device))
+    out["recipe"] = dict(
+        steps=[dict(launches=s["launches"], seconds=s["seconds"])
+               for s in rec["steps"]],
+        batch=rec["runners"][0].data_cfg.batch_size, train_s=t1 - t0,
+        eval=got, eval_s=time.perf_counter() - t1)
+    return out
+
+
+def _single_step_peak(student, teacher, data):
+    """A single-process step of a copy of `student`: the parameters'
+    bytes and the peak memory (the TP readings' yardstick)."""
+    import copy
+    import torch
+    from ofq_tpu_torch.train import (TrainState, make_optimizer,
+                                     make_train_step)
+    m = copy.deepcopy(student)
+    opt = make_optimizer(lambda c: 1e-4, weight_decay=0.05)
+    state = TrainState.create(m, opt)
+    step = make_train_step(m, opt, teacher=teacher, loss_kind="kd_soft_hard",
+                           device=data["image"].device)
+    _peak_reset()
+    state, met = step(state, data)
+    float(met["loss"])
+    out = (sum(p.numel() * p.element_size() for p in state.params.values()),
+           _peak_gb())
+    del m, state, step
+    _empty_cache()
+    return out
+
+
+def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
+             batch=BATCH, steps=2, extra=()):
+    """The port's tensor parallelism (`ofq_tpu_torch.parallel`'s 'model'
+    axis) at DeiT-S width on the card: two ranks, one model group of TP,
+    sharing the card over gloo (NCCL refuses two ranks on one device,
+    `phase_ddp` (b)), spawned once (`ddp_spawn`), each taking the whole
+    batch of `batch`:
+
+      (a) the W2A2 QKR fused fp32 step (K1, K2, K3) and the pallas bf16
+          step (K4) from the starts this process saves: the gathered
+          gradients held by `check_step_grads`' whole-step rule against
+          the single-process plain path, the gradients each rank holds
+          whole bit-equal across the ranks, the launches per rank (36
+          K1 or 36 K4 at `tp_shapes`, 12 K2 and 12 K3 at 3 heads); the
+          sharded eval forward (36 K1, 12 K2) under `phase_slice`'s block
+          and top-1 gates against the single process's plain path;
+      (b) TP_FAULTS on the fused step, each of which must trip the rule;
+      (c) a fused CGA step: 0 frozen bits changed, the gathered masks the
+          single process's but within MASK_EDGE_ULPS fp32 ulps of a band
+          edge;
+      (d) `cli.train.main` (phase 1, `steps` steps, synthetic data, the
+          warm start `phase_cli` kept) and `cli.eval.main` with
+          `--mesh-model-parallel` TP; the eval's top-1 and top-5 equal to
+          this process's single-process eval of the checkpoint.
+    One `[tp]` line each (per rank: the sharded parameters' bytes and the
+    peak memory beside one process's, the model group's all-reduce bytes
+    and ms a step, the wall s a step: functional numbers, two ranks
+    sharing one card over gloo)."""
+    import copy
+    import shutil
+    import tempfile
+    import torch
+    from ofq_tpu_torch.cli import eval as cli_eval
+    from ofq_tpu_torch.quant import outer_freeze_mask, statsq_b4_round
+    from ofq_tpu_torch.train import freeze_masks
+    out, selfcheck = {}, []
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ofq_tp_")
+    try:
+        built = {}
+        for key, conf in (("fused", FUSED), ("pallas", PALLAS)):
+            student, teacher, data = build_trained(dev, conf, deit, batch)
+            torch.save({"student": _cpu(student.state_dict()),
+                        "teacher": _cpu(teacher.state_dict())},
+                       os.path.join(tmp, f"tp_{key}.start.pt"))
+            built[key] = (student, teacher, data)
+        p1, _, common = phase1_argv(os.path.join(kept, "fp.pth.tar"), tmp,
+                                    deit, batch, steps, extra)
+        exp = os.path.join(tmp, "tp")
+        train = p1 + ["--epochs", "1", "--max-steps", str(steps),
+                      "--experiment", "tp", "--mesh-model-parallel", str(TP)]
+        ev = p1 + ["--experiment", "tp_eval", "--resume", exp]
+        torch.save(dict(name=deit, batch=batch, train=train,
+                        eval=ev + ["--mesh-model-parallel", str(TP)]),
+                   os.path.join(tmp, "tp_job.pt"))
+        t0 = time.perf_counter()
+        ranks, _ = ddp_spawn("_tp_job", tmp, world=TP, timeout=TP_TIMEOUT,
+                             device=dev.type)
+        out["spawn_s"] = time.perf_counter() - t0
+        if [r["mesh"] for r in ranks] != [(0, m) for m in range(TP)]:
+            raise AssertionError(f"[tp] meshes {[r['mesh'] for r in ranks]}")
+        m_tok = batch * built["fused"][0].cfg.n_tokens
+        want_shapes = {str(k): v for k, v in tp_shapes(m_tok).items()}
+        for key, conf in (("fused", FUSED), ("pallas", PALLAS)):
+            student, teacher, data = built[key]
+            rs = [r[key]["ok"] for r in ranks]
+            label = f"DeiT-S ({_describe(conf)})"
+            want = _expected(conf, student.cfg, train=True)
+            for i, r in enumerate(rs):
+                if r["launches"] != want or r["shapes"] != want_shapes:
+                    raise AssertionError(
+                        f"[tp] (a) {label} rank {i}: launches "
+                        f"{r['launches']} by (M,K,N) {r['shapes']}, "
+                        f"expected {want} at {want_shapes}")
+            bad = [k for k in rs[0]["whole"]
+                   if not torch.equal(rs[0]["whole"][k], rs[1]["whole"][k])]
+            if bad or set(rs[0]["grads"]) != set(rs[1]["grads"]):
+                raise AssertionError(f"[tp] (a) {label}: gradients held "
+                                     f"whole differ across the ranks: "
+                                     f"{bad[:5]}")
+            refs = {}
+            grads = check_step_grads(
+                student, teacher, data, conf, kernel_grads=rs[0]["grads"],
+                kernel_loss=rs[0]["loss"], refs=refs,
+                tag=f"[tp] (a) {label} TP={TP} x B={batch}")
+            scales = sorted((r for r in grads["per_param"]
+                             if r["name"].endswith(".s")),
+                            key=lambda r: r["rel_kernels"] / r["limit"])
+            log(f"[tp] (a) {label}: the LSQ scales' gradients "
+                f"({len(scales)}, the rule passed), the five nearest their "
+                f"limits: " + ", ".join(
+                    f"{r['name']} {r['rel_kernels']:.3e}/{r['limit']:.3e}"
+                    for r in scales[-5:]))
+            single_bytes, single_peak = _single_step_peak(student, teacher,
+                                                          data)
+            row = dict(launches=rs[0]["launches"], shapes=rs[0]["shapes"],
+                       loss=rs[0]["loss"], floor=grads["floor"],
+                       all_params=grads["all_params"],
+                       param_bytes=[r["param_bytes"] for r in rs],
+                       single_param_bytes=single_bytes,
+                       peak_gb=[r["peak_gb"] for r in rs],
+                       single_peak_gb=single_peak,
+                       step_s=[r["step_s"] for r in rs],
+                       ar_bytes=[r["ar_bytes"] for r in rs],
+                       ar_s=[r["ar_s"] for r in rs],
+                       ar_calls=[r["ar_calls"] for r in rs],
+                       whole_bit_equal=len(rs[0]["whole"]))
+            log(f"[tp] (a) {label}, TP={TP} ranks x B={batch} on one card "
+                f"over gloo, rank 0 / 1: sharded parameters "
+                f"{row['param_bytes'][0]} / {row['param_bytes'][1]} bytes "
+                f"(one process {single_bytes}); peak memory "
+                f"{row['peak_gb'][0]:.2f} / {row['peak_gb'][1]:.2f} GB (one "
+                f"process {single_peak:.2f}); the model group's all-reduces "
+                f"{row['ar_bytes'][0]} bytes in {row['ar_calls'][0]} calls, "
+                f"{1e3 * row['ar_s'][0]:.1f} / {1e3 * row['ar_s'][1]:.1f} "
+                f"ms a step; wall {row['step_s'][0]:.3f} / "
+                f"{row['step_s'][1]:.3f} s a step; launches per rank "
+                f"{ {k: v for k, v in row['launches'].items() if v} } by "
+                f"(M,K,N) {row['shapes']}; the {row['whole_bit_equal']} "
+                f"gradients held whole bit-equal across the ranks")
+            if key == "fused":
+                for fault in TP_FAULTS:
+                    rf = ranks[0][key][fault]
+                    tripped, msg = _tripped(functools.partial(
+                        check_step_grads, kernel_grads=rf["grads"],
+                        kernel_loss=rf["loss"], refs=refs,
+                        tag=f"[tp] fault {fault}"),
+                        student, teacher, data, conf)
+                    selfcheck.append(dict(fault=fault, tripped=tripped))
+                    log(f"[selfcheck] tensor-parallel {fault}: the "
+                        f"whole-step rule {'tripped' if tripped else 'passed'}"
+                        f" (required: trip){' -- ' + msg if msg else ''}")
+                sv = [r["serving"] for r in ranks]
+                want_f = _expected(conf, student.cfg, train=False)
+                want_fs = {str(k): v for k, v in tp_shapes(m_tok).items()}
+                for i, r in enumerate(sv):
+                    if r["launches"] != want_f or r["shapes"] != want_fs or \
+                            not r["finite"]:
+                        raise AssertionError(
+                            f"[tp] (a) serving rank {i}: launches "
+                            f"{r['launches']} {r['shapes']}, finite "
+                            f"{r['finite']}")
+                    _log_rows(f"[tp] (a) serving, rank {i}, each sharded "
+                              f"block alone on the same input, kernels vs "
+                              f"the single process's plain path", r["rows"])
+                    log(f"[tp] (a) serving, rank {i}: {r['images']} images, "
+                        f"top-1 agreement with the single process's plain "
+                        f"path {100 * r['top1']:.2f} % (gate {TOP1}); "
+                        f"probabilities bit-equal to the single process's "
+                        f"kernel path for {100 * r['same_as_single']:.2f} % "
+                        f"of the images")
+                    if r["top1"] < TOP1:
+                        raise GateTripped(f"[tp] serving top-1 {r['top1']}")
+                out["serving"] = [dict(top1=r["top1"],
+                                       rows=[a for a, _ in r["rows"]],
+                                       same_as_single=r["same_as_single"])
+                                  for r in sv]
+                # (c) CGA: the masks of the single process from the same
+                # start, and 0 frozen bits changed
+                views = {n: p.detach().float()
+                         for n, p in student.named_parameters()}
+                single = {n: m for n, m in freeze_masks(views, **CGA).items()
+                          if m is not None}
+                br = CGA["boundary_range"]
+                cg = [r["cga"] for r in ranks]
+                differ = near = 0
+                for n, m in single.items():
+                    b4 = statsq_b4_round(views[n], CGA["bits"])[0]
+                    frac = b4 - torch.floor(b4)
+                    dist = torch.minimum((frac - (0.5 - br)).abs(),
+                                         (frac - (0.5 + br)).abs())
+                    ulp = torch.nextafter(b4.abs(), torch.full_like(
+                        b4, float("inf"))) - b4.abs()
+                    edge = dist <= MASK_EDGE_ULPS * ulp
+                    for r in cg:
+                        d = r["masks"][n].to(dev) != m
+                        if bool((d & ~edge).any()):
+                            raise GateTripped(
+                                f"[tp] (c) masks: {n}: {int((d & ~edge).sum())}"
+                                f" entries differ from the single process's "
+                                f"away from a band edge")
+                        differ += int(d.sum())
+                    near += int(edge.sum())
+                frozen = [r["frozen_changed"] for r in cg]
+                out["cga"] = dict(frozen_changed=frozen, differing=differ,
+                                  near_edge=near, launches=cg[0]["launches"],
+                                  loss=cg[0]["loss"])
+                log(f"[tp] (c) CGA step at TP={TP}: frozen entries changed "
+                    f"{frozen} (required 0); the {len(single)} masks against "
+                    f"the single process's: {differ} entries differing, "
+                    f"{near} within {MASK_EDGE_ULPS} fp32 ulps of a band edge "
+                    f"(allowed there only); launches per rank "
+                    f"{ {k: v for k, v in cg[0]['launches'].items() if v} }")
+                if any(frozen) or cg[0]["launches"] != want:
+                    raise GateTripped(f"[tp] (c) CGA: {out['cga']}")
+                del views
+            out[key] = row
+            del student, teacher, data, refs
+            built.pop(key)
+            _empty_cache()
+        log(f"[selfcheck] tensor-parallel unmodified step: the whole-step "
+            f"rule passed (required: pass)")
+        out["selfcheck"] = selfcheck
+        if not all(s["tripped"] for s in selfcheck):
+            raise AssertionError(f"[tp] a tensor-parallel fault passed the "
+                                 f"gate: {selfcheck}")
+        # (d) the recipe at --mesh-model-parallel TP
+        single = cli_eval.main(ev + ["--experiment", "tp_single"],
+                               device=dev)
+        want = _expected(FUSED, _family(deit)[0], train=True)
+        rec = [r["recipe"] for r in ranks]
+        for r, got in enumerate(rec):
+            _check_steps(f"[tp] (d) rank {r}", got["steps"], want, steps)
+            if got["batch"] != batch:
+                raise AssertionError(f"[tp] (d) rank {r}: batch "
+                                     f"{got['batch']}")
+        evals = [(g["eval"]["top1"], g["eval"]["top5"]) for g in rec]
+        out["recipe"] = dict(
+            step_s=[[s["seconds"] for s in g["steps"]] for g in rec],
+            train_s=[g["train_s"] for g in rec],
+            eval_s=[g["eval_s"] for g in rec], evals=evals,
+            single=(single["top1"], single["top5"]))
+        log(f"[tp] (d) cli.train.main at --mesh-model-parallel {TP}, "
+            f"{steps} steps of B={batch} on both ranks (wall s per step, "
+            f"rank 0 / 1: {out['recipe']['step_s']}); cli.eval.main at TP: "
+            f"top1/top5 by rank {evals}, one process's eval of the "
+            f"checkpoint {out['recipe']['single']}")
+        if any(e != out["recipe"]["single"] for e in evals):
+            raise AssertionError(f"[tp] (d) the TP eval {evals} != the "
+                                 f"single-process eval "
+                                 f"{out['recipe']['single']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[tp] phase wall {out['seconds']:.1f} s")
+    return out
+
+
 def phase_profile(fn, what, n_calls=3):
     """Device time by kernel over `n_calls` calls of `fn` (torch.profiler)
     and the device's idle share of the window's wall time."""
@@ -6236,6 +6789,9 @@ def main() -> int:
     full["k1"] = phase_k1(dev, n_tok, base=base)
     full["k2"] = phase_k2(dev, n_tok, base=base)
     full["k3"] = phase_k3(dev, n_tok, base=base)
+    # K2 and K3 at a TP = 2 rank's 3 heads (`phase_tp`)
+    full["k2_tp"] = phase_k2(dev, n_tok, heads=6 // TP)
+    full["k3_tp"] = phase_k3(dev, n_tok, heads=6 // TP)
     full["slice"] = phase_slice(dev, FUSED, deit, w2a2_qkr_policy(12))
     torch.cuda.empty_cache()
     full["train"] = phase_train(dev, FUSED)
@@ -6252,6 +6808,9 @@ def main() -> int:
     full["k4"] = phase_k45(dev, "K4", _k45_cases(BATCH * n_tok, qkv=True),
                            base=base)
     full["k5"] = phase_k45(dev, "K5", _k45_cases(BATCH * n_tok), base=base)
+    full["k4_tp"] = [r for dt, cases in _k45_tp_cases(BATCH * n_tok)
+                     for r in phase_k45(dev, "K4", cases,
+                                        dtypes=(getattr(torch, dt),))]
     torch.cuda.empty_cache()
     full["slice_pallas"] = phase_slice(dev, PALLAS, deit, w2a2_qkr_policy(12))
     torch.cuda.empty_cache()
@@ -6377,9 +6936,12 @@ def main() -> int:
     full["imagefolder"] = phase_imagefolder(dev)
     torch.cuda.empty_cache()
     full["imagefolder_numbers"] = imagefolder_numbers(full)
-    # data parallelism: NCCL at world 1, two ranks on the card over gloo
+    # data parallelism: NCCL at world 1, two ranks on the card over gloo;
+    # tensor parallelism: one model group of two ranks on the card
     try:
         ddp = full["ddp"] = phase_ddp(dev, kept)
+        torch.cuda.empty_cache()
+        tpr = full["tp"] = phase_tp(dev, kept)
     finally:
         shutil.rmtree(kept, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -6449,6 +7011,14 @@ def main() -> int:
                 # per rank in the two-rank step, at half the rows
                 ddp_launches=(0 if qkv else ddp["deit"]["shapes"].get(
                     str((r["M"] // DDP_WORLD, r["K"], r["N"])), 0))))
+    for r in full["k1"]:
+        if r["name"].startswith("tp"):
+            kernels.append(_kernel_row(
+                f"fused_qlinear_fwd {r['name']} ({r['M']}x{r['K']}x{r['N']})"
+                f" [{r['design']['label']}]", srcs["K1"],
+                tpr["fused"]["shapes"].get(str((r["M"], r["K"], r["N"])), 0),
+                r, path=f"TP={TP} fused train step, per rank",
+                design=r["design"]["label"]))
     tr_bf16 = full["train_fused_bf16"]
     tr_nq_bf16 = full["train_nonqkr_bf16"]
     for key, fn in (("k2", "qkr_attention_fwd"),
@@ -6474,6 +7044,24 @@ def main() -> int:
                               if r["shared"] and not bf16 else 0),
                 ddp_launches=(ddp["deit"]["launches"][fn]
                               if r["shared"] and not bf16 else 0)))
+    for key, fn in (("k2_tp", "qkr_attention_fwd"),
+                    ("k3_tp", "qkr_attention_bwd")):
+        for r in full[key]:
+            kernels.append(_kernel_row(
+                f"{fn} fp32 (shared lhs, LSQ on, {r['B']}x{r['N']}x{r['H']}x"
+                f"{r['K']}, d={r['d']}, a TP={TP} rank's heads)",
+                srcs[key[:2].upper()], tpr["fused"]["launches"][fn], r,
+                path=f"TP={TP} fused fp32 train step, per rank",
+                design=r["design"],
+                yardstick_sdpa_ms=r["sdpa_ms" if key == "k2_tp"
+                                    else "sdpa_bwd_ms"]))
+    for r in full["k4_tp"]:
+        kernels.append(_kernel_row(
+            f"pallas_statsq_fwd {r['name']} {r['dtype']} "
+            f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
+            tpr["pallas"]["shapes"].get(str((r["M"], r["K"], r["N"])), 0), r,
+            path=f"TP={TP} pallas bf16 train step, per rank",
+            design=r["design"]))
     tp_nq = full["train_nonqkr_pallas"]
     for r in full["k4"]:
         if r["main_path"]:

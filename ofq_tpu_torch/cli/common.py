@@ -173,9 +173,10 @@ def build_parser() -> argparse.ArgumentParser:
     # the JAX package's extensions
     p.add_argument("--mesh-model-parallel", dest="mesh_model_parallel",
                    type=int, default=1,
-                   help="model-parallel mesh axis; the port runs 1 only: "
-                        "tensor parallelism is the next slice (ROADMAP.md, "
-                        "Queue 1 item 7.2b)")
+                   help="the mesh's 'model' axis: tensor parallelism over "
+                        "groups of N consecutive ranks (torchrun "
+                        "--nproc_per_node ...), the data sharded over the "
+                        "rest")
     p.add_argument("--compute-dtype", dest="compute_dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--master-dtype", dest="master_dtype", default="float32",

@@ -33,9 +33,21 @@ Where the port differs from the JAX runner:
     checkpoints, recovery snapshots, `summary.csv`, wandb and the
     profiler trace (the others wait at a barrier), every rank restores,
     and the SIGTERM decision is agreed at every step.  Calibration runs
-    on shard 0's first batch on every rank.  `--mesh-model-parallel`
-    above 1 raises `NotImplementedError` (ROADMAP.md, Queue 1 item
-    7.2b).
+    on shard 0's first batch on every rank.
+  * Tensor parallelism (`--mesh-model-parallel N`): the world is a grid
+    of data groups x model groups of N consecutive ranks (`make_mesh`);
+    the data is sharded by data index over the data groups, so the N
+    ranks of a model group take the same rows.  Every rank builds,
+    calibrates and loads (or restores) the whole student, as JAX's
+    runner initialises before `shard_params`; then `shard_params` keeps
+    the rank's slices (`parallel.shard_model`) and the step is built on
+    them.  The float teacher stays whole on every rank (JAX shards it by
+    the same table; it takes no gradient, so the numbers are the same: a
+    difference of storage).  Checkpoints gather the slices (the file is
+    the single process's), the eval counts are summed over the data
+    group, and `evaluate_only` shards the loaded student too.
+    Configurations not ported there raise NotImplementedError naming
+    their ROADMAP item (`parallel/tensor.py`).
   * The data.  `synthetic` yields numpy batches as in JAX; an ImageFolder
     `data_dir` is decoded and augmented on the runner's device
     (`data/pipeline.py`), in the port's own train order and random
@@ -74,7 +86,8 @@ from ..models import create_model
 from ..models import deit as deit_models
 from ..models import swin as swin_models
 from ..models.registry import resolve_device
-from ..parallel import collectives, host_batch_slice, make_mesh, shard_params
+from ..parallel import (collectives, host_batch_slice, make_mesh,
+                        shard_model, shard_params)
 from ..quant.policy import QuantPolicy
 from ..train import TrainState, make_eval_step, make_optimizer, make_train_step
 from ..train.checkpoint import (load, make_manager, restore_best,
@@ -238,7 +251,7 @@ def recalibrate_missing_scales(model, variables, loaded, image):
 
 class Runner:
     def __init__(self, args, *, cga_mode: bool = False, device="cuda"):
-        # the data-parallel mesh (one process: a world of 1); a CUDA
+        # the (data x model) mesh (one process: a world of 1); a CUDA
         # device without an index is the rank's card, cuda:LOCAL_RANK
         self.mesh = make_mesh(
             model_parallel=getattr(args, "mesh_model_parallel", 1),
@@ -259,16 +272,18 @@ class Runner:
         data_dir = args.data_dir
         if data_dir in ("synthetic", "", None):
             data_dir = None
-        # each rank loads its slice of the global batch from its own shard
-        # of the files (and its own synthetic stream)
-        per_rank, _ = host_batch_slice(args.batch_size)
+        # each data index loads its slice of the global batch from its own
+        # shard of the files (and its own synthetic stream); the ranks of a
+        # model group load the same
+        per_rank, _ = host_batch_slice(args.batch_size, self.mesh)
         self.data_cfg = DataConfig(
             data_dir=data_dir, img_size=args.img_size,
             batch_size=per_rank, num_classes=args.num_classes,
             crop_pct=args.crop_pct, aa=args.aa or None, reprob=args.reprob,
             seed=args.seed, num_aug_repeats=args.num_aug_repeats,
             synthetic_length=per_rank * (args.steps_per_epoch or 4),
-            shard_index=self.mesh.rank, shard_count=self.mesh.world)
+            shard_index=self.mesh.data_index,
+            shard_count=self.mesh.data_world)
         self._prof = None
 
     # ------------------------------------------------------------ setup
@@ -567,17 +582,6 @@ class Runner:
         if getattr(args, "dampening_loss_weighting", 0.0) > 0:
             damp_cfg = dict(bits=args.wq_bitw,
                             weighting=args.dampening_loss_weighting)
-        step = make_train_step(
-            self.model, tx, teacher=self.teacher, loss_kind=self.loss_kind,
-            label_smoothing=args.smoothing, device=self.device,
-            ema_decay=args.model_ema_decay if args.model_ema else None,
-            cga=cga_cfg, oscillation=osc_cfg, token_kd_alpha=args.kd_alpha,
-            token_kd_type=args.kd_type, dampening=damp_cfg,
-            master_dtype=master_dtype,
-            per_layer_grad_norms=getattr(args, "wandb_watch", False),
-            mesh=self.mesh)
-        eval_step = make_eval_step(self.model)
-
         mgr = make_manager(self.out_dir, max_to_keep=args.checkpoint_hist,
                            metric_name=args.eval_metric)
         restored, start_epoch = restore_latest(mgr, state, self.model)
@@ -596,8 +600,19 @@ class Runner:
                 _logger.info(
                     "resumed from recovery snapshot at step %d (restarting "
                     "epoch %d)", rec_step, start_epoch)
-        # every rank from rank 0's state (init, warm start or resume)
-        shard_params(state, self.mesh, self.model)
+        # every rank from rank 0's state (init, warm start or resume); at
+        # --mesh-model-parallel > 1 each rank keeps its slices first
+        state = shard_params(state, self.mesh, self.model)
+        step = make_train_step(
+            self.model, tx, teacher=self.teacher, loss_kind=self.loss_kind,
+            label_smoothing=args.smoothing, device=self.device,
+            ema_decay=args.model_ema_decay if args.model_ema else None,
+            cga=cga_cfg, oscillation=osc_cfg, token_kd_alpha=args.kd_alpha,
+            token_kd_type=args.kd_type, dampening=damp_cfg,
+            master_dtype=master_dtype,
+            per_layer_grad_norms=getattr(args, "wandb_watch", False),
+            mesh=self.mesh)
+        eval_step = make_eval_step(self.model)
         # CGA: a fixed window (cga.py:760,835); resume never extends it
         num_epochs = (args.freeze_for_n_epochs if self.cga_mode
                       else args.epochs + args.cooldown_epochs)
@@ -721,9 +736,10 @@ class Runner:
         """top-1, top-5 and the mean loss over the validation stream;
         `params` (by name) replace the model's, None evaluates it as it
         stands.  The counts accumulate on the device: one host fetch.
-        With several ranks each evaluates its shard (padded with label -1
-        to equal lengths) and the totals are summed over the ranks (one
-        all-reduce) before they are divided."""
+        With several data indices each evaluates its shard (padded with
+        label -1 to equal lengths) and the totals are summed over the data
+        group (one all-reduce) before they are divided: the ranks of a
+        model group hold the same logits, so each image counts once."""
         totals = None
         eval_cfg = dataclasses.replace(self.data_cfg, seed=self.args.seed)
         for batch in self._dataset(eval_cfg, train=False):
@@ -758,6 +774,8 @@ class Runner:
         elif args.resume:
             args.initial_checkpoint = args.resume
             self.load_pretrained(variables, calib_batch=first)
+        if self.mesh.model_parallel > 1:
+            shard_model(self.model, self.mesh)
         metrics = self.evaluate(make_eval_step(self.model), None)
         _logger.info("eval: top1 %.3f top5 %.3f loss %.4f", metrics["top1"],
                      metrics["top5"], metrics["loss"])

@@ -183,7 +183,7 @@ class BatchNorm(nn.Module):
             xf = x.to(stat)
             red = tuple(range(x.ndim - 1))
             mesh = active_mesh()
-            n = x.numel() // x.shape[-1] * (mesh.world if mesh else 1)
+            n = x.numel() // x.shape[-1] * (mesh.data_world if mesh else 1)
             mean = sum_over_ranks(torch.sum(xf, dim=red), mesh) / n
             var = sum_over_ranks(torch.sum(torch.square(xf - mean), dim=red),
                                  mesh) / n

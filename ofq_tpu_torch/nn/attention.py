@@ -40,6 +40,15 @@ package enforces in `_SoftmaxScaleParam`).  Under `compute_dtype`
 composed tail's softmax in bf16, the fused tail as JAX's bf16 kernels
 compute it (fp32 scores and softmax, the quantized probabilities rounded to
 bf16 before `@ v`).
+
+Under tensor parallelism (`parallel.shard_model`: `tp` the mesh) a
+`QAttentionQKR` holds `num_heads` of the model's heads (`head_dim` stays
+the model's) and the columns, shifts and scales of those heads; its
+shared quantized input passes `parallel.copy_to_model` (the v product,
+the per-head `x W_qk` and the tail's lhs each give a partial gradient,
+summed once over the model group), its softmax scale too (its `ds` sums
+over heads; the grad-scale factor counts the model's heads), its
+attention dropout mask is cut to its heads, and `proj` is row-parallel.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from ..ops.fused_attention import (qkr_attention_bwd,
 from ..ops.int8_qlinear import (frozen_int8_linear, frozen_int8_qkx,
                                 int8_eligible, int8_statsq_linear,
                                 int8_statsq_qkx, qkr_int8_codes)
+from ..parallel.tensor import copy_to_model
 from ..quant.lsq import act_grad_scale_factor
 from ..quant.statsq import statsq_quantize
 from ..quant.ste import (as_dtype, at_least_f32, clip_lower, grad_scale,
@@ -104,11 +114,12 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
     composed, on the integer codes (int8), or on an artifact's codes
     (frozen int).
 
-    Returns xq (B, N, C), v (B, N, H, d), qkx (B, N, H, C).  At 32 input
-    bits every activation quantizer is the identity."""
+    Returns xq (B, N, C), v (B, N, H, d), qkx (B, N, H, C) (H: this
+    rank's heads under tensor parallelism).  At 32 input bits every
+    activation quantizer is the identity."""
     B, N, C = x.shape
     H = mod.num_heads
-    d = C // H
+    d = mod.head_dim
     cd = mod.compute_dtype
     codes, frozen_int = qkr_int8_flags(mod)
     x1 = mod.quant_x_move_b4(x)
@@ -116,6 +127,18 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
     # on every branch, so the s and bx gradients its consumers give are
     # summed in fp32 under the bf16 stream (the fused LSQ VJP, `bias_add`)
     xq = mod.quant_x_move_aft(mod.quant_x(x1))
+    xq_v = xq_k = xq
+    if mod.tp is not None and cd is None:
+        # sharded heads: the three products' partial gradients summed once
+        xq = xq_v = xq_k = copy_to_model(xq, mod.tp)
+    elif mod.tp is not None:
+        # in the bf16 stream each product (v, qkx, the scores) takes xq in
+        # fp32, its output rounded to bf16 as a bf16 product rounds it, and
+        # its partial gradient is summed over the group in fp32 and rounded
+        # once: each product's whole gradient is rounded to bf16 alone, as
+        # in one process
+        xq_v, xq_k, xq = (copy_to_model(xq.float(), mod.tp)
+                          for _ in range(3))
     if codes:
         mm = int_product(mod)
         s = mod.quant_x.s if mod.quant_x.learnable else mod.quant_x.s.detach()
@@ -135,7 +158,10 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
               else statsq_quantize(mod.v_kernel, mod.weight_bits))
         if cd is not None:
             vq = vq.to(cd)
-        v_out = _matmul(xq, vq) + mod.v_bias.to(xq.dtype)
+        v_out = _matmul(xq_v, vq)
+        if cd is not None:
+            v_out = v_out.to(cd)
+        v_out = v_out + mod.v_bias.to(v_out.dtype)
     v_out = mod.move_v_aft(mod.quan_v(mod.move_v_b4(v_out)))
     v = v_out.reshape(B, N, H, d)
 
@@ -148,8 +174,10 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
     else:
         if cd is not None:
             w_qk = w_qk.to(cd)
-        dt = torch.promote_types(xq.dtype, w_qk.dtype)
-        qkx = torch.einsum("bnj,hij->bnhi", xq.to(dt), w_qk.to(dt))
+        dt = torch.promote_types(xq_k.dtype, w_qk.dtype)
+        qkx = torch.einsum("bnj,hij->bnhi", xq_k.to(dt), w_qk.to(dt))
+        if cd is not None:
+            qkx = qkx.to(cd)
     qkx = mod.move_qkx_aft(mod.quan_qkx(mod.move_qkx_b4(qkx)))
     return xq, v, qkx
 
@@ -173,23 +201,25 @@ def _matmul(a, b):
     return torch.matmul(a.to(dt), b.to(dt))
 
 
-def _tail_scale(scale_param, shape, bits, aq_learnable):
+def _tail_scale(scale_param, shape, bits, aq_learnable, model=None):
     """The composition's scale semantics for the fused and remat tails (eps
     clip with identity gradient and the grad-scale factor, so a tail's ds
-    is the cotangent of the pre-processed scale); `shape` (B, H, N, N)."""
-    gf = act_grad_scale_factor(shape, bits, True, -2)
+    is the cotangent of the pre-processed scale); `shape` (B, H, N, N),
+    `model` (1, parts) where the heads are sharded."""
+    gf = act_grad_scale_factor(shape, bits, True, -2, model)
     s = grad_scale(clip_lower(scale_param, 1e-5), gf)
     return s if aq_learnable else s.detach()
 
 
 def _fused_attention(lhs, rhs, v, scale_param, *, bits, sm_scale,
                      quantize_softmax, aq_learnable=True,
-                     fwd=qkr_attention_fwd, bwd=qkr_attention_bwd):
+                     fwd=qkr_attention_fwd, bwd=qkr_attention_bwd,
+                     model=None):
     """Glue for the fused core: `_tail_scale`, then the kernels.
     lhs (B, N, K) or (B, N, H, K); rhs/v (B, N, H, .)."""
     B, N, H, _ = rhs.shape
     if quantize_softmax:
-        s = _tail_scale(scale_param, (B, H, N, N), bits, aq_learnable)
+        s = _tail_scale(scale_param, (B, H, N, N), bits, aq_learnable, model)
     else:
         s = torch.ones(N, dtype=torch.float32, device=rhs.device)
     return quantized_attention_core(
@@ -255,6 +285,7 @@ def _attention_tail(mod, lhs, rhs, v, spec, scale, generator, grams=None):
     tail or the composition; returns (B, N, H, d) and the Gram info (None
     unless `grams` = (q, k, v) is given: the composition runs then)."""
     sp = mod.quan_softmax.s if mod.quantize_softmax else None
+    tp = getattr(mod, "tp", None)
     tail = dict(bits=mod.input_bits, sm_scale=scale,
                 quantize_softmax=mod.quantize_softmax,
                 aq_learnable=mod.aq_learnable)
@@ -263,17 +294,27 @@ def _attention_tail(mod, lhs, rhs, v, spec, scale, generator, grams=None):
                    if mod.use_kernels else
                    (qkr_attention_fwd_reference,
                     qkr_attention_bwd_reference))
+        model = None
+        if tp is not None and sp is not None:
+            # the heads' partial ds summed over the model group
+            sp, model = copy_to_model(sp, tp), (1, tp.model_parallel)
         return _fused_attention(lhs, rhs, v, sp, fwd=kernels[0],
-                                bwd=kernels[1], **tail), None
+                                bwd=kernels[1], model=model, **tail), None
     if _tail_eligible(mod):
         return remat_attention_tail(lhs, rhs, v, sp, einsum_spec=spec,
                                     **tail), None
-    attn = torch.einsum(spec, lhs, rhs)
+    if lhs.dtype == rhs.dtype:
+        attn = torch.einsum(spec, lhs, rhs)
+    else:
+        # a sharded QKR attention's fp32 lhs in the bf16 stream: the score
+        # product in fp32, rounded to the stream's dtype
+        attn = torch.einsum(spec, lhs, rhs.to(lhs.dtype)).to(rhs.dtype)
     attn = softmax(attn * weak_scalar(scale, attn.dtype))
     info = None if grams is None else gram_info(attn, *grams)
     if mod.quantize_softmax:
         attn = mod.quan_softmax(attn)
-    attn = dropout(attn, mod.attn_drop, generator, train=mod.training)
+    attn = dropout(attn, mod.attn_drop, generator, train=mod.training,
+                   shard=None if tp is None else (1, tp))
     return torch.einsum("bhnm,bmhd->bnhd", attn, v), info
 
 
@@ -403,6 +444,8 @@ class QAttentionQKR(nn.Module):
         compute_dtype = as_dtype(compute_dtype)
         C, H = dim, num_heads
         self.num_heads = H
+        self.head_dim = C // H
+        self.tp = None
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
         self.weight_bits = weight_bits
@@ -455,19 +498,18 @@ class QAttentionQKR(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None, info: bool = False):
         B, N, C = x.shape
-        H = self.num_heads
+        H, d = self.num_heads, self.head_dim
         xq, v, qkx = qkr_quant_chain(self, x)
         grams = None
         if self.qqkkvv:
             # q and k from the un-reparameterized projections of the
             # shared quantized input (JAX's QKR analog of the Grams)
-            d = C // H
             qf = torch.matmul(xq, self.q_kernel.to(xq.dtype))
             kf = torch.matmul(xq, self.k_kernel.to(xq.dtype))
             grams = (qf.reshape(B, N, H, d), kf.reshape(B, N, H, d), v)
         out, attn_info = _attention_tail(self, xq, qkx, v, "bnc,bmhc->bhnm",
-                                         (C // H) ** -0.5, generator, grams)
-        out = self.proj(out.reshape(B, N, C))
+                                         d ** -0.5, generator, grams)
+        out = self.proj(out.reshape(B, N, H * d))
         out = dropout(out, self.proj_drop, generator, train=self.training)
         return (out, attn_info) if info else out
 

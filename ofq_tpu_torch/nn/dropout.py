@@ -7,7 +7,12 @@ the forward asks for them: the counterpart of `jax.random.bernoulli`
 (uniform < p), drawn from the `torch.Generator` the caller hands to the
 model's forward.  There is no default stream: a site with a rate above 0
 in train mode raises without a generator, and a generator on another
-device than the tensor raises.  The arithmetic is JAX's: the kept values
+device than the tensor raises.  Under tensor parallelism a mask over a
+tensor sharded over the mesh's model group (the attention probabilities'
+heads, the MLP's hidden columns: `shard=(axis, mesh)`) is drawn at the
+global shape and cut to this rank's slice; a mask over a replicated
+tensor is drawn alike on every model rank, from generators seeded alike.
+The arithmetic is JAX's: the kept values
 are divided by `keep` rounded to the tensor's dtype (a weakly typed
 constant in JAX), so a bf16 stream divides by bf16(keep).
 
@@ -35,15 +40,28 @@ from ..quant.ste import weak_scalar
 
 
 def bernoulli(shape: tuple[int, ...], keep: float,
-              generator: torch.Generator) -> torch.Tensor:
+              generator: torch.Generator, shard=None) -> torch.Tensor:
     """A boolean mask of `shape`, True with probability `keep`, drawn from
     `generator` on its device.  In a data-parallel step `shape` is this
     rank's rows of a batch-major tensor: the mask is drawn at the global
     batch's shape (JAX draws one mask over the global shape from one key)
-    and this rank keeps its own rows."""
+    and this rank keeps its own rows.  `shard=(axis, mesh)`: `shape` is
+    this rank's slice along `axis` of a tensor sharded over the model
+    group; the mask is drawn at the axis's global length and cut."""
     def draw(full):
         return torch.rand(full, generator=generator,
                           device=generator.device)
+
+    if shard is not None:
+        axis, mesh = shard
+        axis %= len(shape)
+        n, parts = shape[axis], mesh.model_parallel
+        whole = draw
+
+        def draw(full):
+            full = tuple(full)
+            t = whole(full[:axis] + (n * parts,) + full[axis + 1:])
+            return t.narrow(axis, mesh.model_index * n, n)
 
     return own_rows(draw, shape) < keep
 
@@ -65,17 +83,18 @@ def check_generator(x: torch.Tensor, generator: Optional[torch.Generator],
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator], *,
-            train: bool) -> torch.Tensor:
+            train: bool, shard=None) -> torch.Tensor:
     """Flax's `nn.Dropout(rate)`: in train mode `where(mask, x / keep, 0)`
     with one mask entry per element, zeros at rate 1; the identity in eval
-    mode or at rate 0 (nothing drawn)."""
+    mode or at rate 0 (nothing drawn).  `shard` as in `bernoulli`."""
     if not train or rate == 0.0:
         return x
     check_generator(x, generator, f"dropout (rate {rate})")
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = bernoulli(tuple(x.shape), keep, generator)
+    mask = (bernoulli(tuple(x.shape), keep, generator) if shard is None
+            else bernoulli(tuple(x.shape), keep, generator, shard=shard))
     return torch.where(mask, x / weak_scalar(keep, x.dtype),
                        torch.zeros_like(x))
 

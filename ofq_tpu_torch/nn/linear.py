@@ -39,6 +39,13 @@ The MLP activation (`act_layer`): exact GELU, 'relu', 'None' /
 `apply_act`; slopes and shifts are cast to the stream's dtype before use
 and `x >= 0` takes the identity branch.  An unknown name raises KeyError,
 as JAX's lookup does.
+
+Under tensor parallelism (`parallel.shard_model`) a `QLinear`'s `tp` is
+('col', mesh) for fc1 (its columns sharded) or ('row', mesh) for proj and
+fc2 (its rows, and its input's channels, sharded), which its products
+take (`ops/`); a row-parallel layer's input scale has its gradient summed
+over the model group and its bias is added after the partial products
+are.  A sharded `QMlp` cuts its hidden dropout mask to its columns.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from ..ops.int8_qlinear import (frozen_int8_forward, frozen_lsq_int8_forward,
                                 int8_qlinear, lsq_int8_eligible)
 from ..ops.pallas_statsq import pallas_statsq_fwd, pallas_statsq_fwd_reference
 from ..ops.statsq_matmul import statsq_matmul
+from ..parallel.tensor import copy_to_model
 from ..quant.ste import as_dtype, at_least_f32
 from .bias import LearnableBias
 from .dropout import dropout
@@ -155,6 +163,7 @@ class QLinear(nn.Module):
         self.frozen_int_bits = frozen_int_bits
         self.use_kernels = True
         self.calibrating = False
+        self.tp = None
         self.kernel = nn.Parameter(torch.zeros(in_features, features))
         _input_chain(self, in_features, n_tokens, input_bits, symmetric,
                      aq_learnable)
@@ -168,7 +177,10 @@ class QLinear(nn.Module):
 
     def _scale(self):
         s = self.input_quant.s
-        return s if self.input_quant.learnable else s.detach()
+        s = s if self.input_quant.learnable else s.detach()
+        if self.tp is not None and self.tp[0] == "row":
+            s = copy_to_model(s, self.tp[1])
+        return s
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.calibrating:
@@ -183,7 +195,7 @@ class QLinear(nn.Module):
                 self.move_aft.bias, self.bias, w_bits=self.weight_bits,
                 a_bits=self.input_bits, all_positive=not self.symmetric,
                 fwd=(fused_qlinear_fwd if self.use_kernels
-                     else fused_qlinear_fwd_reference))
+                     else fused_qlinear_fwd_reference), tp=self.tp)
         x = _quantize_input(self, x)
         if self.weight_bits >= 32:
             # frozen levels or an unquantized weight: no weight quantizer,
@@ -200,7 +212,7 @@ class QLinear(nn.Module):
                 impl="pallas" if self.matmul_impl == "pallas" else "xla",
                 compute_dtype=self.compute_dtype,
                 fwd=(pallas_statsq_fwd if self.use_kernels
-                     else pallas_statsq_fwd_reference))
+                     else pallas_statsq_fwd_reference), tp=self.tp)
         return y + self.bias.to(y.dtype)
 
     def _integer_branch(self, x):
@@ -335,6 +347,7 @@ class QMlp(nn.Module):
         super().__init__()
         self.act = make_act(act_layer, hidden_features)
         self.dropout_rate = dropout_rate
+        self.tp = None
         kw = dict(weight_bits=weight_bits, input_bits=input_bits,
                   aq_learnable=aq_learnable, frozen_int_bits=frozen_int_bits)
         if lsq_weights:
@@ -357,9 +370,12 @@ class QMlp(nn.Module):
 
 def _mlp(mod, x, generator):
     """fc1 -> the activation -> dropout -> fc2 -> dropout
-    (`ofq_tpu.nn.linear.Mlp`, `QMlp`)."""
+    (`ofq_tpu.nn.linear.Mlp`, `QMlp`); a sharded MLP's hidden mask is cut
+    to its columns."""
     kw = dict(train=mod.training)
-    x = dropout(mod.act(mod.fc1(x)), mod.dropout_rate, generator, **kw)
+    tp = getattr(mod, "tp", None)
+    x = dropout(mod.act(mod.fc1(x)), mod.dropout_rate, generator,
+                shard=None if tp is None else (-1, tp), **kw)
     return dropout(mod.fc2(x), mod.dropout_rate, generator, **kw)
 
 

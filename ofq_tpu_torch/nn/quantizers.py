@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.tensor import copy_to_model
 from ..quant.lsq import (grad_scale_factor, init_scale, lsq_quantize,
                          thresholds)
 from ..quant.oscillation import (OscillationState, init_oscillation_state,
@@ -38,7 +39,11 @@ class LsqAct(nn.Module):
 
     channel_axis: -2 per token, -1 per channel, None per tensor, or a tuple
     of axes (one scale per index combination, stored flat).  `num_scales`
-    is the number of scale entries (1 for per-tensor).
+    is the number of scale entries (1 for per-tensor).  `tp` (set by
+    `parallel.shard_model`: (axis, mesh)) says that the input is sharded
+    along `axis` over the mesh's model group while the scale is whole:
+    the scale's gradient is summed over the group and its grad-scale
+    factor counts the axis's global length.
     """
 
     def __init__(self, bit: int, num_scales: int, *,
@@ -50,6 +55,7 @@ class LsqAct(nn.Module):
         self.channel_axis = channel_axis
         self.learnable = learnable
         self.calibrating = False
+        self.tp = None
         self.s = nn.Parameter(torch.ones(num_scales)) if bit < 32 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -60,9 +66,14 @@ class LsqAct(nn.Module):
                 x.to(at_least_f32(x.dtype)), self.bit, self.all_positive,
                 self.channel_axis), "LsqAct")
         s = self.s if self.learnable else self.s.detach()
+        model = None
+        if self.tp is not None:
+            axis, mesh = self.tp
+            s = copy_to_model(s, mesh)
+            model = (axis, mesh.model_parallel)
         return lsq_quantize(x, s, self.bit,
                             all_positive=self.all_positive,
-                            channel_axis=self.channel_axis)
+                            channel_axis=self.channel_axis, model=model)
 
 
 class LsqWeight(nn.Module):

@@ -23,6 +23,19 @@ K * max|XI| * max|WI| < 2^24, so it gives the plain version's bits.
     ds  = gf * sum_{b,k} (in ? round(u)-u : clamp(u)) * dxq   per token
     dW  = (xq + b_post)^T @ g  (STE; scale detached)
     db_post = (sum_m g) @ wq^T ; dbias = sum_m g
+
+Under tensor parallelism (`tp=(role, mesh)`, the mesh's model group):
+a column-parallel layer ('col', fc1: its columns sharded, its input
+whole) all-reduces `dxq` once in the backward and forms dx, ds, db_pre
+and db_post (= sum_m dxq) from the whole `dxq`; a row-parallel layer
+('row', proj and fc2: its rows and input channels sharded) takes the
+whole kernel's StatsQ scale in the forward and the backward (its rows
+gathered), forms bvec from the gathered kernel and b_post, runs the
+kernel on its codes' units so that it returns the exact integer sums of
+its rows, all-reduces those (exact) and applies the epilogue to the whole
+sums (`_row_parallel_forward`: the single process's output bit for bit),
+and takes its `ds` grad-scale factor at the whole input width (the
+caller sums `ds` over the group: `parallel.copy_to_model` on s).
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import ctypes
 
 import torch
 
+from ..parallel.tensor import gather_rows, model_sum, tp_roles
 from ..quant.lsq import act_grad_scale_factor, thresholds
 from ..quant.statsq import _CLIP_HI_EPS, statsq_scale
 from ..quant.ste import needs_grad
@@ -139,20 +153,51 @@ def _prep(x, s):
 
 
 def _fused_forward(x, kernel, s, b_pre, b_post, bias, w_bits, a_bits,
-                   all_positive, fwd):
+                   all_positive, fwd, tp=None):
     """The forward of `_fused_fwd`: s_w, bvec and the operands prepared by
-    torch ops, then the kernel (or its plain version, `fwd`)."""
+    torch ops, then the kernel (or its plain version, `fwd`); a
+    row-parallel layer through `_row_parallel_forward`."""
+    row, _ = tp_roles(tp)
     a_lo, a_hi = thresholds(a_bits, all_positive)
     n_w = float(2 ** (w_bits - 1))
     x2, s_eff, n_tok = _prep(x, s)
     w = kernel.to(torch.float32).contiguous()
-    sw = statsq_scale(w)
-    bvec = b_post.to(torch.float32) @ _wq_value(w, sw, n_w)
+    sw = statsq_scale(w, mesh=row)
+    b_pre = b_pre.to(torch.float32).contiguous()
+    if row is not None:
+        bvec = (gather_rows(b_post.to(torch.float32), row)
+                @ _wq_value(gather_rows(w, row), sw, n_w))
+        y2 = _row_parallel_forward(x2, s_eff, n_tok, b_pre, w, sw, bvec,
+                                   bias, a_lo, a_hi, n_w, fwd, row)
+    else:
+        bvec = b_post.to(torch.float32) @ _wq_value(w, sw, n_w)
+        if bias is not None:
+            bvec = bvec + bias.to(torch.float32)
+        y2 = fwd(x2, s_eff, n_tok, b_pre, w, sw.contiguous(),
+                 bvec.contiguous(), a_lo, a_hi, n_w)
+    return y2.reshape(*x.shape[:-1], kernel.shape[1]).to(x.dtype)
+
+
+def _row_parallel_forward(x2, s_eff, n_tok, b_pre, w, sw, bvec, bias, a_lo,
+                          a_hi, n_w, fwd, mesh):
+    """A row-parallel layer's output, the single process's bits: `sw` and
+    `bvec` are the whole kernel's.  The kernel runs on its codes' own
+    units -- x as u = (x + b_pre) / s with unit scales and no shift, w as
+    (w / s_w) * 2n (a power of two: w / s_w exactly) with the scale 2n --
+    so that it returns the integer sums XI @ WI of this rank's rows, exact
+    in fp32; those are summed over the model group (exact); then the plain
+    version's epilogue, acc * s * (s_w / 2n) + bvec (+ the layer's bias),
+    on the whole sums."""
+    s_full = s_eff.repeat(x2.shape[0] // n_tok).reshape(-1, 1)
+    u = (x2 + b_pre) / s_full
+    acc = fwd(u.contiguous(), torch.ones_like(s_eff), n_tok,
+              torch.zeros_like(b_pre), ((w / sw) * (2.0 * n_w)).contiguous(),
+              torch.full_like(sw, 2.0 * n_w).contiguous(),
+              torch.zeros(w.shape[1], dtype=torch.float32, device=w.device),
+              a_lo, a_hi, n_w)
     if bias is not None:
         bvec = bvec + bias.to(torch.float32)
-    y2 = fwd(x2, s_eff, n_tok, b_pre.to(torch.float32).contiguous(), w,
-             sw.contiguous(), bvec.contiguous(), a_lo, a_hi, n_w)
-    return y2.reshape(*x.shape[:-1], kernel.shape[1]).to(x.dtype)
+    return model_sum(acc, mesh) * s_full * (sw / (2.0 * n_w)) + bvec
 
 
 class _FusedQLinear(torch.autograd.Function):
@@ -162,29 +207,35 @@ class _FusedQLinear(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, kernel, s, b_pre, b_post, bias, w_bits, a_bits,
-                all_positive, fwd):
+                all_positive, fwd, tp):
         ctx.save_for_backward(x, kernel, s, b_pre, b_post)
         ctx.cfg = (w_bits, a_bits, all_positive, bias is not None,
-                   None if bias is None else bias.dtype)
+                   None if bias is None else bias.dtype, tp)
         return _fused_forward(x, kernel, s, b_pre, b_post, bias, w_bits,
-                              a_bits, all_positive, fwd)
+                              a_bits, all_positive, fwd, tp)
 
     @staticmethod
     def backward(ctx, g):
         x, kernel, s, b_pre, b_post = ctx.saved_tensors
-        w_bits, a_bits, all_positive, has_bias, bias_dtype = ctx.cfg
+        w_bits, a_bits, all_positive, has_bias, bias_dtype, tp = ctx.cfg
+        row, col = tp_roles(tp)
         a_lo, a_hi = thresholds(a_bits, all_positive)
         n_w = float(2 ** (w_bits - 1))
-        gf = act_grad_scale_factor(x.shape, a_bits, all_positive, -2)
+        gf = act_grad_scale_factor(
+            x.shape, a_bits, all_positive, -2,
+            None if row is None else (x.ndim - 1, row.model_parallel))
         x2, s_eff, n_tok = _prep(x, s)
         s_full = s_eff.repeat(x2.shape[0] // n_tok).reshape(-1, 1)
         g2 = g.reshape(-1, g.shape[-1]).to(torch.float32)
         w = kernel.to(torch.float32)
-        wq = _wq_value(w, statsq_scale(w), n_w)
+        wq = _wq_value(w, statsq_scale(w, mesh=row), n_w)
 
         u = (x2 + b_pre.to(torch.float32)) / s_full
         in_range = (u >= a_lo) & (u <= a_hi)
         dxq = g2 @ wq.T
+        if col is not None:
+            # the columns' partial products, summed once over the group
+            dxq = model_sum(dxq, col)
         dx2 = torch.where(in_range, dxq, torch.zeros_like(dxq))
         db_pre = torch.sum(dx2, dim=0)
         t = torch.where(in_range, torch.round(u) - u,
@@ -199,26 +250,28 @@ class _FusedQLinear(torch.autograd.Function):
               + b_post.to(torch.float32))
         dkernel = (xq.T @ g2).to(kernel.dtype)
         g_sum = torch.sum(g2, dim=0)
-        db_post = (g_sum @ wq.T).to(b_post.dtype)
+        db_post = (g_sum @ wq.T if col is None
+                   else torch.sum(dxq, dim=0)).to(b_post.dtype)
         dbias = g_sum.to(bias_dtype) if has_bias else None
         dx = dx2.reshape(x.shape).to(x.dtype)
         return (dx, dkernel, ds, db_pre.to(b_pre.dtype), db_post, dbias,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def fused_qlinear(x, kernel, s, b_pre, b_post, bias=None, *, w_bits: int,
                   a_bits: int, all_positive: bool = False,
-                  fwd=fused_qlinear_fwd):
+                  fwd=fused_qlinear_fwd, tp=None):
     """Fused QLinear (port of `ofq_tpu.ops.fused_qlinear.fused_qlinear`),
     differentiable in every tensor argument.
 
     x: (..., n_tok, K); kernel: (K, N); s: (n_tok,) per-token LSQ scale;
     b_pre/b_post: (K,) shifts; bias: (N,) or None.  Computes in fp32 and
     returns x's dtype.  `fwd` is the kernel's wrapper, or its plain version
-    for comparison on the card.
+    for comparison on the card.  `tp`: the layer's role under tensor
+    parallelism (module docstring).
     """
     args = (x, kernel, s, b_pre, b_post, bias, w_bits, a_bits,
-            all_positive, fwd)
+            all_positive, fwd, tp)
     if needs_grad(x, kernel, s, b_pre, b_post, bias):
         return _FusedQLinear.apply(*args)
     return _fused_forward(*args)

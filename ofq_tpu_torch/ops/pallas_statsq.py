@@ -23,6 +23,14 @@ VJP of the JAX package, whose backward is XLA there and torch ops here:
 K5 computes the same dx product with Q(W) kept in fp32; no VJP of the JAX
 package calls it (its `_vjp_bwd` measured XLA faster), and neither does the
 port's.
+
+Under tensor parallelism (`tp=(role, mesh)`, as `fused_qlinear`'s): a
+row-parallel product (proj, fc2) takes the group's scale, runs K4 on x
+upcast to fp32 (exact; K4 sums in fp32 in both streams, so its fp32
+output is the bf16 stream's sum before the rounding) and all-reduces
+those fp32 partial sums over the model group before rounding once to x's
+dtype; a column-parallel one (fc1) all-reduces its fp32 dx in the
+backward before the rounding.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import ctypes
 
 import torch
 
+from ..parallel.tensor import model_sum, tp_roles
 from ..quant.statsq import _CLIP_HI_EPS, statsq_scale
 from ..quant.ste import needs_grad
 from . import _build
@@ -146,45 +155,65 @@ pallas_statsq_dx.launches = 0
 pallas_statsq_dx.launch_shapes = collections.Counter()
 
 
+def _forward(x2, w, s, bits, fwd, row):
+    """K4 (or its plain version) on x2; a row-parallel product's fp32
+    partial sums reduced over the model group, then rounded to x2's
+    dtype."""
+    n = float(2 ** (bits - 1))
+    if row is None:
+        return fwd(x2.contiguous(), w.contiguous(), s.contiguous(), n)
+    hi = torch.promote_types(x2.dtype, torch.float32)
+    y = fwd(x2.to(hi).contiguous(), w.contiguous(), s.contiguous(), n)
+    return model_sum(y, row).to(x2.dtype)
+
+
 class _PallasStatsQMatmul(torch.autograd.Function):
     """The custom VJP of `ofq_tpu.ops.pallas_statsq._pallas_statsq_matmul`:
     the K4 forward with the detached scale, residuals (x2, w, s), and
-    `_vjp_bwd` in torch ops.  `fwd` is K4's wrapper or its plain version."""
+    `_vjp_bwd` in torch ops.  `fwd` is K4's wrapper or its plain version;
+    `tp` the module docstring's."""
 
     @staticmethod
-    def forward(ctx, x2, w, bits, compute_dtype, fwd):
-        s = statsq_scale(w)
+    def forward(ctx, x2, w, bits, compute_dtype, fwd, tp):
+        row, _ = tp_roles(tp)
+        s = statsq_scale(w, mesh=row)
         ctx.save_for_backward(x2, w, s)
-        ctx.cfg = (bits, compute_dtype)
-        return fwd(x2.contiguous(), w.contiguous(), s.contiguous(),
-                   float(2 ** (bits - 1)))
+        ctx.cfg = (bits, compute_dtype, tp)
+        return _forward(x2, w, s, bits, fwd, row)
 
     @staticmethod
     def backward(ctx, g):
         x2, w, s = ctx.saved_tensors
-        bits, compute_dtype = ctx.cfg
+        bits, compute_dtype, tp = ctx.cfg
+        _, col = tp_roles(tp)
         wq = _quant_tile(w, s, float(2 ** (bits - 1)))
         if compute_dtype is not None:
             wq = wq.to(compute_dtype)
-        dx = _acc32(g, wq.T).to(x2.dtype)
+        dx = _acc32(g, wq.T)
+        if col is not None:
+            dx = model_sum(dx, col)
+        dx = dx.to(x2.dtype)
         dw = _acc32(x2.T, g).to(w.dtype)
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None
 
 
 def pallas_statsq_matmul(x, kernel, bits, *, compute_dtype=None,
-                         fwd=pallas_statsq_fwd):
+                         fwd=pallas_statsq_fwd, tp=None):
     """`x @ StatsQ(kernel)` with StatsQ(W) formed inside K4 (port of
     `ofq_tpu.ops.pallas_statsq.pallas_statsq_matmul`).  x: (..., K),
     cast to `compute_dtype` when given; kernel: (K, N).  Returns x's
     (compute) dtype.  `fwd` is K4's wrapper, or its plain version for
-    comparison on the card."""
+    comparison on the card; `tp` the layer's role under tensor
+    parallelism (module docstring)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if compute_dtype is not None:
         x2 = x2.to(compute_dtype)
     if needs_grad(x2, kernel):
-        y = _PallasStatsQMatmul.apply(x2, kernel, bits, compute_dtype, fwd)
+        y = _PallasStatsQMatmul.apply(x2, kernel, bits, compute_dtype, fwd,
+                                      tp)
     else:
-        y = fwd(x2.contiguous(), kernel.contiguous(),
-                statsq_scale(kernel).contiguous(), float(2 ** (bits - 1)))
+        row, _ = tp_roles(tp)
+        y = _forward(x2, kernel, statsq_scale(kernel, mesh=row), bits, fwd,
+                     row)
     return y.reshape(*lead, kernel.shape[1])

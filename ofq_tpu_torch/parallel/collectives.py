@@ -20,9 +20,12 @@ over a `torch.distributed` process group.
   * `flip_partner`: the rows of the global batch's reverse that pair with
     this rank's rows (mixup and cutmix).
 
-Only `all_reduce`, `broadcast` and `barrier` are used: the collectives
-that both NCCL and gloo run on CUDA tensors, so that two ranks can share
-one card over gloo.  Every function takes the world of one process (no
+Each runs over the mesh's data group (`mesh.group`, of `mesh.data_world`
+ranks; at `model_parallel` > 1 not the world: the ranks of one model
+group hold one batch), except `agree`, over the whole world.  Only
+`all_reduce`, `broadcast` and `barrier` are used: the collectives that
+both NCCL and gloo run on CUDA tensors, so that two ranks can share one
+card over gloo.  Every function takes the world of one process (no
 process group) as the identity.
 """
 
@@ -44,11 +47,11 @@ _ACTIVE = None
 
 @contextlib.contextmanager
 def data_parallel(mesh):
-    """Open the step's context on `mesh` (None, or a world of 1: nothing
-    changes)."""
+    """Open the step's context on `mesh` (None, or a data group of 1:
+    nothing changes)."""
     global _ACTIVE
     prev = _ACTIVE
-    _ACTIVE = mesh if mesh is not None and mesh.world > 1 else None
+    _ACTIVE = mesh if mesh is not None and mesh.data_world > 1 else None
     try:
         yield
     finally:
@@ -62,16 +65,18 @@ def active_mesh():
 
 def batch_shape(shape) -> tuple:
     """The global shape of a batch-major tensor of this rank's shape: the
-    leading axis times the world of the open context."""
+    leading axis times the data group of the open context."""
     shape = tuple(shape)
     m = _ACTIVE
     if m is None:
         return shape
-    return (shape[0] * m.world,) + shape[1:]
+    return (shape[0] * m.data_world,) + shape[1:]
 
 
 def _distributed(mesh) -> bool:
-    return mesh is not None and dist.is_initialized()
+    """Whether `mesh`'s data group holds more than this process."""
+    return (mesh is not None and dist.is_initialized()
+            and mesh.data_world > 1)
 
 
 def _buckets(tensors: list) -> dict:
@@ -97,7 +102,7 @@ def _bucketed(tensors: list, op) -> list:
 
 def all_reduce_mean(grads: dict, mesh) -> dict:
     """{name: gradient} averaged over the data group: summed in one
-    all-reduce per dtype bucket, then divided by the world size (every
+    all-reduce per dtype bucket, then divided by the group's size (every
     rank gets the same bits)."""
     if not _distributed(mesh):
         return grads
@@ -105,7 +110,7 @@ def all_reduce_mean(grads: dict, mesh) -> dict:
 
     def op(flat):
         dist.all_reduce(flat, group=mesh.group)
-        flat.div_(mesh.world)
+        flat.div_(mesh.data_world)
 
     return dict(zip(names, _bucketed([grads[n] for n in names], op)))
 
@@ -127,15 +132,17 @@ def all_reduce_max_(t: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def agree(flag: bool, mesh) -> bool:
-    """True on every rank when `flag` is True on any."""
-    if not _distributed(mesh) or mesh.world == 1:
+    """True on every rank of the world when `flag` is True on any."""
+    if mesh is None or not dist.is_initialized() or mesh.world == 1:
         return flag
     t = torch.tensor([1.0 if flag else 0.0], device=mesh.device)
-    return bool(all_reduce_max_(t, mesh).item() > 0)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item() > 0)
 
 
 def broadcast_(tensors: Iterable[torch.Tensor], mesh, src: int = 0) -> None:
-    """Copy rank `src`'s values into `tensors` on every rank, in place."""
+    """Copy rank `src`'s values (a global rank of the data group) into
+    `tensors` on every rank of the data group, in place."""
     # bool tensors travel as their bytes (gloo reduces no bool)
     tensors = [t.view(torch.uint8) if t.dtype == torch.bool else t
                for t in tensors if t is not None]
@@ -190,17 +197,17 @@ def sum_over_ranks(t: torch.Tensor, mesh) -> torch.Tensor:
 
 def flip_partner(t: torch.Tensor, mesh) -> torch.Tensor:
     """The rows that the global batch's reverse puts in place of this
-    rank's rows: global row i pairs with row B - 1 - i, so rank r's rows
-    come from rank W - 1 - r, reversed.  They are fetched by an
-    all-reduce of a zero-filled buffer of the global batch into which
-    each rank writes its own rows."""
-    if not _distributed(mesh) or mesh.world == 1:
+    rank's rows: global row i pairs with row B - 1 - i, so the rows of
+    data index r come from data index W - 1 - r, reversed.  They are
+    fetched by an all-reduce over the data group of a zero-filled buffer
+    of the global batch into which each rank writes its own rows."""
+    if not _distributed(mesh):
         return t.flip(0)
-    buf = torch.zeros((mesh.world,) + tuple(t.shape), dtype=t.dtype,
-                      device=t.device)
-    buf[mesh.rank] = t
+    W, r = mesh.data_world, mesh.data_index
+    buf = torch.zeros((W,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    buf[r] = t
     dist.all_reduce(buf, group=mesh.group)
-    return buf[mesh.world - 1 - mesh.rank].flip(0)
+    return buf[W - 1 - r].flip(0)
 
 
 def own_rows(draw, shape: tuple) -> torch.Tensor:
@@ -212,5 +219,5 @@ def own_rows(draw, shape: tuple) -> torch.Tensor:
     if m is None:
         return draw(tuple(shape))
     n = shape[0]
-    full = draw((n * m.world,) + tuple(shape[1:]))
-    return full[m.rank * n:(m.rank + 1) * n]
+    full = draw((n * m.data_world,) + tuple(shape[1:]))
+    return full[m.data_index * n:(m.data_index + 1) * n]

@@ -1,20 +1,22 @@
-"""The data-parallel mesh (port of `ofq_tpu/parallel/mesh.py`).
+"""The (data x model) mesh (port of `ofq_tpu/parallel/mesh.py`).
 
 The JAX package runs one jitted program over a `Mesh` with a 'data' axis
 (the batch sharded; GSPMD inserts the gradient all-reduce, what DDP's
-NCCL all-reduce did in the original) and an optional 'model' axis
-(Megatron tensor parallelism, laid out by `param_spec`).  The port runs
-one process per card: its `Mesh` is this process's place in the data
-group (world size, rank, local rank, device, process group), and the
-reductions over the global batch are written out (`collectives.py`).
+NCCL all-reduce did in the original) and a 'model' axis (Megatron tensor
+parallelism, laid out by `param_spec`).  The port runs one process per
+card: its `Mesh` is this process's place in JAX's device grid,
+`np.arange(world).reshape(world // model_parallel, model_parallel)`: rank
+r sits at data index r // model_parallel and model index
+r % model_parallel, so the consecutive ranks {d * mp, ..., d * mp + mp -
+1} form one model group and the ranks of one model index across the
+data indices one data group.  The reductions over the global batch run
+over the data group (`collectives.py`); those of the 'model' axis, inside
+the model's autograd graph, over the model group (`tensor.py`).
 
-Only the 'data' axis is ported.  The 'model' axis needs every quantizer
-shard-aware (the row-parallel StatsQ scale and the LSQ `ds` over sharded
-activations all-reduced before the kernels see them): `make_mesh` refuses
-`model_parallel > 1` (ROADMAP.md, Queue 1 item 7.2b).  `param_spec` is
-kept, a pure function over the port's Flax-path parameter names, for that
-slice.  `shard_params` under the 'data' axis replicates: rank 0's state
-is broadcast to every rank.
+`shard_params` replicates the state over the data group (its first
+rank's state is broadcast to the others) and, at `model_parallel` > 1,
+keeps this rank's slices of the model and the state first
+(`tensor.shard_model`).
 """
 
 from __future__ import annotations
@@ -27,44 +29,81 @@ import torch.distributed as dist
 
 from . import collectives
 from .multihost import local_rank, process_count, process_index
-
-TP_SLICE = "ROADMAP.md, Queue 1 item 7.2b"
+from .tensor import shard_model
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in the data group: `world` ranks, this one
+    """This process's place in the mesh: `world` ranks in all, this one
     `rank` (`local_rank` on its host), running on `device`; `group` is
-    the data group's process group (None: the default group, or no
-    process group at all in a single-process run)."""
+    its data group's process group and `model_group` its model group's
+    (None: the default group, or no process group at all, in a run of one
+    process; a `model_parallel` of 1 has no model group)."""
     world: int
     rank: int
     local_rank: int
     device: torch.device
     group: Any = None
+    model_parallel: int = 1
+    model_group: Any = None
+
+    @property
+    def data_world(self) -> int:
+        """The ranks of the 'data' axis: the data group's size."""
+        return self.world // self.model_parallel
+
+    @property
+    def data_index(self) -> int:
+        """This rank's place on the 'data' axis (its rows of the batch)."""
+        return self.rank // self.model_parallel
+
+    @property
+    def model_index(self) -> int:
+        """This rank's place on the 'model' axis (its heads and columns)."""
+        return self.rank % self.model_parallel
+
+
+def _groups(world: int, mp: int, rank: int) -> tuple:
+    """(data group, model group) of `rank`: every rank creates every
+    group, in the same order (`dist.new_group` is collective)."""
+    data = model = None
+    for m in range(mp):
+        g = dist.new_group([d * mp + m for d in range(world // mp)])
+        if rank % mp == m:
+            data = g
+    for d in range(world // mp):
+        g = dist.new_group(list(range(d * mp, (d + 1) * mp)))
+        if rank // mp == d:
+            model = g
+    return data, model
 
 
 def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1, *,
               device="cuda") -> Mesh:
-    """The data-parallel mesh of this process: every process of the
-    process group (one when there is none) on the 'data' axis.
-    `n_devices`, when given, must be the world size.  A CUDA `device`
-    without an index becomes `cuda:LOCAL_RANK`."""
-    if model_parallel != 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel}: the port shards the batch "
-            f"only; tensor parallelism over a 'model' axis is the next "
-            f"slice ({TP_SLICE})")
+    """The mesh of this process over every process of the process group
+    (one when there is none): `model_parallel` consecutive ranks per model
+    group.  `n_devices`, when given, must be the world size;
+    `model_parallel` must divide it (ValueError).  A CUDA `device` without
+    an index becomes `cuda:LOCAL_RANK`."""
     world = process_count()
     if n_devices is not None and n_devices != world:
         raise ValueError(f"n_devices={n_devices}, but the process group "
                          f"holds {world} processes")
+    mp = int(model_parallel)
+    if mp < 1 or world % mp:
+        raise ValueError(f"model_parallel={model_parallel} does not divide "
+                         f"the world of {world} processes")
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", local_rank())
-    return Mesh(world=world, rank=process_index(), local_rank=local_rank(),
-                device=dev,
-                group=dist.group.WORLD if dist.is_initialized() else None)
+    rank = process_index()
+    group = model_group = None
+    if dist.is_initialized():
+        group = dist.group.WORLD
+        if mp > 1:
+            group, model_group = _groups(world, mp, rank)
+    return Mesh(world=world, rank=rank, local_rank=local_rank(), device=dev,
+                group=group, model_parallel=mp, model_group=model_group)
 
 
 # Kernels sharded over the 'model' axis by name: column-parallel producers
@@ -111,16 +150,27 @@ def _state_tensors(state, model=None) -> list:
 
 
 def shard_params(state, mesh: Mesh, model: Optional[torch.nn.Module] = None):
-    """Replicate `state` over the 'data' axis: rank 0's parameters,
-    optimizer state (moments and count), step, epoch, EMA and oscillation
-    states, and `model`'s buffers (BatchNorm's running statistics, the
-    image quantizer's sign) and working parameters, broadcast to every
-    rank in place.  A single process keeps its state.  Returns `state`."""
-    if not dist.is_initialized():
+    """Lay `state` out on the mesh: at `model_parallel` > 1 keep this
+    rank's slices of `model` and of the state first (`tensor.shard_model`
+    and `Layout.shard_state`: the state's parameters become the model's
+    sliced ones, its moments are cut, `state.tp` holds the layout), then
+    replicate over the data group: its first rank's parameters, optimizer
+    state (moments and count), step, epoch, EMA and oscillation states,
+    and `model`'s buffers (BatchNorm's running statistics, the image
+    quantizer's sign) and working parameters, broadcast to the group's
+    other ranks in place.  A single process keeps its state.  Returns
+    `state`."""
+    if mesh.model_parallel > 1:
+        if model is None:
+            raise ValueError("tensor parallelism shards the model: pass it")
+        state = shard_model(model, mesh).shard_state(state, model)
+    if not dist.is_initialized() or mesh.data_world == 1:
         return state
     counters = torch.tensor([state.opt_state.count, state.step, state.epoch],
                             dtype=torch.int64, device=mesh.device)
-    collectives.broadcast_(_state_tensors(state, model) + [counters], mesh)
+    # the data group's first rank: data index 0, this rank's model index
+    collectives.broadcast_(_state_tensors(state, model) + [counters], mesh,
+                           src=mesh.model_index)
     count, step, epoch = (int(v) for v in counters.tolist())
     state.opt_state = dataclasses.replace(state.opt_state, count=count)
     state.step, state.epoch = step, epoch

@@ -109,9 +109,12 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def host_batch_slice(global_batch: int) -> tuple[int, int]:
-    """(per-rank batch, offset) of this rank's rows in the global batch."""
-    n = process_count()
+def host_batch_slice(global_batch: int, mesh=None) -> tuple[int, int]:
+    """(per-rank batch, offset) of this rank's rows in the global batch:
+    split over every process, or with `mesh` over its data group (the
+    ranks of a model group take the same rows)."""
+    n, i = ((process_count(), process_index()) if mesh is None
+            else (mesh.data_world, mesh.data_index))
     assert global_batch % n == 0, (global_batch, n)
     per = global_batch // n
-    return per, per * process_index()
+    return per, per * i

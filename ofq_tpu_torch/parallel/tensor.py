@@ -1,0 +1,401 @@
+"""Tensor parallelism over the mesh's 'model' axis (the 'model' axis of
+`ofq_tpu/parallel/mesh.py`): the DeiT W2A2 QKR student sharded by JAX's
+Megatron table (`param_spec`), each block's heads and MLP columns split
+over the ranks of a model group.
+
+The JAX package annotates the parameters and lets GSPMD place the
+collectives; the port writes them into the model's autograd graph, each
+an op of this module run over the model group:
+
+  * `copy_to_model` (Megatron's f): the identity forward, an all-reduce
+    of the cotangent backward.  On QKR's shared quantized input (its v
+    product, the per-head `x W_qk` and the attention's lhs each give a
+    partial gradient), on the composed column-parallel product's input
+    (fc1), and on every scale whose input is sharded (the softmax scale,
+    the row-parallel linears' input scales): their `ds` sums over heads
+    or channels of other ranks;
+  * `reduce_from_model` (g): an all-reduce forward, the identity
+    backward: after the composed row-parallel products (`proj`, `fc2`),
+    before their bias.  The kernels' own functions (K1, K4) reduce inside
+    their forward and backward (`ops/`);
+  * `gather_rows`: a row-parallel kernel's rows gathered (exact), for its
+    StatsQ scale (2 mean|W| over the whole in-axis: the single process's
+    bits) and K1's bvec; `model_sum` / `model_min` / `model_max`: the
+    reductions of K1's integer sums, of a row-parallel product's partial
+    sums and of CGA's level range, without a gradient.
+
+Every collective sums in at least fp32 and returns its input's dtype, so
+a partial sum leaves a rank unrounded where the single process would sum
+on (the row-parallel products hand their fp32 accumulators to the
+all-reduce and round the sum once).
+
+`shard_model` cuts a calibrated, loaded model in place: each rank keeps
+the columns of its heads and MLP units in the column-parallel kernels
+(q, k, v, fc1), the rows in the row-parallel ones (proj, fc2), and the
+slices of the shifts and scales that only its heads or columns use
+(JAX keeps those replicated: a storage difference, the numbers are the
+same).  Every other parameter stays whole.  Its `Layout` says how each
+sliced parameter was cut, cuts full tensors (a checkpoint's, a state's)
+and gathers the slices back into full tensors (the checkpoint a rank
+writes holds the single process's names, shapes and dtypes).
+
+Configurations that are not ported at `model_parallel` > 1 raise
+`NotImplementedError` naming their ROADMAP item (`check_shardable`,
+`train.loop.make_train_step`, `serve.Predictor`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Mapping
+
+import torch
+import torch.distributed as dist
+
+ROADMAP_TP = "ROADMAP.md, Queue 1 item 7.2"
+
+
+def tp_refusal(what: str, item: str) -> NotImplementedError:
+    """The refusal of a configuration not ported at model_parallel > 1."""
+    return NotImplementedError(
+        f"{what}: not ported under tensor parallelism "
+        f"(--mesh-model-parallel > 1) yet ({ROADMAP_TP}{item})")
+
+
+def _active(mesh) -> bool:
+    return (mesh is not None and mesh.model_parallel > 1
+            and dist.is_initialized())
+
+
+def _all_reduce(t: torch.Tensor, mesh, op=None) -> torch.Tensor:
+    """`t` reduced over the model group, in at least fp32, returned in its
+    dtype (a new tensor)."""
+    hi = torch.promote_types(t.dtype, torch.float32)
+    out = t.detach().to(hi, copy=True).contiguous()
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=mesh.model_group)
+    return out.to(t.dtype)
+
+
+def model_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """`t` summed over the model group (no gradient)."""
+    return _all_reduce(t, mesh) if _active(mesh) else t
+
+
+def model_min(t: torch.Tensor, mesh) -> torch.Tensor:
+    return _all_reduce(t, mesh, dist.ReduceOp.MIN) if _active(mesh) else t
+
+
+def model_max(t: torch.Tensor, mesh) -> torch.Tensor:
+    return _all_reduce(t, mesh, dist.ReduceOp.MAX) if _active(mesh) else t
+
+
+def gather_rows(t: torch.Tensor, mesh, axis: int = 0) -> torch.Tensor:
+    """The full tensor whose slices along `axis` the model group's ranks
+    hold, in model order (every rank's slice broadcast over the group:
+    exact); `t` itself outside an active model group.  No gradient."""
+    if not _active(mesh):
+        return t
+    t = t.detach().contiguous()
+    base = mesh.data_index * mesh.model_parallel
+    parts = []
+    for m in range(mesh.model_parallel):
+        buf = t.clone() if m == mesh.model_index else torch.empty_like(t)
+        dist.broadcast(buf, src=base + m, group=mesh.model_group)
+        parts.append(buf)
+    return torch.cat(parts, dim=axis)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return _all_reduce(t, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(t: torch.Tensor, mesh) -> torch.Tensor:
+    """f: `t` itself; its cotangent summed over the model group."""
+    if not _active(mesh) or not t.requires_grad:
+        return t
+    return _CopyToModel.apply(t, mesh)
+
+
+def reduce_from_model(t: torch.Tensor, mesh) -> torch.Tensor:
+    """g: `t` summed over the model group; its cotangent passed on."""
+    if not _active(mesh):
+        return t
+    return _ReduceFromModel.apply(t, mesh)
+
+
+def tp_roles(tp):
+    """(mesh or None, mesh or None): a linear's `tp` argument, ('row',
+    mesh), ('col', mesh) or None, as (row-parallel, column-parallel)."""
+    if tp is None:
+        return None, None
+    role, mesh = tp
+    return (mesh, None) if role == "row" else (None, mesh)
+
+
+def model_global_shape(shape, model) -> tuple:
+    """`shape` with axis `model[0]` (sharded over the model group) at its
+    global length: times `model[1]`; `shape` itself for None."""
+    shape = tuple(shape)
+    if model is None:
+        return shape
+    axis, parts = model
+    axis %= len(shape)
+    return shape[:axis] + (shape[axis] * parts,) + shape[axis + 1:]
+
+
+# --------------------------------------------------------------- the cuts
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """How one parameter is split over the model group: its full tensor
+    (of `shape`), seen as `view`, is cut along `axis` of the view into
+    `parts` equal slices; model index m keeps slice m.  A view other than
+    the shape is a strided slice (`quan_qkx.s`: (N * H,) seen as (N, H),
+    the heads along axis 1)."""
+    shape: tuple
+    view: tuple
+    axis: int
+    parts: int
+
+    @property
+    def local_view(self) -> tuple:
+        v = list(self.view)
+        v[self.axis] //= self.parts
+        return tuple(v)
+
+    @property
+    def local_shape(self) -> tuple:
+        if self.view == self.shape:
+            return self.local_view
+        return (math.prod(self.shape) // self.parts,)
+
+    @property
+    def row_parallel(self) -> bool:
+        """A kernel cut along its in-axis (StatsQ's reduction axis)."""
+        return len(self.shape) == 2 and self.axis == 0
+
+    def local(self, full: torch.Tensor, index: int) -> torch.Tensor:
+        n = self.local_view[self.axis]
+        t = full.reshape(self.view).narrow(self.axis, index * n, n)
+        return t.reshape(self.local_shape).contiguous()
+
+
+def _cut(shape, parts, axis=0, view=None) -> Cut:
+    return Cut(tuple(shape), tuple(view or shape), axis, parts)
+
+
+def block_cuts(prefix: str, C: int, H: int, N: int, hidden: int,
+               parts: int) -> dict:
+    """{parameter name: Cut} of one DeiT W2A2 QKR block at `parts` model
+    ranks: `param_spec`'s sharded kernels and biases, and the shifts and
+    scales only a rank's heads or columns use."""
+    a, m = f"{prefix}.attn", f"{prefix}.mlp"
+    cuts = {f"{a}.{k}": _cut((C, C), parts, 1)
+            for k in ("q_kernel", "k_kernel", "v_kernel")}
+    for k in ("v_bias", "move_v_b4.bias", "quan_v.s", "move_v_aft.bias",
+              "proj.move_b4.bias", "proj.move_aft.bias"):
+        cuts[f"{a}.{k}"] = _cut((C,), parts)
+    for k in ("move_qkx_b4.bias", "move_qkx_aft.bias"):
+        cuts[f"{a}.{k}"] = _cut((H * C,), parts)
+    cuts[f"{a}.quan_qkx.s"] = _cut((N * H,), parts, 1, view=(N, H))
+    cuts[f"{a}.proj.kernel"] = _cut((C, C), parts, 0)
+    cuts[f"{m}.fc1.kernel"] = _cut((C, hidden), parts, 1)
+    cuts[f"{m}.fc1.bias"] = _cut((hidden,), parts)
+    cuts[f"{m}.fc2.kernel"] = _cut((hidden, C), parts, 0)
+    for k in ("move_b4.bias", "move_aft.bias"):
+        cuts[f"{m}.fc2.{k}"] = _cut((hidden,), parts)
+    return cuts
+
+
+@dataclasses.dataclass
+class Layout:
+    """The sharded parameters of a model on `mesh`, by name."""
+    mesh: object
+    cuts: dict
+
+    def cut(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of parameter `name`'s full tensor (the tensor
+        itself for a parameter that stays whole)."""
+        c = self.cuts.get(name)
+        if c is None:
+            return full
+        if tuple(full.shape) != c.shape:
+            raise ValueError(f"{name}: a full tensor of {tuple(full.shape)}, "
+                             f"the layout cuts {c.shape}")
+        return c.local(full, self.mesh.model_index)
+
+    def cut_all(self, tensors: Mapping[str, torch.Tensor]) -> dict:
+        return {n: self.cut(n, t) for n, t in tensors.items()}
+
+    def gather(self, tensors: Mapping[str, torch.Tensor]) -> dict:
+        """{name: full tensor} of {name: this rank's slice}: every model
+        rank's slices broadcast over the model group, one bucket per dtype
+        and source rank (every rank of the group must call it with the
+        same names).  Exact: the slices travel as they are."""
+        out = dict(tensors)
+        names = [n for n in tensors if n in self.cuts]
+        if not names or not _active(self.mesh):
+            return out
+        mesh = self.mesh
+        full = {n: torch.empty(self.cuts[n].view, dtype=tensors[n].dtype,
+                               device=tensors[n].device) for n in names}
+        by_dtype: dict = {}
+        for n in names:
+            by_dtype.setdefault((tensors[n].dtype, tensors[n].device),
+                                []).append(n)
+        base = mesh.data_index * mesh.model_parallel
+        for (dt, dev), group in by_dtype.items():
+            sizes = [math.prod(self.cuts[n].local_view) for n in group]
+            for m in range(mesh.model_parallel):
+                if m == mesh.model_index:
+                    buf = torch.cat([tensors[n].reshape(-1) for n in group])
+                else:
+                    buf = torch.empty(sum(sizes), dtype=dt, device=dev)
+                dist.broadcast(buf, src=base + m, group=mesh.model_group)
+                for n, piece in zip(group, torch.split(buf, sizes)):
+                    c = self.cuts[n]
+                    k = c.local_view[c.axis]
+                    full[n].narrow(c.axis, m * k, k).copy_(
+                        piece.view(c.local_view))
+        for n in names:
+            out[n] = full[n].reshape(self.cuts[n].shape)
+        return out
+
+    def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """optax.global_norm of the full gradients: the squares of the
+        sliced ones summed over the model group, the whole ones counted
+        once."""
+        sliced = [g for n, g in grads.items() if n in self.cuts]
+        whole = [g for n, g in grads.items() if n not in self.cuts]
+
+        def sq(ts):
+            if not ts:
+                return torch.zeros((), dtype=torch.float32,
+                                   device=self.mesh.device)
+            return torch.sum(torch.stack(torch._foreach_norm(ts)) ** 2)
+
+        return torch.sqrt(model_sum(sq(sliced), self.mesh) + sq(whole))
+
+    def shard_state(self, state, model: torch.nn.Module):
+        """`state` (of the full model, built before `shard_model` cut it)
+        on this rank: the parameters become the model's sliced ones, the
+        moments are cut; `state.tp` holds the layout."""
+        masters = dict(model.named_parameters())
+        if any(p.dtype == torch.bfloat16 for p in state.params.values()):
+            raise tp_refusal("bf16 master weights", "g")
+        if set(masters) != set(state.params):
+            raise ValueError("the state's parameters are not the model's")
+        state.params = masters
+        state.opt_state = dataclasses.replace(
+            state.opt_state, mu=self.cut_all(state.opt_state.mu),
+            nu=self.cut_all(state.opt_state.nu))
+        if state.ema_params is not None:
+            raise tp_refusal("the EMA", "g")
+        if (state.extra or {}).get("oscillation") is not None:
+            raise tp_refusal("the oscillation hook", "g")
+        state.tp = self
+        return state
+
+
+# ------------------------------------------------------------ the model
+def check_shardable(model: torch.nn.Module, parts: int) -> None:
+    """Raise unless `model` is a configuration the port shards over
+    `parts` model ranks: NotImplementedError (naming its ROADMAP item) for
+    one it does not shard yet, ValueError where `parts` does not divide
+    the heads or the MLP's hidden width."""
+    from ..models.deit import VisionTransformer
+    from ..nn.attention import QAttention, QAttentionQKR
+    from ..nn.linear import QLinear, QMlp
+    if not isinstance(model, VisionTransformer):
+        raise tp_refusal(f"{type(model).__name__} (Swin)", "c")
+    cfg, pol = model.cfg, model.policy
+    if cfg.norm_layer == "batchnorm":
+        raise tp_refusal("norm_layer='batchnorm' (the LN->BN swap)", "i")
+    if cfg.remat or cfg.attn_impl == "remat":
+        raise tp_refusal("block and attention remat", "h")
+    if cfg.matmul_impl == "int8":
+        raise tp_refusal("matmul_impl='int8'", "e")
+    if pol.lsq_weights:
+        raise tp_refusal("full-LSQ weights (--wq-mode lsq)", "f")
+    if pol.weight_frozen:
+        raise tp_refusal("frozen artifacts", "j")
+    if cfg.qqkkvv or cfg.return_features:
+        raise tp_refusal("the telemetry of kd_qk, kd_qkv and kd_token", "g")
+    for name in model.block_names:
+        blk = getattr(model, name)
+        if isinstance(blk.attn, QAttention):
+            raise tp_refusal("QAttention without QKR (qkv sharded by head)",
+                             "d")
+        quantized = (isinstance(blk.attn, QAttentionQKR)
+                     and isinstance(blk.mlp, QMlp)
+                     and isinstance(blk.mlp.fc1, QLinear))
+        if not quantized or blk.attn.weight_bits >= 32 \
+                or blk.attn.input_bits >= 32 or \
+                not blk.attn.quantize_softmax or pol.act_layer != "gelu":
+            raise tp_refusal(
+                f"{name}: float or 32-bit sites, an unquantized softmax or "
+                f"act_layer={pol.act_layer!r}", "k")
+        H = blk.attn.num_heads
+        hidden = blk.mlp.fc1.kernel.shape[1]
+        if H % parts or hidden % parts:
+            raise ValueError(f"model_parallel={parts} does not divide "
+                             f"{name}'s {H} heads and {hidden} MLP units")
+
+
+def shard_model(model: torch.nn.Module, mesh) -> Layout:
+    """Keep this rank's slices of `model` (calibrated and loaded whole, as
+    JAX's runner shards after `model.init`): each sliced parameter is
+    replaced by a new one holding this rank's slice, each sharded module
+    is told its role (`tp`).  Returns the layout, also `model.tp_layout`."""
+    parts = mesh.model_parallel
+    check_shardable(model, parts)
+    if getattr(model, "tp_layout", None) is not None:
+        raise ValueError("the model is sharded already")
+    C, N = model.cfg.embed_dim, model.cfg.n_tokens
+    cuts = {}
+    for name in model.block_names:
+        blk = getattr(model, name)
+        attn, mlp = blk.attn, blk.mlp
+        H = attn.num_heads
+        cuts.update(block_cuts(name, C, H, N, mlp.fc1.kernel.shape[1],
+                               parts))
+        attn.num_heads = H // parts
+        attn.tp = mesh
+        for b in (attn.move_qkx_b4, attn.move_qkx_aft):
+            b.apply_shape = (H // parts, C)
+        attn.quan_softmax.tp = (1, mesh)          # (B, H, N, N): heads
+        attn.proj.tp = ("row", mesh)
+        attn.proj.input_quant.tp = (-1, mesh)     # (B, N, C): channels
+        mlp.tp = mesh
+        mlp.fc1.tp = ("col", mesh)
+        mlp.fc2.tp = ("row", mesh)
+        mlp.fc2.input_quant.tp = (-1, mesh)
+    layout = Layout(mesh, cuts)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for n in cuts:
+            owner, leaf = n.rsplit(".", 1)
+            mod = model.get_submodule(owner)
+            old = params[n]
+            mod._parameters[leaf] = torch.nn.Parameter(
+                layout.cut(n, old.detach()).clone(),
+                requires_grad=old.requires_grad)
+    model.tp_layout = layout
+    return layout

@@ -12,7 +12,10 @@ The scale-gradient factors keep the per-shape formulas of the reference
 (`grad_scale_factor`); an activation's (`act_grad_scale_factor`, every
 activation quantizer's one rule) are taken at the global batch's shape
 inside a data-parallel step (`parallel.collectives.batch_shape`), as JAX's
-under `jit` over a sharded batch.  `lsq_quantize` differentiates through
+under `jit` over a sharded batch, and, where the call site says an axis is
+sharded over the mesh's 'model' axis (`model=(axis, parts)`: the heads of
+the attention probabilities, the channels of a row-parallel linear's
+input), at that axis's global length.  `lsq_quantize` differentiates through
 the fused custom VJP of the JAX package (`_LsqFused`); the image
 quantizer's `lsq_quantize_dynamic_signed` through the composition, as in
 JAX.
@@ -26,6 +29,7 @@ from typing import Sequence
 import torch
 
 from ..parallel.collectives import batch_shape
+from ..parallel.tensor import model_global_shape
 from .ste import at_least_f32, clip_lower, grad_scale, needs_grad, round_pass
 
 _S_EPS = 1e-5  # lower bound on the learned scale
@@ -111,12 +115,14 @@ def grad_scale_factor(x_shape: Sequence[int], bit: int, all_positive: bool,
 
 
 def act_grad_scale_factor(x_shape: Sequence[int], bit: int,
-                          all_positive: bool, channel_axis) -> float:
+                          all_positive: bool, channel_axis,
+                          model=None) -> float:
     """`grad_scale_factor` of a batch-major activation, at the global
-    batch's shape inside a data-parallel step (a weight's shape has no
-    batch: it takes `grad_scale_factor`)."""
-    return grad_scale_factor(batch_shape(x_shape), bit, all_positive,
-                             channel_axis)
+    batch's shape inside a data-parallel step and, with `model=(axis,
+    parts)`, at `parts` times this rank's length along that axis (a
+    weight's shape has no batch: it takes `grad_scale_factor`)."""
+    return grad_scale_factor(model_global_shape(batch_shape(x_shape), model),
+                             bit, all_positive, channel_axis)
 
 
 def init_scale(x: torch.Tensor, bit: int, all_positive: bool,
@@ -153,16 +159,22 @@ def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     return torch.minimum(hi, torch.maximum(lo, x))
 
 
+def _factor(x_shape, bit, all_positive, channel_axis, weight, model):
+    if weight:
+        return grad_scale_factor(x_shape, bit, all_positive, channel_axis)
+    return act_grad_scale_factor(x_shape, bit, all_positive, channel_axis,
+                                 model)
+
+
 def lsq_quantize_composed(x: torch.Tensor, s: torch.Tensor, bit: int, *,
                           all_positive: bool = False, channel_axis=-2,
-                          weight: bool = False) -> torch.Tensor:
+                          weight: bool = False, model=None) -> torch.Tensor:
     """LSQ fake-quantization by autograd through the composition
     (`ofq_tpu.quant.lsq.lsq_quantize_composed`).  bit == 1 signed is
-    sign(x).  x is a batch-major activation (`act_grad_scale_factor`)
-    unless `weight`."""
+    sign(x).  x is a batch-major activation (`act_grad_scale_factor`,
+    with `model`) unless `weight`."""
     thd_neg, thd_pos = thresholds(bit, all_positive)
-    factor = grad_scale_factor if weight else act_grad_scale_factor
-    g = factor(x.shape, bit, all_positive, channel_axis)
+    g = _factor(x.shape, bit, all_positive, channel_axis, weight, model)
     s_b = _broadcast_scale(s, x.shape, channel_axis)
     s_eff = grad_scale(clip_lower(s_b, _S_EPS), g).to(x.dtype)
     y = x / s_eff
@@ -183,19 +195,19 @@ class _LsqFused(torch.autograd.Function):
     with u = x / max(s, 1e-5); no masking of ds where s was floored."""
 
     @staticmethod
-    def forward(ctx, x, s, bit, all_positive, channel_axis, weight):
+    def forward(ctx, x, s, bit, all_positive, channel_axis, weight, model):
         ctx.save_for_backward(x, s)
-        ctx.cfg = (bit, all_positive, channel_axis, weight)
+        ctx.cfg = (bit, all_positive, channel_axis, weight, model)
         return lsq_quantize_composed(x, s, bit, all_positive=all_positive,
-                                     channel_axis=channel_axis, weight=weight)
+                                     channel_axis=channel_axis, weight=weight,
+                                     model=model)
 
     @staticmethod
     def backward(ctx, g):
         x, s = ctx.saved_tensors
-        bit, all_positive, channel_axis, weight = ctx.cfg
+        bit, all_positive, channel_axis, weight, model = ctx.cfg
         thd_neg, thd_pos = thresholds(bit, all_positive)
-        factor = grad_scale_factor if weight else act_grad_scale_factor
-        gf = factor(x.shape, bit, all_positive, channel_axis)
+        gf = _factor(x.shape, bit, all_positive, channel_axis, weight, model)
         s_b = _broadcast_scale(s, x.shape, channel_axis)
         s_eff = torch.where(s_b > _S_EPS, s_b,
                             torch.full_like(s_b, _S_EPS)).to(x.dtype)
@@ -215,21 +227,23 @@ class _LsqFused(torch.autograd.Function):
         axes = tuple(a for a in range(x.ndim) if a not in keep)
         ds = torch.sum(ds_elem, dim=axes) if axes else ds_elem
         ds = (ds.reshape(s.shape) * gf).to(s.dtype)
-        return dx, ds, None, None, None, None
+        return dx, ds, None, None, None, None, None
 
 
 def lsq_quantize(x: torch.Tensor, s: torch.Tensor, bit: int, *,
                  all_positive: bool = False, channel_axis=-2,
-                 weight: bool = False) -> torch.Tensor:
+                 weight: bool = False, model=None) -> torch.Tensor:
     """LSQ fake-quantization with learned scale `s`
     (`ofq_tpu.quant.lsq.lsq_quantize`): the fused custom VJP for bit > 1
     or an all-positive range, the composition for the bit == 1 sign path
-    (whose gradient through sign is zero).  `weight` as in
+    (whose gradient through sign is zero).  `weight` and `model` as in
     `lsq_quantize_composed`."""
     if (bit == 1 and not all_positive) or not needs_grad(x, s):
         return lsq_quantize_composed(x, s, bit, all_positive=all_positive,
-                                     channel_axis=channel_axis, weight=weight)
-    return _LsqFused.apply(x, s, bit, all_positive, channel_axis, weight)
+                                     channel_axis=channel_axis, weight=weight,
+                                     model=model)
+    return _LsqFused.apply(x, s, bit, all_positive, channel_axis, weight,
+                           model)
 
 
 def lsq_quantize_dynamic_signed(x: torch.Tensor, s: torch.Tensor, bit: int,

@@ -50,6 +50,7 @@ from .convert import load_flax_params
 from .deploy import artifact_meta, drop_block_lsq_scales, restore_packed
 from .models.registry import create_model, resolve_device
 from .ops.int8_qlinear import int8_eligible, lsq_int8_eligible
+from .parallel.tensor import tp_refusal
 from .quant.policy import QuantPolicy
 
 
@@ -70,6 +71,8 @@ def _saved_args(path: str):
 class Predictor:
     def __init__(self, model: torch.nn.Module, *, batch_size: int,
                  img_size: int, device="cuda", epoch: Optional[int] = None):
+        if getattr(model, "tp_layout", None) is not None:
+            raise tp_refusal("serving (Predictor) a sharded model", "j")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size

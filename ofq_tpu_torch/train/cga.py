@@ -11,6 +11,10 @@ and the masks are recomputed every step from the live weights.  Selection
 works on the port's parameter names, the Flax tree paths with '.' for '/'
 (`blocks_3.attn.v_kernel`, `blocks_3.mlp.fc1.kernel`).  Masks are exact
 fp32 0/1, so both selects are `where`s that keep the tensor's dtype.
+Under tensor parallelism (`layout`, the state's `parallel.Layout`) each
+selected kernel is this rank's slice: its mask is the single process's
+mask of the whole kernel, cut (the level range over the model group, the
+group's scale for a row-parallel kernel).
 """
 
 from __future__ import annotations
@@ -47,13 +51,19 @@ def is_cga_kernel(name: str, *, qk_reparam: bool,
 
 def freeze_masks(params: Mapping[str, torch.Tensor], *, bits: int,
                  boundary_range: float, qk_reparam: bool,
-                 model_type: str = "deit"
+                 model_type: str = "deit", layout=None
                  ) -> dict[str, Optional[torch.Tensor]]:
     """name -> fp32 freeze mask (1 = frozen) for the CGA-selected
     parameters, None elsewhere."""
-    return {n: (outer_freeze_mask(w, bits, boundary_range)
-                if is_cga_kernel(n, qk_reparam=qk_reparam,
-                                 model_type=model_type) else None)
+    def mask(n, w):
+        cut = None if layout is None else layout.cuts.get(n)
+        if cut is None:
+            return outer_freeze_mask(w, bits, boundary_range)
+        return outer_freeze_mask(w, bits, boundary_range, mesh=layout.mesh,
+                                 row_parallel=cut.row_parallel)
+
+    return {n: (mask(n, w) if is_cga_kernel(n, qk_reparam=qk_reparam,
+                                            model_type=model_type) else None)
             for n, w in params.items()}
 
 

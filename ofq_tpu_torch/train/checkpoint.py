@@ -27,7 +27,11 @@ structure.
 
 In a data-parallel run rank 0 alone writes (and applies the retention),
 and every rank waits at a barrier after the save, so that a restore that
-follows reads a complete directory; every rank restores.
+follows reads a complete directory; every rank restores.  Under tensor
+parallelism (`state.tp`) the sliced parameters and their moments are
+gathered over the model group first (every rank takes part), so the file
+holds the full tensors under their names, as one process writes them; a
+restore into a sharded state cuts them to the rank's slices.
 """
 
 from __future__ import annotations
@@ -125,13 +129,15 @@ def _host(t):
 def state_payload(state: TrainState, buffers=None,
                   metrics: Optional[dict] = None) -> dict:
     """The host copy of `state` (and `buffers`, by name) that a checkpoint
-    holds."""
+    holds; a sharded state's full tensors (a collective over the model
+    group: every rank of it must call this)."""
     osc = (state.extra or {}).get("oscillation")
+    full = (lambda t: t) if state.tp is None else state.tp.gather
     return {
-        "params": _host(state.params),
+        "params": _host(full(state.params)),
         "opt_state": {"count": int(state.opt_state.count),
-                      "mu": _host(state.opt_state.mu),
-                      "nu": _host(state.opt_state.nu)},
+                      "mu": _host(full(state.opt_state.mu)),
+                      "nu": _host(full(state.opt_state.nu))},
         "step": int(state.step), "epoch": int(state.epoch),
         "ema_params": _host(state.ema_params),
         "oscillation": None if osc is None else _host(osc),
@@ -166,9 +172,9 @@ def save_epoch(mgr: CheckpointManager, epoch: int, state: TrainState,
     """Checkpoint `state` (and the model's `buffers`) as step `epoch`,
     ranked by `metrics`; a save without metrics records {} (every metric
     -inf), as the JAX package's does.  Only rank 0 copies the state to the
-    host."""
-    payload = (state_payload(state, buffers, metrics or {}) if is_writer()
-               else None)
+    host (every rank gathers a sharded state's slices)."""
+    payload = (state_payload(state, buffers, metrics or {})
+               if is_writer() or state.tp is not None else None)
     save(mgr, epoch, payload)
 
 
@@ -201,11 +207,13 @@ def restore_into(payload: dict, state: TrainState,
     place; the model's working parameters too under bf16 masters) and,
     with `model`, its buffers; the moments, EMA and oscillation states
     are moved to the masters' device.  Strict: the checkpoint must have
-    the state's structure."""
-    _copy_named("params", state.params, payload["params"])
+    the state's structure.  A sharded state (`state.tp`) takes its slices
+    of the checkpoint's full tensors."""
+    cut = (lambda tree: tree) if state.tp is None else state.tp.cut_all
+    _copy_named("params", state.params, cut(payload["params"]))
     dev = next(iter(state.params.values())).device
     to = (lambda tree: None if tree is None else
-          {k: v.to(dev) for k, v in tree.items()})
+          {k: v.to(dev) for k, v in cut(tree).items()})
     opt = payload["opt_state"]
     for key in ("mu", "nu"):
         if set(opt[key]) != set(state.params):

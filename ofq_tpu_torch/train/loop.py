@@ -60,6 +60,20 @@ masks, clipping, AdamW, the per-layer norms, the oscillation hook) the
 gradients are averaged over the ranks, so every rank applies the same
 update to the same state.  The reported `loss` is the global mean (the
 runner sums `make_eval_step`'s counts over the ranks).
+
+Tensor parallelism (a `mesh` with `model_parallel` > 1, the model sharded
+by `parallel.shard_model`, the state by `parallel.shard_params`): the
+ranks of a model group take the same rows and hold slices of the model;
+the collectives of the 'model' axis run inside the forward and backward
+(`parallel/tensor.py`), so every gradient leaves the backward complete
+(a sliced parameter's slice of the full gradient, a whole parameter's
+whole gradient, bit-equal on every model rank); the gradient mean runs
+over the data group only, AdamW elementwise on the slices, CGA's masks
+on the slices with the whole kernels' scales and level ranges, and
+`grad_norm` is the norm of the full gradients.  The loss and metrics are
+the same on every model rank.  The options not ported there (the
+telemetry losses, the EMA, clipping, bf16 masters, the oscillation hook,
+`per_layer_grad_norms`, the dampening loss) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -73,6 +87,7 @@ from torch.func import functional_call
 from ..models.registry import resolve_device
 from ..nn.dropout import check_generator
 from ..parallel import collectives
+from ..parallel.tensor import tp_refusal
 from ..quant.ste import at_least_f32
 from . import cga as cga_lib
 from . import oscillation_hook as osc_lib
@@ -192,6 +207,26 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
     cfg = getattr(model, "cfg", None)
     draws = cfg is not None and max(cfg.drop_rate, cfg.attn_drop_rate,
                                     cfg.drop_path_rate) > 0
+    layout = None
+    if mesh is not None and mesh.model_parallel > 1:
+        layout = getattr(model, "tp_layout", None)
+        if layout is None:
+            raise ValueError("model_parallel > 1: shard the model first "
+                             "(parallel.shard_params / shard_model)")
+        for what, on in (
+                (f"loss_kind={loss_kind!r}", loss_kind in AUX_LOSS_KINDS),
+                ("the EMA (ema_decay)", ema_decay is not None),
+                ("gradient clipping",
+                 getattr(optimizer, "clip_grad", None) is not None),
+                ("bf16 master weights", master_dtype == "bfloat16"),
+                ("the oscillation hook", oscillation is not None),
+                ("per_layer_grad_norms", per_layer_grad_norms),
+                ("the dampening loss", dampening is not None)):
+            if on:
+                raise tp_refusal(what, "g")
+        if cga is not None:
+            # the masks of the whole kernels, on this rank's slices
+            cga = dict(cga, layout=layout)
 
     aux = loss_kind in AUX_LOSS_KINDS
 
@@ -238,6 +273,10 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                 master_dtype == "bfloat16"):
             raise ValueError(f"master_dtype={master_dtype!r}, but the "
                              f"state's masters are {masters[0].dtype}")
+        if layout is not None and (master_bf16 or state.tp is not layout):
+            raise (tp_refusal("bf16 master weights", "g") if master_bf16
+                   else ValueError("the state is not the sharded model's "
+                                   "(parallel.shard_params)"))
         if master_bf16:
             tensors = [work[n] for n in names]
             with torch.no_grad():
@@ -294,7 +333,8 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
         state.opt_state = opt_state
         state.step += 1
         metrics = {"loss": loss.detach(),
-                   "grad_norm": global_norm(grads.values())}
+                   "grad_norm": (global_norm(grads.values()) if layout is None
+                                 else layout.global_norm(grads))}
         if per_layer_grad_norms:
             metrics.update(_per_layer_norms(grads))
         metrics.update(osc_metrics)

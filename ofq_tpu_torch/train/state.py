@@ -11,6 +11,10 @@ quantizer's `signed` buffer in the model), where JAX returns a new tree.
 With bf16 masters (`master_dtype="bfloat16"`), `params` holds bf16 copies,
 the masters, and the model keeps fp32 working parameters that every step
 fills from them, an exact upcast (`loop.py`).
+
+Under tensor parallelism `tp` is the model's `parallel.Layout`: the
+parameters and moments of a sliced parameter are this rank's slices
+(`parallel.shard_params` sets it; checkpoints gather and cut by it).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel.tensor import tp_refusal
 from .optim import AdamW, AdamWState
 
 
@@ -33,6 +38,8 @@ class TrainState:
     ema_params: Optional[dict[str, torch.Tensor]] = None
     # auxiliary state, e.g. {"oscillation": {name: OscillationState}}
     extra: Optional[dict[str, Any]] = None
+    # the tensor-parallel layout of the parameters, or None
+    tp: Optional[Any] = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: AdamW,
@@ -47,7 +54,10 @@ class TrainState:
             raise ValueError(f"master_dtype={master_dtype!r}: None or "
                              "'float32' (the model's parameters), "
                              "'bfloat16'")
+        tp = getattr(model, "tp_layout", None)
         if master_dtype == "bfloat16":
+            if tp is not None:
+                raise tp_refusal("bf16 master weights", "g")
             with torch.no_grad():
                 masters = {n: p.detach().to(torch.bfloat16)
                            for n, p in params.items()}
@@ -57,4 +67,4 @@ class TrainState:
         return cls(params=params, opt_state=optimizer.init(params), step=0,
                    ema_params=({n: p.detach().to(torch.float32, copy=True)
                                 for n, p in params.items()} if ema else None),
-                   extra=extra)
+                   extra=extra, tp=tp)

@@ -6,9 +6,10 @@ against JAX's single-device `make_train_step` (which
 sharded step).
 
   * `param_spec` against `ofq_tpu.parallel.param_spec` on a DeiT tree,
-    `make_mesh`'s refusal of a 'model' axis, `host_batch_slice`, and the
-    refusal rule of `initialize_multihost` (`test_multihost.py`'s, with
-    `init_process_group` made to fail), the backend by device;
+    `make_mesh` (a 'model' axis that does not divide the world raises),
+    `host_batch_slice`, and the refusal rule of `initialize_multihost`
+    (`test_multihost.py`'s, with `init_process_group` made to fail), the
+    backend by device;
   * one step each, the global batch of 4 split 2 + 2: the composed W2A2
     QKR student in fp64 (KD from a float teacher, AdamW at a mid-run
     state), its fused configuration (the plain versions), the BatchNorm
@@ -109,14 +110,29 @@ def test_param_spec_matches_jax():
 
 
 def test_make_mesh_and_host_batch_slice():
+    """A process without a process group is a mesh of one; a 'model' axis
+    that does not divide the world raises ValueError, and a configuration
+    the tensor-parallel slice does not shard refuses at model_parallel 2,
+    naming its ROADMAP item (`test_torch_tensor_parallel.py` runs the
+    'model' axis)."""
     m = parallel.make_mesh(device="cpu")
     assert (m.world, m.rank, m.device.type, m.group) == (1, 0, "cpu", None)
+    assert (m.model_parallel, m.data_world, m.data_index,
+            m.model_index) == (1, 1, 0, 0)
     assert parallel.make_mesh(device="cuda").device == torch.device("cuda", 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2b"):
+    with pytest.raises(ValueError, match="does not divide"):
         parallel.make_mesh(model_parallel=2, device="cpu")
+    tp = parallel.Mesh(world=2, rank=1, local_rank=0,
+                       device=torch.device("cpu"), model_parallel=2)
+    assert (tp.data_world, tp.data_index, tp.model_index) == (1, 0, 1)
+    bn = pw.create_model(NAME, policy=w2a2_deit_policy(2), device="cpu",
+                         **tbn.BN)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2i"):
+        parallel.shard_model(bn, tp)
     with pytest.raises(ValueError, match="n_devices"):
         parallel.make_mesh(n_devices=2, device="cpu")
     assert parallel.host_batch_slice(64) == (64, 0)
+    assert parallel.host_batch_slice(64, tp) == (64, 0)
     assert parallel.backend_for("cuda:1") == "nccl"
     assert parallel.backend_for("cpu") == "gloo"
 

@@ -1,7 +1,8 @@
-"""The port stands alone: `ofq_tpu_torch` and `chip_smoke.py` import neither
-JAX/Flax nor anything of the JAX package `ofq_tpu` or of its lab benches
-(`benchmarks`, which import JAX), nor the image libraries that the card's
-machine lacks (TensorFlow, PIL, OpenCV, torchvision)."""
+"""The port stands alone: `ofq_tpu_torch`, `chip_smoke.py` and the workers
+the parallel tests start (`tests/torch_fixtures/*_worker.py`) import
+neither JAX/Flax nor anything of the JAX package `ofq_tpu` or of its lab
+benches (`benchmarks`, which import JAX), nor the image libraries that the
+card's machine lacks (TensorFlow, PIL, OpenCV, torchvision)."""
 
 import re
 import subprocess
@@ -18,6 +19,7 @@ FORBIDDEN = re.compile(
 def _sources():
     files = sorted((REPO / "ofq_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "tests" / "torch_fixtures").glob("*_worker.py"))
     return files
 
 
@@ -30,11 +32,14 @@ def test_no_forbidden_import_statements():
 
 
 def test_sources_cover_the_parallel_layer():
-    """`parallel/` (the data-parallel port of `ofq_tpu/parallel/`) is
-    among the scanned sources, and so is every module of it."""
+    """`parallel/` (the port of `ofq_tpu/parallel/`, both axes) is among
+    the scanned sources, every module of it, and the workers of the data-
+    and tensor-parallel tests."""
     names = {p.relative_to(REPO).as_posix() for p in _sources()}
-    for mod in ("__init__", "mesh", "multihost", "collectives"):
+    for mod in ("__init__", "mesh", "multihost", "collectives", "tensor"):
         assert f"ofq_tpu_torch/parallel/{mod}.py" in names, mod
+    for worker in ("parallel_worker", "tp_worker"):
+        assert f"tests/torch_fixtures/{worker}.py" in names, worker
 
 
 def test_pattern_catches_what_it_should():
@@ -74,6 +79,9 @@ def test_import_loads_no_jax():
         "import ofq_tpu_torch.parallel, ofq_tpu_torch.parallel.mesh\n"
         "import ofq_tpu_torch.parallel.multihost\n"
         "import ofq_tpu_torch.parallel.collectives\n"
+        "import ofq_tpu_torch.parallel.tensor\n"
+        "sys.path.insert(0, 'tests/torch_fixtures')\n"
+        "import parallel_worker, tp_worker\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'ofq_tpu', 'benchmarks', 'window_attn_lab', 'tensorflow', 'PIL', "
         "'cv2', 'torchvision') or m.startswith(("

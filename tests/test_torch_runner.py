@@ -65,6 +65,7 @@ from ofq_tpu_torch.cli import cga as port_cga
 from ofq_tpu_torch.cli import common, runner
 from ofq_tpu_torch.cli import train as port_train
 from ofq_tpu_torch.convert import flatten_flax_tree, load_flax_params
+from ofq_tpu_torch.parallel import Mesh, shard_model
 from ofq_tpu_torch.train import checkpoint as ckpt
 from ofq_tpu_torch.train import freeze_masks, is_cga_kernel
 
@@ -394,12 +395,21 @@ def test_sigterm_handler_restored(runs, monkeypatch):
 
 
 def test_one_process_refusals(monkeypatch):
-    """The model-parallel axis still refuses, naming the tensor-parallel
-    slice; the one-process guard on WORLD_SIZE is gone: without a process
-    group the Runner is a world of one, with one rank's batch."""
+    """`--mesh-model-parallel 2` in one process: the 'model' axis does
+    not divide a world of one (ValueError); a student the tensor-parallel
+    slice does not shard (here the LN->BN swap) refuses at model_parallel
+    2, naming its ROADMAP item.  The one-process guard on WORLD_SIZE is
+    gone: without a process group the Runner is a world of one, with one
+    rank's batch."""
     args = common.parse_args(["synthetic", "--mesh-model-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2b"):
+    with pytest.raises(ValueError, match="does not divide"):
         runner.Runner(args, device="cpu")
+    bn = runner.Runner(common.parse_args(BASE + ["--replace-ln-by-bn"]),
+                       device="cpu")
+    tp = Mesh(world=2, rank=0, local_rank=0, device=torch.device("cpu"),
+              model_parallel=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2i"):
+        shard_model(bn.model, tp)
     monkeypatch.setenv("WORLD_SIZE", "4")
     r = runner.Runner(common.parse_args(BASE), device="cpu")
     assert (r.mesh.world, r.mesh.rank) == (1, 0)

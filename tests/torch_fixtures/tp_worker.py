@@ -1,0 +1,248 @@
+"""One rank of `tests/test_torch_tensor_parallel.py`'s runs over gloo on the
+CPU (imports the port, never JAX).
+
+  python tp_worker.py steps <setup.pt> <out_dir>
+  python tp_worker.py all <setup.pt> <out_dir>
+
+with torchrun's `RANK`, `WORLD_SIZE`, `MASTER_ADDR` and `MASTER_PORT` in
+the environment and the setup's `model_parallel`.  `steps` calibrates the
+small DeiT W2A2 QKR student, shards it, runs the eval forward on this
+rank's rows, then takes one step of each case of the setup from the
+calibrated start (the composed, fused and pallas configurations on the
+kernels' plain versions, dropout, CGA), gathers what it computed, writes
+and restores checkpoints; `all` also fits the student through the
+`Runner` with `--mesh-model-parallel` and evaluates the checkpoint through
+`cli.eval.main`.  Each rank writes its results to
+`<out_dir>/<what>.rank<r>.pt`.  The test's own process calls `run_case`
+and `calibrated_start` with `mesh=None` for the single process's results
+on the global batch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+
+from ofq_tpu_torch.calibrate import calibrate  # noqa: E402
+from ofq_tpu_torch.models import create_model  # noqa: E402
+from ofq_tpu_torch.models import deit as deit_models  # noqa: E402
+from ofq_tpu_torch.nn import dropout as dropout_mod  # noqa: E402
+from ofq_tpu_torch.parallel import (host_batch_slice,  # noqa: E402
+                                    initialize_multihost, make_mesh,
+                                    shard_model, shard_params)
+from ofq_tpu_torch.quant import QuantPolicy, statsq_scale  # noqa: E402
+from ofq_tpu_torch.train import (TrainState, constant_lr,  # noqa: E402
+                                 cosine_with_warmup_cooldown, freeze_masks,
+                                 make_optimizer, make_train_step)
+from ofq_tpu_torch.train import checkpoint  # noqa: E402
+
+NAME = "deit_test_distilled"
+# the small student of the tests: 4 heads, so that 2 model ranks split them
+DIMS = dict(embed_dim=32, num_heads=4, num_classes=10)
+DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+
+def small_variant():
+    """`deit_test_distilled` at DIMS, in the port's variant table (the
+    runner builds its models by name)."""
+    deit_models.VARIANTS[NAME] = dataclasses.replace(
+        deit_models.VARIANTS[NAME], **DIMS)
+
+
+class Recording:
+    """The optimizer, recording the gradients it is handed."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        return self.opt.update(grads, state, params)
+
+
+def _lr(spec):
+    kind, base, kw = spec
+    return (constant_lr(base) if kind == "constant"
+            else cosine_with_warmup_cooldown(base, **kw))
+
+
+def _model(setup, conf, policy=None, dtype=None):
+    m = create_model(NAME, policy=policy or setup["policy"], device="cpu",
+                     **DIMS, **conf)
+    return m.to(DTYPES[dtype or setup["dtype"]])
+
+
+def _rows(batch: dict, mesh) -> dict:
+    per, off = host_batch_slice(len(batch["label"]), mesh)
+    return {k: torch.as_tensor(v)[off:off + per] for k, v in batch.items()}
+
+
+def _gather(tensors, layout):
+    return dict(tensors) if layout is None else layout.gather(tensors)
+
+
+def _clone(tensors):
+    return {k: v.detach().clone() for k, v in tensors.items()}
+
+
+def calibrated_start(setup: dict, mesh=None) -> dict:
+    """The student calibrated on the setup's batch (every rank calibrates
+    the whole model), then sharded; the eval forward's logits on this
+    rank's rows."""
+    m = _model(setup, {})
+    m.load_state_dict(setup["weights"])
+    calibrate(m, setup["calib"])
+    out = dict(calibrated=_clone(m.state_dict()))
+    if mesh is not None and mesh.model_parallel > 1:
+        shard_model(m, mesh)
+    with torch.no_grad():
+        out["logits"] = m(_rows(setup["batch"], mesh)["image"].to(
+            DTYPES[setup["dtype"]]))
+    return out
+
+
+def run_case(setup: dict, case: dict, calibrated: dict, mesh=None,
+             ckpt_dir=None) -> dict:
+    """One step of `case` from `calibrated` with the setup's moments:
+    what it computed, the full tensors (gathered), and this rank's own
+    gradients; with `ckpt_dir`, the sharded start written there as a
+    checkpoint first."""
+    dt = case.get("dtype", setup["dtype"])
+    m = _model(setup, case["conf"], case.get("policy"), dt)
+    m.load_state_dict(calibrated)
+    teacher = _model(setup, case.get("teacher_conf", {}), QuantPolicy(), dt)
+    teacher.load_state_dict(setup["teacher"])
+    if case.get("teacher_bf16"):
+        teacher.to(torch.bfloat16)
+    opt = Recording(make_optimizer(_lr(case["lr"]), weight_decay=0.05))
+    state = TrainState.create(m, opt)
+    cast = DTYPES[dt]
+    state.opt_state = dataclasses.replace(
+        state.opt_state, count=setup["start"],
+        mu={k: v.to(cast) for k, v in setup["mu"].items()},
+        nu={k: v.to(cast) for k, v in setup["nu"].items()})
+    state.step = setup["start"]
+    if mesh is not None:
+        state = shard_params(state, mesh, m)
+    if ckpt_dir is not None:
+        checkpoint.save_epoch(checkpoint.make_manager(ckpt_dir), 0, state,
+                              {"top1": 0.0}, buffers=dict(m.named_buffers()))
+    layout = state.tp
+    masks = None
+    if "cga" in case["step_kw"]:
+        cga = case["step_kw"]["cga"]
+        got = freeze_masks(state.params, bits=cga["bits"],
+                           boundary_range=cga["boundary_range"],
+                           qk_reparam=cga["qk_reparam"], layout=layout)
+        masks = _gather({k: v for k, v in got.items() if v is not None},
+                        layout)
+    step = make_train_step(m, opt, teacher=teacher, loss_kind="kd_soft_hard",
+                           device="cpu", mesh=mesh, **case["step_kw"])
+    drawn = []
+    real = dropout_mod.bernoulli
+
+    def recorded(shape, keep, generator, shard=None):
+        t = real(shape, keep, generator, shard=shard)
+        drawn.append((t.clone(), None if shard is None else shard[0]))
+        return t
+
+    gen = (torch.Generator().manual_seed(case["seed"])
+           if "seed" in case else None)
+    dropout_mod.bernoulli = recorded
+    try:
+        state, met = step(state, _rows(setup["batch"], mesh), gen)
+    finally:
+        dropout_mod.bernoulli = real
+    return dict(
+        own_grads=opt.grads, grads=_gather(opt.grads, layout),
+        params=_gather(_clone(state.params), layout),
+        mu=_gather(state.opt_state.mu, layout),
+        nu=_gather(state.opt_state.nu, layout),
+        metrics={k: float(v) for k, v in met.items()}, masks=masks,
+        drawn=drawn, state=state, model=m)
+
+
+def checkpoints(setup: dict, res: dict, out_dir: str, mesh) -> dict:
+    """The sharded state after a step written as a checkpoint (rank 0,
+    the slices gathered), read back into it; the single process's
+    checkpoint (`setup["single_ckpt"]`) restored into it."""
+    state, m = res["state"], res["model"]
+    mgr = checkpoint.make_manager(os.path.join(out_dir, "ckpt_mp"))
+    checkpoint.save_epoch(mgr, 0, state, {"top1": 1.0},
+                          buffers=dict(m.named_buffers()))
+    live = (_clone(state.params), _clone(state.opt_state.mu))
+    with torch.no_grad():
+        for t in state.params.values():
+            t.zero_()
+    checkpoint.restore_into(checkpoint.load(mgr, 0), state, m)
+    back = all(torch.equal(state.params[k], v) for k, v in live[0].items())
+    back &= all(torch.equal(state.opt_state.mu[k], v)
+                for k, v in live[1].items())
+    single = checkpoint.make_manager(setup["single_ckpt"])
+    checkpoint.restore_into(checkpoint.load(single, 0), state, m)
+    return dict(round_trip=back, dir=mgr.directory,
+                start_dir=os.path.join(out_dir, "ckpt_start"),
+                from_single=dict(params=_clone(state.params),
+                                 mu=_clone(state.opt_state.mu)))
+
+
+def steps(setup: dict, out_dir: str, mesh) -> None:
+    start = calibrated_start(setup, mesh)
+    out = dict(logits=start["logits"], calibrated=start["calibrated"],
+               mesh=(mesh.data_index, mesh.model_index, mesh.data_world,
+                     mesh.model_parallel))
+    # the group's StatsQ scale from this rank's rows of a kernel
+    w = torch.from_numpy(setup["kernel"])
+    n = w.shape[0] // mesh.model_parallel
+    rows = w[mesh.model_index * n:(mesh.model_index + 1) * n]
+    out["scale"] = (statsq_scale(w), statsq_scale(rows, mesh=mesh))
+    for name, case in setup["cases"].items():
+        res = run_case(setup, case, start["calibrated"], mesh,
+                       ckpt_dir=(os.path.join(out_dir, "ckpt_start")
+                                 if name == setup["checkpoint_case"]
+                                 else None))
+        if name == setup["checkpoint_case"]:
+            out["checkpoints"] = checkpoints(setup, res, out_dir, mesh)
+        del res["state"], res["model"]
+        out[name] = res
+    torch.save(out, os.path.join(out_dir, f"steps.rank{mesh.rank}.pt"))
+
+
+def runner(setup: dict, out_dir: str, mesh) -> None:
+    from ofq_tpu_torch.cli import common
+    from ofq_tpu_torch.cli import eval as cli_eval
+    from ofq_tpu_torch.cli.runner import Runner
+    small_variant()
+    r = Runner(common.parse_args(setup["fit"]), device="cpu")
+    best = r.fit()
+    out = dict(best=best, batch=r.data_cfg.batch_size,
+               shard=(r.data_cfg.shard_index, r.data_cfg.shard_count),
+               params={k: v.detach().clone()
+                       for k, v in r.model.named_parameters()})
+    out["eval"] = cli_eval.main(setup["eval"], device="cpu")
+    torch.save(out, os.path.join(out_dir, f"runner.rank{mesh.rank}.pt"))
+
+
+def main(mode: str, setup_path: str, out_dir: str) -> None:
+    initialize_multihost(device="cpu")  # gloo, from the environment
+    setup = torch.load(setup_path, weights_only=False)
+    mesh = make_mesh(model_parallel=setup["model_parallel"], device="cpu")
+    steps(setup, out_dir, mesh)
+    if mode == "all":
+        runner(setup, out_dir, mesh)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    np.seterr(all="ignore")
+    main(*sys.argv[1:4])
