@@ -722,6 +722,10 @@ def phase_k1(dev, n_tok_main, batch=BATCH, base=None):
         # (K = 192), fc1 columns (N = 768) and fc2 rows (K = 768)
         *((f"tp {nm}", m_tok, n_tok_main, K, N, 2, nm == "fc2", False)
           for (_, K, N), nm in zip(tp_shapes(m_tok), ("proj", "fc1", "fc2"))),
+        # DeiT-T at TP = 2 (`phase_tp` (g)): its 3-head proj whole and
+        # fc2's rows (K = 384); fc1's columns are "tp proj"'s shape
+        ("tp deit-t proj", m_tok, n_tok_main, 192, 192, 2, False, False),
+        ("tp deit-t fc2", m_tok, n_tok_main, 384, 192, 2, True, False),
     ]
     results = []
     for name, M, n_tok, K, N, bits, all_pos, main in cases:
@@ -825,16 +829,20 @@ def _attn_bound(B, N, H, K, d, lhs_numel, dtype, backward):
     return nbytes, flops, bound(nbytes, flops, peak)
 
 
-def _attn_cases(dev, seed, N, B, with_g, heads=6):
+def _attn_cases(dev, seed, N, B, with_g, heads=6, C=384, dtypes=None):
     """K2's and K3's inputs at the slice's shapes, per stream dtype: fp32,
     then the same values rounded to bf16 (s fp32), shared and per-head
-    lhs; yields (dtype, shared, K, tensors).  `heads` other than 6: a TP
-    rank's share of DeiT-S's heads, shared lhs in fp32 only (the TP
-    fused step's case)."""
+    lhs; yields (dtype, shared, K, tensors).  `heads` other than 6 or `C`
+    other than 384: a TP step's case, shared lhs in fp32 only or in
+    `dtypes` (a TP = 2 rank's 3 of DeiT-S's heads, DeiT-T's 3 at C =
+    192)."""
     import torch
     g = torch.Generator().manual_seed(seed)
-    H, C, d = heads, 384, 64
-    tp = heads != 6
+    H, d = heads, 64
+    tp = (heads, C) != (6, 384)
+    if dtypes is None:
+        dtypes = ((torch.float32,) if tp
+                  else (torch.float32, torch.bfloat16))
     for shared in (True,) if tp else (True, False):
         K = C if shared else d
         ts = [torch.randn(*((B, N, K) if shared else (B, N, H, K)),
@@ -844,8 +852,7 @@ def _attn_cases(dev, seed, N, B, with_g, heads=6):
               torch.rand(N, generator=g) * 0.01 + 0.005]
         if with_g:
             ts.append(torch.randn(B, N, H, d, generator=g))
-        for dtype in (torch.float32,) if tp else (torch.float32,
-                                                  torch.bfloat16):
+        for dtype in dtypes:
             yield dtype, shared, K, [
                 t.to(dev, dtype if i != 3 else torch.float32)
                 .contiguous() for i, t in enumerate(ts)]
@@ -881,22 +888,24 @@ def k2_gate(what, o_k, o_ref, s, v):
     return err, hard, outside
 
 
-def phase_k2(dev, N, B=BATCH, base=None, heads=6):
+def phase_k2(dev, N, B=BATCH, base=None, heads=6, C=384, dtypes=None):
     """K2 against its plain version (`k2_gate`), with SDPA (LSQ off, lhs
     expanded per head) as the yardstick; with `base` (--baseline) also the
     launcher alone, the current tree's and the earlier one's, and the
-    output elements where the two differ.  `heads` other than 6: a TP
-    rank's heads, the shared lhs with LSQ on in fp32 only."""
+    output elements where the two differ.  `heads` other than 6 or `C`
+    other than 384: a TP step's case (`_attn_cases`), the shared lhs with
+    LSQ on."""
     import torch
     import torch.nn.functional as F
     from ofq_tpu_torch.ops import fused_attention as fa
     H, d, bits = heads, 64, 2
     sm_scale = d ** -0.5
     results = []
-    for dtype, shared, K, (lhs, rhs, v, s) in _attn_cases(dev, 2, N, B, False,
-                                                          heads):
+    tp = (heads, C) != (6, 384)
+    for dtype, shared, K, (lhs, rhs, v, s) in _attn_cases(
+            dev, 2, N, B, False, heads, C, dtypes):
         dt = _dtype_name(dtype)
-        for quantize in (True,) if heads != 6 else (True, False):
+        for quantize in (True,) if tp else (True, False):
             args = (lhs, rhs, v, s, bits, sm_scale, quantize)
             o_k = fa.qkr_attention_fwd(*args)
             o_ref = fa.qkr_attention_fwd_reference(*args)
@@ -994,23 +1003,24 @@ def _passes_label(times):
             + " ms" if times else "not measured")
 
 
-def phase_k3(dev, N, B=BATCH, base=None, heads=6):
+def phase_k3(dev, N, B=BATCH, base=None, heads=6, C=384, dtypes=None):
     """K3, the attention backward, against its plain version, with the
     backward of F.scaled_dot_product_attention (LSQ off, lhs expanded per
     head, only the autograd.grad call timed) as the yardstick; with `base`
     (--baseline) also the launcher alone, the current tree's and the
     earlier one's, and the output elements where the two differ.
-    `heads` other than 6: as `phase_k2`'s (no pass times)."""
+    `heads` and `C`: as `phase_k2`'s (no pass times)."""
     import torch
     import torch.nn.functional as F
     from ofq_tpu_torch.ops import fused_attention as fa
     H, d, bits = heads, 64, 2
     sm_scale = d ** -0.5
     results = []
+    tp = (heads, C) != (6, 384)
     for dtype, shared, K, (lhs, rhs, v, s, go) in _attn_cases(
-            dev, 3, N, B, True, heads):
+            dev, 3, N, B, True, heads, C, dtypes):
         dt = _dtype_name(dtype)
-        for quantize in (True,) if heads != 6 else (True, False):
+        for quantize in (True,) if tp else (True, False):
             args = (lhs, rhs, v, s, go, bits, sm_scale, quantize)
             got = fa.qkr_attention_bwd(*args)
             ref = fa.qkr_attention_bwd_reference(*args)
@@ -1050,7 +1060,7 @@ def phase_k3(dev, N, B=BATCH, base=None, heads=6):
                 if base:
                     raw_ms, base_ms, differing = against_earlier(current,
                                                                  earlier)
-                if shared and quantize and heads == 6:
+                if shared and quantize and not tp:
                     # the main path's case: device time by pass, the
                     # earlier tree's beside it
                     passes = pass_times(current)
@@ -1117,6 +1127,27 @@ def _k45_tp_cases(m_tok):
     (p, f1, f2) = tp_shapes(m_tok)
     return [("float32", [("tp proj", *p, False), ("tp fc2", *f2, False)]),
             ("bfloat16", [("tp fc1", *f1, False)])]
+
+
+def _k45_swin_tp_cases(batch=BATCH):
+    """K4's cases of a TP = 2 rank's Swin-T pallas bf16 step
+    (`tp_launch_shapes`) not among `_swin_k4_cases`' (stage 0's whole
+    proj, the reductions), each in the stream it runs in: the
+    row-parallel products (proj where TP divides the heads, fc2) on x
+    upcast to fp32, fc1's columns in bf16; [(dtype name, cases)]."""
+    from ofq_tpu_torch.models.swin import SWIN_TINY as cfg
+    side, dim = cfg.img_size // cfg.patch_size, cfg.embed_dim
+    rows, cols = [], []
+    for stage, heads in enumerate(cfg.num_heads):
+        M, hid = batch * side * side, int(dim * cfg.mlp_ratio)
+        if heads % TP == 0:
+            rows.append((f"tp s{stage} proj rows", M, dim // TP, dim, False))
+        cols.append((f"tp s{stage} fc1 columns", M, dim, hid // TP, False))
+        rows.append((f"tp s{stage} fc2 rows", M, hid // TP, dim, False))
+        if stage < len(cfg.depths) - 1:
+            side = (side + 1) // 2
+            dim *= 2
+    return [("float32", rows), ("bfloat16", cols)]
 
 
 def _k45_gate(y, ref, abs_sum):
@@ -1231,6 +1262,7 @@ def phase_k45(dev, which, cases, dtypes=None, base=None):
             raw()
             torch.cuda.synchronize()
             err, ratio, outside = _k45_gate(y_k, y_ref, abs_sum)
+            n_diff = int((y_k != y_ref).sum())
             lv_diff = levels_differing(raw.levels, which, w, s, n)
             c = torch.clamp(w / s, -1.0, 1.0 - 1e-6) * n - 0.5
             w_ties = int((c - torch.floor(c)).eq(0.5).sum())
@@ -1251,7 +1283,8 @@ def phase_k45(dev, which, cases, dtypes=None, base=None):
             plain_ms = median_ms(lambda: plain(*args), reps=10)
             yard_ms = median_ms(yard)
             nbytes, flops, (b_ms, b_by) = _k45_bound(M, K, N, dtype)
-            log(f"[{which}] {name:6s} {dt:8s} M={M} K={K} N={N}: max|diff| "
+            log(f"[{which}] {name:6s} {dt:8s} M={M} K={K} N={N}: {n_diff} "
+                f"of {y_k.numel()} elements differ, max|diff| "
                 f"{err:.3e}, worst |diff|/limit {ratio:.3f}, {w_ties} StatsQ "
                 f"ties, pre-pass levels bit for bit; kernel "
                 f"({design['label']}) {ms:.4f} ms"
@@ -1266,6 +1299,8 @@ def phase_k45(dev, which, cases, dtypes=None, base=None):
                                 raw_ms=raw_ms, baseline_raw_ms=base_ms,
                                 baseline_differing=differing,
                                 max_abs_err=err, worst_ratio=ratio,
+                                elements_differing=n_diff,
+                                elements=y_k.numel(),
                                 statsq_ties=w_ties, ms=ms, plain_ms=plain_ms,
                                 matmul_ms=yard_ms, bound_ms=b_ms,
                                 bound_by=b_by, bytes=nbytes, flops=flops,
@@ -3802,15 +3837,18 @@ def emulate_tc_tile(q, k, v, form="full"):
     import torch
     Bn, n, H, d = q.shape
     switches = K6_FORMS.get(form, {})
-    pad = torch.zeros(Bn, 64 - n, H, d, dtype=q.dtype, device=q.device)
-    qp, kp, vp = (torch.cat([t, pad], dim=1) for t in (q, k, v))
-    qu, ku = (t.permute(0, 2, 1, 3) for t in (qp, kp))   # (B, H, 64, d)
-    vu = vp.permute(0, 2, 3, 1)                          # (B, H, d, 64)
+    qu, ku = (t.permute(0, 2, 1, 3) for t in (q, k))     # (B, H, n, d)
+    vu = v.permute(0, 2, 3, 1)                           # (B, H, d, n)
+    # the tile's 64 rows and key columns, n of them real: the padded
+    # queries' and keys' zero rows give scores of exactly 0, and a padded
+    # key's p (0) meets a zero v row, so the sums run over the n real
+    # keys (their k16 steps grouped as on 64) and the padding is written
+    s = torch.zeros(Bn, H, 64, 64, dtype=torch.float32, device=q.device)
     if switches.get("do_scores", True):
-        s = mma_sum(qu.unsqueeze(3), ku.unsqueeze(2)) * torch.tensor(
-            d ** -0.5, dtype=torch.float32, device=q.device)
+        s[:, :, :n, :n] = mma_sum(qu.unsqueeze(3), ku.unsqueeze(2)) * (
+            torch.tensor(d ** -0.5, dtype=torch.float32, device=q.device))
     else:
-        s = qu[..., :1].float().expand(Bn, H, 64, 64).clone()
+        s[:, :, :n] = qu[..., :1].float()
     if switches.get("do_softmax", True):
         s[..., n:] = -torch.inf
         e = torch.exp(s - s.amax(-1, keepdim=True))
@@ -3825,7 +3863,8 @@ def emulate_tc_tile(q, k, v, form="full"):
     else:
         p = s
     if switches.get("do_out", True):
-        o = mma_sum(p.to(torch.bfloat16).unsqueeze(3), vu.unsqueeze(2))
+        o = mma_sum(p[:, :, :n, :n].to(torch.bfloat16).unsqueeze(3),
+                    vu.unsqueeze(2))
     else:
         o = p[..., :d]
     return o[:, :, :n].permute(0, 2, 1, 3).to(torch.bfloat16)
@@ -6169,27 +6208,84 @@ def phase_ddp(dev, kept, deit="deit_small_distilled_patch16_224",
 # 22 the two ranks share the one card over gloo: every time is a
 # functional reading, not a tensor-parallel rate.
 TP = 2                  # the model group: DeiT-S's 6 heads, 3 a rank
-TP_TIMEOUT = 540        # s, the one spawn of the ranks
-# the tensor-parallel faults of the gate self-check (the fused step): a
-# row-parallel kernel's StatsQ scale from its rank's rows alone, the
-# softmax scale's ds left unreduced over the model group
-TP_FAULTS = ("local_statsq_scale", "softmax_ds_unreduced")
+TP_TIMEOUT = 900        # s, the one spawn of the ranks
+TP_SWIN = "swin_t"      # stage 0's 3 heads stay whole at TP = 2
+TP_DEIT_T = "deit_tiny_distilled_patch16_224"   # 3 heads: every attention
+# the tensor-parallel faults of the gate self-check: on the DeiT-S fused
+# step, a row-parallel kernel's StatsQ scale from its rank's rows alone and
+# the softmax scale's ds left unreduced over the model group (the
+# whole-step rule); on the Swin-T pallas step, a window attention's
+# softmax scale's ds left unreduced (the gradients held whole, bit-equal
+# across the ranks; the rule's reading is printed: at Swin-T's width the
+# plain path's own distance on those scales leaves it room); on the
+# sharded Swin-T eval forward, each cut relative-position bias table
+# holding the other rank's heads' columns (the block gate)
+TP_FAULTS = ("local_statsq_scale", "softmax_ds_unreduced",
+             "window_softmax_ds_unreduced", "rel_table_wrong_heads")
+
+
+def _tp_steps(deit, swin, deit_t):
+    """(key, configuration, model name, overrides) of each TP step the
+    ranks take: DeiT-S W2A2 QKR fused fp32, pallas bf16 and fused bf16;
+    Swin-T W2A2 QKR pallas bf16; DeiT-T fused fp32."""
+    return (("fused", FUSED, deit, None), ("pallas", PALLAS, deit, None),
+            ("fused_bf16", FUSED_BF16, deit, None),
+            ("swin", PALLAS, swin, SWIN_BENCH),
+            ("deit_t", FUSED, deit_t, None))
 
 
 def tp_shapes(m_tok):
     """{(M, K, N): launches} of K1 (fused) or K4 (pallas) per rank in one
-    DeiT-S step at TP (12 blocks): proj (rows of C), fc1 (columns of
-    4C), fc2 (rows of 4C)."""
-    C, hid = 384, 1536
-    return {(m_tok, C // TP, C): 12, (m_tok, C, hid // TP): 12,
-            (m_tok, hid // TP, C): 12}
+    DeiT-S step at TP on `m_tok` tokens (12 blocks): proj (rows of C), fc1
+    (columns of 4C), fc2 (rows of 4C)."""
+    from ofq_tpu_torch.models.deit import DEIT_SMALL as cfg
+    return tp_launch_shapes(cfg, m_tok // cfg.n_tokens)
+
+
+def swin_reduction_shapes(cfg, batch):
+    """{(M, K, N): launches} of Swin's patch-merging reductions in one
+    forward on `batch` images (whole at every TP, in the bf16 stream)."""
+    import collections
+    out = collections.Counter()
+    side, dim = cfg.img_size // cfg.patch_size, cfg.embed_dim
+    for _ in cfg.depths[1:]:
+        side = (side + 1) // 2
+        out[(batch * side * side, 4 * dim, 2 * dim)] += 1
+        dim *= 2
+    return out
+
+
+def tp_launch_shapes(cfg, batch):
+    """{(M, K, N): launches} of K1 or K4 per rank in one forward (or step)
+    of a W2A2 QKR student of `cfg` at TP on `batch` images: each block's
+    proj (its rows cut where TP divides the block's heads, else whole),
+    fc1 (columns of its hidden units), fc2 (their rows); Swin's patch
+    mergings' reductions whole."""
+    if hasattr(cfg, "depths"):
+        out = swin_reduction_shapes(cfg, batch)
+        side, dim, stages = cfg.img_size // cfg.patch_size, cfg.embed_dim, []
+        for s, depth in enumerate(cfg.depths):
+            stages.append((batch * side * side, dim, cfg.num_heads[s], depth))
+            side, dim = (side + 1) // 2, 2 * dim
+    else:
+        import collections
+        out = collections.Counter()
+        stages = [(batch * cfg.n_tokens, cfg.embed_dim, cfg.num_heads,
+                   cfg.depth)]
+    for M, C, H, depth in stages:
+        hid = int(C * cfg.mlp_ratio)
+        out[(M, C // TP if H % TP == 0 else C, C)] += depth
+        out[(M, C, hid // TP)] += depth
+        out[(M, hid // TP, C)] += depth
+    return dict(out)
 
 
 @contextlib.contextmanager
 def tp_fault(fault):
-    """One of TP_FAULTS (None: none) in effect."""
-    from ofq_tpu_torch.nn import attention
+    """One of TP_FAULTS that act on a step (None: none) in effect."""
+    from ofq_tpu_torch.nn import attention, quantizers
     from ofq_tpu_torch.quant import statsq
+    from ofq_tpu_torch.quant.lsq import lsq_quantize
     if fault == "local_statsq_scale":
         # the scale's mean over this rank's rows only
         sites = [(statsq, "gather_rows", lambda t, mesh, axis=0: t)]
@@ -6198,6 +6294,20 @@ def tp_fault(fault):
         # the scale (1-D) keeps its partial ds; the shared input its sum
         sites = [(attention, "copy_to_model",
                   lambda t, mesh: t if t.ndim == 1 else real(t, mesh))]
+    elif fault == "window_softmax_ds_unreduced":
+        real_fwd = quantizers.LsqAct.forward
+
+        def forward(self, x):
+            if self.tp is None or self.tp[0] != 1:
+                return real_fwd(self, x)
+            # the softmax scale (its input's heads on axis 1) without f:
+            # its ds stays this rank's heads' partial sum
+            axis, mesh = self.tp
+            return lsq_quantize(x, self.s, self.bit,
+                                all_positive=self.all_positive,
+                                channel_axis=self.channel_axis,
+                                model=(axis, mesh.model_parallel))
+        sites = [(quantizers.LsqAct, "forward", forward)]
     else:
         sites = []
     saved = [(m, n, getattr(m, n)) for m, n, _ in sites]
@@ -6326,53 +6436,101 @@ def _empty_cache():
         torch.cuda.empty_cache()
 
 
-def tp_serving(mesh, full, batches):
+def tp_serving(mesh, full, batches, conf=FUSED, gate=None, fault=None):
     """The sharded student's eval forward (kernels) against the single
-    process's plain path on `batches`: each block alone on the plain
-    path's input to it (`_row_shares`), the top-1 agreement, one
-    forward's launches and shapes."""
+    process's on `batches`: each block alone on the plain path's input to
+    it (`_capture_blocks`; in fp32 against the plain path's output, in
+    bf16 the kernels and the plain path each against the rounded-once
+    reference, as `check_blocks`; `gate`'s row floor), the top-1 of the
+    kernel, plain and (bf16) reference paths, one forward's launches and
+    shapes.  `fault` "rel_table_wrong_heads": the blocks again with each
+    cut relative-position bias table holding the other rank's heads'
+    columns."""
     import copy
     import torch
     from ofq_tpu_torch import ops
     from ofq_tpu_torch.parallel import shard_model
     m = copy.deepcopy(full).eval()
     dev = mesh.device
+    fl = (gate or {}).get("row_floor", 0.0)
+    bf16 = conf["compute_dtype"] is not None
     caps = _capture_blocks(m, batches[0], dev)
+    blocks = [getattr(m, n) for n in m.block_names]
+
+    def probs(bs):
+        return [torch.softmax(m(torch.from_numpy(b).to(dev)).float(), -1)
+                for b in bs]
+
+    refs, p_ref = None, None
     with torch.inference_mode():
         with plain_path(m):
-            p_plain = [torch.softmax(m(torch.from_numpy(b).to(dev)), -1)
-                       for b in batches]
+            p_plain = probs(batches)
         # the single process's kernel path: how close TP's bits come
-        p_single = [torch.softmax(m(torch.from_numpy(b).to(dev)), -1)
-                    for b in batches]
-    shard_model(m, mesh)
+        p_single = probs(batches)
+        if bf16:
+            with reference_path(m):
+                refs = [blk(x) for blk, (x, _) in zip(blocks, caps)]
+                p_ref = probs(batches)
+    tables = {n: p.detach().clone() for n, p in m.named_parameters()
+              if n.endswith("relative_position_bias_table")}
+    layout = shard_model(m, mesh)
+
+    def rows():
+        out = []
+        with torch.inference_mode():
+            for i, (blk, (x, ref)) in enumerate(zip(blocks, caps)):
+                y = blk(x)
+                if not bf16:
+                    out.append(_row_shares(y, ref, conf, fl))
+                else:
+                    out.append((_row_shares(y, refs[i], conf, fl)[0],
+                                _row_shares(ref, refs[i], conf, fl)[0],
+                                *_row_shares(y, ref, conf, fl)))
+        return out
+
     with torch.inference_mode():
         ops.reset_launch_counts()
-        p_k = [torch.softmax(m(torch.from_numpy(batches[0]).to(dev)), -1)]
+        p_k = probs(batches[:1])
         _sync()
         launches = ops.launch_counts()
-        shapes = _shapes(ops.fused_qlinear_fwd)
-        p_k += [torch.softmax(m(torch.from_numpy(b).to(dev)), -1)
-                for b in batches[1:]]
-        rows = [_row_shares(getattr(m, n)(x), ref, FUSED)
-                for n, (x, ref) in zip(m.block_names, caps)]
-    top1 = float((torch.cat(p_k).argmax(-1)
-                  == torch.cat(p_plain).argmax(-1)).float().mean())
+        shapes = {**_shapes(ops.fused_qlinear_fwd),
+                  **_shapes(ops.pallas_statsq_fwd)}
+        p_k += probs(batches[1:])
+    block_rows = rows()
+    fault_rows = None
+    if fault == "rel_table_wrong_heads":
+        params = dict(m.named_parameters())
+        other = (mesh.model_index + 1) % mesh.model_parallel
+        cut = [n for n in tables if n in layout.cuts]
+        with torch.no_grad():
+            kept = {n: params[n].detach().clone() for n in cut}
+            for n in cut:
+                params[n].copy_(layout.cuts[n].local(tables[n], other))
+        fault_rows = rows()
+        with torch.no_grad():
+            for n in cut:
+                params[n].copy_(kept[n])
+    top = {k: torch.cat(p).argmax(-1).cpu() for k, p in
+           (("kernels", p_k), ("plain", p_plain), ("single", p_single),
+            *((("reference", p_ref),) if bf16 else ()))}
     same = (torch.cat(p_k) == torch.cat(p_single)).all(-1)
     finite = all(bool(torch.isfinite(p).all()) for p in p_k)
-    del m, caps
+    del m, caps, refs
     _empty_cache()
-    return dict(rows=rows, top1=top1, launches=launches, shapes=shapes,
-                finite=finite, images=sum(len(b) for b in batches),
-                same_as_single=float(same.float().mean()))
+    return dict(rows=block_rows, fault_rows=fault_rows, top1=top,
+                launches=launches, shapes=shapes, finite=finite,
+                images=sum(len(b) for b in batches),
+                same_as_single=float(same.float().mean()),
+                cut_tables=len([n for n in tables if n in layout.cuts]))
 
 
 def _tp_job(rank, world, tmp, mesh):
     """Rank `rank` of the two-rank TP run on the one card (`tp_job.pt`):
-    (a) the fused fp32 and pallas bf16 steps from the parent's starts and
-    the sharded serving forward, (b) the fused step under TP_FAULTS, (c)
-    a fused CGA step, (d) the recipe's train and eval commands at
-    `--mesh-model-parallel` TP."""
+    each step of `_tp_steps` from the parent's starts (DeiT-S fused fp32
+    with the sharded serving forward, its faults and a CGA step; DeiT-S
+    pallas bf16; fused bf16; Swin-T pallas bf16 with its sharded serving
+    forward, its faults and a CGA step; DeiT-T fused fp32), then the recipe's train and eval
+    commands at `--mesh-model-parallel` TP for DeiT-S and Swin-T."""
     import numpy as np
     import torch
     from ofq_tpu_torch.cli import eval as cli_eval
@@ -6381,38 +6539,49 @@ def _tp_job(rank, world, tmp, mesh):
     spec = torch.load(os.path.join(tmp, "tp_job.pt"), weights_only=False)
     tp = make_mesh(model_parallel=TP, device=mesh.device)
     out = dict(mesh=(tp.data_index, tp.model_index))
-    for key, conf in (("fused", FUSED), ("pallas", PALLAS)):
+    for key, conf, name, over in _tp_steps(*spec["names"]):
         start = torch.load(os.path.join(tmp, f"tp_{key}.start.pt"),
                            weights_only=True)
-        student, teacher, data = build_trained(mesh.device, conf,
-                                               spec["name"], spec["batch"])
+        student, teacher, data = build_trained(
+            mesh.device, conf, name, spec["batch"], overrides=over)
         student.load_state_dict(start["student"])
         teacher.load_state_dict(start["teacher"])
-        out[key] = dict(ok=tp_step(tp, student, teacher, data, timed=True))
-        if key == "fused":
+        out[key] = dict(ok=tp_step(tp, student, teacher, data,
+                                   timed=key in ("fused", "pallas", "swin")))
+        if key in ("fused", "swin"):
             rng = np.random.default_rng(0)
             batches = [data["image"].cpu().numpy()] + [
                 rng.normal(size=tuple(data["image"].shape)).astype(
                     np.float32) for _ in range(CMP_BATCHES - 1)]
-            out["serving"] = tp_serving(tp, student, batches)
-            for fault in TP_FAULTS:
+            swin = key == "swin"
+            out[key]["serving"] = tp_serving(
+                tp, student, batches, conf, gate=SWIN_GATE if swin else None,
+                fault="rel_table_wrong_heads" if swin else None)
+            out[key]["cga"] = tp_step(tp, student, teacher, data,
+                                      cga=CGA_SWIN if swin else CGA)
+        if key == "fused":
+            for fault in TP_FAULTS[:2]:
                 out[key][fault] = tp_step(tp, student, teacher, data,
                                           fault=fault)
-            out["cga"] = tp_step(tp, student, teacher, data, cga=CGA)
+        if key == "swin":
+            fault = "window_softmax_ds_unreduced"
+            out[key][fault] = tp_step(tp, student, teacher, data,
+                                      fault=fault)
         del student, teacher, data
         _empty_cache()
-    spy = CliSpy()
-    t0 = time.perf_counter()
-    with spy.active():
-        cli_train.main(spec["train"], device=str(mesh.device))
-    rec = spy.take()
-    t1 = time.perf_counter()
-    got = cli_eval.main(spec["eval"], device=str(mesh.device))
-    out["recipe"] = dict(
-        steps=[dict(launches=s["launches"], seconds=s["seconds"])
-               for s in rec["steps"]],
-        batch=rec["runners"][0].data_cfg.batch_size, train_s=t1 - t0,
-        eval=got, eval_s=time.perf_counter() - t1)
+    for key in ("deit", "swin"):
+        spy = CliSpy()
+        t0 = time.perf_counter()
+        with spy.active():
+            cli_train.main(spec[key]["train"], device=str(mesh.device))
+        rec = spy.take()
+        t1 = time.perf_counter()
+        got = cli_eval.main(spec[key]["eval"], device=str(mesh.device))
+        out[f"recipe_{key}"] = dict(
+            steps=[dict(launches=s["launches"], seconds=s["seconds"])
+                   for s in rec["steps"]],
+            batch=rec["runners"][0].data_cfg.batch_size, train_s=t1 - t0,
+            eval=got, eval_s=time.perf_counter() - t1)
     return out
 
 
@@ -6438,48 +6607,161 @@ def _single_step_peak(student, teacher, data):
     return out
 
 
-def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
-             batch=BATCH, steps=2, extra=()):
-    """The port's tensor parallelism (`ofq_tpu_torch.parallel`'s 'model'
-    axis) at DeiT-S width on the card: two ranks, one model group of TP,
-    sharing the card over gloo (NCCL refuses two ranks on one device,
-    `phase_ddp` (b)), spawned once (`ddp_spawn`), each taking the whole
-    batch of `batch`:
+def _tp_serving_gates(label, sv, conf, gate, want, want_shapes):
+    """The sharded serving forward of every rank under `phase_slice`'s
+    gates: exact launches and shapes, each block alone (fp32: kernels vs
+    the plain path, `_log_rows`; bf16: `_block_rows_gate`), top-1 (fp32:
+    agreement with the plain path at least TOP1; bf16: the kernels'
+    agreement with the rounded-once reference at least the plain path's
+    less TOP1_SIGMAS standard errors, as `check_top1`)."""
+    bf16 = conf["compute_dtype"] is not None
+    rows_of = {}
+    for i, r in enumerate(sv):
+        if r["launches"] != want or r["shapes"] != want_shapes or \
+                not r["finite"]:
+            raise AssertionError(
+                f"[tp] {label} serving rank {i}: launches {r['launches']} "
+                f"{r['shapes']}, finite {r['finite']}; expected {want} at "
+                f"{want_shapes}")
+        what = (f"[tp] {label} serving, rank {i}, each sharded block alone "
+                f"on the same input")
+        rows_of[i] = (_block_rows_gate(what, r["rows"], gate["rows"])
+                      if bf16 else
+                      _log_rows(what + ", kernels vs the single process's "
+                                "plain path", r["rows"], gate["rows"]))
+        t = r["top1"]
+        agree = float((t["kernels"] == t["plain"]).float().mean())
+        msg = (f"[tp] {label} serving, rank {i}: {r['images']} images, "
+               f"top-1 agreement with the single process's plain path "
+               f"{100 * agree:.2f} %; probabilities bit-equal to the single "
+               f"process's kernel path for {100 * r['same_as_single']:.2f} % "
+               f"of the images")
+        if not bf16:
+            log(msg + f" (gate {TOP1})")
+            if agree < TOP1:
+                raise GateTripped(f"[tp] {label} serving top-1 {agree}")
+            continue
+        a_k = t["kernels"] == t["reference"]
+        a_p = t["plain"] == t["reference"]
+        n01, n10 = int((a_k & ~a_p).sum()), int((a_p & ~a_k).sum())
+        margin = TOP1_SIGMAS * (n01 + n10) ** 0.5 / len(a_k)
+        k_, p_ = float(a_k.float().mean()), float(a_p.float().mean())
+        log(msg + f"; agreement with the rounded-once reference: kernels "
+            f"{100 * k_:.2f} %, the single process's plain path "
+            f"{100 * p_:.2f} %; gate: kernels >= plain - "
+            f"{100 * margin:.2f} %")
+        if k_ < p_ - margin:
+            raise GateTripped(f"[tp] {label} serving top-1 vs the "
+                              f"reference: {k_} < {p_} - {margin}")
+        rows_of[i] = dict(rows_of[i], top1_reference=k_, top1_plain=p_)
+    return [dict(top1=float((r["top1"]["kernels"] == r["top1"]["plain"])
+                           .float().mean()),
+                 rows=rows_of[i], same_as_single=r["same_as_single"])
+            for i, r in enumerate(sv)]
 
-      (a) the W2A2 QKR fused fp32 step (K1, K2, K3) and the pallas bf16
-          step (K4) from the starts this process saves: the gathered
-          gradients held by `check_step_grads`' whole-step rule against
-          the single-process plain path, the gradients each rank holds
-          whole bit-equal across the ranks, the launches per rank (36
-          K1 or 36 K4 at `tp_shapes`, 12 K2 and 12 K3 at 3 heads); the
-          sharded eval forward (36 K1, 12 K2) under `phase_slice`'s block
-          and top-1 gates against the single process's plain path;
-      (b) TP_FAULTS on the fused step, each of which must trip the rule;
+
+def _tp_cga_gate(label, student, cg, cga, want, dev):
+    """A TP CGA step on every rank: 0 frozen bits changed, the exact
+    launches, the gathered masks the single process's from the same start
+    but within MASK_EDGE_ULPS fp32 ulps of a band edge."""
+    import torch
+    from ofq_tpu_torch.quant import statsq_b4_round
+    from ofq_tpu_torch.train import freeze_masks
+    views = {n: p.detach().float() for n, p in student.named_parameters()}
+    single = {n: m for n, m in freeze_masks(views, **cga).items()
+              if m is not None}
+    br = cga["boundary_range"]
+    differ = near = 0
+    for n, m in single.items():
+        b4 = statsq_b4_round(views[n], cga["bits"])[0]
+        frac = b4 - torch.floor(b4)
+        dist = torch.minimum((frac - (0.5 - br)).abs(),
+                             (frac - (0.5 + br)).abs())
+        ulp = torch.nextafter(b4.abs(), torch.full_like(
+            b4, float("inf"))) - b4.abs()
+        edge = dist <= MASK_EDGE_ULPS * ulp
+        for r in cg:
+            d = r["masks"][n].to(dev) != m
+            if bool((d & ~edge).any()):
+                raise GateTripped(
+                    f"[tp] {label} CGA masks: {n}: {int((d & ~edge).sum())}"
+                    f" entries differ from the single process's away from "
+                    f"a band edge")
+            differ += int(d.sum())
+        near += int(edge.sum())
+    frozen = [r["frozen_changed"] for r in cg]
+    out = dict(frozen_changed=frozen, differing=differ, near_edge=near,
+               masks=len(single), launches=cg[0]["launches"],
+               loss=cg[0]["loss"])
+    log(f"[tp] {label} CGA step at TP={TP}: frozen entries changed {frozen} "
+        f"(required 0); the {len(single)} masks against the single "
+        f"process's: {differ} entries differing, {near} within "
+        f"{MASK_EDGE_ULPS} fp32 ulps of a band edge (allowed there only); "
+        f"launches per rank "
+        f"{ {k: v for k, v in cg[0]['launches'].items() if v} }")
+    if any(frozen) or any(r["launches"] != want for r in cg):
+        raise GateTripped(f"[tp] {label} CGA: {out}")
+    return out
+
+
+def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
+             batch=BATCH, steps=2, extra=(), swin=TP_SWIN, deit_t=TP_DEIT_T,
+             swin_extra=()):
+    """The port's tensor parallelism (`ofq_tpu_torch.parallel`'s 'model'
+    axis) on the card: two ranks, one model group of TP, sharing the card
+    over gloo (NCCL refuses two ranks on one device, `phase_ddp` (b)),
+    spawned once (`ddp_spawn`), each taking the whole batch of `batch`:
+
+      (a) the DeiT-S W2A2 QKR fused fp32 step (K1, K2, K3), the pallas
+          bf16 step (K4) and the fused bf16 step (K1, K2-bf16, K3-bf16)
+          from the starts this process saves: the gathered gradients held
+          by `check_step_grads`' whole-step rule against the
+          single-process plain path, the gradients each rank holds whole
+          bit-equal across the ranks, the launches per rank (36 K1 or 36
+          K4 at `tp_shapes`, 12 K2 and 12 K3 at 3 heads); the sharded eval
+          forward (36 K1, 12 K2) under `phase_slice`'s block and top-1
+          gates against the single process's plain path;
+      (b) TP_FAULTS' first two on the fused step, each of which must trip
+          the rule;
       (c) a fused CGA step: 0 frozen bits changed, the gathered masks the
           single process's but within MASK_EDGE_ULPS fp32 ulps of a band
           edge;
       (d) `cli.train.main` (phase 1, `steps` steps, synthetic data, the
           warm start `phase_cli` kept) and `cli.eval.main` with
           `--mesh-model-parallel` TP; the eval's top-1 and top-5 equal to
-          this process's single-process eval of the checkpoint.
+          this process's single-process eval of the checkpoint;
+      (e) the Swin-T W2A2 QKR pallas bf16 step (stage 0's 3 heads whole
+          on both ranks, stages 1-3 cut): the rule, the whole gradients
+          bit-equal across the ranks, 39 K4 a rank at
+          `tp_launch_shapes`; with the window attention's softmax-scale
+          ds unreduced, which must break that bit-equality (the rule's
+          reading printed); the sharded eval forward under
+          `phase_slice`'s bf16 block and top-1 gates (`SWIN_GATE`), and
+          with the relative-position bias tables of the other rank's
+          heads, which must trip the block gate;
+      (f) a Swin-T CGA step, as (c);
+      (g) the DeiT-T fused fp32 step (its 3 heads whole on both ranks,
+          the MLPs cut) under the rule, launches and shapes as (a);
+      (h) `cli.train.main` and `cli.eval.main` of the Swin-T recipe's
+          first command (seeded start and teacher, pallas bf16) at
+          `--mesh-model-parallel` TP, the eval equal to one process's.
     One `[tp]` line each (per rank: the sharded parameters' bytes and the
     peak memory beside one process's, the model group's all-reduce bytes
     and ms a step, the wall s a step: functional numbers, two ranks
     sharing one card over gloo)."""
-    import copy
     import shutil
     import tempfile
     import torch
     from ofq_tpu_torch.cli import eval as cli_eval
-    from ofq_tpu_torch.quant import outer_freeze_mask, statsq_b4_round
-    from ofq_tpu_torch.train import freeze_masks
     out, selfcheck = {}, []
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="ofq_tp_")
+    steps_ = _tp_steps(deit, swin, deit_t)
     try:
         built = {}
-        for key, conf in (("fused", FUSED), ("pallas", PALLAS)):
-            student, teacher, data = build_trained(dev, conf, deit, batch)
+        for key, conf, name, over in steps_:
+            student, teacher, data = build_trained(dev, conf, name, batch,
+                                                   overrides=over)
             torch.save({"student": _cpu(student.state_dict()),
                         "teacher": _cpu(teacher.state_dict())},
                        os.path.join(tmp, f"tp_{key}.start.pt"))
@@ -6490,43 +6772,62 @@ def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
         train = p1 + ["--epochs", "1", "--max-steps", str(steps),
                       "--experiment", "tp", "--mesh-model-parallel", str(TP)]
         ev = p1 + ["--experiment", "tp_eval", "--resume", exp]
-        torch.save(dict(name=deit, batch=batch, train=train,
-                        eval=ev + ["--mesh-model-parallel", str(TP)]),
+        s1 = _drop_flags(recipe_argvs(SWIN_RECIPE, "synthetic", "-")[0],
+                         WARM_START) + [
+            "--batch-size", str(batch), "--steps-per-epoch", str(steps),
+            "--warmup-epochs", "0", "--cooldown-epochs", "0",
+            "--matmul-impl", "pallas", "--compute-dtype", "bfloat16",
+            "--output", tmp, "--log-interval", "1", "--model", swin,
+            "--teacher", swin, *swin_extra]
+        s_ev = s1 + ["--experiment", "tp_swin_eval", "--resume",
+                     os.path.join(tmp, "tp_swin")]
+        mp = ["--mesh-model-parallel", str(TP)]
+        torch.save(dict(names=(deit, swin, deit_t), batch=batch,
+                        deit=dict(train=train, eval=ev + mp),
+                        swin=dict(train=s1 + ["--epochs", "1", "--experiment",
+                                              "tp_swin"] + mp,
+                                  eval=s_ev + mp)),
                    os.path.join(tmp, "tp_job.pt"))
         t0 = time.perf_counter()
         ranks, _ = ddp_spawn("_tp_job", tmp, world=TP, timeout=TP_TIMEOUT,
                              device=dev.type)
         out["spawn_s"] = time.perf_counter() - t0
+        log(f"[tp] the two ranks' spawn {out['spawn_s']:.1f} s")
         if [r["mesh"] for r in ranks] != [(0, m) for m in range(TP)]:
             raise AssertionError(f"[tp] meshes {[r['mesh'] for r in ranks]}")
-        m_tok = batch * built["fused"][0].cfg.n_tokens
-        want_shapes = {str(k): v for k, v in tp_shapes(m_tok).items()}
-        for key, conf in (("fused", FUSED), ("pallas", PALLAS)):
+        for key, conf, name, _ in steps_:
             student, teacher, data = built[key]
+            cfg = student.cfg
             rs = [r[key]["ok"] for r in ranks]
-            label = f"DeiT-S ({_describe(conf)})"
-            want = _expected(conf, student.cfg, train=True)
+            swin_ = key.startswith("swin")
+            family = ("Swin-T" if swin_ else
+                      "DeiT-T" if key == "deit_t" else "DeiT-S")
+            label = f"{family} ({_describe(conf)})"
+            part = ("(e)" if swin_ else "(g)" if key == "deit_t" else "(a)")
+            want = _expected(conf, cfg, train=True)
+            want_shapes = {str(k): v for k, v in
+                           tp_launch_shapes(cfg, batch).items()}
             for i, r in enumerate(rs):
                 if r["launches"] != want or r["shapes"] != want_shapes:
                     raise AssertionError(
-                        f"[tp] (a) {label} rank {i}: launches "
+                        f"[tp] {part} {label} rank {i}: launches "
                         f"{r['launches']} by (M,K,N) {r['shapes']}, "
                         f"expected {want} at {want_shapes}")
             bad = [k for k in rs[0]["whole"]
                    if not torch.equal(rs[0]["whole"][k], rs[1]["whole"][k])]
             if bad or set(rs[0]["grads"]) != set(rs[1]["grads"]):
-                raise AssertionError(f"[tp] (a) {label}: gradients held "
+                raise AssertionError(f"[tp] {part} {label}: gradients held "
                                      f"whole differ across the ranks: "
                                      f"{bad[:5]}")
             refs = {}
             grads = check_step_grads(
                 student, teacher, data, conf, kernel_grads=rs[0]["grads"],
                 kernel_loss=rs[0]["loss"], refs=refs,
-                tag=f"[tp] (a) {label} TP={TP} x B={batch}")
+                tag=f"[tp] {part} {label} TP={TP} x B={batch}")
             scales = sorted((r for r in grads["per_param"]
                              if r["name"].endswith(".s")),
                             key=lambda r: r["rel_kernels"] / r["limit"])
-            log(f"[tp] (a) {label}: the LSQ scales' gradients "
+            log(f"[tp] {part} {label}: the LSQ scales' gradients "
                 f"({len(scales)}, the rule passed), the five nearest their "
                 f"limits: " + ", ".join(
                     f"{r['name']} {r['rel_kernels']:.3e}/{r['limit']:.3e}"
@@ -6540,135 +6841,124 @@ def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
                        single_param_bytes=single_bytes,
                        peak_gb=[r["peak_gb"] for r in rs],
                        single_peak_gb=single_peak,
-                       step_s=[r["step_s"] for r in rs],
-                       ar_bytes=[r["ar_bytes"] for r in rs],
-                       ar_s=[r["ar_s"] for r in rs],
-                       ar_calls=[r["ar_calls"] for r in rs],
                        whole_bit_equal=len(rs[0]["whole"]))
-            log(f"[tp] (a) {label}, TP={TP} ranks x B={batch} on one card "
+            timing = ""
+            if "step_s" in rs[0]:
+                row.update(step_s=[r["step_s"] for r in rs],
+                           ar_bytes=[r["ar_bytes"] for r in rs],
+                           ar_s=[r["ar_s"] for r in rs],
+                           ar_calls=[r["ar_calls"] for r in rs])
+                timing = (
+                    f"; the model group's all-reduces {row['ar_bytes'][0]} "
+                    f"bytes in {row['ar_calls'][0]} calls, "
+                    f"{1e3 * row['ar_s'][0]:.1f} / {1e3 * row['ar_s'][1]:.1f}"
+                    f" ms a step; wall {row['step_s'][0]:.3f} / "
+                    f"{row['step_s'][1]:.3f} s a step")
+            log(f"[tp] {part} {label}, TP={TP} ranks x B={batch} on one card "
                 f"over gloo, rank 0 / 1: sharded parameters "
                 f"{row['param_bytes'][0]} / {row['param_bytes'][1]} bytes "
                 f"(one process {single_bytes}); peak memory "
                 f"{row['peak_gb'][0]:.2f} / {row['peak_gb'][1]:.2f} GB (one "
-                f"process {single_peak:.2f}); the model group's all-reduces "
-                f"{row['ar_bytes'][0]} bytes in {row['ar_calls'][0]} calls, "
-                f"{1e3 * row['ar_s'][0]:.1f} / {1e3 * row['ar_s'][1]:.1f} "
-                f"ms a step; wall {row['step_s'][0]:.3f} / "
-                f"{row['step_s'][1]:.3f} s a step; launches per rank "
+                f"process {single_peak:.2f}){timing}; launches per rank "
                 f"{ {k: v for k, v in row['launches'].items() if v} } by "
                 f"(M,K,N) {row['shapes']}; the {row['whole_bit_equal']} "
                 f"gradients held whole bit-equal across the ranks")
-            if key == "fused":
-                for fault in TP_FAULTS:
-                    rf = ranks[0][key][fault]
-                    tripped, msg = _tripped(functools.partial(
-                        check_step_grads, kernel_grads=rf["grads"],
-                        kernel_loss=rf["loss"], refs=refs,
-                        tag=f"[tp] fault {fault}"),
-                        student, teacher, data, conf)
-                    selfcheck.append(dict(fault=fault, tripped=tripped))
-                    log(f"[selfcheck] tensor-parallel {fault}: the "
-                        f"whole-step rule {'tripped' if tripped else 'passed'}"
-                        f" (required: trip){' -- ' + msg if msg else ''}")
-                sv = [r["serving"] for r in ranks]
-                want_f = _expected(conf, student.cfg, train=False)
-                want_fs = {str(k): v for k, v in tp_shapes(m_tok).items()}
-                for i, r in enumerate(sv):
-                    if r["launches"] != want_f or r["shapes"] != want_fs or \
-                            not r["finite"]:
-                        raise AssertionError(
-                            f"[tp] (a) serving rank {i}: launches "
-                            f"{r['launches']} {r['shapes']}, finite "
-                            f"{r['finite']}")
-                    _log_rows(f"[tp] (a) serving, rank {i}, each sharded "
-                              f"block alone on the same input, kernels vs "
-                              f"the single process's plain path", r["rows"])
-                    log(f"[tp] (a) serving, rank {i}: {r['images']} images, "
-                        f"top-1 agreement with the single process's plain "
-                        f"path {100 * r['top1']:.2f} % (gate {TOP1}); "
-                        f"probabilities bit-equal to the single process's "
-                        f"kernel path for {100 * r['same_as_single']:.2f} % "
-                        f"of the images")
-                    if r["top1"] < TOP1:
-                        raise GateTripped(f"[tp] serving top-1 {r['top1']}")
-                out["serving"] = [dict(top1=r["top1"],
-                                       rows=[a for a, _ in r["rows"]],
-                                       same_as_single=r["same_as_single"])
-                                  for r in sv]
-                # (c) CGA: the masks of the single process from the same
-                # start, and 0 frozen bits changed
-                views = {n: p.detach().float()
-                         for n, p in student.named_parameters()}
-                single = {n: m for n, m in freeze_masks(views, **CGA).items()
-                          if m is not None}
-                br = CGA["boundary_range"]
-                cg = [r["cga"] for r in ranks]
-                differ = near = 0
-                for n, m in single.items():
-                    b4 = statsq_b4_round(views[n], CGA["bits"])[0]
-                    frac = b4 - torch.floor(b4)
-                    dist = torch.minimum((frac - (0.5 - br)).abs(),
-                                         (frac - (0.5 + br)).abs())
-                    ulp = torch.nextafter(b4.abs(), torch.full_like(
-                        b4, float("inf"))) - b4.abs()
-                    edge = dist <= MASK_EDGE_ULPS * ulp
-                    for r in cg:
-                        d = r["masks"][n].to(dev) != m
-                        if bool((d & ~edge).any()):
-                            raise GateTripped(
-                                f"[tp] (c) masks: {n}: {int((d & ~edge).sum())}"
-                                f" entries differ from the single process's "
-                                f"away from a band edge")
-                        differ += int(d.sum())
-                    near += int(edge.sum())
-                frozen = [r["frozen_changed"] for r in cg]
-                out["cga"] = dict(frozen_changed=frozen, differing=differ,
-                                  near_edge=near, launches=cg[0]["launches"],
-                                  loss=cg[0]["loss"])
-                log(f"[tp] (c) CGA step at TP={TP}: frozen entries changed "
-                    f"{frozen} (required 0); the {len(single)} masks against "
-                    f"the single process's: {differ} entries differing, "
-                    f"{near} within {MASK_EDGE_ULPS} fp32 ulps of a band edge "
-                    f"(allowed there only); launches per rank "
-                    f"{ {k: v for k, v in cg[0]['launches'].items() if v} }")
-                if any(frozen) or cg[0]["launches"] != want:
-                    raise GateTripped(f"[tp] (c) CGA: {out['cga']}")
-                del views
+            if key == "swin":
+                # the window fault: each rank's softmax-scale gradients
+                # are its heads' partial sums, so the gradients held whole
+                # differ across the ranks; the rule's reading beside it
+                fault = "window_softmax_ds_unreduced"
+                rf = [r[key][fault] for r in ranks]
+                differ = sorted(k for k in rf[0]["whole"] if not torch.equal(
+                    rf[0]["whole"][k], rf[1]["whole"][k]))
+                rule, msg = _tripped(functools.partial(
+                    check_step_grads, kernel_grads=rf[0]["grads"],
+                    kernel_loss=rf[0]["loss"], refs=refs,
+                    tag=f"[tp] fault {fault}"), student, teacher, data, conf)
+                selfcheck.append(dict(fault=fault, tripped=bool(differ),
+                                      rule=rule, differing=differ))
+                log(f"[selfcheck] tensor-parallel {fault}: the gradients "
+                    f"held whole {'differ' if differ else 'agree'} across "
+                    f"the ranks ({len(differ)}: {differ[:4]}; required: "
+                    f"differ); the whole-step rule "
+                    f"{'tripped' if rule else 'passed'} (a reading)"
+                    f"{' -- ' + msg if msg else ''}")
+            faults = {"fused": TP_FAULTS[:2]}
+            for fault in faults.get(key, ()):
+                rf = ranks[0][key][fault]
+                tripped, msg = _tripped(functools.partial(
+                    check_step_grads, kernel_grads=rf["grads"],
+                    kernel_loss=rf["loss"], refs=refs,
+                    tag=f"[tp] fault {fault}"),
+                    student, teacher, data, conf)
+                selfcheck.append(dict(fault=fault, tripped=tripped))
+                log(f"[selfcheck] tensor-parallel {fault}: the whole-step "
+                    f"rule {'tripped' if tripped else 'passed'} (required: "
+                    f"trip){' -- ' + msg if msg else ''}")
+            if key in ("fused", "swin"):
+                gate = SWIN_GATE if swin_ else dict(rows=BLOCK_ROWS,
+                                                    row_floor=0.0)
+                sv = [r[key]["serving"] for r in ranks]
+                want_f = _expected(conf, cfg, train=False)
+                row["serving"] = _tp_serving_gates(label, sv, conf, gate,
+                                                   want_f, want_shapes)
+                if swin_:
+                    fault = "rel_table_wrong_heads"
+                    for i, r in enumerate(sv):
+                        tripped, msg = _tripped(
+                            _block_rows_gate, f"[tp] fault {fault}, rank {i}",
+                            r["fault_rows"], gate["rows"])
+                        selfcheck.append(dict(fault=fault, tripped=tripped,
+                                              tables=r["cut_tables"]))
+                        log(f"[selfcheck] tensor-parallel {fault}, rank {i} "
+                            f"({r['cut_tables']} tables cut): the block gate "
+                            f"{'tripped' if tripped else 'passed'} (required:"
+                            f" trip){' -- ' + msg if msg else ''}")
+                row["cga"] = _tp_cga_gate(
+                    f"({'f' if swin_ else 'c'}) {label}", student,
+                    [r[key]["cga"] for r in ranks],
+                    CGA_SWIN if swin_ else CGA, want, dev)
             out[key] = row
             del student, teacher, data, refs
             built.pop(key)
             _empty_cache()
-        log(f"[selfcheck] tensor-parallel unmodified step: the whole-step "
-            f"rule passed (required: pass)")
+        log(f"[selfcheck] tensor-parallel unmodified steps and serving: the "
+            f"whole-step rule and the block gates passed (required: pass)")
         out["selfcheck"] = selfcheck
-        if not all(s["tripped"] for s in selfcheck):
+        if not all(s["tripped"] for s in selfcheck) or \
+                {s["fault"] for s in selfcheck} != set(TP_FAULTS):
             raise AssertionError(f"[tp] a tensor-parallel fault passed the "
                                  f"gate: {selfcheck}")
-        # (d) the recipe at --mesh-model-parallel TP
-        single = cli_eval.main(ev + ["--experiment", "tp_single"],
-                               device=dev)
-        want = _expected(FUSED, _family(deit)[0], train=True)
-        rec = [r["recipe"] for r in ranks]
-        for r, got in enumerate(rec):
-            _check_steps(f"[tp] (d) rank {r}", got["steps"], want, steps)
-            if got["batch"] != batch:
-                raise AssertionError(f"[tp] (d) rank {r}: batch "
-                                     f"{got['batch']}")
-        evals = [(g["eval"]["top1"], g["eval"]["top5"]) for g in rec]
-        out["recipe"] = dict(
-            step_s=[[s["seconds"] for s in g["steps"]] for g in rec],
-            train_s=[g["train_s"] for g in rec],
-            eval_s=[g["eval_s"] for g in rec], evals=evals,
-            single=(single["top1"], single["top5"]))
-        log(f"[tp] (d) cli.train.main at --mesh-model-parallel {TP}, "
-            f"{steps} steps of B={batch} on both ranks (wall s per step, "
-            f"rank 0 / 1: {out['recipe']['step_s']}); cli.eval.main at TP: "
-            f"top1/top5 by rank {evals}, one process's eval of the "
-            f"checkpoint {out['recipe']['single']}")
-        if any(e != out["recipe"]["single"] for e in evals):
-            raise AssertionError(f"[tp] (d) the TP eval {evals} != the "
-                                 f"single-process eval "
-                                 f"{out['recipe']['single']}")
+        # (d), (h) the recipes at --mesh-model-parallel TP
+        for key, part, evargv, model in (("deit", "(d)", ev, deit),
+                                          ("swin", "(h)", s_ev, swin)):
+            single = cli_eval.main(evargv + ["--experiment",
+                                             f"tp_{key}_single"], device=dev)
+            want = _expected(FUSED if key == "deit" else PALLAS,
+                             _family(model)[0], train=True)
+            rec = [r[f"recipe_{key}"] for r in ranks]
+            for r, got in enumerate(rec):
+                _check_steps(f"[tp] {part} rank {r}", got["steps"], want,
+                             steps)
+                if got["batch"] != batch:
+                    raise AssertionError(f"[tp] {part} rank {r}: batch "
+                                         f"{got['batch']}")
+            evals = [(g["eval"]["top1"], g["eval"]["top5"]) for g in rec]
+            out[f"recipe_{key}"] = dict(
+                step_s=[[s["seconds"] for s in g["steps"]] for g in rec],
+                train_s=[g["train_s"] for g in rec],
+                eval_s=[g["eval_s"] for g in rec], evals=evals,
+                single=(single["top1"], single["top5"]))
+            log(f"[tp] {part} {model}: cli.train.main at "
+                f"--mesh-model-parallel {TP}, {steps} steps of B={batch} on "
+                f"both ranks (wall s per step, rank 0 / 1: "
+                f"{out[f'recipe_{key}']['step_s']}); cli.eval.main at TP: "
+                f"top1/top5 by rank {evals}, one process's eval of the "
+                f"checkpoint {out[f'recipe_{key}']['single']}")
+            if any(e != out[f"recipe_{key}"]["single"] for e in evals):
+                raise AssertionError(f"[tp] {part} the TP eval {evals} != "
+                                     f"the single-process eval "
+                                     f"{out[f'recipe_{key}']['single']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
@@ -6789,9 +7079,13 @@ def main() -> int:
     full["k1"] = phase_k1(dev, n_tok, base=base)
     full["k2"] = phase_k2(dev, n_tok, base=base)
     full["k3"] = phase_k3(dev, n_tok, base=base)
-    # K2 and K3 at a TP = 2 rank's 3 heads (`phase_tp`)
-    full["k2_tp"] = phase_k2(dev, n_tok, heads=6 // TP)
-    full["k3_tp"] = phase_k3(dev, n_tok, heads=6 // TP)
+    # K2 and K3 at a TP = 2 rank's 3 heads of DeiT-S in both streams, and
+    # at DeiT-T's 3 (C = 192), whole on every rank (`phase_tp`)
+    both = (torch.float32, torch.bfloat16)
+    full["k2_tp"] = phase_k2(dev, n_tok, heads=6 // TP, dtypes=both)
+    full["k3_tp"] = phase_k3(dev, n_tok, heads=6 // TP, dtypes=both)
+    full["k2_tp_t"] = phase_k2(dev, n_tok, heads=3, C=192)
+    full["k3_tp_t"] = phase_k3(dev, n_tok, heads=3, C=192)
     full["slice"] = phase_slice(dev, FUSED, deit, w2a2_qkr_policy(12))
     torch.cuda.empty_cache()
     full["train"] = phase_train(dev, FUSED)
@@ -6833,6 +7127,9 @@ def main() -> int:
                    else (torch.bfloat16,))
     full["k4_swin"] = phase_k45(dev, "K4", _swin_k4_cases(),
                                 dtypes=swin_dtypes, base=base)
+    full["k4_swin_tp"] = [r for dt, cases in _k45_swin_tp_cases()
+                          for r in phase_k45(dev, "K4", cases,
+                                             dtypes=(getattr(torch, dt),))]
     if base:
         full["k5_swin"] = phase_k45(dev, "K5", _swin_k4_cases(),
                                     dtypes=swin_dtypes, base=base)
@@ -7013,11 +7310,14 @@ def main() -> int:
                     str((r["M"] // DDP_WORLD, r["K"], r["N"])), 0))))
     for r in full["k1"]:
         if r["name"].startswith("tp"):
+            shape = str((r["M"], r["K"], r["N"]))
             kernels.append(_kernel_row(
                 f"fused_qlinear_fwd {r['name']} ({r['M']}x{r['K']}x{r['N']})"
                 f" [{r['design']['label']}]", srcs["K1"],
-                tpr["fused"]["shapes"].get(str((r["M"], r["K"], r["N"])), 0),
-                r, path=f"TP={TP} fused train step, per rank",
+                sum(tpr[k]["shapes"].get(shape, 0)
+                    for k in ("fused", "fused_bf16", "deit_t")), r,
+                path=f"TP={TP} DeiT-S fused fp32 and bf16 and DeiT-T fused "
+                     f"train steps, per rank",
                 design=r["design"]["label"]))
     tr_bf16 = full["train_fused_bf16"]
     tr_nq_bf16 = full["train_nonqkr_bf16"]
@@ -7045,15 +7345,23 @@ def main() -> int:
                 ddp_launches=(ddp["deit"]["launches"][fn]
                               if r["shared"] and not bf16 else 0)))
     for key, fn in (("k2_tp", "qkr_attention_fwd"),
-                    ("k3_tp", "qkr_attention_bwd")):
+                    ("k3_tp", "qkr_attention_bwd"),
+                    ("k2_tp_t", "qkr_attention_fwd"),
+                    ("k3_tp_t", "qkr_attention_bwd")):
         for r in full[key]:
+            bf16 = r["dtype"] == "bfloat16"
+            step = ("deit_t" if key.endswith("_t")
+                    else "fused_bf16" if bf16 else "fused")
+            who = ("DeiT-T's heads, whole on every rank"
+                   if key.endswith("_t") else f"a TP={TP} rank's heads")
             kernels.append(_kernel_row(
-                f"{fn} fp32 (shared lhs, LSQ on, {r['B']}x{r['N']}x{r['H']}x"
-                f"{r['K']}, d={r['d']}, a TP={TP} rank's heads)",
-                srcs[key[:2].upper()], tpr["fused"]["launches"][fn], r,
-                path=f"TP={TP} fused fp32 train step, per rank",
-                design=r["design"],
-                yardstick_sdpa_ms=r["sdpa_ms" if key == "k2_tp"
+                f"{fn} {'bf16' if bf16 else 'fp32'} (shared lhs, LSQ on, "
+                f"{r['B']}x{r['N']}x{r['H']}x{r['K']}, d={r['d']}, {who})",
+                srcs[key[:2].upper()], tpr[step]["launches"][fn], r,
+                path=(f"TP={TP} {'DeiT-T' if step == 'deit_t' else 'DeiT-S'}"
+                      f" fused {'bf16' if bf16 else 'fp32'} train step, per "
+                      f"rank"), design=r["design"],
+                yardstick_sdpa_ms=r["sdpa_ms" if key.startswith("k2")
                                     else "sdpa_bwd_ms"]))
     for r in full["k4_tp"]:
         kernels.append(_kernel_row(
@@ -7061,6 +7369,20 @@ def main() -> int:
             f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
             tpr["pallas"]["shapes"].get(str((r["M"], r["K"], r["N"])), 0), r,
             path=f"TP={TP} pallas bf16 train step, per rank",
+            design=r["design"]))
+    from ofq_tpu_torch.models.swin import SWIN_TINY
+    merges = swin_reduction_shapes(SWIN_TINY, BATCH)
+    for r in full["k4_swin_tp"]:
+        shape = (r["M"], r["K"], r["N"])
+        # the launches at this (M, K, N) in the Swin-T TP step, less the
+        # reductions' (bf16) where the stages' fp32 fc2 rows share their
+        # shapes: the row-parallel products run on x upcast to fp32, fc1
+        # and the reductions in bf16
+        kernels.append(_kernel_row(
+            f"pallas_statsq_fwd Swin-T {r['name']} {r['dtype']} "
+            f"({r['M']}x{r['K']}x{r['N']})", srcs["K4"],
+            tpr["swin"]["shapes"].get(str(shape), 0) - merges[shape], r,
+            path=f"TP={TP} Swin-T pallas bf16 train step, per rank",
             design=r["design"]))
     tp_nq = full["train_nonqkr_pallas"]
     for r in full["k4"]:

@@ -91,6 +91,16 @@ class DeiTConfig:
     return_features: bool = False
 
     @property
+    def remats(self) -> bool:
+        """Any block or attention tail under torch.utils.checkpoint."""
+        return self.remat or self.attn_impl == "remat"
+
+    @property
+    def telemetry(self) -> bool:
+        """The forward returns telemetry for kd_qk, kd_qkv or kd_token."""
+        return self.qqkkvv or self.return_features
+
+    @property
     def n_tokens(self) -> int:
         grid = self.img_size // self.patch_size
         return grid * grid + (2 if self.distilled else 1)
@@ -343,6 +353,11 @@ class VisionTransformer(KernelSwitch, nn.Module):
     # the reference's trunc_normal_(std=.02) on every nn.Linear, the float
     # heads included (`init_weights`)
     FLOAT_HEAD_STD = 0.02
+
+    @property
+    def lsq_weights(self) -> bool:
+        """The quantized linears are full-LSQ (`LsqLinear`)."""
+        return self.policy.lsq_weights
 
     def __init__(self, cfg: DeiTConfig, policy: QuantPolicy):
         super().__init__()

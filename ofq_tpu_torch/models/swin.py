@@ -36,6 +36,16 @@ or with `attn_impl='remat'` the same arithmetic under
 `torch.utils.checkpoint`, bias and mask inside (JAX's `_remat_swin_tail`;
 the composition in train mode with attention dropout).
 
+Under tensor parallelism (`parallel.shard_model`) a window attention
+whose heads the model group's width divides holds its heads' columns of
+the relative-position bias table and of its linears (`qkv` by head
+without QKR), the shift mask stays whole and is added to every local
+head, its attention dropout mask is the global draw cut to its heads,
+and its `proj` is row-parallel; Swin-T's 3-head stage 0 at 2 ranks runs
+whole on every rank.  The MLPs on the 4-D map are column- and
+row-parallel (fc2's per-width-column input scale sees its channels cut,
+its `ds` summed over the group); the patch mergings stay whole.
+
 Train mode: attention and projection dropout in every window attention,
 dropout in the MLPs, and drop-path on each residual branch at
 `drop_path_rate * i / max(total - 1, 1)` for the i-th block over all
@@ -55,7 +65,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.attention import (QAttention, QAttentionQKR, gram_info,
-                            qkr_quant_chain, remat_attention_tail)
+                            qkr_quant_chain, remat_attention_tail,
+                            score_product)
 from ..nn.conv import PatchEmbedConv, QPatchEmbedConv
 from ..nn.dropout import dropout
 from ..nn.linear import Dense, Mlp, QHeadLinear, QLinear, QMlp
@@ -91,6 +102,16 @@ class SwinConfig:
     # None/'xla' (composition) | 'remat' (the checkpointed tail)
     attn_impl: Optional[str] = None
     in_chans: int = 3
+
+    @property
+    def remats(self) -> bool:
+        """Any block or attention tail under torch.utils.checkpoint."""
+        return bool(self.remat_stages) or self.attn_impl == "remat"
+
+    @property
+    def telemetry(self) -> bool:
+        """The forward returns telemetry for kd_qk or kd_qkv."""
+        return self.qqkkvv
 
 
 SWIN_TINY = SwinConfig()
@@ -200,7 +221,9 @@ class WindowAttentionBase:
         return t
 
     def rel_pos_bias(self) -> torch.Tensor:
-        """The (1, H, n, n) bias gathered from the table (callers cast)."""
+        """The (1, H, n, n) bias gathered from the table (callers cast);
+        H is the table's columns: this rank's heads under tensor
+        parallelism."""
         w = self.window_size
         n = w * w
         table = self.relative_position_bias_table
@@ -298,12 +321,14 @@ def _window_tail(mod, lhs, rhs, v, spec, mask, geom, generator):
             quantize_softmax=mod.quantize_softmax,
             aq_learnable=mod.aq_learnable, einsum_spec=spec,
             bias=mod.rel_pos_bias(), mask=mask)
-    attn = torch.einsum(spec, lhs, rhs)
+    attn = score_product(spec, lhs, rhs)
     attn = mod.scores_tail(attn * weak_scalar(d ** -0.5, attn.dtype), mask,
                            geom)
     if mod.quantize_softmax:
         attn = mod.quan_softmax(attn)
-    attn = dropout(attn, mod.attn_drop, generator, train=mod.training)
+    tp = mod.tp
+    attn = dropout(attn, mod.attn_drop, generator, train=mod.training,
+                   shard=None if tp is None else (1, tp))
     return torch.einsum("bhnm,bmhd->bnhd", attn, v)
 
 
@@ -327,11 +352,11 @@ class QSwinAttention(WindowAttentionBase, QAttention):
                 generator: Optional[torch.Generator] = None,
                 info: bool = False):
         tokens, geom, mask = self.geometry(x)
-        Bn, n, C = tokens.shape
+        Bn, n, _ = tokens.shape
         q, k, v = self.qkv_chain(tokens)
         out = _window_tail(self, q, k, v, "bnhd,bmhd->bhnm", mask, geom,
                            generator)
-        out = self.proj(out.reshape(Bn, n, C))
+        out = self.proj(out.reshape(Bn, n, -1))
         out = dropout(out, self.proj_drop, generator, train=self.training)
         out = self.finish(out, geom)
         return (out, None) if info else out
@@ -358,11 +383,11 @@ class QSwinAttentionQKR(WindowAttentionBase, QAttentionQKR):
                 generator: Optional[torch.Generator] = None,
                 info: bool = False):
         tokens, geom, mask = self.geometry(x)
-        Bn, n, C = tokens.shape
+        Bn, n, _ = tokens.shape
         xq, v, qkx = qkr_quant_chain(self, tokens)
         out = _window_tail(self, xq, qkx, v, "bnc,bmhc->bhnm", mask, geom,
                            generator)
-        out = self.proj(out.reshape(Bn, n, C))
+        out = self.proj(out.reshape(Bn, n, -1))
         out = dropout(out, self.proj_drop, generator, train=self.training)
         out = self.finish(out, geom)
         return (out, None) if info else out
@@ -462,6 +487,8 @@ class SwinTransformer(KernelSwitch, nn.Module):
 
     # the JAX head is a default nn.Dense: lecun-normal (`init_weights`)
     FLOAT_HEAD_STD = None
+    # Swin's quantized linears are StatsQ ones whatever the policy's modes
+    lsq_weights = False
 
     def __init__(self, cfg: SwinConfig, policy: QuantPolicy):
         super().__init__()

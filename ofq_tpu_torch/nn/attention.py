@@ -49,6 +49,13 @@ the per-head `x W_qk` and the tail's lhs each give a partial gradient,
 summed once over the model group), its softmax scale too (its `ds` sums
 over heads; the grad-scale factor counts the model's heads), its
 attention dropout mask is cut to its heads, and `proj` is row-parallel.
+A sharded `QAttention` holds the q, k and v columns of its heads in a
+column-parallel `qkv` (whose input gradient the group sums), its per-token
+q and k scales and its softmax scale whole with their `ds` summed over
+the group (the grad-scale factors count the model's heads), its heads'
+slices of `quan_v` and the shifts, and a row-parallel `proj`.  An
+attention the group's width does not divide keeps `tp` None and runs
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -279,6 +286,15 @@ def _tail_eligible(mod) -> bool:
             and (mod.attn_drop == 0.0 or not mod.training))
 
 
+def score_product(spec, lhs, rhs):
+    """The attention scores `einsum(spec, lhs, rhs)`; a sharded QKR
+    attention's fp32 lhs in the bf16 stream: the product in fp32, rounded
+    to the stream's dtype."""
+    if lhs.dtype == rhs.dtype:
+        return torch.einsum(spec, lhs, rhs)
+    return torch.einsum(spec, lhs, rhs.to(lhs.dtype)).to(rhs.dtype)
+
+
 def _attention_tail(mod, lhs, rhs, v, spec, scale, generator, grams=None):
     """The attention tail of a quantized attention on `lhs` and `rhs`
     (`spec`: their score einsum), through the fused kernels, the remat
@@ -303,12 +319,7 @@ def _attention_tail(mod, lhs, rhs, v, spec, scale, generator, grams=None):
     if _tail_eligible(mod):
         return remat_attention_tail(lhs, rhs, v, sp, einsum_spec=spec,
                                     **tail), None
-    if lhs.dtype == rhs.dtype:
-        attn = torch.einsum(spec, lhs, rhs)
-    else:
-        # a sharded QKR attention's fp32 lhs in the bf16 stream: the score
-        # product in fp32, rounded to the stream's dtype
-        attn = torch.einsum(spec, lhs, rhs.to(lhs.dtype)).to(rhs.dtype)
+    attn = score_product(spec, lhs, rhs)
     attn = softmax(attn * weak_scalar(scale, attn.dtype))
     info = None if grams is None else gram_info(attn, *grams)
     if mod.quantize_softmax:
@@ -344,8 +355,11 @@ class QAttention(nn.Module):
         C, H = dim, num_heads
         d = C // H
         self.num_heads = H
+        self.head_dim = d
+        self.tp = None
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
+        self.weight_bits = weight_bits
         self.input_bits = input_bits
         self.quantize_softmax = quantize_softmax
         self.aq_learnable = aq_learnable
@@ -385,29 +399,30 @@ class QAttention(nn.Module):
         return _tail_eligible(self)
 
     def qkv_chain(self, x: torch.Tensor):
-        """q, k, v (B, N, H, d), quantized and shifted."""
-        B, N, C = x.shape
-        H = self.num_heads
+        """q, k, v (B, N, H, d), quantized and shifted (H: this rank's
+        heads under tensor parallelism)."""
+        B, N, _ = x.shape
+        H, d = self.num_heads, self.head_dim
         qkv = self.qkv(x)
         if self.input_bits < 32:
             qkv = self.move_qkv_b4(qkv)
-        qs, ks, v = torch.split(qkv, C, dim=-1)
-        q = self.quan_q(qs.reshape(B, N, H, C // H))
-        k = self.quan_k(ks.reshape(B, N, H, C // H))
+        qs, ks, v = torch.split(qkv, H * d, dim=-1)
+        q = self.quan_q(qs.reshape(B, N, H, d))
+        k = self.quan_k(ks.reshape(B, N, H, d))
         v = self.quan_v(v)
         if self.input_bits < 32:
             q, k, v = self.move_q_aft(q), self.move_k_aft(k), \
                 self.move_v_aft(v)
-        return q, k, v.reshape(B, N, H, C // H)
+        return q, k, v.reshape(B, N, H, d)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None, info: bool = False):
-        B, N, C = x.shape
+        B, N, _ = x.shape
         q, k, v = self.qkv_chain(x)
         out, attn_info = _attention_tail(
-            self, q, k, v, "bnhd,bmhd->bhnm", (C // self.num_heads) ** -0.5,
+            self, q, k, v, "bnhd,bmhd->bhnm", self.head_dim ** -0.5,
             generator, (q, k, v) if self.qqkkvv else None)
-        out = self.proj(out.reshape(B, N, C))
+        out = self.proj(out.reshape(B, N, -1))
         out = dropout(out, self.proj_drop, generator, train=self.training)
         return (out, attn_info) if info else out
 

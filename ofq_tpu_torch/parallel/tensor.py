@@ -1,7 +1,7 @@
 """Tensor parallelism over the mesh's 'model' axis (the 'model' axis of
-`ofq_tpu/parallel/mesh.py`): the DeiT W2A2 QKR student sharded by JAX's
-Megatron table (`param_spec`), each block's heads and MLP columns split
-over the ranks of a model group.
+`ofq_tpu/parallel/mesh.py`): the DeiT and Swin W2A2 students, with and
+without QKR, sharded by JAX's Megatron table (`param_spec`), each block's
+heads and MLP columns split over the ranks of a model group.
 
 The JAX package annotates the parameters and lets GSPMD place the
 collectives; the port writes them into the model's autograd graph, each
@@ -11,7 +11,8 @@ an op of this module run over the model group:
     of the cotangent backward.  On QKR's shared quantized input (its v
     product, the per-head `x W_qk` and the attention's lhs each give a
     partial gradient), on the composed column-parallel product's input
-    (fc1), and on every scale whose input is sharded (the softmax scale,
+    (fc1, and `qkv` without QKR), and on every scale whose input is
+    sharded (the softmax scale, the per-token q and k scales without QKR,
     the row-parallel linears' input scales): their `ds` sums over heads
     or channels of other ranks;
   * `reduce_from_model` (g): an all-reduce forward, the identity
@@ -31,13 +32,22 @@ all-reduce and round the sum once).
 
 `shard_model` cuts a calibrated, loaded model in place: each rank keeps
 the columns of its heads and MLP units in the column-parallel kernels
-(q, k, v, fc1), the rows in the row-parallel ones (proj, fc2), and the
-slices of the shifts and scales that only its heads or columns use
-(JAX keeps those replicated: a storage difference, the numbers are the
-same).  Every other parameter stays whole.  Its `Layout` says how each
-sliced parameter was cut, cuts full tensors (a checkpoint's, a state's)
-and gathers the slices back into full tensors (the checkpoint a rank
-writes holds the single process's names, shapes and dtypes).
+(q, k, v, fc1; without QKR the q, k and v column blocks of its heads in
+`qkv`, not JAX's contiguous columns), the rows in the row-parallel ones
+(proj, fc2), the head columns of a window attention's relative-position
+bias table, and the slices of the shifts and scales that only its heads
+or columns use (JAX keeps those replicated: a storage difference, the
+numbers are the same).  Every other parameter stays whole: the
+embeddings, norms, head, Swin's patch-merging reductions and its shared
+shift masks.  Where the model group's width does not divide a block's
+heads (Swin-T's stage 0 and DeiT-T at 2 ranks: 3 heads), that block's
+attention stays whole on every rank, computed alike with no collective
+and a proj that is not row-parallel; likewise an MLP whose hidden width
+it does not divide.  (JAX cuts such kernels mid-head and lets GSPMD
+reshard: the same numbers, fewer bytes a rank.)  Its `Layout` says how
+each sliced parameter was cut, cuts full tensors (a checkpoint's, a
+state's) and gathers the slices back into full tensors (the checkpoint a
+rank writes holds the single process's names, shapes and dtypes).
 
 Configurations that are not ported at `model_parallel` > 1 raise
 `NotImplementedError` naming their ROADMAP item (`check_shardable`,
@@ -167,8 +177,9 @@ class Cut:
     """How one parameter is split over the model group: its full tensor
     (of `shape`), seen as `view`, is cut along `axis` of the view into
     `parts` equal slices; model index m keeps slice m.  A view other than
-    the shape is a strided slice (`quan_qkx.s`: (N * H,) seen as (N, H),
-    the heads along axis 1)."""
+    the shape is a strided slice of the shape's last axis (`quan_qkx.s`:
+    (N * H,) seen as (N, H), the heads along axis 1; `qkv.kernel`: (C,
+    3C) seen as (C, 3, H, d), a rank's q, k and v column blocks)."""
     shape: tuple
     view: tuple
     axis: int
@@ -184,7 +195,7 @@ class Cut:
     def local_shape(self) -> tuple:
         if self.view == self.shape:
             return self.local_view
-        return (math.prod(self.shape) // self.parts,)
+        return self.shape[:-1] + (self.shape[-1] // self.parts,)
 
     @property
     def row_parallel(self) -> bool:
@@ -202,25 +213,48 @@ def _cut(shape, parts, axis=0, view=None) -> Cut:
 
 
 def block_cuts(prefix: str, C: int, H: int, N: int, hidden: int,
-               parts: int) -> dict:
-    """{parameter name: Cut} of one DeiT W2A2 QKR block at `parts` model
-    ranks: `param_spec`'s sharded kernels and biases, and the shifts and
-    scales only a rank's heads or columns use."""
+               parts: int, *, qkr: bool = True, window: int | None = None,
+               attention: bool = True, mlp: bool = True) -> dict:
+    """{parameter name: Cut} of one W2A2 block at `parts` model ranks:
+    `param_spec`'s sharded kernels and biases, and the shifts and scales
+    only a rank's heads or columns use.  The attention is QKR's (`qkr`) or
+    the single `qkv` linear's, cut by head; a window attention (`window`:
+    Swin's window size) also cuts its relative-position bias table's head
+    columns.  `attention` / `mlp` False: that half stays whole (the
+    model group's width does not divide its heads / hidden units)."""
     a, m = f"{prefix}.attn", f"{prefix}.mlp"
-    cuts = {f"{a}.{k}": _cut((C, C), parts, 1)
-            for k in ("q_kernel", "k_kernel", "v_kernel")}
-    for k in ("v_bias", "move_v_b4.bias", "quan_v.s", "move_v_aft.bias",
-              "proj.move_b4.bias", "proj.move_aft.bias"):
-        cuts[f"{a}.{k}"] = _cut((C,), parts)
-    for k in ("move_qkx_b4.bias", "move_qkx_aft.bias"):
-        cuts[f"{a}.{k}"] = _cut((H * C,), parts)
-    cuts[f"{a}.quan_qkx.s"] = _cut((N * H,), parts, 1, view=(N, H))
-    cuts[f"{a}.proj.kernel"] = _cut((C, C), parts, 0)
-    cuts[f"{m}.fc1.kernel"] = _cut((C, hidden), parts, 1)
-    cuts[f"{m}.fc1.bias"] = _cut((hidden,), parts)
-    cuts[f"{m}.fc2.kernel"] = _cut((hidden, C), parts, 0)
-    for k in ("move_b4.bias", "move_aft.bias"):
-        cuts[f"{m}.fc2.{k}"] = _cut((hidden,), parts)
+    cuts = {}
+    if attention and qkr:
+        cuts.update({f"{a}.{k}": _cut((C, C), parts, 1)
+                     for k in ("q_kernel", "k_kernel", "v_kernel")})
+        for k in ("v_bias", "move_v_b4.bias"):
+            cuts[f"{a}.{k}"] = _cut((C,), parts)
+        for k in ("move_qkx_b4.bias", "move_qkx_aft.bias"):
+            cuts[f"{a}.{k}"] = _cut((H * C,), parts)
+        cuts[f"{a}.quan_qkx.s"] = _cut((N * H,), parts, 1, view=(N, H))
+    elif attention:
+        # a rank's heads in each of the q, k and v thirds of qkv's columns
+        d = C // H
+        cuts[f"{a}.qkv.kernel"] = _cut((C, 3 * C), parts, 2,
+                                       view=(C, 3, H, d))
+        for k in ("qkv.bias", "move_qkv_b4.bias"):
+            cuts[f"{a}.{k}"] = _cut((3 * C,), parts, 1, view=(3, H, d))
+        for k in ("move_q_aft.bias", "move_k_aft.bias"):
+            cuts[f"{a}.{k}"] = _cut((C,), parts)
+    if attention:
+        for k in ("quan_v.s", "move_v_aft.bias", "proj.move_b4.bias",
+                  "proj.move_aft.bias"):
+            cuts[f"{a}.{k}"] = _cut((C,), parts)
+        cuts[f"{a}.proj.kernel"] = _cut((C, C), parts, 0)
+        if window is not None:
+            cuts[f"{a}.relative_position_bias_table"] = _cut(
+                ((2 * window - 1) ** 2, H), parts, 1)
+    if mlp:
+        cuts[f"{m}.fc1.kernel"] = _cut((C, hidden), parts, 1)
+        cuts[f"{m}.fc1.bias"] = _cut((hidden,), parts)
+        cuts[f"{m}.fc2.kernel"] = _cut((hidden, C), parts, 0)
+        for k in ("move_b4.bias", "move_aft.bias"):
+            cuts[f"{m}.fc2.{k}"] = _cut((hidden,), parts)
     return cuts
 
 
@@ -315,48 +349,97 @@ class Layout:
 
 
 # ------------------------------------------------------------ the model
+def _blocks(model):
+    """(name, block) of the model's transformer blocks (Swin's patch
+    mergings left out: they stay whole)."""
+    return [(n, getattr(model, n)) for n in model.block_names
+            if hasattr(getattr(model, n), "attn")]
+
+
+def _split(blk, parts) -> tuple[bool, bool]:
+    """Whether `parts` model ranks cut the block's attention (its heads)
+    and its MLP (its hidden units)."""
+    return (blk.attn.num_heads % parts == 0,
+            blk.mlp.fc1.kernel.shape[1] % parts == 0)
+
+
 def check_shardable(model: torch.nn.Module, parts: int) -> None:
     """Raise unless `model` is a configuration the port shards over
     `parts` model ranks: NotImplementedError (naming its ROADMAP item) for
-    one it does not shard yet, ValueError where `parts` does not divide
-    the heads or the MLP's hidden width."""
+    one it does not shard yet, ValueError where `parts` divides neither a
+    block's heads nor its MLP's hidden width."""
     from ..models.deit import VisionTransformer
+    from ..models.swin import SwinTransformer
     from ..nn.attention import QAttention, QAttentionQKR
     from ..nn.linear import QLinear, QMlp
-    if not isinstance(model, VisionTransformer):
-        raise tp_refusal(f"{type(model).__name__} (Swin)", "c")
+    if not isinstance(model, (VisionTransformer, SwinTransformer)):
+        raise TypeError(f"{type(model).__name__}: not a DeiT or Swin model")
     cfg, pol = model.cfg, model.policy
     if cfg.norm_layer == "batchnorm":
         raise tp_refusal("norm_layer='batchnorm' (the LN->BN swap)", "i")
-    if cfg.remat or cfg.attn_impl == "remat":
+    if cfg.remats:
         raise tp_refusal("block and attention remat", "h")
     if cfg.matmul_impl == "int8":
         raise tp_refusal("matmul_impl='int8'", "e")
-    if pol.lsq_weights:
+    if model.lsq_weights:
         raise tp_refusal("full-LSQ weights (--wq-mode lsq)", "f")
     if pol.weight_frozen:
         raise tp_refusal("frozen artifacts", "j")
-    if cfg.qqkkvv or cfg.return_features:
+    if cfg.telemetry:
         raise tp_refusal("the telemetry of kd_qk, kd_qkv and kd_token", "g")
-    for name in model.block_names:
-        blk = getattr(model, name)
-        if isinstance(blk.attn, QAttention):
-            raise tp_refusal("QAttention without QKR (qkv sharded by head)",
-                             "d")
-        quantized = (isinstance(blk.attn, QAttentionQKR)
+    for name, blk in _blocks(model):
+        attn = blk.attn
+        quantized = (isinstance(attn, (QAttentionQKR, QAttention))
                      and isinstance(blk.mlp, QMlp)
                      and isinstance(blk.mlp.fc1, QLinear))
-        if not quantized or blk.attn.weight_bits >= 32 \
-                or blk.attn.input_bits >= 32 or \
-                not blk.attn.quantize_softmax or pol.act_layer != "gelu":
+        if (not quantized or attn.weight_bits >= 32
+                or attn.input_bits >= 32 or not attn.quantize_softmax
+                or pol.act_layer != "gelu"):
             raise tp_refusal(
                 f"{name}: float or 32-bit sites, an unquantized softmax or "
                 f"act_layer={pol.act_layer!r}", "k")
-        H = blk.attn.num_heads
-        hidden = blk.mlp.fc1.kernel.shape[1]
-        if H % parts or hidden % parts:
-            raise ValueError(f"model_parallel={parts} does not divide "
-                             f"{name}'s {H} heads and {hidden} MLP units")
+        if not any(_split(blk, parts)):
+            raise ValueError(
+                f"model_parallel={parts} does not divide {name}'s "
+                f"{attn.num_heads} heads or its "
+                f"{blk.mlp.fc1.kernel.shape[1]} MLP units")
+
+
+def _shard_block(name: str, blk, mesh) -> dict:
+    """Tell the block's modules their roles; its cuts (`block_cuts`)."""
+    from ..nn.attention import QAttentionQKR
+    parts = mesh.model_parallel
+    attn, mlp = blk.attn, blk.mlp
+    cut_attn, cut_mlp = _split(blk, parts)
+    C, hidden = mlp.fc1.kernel.shape
+    H = attn.num_heads
+    qkr = isinstance(attn, QAttentionQKR)
+    N = (attn.quant_x.s if qkr else attn.quan_q.s).numel()
+    cuts = block_cuts(name, C, H, N, hidden, parts, qkr=qkr,
+                      window=getattr(attn, "window_size", None),
+                      attention=cut_attn, mlp=cut_mlp)
+    if cut_attn:
+        h = H // parts
+        attn.num_heads = h
+        attn.tp = mesh
+        if qkr:
+            for b in (attn.move_qkx_b4, attn.move_qkx_aft):
+                b.apply_shape = (h, C)
+        else:
+            attn.qkv.tp = ("col", mesh)
+            for q in (attn.quan_q, attn.quan_k):
+                q.tp = (2, mesh)                  # (B, N, H, d): heads
+            for b in (attn.move_q_aft, attn.move_k_aft):
+                b.apply_shape = (h, C // H)
+        attn.quan_softmax.tp = (1, mesh)          # (B, H, N, N): heads
+        attn.proj.tp = ("row", mesh)
+        attn.proj.input_quant.tp = (-1, mesh)     # (..., C): channels
+    if cut_mlp:
+        mlp.tp = mesh
+        mlp.fc1.tp = ("col", mesh)
+        mlp.fc2.tp = ("row", mesh)
+        mlp.fc2.input_quant.tp = (-1, mesh)
+    return cuts
 
 
 def shard_model(model: torch.nn.Module, mesh) -> Layout:
@@ -364,29 +447,12 @@ def shard_model(model: torch.nn.Module, mesh) -> Layout:
     JAX's runner shards after `model.init`): each sliced parameter is
     replaced by a new one holding this rank's slice, each sharded module
     is told its role (`tp`).  Returns the layout, also `model.tp_layout`."""
-    parts = mesh.model_parallel
-    check_shardable(model, parts)
+    check_shardable(model, mesh.model_parallel)
     if getattr(model, "tp_layout", None) is not None:
         raise ValueError("the model is sharded already")
-    C, N = model.cfg.embed_dim, model.cfg.n_tokens
     cuts = {}
-    for name in model.block_names:
-        blk = getattr(model, name)
-        attn, mlp = blk.attn, blk.mlp
-        H = attn.num_heads
-        cuts.update(block_cuts(name, C, H, N, mlp.fc1.kernel.shape[1],
-                               parts))
-        attn.num_heads = H // parts
-        attn.tp = mesh
-        for b in (attn.move_qkx_b4, attn.move_qkx_aft):
-            b.apply_shape = (H // parts, C)
-        attn.quan_softmax.tp = (1, mesh)          # (B, H, N, N): heads
-        attn.proj.tp = ("row", mesh)
-        attn.proj.input_quant.tp = (-1, mesh)     # (B, N, C): channels
-        mlp.tp = mesh
-        mlp.fc1.tp = ("col", mesh)
-        mlp.fc2.tp = ("row", mesh)
-        mlp.fc2.input_quant.tp = (-1, mesh)
+    for name, blk in _blocks(model):
+        cuts.update(_shard_block(name, blk, mesh))
     layout = Layout(mesh, cuts)
     params = dict(model.named_parameters())
     with torch.no_grad():

@@ -39,16 +39,16 @@ from ofq_tpu_torch.convert import load_ema_params
 
 def test_cga_fused_step_fp32(jax_interpret):
     """One step through K1-K3's plain versions against JAX's fused step in
-    interpret mode, fp32: loss and gradient norm within 1e-5 relative, at
+    interpret mode (jitted), fp32: loss and gradient norm within 1e-5 relative, at
     most 1 % of a leaf's elements more than 1e-3 * lr + 1e-6 * |p| apart,
     none more than 2.1 * lr; the masks equal JAX's and no frozen entry
     moves."""
     variables, tvars, mu, nu, port, state, step = _setup("fused", "float32")
     batch = _batches(1, np.float32)[0]
     tx = jax_make_optimizer(jschedule.constant_lr(LR), weight_decay=0.05)
-    jstep = jax_make_train_step(
+    jstep = jax.jit(jax_make_train_step(
         jax_deit_model(NAME, _jax_policy(), **FUSED), tx,
-        teacher=jax_deit_model(NAME), loss_kind="kd_soft_hard", cga=CGA)
+        teacher=jax_deit_model(NAME), loss_kind="kd_soft_hard", cga=CGA))
     jst = _jax_state(tx, variables, mu, nu, np.float32)
     masks = _port_masks(state.params)
     _assert_masks_equal(masks, _jax_masks(jst.params["params"]), "fused")

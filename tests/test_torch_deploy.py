@@ -29,8 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_common import (jitted_init, perturb, to_jax_tree,
-                                    to_numpy_tree, x64)
+from test_torch_port_common import (jit_x64_apply, jitted_init, perturb,
+                                    to_numpy_tree)
 
 import ofq_tpu.deploy as jdep
 from ofq_tpu.models import deit as jdeit
@@ -142,9 +142,7 @@ def test_frozen_serving_on_a_jax_artifact(family):
                                    frozen_int_bits=2 if int_core else None)
         jm = (_jax_deit if family == "deit" else _jax_swin)(jpol)
         tree = jdep.restore_packed(ex, int_core=int_core)
-        with x64():
-            want, _ = jm.apply({"params": to_jax_tree(tree, np.float64)},
-                               jnp.asarray(x), train=False)
+        want, _ = jit_x64_apply(jm, {"params": tree}, x, train=False)
         fpol = dataclasses.replace(_tpol(family), weight_frozen=True,
                                    frozen_int_bits=2 if int_core else None)
         tm = _port(family, fpol).double()

@@ -27,7 +27,6 @@ ask for the same sequence of shapes and keep probabilities.
     nothing, the same seed gives the same step.
 """
 
-import contextlib
 import copy
 import dataclasses
 
@@ -39,7 +38,8 @@ import pytest
 import torch
 
 from test_torch_port_common import (  # noqa: F401 (jax_interpret: fixture)
-    jax_interpret, jitted_init, load_into, to_jax_tree, to_numpy_tree)
+    jax_interpret, jitted_init, load_into, to_jax_tree, to_numpy_tree,
+    x64_jit)
 from test_torch_swin_model import _with_head
 from test_torch_swin_model import _jax_policy as _jax_swin_policy
 from test_torch_train_loop import (BATCH, DEPTH, IMG, NAME, _jax_policy,
@@ -58,17 +58,6 @@ from ofq_tpu_torch.train import make_optimizer, make_train_step, TrainState
 
 RATES = dict(drop_rate=0.1, attn_drop_rate=0.15, drop_path_rate=0.3)
 SWIN, SWIN_DEPTHS = "swin_test", (2, 2)
-
-
-@contextlib.contextmanager
-def x64_jit():
-    """x64 on, jit left on (the flag is part of jit's cache key; every
-    function compiled under it here takes fp64 inputs)."""
-    jax.config.update("jax_enable_x64", True)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_enable_x64", False)
 
 
 class _Masks:
@@ -313,10 +302,13 @@ def _jax_block_rates(jm, x, block_cls):
             rates.append(context.module.drop_path)
         return next_fun(*args, **kwargs)
 
-    v = jm.init({"params": jax.random.key(0)}, jnp.asarray(x, jnp.float32),
-                train=False)
+    # traced only (`jax.eval_shape`): the rates are read while the blocks
+    # are called, no value is needed
+    xj = jnp.asarray(x, jnp.float32)
+    v = jax.eval_shape(lambda k, xx: jm.init({"params": k}, xx, train=False),
+                       jax.random.key(0), xj)
     with fnn.intercept_methods(spy):
-        jm.apply(v, jnp.asarray(x, jnp.float32), train=False)
+        jax.eval_shape(lambda vv, xx: jm.apply(vv, xx, train=False), v, xj)
     return rates
 
 

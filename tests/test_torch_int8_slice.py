@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from test_torch_pallas_slice import _codes_port, _statsq_levels
-from test_torch_port_common import (jitted_init, to_jax_tree, to_numpy_tree,
-                                    x64)
+from test_torch_port_common import (jit_x64_apply, jitted_init, to_jax_tree,
+                                    to_numpy_tree)
 from test_torch_swin_model import _images, _with_head
 from test_torch_swin_model import _jax_policy as _jax_swin_policy
 from test_torch_train_loop import (BATCH, DEPTH, NAME, _flat, _jax_policy,
@@ -98,9 +98,7 @@ def test_forward_fp64():
     variables, _, _, _, port, _, _ = _case(np.float64, None)
     batch = _batches(1)[0]
     jm, _ = _jax_models(None)
-    with x64():
-        want = jm.apply(to_jax_tree(variables, np.float64),
-                        jnp.asarray(batch["image"]), train=False)[0]
+    want = jit_x64_apply(jm, variables, batch["image"], train=False)[0]
     port.eval()
     with torch.no_grad():
         got = port(torch.from_numpy(batch["image"]))
@@ -215,9 +213,7 @@ def test_swin_int8_fp64():
     variables = to_numpy_tree(jitted_init(jm)(jax.random.key(0), jnp.asarray(
             x, jnp.float32)), np.float64)
     shifted = _with_head(variables, np.random.default_rng(1))
-    with x64():
-        want, _ = jm.apply(to_jax_tree(shifted, np.float64), jnp.asarray(x),
-                           train=False)
+    want, _ = jit_x64_apply(jm, shifted, x, train=False)
     tm = create_model("swin_test", policy=w2a2_qkr_swin_policy(depths),
                       device="cpu", depths=depths, matmul_impl="int8")
     load_flax_params(tm.double(), shifted)

@@ -31,7 +31,8 @@ import pytest
 import torch
 
 from test_torch_dropout import _jitted_init, x64_jit
-from test_torch_port_common import perturb, to_jax_tree, to_numpy_tree, x64
+from test_torch_port_common import (jit_x64_apply, jit_x64_init, perturb,
+                                    to_jax_tree, to_numpy_tree, x64)
 from test_torch_swin_model import _with_head
 from test_torch_train_loop import _flat, _mid_run_adam
 from test_torch_train_slice import LR, START, _batches, _jax_state, _with_heads
@@ -173,11 +174,9 @@ def test_attention_grams(kind):
                        QAttention(C, H, N, **kw)),
         "qkr": (jattn.QAttentionQKR(num_heads=H, **kw),
                 QAttentionQKR(C, H, N, **kw))}[kind]
-    with x64():
-        v = to_numpy_tree(jm.init({"params": jax.random.key(0)},
-                                  jnp.asarray(x)), np.float64)
-        v = perturb(v, np.random.default_rng(7))
-        yj, info_j = jm.apply(to_jax_tree(v, np.float64), jnp.asarray(x))
+    v = jit_x64_init(jm, jax.random.key(0), x, np.float64)
+    v = perturb(v, np.random.default_rng(7))
+    yj, info_j = jit_x64_apply(jm, v, x)
     load_flax_params(tm.double(), v)
     with torch.no_grad():
         yt, info_t = tm(torch.from_numpy(x), info=True)

@@ -4,10 +4,14 @@
 Inputs are made with numpy from a seed and handed to both packages; JAX
 stays on the CPU.  fp64 comparisons enable x64 for one scoped call under
 `jax.disable_jit()` (jax 0.9 has no `experimental.enable_x64`), so nothing
-compiled is cached against the flag.
+compiled is cached against the flag; `jit_x64_init` and `jit_x64_apply`
+compile one init or forward instead (x64 is part of jit's cache key), for
+the variables a test hands to both packages and for the JAX outputs it
+holds the port to at fp64 tolerances.
 """
 
 import contextlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +21,11 @@ import torch
 
 import ofq_tpu.ops.fused_qlinear as jax_fq
 from ofq_tpu_torch.convert import flatten_flax_tree, load_flax_params
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # pytest-xdist's workers share the machine's cores: one torch thread
+    # each, so that they do not oversubscribe them
+    torch.set_num_threads(1)
 
 
 @contextlib.contextmanager
@@ -28,6 +37,35 @@ def x64():
             yield
     finally:
         jax.config.update("jax_enable_x64", False)
+
+
+@contextlib.contextmanager
+def x64_jit():
+    """x64 on, jit left on (the flag is part of jit's cache key; every
+    function compiled under it takes fp64 inputs)."""
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def jit_x64_init(jmod, key, x, dtype=None, **kw):
+    """`jmod.init({"params": key}, x, **kw)` compiled under x64, as a
+    numpy tree (cast to `dtype` when given)."""
+    with x64_jit():
+        v = jax.jit(lambda k, xx: jmod.init({"params": k}, xx, **kw))(
+            key, jnp.asarray(x))
+        return to_numpy_tree(v, dtype)
+
+
+def jit_x64_apply(jmod, variables, x, **kw):
+    """`jmod.apply(variables, x, **kw)` compiled under x64 on the fp64
+    variables and input; its outputs as numpy arrays."""
+    with x64_jit():
+        out = jax.jit(lambda v, xx: jmod.apply(v, xx, **kw))(
+            to_jax_tree(variables, np.float64), jnp.asarray(x, jnp.float64))
+        return jax.tree.map(np.asarray, out)
 
 
 _INIT_FNS = {}
@@ -96,21 +134,26 @@ def without_scales(tree):
     return out
 
 
-def jax_calibrate(jmod, variables, x, **apply_kw):
+def jax_calibrate(jmod, variables, x, jit=False, **apply_kw):
     """The JAX package's calibration with the given weights in place: every
     LSQ scale is dropped and lazily re-initialised by Flax from `x` in one
     apply (as `cli/runner.py:recalibrate_missing_scales` does).  Runs in
-    fp64; returns the variables with the new scales.
+    fp64; returns the variables with the new scales.  Eager, the reference
+    the port's scales are held to; `jit` compiles the apply, for variables
+    that only feed both packages alike.
 
     Flax's `model.init` quantizes the float32-created kernels before any
     fp64 cast, so its scales are not the ones fp64 weights give; this
     recalibration is the fp64 reference for the port's `calibrate`."""
-    with x64():
+    def apply(v, xx):
+        return jmod.apply(v, xx, mutable=["params"],
+                          rngs={"params": jax.random.key(0)}, **apply_kw)
+
+    with (x64_jit() if jit else x64()):
         v = to_jax_tree(variables, np.float64)
         pruned = {**v, "params": to_jax_tree(
             without_scales(variables["params"]), np.float64)}
-        _, new = jmod.apply(pruned, jnp.asarray(x), mutable=["params"],
-                            rngs={"params": jax.random.key(0)}, **apply_kw)
+        _, new = (jax.jit(apply) if jit else apply)(pruned, jnp.asarray(x))
         return {**variables,
                 "params": to_numpy_tree(new["params"], np.float64)}
 

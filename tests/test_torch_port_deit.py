@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from test_torch_port_common import (  # noqa: F401 (jax_interpret: fixture)
-    assert_scales_match, jax_calibrate, jax_interpret, load_into, perturb,
-    to_jax_tree, to_numpy_tree, x64)
+    assert_scales_match, jax_calibrate, jax_interpret, jit_x64_apply,
+    jit_x64_init, jitted_init, load_into, perturb, to_jax_tree,
+    to_numpy_tree, x64)
 
 from ofq_tpu.models.deit import deit_model as jax_deit_model
 from ofq_tpu.quant import default_deit_qmodules, policy_from_args
@@ -68,15 +69,11 @@ def fp64_case():
     with the fp64 weights in place, and the JAX logits."""
     x = _images(0)
     jm = jax_deit_model(NAME, _jax_policy())
-    with x64():
-        variables = to_numpy_tree(
-            jm.init({"params": jax.random.key(0)}, jnp.asarray(x),
-                    train=False), np.float64)
+    variables = jit_x64_init(jm, jax.random.key(0), x, np.float64,
+                             train=False)
     variables = jax_calibrate(jm, variables, x, train=False)
     shifted = _with_heads(variables, np.random.default_rng(1))
-    with x64():
-        logits, _ = jm.apply(to_jax_tree(shifted, np.float64),
-                             jnp.asarray(x), train=False)
+    logits, _ = jit_x64_apply(jm, shifted, x, train=False)
     return x, variables, shifted, np.asarray(logits)
 
 
@@ -139,11 +136,11 @@ def test_fused_fp32_logits(jax_interpret):
     pol = _jax_policy()
     jm = jax_deit_model(NAME, pol)
     jf = jax_deit_model(NAME, pol, matmul_impl="fused", attn_impl="fused")
-    variables = to_numpy_tree(jm.init({"params": jax.random.key(3)},
-                                      jnp.asarray(x), train=False))
+    variables = to_numpy_tree(jitted_init(jm)(jax.random.key(3),
+                                              jnp.asarray(x)))
     shifted = _with_heads(variables, np.random.default_rng(4))
-    logits_j, _ = jf.apply(to_jax_tree(shifted, np.float32), jnp.asarray(x),
-                           train=False)
+    logits_j, _ = jax.jit(lambda v, xx: jf.apply(v, xx, train=False))(
+        to_jax_tree(shifted, np.float32), jnp.asarray(x))
     logits_j = np.asarray(logits_j)
     m = load_into(_port("fused", torch.float32), shifted, torch.float32)
     with torch.no_grad():

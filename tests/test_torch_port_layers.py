@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from test_torch_port_common import (  # noqa: F401 (jax_interpret: fixture)
-    assert_scales_match, jax_calibrate, jax_interpret, load_into, perturb,
-    to_jax_tree, to_numpy_tree, x64)
+    assert_scales_match, jax_calibrate, jax_interpret, jit_x64_apply,
+    jit_x64_init, load_into, perturb, to_jax_tree, to_numpy_tree)
 
 from ofq_tpu.nn import attention as jattn
 from ofq_tpu.nn import conv as jconv
@@ -39,19 +39,14 @@ def _out(y):
 def _check_fp64(jmod, tmod, x, seed=0, names=("bias",)):
     """Calibration and composed forward in fp64."""
     rng = np.random.default_rng(seed)
-    with x64():
-        variables = to_numpy_tree(
-            jmod.init({"params": jax.random.key(seed)}, jnp.asarray(x)),
-            np.float64)
+    variables = jit_x64_init(jmod, jax.random.key(seed), x, np.float64)
     variables = jax_calibrate(jmod, variables, x)
     load_into(tmod, variables).eval()  # JAX applies with no mutable state
     calibrate(tmod, torch.from_numpy(x))
     assert_scales_match(variables, tmod)
 
     shifted = perturb(variables, rng, names=names)
-    with x64():
-        yj = np.asarray(_out(jmod.apply(to_jax_tree(shifted, np.float64),
-                                        jnp.asarray(x))))
+    yj = np.asarray(_out(jit_x64_apply(jmod, shifted, x)))
     load_into(tmod, shifted)
     with torch.no_grad():
         yt = tmod(torch.from_numpy(x)).numpy()
@@ -63,11 +58,12 @@ def _check_fp64(jmod, tmod, x, seed=0, names=("bias",)):
 def _check_fused_fp32(jmod_init, jmod_fused, tmod, x, seed=0):
     rng = np.random.default_rng(seed)
     xj = jnp.asarray(x, jnp.float32)
-    variables = to_numpy_tree(jmod_init.init({"params": jax.random.key(seed)},
-                                             xj))
+    variables = to_numpy_tree(jax.jit(
+        lambda k, xx: jmod_init.init({"params": k}, xx))(
+            jax.random.key(seed), xj))
     shifted = perturb(variables, rng)
-    yj = np.asarray(_out(jmod_fused.apply(to_jax_tree(shifted, np.float32),
-                                          xj)))
+    yj = np.asarray(_out(jax.jit(jmod_fused.apply)(
+        to_jax_tree(shifted, np.float32), xj)))
     load_into(tmod, shifted, torch.float32)
     with torch.no_grad():
         yt = tmod(torch.from_numpy(x.astype(np.float32))).numpy()
@@ -156,12 +152,8 @@ def test_qpatch_embed_sticky_sign_is_read_as_stored():
     jm = jconv.QPatchEmbedConv(features=C, patch_size=(8, 8),
                                img_size=(32, 32))
     tm = QPatchEmbedConv(3, C, (8, 8), (32, 32))
-    with x64():
-        variables = to_numpy_tree(
-            jm.init({"params": jax.random.key(0)}, jnp.asarray(x_pos)),
-            np.float64)
-        yj = np.asarray(jm.apply(to_jax_tree(variables, np.float64),
-                                 jnp.asarray(x_neg)))
+    variables = jit_x64_init(jm, jax.random.key(0), x_pos, np.float64)
+    yj = np.asarray(jit_x64_apply(jm, variables, x_neg))
     load_into(tm, variables).eval()
     with torch.no_grad():
         yt = tm(torch.from_numpy(x_neg)).numpy()
@@ -222,12 +214,9 @@ def test_unquantized_site_runs_as_jax(bits):
         jm = jlin.QLinear(16, matmul_impl=impl, **bits)
         tm = QLinear(C, 16, N, matmul_impl=impl, **bits)
         rng = np.random.default_rng(14)
-        with x64():
-            variables = perturb(to_numpy_tree(jm.init(
-                {"params": jax.random.key(0)}, jnp.asarray(x)),
-                np.float64), rng)
-            yj = np.asarray(jm.apply(to_jax_tree(variables, np.float64),
-                                     jnp.asarray(x)))
+        variables = perturb(jit_x64_init(jm, jax.random.key(0), x,
+                                         np.float64), rng)
+        yj = np.asarray(jit_x64_apply(jm, variables, x))
         load_into(tm.double(), variables)
         assert (tm.input_quant is None) == (bits["input_bits"] == 32)
         with torch.no_grad():
@@ -243,12 +232,10 @@ def test_unquantized_attention_sites_run_as_jax():
                  dict(weight_bits=2, input_bits=32)):
         jm = jattn.QAttentionQKR(num_heads=H, **bits)
         tm = QAttentionQKR(C, H, N, **bits)
-        with x64():
-            variables = perturb(to_numpy_tree(jm.init(
-                {"params": jax.random.key(0)}, jnp.asarray(x)),
-                np.float64), np.random.default_rng(16))
-            yj = np.asarray(_out(jm.apply(to_jax_tree(variables, np.float64),
-                                          jnp.asarray(x))))
+        variables = perturb(jit_x64_init(jm, jax.random.key(0), x,
+                                         np.float64),
+                            np.random.default_rng(16))
+        yj = np.asarray(_out(jit_x64_apply(jm, variables, x)))
         load_into(tm.double(), variables)
         with torch.no_grad():
             yt = tm(torch.from_numpy(x)).numpy()

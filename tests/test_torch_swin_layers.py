@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_common import load_into, perturb, to_jax_tree, x64
+from test_torch_port_common import (jit_x64_apply, jit_x64_init, load_into,
+                                    perturb, x64)
 from test_torch_port_layers import _check_fp64, _out
 
 from ofq_tpu.models import swin as jswin
@@ -96,14 +97,9 @@ def test_pad_shift_and_back(h, w, window, shift):
 # ----------------------------------------------------------------- modules
 def _check_float_fp64(jmod, tmod, x, seed=0):
     """Float modules: the forward in fp64 with random biases."""
-    with x64():
-        variables = jmod.init({"params": jax.random.key(seed)},
-                              jnp.asarray(x))
-    shifted = perturb(jax.tree.map(np.asarray, jax.device_get(variables)),
-                      np.random.default_rng(seed))
-    with x64():
-        yj = np.asarray(_out(jmod.apply(to_jax_tree(shifted, np.float64),
-                                        jnp.asarray(x))))
+    variables = jit_x64_init(jmod, jax.random.key(seed), x)
+    shifted = perturb(variables, np.random.default_rng(seed))
+    yj = np.asarray(_out(jit_x64_apply(jmod, shifted, x)))
     load_into(tmod, shifted)
     with torch.no_grad():
         yt = tmod(torch.from_numpy(x)).numpy()

@@ -23,8 +23,8 @@ import pytest
 import torch
 
 from test_torch_port_common import (assert_scales_match, jax_calibrate,
-                                    load_into, perturb, to_jax_tree,
-                                    to_numpy_tree, x64)
+                                    jit_x64_apply, jit_x64_init, load_into,
+                                    perturb)
 
 from ofq_tpu.models import swin as jswin
 from ofq_tpu.quant import default_swin_qmodules, policy_from_args
@@ -65,13 +65,15 @@ def _with_head(variables, rng):
     return out
 
 
-def _fp64_variables(jm, x, quantized):
-    with x64():
-        variables = to_numpy_tree(
-            jm.init({"params": jax.random.key(0)}, jnp.asarray(x),
-                    train=False), np.float64)
+def _fp64_variables(jm, x, quantized, reference=True):
+    """fp64 variables of `jm`, calibrated on `x` when `quantized` (the
+    eager reference calibration, or with `reference=False`, for variables
+    that only feed both packages, compiled)."""
+    variables = jit_x64_init(jm, jax.random.key(0), x, np.float64,
+                             train=False)
     if quantized:
-        variables = jax_calibrate(jm, variables, x, train=False)
+        variables = jax_calibrate(jm, variables, x, jit=not reference,
+                                  train=False)
     return variables
 
 
@@ -80,11 +82,9 @@ def _fp64_variables(jm, x, quantized):
 def test_fp64_logits(quantized, depths):
     x = _images(0)
     jm, tm = _models(quantized, depths)
-    variables = _fp64_variables(jm, x, quantized)
+    variables = _fp64_variables(jm, x, quantized, reference=False)
     shifted = _with_head(variables, np.random.default_rng(1))
-    with x64():
-        want, info = jm.apply(to_jax_tree(shifted, np.float64),
-                              jnp.asarray(x), train=False)
+    want, info = jit_x64_apply(jm, shifted, x, train=False)
     assert info is None
     load_into(tm.double(), shifted)
     with torch.no_grad():
@@ -118,10 +118,9 @@ def test_calibrate_matches_flax_init(depths):
 def test_param_names_are_flax_paths(quantized):
     x = _images(3)
     jm, tm = _models(quantized)
-    with x64():
-        variables = jm.init({"params": jax.random.key(0)}, jnp.asarray(x))
+    variables = jit_x64_init(jm, jax.random.key(0), x)
     flax_names = {k.split("/", 1)[1].replace("/", ".")
-                  for k in flatten_flax_tree(jax.device_get(variables))}
+                  for k in flatten_flax_tree(variables)}
     port_names = set(dict(tm.named_parameters())) | set(
         dict(tm.named_buffers()))
     assert port_names == flax_names
@@ -188,9 +187,7 @@ def test_once_refused_configs_fp64(what):
         calibrate(tm, x)
         assert_scales_match(variables, tm)
     shifted = _with_head(variables, np.random.default_rng(4))
-    with x64():
-        want, info = jm.apply(to_jax_tree(shifted, np.float64),
-                              jnp.asarray(x), train=False)
+    want, info = jit_x64_apply(jm, shifted, x, train=False)
     load_into(tm.double(), shifted)
     with torch.no_grad():
         got, got_info = tm(torch.from_numpy(x), aux=True)

@@ -3,7 +3,17 @@ the small DeiT W2A2 QKR student (depth 2, embed 32, 4 heads, image 32,
 patch 8, distilled, 10 classes) at world 2 (one model group of 2) and at
 world 4 (2 data x 2 model), over gloo, in fp64, each rank a process of
 `torch_fixtures/tp_worker.py` (which imports no JAX); this process
-computes the port's single-process results and JAX's.
+computes the port's single-process results and JAX's.  The same two
+launches also run the other students (`CONFIGS`): the `swin_test` W2A2
+student with and without QKR at heads (3, 4), depths (2, 2) and 2 x 2
+windows (stage 0's 3 heads stay whole at 2 ranks, stage 1's 4 are cut;
+both stages' second blocks shifted), DeiT-T's 3 heads (every attention
+whole, every MLP cut) and the DeiT student without QKR (`qkv` cut by
+head); for each, the eval logits, the steps against the single process
+and JAX's jitted step, the replicated gradients across the model ranks,
+CGA's masks, checkpoints and the layout; the world-2 launch also takes
+the Swin student through `cli.train`, `cli.cga` and `cli.eval` at
+`--mesh-model-parallel 2`.
 
   * the layout: JAX's rank -> (data, model) map; shard then gather is the
     identity for every parameter (`quan_qkx.s`'s strided slice too); the
@@ -32,13 +42,17 @@ computes the port's single-process results and JAX's.
     synthetic data, rank 0 writes, `cli.eval.main` on the checkpoint at
     mp 2 equals the single-process eval;
   * the refusals of the configurations not ported at mp > 1, each naming
-    its ROADMAP item.
+    its ROADMAP item; a width that divides neither a block's heads nor
+    its MLP refused, one that divides the MLP only keeping the attention
+    whole.
 """
 
 import dataclasses
+import math
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -53,9 +67,11 @@ from test_torch_parallel import SAME, _free_port, _rel_l2
 from test_torch_train_loop import _flat
 from test_torch_train_slice import LR, START, _jax_state
 
+from ofq_tpu.models import swin as jswin
 from ofq_tpu.models.deit import deit_model as jax_deit_model
 from ofq_tpu.ops import pallas_statsq as jps
-from ofq_tpu.quant import default_deit_qmodules, policy_from_args
+from ofq_tpu.quant import (default_deit_qmodules, default_swin_qmodules,
+                           policy_from_args)
 from ofq_tpu.train import cga as jcga
 from ofq_tpu.train import make_optimizer as jax_make_optimizer
 from ofq_tpu.train import make_train_step as jax_make_train_step
@@ -65,9 +81,11 @@ from ofq_tpu_torch.cli import common
 from ofq_tpu_torch.cli import eval as cli_eval
 from ofq_tpu_torch.models import create_model
 from ofq_tpu_torch.models import deit as deit_models
+from ofq_tpu_torch.models import swin as swin_models
 from ofq_tpu_torch.parallel import Mesh, tensor
 from ofq_tpu_torch.quant import (QuantPolicy, statsq_scale, w2a2_deit_policy,
-                                 w2a2_qkr_policy)
+                                 w2a2_qkr_policy, w2a2_qkr_swin_policy,
+                                 w2a2_swin_policy)
 from ofq_tpu_torch.serve import Predictor
 from ofq_tpu_torch.train import (TrainState, checkpoint, make_optimizer,
                                  make_train_step)
@@ -138,28 +156,84 @@ CASES = {
 BF16_CASES = ("pallas_bf16", "fused_bf16")
 FP64_CASES = ("composed", "fused", "pallas", "dropout", "cga")
 
+# the other students, each launched with the DeiT one: (model name, its
+# dimensions, family, QKR, the cases it steps)
+DEIT_T = dict(embed_dim=24, num_heads=3, num_classes=10)
+SWIN_DEPTHS = tw.SWIN_DIMS["depths"]
+CONFIGS = {
+    # Swin-T's head layout cut small: a 3-head stage (whole at 2 ranks)
+    # and a 4-head stage (cut)
+    "swin_qkr": dict(name=tw.SWIN, dims=tw.SWIN_DIMS, family="swin",
+                     qkr=True, cases=("composed", "pallas", "dropout", "cga",
+                                      "pallas_bf16"),
+                     faults={f: "composed" for f in tw.FAULTS}),
+    "swin": dict(name=tw.SWIN, dims=tw.SWIN_DIMS, family="swin", qkr=False,
+                 cases=("composed", "dropout", "cga")),
+    # DeiT-T's 3 heads: every attention whole, every MLP cut
+    "deit_t": dict(name=tw.NAME, dims=DEIT_T, family="deit", qkr=True,
+                   cases=("composed", "fused", "cga")),
+    # `qkv` cut by head
+    "deit_no_qkr": dict(name=tw.NAME, dims=tw.DIMS, family="deit",
+                        qkr=False, cases=("composed", "fused", "cga")),
+}
+CONFIG_FP64 = [(k, c) for k, v in CONFIGS.items() for c in v["cases"]
+               if c not in BF16_CASES]
+CONFIG_BF16 = [(k, c) for k, v in CONFIGS.items() for c in v["cases"]
+               if c in BF16_CASES]
+CONFIG_JAX = [(k, c) for k, c in CONFIG_FP64 if c in ("composed", "fused")]
+CONFIG_DROPOUT = [k for k, v in CONFIGS.items() if "dropout" in v["cases"]]
+
+
+def _port_policy(key):
+    c = CONFIGS[key]
+    if c["family"] == "swin":
+        return (w2a2_qkr_swin_policy(SWIN_DEPTHS) if c["qkr"] else
+                w2a2_swin_policy(SWIN_DEPTHS, qk_reparam=False))
+    return (w2a2_qkr_policy(DEPTH) if c["qkr"] else
+            w2a2_deit_policy(DEPTH, qk_reparam=False))
+
+
+def _config_cga(key):
+    c = CONFIGS[key]
+    return dict(bits=2, boundary_range=0.005, qk_reparam=c["qkr"],
+                model_type=c["family"])
+
+
+def _config_cases(key):
+    c = CONFIGS[key]
+    pol = dataclasses.replace(_port_policy(key), boundary_range=0.005,
+                              **(dict(qk_reparam_type=1) if c["qkr"]
+                                 else {}))
+    cases = dict(CASES, cga=dict(conf={}, policy=pol,
+                                 lr=("constant", tcga.LR, {}),
+                                 step_kw=dict(cga=_config_cga(key))))
+    return {k: cases[k] for k in c["cases"]}
+
 
 # ------------------------------------------------------------ the setup
-def _setup(tmp) -> dict:
-    """Seeded weights (random, the shifts and heads drawn by numpy), the
-    float teacher, the calibration and step batches, mid-run moments."""
-    rng = np.random.default_rng(0)
-    pol = w2a2_qkr_policy(DEPTH)
-    m = create_model(tw.NAME, policy=pol, device="cpu",
+def _weights(name, dims, pol, rng):
+    """A seeded student (the shifts, biases, bias tables and head drawn
+    by `rng`) and its float teacher, fp64 state dicts."""
+    m = create_model(name, policy=pol, device="cpu",
                      generator=torch.Generator().manual_seed(3),
-                     **tw.DIMS).double()
+                     **dims).double()
     with torch.no_grad():
         for n, p in m.named_parameters():
             if n.endswith("bias"):
                 p.copy_(torch.from_numpy(rng.normal(size=p.shape) * 0.05))
+            elif n.endswith("bias_table"):
+                p.copy_(torch.from_numpy(rng.normal(size=p.shape) * 0.5))
             elif n.startswith("head") and n.endswith("kernel"):
                 p.copy_(torch.from_numpy(rng.normal(size=p.shape) * 0.2))
-    t = create_model(tw.NAME, policy=QuantPolicy(), device="cpu",
+    t = create_model(name, policy=QuantPolicy(), device="cpu",
                      generator=torch.Generator().manual_seed(4),
-                     **tw.DIMS).double()
+                     **dims).double()
+    return m, t
+
+
+def _data(m, t, rng) -> dict:
     shape = (B, 32, 32, 3)
-    setup = dict(
-        model_parallel=MP, dtype="float64", policy=pol,
+    return dict(
         weights=m.state_dict(), teacher=t.state_dict(),
         calib=rng.normal(size=shape),
         batch={"image": rng.normal(size=shape),
@@ -167,10 +241,35 @@ def _setup(tmp) -> dict:
         mu={n: torch.from_numpy(rng.normal(size=p.shape) * 1e-3)
             for n, p in m.named_parameters()},
         nu={n: torch.from_numpy(rng.random(size=p.shape) * 1e-6)
-            for n, p in m.named_parameters()},
+            for n, p in m.named_parameters()})
+
+
+def _config_setup(key, tmp) -> dict:
+    c = CONFIGS[key]
+    rng = np.random.default_rng(10 + sorted(CONFIGS).index(key))
+    pol = _port_policy(key)
+    m, t = _weights(c["name"], c["dims"], pol, rng)
+    return dict(name=c["name"], dims=c["dims"], model_parallel=MP,
+                dtype="float64", policy=pol, start=START,
+                cases=_config_cases(key), checkpoint_case="composed",
+                faults=c.get("faults", {}),
+                single_ckpt=os.path.join(tmp, key, "single"),
+                **_data(m, t, rng))
+
+
+def _setup(tmp) -> dict:
+    """Seeded weights (random, the shifts and heads drawn by numpy), the
+    float teacher, the calibration and step batches, mid-run moments;
+    the same for each of CONFIGS."""
+    rng = np.random.default_rng(0)
+    pol = w2a2_qkr_policy(DEPTH)
+    m, t = _weights(tw.NAME, tw.DIMS, pol, rng)
+    setup = dict(
+        model_parallel=MP, dtype="float64", policy=pol, **_data(m, t, rng),
         start=START, cases=CASES, checkpoint_case="composed",
         single_ckpt=os.path.join(tmp, "single"),
-        kernel=rng.normal(size=(48, 6)))
+        kernel=rng.normal(size=(48, 6)),
+        configs={k: _config_setup(k, tmp) for k in CONFIGS})
     return setup
 
 
@@ -188,6 +287,17 @@ def _single_checkpoint(setup, calibrated):
     return checkpoint.load(mgr, 0)
 
 
+SWIN_RUNNER = ["synthetic", "--model", tw.SWIN, "--model_type", "swin",
+               "--img-size", "32", "--num-classes", "10", "--batch-size",
+               "4", "--steps-per-epoch", "2", "--warmup-epochs", "0",
+               "--cooldown-epochs", "0", "--mixup", "0", "--cutmix", "0",
+               "--wq-enable", "--aq-enable", "--wq-bitw", "2", "--aq-bitw",
+               "2", "--wq-per-channel", "--aq-per-channel",
+               "--aq_clip_learnable", "--quantized", "--qk_reparam",
+               "--seed", "0", "--log-interval", "1", "--matmul-impl",
+               "pallas"]
+SWIN_CGA = ["--qk_reparam_type", "1", "--boundaryRange", "0.005",
+            "--freeze_for_n_epochs", "1", "--steps-per-epoch", "1"]
 RUNNER = ["--model", tw.NAME, "--img-size", "32", "--num-classes", "10",
           "--wq-enable", "--aq-enable", "--wq-bitw", "2", "--aq-bitw", "2",
           "--wq-per-channel", "--aq-per-channel", "--aq_clip_learnable",
@@ -198,9 +308,9 @@ RUNNER = ["--model", tw.NAME, "--img-size", "32", "--num-classes", "10",
           "--attn-impl", "fused"]
 
 
-def _launch(world, setup, tmp, mode):
-    """`world` ranks of the worker over gloo (a timeout kills them); their
-    results by rank."""
+def _start(world, setup, tmp, mode):
+    """`world` ranks of the worker over gloo, started (each rank's output
+    to a file); `_finish` waits for them."""
     path = os.path.join(tmp, "setup.pt")
     torch.save(setup, path)
     port = str(_free_port())
@@ -209,46 +319,65 @@ def _launch(world, setup, tmp, mode):
         env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
                    WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=port, OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(FIXTURES, "tp_worker.py"), mode,
-             path, tmp], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    outs = []
+        with open(os.path.join(tmp, f"rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(FIXTURES, "tp_worker.py"),
+                 mode, path, tmp], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    return dict(procs=procs, tmp=tmp, mode=mode, world=world,
+                deadline=time.monotonic() + LAUNCH_TIMEOUT)
+
+
+def _finish(started):
+    """The started ranks' results by rank (a rank still running at the
+    deadline is killed)."""
+    procs, tmp = started["procs"], started["tmp"]
     try:
-        outs = [p.communicate(timeout=LAUNCH_TIMEOUT)[0] for p in procs]
+        for p in procs:
+            p.wait(timeout=max(started["deadline"] - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r}:\n{out[-4000:]}"
-    whats = ["steps"] + (["runner"] if mode == "all" else [])
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                out = f.read()
+            raise AssertionError(f"rank {r} (exit {p.returncode}):\n"
+                                 f"{out[-4000:]}")
+    whats = ["steps"] + (["runner"] if started["mode"] == "all" else [])
     return {w: [torch.load(os.path.join(tmp, f"{w}.rank{r}.pt"),
-                           weights_only=False) for r in range(world)]
+                           weights_only=False)
+                for r in range(started["world"])]
             for w in whats}
 
 
-@pytest.fixture(scope="module")
-def single(tmp_path_factory):
-    """The setup and the port's single-process results on the global
-    batch."""
-    tmp = str(tmp_path_factory.mktemp("tp_single"))
-    setup = _setup(tmp)
+def _single_start(setup) -> dict:
+    """The port's single-process calibrated start and its checkpoint (mp
+    1), which the ranks restore, of a setup."""
     start = tw.calibrated_start(setup)
-    payload = _single_checkpoint(setup, start["calibrated"])
+    return dict(setup=setup, start=start,
+                payload=_single_checkpoint(setup, start["calibrated"]))
+
+
+def _single_cases(res) -> dict:
+    """`res` with the single process's step of every case of its setup on
+    the global batch."""
     cases = {}
-    for name, case in CASES.items():
-        res = tw.run_case(setup, case, start["calibrated"])
-        del res["state"], res["model"]
-        cases[name] = res
-    return dict(setup=setup, start=start, cases=cases, payload=payload)
+    for name, case in res["setup"]["cases"].items():
+        step = tw.run_case(res["setup"], case, res["start"]["calibrated"])
+        del step["state"], step["model"]
+        cases[name] = step
+    return dict(res, cases=cases)
 
 
-@pytest.fixture(scope="module")
-def world2(single, tmp_path_factory):
-    """The world-2 launch (one model group of 2): the steps, then the
-    Runner's fit and eval; the single-process eval of its checkpoint."""
-    tmp = str(tmp_path_factory.mktemp("tp_world2"))
+def _world2_setup(setup, tmp):
+    """The world-2 launch's setup: the steps' and the commands' argv (the
+    DeiT Runner's fit and eval; the Swin student's train, CGA and eval);
+    the single-process evals' argv."""
     out = os.path.join(tmp, "out")
     fit = ["synthetic", *RUNNER, "--steps-per-epoch", "2", "--epochs", "1",
            "--warmup-epochs", "0", "--cooldown-epochs", "0",
@@ -257,24 +386,82 @@ def world2(single, tmp_path_factory):
     ev = ["synthetic", *RUNNER, "--steps-per-epoch", "2", "--output",
           os.path.join(tmp, "ev"), "--resume", os.path.join(out, "tp"),
           "--experiment", "ev"]
-    setup = dict(single["setup"], fit=fit,
-                 eval=ev + ["--mesh-model-parallel", "2"])
-    res = _launch(2, setup, tmp, "all")
-    real = deit_models.VARIANTS[tw.NAME]
+    sw_out = os.path.join(tmp, "swin")
+    mp2 = ["--mesh-model-parallel", "2"]
+    sw_ev = SWIN_RUNNER + ["--output", os.path.join(tmp, "sw_ev"),
+                           "--resume", os.path.join(sw_out, "cga"),
+                           "--experiment", "ev"]
+    swin = dict(
+        fit=SWIN_RUNNER + ["--epochs", "1", "--output", sw_out,
+                           "--experiment", "p1"] + mp2,
+        cga=SWIN_RUNNER + SWIN_CGA + ["--output", sw_out, "--experiment",
+                                      "cga", "--resume",
+                                      os.path.join(sw_out, "p1")] + mp2,
+        eval=sw_ev + mp2)
+    return (dict(setup, fit=fit, eval=ev + mp2, swin=swin),
+            dict(out=out, swin_out=sw_out, ev=ev, sw_ev=sw_ev))
+
+
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    """The setup, the single process's starts and checkpoints, and the
+    world-2 (one model group of 2: the steps, then the Runner and the Swin
+    commands) and world-4 (2 data x 2 model: the steps) launches, started
+    together; the fixtures below compute the single process's and JAX's
+    results while the ranks run."""
+    tmp = str(tmp_path_factory.mktemp("tp_single"))
+    setup = _setup(tmp)
+    starts = dict(_single_start(setup),
+                  configs={k: _single_start(c)
+                           for k, c in setup["configs"].items()})
+    t2 = str(tmp_path_factory.mktemp("tp_world2"))
+    setup2, paths = _world2_setup(setup, t2)
+    out = dict(starts=starts, paths=paths,
+               world2=_start(2, setup2, t2, "all"),
+               world4=_start(4, setup, str(tmp_path_factory.mktemp(
+                   "tp_world4")), "steps"))
+    yield out
+    for key in ("world2", "world4"):
+        for p in out[key]["procs"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+@pytest.fixture(scope="module")
+def single(launched):
+    """The setup and the port's single-process results on the global
+    batch, for the DeiT student and each of CONFIGS (`configs`)."""
+    starts = launched["starts"]
+    out = _single_cases(starts)
+    out["configs"] = {k: _single_cases(c)
+                      for k, c in starts["configs"].items()}
+    return out
+
+
+@pytest.fixture(scope="module")
+def world2(launched, single, jax_refs, config_jax):
+    """The world-2 launch's results, then the single-process evals of its
+    checkpoints (the JAX references are computed before the wait)."""
+    res = _finish(launched["world2"])
+    paths = launched["paths"]
+    real = (deit_models.VARIANTS[tw.NAME], swin_models.VARIANTS[tw.SWIN])
     tw.small_variant()
     try:
-        res["single_eval"] = cli_eval.main(ev[:-2] + ["--experiment", "ev1"],
-                                           device="cpu")
+        res["single_eval"] = cli_eval.main(
+            paths["ev"][:-2] + ["--experiment", "ev1"], device="cpu")
+        res["swin_single_eval"] = cli_eval.main(
+            paths["sw_ev"][:-2] + ["--experiment", "ev1"], device="cpu")
     finally:
-        deit_models.VARIANTS[tw.NAME] = real
-    res["out"] = out
+        deit_models.VARIANTS[tw.NAME], swin_models.VARIANTS[tw.SWIN] = real
+    res["out"] = paths["out"]
+    res["swin_out"] = paths["swin_out"]
     return res
 
 
 @pytest.fixture(scope="module")
-def world4(single, tmp_path_factory):
-    tmp = str(tmp_path_factory.mktemp("tp_world4"))
-    return _launch(4, single["setup"], tmp, "steps")
+def world4(launched, world2):
+    return _finish(launched["world4"])
 
 
 @pytest.fixture(params=[2, 4], ids=["world2", "world4"])
@@ -337,16 +524,15 @@ def _jax_run(single, name, conf):
         out["grads"] = {k: (v - 0.9 * _flat(mu)[k]) / 0.1
                         for k, v in mu1.items()}
         if cga:
-            masks = jcga.freeze_masks(jax.tree.map(jnp.asarray,
-                                                   variables["params"]),
-                                      bits=2, boundary_range=0.005,
-                                      qk_reparam=True)
+            masks = jax.jit(lambda p: jcga.freeze_masks(
+                p, bits=2, boundary_range=0.005, qk_reparam=True))(
+                    jax.tree.map(jnp.asarray, variables["params"]))
             out["masks"] = {k: np.asarray(v) for k, v in
                             _flat(masks).items() if v.dtype != object}
         if name == "composed":
-            logits, _ = jm.apply(jax.tree.map(jnp.asarray, variables),
-                                 jnp.asarray(setup["batch"]["image"]),
-                                 train=False)
+            logits, _ = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+                jax.tree.map(jnp.asarray, variables),
+                jnp.asarray(setup["batch"]["image"]))
             out["logits"] = np.asarray(logits)
     return out
 
@@ -700,6 +886,359 @@ def test_runner_world2_trains_and_evaluates(world2):
             single["loss"])
 
 
+# ------------------------------------------------ the other students
+def _jax_config_run(single, key):
+    """JAX's single-device jitted composed step (x64) of config `key` from
+    its calibrated start: metrics, parameters, gradients; the eval logits
+    and CGA's masks of the start."""
+    c, res = CONFIGS[key], single["configs"][key]
+    setup = res["setup"]
+    variables = _variables(res["start"]["calibrated"])
+    if c["family"] == "swin":
+        jpol = policy_from_args(wq_bitw=2, aq_bitw=2, qk_reparam=c["qkr"],
+                                qk_reparam_type=0,
+                                qmodules=default_swin_qmodules(SWIN_DEPTHS))
+        jm = jswin.swin_model(c["name"], jpol, **c["dims"])
+        jt = jswin.swin_model(c["name"], **c["dims"])
+    else:
+        jpol = policy_from_args(wq_bitw=2, aq_bitw=2, qk_reparam=c["qkr"],
+                                qmodules=default_deit_qmodules(DEPTH))
+        jm = jax_deit_model(c["name"], jpol, **c["dims"])
+        jt = jax_deit_model(c["name"], **c["dims"])
+    mu, nu = _nest(setup["mu"]), _nest(setup["nu"])
+    with x64_jit():
+        tx = jax_make_optimizer(
+            jschedule.cosine_with_warmup_cooldown(5e-3, **LR),
+            weight_decay=0.05)
+        jst = _jax_state(tx, variables, mu, nu, np.float64)
+        step = jax.jit(jax_make_train_step(jm, tx, teacher=jt,
+                                           loss_kind="kd_soft_hard"))
+        teacher = jax.tree.map(jnp.asarray, _nest(setup["teacher"]))
+        new, met = step(jst, {k: jnp.asarray(v)
+                              for k, v in setup["batch"].items()},
+                        jax.random.key(0), teacher)
+        out = dict(metrics={k: float(v) for k, v in met.items()},
+                   params=_flat(jax.tree.map(np.asarray,
+                                             new.params["params"])))
+        mu1 = _flat(jax.tree.map(np.asarray, new.opt_state[0][0].mu))
+        out["grads"] = {k: (v - 0.9 * _flat(mu)[k]) / 0.1
+                        for k, v in mu1.items()}
+        logits, _ = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+            jax.tree.map(jnp.asarray, variables),
+            jnp.asarray(setup["batch"]["image"]))
+        out["logits"] = np.asarray(logits)
+        masks = jax.jit(lambda p: jcga.freeze_masks(
+            p, bits=2, boundary_range=0.005, qk_reparam=c["qkr"],
+            model_type=c["family"]))(
+                jax.tree.map(jnp.asarray, variables["params"]))
+        out["masks"] = {k: np.asarray(v) for k, v in _flat(masks).items()
+                        if v.dtype != object}
+    return out
+
+
+@pytest.fixture(scope="module")
+def config_jax(single):
+    return {k: _jax_config_run(single, k) for k in CONFIGS}
+
+
+def _config_layout(key, single):
+    """The layout `shard_model` gives config `key` at 2 model ranks (a
+    mesh without a process group: the cuts only)."""
+    m = tw._model(single["configs"][key]["setup"], {})
+    return parallel.shard_model(m, _fake_mesh())
+
+
+def _config(ranks, key):
+    return [r["configs"][key] for r in ranks]
+
+
+@pytest.mark.parametrize("key", sorted(CONFIGS))
+def test_config_layout(single, key):
+    """Which halves of each block are cut at 2 model ranks (a 3-head
+    attention stays whole, its MLP is cut; Swin's patch mergings whole),
+    and every cut reassembled in model order is the full tensor (the
+    q, k and v column blocks of `qkv` among them)."""
+    layout = _config_layout(key, single)
+    full = single["configs"][key]["start"]["calibrated"]
+    c = CONFIGS[key]
+    heads = (c["dims"]["num_heads"] if c["family"] == "swin"
+             else (c["dims"]["num_heads"],))
+    m = tw._model(single["configs"][key]["setup"], {})
+    for name in m.block_names:
+        blk = getattr(m, name)
+        if not hasattr(blk, "attn"):
+            assert not any(n.startswith(name + ".") for n in layout.cuts)
+            continue
+        attn_cut = f"{name}.attn.proj.kernel" in layout.cuts
+        assert attn_cut == (blk.attn.num_heads % MP == 0), name
+        assert f"{name}.mlp.fc1.kernel" in layout.cuts
+        if c["family"] == "swin":
+            assert (f"{name}.attn.relative_position_bias_table"
+                    in layout.cuts) == attn_cut
+        if not c["qkr"]:
+            assert (f"{name}.attn.qkv.kernel" in layout.cuts) == attn_cut
+    assert any(h % MP for h in heads) == (key in ("swin_qkr", "swin",
+                                                  "deit_t"))
+    for n, cut in layout.cuts.items():
+        parts = [cut.local(full[n], i) for i in range(MP)]
+        back = torch.cat([q.reshape(cut.local_view) for q in parts],
+                         dim=cut.axis).reshape(cut.shape)
+        assert torch.equal(back, full[n]), n
+    if key == "deit_no_qkr":
+        # rank 1's q, k and v columns of qkv: heads 2 and 3 of each third
+        w = full["blocks_0.attn.qkv.kernel"]
+        d = 32 // 4
+        want = torch.cat([w[:, t * 32 + 2 * d:t * 32 + 4 * d]
+                          for t in range(3)], dim=1)
+        assert torch.equal(layout.cuts["blocks_0.attn.qkv.kernel"].local(
+            w, 1), want)
+
+
+@pytest.mark.parametrize("key", sorted(CONFIGS))
+def test_config_eval_logits(ranks, single, config_jax, key):
+    """Calibration before sharding is the single process's bit for bit;
+    the sharded eval forward on each data index's rows gives the single
+    process's logits (SAME) and JAX's (1e-9), alike on the model ranks."""
+    want_cal = single["configs"][key]["start"]["calibrated"]
+    rs = _config(ranks, key)
+    for r in rs:
+        for k, v in want_cal.items():
+            assert torch.equal(r["calibrated"][k], v), k
+    got = torch.cat([r["logits"] for r in rs[::MP]])
+    assert _rel_l2(got, single["configs"][key]["start"]["logits"]) <= SAME
+    for r in rs:
+        assert torch.equal(r["logits"], rs[r["mesh"][0] * MP]["logits"])
+    np.testing.assert_allclose(got.numpy(), config_jax[key]["logits"],
+                               rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("key,case", CONFIG_FP64)
+def test_config_step_is_the_single_process_step(ranks, single, key, case):
+    """`test_step_is_the_single_process_step` for the other students; the
+    gradient norm, which sums the fp32-summed leaves' squares too, to
+    FP32_SUMS (measured 2.2e-9 at world 4, Swin with QKR, CGA)."""
+    want = single["configs"][key]["cases"][case]
+    for r in _config(ranks, key):
+        got = r[case]
+        assert abs(got["metrics"]["loss"] - want["metrics"]["loss"]) <= (
+            1e-12 * abs(want["metrics"]["loss"]))
+        assert abs(got["metrics"]["grad_norm"]
+                   - want["metrics"]["grad_norm"]) <= (
+            FP32_SUMS * want["metrics"]["grad_norm"])
+        for key_ in ("params", "mu", "nu"):
+            assert set(got[key_]) == set(want[key_])
+            for k, w in want[key_].items():
+                assert got[key_][k].shape == w.shape, (key_, k)
+                err = _rel_l2(got[key_][k], w)
+                lim = (_limit(case, k) if key_ == "params"
+                       else 10 * FP32_SUMS)
+                assert err <= lim, (key_, k, err)
+        for k, w in want["grads"].items():
+            if k.endswith(".s"):
+                assert _rel_l2(got["grads"][k], w) <= SCALE_GRAD, k
+
+
+@pytest.mark.parametrize("key,case", CONFIG_BF16)
+def test_config_bf16_step(ranks, single, key, case):
+    """`test_bf16_step`'s rule for the Swin pallas bf16 step (K4's plain
+    version; the replicated stage-0 attention, the cut stage 1)."""
+    want = single["configs"][key]["cases"][case]
+    from ofq_tpu_torch.train import cosine_with_warmup_cooldown
+    lr = cosine_with_warmup_cooldown(5e-3, **LR)(START)
+    for r in _config(ranks, key):
+        got = r[case]
+        for k, lim in (("loss", 0.02), ("grad_norm", 0.2)):
+            assert abs(got["metrics"][k] - want["metrics"][k]) <= (
+                lim * abs(want["metrics"][k])), k
+        far = n = 0
+        for k, w in want["params"].items():
+            d = (got["params"][k] - w).abs().numpy()
+            assert d.max() <= 2.1 * lr, k
+            assert np.mean(d > lr / 4) <= 0.2, k
+            far, n = far + int(np.sum(d > lr / 4)), n + d.size
+        assert far <= 0.1 * n
+
+
+@pytest.mark.parametrize("key,case", CONFIG_JAX)
+def test_config_step_matches_jax(world2, world4, config_jax, key, case):
+    """`test_step_matches_jax` for the other students: the composed step
+    (and the fused one, at its fp32 limits) at world 2 and 4 against
+    JAX's single-device jitted composed step under x64.  Swin's shifts
+    sum their fp32 gradients over the 4-D map's rows, 8 x 64 at stage 0
+    against DeiT's 8 x 18, so their gradients are held at
+    FP32_PRODUCT_GRADS of the largest entry (the single process's own
+    Swin step reads 1.0e-7 against JAX at `features_1_0.attn.
+    quant_x_move_aft.bias`)."""
+    shift_grads = (FP32_PRODUCT_GRADS if CONFIGS[key]["family"] == "swin"
+                   else FP32_SUM_GRADS)
+    ref = config_jax[key]
+    fp32 = case == "fused"
+    for ranks in (world2["steps"], world4["steps"]):
+        got = ranks[0]["configs"][key][case]
+        assert abs(got["metrics"]["loss"] - ref["metrics"]["loss"]) <= (
+            (1e-7 if fp32 else 1e-9) * abs(ref["metrics"]["loss"]))
+        assert abs(got["metrics"]["grad_norm"]
+                   - ref["metrics"]["grad_norm"]) <= (
+            1e-5 * ref["metrics"]["grad_norm"])
+        assert set(got["params"]) == set(ref["params"])
+        for k, w in ref["params"].items():
+            err = float(np.abs(got["params"][k].numpy() - w).max()) / max(
+                1.0, float(np.abs(w).max()))
+            assert err <= _jax_leaf_limit(case, k), (k, err)
+        top = max(float(np.abs(g).max()) for g in ref["grads"].values())
+        for k, w in ref["grads"].items():
+            g = got["grads"][k].numpy()
+            if k.endswith(".s"):
+                assert _rel_l2(torch.from_numpy(g), torch.from_numpy(w)) <= (
+                    SCALE_GRAD if not fp32 else 1e-3), k
+            else:
+                err = float(np.abs(g - w).max()) / top
+                assert err <= (FP32_PRODUCT_GRADS if fp32 else
+                               shift_grads if _fp32_summed(k)
+                               else JAX_GRAD), (k, err)
+
+
+@pytest.mark.parametrize("key,case", CONFIG_FP64 + CONFIG_BF16)
+def test_config_replicated_gradients_bit_equal(ranks, single, key, case):
+    """Every gradient a rank holds whole (the replicated 3-head
+    attentions, the patch mergings, norms, embeddings and head among
+    them) has the same bits on every rank of its model group; so have
+    the gathered gradients and parameters."""
+    sliced = set(_config_layout(key, single).cuts)
+    rs = _config(ranks, key)
+    for r in rs:
+        mates = [q for q in rs if q["mesh"][0] == r["mesh"][0]]
+        a = r[case]["own_grads"]
+        whole = [k for k in a if k not in sliced]
+        assert len(whole) > 20
+        for q in mates:
+            for k in whole:
+                assert torch.equal(a[k], q[case]["own_grads"][k]), k
+            for key_ in ("grads", "params"):
+                for k, v in r[case][key_].items():
+                    assert torch.equal(v, q[case][key_][k]), (key_, k)
+
+
+@pytest.mark.parametrize("fault", tw.FAULTS)
+def test_window_softmax_scale_faults_are_caught(ranks, single, fault):
+    """Faults in the backward of the cut window attentions' softmax scales
+    (`tp_worker.FAULTS`), planted in the composed fp64 step of the QKR
+    Swin student: each cut block's `quan_softmax.s` gradient leaves
+    SCALE_GRAD of the single process's, which
+    `test_config_step_is_the_single_process_step` holds it to.  ds left
+    unreduced also breaks the ranks' bit-equality; the grad-scale factor
+    at the local heads keeps it (the same wrong gradient on every rank),
+    so only the comparison with one process sees that one."""
+    want = single["configs"]["swin_qkr"]["cases"]["composed"]["grads"]
+    scales = [k for k in want if k.endswith("attn.quan_softmax.s")]
+    # stage 1's blocks (`features_3_*`, 4 heads) are cut, stage 0's whole
+    cut = [k for k in scales if k.startswith("features_3")]
+    assert len(cut) == SWIN_DEPTHS[1] and len(scales) == sum(SWIN_DEPTHS)
+    rs = _config(ranks, "swin_qkr")
+    for r in rs:
+        got = r[fault]["grads"]
+        for k in scales:
+            err = _rel_l2(got[k], want[k])
+            assert (err > SCALE_GRAD) == (k in cut), (k, err)
+        mates = [q for q in rs if q["mesh"][0] == r["mesh"][0]]
+        same = all(torch.equal(r[fault]["own_grads"][k],
+                               q[fault]["own_grads"][k])
+                   for q in mates for k in cut)
+        assert same == (fault == "softmax_grad_scale_local_heads")
+
+
+@pytest.mark.parametrize("key", CONFIG_DROPOUT)
+def test_config_dropout_masks_are_the_global_draw_cut(ranks, single, key):
+    """The window attentions' and MLPs' masks: the single process's, its
+    rows, cut to this rank's heads or columns where the tensor is cut
+    (stage 1), whole where it is not (stage 0's 3-head attention)."""
+    want = single["configs"][key]["cases"]["dropout"]["drawn"]
+    for r in _config(ranks, key):
+        d, m, W, P = r["mesh"]
+        got = r["dropout"]["drawn"]
+        assert len(got) == len(want) > 8
+        assert {a for _, a in got} == {None, 1, -1}
+        for (g, axis), (w, _) in zip(got, want):
+            n = w.shape[0] // W
+            w = w[d * n:(d + 1) * n]
+            if axis is not None:
+                k = w.shape[axis] // P
+                w = w.narrow(axis % w.ndim, m * k, k)
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("key", sorted(CONFIGS))
+def test_config_cga_masks(ranks, single, config_jax, key):
+    """CGA's masks on the slices, gathered: the single process's and
+    JAX's (with QKR Swin's reductions, whole, among them); the step's
+    parameters against the single process's in
+    `test_config_step_is_the_single_process_step`."""
+    want = single["configs"][key]["cases"]["cga"]["masks"]
+    jmasks = config_jax[key]["masks"]
+    assert set(want) == set(jmasks)
+    if CONFIGS[key]["family"] == "swin" and CONFIGS[key]["qkr"]:
+        assert any(k.endswith("reduction.kernel") for k in want)
+    for r in _config(ranks, key):
+        got = r["cga"]["masks"]
+        assert set(got) == set(want)
+        for k, w in want.items():
+            assert torch.equal(got[k], w), k
+            np.testing.assert_array_equal(got[k].numpy(), jmasks[k])
+    share = np.mean([(m == 0).float().mean().item() for m in want.values()])
+    assert 0 < share < 0.2
+
+
+@pytest.mark.parametrize("key", sorted(CONFIGS))
+def test_config_checkpoints_round_trip(ranks, single, key):
+    """`test_checkpoints_round_trip` for the other students: the sharded
+    start's file is one process's bit for bit, the file after the step
+    restores at mp 1 as the gathered state, one process's file restores
+    into the shards as their cut."""
+    res = single["configs"][key]
+    setup, ref = res["setup"], res["payload"]
+    rs = _config(ranks, key)
+    for r in rs:
+        assert r["checkpoints"]["round_trip"]
+    c0 = rs[0]["checkpoints"]
+    _same_tree(checkpoint.load(checkpoint.make_manager(c0["start_dir"]), 0),
+               ref)
+    payload = checkpoint.load(checkpoint.make_manager(c0["dir"]), 0)
+    m = tw._model(setup, {})
+    st = TrainState.create(m, make_optimizer(lambda c: 1e-3))
+    checkpoint.restore_into(payload, st, m)
+    for k, v in rs[0]["composed"]["params"].items():
+        assert torch.equal(st.params[k], v), k
+    cuts = _config_layout(key, single).cuts
+    for r in rs:
+        got = r["checkpoints"]["from_single"]
+        for key_, full in (("params", ref["params"]),
+                           ("mu", ref["opt_state"]["mu"])):
+            for k, v in full.items():
+                c = cuts.get(k)
+                want = v if c is None else c.local(v, r["mesh"][1])
+                assert torch.equal(got[key_][k],
+                                   want.to(got[key_][k].dtype)), k
+
+
+def test_swin_cli_world2_trains_finetunes_and_evaluates(world2):
+    """`cli.train`, `cli.cga` and `cli.eval` on the Swin student at
+    `--mesh-model-parallel 2` (pallas, K4's plain version): rank 0 writes
+    both experiments, the ranks report the same, and the eval of the CGA
+    checkpoint at mp 2 gives one process's top-1, top-5 and loss."""
+    r0, r1 = (r["swin"] for r in world2["runner"])
+    for exp in ("p1", "cga"):
+        assert sorted(os.listdir(os.path.join(world2["swin_out"], exp))) == [
+            "0", "args.yaml", "summary.csv"]
+    for what in ("train", "cga"):
+        assert r0[what] == r1[what]
+    single = world2["swin_single_eval"]
+    for got in (r0["eval"], r1["eval"]):
+        assert (got["top1"], got["top5"]) == (single["top1"],
+                                              single["top5"])
+        assert abs(got["loss"] - single["loss"]) <= 1e-5 * abs(
+            single["loss"])
+
+
 # ------------------------------------------------------------ refusals
 def _fake_mesh(world=2, mp=MP):
     return Mesh(world=world, rank=0, local_rank=0,
@@ -711,11 +1250,17 @@ def _small(policy=None, **conf):
                         device="cpu", **{**tw.DIMS, **conf})
 
 
+def _swin(policy=None, **conf):
+    return create_model(tw.SWIN, policy=policy or w2a2_qkr_swin_policy(
+        SWIN_DEPTHS), device="cpu", **{**tw.SWIN_DIMS, **conf})
+
+
+# Swin and the students without QKR shard (CONFIGS); what each family
+# does not shard yet still raises with its label
 REFUSED_MODELS = {
-    "swin": (lambda: create_model(
-        "swin_test", policy=QuantPolicy(), device="cpu"), "7.2c"),
-    "no_qkr": (lambda: _small(w2a2_deit_policy(DEPTH, qk_reparam=False)),
-               "7.2d"),
+    "swin": (lambda: _swin(QuantPolicy()), "7.2k"),
+    "no_qkr": (lambda: _small(w2a2_deit_policy(DEPTH, qk_reparam=False),
+                              matmul_impl="int8"), "7.2e"),
     "int8": (lambda: _small(matmul_impl="int8"), "7.2e"),
     "full_lsq": (lambda: _small(w2a2_deit_policy(DEPTH, wq_mode="lsq")),
                  "7.2f"),
@@ -728,6 +1273,16 @@ REFUSED_MODELS = {
     "prelu": (lambda: _small(dataclasses.replace(
         w2a2_qkr_policy(DEPTH), act_layer="prelu")), "7.2k"),
     "float": (lambda: _small(QuantPolicy()), "7.2k"),
+    "swin_int8": (lambda: _swin(matmul_impl="int8"), "7.2e"),
+    "swin_telemetry": (lambda: _swin(qqkkvv=True), "7.2g"),
+    "swin_remat": (lambda: _swin(remat_stages=(0,)), "7.2h"),
+    "swin_attn_remat": (lambda: _swin(attn_impl="remat"), "7.2h"),
+    "swin_batchnorm": (lambda: _swin(norm_layer="batchnorm"), "7.2i"),
+    "swin_frozen": (lambda: _swin(dataclasses.replace(
+        w2a2_qkr_swin_policy(SWIN_DEPTHS), weight_frozen=True)), "7.2j"),
+    "swin_prelu": (lambda: _swin(dataclasses.replace(
+        w2a2_swin_policy(SWIN_DEPTHS, qk_reparam=False),
+        act_layer="prelu")), "7.2k"),
 }
 
 
@@ -736,6 +1291,39 @@ def test_unported_models_refuse(what):
     make, item = REFUSED_MODELS[what]
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         parallel.shard_model(make(), _fake_mesh())
+
+
+# the properties `check_shardable` reads, the same on both families: each
+# configuration that turns one on, and the other family's counterpart
+REFUSAL_PROPERTIES = {
+    "deit": (_small, [dict(remat=True), dict(attn_impl="remat")],
+             [dict(qqkkvv=True), dict(return_features=True)],
+             lambda: w2a2_deit_policy(DEPTH, wq_mode="lsq"), True),
+    "swin": (_swin, [dict(remat_stages=(0,)), dict(attn_impl="remat")],
+             [dict(qqkkvv=True)],
+             lambda: w2a2_swin_policy(SWIN_DEPTHS, wq_mode="lsq"), False),
+}
+
+
+@pytest.mark.parametrize("family", sorted(REFUSAL_PROPERTIES))
+def test_refusals_read_properties_both_families_have(family):
+    """`cfg.remats`, `cfg.telemetry`, the model's `lsq_weights` and each
+    attention's `weight_bits`: off on the W2A2 student, on where a
+    configuration asks for it (Swin's linears are StatsQ ones whatever
+    the policy's weight mode)."""
+    from ofq_tpu_torch.nn.linear import LsqLinear
+    make, remats, telemetry, lsq_policy, lsq = REFUSAL_PROPERTIES[family]
+    m = make()
+    assert not m.cfg.remats and not m.cfg.telemetry and not m.lsq_weights
+    assert {blk.attn.weight_bits for _, blk in tensor._blocks(m)} == {2}
+    for conf in remats:
+        assert make(**conf).cfg.remats, conf
+    for conf in telemetry:
+        assert make(**conf).cfg.telemetry, conf
+    m = make(lsq_policy())
+    assert m.lsq_weights is lsq
+    assert any(isinstance(mod, LsqLinear) for mod in m.modules()) is lsq
+    assert {blk.attn.weight_bits for _, blk in tensor._blocks(m)} == {2}
 
 
 STEP_REFUSALS = {
@@ -776,14 +1364,62 @@ def test_sharded_serving_and_bf16_state_refuse():
 
 @pytest.mark.parametrize("world,mp,heads", [(2, 3, 4), (4, 4, 6), (2, 2, 3)])
 def test_model_parallel_must_divide(world, mp, heads):
-    """An mp that does not divide the world (make_mesh) or the heads
-    (shard_model) raises ValueError."""
+    """An mp that does not divide the world (make_mesh), or that divides
+    neither a block's heads nor its MLP's hidden width (shard_model:
+    mlp_ratio 1.125 gives 27 and 54 hidden units), raises ValueError."""
     if world % mp:
         with pytest.raises(ValueError, match="does not divide"):
             parallel.make_mesh(model_parallel=mp, device="cpu")
     else:
-        m = _small(embed_dim=8 * heads, num_heads=heads)
+        m = _small(embed_dim=8 * heads, num_heads=heads, mlp_ratio=1.125)
         with pytest.raises(ValueError, match="does not divide"):
             parallel.shard_model(m, _fake_mesh(world, mp))
     assert common.parse_args(["synthetic", "--mesh-model-parallel",
                               str(mp)]).mesh_model_parallel == mp
+
+
+@pytest.mark.parametrize("name,qkr,blocks,C", [
+    ("swin_t", True, 2, 96), ("swin_t", False, 2, 96),
+    ("deit_tiny_distilled_patch16_224", True, 12, 192)])
+def test_whole_attention_bytes_a_rank_holds_beyond_jaxs(name, qkr, blocks,
+                                                        C):
+    """At 2 model ranks the attentions whose 3 heads stay whole (Swin-T's
+    stage 0, every DeiT-T block) are the only leaves a rank holds whole
+    that JAX's `param_spec` halves (the q, k, v kernels and v's bias, or
+    `qkv`'s kernel and bias, and proj's kernel): fp32 bytes a rank holds
+    beyond JAX's layout, (4 C^2 + C) * 4 / 2 a block with QKR, (4 C^2 +
+    3 C) * 4 / 2 without."""
+    pol = (w2a2_qkr_swin_policy() if name == "swin_t" and qkr else
+           w2a2_swin_policy(qk_reparam=False) if name == "swin_t" else
+           w2a2_qkr_policy(12))
+    # the structure alone (no initializer: the cuts read shapes only)
+    m = (swin_models.swin_model(name, pol) if name == "swin_t"
+         else deit_models.deit_model(name, pol))
+    shapes = {n: p.shape for n, p in m.named_parameters()}
+    layout = parallel.shard_model(m, _fake_mesh())
+    cut = {n.split(".")[0] for n in layout.cuts if ".attn." in n}
+    extra = sum(math.prod(sh) * 4 // 2 for n, sh in shapes.items()
+                if ".attn." in n and n.split(".")[0] not in cut
+                and "model" in parallel.param_spec(n, sh))
+    assert extra == blocks * (4 * C * C + (1 if qkr else 3) * C) * 4 // 2
+    assert len({n.split(".")[0] for n in shapes if ".attn." in n}
+               - cut) == blocks
+
+
+@pytest.mark.parametrize("world,mp,heads,attention", [
+    (2, 2, 3, False), (4, 4, 6, False), (4, 2, 6, True), (4, 4, 4, True)])
+def test_model_parallel_that_divides_the_mlp_only(world, mp, heads,
+                                                  attention):
+    """Where mp divides the MLP's hidden width but not the heads, the
+    block's attention stays whole (num_heads, no `tp`, proj not
+    row-parallel) and its MLP is cut; where it divides both, both are."""
+    m = _small(embed_dim=8 * heads, num_heads=heads)
+    layout = parallel.shard_model(m, _fake_mesh(world, mp))
+    for name in ("blocks_0", "blocks_1"):
+        attn = getattr(m, name).attn
+        assert (attn.tp is not None) == attention
+        assert attn.num_heads == (heads // mp if attention else heads)
+        assert (attn.proj.tp is not None) == attention
+        assert (f"{name}.attn.q_kernel" in layout.cuts) == attention
+        assert f"{name}.mlp.fc1.kernel" in layout.cuts
+        assert getattr(m, name).mlp.fc2.tp[0] == "row"

@@ -1,10 +1,10 @@
 """Layer gradients of the port against the Flax modules of `ofq_tpu.nn`.
 
-For each layer: the Flax variables are made by `init` (x64), the
-zero-initialised shifts are set to seeded random values, the port loads
-them with `load_flax_params`, and one seeded cotangent goes back through
-`jax.vjp` and through the port's autograd (the port's module in train
-mode).  Compared: the output, dx and every parameter's gradient.
+For each layer: the Flax variables are made by a jitted `init` (x64),
+the zero-initialised shifts are set to seeded random values, the port
+loads them with `load_flax_params`, and one seeded cotangent goes back
+through `jax.vjp` of the jitted `apply` and through the port's autograd
+(the port's module in train mode).  Compared: the output, dx and every parameter's gradient.
 
   * composed branches and float layers in fp64: rtol 1e-9, except the
     gradients of LSQ scales (`s`) and LearnableBias shifts (`move*`),
@@ -23,7 +23,8 @@ import pytest
 import torch
 
 from test_torch_port_common import (  # noqa: F401 (jax_interpret: fixture)
-    jax_interpret, load_into, perturb, to_jax_tree, to_numpy_tree, x64)
+    jax_interpret, jit_x64_init, load_into, perturb, to_jax_tree,
+    to_numpy_tree, x64, x64_jit)
 
 from ofq_tpu.nn import attention as jattn
 from ofq_tpu.nn import conv as jconv
@@ -63,7 +64,7 @@ def _jax_vjp(jmod, variables, x, g_seed, dtype, mutable=()):
             return _out(out), upd
         return _out(jmod.apply({"params": p, **rest}, xx)), {}
 
-    y, vjp, upd = jax.vjp(f, v["params"], jnp.asarray(x, dtype),
+    y, vjp, upd = jax.vjp(jax.jit(f), v["params"], jnp.asarray(x, dtype),
                           has_aux=True)
     g = np.random.default_rng(g_seed).normal(size=y.shape).astype(dtype)
     gp, gx = vjp(jnp.asarray(g))
@@ -89,16 +90,13 @@ def _port_vjp(tmod, x, g):
 
 
 def _variables(jmod, x, seed, names=("bias",)):
-    with x64():
-        variables = to_numpy_tree(
-            jmod.init({"params": jax.random.key(seed)}, jnp.asarray(x)),
-            np.float64)
+    variables = jit_x64_init(jmod, jax.random.key(seed), x, np.float64)
     return perturb(variables, np.random.default_rng(seed), names=names)
 
 
 def _check_grads_fp64(jmod, tmod, x, seed=0, names=("bias",), mutable=()):
     variables = _variables(jmod, x, seed, names)
-    with x64():
+    with x64_jit():
         yj, g, gj, upd = _jax_vjp(jmod, variables, x, seed + 100,
                                   np.float64, mutable)
     load_into(tmod.double(), variables)

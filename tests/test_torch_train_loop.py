@@ -14,7 +14,8 @@ import optax
 import pytest
 import torch
 
-from test_torch_port_common import (jitted_init, perturb, to_jax_tree,
+from test_torch_port_common import (jit_x64_apply, jit_x64_init,
+                                    jitted_init, perturb, to_jax_tree,
                                     to_numpy_tree, x64)
 
 from ofq_tpu.models.deit import deit_model as jax_deit_model
@@ -255,13 +256,18 @@ def test_dropout_step_takes_a_generator(field):
 
 
 # ------------------------------------------------------------ the teacher
-def _teacher_variables(seed=1):
+@functools.lru_cache(maxsize=None)
+def _teacher_variables_once(seed):
     x = np.zeros((1, IMG, IMG, 3))
-    with x64():
-        v = jax_deit_model(NAME).init({"params": jax.random.key(seed)},
-                                      jnp.asarray(x), train=False)
-        return perturb(to_numpy_tree(v, np.float64),
-                       np.random.default_rng(seed), scale=0.1)
+    v = jit_x64_init(jax_deit_model(NAME), jax.random.key(seed), x,
+                     np.float64, train=False)
+    return perturb(v, np.random.default_rng(seed), scale=0.1)
+
+
+def _teacher_variables(seed=1):
+    """The float teacher's variables (a jitted init under x64, the biases
+    drawn from the seed), computed once per seed (a copy each call)."""
+    return copy.deepcopy(_teacher_variables_once(seed))
 
 
 def _port_teacher(variables):
@@ -276,11 +282,8 @@ def test_float_teacher_logits():
     variables = _teacher_variables()
     x = np.random.default_rng(2).normal(size=(BATCH, IMG, IMG, 3))
     jm = jax_deit_model(NAME)
-    with x64():
-        ev, _ = jm.apply(to_jax_tree(variables, np.float64), jnp.asarray(x),
-                         train=False)
-        (cl, dl), _ = jm.apply(to_jax_tree(variables, np.float64),
-                               jnp.asarray(x), train=True)
+    ev, _ = jit_x64_apply(jm, variables, x, train=False)
+    (cl, dl), _ = jit_x64_apply(jm, variables, x, train=True)
     t = _port_teacher(variables)
     assert not list(t.buffers())
     with torch.no_grad():

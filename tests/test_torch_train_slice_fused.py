@@ -1,8 +1,8 @@
 """One train step of the fused configuration against
 `ofq_tpu.train.make_train_step`, in fp32: the port's plain versions of the
 kernels (the CPU path of the wrappers) against JAX's Pallas kernels in
-interpret mode, from the same parameters, `quant_stats` and mid-run Adam
-state as `test_torch_train_slice.py`.
+interpret mode (its step jitted), from the same parameters, `quant_stats`
+and mid-run Adam state as `test_torch_train_slice.py`.
 """
 
 import jax
@@ -36,8 +36,8 @@ def test_fused_step_fp32(jax_interpret):
                             weight_decay=0.05)
     jm = jax_deit_model(NAME, _jax_policy(), matmul_impl="fused",
                         attn_impl="fused")
-    jstep = jax_make_train_step(jm, tx, teacher=jax_deit_model(NAME),
-                                loss_kind="kd_soft_hard")
+    jstep = jax.jit(jax_make_train_step(jm, tx, teacher=jax_deit_model(NAME),
+                                        loss_kind="kd_soft_hard"))
     jst = _jax_state(tx, variables, mu, nu, np.float32)
     jst, jmet = jstep(jst, {k: jnp.asarray(v) for k, v in batch.items()},
                       jax.random.key(0),

@@ -10,9 +10,13 @@ small DeiT W2A2 QKR student, shards it, runs the eval forward on this
 rank's rows, then takes one step of each case of the setup from the
 calibrated start (the composed, fused and pallas configurations on the
 kernels' plain versions, dropout, CGA), gathers what it computed, writes
-and restores checkpoints; `all` also fits the student through the
-`Runner` with `--mesh-model-parallel` and evaluates the checkpoint through
-`cli.eval.main`.  Each rank writes its results to
+and restores checkpoints; then the same for each of the setup's
+`configs` (the Swin students with and without QKR, DeiT-T's 3 heads, the
+DeiT student without QKR: each a setup of its own, with its model's
+`name` and `dims`).  `all` also fits the DeiT and Swin students through
+the `Runner` with `--mesh-model-parallel` and evaluates the checkpoints
+through `cli.eval.main`.  A setup's `faults` ({fault: case}) also take
+that case's step with one of FAULTS planted.  Each rank writes its results to
 `<out_dir>/<what>.rank<r>.pt`.  The test's own process calls `run_case`
 and `calibrated_start` with `mesh=None` for the single process's results
 on the global batch.
@@ -20,6 +24,7 @@ on the global batch.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -33,11 +38,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
 from ofq_tpu_torch.calibrate import calibrate  # noqa: E402
 from ofq_tpu_torch.models import create_model  # noqa: E402
 from ofq_tpu_torch.models import deit as deit_models  # noqa: E402
+from ofq_tpu_torch.models import swin as swin_models  # noqa: E402
 from ofq_tpu_torch.nn import dropout as dropout_mod  # noqa: E402
+from ofq_tpu_torch.nn import quantizers  # noqa: E402
 from ofq_tpu_torch.parallel import (host_batch_slice,  # noqa: E402
                                     initialize_multihost, make_mesh,
                                     shard_model, shard_params)
+from ofq_tpu_torch.parallel.tensor import copy_to_model  # noqa: E402
 from ofq_tpu_torch.quant import QuantPolicy, statsq_scale  # noqa: E402
+from ofq_tpu_torch.quant.lsq import lsq_quantize  # noqa: E402
 from ofq_tpu_torch.train import (TrainState, constant_lr,  # noqa: E402
                                  cosine_with_warmup_cooldown, freeze_masks,
                                  make_optimizer, make_train_step)
@@ -49,11 +58,51 @@ DIMS = dict(embed_dim=32, num_heads=4, num_classes=10)
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
+SWIN = "swin_test"
+# the small Swin of the tests: a 3-head stage, which 2 model ranks do not
+# divide (its attention stays whole), and a 4-head one; 2 x 2 windows, so
+# that both stages' second blocks are shifted
+SWIN_DIMS = dict(num_heads=(3, 4), depths=(2, 2), window_size=2,
+                 num_classes=10)
+
+
 def small_variant():
-    """`deit_test_distilled` at DIMS, in the port's variant table (the
-    runner builds its models by name)."""
+    """`deit_test_distilled` at DIMS and `swin_test` at SWIN_DIMS, in the
+    port's variant tables (the runner builds its models by name)."""
     deit_models.VARIANTS[NAME] = dataclasses.replace(
         deit_models.VARIANTS[NAME], **DIMS)
+    swin_models.VARIANTS[SWIN] = dataclasses.replace(
+        swin_models.VARIANTS[SWIN], **SWIN_DIMS)
+
+
+# faults in the backward of the softmax scales whose input is cut on the
+# head axis (`LsqAct.tp` axis 1): ds left this rank's heads' partial sum
+# (no f; the ranks then differ), or the LSQ grad-scale factor counting
+# this rank's heads (f kept; the same wrong gradient on every rank)
+FAULTS = ("softmax_ds_unreduced", "softmax_grad_scale_local_heads")
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """One of FAULTS in effect."""
+    real = quantizers.LsqAct.forward
+
+    def forward(self, x):
+        if self.tp is None or self.tp[0] != 1:
+            return real(self, x)
+        axis, mesh = self.tp
+        s, model = self.s, (axis, mesh.model_parallel)
+        if fault == "softmax_grad_scale_local_heads":
+            s, model = copy_to_model(s, mesh), None
+        return lsq_quantize(x, s, self.bit, all_positive=self.all_positive,
+                            channel_axis=self.channel_axis, model=model)
+
+    assert fault in FAULTS
+    quantizers.LsqAct.forward = forward
+    try:
+        yield
+    finally:
+        quantizers.LsqAct.forward = real
 
 
 class Recording:
@@ -77,8 +126,9 @@ def _lr(spec):
 
 
 def _model(setup, conf, policy=None, dtype=None):
-    m = create_model(NAME, policy=policy or setup["policy"], device="cpu",
-                     **DIMS, **conf)
+    m = create_model(setup.get("name", NAME),
+                     policy=policy or setup["policy"], device="cpu",
+                     **setup.get("dims", DIMS), **conf)
     return m.to(DTYPES[dtype or setup["dtype"]])
 
 
@@ -143,7 +193,9 @@ def run_case(setup: dict, case: dict, calibrated: dict, mesh=None,
         cga = case["step_kw"]["cga"]
         got = freeze_masks(state.params, bits=cga["bits"],
                            boundary_range=cga["boundary_range"],
-                           qk_reparam=cga["qk_reparam"], layout=layout)
+                           qk_reparam=cga["qk_reparam"],
+                           model_type=cga.get("model_type", "deit"),
+                           layout=layout)
         masks = _gather({k: v for k, v in got.items() if v is not None},
                         layout)
     step = make_train_step(m, opt, teacher=teacher, loss_kind="kd_soft_hard",
@@ -196,25 +248,41 @@ def checkpoints(setup: dict, res: dict, out_dir: str, mesh) -> dict:
                                  mu=_clone(state.opt_state.mu)))
 
 
-def steps(setup: dict, out_dir: str, mesh) -> None:
+def run_config(setup: dict, out_dir: str, mesh) -> dict:
+    """The calibrated start, the eval logits and every case's step of one
+    setup; its checkpoint case also writes and reads checkpoints under
+    `out_dir`."""
     start = calibrated_start(setup, mesh)
     out = dict(logits=start["logits"], calibrated=start["calibrated"],
                mesh=(mesh.data_index, mesh.model_index, mesh.data_world,
                      mesh.model_parallel))
+    for name, case in setup["cases"].items():
+        ckpt = name == setup["checkpoint_case"]
+        res = run_case(setup, case, start["calibrated"], mesh,
+                       ckpt_dir=(os.path.join(out_dir, "ckpt_start")
+                                 if ckpt else None))
+        if ckpt:
+            out["checkpoints"] = checkpoints(setup, res, out_dir, mesh)
+        del res["state"], res["model"]
+        out[name] = res
+    for fault, name in setup.get("faults", {}).items():
+        with planted(fault):
+            res = run_case(setup, setup["cases"][name], start["calibrated"],
+                           mesh)
+        out[fault] = dict(grads=res["grads"], own_grads=res["own_grads"])
+    return out
+
+
+def steps(setup: dict, out_dir: str, mesh) -> None:
+    out = run_config(setup, out_dir, mesh)
     # the group's StatsQ scale from this rank's rows of a kernel
     w = torch.from_numpy(setup["kernel"])
     n = w.shape[0] // mesh.model_parallel
     rows = w[mesh.model_index * n:(mesh.model_index + 1) * n]
     out["scale"] = (statsq_scale(w), statsq_scale(rows, mesh=mesh))
-    for name, case in setup["cases"].items():
-        res = run_case(setup, case, start["calibrated"], mesh,
-                       ckpt_dir=(os.path.join(out_dir, "ckpt_start")
-                                 if name == setup["checkpoint_case"]
-                                 else None))
-        if name == setup["checkpoint_case"]:
-            out["checkpoints"] = checkpoints(setup, res, out_dir, mesh)
-        del res["state"], res["model"]
-        out[name] = res
+    out["configs"] = {
+        key: run_config(conf, os.path.join(out_dir, key), mesh)
+        for key, conf in setup.get("configs", {}).items()}
     torch.save(out, os.path.join(out_dir, f"steps.rank{mesh.rank}.pt"))
 
 
@@ -230,6 +298,13 @@ def runner(setup: dict, out_dir: str, mesh) -> None:
                params={k: v.detach().clone()
                        for k, v in r.model.named_parameters()})
     out["eval"] = cli_eval.main(setup["eval"], device="cpu")
+    if "swin" in setup:
+        from ofq_tpu_torch.cli import cga as cli_cga
+        from ofq_tpu_torch.cli import train as cli_train
+        sw = setup["swin"]
+        out["swin"] = dict(train=cli_train.main(sw["fit"], device="cpu"),
+                           cga=cli_cga.main(sw["cga"], device="cpu"),
+                           eval=cli_eval.main(sw["eval"], device="cpu"))
     torch.save(out, os.path.join(out_dir, f"runner.rank{mesh.rank}.pt"))
 
 
