@@ -243,14 +243,17 @@ The training CLI (`phase_cli`, in a temporary directory, synthetic data):
  21. the ImageFolder input pipeline (`phase_imagefolder`): (a) every
      fixture of tests/torch_fixtures/imagefolder decoded on the card
      against TensorFlow's decode stored beside it (JPEG through nvJPEG
-     within JPEG_GATE, its per-image time; PNG, BMP exact; the CMYK JPEG
-     refused, naming the file); (b) one set of draws through the train
+     within JPEG_GATE, its per-image time; the 4-component CMYK and YCCK
+     JPEGs through nvJPEG's planes and the `ofq_cmyk_to_rgb` kernel, bit-
+     equal to its plain version on the same planes; PNG, BMP, GIF exact);
+     (e) the conversion kernel timed at 320 x 240; (b) one set of draws through the train
      and eval transforms and every RandAugment op on the card and the
      CPU (gathers and integer ops exact, the rest within one level); (d)
      the train stream's images/s at B = 64, 224 px, on JPEG copies and
      on the fixture mix, and one batch by part; (c) the recipe's train,
      CGA and eval commands on an ImageFolder of fixture copies at DeiT-S
-     width (36 K1 + 12 K2 + 12 K3 a step, nvJPEG launched, eval equal to
+     width (36 K1 + 12 K2 + 12 K3 a step, nvJPEG and the conversion
+     kernel launched, eval equal to
      `Predictor.from_experiment`); an `[imagefolder]` line with the
      decode and stream rates and the CLI step on ImageFolder against
      synthetic data (wall s of the step and of the input before it).
@@ -265,9 +268,15 @@ The training CLI (`phase_cli`, in a temporary directory, synthetic data):
      gradients held whole bit-equal across the ranks; the sharded serving
      forward's block and top-1 gates; TP_FAULTS tripping the rule; a CGA
      step; the recipe's train and eval with --mesh-model-parallel 2, the
-     eval equal to one process's.  Phases 3, 4 and 7 also hold K1, K2, K3
-     (3 heads) and K4 at those shapes against their plain versions (K1
-     bit for bit).
+     eval equal to one process's; Swin-T's pallas bf16 step and DeiT-T's
+     fused step, the cut window attentions' softmax-scale gradients
+     against one process's kernel path; the int8 DeiT-S step at B=144
+     and its sharded serving bit-equal to one process's, the Swin-T int8
+     step, the full-LSQ DeiT-S step and the fused bf16 options step (bf16
+     masters, EMA, AGC then norm clipping, dampening, the oscillation
+     hook, per-layer norms, kd_qkv) against one process.  Phases 3, 4 and
+     7 also hold K1, K2, K3 (3 heads) and K4 at those shapes against their
+     plain versions (K1 bit for bit).
 The agreement gates: fp32, the kernel path against the plain path; bf16,
 each path against a rounded-once reference (the plain path with every
 product summed in fp64 and rounded once to the dtype it returns), the
@@ -5287,9 +5296,11 @@ def _fixtures():
 
 def phase_decode(dev):
     """(a) every fixture decoded on the card against TensorFlow's decode:
-    PNG and BMP (host numpy, moved to the card) exact; JPEG (nvJPEG) within
-    JPEG_GATE, or, for a 4-component CMYK frame, a DecodeError naming the
-    file; per JPEG form the decode rate over DECODE_REPS decodes."""
+    PNG, BMP and GIF (host numpy, moved to the card) exact; JPEG (nvJPEG)
+    within JPEG_GATE, the 4-component CMYK and YCCK frames through
+    nvJPEG's planes and the `ofq_cmyk_to_rgb` kernel, which must give its
+    plain version's bits on the same planes; per JPEG form the decode rate
+    over DECODE_REPS decodes."""
     import numpy as np
     import torch
     from ofq_tpu_torch.data import decode
@@ -5298,15 +5309,7 @@ def phase_decode(dev):
         form = decode.image_form(data)
         info = (decode.jpeg_info(data, name, dev) if form == "jpeg"
                 else None)
-        try:
-            img = decode.decode_image(data, name, dev)
-        except decode.DecodeError as e:
-            if not (info and info["components"] == 4 and name in str(e)):
-                raise
-            log(f"[decode] {name}: refused, {e}")
-            rows.append(dict(name=name, form=form, info=info,
-                             refused=str(e)))
-            continue
+        img = decode.decode_image(data, name, dev)
         torch.cuda.synchronize()
         if img.device != dev or img.dtype != torch.uint8 or \
                 tuple(img.shape) != ref.shape:
@@ -5317,6 +5320,19 @@ def phase_decode(dev):
                    mean=float(d.mean()),
                    p999=float(np.percentile(d, 99.9)), max=int(d.max()),
                    differing=int((d > 0).sum()))
+        if info is not None and info["components"] == 4:
+            # the conversion kernel against its plain version, same planes
+            t = decode.adobe_transform(data)
+            planes = decode.jpeg_planes(data, name, dev, info)
+            args = (planes, t not in (None, 0), t is not None,
+                    info["height"], info["width"])
+            k = decode.cmyk_to_rgb(*args)
+            p = decode.cmyk_to_rgb_reference(*args)
+            row.update(adobe_transform=t, kernel_vs_plain_differing=int(
+                (k != p).sum()))
+            if row["kernel_vs_plain_differing"]:
+                raise AssertionError(f"{name}: ofq_cmyk_to_rgb differs from "
+                                     f"its plain version: {row}")
         if form == "jpeg":
             fn = lambda: decode.decode_jpeg(data, name, dev)  # noqa: E731
             fn()
@@ -5335,7 +5351,11 @@ def phase_decode(dev):
             f"mean {row['mean']:.4f}, p99.9 {row['p999']:.1f}, max "
             f"{row['max']} levels, {row['differing']} differing"
             + (f"; {row['ms']:.3f} ms an image ({row['images_per_s']:.0f}"
-               f" images/s)" if "ms" in row else ""))
+               f" images/s)" if "ms" in row else "")
+            + (f"; Adobe transform {row['adobe_transform']}, "
+               f"ofq_cmyk_to_rgb vs its plain version: "
+               f"{row['kernel_vs_plain_differing']} bytes differing"
+               if "adobe_transform" in row else ""))
         if not ok:
             raise AssertionError(f"{name}: decode outside its gate "
                                  f"{JPEG_GATE if form == 'jpeg' else 0}: "
@@ -5343,6 +5363,40 @@ def phase_decode(dev):
         rows.append(row)
         images[name] = img
     return rows, images
+
+
+# the conversion kernel timed at ImageNet's small end
+CMYK_SHAPE = (240, 320)
+
+
+def phase_cmyk_kernel(dev):
+    """(e) `ofq_cmyk_to_rgb` at CMYK_SHAPE on seeded 4:4:4 planes, CMYK
+    and YCCK under an Adobe marker: bit-equal to its plain version,
+    median of 20 through the wrapper (CUDA events), the plain version's
+    time on the card, its bound (4 bytes in, 3 out a pixel)."""
+    import torch
+    from ofq_tpu_torch.data import decode
+    H, W = CMYK_SHAPE
+    g = torch.Generator(device=dev).manual_seed(0)
+    planes = [torch.randint(0, 256, (H, W), generator=g, device=dev,
+                            dtype=torch.uint8) for _ in range(4)]
+    rows = []
+    for ycck in (False, True):
+        args = (planes, ycck, True, H, W)
+        err = int((decode.cmyk_to_rgb(*args).int()
+                   - decode.cmyk_to_rgb_reference(*args).int()).abs().max())
+        ms = median_ms(lambda: decode.cmyk_to_rgb(*args))
+        plain_ms = median_ms(lambda: decode.cmyk_to_rgb_reference(*args))
+        t, by = bound(H * W * 7, 0, PEAK_FP32_FLOPS)
+        rows.append(dict(ycck=ycck, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=t, bound_by=by))
+        log(f"[decode] ofq_cmyk_to_rgb {'YCCK' if ycck else 'CMYK'} "
+            f"{H}x{W}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {t:.5f} "
+            f"by {by}), max |kernel - plain| {err}")
+        if err:
+            raise AssertionError(f"ofq_cmyk_to_rgb differs from its plain "
+                                 f"version: {rows[-1]}")
+    return rows
 
 
 def phase_transforms(dev, images):
@@ -5489,10 +5543,10 @@ def phase_imagefolder(dev, deit="deit_small_distilled_patch16_224",
     out = {}
     rows, images = phase_decode(dev)
     out["decode"] = rows
+    out["cmyk_kernel"] = phase_cmyk_kernel(dev)
     out["transforms"] = phase_transforms(dev, images)
     del images
-    usable = [f for f in _fixtures()
-              if not any(r["name"] == f[0] and "refused" in r for r in rows)]
+    usable = _fixtures()
     tmp = tempfile.mkdtemp(prefix="ofq_imagefolder_")
     spy = CliSpy()
     try:
@@ -5521,20 +5575,24 @@ def phase_imagefolder(dev, deit="deit_small_distilled_patch16_224",
         t0 = time.perf_counter()
         ops.reset_launch_counts()
         decode.decode_jpeg.launches = 0
+        decode.cmyk_to_rgb.launches = 0
         with spy.active():
             cli_train.main(p1 + common + ["--experiment", "if1"], device=dev)
         launches = ops.launch_counts()
         jpeg_launches = decode.decode_jpeg.launches
+        cmyk_launches = decode.cmyk_to_rgb.launches
         rec = spy.take()
         cfg = rec["runners"][0].model.cfg
         want = _expected(FUSED, cfg, train=True)
         _check_steps("(c) ImageFolder phase 1", rec["steps"], want, steps)
-        if jpeg_launches <= 0:
-            raise AssertionError("(c) the train run decoded no JPEG")
+        if jpeg_launches <= 0 or cmyk_launches <= 0:
+            raise AssertionError(f"(c) the train run decoded {jpeg_launches}"
+                                 f" JPEGs, {cmyk_launches} of 4 components")
         out["train"] = _cli_line("(c) ImageFolder phase 1", t0, rec,
                                  launches)
         out["train"].update(
             per_step=rec["steps"][0]["launches"], jpeg_launches=jpeg_launches,
+            cmyk_launches=cmyk_launches,
             step_s=[s["seconds"] for s in rec["steps"]],
             input_s=[s["input_s"] for s in rec["steps"]])
         t0 = time.perf_counter()
@@ -5616,8 +5674,7 @@ def decode_row(full):
                 bound_ms=t_bytes, bound_by=by, library_ms=main["ms"],
                 forms={r["name"]: dict(ms=r["ms"], mean=r["mean"],
                                        p999=r["p999"], max=r["max"])
-                       for r in jpeg},
-                refused=[r["name"] for r in im["decode"] if "refused" in r])
+                       for r in jpeg})
 
 
 def _eval_batches(data_cfg):
@@ -5661,9 +5718,9 @@ class RecordingOptimizer:
     def __getattr__(self, name):
         return getattr(self.opt, name)
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, **kw):
         self.grads = {k: g.detach().clone() for k, g in grads.items()}
-        return self.opt.update(grads, state, params)
+        return self.opt.update(grads, state, params, **kw)
 
 
 @contextlib.contextmanager
@@ -6221,7 +6278,38 @@ TP_DEIT_T = "deit_tiny_distilled_patch16_224"   # 3 heads: every attention
 # sharded Swin-T eval forward, each cut relative-position bias table
 # holding the other rank's heads' columns (the block gate)
 TP_FAULTS = ("local_statsq_scale", "softmax_ds_unreduced",
-             "window_softmax_ds_unreduced", "rel_table_wrong_heads")
+             "window_softmax_ds_unreduced", "rel_table_wrong_heads",
+             "window_softmax_grad_scale_local_heads")
+# the int8 TP step at bench.py's headline batch (bench.py:65, B=144)
+INT8_TP_BATCH = 144
+# the window softmax scales' gradients of the fp32-stream Swin-T int8 TP
+# step against one process's (PERF.md section 6): its forward is one
+# process's bits (exact int32 sums, the epilogue once), the ranks sum the
+# heads' partial ds in another fp32 order; a grad-scale factor at the
+# local heads moves them by sqrt(TP) - 1 = 41 %: the limit lies between.
+# (Where the forward's codes flip, the two differ by 26-52 % from rounding
+# alone: the bf16 pallas step, and K4's fp32 partial sums; PERF.md.)
+WINDOW_DS_LIMIT = 0.2
+# the options TP step (fused bf16, bf16 masters): a constant lr (the
+# masters move by several bf16 ulps), AGC then norm clipping, the EMA, the
+# dampening loss, the oscillation hook, per-layer norms and kd_qkv
+OPT_LR = 5e-4
+OPT_AGC, OPT_NORM = 0.02, 0.5
+OPT_EMA = 0.99
+OPT_DAMP = dict(bits=2, weighting=0.05)
+OPT_OSC = dict(bits=2, momentum=0.3, freeze_threshold=0.05, qk_reparam=True,
+               model_type="deit")
+# their gates against one process with the same options: `test_torch_
+# tensor_parallel.test_bf16_step`'s bounds (a master within 2.1 lr, plus
+# one bf16 ulp of its value, of one process's after each step, but where
+# the hook pinned it in either process: a discrete choice that a code on
+# the other side of a level boundary moves; the per-layer gradient norms
+# within 20 %), the hook's EMA mean, the codes it saw change and the
+# entries it froze within 5 % (+ 64), the dampening term's gradients
+# (fp32 sums of one formula) within 1e-5 relative L2
+OPT_NORMS = 0.2
+OPT_HOOK = 0.05
+OPT_DAMP_GRADS = 1e-5
 
 
 def _tp_steps(deit, swin, deit_t):
@@ -6294,6 +6382,19 @@ def tp_fault(fault):
         # the scale (1-D) keeps its partial ds; the shared input its sum
         sites = [(attention, "copy_to_model",
                   lambda t, mesh: t if t.ndim == 1 else real(t, mesh))]
+    elif fault == "window_softmax_grad_scale_local_heads":
+        real_fwd = quantizers.LsqAct.forward
+        from ofq_tpu_torch.parallel.tensor import copy_to_model
+
+        def forward(self, x):
+            if self.tp is None or self.tp[0] != 1:
+                return real_fwd(self, x)
+            # f kept, the grad-scale factor at this rank's heads: the
+            # same wrong gradient on every rank
+            return lsq_quantize(x, copy_to_model(self.s, self.tp[1]), self.bit,
+                                all_positive=self.all_positive,
+                                channel_axis=self.channel_axis)
+        sites = [(quantizers.LsqAct, "forward", forward)]
     elif fault == "window_softmax_ds_unreduced":
         real_fwd = quantizers.LsqAct.forward
 
@@ -6390,6 +6491,7 @@ def tp_step(mesh, full, teacher, data, *, cga=None, fault=None,
         loss=float(met["loss"]), launches=ops.launch_counts(),
         shapes={**_shapes(ops.fused_qlinear_fwd),
                 **_shapes(ops.pallas_statsq_fwd)},
+        int8_shapes=_shapes(ops.int8_mm),
         grads=_cpu(layout.gather(opt.grads)),
         whole=_cpu({n: g for n, g in opt.grads.items()
                     if n not in layout.cuts}),
@@ -6415,6 +6517,198 @@ def tp_step(mesh, full, teacher, data, *, cga=None, fault=None,
     del student, state, step
     _empty_cache()
     return res
+
+
+def _tp_new_steps(deit, swin):
+    """(key, configuration, model name, overrides, batch, policy) of the
+    TP steps of the int8 core, full-LSQ weights and the step's options:
+    DeiT-S W2A2 QKR int8 at bench.py's headline batch,
+    Swin-T int8 at bench.py's Swin row, in the bf16 stream and in the fp32
+    stream (its forward one process's bits: the window softmax scales'
+    gradients against one process's; with K4's fp32 partial sums, or in
+    the bf16 stream, a W2A2 forward's flipped codes move them 26-52 %),
+    full-LSQ DeiT-S fused fp32, the fused bf16 options step with the q, k
+    and v Grams."""
+    from ofq_tpu_torch.quant import w2a2_deit_policy
+    lsq = w2a2_deit_policy(12, qk_reparam=False, wq_mode="lsq")
+    return (("int8", INT8, deit, None, INT8_TP_BATCH, None),
+            ("swin_int8", INT8, swin, SWIN_BENCH, SWIN_INT8_TRAIN_BATCH,
+             None),
+            ("swin_fp32", dict(INT8, compute_dtype=None), swin,
+             SWIN_BENCH, SWIN_INT8_TRAIN_BATCH, None),
+            ("lsq", FUSED, deit, None, BATCH, lsq),
+            ("options", FUSED_BF16, deit, dict(qqkkvv=True), BATCH, None))
+
+
+def tp_int8_serving(mesh, full, batches):
+    """The sharded int8 student's eval forward against one process's (the
+    same kernel path) on `batches`: the images whose probabilities are
+    bit-equal, one forward's `int8_mm` launches and shapes."""
+    import copy
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.parallel import shard_model
+    m = copy.deepcopy(full).eval()
+    dev = mesh.device
+
+    def probs(bs):
+        return [torch.softmax(m(torch.from_numpy(b).to(dev)).float(), -1)
+                for b in bs]
+
+    with torch.inference_mode():
+        p_single = probs(batches)
+    shard_model(m, mesh)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        p_k = probs(batches[:1])
+        _sync()
+        launches, shapes = ops.launch_counts(), _shapes(ops.int8_mm)
+        p_k += probs(batches[1:])
+    a, b = torch.cat(p_k), torch.cat(p_single)
+    out = dict(same=int((a == b).all(-1).sum()), images=len(a),
+               max_abs_diff=float((a - b).abs().max()),
+               finite=bool(torch.isfinite(a).all()), launches=launches,
+               shapes=shapes)
+    del m
+    _empty_cache()
+    return out
+
+
+def tp_options_step(mesh, full, teacher, data):
+    """Two steps of the fused bf16 student with the options (bf16 masters,
+    the EMA, kd_qkv, the dampening loss, the oscillation hook, per-layer
+    gradient norms; AGC in the first, norm clipping in the second), on a
+    copy of `full`; `mesh` None: one process.  Returns the first step's
+    gradients (before clipping), those of the dampening term alone at the
+    start, the loss, the launches, the per-layer norms and the hook's
+    EMA mean, the codes the hook saw change; after each step the masters
+    and the EMA (full tensors, on the host)."""
+    import copy
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.parallel import shard_params
+    from ofq_tpu_torch.train import (TrainState, constant_lr, make_optimizer,
+                                     make_train_step)
+    from ofq_tpu_torch.train.losses import dampening_loss
+    from ofq_tpu_torch.train.oscillation_hook import init_oscillation_states
+    student = copy.deepcopy(full)
+    dev = data["image"].device
+    opts = [RecordingOptimizer(make_optimizer(
+        constant_lr(OPT_LR), weight_decay=0.05, clip_grad=c, clip_mode=m))
+        for c, m in ((OPT_AGC, "agc"), (OPT_NORM, "norm"))]
+    state = TrainState.create(student, opts[0], ema=True,
+                              master_dtype="bfloat16")
+    state.extra = {"oscillation": init_oscillation_states(
+        state.params, bits=OPT_OSC["bits"], qk_reparam=True)}
+    if mesh is not None:
+        state = shard_params(state, mesh, student)
+    layout = state.tp
+    full_of = (lambda t: t) if layout is None else layout.gather
+    work = dict(student.named_parameters())
+    damp = dampening_loss(work, OPT_DAMP["bits"], OPT_DAMP["weighting"],
+                          layout)
+    dg = torch.autograd.grad(damp, list(work.values()), allow_unused=True)
+    damp_grads = {n: g for n, g in zip(work, dg) if g is not None}
+    before = {n: st.prev_x_int.clone() for n, st in
+              state.extra["oscillation"].items()}
+    kw = dict(teacher=teacher, loss_kind="kd_qkv", device=dev, mesh=mesh,
+              ema_decay=OPT_EMA, dampening=OPT_DAMP, oscillation=OPT_OSC,
+              master_dtype="bfloat16", per_layer_grad_norms=True)
+    res, after = {}, []
+    for i, opt in enumerate(opts):
+        step = make_train_step(student, opt, **kw)
+        ops.reset_launch_counts()
+        state, met = step(state, data)
+        _sync()
+        if i == 0:
+            changed = sum(int((st.prev_x_int != before[n]).sum())
+                          for n, st in state.extra["oscillation"].items())
+            if layout is not None:
+                from ofq_tpu_torch.parallel.tensor import model_sum
+                whole = sum(int((st.prev_x_int != before[n]).sum())
+                            for n, st in state.extra["oscillation"].items()
+                            if n not in layout.cuts)
+                changed = int(model_sum(torch.tensor(
+                    changed - whole, device=dev), mesh)) + whole
+            res.update(
+                loss=float(met["loss"]), damp=float(damp.detach()),
+                launches=ops.launch_counts(),
+                grads=_cpu(full_of(opts[0].grads)),
+                damp_grads=_cpu(full_of(damp_grads)),
+                norms={k: float(v) for k, v in met.items()
+                       if k.startswith("grad_norm/")},
+                grad_norm=float(met["grad_norm"]),
+                ema_mean=float(met["oscillation/ema_mean"]),
+                codes_changed=changed, peak_gb=_peak_gb(),
+                param_bytes=sum(p.numel() * p.element_size()
+                                for p in state.params.values()))
+        osc = state.extra["oscillation"]
+        if layout is not None:
+            osc = layout.gather_states(osc)
+        # host copies (on the CPU `.cpu()` would alias the live state)
+        after.append(dict(
+            frozen={k: st.frozen.to("cpu", copy=True)
+                    for k, st in osc.items()},
+            masters={k: v.detach().to("cpu", copy=True)
+                     for k, v in full_of(state.params).items()},
+            ema={k: v.detach().to("cpu", copy=True)
+                 for k, v in full_of(state.ema_params).items()},
+            loss=float(met["loss"])))
+    res["after"] = after
+    del student, state, step
+    _empty_cache()
+    return res
+
+
+def _options_gate(label, rs, single, lr):
+    """The options TP step of every rank against one process's (OPT_*)."""
+    import torch
+    bad = []
+    for i, r in enumerate(rs):
+        for k, w in single["norms"].items():
+            if abs(r["norms"][k] - w) > OPT_NORMS * w:
+                bad.append((i, k, r["norms"][k], w))
+        for what in ("ema_mean", "codes_changed"):
+            w = single[what]
+            if abs(r[what] - w) > OPT_HOOK * abs(w) + (
+                    64 if what == "codes_changed" else 1e-6):
+                bad.append((i, what, r[what], w))
+        for k, w in single["damp_grads"].items():
+            if _rel(r["damp_grads"][k], w) > OPT_DAMP_GRADS:
+                bad.append((i, "damp_grad " + k))
+        for n, (a, b) in enumerate(zip(r["after"], single["after"])):
+            frozen = [int(sum(int(f.sum()) for f in x["frozen"].values()))
+                      for x in (a, b)]
+            if abs(frozen[0] - frozen[1]) > OPT_HOOK * frozen[1] + 64:
+                bad.append((i, f"step {n + 1} frozen", *frozen))
+            for key in ("masters", "ema"):
+                worst = (0.0, "")
+                for k, w in b[key].items():
+                    d = (a[key][k].float() - w.float()).abs()
+                    if k in b["frozen"]:
+                        # an entry the hook pinned (in either process) moved
+                        # by its level, not by the update
+                        d[b["frozen"][k] | a["frozen"][k]] = 0
+                    lim = (n + 1) * 2.1 * lr + w.float().abs() * 2.0 ** -8
+                    worst = max(worst, (float((d / lim).max()), k))
+                if worst[0] > 1:
+                    bad.append((i, f"step {n + 1} {key}", *worst))
+    log(f"[tp] (d) {label}: against one process with the same options: "
+        f"loss {rs[0]['loss']:.6f} / {single['loss']:.6f} (dampening "
+        f"{rs[0]['damp']:.6e} / {single['damp']:.6e}); per-layer norms "
+        f"{len(single['norms'])}, the largest relative difference "
+        f"{max(abs(rs[0]['norms'][k] - w) / w for k, w in single['norms'].items()):.3e}"
+        f" (limit {OPT_NORMS}); the hook's EMA mean {rs[0]['ema_mean']:.6e}"
+        f" / {single['ema_mean']:.6e}, codes changed "
+        f"{rs[0]['codes_changed']} / {single['codes_changed']}, entries "
+        f"frozen after each step "
+        f"{[sum(int(f.sum()) for f in x['frozen'].values()) for x in rs[0]['after']]}"
+        f" / {[sum(int(f.sum()) for f in x['frozen'].values()) for x in single['after']]}"
+        f"; step 2 "
+        f"(norm clipping) loss {rs[0]['after'][1]['loss']:.6f} / "
+        f"{single['after'][1]['loss']:.6f}; failures {bad[:6]}")
+    if bad:
+        raise GateTripped(f"[tp] (d) {label}: {bad[:10]}")
 
 
 def _peak_reset():
@@ -6569,6 +6863,28 @@ def _tp_job(rank, world, tmp, mesh):
                                       fault=fault)
         del student, teacher, data
         _empty_cache()
+    for key, conf, name, over, batch, policy in _tp_new_steps(
+            *spec["names"][:2]):
+        start = torch.load(os.path.join(tmp, f"tp_{key}.start.pt"),
+                           weights_only=True)
+        student, teacher, data = build_trained(
+            mesh.device, conf, name, batch, policy=policy, overrides=over)
+        student.load_state_dict(start["student"])
+        teacher.load_state_dict(start["teacher"])
+        out[key] = dict(ok=(tp_options_step if key == "options"
+                            else tp_step)(tp, student, teacher, data))
+        if key == "swin_fp32":
+            fault = "window_softmax_grad_scale_local_heads"
+            out[key][fault] = tp_step(tp, student, teacher, data,
+                                      fault=fault)
+        if key == "int8":
+            rng = np.random.default_rng(0)
+            x0 = data["image"][:BATCH].cpu().numpy()
+            batches = [x0] + [rng.normal(size=x0.shape).astype(np.float32)
+                              for _ in range(CMP_BATCHES - 1)]
+            out[key]["serving"] = tp_int8_serving(tp, student, batches)
+        del student, teacher, data
+        _empty_cache()
     for key in ("deit", "swin"):
         spy = CliSpy()
         t0 = time.perf_counter()
@@ -6605,6 +6921,143 @@ def _single_step_peak(student, teacher, data):
     del m, state, step
     _empty_cache()
     return out
+
+
+def _window_ds_check(student, teacher, data, tp_grads, fault_grads):
+    """The cut window attentions' `quan_softmax.s` gradients of the TP step
+    (`tp_grads`, gathered) against one process's kernel path on the same
+    start, each within WINDOW_DS_LIMIT (relative L2); those of the step
+    with the grad-scale factor at the local heads (`fault_grads`) must
+    leave it."""
+    from ofq_tpu_torch.parallel import tensor
+    cut = [n for n, blk in tensor._blocks(student)
+           if tensor._split(blk, TP)[0]]
+    _, single = _step_grads(student, teacher, data, None)
+    names = [f"{n}.attn.quan_softmax.s" for n in cut]
+    rel = {k: _rel(tp_grads[k].float(), single[k].float().cpu())
+           for k in names}
+    rel_f = {k: _rel(fault_grads[k].float(), single[k].float().cpu())
+             for k in names}
+    out = dict(blocks=len(names), worst=max(rel.values()),
+               fault_worst=max(rel_f.values()), limit=WINDOW_DS_LIMIT,
+               fault_tripped=max(rel_f.values()) > WINDOW_DS_LIMIT)
+    log(f"[tp] (e) Swin-T: the {len(names)} cut window attentions' softmax"
+        f"-scale gradients against one process's kernel path: the largest "
+        f"relative L2 distance {out['worst']:.3e} (limit {WINDOW_DS_LIMIT})"
+        f"; with the grad-scale factor at the local heads (the ranks "
+        f"alike) {out['fault_worst']:.3e}: "
+        f"{'tripped' if out['fault_tripped'] else 'passed'} (required: "
+        f"trip)")
+    if out["worst"] > WINDOW_DS_LIMIT:
+        raise GateTripped(f"[tp] (e) window softmax-scale gradients: {rel}")
+    return out
+
+
+def _tp_new_step_gates(key, conf, name, batch, policy, ranks, student,
+                       teacher, data, dev):
+    """The gates of one of `_tp_new_steps` on every rank: the exact
+    launches, the gradients held whole bit-equal across the ranks, the
+    whole-step rule against one process (the options step: against one
+    process with the same options, `_options_gate`); the int8 sharded
+    serving bit-equal to one process's.  One `[tp]` line."""
+    import copy
+    import torch
+    cfg = student.cfg
+    rs = [r[key]["ok"] for r in ranks]
+    family = "Swin-T" if is_swin(name) else "DeiT-S"
+    label = f"{family} ({_describe(conf)}{', full-LSQ' if policy else ''}" \
+        f"{', options' if key == 'options' else ''}, B={batch})"
+    part = {"int8": "(a)", "swin_int8": "(b)", "lsq": "(c)",
+            "options": "(d)", "swin_fp32": "(e)"}[key]
+    want = _expected(conf, cfg, train=True, policy=policy)
+    for i, r in enumerate(rs):
+        if r["launches"] != want:
+            raise AssertionError(f"[tp] {part} {label} rank {i}: launches "
+                                 f"{r['launches']}, expected {want}")
+    row = dict(launches=rs[0]["launches"], loss=rs[0]["loss"],
+               param_bytes=[r["param_bytes"] for r in rs],
+               peak_gb=[r["peak_gb"] for r in rs])
+    if key == "options":
+        single = tp_options_step(None, student, teacher, data)
+        sr = copy.deepcopy(student)
+        with torch.no_grad():
+            for p in sr.parameters():
+                p.copy_(p.to(torch.bfloat16).float())
+        grads = check_step_grads(sr, teacher, data, conf, loss_kind="kd_qkv",
+                                 tag=f"[tp] {part} {label}, one process")
+        limits = {r["name"]: r["limit"] for r in grads["per_param"]}
+        over = []
+        for r in rs:
+            for k, lim in limits.items():
+                a = r["grads"][k] - r["damp_grads"].get(k, 0.0)
+                b = single["grads"][k] - single["damp_grads"].get(k, 0.0)
+                d = _rel(a.float(), b.float())
+                if d > lim:
+                    over.append((k, d, lim))
+        log(f"[tp] {part} {label}: the kd_qkv gradients (the dampening "
+            f"term's taken out) of every rank against one process's with "
+            f"the same options, under the bf16 whole-step rule's "
+            f"per-parameter limits ({len(limits)}): {len(over)} outside "
+            f"{over[:4]}")
+        if over:
+            raise GateTripped(f"[tp] {part} {label}: {over[:10]}")
+        _options_gate(label, rs, single, OPT_LR)
+        row.update(single_param_bytes=single["param_bytes"],
+                   single_peak_gb=single["peak_gb"],
+                   norms=rs[0]["norms"], ema_mean=rs[0]["ema_mean"],
+                   codes_changed=rs[0]["codes_changed"])
+    else:
+        bad = [k for k in rs[0]["whole"]
+               if not torch.equal(rs[0]["whole"][k], rs[1]["whole"][k])]
+        if bad:
+            raise AssertionError(f"[tp] {part} {label}: gradients held whole "
+                                 f"differ across the ranks: {bad[:5]}")
+        if key != "swin_fp32":
+            # the fp32 full-LSQ step's row-parallel products sum their
+            # fp32 partial products in another order (no integer sums to
+            # make them one process's bits): held to the fp32 order spread
+            # as well, as `phase_train` holds the chaotic prelu steps
+            check_step_grads(student, teacher, data, conf,
+                             kernel_grads=rs[0]["grads"],
+                             kernel_loss=rs[0]["loss"], refs={},
+                             order_spread=key == "lsq",
+                             tag=f"[tp] {part} {label} TP={TP}")
+        sb, sp = _single_step_peak(student, teacher, data)
+        row.update(single_param_bytes=sb, single_peak_gb=sp,
+                   whole_bit_equal=len(rs[0]["whole"]),
+                   int8_shapes=rs[0]["int8_shapes"])
+    if row["launches"].get("int8_mm"):
+        # shapes torch._int_mm takes as they are (M >= 32 and M, K, N
+        # multiples of 8: int8_mm pads the others)
+        padded = [k for k in row["int8_shapes"] if any(
+            v % 8 for v in eval(k)) or eval(k)[0] < 32]
+        row["int8_padded"] = padded
+        log(f"[tp] {part} {label}: int8_mm launches per rank "
+            f"{row['launches']['int8_mm']} at (M,K,N) {row['int8_shapes']}; "
+            f"shapes torch._int_mm takes unpadded: "
+            f"{len(row['int8_shapes']) - len(padded)} of "
+            f"{len(row['int8_shapes'])}")
+    if key == "int8":
+        sv = [r[key]["serving"] for r in ranks]
+        want_f = _expected(conf, cfg, train=False)["int8_mm"]
+        row["serving"] = [dict(same=v["same"], images=v["images"],
+                               max_abs_diff=v["max_abs_diff"]) for v in sv]
+        log(f"[tp] (a) {label} sharded int8 serving: probabilities "
+            f"bit-equal to one process's for "
+            f"{[v['same'] for v in sv]} of {sv[0]['images']} images (rank "
+            f"0 / 1; the largest difference {sv[0]['max_abs_diff']:.3e}); "
+            f"int8_mm launches per forward {[v['launches']['int8_mm'] for v in sv]}"
+            f" (expected {want_f})")
+        if any(v["same"] != v["images"] or not v["finite"]
+               or v["launches"]["int8_mm"] != want_f for v in sv):
+            raise GateTripped(f"[tp] (a) int8 serving: {row['serving']}")
+    log(f"[tp] {part} {label}, TP={TP} ranks on one card over gloo, rank 0 "
+        f"/ 1: parameters {row['param_bytes'][0]} / {row['param_bytes'][1]}"
+        f" bytes (one process {row['single_param_bytes']}); peak memory "
+        f"{row['peak_gb'][0]:.2f} / {row['peak_gb'][1]:.2f} GB (one process"
+        f" {row['single_peak_gb']:.2f}); launches per rank "
+        f"{ {k: v for k, v in row['launches'].items() if v} }")
+    return row
 
 
 def _tp_serving_gates(label, sv, conf, gate, want, want_shapes):
@@ -6744,7 +7197,20 @@ def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
           the MLPs cut) under the rule, launches and shapes as (a);
       (h) `cli.train.main` and `cli.eval.main` of the Swin-T recipe's
           first command (seeded start and teacher, pallas bf16) at
-          `--mesh-model-parallel` TP, the eval equal to one process's.
+          `--mesh-model-parallel` TP, the eval equal to one process's;
+      (i) `_tp_new_steps`, each with exact launches per rank and
+          the gradients held whole bit-equal across the ranks: the DeiT-S
+          W2A2 QKR int8 step at bench.py's B=144 under the rule and its
+          sharded serving bit-equal to one process's on CMP_BATCHES
+          batches of 64, `int8_mm`'s launches and shapes a rank; the
+          Swin-T int8 step at B=48 under the rule; the Swin-T int8 step
+          in the fp32 stream, its cut window softmax scales' gradients
+          within WINDOW_DS_LIMIT of one process's, and with
+          their grad-scale factor at the local heads (a fault the ranks
+          share) outside it; the full-LSQ DeiT-S fused fp32 step under
+          the rule; the fused bf16 options step (`tp_options_step`)
+          against one process with the same options (`_options_gate`,
+          the kd_qkv gradients under the bf16 rule's limits).
     One `[tp]` line each (per rank: the sharded parameters' bytes and the
     peak memory beside one process's, the model group's all-reduce bytes
     and ms a step, the wall s a step: functional numbers, two ranks
@@ -6762,6 +7228,13 @@ def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
         for key, conf, name, over in steps_:
             student, teacher, data = build_trained(dev, conf, name, batch,
                                                    overrides=over)
+            torch.save({"student": _cpu(student.state_dict()),
+                        "teacher": _cpu(teacher.state_dict())},
+                       os.path.join(tmp, f"tp_{key}.start.pt"))
+            built[key] = (student, teacher, data)
+        for key, conf, name, over, b, policy in _tp_new_steps(deit, swin):
+            student, teacher, data = build_trained(
+                dev, conf, name, b, policy=policy, overrides=over)
             torch.save({"student": _cpu(student.state_dict()),
                         "teacher": _cpu(teacher.state_dict())},
                        os.path.join(tmp, f"tp_{key}.start.pt"))
@@ -6883,6 +7356,7 @@ def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
                     f"differ); the whole-step rule "
                     f"{'tripped' if rule else 'passed'} (a reading)"
                     f"{' -- ' + msg if msg else ''}")
+
             faults = {"fused": TP_FAULTS[:2]}
             for fault in faults.get(key, ()):
                 rf = ranks[0][key][fault]
@@ -6921,6 +7395,22 @@ def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
             out[key] = row
             del student, teacher, data, refs
             built.pop(key)
+            _empty_cache()
+        for key, conf, name, over, b, policy in _tp_new_steps(deit, swin):
+            student, teacher, data = built.pop(key)
+            out[key] = _tp_new_step_gates(key, conf, name, b, policy, ranks,
+                                          student, teacher, data, dev)
+            if key == "swin_fp32":
+                # the cut blocks' window softmax scales' gradients against
+                # one process's kernel path, and the fault the ranks share
+                out[key]["window_ds"] = window_ds = _window_ds_check(
+                    student, teacher, data, ranks[0][key]["ok"]["grads"],
+                    ranks[0][key]["window_softmax_grad_scale_local_heads"][
+                        "grads"])
+                selfcheck.append(dict(
+                    fault="window_softmax_grad_scale_local_heads",
+                    tripped=window_ds["fault_tripped"]))
+            del student, teacher, data
             _empty_cache()
         log(f"[selfcheck] tensor-parallel unmodified steps and serving: the "
             f"whole-step rule and the block gates passed (required: pass)")
@@ -7452,6 +7942,17 @@ def main() -> int:
                     r["name"]],
                 # softmax(q k^T d^-1/2) v: SDPA computes the same function
                 library_ms=r["sdpa_ms"], design=r["design"]))
+    im = full["imagefolder"]
+    for r in im["cmyk_kernel"]:
+        h, w = CMYK_SHAPE
+        kernels.append(_kernel_row(
+            f"ofq_cmyk_to_rgb {'YCCK' if r['ycck'] else 'CMYK'}, Adobe "
+            f"({h}x{w})", ("ofq_tpu_torch/csrc/image_decode.cu",
+                           "ofq_tpu/data/pipeline.py:238 (tf.io.decode_image"
+                           "'s 4-component conversion on the host; no "
+                           "pallas_call)"),
+            im["train"]["cmyk_launches"], r,
+            path="ImageFolder CLI phase 1 (its CMYK and YCCK copies)"))
     if any(k["launches"] <= 0 for k in kernels if k["path"] is not None):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{kernels}")

@@ -9,18 +9,24 @@ form comes out as uint8 (H, W, 3) on the caller's device:
   * JPEG on the card only, through nvJPEG (`csrc/image_decode.cu`, a
     library call of the CUDA toolkit, built and loaded with ctypes like the
     kernels): the pixels never pass through the host.  A JPEG on the CPU
-    raises: the CPU reads PNG and BMP.  A JPEG that nvJPEG cannot decode
-    raises, naming the file and the form (4-component CMYK / YCCK frames
-    are refused before nvJPEG sees them: its interleaved RGB output
-    answers them with INVALID_PARAMETER, where TensorFlow converts them);
+    raises: the CPU reads PNG, BMP and GIF.  A 4-component frame (CMYK, or
+    YCCK under an Adobe APP14 marker whose transform byte is not 0; a few
+    of ImageNet's train files) is decoded by nvJPEG to its four planes and
+    converted by the `ofq_cmyk_to_rgb` kernel (`cmyk_to_rgb`; its plain
+    version `cmyk_to_rgb_reference`) as TensorFlow's libjpeg decode
+    converts it.  A JPEG that nvJPEG cannot decode raises, naming the file
+    and the form;
   * PNG (zlib from the standard library and the five row filters, Adam7
-    interlacing, every bit depth and colour type) and BMP (uncompressed 24-
-    and 32-bit) in numpy on the host, then moved to the device.  As with
+    interlacing, every bit depth and colour type), BMP (uncompressed 24-
+    and 32-bit) and GIF (LZW, interlacing, the global and local colour
+    tables; the first frame, on its canvas, as TensorFlow's giflib decode
+    lays it: outside the frame's rectangle and at its transparent index
+    black) in numpy on the host, then moved to the device.  As with
     TensorFlow's `channels=3`, alpha is dropped, grey is repeated into three
     channels, a palette is looked up and 16-bit samples keep their high
     byte;
-  * anything else (GIF among them) raises, naming the file and the form.
-    Nothing falls back to another decoder.
+  * anything else raises, naming the file and the form, as does a
+    malformed PNG, BMP or GIF.  Nothing falls back to another decoder.
 """
 
 from __future__ import annotations
@@ -63,16 +69,18 @@ def decode_image(data: bytes, path: str, device) -> torch.Tensor:
         if device.type != "cuda":
             raise DecodeError(
                 f"{path}: a JPEG decodes on the card (nvJPEG); on the CPU "
-                "the port reads PNG and BMP only")
+                "the port reads PNG, BMP and GIF")
         return decode_jpeg(data, path, device)
     if form == "png":
         img = decode_png(data, path)
     elif form == "bmp":
         img = decode_bmp(data, path)
+    elif form == "gif":
+        img = decode_gif(data, path)
     else:
-        what = "an unknown form" if form == "unknown" else form.upper()
-        raise DecodeError(f"{path}: {what} is not decoded by the port "
-                          "(JPEG on the card, PNG and BMP anywhere)")
+        raise DecodeError(f"{path}: an unknown form is not decoded by the "
+                          "port (JPEG on the card, PNG, BMP and GIF "
+                          "anywhere)")
     return torch.from_numpy(img).to(device)
 
 
@@ -227,6 +235,148 @@ def decode_bmp(data: bytes, path: str) -> np.ndarray:
     return np.ascontiguousarray(px[..., 2::-1])
 
 
+# ------------------------------------------------------------------ GIF
+def _gif_blocks(data: bytes, pos: int, path: str) -> tuple[bytes, int]:
+    """The concatenated data sub-blocks from `pos` and the position after
+    their terminator."""
+    out = []
+    while True:
+        if pos >= len(data):
+            raise DecodeError(f"{path}: GIF data ends inside a block")
+        n = data[pos]
+        pos += 1
+        if n == 0:
+            return b"".join(out), pos
+        out.append(data[pos:pos + n])
+        pos += n
+
+
+def _lzw(raw: bytes, min_size: int, count: int, path: str) -> np.ndarray:
+    """`count` colour indices of a GIF image's LZW stream (codes packed
+    LSB first, clear and end codes, widths up to 12 bits)."""
+    if not 2 <= min_size <= 8:
+        raise DecodeError(f"{path}: GIF LZW minimum code size {min_size}")
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    nbits = len(raw) * 8
+    raw = raw + b"\0\0\0"
+    out = bytearray()
+    table = [bytes([i]) for i in range(clear)] + [b"", b""]
+    size, pos, prev = min_size + 1, 0, None
+    while len(out) < count:
+        if pos + size > nbits:
+            raise DecodeError(f"{path}: GIF LZW data ends early")
+        byte = pos >> 3
+        code = (int.from_bytes(raw[byte:byte + 3], "little") >> (pos & 7)
+                ) & ((1 << size) - 1)
+        pos += size
+        if code == clear:
+            table = table[:end + 1]
+            size, prev = min_size + 1, None
+            continue
+        if code == end:
+            break
+        if code < len(table):
+            entry = table[code]
+            if prev is not None and len(table) < 4096:
+                table.append(prev + entry[:1])
+        elif code == len(table) and prev is not None and code < 4096:
+            entry = prev + prev[:1]
+            table.append(entry)
+        else:
+            raise DecodeError(f"{path}: GIF LZW code {code} out of range")
+        out += entry
+        prev = entry
+        if len(table) == (1 << size) and size < 12:
+            size += 1
+    if len(out) < count:
+        raise DecodeError(f"{path}: GIF image holds {len(out)} of {count} "
+                          "pixels")
+    return np.frombuffer(bytes(out[:count]), np.uint8)
+
+
+def _gif_table(data: bytes, pos: int, packed: int, path: str):
+    n = 3 << ((packed & 7) + 1)
+    if pos + n > len(data):
+        raise DecodeError(f"{path}: GIF colour table cut short")
+    return np.frombuffer(data, np.uint8, n, pos).reshape(-1, 3), pos + n
+
+
+def decode_gif(data: bytes, path: str) -> np.ndarray:
+    """uint8 (H, W, 3) of a GIF's first frame as `tf.io.decode_image(
+    channels=3, expand_animations=False)` gives it (TensorFlow's giflib
+    decode, `tensorflow/core/lib/gif/gif_io.cc`): the canvas is the largest
+    width and height of the file's frames (not its logical screen), the
+    first frame's pixels from its local colour table, else the global one,
+    at its offset, cut to the canvas; the rest of the canvas, and the
+    pixels at the transparent index of the frame's graphic control
+    extension, black."""
+    if len(data) < 13:
+        raise DecodeError(f"{path}: GIF header cut short")
+    packed = data[10]
+    pos, gtable, transparent, gce, first = 13, None, None, None, None
+    if packed & 0x80:
+        gtable, pos = _gif_table(data, pos, packed, path)
+    sizes = []
+    while True:
+        if pos >= len(data):
+            raise DecodeError(f"{path}: GIF without its trailer")
+        kind = data[pos]
+        if kind == 0x21:                       # an extension
+            if pos + 2 > len(data):
+                raise DecodeError(f"{path}: GIF extension cut short")
+            label = data[pos + 1]
+            body, pos = _gif_blocks(data, pos + 2, path)
+            if label == 0xF9 and len(body) >= 4:
+                gce = body[3] if body[0] & 1 else None
+        elif kind == 0x2C:                     # an image
+            if pos + 10 > len(data):
+                raise DecodeError(f"{path}: GIF image descriptor cut short")
+            left, top, w, h, ipacked = struct.unpack(
+                "<HHHHB", data[pos + 1:pos + 10])
+            pos += 10
+            table = gtable
+            if ipacked & 0x80:
+                table, pos = _gif_table(data, pos, ipacked, path)
+            if pos >= len(data):
+                raise DecodeError(f"{path}: GIF image data missing")
+            raw, end = _gif_blocks(data, pos + 1, path)
+            if first is None:
+                if table is None:
+                    raise DecodeError(f"{path}: GIF without a colour table")
+                first = (left, top, w, h, ipacked, table, data[pos], raw)
+                transparent = gce
+            sizes.append((h, w))
+            pos, gce = end, None
+        elif kind == 0x3B:
+            break
+        else:
+            raise DecodeError(f"{path}: GIF block 0x{kind:02x} is not one "
+                              "of GIF's")
+    if first is None:
+        raise DecodeError(f"{path}: GIF without an image")
+    left, top, w, h, ipacked, table, min_size, raw = first
+    idx = _lzw(raw, min_size, w * h, path).reshape(h, w)
+    if ipacked & 0x40:                         # interlaced rows, in order
+        order = np.concatenate([np.arange(r0, h, dr) for r0, dr in
+                                ((0, 8), (4, 8), (2, 4), (1, 2))])
+        rows = np.empty_like(idx)
+        rows[order] = idx
+        idx = rows
+    if idx.size and int(idx.max()) >= len(table):
+        raise DecodeError(f"{path}: GIF colour index {int(idx.max())} past "
+                          f"its table of {len(table)}")
+    height, width = (max(s[i] for s in sizes) for i in (0, 1))
+    out = np.zeros((height, width, 3), np.uint8)
+    y1, x1 = min(top + h, height), min(left + w, width)
+    if top < y1 and left < x1:
+        frame = idx[:y1 - top, :x1 - left]
+        px = table[frame]
+        if transparent is not None:
+            px[frame == transparent] = 0
+        out[top:y1, left:x1] = px
+    return out
+
+
 # ----------------------------------------------------------------- JPEG
 # nvjpegStatus_t
 _NVJPEG_STATUS = {
@@ -255,6 +405,17 @@ def _lib():
             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         lib.ofq_jpeg_decode.restype = ctypes.c_int
+        lib.ofq_jpeg_decode_planes.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_void_p]
+        lib.ofq_jpeg_decode_planes.restype = ctypes.c_int
+        lib.ofq_cmyk_to_rgb.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p)] + [
+            ctypes.POINTER(ctypes.c_int)] * 3 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.ofq_cmyk_to_rgb.restype = ctypes.c_int
         lib._ofq_typed = True
     return lib
 
@@ -276,16 +437,123 @@ def _decoder(lib, device: torch.device) -> int:
 
 def jpeg_info(data: bytes, path: str, device) -> dict:
     """The header as nvJPEG reads it: components, chroma subsampling,
-    width, height, progressive."""
+    width, height, progressive, and each component's (height, width)
+    (`planes`)."""
     lib = _lib()
     device = torch.device(device)
-    info = (ctypes.c_int * 5)()
+    info = (ctypes.c_int * 13)()
     st = lib.ofq_jpeg_info(_decoder(lib, device), data, len(data), info)
     if st != 0:
         raise DecodeError(f"{path}: nvJPEG cannot read the JPEG header: "
                           f"{_NVJPEG_STATUS.get(st, st)}")
     return dict(components=info[0], chroma=CHROMA.get(info[1], str(info[1])),
-                width=info[2], height=info[3], progressive=info[4] == 1)
+                width=info[2], height=info[3], progressive=info[4] == 1,
+                planes=[(info[6 + 2 * c], info[5 + 2 * c])
+                        for c in range(info[0])])
+
+
+def adobe_transform(data: bytes):
+    """The transform byte of the JPEG's Adobe APP14 marker (0 CMYK, 2
+    YCCK), or None without one; read as libjpeg reads it (jdmarker.c: an
+    APP14 of at least 12 bytes that begins `Adobe`), from the markers
+    before the first scan."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if marker == 0xDA or marker == 0xD9:
+            break
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        body = data[pos + 4:pos + 2 + n]
+        if marker == 0xEE and len(body) >= 12 and body[:5] == b"Adobe":
+            return body[11]
+        pos += 2 + n
+    return None
+
+
+def cmyk_to_rgb_reference(planes, ycck: bool, adobe: bool, height: int,
+                          width: int) -> torch.Tensor:
+    """The plain version of `ofq_cmyk_to_rgb` (`csrc/image_decode.cu`): the
+    same integer arithmetic on the four uint8 planes (each (h, w), read at
+    floor(y h / H), floor(x w / W)).  YCCK to CMYK by libjpeg's
+    fixed-point tables (`ycck_cmyk_convert`), then TensorFlow's CMYK to
+    RGB: R = C K / 255 with an Adobe marker, (255 - C)(255 - K) / 255
+    without; integer division."""
+    dev = planes[0].device
+    ys = torch.arange(height, device=dev, dtype=torch.int64)
+    xs = torch.arange(width, device=dev, dtype=torch.int64)
+    v = []
+    for p in planes:
+        h, w = p.shape
+        r = ys if h == height else ys * h // height
+        c = xs if w == width else xs * w // width
+        v.append(p.to(torch.int64)[r][:, c])
+    if ycck:
+        y, cb, cr = v[0], v[1] - 128, v[2] - 128
+        half, sc = 1 << 15, 16
+        r = y + ((91881 * cr + half) >> sc)
+        g = y + ((-22554 * cb + half - 46802 * cr) >> sc)
+        b = y + ((116130 * cb + half) >> sc)
+        v[:3] = [torch.clamp(255 - t, 0, 255) for t in (r, g, b)]
+    k = v[3]
+    rgb = [(t * k) // 255 if adobe else ((255 - t) * (255 - k)) // 255
+           for t in v[:3]]
+    return torch.stack(rgb, dim=-1).to(torch.uint8)
+
+
+def cmyk_to_rgb(planes, ycck: bool, adobe: bool, height: int,
+                width: int) -> torch.Tensor:
+    """The kernel's wrapper: uint8 (height, width, 3) from a 4-component
+    frame's planes (uint8 (h, w) each); on CUDA tensors the
+    `ofq_cmyk_to_rgb` kernel on the current stream (counted), on CPU
+    tensors its plain version."""
+    if planes[0].device.type != "cuda":
+        return cmyk_to_rgb_reference(planes, ycck, adobe, height, width)
+    if len(planes) != 4 or any(p.dtype != torch.uint8 or p.ndim != 2
+                               or p.device != planes[0].device
+                               for p in planes):
+        raise ValueError("cmyk_to_rgb: four uint8 (h, w) planes on one "
+                         "device")
+    lib = _lib()
+    dev = planes[0].device
+    out = torch.empty((height, width, 3), dtype=torch.uint8, device=dev)
+    ptrs = (ctypes.c_void_p * 4)(*(p.data_ptr() for p in planes))
+    ints = lambda vals: (ctypes.c_int * 4)(*vals)  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ofq_cmyk_to_rgb(
+            ptrs, ints(p.stride(0) for p in planes),
+            ints(p.shape[1] for p in planes), ints(p.shape[0] for p in planes),
+            int(ycck), int(adobe), out.data_ptr(), width, height, stream)
+    _build.check(lib, err, "cmyk_to_rgb")
+    cmyk_to_rgb.launches += 1
+    return out
+
+
+cmyk_to_rgb.launches = 0
+
+
+def jpeg_planes(data: bytes, path: str, device, info: dict) -> list:
+    """nvJPEG's decode of a 4-component frame to its four planes as stored
+    (uint8 (h, w) each, on the CUDA `device`, the current stream); `info`
+    is `jpeg_info`'s."""
+    lib = _lib()
+    planes = [torch.empty(hw, dtype=torch.uint8, device=device)
+              for hw in info["planes"]]
+    if len(planes) != 4:
+        raise DecodeError(f"{path}: {info['components']} components, not 4")
+    ptrs = (ctypes.c_void_p * 4)(*(p.data_ptr() for p in planes))
+    pitches = (ctypes.c_int * 4)(*(p.shape[1] for p in planes))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        st = lib.ofq_jpeg_decode_planes(_decoder(lib, device), data,
+                                        len(data), ptrs, pitches, stream)
+    if st != 0:
+        raise DecodeError(f"{path}: nvJPEG refused the planes of a "
+                          f"4-component JPEG: {_NVJPEG_STATUS.get(st, st)}")
+    return planes
 
 
 def decode_jpeg(data: bytes, path: str, device) -> torch.Tensor:
@@ -294,14 +562,20 @@ def decode_jpeg(data: bytes, path: str, device) -> torch.Tensor:
     device = torch.device(device)
     if device.type != "cuda":
         raise DecodeError(f"{path}: a JPEG decodes on the card (nvJPEG); on "
-                          "the CPU the port reads PNG and BMP only")
+                          "the CPU the port reads PNG, BMP and GIF")
     lib = _lib()
     info = jpeg_info(data, path, device)
     form = (f"{'progressive' if info['progressive'] else 'baseline'} "
             f"{info['chroma']} JPEG with {info['components']} components")
+    if info["components"] == 4:
+        transform = adobe_transform(data)
+        planes = jpeg_planes(data, path, device, info)
+        decode_jpeg.launches += 1
+        return cmyk_to_rgb(planes, transform not in (None, 0),
+                           transform is not None, info["height"],
+                           info["width"])
     if info["components"] not in (1, 3):
-        raise DecodeError(f"{path}: {form} (CMYK or YCCK): not decoded by the "
-                          "port")
+        raise DecodeError(f"{path}: {form}: not decoded by the port")
     out = torch.empty((info["height"], info["width"], 3), dtype=torch.uint8,
                       device=device)
     with torch.cuda.device(device):

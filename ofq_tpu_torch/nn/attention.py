@@ -48,8 +48,10 @@ shared quantized input passes `parallel.copy_to_model` (the v product,
 the per-head `x W_qk` and the tail's lhs each give a partial gradient,
 summed once over the model group), its softmax scale too (its `ds` sums
 over heads; the grad-scale factor counts the model's heads), its
-attention dropout mask is cut to its heads, and `proj` is row-parallel.
-A sharded `QAttention` holds the q, k and v columns of its heads in a
+attention dropout mask is cut to its heads, and `proj` is
+row-parallel; on the int8 branch the v and qkx products run on its
+columns' and heads' codes, their shared codes, scale and shift passing
+`copy_to_model`.  With `qqkkvv` its Grams are its heads'.  A sharded `QAttention` holds the q, k and v columns of its heads in a
 column-parallel `qkv` (whose input gradient the group sums), its per-token
 q and k scales and its softmax scale whole with their `ds` summed over
 the group (the grad-scale factors count the model's heads), its heads'
@@ -138,12 +140,13 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
     if mod.tp is not None and cd is None:
         # sharded heads: the three products' partial gradients summed once
         xq = xq_v = xq_k = copy_to_model(xq, mod.tp)
-    elif mod.tp is not None:
+    elif mod.tp is not None and xq.requires_grad:
         # in the bf16 stream each product (v, qkx, the scores) takes xq in
         # fp32, its output rounded to bf16 as a bf16 product rounds it, and
         # its partial gradient is summed over the group in fp32 and rounded
         # once: each product's whole gradient is rounded to bf16 alone, as
-        # in one process
+        # in one process (without a gradient the products take one
+        # process's bf16 operands)
         xq_v, xq_k, xq = (copy_to_model(xq.float(), mod.tp)
                           for _ in range(3))
     if codes:
@@ -151,6 +154,16 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
         s = mod.quant_x.s if mod.quant_x.learnable else mod.quant_x.s.detach()
         xi, s_eff = qkr_int8_codes(x1, s, mod.input_bits)
         bx = mod.quant_x_move_aft.bias
+        dt = xi.dtype
+        if mod.tp is not None:
+            # the v and qkx products on this rank's columns and heads: the
+            # partial cotangents of their shared codes, scale and shift
+            # summed once over the model group (in at least fp32, rounded
+            # to the stream's dtype once, as one process rounds its whole
+            # sums)
+            hi = at_least_f32(dt)
+            xi, s_eff, bx = (copy_to_model(t.to(hi), mod.tp)
+                             for t in (xi, s_eff, bx))
 
     if frozen_int:
         v_out = (frozen_int8_linear(xi, s_eff, bx, mod.v_kernel,
@@ -158,8 +171,8 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
                                     mm) + mod.v_bias.to(xi.dtype))
     elif codes:
         v_out = (int8_statsq_linear(xi, s_eff, bx, mod.v_kernel,
-                                    mod.weight_bits, mm)
-                 + mod.v_bias.to(xi.dtype))
+                                    mod.weight_bits, mm, dt)
+                 + mod.v_bias.to(dt))
     else:
         vq = (mod.v_kernel if mod.frozen_wqk or mod.weight_bits >= 32
               else statsq_quantize(mod.v_kernel, mod.weight_bits))
@@ -177,7 +190,7 @@ def qkr_quant_chain(mod: "QAttentionQKR", x: torch.Tensor):
         qkx = frozen_int8_qkx(xi, s_eff, bx, w_qk, mod.w_qk_scale,
                               mod.frozen_int_bits, mm)
     elif codes:
-        qkx = int8_statsq_qkx(xi, s_eff, bx, w_qk, mod.weight_bits, mm)
+        qkx = int8_statsq_qkx(xi, s_eff, bx, w_qk, mod.weight_bits, mm, dt)
     else:
         if cd is not None:
             w_qk = w_qk.to(cd)
@@ -295,6 +308,31 @@ def score_product(spec, lhs, rhs):
     return torch.einsum(spec, lhs, rhs.to(lhs.dtype)).to(rhs.dtype)
 
 
+def _tp_softmax(attn, tp, spec, lhs, rhs):
+    """`softmax` of a sharded attention's (B, h, N, M) scores
+    (`einsum(spec, lhs, rhs)`, the heads on axis 2 of each 4-D operand),
+    computed on a tensor of the model's heads laid out as one process's
+    einsum lays them out (this rank's at their place, zeros elsewhere):
+    the card's row sums take their order from the layout and a row's
+    place in it, so this rank's rows get one process's bits (on 3 of 6
+    heads the fp32 denominators of a few rows rounded to the other bf16
+    neighbour)."""
+    B, h, N, M = attn.shape
+    lo = tp.model_index * h
+
+    def whole(t):
+        shape = list(t.shape)
+        if t.ndim == 4:
+            shape[2] *= tp.model_parallel
+        return torch.empty(shape, dtype=attn.dtype, device="meta")
+
+    probe = torch.einsum(spec, whole(lhs), whole(rhs))
+    full = torch.empty_strided(probe.shape, probe.stride(), dtype=attn.dtype,
+                               device=attn.device).zero_()
+    full[:, lo:lo + h] = attn
+    return softmax(full)[:, lo:lo + h]
+
+
 def _attention_tail(mod, lhs, rhs, v, spec, scale, generator, grams=None):
     """The attention tail of a quantized attention on `lhs` and `rhs`
     (`spec`: their score einsum), through the fused kernels, the remat
@@ -320,7 +358,9 @@ def _attention_tail(mod, lhs, rhs, v, spec, scale, generator, grams=None):
         return remat_attention_tail(lhs, rhs, v, sp, einsum_spec=spec,
                                     **tail), None
     attn = score_product(spec, lhs, rhs)
-    attn = softmax(attn * weak_scalar(scale, attn.dtype))
+    attn = attn * weak_scalar(scale, attn.dtype)
+    attn = (softmax(attn) if tp is None
+            else _tp_softmax(attn, tp, spec, lhs, rhs))
     info = None if grams is None else gram_info(attn, *grams)
     if mod.quantize_softmax:
         attn = mod.quan_softmax(attn)

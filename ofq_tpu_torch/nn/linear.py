@@ -45,7 +45,8 @@ Under tensor parallelism (`parallel.shard_model`) a `QLinear`'s `tp` is
 fc2 (its rows, and its input's channels, sharded), which its products
 take (`ops/`); a row-parallel layer's input scale has its gradient summed
 over the model group and its bias is added after the partial products
-are.  A sharded `QMlp` cuts its hidden dropout mask to its columns.
+are.  The int8 branch runs on the rank's codes (`int8_qlinear`'s
+`tp`).  A sharded `QMlp` cuts its hidden dropout mask to its columns.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ from ..ops.int8_qlinear import (frozen_int8_forward, frozen_lsq_int8_forward,
                                 int8_qlinear, lsq_int8_eligible)
 from ..ops.pallas_statsq import pallas_statsq_fwd, pallas_statsq_fwd_reference
 from ..ops.statsq_matmul import statsq_matmul
-from ..parallel.tensor import copy_to_model
+from ..parallel.tensor import copy_to_model, reduce_from_model, tp_roles
 from ..quant.ste import as_dtype, at_least_f32
 from .bias import LearnableBias
 from .dropout import dropout
@@ -233,7 +234,7 @@ class QLinear(nn.Module):
         return int8_qlinear(
             x, self.kernel, self._scale(), self.move_b4.bias,
             self.move_aft.bias, self.weight_bits, self.input_bits,
-            not self.symmetric, mm=int_product(self))
+            not self.symmetric, mm=int_product(self), tp=self.tp)
 
 
 def _input_chain(mod, in_features, n_tokens, input_bits, symmetric,
@@ -277,6 +278,7 @@ class LsqLinear(nn.Module):
         self.frozen_int_bits = frozen_int_bits
         self.use_kernels = True
         self.calibrating = False
+        self.tp = None
         self.kernel = nn.Parameter(torch.zeros(in_features, features))
         _input_chain(self, in_features, n_tokens, input_bits, symmetric,
                      aq_learnable)
@@ -308,7 +310,9 @@ class LsqLinear(nn.Module):
         x = _quantize_input(self, x)
         wq = self.weight_quant(self.kernel)
         dt = torch.promote_types(x.dtype, wq.dtype)
-        y = torch.matmul(x.to(dt), wq.to(dt))
+        row, col = tp_roles(self.tp)
+        y = reduce_from_model(torch.matmul(copy_to_model(x.to(dt), col),
+                                           wq.to(dt)), row)
         return y + self.bias.to(y.dtype)
 
 

@@ -79,7 +79,11 @@ class LsqAct(nn.Module):
 class LsqWeight(nn.Module):
     """LSQ weight fake-quantizer, one scale per output column (last axis;
     `per_channel=False`: one per tensor), calibrated from the kernel
-    itself; `all_positive` (--wq_asym) takes the unsigned range."""
+    itself; `all_positive` (--wq_asym) takes the unsigned range.  `tp`
+    (set by `parallel.shard_model` on a row-parallel kernel: (0, mesh))
+    says that the kernel's rows are cut over the mesh's model group while
+    the scale is whole: its gradient is summed over the group and its
+    grad-scale factor counts the whole kernel's rows."""
 
     def __init__(self, bit: int, num_scales: int, *, learnable: bool = True,
                  per_channel: bool = True, all_positive: bool = False):
@@ -89,6 +93,7 @@ class LsqWeight(nn.Module):
         self.all_positive = all_positive
         self.axis = -1 if per_channel else None
         self.calibrating = False
+        self.tp = None
         self.s = (nn.Parameter(torch.ones(num_scales if per_channel else 1))
                   if bit < 32 else None)
 
@@ -100,8 +105,14 @@ class LsqWeight(nn.Module):
             _calibrate_scale(self.s, init_scale(
                 w32, self.bit, self.all_positive, self.axis), "LsqWeight")
         s = self.s if self.learnable else self.s.detach()
+        model = None
+        if self.tp is not None:
+            axis, mesh = self.tp
+            s = copy_to_model(s, mesh)
+            model = (axis, mesh.model_parallel)
         return lsq_quantize(w32, s, self.bit, all_positive=self.all_positive,
-                            channel_axis=self.axis, weight=True).to(w.dtype)
+                            channel_axis=self.axis, weight=True,
+                            model=model).to(w.dtype)
 
 
 class LsqWeightIterativeFreezing(nn.Module):

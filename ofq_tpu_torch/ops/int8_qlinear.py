@@ -27,6 +27,20 @@ explicit two-operand einsum, so the card harness's summation-order gates
 the integer product is out of their reach by construction (see
 `int8_mm_reference`).
 
+Under tensor parallelism (`int8_qlinear`'s `tp`, as `ops/fused_qlinear.py`
+takes it) a column-parallel layer (fc1, `qkv` without QKR) runs its
+columns' codes with their own scales and sums its input's cotangent once
+over the model group (fp32, rounded after); a row-parallel one (proj,
+fc2) takes the whole kernel's StatsQ codes and scale (its rows gathered:
+`gather_rows`), runs the product on its rows' codes, sums the int32
+partial products over the group (exact) and applies the epilogue once
+to the whole sums, with `bq` from the gathered `b_post` (the single
+process's output bit for bit); its input scale's grad-scale factor counts
+the whole input width (the caller sums `ds` over the group).  QKR's v
+and per-head x W_qk products are column-parallel on the rank's columns or
+heads; their shared inputs' cotangents are summed by the caller
+(`nn/attention.py:qkr_quant_chain`).
+
 Frozen serving (`frozen_*`): the kernel holds dequantized StatsQ values
 restored from a packed artifact (`deploy.py`) and the codes are
 reconstructed from the artifact's stored scale, never recomputed (StatsQ
@@ -42,6 +56,7 @@ import collections
 
 import torch
 
+from ..parallel.tensor import gather_rows, model_sum, tp_roles
 from ..quant.lsq import (_broadcast_scale, _clip, act_grad_scale_factor,
                          thresholds)
 from ..quant.statsq import statsq_b4_round
@@ -201,45 +216,61 @@ def _s_eff(s, x1):
     return torch.clamp_min(s_b, _S_EPS).to(x1.dtype)
 
 
+def _tp_weight_int(kernel, w_bits, row):
+    """The codes of this rank's rows of `kernel` and the column scale, from
+    the whole kernel (its rows gathered over the model group `row`), and
+    the whole codes; `row` None: the kernel's own."""
+    if row is None:
+        w_int, s_w = _weight_int(kernel.to(F32), w_bits)
+        return w_int, _col(s_w, w_bits), w_int
+    whole, s_w = _weight_int(gather_rows(kernel, row).to(F32), w_bits)
+    n = kernel.shape[0]
+    return whole.narrow(0, row.model_index * n, n), _col(s_w, w_bits), whole
+
+
 class _Int8QLinear(torch.autograd.Function):
     """`ofq_tpu.ops.int8_qlinear.int8_qlinear` and its custom VJP: bias ->
     LSQ -> bias -> x @ StatsQ(kernel) on the integer codes, the input's
-    residuals only (x, kernel, s, the biases)."""
+    residuals only (x, kernel, s, the biases); `tp` the module
+    docstring's."""
 
     @staticmethod
     def forward(ctx, x, kernel, s, b_pre, b_post, w_bits, a_bits,
-                all_positive, mm):
+                all_positive, mm, tp):
         ctx.save_for_backward(x, kernel, s, b_pre, b_post)
-        ctx.cfg = (w_bits, a_bits, all_positive)
+        ctx.cfg = (w_bits, a_bits, all_positive, tp)
+        row, _ = tp_roles(tp)
         x1 = x + b_pre.to(x.dtype)
         s_eff = _s_eff(s, x1)
         xi = _act_int(x1, s_eff, a_bits, all_positive)
-        w_int, s_w = _weight_int(kernel.to(F32), w_bits)
-        acc = _code_product(xi, w_int, mm)
-        col = _col(s_w, w_bits)
+        w_int, col, whole = _tp_weight_int(kernel, w_bits, row)
+        acc = model_sum(_code_product(xi, w_int, mm), row)
         # b_post @ w_q == (b_post @ W_int) * col: the batch-independent
         # (out,) correction without a dequantized kernel
-        bq = torch.matmul(b_post.to(F32), w_int) * col
+        bq = torch.matmul(gather_rows(b_post, row).to(F32), whole) * col
         return (acc.to(F32) * s_eff.to(F32) * col + bq).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, kernel, s, b_pre, b_post = ctx.saved_tensors
-        w_bits, a_bits, all_positive = ctx.cfg
+        w_bits, a_bits, all_positive, tp = ctx.cfg
+        row, cols = tp_roles(tp)
         thd_neg, thd_pos = thresholds(a_bits, all_positive)
-        gf = act_grad_scale_factor(x.shape, a_bits, all_positive, -2)
+        gf = act_grad_scale_factor(
+            x.shape, a_bits, all_positive, -2,
+            None if row is None else (x.ndim - 1, row.model_parallel))
         x1 = x + b_pre.to(x.dtype)
         s_eff = _s_eff(s, x1)
         u = x1 / s_eff
         in_range = (u >= thd_neg) & (u <= thd_pos)
         xi = torch.round(torch.clamp(u, thd_neg, thd_pos))
         x2 = xi * s_eff + b_post.to(x.dtype)
-        w_int, s_w = _weight_int(kernel.to(F32), w_bits)
-        col = _col(s_w, w_bits)
+        w_int, col, _ = _tp_weight_int(kernel, w_bits, row)
         # g @ w_q^T == (g * col) @ W_int^T, stream-dtype operands, fp32 sums
+        # (a column-parallel layer's partial sums summed over the group)
         gcol = (g.to(F32) * col).to(g.dtype)
-        dx2 = _acc32(_rows(gcol), w_int.to(g.dtype).T).to(g.dtype)
-        dx2 = dx2.reshape(x.shape)
+        dx2 = model_sum(_acc32(_rows(gcol), w_int.to(g.dtype).T), cols)
+        dx2 = dx2.to(g.dtype).reshape(x.shape)
         dkernel = _acc32(_rows(x2).T, _rows(g))
         db_post = _lead_sum(dx2, 1)
         dx1 = torch.where(in_range, dx2, torch.zeros_like(dx2))
@@ -253,16 +284,17 @@ class _Int8QLinear(torch.autograd.Function):
         ds = (torch.sum(ds_elem, dim=axes).reshape(s.shape) * gf).to(s.dtype)
         db_pre = _lead_sum(dx1, 1)
         return (dx1, dkernel.to(kernel.dtype), ds, db_pre.to(b_pre.dtype),
-                db_post.to(b_post.dtype), None, None, None, None)
+                db_post.to(b_post.dtype), None, None, None, None, None)
 
 
 def int8_qlinear(x, kernel, s, b_pre, b_post, w_bits, a_bits, all_positive,
-                 mm=int8_mm):
+                 mm=int8_mm, tp=None):
     """QLinear's bias -> LSQ -> bias -> @ StatsQ(kernel) (no output bias)
     with the product on the integer codes; `mm` is `int8_mm` or its plain
-    version."""
+    version; `tp` the layer's role under tensor parallelism (module
+    docstring)."""
     return _Int8QLinear.apply(x, kernel, s, b_pre, b_post, w_bits, a_bits,
-                              all_positive, mm)
+                              all_positive, mm, tp)
 
 
 # ------------------------------------------------- the shared QKR chain
@@ -283,40 +315,48 @@ class _Int8StatsQLinear(torch.autograd.Function):
     """`(xi * s_eff + bx) @ StatsQ(kernel)` on integer-valued `xi`
     (`ofq_tpu.ops.int8_qlinear.int8_statsq_linear`): the int product with
     the column scale after it, the bias folded to `(bx @ W_int) * col`;
-    xi kept as an int8 residual."""
+    xi kept as an int8 residual.  The arithmetic runs in `dt`, the
+    stream's dtype; the cotangents of xi and s_eff come back in their own
+    dtypes (fp32 copies of a sharded chain's bf16 inputs take their
+    partial sums unrounded: `nn/attention.py:qkr_quant_chain`)."""
 
     @staticmethod
-    def forward(ctx, xi, s_eff, bx, kernel, w_bits, mm):
+    def forward(ctx, xi, s_eff, bx, kernel, w_bits, mm, dt):
+        ctx.dtypes = (xi.dtype, s_eff.dtype)
+        xi, s_eff = xi.to(dt), s_eff.to(dt)
         w_int, s_w = _weight_int(kernel.to(F32), w_bits)
         acc = _code_product(xi, w_int, mm)
         col = _col(s_w, w_bits)
-        dot = (acc.to(F32) * col).to(xi.dtype)
-        bq = (torch.matmul(bx.to(F32), w_int) * col).to(xi.dtype)
+        dot = (acc.to(F32) * col).to(dt)
+        bq = (torch.matmul(bx.to(F32), w_int) * col).to(dt)
         ctx.save_for_backward(_codes8(xi), s_eff, bx, kernel, dot)
-        ctx.cfg = (w_bits, xi.dtype)
+        ctx.cfg = w_bits
         return dot * s_eff + bq
 
     @staticmethod
     def backward(ctx, g):
         xi8, s_eff, bx, kernel, dot = ctx.saved_tensors
-        w_bits, _ = ctx.cfg
+        w_bits = ctx.cfg
+        xi_dt, s_dt = ctx.dtypes
         w_int, s_w = _weight_int(kernel.to(F32), w_bits)
         col = _col(s_w, w_bits)
         gs = (g * s_eff).to(g.dtype)
         gcol = (gs.to(F32) * col).to(g.dtype)
-        dxi = _acc32(_rows(gcol), w_int.to(g.dtype).T).to(g.dtype)
+        dxi = _acc32(_rows(gcol), w_int.to(g.dtype).T).to(xi_dt)
         ds_full = torch.sum(g.to(F32) * dot.to(F32), dim=-1, keepdim=True)
-        ds_eff = _unbroadcast(ds_full, s_eff.shape).to(s_eff.dtype)
+        ds_eff = _unbroadcast(ds_full, s_eff.shape).to(s_dt)
         gsum = _lead_sum(g, 1)                                   # (out,)
         dbx = torch.matmul(gsum * col, w_int.T).to(bx.dtype)     # (in,)
         x2 = (xi8.to(g.dtype) * s_eff + bx.to(g.dtype)).to(g.dtype)
         dkernel = _acc32(_rows(x2).T, _rows(g))
         return (dxi.reshape(xi8.shape), ds_eff, dbx, dkernel.to(kernel.dtype),
-                None, None)
+                None, None, None)
 
 
-def int8_statsq_linear(xi, s_eff, bx, kernel, w_bits, mm=int8_mm):
-    return _Int8StatsQLinear.apply(xi, s_eff, bx, kernel, w_bits, mm)
+def int8_statsq_linear(xi, s_eff, bx, kernel, w_bits, mm=int8_mm, dt=None):
+    """`dt`: the stream's dtype, xi's by default."""
+    return _Int8StatsQLinear.apply(xi, s_eff, bx, kernel, w_bits, mm,
+                                   dt or xi.dtype)
 
 
 def _qkx_parts(w_qk3, w_bits):
@@ -342,16 +382,19 @@ def _qkx_codes(xi, w_int, mm):
 class _Int8StatsQQkx(torch.autograd.Function):
     """`einsum('bnj,hij->bnhi', xi * s_eff + bx, StatsQ(w_qk))` on the
     integer codes (`ofq_tpu.ops.int8_qlinear.int8_statsq_qkx`); w_qk the
-    raw (H, C, C) product, its StatsQ per row of the (H*C, C) view."""
+    raw (H, C, C) product, its StatsQ per row of the (H*C, C) view; `dt`
+    and the cotangents' dtypes as `_Int8StatsQLinear`'s."""
 
     @staticmethod
-    def forward(ctx, xi, s_eff, bx, w_qk, w_bits, mm):
+    def forward(ctx, xi, s_eff, bx, w_qk, w_bits, mm, dt):
+        ctx.dtypes = (xi.dtype, s_eff.dtype)
+        xi, s_eff = xi.to(dt), s_eff.to(dt)
         w_int, col = _qkx_parts(w_qk, w_bits)
         H, C = col.shape
         acc = _qkx_codes(xi, w_int, mm)
-        dot = (acc.to(F32) * col).to(xi.dtype)
+        dot = (acc.to(F32) * col).to(dt)
         w3 = w_int.reshape(H, C, C)
-        bq = (torch.einsum("j,hij->hi", bx.to(F32), w3) * col).to(xi.dtype)
+        bq = (torch.einsum("j,hij->hi", bx.to(F32), w3) * col).to(dt)
         ctx.save_for_backward(_codes8(xi), s_eff, bx, w_qk, dot)
         ctx.cfg = w_bits
         return dot * s_eff[..., None] + bq
@@ -359,6 +402,7 @@ class _Int8StatsQQkx(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xi8, s_eff, bx, w_qk, dot = ctx.saved_tensors
+        xi_dt, s_dt = ctx.dtypes
         w_int, col = _qkx_parts(w_qk, ctx.cfg)
         B, N, H, C = g.shape
         # dxi = einsum('bnhi,hij->bnj', g * s_eff * w_q): the column scale
@@ -366,9 +410,9 @@ class _Int8StatsQQkx(torch.autograd.Function):
         gs = (g * s_eff[..., None]).to(g.dtype)
         gcol = (gs.to(F32) * col).to(g.dtype)
         dxi = _acc32(gcol.reshape(B * N, H * C),
-                     w_int.to(g.dtype)).to(g.dtype).reshape(B, N, C)
+                     w_int.to(g.dtype)).to(xi_dt).reshape(B, N, C)
         ds_full = torch.sum(g.to(F32) * dot.to(F32), dim=(-2, -1))[..., None]
-        ds_eff = _unbroadcast(ds_full, s_eff.shape).to(s_eff.dtype)
+        ds_eff = _unbroadcast(ds_full, s_eff.shape).to(s_dt)
         gsum = _lead_sum(g, 2)                                   # (H, C)
         dbx = torch.einsum("hi,hij->j", gsum * col,
                            w_int.reshape(H, C, C)).to(bx.dtype)
@@ -377,11 +421,13 @@ class _Int8StatsQQkx(torch.autograd.Function):
         x2 = (xi8.to(g.dtype) * s_eff + bx.to(g.dtype)).to(g.dtype)
         dw = _acc32(g.reshape(B * N, H * C).T, _rows(x2))
         return (dxi, ds_eff, dbx, dw.reshape(H, C, C).to(w_qk.dtype), None,
-                None)
+                None, None)
 
 
-def int8_statsq_qkx(xi, s_eff, bx, w_qk, w_bits, mm=int8_mm):
-    return _Int8StatsQQkx.apply(xi, s_eff, bx, w_qk, w_bits, mm)
+def int8_statsq_qkx(xi, s_eff, bx, w_qk, w_bits, mm=int8_mm, dt=None):
+    """`dt`: the stream's dtype, xi's by default."""
+    return _Int8StatsQQkx.apply(xi, s_eff, bx, w_qk, w_bits, mm,
+                                dt or xi.dtype)
 
 
 # ------------------------------------------------------ frozen serving

@@ -79,9 +79,11 @@ def _active(mesh) -> bool:
 
 
 def _all_reduce(t: torch.Tensor, mesh, op=None) -> torch.Tensor:
-    """`t` reduced over the model group, in at least fp32, returned in its
-    dtype (a new tensor)."""
-    hi = torch.promote_types(t.dtype, torch.float32)
+    """`t` reduced over the model group, a float in at least fp32, an
+    integer in its own dtype (exact), returned in its dtype (a new
+    tensor)."""
+    hi = (torch.promote_types(t.dtype, torch.float32)
+          if t.is_floating_point() else t.dtype)
     out = t.detach().to(hi, copy=True).contiguous()
     dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=mesh.model_group)
     return out.to(t.dtype)
@@ -198,6 +200,12 @@ class Cut:
         return self.shape[:-1] + (self.shape[-1] // self.parts,)
 
     @property
+    def shape_axis(self) -> int:
+        """The axis of `shape` that the cut divides (a strided view divides
+        the last)."""
+        return self.axis if self.view == self.shape else len(self.shape) - 1
+
+    @property
     def row_parallel(self) -> bool:
         """A kernel cut along its in-axis (StatsQ's reduction axis)."""
         return len(self.shape) == 2 and self.axis == 0
@@ -214,14 +222,18 @@ def _cut(shape, parts, axis=0, view=None) -> Cut:
 
 def block_cuts(prefix: str, C: int, H: int, N: int, hidden: int,
                parts: int, *, qkr: bool = True, window: int | None = None,
-               attention: bool = True, mlp: bool = True) -> dict:
+               attention: bool = True, mlp: bool = True,
+               lsq: bool = False) -> dict:
     """{parameter name: Cut} of one W2A2 block at `parts` model ranks:
     `param_spec`'s sharded kernels and biases, and the shifts and scales
     only a rank's heads or columns use.  The attention is QKR's (`qkr`) or
     the single `qkv` linear's, cut by head; a window attention (`window`:
     Swin's window size) also cuts its relative-position bias table's head
     columns.  `attention` / `mlp` False: that half stays whole (the
-    model group's width does not divide its heads / hidden units)."""
+    model group's width does not divide its heads / hidden units).  With
+    full-LSQ weights (`lsq`) the column-parallel linears' per-column
+    weight scales are cut with their columns; a row-parallel linear keeps
+    its whole."""
     a, m = f"{prefix}.attn", f"{prefix}.mlp"
     cuts = {}
     if attention and qkr:
@@ -241,6 +253,9 @@ def block_cuts(prefix: str, C: int, H: int, N: int, hidden: int,
             cuts[f"{a}.{k}"] = _cut((3 * C,), parts, 1, view=(3, H, d))
         for k in ("move_q_aft.bias", "move_k_aft.bias"):
             cuts[f"{a}.{k}"] = _cut((C,), parts)
+        if lsq:
+            cuts[f"{a}.qkv.weight_quant.s"] = _cut((3 * C,), parts, 1,
+                                                   view=(3, H, d))
     if attention:
         for k in ("quan_v.s", "move_v_aft.bias", "proj.move_b4.bias",
                   "proj.move_aft.bias"):
@@ -252,6 +267,8 @@ def block_cuts(prefix: str, C: int, H: int, N: int, hidden: int,
     if mlp:
         cuts[f"{m}.fc1.kernel"] = _cut((C, hidden), parts, 1)
         cuts[f"{m}.fc1.bias"] = _cut((hidden,), parts)
+        if lsq:
+            cuts[f"{m}.fc1.weight_quant.s"] = _cut((hidden,), parts)
         cuts[f"{m}.fc2.kernel"] = _cut((hidden, C), parts, 0)
         for k in ("move_b4.bias", "move_aft.bias"):
             cuts[f"{m}.fc2.{k}"] = _cut((hidden,), parts)
@@ -327,23 +344,65 @@ class Layout:
 
         return torch.sqrt(model_sum(sq(sliced), self.mesh) + sq(whole))
 
+    def sq_sum(self, name: str, t: torch.Tensor, dims=None,
+               keepdim: bool = False) -> torch.Tensor:
+        """The sum of `t`'s squares over `dims` (all of them for None) as
+        the full tensor of parameter `name` gives it: summed over the model
+        group where `t` is a slice cut along one of `dims`."""
+        dims = tuple(range(t.ndim)) if dims is None else tuple(
+            d % t.ndim for d in dims)
+        sq = torch.sum(t * t, dim=dims, keepdim=keepdim) if dims else t * t
+        c = self.cuts.get(name)
+        return (model_sum(sq, self.mesh)
+                if c is not None and c.shape_axis in dims else sq)
+
+    def cut_states(self, states):
+        """This rank's slices of per-weight states ({name: NamedTuple} of
+        full tensors, e.g. the oscillation hook's): each field of its
+        parameter's full shape is cut, a scalar (a step count) kept."""
+        if not states:
+            return states
+        out = {}
+        for n, st in states.items():
+            c = self.cuts.get(n)
+            out[n] = st if c is None else type(st)(*(
+                self.cut(n, f) if tuple(f.shape) == c.shape else f
+                for f in st))
+        return out
+
+    def gather_states(self, states):
+        """The full per-weight states of this rank's slices (a collective
+        over the model group)."""
+        if not states:
+            return states
+        out = {n: list(st) for n, st in states.items()}
+        for i in range(len(next(iter(states.values())))):
+            part = {n: st[i] for n, st in states.items()
+                    if n in self.cuts and st[i].ndim}
+            for n, t in self.gather(part).items():
+                out[n][i] = t
+        return {n: type(states[n])(*v) for n, v in out.items()}
+
     def shard_state(self, state, model: torch.nn.Module):
         """`state` (of the full model, built before `shard_model` cut it)
-        on this rank: the parameters become the model's sliced ones, the
-        moments are cut; `state.tp` holds the layout."""
+        on this rank: fp32 masters become the model's sliced parameters,
+        bf16 masters, the moments, the EMA and the oscillation hook's
+        states are cut; `state.tp` holds the layout."""
         masters = dict(model.named_parameters())
-        if any(p.dtype == torch.bfloat16 for p in state.params.values()):
-            raise tp_refusal("bf16 master weights", "g")
         if set(masters) != set(state.params):
             raise ValueError("the state's parameters are not the model's")
-        state.params = masters
+        if any(p.dtype == torch.bfloat16 for p in state.params.values()):
+            state.params = self.cut_all(state.params)
+        else:
+            state.params = masters
         state.opt_state = dataclasses.replace(
             state.opt_state, mu=self.cut_all(state.opt_state.mu),
             nu=self.cut_all(state.opt_state.nu))
         if state.ema_params is not None:
-            raise tp_refusal("the EMA", "g")
-        if (state.extra or {}).get("oscillation") is not None:
-            raise tp_refusal("the oscillation hook", "g")
+            state.ema_params = self.cut_all(state.ema_params)
+        osc = (state.extra or {}).get("oscillation")
+        if osc is not None:
+            state.extra = {**state.extra, "oscillation": self.cut_states(osc)}
         state.tp = self
         return state
 
@@ -371,7 +430,7 @@ def check_shardable(model: torch.nn.Module, parts: int) -> None:
     from ..models.deit import VisionTransformer
     from ..models.swin import SwinTransformer
     from ..nn.attention import QAttention, QAttentionQKR
-    from ..nn.linear import QLinear, QMlp
+    from ..nn.linear import LsqLinear, QLinear, QMlp
     if not isinstance(model, (VisionTransformer, SwinTransformer)):
         raise TypeError(f"{type(model).__name__}: not a DeiT or Swin model")
     cfg, pol = model.cfg, model.policy
@@ -379,19 +438,13 @@ def check_shardable(model: torch.nn.Module, parts: int) -> None:
         raise tp_refusal("norm_layer='batchnorm' (the LN->BN swap)", "i")
     if cfg.remats:
         raise tp_refusal("block and attention remat", "h")
-    if cfg.matmul_impl == "int8":
-        raise tp_refusal("matmul_impl='int8'", "e")
-    if model.lsq_weights:
-        raise tp_refusal("full-LSQ weights (--wq-mode lsq)", "f")
     if pol.weight_frozen:
         raise tp_refusal("frozen artifacts", "j")
-    if cfg.telemetry:
-        raise tp_refusal("the telemetry of kd_qk, kd_qkv and kd_token", "g")
     for name, blk in _blocks(model):
         attn = blk.attn
         quantized = (isinstance(attn, (QAttentionQKR, QAttention))
                      and isinstance(blk.mlp, QMlp)
-                     and isinstance(blk.mlp.fc1, QLinear))
+                     and isinstance(blk.mlp.fc1, (QLinear, LsqLinear)))
         if (not quantized or attn.weight_bits >= 32
                 or attn.input_bits >= 32 or not attn.quantize_softmax
                 or pol.act_layer != "gelu"):
@@ -415,9 +468,10 @@ def _shard_block(name: str, blk, mesh) -> dict:
     H = attn.num_heads
     qkr = isinstance(attn, QAttentionQKR)
     N = (attn.quant_x.s if qkr else attn.quan_q.s).numel()
+    lsq = hasattr(mlp.fc1, "weight_quant")
     cuts = block_cuts(name, C, H, N, hidden, parts, qkr=qkr,
                       window=getattr(attn, "window_size", None),
-                      attention=cut_attn, mlp=cut_mlp)
+                      attention=cut_attn, mlp=cut_mlp, lsq=lsq)
     if cut_attn:
         h = H // parts
         attn.num_heads = h
@@ -434,11 +488,15 @@ def _shard_block(name: str, blk, mesh) -> dict:
         attn.quan_softmax.tp = (1, mesh)          # (B, H, N, N): heads
         attn.proj.tp = ("row", mesh)
         attn.proj.input_quant.tp = (-1, mesh)     # (..., C): channels
+        if hasattr(attn.proj, "weight_quant"):    # QKR keeps StatsQ
+            attn.proj.weight_quant.tp = (0, mesh)  # (in, out): rows
     if cut_mlp:
         mlp.tp = mesh
         mlp.fc1.tp = ("col", mesh)
         mlp.fc2.tp = ("row", mesh)
         mlp.fc2.input_quant.tp = (-1, mesh)
+        if lsq:
+            mlp.fc2.weight_quant.tp = (0, mesh)
     return cuts
 
 

@@ -161,7 +161,9 @@ def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
 
 def _factor(x_shape, bit, all_positive, channel_axis, weight, model):
     if weight:
-        return grad_scale_factor(x_shape, bit, all_positive, channel_axis)
+        # a kernel cut over the model group counts its whole shape
+        return grad_scale_factor(model_global_shape(x_shape, model), bit,
+                                 all_positive, channel_axis)
     return act_grad_scale_factor(x_shape, bit, all_positive, channel_axis,
                                  model)
 
@@ -172,7 +174,8 @@ def lsq_quantize_composed(x: torch.Tensor, s: torch.Tensor, bit: int, *,
     """LSQ fake-quantization by autograd through the composition
     (`ofq_tpu.quant.lsq.lsq_quantize_composed`).  bit == 1 signed is
     sign(x).  x is a batch-major activation (`act_grad_scale_factor`,
-    with `model`) unless `weight`."""
+    with `model`) unless `weight` (a kernel: `grad_scale_factor` at its
+    whole shape, `model` naming its cut axis)."""
     thd_neg, thd_pos = thresholds(bit, all_positive)
     g = _factor(x.shape, bit, all_positive, channel_axis, weight, model)
     s_b = _broadcast_scale(s, x.shape, channel_axis)

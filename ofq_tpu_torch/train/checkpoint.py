@@ -28,8 +28,9 @@ structure.
 In a data-parallel run rank 0 alone writes (and applies the retention),
 and every rank waits at a barrier after the save, so that a restore that
 follows reads a complete directory; every rank restores.  Under tensor
-parallelism (`state.tp`) the sliced parameters and their moments are
-gathered over the model group first (every rank takes part), so the file
+parallelism (`state.tp`) the sliced parameters (bf16 masters as bf16),
+their moments, EMA and oscillation states are gathered over the model
+group first (every rank takes part), so the file
 holds the full tensors under their names, as one process writes them; a
 restore into a sharded state cuts them to the rank's slices.
 """
@@ -133,13 +134,16 @@ def state_payload(state: TrainState, buffers=None,
     group: every rank of it must call this)."""
     osc = (state.extra or {}).get("oscillation")
     full = (lambda t: t) if state.tp is None else state.tp.gather
+    if osc is not None and state.tp is not None:
+        osc = state.tp.gather_states(osc)
     return {
         "params": _host(full(state.params)),
         "opt_state": {"count": int(state.opt_state.count),
                       "mu": _host(full(state.opt_state.mu)),
                       "nu": _host(full(state.opt_state.nu))},
         "step": int(state.step), "epoch": int(state.epoch),
-        "ema_params": _host(state.ema_params),
+        "ema_params": (None if state.ema_params is None
+                       else _host(full(state.ema_params))),
         "oscillation": None if osc is None else _host(osc),
         "buffers": _host(dict(buffers or {})),
         "metrics": None if metrics is None else {
@@ -234,9 +238,12 @@ def restore_into(payload: dict, state: TrainState,
     if osc is not None:
         if set(osc) != set(have):
             raise ValueError("checkpoint oscillation states do not match")
-        state.extra = {**state.extra, "oscillation": {
-            n: type(have[n])(**{f: v.to(dev) for f, v in fields.items()})
-            for n, fields in osc.items()}}
+        states = {n: type(have[n])(**{f: v.to(dev) for f, v in
+                                      fields.items()})
+                  for n, fields in osc.items()}
+        if state.tp is not None:
+            states = state.tp.cut_states(states)
+        state.extra = {**state.extra, "oscillation": states}
     if model is not None:
         work = dict(model.named_parameters())
         masters = state.params

@@ -71,9 +71,15 @@ whole gradient, bit-equal on every model rank); the gradient mean runs
 over the data group only, AdamW elementwise on the slices, CGA's masks
 on the slices with the whole kernels' scales and level ranges, and
 `grad_norm` is the norm of the full gradients.  The loss and metrics are
-the same on every model rank.  The options not ported there (the
-telemetry losses, the EMA, clipping, bf16 masters, the oscillation hook,
-`per_layer_grad_norms`, the dampening loss) raise NotImplementedError.
+the same on every model rank.  Every option runs there: the telemetry
+losses and the dampening term reduce over the model group inside the
+loss (`losses.py`); the clipping reads the full gradients (`optim.py`);
+the EMA and bf16 masters are elementwise on the slices; the oscillation
+hook reads a row-parallel kernel's codes at the whole kernel's scale and
+its `ema_mean` counts every entry once, as do `per_layer_grad_norms`.
+`kd_qk` and `kd_qkv` over a data axis wider than 1 raise
+NotImplementedError (their norms span the global batch: ROADMAP item
+7.2m).
 """
 
 from __future__ import annotations
@@ -87,7 +93,6 @@ from torch.func import functional_call
 from ..models.registry import resolve_device
 from ..nn.dropout import check_generator
 from ..parallel import collectives
-from ..parallel.tensor import tp_refusal
 from ..quant.ste import at_least_f32
 from . import cga as cga_lib
 from . import oscillation_hook as osc_lib
@@ -138,12 +143,15 @@ def _oscillation_settings(oscillation: dict) -> dict:
                 model_type=oscillation.get("model_type", "deit"))
 
 
-def _per_layer_norms(grads: dict) -> dict:
-    """`grad_norm/<top-level name>` over each group of gradients."""
+def _per_layer_norms(grads: dict, layout=None) -> dict:
+    """`grad_norm/<top-level name>` over each group of gradients (of the
+    full gradients with a tensor-parallel `layout`)."""
     groups = {}
     for n, g in grads.items():
-        groups.setdefault(n.split(".")[0], []).append(g)
-    return {f"grad_norm/{k}": global_norm(v) for k, v in groups.items()}
+        groups.setdefault(n.split(".")[0], {})[n] = g
+    return {f"grad_norm/{k}": (global_norm(v.values()) if layout is None
+                               else layout.global_norm(v))
+            for k, v in groups.items()}
 
 
 def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
@@ -207,28 +215,27 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
     cfg = getattr(model, "cfg", None)
     draws = cfg is not None and max(cfg.drop_rate, cfg.attn_drop_rate,
                                     cfg.drop_path_rate) > 0
+    if (loss_kind in ("kd_qk", "kd_qkv") and mesh is not None
+            and mesh.data_world > 1):
+        raise NotImplementedError(
+            f"loss_kind={loss_kind!r} over a data-parallel batch (a mesh "
+            f"whose data axis is {mesh.data_world}): the Grams' norms span "
+            "the global batch; not ported yet (ROADMAP.md, Queue 1 item "
+            "7.2m)")
     layout = None
     if mesh is not None and mesh.model_parallel > 1:
         layout = getattr(model, "tp_layout", None)
         if layout is None:
             raise ValueError("model_parallel > 1: shard the model first "
                              "(parallel.shard_params / shard_model)")
-        for what, on in (
-                (f"loss_kind={loss_kind!r}", loss_kind in AUX_LOSS_KINDS),
-                ("the EMA (ema_decay)", ema_decay is not None),
-                ("gradient clipping",
-                 getattr(optimizer, "clip_grad", None) is not None),
-                ("bf16 master weights", master_dtype == "bfloat16"),
-                ("the oscillation hook", oscillation is not None),
-                ("per_layer_grad_norms", per_layer_grad_norms),
-                ("the dampening loss", dampening is not None)):
-            if on:
-                raise tp_refusal(what, "g")
         if cga is not None:
             # the masks of the whole kernels, on this rank's slices
             cga = dict(cga, layout=layout)
 
     aux = loss_kind in AUX_LOSS_KINDS
+    tp_mesh = None if layout is None else layout.mesh
+    # the optimizer's clipping reads the full gradients under TP
+    opt_kw = {} if layout is None else {"layout": layout}
 
     def loss_fn(x, label, generator):
         out = model(x, generator, aux=True) if aux else model(x, generator)
@@ -250,10 +257,11 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                                     kd_type=token_kd_type)
             else:
                 loss = kd_soft_hard_qk(out, info, label, t_logits, t_info,
-                                       include_v=loss_kind == "kd_qkv")
+                                       include_v=loss_kind == "kd_qkv",
+                                       mesh=tp_mesh)
         if dampening is not None:
             loss = loss + dampening_loss(work, dampening["bits"],
-                                         dampening["weighting"])
+                                         dampening["weighting"], layout)
         return loss
 
     def train_step(state: TrainState, batch,
@@ -273,10 +281,9 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                 master_dtype == "bfloat16"):
             raise ValueError(f"master_dtype={master_dtype!r}, but the "
                              f"state's masters are {masters[0].dtype}")
-        if layout is not None and (master_bf16 or state.tp is not layout):
-            raise (tp_refusal("bf16 master weights", "g") if master_bf16
-                   else ValueError("the state is not the sharded model's "
-                                   "(parallel.shard_params)"))
+        if layout is not None and state.tp is not layout:
+            raise ValueError("the state is not the sharded model's "
+                             "(parallel.shard_params)")
         if master_bf16:
             tensors = [work[n] for n in names]
             with torch.no_grad():
@@ -305,7 +312,7 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                 grads = cga_lib.mask_grads(grads, masks)
             updates, opt_state = optimizer.update(
                 {n: g.to(at_least_f32(g.dtype)) for n, g in grads.items()},
-                state.opt_state, views)
+                state.opt_state, views, **opt_kw)
             frozen = [] if masks is None else [
                 n for n in names if masks[n] is not None]
             # the selected fp32 masters as they were, for the restore
@@ -336,7 +343,7 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                    "grad_norm": (global_norm(grads.values()) if layout is None
                                  else layout.global_norm(grads))}
         if per_layer_grad_norms:
-            metrics.update(_per_layer_norms(grads))
+            metrics.update(_per_layer_norms(grads, layout))
         metrics.update(osc_metrics)
         return state, metrics
 
@@ -349,11 +356,11 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                   model_type=o["model_type"])
         osc, met = osc_lib.update_oscillation_states(
             state.params, state.extra["oscillation"], momentum=o["momentum"],
-            freeze_threshold=o["freeze_threshold"], **kw)
+            freeze_threshold=o["freeze_threshold"], layout=layout, **kw)
         state.extra = {**state.extra, "oscillation": osc}
         if o["freeze_threshold"] > 0:
             pinned = osc_lib.apply_frozen(state.params, state.params, osc,
-                                          **kw)
+                                          layout=layout, **kw)
             tracked = [n for n in names if n in osc]
             torch._foreach_copy_([state.params[n] for n in tracked],
                                  [pinned[n] for n in tracked])

@@ -2,7 +2,19 @@
 `ofq_tpu/train/losses.py:17-151`): pure functions of the student's outputs,
 the targets and the teacher's outputs (logits, the attentions' Gram
 telemetry, the token features); and the oscillation-dampening regularizer
-on the StatsQ kernels."""
+on the StatsQ kernels.
+
+Under tensor parallelism (`mesh`, `layout`) every rank computes the same
+loss: a cut attention's Grams hold the rank's heads, so the direction
+matching cuts the (whole) teacher's Grams to them and sums the three
+squared norms of a layer over the model group (`reduce_from_model`:
+forward a sum, backward the identity; the student's norm, which every
+rank's slice reads, sums its cotangent back over the group); an attention
+left whole counts once.  The dampening term sums the sliced kernels' terms over the group
+in one such reduction (a row-parallel kernel at the whole kernel's
+StatsQ scale) and adds the whole kernels' once.  The logits and the
+token features (`kd_token`) are whole on every rank.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +22,7 @@ from typing import Mapping, Sequence
 
 import torch
 
+from ..parallel.tensor import copy_to_model, reduce_from_model
 from ..quant.lsq import _clip
 from ..quant.statsq import _CLIP_HI_EPS, statsq_quantize, statsq_scale
 
@@ -60,32 +73,51 @@ def _normed_l2_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(a - b)
 
 
+def _cut_normed_l2_distance(a, b, mesh) -> torch.Tensor:
+    """`_normed_l2_distance` of two tensors whose head axis (1) the model
+    group's ranks hold slices of: each squared sum over the group.  ||a||
+    feeds every rank's slice of the difference, so its cotangent (each
+    rank's share) is summed over the group too (`copy_to_model`)."""
+    na = copy_to_model(torch.sqrt(reduce_from_model(torch.sum(a * a), mesh)),
+                       mesh)
+    nb = torch.sqrt(reduce_from_model(torch.sum(b * b), mesh))
+    d = a / na - b / nb
+    return torch.sqrt(reduce_from_model(torch.sum(d * d), mesh))
+
+
 def direction_matching(student_scores: Sequence[torch.Tensor],
-                       teacher_scores: Sequence[torch.Tensor]
-                       ) -> torch.Tensor:
+                       teacher_scores: Sequence[torch.Tensor],
+                       mesh=None) -> torch.Tensor:
     """The normalized L2 distances summed over layers, entries <= -100
-    (masked scores) set to 0 on both sides."""
+    (masked scores) set to 0 on both sides.  With `mesh`, a student's
+    (B, H, ...) Gram of fewer heads than the teacher's is this rank's
+    heads of a cut attention (module docstring)."""
     total = 0.0
     for s, t in zip(student_scores, teacher_scores):
+        cut = mesh is not None and s.shape[1] != t.shape[1]
+        if cut:
+            h = s.shape[1]
+            t = t.narrow(1, mesh.model_index * h, h)
         s = torch.where(s <= -1e2, torch.zeros_like(s), s)
         t = torch.where(t <= -1e2, torch.zeros_like(t), t)
-        total = total + _normed_l2_distance(s, t)
+        total = total + (_cut_normed_l2_distance(s, t, mesh) if cut
+                         else _normed_l2_distance(s, t))
     return total
 
 
 def kd_soft_hard_qk(student_out, student_attn_info, hard_target,
                     teacher_logits, teacher_attn_info,
-                    include_v: bool = False) -> torch.Tensor:
+                    include_v: bool = False, mesh=None) -> torch.Tensor:
     """`kd_soft_and_hard` plus the direction matching of the q and k (and
     with `include_v` the v) Grams; an info is a per-layer tuple (attn,
-    q q^T, k k^T, v v^T)."""
+    q q^T, k k^T, v v^T); `mesh` as `direction_matching`'s."""
     base = kd_soft_and_hard(student_out, hard_target, teacher_logits)
     parts = (1, 2, 3) if include_v else (1, 2)
     extra = 0.0
     for i in parts:
         extra = extra + direction_matching(
             [info[i] for info in student_attn_info],
-            [info[i] for info in teacher_attn_info])
+            [info[i] for info in teacher_attn_info], mesh)
     return base + extra
 
 
@@ -116,19 +148,29 @@ def kl_token_mse(student_logits, student_tokens, teacher_logits,
 
 
 def dampening_loss(params: Mapping[str, torch.Tensor], bits: int,
-                   weighting: float = 0.0) -> torch.Tensor:
+                   weighting: float = 0.0, layout=None) -> torch.Tensor:
     """`weighting * sum((sg(statsq_quantize(w)) - clip(w, -s, s(1 - 1e-6)))^2)`
     over the `kernel`s of fc1, fc2, qkv and proj, by parameter name; 0 when
     `weighting` is 0.  The scale s is detached, so the gradient flows only
-    through the clipped passthrough (JAX's `jnp.clip`: half at a bound)."""
+    through the clipped passthrough (JAX's `jnp.clip`: half at a bound).
+    `layout`: `params` are a sharded model's (module docstring)."""
     if weighting == 0.0:
         return torch.zeros(())
-    total = 0.0
+    whole, sliced = 0.0, 0.0
     for name, w in params.items():
         parts = name.split(".")
         if parts[-1] == "kernel" and any(n in _DAMPENED for n in parts):
-            wq = statsq_quantize(w, bits).detach()
-            s = statsq_scale(w)
-            total = total + torch.sum(
+            cut = None if layout is None else layout.cuts.get(name)
+            row = layout.mesh if cut is not None and cut.row_parallel \
+                else None
+            wq = statsq_quantize(w, bits, mesh=row).detach()
+            s = statsq_scale(w, mesh=row)
+            term = torch.sum(
                 (wq - _clip(w, -s, s * (1.0 - _CLIP_HI_EPS))) ** 2)
-    return weighting * total
+            if cut is None:
+                whole = whole + term
+            else:
+                sliced = sliced + term
+    if torch.is_tensor(sliced):
+        whole = whole + reduce_from_model(sliced, layout.mesh)
+    return weighting * whole

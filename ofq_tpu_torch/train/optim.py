@@ -14,6 +14,13 @@ optional clipping transform of the chain (`clip_gradients`):
 
 The learning rate is the schedule's float32 value, as optax casts it.  The
 caller adds `u` to the parameter in at least fp32 (`loop.py`).
+
+Under tensor parallelism (`layout`, the state's `parallel.Layout`) the
+update is elementwise on the slices; the clipping reads the full
+gradients: the global norm over the model group (`Layout.global_norm`),
+AGC's unit norms summed over the group where a slice is cut along the
+axes a unit spans (a row-parallel kernel's in-axis, a cut 1-D vector, a
+bias table's head columns; `Layout.sq_sum`).
 """
 
 from __future__ import annotations
@@ -55,16 +62,27 @@ def unitwise_norm(x: torch.Tensor, keep_axis: int = -1) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=axes, keepdim=True))
 
 
-def _agc_norm(name: str, t: torch.Tensor) -> torch.Tensor:
-    """AGC's units: a `*kernel` (Flax's (in, out) layout) keeps its last
-    axis, the 2-D ImageBias (`bias`, flat in the original) takes the
-    whole-tensor norm, every other parameter keeps axis 0."""
+def _agc_keep(name: str, t: torch.Tensor):
+    """The axis AGC's units keep: a `*kernel` (Flax's (in, out) layout) its
+    last, every other parameter axis 0; None for a whole-tensor norm (the
+    2-D ImageBias, `bias`, flat in the original; any tensor of at most one
+    dimension)."""
     leaf = name.rsplit(".", 1)[-1]
-    if leaf.endswith("kernel"):
-        return unitwise_norm(t, keep_axis=-1)
-    if leaf == "bias" and t.ndim == 2:
-        return torch.linalg.vector_norm(t)
-    return unitwise_norm(t, keep_axis=0)
+    if t.ndim <= 1 or (leaf == "bias" and t.ndim == 2):
+        return None
+    return -1 if leaf.endswith("kernel") else 0
+
+
+def _agc_norm(name: str, t: torch.Tensor, layout=None) -> torch.Tensor:
+    """AGC's unit norms of parameter `name` (`_agc_keep`); with `layout`
+    those of its full tensor, this rank's units."""
+    keep = _agc_keep(name, t)
+    if layout is None:
+        return (torch.linalg.vector_norm(t) if keep is None
+                else unitwise_norm(t, keep_axis=keep))
+    dims = None if keep is None else tuple(
+        a for a in range(t.ndim) if a != keep % t.ndim)
+    return torch.sqrt(layout.sq_sum(name, t, dims, keepdim=keep is not None))
 
 
 def _agc_skipped(names) -> set[str]:
@@ -82,19 +100,20 @@ def _agc_skipped(names) -> set[str]:
 
 def adaptive_grad_clip(grads: Mapping[str, torch.Tensor],
                        params: Mapping[str, torch.Tensor],
-                       clip_factor: float, eps: float = 1e-3
+                       clip_factor: float, eps: float = 1e-3, layout=None
                        ) -> dict[str, torch.Tensor]:
     """AGC with `exclude_head=True`: each unit's gradient clipped to
     clip_factor * max(||p||, eps), `ofq_tpu.train.optim.
-    adaptive_grad_clip`'s arithmetic."""
+    adaptive_grad_clip`'s arithmetic (`layout`: the module docstring)."""
     skip = _agc_skipped(list(grads))
     out = {}
     for n, g in grads.items():
         if n in skip:
             out[n] = g
             continue
-        p_norm = torch.clamp_min(_agc_norm(n, params[n]), eps) * clip_factor
-        g_norm = _agc_norm(n, g)
+        p_norm = torch.clamp_min(_agc_norm(n, params[n], layout),
+                                 eps) * clip_factor
+        g_norm = _agc_norm(n, g, layout)
         clipped = g * (p_norm / torch.clamp_min(g_norm, 1e-6))
         out[n] = torch.where(g_norm < p_norm, g, clipped)
     return out
@@ -102,19 +121,21 @@ def adaptive_grad_clip(grads: Mapping[str, torch.Tensor],
 
 def clip_gradients(grads: Mapping[str, torch.Tensor],
                    params: Mapping[str, torch.Tensor], clip_grad: float,
-                   clip_mode: str) -> dict[str, torch.Tensor]:
+                   clip_mode: str, layout=None) -> dict[str, torch.Tensor]:
     """The chain's first transform: `norm`, optax.clip_by_global_norm
     (`select(||g|| < max, g, g / ||g|| * max)`); `value`, optax.clip;
-    `agc`, `adaptive_grad_clip` with clip_grad as its factor."""
+    `agc`, `adaptive_grad_clip` with clip_grad as its factor (`layout`:
+    the module docstring)."""
     if clip_mode == "norm":
-        g_norm = global_norm(grads.values())
+        g_norm = (global_norm(grads.values()) if layout is None
+                  else layout.global_norm(grads))
         keep = g_norm < clip_grad
         return {n: torch.where(keep, g, (g / g_norm.to(g.dtype)) * clip_grad)
                 for n, g in grads.items()}
     if clip_mode == "value":
         return {n: torch.clamp(g, -clip_grad, clip_grad)
                 for n, g in grads.items()}
-    return adaptive_grad_clip(grads, params, clip_grad)
+    return adaptive_grad_clip(grads, params, clip_grad, layout=layout)
 
 
 def ema_update(ema: Mapping[str, torch.Tensor],
@@ -162,17 +183,18 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamWState,
-               params: Mapping[str, torch.Tensor]
+               params: Mapping[str, torch.Tensor], layout=None
                ) -> tuple[dict[str, torch.Tensor], AdamWState]:
         """(updates, new state) for `grads` and `params` in >= fp32; the
         moment tensors are replaced, not written in place.  The gradients
-        are clipped first when `clip_grad` is set.  Each line is one
+        are clipped first when `clip_grad` is set (`layout`: the module
+        docstring).  Each line is one
         elementwise step of optax's, over every tensor at once
         (`torch._foreach_*`: a few launches per step on the card, not a
         few per parameter)."""
         if self.clip_grad is not None:
             grads = clip_gradients(grads, params, self.clip_grad,
-                                   self.clip_mode)
+                                   self.clip_mode, layout)
         names = list(grads)
         g = [grads[n] for n in names]
         lr = self.lr_schedule(state.count)

@@ -13,8 +13,9 @@ the masters, and the model keeps fp32 working parameters that every step
 fills from them, an exact upcast (`loop.py`).
 
 Under tensor parallelism `tp` is the model's `parallel.Layout`: the
-parameters and moments of a sliced parameter are this rank's slices
-(`parallel.shard_params` sets it; checkpoints gather and cut by it).
+masters (fp32 or bf16), moments, EMA and oscillation states of a sliced
+parameter are this rank's slices (`parallel.shard_params` sets it, or
+`create` on a sharded model; checkpoints gather and cut by it).
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from typing import Any, Optional
 
 import torch
 
-from ..parallel.tensor import tp_refusal
 from .optim import AdamW, AdamWState
 
 
@@ -56,8 +56,6 @@ class TrainState:
                              "'bfloat16'")
         tp = getattr(model, "tp_layout", None)
         if master_dtype == "bfloat16":
-            if tp is not None:
-                raise tp_refusal("bf16 master weights", "g")
             with torch.no_grad():
                 masters = {n: p.detach().to(torch.bfloat16)
                            for n, p in params.items()}

@@ -26,8 +26,8 @@ less than one level; the code is read back to the nearest multiple of 8).
     against `tf.io.decode_image(channels=3)` exactly; the checked-in
     fixtures' PNG and BMP forms (`torch_fixtures/imagefolder`) against
     TF's decode stored beside them, and TF's decode of every fixture against
-    that stored copy; a
-    JPEG on the CPU and a GIF raise, naming the file;
+    that stored copy (GIF among them); a JPEG on the CPU, an unknown form
+    and a GIF cut short raise, naming the file;
   * `cli.train.main(..., device="cpu")` for one short epoch on a PNG
     ImageFolder with `deit_test_distilled`; the runner's evaluation counts
     exclude the -1 sentinels of a padded shard.
@@ -342,8 +342,14 @@ def test_decode_refusals(tmp_path):
         decode.decode_image(jpeg, str(tmp_path / "a.JPEG"), CPU)
     buf = io.BytesIO()
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "GIF")
+    gif = buf.getvalue()
     with pytest.raises(decode.DecodeError, match="b.png: GIF"):
-        decode.decode_image(buf.getvalue(), str(tmp_path / "b.png"), CPU)
+        decode.decode_image(gif[:len(gif) // 2], str(tmp_path / "b.png"),
+                            CPU)
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "TIFF")
+    with pytest.raises(decode.DecodeError, match="c.png: an unknown form"):
+        decode.decode_image(buf.getvalue(), str(tmp_path / "c.png"), CPU)
     # a JPEG inside a train stream on the CPU raises there, named
     root = tmp_path / "jf"
     (root / "train" / "c").mkdir(parents=True)

@@ -7,15 +7,18 @@ CPU (imports the port, never JAX).
 with torchrun's `RANK`, `WORLD_SIZE`, `MASTER_ADDR` and `MASTER_PORT` in
 the environment and the setup's `model_parallel`.  `steps` calibrates the
 small DeiT W2A2 QKR student, shards it, runs the eval forward on this
-rank's rows, then takes one step of each case of the setup from the
-calibrated start (the composed, fused and pallas configurations on the
-kernels' plain versions, dropout, CGA), gathers what it computed, writes
-and restores checkpoints; then the same for each of the setup's
+rank's rows, then takes one step (or a case's `steps`) of each case of
+the setup from the calibrated start (the composed, fused, pallas and int8
+configurations on the kernels' plain versions, dropout, CGA, the step's
+options: the telemetry losses, the EMA, clipping, bf16 masters, the
+oscillation hook, per-layer gradient norms, the dampening loss), gathers
+what it computed, writes and restores checkpoints; then the same for each of the setup's
 `configs` (the Swin students with and without QKR, DeiT-T's 3 heads, the
 DeiT student without QKR: each a setup of its own, with its model's
 `name` and `dims`).  `all` also fits the DeiT and Swin students through
 the `Runner` with `--mesh-model-parallel` and evaluates the checkpoints
-through `cli.eval.main`.  A setup's `faults` ({fault: case}) also take
+through `cli.eval.main`, and fits the DeiT student with the setup's
+`option_fits` (the int8 core with the step's options; full-LSQ weights).  A setup's `faults` ({fault: case}) also take
 that case's step with one of FAULTS planted.  Each rank writes its results to
 `<out_dir>/<what>.rank<r>.pt`.  The test's own process calls `run_case`
 and `calibrated_start` with `mesh=None` for the single process's results
@@ -47,10 +50,16 @@ from ofq_tpu_torch.parallel import (host_batch_slice,  # noqa: E402
 from ofq_tpu_torch.parallel.tensor import copy_to_model  # noqa: E402
 from ofq_tpu_torch.quant import QuantPolicy, statsq_scale  # noqa: E402
 from ofq_tpu_torch.quant.lsq import lsq_quantize  # noqa: E402
+from ofq_tpu_torch.quant.ste import at_least_f32  # noqa: E402
 from ofq_tpu_torch.train import (TrainState, constant_lr,  # noqa: E402
                                  cosine_with_warmup_cooldown, freeze_masks,
                                  make_optimizer, make_train_step)
 from ofq_tpu_torch.train import checkpoint  # noqa: E402
+from ofq_tpu_torch.train import loop as loop_mod  # noqa: E402
+from ofq_tpu_torch.train import losses  # noqa: E402
+from ofq_tpu_torch.train.optim import clip_gradients  # noqa: E402
+from ofq_tpu_torch.train.oscillation_hook import (  # noqa: E402
+    init_oscillation_states)
 
 NAME = "deit_test_distilled"
 # the small student of the tests: 4 heads, so that 2 model ranks split them
@@ -80,11 +89,60 @@ def small_variant():
 # (no f; the ranks then differ), or the LSQ grad-scale factor counting
 # this rank's heads (f kept; the same wrong gradient on every rank)
 FAULTS = ("softmax_ds_unreduced", "softmax_grad_scale_local_heads")
+# a row-parallel full-LSQ kernel's weight-scale grad-scale factor at its
+# slice's shape (the same wrong gradient on every rank); the dampening
+# loss's whole kernels counted once per rank (summed over the group with
+# the sliced ones)
+OPTION_FAULTS = ("lsq_weight_grad_scale_local", "dampening_whole_per_rank")
+
+
+def _dampening_whole_per_rank(params, bits, weighting=0.0, layout=None):
+    from ofq_tpu_torch.parallel.tensor import reduce_from_model
+    from ofq_tpu_torch.quant.statsq import statsq_quantize
+    total = 0.0
+    for name, w in params.items():
+        parts = name.split(".")
+        if parts[-1] == "kernel" and any(n in losses._DAMPENED
+                                         for n in parts):
+            cut = layout.cuts.get(name)
+            row = layout.mesh if cut is not None and cut.row_parallel \
+                else None
+            wq = statsq_quantize(w, bits, mesh=row).detach()
+            s = statsq_scale(w, mesh=row)
+            total = total + torch.sum((wq - losses._clip(
+                w, -s, s * (1.0 - losses._CLIP_HI_EPS))) ** 2)
+    return weighting * reduce_from_model(total, layout.mesh)
 
 
 @contextlib.contextmanager
 def planted(fault):
-    """One of FAULTS in effect."""
+    """One of FAULTS or OPTION_FAULTS in effect."""
+    if fault == "dampening_whole_per_rank":
+        real = loop_mod.dampening_loss
+        loop_mod.dampening_loss = _dampening_whole_per_rank
+        try:
+            yield
+        finally:
+            loop_mod.dampening_loss = real
+        return
+    if fault == "lsq_weight_grad_scale_local":
+        real_w = quantizers.LsqWeight.forward
+
+        def weight_forward(self, w):
+            if self.tp is None:
+                return real_w(self, w)
+            s = copy_to_model(self.s, self.tp[1])
+            return lsq_quantize(w.to(at_least_f32(w.dtype)), s, self.bit,
+                                all_positive=self.all_positive,
+                                channel_axis=self.axis, weight=True
+                                ).to(w.dtype)
+
+        quantizers.LsqWeight.forward = weight_forward
+        try:
+            yield
+        finally:
+            quantizers.LsqWeight.forward = real_w
+        return
     real = quantizers.LsqAct.forward
 
     def forward(self, x):
@@ -106,17 +164,21 @@ def planted(fault):
 
 
 class Recording:
-    """The optimizer, recording the gradients it is handed."""
+    """The optimizer, recording the gradients it is handed and, with its
+    clipping, the clipped ones."""
 
     def __init__(self, opt):
-        self.opt, self.grads = opt, None
+        self.opt, self.grads, self.clipped = opt, None, None
 
     def __getattr__(self, name):
         return getattr(self.opt, name)
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, **kw):
         self.grads = {k: g.detach().clone() for k, g in grads.items()}
-        return self.opt.update(grads, state, params)
+        if self.opt.clip_grad is not None:
+            self.clipped = clip_gradients(grads, params, self.opt.clip_grad,
+                                          self.opt.clip_mode, **kw)
+        return self.opt.update(grads, state, params, **kw)
 
 
 def _lr(spec):
@@ -163,10 +225,13 @@ def calibrated_start(setup: dict, mesh=None) -> dict:
 
 def run_case(setup: dict, case: dict, calibrated: dict, mesh=None,
              ckpt_dir=None) -> dict:
-    """One step of `case` from `calibrated` with the setup's moments:
-    what it computed, the full tensors (gathered), and this rank's own
-    gradients; with `ckpt_dir`, the sharded start written there as a
-    checkpoint first."""
+    """One step (`case["steps"]` steps) of `case` from `calibrated` with
+    the setup's moments: what it computed, the full tensors (gathered),
+    and this rank's own gradients (of the last step); with `ckpt_dir`, the
+    sharded start written there as a checkpoint first.  A case may ask for
+    an EMA (`ema`), bf16 masters (`master_dtype`), clipping (`clip`,
+    `clip_mode`), the oscillation hook's states (`osc`, with the step's
+    `oscillation`) and the eval logits of its start (`eval`)."""
     dt = case.get("dtype", setup["dtype"])
     m = _model(setup, case["conf"], case.get("policy"), dt)
     m.load_state_dict(calibrated)
@@ -174,14 +239,22 @@ def run_case(setup: dict, case: dict, calibrated: dict, mesh=None,
     teacher.load_state_dict(setup["teacher"])
     if case.get("teacher_bf16"):
         teacher.to(torch.bfloat16)
-    opt = Recording(make_optimizer(_lr(case["lr"]), weight_decay=0.05))
-    state = TrainState.create(m, opt)
+    opt = Recording(make_optimizer(_lr(case["lr"]), weight_decay=0.05,
+                                   clip_grad=case.get("clip"),
+                                   clip_mode=case.get("clip_mode", "norm")))
+    state = TrainState.create(m, opt, ema=case.get("ema", False),
+                              master_dtype=case.get("master_dtype"))
     cast = DTYPES[dt]
     state.opt_state = dataclasses.replace(
         state.opt_state, count=setup["start"],
         mu={k: v.to(cast) for k, v in setup["mu"].items()},
         nu={k: v.to(cast) for k, v in setup["nu"].items()})
     state.step = setup["start"]
+    osc = case["step_kw"].get("oscillation")
+    if osc is not None:
+        state.extra = {"oscillation": init_oscillation_states(
+            state.params, bits=osc["bits"], qk_reparam=osc["qk_reparam"],
+            model_type=osc["model_type"])}
     if mesh is not None:
         state = shard_params(state, mesh, m)
     if ckpt_dir is not None:
@@ -198,8 +271,14 @@ def run_case(setup: dict, case: dict, calibrated: dict, mesh=None,
                            layout=layout)
         masks = _gather({k: v for k, v in got.items() if v is not None},
                         layout)
-    step = make_train_step(m, opt, teacher=teacher, loss_kind="kd_soft_hard",
-                           device="cpu", mesh=mesh, **case["step_kw"])
+    logits = None
+    if case.get("eval"):
+        m.eval()
+        with torch.no_grad():
+            logits = m(_rows(setup["batch"], mesh)["image"].to(cast))
+    step = make_train_step(m, opt, teacher=teacher, device="cpu", mesh=mesh,
+                           **{"loss_kind": "kd_soft_hard",
+                              **case["step_kw"]})
     drawn = []
     real = dropout_mod.bernoulli
 
@@ -211,16 +290,28 @@ def run_case(setup: dict, case: dict, calibrated: dict, mesh=None,
     gen = (torch.Generator().manual_seed(case["seed"])
            if "seed" in case else None)
     dropout_mod.bernoulli = recorded
+    history = []
     try:
-        state, met = step(state, _rows(setup["batch"], mesh), gen)
+        for _ in range(case.get("steps", 1)):
+            state, met = step(state, _rows(setup["batch"], mesh), gen)
+            history.append({k: float(v) for k, v in met.items()})
     finally:
         dropout_mod.bernoulli = real
+    osc_states = (state.extra or {}).get("oscillation")
+    if osc_states is not None and layout is not None:
+        osc_states = layout.gather_states(osc_states)
     return dict(
         own_grads=opt.grads, grads=_gather(opt.grads, layout),
         params=_gather(_clone(state.params), layout),
         mu=_gather(state.opt_state.mu, layout),
         nu=_gather(state.opt_state.nu, layout),
-        metrics={k: float(v) for k, v in met.items()}, masks=masks,
+        ema=(None if state.ema_params is None
+             else _gather(state.ema_params, layout)),
+        clipped=(None if opt.clipped is None
+                 else _gather(_clone(opt.clipped), layout)),
+        osc=(None if osc_states is None else
+             {n: st._asdict() for n, st in osc_states.items()}),
+        metrics=history[-1], history=history, logits=logits, masks=masks,
         drawn=drawn, state=state, model=m)
 
 
@@ -258,18 +349,26 @@ def run_config(setup: dict, out_dir: str, mesh) -> dict:
                      mesh.model_parallel))
     for name, case in setup["cases"].items():
         ckpt = name == setup["checkpoint_case"]
-        res = run_case(setup, case, start["calibrated"], mesh,
-                       ckpt_dir=(os.path.join(out_dir, "ckpt_start")
-                                 if ckpt else None))
+        try:
+            res = run_case(setup, case, start["calibrated"], mesh,
+                           ckpt_dir=(os.path.join(out_dir, "ckpt_start")
+                                     if ckpt else None))
+        except NotImplementedError as e:
+            # the Gram losses over a data axis wider than 1 (7.2m)
+            out[name] = dict(refused=str(e))
+            continue
         if ckpt:
             out["checkpoints"] = checkpoints(setup, res, out_dir, mesh)
         del res["state"], res["model"]
         out[name] = res
     for fault, name in setup.get("faults", {}).items():
+        if "refused" in out[name]:
+            continue
         with planted(fault):
             res = run_case(setup, setup["cases"][name], start["calibrated"],
                            mesh)
-        out[fault] = dict(grads=res["grads"], own_grads=res["own_grads"])
+        out[fault] = dict(grads=res["grads"], own_grads=res["own_grads"],
+                          metrics=res["metrics"])
     return out
 
 
@@ -298,9 +397,11 @@ def runner(setup: dict, out_dir: str, mesh) -> None:
                params={k: v.detach().clone()
                        for k, v in r.model.named_parameters()})
     out["eval"] = cli_eval.main(setup["eval"], device="cpu")
+    from ofq_tpu_torch.cli import train as cli_train
+    out["option_fits"] = {k: cli_train.main(argv, device="cpu")
+                          for k, argv in setup.get("option_fits", {}).items()}
     if "swin" in setup:
         from ofq_tpu_torch.cli import cga as cli_cga
-        from ofq_tpu_torch.cli import train as cli_train
         sw = setup["swin"]
         out["swin"] = dict(train=cli_train.main(sw["fit"], device="cpu"),
                            cga=cli_cga.main(sw["cga"], device="cpu"),
