@@ -1433,8 +1433,12 @@ def _expected(conf, cfg, train, policy=None):
     """Launches of every kernel wrapper in one forward (or train step) of
     the student under `policy` (None: W2A2 QKR), as JAX's module tree
     implies: a full-LSQ DeiT's linears are `torch.matmul` (no K1, K4); the
-    Gram telemetry (`qqkkvv`) runs the composed attention (no K2, K3)."""
+    Gram telemetry (`qqkkvv`) runs the composed attention (no K2, K3); a
+    float student launches none."""
     from ofq_tpu_torch import ops
+    if policy is not None and policy.is_float:
+        # the float student: Dense products, the composed attention
+        return dict.fromkeys(ops.launch_counts(), 0)
     n_linear, n_attn, n_red = _path_counts(cfg, policy)
     qkr = policy is None or policy.qk_reparam
     lsq = (policy is not None and policy.lsq_weights
@@ -3085,9 +3089,6 @@ def phase_remat(dev, names=("deit_small_distilled_patch16_224", "swin_t"),
     from ofq_tpu_torch.models import create_model
     from ofq_tpu_torch.nn import attention as tattn
 
-    def direct(real):
-        return lambda fn, *args, **kw: fn(*args)
-
     def measured(model, teacher, data, ctx=contextlib.nullcontext):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3119,7 +3120,7 @@ def phase_remat(dev, names=("deit_small_distilled_patch16_224", "swin_t"),
             else:
                 ref, ref_gb, _ = measured(
                     m, teacher, data,
-                    lambda: injected(tattn, "checkpoint", direct))
+                    lambda: injected(tattn, "checkpoint", _direct))
             got, gb, launches = measured(m, teacher, data)
             differ = _differing(ref, got)
             row = dict(model=name, form=form, config=extra,
@@ -5694,7 +5695,16 @@ DDP_NCCL_TIMEOUT = 90   # s, the NCCL trial
 # (key, configuration, model, config overrides) of the two-rank steps
 DDP_STEPS = (("deit", FUSED, "deit_small_distilled_patch16_224", None),
              ("deit_bn", FUSED, "deit_small_distilled_patch16_224", BN),
-             ("swin", PALLAS, "swin_t", SWIN_BENCH))
+             ("swin", PALLAS, "swin_t", SWIN_BENCH),
+             # kd_qkv: the Grams' norms span the global batch
+             ("deit_kd_qkv", FUSED, "deit_small_distilled_patch16_224",
+              dict(qqkkvv=True)))
+
+
+def ddp_loss_kind(overrides):
+    """The loss of a two-rank step: kd_qkv for a student with the Gram
+    telemetry, else KD soft + hard."""
+    return "kd_qkv" if (overrides or {}).get("qqkkvv") else "kd_soft_hard"
 # the data-parallel faults of the gate self-check (the DeiT-S step): the
 # LSQ gradient scales taken at the local batch's shape, the gradient mean
 # over the ranks replaced by their sum
@@ -5842,7 +5852,8 @@ def _cpu(tree):
     return {k: v.detach().cpu() for k, v in tree.items()}
 
 
-def ddp_step(mesh, student, teacher, rows, timed=True):
+def ddp_step(mesh, student, teacher, rows, timed=True,
+             loss_kind="kd_soft_hard"):
     """One data-parallel step of `student` on this rank's `rows` (the
     schedule of `phase_train`): the all-reduced gradients, the parameters
     after it, the running-statistic updates, the loss and the launches;
@@ -5850,7 +5861,7 @@ def ddp_step(mesh, student, teacher, rows, timed=True):
     the gradient all-reduce's wall time, and the bytes and wall time of
     mixup's partner fetch (`flip_partner` of the rank's images and labels:
     an all-reduce of the global batch) at these rows (medians of 3 after
-    a warm-up)."""
+    a warm-up).  `loss_kind`: the step's loss."""
     import torch
     from ofq_tpu_torch import ops
     from ofq_tpu_torch.parallel import collectives
@@ -5861,7 +5872,7 @@ def ddp_step(mesh, student, teacher, rows, timed=True):
         weight_decay=0.05))
     state = TrainState.create(student, opt)
     step = make_train_step(student, opt, teacher=teacher,
-                           loss_kind="kd_soft_hard", device=mesh.device,
+                           loss_kind=loss_kind, device=mesh.device,
                            mesh=mesh)
     stats0 = {k: v.double() for k, v in bn_stats(student).items()}
     ops.reset_launch_counts()
@@ -5921,8 +5932,9 @@ def _ddp_steps(rank, world, tmp, mesh):
             student.load_state_dict(start["student"])
             teacher.load_state_dict(start["teacher"])
             with ddp_fault(fault):
-                out[key][fault or "ok"] = ddp_step(mesh, student, teacher,
-                                                   rows, fault is None)
+                out[key][fault or "ok"] = ddp_step(
+                    mesh, student, teacher, rows, fault is None,
+                    loss_kind=ddp_loss_kind(overrides))
         del student, teacher, data
         torch.cuda.empty_cache()
     return out
@@ -6043,7 +6055,10 @@ def phase_ddp(dev, kept, deit="deit_small_distilled_patch16_224",
           recorded), then gloo over CUDA tensors.  From the states this
           process builds, each of DDP_STEPS at 2 x `batch // 2` (the
           DeiT-S fused fp32 step, the BN DeiT-S step, the Swin-T pallas
-          bf16 step): the ranks' all-reduced gradients and updated
+          bf16 step, and the DeiT-S kd_qkv step, whose Grams' norms span
+          the global batch, its loss held to the single-process loss by
+          `check_step_grads`' telemetry-loss gate): the
+          ranks' all-reduced gradients and updated
           parameters bit for bit equal, their launches `_expected`'s,
           and the gradients (and BN's running-statistic updates) held by
           `check_step_grads`' whole-step rule against the single-process
@@ -6138,9 +6153,11 @@ def phase_ddp(dev, kept, deit="deit_small_distilled_patch16_224",
             student, teacher, data = built.pop(key)
             r0, r1 = (r[key]["ok"] for r in ranks)
             want = _expected(conf, student.cfg, train=True)
+            loss_kind = ddp_loss_kind(overrides)
             label = (f"{'Swin-T' if is_swin(name) else 'DeiT-S'}"
                      f"{' BN' if overrides == BN else ''} "
-                     f"({_describe(conf)})")
+                     f"({_describe(conf)}"
+                     f"{', ' + loss_kind if loss_kind != 'kd_soft_hard' else ''})")
             for what in ("grads", "params", "stat_updates"):
                 bad = [k for k in r0[what]
                        if not torch.equal(r0[what][k], r1[what][k])]
@@ -6156,7 +6173,8 @@ def phase_ddp(dev, kept, deit="deit_small_distilled_patch16_224",
             grads = check_step_grads(
                 student, teacher, data, conf, kernel_grads=r0["grads"],
                 kernel_loss=r0["loss"], kernel_updates=r0["stat_updates"],
-                refs=refs, tag=f"[ddp] (b) {label} 2 x {batch // 2}")
+                refs=refs, loss_kind=loss_kind,
+                tag=f"[ddp] (b) {label} 2 x {batch // 2}")
             scales = sorted((r for r in grads["per_param"]
                              if r["name"].endswith(".s")),
                             key=lambda r: r["rel_kernels"] / r["limit"])
@@ -6459,7 +6477,8 @@ def tp_step(mesh, full, teacher, data, *, cga=None, fault=None,
     launches and shapes, the sharded parameters' bytes and the peak
     memory; with `cga`, its masks (gathered) and the frozen entries that
     changed; with `timed`, the wall time of one more step and the model
-    group's all-reduce bytes and time in a third."""
+    group's all-reduce bytes and time in a third.  A BatchNorm student's
+    running-statistic updates (`stat_updates`, whole on every rank)."""
     import copy
     import torch
     from ofq_tpu_torch import ops
@@ -6482,12 +6501,15 @@ def tp_step(mesh, full, teacher, data, *, cga=None, fault=None,
         masks = {n: m for n, m in freeze_masks(
             state.params, **cga, layout=layout).items() if m is not None}
         before = {n: state.params[n].detach().clone() for n in masks}
+    stats0 = {k: v.double() for k, v in bn_stats(student).items()}
     _peak_reset()
     ops.reset_launch_counts()
     with tp_fault(fault):
         state, met = step(state, data)
     _sync()
     res.update(
+        stat_updates={k: (v.double() - stats0[k]).cpu()
+                      for k, v in bn_stats(student).items()},
         loss=float(met["loss"]), launches=ops.launch_counts(),
         shapes={**_shapes(ops.fused_qlinear_fwd),
                 **_shapes(ops.pallas_statsq_fwd)},
@@ -6823,8 +6845,10 @@ def _tp_job(rank, world, tmp, mesh):
     each step of `_tp_steps` from the parent's starts (DeiT-S fused fp32
     with the sharded serving forward, its faults and a CGA step; DeiT-S
     pallas bf16; fused bf16; Swin-T pallas bf16 with its sharded serving
-    forward, its faults and a CGA step; DeiT-T fused fp32), then the recipe's train and eval
-    commands at `--mesh-model-parallel` TP for DeiT-S and Swin-T."""
+    forward, its faults and a CGA step; DeiT-T fused fp32), those of
+    `_tp_new_steps`, `_tp_remat_steps` and `_tp_config_steps`, then the
+    recipe's train and eval commands at `--mesh-model-parallel` TP for
+    DeiT-S and Swin-T."""
     import numpy as np
     import torch
     from ofq_tpu_torch.cli import eval as cli_eval
@@ -6834,12 +6858,8 @@ def _tp_job(rank, world, tmp, mesh):
     tp = make_mesh(model_parallel=TP, device=mesh.device)
     out = dict(mesh=(tp.data_index, tp.model_index))
     for key, conf, name, over in _tp_steps(*spec["names"]):
-        start = torch.load(os.path.join(tmp, f"tp_{key}.start.pt"),
-                           weights_only=True)
-        student, teacher, data = build_trained(
-            mesh.device, conf, name, spec["batch"], overrides=over)
-        student.load_state_dict(start["student"])
-        teacher.load_state_dict(start["teacher"])
+        student, teacher, data = _tp_start(mesh.device, tmp, key, conf, name,
+                                           spec["batch"], over)
         out[key] = dict(ok=tp_step(tp, student, teacher, data,
                                    timed=key in ("fused", "pallas", "swin")))
         if key in ("fused", "swin"):
@@ -6865,12 +6885,8 @@ def _tp_job(rank, world, tmp, mesh):
         _empty_cache()
     for key, conf, name, over, batch, policy in _tp_new_steps(
             *spec["names"][:2]):
-        start = torch.load(os.path.join(tmp, f"tp_{key}.start.pt"),
-                           weights_only=True)
-        student, teacher, data = build_trained(
-            mesh.device, conf, name, batch, policy=policy, overrides=over)
-        student.load_state_dict(start["student"])
-        teacher.load_state_dict(start["teacher"])
+        student, teacher, data = _tp_start(mesh.device, tmp, key, conf, name,
+                                           batch, over, policy)
         out[key] = dict(ok=(tp_options_step if key == "options"
                             else tp_step)(tp, student, teacher, data))
         if key == "swin_fp32":
@@ -6883,6 +6899,21 @@ def _tp_job(rank, world, tmp, mesh):
             batches = [x0] + [rng.normal(size=x0.shape).astype(np.float32)
                               for _ in range(CMP_BATCHES - 1)]
             out[key]["serving"] = tp_int8_serving(tp, student, batches)
+        del student, teacher, data
+        _empty_cache()
+    # (j) remat, (k) BN, (l) the float, prelu, rprelu and unquantized-
+    # softmax students
+    for key, conf, name, forms in _tp_remat_steps(*spec["names"][:2]):
+        student, teacher, data = _tp_start(mesh.device, tmp, key, conf, name,
+                                           spec["batch"], DROP)
+        out[key] = tp_remat(tp, name, student, teacher, data, conf, forms)
+        del student, teacher, data
+        _empty_cache()
+    for key, conf, name, over, policy in _tp_config_steps(
+            *spec["names"][:2]):
+        student, teacher, data = _tp_start(mesh.device, tmp, key, conf, name,
+                                           spec["batch"], over, policy)
+        out[key] = dict(ok=tp_step(tp, student, teacher, data))
         del student, teacher, data
         _empty_cache()
     for key in ("deit", "swin"):
@@ -6899,6 +6930,20 @@ def _tp_job(rank, world, tmp, mesh):
             batch=rec["runners"][0].data_cfg.batch_size, train_s=t1 - t0,
             eval=got, eval_s=time.perf_counter() - t1)
     return out
+
+
+def _tp_start(dev, tmp, key, conf, name, batch, overrides=None,
+              policy=None):
+    """A rank's student, teacher and batch of step `key`, from the start
+    the parent saved (`tp_<key>.start.pt`)."""
+    import torch
+    start = torch.load(os.path.join(tmp, f"tp_{key}.start.pt"),
+                       weights_only=True)
+    student, teacher, data = build_trained(dev, conf, name, batch,
+                                           policy=policy, overrides=overrides)
+    student.load_state_dict(start["student"])
+    teacher.load_state_dict(start["teacher"])
+    return student, teacher, data
 
 
 def _single_step_peak(student, teacher, data):
@@ -7060,6 +7105,105 @@ def _tp_new_step_gates(key, conf, name, batch, policy, ranks, student,
     return row
 
 
+# ------------------------------- the configurations of phase_tp's (j)-(l)
+# (j) block and attention-tail remat at TP = 2, dropout on (DROP):
+# (key, configuration, model, [(form, config overrides)])
+def _tp_remat_steps(deit, swin):
+    return (("remat", FUSED, deit, (("block", dict(remat=True)),
+                                    ("attention tail",
+                                     dict(attn_impl="remat")))),
+            ("swin_remat", PALLAS, swin,
+             (("block", dict(remat_stages=(0, 1, 2, 3))),
+              ("attention tail", dict(attn_impl="remat")))))
+
+
+def _tp_config_steps(deit, swin):
+    """(key, configuration, model name, overrides, policy) of (k) and (l):
+    the BN DeiT-S fused fp32 and BN Swin-T pallas bf16 TP steps; the float
+    DeiT-S student, the prelu and rprelu W2A2 QKR MLPs and the unquantized
+    softmax (`--apply_q_attn_dropout 1`), fused fp32."""
+    import dataclasses
+    from ofq_tpu_torch.quant import QuantPolicy, w2a2_qkr_policy
+    qkr = w2a2_qkr_policy(12)
+    return (("bn", FUSED, deit, BN, None),
+            ("swin_bn", PALLAS, swin, dict(SWIN_BENCH, **BN), None),
+            ("float", FUSED, deit, None, QuantPolicy()),
+            ("prelu", FUSED, deit, None,
+             dataclasses.replace(qkr, act_layer="prelu")),
+            ("rprelu", FUSED, deit, None,
+             dataclasses.replace(qkr, act_layer="rprelu")),
+            ("softmax_float", FUSED, deit, None,
+             dataclasses.replace(qkr, q_attn_mode=1)))
+
+
+def seeded_rprelu(model, seed=3):
+    """Per-channel RPReLU shifts and slopes drawn from a seeded generator
+    (their initial values, shifts 0 and slopes 0.25, make an RPReLU a
+    PReLU)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(("act.move1", "act.move2")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+            elif n.endswith("act.alpha") and p.numel() > 1:
+                p.copy_(0.05 + 0.45 * torch.rand(p.shape, generator=g))
+
+
+def _direct(real):
+    """`torch.utils.checkpoint.checkpoint` as a direct call."""
+    return lambda fn, *args, **kw: fn(*args)
+
+
+def tp_remat(mesh, name, full, teacher, data, conf, forms):
+    """Each remat form of `forms` at TP against the same TP step without
+    it, from copies of the whole student `full` (model `name`, built with
+    DROP), each
+    sharded here: one forward and backward drawing its masks from a CUDA
+    generator seeded alike (`_step_grads`), this rank's loss and gradients
+    compared bit for bit (the block forms against the student without
+    them, the tail against the same tail with the checkpoint a direct
+    call, as `phase_remat`); each one's peak memory and launches."""
+    import copy
+    import torch
+    from ofq_tpu_torch import ops
+    from ofq_tpu_torch.models import create_model
+    from ofq_tpu_torch.nn import attention as tattn
+    from ofq_tpu_torch.parallel import shard_model
+    dev = mesh.device
+
+    def measured(m, ctx=contextlib.nullcontext):
+        shard_model(m, mesh)
+        _sync()
+        _peak_reset()
+        ops.reset_launch_counts()
+        with ctx():
+            r = _step_grads(m, teacher, data,
+                            torch.Generator(device=dev).manual_seed(11))
+        _sync()
+        out = r, _peak_gb(), {k: v for k, v in ops.launch_counts().items()
+                              if v}
+        del m
+        _empty_cache()
+        return out
+
+    plain = measured(copy.deepcopy(full))
+    rows = []
+    for form, extra in forms:
+        m = create_model(name, policy=full.policy, device=dev,
+                         **dict(conf, **extra), **DROP)
+        m.load_state_dict(full.state_dict())
+        ref = plain if form == "block" else measured(
+            copy.deepcopy(m), lambda: injected(tattn, "checkpoint", _direct))
+        got = measured(m)
+        rows.append(dict(form=form, config=extra,
+                         differing=_differing(ref[0], got[0]),
+                         grads=len(got[0][1]), loss=float(got[0][0]),
+                         peak_gb=got[1], without_gb=ref[1],
+                         launches=got[2], without_launches=ref[2]))
+    return rows
+
+
 def _tp_serving_gates(label, sv, conf, gate, want, want_shapes):
     """The sharded serving forward of every rank under `phase_slice`'s
     gates: exact launches and shapes, each block alone (fp32: kernels vs
@@ -7157,6 +7301,94 @@ def _tp_cga_gate(label, student, cg, cga, want, dev):
     return out
 
 
+def _tp_config_gates(ranks, built, deit, swin, batch, dev):
+    """The gates of `phase_tp`'s (j)-(l) on every rank.  (j) each remat form
+    bit for bit the TP step without it (the ranks' own comparisons), its
+    peak memory and launches beside it; (k), (l) each step's exact
+    launches per rank, the gradients held whole (prelu's slope among
+    them) and BN's running-statistic updates bit-equal across the ranks,
+    the gathered gradients (and the updates) under `check_step_grads`'
+    whole-step rule against the single-process paths (fp32 held to the
+    order spread: a row-parallel fp32 partial sum is another order)."""
+    import torch
+    out = {}
+    for key, conf, name, forms in _tp_remat_steps(deit, swin):
+        built.pop(key, None)
+        family = "Swin-T" if is_swin(name) else "DeiT-S"
+        rows = [r[key] for r in ranks]
+        out[key] = rows
+        for i, form_rows in enumerate(zip(*rows)):
+            f = form_rows[0]
+            log(f"[tp] (j) {family} ({_describe(conf)}), {f['form']} remat "
+                f"{f['config']} at TP={TP}, dropout {DROP}: of the loss and "
+                f"{f['grads']} gradients a rank holds, "
+                f"{[len(r['differing']) for r in form_rows]} differ (rank 0"
+                f" / 1) from the TP step without it; peak memory "
+                f"{[round(r['peak_gb'], 3) for r in form_rows]} GB against "
+                f"{[round(r['without_gb'], 3) for r in form_rows]}; launches "
+                f"per rank {f['launches']} (without remat "
+                f"{f['without_launches']})")
+            bad = [r["differing"][:5] for r in form_rows if r["differing"]]
+            if bad:
+                raise GateTripped(f"[tp] (j) {family} {f['form']} remat: "
+                                  f"{bad}")
+    for key, conf, name, over, policy in _tp_config_steps(deit, swin):
+        student, teacher, data = built.pop(key)
+        rs = [r[key]["ok"] for r in ranks]
+        part = "(k)" if key.endswith("bn") else "(l)"
+        family = "Swin-T" if is_swin(name) else "DeiT-S"
+        label = (f"{family} {'BN ' if over and 'norm_layer' in over else ''}"
+                 f"{'float' if key == 'float' else _policy_label(policy)} "
+                 f"({_describe(conf)}"
+                 f"{', softmax unquantized' if key == 'softmax_float' else ''})")
+        want = _expected(conf, student.cfg, train=True, policy=policy)
+        for i, r in enumerate(rs):
+            if r["launches"] != want:
+                raise AssertionError(f"[tp] {part} {label} rank {i}: "
+                                     f"launches {r['launches']}, expected "
+                                     f"{want}")
+        for what in ("whole", "stat_updates"):
+            bad = [k for k in rs[0][what]
+                   if not torch.equal(rs[0][what][k], rs[1][what][k])]
+            if bad:
+                raise AssertionError(f"[tp] {part} {label}: {what} differ "
+                                     f"across the ranks: {bad[:5]}")
+        slopes = [k for k in rs[0]["whole"] if k.endswith("act.alpha")]
+        if key == "prelu" and len(slopes) != student.cfg.depth:
+            raise AssertionError(f"[tp] (l) prelu: slopes held whole "
+                                 f"{slopes}")
+        fp32 = conf["compute_dtype"] is None
+        grads = check_step_grads(
+            student, teacher, data, conf, kernel_grads=rs[0]["grads"],
+            kernel_loss=rs[0]["loss"],
+            kernel_updates=rs[0]["stat_updates"] or None, refs={},
+            order_spread=fp32, tag=f"[tp] {part} {label} TP={TP} x B={batch}")
+        sb, sp = _single_step_peak(student, teacher, data)
+        row = dict(launches=rs[0]["launches"], loss=rs[0]["loss"],
+                   floor=grads["floor"], all_params=grads["all_params"],
+                   bn_floor=grads.get("bn_floor"),
+                   param_bytes=[r["param_bytes"] for r in rs],
+                   single_param_bytes=sb,
+                   peak_gb=[r["peak_gb"] for r in rs], single_peak_gb=sp,
+                   whole_bit_equal=len(rs[0]["whole"]),
+                   stats_bit_equal=len(rs[0]["stat_updates"]),
+                   slopes_whole=len(slopes))
+        out[key] = row
+        log(f"[tp] {part} {label}, TP={TP} ranks x B={batch} on one card "
+            f"over gloo, rank 0 / 1: parameters {row['param_bytes'][0]} / "
+            f"{row['param_bytes'][1]} bytes (one process {sb}); peak memory "
+            f"{row['peak_gb'][0]:.2f} / {row['peak_gb'][1]:.2f} GB (one "
+            f"process {sp:.2f}); launches per rank "
+            f"{ {k: v for k, v in row['launches'].items() if v} }; "
+            f"{row['whole_bit_equal']} gradients held whole "
+            f"({len(slopes)} PReLU slopes) and "
+            f"{row['stats_bit_equal']} running-statistic updates bit-equal "
+            f"across the ranks")
+        del student, teacher, data
+        _empty_cache()
+    return out
+
+
 def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
              batch=BATCH, steps=2, extra=(), swin=TP_SWIN, deit_t=TP_DEIT_T,
              swin_extra=()):
@@ -7210,7 +7442,26 @@ def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
           share) outside it; the full-LSQ DeiT-S fused fp32 step under
           the rule; the fused bf16 options step (`tp_options_step`)
           against one process with the same options (`_options_gate`,
-          the kd_qkv gradients under the bf16 rule's limits).
+          the kd_qkv gradients under the bf16 rule's limits);
+    and the configurations the earlier slices refused at TP, in the same
+    spawn (`_tp_remat_steps`, `_tp_config_steps`):
+      (j) block and attention-tail remat with dropout on (DROP): DeiT-S
+          W2A2 QKR fused fp32 with `remat=True` and with
+          `attn_impl="remat"`, Swin-T pallas bf16 with `remat_stages` and
+          with `attn_impl="remat"`, each one's loss and gradients on every
+          rank bit for bit the same TP step's without it from generators
+          seeded alike (`tp_remat`; the tail against itself with the
+          checkpoint a direct call), its peak memory and launches (the
+          replay's K1-K4 beside the step's);
+      (k) the BN DeiT-S fused fp32 and BN Swin-T pallas bf16 steps: the
+          gathered gradients and the running-statistic updates under the
+          whole-step rule against the single-process paths, the updates
+          bit-equal across the ranks;
+      (l) the float DeiT-S student, the prelu and rprelu W2A2 QKR MLPs
+          (the RPReLUs' shifts and slopes drawn: `seeded_rprelu`) and the
+          unquantized softmax, fused fp32, under the rule with
+          the fp32 order spread, their whole gradients (prelu's slopes
+          among them) bit-equal across the ranks.
     One `[tp]` line each (per rank: the sharded parameters' bytes and the
     peak memory beside one process's, the model group's all-reduce bytes
     and ms a step, the wall s a step: functional numbers, two ranks
@@ -7239,6 +7490,20 @@ def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
                         "teacher": _cpu(teacher.state_dict())},
                        os.path.join(tmp, f"tp_{key}.start.pt"))
             built[key] = (student, teacher, data)
+        for key, conf, name, over, policy in (
+                [(k, c, n, DROP, None)
+                 for k, c, n, _ in _tp_remat_steps(deit, swin)]
+                + list(_tp_config_steps(deit, swin))):
+            student, teacher, data = build_trained(
+                dev, conf, name, batch, policy=policy, overrides=over)
+            if key == "rprelu":
+                seeded_rprelu(student)
+            torch.save({"student": _cpu(student.state_dict()),
+                        "teacher": _cpu(teacher.state_dict())},
+                       os.path.join(tmp, f"tp_{key}.start.pt"))
+            # (j) is gated on the ranks' own comparisons
+            built[key] = ((student, teacher, data) if over != DROP
+                          else None)
         p1, _, common = phase1_argv(os.path.join(kept, "fp.pth.tar"), tmp,
                                     deit, batch, steps, extra)
         exp = os.path.join(tmp, "tp")
@@ -7412,6 +7677,7 @@ def phase_tp(dev, kept, deit="deit_small_distilled_patch16_224",
                     tripped=window_ds["fault_tripped"]))
             del student, teacher, data
             _empty_cache()
+        out.update(_tp_config_gates(ranks, built, deit, swin, batch, dev))
         log(f"[selfcheck] tensor-parallel unmodified steps and serving: the "
             f"whole-step rule and the block gates passed (required: pass)")
         out["selfcheck"] = selfcheck

@@ -45,9 +45,10 @@ Where the port differs from the JAX runner:
     the same table; it takes no gradient, so the numbers are the same: a
     difference of storage).  Checkpoints gather the slices (the file is
     the single process's), the eval counts are summed over the data
-    group, and `evaluate_only` shards the loaded student too.
-    Configurations not ported there raise NotImplementedError naming
-    their ROADMAP item (`parallel/tensor.py`).
+    group, and `evaluate_only` shards the loaded student too.  Every
+    student the runner builds shards there (remat, the LN->BN swap, float
+    and 32-bit sites, any MLP activation: `parallel/tensor.py`); a frozen
+    artifact is served on one device, as the JAX package serves it.
   * The data.  `synthetic` yields numpy batches as in JAX; an ImageFolder
     `data_dir` is decoded and augmented on the runner's device
     (`data/pipeline.py`), in the port's own train order and random

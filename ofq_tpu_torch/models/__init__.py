@@ -1,7 +1,8 @@
 from .deit import (DEIT_BASE, DEIT_SMALL, DEIT_TINY, BatchNorm, Block,
                    DeiTConfig, LayerNorm, VisionTransformer, deit_model,
                    init_weights)
-from .registry import create_model, resolve_device
+from .registry import (create_model, list_models, register_model,
+                       resolve_device)
 from .swin import (SWIN_TINY, PatchMerging, QSwinAttentionQKR, SwinAttention,
                    SwinBlock, SwinConfig, SwinTransformer, swin_model)
 
@@ -10,6 +11,7 @@ __all__ = [
     "DeiTConfig", "LayerNorm",
     "PatchMerging", "QSwinAttentionQKR", "SWIN_TINY", "SwinAttention",
     "SwinBlock", "SwinConfig", "SwinTransformer", "VisionTransformer",
-    "create_model", "deit_model", "init_weights", "resolve_device",
+    "create_model", "deit_model", "init_weights", "list_models",
+    "register_model", "resolve_device",
     "swin_model",
 ]

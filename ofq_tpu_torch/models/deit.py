@@ -91,11 +91,6 @@ class DeiTConfig:
     return_features: bool = False
 
     @property
-    def remats(self) -> bool:
-        """Any block or attention tail under torch.utils.checkpoint."""
-        return self.remat or self.attn_impl == "remat"
-
-    @property
     def telemetry(self) -> bool:
         """The forward returns telemetry for kd_qk, kd_qkv or kd_token."""
         return self.qqkkvv or self.return_features

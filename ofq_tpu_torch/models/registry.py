@@ -1,9 +1,10 @@
-"""Model registry (port of `ofq_tpu/models/registry.py:21-32`): the DeiT
-and Swin names."""
+"""Model registry (port of `ofq_tpu/models/registry.py`): the DeiT and
+Swin names, and constructors registered under names of their own
+(`register_model`), which `create_model` consults first."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -11,6 +12,32 @@ from torch import nn
 from ..quant.policy import QuantPolicy
 from . import deit, swin
 from .deit import init_weights
+
+
+# name -> constructor(policy=..., **overrides) -> nn.Module
+_REGISTRY: Dict[str, Callable[..., nn.Module]] = {}
+
+# the reference names `list_models` always lists (JAX's static list)
+_STATIC = ("deit_tiny_distilled_patch16_224",
+           "deit_small_distilled_patch16_224", "deit_tiny_patch16_224",
+           "deit_small_patch16_224", "deit_base_distilled_patch16_224",
+           "swin_t")
+
+
+def register_model(name: str):
+    """A decorator: `fn(policy=..., **overrides)`, returning a model with
+    uninitialised parameters, becomes what `create_model(name, ...)`
+    builds (the registry is consulted before the DeiT and Swin
+    tables)."""
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def list_models() -> list[str]:
+    """The reference model names and the registered ones, sorted."""
+    return sorted(set(_STATIC) | set(_REGISTRY))
 
 
 def resolve_device(device) -> torch.device:
@@ -38,13 +65,16 @@ def create_model(name: str, *, policy: QuantPolicy, device="cuda",
     compute_dtype="bfloat16"`).
     """
     dev = resolve_device(device)
-    if name in deit.VARIANTS:
+    if name in _REGISTRY:
+        model = _REGISTRY[name](policy=policy, **overrides)
+    elif name in deit.VARIANTS:
         model = deit.deit_model(name, policy, **overrides)
     elif name in swin.VARIANTS:
         model = swin.swin_model(name, policy, **overrides)
     else:
         raise KeyError(f"unknown model {name!r}; known: "
-                       f"{sorted(deit.VARIANTS) + sorted(swin.VARIANTS)}")
+                       f"{sorted(deit.VARIANTS) + sorted(swin.VARIANTS)}"
+                       f" and the registered {sorted(_REGISTRY)}")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator, head_std=head_std)

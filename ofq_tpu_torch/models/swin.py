@@ -42,7 +42,10 @@ the relative-position bias table and of its linears (`qkv` by head
 without QKR), the shift mask stays whole and is added to every local
 head, its attention dropout mask is the global draw cut to its heads,
 and its `proj` is row-parallel; Swin-T's 3-head stage 0 at 2 ranks runs
-whole on every rank.  The MLPs on the 4-D map are column- and
+whole on every rank.  The float window attention is cut the same way
+(`qkv` by head, its bias table's head columns, a row-parallel `proj`),
+and a checkpointed tail takes its softmax scale as the composition's
+(`nn.attention.tail_scale_param`).  The MLPs on the 4-D map are column- and
 row-parallel (fc2's per-width-column input scale sees its channels cut,
 its `ds` summed over the group); the patch mergings stay whole.
 
@@ -66,7 +69,7 @@ from torch import nn
 
 from ..nn.attention import (QAttention, QAttentionQKR, gram_info,
                             qkr_quant_chain, remat_attention_tail,
-                            score_product)
+                            score_product, tail_scale_param)
 from ..nn.conv import PatchEmbedConv, QPatchEmbedConv
 from ..nn.dropout import dropout
 from ..nn.linear import Dense, Mlp, QHeadLinear, QLinear, QMlp
@@ -102,11 +105,6 @@ class SwinConfig:
     # None/'xla' (composition) | 'remat' (the checkpointed tail)
     attn_impl: Optional[str] = None
     in_chans: int = 3
-
-    @property
-    def remats(self) -> bool:
-        """Any block or attention tail under torch.utils.checkpoint."""
-        return bool(self.remat_stages) or self.attn_impl == "remat"
 
     @property
     def telemetry(self) -> bool:
@@ -274,6 +272,8 @@ class SwinAttention(WindowAttentionBase, nn.Module):
         super().__init__()
         self.qqkkvv = qqkkvv
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.tp = None
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
         self.qkv = Dense(dim, 3 * dim)
@@ -284,17 +284,17 @@ class SwinAttention(WindowAttentionBase, nn.Module):
                 generator: Optional[torch.Generator] = None,
                 info: bool = False):
         tokens, geom, mask = self.geometry(x)
-        Bn, n, C = tokens.shape
-        H = self.num_heads
-        d = C // H
+        Bn, n, _ = tokens.shape
+        H, d, tp = self.num_heads, self.head_dim, self.tp
         q, k, v = (t.reshape(Bn, n, H, d)
-                   for t in torch.split(self.qkv(tokens), C, dim=-1))
+                   for t in torch.split(self.qkv(tokens), H * d, dim=-1))
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k)
         attn = self.scores_tail(attn * weak_scalar(d ** -0.5, attn.dtype),
                                 mask, geom)
         attn_info = gram_info(attn, q, k, v) if self.qqkkvv else None
-        attn = dropout(attn, self.attn_drop, generator, train=self.training)
-        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(Bn, n, C)
+        attn = dropout(attn, self.attn_drop, generator, train=self.training,
+                       shard=None if tp is None else (1, tp))
+        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(Bn, n, H * d)
         out = dropout(self.proj(out), self.proj_drop, generator,
                       train=self.training)
         out = self.finish(out, geom)
@@ -314,13 +314,12 @@ def _window_tail(mod, lhs, rhs, v, spec, mask, geom, generator):
     checkpointed tail with bias and mask inside, or the composition."""
     d = v.shape[-1]
     if mod.tail_eligible():
+        sp, model = tail_scale_param(mod)
         return remat_attention_tail(
-            lhs, rhs, v,
-            mod.quan_softmax.s if mod.quantize_softmax else None,
-            bits=mod.input_bits, sm_scale=d ** -0.5,
+            lhs, rhs, v, sp, bits=mod.input_bits, sm_scale=d ** -0.5,
             quantize_softmax=mod.quantize_softmax,
             aq_learnable=mod.aq_learnable, einsum_spec=spec,
-            bias=mod.rel_pos_bias(), mask=mask)
+            bias=mod.rel_pos_bias(), mask=mask, model=model)
     attn = score_product(spec, lhs, rhs)
     attn = mod.scores_tail(attn * weak_scalar(d ** -0.5, attn.dtype), mask,
                            geom)

@@ -55,9 +55,14 @@ columns' and heads' codes, their shared codes, scale and shift passing
 column-parallel `qkv` (whose input gradient the group sums), its per-token
 q and k scales and its softmax scale whole with their `ds` summed over
 the group (the grad-scale factors count the model's heads), its heads'
-slices of `quan_v` and the shifts, and a row-parallel `proj`.  An
-attention the group's width does not divide keeps `tp` None and runs
-whole on every rank.
+slices of `quan_v` and the shifts, and a row-parallel `proj`.  The float
+`Attention` holds its heads' q, k and v columns of a column-parallel
+`qkv` and a row-parallel `proj`, its attention dropout mask cut to its
+heads.  The checkpointed tail of a sharded attention, as the fused one,
+takes its softmax scale through `copy_to_model` with the grad-scale
+factor of the model's heads (`tail_scale_param`).  An attention the
+group's width does not divide keeps `tp` None and runs whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -247,22 +252,35 @@ def _fused_attention(lhs, rhs, v, scale_param, *, bits, sm_scale,
         quantize_softmax=quantize_softmax, fwd=fwd, bwd=bwd)
 
 
+def tail_scale_param(mod):
+    """The softmax scale a fused or checkpointed tail of `mod` takes (None
+    without a quantized softmax) and, where its heads are cut over the
+    model group, the model axis of its grad-scale factor, the scale
+    passing `copy_to_model` (the heads' partial ds summed over the
+    group)."""
+    sp = mod.quan_softmax.s if mod.quantize_softmax else None
+    tp = getattr(mod, "tp", None)
+    if tp is None or sp is None:
+        return sp, None
+    return copy_to_model(sp, tp), (1, tp.model_parallel)
+
+
 def remat_attention_tail(lhs, rhs, v, scale_param, *, bits, sm_scale,
                          quantize_softmax, aq_learnable, einsum_spec,
-                         bias=None, mask=None):
+                         bias=None, mask=None, model=None):
     """The attention tail under `torch.utils.checkpoint` (JAX's
     `_remat_attention_tail`, and with `bias` and `mask` Swin's
     `_remat_swin_tail`): scores * sm_scale (+ the relative-position bias,
     + the shift mask over its (nW, n, n) windows) -> softmax -> the raw
     LSQ of the probabilities -> @ v, the (B, H, N, N) intermediates
     recomputed in the backward.  The scale is pre-processed outside the
-    checkpoint (`_tail_scale`).  Returns (B, N, H, d)."""
+    checkpoint (`_tail_scale`; `model` as there).  Returns (B, N, H, d)."""
     B, N, H, _ = rhs.shape
-    s = (_tail_scale(scale_param, (B, H, N, N), bits, aq_learnable)
+    s = (_tail_scale(scale_param, (B, H, N, N), bits, aq_learnable, model)
          if quantize_softmax else None)
 
     def tail(lhs, rhs, v, s, bias):
-        attn = torch.einsum(einsum_spec, lhs, rhs)
+        attn = score_product(einsum_spec, lhs, rhs)
         attn = attn * weak_scalar(sm_scale, attn.dtype)
         if bias is not None:
             attn = attn + bias.to(attn.dtype)
@@ -338,25 +356,22 @@ def _attention_tail(mod, lhs, rhs, v, spec, scale, generator, grams=None):
     (`spec`: their score einsum), through the fused kernels, the remat
     tail or the composition; returns (B, N, H, d) and the Gram info (None
     unless `grams` = (q, k, v) is given: the composition runs then)."""
-    sp = mod.quan_softmax.s if mod.quantize_softmax else None
     tp = getattr(mod, "tp", None)
     tail = dict(bits=mod.input_bits, sm_scale=scale,
                 quantize_softmax=mod.quantize_softmax,
                 aq_learnable=mod.aq_learnable)
-    if _tail_eligible(mod) and mod.attn_impl == "fused":
-        kernels = ((qkr_attention_fwd, qkr_attention_bwd)
-                   if mod.use_kernels else
-                   (qkr_attention_fwd_reference,
-                    qkr_attention_bwd_reference))
-        model = None
-        if tp is not None and sp is not None:
-            # the heads' partial ds summed over the model group
-            sp, model = copy_to_model(sp, tp), (1, tp.model_parallel)
-        return _fused_attention(lhs, rhs, v, sp, fwd=kernels[0],
-                                bwd=kernels[1], model=model, **tail), None
     if _tail_eligible(mod):
-        return remat_attention_tail(lhs, rhs, v, sp, einsum_spec=spec,
+        sp, model = tail_scale_param(mod)
+        if mod.attn_impl == "fused":
+            kernels = ((qkr_attention_fwd, qkr_attention_bwd)
+                       if mod.use_kernels else
+                       (qkr_attention_fwd_reference,
+                        qkr_attention_bwd_reference))
+            return _fused_attention(lhs, rhs, v, sp, fwd=kernels[0],
+                                    bwd=kernels[1], model=model,
                                     **tail), None
+        return remat_attention_tail(lhs, rhs, v, sp, einsum_spec=spec,
+                                    model=model, **tail), None
     attn = score_product(spec, lhs, rhs)
     attn = attn * weak_scalar(scale, attn.dtype)
     attn = (softmax(attn) if tp is None
@@ -581,6 +596,8 @@ class Attention(nn.Module):
         super().__init__()
         self.qqkkvv = qqkkvv
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.tp = None
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias)
@@ -588,16 +605,19 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None, info: bool = False):
-        B, N, C = x.shape
-        H = self.num_heads
-        d = C // H
+        B, N, _ = x.shape
+        H, d, tp = self.num_heads, self.head_dim, self.tp
         q, k, v = (t.reshape(B, N, H, d)
-                   for t in torch.split(self.qkv(x), C, dim=-1))
-        attn = torch.einsum("bnhd,bmhd->bhnm", q, k)
-        attn = softmax(attn * weak_scalar(d ** -0.5, attn.dtype))
+                   for t in torch.split(self.qkv(x), H * d, dim=-1))
+        spec = "bnhd,bmhd->bhnm"
+        attn = torch.einsum(spec, q, k)
+        attn = attn * weak_scalar(d ** -0.5, attn.dtype)
+        attn = (softmax(attn) if tp is None
+                else _tp_softmax(attn, tp, spec, q, k))
         attn_info = gram_info(attn, q, k, v) if self.qqkkvv else None
-        attn = dropout(attn, self.attn_drop, generator, train=self.training)
-        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
+        attn = dropout(attn, self.attn_drop, generator, train=self.training,
+                       shard=None if tp is None else (1, tp))
+        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, H * d)
         out = dropout(self.proj(out), self.proj_drop, generator,
                       train=self.training)
         return (out, attn_info) if info else out

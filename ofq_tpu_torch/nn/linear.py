@@ -46,7 +46,11 @@ fc2 (its rows, and its input's channels, sharded), which its products
 take (`ops/`); a row-parallel layer's input scale has its gradient summed
 over the model group and its bias is added after the partial products
 are.  The int8 branch runs on the rank's codes (`int8_qlinear`'s
-`tp`).  A sharded `QMlp` cuts its hidden dropout mask to its columns.
+`tp`), an unquantized weight's plain product and the float `Dense` take
+the same f and g around `torch.matmul`.  A sharded `QMlp` or `Mlp` cuts
+its hidden dropout mask to its columns; its PReLU sums its one slope's
+cotangent over the model group (`tp`), its RPReLU holds its columns'
+shifts and slopes.
 """
 
 from __future__ import annotations
@@ -85,9 +89,13 @@ class PReLU(nn.Module):
     def __init__(self):
         super().__init__()
         self.alpha = nn.Parameter(torch.full((1,), 0.25))
+        # the mesh of a sharded MLP: x is this rank's columns
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a = self.alpha[0].to(x.dtype)
+        alpha = self.alpha if self.tp is None else copy_to_model(
+            self.alpha, self.tp)
+        a = alpha[0].to(x.dtype)
         return torch.where(x >= 0, x, a * x)
 
 
@@ -205,7 +213,9 @@ class QLinear(nn.Module):
             if cd is not None:
                 x, k = x.to(cd), k.to(cd)
             acc = at_least_f32(x.dtype)
-            y = torch.matmul(x.to(acc), k.to(acc))
+            row, col = tp_roles(self.tp)
+            y = reduce_from_model(torch.matmul(copy_to_model(x.to(acc), col),
+                                               k.to(acc)), row)
             y = y if cd is None else y.to(cd)
         else:
             y = statsq_matmul(
@@ -392,10 +402,13 @@ class Dense(nn.Module):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(in_features, features))
         self.bias = nn.Parameter(torch.zeros(features)) if bias else None
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, self.kernel.dtype)
-        y = torch.matmul(x.to(dt), self.kernel.to(dt))
+        row, col = tp_roles(self.tp)
+        y = reduce_from_model(torch.matmul(copy_to_model(x.to(dt), col),
+                                           self.kernel.to(dt)), row)
         return y if self.bias is None else y + self.bias.to(dt)
 
 
@@ -410,6 +423,7 @@ class Mlp(nn.Module):
         super().__init__()
         self.act = make_act(act_layer, hidden_features)
         self.dropout_rate = dropout_rate
+        self.tp = None
         self.fc1 = Dense(in_features, hidden_features)
         self.fc2 = Dense(hidden_features, out_features)
 

@@ -10,6 +10,10 @@ over a `torch.distributed` process group.
   * `broadcast_`: rank 0's state onto every rank (`mesh.shard_params`);
   * `sum_over_ranks`: an all-reduce autograd sees through (its backward
     all-reduces the cotangent), for the batch statistics of BatchNorm;
+  * `reduce_from_data` / `copy_to_data`: the data group's g and f (an
+    all-reduce forward with the identity backward; the identity forward
+    with an all-reduced cotangent), for the Gram losses' squared sums,
+    whose norms span the global batch (`train/losses.py`);
   * `data_parallel(mesh)`: the step's context.  While it is open the
     modules whose arithmetic reads the batch see the global batch: the
     LSQ gradient scale takes `batch_shape(x.shape)` (through
@@ -193,6 +197,49 @@ def sum_over_ranks(t: torch.Tensor, mesh) -> torch.Tensor:
     if not _distributed(mesh):
         return t
     return _SumOverRanks.apply(t, mesh.group)
+
+
+class _ReduceFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.detach().to(torch.promote_types(t.dtype, torch.float32),
+                            copy=True).contiguous()
+        dist.all_reduce(out, group=group)
+        return out.to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def reduce_from_data(t: torch.Tensor, mesh) -> torch.Tensor:
+    """`t` summed over the data group (in at least fp32); its cotangent
+    passed on as it is, so that each rank's share of a global term's
+    gradient reaches its own rows."""
+    if not _distributed(mesh):
+        return t
+    return _ReduceFromData.apply(t, mesh.group)
+
+
+def copy_to_data(t: torch.Tensor, mesh) -> torch.Tensor:
+    """`t` itself; its cotangent summed over the data group (a value every
+    rank computed alike from global sums, read by each rank's rows)."""
+    if not _distributed(mesh) or not t.requires_grad:
+        return t
+    return _CopyToData.apply(t, mesh.group)
 
 
 def flip_partner(t: torch.Tensor, mesh) -> torch.Tensor:

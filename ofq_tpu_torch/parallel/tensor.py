@@ -1,7 +1,9 @@
 """Tensor parallelism over the mesh's 'model' axis (the 'model' axis of
-`ofq_tpu/parallel/mesh.py`): the DeiT and Swin W2A2 students, with and
-without QKR, sharded by JAX's Megatron table (`param_spec`), each block's
-heads and MLP columns split over the ranks of a model group.
+`ofq_tpu/parallel/mesh.py`): the DeiT and Swin students, quantized (W2A2,
+with and without QKR, full-LSQ, 32-bit sites, an unquantized softmax, any
+MLP activation) or float, with LayerNorm or BatchNorm, with or without
+remat, sharded by JAX's Megatron table (`param_spec`), each block's heads
+and MLP columns split over the ranks of a model group.
 
 The JAX package annotates the parameters and lets GSPMD place the
 collectives; the port writes them into the model's autograd graph, each
@@ -17,8 +19,10 @@ an op of this module run over the model group:
     or channels of other ranks;
   * `reduce_from_model` (g): an all-reduce forward, the identity
     backward: after the composed row-parallel products (`proj`, `fc2`),
-    before their bias.  The kernels' own functions (K1, K4) reduce inside
-    their forward and backward (`ops/`);
+    before their bias; the float and 32-bit sites' plain products
+    (`Dense`, an unquantized `QLinear`) take f and g the same way.  The
+    kernels' own functions (K1, K4) reduce inside their forward and
+    backward (`ops/`);
   * `gather_rows`: a row-parallel kernel's rows gathered (exact), for its
     StatsQ scale (2 mean|W| over the whole in-axis: the single process's
     bits) and K1's bvec; `model_sum` / `model_min` / `model_max`: the
@@ -32,26 +36,36 @@ all-reduce and round the sum once).
 
 `shard_model` cuts a calibrated, loaded model in place: each rank keeps
 the columns of its heads and MLP units in the column-parallel kernels
-(q, k, v, fc1; without QKR the q, k and v column blocks of its heads in
-`qkv`, not JAX's contiguous columns), the rows in the row-parallel ones
-(proj, fc2), the head columns of a window attention's relative-position
-bias table, and the slices of the shifts and scales that only its heads
-or columns use (JAX keeps those replicated: a storage difference, the
-numbers are the same).  Every other parameter stays whole: the
-embeddings, norms, head, Swin's patch-merging reductions and its shared
-shift masks.  Where the model group's width does not divide a block's
-heads (Swin-T's stage 0 and DeiT-T at 2 ranks: 3 heads), that block's
-attention stays whole on every rank, computed alike with no collective
-and a proj that is not row-parallel; likewise an MLP whose hidden width
-it does not divide.  (JAX cuts such kernels mid-head and lets GSPMD
+(q, k, v, fc1; without QKR, and in a float attention, the q, k and v
+column blocks of its heads in `qkv`, not JAX's contiguous columns), the
+rows in the row-parallel ones (proj, fc2), the head columns of a window
+attention's relative-position bias table, and the slices of the shifts
+and scales that only its heads or columns use (an RPReLU's per-channel
+shifts and slopes among them; JAX keeps those replicated: a storage
+difference, the numbers are the same).  Every other parameter stays
+whole: the embeddings, norms (BatchNorm's running statistics too: the
+ranks of a model group see the same rows), head, a PReLU's one slope
+(its cotangent summed over the group), Swin's patch-merging reductions
+and its shared shift masks.  Where the model group's width does not
+divide a block's heads (Swin-T's stage 0 and DeiT-T at 2 ranks: 3
+heads), that block's attention stays whole on every rank, computed alike
+with no collective and a proj that is not row-parallel; likewise an MLP
+whose hidden width it does not divide.  (JAX cuts such kernels mid-head and lets GSPMD
 reshard: the same numbers, fewer bytes a rank.)  Its `Layout` says how
 each sliced parameter was cut, cuts full tensors (a checkpoint's, a
 state's) and gathers the slices back into full tensors (the checkpoint a
 rank writes holds the single process's names, shapes and dtypes).
 
-Configurations that are not ported at `model_parallel` > 1 raise
-`NotImplementedError` naming their ROADMAP item (`check_shardable`,
-`train.loop.make_train_step`, `serve.Predictor`).
+A block under remat (`nn/dropout.py:checkpointed`, the checkpointed
+attention tail) replays its forward in the backward, and with it the
+model group's collectives of that forward: every rank of the group runs
+the same graph, and autograd replays a block when its first saved
+tensor is needed, at the same place in the backward's order on every
+rank, so the replayed collectives pair up as the forward's did.
+
+A frozen artifact is not sharded, and `serve.Predictor` takes no sharded
+model: the JAX package serves and freezes on one device
+(`check_shardable`).
 """
 
 from __future__ import annotations
@@ -62,16 +76,6 @@ from typing import Mapping
 
 import torch
 import torch.distributed as dist
-
-ROADMAP_TP = "ROADMAP.md, Queue 1 item 7.2"
-
-
-def tp_refusal(what: str, item: str) -> NotImplementedError:
-    """The refusal of a configuration not ported at model_parallel > 1."""
-    return NotImplementedError(
-        f"{what}: not ported under tensor parallelism "
-        f"(--mesh-model-parallel > 1) yet ({ROADMAP_TP}{item})")
-
 
 def _active(mesh) -> bool:
     return (mesh is not None and mesh.model_parallel > 1
@@ -223,7 +227,7 @@ def _cut(shape, parts, axis=0, view=None) -> Cut:
 def block_cuts(prefix: str, C: int, H: int, N: int, hidden: int,
                parts: int, *, qkr: bool = True, window: int | None = None,
                attention: bool = True, mlp: bool = True,
-               lsq: bool = False) -> dict:
+               lsq: bool = False, rprelu: bool = False) -> dict:
     """{parameter name: Cut} of one W2A2 block at `parts` model ranks:
     `param_spec`'s sharded kernels and biases, and the shifts and scales
     only a rank's heads or columns use.  The attention is QKR's (`qkr`) or
@@ -233,7 +237,8 @@ def block_cuts(prefix: str, C: int, H: int, N: int, hidden: int,
     model group's width does not divide its heads / hidden units).  With
     full-LSQ weights (`lsq`) the column-parallel linears' per-column
     weight scales are cut with their columns; a row-parallel linear keeps
-    its whole."""
+    its whole.  An RPReLU activation (`rprelu`) cuts its per-channel
+    shifts and slopes with fc1's columns."""
     a, m = f"{prefix}.attn", f"{prefix}.mlp"
     cuts = {}
     if attention and qkr:
@@ -269,6 +274,9 @@ def block_cuts(prefix: str, C: int, H: int, N: int, hidden: int,
         cuts[f"{m}.fc1.bias"] = _cut((hidden,), parts)
         if lsq:
             cuts[f"{m}.fc1.weight_quant.s"] = _cut((hidden,), parts)
+        if rprelu:
+            for k in ("move1", "alpha", "move2"):
+                cuts[f"{m}.act.{k}"] = _cut((hidden,), parts)
         cuts[f"{m}.fc2.kernel"] = _cut((hidden, C), parts, 0)
         for k in ("move_b4.bias", "move_aft.bias"):
             cuts[f"{m}.fc2.{k}"] = _cut((hidden,), parts)
@@ -424,54 +432,47 @@ def _split(blk, parts) -> tuple[bool, bool]:
 
 def check_shardable(model: torch.nn.Module, parts: int) -> None:
     """Raise unless `model` is a configuration the port shards over
-    `parts` model ranks: NotImplementedError (naming its ROADMAP item) for
-    one it does not shard yet, ValueError where `parts` divides neither a
-    block's heads nor its MLP's hidden width."""
+    `parts` model ranks: NotImplementedError for a frozen artifact (the
+    JAX package serves and freezes on one device), ValueError where
+    `parts` divides neither a block's heads nor its MLP's hidden
+    width."""
     from ..models.deit import VisionTransformer
     from ..models.swin import SwinTransformer
-    from ..nn.attention import QAttention, QAttentionQKR
-    from ..nn.linear import LsqLinear, QLinear, QMlp
     if not isinstance(model, (VisionTransformer, SwinTransformer)):
         raise TypeError(f"{type(model).__name__}: not a DeiT or Swin model")
-    cfg, pol = model.cfg, model.policy
-    if cfg.norm_layer == "batchnorm":
-        raise tp_refusal("norm_layer='batchnorm' (the LN->BN swap)", "i")
-    if cfg.remats:
-        raise tp_refusal("block and attention remat", "h")
-    if pol.weight_frozen:
-        raise tp_refusal("frozen artifacts", "j")
+    if model.policy.weight_frozen:
+        raise NotImplementedError(
+            "a frozen artifact is not sharded: the JAX package serves "
+            "(Predictor) and freezes (predictor_from_artifact) on one "
+            "device, from unsharded parameters (ofq_tpu/serve.py)")
     for name, blk in _blocks(model):
-        attn = blk.attn
-        quantized = (isinstance(attn, (QAttentionQKR, QAttention))
-                     and isinstance(blk.mlp, QMlp)
-                     and isinstance(blk.mlp.fc1, (QLinear, LsqLinear)))
-        if (not quantized or attn.weight_bits >= 32
-                or attn.input_bits >= 32 or not attn.quantize_softmax
-                or pol.act_layer != "gelu"):
-            raise tp_refusal(
-                f"{name}: float or 32-bit sites, an unquantized softmax or "
-                f"act_layer={pol.act_layer!r}", "k")
         if not any(_split(blk, parts)):
             raise ValueError(
                 f"model_parallel={parts} does not divide {name}'s "
-                f"{attn.num_heads} heads or its "
+                f"{blk.attn.num_heads} heads or its "
                 f"{blk.mlp.fc1.kernel.shape[1]} MLP units")
 
 
 def _shard_block(name: str, blk, mesh) -> dict:
-    """Tell the block's modules their roles; its cuts (`block_cuts`)."""
+    """Tell the block's modules their roles; its cuts (`block_cuts`; the
+    caller keeps those of the parameters the block has: an unquantized
+    site has no shifts or scales)."""
     from ..nn.attention import QAttentionQKR
+    from ..nn.linear import PReLU, RPReLU
     parts = mesh.model_parallel
     attn, mlp = blk.attn, blk.mlp
     cut_attn, cut_mlp = _split(blk, parts)
     C, hidden = mlp.fc1.kernel.shape
     H = attn.num_heads
     qkr = isinstance(attn, QAttentionQKR)
-    N = (attn.quant_x.s if qkr else attn.quan_q.s).numel()
+    # the tokens of QKR's per-token-and-head scale (none at 32 bits)
+    s = getattr(attn, "quan_qkx", None)
+    N = 0 if s is None or s.s is None else s.s.shape[0] // H
     lsq = hasattr(mlp.fc1, "weight_quant")
     cuts = block_cuts(name, C, H, N, hidden, parts, qkr=qkr,
                       window=getattr(attn, "window_size", None),
-                      attention=cut_attn, mlp=cut_mlp, lsq=lsq)
+                      attention=cut_attn, mlp=cut_mlp, lsq=lsq,
+                      rprelu=isinstance(mlp.act, RPReLU))
     if cut_attn:
         h = H // parts
         attn.num_heads = h
@@ -481,23 +482,39 @@ def _shard_block(name: str, blk, mesh) -> dict:
                 b.apply_shape = (h, C)
         else:
             attn.qkv.tp = ("col", mesh)
-            for q in (attn.quan_q, attn.quan_k):
-                q.tp = (2, mesh)                  # (B, N, H, d): heads
-            for b in (attn.move_q_aft, attn.move_k_aft):
-                b.apply_shape = (h, C // H)
-        attn.quan_softmax.tp = (1, mesh)          # (B, H, N, N): heads
+            for q in (getattr(attn, "quan_q", None),
+                      getattr(attn, "quan_k", None)):
+                if q is not None:
+                    q.tp = (2, mesh)              # (B, N, H, d): heads
+            for b in (getattr(attn, "move_q_aft", None),
+                      getattr(attn, "move_k_aft", None)):
+                if b is not None:
+                    b.apply_shape = (h, C // H)
+        sm = getattr(attn, "quan_softmax", None)
+        if sm is not None:
+            sm.tp = (1, mesh)                     # (B, H, N, N): heads
         attn.proj.tp = ("row", mesh)
-        attn.proj.input_quant.tp = (-1, mesh)     # (..., C): channels
-        if hasattr(attn.proj, "weight_quant"):    # QKR keeps StatsQ
-            attn.proj.weight_quant.tp = (0, mesh)  # (in, out): rows
+        _row_parallel_input(attn.proj, mesh)
     if cut_mlp:
         mlp.tp = mesh
         mlp.fc1.tp = ("col", mesh)
         mlp.fc2.tp = ("row", mesh)
-        mlp.fc2.input_quant.tp = (-1, mesh)
-        if lsq:
-            mlp.fc2.weight_quant.tp = (0, mesh)
+        _row_parallel_input(mlp.fc2, mesh)
+        if isinstance(mlp.act, PReLU):
+            # one slope over every column: its partial cotangents summed
+            mlp.act.tp = mesh
     return cuts
+
+
+def _row_parallel_input(linear, mesh) -> None:
+    """A row-parallel linear's input scale (its channels cut) and, with
+    full-LSQ weights, its weight scale (its rows cut), both whole."""
+    iq = getattr(linear, "input_quant", None)
+    if iq is not None:
+        iq.tp = (-1, mesh)                        # (..., C): channels
+    wq = getattr(linear, "weight_quant", None)
+    if wq is not None:
+        wq.tp = (0, mesh)                         # (in, out): rows
 
 
 def shard_model(model: torch.nn.Module, mesh) -> Layout:
@@ -508,11 +525,12 @@ def shard_model(model: torch.nn.Module, mesh) -> Layout:
     check_shardable(model, mesh.model_parallel)
     if getattr(model, "tp_layout", None) is not None:
         raise ValueError("the model is sharded already")
+    params = dict(model.named_parameters())
     cuts = {}
     for name, blk in _blocks(model):
-        cuts.update(_shard_block(name, blk, mesh))
+        cuts.update({n: c for n, c in _shard_block(name, blk, mesh).items()
+                     if n in params})
     layout = Layout(mesh, cuts)
-    params = dict(model.named_parameters())
     with torch.no_grad():
         for n in cuts:
             owner, leaf = n.rsplit(".", 1)

@@ -5,7 +5,8 @@ from .policy import (QuantPolicy, QuantSpec, default_deit_qmodules,
                      w2a2_deit_policy, w2a2_policy, w2a2_qkr_policy,
                      w2a2_qkr_swin_policy, w2a2_swin_policy)
 from .statsq import (cga_band_mask, outer_freeze_mask, statsq_b4_round,
-                     statsq_quantize, statsq_quantize_cga, statsq_scale)
+                     statsq_quantize, statsq_quantize_4d,
+                     statsq_quantize_cga, statsq_scale)
 from .ste import at_least_f32, clip_lower, grad_scale, passthrough, round_pass
 
 __all__ = [
@@ -15,6 +16,7 @@ __all__ = [
     "lsq_quantize", "lsq_quantize_dynamic_signed", "outer_freeze_mask",
     "passthrough", "policy_from_args",
     "round_pass", "statsq_b4_round", "statsq_quantize",
+    "statsq_quantize_4d",
     "statsq_quantize_cga", "statsq_scale",
     "thresholds", "w2a2_deit_policy", "w2a2_policy", "w2a2_qkr_policy",
     "w2a2_qkr_swin_policy", "w2a2_swin_policy",

@@ -1,5 +1,6 @@
-"""StatsQ weight fake-quantization (port of `ofq_tpu/quant/statsq.py:31-80`)
-and CGA's band tests on its pre-round image (`:98-178`).
+"""StatsQ weight fake-quantization (port of `ofq_tpu/quant/statsq.py:31-95`,
+the 4-D variant `statsq_quantize_4d` among it) and CGA's band tests on its
+pre-round image (`:98-178`).
 
 Per-output-column scale `s = 2 * mean|W|` (floored at 1e-12), scaled
 weights clamped to `[-1, 1 - 1e-6]`, mid-rise levels
@@ -54,6 +55,21 @@ def statsq_quantize(w: torch.Tensor, num_bits: int, *,
                                   mesh=mesh)
     n = float(2 ** (num_bits - 1))
     q = (s * ((torch.round(b4_round) + 0.5) / n)).to(w.dtype)
+    return passthrough(q.detach(), w)
+
+
+def statsq_quantize_4d(w: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """The 4-D StatsQ of the reference's `StatsQuantizer_4d`
+    (`ofq_tpu/quant/statsq.py:83-95`): one scale per axis-2 slice, `2 *
+    mean|w|` over axes (0, 1, 3), at least 1e-12 (in w's dtype), the
+    scaled values clipped to `[-1, 1 - 1e-6]`, the mid-rise levels; the
+    gradient is the identity."""
+    s = 2.0 * torch.mean(torch.abs(w), dim=(0, 1, 3), keepdim=True)
+    s = torch.maximum(s, torch.tensor(1e-12, dtype=w.dtype,
+                                      device=w.device)).detach()
+    clipped = torch.clamp(w / s, -1.0, 1.0 - _CLIP_HI_EPS)
+    n = float(2 ** (num_bits - 1))
+    q = s * ((torch.round(clipped * n - 0.5) + 0.5) / n)
     return passthrough(q.detach(), w)
 
 

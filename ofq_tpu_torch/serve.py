@@ -50,7 +50,6 @@ from .convert import load_flax_params
 from .deploy import artifact_meta, drop_block_lsq_scales, restore_packed
 from .models.registry import create_model, resolve_device
 from .ops.int8_qlinear import int8_eligible, lsq_int8_eligible
-from .parallel.tensor import tp_refusal
 from .quant.policy import QuantPolicy
 
 
@@ -72,7 +71,10 @@ class Predictor:
     def __init__(self, model: torch.nn.Module, *, batch_size: int,
                  img_size: int, device="cuda", epoch: Optional[int] = None):
         if getattr(model, "tp_layout", None) is not None:
-            raise tp_refusal("serving (Predictor) a sharded model", "j")
+            raise NotImplementedError(
+                "serving (Predictor) a sharded model: the JAX package's "
+                "Predictor jits on one device from unsharded parameters "
+                "(ofq_tpu/serve.py); serve the whole model")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size

@@ -71,15 +71,24 @@ whole gradient, bit-equal on every model rank); the gradient mean runs
 over the data group only, AdamW elementwise on the slices, CGA's masks
 on the slices with the whole kernels' scales and level ranges, and
 `grad_norm` is the norm of the full gradients.  The loss and metrics are
-the same on every model rank.  Every option runs there: the telemetry
-losses and the dampening term reduce over the model group inside the
-loss (`losses.py`); the clipping reads the full gradients (`optim.py`);
-the EMA and bf16 masters are elementwise on the slices; the oscillation
-hook reads a row-parallel kernel's codes at the whole kernel's scale and
-its `ema_mean` counts every entry once, as do `per_layer_grad_norms`.
-`kd_qk` and `kd_qkv` over a data axis wider than 1 raise
-NotImplementedError (their norms span the global batch: ROADMAP item
-7.2m).
+the same on every model rank.  Every configuration `shard_model` takes
+runs there: under remat the replayed blocks reissue the model group's
+collectives in the backward, in the same order on every rank; a
+BatchNorm's statistics reduce over the data group only (the model
+group's ranks see the same rows) and move alike on every model rank.
+Every option runs there: the telemetry losses and the dampening term
+reduce over the model group inside the loss (`losses.py`); the clipping
+reads the full gradients (`optim.py`); the EMA and bf16 masters are
+elementwise on the slices; the oscillation hook reads a row-parallel
+kernel's codes at the whole kernel's scale and its `ema_mean` counts
+every entry once, as do `per_layer_grad_norms`.
+
+`kd_qk` and `kd_qkv` over a data axis wider than 1: the Grams' norms
+span the global batch, so their squared sums are reduced over the data
+group inside the loss (`losses.gram_matching`) and every rank holds the
+global Gram term; its gradient is taken at the data group's size times
+the term (each rank's rows hold their share of it, and the gradient mean
+divides by that size), while the reported loss adds the term once.
 """
 
 from __future__ import annotations
@@ -96,8 +105,8 @@ from ..parallel import collectives
 from ..quant.ste import at_least_f32
 from . import cga as cga_lib
 from . import oscillation_hook as osc_lib
-from .losses import (dampening_loss, hard_ce, kd_soft_and_hard,
-                     kd_soft_hard_qk, kl_token_mse, soft_ce)
+from .losses import (dampening_loss, gram_matching, hard_ce,
+                     kd_soft_and_hard, kl_token_mse, soft_ce)
 from .optim import AdamW, ema_update, global_norm
 from .state import TrainState
 
@@ -215,13 +224,6 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
     cfg = getattr(model, "cfg", None)
     draws = cfg is not None and max(cfg.drop_rate, cfg.attn_drop_rate,
                                     cfg.drop_path_rate) > 0
-    if (loss_kind in ("kd_qk", "kd_qkv") and mesh is not None
-            and mesh.data_world > 1):
-        raise NotImplementedError(
-            f"loss_kind={loss_kind!r} over a data-parallel batch (a mesh "
-            f"whose data axis is {mesh.data_world}): the Grams' norms span "
-            "the global batch; not ported yet (ROADMAP.md, Queue 1 item "
-            "7.2m)")
     layout = None
     if mesh is not None and mesh.model_parallel > 1:
         layout = getattr(model, "tp_layout", None)
@@ -233,13 +235,17 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
             cga = dict(cga, layout=layout)
 
     aux = loss_kind in AUX_LOSS_KINDS
-    tp_mesh = None if layout is None else layout.mesh
+    # the Gram term is global: every rank of a data group holds it whole,
+    # and the gradient mean over the group divides its rows' shares
+    gram_weight = 1 if mesh is None else mesh.data_world
     # the optimizer's clipping reads the full gradients under TP
     opt_kw = {} if layout is None else {"layout": layout}
 
     def loss_fn(x, label, generator):
+        """(the loss to differentiate, the loss to report)."""
         out = model(x, generator, aux=True) if aux else model(x, generator)
         out, info = out if aux else (out, None)
+        reported = None
         if loss_kind == "ce":
             loss = hard_ce(_first(out), label, label_smoothing)
         else:
@@ -256,13 +262,21 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
                                     t_info["features"], alpha=token_kd_alpha,
                                     kd_type=token_kd_type)
             else:
-                loss = kd_soft_hard_qk(out, info, label, t_logits, t_info,
-                                       include_v=loss_kind == "kd_qkv",
-                                       mesh=tp_mesh)
+                base = kd_soft_and_hard(out, label, t_logits)
+                gram = gram_matching(info, t_info,
+                                     include_v=loss_kind == "kd_qkv",
+                                     mesh=mesh)
+                loss = base + gram
+                if gram_weight > 1:
+                    reported = loss
+                    loss = base + gram_weight * gram
         if dampening is not None:
-            loss = loss + dampening_loss(work, dampening["bits"],
-                                         dampening["weighting"], layout)
-        return loss
+            damp = dampening_loss(work, dampening["bits"],
+                                  dampening["weighting"], layout)
+            loss = loss + damp
+            if reported is not None:
+                reported = reported + damp
+        return loss, loss if reported is None else reported
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
@@ -291,7 +305,7 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
         else:
             tensors = masters
         with collectives.data_parallel(mesh):
-            loss = loss_fn(x, label, generator)
+            loss, reported = loss_fn(x, label, generator)
             grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         # a parameter the loss does not reach (a detached scale) has a
         # zero gradient, as under jax.grad
@@ -300,7 +314,7 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, *,
         with torch.no_grad():
             # GSPMD's gradient all-reduce: the mean over the ranks
             grads = collectives.all_reduce_mean(grads, mesh)
-            loss = collectives.all_reduce_mean({"loss": loss.detach()},
+            loss = collectives.all_reduce_mean({"loss": reported.detach()},
                                                mesh)["loss"]
             if master_bf16:
                 grads = {n: g.to(torch.bfloat16) for n, g in grads.items()}

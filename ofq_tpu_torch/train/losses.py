@@ -4,13 +4,18 @@ the targets and the teacher's outputs (logits, the attentions' Gram
 telemetry, the token features); and the oscillation-dampening regularizer
 on the StatsQ kernels.
 
-Under tensor parallelism (`mesh`, `layout`) every rank computes the same
-loss: a cut attention's Grams hold the rank's heads, so the direction
-matching cuts the (whole) teacher's Grams to them and sums the three
-squared norms of a layer over the model group (`reduce_from_model`:
-forward a sum, backward the identity; the student's norm, which every
-rank's slice reads, sums its cotangent back over the group); an attention
-left whole counts once.  The dampening term sums the sliced kernels' terms over the group
+Over a mesh (`mesh`, `layout`) the direction matching is the global
+batch's: a layer's three squared sums (the student's, the teacher's and
+their normalized difference's) are summed over the data group
+(`collectives.reduce_from_data`: forward a sum, backward the identity,
+so each rank's rows take their share of the global term's gradient) and,
+for a cut attention, whose Grams hold the rank's heads (the whole
+teacher's cut to them), over the model group too (`reduce_from_model`);
+the student's norm, which every rank's slice and rows read, sums its
+cotangent back over the same groups (`copy_to_model`, `copy_to_data`).
+An attention left whole counts once on a model group.  Every rank holds
+the same global term; the train step weighs its gradient by the data
+group's size (`train/loop.py`).  The dampening term sums the sliced kernels' terms over the group
 in one such reduction (a row-parallel kernel at the whole kernel's
 StatsQ scale) and adds the whole kernels' once.  The logits and the
 token features (`kd_token`) are whole on every rank.
@@ -22,6 +27,7 @@ from typing import Mapping, Sequence
 
 import torch
 
+from ..parallel.collectives import copy_to_data, reduce_from_data
 from ..parallel.tensor import copy_to_model, reduce_from_model
 from ..quant.lsq import _clip
 from ..quant.statsq import _CLIP_HI_EPS, statsq_quantize, statsq_scale
@@ -73,25 +79,30 @@ def _normed_l2_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(a - b)
 
 
-def _cut_normed_l2_distance(a, b, mesh) -> torch.Tensor:
-    """`_normed_l2_distance` of two tensors whose head axis (1) the model
-    group's ranks hold slices of: each squared sum over the group.  ||a||
-    feeds every rank's slice of the difference, so its cotangent (each
-    rank's share) is summed over the group too (`copy_to_model`)."""
-    na = copy_to_model(torch.sqrt(reduce_from_model(torch.sum(a * a), mesh)),
-                       mesh)
-    nb = torch.sqrt(reduce_from_model(torch.sum(b * b), mesh))
-    d = a / na - b / nb
-    return torch.sqrt(reduce_from_model(torch.sum(d * d), mesh))
+def _spread_normed_l2_distance(a, b, model, data) -> torch.Tensor:
+    """`_normed_l2_distance` of two tensors spread over the mesh: their
+    head axis (1) cut over `model`'s group (None: whole), their rows over
+    `data`'s (None: one process).  Each squared sum is summed over both
+    groups; ||a|| feeds every rank's part of the difference, so its
+    cotangent (each rank's share) is summed over both too."""
+    def total(t):
+        return reduce_from_data(reduce_from_model(torch.sum(t * t), model),
+                                data)
+
+    na = copy_to_data(copy_to_model(torch.sqrt(total(a)), model), data)
+    nb = torch.sqrt(total(b))
+    return torch.sqrt(total(a / na - b / nb))
 
 
 def direction_matching(student_scores: Sequence[torch.Tensor],
                        teacher_scores: Sequence[torch.Tensor],
                        mesh=None) -> torch.Tensor:
     """The normalized L2 distances summed over layers, entries <= -100
-    (masked scores) set to 0 on both sides.  With `mesh`, a student's
-    (B, H, ...) Gram of fewer heads than the teacher's is this rank's
-    heads of a cut attention (module docstring)."""
+    (masked scores) set to 0 on both sides.  With `mesh`, the scores are
+    this rank's rows of the global batch's, and a student's (B, H, ...)
+    Gram of fewer heads than the teacher's is this rank's heads of a cut
+    attention (module docstring)."""
+    data = mesh if mesh is not None and mesh.data_world > 1 else None
     total = 0.0
     for s, t in zip(student_scores, teacher_scores):
         cut = mesh is not None and s.shape[1] != t.shape[1]
@@ -100,25 +111,32 @@ def direction_matching(student_scores: Sequence[torch.Tensor],
             t = t.narrow(1, mesh.model_index * h, h)
         s = torch.where(s <= -1e2, torch.zeros_like(s), s)
         t = torch.where(t <= -1e2, torch.zeros_like(t), t)
-        total = total + (_cut_normed_l2_distance(s, t, mesh) if cut
-                         else _normed_l2_distance(s, t))
+        total = total + (
+            _spread_normed_l2_distance(s, t, mesh if cut else None, data)
+            if cut or data is not None else _normed_l2_distance(s, t))
     return total
 
 
-def kd_soft_hard_qk(student_out, student_attn_info, hard_target,
-                    teacher_logits, teacher_attn_info,
-                    include_v: bool = False, mesh=None) -> torch.Tensor:
-    """`kd_soft_and_hard` plus the direction matching of the q and k (and
-    with `include_v` the v) Grams; an info is a per-layer tuple (attn,
-    q q^T, k k^T, v v^T); `mesh` as `direction_matching`'s."""
-    base = kd_soft_and_hard(student_out, hard_target, teacher_logits)
+def gram_matching(student_attn_info, teacher_attn_info,
+                  include_v: bool = False, mesh=None) -> torch.Tensor:
+    """The direction matching of the q and k (and with `include_v` the v)
+    Grams of a per-layer info (attn, q q^T, k k^T, v v^T); `mesh` as
+    `direction_matching`'s."""
     parts = (1, 2, 3) if include_v else (1, 2)
     extra = 0.0
     for i in parts:
         extra = extra + direction_matching(
             [info[i] for info in student_attn_info],
             [info[i] for info in teacher_attn_info], mesh)
-    return base + extra
+    return extra
+
+
+def kd_soft_hard_qk(student_out, student_attn_info, hard_target,
+                    teacher_logits, teacher_attn_info,
+                    include_v: bool = False, mesh=None) -> torch.Tensor:
+    """`kd_soft_and_hard` plus `gram_matching`."""
+    return kd_soft_and_hard(student_out, hard_target, teacher_logits) + (
+        gram_matching(student_attn_info, teacher_attn_info, include_v, mesh))
 
 
 def kl_token_mse(student_logits, student_tokens, teacher_logits,

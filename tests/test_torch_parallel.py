@@ -13,14 +13,15 @@ sharded step).
   * one step each, the global batch of 4 split 2 + 2: the composed W2A2
     QKR student in fp64 (KD from a float teacher, AdamW at a mid-run
     state), its fused configuration (the plain versions), the BatchNorm
-    student, the CGA step and the student with dropout, attention dropout
-    and drop-path: every parameter leaf (and BatchNorm's running
+    student, the CGA step, the student with dropout, attention dropout
+    and drop-path, and the `kd_qk` and `kd_qkv` steps (their Grams'
+    norms over the global batch): every parameter leaf (and BatchNorm's running
     statistics) within 1e-10 relative L2 of the single-process step
     (summation order alone), the LSQ scale gradients by name within
     1e-5 (their sums are fp32 on both sides; the local batch's scale
     would be sqrt(2) off), and the composed, BatchNorm and CGA steps
-    within the fp64 single-process tests' limits of JAX's step; the
-    dropout masks the single-process ones; the int8 step in fp32 under
+    within the fp64 single-process tests' limits of JAX's step (the Gram
+    losses' too); the dropout masks the single-process ones; the int8 step in fp32 under
     `test_torch_int8_slice.py`'s rule; the ranks' gradients, parameters,
     moments and buffers bit for bit;
   * mixup and cutmix at world 2: every rank's mixed images and soft
@@ -90,6 +91,7 @@ COSINE = ("cosine", 5e-3, LR)
 DROP = dict(drop_rate=0.1, attn_drop_rate=0.1, drop_path_rate=0.1)
 INT8 = dict(matmul_impl="int8", attn_impl=None)
 FUSED = dict(matmul_impl="fused", attn_impl="fused")
+GRAMS = dict(qqkkvv=True)
 
 
 # ------------------------------------------------------------ the pieces
@@ -111,10 +113,9 @@ def test_param_spec_matches_jax():
 
 def test_make_mesh_and_host_batch_slice():
     """A process without a process group is a mesh of one; a 'model' axis
-    that does not divide the world raises ValueError, and a configuration
-    the tensor-parallel slice does not shard refuses at model_parallel 2,
-    naming its ROADMAP item (`test_torch_tensor_parallel.py` runs the
-    'model' axis)."""
+    that does not divide the world raises ValueError, and the BatchNorm
+    student shards at model_parallel 2, its norms and running statistics
+    whole (`test_torch_tensor_parallel.py` runs the 'model' axis)."""
     m = parallel.make_mesh(device="cpu")
     assert (m.world, m.rank, m.device.type, m.group) == (1, 0, "cpu", None)
     assert (m.model_parallel, m.data_world, m.data_index,
@@ -127,8 +128,12 @@ def test_make_mesh_and_host_batch_slice():
     assert (tp.data_world, tp.data_index, tp.model_index) == (1, 0, 1)
     bn = pw.create_model(NAME, policy=w2a2_deit_policy(2), device="cpu",
                          **tbn.BN)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2i"):
-        parallel.shard_model(bn, tp)
+    buffers = {n: b.clone() for n, b in bn.named_buffers()}
+    layout = parallel.shard_model(bn, tp)
+    assert "blocks_0.mlp.fc1.kernel" in layout.cuts
+    assert not any(".norm" in n for n in layout.cuts)
+    for n, b in bn.named_buffers():
+        assert torch.equal(b, buffers[n]), n
     with pytest.raises(ValueError, match="n_devices"):
         parallel.make_mesh(n_devices=2, device="cpu")
     assert parallel.host_batch_slice(64) == (64, 0)
@@ -235,6 +240,10 @@ def _cases():
                      step_kw=dict(cga=tcga.CGA)),
         "dropout": _case(qkr, tvars, pol, conf=DROP, seed=7),
         "int8": _case(int8, tvars, pol, conf=INT8, dtype="float32"),
+        # the Gram losses: their norms span the global batch
+        **{kind: _case(qkr, tvars, pol, conf=GRAMS, teacher_conf=GRAMS,
+                       step_kw=dict(loss_kind=kind))
+           for kind in GRAM_LOSSES},
     }
 
 
@@ -267,7 +276,8 @@ def _rel_l2(got, want):
     return float((got - want).norm()) / max(float(want.norm()), 1e-300)
 
 
-FP64 = ("qkr", "qkr_fused", "bn", "cga", "dropout")
+GRAM_LOSSES = ("kd_qk", "kd_qkv")
+FP64 = ("qkr", "qkr_fused", "bn", "cga", "dropout") + GRAM_LOSSES
 
 
 def _limit(case, name):
@@ -358,10 +368,13 @@ def test_mixup_pairs_are_the_global_flip(steps):
 
 
 def _jax_step(case, jm, tx, jst, *, cga=None):
+    kw = {"loss_kind": "kd_soft_hard", **case.get("step_kw", {})}
+    kw.pop("cga", None)
     with x64_jit():
         jstep = jax.jit(jax_make_train_step(
-            jm, tx, teacher=jax_deit_model(NAME), loss_kind="kd_soft_hard",
-            cga=cga))
+            jm, tx, teacher=jax_deit_model(NAME,
+                                           **case.get("teacher_conf", {})),
+            cga=cga, **kw))
         jst, jmet = jstep(jst, {k: jnp.asarray(v) for k, v in
                                 case["batch"].items()},
                           jax.random.key(0),
@@ -401,6 +414,26 @@ def test_qkr_step_matches_jax(steps):
         jst = _jax_state(tx, case["variables"], case["mu"], case["nu"],
                          np.float64)
     jmet, jst = _jax_step(case, jax_deit_model(NAME, _jax_policy()), tx, jst)
+    _assert_metrics(dp["metrics"], jmet)
+    _assert_leaves(dp["params"], to_numpy_tree(jst.params["params"]))
+
+
+@pytest.mark.parametrize("kind", GRAM_LOSSES)
+def test_gram_step_matches_jax(steps, kind):
+    """`kd_qk` and `kd_qkv` at world 2 (2 + 2 rows) against JAX's
+    single-device step on the global batch of 4: the Grams' three squared
+    sums of each layer summed over the ranks, the term's gradient weighed
+    by the world; the loss to 1e-9 (the global loss), every leaf as
+    `test_qkr_step_matches_jax`."""
+    case, dp = steps[kind]["case"], steps[kind]["ranks"][0]
+    with x64_jit():
+        tx = jax_make_optimizer(
+            jschedule.cosine_with_warmup_cooldown(5e-3, **LR),
+            weight_decay=0.05)
+        jst = _jax_state(tx, case["variables"], case["mu"], case["nu"],
+                         np.float64)
+    jmet, jst = _jax_step(case, jax_deit_model(NAME, _jax_policy(),
+                                               **GRAMS), tx, jst)
     _assert_metrics(dp["metrics"], jmet)
     _assert_leaves(dp["params"], to_numpy_tree(jst.params["params"]))
 

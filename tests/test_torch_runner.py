@@ -396,9 +396,9 @@ def test_sigterm_handler_restored(runs, monkeypatch):
 
 def test_one_process_refusals(monkeypatch):
     """`--mesh-model-parallel 2` in one process: the 'model' axis does
-    not divide a world of one (ValueError); a student the tensor-parallel
-    slice does not shard (here the LN->BN swap) refuses at model_parallel
-    2, naming its ROADMAP item.  The one-process guard on WORLD_SIZE is
+    not divide a world of one (ValueError); the runner's student with the
+    LN->BN swap shards at model_parallel 2 (its norms whole, the MLPs
+    cut).  The one-process guard on WORLD_SIZE is
     gone: without a process group the Runner is a world of one, with one
     rank's batch."""
     args = common.parse_args(["synthetic", "--mesh-model-parallel", "2"])
@@ -408,8 +408,9 @@ def test_one_process_refusals(monkeypatch):
                        device="cpu")
     tp = Mesh(world=2, rank=0, local_rank=0, device=torch.device("cpu"),
               model_parallel=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2i"):
-        shard_model(bn.model, tp)
+    layout = shard_model(bn.model, tp)
+    assert any(n.endswith("mlp.fc1.kernel") for n in layout.cuts)
+    assert not any(".norm" in n for n in layout.cuts)
     monkeypatch.setenv("WORLD_SIZE", "4")
     r = runner.Runner(common.parse_args(BASE), device="cpu")
     assert (r.mesh.world, r.mesh.rank) == (1, 0)

@@ -99,9 +99,9 @@ from ofq_tpu_torch.models import create_model
 from ofq_tpu_torch.models import deit as deit_models
 from ofq_tpu_torch.models import swin as swin_models
 from ofq_tpu_torch.parallel import Mesh, tensor
-from ofq_tpu_torch.quant import (QuantPolicy, statsq_scale, w2a2_deit_policy,
-                                 w2a2_qkr_policy, w2a2_qkr_swin_policy,
-                                 w2a2_swin_policy)
+from ofq_tpu_torch.quant import (QuantPolicy, QuantSpec, statsq_scale,
+                                 w2a2_deit_policy, w2a2_qkr_policy,
+                                 w2a2_qkr_swin_policy, w2a2_swin_policy)
 from ofq_tpu_torch.serve import Predictor
 from ofq_tpu_torch.train import (TrainState, checkpoint, make_optimizer,
                                  make_train_step)
@@ -152,9 +152,25 @@ OSC = dict(bits=2, momentum=0.3, freeze_threshold=0.05)
 DAMP = dict(bits=2, weighting=0.05)
 
 
+# dropout and drop-path without attention dropout: the checkpointed tail
+# runs in train mode
+DROP_TAIL = dict(drop_rate=0.1, drop_path_rate=0.1)
+BN = dict(norm_layer="batchnorm")
+
+
 def _cga_policy():
     return dataclasses.replace(w2a2_qkr_policy(DEPTH), qk_reparam_type=1,
                                boundary_range=0.005)
+
+
+def _qkr_policy(**kw):
+    """The DeiT student's W2A2 QKR policy with `kw` replaced: 32-bit
+    weights or inputs, an unquantized softmax (`q_attn_mode`), another
+    MLP activation."""
+    return dataclasses.replace(w2a2_qkr_policy(DEPTH), **kw)
+
+
+BITS_32 = QuantSpec(mode="identity", bit=32)
 
 
 CASES = {
@@ -196,11 +212,55 @@ CASES = {
                          clip=1e-3, clip_mode="value",
                          step_kw=dict(loss_kind="kd_qkv", dampening=DAMP,
                                       master_dtype="bfloat16")),
+    # block remat with dropout on: `dropout`'s step, its blocks replayed
+    "remat": dict(conf=dict(DROP, remat=True), lr=LR_SPEC, step_kw={},
+                  seed=7, eval=True),
+    # the fused configuration's blocks replayed (K1-K3's plain versions,
+    # the row-parallel integer sums reissued in the backward)
+    "remat_fused": dict(conf=dict(FUSED, **DROP_TAIL, remat=True),
+                        lr=LR_SPEC, step_kw={}, seed=7),
+    # the checkpointed attention tail
+    "attn_remat": dict(conf=dict(DROP_TAIL, attn_impl="remat"), lr=LR_SPEC,
+                       step_kw={}, seed=7, eval=True),
+    # the LN->BN swap (running statistics at their initial values)
+    "batchnorm": dict(conf=BN, lr=LR_SPEC, step_kw={}, loose=True,
+                      eval=True, buffers_checkpoint=True),
+    # the float student (`qkv`, `proj`, `fc1`, `fc2` Dense, GELU)
+    "float": dict(conf={}, policy=QuantPolicy(), start="float_weights",
+                  moments="float_", lr=LR_SPEC, step_kw={}, eval=True),
+    # 32-bit weights (every StatsQ site unquantized) and 32-bit inputs
+    # (every activation quantizer of the blocks absent)
+    "w32": dict(conf={}, policy=_qkr_policy(weight=BITS_32), lr=LR_SPEC,
+                step_kw={}),
+    "a32": dict(conf={}, policy=_qkr_policy(act=BITS_32), lr=LR_SPEC,
+                step_kw={}, loose=True),
+    # the softmax unquantized (--apply_q_attn_dropout 1)
+    "softmax_float": dict(conf={}, policy=_qkr_policy(q_attn_mode=1),
+                          lr=LR_SPEC, step_kw={}, loose=True),
+    "prelu": dict(conf={}, policy=_qkr_policy(act_layer="prelu"),
+                  lr=LR_SPEC, step_kw={}, loose=True, eval=True),
+    "rprelu": dict(conf={}, policy=_qkr_policy(act_layer="rprelu"),
+                   extra="rprelu", lr=LR_SPEC, step_kw={}),
+    # the checkpointed tail in the bf16 stream (a sharded QKR attention's
+    # fp32 lhs against the bf16 qkx, `score_product`)
+    "remat_bf16": dict(conf=dict(PALLAS, compute_dtype="bfloat16",
+                                 attn_impl="remat"),
+                       teacher_conf=dict(compute_dtype="bfloat16"),
+                       teacher_bf16=True, dtype="float32", lr=LR_SPEC,
+                       step_kw={}),
 }
-BF16_CASES = ("pallas_bf16", "fused_bf16", "options_bf16")
+BF16_CASES = ("pallas_bf16", "fused_bf16", "options_bf16", "remat_bf16")
 FP32_CASES = ("int8",)
 OPTION_CASES = ("telemetry", "options", "options_norm")
-FP64_CASES = ("composed", "fused", "pallas", "dropout", "cga") + OPTION_CASES
+# the configurations the earlier slices refused at model_parallel > 1
+NEW_CASES = ("remat", "remat_fused", "attn_remat", "batchnorm", "float",
+             "w32", "a32", "softmax_float", "prelu", "rprelu")
+FP64_CASES = (("composed", "fused", "pallas", "dropout", "cga")
+              + OPTION_CASES + NEW_CASES)
+# the cases whose models are cut otherwise than the W2A2 student
+OTHER_CUTS = ("float", "rprelu")
+# the cases whose products the plain versions form in fp32
+FP32_PRODUCT_CASES = ("fused", "pallas", "remat_fused", "remat_pallas")
 
 # the other students, each launched with the DeiT one: (model name, its
 # dimensions, family, QKR, the cases it steps)
@@ -211,10 +271,13 @@ CONFIGS = {
     # and a 4-head stage (cut)
     "swin_qkr": dict(name=tw.SWIN, dims=tw.SWIN_DIMS, family="swin",
                      qkr=True, cases=("composed", "pallas", "dropout", "cga",
-                                      "pallas_bf16", "int8", "options"),
+                                      "pallas_bf16", "int8", "options",
+                                      "remat", "remat_pallas", "attn_remat",
+                                      "remat_bf16", "batchnorm", "float",
+                                      "rprelu"),
                      faults={f: "composed" for f in tw.FAULTS}),
     "swin": dict(name=tw.SWIN, dims=tw.SWIN_DIMS, family="swin", qkr=False,
-                 cases=("composed", "dropout", "cga")),
+                 cases=("composed", "dropout", "cga", "prelu")),
     # DeiT-T's 3 heads: every attention whole, every MLP cut
     "deit_t": dict(name=tw.NAME, dims=DEIT_T, family="deit", qkr=True,
                    cases=("composed", "fused", "cga", "options"),
@@ -282,6 +345,22 @@ def _config_cases(key):
         kw.pop("loss_kind")
         opts = dict(opts, conf={}, teacher_conf={})
     cases["options"] = dict(opts, step_kw=kw)
+    if c["family"] == "swin":
+        base = _port_policy(key)
+        cases.update(
+            # the blocks of both stages replayed (K4's plain version: the
+            # row-parallel products and the gathered StatsQ scales
+            # reissued in the backward)
+            remat=dict(CASES["remat"], conf=dict(DROP, remat_stages=(0, 1))),
+            remat_pallas=dict(CASES["remat_fused"],
+                              conf=dict(PALLAS, **DROP_TAIL,
+                                        remat_stages=(0, 1))),
+            float=dict(CASES["float"], policy=QuantPolicy()),
+            prelu=dict(CASES["prelu"],
+                       policy=dataclasses.replace(base, act_layer="prelu")),
+            rprelu=dict(CASES["rprelu"],
+                        policy=dataclasses.replace(base,
+                                                   act_layer="rprelu")))
     return {k: cases[k] for k in c["cases"]}
 
 
@@ -306,9 +385,39 @@ def _weights(name, dims, pol, rng):
     return m, t
 
 
-def _data(m, t, rng) -> dict:
+def _float_student(name, dims, rng):
+    """A float student of the teacher's structure, seeded apart from it,
+    its biases drawn by `rng`."""
+    f = create_model(name, policy=QuantPolicy(), device="cpu",
+                     generator=torch.Generator().manual_seed(5),
+                     **dims).double()
+    with torch.no_grad():
+        for n, p in f.named_parameters():
+            if n.endswith("bias") or n.endswith("bias_table"):
+                p.copy_(torch.from_numpy(rng.normal(size=p.shape) * 0.1))
+    return f.state_dict()
+
+
+def _rprelu(m, rng) -> dict:
+    """An RPReLU's per-channel shifts and slopes for each quantized MLP of
+    `m` (drawn by `rng`)."""
+    out = {}
+    for n, p in m.named_parameters():
+        if n.endswith(".mlp.fc1.bias"):
+            hid = p.shape[0]
+            pre = n[:-len("fc1.bias")]
+            out[pre + "act.move1"] = torch.from_numpy(
+                rng.normal(size=hid) * 0.1)
+            out[pre + "act.alpha"] = torch.from_numpy(
+                rng.uniform(0.05, 0.5, size=hid))
+            out[pre + "act.move2"] = torch.from_numpy(
+                rng.normal(size=hid) * 0.1)
+    return out
+
+
+def _data(name, dims, m, t, rng) -> dict:
     shape = (B, 32, 32, 3)
-    return dict(
+    out = dict(
         weights=m.state_dict(), teacher=t.state_dict(),
         calib=rng.normal(size=shape),
         batch={"image": rng.normal(size=shape),
@@ -317,6 +426,16 @@ def _data(m, t, rng) -> dict:
             for n, p in m.named_parameters()},
         nu={n: torch.from_numpy(rng.random(size=p.shape) * 1e-6)
             for n, p in m.named_parameters()})
+    # the float student's start and moments, the RPReLUs' shifts and
+    # slopes (drawn after the rest: the other cases' data stay as they were)
+    fl = _float_student(name, dims, rng)
+    out.update(
+        float_weights=fl, rprelu=_rprelu(m, rng),
+        float_mu={n: torch.from_numpy(rng.normal(size=p.shape) * 1e-3)
+                  for n, p in fl.items()},
+        float_nu={n: torch.from_numpy(rng.random(size=p.shape) * 1e-6)
+                  for n, p in fl.items()})
+    return out
 
 
 def _config_setup(key, tmp) -> dict:
@@ -329,7 +448,7 @@ def _config_setup(key, tmp) -> dict:
                 cases=_config_cases(key), checkpoint_case="composed",
                 faults=c.get("faults", {}),
                 single_ckpt=os.path.join(tmp, key, "single"),
-                **_data(m, t, rng))
+                **_data(c["name"], c["dims"], m, t, rng))
 
 
 def _setup(tmp) -> dict:
@@ -340,7 +459,8 @@ def _setup(tmp) -> dict:
     pol = w2a2_qkr_policy(DEPTH)
     m, t = _weights(tw.NAME, tw.DIMS, pol, rng)
     setup = dict(
-        model_parallel=MP, dtype="float64", policy=pol, **_data(m, t, rng),
+        model_parallel=MP, dtype="float64", policy=pol,
+        **_data(tw.NAME, tw.DIMS, m, t, rng),
         start=START, cases=CASES, checkpoint_case="composed",
         single_ckpt=os.path.join(tmp, "single"),
         kernel=rng.normal(size=(48, 6)),
@@ -588,13 +708,28 @@ def _jax_run(single, name, conf):
     moments) and, for CGA, the masks of the start."""
     setup, case = single["setup"], CASES[name]
     cga = "cga" in case["step_kw"]
-    variables = _variables(single["start"]["calibrated"])
     dims = dict(embed_dim=32, num_heads=4, num_classes=10)
     kw = {k: v for k, v in case["step_kw"].items() if k != "cga"}
-    jm = jax_deit_model(tw.NAME, _jax_policy(cga), **dims, **conf)
+    mu, nu = _nest(setup["mu"]), _nest(setup["nu"])
+    if name == "float":
+        # the float student, JAX's float DeiT
+        params = dict(setup["float_weights"])
+        mu, nu = _nest(setup["float_mu"]), _nest(setup["float_nu"])
+        jm = jax_deit_model(tw.NAME, **dims, **conf)
+    else:
+        params = dict(single["start"]["calibrated"])
+        pol = _jax_policy(cga)
+        if name == "rprelu":
+            # the RPReLUs' shifts and slopes, their moments zero
+            params.update(setup["rprelu"])
+            mu, nu = (_nest(dict(m, **{k: torch.zeros_like(v) for k, v in
+                                       setup["rprelu"].items()}))
+                      for m in (setup["mu"], setup["nu"]))
+            pol = dataclasses.replace(pol, act_layer="rprelu")
+        jm = jax_deit_model(tw.NAME, pol, **dims, **conf)
+    variables = {k: v for k, v in _variables(params).items() if v}
     sched = (jschedule.constant_lr(tcga.LR) if cga else
              jschedule.cosine_with_warmup_cooldown(5e-3, **LR))
-    mu, nu = _nest(setup["mu"]), _nest(setup["nu"])
     with x64_jit():
         tx = jax_make_optimizer(sched, weight_decay=0.05)
         jst = _jax_state(tx, variables, mu, nu, np.float64)
@@ -637,7 +772,8 @@ def jax_refs(single):
                                               **{**kw, "interpret": True}))
         for name, conf in (("composed", {}), ("cga", {}),
                            ("pallas", dict(matmul_impl="pallas")),
-                           ("telemetry", GRAMS)):
+                           ("telemetry", GRAMS), ("float", {}),
+                           ("rprelu", {})):
             out[name] = _jax_run(single, name, conf)
     # JAX's fused kernels take fp32 only; its fused step is its composed
     # step's arithmetic (`test_torch_train_slice_fused`): the fused case is
@@ -739,25 +875,9 @@ def test_eval_logits(ranks, single, jax_refs):
 
 
 # ------------------------------------------------------------ the steps
-GRAM_LOSSES = ("kd_qk", "kd_qkv")
 # a step of two (the options cases): the second step starts from
 # parameters the first left FP32_SUMS apart, so the losses agree to this
 MULTI_STEP_LOSS = 1e-9
-
-
-def _refused(ranks, case, key=None):
-    """Whether `case` (of config `key`) is the Gram losses' refusal over a
-    data axis wider than 1 (ROADMAP item 7.2m): there every rank refused
-    it, naming the item; nowhere else."""
-    cases = CASES if key is None else _config_cases(key)
-    want = (cases[case]["step_kw"].get("loss_kind") in GRAM_LOSSES
-            and ranks[0]["mesh"][2] > 1)
-    for r in ranks:
-        got = r[case] if key is None else r["configs"][key][case]
-        assert ("refused" in got) == want, (case, key)
-        if want:
-            assert "Queue 1 item 7.2m" in got["refused"]
-    return want
 
 
 def _loss_limit(case, key=None):
@@ -771,7 +891,7 @@ def _limit(case, name):
         return FP32_SUMS
     if name.endswith(".s") or ".move" in name or "_move" in name:
         return FP32_SUMS
-    return FP32_SUMS if case in ("fused", "pallas") else SAME
+    return FP32_SUMS if case in FP32_PRODUCT_CASES else SAME
 
 
 @pytest.mark.parametrize("case", FP64_CASES)
@@ -780,18 +900,22 @@ def test_step_is_the_single_process_step(ranks, single, case):
     against the single process's on the global batch; the loss to 1e-12
     and the gradient norm (of the full gradients) to 1e-9, or with the
     fp32 products of fused and pallas 1e-6 (measured 2.8e-8: 90 % of it
-    is the head's weight-LSQ scale gradient, a sum that cancels)."""
+    is the head's weight-LSQ scale gradient, a sum that cancels); the
+    configurations of NEW_CASES, as the other students' steps
+    (`test_config_step_is_the_single_process_step`), to FP32_SUMS: the
+    norm sums the fp32-summed leaves' squares too (measured 1.25e-9, the
+    BN student at world 4)."""
     want = single["cases"][case]
-    fp32 = case in ("fused", "pallas")
-    if _refused(ranks, case):
-        return
+    fp32 = case in FP32_PRODUCT_CASES
+    norm_limit = (1e-6 if fp32 else FP32_SUMS if case in NEW_CASES
+                  else 1e-9)
     for r in ranks:
         got = r[case]
         assert abs(got["metrics"]["loss"] - want["metrics"]["loss"]) <= (
             _loss_limit(case) * abs(want["metrics"]["loss"]))
         assert abs(got["metrics"]["grad_norm"]
                    - want["metrics"]["grad_norm"]) <= (
-            (1e-6 if fp32 else 1e-9) * want["metrics"]["grad_norm"])
+            norm_limit * want["metrics"]["grad_norm"])
         for key in ("params", "mu", "nu"):
             assert set(got[key]) == set(want[key])
             for k, w in want[key].items():
@@ -815,18 +939,19 @@ def _jax_leaf_limit(case, k):
 
 
 @pytest.mark.parametrize("case", ["composed", "fused", "pallas", "cga",
-                                  "telemetry"])
+                                  "telemetry", "float", "rprelu"])
 def test_step_matches_jax(world2, world4, jax_refs, case):
     """The step at world 2 and 4 against JAX's single-device jitted step
     (x64): the loss (1e-9) and gradient norm (1e-6: the fp32-summed LSQ
     scale gradients), every updated parameter and every gradient leaf;
     `telemetry`'s loss holds the q, k and v Grams' direction matching
-    over the cut heads and the dampening term."""
+    over the cut heads (and at world 4 over the data axis) and the
+    dampening term; the float student (its `qkv`, `proj`, `fc1` and `fc2`
+    Dense cut) and the rprelu MLPs (their shifts and slopes cut with
+    fc1's columns) against JAX's float and rprelu steps."""
     ref = jax_refs[case]
     fp32 = case in ("fused", "pallas")
     for ranks in (world2["steps"], world4["steps"]):
-        if _refused(ranks, case):
-            continue
         got = ranks[0][case]
         assert abs(got["metrics"]["loss"] - ref["metrics"]["loss"]) <= (
             (1e-7 if fp32 else 1e-9) * abs(ref["metrics"]["loss"]))
@@ -864,8 +989,6 @@ def test_bf16_step(ranks, single, case):
     want = single["cases"][case]
     from ofq_tpu_torch.train import cosine_with_warmup_cooldown
     lr = cosine_with_warmup_cooldown(5e-3, **LR)(START)
-    if _refused(ranks, case):
-        return
     for r in ranks:
         got = r[case]
         for k, lim in (("loss", 0.02), ("grad_norm", 0.2)):
@@ -885,16 +1008,16 @@ def test_replicated_gradients_bit_equal_across_model_ranks(ranks, case):
     """Every gradient a rank holds whole (the parameters that stay whole)
     leaves the backward with the same bits on every rank of its model
     group; the gathered gradients and parameters are the same on every
-    rank."""
+    rank.  The W2A2 student's cuts are `block_cuts`'; each case's are its
+    layout's (the float student's `qkv`, an RPReLU's shifts and slopes)."""
     sliced = set(tensor.block_cuts("blocks_0", 32, 4, 18, 128, MP)) | set(
         tensor.block_cuts("blocks_1", 32, 4, 18, 128, MP))
-    if _refused(ranks, case):
-        return
     for r in ranks:
+        assert set(r[case]["cuts"]) <= sliced or case in OTHER_CUTS
         mates = [q for q in ranks if q["mesh"][0] == r["mesh"][0]]
         a = r[case]["own_grads"]
-        whole = [k for k in a if k not in sliced]
-        assert len(whole) > 30
+        whole = [k for k in a if k not in r[case]["cuts"]]
+        assert len(whole) > (15 if case == "float" else 30)
         for q in mates:
             for k in whole:
                 assert torch.equal(a[k], q[case]["own_grads"][k]), k
@@ -922,6 +1045,63 @@ def test_dropout_masks_are_the_global_draw_cut(ranks, single):
                 k = w.shape[axis] // P
                 w = w.narrow(axis % w.ndim, m * k, k)
             assert torch.equal(g, w)
+
+
+REMAT_STUDENTS = [None, "swin_qkr"]
+
+
+@pytest.mark.parametrize("key", REMAT_STUDENTS, ids=["deit", "swin_qkr"])
+def test_remat_step_is_the_step_without_it(ranks, key):
+    """Block remat at TP with dropout on (DeiT's `remat`, Swin's
+    `remat_stages`): the replay reissues the model group's collectives and
+    draws the forward's masks, cut, from the restored generator, so every
+    rank's loss, gradients and updated parameters are bit for bit those
+    of the same TP step without remat (`dropout`, seeded alike); the
+    forward draws that step's masks, and each block's replay draws its
+    block's again."""
+    for r in ranks:
+        r = r if key is None else r["configs"][key]
+        got, want = r["remat"], r["dropout"]
+        assert got["metrics"]["loss"] == want["metrics"]["loss"]
+        n = len(want["drawn"])
+        assert n < len(got["drawn"]) <= 2 * n
+        for (a, _), (b, _) in zip(got["drawn"], want["drawn"]):
+            assert torch.equal(a, b)
+        for a, _ in got["drawn"][n:]:
+            assert any(torch.equal(a, b) for b, _ in want["drawn"])
+        for what in ("own_grads", "params"):
+            assert set(got[what]) == set(want[what])
+            for k, v in want[what].items():
+                assert torch.equal(got[what][k], v), (what, k)
+
+
+@pytest.mark.parametrize("key", REMAT_STUDENTS, ids=["deit", "swin_qkr"])
+def test_batchnorm_statistics(ranks, single, key):
+    """The LN->BN swap at TP: the norms stay whole and reduce over the data
+    group only, so after the step every running statistic is bit-equal
+    across the model ranks, within SAME of one process's on the global
+    batch and moved from its start; the checkpoint a rank writes holds
+    them under one process's names (JAX's `batch_stats` paths), with the
+    rank's values."""
+    want = (single if key is None else single["configs"][key])["cases"][
+        "batchnorm"]["buffers"]
+    stats = [k for k in want if k.endswith((".mean", ".var"))]
+    assert len(stats) >= 8
+    rs = [r if key is None else r["configs"][key] for r in ranks]
+    for r in rs:
+        got = r["batchnorm"]
+        assert set(got["buffers"]) == set(want)
+        assert set(got["buffers_file"]) == set(want)
+        for k in stats:
+            assert _rel_l2(got["buffers"][k], want[k]) <= SAME, k
+            assert torch.equal(got["buffers_file"][k], got["buffers"][k]), k
+            mates = [q for q in rs if q["mesh"][0] == r["mesh"][0]]
+            for q in mates:
+                assert torch.equal(q["batchnorm"]["buffers"][k],
+                                   got["buffers"][k]), k
+        moved = [k for k in stats if k.endswith(".mean")
+                 and bool(got["buffers"][k].abs().max() > 0)]
+        assert len(moved) == len(stats) // 2
 
 
 def test_cga_masks_are_the_single_process_masks(ranks, single, jax_refs):
@@ -1151,8 +1331,6 @@ def test_config_step_is_the_single_process_step(ranks, single, key, case):
     gradient norm, which sums the fp32-summed leaves' squares too, to
     FP32_SUMS (measured 2.2e-9 at world 4, Swin with QKR, CGA)."""
     want = single["configs"][key]["cases"][case]
-    if _refused(ranks, case, key):
-        return
     for r in _config(ranks, key):
         got = r[case]
         assert abs(got["metrics"]["loss"] - want["metrics"]["loss"]) <= (
@@ -1242,12 +1420,11 @@ def test_config_replicated_gradients_bit_equal(ranks, single, key, case):
     the gathered gradients and parameters."""
     sliced = set(_config_layout(key, single).cuts)
     rs = _config(ranks, key)
-    if _refused(ranks, case, key):
-        return
     for r in rs:
+        assert set(r[case]["cuts"]) == sliced or case in OTHER_CUTS
         mates = [q for q in rs if q["mesh"][0] == r["mesh"][0]]
         a = r[case]["own_grads"]
-        whole = [k for k in a if k not in sliced]
+        whole = [k for k in a if k not in r[case]["cuts"]]
         assert len(whole) > 20
         for q in mates:
             for k in whole:
@@ -1633,8 +1810,6 @@ def test_option_leaves_are_the_single_process(ranks, single, student, case,
     loss of each step with the telemetry losses and the dampening term,
     the bf16 masters' dtype (their values: `test_bf16_step`)."""
     got, want = _options_of(ranks, single, student, case)
-    if _refused(ranks, case, None if student == "deit" else student):
-        return
     check = _OPTION_CHECKS.get(what, _check_clipped)
     for r in got:
         check(r, want, case)
@@ -1664,8 +1839,6 @@ def test_option_faults_are_caught(ranks, single):
                         got["own_grads"][k],
                         q["lsq_weight_grad_scale_local"]["own_grads"][k])
     ref = single["configs"]["deit_t"]["cases"]["options"]["metrics"]
-    if _refused(ranks, "options", "deit_t"):
-        return
     for r in _config(ranks, "deit_t"):
         loss = r["dampening_whole_per_rank"]["metrics"]["loss"]
         assert abs(loss - ref["loss"]) > 1e-6 * abs(ref["loss"])
@@ -1687,39 +1860,84 @@ def _swin(policy=None, **conf):
         SWIN_DEPTHS), device="cpu", **{**tw.SWIN_DIMS, **conf})
 
 
-# Swin, the students without QKR, the int8 core, full-LSQ weights and the
-# telemetry shard (CONFIGS, CASES); what each family does not shard yet
-# still raises with its label
+# a frozen artifact: the JAX package serves and freezes on one device
 REFUSED_MODELS = {
-    "swin": (lambda: _swin(QuantPolicy()), "7.2k"),
-    "remat": (lambda: _small(remat=True), "7.2h"),
-    "attn_remat": (lambda: _small(attn_impl="remat"), "7.2h"),
-    "batchnorm": (lambda: _small(norm_layer="batchnorm"), "7.2i"),
-    "frozen": (lambda: _small(dataclasses.replace(
-        w2a2_qkr_policy(DEPTH), weight_frozen=True)), "7.2j"),
-    "prelu": (lambda: _small(dataclasses.replace(
-        w2a2_qkr_policy(DEPTH), act_layer="prelu")), "7.2k"),
-    "float": (lambda: _small(QuantPolicy()), "7.2k"),
-    "swin_remat": (lambda: _swin(remat_stages=(0,)), "7.2h"),
-    "swin_attn_remat": (lambda: _swin(attn_impl="remat"), "7.2h"),
-    "swin_batchnorm": (lambda: _swin(norm_layer="batchnorm"), "7.2i"),
-    "swin_frozen": (lambda: _swin(dataclasses.replace(
-        w2a2_qkr_swin_policy(SWIN_DEPTHS), weight_frozen=True)), "7.2j"),
-    "swin_prelu": (lambda: _swin(dataclasses.replace(
-        w2a2_swin_policy(SWIN_DEPTHS, qk_reparam=False),
-        act_layer="prelu")), "7.2k"),
+    "frozen": lambda: _small(dataclasses.replace(
+        w2a2_qkr_policy(DEPTH), weight_frozen=True)),
+    "swin_frozen": lambda: _swin(dataclasses.replace(
+        w2a2_qkr_swin_policy(SWIN_DEPTHS), weight_frozen=True)),
 }
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED_MODELS))
 def test_unported_models_refuse(what):
-    make, item = REFUSED_MODELS[what]
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        parallel.shard_model(make(), _fake_mesh())
+    with pytest.raises(NotImplementedError, match="on one device"):
+        parallel.shard_model(REFUSED_MODELS[what](), _fake_mesh())
 
 
-# the properties `check_shardable` reads, the same on both families: each
-# configuration that turns one on, and the other family's counterpart
+# the configurations the earlier slices refused, each with the student
+# and case of the launches that run it: (constructor, config key or None
+# for the DeiT student, case)
+SHARDED_MODELS = {
+    "swin": (lambda: _swin(QuantPolicy()), "swin_qkr", "float"),
+    "remat": (lambda: _small(remat=True), None, "remat"),
+    "attn_remat": (lambda: _small(attn_impl="remat"), None, "attn_remat"),
+    "batchnorm": (lambda: _small(**BN), None, "batchnorm"),
+    "prelu": (lambda: _small(_qkr_policy(act_layer="prelu")), None,
+              "prelu"),
+    "float": (lambda: _small(QuantPolicy()), None, "float"),
+    "swin_remat": (lambda: _swin(remat_stages=(0,)), "swin_qkr", "remat"),
+    "swin_attn_remat": (lambda: _swin(attn_impl="remat"), "swin_qkr",
+                        "attn_remat"),
+    "swin_batchnorm": (lambda: _swin(**BN), "swin_qkr", "batchnorm"),
+    "swin_prelu": (lambda: _swin(dataclasses.replace(
+        w2a2_swin_policy(SWIN_DEPTHS, qk_reparam=False),
+        act_layer="prelu")), "swin", "prelu"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(SHARDED_MODELS))
+def test_configurations_shard(what, ranks, single):
+    """Each configuration the earlier slices refused shards at 2 model
+    ranks: its layout (every cut a parameter of the model, reassembled in
+    model order the full tensor, the rank's slice in its place; the cut
+    attentions and MLPs told their roles, a PReLU its mesh), the same
+    cuts as the launches' step of it, and the sharded eval forward on
+    each data index's rows against the unsharded model's (SAME), alike on
+    the model ranks."""
+    from ofq_tpu_torch.nn.linear import PReLU
+    make, key, case = SHARDED_MODELS[what]
+    m = make()
+    full = {n: p.detach().clone() for n, p in m.named_parameters()}
+    layout = parallel.shard_model(m, _fake_mesh())
+    params = dict(m.named_parameters())
+    assert layout.cuts and set(layout.cuts) <= set(full)
+    for n, c in layout.cuts.items():
+        assert params[n].shape == c.local_shape, n
+        assert torch.equal(params[n], c.local(full[n], 0)), n
+        back = torch.cat([c.local(full[n], i).reshape(c.local_view)
+                          for i in range(MP)], dim=c.axis)
+        assert torch.equal(back.reshape(c.shape), full[n]), n
+    for name, blk in tensor._blocks(m):
+        cut_attn = f"{name}.attn.proj.kernel" in layout.cuts
+        assert (blk.attn.tp is not None) == cut_attn, name
+        assert (blk.attn.proj.tp is not None) == cut_attn, name
+        assert blk.mlp.fc2.tp[0] == "row" and blk.mlp.tp is not None
+        if isinstance(blk.mlp.act, PReLU):
+            assert blk.mlp.act.tp is not None
+    rs = [r if key is None else r["configs"][key] for r in ranks]
+    want = (single if key is None else single["configs"][key])["cases"][
+        case]["logits"]
+    for r in rs:
+        assert r[case]["cuts"] == sorted(layout.cuts)
+        assert torch.equal(r[case]["logits"],
+                           rs[r["mesh"][0] * MP][case]["logits"])
+    got = torch.cat([r[case]["logits"] for r in rs[::MP]])
+    assert _rel_l2(got, want) <= SAME
+
+
+# the properties both families share: each configuration that turns one
+# on, and the other family's counterpart
 REFUSAL_PROPERTIES = {
     "deit": (_small, [dict(remat=True), dict(attn_impl="remat")],
              [dict(qqkkvv=True), dict(return_features=True)],
@@ -1732,17 +1950,24 @@ REFUSAL_PROPERTIES = {
 
 @pytest.mark.parametrize("family", sorted(REFUSAL_PROPERTIES))
 def test_refusals_read_properties_both_families_have(family):
-    """`cfg.remats`, `cfg.telemetry`, the model's `lsq_weights` and each
-    attention's `weight_bits`: off on the W2A2 student, on where a
-    configuration asks for it (Swin's linears are StatsQ ones whatever
+    """Remat (the model's checkpointed blocks, `remat_names`, or every
+    attention's `attn_impl`), `cfg.telemetry`, the model's `lsq_weights`
+    and each attention's `weight_bits`: off on the W2A2 student, on where
+    a configuration asks for it (Swin's linears are StatsQ ones whatever
     the policy's weight mode)."""
     from ofq_tpu_torch.nn.linear import LsqLinear
-    make, remats, telemetry, lsq_policy, lsq = REFUSAL_PROPERTIES[family]
+
+    def remats(m):
+        return bool(m.remat_names) or all(
+            blk.attn.attn_impl == "remat" for _, blk in tensor._blocks(m))
+
+    make, remat_confs, telemetry, lsq_policy, lsq = REFUSAL_PROPERTIES[
+        family]
     m = make()
-    assert not m.cfg.remats and not m.cfg.telemetry and not m.lsq_weights
+    assert not remats(m) and not m.cfg.telemetry and not m.lsq_weights
     assert {blk.attn.weight_bits for _, blk in tensor._blocks(m)} == {2}
-    for conf in remats:
-        assert make(**conf).cfg.remats, conf
+    for conf in remat_confs:
+        assert remats(make(**conf)), conf
     for conf in telemetry:
         assert make(**conf).cfg.telemetry, conf
     m = make(lsq_policy())
@@ -1752,12 +1977,12 @@ def test_refusals_read_properties_both_families_have(family):
 
 
 def test_sharded_serving_and_bf16_state_refuse():
-    """Serving a sharded model (7.2j) and sharding it twice raise; a bf16
-    state of a sharded model (7.2g, ported) holds its slices' masters in
-    bf16 and the layout."""
+    """Serving a sharded model (the JAX package serves on one device) and
+    sharding it twice raise; a bf16 state of a sharded model holds its
+    slices' masters in bf16 and the layout."""
     m = _small()
     layout = parallel.shard_model(m, _fake_mesh())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2j"):
+    with pytest.raises(NotImplementedError, match="on one device"):
         Predictor(m, batch_size=2, img_size=32, device="cpu")
     st = TrainState.create(m, make_optimizer(lambda c: 1e-3),
                            master_dtype="bfloat16")

@@ -78,9 +78,9 @@ def run_step(case: dict, batch: dict, mesh=None) -> dict:
     load_optax_adamw_state(state, {"count": case["start"],
                                    "mu": case["mu"], "nu": case["nu"]},
                            step=case["start"])
-    step = make_train_step(port, opt, teacher=teacher,
-                           loss_kind="kd_soft_hard", device="cpu",
-                           mesh=mesh, **case.get("step_kw", {}))
+    step = make_train_step(port, opt, teacher=teacher, device="cpu",
+                           mesh=mesh, **{"loss_kind": "kd_soft_hard",
+                                         **case.get("step_kw", {})})
     masks = []
     real = dropout_mod.bernoulli
 

@@ -11,7 +11,9 @@ rank's rows, then takes one step (or a case's `steps`) of each case of
 the setup from the calibrated start (the composed, fused, pallas and int8
 configurations on the kernels' plain versions, dropout, CGA, the step's
 options: the telemetry losses, the EMA, clipping, bf16 masters, the
-oscillation hook, per-layer gradient norms, the dampening loss), gathers
+oscillation hook, per-layer gradient norms, the dampening loss; block
+remat and the checkpointed tail, BatchNorm, the float student, 32-bit
+sites, an unquantized softmax, the prelu and rprelu MLPs), gathers
 what it computed, writes and restores checkpoints; then the same for each of the setup's
 `configs` (the Swin students with and without QKR, DeiT-T's 3 heads, the
 DeiT student without QKR: each a setup of its own, with its model's
@@ -194,6 +196,23 @@ def _model(setup, conf, policy=None, dtype=None):
     return m.to(DTYPES[dtype or setup["dtype"]])
 
 
+def _load(m, setup, case, calibrated) -> None:
+    """The case's start: the calibrated student, or the setup's tensors
+    named by `case["start"]` (a float student's); with `case["extra"]`,
+    the setup's tensors of that name over it (an RPReLU's shifts and
+    slopes).  A case whose model differs from the calibrated one (`loose`:
+    BatchNorm, an unquantized site, another activation) takes the
+    tensors it has and keeps its initial values for the others."""
+    sd = dict(setup[case["start"]] if "start" in case else calibrated)
+    sd.update(setup.get(case.get("extra"), {}))
+    if case.get("loose") or "start" in case or "extra" in case:
+        own = m.state_dict()
+        sd = {k: v for k, v in sd.items() if k in own}
+        m.load_state_dict(sd, strict=False)
+    else:
+        m.load_state_dict(sd)
+
+
 def _rows(batch: dict, mesh) -> dict:
     per, off = host_batch_slice(len(batch["label"]), mesh)
     return {k: torch.as_tensor(v)[off:off + per] for k, v in batch.items()}
@@ -234,7 +253,7 @@ def run_case(setup: dict, case: dict, calibrated: dict, mesh=None,
     `oscillation`) and the eval logits of its start (`eval`)."""
     dt = case.get("dtype", setup["dtype"])
     m = _model(setup, case["conf"], case.get("policy"), dt)
-    m.load_state_dict(calibrated)
+    _load(m, setup, case, calibrated)
     teacher = _model(setup, case.get("teacher_conf", {}), QuantPolicy(), dt)
     teacher.load_state_dict(setup["teacher"])
     if case.get("teacher_bf16"):
@@ -245,10 +264,16 @@ def run_case(setup: dict, case: dict, calibrated: dict, mesh=None,
     state = TrainState.create(m, opt, ema=case.get("ema", False),
                               master_dtype=case.get("master_dtype"))
     cast = DTYPES[dt]
+    # the setup's moments (`case["moments"]`: a prefix of their names) for
+    # the parameters they cover, the state's zeros for the others
+    pre = case.get("moments", "")
+    mu, nu = setup[pre + "mu"], setup[pre + "nu"]
     state.opt_state = dataclasses.replace(
         state.opt_state, count=setup["start"],
-        mu={k: v.to(cast) for k, v in setup["mu"].items()},
-        nu={k: v.to(cast) for k, v in setup["nu"].items()})
+        mu={k: mu[k].to(cast) if k in mu else v
+            for k, v in state.opt_state.mu.items()},
+        nu={k: nu[k].to(cast) if k in nu else v
+            for k, v in state.opt_state.nu.items()})
     state.step = setup["start"]
     osc = case["step_kw"].get("oscillation")
     if osc is not None:
@@ -312,7 +337,9 @@ def run_case(setup: dict, case: dict, calibrated: dict, mesh=None,
         osc=(None if osc_states is None else
              {n: st._asdict() for n, st in osc_states.items()}),
         metrics=history[-1], history=history, logits=logits, masks=masks,
-        drawn=drawn, state=state, model=m)
+        drawn=drawn, buffers=_clone(dict(m.named_buffers())),
+        cuts=[] if layout is None else sorted(layout.cuts),
+        state=state, model=m)
 
 
 def checkpoints(setup: dict, res: dict, out_dir: str, mesh) -> dict:
@@ -349,21 +376,21 @@ def run_config(setup: dict, out_dir: str, mesh) -> dict:
                      mesh.model_parallel))
     for name, case in setup["cases"].items():
         ckpt = name == setup["checkpoint_case"]
-        try:
-            res = run_case(setup, case, start["calibrated"], mesh,
-                           ckpt_dir=(os.path.join(out_dir, "ckpt_start")
-                                     if ckpt else None))
-        except NotImplementedError as e:
-            # the Gram losses over a data axis wider than 1 (7.2m)
-            out[name] = dict(refused=str(e))
-            continue
+        res = run_case(setup, case, start["calibrated"], mesh,
+                       ckpt_dir=(os.path.join(out_dir, "ckpt_start")
+                                 if ckpt else None))
         if ckpt:
             out["checkpoints"] = checkpoints(setup, res, out_dir, mesh)
+        if case.get("buffers_checkpoint"):
+            # the file of a sharded BatchNorm student after its step: the
+            # running statistics under one process's names
+            mgr = checkpoint.make_manager(os.path.join(out_dir, f"ck_{name}"))
+            checkpoint.save_epoch(mgr, 0, res["state"], {"top1": 0.0},
+                                  buffers=dict(res["model"].named_buffers()))
+            res["buffers_file"] = checkpoint.load(mgr, 0)["buffers"]
         del res["state"], res["model"]
         out[name] = res
     for fault, name in setup.get("faults", {}).items():
-        if "refused" in out[name]:
-            continue
         with planted(fault):
             res = run_case(setup, setup["cases"][name], start["calibrated"],
                            mesh)
